@@ -1,0 +1,84 @@
+"""Builds the package's CUDA sources into shared libraries.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into ``build/lib<name>_<digest>.so`` at the root
+of the checkout, at first use, and loaded with ``ctypes``.  The digest
+is of the source text, so an edited source never meets a stale
+library.  Sources that are asked for together are compiled together,
+one ``nvcc`` process each.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the CUDA "
+        "kernels of repro_torch cannot be built here")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+
+
+def build(names: Sequence[str]) -> Dict[str, Path]:
+    """Compile the named sources that have no library yet, all at once,
+    and return name -> library path.  Raises with the compiler's output
+    when a build fails."""
+    targets = {n: _target(n) for n in names}
+    missing = [n for n, t in targets.items() if not t.exists()]
+    if missing:
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for n in missing:
+            tmp = targets[n].with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{n}.cu")]
+            procs.append((n, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failures = []
+        for n, tmp, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, targets[n])   # atomic: never a half file
+        if failures:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built if need be."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        _LIBS[name] = lib
+    return lib

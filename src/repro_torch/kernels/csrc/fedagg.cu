@@ -1,0 +1,179 @@
+// Weighted federated aggregation for Hopper (sm_90a).
+//
+//   eff_c = w_c * alpha_c, rows with eff_c <= 0 (NaN included) dropped,
+//   eff  /= max(sum eff, 1e-30)            (all-zero weights -> zeros)
+//   out[p] = sum_c eff_c * u[c][p]         (f32 accumulate, row order)
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/fedagg.py: _kernel /
+// fedagg.  That kernel holds an (N, block) panel in on-chip memory and
+// makes one dot per grid step; here the grid runs over the parameter
+// axis only, each thread owns one vector (4, 2 or 1) of consecutive
+// columns, walks the N rows in order accumulating in registers, and
+// writes its columns once.
+//
+// Bound: bytes.  Every live row element is read once and every output
+// element written once, (N*P + P)*4 bytes against 2*N*P operations, far
+// under the card's operations-per-byte balance.  So the design is about
+// the stream: vector loads, neighbouring threads on neighbouring
+// addresses, ROWS_IN_FLIGHT independent loads started before their
+// multiply-adds, no shared-memory staging of the data and no second
+// pass.  Shared memory holds only the weights (8 bytes a row), so eight
+// blocks of 256 threads fit an SM.  A dropped row is skipped before its
+// load, so inf/nan in it cannot reach the sum and its bytes are not
+// moved.
+//
+// Order: the row loop is sequential and the normalisation is summed by
+// one thread in row order, so every block derives the same bits and a
+// result does not depend on the grid.  Rows of weight 0 add nothing to
+// either sum: appending them leaves the output bitwise unchanged.
+
+#include <cuda_runtime.h>
+
+#define FEDAGG_MAX_ROWS 4096     // 8 bytes of shared memory a row: 32 KB
+#define FEDAGG_THREADS 256
+#define ROWS_IN_FLIGHT 16
+#define BLOCKS_PER_SM 8          // 2048 threads of an SM in 256s
+
+extern "C" int fedagg_max_rows() { return FEDAGG_MAX_ROWS; }
+
+// The weights' scratch: n floats (normalised effective weights) then n
+// ints (indices of the live rows), sized by the launch.
+extern __shared__ float fedagg_smem[];
+
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float2 ldg(const float2* p) { return __ldg(p); }
+__device__ __forceinline__ float4 ldg(const float4* p) { return __ldg(p); }
+
+__device__ __forceinline__ void fma_into(float e, float x, float& acc) {
+    acc = fmaf(e, x, acc);
+}
+__device__ __forceinline__ void fma_into(float e, float2 x, float2& acc) {
+    acc.x = fmaf(e, x.x, acc.x);
+    acc.y = fmaf(e, x.y, acc.y);
+}
+__device__ __forceinline__ void fma_into(float e, float4 x, float4& acc) {
+    acc.x = fmaf(e, x.x, acc.x);
+    acc.y = fmaf(e, x.y, acc.y);
+    acc.z = fmaf(e, x.z, acc.z);
+    acc.w = fmaf(e, x.w, acc.w);
+}
+
+// Normalised effective weights into eff[], and the indices of the live
+// rows packed to the front of live[] so the row loop neither loads nor
+// branches on a dropped row.  Returns the live count.
+__device__ int effective_weights(const float* __restrict__ w,
+                                 const float* __restrict__ a, int n,
+                                 float* eff, int* live) {
+    __shared__ int n_live;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const float e = a ? w[i] * a[i] : w[i];   // no alphas: all ones
+        eff[i] = e > 0.0f ? e : 0.0f;             // NaN compares false
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        float total = 0.0f;
+        int k = 0;
+        for (int i = 0; i < n; ++i) {          // one fixed order
+            total += eff[i];
+            if (eff[i] > 0.0f) live[k++] = i;
+        }
+        total = fmaxf(total, 1e-30f);
+        for (int j = 0; j < k; ++j) eff[live[j]] /= total;
+        n_live = k;
+    }
+    __syncthreads();
+    return n_live;
+}
+
+// R rows of this thread's columns (one vector V of them): all R loads
+// are started before the first multiply-add, and the adds keep the row
+// order.
+template <typename V, int R>
+__device__ __forceinline__ void add_rows(const float* __restrict__ u,
+                                         long long p, long long col,
+                                         int n, int j, V& acc) {
+    const float* eff = fedagg_smem;
+    const int* live = reinterpret_cast<const int*>(fedagg_smem + n);
+    V x[R];
+    float e[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        const int row = live[j + r];
+        e[r] = eff[row];
+        x[r] = ldg(reinterpret_cast<const V*>(u + (long long)row * p + col));
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) fma_into(e[r], x[r], acc);
+}
+
+template <typename V>
+__global__ void __launch_bounds__(FEDAGG_THREADS)
+fedagg_kernel(const float* __restrict__ u, const float* __restrict__ w,
+              const float* __restrict__ a, float* __restrict__ out,
+              int n, long long p) {
+    constexpr int VEC = sizeof(V) / sizeof(float);
+    const int n_live = effective_weights(
+        w, a, n, fedagg_smem, reinterpret_cast<int*>(fedagg_smem + n));
+
+    // Grid-stride over the columns: a block derives the weights once
+    // and then streams many tiles.  p is a multiple of VEC (the
+    // caller's contract), so a thread that starts inside the row owns
+    // VEC whole columns: no ragged tail.
+    const long long step = (long long)gridDim.x * blockDim.x * VEC;
+    for (long long col =
+             ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+         col < p; col += step) {
+        V acc = V();
+        int j = 0;
+        for (; j + ROWS_IN_FLIGHT <= n_live; j += ROWS_IN_FLIGHT)
+            add_rows<V, ROWS_IN_FLIGHT>(u, p, col, n, j, acc);
+        for (; j + 4 <= n_live; j += 4)
+            add_rows<V, 4>(u, p, col, n, j, acc);
+        for (; j < n_live; ++j)
+            add_rows<V, 1>(u, p, col, n, j, acc);
+        *reinterpret_cast<V*>(out + col) = acc;
+    }
+}
+
+template <typename V>
+static int launch(const float* u, const float* w, const float* a, float* out,
+                  int n, long long p, cudaStream_t stream) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err != cudaSuccess) return (int)err;
+    const long long per_block =
+        (long long)FEDAGG_THREADS * (sizeof(V) / sizeof(float));
+    long long blocks = (p + per_block - 1) / per_block;
+    const long long resident = (long long)sms * BLOCKS_PER_SM;
+    if (blocks > resident) blocks = resident;
+    const size_t smem = (size_t)n * (sizeof(float) + sizeof(int));
+    fedagg_kernel<V><<<(unsigned)blocks, FEDAGG_THREADS, smem, stream>>>(
+        u, w, a, out, n, p);
+    return (int)cudaGetLastError();
+}
+
+// updates (n, p) contiguous f32, weights (n,), alphas (n,) or null (all
+// ones), out (p,), all on the current device.  `vec` (4, 2 or 1 floats)
+// must divide p, and every row start u + r*p and out must be aligned to
+// it; the caller derives it from the pointers and p.  Returns
+// cudaGetLastError() after the launch; does not synchronise.
+extern "C" int fedagg_f32(const void* u, const void* w, const void* a,
+                          void* out, int n, long long p, int vec,
+                          void* stream) {
+    if (n < 1 || n > FEDAGG_MAX_ROWS || p < 1 || vec < 1 || p % vec != 0)
+        return (int)cudaErrorInvalidValue;
+    const float* uf = static_cast<const float*>(u);
+    const float* wf = static_cast<const float*>(w);
+    const float* af = static_cast<const float*>(a);
+    float* of = static_cast<float*>(out);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (vec) {
+        case 4: return launch<float4>(uf, wf, af, of, n, p, s);
+        case 2: return launch<float2>(uf, wf, af, of, n, p, s);
+        case 1: return launch<float>(uf, wf, af, of, n, p, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}

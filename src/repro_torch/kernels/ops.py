@@ -1,0 +1,112 @@
+"""Public wrappers around the kernels, and the flat views they work on.
+
+``fedagg_pytree`` is the tree-native server aggregation hot path: the
+stacked client-update tree is flattened ONCE into a single (N, P) f32
+buffer (unflatten spec cached per tree structure), reduced by the fused
+fedagg kernel in one pass, and split back — instead of one launch per
+leaf.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.fedagg import fedagg
+from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+
+
+def fedagg_op(updates, weights, *, alphas=None):
+    return fedagg(updates, weights, alphas=alphas)
+
+
+# ---------------------------------------------------------------------------
+# Tree-native aggregation: flatten once, one kernel pass, cached spec
+# ---------------------------------------------------------------------------
+
+# treedef + leaf (shape, dtype) signature -> list of (offset, size, shape,
+# dtype) describing how to slice the flat (P,) result back into leaves.
+_UNFLATTEN_SPECS: Dict[tuple, List[Tuple[int, int, tuple, object]]] = {}
+
+
+def _unflatten_spec(treedef, leaves):
+    key = (treedef, tuple((tuple(l.shape), str(l.dtype)) for l in leaves))
+    spec = _UNFLATTEN_SPECS.get(key)
+    if spec is None:
+        spec, off = [], 0
+        for l in leaves:
+            size = int(np.prod(l.shape[1:], dtype=np.int64)) if l.ndim > 1 \
+                else 1
+            spec.append((off, size, tuple(l.shape[1:]), l.dtype))
+            off += size
+        _UNFLATTEN_SPECS[key] = spec
+    return spec
+
+
+def flatten_updates(stacked):
+    """Stacked tree (leaves (N, ...)) -> ((N, P) f32 buffer, treedef,
+    unflatten spec).  The spec is cached per (structure, shapes, dtypes)
+    so repeated rounds pay only for the concat itself."""
+    leaves, treedef = tree_flatten(stacked)
+    if not leaves:
+        raise ValueError("empty pytree: nothing to aggregate")
+    spec = _unflatten_spec(treedef, leaves)
+    n = leaves[0].shape[0]
+    buf = torch.cat([l.reshape(n, -1).float() for l in leaves], dim=1)
+    return buf, treedef, spec
+
+
+def unflatten_result(flat, treedef, spec):
+    """(P,) flat aggregate -> tree with per-leaf shapes/dtypes restored."""
+    outs = [flat[off:off + size].reshape(shape).to(dtype)
+            for off, size, shape, dtype in spec]
+    return tree_unflatten(treedef, outs)
+
+
+# Unstacked variant: a single model tree <-> one flat (P,) f32 row.
+# Spec format shared with the stacked path: (offset, size, full leaf
+# shape, dtype).
+_TREE_SPECS: Dict[tuple, tuple] = {}
+
+
+def tree_spec(tree):
+    """-> (treedef, [(offset, size, shape, dtype)], total P) for an
+    UNSTACKED tree (no leading client axis).  Cached per structure."""
+    leaves, treedef = tree_flatten(tree)
+    if not leaves:
+        raise ValueError("empty pytree: nothing to flatten")
+    key = (treedef, tuple((tuple(l.shape), str(l.dtype)) for l in leaves))
+    cached = _TREE_SPECS.get(key)
+    if cached is None:
+        spec, off = [], 0
+        for l in leaves:
+            size = int(np.prod(tuple(l.shape), dtype=np.int64))
+            spec.append((off, size, tuple(l.shape), l.dtype))
+            off += size
+        cached = (spec, off)
+        _TREE_SPECS[key] = cached
+    spec, total = cached
+    return treedef, spec, total
+
+
+def fedagg_pytree(stacked_updates, weights, *, alphas=None):
+    """Weighted-average a tree whose leaves are stacked (N, ...).
+
+    Zero-weight rows (masked stragglers) contribute exactly nothing —
+    the mask is fused into the kernel, so callers can keep dropped
+    clients in the stacked buffer instead of re-packing it.  ``alphas``
+    adds per-row staleness coefficients (effective weight
+    ``w_c * alpha_c``); a zero-alpha row is masked like a zero weight.
+    """
+    buf, treedef, spec = flatten_updates(stacked_updates)
+    flat = fedagg(buf, weights, alphas=alphas)
+    return unflatten_result(flat, treedef, spec)
+
+
+def flatten_params_row(params):
+    """Model tree -> (P,) f32 row in ``flatten_updates`` leaf order (no
+    leading client axis) — the global-row companion of the stacked
+    (N, P) buffer."""
+    return torch.cat([l.reshape(-1).float() for l in tree_leaves(params)])

@@ -1,0 +1,131 @@
+"""CNNTrainer of the port against the JAX package's: one client's
+local training from bridged parameters on the same batch streams, and
+the port's batched programs against its own looped path."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.config import get_arch
+from repro.config.base import FLConfig
+from repro.fl.client import CNNTrainer as RefTrainer
+from repro_torch import bridge
+from repro_torch.config.base import FLConfig as PtFLConfig
+from repro_torch.fl.client import CNNTrainer as PtTrainer
+from repro_torch.tree import tree_leaves, tree_map
+
+torch.set_num_threads(1)
+
+
+def _close(got_tree, want_tree, rtol, atol):
+    got = [l.detach().numpy() for l in tree_leaves(got_tree)]
+    want = [np.asarray(l) for l in jax.tree_util.tree_leaves(want_tree)]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol)
+
+
+def _trainers(arch, n_clients=4, seed=0, optimizer="adam"):
+    kw = dict(n_clients=n_clients, n_tiers=2, tau=2, rounds=1,
+              primary_frac=0.7, seed=seed, lr=0.003, optimizer=optimizer)
+    ds = {"cnn-mnist": "mnist", "resnet8-cifar10": "cifar10"}[arch]
+    from repro_torch.config import get_arch as pt_get_arch
+    ref_cfg, pt_cfg = get_arch(arch), pt_get_arch(arch)
+    if not ref_cfg.resnet:
+        # ResNet8 stays at its own (small) widths: ``reduced()`` levels
+        # its stages to one width, and a strided stage then has no
+        # projection for its shortcut
+        ref_cfg, pt_cfg = ref_cfg.reduced(), pt_cfg.reduced()
+    ref = RefTrainer(ref_cfg, FLConfig(**kw), ds, scale=0.01)
+    port = PtTrainer(pt_cfg, PtFLConfig(**kw), ds, scale=0.01, device="cpu")
+    return ref, port
+
+
+@pytest.mark.parametrize("arch,optimizer", [("cnn-mnist", "adam"),
+                                            ("resnet8-cifar10", "momentum")])
+def test_local_train_matches_reference(arch, optimizer):
+    ref, port = _trainers(arch, optimizer=optimizer)
+    p_ref = ref.init_params(0)
+    p_pt = bridge.from_reference(jax.device_get(p_ref))
+    for a, b in zip(ref.clients, port.clients):
+        assert a.x.tobytes() == b.x.tobytes()
+    out_ref, n_ref = ref.local_train(p_ref, 1, rnd_seed=3)
+    out_pt, n_pt = port.local_train(p_pt, 1, rnd_seed=3)
+    assert n_ref == n_pt
+    # a dozen optimizer steps, each carrying the gradients' rounding
+    # noise: the absolute bound is loosened by the step count
+    _close(out_pt, out_ref, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(port.evaluate(out_pt), ref.evaluate(out_ref),
+                               atol=0.02)
+
+
+def test_resnet8_adam_local_train_stays_within_its_step_bound():
+    """ResNet8's norm layers leave some conv-weight gradients near 1e-8,
+    where the two frameworks agree only to rounding noise (1e-8
+    absolute), and Adam's normalized step turns that noise into
+    differences of up to one ``lr`` per step.  So under Adam the two
+    trajectories are held to that bound and to their accuracy; the
+    tight comparison of ResNet8 training runs under momentum above."""
+    ref, port = _trainers("resnet8-cifar10")
+    p_ref = ref.init_params(0)
+    p_pt = bridge.from_reference(jax.device_get(p_ref))
+    out_ref, _ = ref.local_train(p_ref, 1, rnd_seed=3)
+    out_pt, _ = port.local_train(p_pt, 1, rnd_seed=3)
+    steps = len(port._client_epoch_batches(1, 3)[0])
+    diffs = [np.abs(g.numpy() - np.asarray(w)) for g, w in
+             zip(tree_leaves(out_pt), jax.tree_util.tree_leaves(out_ref))]
+    assert max(float(d.max()) for d in diffs) <= steps * port.fl.lr
+    assert float(np.mean(np.concatenate([d.ravel() for d in diffs]))) < 2e-3
+    np.testing.assert_allclose(port.evaluate(out_pt), ref.evaluate(out_ref),
+                               atol=0.05)
+
+
+@pytest.mark.parametrize("arch,optimizer", [("cnn-mnist", "adam"),
+                                            ("resnet8-cifar10", "momentum")])
+def test_local_train_batch_equals_looped_in_port(arch, optimizer):
+    from repro_torch.config import get_arch as pt_get_arch
+    cfg = pt_get_arch(arch)
+    port = PtTrainer(cfg if cfg.resnet else cfg.reduced(),
+                     PtFLConfig(n_clients=4, n_tiers=2, tau=2, rounds=1,
+                                seed=0, lr=0.003, optimizer=optimizer),
+                     "cifar10" if cfg.resnet else "mnist", scale=0.01,
+                     device="cpu")
+    params = port.init_params(0)
+    ids = [0, 2, 3, 3]
+    stacked, sizes = port.local_train_batch(params, ids, rnd_seed=2)
+    np.testing.assert_array_equal(
+        sizes, np.asarray([len(port.clients[c]) for c in ids], np.float32))
+    for pos, c in enumerate(ids):
+        one, _ = port.local_train(params, c, rnd_seed=2)
+        for a, b in zip(tree_leaves(stacked), tree_leaves(one)):
+            np.testing.assert_allclose(a[pos].numpy(), b.numpy(),
+                                       rtol=1e-4, atol=1e-4)
+    # duplicate ids share one stream and give identical rows
+    for leaf in tree_leaves(stacked):
+        assert torch.equal(leaf[2], leaf[3])
+
+
+def test_local_train_cohort_equals_per_client_starts():
+    _, port = _trainers("cnn-mnist")
+    starts = [port.init_params(s) for s in (0, 1)]
+    stacked_starts = tree_map(lambda *xs: torch.stack(xs), *starts)
+    stacked, _ = port.local_train_cohort(stacked_starts, [1, 2], [4, 5])
+    for pos, (c, s) in enumerate([(1, 4), (2, 5)]):
+        one, _ = port.local_train(starts[pos], c, rnd_seed=s)
+        for a, b in zip(tree_leaves(stacked), tree_leaves(one)):
+            np.testing.assert_allclose(a[pos].numpy(), b.numpy(),
+                                       rtol=1e-4, atol=1e-4)
+
+
+def test_entry_points_raise_without_a_cuda_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.config import get_arch as pt_get_arch
+    from repro_torch.fl.client import build_fl_clients
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PtTrainer(pt_get_arch("cnn-mnist").reduced(), PtFLConfig(n_clients=2),
+                  "mnist", scale=0.01)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_fl_clients("cnn-mnist", PtFLConfig(n_clients=2))
