@@ -16,9 +16,14 @@
 * ``weighted_average`` — list-of-trees convenience wrapper kept for the
   looped reference implementations and external callers; it stacks then
   delegates.
+* ``staleness_weighted_merge`` — the async runtime's windowed merge:
+  the batched equivalent of sequentially applying ``staleness_merge``
+  row by row, computed as ONE stacked reduction with the global model
+  as an IMPLICIT row 0 (its telescoped coefficient multiplies the
+  global leaves directly — no (K+1, ...) copy).
 
-The staleness-merge functions of the reference belong to the async
-window path and come with it.
+``staleness_merge`` is FedAsync's two-model blend (the one-client
+degenerate case of ``staleness_weighted_merge``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.kernels.fedagg import fold_coefficients, fold_rows
 from repro_torch.tree import tree_leaves, tree_map, tree_stack
 
 
@@ -98,3 +104,74 @@ def weighted_average(param_list: Sequence, sizes: Sequence[float],
         raise ValueError("no client updates to aggregate")
     return weighted_average_stacked(tree_stack(list(param_list)), sizes,
                                     use_kernel=use_kernel)
+
+
+def staleness_merge(global_params, client_params, alpha_t: float):
+    """FedAsync: w <- (1-a) w + a w_c."""
+    return tree_map(
+        lambda g, c: ((1 - alpha_t) * g.float()
+                      + alpha_t * c.float()).to(g.dtype),
+        global_params, client_params)
+
+
+def staleness_merge_coefficients(alphas) -> np.ndarray:
+    """Row coefficients of the fused window merge.
+
+    Sequentially applying ``staleness_merge`` with alphas a_1..a_K
+    (row order = merge order) telescopes to the convex combination
+
+        w <- prod_i (1-a_i) * w  +  sum_i a_i * prod_{j>i} (1-a_j) * w_i
+
+    Returns the (K+1,) coefficient vector [global, row_1..row_K]; the
+    entries sum to exactly 1 (up to fp), so the normalized stacked
+    reduction reproduces the sequential merge in one pass.
+    """
+    a = np.asarray(alphas, np.float64).reshape(-1)
+    one_minus = 1.0 - a
+    # suffix[i] = prod_{j>i} (1-a_j); suffix[K-1] = 1
+    suffix = np.ones_like(a)
+    if a.size > 1:
+        suffix[:-1] = np.cumprod(one_minus[::-1])[::-1][1:]
+    coef = a * suffix
+    g = float(np.prod(one_minus)) if a.size else 1.0
+    return np.concatenate([[g], coef]).astype(np.float32)
+
+
+def _merge_folded(global_params, stacked, coef):
+    """Folded window merge: coef (K+1,) row coefficients with the global
+    model as the IMPLICIT row 0, leaf by leaf.  Zero-coefficient rows
+    are masked to exactly zero BEFORE the multiply, so nonfinite
+    garbage in masked rows (and the store's padded rows) contributes
+    nothing.  Rows are added one at a time in row order, never by
+    ``torch.sum`` over the row axis, whose blocking depends on the row
+    count: appended zero-coefficient rows then leave every bit as it
+    was, which is what makes the store's padded window equal the dict
+    path's unpadded one."""
+    c = fold_coefficients(coef, tree_leaves(stacked)[0].device)
+    return tree_map(lambda g, leaf: fold_rows(leaf, g, c).to(g.dtype),
+                    global_params, stacked)
+
+
+def staleness_weighted_merge(global_params, stacked, alphas, *,
+                             use_kernel: bool = False):
+    """Merge a whole aggregation window into the global model at once.
+
+    ``stacked`` holds the window's client models with a leading row axis
+    (K, ...); ``alphas`` are the per-row staleness weights
+    a_i = alpha * (s_i + 1)^-a in merge order.  The result is the same
+    convex combination a sequential ``staleness_merge`` fold would
+    produce (up to float reassociation), computed as ONE stacked
+    reduction with the global model as an IMPLICIT row 0.  Zero-alpha
+    rows (masked stragglers) contribute exactly nothing.
+
+    ``use_kernel=True`` routes through the folded fedagg kernel
+    (``fedagg_fold_pytree``): the same formulation on the flattened
+    (K, P) buffer.  The store-backed window step dispatches the SAME
+    function on the same flattened buffer, so histories are
+    bit-identical between the dict and store snapshot paths.
+    """
+    coef = staleness_merge_coefficients(alphas)
+    if use_kernel:
+        from repro_torch.kernels import fedagg_fold_pytree
+        return fedagg_fold_pytree(global_params, stacked, coef)
+    return _merge_folded(global_params, stacked, coef)

@@ -8,24 +8,29 @@
 * FedProx [Li'20]: FedAvg + proximal blend toward the global model
   (extra baseline beyond the paper).
 
+* FedAsync [Xie'19]: staleness-weighted one-at-a-time merges; FedBuff
+  [Nguyen'22]: K-completion aggregation goal; semi-async FedDCT: tier
+  timeouts as aggregation windows.  All three run on the event-driven
+  runtime (``repro_torch.runtime``).
+
 All methods share the trainer + WirelessNetwork realization with FedDCT
 and run their per-round cohort through the batched execution engine
 (core/engine.py) — one batched device program per round instead of a
 per-client Python loop (pass ``engine="looped"`` for the reference
 path).  Sync rounds keep the all-masked guard on device
-(``engine.train_round``).  The asynchronous methods of the reference
-(FedAsync, FedBuff, semi-async FedDCT) run on its event-driven runtime
-and are ported in a later slice; their names raise until then.
+(``engine.train_round``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import heapq
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from repro_torch import obs
 from repro_torch.config.base import FLConfig
+from repro_torch.core.aggregation import staleness_merge
 from repro_torch.core.engine import make_engine, resolve_kernel_agg
 from repro_torch.core.tiering import evaluate_client, tiering
 from repro_torch.fl.metrics import RunHistory
@@ -159,16 +164,124 @@ def run_tifl(trainer, network, fl: FLConfig, *,
     return hist
 
 
-_LATER_SLICE = ("fedasync", "fedbuff", "feddct_async")
+def run_fedasync_sequential(trainer, network, fl: FLConfig, *,
+                            engine: str = "batched", verbose: bool = False,
+                            eval_every: int = 5) -> RunHistory:
+    """The sequential FedAsync loop: one merge per event.
+
+    Kept as the reference implementation the event-driven runtime is
+    equivalence-tested against (``run_fedasync(window=0)`` must produce
+    an identical ``RunHistory``).  New callers should use
+    ``run_fedasync``.
+    """
+    hist = RunHistory(method="fedasync", arch=trainer.cfg.arch_id,
+                      meta={"mu": fl.mu, "primary_frac": fl.primary_frac,
+                            "alpha": fl.async_alpha, "a": fl.async_a})
+    eng = make_engine(trainer, engine=engine)
+    params = trainer.init_params(fl.seed)
+    clock = 0.0
+    version = 0
+    # true async: each client trains from the global model snapshot taken
+    # when it STARTED (not finished) — that is what staleness weights fix.
+    snapshot: Dict[int, object] = {c: params for c in range(fl.n_clients)}
+    # event queue: (finish_time, client, model_version_at_start, round_idx)
+    heap: List = []
+    for t, c in zip(network.delays(np.arange(fl.n_clients), 0),
+                    range(fl.n_clients)):
+        heapq.heappush(heap, (float(t), c, 0, 0))
+    # budget: same number of aggregations as sync methods have rounds*tau
+    max_updates = fl.rounds * fl.tau
+    upd = 0
+    for upd in range(1, max_updates + 1):
+        finish, c, v0, ridx = heapq.heappop(heap)
+        clock = finish
+        # events are inherently sequential (each merge precedes the next
+        # event), so the engine runs a cohort of one
+        stacked, _ = eng.train_clients(snapshot[c], [c], ridx * 977 + c)
+        new_p = tree_map(lambda l: l[0], stacked)
+        staleness = version - v0
+        if fl.async_staleness == "poly":
+            alpha_t = fl.async_alpha * (staleness + 1.0) ** (-fl.async_a)
+        else:
+            alpha_t = fl.async_alpha
+        params = staleness_merge(params, new_p, alpha_t)
+        version += 1
+        snapshot[c] = params
+        heapq.heappush(heap, (clock + network.delay(c, ridx + 1), c,
+                              version, ridx + 1))
+        if upd % eval_every == 0:
+            acc = trainer.evaluate(params)
+            hist.record(time=clock, rnd=upd, acc=acc, n_selected=1)
+            if verbose:
+                print(f"[fedasync] u={upd:5d} t={clock:9.1f}s acc={acc:.4f}")
+            if fl.target_accuracy and acc >= fl.target_accuracy:
+                break
+    # terminal eval: the budget can run out between eval points — record
+    # the true final state so RunHistory ends where the model ends.
+    if not hist.rounds or hist.rounds[-1] != upd:
+        hist.record(time=clock, rnd=upd, acc=trainer.evaluate(params),
+                    n_selected=1)
+    return hist
+
+
+def run_fedasync(trainer, network, fl: FLConfig, *, engine: str = "batched",
+                 use_kernel_agg: Optional[bool] = None,
+                 verbose: bool = False, eval_every: int = 5,
+                 window: int = 0, window_secs: float = 0.0, use_store=None,
+                 store_capacity=None, store_cold_dir=None,
+                 quant_bits: int = 32) -> RunHistory:
+    """FedAsync on the event-driven runtime.
+
+    ``window=0`` (default) reproduces the sequential one-merge-per-event
+    loop history-identically; ``window=K`` / ``window_secs=T`` batch
+    concurrently-finishing completions into one cohort merged with
+    per-client staleness weights (FedBuff / time-triggered semantics).
+    Windowed runs keep snapshots in the device-resident
+    ``ClientStateStore`` by default; ``use_store`` is tri-state (None =
+    auto: store exactly when windows batch, False = dict-of-trees
+    reference path — histories bit-identical either way).
+    """
+    from repro_torch.runtime.async_loop import AsyncRunner
+    return AsyncRunner(trainer, network, fl, method="fedasync",
+                       engine=engine, use_kernel_agg=use_kernel_agg,
+                       window=window, window_secs=window_secs,
+                       eval_every=eval_every, verbose=verbose,
+                       use_store=use_store, store_capacity=store_capacity,
+                       store_cold_dir=store_cold_dir,
+                       quant_bits=quant_bits).run()
+
+
+def run_fedbuff(trainer, network, fl: FLConfig, *, engine: str = "batched",
+                use_kernel_agg: Optional[bool] = None, verbose: bool = False,
+                eval_every: int = 5, window: int = 0,
+                window_secs: float = 0.0, use_store=None,
+                store_capacity=None, store_cold_dir=None,
+                quant_bits: int = 32) -> RunHistory:
+    """FedBuff [Nguyen'22]: async with a K-completion aggregation goal
+    (default K = fl.tau, the sync methods' per-round cohort size)."""
+    from repro_torch.runtime.async_loop import AsyncRunner
+    return AsyncRunner(trainer, network, fl, method="fedbuff",
+                       engine=engine, use_kernel_agg=use_kernel_agg,
+                       window=window or fl.tau, window_secs=window_secs,
+                       eval_every=eval_every, verbose=verbose,
+                       use_store=use_store, store_capacity=store_capacity,
+                       store_cold_dir=store_cold_dir,
+                       quant_bits=quant_bits).run()
+
+
+def run_feddct_async(trainer, network, fl: FLConfig, **kw) -> RunHistory:
+    """Semi-async FedDCT (tier timeouts as aggregation windows); see
+    repro_torch.runtime.async_loop.run_feddct_async."""
+    from repro_torch.runtime.async_loop import run_feddct_async as _run
+    return _run(trainer, network, fl, **kw)
 
 
 def run_method(method: str, trainer, network, fl: FLConfig, **kw
                ) -> RunHistory:
     from repro_torch.core.scheduler import run_feddct
-    if method in _LATER_SLICE:
-        raise NotImplementedError(f"{method}: ported in a later slice")
     fns = {"feddct": run_feddct, "fedavg": run_fedavg, "tifl": run_tifl,
-           "fedprox": run_fedprox}
+           "fedasync": run_fedasync, "fedprox": run_fedprox,
+           "fedbuff": run_fedbuff, "feddct_async": run_feddct_async}
     return fns[method](trainer, network, fl, **kw)
 
 

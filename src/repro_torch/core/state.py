@@ -1,0 +1,303 @@
+"""Device-resident flat client-state store — where client models LIVE.
+
+``ClientStateStore`` holds every client's model snapshot as one row of
+a single device-resident ``(N, Pf)`` f32 buffer — plus, for models that
+carry non-float state (step counters, masks), a sidecar ``(N, Pi)``
+int32 buffer — with the per-leaf segment/offset/shape/dtype layout
+derived once at construction.  It lives on the device of its template.
+
+* ``gather(ids)`` returns the stacked start-params tree for a cohort:
+  one row gather (a copy, never a view of the buffer) and per-leaf
+  slice/reshape/cast — no per-leaf host stacking, no dict lookups.
+* ``scatter(ids, flat_global)`` writes one global row into the merged
+  clients' rows IN PLACE (the reference donates its buffers to a jitted
+  ``.at[ids].set``; here the store owns its buffers and writes into
+  them), so a window costs no ``N*P`` copy.
+* ``merge_scatter(ids, stacked_updates, coef, params)`` is the tail of
+  the async window step: the staleness merge (global model as the
+  implicit row 0, zero-coefficient rows exact no-ops — which also makes
+  padded rows free), then flatten + scatter of the new global row.  The
+  merge is the very function the dict-of-trees path calls
+  (``_merge_folded``, or ``fedagg_fold_pytree`` with ``use_kernel``),
+  so the two snapshot paths give bit-identical histories.
+
+Buffer contract: the store owns its buffers and writes into them.
+Callers must NOT hold views of ``store.buffer``/``store.int_buffer``
+across ``scatter``/``merge_scatter`` — they would change under them.
+``gather``/``gather_one`` return fresh tensors and are always safe.
+
+Dtype note (segment layout): f32/bf16/f16 leaves live in the f32 row
+segment (every bf16/f16 value is exactly representable in f32 — exact
+round-trip).  bool and integer leaves of <= 32 bits live in the int32
+sidecar: bool/int8/int16/int32/uint8/uint16 values embed exactly in
+int32 (plain ``to`` both ways); uint32 round-trips by a bit-preserving
+``view``.  Leaves the store cannot carry exactly — 64-bit ints, f64,
+complex — are rejected at construction with ``TypeError``.
+
+The reference's int8 rows (``quant_bits=8``), tiered residency and
+client-mesh sharding come with later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch.core.aggregation import _merge_folded
+from repro_torch.kernels.ops import fedagg_fold_pytree, tree_spec
+from repro_torch.tree import tree_leaves, tree_unflatten
+
+_FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_INT_DTYPES = (torch.bool, torch.int8, torch.int16, torch.int32,
+               torch.uint8, torch.uint16)
+
+
+def _leaf_kind(dtype) -> str:
+    """Segment + conversion rule of one leaf dtype: "f" (f32 segment),
+    "i" (int32 sidecar, value-exact cast), "u32" (int32 sidecar,
+    bit view).  Raises TypeError for dtypes with no exact carrier."""
+    if dtype in _FLOAT_DTYPES:
+        return "f"
+    if dtype == torch.uint32:
+        return "u32"
+    if dtype in _INT_DTYPES:
+        return "i"
+    raise TypeError(
+        f"ClientStateStore rows are f32 + int32 segments: leaf dtype "
+        f"{dtype} does not round-trip exactly (float leaves up to f32 "
+        "and bool/int leaves up to 32 bits only)")
+
+
+def _segment_entries(spec):
+    """tree_spec entries -> per-leaf (kind, segment offset, size, shape,
+    dtype) with float and sidecar offsets accumulated independently.
+    Returns (entries, float width Pf, sidecar width Pi)."""
+    entries, f_off, i_off = [], 0, 0
+    for _, size, shape, dtype in spec:
+        kind = _leaf_kind(dtype)
+        if kind == "f":
+            entries.append((kind, f_off, size, shape, dtype))
+            f_off += size
+        else:
+            entries.append((kind, i_off, size, shape, dtype))
+            i_off += size
+    return tuple(entries), f_off, i_off
+
+
+def _to_rows(tree, entries, device):
+    """Model tree -> ((Pf,) f32 row, (Pi,) int32 row); either row may
+    be zero-width."""
+    f_parts, i_parts = [], []
+    for l, (kind, _, _, _, _) in zip(tree_leaves(tree), entries):
+        if kind == "f":
+            f_parts.append(l.reshape(-1).float())
+        elif kind == "i":
+            i_parts.append(l.reshape(-1).to(torch.int32))
+        else:
+            i_parts.append(l.reshape(-1).view(torch.int32))
+    frow = (torch.cat(f_parts) if f_parts
+            else torch.zeros((0,), dtype=torch.float32, device=device))
+    irow = (torch.cat(i_parts) if i_parts
+            else torch.zeros((0,), dtype=torch.int32, device=device))
+    return frow, irow
+
+
+def _leaf_from(seg, off, size, lead, kind, shape, dtype):
+    x = seg[..., off:off + size].reshape(lead + tuple(shape))
+    if kind == "u32":
+        return x.view(torch.uint32)
+    return x.to(dtype)
+
+
+def _from_rows(frow, irow, treedef, entries):
+    """((Pf,), (Pi,)) rows -> model tree (exact per-leaf dtypes)."""
+    outs = [_leaf_from(frow if kind == "f" else irow, off, size, (),
+                       kind, shape, dtype)
+            for kind, off, size, shape, dtype in entries]
+    return tree_unflatten(treedef, outs)
+
+
+def _from_stacked_rows(frows, irows, treedef, entries):
+    """((K, Pf), (K, Pi)) row blocks -> stacked tree, leaves (K, ...)."""
+    k = frows.shape[0]
+    outs = [_leaf_from(frows if kind == "f" else irows, off, size, (k,),
+                       kind, shape, dtype)
+            for kind, off, size, shape, dtype in entries]
+    return tree_unflatten(treedef, outs)
+
+
+class ClientStateStore:
+    """All N client model snapshots as one device-resident (N, Pf) f32
+    buffer plus an (N, Pi) int32 sidecar for non-float leaves.  One
+    instance per run; it owns the buffers (see the buffer contract in
+    the module docstring)."""
+
+    def __init__(self, template_params, n_clients: int, *,
+                 quant_bits: int = 32):
+        if n_clients < 1:
+            raise ValueError(f"need at least one client, got {n_clients}")
+        if int(quant_bits) == 8:
+            raise NotImplementedError(
+                "quant_bits=8 (int8 client rows): ported in a later slice")
+        if int(quant_bits) != 32:
+            raise ValueError(
+                f"quant_bits must be 8 or 32, got {quant_bits}")
+        treedef, spec, _ = tree_spec(template_params)
+        self.treedef, self.spec = treedef, spec
+        self.entries, self.p, self.pi = _segment_entries(spec)
+        self.n = int(n_clients)
+        self.rows = self.n
+        self.quant_bits = 32
+        self.error_feedback = False
+        self.residency = "dense"
+        self.device = tree_leaves(template_params)[0].device
+        frow, irow = self._flatten(template_params)
+        self.bufs = (frow.unsqueeze(0).repeat(self.rows, 1),
+                     irow.unsqueeze(0).repeat(self.rows, 1))
+
+    def _ids(self, ids) -> torch.Tensor:
+        """Row ids -> an index tensor on the store's device; on a CUDA
+        device staged in pinned memory and copied without blocking (a
+        copy from pageable memory waits for the stream to drain)."""
+        idx = torch.from_numpy(np.asarray(ids, np.int64))
+        if self.device.type != "cuda":
+            return idx
+        return idx.pin_memory().to(self.device, non_blocking=True)
+
+    def _rows_of(self, flat):
+        """Public row value -> (frow, irow) pair.  Stores WITH a
+        sidecar exchange ``(frow, irow)`` tuples; all-float stores use
+        a plain (P,) row."""
+        if self.pi:
+            frow, irow = flat
+            return frow, irow
+        return flat, torch.zeros((0,), dtype=torch.int32,
+                                 device=self.device)
+
+    def _row_value(self, frow, irow):
+        return (frow, irow) if self.pi else frow
+
+    def _flatten(self, params):
+        return _to_rows(params, self.entries, self.device)
+
+    # -- byte accounting ------------------------------------------------
+    @property
+    def wire_bytes_per_update(self) -> int:
+        """Modeled uplink bytes of ONE client update in this store's row
+        format: full-width f32 + int32 sidecar."""
+        return 4 * self.p + 4 * self.pi
+
+    def bytes_by_tier(self):
+        """{"hot": device row bytes, "cold": spilled row bytes, "ef":
+        error-feedback residual bytes} — a dense f32 store has only the
+        first."""
+        hot = int(sum(b.numel() * b.element_size() for b in self.bufs))
+        obs.TEL.gauge("store.bytes_hot", hot)
+        obs.TEL.gauge("store.bytes_cold", 0)
+        return {"hot": hot, "cold": 0, "ef": 0}
+
+    # -- flat <-> tree views --------------------------------------------
+    @property
+    def buffer(self):
+        """The (rows, Pf) f32 row buffer.  Read-only by convention — do
+        not hold a view across scatter/merge_scatter."""
+        return self.bufs[0]
+
+    @property
+    def int_buffer(self):
+        """The (rows, Pi) int32 sidecar (zero-width when the template
+        has float leaves only).  Same contract as ``buffer``."""
+        return self.bufs[-1]
+
+    def flatten(self, params):
+        """Model tree -> flat row: a (Pf,) f32 tensor, or a
+        ``(f32 row, int32 row)`` pair when the template has non-float
+        leaves."""
+        return self._row_value(*self._flatten(params))
+
+    def unflatten(self, flat):
+        """Flat row (``flatten``'s convention) -> model tree with
+        per-leaf shapes/dtypes."""
+        frow, irow = self._rows_of(flat)
+        return _from_rows(frow, irow, self.treedef, self.entries)
+
+    # -- gather / scatter -----------------------------------------------
+    def gather(self, ids: Sequence[int]):
+        """-> stacked start-params tree, leaves (len(ids), ...), a copy
+        of the rows (the same window scatters into them later).
+        Duplicate ids are fine (padded slots repeat the last client)."""
+        idx = self._ids(ids)
+        fbuf, ibuf = self.bufs
+        return _from_stacked_rows(fbuf.index_select(0, idx),
+                                  ibuf.index_select(0, idx),
+                                  self.treedef, self.entries)
+
+    def gather_one(self, client_id: int):
+        """-> one client's snapshot as a model tree (a copy)."""
+        fbuf, ibuf = self.bufs
+        c = int(client_id)
+        return _from_rows(fbuf[c].clone(), ibuf[c].clone(), self.treedef,
+                          self.entries)
+
+    def scatter(self, ids: Sequence[int], flat_global):
+        """Write one flat global row into every ``ids`` slot in place.
+        Duplicate ids write the same row once (the ids are made
+        unique first, so no write order is left to the device)."""
+        frow, irow = self._rows_of(flat_global)
+        idx = self._ids(sorted({int(c) for c in ids}))
+        fbuf, ibuf = self.bufs
+        fbuf[idx] = frow
+        if self.pi:
+            ibuf[idx] = irow
+
+    def scatter_params(self, ids: Sequence[int], params):
+        """Flatten ``params`` and scatter it into ``ids``; returns the
+        flat row for callers tracking the current global row."""
+        frow, irow = self._flatten(params)
+        self.scatter(ids, self._row_value(frow, irow))
+        return self._row_value(frow, irow)
+
+    # -- merge + scatter (the async window-step tail) -------------------
+    def merge_scatter(self, ids: Sequence[int], stacked_updates, coef,
+                      params, *, use_kernel: bool = False):
+        """Fold one drained window into the global model and re-snapshot
+        the merged clients.
+
+        ``stacked_updates``: trained cohort tree, leaves (len(ids), ...).
+        ``coef``: (len(ids)+1,) telescoped merge coefficients
+        (``staleness_merge_coefficients`` order: global row 0 first) —
+        zero entries (masked stragglers / padded rows) contribute
+        exactly nothing.  ``params``: the current global model tree.
+        ``use_kernel=True`` merges through the folded fedagg kernel
+        (``fedagg_fold_pytree``), the same function the dict path's
+        ``staleness_weighted_merge(use_kernel=True)`` calls; otherwise
+        the dict path's ``_merge_folded``.  Returns ``(new_params,
+        new_global_flat)``.
+        """
+        tel = obs.TEL
+        with tel.span("store.merge", rows=len(ids), kernel=use_kernel):
+            if use_kernel:
+                new_params = fedagg_fold_pytree(params, stacked_updates,
+                                                coef)
+            else:
+                new_params = _merge_folded(params, stacked_updates, coef)
+        with tel.span("store.scatter", rows=len(ids)):
+            row = self.scatter_params(ids, new_params)
+        return new_params, row
+
+
+def wire_bytes(params, quant_bits: int = 32) -> int:
+    """Modeled uplink bytes of ONE client update for ``params`` under
+    the given row format — the store-free companion of
+    ``ClientStateStore.wire_bytes_per_update`` (the dict-of-trees
+    runners use it so ``meta["bytes_up"]`` is comparable across
+    snapshot paths)."""
+    _, spec, _ = tree_spec(params)
+    entries, pf, pi = _segment_entries(spec)
+    if int(quant_bits) == 8:
+        n_float = sum(1 for kind, *_ in entries if kind == "f")
+        return pf + 8 * n_float + 4 * pi
+    return 4 * pf + 4 * pi

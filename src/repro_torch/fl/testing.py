@@ -1,12 +1,13 @@
 """Synthetic trainers for runtime tests and server-step benchmarks.
 
 ``SyntheticCohortTrainer`` implements the trainer contract —
-``init_params`` / ``local_train`` / ``evaluate`` — with a deterministic
-elementwise update and no model in the loop, so harnesses can exercise
-the scheduler and engine paths and hold whole histories against the
-reference's: its arithmetic is elementwise adds, which agree to the
-last bit.  The reference's ``local_train_cohort`` serves the async
-window path and comes with it.
+``init_params`` / ``local_train`` / ``local_train_cohort`` /
+``evaluate`` — with a deterministic elementwise update and no model in
+the loop, so harnesses can exercise the scheduler, engine, runtime and
+store paths and hold whole histories against the reference's: its
+arithmetic is elementwise adds, which agree to the last bit.  (The
+reference's ``wrap=`` hook of ``local_train_cohort`` belongs to the
+multi-GPU slice.)
 """
 
 from __future__ import annotations
@@ -43,6 +44,19 @@ class SyntheticCohortTrainer:
         self.seed_mod = int(seed_mod)
         self.device = torch.device(device)
 
+    @classmethod
+    def many_leaf(cls, n_leaves: int = 24, leaf: int = 256,
+                  **kw) -> "SyntheticCohortTrainer":
+        """Benchmark shape: many uniform f32 leaves, so leaf-by-leaf
+        snapshot stacking cost dominates the dict-of-trees arm."""
+        specs = {f"l{i:02d}": ((leaf,), torch.float32)
+                 for i in range(n_leaves)}
+        kw.setdefault("arch_id", "manyleaf")
+        kw.setdefault("d_client", 1e-3)
+        kw.setdefault("d_seed", 1e-4)
+        kw.setdefault("seed_mod", 13)
+        return cls(specs, **kw)
+
     def init_params(self, seed: int = 0):
         rng = np.random.default_rng(seed)
         return {name: torch.from_numpy(
@@ -59,6 +73,18 @@ class SyntheticCohortTrainer:
                          dtype=torch.float32, device=self.device)
         out = tree_map(lambda l: (l.float() + d).to(l.dtype), params)
         return out, 10.0 + client_id
+
+    def local_train_cohort(self, start_params, client_ids, rnd_seeds):
+        """The ``local_train`` update for a whole cohort at once: client
+        i adds its own delta to its own row of ``start_params``."""
+        d = torch.from_numpy(np.asarray(
+            [self._delta(c, s) for c, s in zip(client_ids, rnd_seeds)],
+            np.float32)).to(self.device)
+        stacked = tree_map(
+            lambda l: (l.float() + d.reshape((-1,) + (1,) * (l.ndim - 1))
+                       ).to(l.dtype), start_params)
+        sizes = np.asarray([10.0 + c for c in client_ids], np.float32)
+        return stacked, sizes
 
     def evaluate(self, params) -> float:
         leaves = [l.detach().float().cpu().numpy().ravel()

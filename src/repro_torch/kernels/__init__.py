@@ -1,3 +1,5 @@
-from repro_torch.kernels.ops import fedagg_op, fedagg_pytree
+from repro_torch.kernels.ops import (fedagg_fold_op, fedagg_fold_pytree,
+                                    fedagg_op, fedagg_pytree)
 
-__all__ = ["fedagg_op", "fedagg_pytree"]
+__all__ = ["fedagg_op", "fedagg_pytree", "fedagg_fold_op",
+           "fedagg_fold_pytree"]

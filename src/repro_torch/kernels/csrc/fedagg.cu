@@ -26,6 +26,21 @@
 // one thread in row order, so every block derives the same bits and a
 // result does not depend on the grid.  Rows of weight 0 add nothing to
 // either sum: appending them leaves the output bitwise unchanged.
+//
+// A second entry, fedagg_fold_f32, is the async runtime's staleness
+// window merge (replaces src/repro/kernels/fedagg.py: _fold_kernel /
+// fedagg_fold):
+//
+//   c = coef > 0 ? coef : 0 over the (K+1,) coefficients, global first,
+//   c /= max(sum c, 1e-30)                 (all-zero -> zeros)
+//   out[p] = (c0 > 0 ? c0 * g[p] : 0) + sum_k c_k * u[k][p]
+//
+// It is the same stream with the global model's row as an implicit row
+// 0 (never copied into the (K, P) buffer) and the same row loop; only
+// the preamble that derives the coefficients differs.  The global
+// term is kept apart from the row sum until the end and both are
+// rounded on their own (no contraction into the row sum's last fma),
+// as the reference adds them.  Bound: bytes, (K_live*P + 2P)*4.
 
 #include <cuda_runtime.h>
 
@@ -135,9 +150,10 @@ fedagg_kernel(const float* __restrict__ u, const float* __restrict__ w,
     }
 }
 
+// Blocks for p columns in vectors V: enough to cover the row, at most
+// what is resident on the card at once (the kernels grid-stride).
 template <typename V>
-static int launch(const float* u, const float* w, const float* a, float* out,
-                  int n, long long p, cudaStream_t stream) {
+static int grid_blocks(long long p, unsigned* blocks) {
     int dev = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
@@ -146,12 +162,119 @@ static int launch(const float* u, const float* w, const float* a, float* out,
     if (err != cudaSuccess) return (int)err;
     const long long per_block =
         (long long)FEDAGG_THREADS * (sizeof(V) / sizeof(float));
-    long long blocks = (p + per_block - 1) / per_block;
+    long long b = (p + per_block - 1) / per_block;
     const long long resident = (long long)sms * BLOCKS_PER_SM;
-    if (blocks > resident) blocks = resident;
+    *blocks = (unsigned)(b > resident ? resident : b);
+    return 0;
+}
+
+template <typename V>
+static int launch(const float* u, const float* w, const float* a, float* out,
+                  int n, long long p, cudaStream_t stream) {
+    unsigned blocks = 0;
+    const int err = grid_blocks<V>(p, &blocks);
+    if (err != 0) return err;
     const size_t smem = (size_t)n * (sizeof(float) + sizeof(int));
-    fedagg_kernel<V><<<(unsigned)blocks, FEDAGG_THREADS, smem, stream>>>(
+    fedagg_kernel<V><<<blocks, FEDAGG_THREADS, smem, stream>>>(
         u, w, a, out, n, p);
+    return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// fedagg_fold: the staleness window merge, global row as implicit row 0
+// ---------------------------------------------------------------------
+
+// Masked, normalised coefficients: c0 into *c0, the k row coefficients
+// into eff[] and the indices of the rows with a positive normalised
+// coefficient packed to the front of live[] (the layout add_rows
+// reads).  One thread sums the k+1 coefficients in index order, so
+// trailing zeros leave every bit of the result unchanged.  Returns the
+// live count.
+__device__ int fold_coefficients(const float* __restrict__ coef, int k,
+                                 float* eff, int* live, float* c0) {
+    __shared__ int n_live;
+    for (int i = threadIdx.x; i <= k; i += blockDim.x) {
+        const float c = coef[i];
+        const float v = c > 0.0f ? c : 0.0f;      // NaN compares false
+        if (i == 0) *c0 = v; else eff[i - 1] = v;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        float total = 0.0f;
+        total += *c0;
+        for (int i = 0; i < k; ++i) total += eff[i];   // one fixed order
+        total = fmaxf(total, 1e-30f);
+        *c0 = *c0 / total;
+        int j = 0;
+        for (int i = 0; i < k; ++i) {
+            eff[i] = eff[i] / total;
+            if (eff[i] > 0.0f) live[j++] = i;
+        }
+        n_live = j;
+    }
+    __syncthreads();
+    return n_live;
+}
+
+// The global term and the final add, each rounded on its own.
+__device__ __forceinline__ float global_plus(float c0, float g, float acc) {
+    return __fadd_rn(__fmul_rn(c0, g), acc);
+}
+__device__ __forceinline__ float2 global_plus(float c0, float2 g,
+                                              float2 acc) {
+    return make_float2(global_plus(c0, g.x, acc.x),
+                       global_plus(c0, g.y, acc.y));
+}
+__device__ __forceinline__ float4 global_plus(float c0, float4 g,
+                                              float4 acc) {
+    return make_float4(global_plus(c0, g.x, acc.x),
+                       global_plus(c0, g.y, acc.y),
+                       global_plus(c0, g.z, acc.z),
+                       global_plus(c0, g.w, acc.w));
+}
+
+template <typename V>
+__global__ void __launch_bounds__(FEDAGG_THREADS)
+fedagg_fold_kernel(const float* __restrict__ u, const float* __restrict__ g,
+                   const float* __restrict__ coef, float* __restrict__ out,
+                   int k, long long p) {
+    constexpr int VEC = sizeof(V) / sizeof(float);
+    __shared__ float c0_shared;
+    const int n_live = fold_coefficients(
+        coef, k, fedagg_smem, reinterpret_cast<int*>(fedagg_smem + k),
+        &c0_shared);
+    const float c0 = c0_shared;
+
+    const long long step = (long long)gridDim.x * blockDim.x * VEC;
+    for (long long col =
+             ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+         col < p; col += step) {
+        V acc = V();
+        int j = 0;
+        for (; j + ROWS_IN_FLIGHT <= n_live; j += ROWS_IN_FLIGHT)
+            add_rows<V, ROWS_IN_FLIGHT>(u, p, col, k, j, acc);
+        for (; j + 4 <= n_live; j += 4)
+            add_rows<V, 4>(u, p, col, k, j, acc);
+        for (; j < n_live; ++j)
+            add_rows<V, 1>(u, p, col, k, j, acc);
+        // c0 == 0: the global row is neither read nor multiplied, so
+        // inf/nan in it cannot reach the output
+        if (c0 > 0.0f)
+            acc = global_plus(c0, ldg(reinterpret_cast<const V*>(g + col)),
+                              acc);
+        *reinterpret_cast<V*>(out + col) = acc;
+    }
+}
+
+template <typename V>
+static int launch_fold(const float* u, const float* g, const float* coef,
+                       float* out, int k, long long p, cudaStream_t stream) {
+    unsigned blocks = 0;
+    const int err = grid_blocks<V>(p, &blocks);
+    if (err != 0) return err;
+    const size_t smem = (size_t)k * (sizeof(float) + sizeof(int));
+    fedagg_fold_kernel<V><<<blocks, FEDAGG_THREADS, smem, stream>>>(
+        u, g, coef, out, k, p);
     return (int)cudaGetLastError();
 }
 
@@ -174,6 +297,29 @@ extern "C" int fedagg_f32(const void* u, const void* w, const void* a,
         case 4: return launch<float4>(uf, wf, af, of, n, p, s);
         case 2: return launch<float2>(uf, wf, af, of, n, p, s);
         case 1: return launch<float>(uf, wf, af, of, n, p, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// updates (k, p) contiguous f32, global row g (p,), coefficients
+// (k+1,) global first, out (p,), all on the current device.  `vec` as
+// for fedagg_f32, with g aligned to it too.  Returns cudaGetLastError()
+// after the launch; does not synchronise.
+extern "C" int fedagg_fold_f32(const void* u, const void* g,
+                               const void* coef, void* out, int k,
+                               long long p, int vec, void* stream) {
+    if (k < 1 || k + 1 > FEDAGG_MAX_ROWS || p < 1 || vec < 1 ||
+        p % vec != 0)
+        return (int)cudaErrorInvalidValue;
+    const float* uf = static_cast<const float*>(u);
+    const float* gf = static_cast<const float*>(g);
+    const float* cf = static_cast<const float*>(coef);
+    float* of = static_cast<float*>(out);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (vec) {
+        case 4: return launch_fold<float4>(uf, gf, cf, of, k, p, s);
+        case 2: return launch_fold<float2>(uf, gf, cf, of, k, p, s);
+        case 1: return launch_fold<float>(uf, gf, cf, of, k, p, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -4,7 +4,8 @@
 stacked client-update tree is flattened ONCE into a single (N, P) f32
 buffer (unflatten spec cached per tree structure), reduced by the fused
 fedagg kernel in one pass, and split back — instead of one launch per
-leaf.
+leaf.  ``fedagg_fold_pytree`` is its async-window twin over the folded
+merge kernel.
 """
 
 from __future__ import annotations
@@ -14,8 +15,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.fedagg import fedagg
-from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+from repro_torch.kernels.fedagg import fedagg, fedagg_fold
+from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
+                              tree_unflatten)
 
 
 def fedagg_op(updates, weights, *, alphas=None):
@@ -110,3 +112,27 @@ def flatten_params_row(params):
     leading client axis) — the global-row companion of the stacked
     (N, P) buffer."""
     return torch.cat([l.reshape(-1).float() for l in tree_leaves(params)])
+
+
+def fedagg_fold_op(updates, g, coef):
+    return fedagg_fold(updates, g, coef)
+
+
+def fedagg_fold_pytree(global_params, stacked_updates, coef):
+    """Folded staleness window merge over trees: ONE kernel pass on the
+    flattened (K, P) client-row buffer with the global model as the
+    IMPLICIT row 0 (its (P,) row rides in directly — no (K+1, ...)
+    concatenated copy).
+
+    This is the SHARED merge program of the async runtime's kernel
+    path: the dict-of-trees path and the store-backed window step both
+    call it on identically flattened buffers, which is what makes their
+    histories bit-identical.  ``coef`` is the (K+1,)
+    ``staleness_merge_coefficients`` vector (global first); padded /
+    masked rows carry coefficient 0 and contribute exactly nothing.
+    """
+    buf, treedef, spec = flatten_updates(stacked_updates)
+    g_flat = flatten_params_row(global_params)
+    flat = fedagg_fold(buf, g_flat, coef)
+    out = unflatten_result(flat, treedef, spec)
+    return tree_map(lambda g, m: m.to(g.dtype), global_params, out)

@@ -1,14 +1,17 @@
-"""FedDCT and its synchronous baselines on the paper's CNN workloads.
+"""FedDCT and its baselines, sync and async, on the paper's CNN workloads.
 
     PYTHONPATH=src python -m repro_torch.launch.fl_train --arch cnn-mnist \\
         --method feddct --rounds 20 --clients 50 --tiers 5 --tau 5
 
+    PYTHONPATH=src python -m repro_torch.launch.fl_train --arch cnn-mnist \\
+        --method feddct_async --rounds 20 --clients 50 --tiers 5 --tau 5
+
 Runs on the CUDA device (and raises when there is none) unless
 ``--device cpu`` is given.  On a CUDA device the round's aggregation
-goes through the hand-written fedagg kernel by default
-(``--no-kernel-agg`` selects the per-leaf path).  The wireless
-delay/failure model supplies virtual time; f32 products run in full
-precision (no TF32).
+and the async window merge go through the hand-written fedagg kernels
+by default (``--no-kernel-agg`` selects the per-leaf path).  The
+wireless delay/failure model supplies virtual time; f32 products run in
+full precision (no TF32).
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="cnn-mnist")
     ap.add_argument("--method", default="feddct",
-                    choices=["feddct", "fedavg", "tifl", "fedprox"])
+                    choices=["feddct", "fedavg", "tifl", "fedasync",
+                             "fedprox", "fedbuff", "feddct_async"])
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--clients", type=int, default=10)
     ap.add_argument("--tiers", type=int, default=5)
@@ -45,6 +49,18 @@ def main(argv=None):
     ap.add_argument("--no-kernel-agg", dest="kernel_agg",
                     action="store_false",
                     help="aggregate leaf by leaf instead")
+    ap.add_argument("--window", type=int, default=0,
+                    help="async aggregation window: merge up to K "
+                         "completions per event drain (fedasync/fedbuff; "
+                         "0 = one-at-a-time FedAsync)")
+    ap.add_argument("--window-secs", type=float, default=0.0,
+                    help="async aggregation window in virtual seconds "
+                         "(fedasync/fedbuff; 0 = no time window)")
+    ap.add_argument("--no-store", action="store_true",
+                    help="async methods only: keep client snapshots as "
+                         "a dict of trees instead of the device-resident "
+                         "flat ClientStateStore (reference path, "
+                         "bit-identical histories)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises when absent) or cpu")
     ap.add_argument("--scale", type=float, default=0.05,
@@ -63,15 +79,22 @@ def main(argv=None):
                           fl.mu, fl.failure_delay, fl.seed)
     trainer = build_fl_clients(args.arch, fl, scale=args.scale,
                                device=device)
-    hist = run_method(args.method, trainer, net, fl, verbose=True,
-                      engine=args.engine, use_kernel_agg=args.kernel_agg)
+    kw = dict(verbose=True, engine=args.engine,
+              use_kernel_agg=args.kernel_agg)
+    if args.method in ("fedasync", "fedbuff"):
+        kw["window"] = args.window
+        kw["window_secs"] = args.window_secs
+    if args.no_store and args.method in ("fedasync", "fedbuff",
+                                         "feddct_async"):
+        kw["use_store"] = False
+    hist = run_method(args.method, trainer, net, fl, **kw)
     if hist.accuracy:
         print(f"[fl_train] {args.method} on {args.arch}: "
               f"final acc={hist.accuracy[-1]:.4f} "
               f"virtual time={hist.times[-1]:.1f}s")
     else:
         print(f"[fl_train] {args.method} on {args.arch}: finished before "
-              f"the first evaluation")
+              f"the first evaluation (fewer updates than eval_every)")
     if args.out:
         hist.save(args.out)
         print(f"[fl_train] history -> {args.out}")

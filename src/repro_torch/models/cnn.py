@@ -97,12 +97,18 @@ def _conv_im2col(x, w, stride=1):
 
 
 def _pool(x):
-    """2x2/2 max-pool over (H, W) of (..., H, W, C) as reshape + max
-    (odd sizes drop the last row/column, the "VALID" window)."""
+    """2x2/2 max-pool over (H, W) of (..., H, W, C).
+
+    Even sizes: reshape + max, whose gradient splits a tied maximum
+    evenly, as the reference's reshape + max does.  Odd sizes ("VALID":
+    the last row/column is dropped): ``max_pool2d``, whose gradient goes
+    all to the first maximum of a window in row-major order, as the
+    reference's ``reduce_window`` (select-and-scatter) does."""
     h, w, c = x.shape[-3:]
-    if h % 2 or w % 2:
-        x = x[..., :h - h % 2, :w - w % 2, :]
     lead = x.shape[:-3]
+    if h % 2 or w % 2:
+        y = F.max_pool2d(x.reshape(-1, h, w, c).permute(0, 3, 1, 2), 2, 2)
+        return y.permute(0, 2, 3, 1).reshape(*lead, h // 2, w // 2, c)
     return x.reshape(*lead, h // 2, 2, w // 2, 2, c).amax(dim=(-4, -2))
 
 

@@ -1,11 +1,14 @@
-"""Telemetry stub: the no-op surface the sync slice calls.
+"""Telemetry stub: the no-op surface the sync and async paths call.
 
 The reference's runtime telemetry (``repro/obs/telemetry.py``) and its
 FL-semantic streams (``repro/obs/flstats.py``) are ported in a later
-slice.  Until then the schedulers and the engine call this stub, which
-records nothing: ``TEL.span(..)`` as a context manager or with
-``.start()`` / ``.end()``, ``TEL.inc``, ``TEL.set_virtual_time``,
-``TEL.summarize_into`` and ``flstats.record_*``.
+slice.  Until then the schedulers, the engine and the async runtime
+call this stub, which records nothing and never reads a tensor back:
+``TEL.span(..)`` as a context manager or with ``.start()`` /
+``.end()``, ``TEL.inc``, ``TEL.gauge``, ``TEL.observe``,
+``TEL.set_virtual_time``, ``TEL.summarize_into``, ``TEL.enabled``
+(always ``False``, so guarded recording blocks are skipped) and
+``flstats.record_*``.
 """
 
 from __future__ import annotations
@@ -31,10 +34,18 @@ _SPAN = _NoopSpan()
 
 
 class NoopTelemetry:
+    enabled = False
+
     def span(self, name, **args):
         return _SPAN
 
     def inc(self, name, value=1):
+        return None
+
+    def gauge(self, name, value):
+        return None
+
+    def observe(self, name, value):
         return None
 
     def set_virtual_time(self, t):
@@ -52,4 +63,7 @@ def _noop(*args, **kwargs):
 
 
 flstats = SimpleNamespace(record_tiering=_noop, record_selection=_noop,
-                          record_response=_noop, record_straggler=_noop)
+                          record_response=_noop, record_straggler=_noop,
+                          record_staleness=_noop,
+                          record_client_updates=_noop,
+                          record_uplink=_noop, record_update_norm=_noop)

@@ -118,6 +118,25 @@ def test_pool_and_norm_act_match_reference():
         rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("hw", [(5, 5), (4, 7), (6, 8)])
+def test_pool_gradient_on_ties_matches_reference(hw):
+    """Tied maxima: on odd sizes the reference's ``reduce_window`` sends
+    a window's whole gradient to its first maximum (row-major); on even
+    sizes its reshape + max splits it evenly.  The port must route it
+    the same way, also under a leading client axis."""
+    rng = np.random.default_rng(7)
+    x = np.round(rng.uniform(0, 2, size=(2, 3) + hw + (2,))).astype(
+        np.float32)                          # values in {0, 1, 2}: ties
+    w = rng.normal(size=(2, 3, hw[0] // 2, hw[1] // 2, 2)).astype(
+        np.float32)
+    want = jax.vmap(jax.grad(
+        lambda a, b: jnp.sum(ref_cnn._pool(a) * b)))(jnp.asarray(x),
+                                                     jnp.asarray(w))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (pt_cnn._pool(xt) * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("im2col", [False, True])
 @pytest.mark.parametrize("kind", ["cnn", "resnet"])
 def test_one_step_grads_match_reference(kind, im2col):

@@ -75,13 +75,18 @@ def test_synthetic_histories_equal_the_reference(method, mu, seed, engine):
 
 def test_run_method_dispatch_and_later_slice_names():
     fl = PtFLConfig(**dict(FL_KW, rounds=2))
-    hist = pt_baselines.run_method("feddct", SyntheticCohortTrainer(),
-                                   _net(PtNetwork, fl), fl)
-    assert hist.method == "feddct" and hist.rounds == [1, 2]
+    for name in ("feddct", "fedavg", "tifl", "fedprox", "fedasync",
+                 "fedbuff", "feddct_async"):
+        hist = pt_baselines.run_method(name, SyntheticCohortTrainer(),
+                                       _net(PtNetwork, fl), fl)
+        assert hist.method == name and hist.accuracy
+    # int8 rows and tiered residency come with later slices
     for name in ("fedasync", "fedbuff", "feddct_async"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            pt_baselines.run_method(name, SyntheticCohortTrainer(),
-                                    _net(PtNetwork, fl), fl)
+        for kw in (dict(quant_bits=8), dict(store_capacity=2)):
+            with pytest.raises(NotImplementedError, match="later slice"):
+                pt_baselines.run_method(name, SyntheticCohortTrainer(),
+                                        _net(PtNetwork, fl), fl,
+                                        use_store=True, **kw)
 
 
 _TRAINERS = {}
