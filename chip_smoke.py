@@ -5,19 +5,24 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, drives the port's
-two main paths through those kernels — the sync path
+three paths through those kernels — the sync path
 (``repro_torch.launch.fl_train``: FedDCT on full-width ``cnn-mnist``, 50
-clients, 5 rounds; kernel ``fedagg``) and the async path (semi-async
+clients, 5 rounds; kernel ``fedagg``), the async path (semi-async
 FedDCT and FedBuff over the client-state store; kernel
-``fedagg_fold``) — and prints one JSON object per phase.  Any failure
-exits non-zero; there is no CPU path.  The last line of standard output
-is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
-...}}``.
+``fedagg_fold``) and the client-mesh path (``--mesh-clients 4`` over
+four virtual shards of the card; kernel ``fedagg_partial`` once per
+shard) — and prints one JSON object per phase.  Each path runs with
+every launch count set to 0 just before it and read just after.  Any
+failure exits non-zero; there is no CPU path.  The last line of
+standard output is ``{"ok": true, "device": {"platform": "gpu", "kind":
+..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -48,6 +53,21 @@ ASYNC_ARGV = ["--arch", "cnn-mnist", "--method", "feddct_async",
               "--clients", "50", "--tiers", "5", "--tau", "5",
               "--rounds", str(ASYNC_ROUNDS), "--seed", "0"]
 FOLD_K = 32
+# The client-mesh path: the same runs over four virtual shards of the
+# card (the port's counterpart of the JAX package's forced host devices)
+MESH_SHARDS = 4
+PARTIAL_R = 8
+# first round's sharded model against the plain engine's on the same
+# cohort: the shards train their rows in smaller batched products, and
+# Adam's normalized step turns their summation-order noise in tiny
+# gradients into a fraction of one lr=1e-3 step (as in cpu_agreement)
+MESH_ROUND_ATOL = 2e-4
+# the async mesh path's store merge (fedagg_fold, coefficients
+# normalised in f32 on the card) against its dict merge (fedagg_partial
+# per shard, coefficients normalised in f64 on the host): reassociated
+# f32 sums of parameters of magnitude < 1
+MESH_MERGE_ATOL = 1e-5
+MESH_ACC_ATOL = 5e-3
 # meta keys that name the snapshot path, and so differ store vs dict
 STORE_KEYS = {"store", "store_path", "store_reason", "residency",
               "hot_rows", "store_bytes_hot", "store_bytes_cold",
@@ -56,6 +76,31 @@ STORE_KEYS = {"store", "store_path", "store_reason", "residency",
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def zero_counts() -> None:
+    from repro_torch.kernels import fedagg as fedagg_mod
+    fedagg_mod.launches = 0
+    fedagg_mod.fold_launches = 0
+    fedagg_mod.partial_launches = 0
+
+
+def counts() -> dict:
+    from repro_torch.kernels import fedagg as fedagg_mod
+    return {"fedagg": fedagg_mod.launches,
+            "fedagg_fold": fedagg_mod.fold_launches,
+            "fedagg_partial": fedagg_mod.partial_launches}
+
+
+@contextlib.contextmanager
+def patched(obj, name, fn):
+    """``obj.name = fn`` for the duration of the block."""
+    real = getattr(obj, name)
+    setattr(obj, name, fn)
+    try:
+        yield real
+    finally:
+        setattr(obj, name, real)
 
 
 def fail(msg: str) -> None:
@@ -409,12 +454,13 @@ def main_path():
 
     ops.fedagg = recording
     try:
-        fedagg_mod.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         hist = fl_train.main(MAIN_ARGV)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = fedagg_mod.launches
+        path_counts = counts()
     finally:
         ops.fedagg = real
 
@@ -425,6 +471,8 @@ def main_path():
     if launches != live_rounds or launches < 1:
         fail(f"fedagg launched {launches} times on the main path, "
              f"{live_rounds} rounds had survivors")
+    if path_counts["fedagg_fold"] or path_counts["fedagg_partial"]:
+        fail(f"the sync path launched other kernels: {path_counts}")
     if any(dev != "cuda" or p != MAIN_P for _, p, dev in shapes):
         fail(f"main path gave fedagg unexpected buffers: {shapes}")
     if hist.meta.get("kernel_agg") is not True:
@@ -464,11 +512,11 @@ def main_path():
     return {"argv": MAIN_ARGV, "rounds": hist.rounds,
             "accuracy": hist.accuracy, "n_selected": hist.n_selected,
             "n_stragglers": hist.n_stragglers, "times": hist.times,
-            "fedagg_launches": launches,
+            "fedagg_launches": launches, "launches": path_counts,
             "fedagg_shapes": [[n, p] for n, p, _ in shapes],
             "first_run_s": first_s, "warm_run_s": run_s,
             "warm_s_per_round": run_s / fl.rounds,
-            "two_runs_identical": True}, launches, shapes
+            "two_runs_identical": True}, launches, shapes, hist
 
 
 def cpu_agreement():
@@ -549,7 +597,7 @@ def async_path():
     def drive(argv):
         calls.clear()
         windows.clear()
-        fedagg_mod.fold_launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         hist = fl_train.main(argv)
         torch.cuda.synchronize()
@@ -639,6 +687,395 @@ def async_path():
     return summary, launches, seen + buff_seen
 
 
+# ---------------------------------------------------------------------
+# fedagg_partial (K3) and the client-mesh path
+# ---------------------------------------------------------------------
+
+def partial_bound_ms(coef, p: int):
+    """Least time for one shard's partial sum: live rows read once, the
+    output written once, the coefficients read once; two operations per
+    live element."""
+    c = torch_f32(coef).nan_to_num(0.0)
+    n_live = int((c > 0).sum())
+    by_bytes = ((n_live * p + p) * 4 + 4 * c.numel()) / HBM_BYTES_PER_S \
+        * 1e3
+    by_ops = 2 * n_live * p / F32_FLOPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def check_partial(name, u, coef, *, exact_zero=False):
+    """Partial-sum kernel vs its plain version on the same card
+    tensors."""
+    import torch
+    from repro_torch.kernels import fedagg as fedagg_mod
+    got = fedagg_mod.fedagg_partial(u, coef)
+    torch.cuda.synchronize()
+    want = fedagg_mod.fedagg_partial_plain(u, coef)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"fedagg_partial[{name}]: shape/dtype {got.shape} {got.dtype}")
+    if not bool(torch.isfinite(got).all()):
+        fail(f"fedagg_partial[{name}]: non-finite output")
+    if exact_zero and bool((got != 0).any()):
+        fail(f"fedagg_partial[{name}]: expected exact zeros")
+    abs_err = float((got - want).abs().max())
+    rel_err = float(((got - want).abs()
+                     / want.abs().clamp(min=1e-12)).max())
+    if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+        fail(f"fedagg_partial[{name}]: disagrees with "
+             f"fedagg_partial_plain, max abs err {abs_err}")
+    r, p = u.shape
+    return {"case": name, "r": int(r), "p": int(p),
+            "vec": fedagg_mod._vector_width(p, u, got),
+            "max_abs_err": abs_err, "max_rel_err": rel_err}
+
+
+def partial_cases():
+    import torch
+    from repro_torch.kernels.fedagg import fedagg_partial
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def coefs(r):
+        return 0.05 + torch.rand(r, generator=gen, device="cuda")
+
+    cases = [check_partial(f"r={r}", randn(r, MAIN_P), coefs(r))
+             for r in (1, 2, PARTIAL_R)]
+    cases.append(check_partial("odd-p-under-a-block", randn(7, 331),
+                               coefs(7)))
+    cases.append(check_partial("p-multiple-of-4", randn(5, 4096), coefs(5)))
+    # zero-coefficient rows holding inf/nan contribute nothing
+    ub, cb = randn(8, 10_001), coefs(8)
+    ub[2] = float("inf")
+    ub[5] = float("nan")
+    cb[2] = 0.0
+    cb[5] = -1.0
+    cases.append(check_partial("masked-inf-nan", ub, cb))
+    c_nan = coefs(8)
+    c_nan[4] = float("nan")
+    ub_nan = randn(8, 10_001)
+    ub_nan[4] = float("inf")
+    cases.append(check_partial("nan-coefficient", ub_nan, c_nan))
+    cases.append(check_partial("all-zero-coefficients", ub,
+                               torch.zeros(8, device="cuda"),
+                               exact_zero=True))
+    # 5 live rows padded to 8 with zero coefficients (the plan's zero
+    # rows) is bitwise the unpadded call
+    u8, c5 = randn(8, MAIN_P), coefs(5)
+    u8[5:] = 0.0
+    base = fedagg_partial(u8[:5].contiguous(), c5)
+    padded = fedagg_partial(u8, torch.cat([c5, torch.zeros(3,
+                                                           device="cuda")]))
+    torch.cuda.synchronize()
+    if not torch.equal(base, padded):
+        fail("fedagg_partial: zero-coefficient padding rows changed the "
+             "result's bits")
+    cases.append({"case": "5-live-padded-to-8-bitwise", "r": 8,
+                  "p": MAIN_P, "max_abs_err": 0.0, "max_rel_err": 0.0})
+    return cases
+
+
+def fedagg_partial_times(r: int, p: int, coef):
+    """Partial-sum kernel, its plain version and the one-call library
+    yardstick ``torch.mv(u.t(), c)`` (the same sum without the masking)
+    at one shard shape, in turns on the same inputs rotated past the
+    L2.  The path's coefficients (sample counts in a sync round) are
+    scaled to sum 1: the time depends only on which rows are live, and
+    the stated tolerance is for sums of order one."""
+    import itertools
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels.fedagg import (fedagg_partial,
+                                            fedagg_partial_plain)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    u = torch.randn(r, p, generator=gen, device="cuda")
+    coef = np.asarray(coef, np.float32)
+    coef = np.where(coef > 0, coef / coef[coef > 0].sum(), coef) \
+        .astype(np.float32)
+    c = torch.as_tensor(coef, dtype=torch.float32, device="cuda")
+    err = check_partial(f"timed-{r}x{p}", u, c)
+    copies = max(1, -(-int(3 * L2_BYTES) // (4 * r * p)))
+    ring = itertools.cycle([u] + [u.clone() for _ in range(copies - 1)])
+
+    def kernel():
+        return fedagg_partial(next(ring), c)
+
+    def plain():
+        return fedagg_partial_plain(next(ring), c)
+
+    def library():
+        # yardstick only: the port never computes the sum this way
+        return torch.mv(next(ring).t(), c)
+
+    plain_a = median_ms(plain)
+    kernel_a = median_ms(kernel)
+    lib = median_ms(library)
+    kernel_b = median_ms(kernel)
+    plain_b = median_ms(plain)
+    call = median_ms(kernel, hide_host=False)
+    bound, bound_by = partial_bound_ms(coef, p)
+    return {"r": r, "p": p, "r_live": int((torch_f32(coef) > 0).sum()),
+            "buffers": copies, "ms": min(kernel_a, kernel_b),
+            "call_ms_with_host": call, "plain_ms": min(plain_a, plain_b),
+            "library_ms": lib, "bound_ms": bound, "bound_by": bound_by,
+            "max_abs_err": err["max_abs_err"]}
+
+
+@contextlib.contextmanager
+def forced_shards(n: int):
+    """``n`` virtual client shards of the card for the block: the forced
+    count ``make_client_mesh`` reads (``REPRO_TORCH_FLAGS``)."""
+    from repro_torch.distributed import hostdevices
+    before = os.environ.get(hostdevices.ENV_VAR)
+    if hostdevices.forced_host_device_count() is not None:
+        fail(f"{hostdevices.ENV_VAR} already forces a shard count: "
+             f"{before!r}")
+    hostdevices.ensure_host_device_count(n)
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop(hostdevices.ENV_VAR, None)
+        else:
+            os.environ[hostdevices.ENV_VAR] = before
+
+
+@contextlib.contextmanager
+def recording_evaluations(models):
+    """Every model the trainers evaluate, as copies, into ``models``:
+    the last one of a run is its final model."""
+    from repro_torch.fl import client as fl_client
+    from repro_torch.tree import tree_leaves
+    cls = fl_client.CNNTrainer
+
+    def recording(self, params, *a, **kw):
+        models.append([l.detach().clone() for l in tree_leaves(params)])
+        return real(self, params, *a, **kw)
+
+    with patched(cls, "evaluate", recording) as real:
+        yield
+
+
+def _models_equal(a, b) -> bool:
+    import torch
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _models_max_abs(a, b) -> float:
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+HISTORY_KEYS = ("rounds", "times", "accuracy", "tier", "n_selected",
+                "n_stragglers")
+
+
+def _first_difference(h1, h2):
+    """The round of the first record where two histories differ, or
+    None."""
+    a, b = h1.to_json(), h2.to_json()
+    for i in range(max(len(a["rounds"]), len(b["rounds"]))):
+        if any(a[k][i:i + 1] != b[k][i:i + 1] for k in HISTORY_KEYS):
+            return (a["rounds"] if i < len(a["rounds"]) else b["rounds"])[i]
+    return None
+
+
+def mesh_path(main_hist):
+    """The client-mesh path through the CLI: FedDCT over four virtual
+    shards of the card (K3 once per shard in every round with
+    survivors), the same run again, a 1-shard mesh against the sync
+    path's history, the first round against the plain engine, and a
+    timed run on the warmed process."""
+    import torch
+    from repro_torch.config.base import FLConfig
+    from repro_torch.core import run_method
+    from repro_torch.core.engine import make_engine
+    from repro_torch.distributed import aggregate as aggregate_mod
+    from repro_torch.distributed import engine as dist_engine
+    from repro_torch.distributed import make_client_mesh
+    from repro_torch.fl.client import build_fl_clients
+    from repro_torch.fl.network import WirelessNetwork
+    from repro_torch.launch import fl_train
+    from repro_torch.tree import tree_leaves
+
+    argv = MAIN_ARGV + ["--mesh-clients", str(MESH_SHARDS)]
+    calls, first_round = [], []
+
+    def recording_partial(updates, coef):
+        calls.append((int(updates.shape[0]), int(updates.shape[1]),
+                      updates.device.type, [float(x) for x in coef]))
+        return real_partial(updates, coef)
+
+    def recording_round(self, params, client_ids, rnd_seed, weights=None):
+        out = real_round(self, params, client_ids, rnd_seed, weights)
+        if not first_round and client_ids:
+            first_round.append((self, params, list(client_ids), rnd_seed,
+                                out))
+        return out
+
+    models = []
+    with forced_shards(MESH_SHARDS), \
+            patched(aggregate_mod, "fedagg_partial_op",
+                    recording_partial) as real_partial, \
+            patched(dist_engine.ShardedClientEngine, "train_round",
+                    recording_round) as real_round, \
+            recording_evaluations(models):
+        zero_counts()
+        t0 = time.perf_counter()
+        hist = fl_train.main(argv)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        path_counts = counts()
+        final = models[-1]
+        seen = list(calls)
+        again = fl_train.main(argv)
+        final_again = models[-1]
+        one = fl_train.main(MAIN_ARGV + ["--mesh-clients", "1"])
+
+        live_rounds = sum(1 for s, g in zip(hist.n_selected,
+                                            hist.n_stragglers) if s - g > 0)
+        if len(hist.rounds) != 5 or hist.meta.get("mesh_devices") != \
+                MESH_SHARDS:
+            fail(f"mesh path: rounds {hist.rounds}, mesh_devices "
+                 f"{hist.meta.get('mesh_devices')}")
+        if path_counts["fedagg_partial"] != MESH_SHARDS * live_rounds \
+                or live_rounds < 1:
+            fail(f"fedagg_partial launched {path_counts['fedagg_partial']} "
+                 f"times on the mesh path; {live_rounds} rounds had "
+                 f"survivors over {MESH_SHARDS} shards")
+        if path_counts["fedagg"] or path_counts["fedagg_fold"]:
+            fail(f"the mesh path launched other kernels: {path_counts}")
+        if len(seen) != path_counts["fedagg_partial"] or any(
+                p != MAIN_P or dev != "cuda" for _, p, dev, _ in seen):
+            fail(f"mesh path gave fedagg_partial unexpected buffers: "
+                 f"{[c[:3] for c in seen]}")
+        if not all(0.0 <= a <= 1.0 for a in hist.accuracy):
+            fail(f"mesh path accuracies: {hist.accuracy}")
+        if again.to_json() != hist.to_json() or not _models_equal(
+                final_again, final):
+            fail("two seeded mesh runs differ")
+        if one.to_json() != main_hist.to_json():
+            fail("a 1-shard mesh run differs from the sync path's")
+
+        # the first round: sharded against the plain engine, same inputs
+        eng, params, ids, seed, got = first_round[0]
+        want = make_engine(eng.trainer).train_round(params, ids, seed)
+        torch.cuda.synchronize()
+        round_err = _models_max_abs(tree_leaves(got), tree_leaves(want))
+        if round_err > MESH_ROUND_ATOL:
+            fail(f"the first sharded round is {round_err} from the plain "
+                 f"engine's (atol {MESH_ROUND_ATOL})")
+
+    # timed run on the warmed process, through the same entry points,
+    # with no recording wrapper in the way (four shards of the card
+    # named explicitly, as the forced count gives them)
+    fl = FLConfig(n_clients=50, n_tiers=5, tau=5, rounds=5, seed=0,
+                  lr=1e-3)
+    net = WirelessNetwork(fl.n_clients, fl.tier_delay_means,
+                          fl.delay_std, fl.mu, fl.failure_delay,
+                          fl.seed)
+    trainer = build_fl_clients("cnn-mnist", fl)
+    mesh = make_client_mesh(devices=["cuda"] * MESH_SHARDS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = run_method("feddct", trainer, net, fl, mesh=mesh)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if timed.to_json() != hist.to_json():
+        fail("the timed mesh run's history differs from the CLI run's")
+    return {"argv": argv, "shards": MESH_SHARDS, "rounds": hist.rounds,
+            "accuracy": hist.accuracy, "times": hist.times,
+            "n_selected": hist.n_selected,
+            "n_stragglers": hist.n_stragglers, "launches": path_counts,
+            "rounds_with_survivors": live_rounds,
+            "partial_shapes": [[r, p] for r, p, _, _ in seen],
+            "partial_live_rows": [sum(1 for x in c if x > 0)
+                                  for _, _, _, c in seen],
+            "two_runs_identical": True, "one_shard_equals_main_path": True,
+            "first_round_vs_plain_engine_max_abs": round_err,
+            "first_round_atol": MESH_ROUND_ATOL,
+            "differs_from_sync_path_at_round": _first_difference(
+                hist, main_hist),
+            "sync_path_accuracy": main_hist.accuracy,
+            "first_run_s": first_s, "warm_run_s": run_s,
+            "warm_s_per_round": run_s / fl.rounds}, path_counts, seen
+
+
+def mesh_async_path():
+    """Semi-async FedDCT over four virtual shards: on the store path the
+    cohort trains sharded and the window merges through K2; with
+    ``--no-store`` the merge is the sharded reduction through K3.  The
+    two agree within tolerance (their sums are reassociated)."""
+    import torch
+    from repro_torch.launch import fl_train
+    from repro_torch.runtime import async_loop
+
+    argv = ASYNC_ARGV + ["--mesh-clients", str(MESH_SHARDS)]
+    windows, models = [], []
+
+    def recording_store(eng, store, params, batch, fl, version):
+        windows.append(len(batch))
+        return real_store(eng, store, params, batch, fl, version)
+
+    def recording_dict(eng, params, snapshots, batch, fl, version):
+        windows.append(len(batch))
+        return real_dict(eng, params, snapshots, batch, fl, version)
+
+    def drive(extra):
+        windows.clear()
+        zero_counts()
+        hist = fl_train.main(argv + extra)
+        torch.cuda.synchronize()
+        return hist, counts(), list(windows), models[-1]
+
+    with forced_shards(MESH_SHARDS), \
+            patched(async_loop, "_merge_window_store",
+                    recording_store) as real_store, \
+            patched(async_loop, "_merge_window",
+                    recording_dict) as real_dict, \
+            recording_evaluations(models):
+        store, store_counts, store_wins, store_final = drive([])
+        on_dict, dict_counts, dict_wins, dict_final = drive(["--no-store"])
+    multi = sum(1 for w in store_wins if w >= 2)
+    if store.meta.get("store_path") != "store" or store.meta.get(
+            "mesh_devices") != MESH_SHARDS or multi < 1:
+        fail(f"mesh async store run: meta {store.meta}, windows "
+             f"{store_wins}")
+    if store_counts != {"fedagg": 0, "fedagg_fold": multi,
+                        "fedagg_partial": 0}:
+        fail(f"mesh async store run launched {store_counts} for windows "
+             f"{store_wins}")
+    if on_dict.meta.get("store_path") != "dict" or dict_wins != store_wins:
+        fail(f"mesh async dict run: {on_dict.meta.get('store_path')}, "
+             f"windows {dict_wins} vs {store_wins}")
+    if dict_counts != {"fedagg": 0, "fedagg_fold": 0,
+                       "fedagg_partial": MESH_SHARDS * multi}:
+        fail(f"mesh async dict run launched {dict_counts} for windows "
+             f"{dict_wins}")
+    merge_err = _models_max_abs(store_final, dict_final)
+    if merge_err > MESH_MERGE_ATOL:
+        fail(f"mesh async store and dict final models differ by "
+             f"{merge_err} (atol {MESH_MERGE_ATOL})")
+    a, b = store.to_json(), on_dict.to_json()
+    for k in HISTORY_KEYS:
+        if k != "accuracy" and a[k] != b[k]:
+            fail(f"mesh async store and dict runs differ in {k}")
+    acc_err = max(abs(x - y) for x, y in zip(store.accuracy,
+                                             on_dict.accuracy))
+    if acc_err > MESH_ACC_ATOL:
+        fail(f"mesh async accuracies differ by {acc_err}")
+    return {"argv": argv, "windows": store_wins,
+            "store_launches": store_counts, "dict_launches": dict_counts,
+            "accuracy_store": store.accuracy,
+            "accuracy_dict": on_dict.accuracy,
+            "final_model_max_abs": merge_err,
+            "final_model_atol": MESH_MERGE_ATOL,
+            "accuracy_max_abs": acc_err, "accuracy_atol": MESH_ACC_ATOL}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -660,14 +1097,19 @@ def main() -> int:
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}})
 
     emit({"phase": "kernel_checks", "rtol": RTOL, "atol": ATOL,
-          "fedagg": fedagg_cases(), "fedagg_fold": fold_cases()})
+          "fedagg": fedagg_cases(), "fedagg_fold": fold_cases(),
+          "fedagg_partial": partial_cases()})
     emit({"phase": "train_round_vs_cpu", **cpu_agreement()})
 
-    summary, launches, shapes = main_path()
+    summary, launches, shapes, summary_hist = main_path()
     emit({"phase": "main_path", **summary})
 
     async_summary, fold_launches, fold_calls = async_path()
     emit({"phase": "async_path", **async_summary})
+
+    mesh_summary, mesh_counts, partial_calls = mesh_path(summary_hist)
+    emit({"phase": "mesh_path", **mesh_summary})
+    emit({"phase": "mesh_async_path", **mesh_async_path()})
 
     at_main = fedagg_times(MAIN_N, MAIN_P)
     seen = [fedagg_times(n, p)
@@ -687,8 +1129,22 @@ def main() -> int:
     emit({"phase": "fedagg_fold_times", "card": card,
           f"at_k{FOLD_K}": fold_at_k, "at_async_path_shapes": fold_seen})
 
+    full_r = fedagg_partial_times(
+        PARTIAL_R, MAIN_P,
+        np.random.default_rng(7).uniform(0.05, 1.0, PARTIAL_R)
+        .astype(np.float32))
+    # one timing per distinct (rows, live rows) the path formed: the
+    # time depends on which rows are live, not on their coefficients
+    distinct_c = {(r, p, tuple(x > 0 for x in c)): c
+                  for r, p, _, c in partial_calls if any(x > 0 for x in c)}
+    partial_seen = [fedagg_partial_times(r, p, np.asarray(c, np.float32))
+                    for (r, p, _), c in sorted(distinct_c.items())]
+    emit({"phase": "fedagg_partial_times", "card": card,
+          f"at_r{PARTIAL_R}": full_r, "at_mesh_path_shapes": partial_seen})
+
     widest = seen[-1]          # the largest cohort the main path formed
     fold_widest = max(fold_seen, key=lambda t: t["k_live"])
+    partial_widest = max(partial_seen, key=lambda t: t["r_live"])
     print(card, flush=True)
     emit({"kernels": [{
         "name": "fedagg", "route": "cuda",
@@ -711,7 +1167,19 @@ def main() -> int:
         "ms": fold_widest["ms"], "plain_ms": fold_widest["plain_ms"],
         "bound_ms": fold_widest["bound_ms"],
         "bound_by": fold_widest["bound_by"],
-        "library_ms": fold_widest["library_ms"]}]})
+        "library_ms": fold_widest["library_ms"]}, {
+        "name": "fedagg_partial", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fedagg.cu",
+        "replaces": "src/repro/kernels/fedagg.py:163",
+        "launches": mesh_counts["fedagg_partial"],
+        "max_abs_err": max(t["max_abs_err"]
+                           for t in partial_seen + [full_r]),
+        "shape": [partial_widest["r"], partial_widest["p"]],
+        "r_live": partial_widest["r_live"],
+        "ms": partial_widest["ms"], "plain_ms": partial_widest["plain_ms"],
+        "bound_ms": partial_widest["bound_ms"],
+        "bound_by": partial_widest["bound_by"],
+        "library_ms": partial_widest["library_ms"]}]})
     emit({"ok": True,
           "device": {"platform": "gpu",
                      "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,8 @@ import numpy as np
 from repro_torch import obs
 from repro_torch.config.base import FLConfig
 from repro_torch.core.aggregation import staleness_merge
-from repro_torch.core.engine import make_engine, resolve_kernel_agg
+from repro_torch.core.engine import (make_engine, mesh_devices,
+                                     resolve_kernel_agg)
 from repro_torch.core.tiering import evaluate_client, tiering
 from repro_torch.fl.metrics import RunHistory
 from repro_torch.obs import flstats
@@ -41,7 +42,7 @@ from repro_torch.tree import tree_map
 def run_fedavg(trainer, network, fl: FLConfig, *,
                use_kernel_agg: Optional[bool] = None,
                engine: str = "batched", verbose: bool = False,
-               eval_every: int = 1) -> RunHistory:
+               eval_every: int = 1, mesh=None) -> RunHistory:
     use_kernel_agg = resolve_kernel_agg(use_kernel_agg, trainer)
     rng = np.random.default_rng(fl.seed + 11)
     tel = obs.TEL
@@ -50,8 +51,9 @@ def run_fedavg(trainer, network, fl: FLConfig, *,
                       meta={"mu": fl.mu, "primary_frac": fl.primary_frac,
                             "engine": engine,
                             "kernel_agg": use_kernel_agg,
-                            "mesh_devices": 1})
-    eng = make_engine(trainer, use_kernel_agg=use_kernel_agg, engine=engine)
+                            "mesh_devices": mesh_devices(mesh)})
+    eng = make_engine(trainer, use_kernel_agg=use_kernel_agg, engine=engine,
+                      mesh=mesh)
     params = trainer.init_params(fl.seed)
     clock = 0.0
     for rnd in range(1, fl.rounds + 1):
@@ -80,7 +82,7 @@ def run_fedavg(trainer, network, fl: FLConfig, *,
 def run_tifl(trainer, network, fl: FLConfig, *,
              use_kernel_agg: Optional[bool] = None,
              engine: str = "batched", verbose: bool = False,
-             eval_every: int = 1) -> RunHistory:
+             eval_every: int = 1, mesh=None) -> RunHistory:
     use_kernel_agg = resolve_kernel_agg(use_kernel_agg, trainer)
     rng = np.random.default_rng(fl.seed + 13)
     tel = obs.TEL
@@ -89,8 +91,9 @@ def run_tifl(trainer, network, fl: FLConfig, *,
                       meta={"mu": fl.mu, "primary_frac": fl.primary_frac,
                             "engine": engine,
                             "kernel_agg": use_kernel_agg,
-                            "mesh_devices": 1})
-    eng = make_engine(trainer, use_kernel_agg=use_kernel_agg, engine=engine)
+                            "mesh_devices": mesh_devices(mesh)})
+    eng = make_engine(trainer, use_kernel_agg=use_kernel_agg, engine=engine,
+                      mesh=mesh)
     params = trainer.init_params(fl.seed)
     clock = 0.0
 
@@ -227,8 +230,8 @@ def run_fedasync_sequential(trainer, network, fl: FLConfig, *,
 def run_fedasync(trainer, network, fl: FLConfig, *, engine: str = "batched",
                  use_kernel_agg: Optional[bool] = None,
                  verbose: bool = False, eval_every: int = 5,
-                 window: int = 0, window_secs: float = 0.0, use_store=None,
-                 store_capacity=None, store_cold_dir=None,
+                 window: int = 0, window_secs: float = 0.0, mesh=None,
+                 use_store=None, store_capacity=None, store_cold_dir=None,
                  quant_bits: int = 32) -> RunHistory:
     """FedAsync on the event-driven runtime.
 
@@ -245,7 +248,7 @@ def run_fedasync(trainer, network, fl: FLConfig, *, engine: str = "batched",
     return AsyncRunner(trainer, network, fl, method="fedasync",
                        engine=engine, use_kernel_agg=use_kernel_agg,
                        window=window, window_secs=window_secs,
-                       eval_every=eval_every, verbose=verbose,
+                       eval_every=eval_every, verbose=verbose, mesh=mesh,
                        use_store=use_store, store_capacity=store_capacity,
                        store_cold_dir=store_cold_dir,
                        quant_bits=quant_bits).run()
@@ -254,7 +257,7 @@ def run_fedasync(trainer, network, fl: FLConfig, *, engine: str = "batched",
 def run_fedbuff(trainer, network, fl: FLConfig, *, engine: str = "batched",
                 use_kernel_agg: Optional[bool] = None, verbose: bool = False,
                 eval_every: int = 5, window: int = 0,
-                window_secs: float = 0.0, use_store=None,
+                window_secs: float = 0.0, mesh=None, use_store=None,
                 store_capacity=None, store_cold_dir=None,
                 quant_bits: int = 32) -> RunHistory:
     """FedBuff [Nguyen'22]: async with a K-completion aggregation goal
@@ -263,7 +266,7 @@ def run_fedbuff(trainer, network, fl: FLConfig, *, engine: str = "batched",
     return AsyncRunner(trainer, network, fl, method="fedbuff",
                        engine=engine, use_kernel_agg=use_kernel_agg,
                        window=window or fl.tau, window_secs=window_secs,
-                       eval_every=eval_every, verbose=verbose,
+                       eval_every=eval_every, verbose=verbose, mesh=mesh,
                        use_store=use_store, store_capacity=store_capacity,
                        store_cold_dir=store_cold_dir,
                        quant_bits=quant_bits).run()
@@ -288,7 +291,7 @@ def run_method(method: str, trainer, network, fl: FLConfig, **kw
 def run_fedprox(trainer, network, fl: FLConfig, *, prox_mu: float = 0.01,
                 use_kernel_agg: Optional[bool] = None,
                 engine: str = "batched", verbose: bool = False,
-                eval_every: int = 1) -> RunHistory:
+                eval_every: int = 1, mesh=None) -> RunHistory:
     """FedProx [Li et al. 2020]: FedAvg + proximal term pulling local
     models toward the global model (extra baseline beyond the paper).
 
@@ -307,8 +310,9 @@ def run_fedprox(trainer, network, fl: FLConfig, *, prox_mu: float = 0.01,
                       meta={"mu": fl.mu, "prox_mu": prox_mu,
                             "engine": engine,
                             "kernel_agg": use_kernel_agg,
-                            "mesh_devices": 1})
-    eng = make_engine(trainer, use_kernel_agg=use_kernel_agg, engine=engine)
+                            "mesh_devices": mesh_devices(mesh)})
+    eng = make_engine(trainer, use_kernel_agg=use_kernel_agg, engine=engine,
+                      mesh=mesh)
     params = trainer.init_params(fl.seed)
     clock = 0.0
     blend = 1.0 / (1.0 + prox_mu * 10)

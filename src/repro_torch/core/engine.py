@@ -35,6 +35,12 @@ from repro_torch.obs import flstats
 from repro_torch.tree import tree_map, tree_stack
 
 
+def mesh_devices(mesh) -> int:
+    """``meta["mesh_devices"]`` of every loop: the client mesh's shard
+    count, 1 without a mesh."""
+    return int(mesh.size) if mesh is not None else 1
+
+
 def resolve_kernel_agg(use_kernel_agg: Optional[bool], trainer) -> bool:
     """``None`` -> whether the trainer's device is a CUDA device."""
     if use_kernel_agg is not None:
@@ -63,6 +69,8 @@ class BatchedClientEngine:
 
     # -- local training -------------------------------------------------
     def _pad_target(self, n: int) -> int:
+        """Padded cohort size for ``n`` clients (subclass hook: the
+        sharded engine also rounds up to a mesh multiple)."""
         return 1 << (n - 1).bit_length()
 
     def _pad_pow2(self, *lists):
@@ -73,6 +81,11 @@ class BatchedClientEngine:
         n = len(lists[0])
         target = self._pad_target(n)
         return tuple(l + [l[-1]] * (target - n) for l in lists)
+
+    def _local_train_batch(self, params, ids, rnd_seed):
+        """Trainer dispatch hook (the sharded engine injects its
+        ``wrap`` here)."""
+        return self.trainer.local_train_batch(params, ids, rnd_seed)
 
     def _local_train_cohort(self, stacked_starts, ids, seeds):
         return self.trainer.local_train_cohort(stacked_starts, ids, seeds)
@@ -88,7 +101,7 @@ class BatchedClientEngine:
             n = len(ids)
             (run_ids,) = self._pad_pow2(ids)
             try:
-                stacked, sizes = self.trainer.local_train_batch(
+                stacked, sizes = self._local_train_batch(
                     params, run_ids, rnd_seed)
                 if len(run_ids) != n:
                     stacked = tree_map(lambda l: l[:n], stacked)
@@ -240,10 +253,24 @@ class BatchedClientEngine:
 
 
 def make_engine(trainer, *, use_kernel_agg: Optional[bool] = None,
-                engine: str = "batched") -> BatchedClientEngine:
+                engine: str = "batched", mesh=None) -> BatchedClientEngine:
     """``engine``: "batched" (default) or "looped" (reference path for
-    equivalence tests and A/B benchmarks)."""
+    equivalence tests and A/B benchmarks).
+
+    ``mesh``: a 1-D client mesh (``repro_torch.distributed.
+    make_client_mesh``) to split cohorts over.  ``None`` or a 1-shard
+    mesh selects the plain engine — with one shard the distributed path
+    IS this engine, so histories stay bit-identical by construction; a
+    mesh of several shards returns the ``ShardedClientEngine``.
+    """
     if engine not in ("batched", "looped"):
         raise ValueError(f"unknown engine {engine!r}")
+    if mesh is not None and int(mesh.size) > 1:
+        if engine == "looped":
+            raise ValueError("the looped reference engine cannot shard; "
+                             "use engine='batched' with a client mesh")
+        from repro_torch.distributed.engine import ShardedClientEngine
+        return ShardedClientEngine(trainer, mesh,
+                                   use_kernel_agg=use_kernel_agg)
     return BatchedClientEngine(trainer, use_kernel_agg=use_kernel_agg,
                                force_looped=(engine == "looped"))

@@ -31,7 +31,8 @@ import numpy as np
 
 from repro_torch import obs
 from repro_torch.config.base import FLConfig
-from repro_torch.core.engine import make_engine, resolve_kernel_agg
+from repro_torch.core.engine import (make_engine, mesh_devices,
+                                     resolve_kernel_agg)
 from repro_torch.core.selection import cstt
 from repro_torch.core.tiering import evaluate_client, tiering, update_avg_time
 from repro_torch.fl.metrics import RunHistory
@@ -41,7 +42,7 @@ from repro_torch.obs import flstats
 def run_feddct(trainer, network, fl: FLConfig, *,
                use_kernel_agg: Optional[bool] = None,
                engine: str = "batched", verbose: bool = False,
-               eval_every: int = 1) -> RunHistory:
+               eval_every: int = 1, mesh=None) -> RunHistory:
     use_kernel_agg = resolve_kernel_agg(use_kernel_agg, trainer)
     rng = np.random.default_rng(fl.seed + 7)
     tel = obs.TEL
@@ -52,8 +53,9 @@ def run_feddct(trainer, network, fl: FLConfig, *,
                             "omega": fl.omega, "tau": fl.tau,
                             "n_tiers": fl.n_tiers, "engine": engine,
                             "kernel_agg": use_kernel_agg,
-                            "mesh_devices": 1})
-    eng = make_engine(trainer, use_kernel_agg=use_kernel_agg, engine=engine)
+                            "mesh_devices": mesh_devices(mesh)})
+    eng = make_engine(trainer, use_kernel_agg=use_kernel_agg, engine=engine,
+                      mesh=mesh)
     params = trainer.init_params(fl.seed)
     clock = 0.0
 

@@ -34,8 +34,17 @@ int32 (plain ``to`` both ways); uint32 round-trips by a bit-preserving
 ``view``.  Leaves the store cannot carry exactly — 64-bit ints, f64,
 complex — are rejected at construction with ``TypeError``.
 
-The reference's int8 rows (``quant_bits=8``), tiered residency and
-client-mesh sharding come with later slices.
+Client mesh (``mesh=`` of several shards): the buffer's rows are
+padded to the plan's ``padded_n`` (a multiple of the mesh size), as the
+reference pads them; the padded rows are never addressed.  The buffer
+stays whole on the template's device.  The reference also places row
+blocks on distinct devices — placement only, no value changes — which
+waits for the multi-GPU work (ROADMAP queue 1, item 15); the window
+merge stays ``merge_scatter``'s (kernel ``fedagg_fold``), as in the
+reference, while the cohort's training is sharded by the engine.
+
+The reference's int8 rows (``quant_bits=8``) and tiered residency come
+with later slices.
 """
 
 from __future__ import annotations
@@ -135,7 +144,7 @@ class ClientStateStore:
     instance per run; it owns the buffers (see the buffer contract in
     the module docstring)."""
 
-    def __init__(self, template_params, n_clients: int, *,
+    def __init__(self, template_params, n_clients: int, *, mesh=None,
                  quant_bits: int = 32):
         if n_clients < 1:
             raise ValueError(f"need at least one client, got {n_clients}")
@@ -149,7 +158,9 @@ class ClientStateStore:
         self.treedef, self.spec = treedef, spec
         self.entries, self.p, self.pi = _segment_entries(spec)
         self.n = int(n_clients)
-        self.rows = self.n
+        self.mesh = mesh if (mesh is not None and int(mesh.size) > 1) \
+            else None
+        self.rows = self._buffer_rows()
         self.quant_bits = 32
         self.error_feedback = False
         self.residency = "dense"
@@ -157,6 +168,14 @@ class ClientStateStore:
         frow, irow = self._flatten(template_params)
         self.bufs = (frow.unsqueeze(0).repeat(self.rows, 1),
                      irow.unsqueeze(0).repeat(self.rows, 1))
+
+    def _buffer_rows(self) -> int:
+        """Height of the row buffer: ``n``, or the client-mesh plan's
+        padded height."""
+        if self.mesh is not None:
+            from repro_torch.distributed.plan import ClientShardingPlan
+            return ClientShardingPlan.for_cohort(self.n, self.mesh).padded_n
+        return self.n
 
     def _ids(self, ids) -> torch.Tensor:
         """Row ids -> an index tensor on the store's device; on a CUDA

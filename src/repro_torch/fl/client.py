@@ -144,37 +144,49 @@ class CNNTrainer:
         return tree_map(lambda *leaves: torch.cat(leaves, dim=0)[inv],
                         *chunks)
 
-    def local_train_batch(self, params, client_ids, rnd_seed: int):
+    def local_train_batch(self, params, client_ids, rnd_seed: int, *,
+                          wrap=None):
         """Train many clients in one batched program.
 
         Clients whose local batch streams have differing shapes (ragged
         partitions) are bucketed by shape; each bucket is one call.
         Returns (stacked_params with leading axis len(client_ids) in
         input order, sizes array).
+
+        ``wrap`` is the distributed engine's hook: it receives the
+        stacked-train function plus the number of leading replicated
+        args and returns the runner to use (the client-sharded path).
         """
         sizes = np.asarray([len(self.clients[c]) for c in client_ids],
                            np.float32)
+        run = (self._batch_train_impl if wrap is None
+               else wrap(self._batch_train_impl, 1))
         stacked = self._bucketed_train(
             [(c, rnd_seed) for c in client_ids],
-            lambda xs, ys, positions: self._batch_train_impl(params, xs, ys))
+            lambda xs, ys, positions: run(params, xs, ys))
         return stacked, sizes
 
-    def local_train_cohort(self, start_params, client_ids, rnd_seeds):
+    def local_train_cohort(self, start_params, client_ids, rnd_seeds, *,
+                           wrap=None):
         """Per-client start models AND per-client data-stream seeds, one
         batched program.
 
         ``start_params`` is a stacked tree (leading axis
         len(client_ids)) of the model snapshot each client trains from;
         batch streams are identical to looping
-        ``local_train(start_i, c_i, seed_i)``.
+        ``local_train(start_i, c_i, seed_i)``.  ``wrap``: see
+        ``local_train_batch`` (every arg is per-client here, so zero
+        replicated args).
         """
         sizes = np.asarray([len(self.clients[c]) for c in client_ids],
                            np.float32)
+        run = (self._batch_train_multi_impl if wrap is None
+               else wrap(self._batch_train_multi_impl, 0))
 
         def chunk(xs, ys, positions):
             idx = torch.as_tensor(positions, device=self.device)
             starts = tree_map(lambda l: l[idx], start_params)
-            return self._batch_train_multi_impl(starts, xs, ys)
+            return run(starts, xs, ys)
 
         stacked = self._bucketed_train(list(zip(client_ids, rnd_seeds)),
                                        chunk)

@@ -5,9 +5,9 @@
 ``evaluate`` — with a deterministic elementwise update and no model in
 the loop, so harnesses can exercise the scheduler, engine, runtime and
 store paths and hold whole histories against the reference's: its
-arithmetic is elementwise adds, which agree to the last bit.  (The
-reference's ``wrap=`` hook of ``local_train_cohort`` belongs to the
-multi-GPU slice.)
+arithmetic is elementwise adds, which agree to the last bit.
+``local_train_cohort`` takes the distributed engine's ``wrap=`` hook,
+so the client-mesh path runs it sharded.
 """
 
 from __future__ import annotations
@@ -74,15 +74,23 @@ class SyntheticCohortTrainer:
         out = tree_map(lambda l: (l.float() + d).to(l.dtype), params)
         return out, 10.0 + client_id
 
-    def local_train_cohort(self, start_params, client_ids, rnd_seeds):
+    @staticmethod
+    def _cohort_impl(starts, d):
+        return tree_map(
+            lambda l: (l.float() + d.reshape((-1,) + (1,) * (l.ndim - 1))
+                       ).to(l.dtype), starts)
+
+    def local_train_cohort(self, start_params, client_ids, rnd_seeds, *,
+                           wrap=None):
         """The ``local_train`` update for a whole cohort at once: client
-        i adds its own delta to its own row of ``start_params``."""
+        i adds its own delta to its own row of ``start_params``.
+        ``wrap``: the distributed engine's hook (every arg per-client)."""
         d = torch.from_numpy(np.asarray(
             [self._delta(c, s) for c, s in zip(client_ids, rnd_seeds)],
             np.float32)).to(self.device)
-        stacked = tree_map(
-            lambda l: (l.float() + d.reshape((-1,) + (1,) * (l.ndim - 1))
-                       ).to(l.dtype), start_params)
+        run = self._cohort_impl if wrap is None else wrap(self._cohort_impl,
+                                                          0)
+        stacked = run(start_params, d)
         sizes = np.asarray([10.0 + c for c in client_ids], np.float32)
         return stacked, sizes
 

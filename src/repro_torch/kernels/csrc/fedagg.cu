@@ -41,6 +41,19 @@
 // term is kept apart from the row sum until the end and both are
 // rounded on their own (no contraction into the row sum's last fma),
 // as the reference adds them.  Bound: bytes, (K_live*P + 2P)*4.
+//
+// A third entry, fedagg_partial_f32, is the per-shard term of the client
+// mesh's reductions (replaces src/repro/kernels/fedagg.py:
+// _partial_kernel / fedagg_partial):
+//
+//   c = coef > 0 ? coef : 0 over the (R,) coefficients (NaN -> 0),
+//   out[p] = sum_r c_r * u[r][p]           (no normalisation)
+//
+// The caller adds the shards' outputs and divides by the sum of all
+// shards' coefficients.  Same stream and row loop again; the preamble
+// only masks the coefficients and packs the live rows, so a masked row
+// is never loaded and all-zero coefficients give exact zeros.  Bound:
+// bytes, (R_live*P + P)*4.
 
 #include <cuda_runtime.h>
 
@@ -121,6 +134,23 @@ __device__ __forceinline__ void add_rows(const float* __restrict__ u,
     for (int r = 0; r < R; ++r) fma_into(e[r], x[r], acc);
 }
 
+// This thread's columns summed over the n_live live rows, in row order:
+// ROWS_IN_FLIGHT rows at a time, then 4, then 1.
+template <typename V>
+__device__ __forceinline__ V sum_live_rows(const float* __restrict__ u,
+                                           long long p, long long col,
+                                           int n, int n_live) {
+    V acc = V();
+    int j = 0;
+    for (; j + ROWS_IN_FLIGHT <= n_live; j += ROWS_IN_FLIGHT)
+        add_rows<V, ROWS_IN_FLIGHT>(u, p, col, n, j, acc);
+    for (; j + 4 <= n_live; j += 4)
+        add_rows<V, 4>(u, p, col, n, j, acc);
+    for (; j < n_live; ++j)
+        add_rows<V, 1>(u, p, col, n, j, acc);
+    return acc;
+}
+
 template <typename V>
 __global__ void __launch_bounds__(FEDAGG_THREADS)
 fedagg_kernel(const float* __restrict__ u, const float* __restrict__ w,
@@ -138,15 +168,8 @@ fedagg_kernel(const float* __restrict__ u, const float* __restrict__ w,
     for (long long col =
              ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
          col < p; col += step) {
-        V acc = V();
-        int j = 0;
-        for (; j + ROWS_IN_FLIGHT <= n_live; j += ROWS_IN_FLIGHT)
-            add_rows<V, ROWS_IN_FLIGHT>(u, p, col, n, j, acc);
-        for (; j + 4 <= n_live; j += 4)
-            add_rows<V, 4>(u, p, col, n, j, acc);
-        for (; j < n_live; ++j)
-            add_rows<V, 1>(u, p, col, n, j, acc);
-        *reinterpret_cast<V*>(out + col) = acc;
+        *reinterpret_cast<V*>(out + col) =
+            sum_live_rows<V>(u, p, col, n, n_live);
     }
 }
 
@@ -249,14 +272,7 @@ fedagg_fold_kernel(const float* __restrict__ u, const float* __restrict__ g,
     for (long long col =
              ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
          col < p; col += step) {
-        V acc = V();
-        int j = 0;
-        for (; j + ROWS_IN_FLIGHT <= n_live; j += ROWS_IN_FLIGHT)
-            add_rows<V, ROWS_IN_FLIGHT>(u, p, col, k, j, acc);
-        for (; j + 4 <= n_live; j += 4)
-            add_rows<V, 4>(u, p, col, k, j, acc);
-        for (; j < n_live; ++j)
-            add_rows<V, 1>(u, p, col, k, j, acc);
+        V acc = sum_live_rows<V>(u, p, col, k, n_live);
         // c0 == 0: the global row is neither read nor multiplied, so
         // inf/nan in it cannot reach the output
         if (c0 > 0.0f)
@@ -275,6 +291,60 @@ static int launch_fold(const float* u, const float* g, const float* coef,
     const size_t smem = (size_t)k * (sizeof(float) + sizeof(int));
     fedagg_fold_kernel<V><<<blocks, FEDAGG_THREADS, smem, stream>>>(
         u, g, coef, out, k, p);
+    return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// fedagg_partial: one shard's unnormalised masked row sum
+// ---------------------------------------------------------------------
+
+// Masked coefficients into eff[] and the indices of the rows with c > 0
+// packed, in row order, to the front of live[] (the layout add_rows
+// reads).  Nothing is normalised.  Returns the live count.
+__device__ int partial_coefficients(const float* __restrict__ coef, int n,
+                                    float* eff, int* live) {
+    __shared__ int n_live;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const float c = coef[i];
+        eff[i] = c > 0.0f ? c : 0.0f;             // NaN compares false
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        int k = 0;
+        for (int i = 0; i < n; ++i)
+            if (eff[i] > 0.0f) live[k++] = i;
+        n_live = k;
+    }
+    __syncthreads();
+    return n_live;
+}
+
+template <typename V>
+__global__ void __launch_bounds__(FEDAGG_THREADS)
+fedagg_partial_kernel(const float* __restrict__ u,
+                      const float* __restrict__ coef,
+                      float* __restrict__ out, int n, long long p) {
+    constexpr int VEC = sizeof(V) / sizeof(float);
+    const int n_live = partial_coefficients(
+        coef, n, fedagg_smem, reinterpret_cast<int*>(fedagg_smem + n));
+
+    const long long step = (long long)gridDim.x * blockDim.x * VEC;
+    for (long long col =
+             ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+         col < p; col += step)
+        *reinterpret_cast<V*>(out + col) =
+            sum_live_rows<V>(u, p, col, n, n_live);
+}
+
+template <typename V>
+static int launch_partial(const float* u, const float* coef, float* out,
+                          int n, long long p, cudaStream_t stream) {
+    unsigned blocks = 0;
+    const int err = grid_blocks<V>(p, &blocks);
+    if (err != 0) return err;
+    const size_t smem = (size_t)n * (sizeof(float) + sizeof(int));
+    fedagg_partial_kernel<V><<<blocks, FEDAGG_THREADS, smem, stream>>>(
+        u, coef, out, n, p);
     return (int)cudaGetLastError();
 }
 
@@ -320,6 +390,26 @@ extern "C" int fedagg_fold_f32(const void* u, const void* g,
         case 4: return launch_fold<float4>(uf, gf, cf, of, k, p, s);
         case 2: return launch_fold<float2>(uf, gf, cf, of, k, p, s);
         case 1: return launch_fold<float>(uf, gf, cf, of, k, p, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// updates (n, p) contiguous f32, coefficients (n,), out (p,), all on the
+// current device.  `vec` as for fedagg_f32.  Returns cudaGetLastError()
+// after the launch; does not synchronise.
+extern "C" int fedagg_partial_f32(const void* u, const void* coef, void* out,
+                                  int n, long long p, int vec,
+                                  void* stream) {
+    if (n < 1 || n > FEDAGG_MAX_ROWS || p < 1 || vec < 1 || p % vec != 0)
+        return (int)cudaErrorInvalidValue;
+    const float* uf = static_cast<const float*>(u);
+    const float* cf = static_cast<const float*>(coef);
+    float* of = static_cast<float*>(out);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (vec) {
+        case 4: return launch_partial<float4>(uf, cf, of, n, p, s);
+        case 2: return launch_partial<float2>(uf, cf, of, n, p, s);
+        case 1: return launch_partial<float>(uf, cf, of, n, p, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -27,15 +27,24 @@ coefficients ``(K+1,)``, global first.  Same bound (bytes: ``(K*P + 2P)
 * 4``, about 222 MB at K=32 of full-width ``cnn-mnist``, 66 us at 3.35
 TB/s) and the same row loop as ``fedagg``.
 
-Both kernels, and the plain versions beside them, sum rows in one fixed
+``fedagg_partial`` replaces the Pallas TPU kernel ``_partial_kernel``
+(wrapper ``fedagg_partial``), the per-shard term of the client mesh's
+reductions (``distributed/aggregate.py``), with a third entry of the
+same source: rows ``(R, P)`` and coefficients ``(R,)`` -> the
+UNnormalised masked row sum ``sum_r c_r * u_r``; the caller adds the
+shards' sums and normalises.  Bound: bytes, ``(R_live*P + P) * 4`` —
+the mesh path's shards hold 1-2 rows of full-width ``cnn-mnist``, 13-20
+MB, 4-6 us at 3.35 TB/s.
+
+All three kernels, and the plain versions beside them, sum rows in one fixed
 sequential order and skip a masked row before it is read, so rows of
 coefficient 0 appended to a call (the engine's padded cohorts) leave
 every output bit unchanged.  ``torch.sum`` over rows does not promise
 that: its blocking depends on the row count.
 
-A CUDA tensor goes to the kernel or the call raises; ``fedagg_plain``
-and ``fedagg_fold_plain`` serve CPU tensors and the checks that hold
-the kernels against them.
+A CUDA tensor goes to the kernel or the call raises; ``fedagg_plain``,
+``fedagg_fold_plain`` and ``fedagg_partial_plain`` serve CPU tensors
+and the checks that hold the kernels against them.
 """
 
 from __future__ import annotations
@@ -45,14 +54,18 @@ import ctypes
 import numpy as np
 import torch
 
-# launches of the CUDA kernels by ``fedagg`` and by ``fedagg_fold``
-# (and nothing else)
+# launches of the CUDA kernels by ``fedagg``, ``fedagg_fold`` and
+# ``fedagg_partial`` (and nothing else)
 launches = 0
 fold_launches = 0
+partial_launches = 0
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_void_p]
+_PARTIAL_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                     ctypes.c_void_p]
 
 
 def fedagg_plain(updates, weights, alphas=None):
@@ -87,33 +100,48 @@ def _f32_on(x, device):
     return x.pin_memory().to(device, non_blocking=True)
 
 
+def ordered_sum(v):
+    """Sum of a small f32 vector in index order, one add at a time, as
+    the kernels' single thread takes it: trailing zeros change no bit of
+    it, which ``torch.sum`` does not promise."""
+    total = torch.zeros((), dtype=torch.float32, device=v.device)
+    for i in range(v.shape[0]):
+        total = total + v[i]
+    return total
+
+
 def fold_coefficients(coef, device):
     """(K+1,) merge coefficients -> masked, normalised f32 on ``device``:
-    ``c = c > 0 ? c : 0`` (NaN -> 0), divided by ``max(sum c, 1e-30)``.
-    The sum runs in index order, one add at a time, as the kernel's
-    single thread takes it: trailing zeros change no bit of it."""
+    ``c = c > 0 ? c : 0`` (NaN -> 0), divided by ``max(sum c, 1e-30)``
+    (``ordered_sum``)."""
     c = _f32_on(coef, device)
     c = torch.where(c > 0.0, c, torch.zeros_like(c))
-    total = torch.zeros((), dtype=torch.float32, device=c.device)
-    for i in range(c.shape[0]):
-        total = total + c[i]
-    return c / torch.clamp(total, min=1e-30)
+    return c / torch.clamp(ordered_sum(c), min=1e-30)
 
 
-def fold_rows(updates, g, c):
-    """``(c0 > 0 ? c0*g : 0) + sum_k c_k*u_k`` in f32, the rows added one
-    at a time in row order; a row with ``c_k <= 0`` is zeroed, with its
-    coefficient, before the multiply.  ``updates`` (K, ...), ``g``
-    (...), ``c`` the (K+1,) output of ``fold_coefficients``."""
+def row_sum(updates, c):
+    """``sum_k c_k*u_k`` in f32, the rows added one at a time in row
+    order; a row with ``c_k <= 0`` (or NaN) is zeroed, with its
+    coefficient, before the multiply, so appended rows of coefficient 0
+    leave every bit unchanged.  ``updates`` (K, ...), ``c`` (K,)."""
     zero = torch.zeros((), dtype=torch.float32, device=updates.device)
-    c0, cr = c[0], c[1:]
     acc = torch.zeros(updates.shape[1:], dtype=torch.float32,
                       device=updates.device)
     for k in range(updates.shape[0]):
-        live = cr[k] > 0.0
+        live = c[k] > 0.0
         acc = acc + (torch.where(live, updates[k].float(), zero)  # fedlint: disable=FED003 -- eager PyTorch runs the multiply and the add as two operations, never contracted; padded == unpadded and store == dict are test-pinned
-                     * torch.where(live, cr[k], zero))
-    return torch.where(c0 > 0.0, c0 * g.float(), zero) + acc
+                     * torch.where(live, c[k], zero))
+    return acc
+
+
+def fold_rows(updates, g, c):
+    """``(c0 > 0 ? c0*g : 0) + sum_k c_k*u_k`` in f32 (``row_sum``).
+    ``updates`` (K, ...), ``g`` (...), ``c`` the (K+1,) output of
+    ``fold_coefficients``."""
+    zero = torch.zeros((), dtype=torch.float32, device=updates.device)
+    c0 = c[0]
+    return torch.where(c0 > 0.0, c0 * g.float(), zero) + row_sum(updates,
+                                                                   c[1:])
 
 
 def fedagg_fold_plain(updates, g, coef):
@@ -121,6 +149,14 @@ def fedagg_fold_plain(updates, g, coef):
     g (P,), coef (K+1,) -> (P,) in ``updates.dtype``."""
     c = fold_coefficients(coef, updates.device)
     return fold_rows(updates, g, c).to(updates.dtype)
+
+
+def fedagg_partial_plain(updates, coef):
+    """Plain PyTorch version of one shard's partial sum: updates (R,P),
+    coef (R,) -> the unnormalised masked row sum (P,) in
+    ``updates.dtype``."""
+    c = _f32_on(coef, updates.device)
+    return row_sum(updates, c).to(updates.dtype)
 
 
 def _lib():
@@ -131,6 +167,8 @@ def _lib():
         lib.fedagg_f32.restype = ctypes.c_int
         lib.fedagg_fold_f32.argtypes = _ARGTYPES
         lib.fedagg_fold_f32.restype = ctypes.c_int
+        lib.fedagg_partial_f32.argtypes = _PARTIAL_ARGTYPES
+        lib.fedagg_partial_f32.restype = ctypes.c_int
         lib.fedagg_max_rows.argtypes = []
         lib.fedagg_max_rows.restype = ctypes.c_int
     return lib
@@ -245,4 +283,53 @@ def fedagg_fold(updates, g, coef):
         raise RuntimeError(
             f"fedagg_fold kernel launch failed: CUDA error {err}")
     fold_launches += 1
+    return out
+
+
+def fedagg_partial(updates, coef):
+    """One shard's term of the client mesh's reductions: updates (R,P),
+    coef (R,) -> ``sum_r c_r * u_r`` (P,), NOT normalised.
+
+    Rows with ``c_r <= 0`` (or NaN) are skipped before they are read,
+    so inf/nan in them cannot reach the sum; all-zero coefficients give
+    zeros.  On a CUDA tensor this launches the kernel on the current
+    stream and does not synchronize; it takes contiguous f32 ``updates``
+    and raises on anything else.
+    """
+    global partial_launches
+    if updates.ndim != 2 or tuple(np.shape(coef)) != (updates.shape[0],):
+        raise ValueError(
+            f"fedagg_partial: updates (R,P) and coef (R,) expected, got "
+            f"{tuple(updates.shape)} and {tuple(np.shape(coef))}")
+    if updates.device.type != "cuda":
+        return fedagg_partial_plain(updates, coef)
+
+    n, p = updates.shape
+    if updates.dtype != torch.float32:
+        raise TypeError(
+            f"fedagg_partial kernel takes f32 rows, got {updates.dtype}")
+    if not updates.is_contiguous():
+        raise ValueError("fedagg_partial kernel takes a contiguous (R,P) "
+                         "buffer")
+    if n < 1 or p < 1:
+        raise ValueError(f"fedagg_partial kernel: empty buffer {n}x{p}")
+    lib = _lib()
+    max_rows = lib.fedagg_max_rows()
+    if n > max_rows:
+        raise ValueError(f"fedagg_partial kernel: {n} rows exceed the "
+                         f"{max_rows} whose coefficients fit its shared "
+                         "memory")
+    dev = updates.device
+    c = _f32_on(coef, dev)
+    out = torch.empty((p,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):          # the launch goes to `dev`
+        err = lib.fedagg_partial_f32(updates.data_ptr(), c.data_ptr(),
+                                     out.data_ptr(), n, p,
+                                     _vector_width(p, updates, out),
+                                     torch.cuda.current_stream(dev)
+                                     .cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fedagg_partial kernel launch failed: CUDA error {err}")
+    partial_launches += 1
     return out

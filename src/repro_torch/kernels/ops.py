@@ -5,7 +5,8 @@ stacked client-update tree is flattened ONCE into a single (N, P) f32
 buffer (unflatten spec cached per tree structure), reduced by the fused
 fedagg kernel in one pass, and split back — instead of one launch per
 leaf.  ``fedagg_fold_pytree`` is its async-window twin over the folded
-merge kernel.
+merge kernel.  ``fedagg_partial_op`` is one client-mesh shard's
+unnormalised partial sum (``distributed/aggregate.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.fedagg import fedagg, fedagg_fold
+from repro_torch.kernels.fedagg import fedagg, fedagg_fold, fedagg_partial
 from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
                               tree_unflatten)
 
@@ -136,3 +137,7 @@ def fedagg_fold_pytree(global_params, stacked_updates, coef):
     flat = fedagg_fold(buf, g_flat, coef)
     out = unflatten_result(flat, treedef, spec)
     return tree_map(lambda g, m: m.to(g.dtype), global_params, out)
+
+
+def fedagg_partial_op(updates, coef):
+    return fedagg_partial(updates, coef)

@@ -6,10 +6,20 @@
     PYTHONPATH=src python -m repro_torch.launch.fl_train --arch cnn-mnist \\
         --method feddct_async --rounds 20 --clients 50 --tiers 5 --tau 5
 
+    REPRO_TORCH_FLAGS=--force_client_shards=4 PYTHONPATH=src \\
+        python -m repro_torch.launch.fl_train --arch cnn-mnist \\
+        --method feddct --mesh-clients 4
+
 Runs on the CUDA device (and raises when there is none) unless
-``--device cpu`` is given.  On a CUDA device the round's aggregation
-and the async window merge go through the hand-written fedagg kernels
-by default (``--no-kernel-agg`` selects the per-leaf path).  The
+``--device cpu`` is given.  ``--mesh-clients N`` splits every cohort
+over a client mesh of N shards: every visible GPU, or — under the
+forced count above — N virtual shards of the one device (the
+counterpart of the JAX package's forced host devices); without either
+it clamps to the devices there are.  On a CUDA device the round's
+aggregation and the async window merge go through the hand-written
+fedagg kernels by default (``--no-kernel-agg`` selects the per-leaf
+path; with a mesh, each shard's partial sum is kernel
+``fedagg_partial``).  The
 wireless delay/failure model supplies virtual time; f32 products run in
 full precision (no TF32).
 """
@@ -61,6 +71,11 @@ def main(argv=None):
                          "a dict of trees instead of the device-resident "
                          "flat ClientStateStore (reference path, "
                          "bit-identical histories)")
+    ap.add_argument("--mesh-clients", type=int, default=0,
+                    help="shard cohorts over a 1-D client mesh of N "
+                         "devices (0 = single-device engine; for N "
+                         "virtual shards of one device set "
+                         "REPRO_TORCH_FLAGS=--force_client_shards=N)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises when absent) or cpu")
     ap.add_argument("--scale", type=float, default=0.05,
@@ -81,6 +96,11 @@ def main(argv=None):
                                device=device)
     kw = dict(verbose=True, engine=args.engine,
               use_kernel_agg=args.kernel_agg)
+    if args.mesh_clients > 0:
+        from repro_torch.distributed import client_devices, make_client_mesh
+        kw["mesh"] = make_client_mesh(args.mesh_clients,
+                                      devices=client_devices(device))
+        print(f"[fl_train] client mesh: {kw['mesh'].size} device(s)")
     if args.method in ("fedasync", "fedbuff"):
         kw["window"] = args.window
         kw["window_secs"] = args.window_secs

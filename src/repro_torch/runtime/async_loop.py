@@ -29,9 +29,12 @@ the window is NOT discarded; its completion stays queued and merges in
 a later round, discounted by its staleness.
 
 The window step reads no tensor back: the only readback of a run is
-``trainer.evaluate``.  The reference's client mesh, int8 rows and
-tiered residency come with later slices; asking for the last two
-raises ``NotImplementedError``.
+``trainer.evaluate``.  ``mesh=`` (a client mesh of several shards)
+trains every window's cohort sharded; the dict path's window merge is
+then the sharded reduction (kernel ``fedagg_partial``), the store
+path's stays ``merge_scatter`` (kernel ``fedagg_fold``), as in the
+reference.  The reference's int8 rows and tiered residency come with
+later slices; asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ import numpy as np
 from repro_torch import obs
 from repro_torch.config.base import FLConfig
 from repro_torch.core.aggregation import staleness_merge
-from repro_torch.core.engine import make_engine, resolve_kernel_agg
+from repro_torch.core.engine import (make_engine, mesh_devices,
+                                     resolve_kernel_agg)
 from repro_torch.core.selection import cstt
 from repro_torch.core.state import ClientStateStore, wire_bytes
 from repro_torch.core.tiering import evaluate_client, tiering, update_avg_time
@@ -54,8 +58,9 @@ from repro_torch.runtime.events import ClientEvent, EventQueue
 from repro_torch.tree import tree_map
 
 
-def _resolve_store(params, n_clients: int, use_store, window_active: bool,
-                   capacity=None, cold_dir=None, quant_bits: int = 32):
+def _resolve_store(params, n_clients: int, mesh, use_store,
+                   window_active: bool, capacity=None, cold_dir=None,
+                   quant_bits: int = 32):
     """-> ``(ClientStateStore or None, reason)`` applying the store
     policy in one place.  ``None`` store means the dict-of-trees path;
     ``reason`` is a machine-checkable tag recorded on the
@@ -89,7 +94,7 @@ def _resolve_store(params, n_clients: int, use_store, window_active: bool,
     if use_store is None and not window_active:
         return None, "window0-sequential"
     reason = "forced-on" if use_store is True else "auto-windowed"
-    return ClientStateStore(params, n_clients), reason
+    return ClientStateStore(params, n_clients, mesh=mesh), reason
 
 
 def _alphas(fl: FLConfig, stalenesses: List[int]) -> List[float]:
@@ -169,7 +174,8 @@ def _merge_window_store(eng, store: ClientStateStore, params,
     return params
 
 
-def _store_meta(store, reason: str, kernel_agg: bool, wb: int) -> Dict:
+def _store_meta(store, reason: str, kernel_agg: bool, wb: int,
+                mesh) -> Dict:
     """The snapshot-path keys every async ``RunHistory.meta`` carries."""
     return {"store": store is not None,
             "store_path": "store" if store is not None else "dict",
@@ -181,7 +187,7 @@ def _store_meta(store, reason: str, kernel_agg: bool, wb: int) -> Dict:
             "error_feedback": (store.error_feedback if store is not None
                                else False),
             "wire_bytes_per_update": wb,
-            "mesh_devices": 1}
+            "mesh_devices": mesh_devices(mesh)}
 
 
 def _close_meta(hist: RunHistory, store, cohort_sizes: List[int],
@@ -206,7 +212,7 @@ class AsyncRunner:
                  method: str = "fedasync", engine: str = "batched",
                  use_kernel_agg: Optional[bool] = None, window: int = 0,
                  window_secs: float = 0.0, eval_every: int = 5,
-                 verbose: bool = False, use_store=None,
+                 verbose: bool = False, mesh=None, use_store=None,
                  store_capacity=None, store_cold_dir=None,
                  quant_bits: int = 32):
         self.trainer = trainer
@@ -215,6 +221,9 @@ class AsyncRunner:
         self.method = method
         self.engine = engine
         self.use_kernel_agg = resolve_kernel_agg(use_kernel_agg, trainer)
+        # client mesh for the distributed engine: windowed cohorts train
+        # sharded, and the store's rows are padded to a mesh multiple
+        self.mesh = mesh
         # device-resident client-state store: all N snapshots live as
         # one flat (N, P) buffer.  Tri-state: None (default) = on for
         # windowed modes, off for the pure sequential window=0 loop;
@@ -237,13 +246,13 @@ class AsyncRunner:
         tel = obs.TEL
         run_span = tel.span("run", method=self.method).start()
         eng = make_engine(self.trainer, use_kernel_agg=self.use_kernel_agg,
-                          engine=self.engine)
+                          engine=self.engine, mesh=self.mesh)
         params = self.trainer.init_params(fl.seed)
         # true async: each client trains from the global model snapshot
         # taken when it STARTED (not finished) — staleness weights exist
         # to correct exactly that lag.
         store, self.store_reason = _resolve_store(
-            params, fl.n_clients, self.use_store,
+            params, fl.n_clients, self.mesh, self.use_store,
             window_active=(self.buffer.window > 0
                            or self.buffer.window_secs > 0),
             capacity=self.store_capacity, cold_dir=self.store_cold_dir,
@@ -262,7 +271,7 @@ class AsyncRunner:
                   "engine": self.engine, "window": self.buffer.window,
                   "window_secs": self.buffer.window_secs,
                   **_store_meta(store, self.store_reason,
-                                self.use_kernel_agg, wb)})
+                                self.use_kernel_agg, wb, self.mesh)})
         first = net.delays(np.arange(fl.n_clients), 0)
         q = EventQueue([ClientEvent(float(t), c, 0, 0, cost=float(t))
                         for c, t in enumerate(first)])
@@ -348,7 +357,7 @@ def run_feddct_async(trainer, network, fl: FLConfig, *,
                      engine: str = "batched",
                      use_kernel_agg: Optional[bool] = None,
                      verbose: bool = False, eval_every: int = 1,
-                     use_store=None, store_capacity=None,
+                     mesh=None, use_store=None, store_capacity=None,
                      store_cold_dir=None,
                      quant_bits: int = 32) -> RunHistory:
     """Semi-async FedDCT: tier timeouts become aggregation windows.
@@ -367,13 +376,14 @@ def run_feddct_async(trainer, network, fl: FLConfig, *,
     rng = np.random.default_rng(fl.seed + 19)
     tel = obs.TEL
     run_span = tel.span("run", method="feddct_async").start()
-    eng = make_engine(trainer, use_kernel_agg=use_kernel_agg, engine=engine)
+    eng = make_engine(trainer, use_kernel_agg=use_kernel_agg, engine=engine,
+                      mesh=mesh)
     params = trainer.init_params(fl.seed)
     # snapshot-at-selection state: store rows (device-resident flat
     # buffer) by default — tier windows always batch — with the
     # dict-of-trees path as the A/B reference (use_store=False)
-    store, store_reason = _resolve_store(params, fl.n_clients, use_store,
-                                         window_active=True,
+    store, store_reason = _resolve_store(params, fl.n_clients, mesh,
+                                         use_store, window_active=True,
                                          capacity=store_capacity,
                                          cold_dir=store_cold_dir,
                                          quant_bits=quant_bits)
@@ -386,7 +396,7 @@ def run_feddct_async(trainer, network, fl: FLConfig, *,
                             "n_tiers": fl.n_tiers, "engine": engine,
                             "alpha": fl.async_alpha, "a": fl.async_a,
                             **_store_meta(store, store_reason,
-                                          use_kernel_agg, wb)})
+                                          use_kernel_agg, wb, mesh)})
     clock = 0.0
 
     # initial kappa-round evaluation of every client (parallel), exactly

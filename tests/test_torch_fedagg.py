@@ -1,6 +1,7 @@
-"""The port's aggregation (plain fedagg, tree path, per-leaf path)
-against the reference's Pallas kernel in interpret mode and its jnp
-oracle.  Tolerance rtol=1e-5, atol=1e-6: f32 row sums in another
+"""The port's aggregation (plain fedagg, tree path, per-leaf path) and
+the client mesh's per-shard partial sum (plain ``fedagg_partial``)
+against the reference's Pallas kernels in interpret mode and their jnp
+oracles.  Tolerance rtol=1e-5, atol=1e-6: f32 row sums in another
 order."""
 
 import jax
@@ -12,13 +13,15 @@ import torch
 
 from repro.core import aggregation as ref_agg
 from repro.kernels import fedagg_op as ref_fedagg_op
+from repro.kernels import fedagg_partial_op as ref_fedagg_partial_op
 from repro.kernels import ops as ref_ops
-from repro.kernels.ref import fedagg_ref
+from repro.kernels.ref import fedagg_partial_ref, fedagg_ref
 from repro_torch import bridge
 from repro_torch.core import aggregation as pt_agg
 from repro_torch.kernels import fedagg as fedagg_mod
-from repro_torch.kernels import fedagg_op, fedagg_pytree, ops
-from repro_torch.kernels.fedagg import fedagg_plain
+from repro_torch.kernels import (fedagg_op, fedagg_partial_op,
+                                 fedagg_pytree, ops)
+from repro_torch.kernels.fedagg import fedagg_partial_plain, fedagg_plain
 from repro_torch.tree import tree_leaves
 
 torch.set_num_threads(1)
@@ -205,3 +208,77 @@ def test_weighted_average_list_form_and_empty_list():
     _assert_trees_close(got, want)
     with pytest.raises(ValueError):
         pt_agg.weighted_average([], [])
+
+
+# ---------------------------------------------------------------------------
+# fedagg_partial: one client-mesh shard's unnormalised masked row sum
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", CASES)
+def test_fedagg_partial_plain_matches_reference_kernel_and_oracle(name):
+    u, w, a = _case(name)
+    coef = w if a is None else w * a
+    # coefficients of the size a shard sees in the staleness merge
+    # (sum <= 1), so the stated f32 tolerance bounds reassociation of
+    # sums of order one; masked entries (0, negative, NaN) stay as made
+    total = np.where(coef > 0, coef, 0.0).sum()
+    if total > 0:
+        coef = np.where(coef > 0, coef / total, coef)
+    coef = coef.astype(np.float32)
+    kernel = np.asarray(ref_fedagg_partial_op(
+        jnp.asarray(u), jnp.asarray(coef), block_p=128, interpret=True))
+    oracle = np.asarray(fedagg_partial_ref(jnp.asarray(u), jnp.asarray(coef)))
+    before = fedagg_mod.partial_launches
+    got = fedagg_partial_op(torch.from_numpy(u), torch.from_numpy(coef))
+    assert fedagg_mod.partial_launches == before  # CPU tensor: no launch
+    assert got.dtype == torch.float32 and got.shape == (u.shape[1],)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), kernel, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), oracle, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, fedagg_partial_plain(torch.from_numpy(u),
+                                                 coef))
+    if name == "all-zero":
+        assert not got.numpy().any()
+
+
+def test_fedagg_partial_is_unnormalised_and_masked():
+    u = torch.tensor([[2.0, 4.0], [np.nan, np.nan], [1.0, 1.0]])
+    got = fedagg_partial_op(u, [0.5, 0.0, 2.0])
+    assert got.tolist() == [3.0, 4.0]
+    got = fedagg_partial_op(u, [0.5, float("nan"), -1.0])
+    assert got.tolist() == [1.0, 2.0]
+
+
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_fedagg_partial_appended_zero_rows_are_bitwise(k):
+    """The plan's zero rows with zero coefficients (here: 8 - k of them,
+    holding garbage) leave every output bit unchanged."""
+    rng = np.random.default_rng(k)
+    u = rng.normal(size=(k, 515)).astype(np.float32)
+    c = rng.uniform(0.05, 1.0, k).astype(np.float32)
+    c[1] = 0.0
+    base = fedagg_partial_plain(torch.from_numpy(u), c)
+    pad = np.full((8 - k, 515), np.nan, np.float32)
+    padded = fedagg_partial_plain(
+        torch.from_numpy(np.concatenate([u, pad])),
+        np.concatenate([c, np.zeros(8 - k, np.float32)]))
+    assert torch.equal(base, padded)
+
+
+def test_fedagg_partial_plain_keeps_the_row_dtype():
+    rng = np.random.default_rng(1)
+    u = rng.normal(size=(5, 33)).astype(ml_dtypes.bfloat16)
+    c = rng.uniform(0.1, 2.0, 5).astype(np.float32)
+    want = np.asarray(fedagg_partial_ref(jnp.asarray(u), jnp.asarray(c)))
+    got = fedagg_partial_plain(bridge.to_torch(u), torch.from_numpy(c))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               want.astype(np.float32), rtol=1e-2, atol=1e-2)
+
+
+def test_fedagg_partial_wrapper_rejects_wrong_shapes():
+    u = torch.zeros(3, 5)
+    with pytest.raises(ValueError):
+        fedagg_partial_op(u, torch.ones(4))
+    with pytest.raises(ValueError):
+        fedagg_partial_op(u[0], torch.ones(3))
