@@ -5,13 +5,16 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, drives the port's
-three paths through those kernels — the sync path
+paths through those kernels — the sync path
 (``repro_torch.launch.fl_train``: FedDCT on full-width ``cnn-mnist``, 50
 clients, 5 rounds; kernel ``fedagg``), the async path (semi-async
 FedDCT and FedBuff over the client-state store; kernel
-``fedagg_fold``) and the client-mesh path (``--mesh-clients 4`` over
+``fedagg_fold``), the client-mesh path (``--mesh-clients 4`` over
 four virtual shards of the card; kernel ``fedagg_partial`` once per
-shard) — and prints one JSON object per phase.  Each path runs with
+shard) and LM serving (``launch/steps.py``: prefill of full-width
+``hymba-1.5b`` and ``llama3.2-1b``, decode of ``hymba-1.5b``; kernels
+``flash_attention`` and ``ssm_scan``) — and prints one JSON object per
+phase.  Each path runs with
 every launch count set to 0 just before it and read just after.  Any
 failure exits non-zero; there is no CPU path.  The last line of
 standard output is ``{"ok": true, "device": {"platform": "gpu", "kind":
@@ -80,16 +83,30 @@ def emit(obj) -> None:
 
 def zero_counts() -> None:
     from repro_torch.kernels import fedagg as fedagg_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssm_scan as ss_mod
     fedagg_mod.launches = 0
     fedagg_mod.fold_launches = 0
     fedagg_mod.partial_launches = 0
+    fa_mod.launches = 0
+    ss_mod.launches = 0
 
 
 def counts() -> dict:
     from repro_torch.kernels import fedagg as fedagg_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssm_scan as ss_mod
     return {"fedagg": fedagg_mod.launches,
             "fedagg_fold": fedagg_mod.fold_launches,
-            "fedagg_partial": fedagg_mod.partial_launches}
+            "fedagg_partial": fedagg_mod.partial_launches,
+            "flash_attention": fa_mod.launches,
+            "ssm_scan": ss_mod.launches}
+
+
+def only(**launched) -> dict:
+    """The launch counts of a run that launched ``launched`` and no
+    other kernel."""
+    return {**dict.fromkeys(counts(), 0), **launched}
 
 
 @contextlib.contextmanager
@@ -793,8 +810,9 @@ def fedagg_partial_times(r: int, p: int, coef):
     gen = torch.Generator(device="cuda").manual_seed(6)
     u = torch.randn(r, p, generator=gen, device="cuda")
     coef = np.asarray(coef, np.float32)
-    coef = np.where(coef > 0, coef / coef[coef > 0].sum(), coef) \
-        .astype(np.float32)
+    if (coef > 0).any():
+        coef = np.where(coef > 0, coef / coef[coef > 0].sum(), coef) \
+            .astype(np.float32)
     c = torch.as_tensor(coef, dtype=torch.float32, device="cuda")
     err = check_partial(f"timed-{r}x{p}", u, c)
     copies = max(1, -(-int(3 * L2_BYTES) // (4 * r * p)))
@@ -1044,15 +1062,13 @@ def mesh_async_path():
             "mesh_devices") != MESH_SHARDS or multi < 1:
         fail(f"mesh async store run: meta {store.meta}, windows "
              f"{store_wins}")
-    if store_counts != {"fedagg": 0, "fedagg_fold": multi,
-                        "fedagg_partial": 0}:
+    if store_counts != only(fedagg_fold=multi):
         fail(f"mesh async store run launched {store_counts} for windows "
              f"{store_wins}")
     if on_dict.meta.get("store_path") != "dict" or dict_wins != store_wins:
         fail(f"mesh async dict run: {on_dict.meta.get('store_path')}, "
              f"windows {dict_wins} vs {store_wins}")
-    if dict_counts != {"fedagg": 0, "fedagg_fold": 0,
-                       "fedagg_partial": MESH_SHARDS * multi}:
+    if dict_counts != only(fedagg_partial=MESH_SHARDS * multi):
         fail(f"mesh async dict run launched {dict_counts} for windows "
              f"{dict_wins}")
     merge_err = _models_max_abs(store_final, dict_final)
@@ -1076,6 +1092,680 @@ def mesh_async_path():
             "accuracy_max_abs": acc_err, "accuracy_atol": MESH_ACC_ATOL}
 
 
+# ---------------------------------------------------------------------
+# flash_attention (K4) and ssm_scan (K5)
+# ---------------------------------------------------------------------
+
+# (rtol, atol), kernel against plain twin on the same card tensors.  f32:
+# the JAX kernel tests' (tests/test_kernels.py: 2e-5 for attention, 1e-4
+# for the scan), sums in another order.  bf16: both sides compute in f32
+# from the same bf16 inputs and round once at the end, so they may differ
+# by one bf16 rounding, at most 2^-7 of the value: rtol 8e-3 (attention)
+# and 1e-2 (scan), with an atol for outputs near zero.  A kernel off by a
+# few percent fails.
+FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (8e-3, 1e-3)}
+SS_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-3)}
+
+
+def _tol(table, dtype):
+    return table[str(dtype).removeprefix("torch.")]
+
+
+def _close(got, want, tol):
+    import torch
+    rtol, atol = tol
+    return torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def check_flash(name, q, k, v, *, causal=True, window=0, q_offset=0):
+    """Attention kernel vs its plain twin on the same card tensors."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+    torch.cuda.synchronize()
+    want = fa.gqa_plain(q, k, v, causal=causal, window=window,
+                        q_offset=q_offset)
+    tol = _tol(FA_TOL, q.dtype)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"flash_attention[{name}]: shape/dtype {got.shape} {got.dtype}")
+    if not bool(torch.isfinite(got).all()):
+        fail(f"flash_attention[{name}]: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    if not _close(got, want, tol):
+        fail(f"flash_attention[{name}]: disagrees with its plain twin, "
+             f"max abs err {err} (rtol, atol {tol})")
+    b, s, h, d = q.shape
+    return {"case": name, "b": b, "s": s, "t": int(k.shape[1]), "h": h,
+            "hkv": int(k.shape[2]), "d": d, "dtype": str(q.dtype),
+            "causal": causal, "window": window, "q_offset": q_offset,
+            "max_abs_err": err, "tol": tol}
+
+
+def flash_cases():
+    """K4 against its plain twin: the JAX kernel tests' shapes (causal
+    and not, q_offset = t - s), windows, GQA groups of 4 (llama) and 5
+    (hymba), f32 and bf16, a tail shape, and rows that see no key (the
+    mean of v over all T keys)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(10)
+
+    def qkv(b, s, t, h, hkv, d, dtype=torch.float32):
+        def r(*shape):
+            return torch.randn(*shape, generator=gen,
+                               device="cuda").to(dtype)
+        return r(b, s, h, d), r(b, t, hkv, d), r(b, t, hkv, d)
+
+    cases = []
+    for s, t, d in ((128, 128, 64), (256, 256, 32), (64, 256, 64),
+                    (256, 128, 16)):
+        for causal in (True, False):
+            if causal and s > t:
+                continue
+            cases.append(check_flash(
+                f"kernel-test-{s}x{t}x{d}-{'causal' if causal else 'full'}",
+                *qkv(3, s, t, 1, 1, d), causal=causal,
+                q_offset=t - s if causal else 0))
+    for window in (32, 100):
+        cases.append(check_flash(f"window-{window}",
+                                 *qkv(2, 256, 256, 1, 1, 32),
+                                 window=window))
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).removeprefix("torch.")
+        # hymba: 25 q heads over 5 kv heads, window 1024 < T
+        cases.append(check_flash(f"hymba-gqa5-window1024-{tag}",
+                                 *qkv(1, 2048, 2048, 25, 5, 64, dtype),
+                                 window=1024))
+        # llama: 32 over 8, causal
+        cases.append(check_flash(f"llama-gqa4-causal-{tag}",
+                                 *qkv(1, 1024, 1024, 32, 8, 64, dtype)))
+        cases.append(check_flash(f"tail-200-{tag}",
+                                 *qkv(2, 200, 200, 4, 2, 64, dtype)))
+    cases.append(check_flash("tail-200-window-100-d32",
+                             *qkv(1, 200, 200, 2, 1, 32), window=100))
+    # no row sees a key: each is the mean of v over all T keys
+    q, k, v = qkv(1, 64, 128, 2, 1, 64)
+    cases.append(check_flash("no-visible-key", q, k, v, causal=False,
+                             window=32, q_offset=200))
+    got = fa.flash_attention(q, k, v, causal=False, window=32, q_offset=200)
+    mean_v = v.float().mean(dim=1, keepdim=True).expand(1, 64, 2, 64)
+    err = float((got - mean_v).abs().max())
+    if not _close(got, mean_v, FA_TOL["float32"]):
+        fail(f"flash_attention: rows with no visible key are {err} from "
+             "the mean of v")
+    cases.append({"case": "no-visible-key-is-mean-of-v",
+                  "max_abs_err": err, "tol": FA_TOL["float32"]})
+    # one block holding rows that see keys and rows that see none
+    cases.append(check_flash("some-rows-see-no-key",
+                             *qkv(1, 64, 128, 2, 1, 64), causal=False,
+                             window=32, q_offset=140))
+    # strided inputs: q, k, v as views of one fused (B,S,H+2Hkv,D) tensor
+    qkv_fused = torch.randn(2, 300, 8 + 2 * 2, 64, generator=gen,
+                            device="cuda")
+    cases.append(check_flash("strided-views", qkv_fused[:, :, :8],
+                             qkv_fused[:, :, 8:10], qkv_fused[:, :, 10:],
+                             window=64))
+    return cases
+
+
+def check_ssm(name, x, dt, b_in, c_out, a_log, h0=None):
+    """Scan kernel vs its plain twin on the same card tensors: y and
+    h_end."""
+    import torch
+    from repro_torch.kernels import ssm_scan as ss
+    y, h_end = ss.ssm_scan(x, dt, b_in, c_out, a_log, h0)
+    torch.cuda.synchronize()
+    y_want, h_want = ss.ssm_scan_plain(x, dt, b_in, c_out, a_log, h0)
+    tol = _tol(SS_TOL, x.dtype)
+    if y.shape != y_want.shape or y.dtype != y_want.dtype \
+            or h_end.dtype != torch.float32:
+        fail(f"ssm_scan[{name}]: shape/dtype {y.shape} {y.dtype} "
+             f"{h_end.dtype}")
+    if not (bool(torch.isfinite(y).all()) and
+            bool(torch.isfinite(h_end).all())):
+        fail(f"ssm_scan[{name}]: non-finite output")
+    y_err = float((y.float() - y_want.float()).abs().max())
+    h_err = float((h_end - h_want).abs().max())
+    # the states are f32 on both sides: the f32 tolerance holds for
+    # h_end whatever the input dtype
+    h_tol = SS_TOL["float32"]
+    if not _close(y, y_want, tol) or not _close(h_end, h_want, h_tol):
+        fail(f"ssm_scan[{name}]: disagrees with its plain twin, max abs "
+             f"err y {y_err} h_end {h_err} (rtol, atol {tol}, {h_tol})")
+    bsz, s, d = x.shape
+    return {"case": name, "b": bsz, "s": s, "d": d, "n": int(b_in.shape[2]),
+            "dtype": str(x.dtype), "h0": h0 is not None,
+            "max_abs_err": y_err, "h_end_max_abs_err": h_err, "tol": tol,
+            "h_end_tol": h_tol}
+
+
+def ssm_inputs(gen, b, s, d, n, dtype):
+    """x, dt (softplus of a normal), b_in and c_out as the two halves of
+    one (B,S,2N) tensor (strided views, as the model passes them), and
+    a_log = log(1..N) per channel."""
+    import torch
+    import torch.nn.functional as F
+    x = torch.randn(b, s, d, generator=gen, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn(b, s, d, generator=gen,
+                                device="cuda")).to(dtype)
+    bc = torch.randn(b, s, 2 * n, generator=gen, device="cuda").to(dtype)
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device="cuda"))[None].repeat(d, 1)
+    return x, dt, bc[..., :n], bc[..., n:], a_log
+
+
+def ssm_cases():
+    """K5 against its plain twin: the JAX kernel tests' shapes, f32 and
+    bf16, with and without h0 (h_end checked), S=1, N in {8, 16}, D not
+    a multiple of the block's channels, and the serving path's prefill
+    shape."""
+    import torch
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = []
+    for b, s, d, n in ((2, 64, 32, 8), (1, 128, 64, 16), (3, 32, 16, 4)):
+        cases.append(check_ssm(f"kernel-test-{b}x{s}x{d}x{n}",
+                               *ssm_inputs(gen, b, s, d, n, torch.float32)))
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).removeprefix("torch.")
+        for n in (8, 16):
+            x, dt, bi, co, al = ssm_inputs(gen, 2, 100, 200, n, dtype)
+            h0 = torch.randn(2, 200, n, generator=gen, device="cuda")
+            cases.append(check_ssm(f"n{n}-d200-{tag}", x, dt, bi, co, al))
+            cases.append(check_ssm(f"n{n}-d200-h0-{tag}", x, dt, bi, co, al,
+                                   h0))
+            cases.append(check_ssm(f"n{n}-s1-h0-{tag}", x[:, :1], dt[:, :1],
+                                   bi[:, :1], co[:, :1], al, h0))
+    # a prefill's h_end carried into the rest of the sequence equals the
+    # whole sequence in one call
+    x, dt, bi, co, al = ssm_inputs(gen, 2, 96, 100, 16, torch.float32)
+    y_all, h_all = ssm_scan(x, dt, bi, co, al)
+    y_a, h_a = ssm_scan(x[:, :37], dt[:, :37], bi[:, :37], co[:, :37], al)
+    y_b, h_b = ssm_scan(x[:, 37:], dt[:, 37:], bi[:, 37:], co[:, 37:], al,
+                        h_a)
+    torch.cuda.synchronize()
+    split_err = max(float((torch.cat([y_a, y_b], 1) - y_all).abs().max()),
+                    float((h_b - h_all).abs().max()))
+    if not (_close(torch.cat([y_a, y_b], 1), y_all, SS_TOL["float32"])
+            and _close(h_b, h_all, SS_TOL["float32"])):
+        fail(f"ssm_scan: split at 37 with h0 handoff is {split_err} from "
+             "one call")
+    cases.append({"case": "h0-handoff-split", "max_abs_err": split_err,
+                  "tol": SS_TOL["float32"]})
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).removeprefix("torch.")
+        cases.append(check_ssm(f"hymba-prefill-2x4096x3200x16-{tag}",
+                               *ssm_inputs(gen, 2, 4096, 3200, 16, dtype)))
+    return cases
+
+
+# ---------------------------------------------------------------------
+# LM serving: prefill and decode at full width (K4, K5)
+# ---------------------------------------------------------------------
+
+# (arch, batch, prompt length, the attention route attention() takes)
+LM_PREFILL = (("hymba-1.5b", 2, 4096, "banded"),
+              ("hymba-1.5b", 2, 1024, "chunked"),
+              ("llama3.2-1b", 2, 4096, "chunked"))
+LM_WARM_RUNS = 3
+# the serving path: 4 requests, a 64-token prompt filled by decode
+# steps, then 32 greedy steps
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 64, 32
+# the consistency run (f32): longer than hymba's window of 1024, so that
+# the ring cache wraps, and a multiple of its attention chunks, so that
+# prefill takes the banded branch.  The chunk sizes (TrainConfig's
+# attn_chunk_q / attn_chunk_kv) only choose the route on the card, where
+# either branch is one kernel launch; chunks of 256 admit S = 1280.
+CONSISTENCY_S = 1280
+CONSISTENCY_CHUNK = 256
+# f32 logits of a 32-layer random-weight model, two orders of summation
+# (GEMM vs GEMV products, chunked vs stepwise scan, kernel vs plain
+# softmax): absolute, on logits of order one
+CONSISTENCY_ATOL = 2e-3
+
+
+def _lm_params(arch, dtype):
+    """Full-width random parameters drawn on the card from seed 0."""
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.models import init_model
+    cfg = get_arch(arch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_model(cfg, gen, dtype)
+    return cfg, params
+
+
+def _param_bytes(params):
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params))
+
+
+@contextlib.contextmanager
+def recording_attention_calls(calls):
+    """Every call the model makes to the attention kernel's wrapper, as
+    (q shape, k shape, dtype, causal, window, q_offset), into
+    ``calls``; the call goes through unchanged."""
+    from repro_torch.kernels import ops as kernel_ops
+
+    def recording(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), q.dtype,
+                      kw.get("causal", True), kw.get("window", 0),
+                      kw.get("q_offset", 0)))
+        return real(q, k, v, **kw)
+
+    with patched(kernel_ops, "gqa_flash_attention", recording) as real:
+        yield
+
+
+@contextlib.contextmanager
+def recording_routes(routes):
+    """The attention branch (``banded`` / ``chunked`` / ``naive``) of
+    every call to ``models.attention.attention``."""
+    from repro_torch.models import attention as attn_lib
+
+    def wrap(name, real):
+        def rec(*a, **kw):
+            routes.append(name)
+            return real(*a, **kw)
+        return rec
+
+    with contextlib.ExitStack() as stack:
+        for name in ("banded", "chunked", "naive"):
+            attr = f"{name}_attention"
+            stack.enter_context(patched(attn_lib, attr, wrap(
+                name, getattr(attn_lib, attr))))
+        yield
+
+
+def lm_prefill_path(models):
+    """``make_prefill_step`` at full width in bf16 (``TrainConfig().
+    dtype``) on every case of ``LM_PREFILL``: first run (the kernels'
+    build and load included) with the launch counts read around it, then
+    warm runs.  ``models`` caches the parameters for later phases."""
+    import torch
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.launch.steps import make_prefill_step
+    tcfg = TrainConfig()
+    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
+        tcfg.dtype]
+    out, attn_calls = [], []
+    for arch, b, s, route in LM_PREFILL:
+        if arch not in models:
+            t0 = time.perf_counter()
+            models[arch] = _lm_params(arch, dtype)
+            torch.cuda.synchronize()
+            models[arch + ":init_s"] = time.perf_counter() - t0
+        cfg, params = models[arch]
+        step = make_prefill_step(cfg, tcfg)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             device="cuda")
+        routes, calls = [], []
+        with recording_routes(routes), recording_attention_calls(calls):
+            zero_counts()
+            t0 = time.perf_counter()
+            logits = step(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            launched = counts()
+        hybrid = cfg.family == "hybrid"
+        want = only(flash_attention=cfg.num_layers,
+                    ssm_scan=cfg.num_layers if hybrid else 0)
+        if launched != want:
+            fail(f"prefill {arch} B={b} S={s}: launches {launched}, "
+                 f"expected {want}")
+        if set(routes) != {route} or len(routes) != cfg.num_layers:
+            fail(f"prefill {arch} S={s}: attention routes {set(routes)} "
+                 f"x{len(routes)}, expected {route}")
+        if any(kv[2] != cfg.n_kv_heads for _, kv, *_ in calls):
+            fail(f"prefill {arch}: the kernel was handed repeated k/v")
+        if tuple(logits.shape) != (b, cfg.vocab_size) \
+                or not bool(torch.isfinite(logits).all()):
+            fail(f"prefill {arch}: logits {tuple(logits.shape)}, finite "
+                 f"{bool(torch.isfinite(logits).all())}")
+        warm = []
+        for _ in range(LM_WARM_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = step(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        if not torch.equal(again, logits):
+            fail(f"prefill {arch}: a warm run's logits differ from the "
+                 "first run's")
+        med = statistics.median(warm)
+        attn_calls.append((arch, route, calls[0]))
+        out.append({"arch": arch, "batch": b, "prompt_len": s,
+                    "route": route, "dtype": str(dtype),
+                    "param_bytes": _param_bytes(params),
+                    "init_s": models[arch + ":init_s"],
+                    "first_run_s": first_s, "warm_s": warm,
+                    "warm_s_median": med,
+                    "prompt_tokens_per_s": b * s / med,
+                    "launches": launched})
+    return out, attn_calls
+
+
+def lm_serve_path(models):
+    """The serving path at full width, bf16, hymba-1.5b: 4 requests, the
+    decode state filled by decode steps over a 64-token prompt (as the
+    JAX package's ``launch/serve.py`` does), then 32 greedy steps, every
+    one through ``make_serve_step``; then the CLI once at its reduced
+    defaults."""
+    import torch
+    from repro_torch.config.base import InputShape, TrainConfig
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import init_decode_state
+    cfg, params = models["hymba-1.5b"]
+    cache_len = SERVE_PROMPT + SERVE_GEN
+    shape = InputShape("serve", cache_len, SERVE_BATCH, "decode")
+    step = make_serve_step(cfg, shape, TrainConfig())
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    state = init_decode_state(cfg, SERVE_BATCH, cache_len,
+                              dtype=torch.bfloat16, device="cuda")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(SERVE_PROMPT):
+        logits, state = step(params, state,
+                             {"tokens": prompts[:, i:i + 1]})
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    out_tokens = []
+    t0 = time.perf_counter()
+    for _ in range(SERVE_GEN):
+        out_tokens.append(tok)
+        logits, state = step(params, state, {"tokens": tok})
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launched = counts()
+    steps = SERVE_PROMPT + SERVE_GEN
+    want = only(ssm_scan=cfg.num_layers * steps)
+    if launched != want:
+        fail(f"serve path launches {launched}, expected {want}")
+    toks = torch.cat(out_tokens, dim=1)
+    if state["pos"] != steps or not bool(torch.isfinite(logits).all()) \
+            or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        fail(f"serve path: pos {state['pos']}, tokens "
+             f"{toks[0, :8].tolist()}")
+    # the CLI, at its reduced defaults, on the card
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "hymba-1.5b"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300)
+    cli_s = time.perf_counter() - t0
+    if cli.returncode != 0:
+        fail(f"python -m repro_torch.launch.serve exited {cli.returncode}:"
+             f"\n{cli.stdout}\n{cli.stderr}")
+    return {"arch": cfg.arch_id, "batch": SERVE_BATCH,
+            "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN,
+            "dtype": "torch.bfloat16",
+            "prompt_fill_s": fill_s,
+            "prompt_fill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / fill_s,
+            "decode_s": decode_s,
+            "decode_tokens_per_s": SERVE_BATCH * SERVE_GEN / decode_s,
+            "s_per_decode_step": decode_s / SERVE_GEN,
+            "launches": launched,
+            "ssm_scan_per_step": launched["ssm_scan"] / steps,
+            "sample_tokens": toks[0, :16].tolist(),
+            "cli_s": cli_s, "cli_stdout": cli.stdout.strip().splitlines()}
+
+
+def lm_consistency():
+    """f32 parameters (``set_full_f32``), full-width hymba-1.5b, B=1,
+    S=1280: the prefill step's last-position logits (K4 banded, K5)
+    against the last logits of decode steps over the same tokens (ring
+    cache of 1024, K5 with a carried h0), and the same prefill with the
+    plain twins patched in for the kernels."""
+    import torch
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import decode_step, init_decode_state
+    cfg, params = _lm_params("hymba-1.5b", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (1, CONSISTENCY_S),
+                         generator=gen, device="cuda")
+    prefill = make_prefill_step(cfg, TrainConfig(
+        attn_chunk_q=CONSISTENCY_CHUNK, attn_chunk_kv=CONSISTENCY_CHUNK))
+    routes = []
+    with recording_routes(routes):
+        zero_counts()
+        got = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_counts = counts()
+    if routes != ["banded"] * cfg.num_layers:
+        fail(f"consistency prefill: attention routes {set(routes)} "
+             f"x{len(routes)}, expected banded x{cfg.num_layers}")
+
+    def plain_attention(q, k, v, **kw):
+        return fa.gqa_plain(q, k, v, **kw)
+
+    with patched(kernel_ops, "gqa_flash_attention", plain_attention), \
+            patched(ss, "ssm_scan", ss.ssm_scan_plain):
+        zero_counts()
+        plain = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        plain_counts = counts()
+    if plain_counts != only():
+        fail(f"the plain forward launched kernels: {plain_counts}")
+
+    state = init_decode_state(cfg, 1, CONSISTENCY_S, dtype=torch.float32,
+                              device="cuda")
+    zero_counts()
+    t0 = time.perf_counter()
+    for i in range(CONSISTENCY_S):
+        logits, state = decode_step(cfg, params, state, toks[:, i:i + 1])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_counts = counts()
+    dec = logits[:, -1]
+    kv_len = int(state["layers"]["kv"]["k"].shape[2])
+    del params, state
+    torch.cuda.empty_cache()
+
+    vs_decode = float((got - dec).abs().max())
+    vs_plain = float((got - plain).abs().max())
+    same_token = bool(torch.equal(got.argmax(-1), dec.argmax(-1))) and \
+        bool(torch.equal(got.argmax(-1), plain.argmax(-1)))
+    if prefill_counts != only(flash_attention=cfg.num_layers,
+                              ssm_scan=cfg.num_layers):
+        fail(f"consistency prefill launches {prefill_counts}")
+    if decode_counts != only(ssm_scan=cfg.num_layers * CONSISTENCY_S):
+        fail(f"consistency decode launches {decode_counts}")
+    if kv_len >= CONSISTENCY_S:
+        fail(f"consistency decode: the ring cache ({kv_len}) never wrapped")
+    if vs_decode > CONSISTENCY_ATOL or vs_plain > CONSISTENCY_ATOL \
+            or not same_token:
+        fail(f"lm consistency: prefill vs decode {vs_decode}, kernels vs "
+             f"plain {vs_plain} (atol {CONSISTENCY_ATOL}), same greedy "
+             f"token {same_token}")
+    return {"arch": cfg.arch_id, "batch": 1, "seq_len": CONSISTENCY_S,
+            "dtype": "torch.float32", "kv_ring_len": kv_len,
+            "prefill_vs_decode_max_abs": vs_decode,
+            "kernels_vs_plain_max_abs": vs_plain,
+            "atol": CONSISTENCY_ATOL,
+            "logits_max_abs": float(got.abs().max()),
+            "greedy_token": int(got.argmax(-1)[0]),
+            "greedy_token_equal": same_token,
+            "decode_s": decode_s, "launches_prefill": prefill_counts,
+            "launches_decode": decode_counts}
+
+
+# Published peaks of one H100 SXM beside F32_FLOPS_PER_S: the dense bf16
+# tensor-core rate, and the special-function units' exp2 rate (16 a
+# clock an SM, compute capability 9.0, at the 1.98 GHz boost clock).
+BF16_TENSOR_FLOPS_PER_S = 989e12
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
+
+
+def visible_pairs(s, t, causal, window, q_offset):
+    """(q, k) pairs the masks leave visible, row by row."""
+    n = 0
+    for p in range(q_offset, q_offset + s):
+        lo = max(0, p - window + 1) if window > 0 else 0
+        hi = min(t, p + 1) if causal else t
+        n += max(0, hi - lo)
+    return n
+
+
+def flash_bound_ms(qs, ks, esize, causal, window, q_offset):
+    """Least time for one call: 4*D flops per visible (q, k) pair per
+    head (two dots) against the bf16 tensor peak, or q, k, v read and
+    the output written once against HBM, whichever is larger."""
+    b, s, h, d = qs
+    t, hkv = ks[1], ks[2]
+    flops = 4 * b * h * visible_pairs(s, t, causal, window, q_offset) * d
+    by_ops = flops / BF16_TENSOR_FLOPS_PER_S * 1e3
+    nbytes = (2 * b * s * h * d + 2 * b * t * hkv * d) * esize
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
+                                   else "bytes"), flops
+
+
+def _sdpa_backend(fn):
+    """The backend the library call ran, from its kernels' names in a
+    profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages()).lower()
+    for tag, backend in (("flash", "flash"), ("cudnn", "cudnn"),
+                         ("fmha", "efficient"), ("efficient", "efficient")):
+        if tag in names:
+            return backend
+    return "math"
+
+
+def flash_attention_times(attn_calls):
+    """K4, its plain twin and ``scaled_dot_product_attention`` (the
+    library yardstick; the port never calls it) at one layer of each
+    route the prefill path formed, in turns on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    out = []
+    for arch, route, (qs, ks, dtype, causal, window, q_offset) in attn_calls:
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        q = torch.randn(qs, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(ks, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(ks, generator=gen, device="cuda").to(dtype)
+        err = check_flash(f"timed-{arch}-{route}", q, k, v, causal=causal,
+                          window=window, q_offset=q_offset)["max_abs_err"]
+        # the same shape in f32, under the f32 tolerance
+        f32_err = check_flash(f"timed-{arch}-{route}-f32", q.float(),
+                              k.float(), v.float(), causal=causal,
+                              window=window,
+                              q_offset=q_offset)["max_abs_err"]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        s, t = qs[1], ks[1]
+        if window and window < t:
+            qp = torch.arange(s, device="cuda")[:, None] + q_offset
+            kp = torch.arange(t, device="cuda")[None, :]
+            band = kp > qp - window
+            if causal:
+                band &= kp <= qp
+            lib_kw = {"attn_mask": band}
+        else:
+            lib_kw = {"is_causal": bool(causal)}
+
+        def kernel():
+            return fa.flash_attention(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset)
+
+        def plain():
+            return fa.gqa_plain(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  enable_gqa=True, **lib_kw)
+
+        backend = _sdpa_backend(library)
+        kernel_a = median_ms(kernel, runs=5, per_run=5)
+        plain_a = median_ms(plain, runs=3, per_run=2)
+        lib = median_ms(library, runs=5, per_run=5)
+        kernel_b = median_ms(kernel, runs=5, per_run=5)
+        plain_b = median_ms(plain, runs=3, per_run=2)
+        bound, bound_by, flops = flash_bound_ms(qs, ks, q.element_size(),
+                                                causal, window, q_offset)
+        ms = min(kernel_a, kernel_b)
+        out.append({"arch": arch, "route": route, "q": list(qs),
+                    "k": list(ks), "dtype": str(dtype), "causal": causal,
+                    "window": window, "visible_flops": flops, "ms": ms,
+                    "tflops": flops / ms / 1e9,
+                    "plain_ms": min(plain_a, plain_b), "library_ms": lib,
+                    "library": f"scaled_dot_product_attention "
+                               f"({backend} backend)",
+                    "bound_ms": bound, "bound_by": bound_by,
+                    "max_abs_err": err, "f32_max_abs_err": f32_err})
+    return out
+
+
+def ssm_bound_ms(b, s, d, n, esize, with_h0):
+    """Least time for one call: x, dt, B, C read once, y written once,
+    a_log (and h0) read and h_end written once, against HBM; or the
+    B*S*D*N exps against the SFU rate; whichever is larger."""
+    nbytes = (3 * b * s * d + 2 * b * s * n) * esize + 4 * d * n \
+        + 4 * b * d * n * (2 if with_h0 else 1)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = b * s * d * n / SFU_EXP_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def ssm_scan_times():
+    """K5 and its plain twin at the serving path's two shapes: hymba's
+    prefill (B=2, S=4096, D=3200, N=16) and a decode step (B=4, S=1,
+    carried h0).  No single PyTorch call computes a selective scan, so
+    there is no library yardstick."""
+    import torch
+    from repro_torch.kernels import ssm_scan as ss
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = []
+    for name, b, s, with_h0 in (("prefill", 2, 4096, False),
+                                ("decode", SERVE_BATCH, 1, True)):
+        d, n = 3200, 16
+        x, dt, bi, co, al = ssm_inputs(gen, b, s, d, n, torch.bfloat16)
+        h0 = (torch.randn(b, d, n, generator=gen, device="cuda")
+              if with_h0 else None)
+        err = check_ssm(f"timed-{name}", x, dt, bi, co, al, h0)
+
+        def kernel():
+            return ss.ssm_scan(x, dt, bi, co, al, h0)
+
+        def plain():
+            return ss.ssm_scan_plain(x, dt, bi, co, al, h0)
+
+        long_plain = s > 64          # a Python loop of S steps
+        kernel_a = median_ms(kernel)
+        plain_a = median_ms(plain, hide_host=not long_plain,
+                            warmup=1 if long_plain else 5,
+                            runs=3 if long_plain else 7,
+                            per_run=1 if long_plain else 20)
+        kernel_b = median_ms(kernel)
+        bound, bound_by = ssm_bound_ms(b, s, d, n, 2, with_h0)
+        out.append({"case": name, "b": b, "s": s, "d": d, "n": n,
+                    "dtype": "torch.bfloat16", "h0": with_h0,
+                    "ms": min(kernel_a, kernel_b), "plain_ms": plain_a,
+                    "plain_includes_host": long_plain, "library_ms": None,
+                    "bound_ms": bound, "bound_by": bound_by,
+                    "max_abs_err": err["max_abs_err"],
+                    "h_end_max_abs_err": err["h_end_max_abs_err"]})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1092,13 +1782,15 @@ def main() -> int:
     set_full_f32()
 
     t0 = time.perf_counter()
-    libs = _build.build(["fedagg"])
+    libs = _build.build(["fedagg", "flash_attention", "ssm_scan"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}})
 
     emit({"phase": "kernel_checks", "rtol": RTOL, "atol": ATOL,
           "fedagg": fedagg_cases(), "fedagg_fold": fold_cases(),
-          "fedagg_partial": partial_cases()})
+          "fedagg_partial": partial_cases(),
+          "flash_attention_tol": FA_TOL, "flash_attention": flash_cases(),
+          "ssm_scan_tol": SS_TOL, "ssm_scan": ssm_cases()})
     emit({"phase": "train_round_vs_cpu", **cpu_agreement()})
 
     summary, launches, shapes, summary_hist = main_path()
@@ -1110,6 +1802,15 @@ def main() -> int:
     mesh_summary, mesh_counts, partial_calls = mesh_path(summary_hist)
     emit({"phase": "mesh_path", **mesh_summary})
     emit({"phase": "mesh_async_path", **mesh_async_path()})
+
+    models = {}
+    prefill, attn_calls = lm_prefill_path(models)
+    emit({"phase": "lm_prefill_path", "card": card, "runs": prefill})
+    serve = lm_serve_path(models)
+    emit({"phase": "lm_serve_path", "card": card, **serve})
+    models.clear()
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_consistency", **lm_consistency()})
 
     at_main = fedagg_times(MAIN_N, MAIN_P)
     seen = [fedagg_times(n, p)
@@ -1139,8 +1840,20 @@ def main() -> int:
                   for r, p, _, c in partial_calls if any(x > 0 for x in c)}
     partial_seen = [fedagg_partial_times(r, p, np.asarray(c, np.float32))
                     for (r, p, _), c in sorted(distinct_c.items())]
+    # shards of padding only (no live row): the kernel writes zeros
+    zero_live = [fedagg_partial_times(r, MAIN_P, np.zeros(r, np.float32))
+                 for r in sorted({r for r, _, _, c in partial_calls
+                                  if not any(x > 0 for x in c)})]
     emit({"phase": "fedagg_partial_times", "card": card,
-          f"at_r{PARTIAL_R}": full_r, "at_mesh_path_shapes": partial_seen})
+          f"at_r{PARTIAL_R}": full_r, "at_mesh_path_shapes": partial_seen,
+          "at_padding_only_shards": zero_live})
+
+    fa_times = flash_attention_times(attn_calls)
+    emit({"phase": "flash_attention_times", "card": card,
+          "at_prefill_path_shapes": fa_times})
+    ss_times = ssm_scan_times()
+    emit({"phase": "ssm_scan_times", "card": card,
+          "at_serving_path_shapes": ss_times})
 
     widest = seen[-1]          # the largest cohort the main path formed
     fold_widest = max(fold_seen, key=lambda t: t["k_live"])
@@ -1179,7 +1892,36 @@ def main() -> int:
         "ms": partial_widest["ms"], "plain_ms": partial_widest["plain_ms"],
         "bound_ms": partial_widest["bound_ms"],
         "bound_by": partial_widest["bound_by"],
-        "library_ms": partial_widest["library_ms"]}]})
+        "library_ms": partial_widest["library_ms"]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:30",
+        # one hymba-1.5b prefill at S=4096 (the path's first case)
+        "launches": prefill[0]["launches"]["flash_attention"],
+        "max_abs_err": max(t["max_abs_err"] for t in fa_times),
+        "shape": {"q": fa_times[0]["q"], "k": fa_times[0]["k"],
+                  "window": fa_times[0]["window"]},
+        "ms": fa_times[0]["ms"], "plain_ms": fa_times[0]["plain_ms"],
+        "bound_ms": fa_times[0]["bound_ms"],
+        "bound_by": fa_times[0]["bound_by"],
+        "library_ms": fa_times[0]["library_ms"],
+        "library": fa_times[0]["library"],
+        "routes": [{k: t[k] for k in ("arch", "route", "q", "k", "window",
+                                      "ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}
+                   for t in fa_times]}, {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:28",
+        "launches": prefill[0]["launches"]["ssm_scan"],
+        "max_abs_err": max(t["max_abs_err"] for t in ss_times),
+        "shape": [ss_times[0][k] for k in ("b", "s", "d", "n")],
+        "ms": ss_times[0]["ms"], "plain_ms": ss_times[0]["plain_ms"],
+        "bound_ms": ss_times[0]["bound_ms"],
+        "bound_by": ss_times[0]["bound_by"], "library_ms": None,
+        "decode": {k: ss_times[1][k] for k in ("b", "s", "ms", "plain_ms",
+                                               "bound_ms", "bound_by")},
+        "decode_launches": serve["launches"]["ssm_scan"]}]})
     emit({"ok": True,
           "device": {"platform": "gpu",
                      "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.distributed.hostdevices import forced_host_device_count
 
 CLIENT_AXIS = "clients"
@@ -49,11 +50,10 @@ def client_devices(device=None) -> list:
     """The devices a client mesh may span: ``N`` virtual shards of
     ``device`` under a forced count of ``N``, else every visible CUDA
     device when ``device`` is a CUDA device, else ``device`` alone.
-    ``device=None`` is the current CUDA device, or the CPU when there is
-    none (the JAX package's mesh of its default backend)."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = _normalize(device)
+    ``device=None`` is the current CUDA device and raises when there is
+    none (``resolve_device``): a CPU mesh is asked for by name,
+    ``client_devices("cpu")``."""
+    dev = _normalize(resolve_device(device))
     forced = forced_host_device_count()
     if forced is not None:
         return [dev] * forced
@@ -67,7 +67,9 @@ def make_client_mesh(clients: Optional[int] = None, *,
                      devices: Optional[Sequence] = None) -> ClientMesh:
     """1-D ``("clients",)`` mesh over the first ``clients`` devices.
 
-    ``devices=None`` spans ``client_devices()``; ``clients=None`` spans
+    ``devices=None`` spans ``client_devices()``, so it raises with no
+    CUDA device (pass ``devices=["cpu"] * n`` or
+    ``client_devices("cpu")``); ``clients=None`` spans
     every one of them; a request larger than that is clamped, so
     ``--mesh-clients 8`` degrades to the devices there are.
     """

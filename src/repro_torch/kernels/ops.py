@@ -1,5 +1,9 @@
 """Public wrappers around the kernels, and the flat views they work on.
 
+``gqa_flash_attention`` takes the models' layout, q (B,S,H,D) and k/v
+(B,T,Hkv,D), to the attention kernel without repeating k/v per group;
+``ssm_scan_op`` is the selective scan from a zero state, y only.
+
 ``fedagg_pytree`` is the tree-native server aggregation hot path: the
 stacked client-update tree is flattened ONCE into a single (N, P) f32
 buffer (unflatten spec cached per tree structure), reduced by the fused
@@ -17,8 +21,23 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.fedagg import fedagg, fedagg_fold, fedagg_partial
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
                               tree_unflatten)
+
+
+def gqa_flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+    """q (B,S,H,D); k/v (B,T,Hkv,D) -> (B,S,H,D)."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset)
+
+
+def ssm_scan_op(x, dt, b_in, c_out, a_log):
+    """x, dt (B,S,D); b_in, c_out (B,S,N); a_log (D,N) -> y (B,S,D), from
+    a zero state.  The model's ``ssm_core`` calls ``ssm_scan`` itself,
+    with its carried state."""
+    return ssm_scan(x, dt, b_in, c_out, a_log)[0]
 
 
 def fedagg_op(updates, weights, *, alphas=None):

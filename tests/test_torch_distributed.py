@@ -50,6 +50,7 @@ from repro_torch.core.engine import BatchedClientEngine, make_engine
 from repro_torch.core.scheduler import run_feddct
 from repro_torch.core.state import ClientStateStore
 from repro_torch.distributed import (CLIENT_AXIS, ClientShardingPlan,
+                                     client_devices,
                                      ensure_host_device_count,
                                      forced_host_device_count,
                                      make_client_mesh, shard_cohort_train,
@@ -71,6 +72,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 ENV = hostdevices.ENV_VAR
 SHARDS = 4
 MESH = make_client_mesh(SHARDS, devices=["cpu"] * SHARDS)
+ONE_SHARD = make_client_mesh(1, devices=["cpu"])
 
 
 @pytest.fixture(autouse=True)
@@ -176,28 +178,41 @@ def test_hostdevices_imports_no_torch():
 # ---------------------------------------------------------------------------
 
 def test_make_client_mesh_spans_the_devices_there_are(monkeypatch):
-    mesh = make_client_mesh()
+    mesh = make_client_mesh(devices=client_devices("cpu"))
     assert mesh.axis_names == ("clients",) == (CLIENT_AXIS,)
-    # no GPU and no forced count: the CPU alone, as the reference's
-    # unforced CPU mesh
+    # the CPU asked for by name and no forced count: the CPU alone, as
+    # the reference's unforced CPU mesh
     assert mesh.size == len(jax.devices()) == 1
     assert mesh.devices == (torch.device("cpu"),)
     monkeypatch.setenv(ENV, "--force_client_shards=4")
-    forced = make_client_mesh()
+    forced = make_client_mesh(devices=client_devices("cpu"))
     assert forced.size == 4
     assert forced.devices == (torch.device("cpu"),) * 4
 
 
 def test_make_client_mesh_subset_and_clamp(monkeypatch):
-    assert make_client_mesh(1).size == 1
-    assert make_client_mesh(10 ** 6).size == 1            # clamped
+    def cpu_mesh(n):
+        return make_client_mesh(n, devices=client_devices("cpu"))
+
+    assert cpu_mesh(1).size == 1
+    assert cpu_mesh(10 ** 6).size == 1                    # clamped
     with pytest.raises(ValueError):
-        make_client_mesh(0)
+        cpu_mesh(0)
     monkeypatch.setenv(ENV, "--force_client_shards=4")
-    assert make_client_mesh(2).size == 2
-    assert make_client_mesh(10 ** 6).size == 4
+    assert cpu_mesh(2).size == 2
+    assert cpu_mesh(10 ** 6).size == 4
     # the JAX package clamps the same way
     assert int(ref_make_client_mesh(10 ** 6).size) == len(jax.devices())
+
+
+def test_make_client_mesh_raises_without_a_gpu():
+    """No silent CPU mesh: the default devices are CUDA devices."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_client_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        client_devices()
 
 
 def test_make_client_mesh_explicit_devices():
@@ -485,7 +500,7 @@ class _FakeLoopTrainer:
 def test_make_engine_one_shard_mesh_is_plain_engine():
     """A 1-shard mesh selects the existing engine, so histories are
     bit-identical by construction."""
-    eng = make_engine(_FakeLoopTrainer(), mesh=make_client_mesh(1))
+    eng = make_engine(_FakeLoopTrainer(), mesh=ONE_SHARD)
     assert type(eng) is BatchedClientEngine
     assert type(make_engine(_FakeLoopTrainer())) is BatchedClientEngine
 
@@ -494,7 +509,7 @@ def test_make_engine_looped_plus_mesh_rejected_or_passthrough():
     with pytest.raises(ValueError):
         make_engine(_FakeLoopTrainer(), engine="looped", mesh=MESH)
     eng = make_engine(_FakeLoopTrainer(), engine="looped",
-                      mesh=make_client_mesh(1))
+                      mesh=ONE_SHARD)
     assert eng.force_looped
 
 
@@ -642,7 +657,7 @@ def test_fedasync_window0_gate_holds_with_one_shard_mesh():
     hs = pt_baselines.run_fedasync_sequential(tr, net, fl, eval_every=3)
     tr2, net2, fl2 = _cnn()
     hr = pt_baselines.run_fedasync(tr2, net2, fl2, window=0, eval_every=3,
-                                   mesh=make_client_mesh(1))
+                                   mesh=ONE_SHARD)
     assert hs.rounds == hr.rounds
     assert hs.times == hr.times
     assert hs.accuracy == hr.accuracy
@@ -732,7 +747,7 @@ def test_client_state_store_rows_padded_to_the_mesh_with_exact_gathers():
     assert shard.bufs[0].shape[0] == 12
     assert shard.bufs[0].device == plain.bufs[0].device
     # a 1-shard mesh is the plain store
-    assert ClientStateStore(template, 10, mesh=make_client_mesh(1)).rows == 10
+    assert ClientStateStore(template, 10, mesh=ONE_SHARD).rows == 10
 
     for s in (plain, shard):
         s.scatter_params([3, 5], other)
@@ -769,7 +784,7 @@ def test_client_state_store_rows_padded_to_the_mesh_with_exact_gathers():
 def test_meta_records_the_mesh_size(method):
     fl = PtFLConfig(n_clients=6, tau=2, rounds=2, seed=4)
     kw = {"window": 2} if method in ("fedasync", "fedbuff") else {}
-    for mesh, want in ((MESH, SHARDS), (make_client_mesh(1), 1),
+    for mesh, want in ((MESH, SHARDS), (ONE_SHARD, 1),
                        (None, 1)):
         hist = pt_baselines.run_method(method, SyntheticCohortTrainer(),
                                        _net(PtNetwork, fl), fl, mesh=mesh,

@@ -30,6 +30,7 @@ pt_tiering = importlib.import_module("repro_torch.core.tiering")
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 COPIED = ["config/base.py", "config/__init__.py", "configs/paper_models.py",
+          "configs/llama3_2_1b.py", "configs/hymba_1_5b.py",
           "core/tiering.py", "core/selection.py", "fl/network.py",
           "fl/metrics.py", "data/synthetic.py", "data/partition.py",
           "data/pipeline.py", "data/__init__.py"]
@@ -146,7 +147,8 @@ def test_run_history_json_matches_and_round_trips():
 
 
 @pytest.mark.parametrize("arch", ["cnn-mnist", "cnn-fmnist",
-                                  "resnet8-cifar10"])
+                                  "resnet8-cifar10", "llama3.2-1b",
+                                  "hymba-1.5b"])
 def test_arch_configs_match(arch):
     a, b = ref_config.get_arch(arch), pt_config.get_arch(arch)
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
@@ -157,5 +159,7 @@ def test_arch_configs_match(arch):
 def test_fl_config_defaults_match_and_port_registers_cnn_family_only():
     assert dataclasses.asdict(ref_config.FLConfig()) == \
         dataclasses.asdict(pt_config.FLConfig())
+    # the CNN family and the two LM configs of the serving path
     assert pt_config.list_archs() == ["cnn-fmnist", "cnn-mnist",
+                                      "hymba-1.5b", "llama3.2-1b",
                                       "resnet8-cifar10"]

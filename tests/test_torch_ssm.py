@@ -1,0 +1,270 @@
+"""The port's selective scan (kernel K5's plain twin and wrapper,
+``models/ssm.py``) against the JAX package's, on the same numpy inputs.
+
+Tolerances are the reference's own tests': 1e-4 (f32) and 5e-2 (bf16)
+for the kernel's function (``tests/test_kernels.py``), 1e-4 for
+``ssm_core`` and 2e-4 for the layer's prefill-to-decode handoff
+(``tests/test_recurrent.py``): f32 recurrences summed in another order
+(a sequential scan against the reference's associative one).  On the
+CPU the wrapper is its plain twin; that ``ssm_core`` is one kernel call
+on the card, with strided B/C views and the carried state, is checked
+here by routing, and the kernel itself is held against the twin on the
+card by ``chip_smoke.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ssm_scan_op as ref_ssm_scan_op
+from repro.kernels.ref import ssm_scan_ref
+from repro.models import ssm as ref_ssm
+from repro_torch import bridge
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import ssm_scan as ss
+from repro_torch.models import ssm
+
+torch.set_num_threads(1)
+
+
+def _inputs(seed, b, s, d, n):
+    """x, dt (softplus of a normal), b_in, c_out, a_log = log(1..n)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, d)).astype(np.float32)
+    dt = np.logaddexp(rng.standard_normal((b, s, d)), 0.0).astype(np.float32)
+    b_in = rng.standard_normal((b, s, n)).astype(np.float32)
+    c_out = rng.standard_normal((b, s, n)).astype(np.float32)
+    a_log = np.repeat(np.log(np.arange(1, n + 1, dtype=np.float32))[None],
+                      d, 0)
+    return x, dt, b_in, c_out, a_log
+
+
+def _pt(arrays):
+    return [bridge.to_torch(a) for a in arrays]
+
+
+def _jx(arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+@pytest.mark.parametrize("b,s,d,n,chunk,bd", [
+    (2, 64, 32, 8, 16, 16),
+    (1, 128, 64, 16, 32, 64),
+    (3, 32, 16, 4, 32, 8),
+])
+def test_ssm_scan_plain_matches_pallas_kernel(b, s, d, n, chunk, bd):
+    arrays = _inputs(s + d, b, s, d, n)
+    want = ref_ssm_scan_op(*_jx(arrays), chunk=chunk, block_d=bd,
+                           interpret=True)
+    oracle = ssm_scan_ref(*_jx(arrays))
+    y, h_end = ss.ssm_scan_plain(*_pt(arrays))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(y.numpy(), np.asarray(oracle), rtol=1e-4,
+                               atol=1e-4)
+    assert h_end.dtype == torch.float32 and tuple(h_end.shape) == (b, d, n)
+    # the wrapper and the op are the twin on the CPU
+    y_w, h_w = ss.ssm_scan(*_pt(arrays))
+    assert torch.equal(y_w, y) and torch.equal(h_w, h_end)
+    y_op = kernel_ops.ssm_scan_op(*_pt(arrays))
+    assert torch.equal(y_op, y)
+
+
+def test_ssm_scan_plain_bf16():
+    arrays = list(_inputs(7, 2, 64, 32, 8))
+    for i in range(4):
+        arrays[i] = arrays[i].astype(ml_dtypes.bfloat16)
+    want = ref_ssm_scan_op(*_jx(arrays), chunk=16, block_d=16,
+                           interpret=True)
+    y, _ = ss.ssm_scan_plain(*_pt(arrays))
+    assert y.dtype == torch.bfloat16
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(want,
+                                                             np.float32),
+                               rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("split", [1, 17, 40])
+def test_h0_in_and_h_end_out_match_the_reference_core(split):
+    """A scan from the state another scan ended in is the whole scan;
+    y and h_end equal the reference's ``ssm_core`` with that h0."""
+    b, s, d, n = 2, 48, 24, 8
+    x, dt, b_in, c_out, a_log = _inputs(split, b, s, d, n)
+    y_all, h_all = ss.ssm_scan_plain(*_pt((x, dt, b_in, c_out, a_log)))
+    first = [a[:, :split] for a in (x, dt, b_in, c_out)]
+    rest = [a[:, split:] for a in (x, dt, b_in, c_out)]
+    y_a, h_a = ss.ssm_scan_plain(*_pt(first), bridge.to_torch(a_log))
+    y_b, h_b = ss.ssm_scan_plain(*_pt(rest), bridge.to_torch(a_log), h_a)
+    np.testing.assert_allclose(torch.cat([y_a, y_b], 1).numpy(),
+                               y_all.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(h_b.numpy(), h_all.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    bc = np.concatenate([rest[2], rest[3]], -1)
+    want_y, want_h = ref_ssm.ssm_core(
+        {"A_log": jnp.asarray(a_log)}, jnp.asarray(rest[0]),
+        jnp.asarray(rest[1]), jnp.asarray(bc), jnp.asarray(h_a.numpy()), n,
+        chunk=8)
+    np.testing.assert_allclose(y_b.numpy(), np.asarray(want_y), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(h_b.numpy(), np.asarray(want_h), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 7])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssm_core_matches_reference(chunk, with_h0):
+    b, s, d, n = 2, 64, 16, 4
+    x, dt, b_in, c_out, a_log = _inputs(chunk, b, s, d, n)
+    bc = np.concatenate([b_in, c_out], -1)
+    h0 = (np.random.default_rng(1).standard_normal((b, d, n))
+          .astype(np.float32) if with_h0 else None)
+    y, h_end = ssm.ssm_core({"A_log": torch.from_numpy(a_log)},
+                            torch.from_numpy(x), torch.from_numpy(dt),
+                            torch.from_numpy(bc),
+                            None if h0 is None else torch.from_numpy(h0), n,
+                            chunk=chunk)
+    want_y, want_h = ref_ssm.ssm_core(
+        {"A_log": jnp.asarray(a_log)}, jnp.asarray(x), jnp.asarray(dt),
+        jnp.asarray(bc), None if h0 is None else jnp.asarray(h0), n,
+        chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(h_end.numpy(), np.asarray(want_h), rtol=1e-4,
+                               atol=1e-4)
+    if not with_h0:
+        oracle = ssm_scan_ref(*_jx((x, dt, b_in, c_out, a_log)))
+        np.testing.assert_allclose(y.numpy(), np.asarray(oracle),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_chunk_scan_matches_reference_associative_scan():
+    rng = np.random.default_rng(2)
+    da = rng.uniform(0.2, 1.0, (2, 13, 6, 4)).astype(np.float32)
+    dbx = rng.standard_normal((2, 13, 6, 4)).astype(np.float32)
+    h0 = rng.standard_normal((2, 6, 4)).astype(np.float32)
+    hs, h_end = ssm._chunk_scan(torch.from_numpy(da), torch.from_numpy(dbx),
+                                torch.from_numpy(h0))
+    want_hs, want_h = ref_ssm._chunk_scan(jnp.asarray(da), jnp.asarray(dbx),
+                                          jnp.asarray(h0))
+    np.testing.assert_allclose(hs.numpy(), np.asarray(want_hs), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(h_end.numpy(), np.asarray(want_h), rtol=1e-5,
+                               atol=1e-5)
+
+
+def _ref_ssm_params(d, n, seed=2):
+    return jax.device_get(ref_ssm.init_ssm(jax.random.PRNGKey(seed), d, n))
+
+
+def test_init_ssm_keys_shapes_and_fixed_leaves_match_reference():
+    d, n = 16, 4
+    ref = _ref_ssm_params(d, n)
+    got = ssm.init_ssm(torch.Generator().manual_seed(0), d, n)
+    assert sorted(got) == sorted(ref)
+    for key in ref:
+        assert tuple(got[key].shape) == ref[key].shape, key
+        assert str(got[key].dtype).removeprefix("torch.") == \
+            str(ref[key].dtype), key
+    # the deterministic leaves are equal; dt stays in softplus^-1 of
+    # [1e-3, 1e-1]
+    np.testing.assert_array_equal(got["A_log"].numpy(), ref["A_log"])
+    np.testing.assert_array_equal(got["D"].numpy(), ref["D"])
+    dt = torch.nn.functional.softplus(got["dt_bias"])
+    assert float(dt.min()) >= 1e-3 * 0.999 and float(dt.max()) <= 0.1001
+
+
+def test_ssm_forward_and_decode_handoff_match_reference():
+    """Full-sequence forward == prefix forward + per-step decode, in the
+    port, and both against the reference's."""
+    d, n = 16, 4
+    ref_p = _ref_ssm_params(d, n)
+    p = bridge.from_reference(ref_p)
+    x = np.random.default_rng(3).standard_normal((1, 12, d)).astype(
+        np.float32)
+    full, _ = ssm.ssm_forward(p, torch.from_numpy(x), n_state=n, chunk=4)
+    want, _ = ref_ssm.ssm_forward(jax.tree_util.tree_map(jnp.asarray, ref_p),
+                                  jnp.asarray(x), n_state=n, chunk=4)
+    np.testing.assert_allclose(full.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    pre, st = ssm.ssm_forward(p, torch.from_numpy(x[:, :7]), n_state=n,
+                              chunk=7)
+    outs = [pre]
+    for t in range(7, 12):
+        y, st = ssm.ssm_decode_step(p, torch.from_numpy(x[:, t:t + 1]), st,
+                                    n_state=n)
+        outs.append(y)
+    np.testing.assert_allclose(torch.cat(outs, 1).numpy(), full.numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_causal_conv_matches_reference_with_state():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 5, 6)).astype(np.float32)
+    w = rng.standard_normal((4, 6)).astype(np.float32)
+    state = rng.standard_normal((2, 3, 6)).astype(np.float32)
+    for st in (None, state):
+        out, new = ssm._causal_conv(torch.from_numpy(x), torch.from_numpy(w),
+                                    None if st is None
+                                    else torch.from_numpy(st))
+        want, want_new = ref_ssm._causal_conv(
+            jnp.asarray(x), jnp.asarray(w),
+            None if st is None else jnp.asarray(st))
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_array_equal(new.numpy(), np.asarray(want_new))
+
+
+def test_init_ssm_state_matches_reference():
+    got = ssm.init_ssm_state(3, 8, 4, 2, 4, dtype=torch.float32)
+    want = ref_ssm.init_ssm_state(3, 8, 4, 2, 4, dtype=jnp.float32)
+    for k in ("h", "conv"):
+        assert tuple(got[k].shape) == want[k].shape
+        assert not bool(got[k].any())
+
+
+@pytest.mark.parametrize("s", [1, 9])
+def test_ssm_core_on_the_card_is_one_kernel_call(s, monkeypatch):
+    """On a CUDA tensor ``ssm_core`` is one call of the kernel's wrapper
+    ``ssm_scan`` with B/C as strided views of ``bc`` (no copies) and the
+    carried state, returning the final state."""
+    n, d = 4, 8
+    x, dt, b_in, c_out, a_log = _inputs(s, 2, s, d, n)
+    bc = torch.from_numpy(np.concatenate([b_in, c_out], -1))
+    h0 = torch.randn(2, d, n, generator=torch.Generator().manual_seed(0))
+    calls = []
+
+    def recording(xc, dtc, bi, co, al, h0=None):
+        calls.append((bi.data_ptr(), co.data_ptr(), h0))
+        return ss.ssm_scan_plain(xc, dtc, bi, co, al, h0)
+
+    monkeypatch.setattr(ss, "ssm_scan", recording)
+    monkeypatch.setattr(ssm, "_kernel_route", lambda x: True)
+    y, h_end = ssm.ssm_core({"A_log": torch.from_numpy(a_log)},
+                            torch.from_numpy(x), torch.from_numpy(dt), bc,
+                            h0, n)
+    monkeypatch.undo()
+    assert len(calls) == 1
+    bi_ptr, co_ptr, got_h0 = calls[0]
+    assert bi_ptr == bc.data_ptr()
+    assert co_ptr == bc.data_ptr() + n * bc.element_size()
+    assert got_h0 is h0
+    want_y, want_h = ssm.ssm_core({"A_log": torch.from_numpy(a_log)},
+                                  torch.from_numpy(x), torch.from_numpy(dt),
+                                  bc, h0, n)
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(h_end.numpy(), want_h.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_ssm_scan_wrapper_rejects_bad_shapes():
+    x = torch.zeros(1, 4, 8)
+    with pytest.raises(ValueError):
+        ss.ssm_scan(x, x, torch.zeros(1, 4, 4), torch.zeros(1, 4, 4),
+                    torch.zeros(8, 3))
+    with pytest.raises(ValueError):
+        ss.ssm_scan(x, x, torch.zeros(1, 4, 4), torch.zeros(1, 4, 4),
+                    torch.zeros(8, 4), torch.zeros(1, 8, 5))
+    assert ss.launches == 0            # the CPU never launches the kernel
