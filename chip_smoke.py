@@ -13,8 +13,9 @@ FedDCT and FedBuff over the client-state store; kernel
 four virtual shards of the card; kernel ``fedagg_partial`` once per
 shard) and LM serving (``launch/steps.py``: prefill of full-width
 ``hymba-1.5b`` and ``llama3.2-1b``, decode of ``hymba-1.5b``; kernels
-``flash_attention`` and ``ssm_scan``) — and prints one JSON object per
-phase.  Each path runs with
+``flash_attention`` and ``ssm_scan``; ``flash_attention`` is the
+tensor-core kernel on these bf16 paths and the scalar one in the f32
+consistency run) — and prints one JSON object per phase.  Each path runs with
 every launch count set to 0 just before it and read just after.  Any
 failure exits non-zero; there is no CPU path.  The last line of
 standard output is ``{"ok": true, "device": {"platform": "gpu", "kind":
@@ -89,6 +90,7 @@ def zero_counts() -> None:
     fedagg_mod.fold_launches = 0
     fedagg_mod.partial_launches = 0
     fa_mod.launches = 0
+    fa_mod.tc_launches = 0
     ss_mod.launches = 0
 
 
@@ -100,6 +102,7 @@ def counts() -> dict:
             "fedagg_fold": fedagg_mod.fold_launches,
             "fedagg_partial": fedagg_mod.partial_launches,
             "flash_attention": fa_mod.launches,
+            "flash_attention_tc": fa_mod.tc_launches,
             "ssm_scan": ss_mod.launches}
 
 
@@ -1099,11 +1102,15 @@ def mesh_async_path():
 # (rtol, atol), kernel against plain twin on the same card tensors.  f32:
 # the JAX kernel tests' (tests/test_kernels.py: 2e-5 for attention, 1e-4
 # for the scan), sums in another order.  bf16: both sides compute in f32
-# from the same bf16 inputs and round once at the end, so they may differ
-# by one bf16 rounding, at most 2^-7 of the value: rtol 8e-3 (attention)
-# and 1e-2 (scan), with an atol for outputs near zero.  A kernel off by a
-# few percent fails.
-FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (8e-3, 1e-3)}
+# from the same bf16 inputs and round the output once, at most 2^-7 of
+# the value: rtol 8e-3 (attention) and 1e-2 (scan).  The attention
+# kernel also rounds the unnormalised P to bf16 before P.V (tensor-core
+# operands) and takes exp through exp2: atol 3e-3 for that second
+# rounding, summed over the visible keys (a CPU emulation of the
+# kernel's arithmetic needed up to 1.42e-3 at N(0,1) inputs;
+# tests/test_torch_attention.py).  The scan's atol 1e-3 is for outputs
+# near zero.  A kernel off by a few percent fails.
+FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (8e-3, 3e-3)}
 SS_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-3)}
 
 
@@ -1142,13 +1149,46 @@ def check_flash(name, q, k, v, *, causal=True, window=0, q_offset=0):
             "max_abs_err": err, "tol": tol}
 
 
+def check_flash_raises(name, q, k, v, **kw):
+    """A call the kernel must refuse with ValueError (and not launch)."""
+    from repro_torch.kernels import flash_attention as fa
+    before = fa.launches
+    try:
+        fa.flash_attention(q, k, v, **kw)
+    except ValueError as e:
+        if fa.launches != before:
+            fail(f"flash_attention[{name}]: launched before raising")
+        return {"case": name, "raised": "ValueError", "message": str(e)}
+    fail(f"flash_attention[{name}]: expected ValueError, got a result")
+
+
+def check_mean_of_v(name, q, k, v, **kw):
+    """Every row sees no key: each output row is the mean of v over all
+    T keys (its kv head's)."""
+    from repro_torch.kernels import flash_attention as fa
+    got = fa.flash_attention(q, k, v, **kw)
+    b, s, h, d = q.shape
+    rep = h // k.shape[2]
+    mean_v = v.float().mean(dim=1, keepdim=True) \
+        .repeat_interleave(rep, dim=2).expand(b, s, h, d)
+    tol = _tol(FA_TOL, q.dtype)
+    err = float((got.float() - mean_v).abs().max())
+    if not _close(got, mean_v, tol):
+        fail(f"flash_attention[{name}]: rows with no visible key are "
+             f"{err} from the mean of v")
+    return {"case": name, "dtype": str(q.dtype), "max_abs_err": err,
+            "tol": tol}
+
+
 def flash_cases():
     """K4 against its plain twin: the JAX kernel tests' shapes (causal
     and not, q_offset = t - s), windows, GQA groups of 4 (llama) and 5
-    (hymba), f32 and bf16, a tail shape, and rows that see no key (the
-    mean of v over all T keys)."""
+    (hymba), f32 (the scalar kernel) and bf16 (the tensor-core kernel),
+    tails of S and T, q_offset > 0, windows that are not a multiple of
+    the 128-key tile, rows that see no key (the mean of v over all T
+    keys) alone and beside rows that see keys, strided views, and a
+    misaligned view that the bf16 kernel refuses."""
     import torch
-    from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(10)
 
     def qkv(b, s, t, h, hkv, d, dtype=torch.float32):
@@ -1184,28 +1224,73 @@ def flash_cases():
                                  *qkv(2, 200, 200, 4, 2, 64, dtype)))
     cases.append(check_flash("tail-200-window-100-d32",
                              *qkv(1, 200, 200, 2, 1, 32), window=100))
-    # no row sees a key: each is the mean of v over all T keys
-    q, k, v = qkv(1, 64, 128, 2, 1, 64)
-    cases.append(check_flash("no-visible-key", q, k, v, causal=False,
-                             window=32, q_offset=200))
-    got = fa.flash_attention(q, k, v, causal=False, window=32, q_offset=200)
-    mean_v = v.float().mean(dim=1, keepdim=True).expand(1, 64, 2, 64)
-    err = float((got - mean_v).abs().max())
-    if not _close(got, mean_v, FA_TOL["float32"]):
-        fail(f"flash_attention: rows with no visible key are {err} from "
-             "the mean of v")
-    cases.append({"case": "no-visible-key-is-mean-of-v",
-                  "max_abs_err": err, "tol": FA_TOL["float32"]})
-    # one block holding rows that see keys and rows that see none
-    cases.append(check_flash("some-rows-see-no-key",
-                             *qkv(1, 64, 128, 2, 1, 64), causal=False,
-                             window=32, q_offset=140))
-    # strided inputs: q, k, v as views of one fused (B,S,H+2Hkv,D) tensor
-    qkv_fused = torch.randn(2, 300, 8 + 2 * 2, 64, generator=gen,
-                            device="cuda")
-    cases.append(check_flash("strided-views", qkv_fused[:, :, :8],
-                             qkv_fused[:, :, 8:10], qkv_fused[:, :, 10:],
-                             window=64))
+    bf16 = torch.bfloat16
+    for dtype in (torch.float32, bf16):
+        tag = str(dtype).removeprefix("torch.")
+        # no row sees a key: each is the mean of v over all T keys
+        q, k, v = qkv(1, 64, 128, 2, 1, 64, dtype)
+        cases.append(check_flash(f"no-visible-key-{tag}", q, k, v,
+                                 causal=False, window=32, q_offset=200))
+        cases.append(check_mean_of_v(f"no-visible-key-is-mean-of-v-{tag}",
+                                     q, k, v, causal=False, window=32,
+                                     q_offset=200))
+        # one block holding rows that see keys and rows that see none
+        # (rows 140..158 see keys, 159..203 none)
+        cases.append(check_flash(f"some-rows-see-no-key-{tag}",
+                                 *qkv(1, 64, 128, 2, 1, 64, dtype),
+                                 causal=False, window=32, q_offset=140))
+        # strided inputs: q, k, v as views of one fused (B,S,H+2Hkv,D)
+        # tensor
+        qkv_fused = torch.randn(2, 300, 8 + 2 * 2, 64, generator=gen,
+                                device="cuda").to(dtype)
+        cases.append(check_flash(f"strided-views-{tag}",
+                                 qkv_fused[:, :, :8], qkv_fused[:, :, 8:10],
+                                 qkv_fused[:, :, 10:], window=64))
+    # the tensor-core kernel's own edges, bf16
+    for s, t, d in ((128, 128, 64), (256, 256, 32), (64, 256, 64),
+                    (256, 128, 16)):
+        for causal in (True, False):
+            if causal and s > t:
+                continue
+            cases.append(check_flash(
+                f"kernel-test-{s}x{t}x{d}-{'causal' if causal else 'full'}"
+                f"-bfloat16", *qkv(3, s, t, 1, 1, d, bf16), causal=causal,
+                q_offset=t - s if causal else 0))
+    cases.append(check_flash("tail-1000-bfloat16",
+                             *qkv(1, 1000, 1000, 5, 1, 64, bf16)))
+    cases.append(check_flash("tail-200x1000-full-bfloat16",
+                             *qkv(2, 200, 1000, 4, 2, 32, bf16),
+                             causal=False))
+    cases.append(check_flash("q-offset-64-causal-bfloat16",
+                             *qkv(2, 200, 264, 4, 1, 64, bf16), q_offset=64))
+    cases.append(check_flash("window-100-bfloat16",
+                             *qkv(1, 1000, 1000, 5, 1, 64, bf16),
+                             window=100))
+    cases.append(check_flash("window-1000-bfloat16",
+                             *qkv(1, 2000, 2000, 5, 1, 64, bf16),
+                             window=1000))
+    cases.append(check_flash("tail-200-window-100-d16-bfloat16",
+                             *qkv(1, 200, 200, 2, 1, 16, bf16), window=100))
+    # a 128-row block whose first warpgroup sees keys and whose second
+    # sees none (rows 0..58 see keys): the block walks all T keys
+    cases.append(check_flash("half-block-sees-no-key-bfloat16",
+                             *qkv(1, 128, 128, 2, 1, 64, bf16),
+                             causal=False, window=32, q_offset=100))
+    # the K/V ring when a warpgroup skips more tiles in a row than the
+    # ring has stages: S = 1050 leaves the last block's second
+    # warpgroup without rows (it releases all 9 tiles), and a block
+    # whose second warpgroup is blind walks all 8 tiles of T = 1000
+    # while its first sees only the last
+    cases.append(check_flash("empty-second-warpgroup-s1050-bfloat16",
+                             *qkv(1, 1050, 1050, 5, 1, 64, bf16)))
+    cases.append(check_flash("warpgroup-skips-7-tiles-bfloat16",
+                             *qkv(1, 128, 1000, 2, 1, 64, bf16),
+                             causal=False, window=64, q_offset=980))
+    # TMA's rule: a view 2 bytes off a 16-byte address is refused
+    wide = torch.randn(1, 256, 2, 80, generator=gen, device="cuda").to(bf16)
+    cases.append(check_flash_raises(
+        "misaligned-view-bfloat16", wide[..., 1:65],
+        wide[:, :, :1, 8:72], wide[:, :, :1, 8:72]))
     return cases
 
 
@@ -1410,7 +1495,10 @@ def lm_prefill_path(models):
             first_s = time.perf_counter() - t0
             launched = counts()
         hybrid = cfg.family == "hybrid"
+        # bf16: every K4 launch is the tensor-core kernel, none scalar
         want = only(flash_attention=cfg.num_layers,
+                    flash_attention_tc=cfg.num_layers
+                    if dtype == torch.bfloat16 else 0,
                     ssm_scan=cfg.num_layers if hybrid else 0)
         if launched != want:
             fail(f"prefill {arch} B={b} S={s}: launches {launched}, "
@@ -1518,6 +1606,51 @@ def lm_serve_path(models):
             "cli_s": cli_s, "cli_stdout": cli.stdout.strip().splitlines()}
 
 
+def lm_bf16_kernel_vs_plain(models):
+    """Reported, not gated: the bf16 hymba-1.5b prefill of B=1 x 1280
+    tokens (banded route, as in ``lm_consistency``) with the tensor-core
+    K4 against the same prefill with the plain twin ``gqa_plain``
+    patched in for it (K5 runs in both): the last position's logits,
+    their max abs difference and whether the greedy token agrees."""
+    import torch
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.launch.steps import make_prefill_step
+    cfg, params = models["hymba-1.5b"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (1, CONSISTENCY_S),
+                         generator=gen, device="cuda")
+    prefill = make_prefill_step(cfg, TrainConfig(
+        attn_chunk_q=CONSISTENCY_CHUNK, attn_chunk_kv=CONSISTENCY_CHUNK))
+    zero_counts()
+    got = prefill(params, {"tokens": toks}).float()
+    torch.cuda.synchronize()
+    kernel_counts = counts()
+
+    def plain_attention(q, k, v, **kw):
+        return fa.gqa_plain(q, k, v, **kw)
+
+    with patched(kernel_ops, "gqa_flash_attention", plain_attention):
+        zero_counts()
+        plain = prefill(params, {"tokens": toks}).float()
+        torch.cuda.synchronize()
+        plain_counts = counts()
+    if kernel_counts != only(flash_attention=cfg.num_layers,
+                             flash_attention_tc=cfg.num_layers,
+                             ssm_scan=cfg.num_layers) \
+            or plain_counts != only(ssm_scan=cfg.num_layers):
+        fail(f"bf16 kernel-vs-plain prefill launches {kernel_counts}, "
+             f"{plain_counts}")
+    return {"arch": cfg.arch_id, "batch": 1, "seq_len": CONSISTENCY_S,
+            "dtype": "torch.bfloat16", "gated": False,
+            "kernel_vs_plain_max_abs": float((got - plain).abs().max()),
+            "logits_max_abs": float(plain.abs().max()),
+            "greedy_token_equal": bool(torch.equal(got.argmax(-1),
+                                                   plain.argmax(-1))),
+            "launches_kernel": kernel_counts, "launches_plain": plain_counts}
+
+
 def lm_consistency():
     """f32 parameters (``set_full_f32``), full-width hymba-1.5b, B=1,
     S=1280: the prefill step's last-position logits (K4 banded, K5)
@@ -1619,17 +1752,25 @@ def visible_pairs(s, t, causal, window, q_offset):
 
 
 def flash_bound_ms(qs, ks, esize, causal, window, q_offset):
-    """Least time for one call: 4*D flops per visible (q, k) pair per
-    head (two dots) against the bf16 tensor peak, or q, k, v read and
-    the output written once against HBM, whichever is larger."""
+    """Least time for one call, the largest of three: 4*D flops per
+    visible (q, k) pair per head (two dots) against the bf16 tensor
+    peak; one exp per visible pair against the SFU's exp2 rate; q, k, v
+    read and the output written once against HBM.  Returns (ms,
+    "operations" or "bytes", which operations bind ("tensor flops" or
+    "exps", or None when bytes bind), flops, exps)."""
     b, s, h, d = qs
     t, hkv = ks[1], ks[2]
-    flops = 4 * b * h * visible_pairs(s, t, causal, window, q_offset) * d
-    by_ops = flops / BF16_TENSOR_FLOPS_PER_S * 1e3
+    exps = b * h * visible_pairs(s, t, causal, window, q_offset)
+    flops = 4 * exps * d
+    by_flops = flops / BF16_TENSOR_FLOPS_PER_S * 1e3
+    by_exps = exps / SFU_EXP_PER_S * 1e3
     nbytes = (2 * b * s * h * d + 2 * b * t * hkv * d) * esize
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
-                                   else "bytes"), flops
+    bound = max(by_flops, by_exps, by_bytes)
+    if bound == by_bytes:
+        return bound, "bytes", None, flops, exps
+    return bound, "operations", ("tensor flops" if by_flops >= by_exps
+                                 else "exps"), flops, exps
 
 
 def _sdpa_backend(fn):
@@ -1649,9 +1790,11 @@ def _sdpa_backend(fn):
 
 
 def flash_attention_times(attn_calls):
-    """K4, its plain twin and ``scaled_dot_product_attention`` (the
-    library yardstick; the port never calls it) at one layer of each
-    route the prefill path formed, in turns on the same inputs."""
+    """K4 (the tensor-core kernel: the prefill path is bf16), its plain
+    twin, ``scaled_dot_product_attention`` (the library yardstick; the
+    port never calls it) and the f32 scalar kernel on the same inputs in
+    f32, at one layer of each route the prefill path formed, in
+    turns."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1692,23 +1835,40 @@ def flash_attention_times(attn_calls):
             return F.scaled_dot_product_attention(qt, kt, vt,
                                                   enable_gqa=True, **lib_kw)
 
+        qf, kf, vf = q.float(), k.float(), v.float()
+
+        def scalar_f32():
+            return fa.flash_attention(qf, kf, vf, causal=causal,
+                                      window=window, q_offset=q_offset)
+
         backend = _sdpa_backend(library)
+        tc_before = fa.tc_launches
         kernel_a = median_ms(kernel, runs=5, per_run=5)
+        if fa.tc_launches == tc_before:
+            fail(f"flash_attention_times {arch}: the timed kernel was not "
+                 "the tensor-core one")
         plain_a = median_ms(plain, runs=3, per_run=2)
         lib = median_ms(library, runs=5, per_run=5)
+        f32_ms = median_ms(scalar_f32, runs=3, per_run=3)
         kernel_b = median_ms(kernel, runs=5, per_run=5)
         plain_b = median_ms(plain, runs=3, per_run=2)
-        bound, bound_by, flops = flash_bound_ms(qs, ks, q.element_size(),
-                                                causal, window, q_offset)
+        bound, bound_by, ops_by, flops, exps = flash_bound_ms(
+            qs, ks, q.element_size(), causal, window, q_offset)
         ms = min(kernel_a, kernel_b)
         out.append({"arch": arch, "route": route, "q": list(qs),
                     "k": list(ks), "dtype": str(dtype), "causal": causal,
-                    "window": window, "visible_flops": flops, "ms": ms,
+                    "window": window, "visible_flops": flops,
+                    "visible_exps": exps, "ms": ms,
+                    "ms_runs": [kernel_a, kernel_b],
                     "tflops": flops / ms / 1e9,
                     "plain_ms": min(plain_a, plain_b), "library_ms": lib,
                     "library": f"scaled_dot_product_attention "
                                f"({backend} backend)",
+                    "f32_scalar_kernel_ms": f32_ms,
                     "bound_ms": bound, "bound_by": bound_by,
+                    "bound_ops": ops_by,
+                    "bound_tensor_ms": flops / BF16_TENSOR_FLOPS_PER_S * 1e3,
+                    "bound_exp_ms": exps / SFU_EXP_PER_S * 1e3,
                     "max_abs_err": err, "f32_max_abs_err": f32_err})
     return out
 
@@ -1808,6 +1968,8 @@ def main() -> int:
     emit({"phase": "lm_prefill_path", "card": card, "runs": prefill})
     serve = lm_serve_path(models)
     emit({"phase": "lm_serve_path", "card": card, **serve})
+    emit({"phase": "lm_bf16_kernel_vs_plain",
+          **lm_bf16_kernel_vs_plain(models)})
     models.clear()
     torch.cuda.empty_cache()
     emit({"phase": "lm_consistency", **lm_consistency()})
@@ -1896,19 +2058,23 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:30",
-        # one hymba-1.5b prefill at S=4096 (the path's first case)
+        # one hymba-1.5b prefill at S=4096 (the path's first case), all
+        # of them the tensor-core kernel
         "launches": prefill[0]["launches"]["flash_attention"],
+        "tc_launches": prefill[0]["launches"]["flash_attention_tc"],
         "max_abs_err": max(t["max_abs_err"] for t in fa_times),
         "shape": {"q": fa_times[0]["q"], "k": fa_times[0]["k"],
                   "window": fa_times[0]["window"]},
         "ms": fa_times[0]["ms"], "plain_ms": fa_times[0]["plain_ms"],
         "bound_ms": fa_times[0]["bound_ms"],
         "bound_by": fa_times[0]["bound_by"],
+        "bound_ops": fa_times[0]["bound_ops"],
         "library_ms": fa_times[0]["library_ms"],
         "library": fa_times[0]["library"],
         "routes": [{k: t[k] for k in ("arch", "route", "q", "k", "window",
-                                      "ms", "plain_ms", "bound_ms",
-                                      "bound_by", "library_ms")}
+                                      "ms", "tflops", "plain_ms",
+                                      "bound_ms", "bound_by", "bound_ops",
+                                      "library_ms", "f32_scalar_kernel_ms")}
                    for t in fa_times]}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",

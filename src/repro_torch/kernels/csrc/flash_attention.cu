@@ -1,12 +1,21 @@
-// Blockwise online-softmax attention for Hopper (sm_90a), GQA-aware.
+// Blockwise online-softmax attention for Hopper (sm_90a), GQA-aware:
+// two kernels, picked by the dtype.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:
+// _kernel / flash_attention (and the GQA wrapper of kernels/ops.py,
+// which repeated k/v per group first).  That kernel walks a (BH, nq, nk)
+// grid with the KV axis sequential and keeps (acc, m, l) in VMEM
+// scratch between grid steps; here one block owns one (b, h, q tile)
+// and loops over the key tiles its rows can see, the online-softmax
+// state of each row in f32 registers.
 //
 //   q (B,S,H,D), k/v (B,T,Hkv,D), any strides with a unit stride on D;
 //   out (B,S,H,D) contiguous, in q's type.  Query head h reads kv head
 //   h / (H/Hkv) -- the mapping of jnp.repeat(k, H/Hkv, axis=2) -- and no
 //   repeated copy of k or v is ever made.
 //
-//   s = (q . k) * scale            q, k, v cast to f32 BEFORE the dot;
-//                                  scale = 1/sqrt(D) multiplied AFTER it
+//   s = (q . k) * scale            scale = 1/sqrt(D) multiplied AFTER
+//                                  the dot
 //   s = visible ? s : -1e30        a select, not an additive bias;
 //                                  causal: k_pos <= q_pos, window > 0:
 //                                  k_pos > q_pos - window, positions
@@ -15,60 +24,98 @@
 //   corr = exp(m - m_new),  l = l*corr + sum p,  acc = acc*corr + p.v
 //   out = acc / max(l, 1e-30)
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:
-// _kernel / flash_attention (and the GQA wrapper of kernels/ops.py,
-// which repeated k/v per group first).  That kernel walks a (BH, nq, nk)
-// grid with the KV axis sequential and keeps (acc, m, l) in VMEM
-// scratch between grid steps; here one block owns one (b, h, 64-row q
-// tile) and loops over 64-key tiles of k/v staged in shared memory, the
-// online-softmax state of each row kept in f32 registers.
+// Both kernels skip key tiles wholly outside every row's causal/window
+// band -- except in a block that holds a row that sees no key at all:
+// the reference gives such a row exp(-1e30 - (-1e30)) = 1 for every
+// key, i.e. the mean of v over all T keys, so that block walks all T
+// keys, as the reference's grid does.  Keys past T (a tail tile) get
+// -inf and zero k/v, so they add nothing even to such a row.
 //
-// Design, and what bounds it.  Per visible key the work is 4*D flops
-// (two dots of length D); the bytes are q, k, v and out read or written
-// once.  At the serving path's shapes (hymba-1.5b: S=4096, window
-// 1024, D=64) that is about 100 flops a byte, so the bound is
-// operations.  This first kernel is scalar f32 on the CUDA cores (the
-// reference's f32-before-the-dot numerics; no tensor cores): 256
-// threads, four to a q row.  For the scores a thread holds its q row in
-// registers and takes 16 of the tile's 64 keys, reading each key row as
-// float4s (rows padded to D+4 floats, so the four lanes of a row hit
-// four distinct banks); the 4-lane row max and row sum are shuffles;
-// p goes through shared memory; for p.v a thread owns D/4 of the
-// row's output columns, again as float4s.  Key tiles wholly outside
-// every row's causal/window band are skipped -- except in a block that
-// holds a row that sees no key at all: the reference gives such a row
-// exp(-1e30 - (-1e30)) = 1 for every key, i.e. the mean of v over all
-// T keys, so that block walks all T keys, as the reference's grid
-// does.  Keys past T (a tail tile) get -inf and zero k/v, so they add
-// nothing even to such a row.  expf, true division, no fast math.
+// f32: flash_attention_kernel, scalar on the CUDA cores -- the
+// reference's numerics exactly (q, k, v in f32 before the dot, expf,
+// true division).  256 threads, four to a q row of a 64-row tile,
+// 64-key tiles of k/v staged in shared memory as f32: for the scores a
+// thread holds its q row in registers and takes 16 of the tile's keys
+// (float4 reads of rows padded to D+4 floats); the 4-lane row max and
+// sum are shuffles; p goes through shared memory; for p.v a thread owns
+// D/4 of the row's output columns.
+//
+// bf16: flash_attention_tc_kernel, on the tensor cores.  Per visible
+// (q, k) pair the work is 4*D flops (two dots) and one exp, so at D=64
+// the tensor cores (989e12 flop/s: 3.86e12 pairs/s) and the special-
+// function units' exp2 (16 a clock an SM: 4.18e12/s) bound it almost
+// equally; the bytes (q, k, v, out once) are two orders below.
+//   * A CTA owns 128 q rows of one (b, h): warpgroup 0 is the producer,
+//     warpgroups 1 and 2 the consumers, 64 rows each.  setmaxnreg moves
+//     registers from the producer (24) to the consumers (240).
+//   * One producer thread loads the Q tile once and keeps K and V tiles
+//     of 128 keys in flight in a ring of 3 stages with TMA
+//     (cp.async.bulk.tensor, 4-D maps over (D, T, Hkv, B) with the
+//     caller's strides, encoded on the host through the driver's entry
+//     point and cached), each stage with full and empty mbarriers; so
+//     the loads of tiles j+1 and j+2 are in flight while tile j is
+//     computed.  TMA's out-of-bounds fill gives the zero rows past S
+//     and the zero k/v past T.  Tiles land in the swizzle of one D-wide
+//     row (128, 64 or 32 bytes for D = 64, 32, 16), the layout wgmma
+//     reads.
+//   * S = Q.K^T: wgmma.mma_async m64n128k16, both operands K-major from
+//     shared memory, f32 accumulator in registers; then * scale.
+//   * Masks by select only on tiles that cut a band edge or hold keys
+//     past T; interior tiles skip them.  Online softmax in f32, row max
+//     and sum over the quad that holds a row; p = 2^(s*scale*log2e - m)
+//     and corr through ex2.approx -- where the f32 kernel uses expf.
+//   * O += P.V: P rounded to bf16 in registers is wgmma's A operand
+//     (the accumulator's layout is the A fragment's), V an MN-major B
+//     operand from shared memory (the transpose bit), m64nDk16; O in
+//     f32 registers, rescaled by corr before each product.
+//   * Epilogue: out = o / max(l, 1e-30), rounded once to bf16, staged
+//     in shared memory and stored 16 bytes a thread, rows < S only.
+//   * Overlap, as FA3 does it: a warpgroup issues tile j's Q.K^T and
+//     tile j-1's P.V in one go and runs tile j's softmax while that P.V
+//     is on the tensor cores; and "ping-pong": the two consumer
+//     warpgroups take turns to issue (named barriers), so one's softmax
+//     (the exps: the SFU) runs while the other's products hold the
+//     tensor cores.  Measured on an H100 (PERF.md): 5 % under a serial
+//     tile loop; the K/V ring alone -- every 128-row block reloading
+//     its head's tiles from L2 -- is most of what remains.
+//   * ptxas (-Xptxas -v): 168 registers at entry for all three head
+//     sizes (384 threads, one block an SM), 24 / 240 after setmaxnreg,
+//     no spills; about 131 KB of shared memory at D=64.
+// Numerics against the f32 reference: P is rounded to bf16 before P.V
+// (a second bf16 rounding beside the output's) and exp goes through
+// exp2; the checks hold it at rtol 8e-3, atol 3e-3.
+//
+// Addresses and byte strides of q, k, v must be multiples of 16 bytes
+// (TMA); the wrapper raises otherwise.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+#include <string.h>
+
+#include <mutex>
+
+// ---------------------------------------------------------------------
+// The f32 kernel: scalar, the reference's arithmetic
+// ---------------------------------------------------------------------
 
 #define FA_BQ 64
 #define FA_BK 64
 #define FA_THREADS 256
 #define FA_NEG (-1e30f)
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_as(float v, float* p) { *p = v; }
-__device__ __forceinline__ void store_as(float v, __nv_bfloat16* p) {
-    *p = __float2bfloat16_rn(v);
-}
-
 template <int D>
 __host__ __device__ constexpr int fa_smem_floats() {
     return FA_BK * (D + 4) + FA_BK * D + FA_BQ * (FA_BK + 4);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
                        int S, int T_len, int H, int Hkv,
                        long long q_sb, long long q_ss, long long q_sh,
                        long long k_sb, long long k_st, long long k_sh,
@@ -113,10 +160,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     float qr[D];
     {
-        const T* qrow = q + (long long)b * q_sb + (long long)row * q_ss
+        const float* qrow = q + (long long)b * q_sb + (long long)row * q_ss
                         + (long long)h * q_sh;
 #pragma unroll
-        for (int d = 0; d < D; ++d) qr[d] = row_ok ? to_f32(qrow[d]) : 0.0f;
+        for (int d = 0; d < D; ++d) qr[d] = row_ok ? qrow[d] : 0.0f;
     }
     float m_run = FA_NEG, l_run = 0.0f;
     float4 acc[DG];
@@ -125,8 +172,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     __syncthreads();
     const int t_end = range_hi;
-    const T* kbase = k + (long long)b * k_sb + (long long)hk * k_sh;
-    const T* vbase = v + (long long)b * v_sb + (long long)hk * v_sh;
+    const float* kbase = k + (long long)b * k_sb + (long long)hk * k_sh;
+    const float* vbase = v + (long long)b * v_sb + (long long)hk * v_sh;
     for (int t0 = (range_lo / FA_BK) * FA_BK; t0 < t_end; t0 += FA_BK) {
         // stage the k/v tile in f32; keys past T are zeros
         for (int i = tid; i < FA_BK * D; i += FA_THREADS) {
@@ -134,8 +181,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int kk = t0 + j;
             float kv = 0.0f, vv = 0.0f;
             if (kk < T_len) {
-                kv = to_f32(kbase[(long long)kk * k_st + d]);
-                vv = to_f32(vbase[(long long)kk * v_st + d]);
+                kv = kbase[(long long)kk * k_st + d];
+                vv = vbase[(long long)kk * v_st + d];
             }
             Ks[j * KS + d] = kv;
             Vs[j * D + d] = vv;
@@ -219,61 +266,706 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     if (row_ok) {
         const float l = fmaxf(l_run, 1e-30f);
-        T* orow = out + (((long long)b * S + row) * H + h) * D;
+        float* orow = out + (((long long)b * S + row) * H + h) * D;
 #pragma unroll
         for (int g = 0; g < DG; ++g) {
             const int d = 4 * (c + 4 * g);
-            store_as(acc[g].x / l, orow + d);
-            store_as(acc[g].y / l, orow + d + 1);
-            store_as(acc[g].z / l, orow + d + 2);
-            store_as(acc[g].w / l, orow + d + 3);
+            orow[d] = acc[g].x / l;
+            orow[d + 1] = acc[g].y / l;
+            orow[d + 2] = acc[g].z / l;
+            orow[d + 3] = acc[g].w / l;
         }
     }
 }
 
-template <typename T, int D>
-static int launch_fa(const void* q, const void* k, const void* v, void* out,
+template <int D>
+static int launch_f32(const void* q, const void* k, const void* v, void* out,
                      int B, int S, int T_len, int H, int Hkv,
                      const long long* st, int causal, int window,
                      int q_offset, float scale, cudaStream_t stream) {
     const int smem = fa_smem_floats<D>() * (int)sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>,
+        flash_attention_kernel<D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((S + FA_BQ - 1) / FA_BQ, H, B);
-    flash_attention_kernel<T, D><<<grid, FA_THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), S, T_len, H, Hkv,
+    flash_attention_kernel<D><<<grid, FA_THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), S, T_len,
+        H, Hkv,
         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
         causal, window, q_offset, scale);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int dispatch_d(const void* q, const void* k, const void* v,
-                      void* out, int B, int S, int T_len, int H, int Hkv,
-                      int D, const long long* st, int causal, int window,
-                      int q_offset, float scale, cudaStream_t s) {
-    switch (D) {
-        case 16: return launch_fa<T, 16>(q, k, v, out, B, S, T_len, H, Hkv,
-                                         st, causal, window, q_offset,
-                                         scale, s);
-        case 32: return launch_fa<T, 32>(q, k, v, out, B, S, T_len, H, Hkv,
-                                         st, causal, window, q_offset,
-                                         scale, s);
-        case 64: return launch_fa<T, 64>(q, k, v, out, B, S, T_len, H, Hkv,
-                                         st, causal, window, q_offset,
-                                         scale, s);
-        default: return (int)cudaErrorInvalidValue;
+
+// ---------------------------------------------------------------------
+// The bf16 kernel: tensor cores (wgmma), a TMA-fed K/V ring
+// ---------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int BQ = 128;          // q rows a CTA: two consumer warpgroups
+constexpr int BK = 128;          // keys a K/V tile
+constexpr int STAGES = 3;        // depth of the K/V ring
+constexpr int THREADS = 384;     // producer warpgroup + 2 consumers
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr float NEG = -1e30f;
+
+// Shared-memory layout of one head size: rows of D bf16 (D*2 bytes), in
+// the swizzle whose span is one row (128, 64 or 32 bytes), so that TMA
+// writes and wgmma reads the same layout.  Every tile starts on a
+// multiple of 1024 bytes, the longest swizzle repeat.
+template <int D>
+struct Layout {
+    static constexpr int ROW = 2 * D;                  // bytes a row
+    static constexpr int ATOM = 8 * ROW;               // 8-row swizzle atom
+    static constexpr int SWIZZLE = D == 64 ? 1 : D == 32 ? 2 : 3;
+    static constexpr int Q_BYTES = BQ * ROW;
+    static constexpr int KV_BYTES = BK * ROW;
+    static constexpr int O_PITCH = D + 8;              // bf16, staging
+    static constexpr int Q_OFF = 0;
+    static constexpr int K_OFF = Q_OFF + Q_BYTES;
+    static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+    static constexpr int O_OFF = V_OFF + STAGES * KV_BYTES;
+    static constexpr int BAR_OFF = O_OFF + ((BQ * O_PITCH * 2 + 1023) / 1024) * 1024;
+    // q_full, then full_k, full_v, empty_k, empty_v of every stage
+    static constexpr int BYTES = BAR_OFF + 8 * (1 + 4 * STAGES);
+    static constexpr int ALLOC = BYTES + 1024;         // room to align
+    static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "tiles");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(bar) : "memory");
+}
+
+// Returns once the phase of parity ``parity`` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+    uint32_t done = 0;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// One box of a 4-D tensor map into shared memory; completion is counted
+// in bytes on ``bar``.  Elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+           "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle mode in bits 62-63.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int swizzle) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+           | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
+           | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
+           | static_cast<uint64_t>(swizzle) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Returns once at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Pins accumulator registers after a wait, so that no read of them is
+// moved above it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D(64 x 128, f32) (+)= A(64 x 16, smem, K-major) . B(16 x 128, smem, K-major)
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b,
+                                                    int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D(64 x 64, f32) += A(64 x 16, registers) . B(16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D(64 x 32, f32) += A(64 x 16, registers) . B(16 x 32, smem, MN-major)
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D(64 x 16, f32) += A(64 x 16, registers) . B(16 x 16, smem, MN-major)
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_v) {
+    if constexpr (D == 64) wgmma_m64n64k16_rs(o, a, desc_v);
+    else if constexpr (D == 32) wgmma_m64n32k16_rs(o, a, desc_v);
+    else wgmma_m64n16k16_rs(o, a, desc_v);
+}
+
+// One warpgroup's 64 rows against one 128-key tile, after S = Q.K^T is
+// in ``s``: scores to the log2 domain (scale * log2 e), the masks where
+// the tile needs them, and the online-softmax update of (m, l); ``s``
+// leaves holding p = 2^(s - m) and ``corr`` the factor that carries the
+// output accumulator over to the new m.  Accumulator element i of a
+// thread sits at row (lane/4 + 8*((i/2)&1)) of its warp's 16 and column
+// 8*(i/4) + 2*(lane%4) + (i&1) of the tile; a row lives in the 4
+// threads of a quad.
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             float scale_log2, int t0, int T,
+                                             int row_pos, int causal,
+                                             int window) {
+    const int lane = threadIdx.x & 31;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+        const int r = (i >> 1) & 1;
+        if (MASK) {
+            const int key = t0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+            const int p = row_pos + 8 * r;
+            const bool real = key < T;
+            const bool vis = real && (!causal || key <= p)
+                             && (window <= 0 || key > p - window);
+            s[i] = vis ? s[i] * scale_log2 : (real ? NEG : -INFINITY);
+        }
+        mx[r] = fmaxf(mx[r], s[i]);
+    }
+    float m_new[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // unmasked scores are still raw: scale > 0 commutes with max
+        m_new[r] = fmaxf(m[r], MASK ? mx[r] : mx[r] * scale_log2);
+        corr[r] = ex2(m[r] - m_new[r]);
+        m[r] = m_new[r];
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+        const int r = (i >> 1) & 1;
+        s[i] = MASK ? ex2(s[i] - m_new[r])
+                    : ex2(fmaf(s[i], scale_log2, -m_new[r]));
+        sum[r] += s[i];
+    }
+    // l stays a per-thread partial sum until the epilogue
+    l[0] = l[0] * corr[0] + sum[0];
+    l[1] = l[1] * corr[1] + sum[1];
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(float (&o)[D / 2],
+                                        const float (&corr)[2]) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          __nv_bfloat16* __restrict__ out, int S, int T,
+                          int H, int Hkv, int causal, int window,
+                          int q_offset, float scale_log2) {
+    using L = Layout<D>;
+    extern __shared__ __align__(16) uint8_t smem_raw[];
+    uint8_t* smem = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    const uint32_t s_base = smem_u32(smem);
+    const uint32_t s_q = s_base + L::Q_OFF;
+    const uint32_t bar = s_base + L::BAR_OFF;
+    // barrier addresses: q_full, then per stage full_k, full_v,
+    // empty_k, empty_v
+    auto full_k = [&](int st) { return bar + 8 * (1 + st); };
+    auto full_v = [&](int st) { return bar + 8 * (1 + STAGES + st); };
+    auto empty_k = [&](int st) { return bar + 8 * (1 + 2 * STAGES + st); };
+    auto empty_v = [&](int st) { return bar + 8 * (1 + 3 * STAGES + st); };
+
+    // the heaviest q tiles (causal: the last) are scheduled first
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+    const int h = blockIdx.y;
+    const int b = blockIdx.z;
+    const int hk = h / (H / Hkv);
+
+    // The keys this CTA walks: the union of its rows' bands, or all T
+    // when a row sees no key (the last row is the first to see none).
+    const int p_first = q_offset + q0;
+    const int p_last = q_offset + min(q0 + BQ, S) - 1;
+    const bool cta_blind = window > 0 && p_last - window + 1 >= T;
+    const int lo = cta_blind || window <= 0 ? 0 : max(0, p_first - window + 1);
+    const int hi = cta_blind || !causal ? T : min(T, p_last + 1);
+    const int tile_lo = (lo / BK) * BK;
+    const int n_tiles = (hi - tile_lo + BK - 1) / BK;
+
+    if (threadIdx.x == 0) {
+        mbar_init(bar, 1);
+        for (int st = 0; st < STAGES; ++st) {
+            mbar_init(full_k(st), 1);
+            mbar_init(full_v(st), 1);
+            mbar_init(empty_k(st), 8);     // lane 0 of each consumer warp
+            mbar_init(empty_v(st), 8);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    const int wg = threadIdx.x / 128;
+    if (wg == 0) {
+        // ---- producer: one thread keeps the ring full ----
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                     :: "n"(PRODUCER_REGS));
+        if (threadIdx.x == 0) {
+            mbar_expect_tx(bar, L::Q_BYTES);
+            tma_load_4d(s_q, &tm_q, bar, 0, q0, h, b);
+            for (int j = 0; j < n_tiles; ++j) {
+                const int st = j % STAGES;
+                const int ph = (j / STAGES) & 1;
+                const int t0 = tile_lo + j * BK;
+                mbar_wait(empty_k(st), ph ^ 1);
+                mbar_expect_tx(full_k(st), L::KV_BYTES);
+                tma_load_4d(s_base + L::K_OFF + st * L::KV_BYTES, &tm_k,
+                            full_k(st), 0, t0, hk, b);
+                mbar_wait(empty_v(st), ph ^ 1);
+                mbar_expect_tx(full_v(st), L::KV_BYTES);
+                tma_load_4d(s_base + L::V_OFF + st * L::KV_BYTES, &tm_v,
+                            full_v(st), 0, t0, hk, b);
+            }
+        }
+    } else {
+        // ---- consumers: 64 q rows each ----
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                     :: "n"(CONSUMER_REGS));
+        const int w = wg - 1;
+        const int tid = threadIdx.x & 127;
+        const int warp = tid >> 5, lane = tid & 31;
+        const int r0 = q0 + 64 * w;                   // first row
+        const int n_rows = min(64, S - r0);           // rows < S
+        const int pa = q_offset + r0;
+        const int pb = pa + 63;
+        // this warpgroup's own band over its rows < S, and whether one
+        // of them sees no key (then it takes every tile of the CTA)
+        const int p_end = pa + n_rows - 1;
+        const bool wg_blind = window > 0 && p_end - window + 1 >= T;
+        const int w_lo = window > 0 ? max(0, pa - window + 1) : 0;
+        const int w_hi = causal ? min(T, p_end + 1) : T;
+        const int row_pos = pa + 16 * warp + (lane >> 2);
+
+        float o[D / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+        float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, corr[2] = {1.f, 1.f};
+        float s[64];
+        uint32_t pf[BK / 16][4];         // P of the tile before, bf16
+
+        const uint64_t desc_q = make_desc(s_q + w * 64 * L::ROW, 16,
+                                          L::ATOM, L::SWIZZLE);
+        // S = Q . K^T (64 x 128), K-major operands from the ring
+        auto issue_qk = [&](int st) {
+            const uint32_t s_k = s_base + L::K_OFF + st * L::KV_BYTES;
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk)
+                wgmma_m64n128k16_ss(
+                    s, desc_q + (uint64_t)((32 * kk) >> 4),
+                    make_desc(s_k + 32 * kk, 16, L::ATOM, L::SWIZZLE),
+                    kk > 0);
+        };
+        // O += P . V: P (bf16, registers) is the A operand, V (keys x D,
+        // D contiguous) an MN-major B operand
+        auto issue_pv = [&](int st) {
+            const uint32_t s_v = s_base + L::V_OFF + st * L::KV_BYTES;
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk)
+                wgmma_pv<D>(o, pf[kk],
+                            make_desc(s_v + kk * 16 * L::ROW, L::ATOM,
+                                      L::ATOM, L::SWIZZLE));
+        };
+        auto softmax = [&](int j) {
+            const int t0 = tile_lo + j * BK;
+            // a tile needs the masks unless every key is real and seen
+            // by every one of the 64 rows
+            const bool interior = t0 + BK <= T
+                                  && (!causal || t0 + BK - 1 <= pa)
+                                  && (window <= 0 || t0 >= pb - window + 1);
+            if (interior)
+                softmax_tile<false>(s, m, l, corr, scale_log2, t0, T,
+                                    row_pos, causal, window);
+            else
+                softmax_tile<true>(s, m, l, corr, scale_log2, t0, T,
+                                   row_pos, causal, window);
+        };
+        // P rounded to bf16: the accumulator's layout is the A fragment's
+        auto pack_p = [&]() {
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk) {
+                pf[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+                pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+                pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+                pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+            }
+        };
+        // Ping-pong: the two warpgroups take turns to issue their
+        // products (named barriers 3 and 4), so that one's softmax runs
+        // while the other's products hold the tensor cores.  Each takes
+        // n_tiles + 1 turns, warpgroup 0 first; every turn ends with an
+        // arrival (a branch there made ptxas serialize the products),
+        // and warpgroup 0 takes warpgroup 1's last one at the end.
+        auto turn_begin = [&]() {
+            asm volatile("bar.sync %0, 256;\n" :: "r"(3 + w) : "memory");
+        };
+        auto turn_end = [&]() {
+            asm volatile("bar.arrive %0, 256;\n" :: "r"(4 - w) : "memory");
+        };
+        // a tile these rows do not see: released once it has landed (an
+        // arrival for a later round of the stage must not count towards
+        // this one, whose other warpgroup may still be reading)
+        auto release = [&](int j) {
+            const int st = j % STAGES, ph = (j / STAGES) & 1;
+            mbar_wait(full_k(st), ph);
+            mbar_wait(full_v(st), ph);
+            if (lane == 0) {
+                mbar_arrive(empty_k(st));
+                mbar_arrive(empty_v(st));
+            }
+            turn_begin();
+            turn_end();
+        };
+        // the tiles these rows see: a run [j_a, j_b) of the CTA's
+        int j_a = n_tiles, j_b = n_tiles;
+        if (n_rows > 0) {
+            j_a = wg_blind ? 0 : max(0, (w_lo - tile_lo) / BK);
+            j_b = wg_blind ? n_tiles
+                           : min(n_tiles, (w_hi - tile_lo + BK - 1) / BK);
+            if (j_b <= j_a) j_a = j_b = n_tiles;
+        }
+
+        if (w == 1)
+            asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+        mbar_wait(bar, 0);
+        for (int j = 0; j < j_a; ++j) release(j);
+        if (j_a < n_tiles) {
+            {   // the first tile: its scores only
+                const int st = j_a % STAGES, ph = (j_a / STAGES) & 1;
+                mbar_wait(full_k(st), ph);
+                turn_begin();
+                wgmma_fence();
+                issue_qk(st);
+                wgmma_commit();
+                turn_end();
+                wgmma_wait<0>();
+                fence_regs(s);
+                if (lane == 0) mbar_arrive(empty_k(st));
+                softmax(j_a);
+                pack_p();
+            }
+            // tile j's scores and tile j-1's P.V in one turn; tile j's
+            // softmax runs while that P.V is on the tensor cores
+            for (int j = j_a + 1; j < j_b; ++j) {
+                const int st = j % STAGES, ph = (j / STAGES) & 1;
+                const int sp = (j - 1) % STAGES, pp = ((j - 1) / STAGES) & 1;
+                mbar_wait(full_k(st), ph);
+                mbar_wait(full_v(sp), pp);
+                turn_begin();
+                // o's rescale before the products: no register of an
+                // issued product is written until its wait
+                rescale<D>(o, corr);
+                wgmma_fence();
+                issue_qk(st);
+                wgmma_commit();
+                issue_pv(sp);
+                wgmma_commit();
+                turn_end();
+                wgmma_wait<1>();
+                fence_regs(s);
+                if (lane == 0) mbar_arrive(empty_k(st));
+                softmax(j);
+                wgmma_wait<0>();
+                fence_regs(o);
+                if (lane == 0) mbar_arrive(empty_v(sp));
+                pack_p();
+            }
+            {   // the last tile's P.V
+                const int sp = (j_b - 1) % STAGES;
+                const int pp = ((j_b - 1) / STAGES) & 1;
+                mbar_wait(full_v(sp), pp);
+                turn_begin();
+                rescale<D>(o, corr);
+                wgmma_fence();
+                issue_pv(sp);
+                wgmma_commit();
+                turn_end();
+                wgmma_wait<0>();
+                fence_regs(o);
+                if (lane == 0) mbar_arrive(empty_v(sp));
+            }
+        } else {
+            turn_begin();          // the turn a run of tiles would add
+            turn_end();
+        }
+        for (int j = j_b; j < n_tiles; ++j) release(j);
+        if (w == 0)
+            asm volatile("bar.sync 3, 256;\n" ::: "memory");
+
+        if (n_rows > 0) {
+            // out = o / max(l, 1e-30), rounded once to bf16, staged in
+            // shared memory and stored 16 bytes a thread, rows < S only
+            float den[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+                l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+                den[r] = fmaxf(l[r], 1e-30f);
+            }
+            __nv_bfloat16* s_o = reinterpret_cast<__nv_bfloat16*>(
+                smem + L::O_OFF) + 64 * w * L::O_PITCH;
+            const int row = 16 * warp + (lane >> 2);
+#pragma unroll
+            for (int i = 0; i < D / 2; i += 2) {
+                const int r = (i >> 1) & 1;
+                const int col = 8 * (i >> 2) + 2 * (lane & 3);
+                *reinterpret_cast<__nv_bfloat162*>(
+                    s_o + (row + 8 * r) * L::O_PITCH + col) =
+                    __floats2bfloat162_rn(o[i] / den[r], o[i + 1] / den[r]);
+            }
+            asm volatile("bar.sync %0, 128;\n" :: "r"(1 + w) : "memory");
+            constexpr int CHUNKS = D / 8;             // 16 bytes each
+            for (int c = tid; c < 64 * CHUNKS; c += 128) {
+                const int rr = c / CHUNKS, cc = c % CHUNKS;
+                if (rr < n_rows) {
+                    const uint4 val = *reinterpret_cast<const uint4*>(
+                        s_o + rr * L::O_PITCH + 8 * cc);
+                    *reinterpret_cast<uint4*>(
+                        out + (((long long)b * S + r0 + rr) * H + h) * D
+                        + 8 * cc) = val;
+                }
+            }
+        }
     }
 }
 
+// ---- host side: tensor maps through the driver's entry point ----
+
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+    static EncodeTiledFn fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+    return fn;
+}
+
+// A (D, rows, heads, batch) bf16 view with byte strides of rows, heads
+// and batch, boxes of (D, box_rows), in the swizzle of a D-wide row.
+struct MapKey {
+    const void* ptr;
+    long long dims[4];
+    long long strides[3];
+    int box_rows;
+};
+
+static bool same_key(const MapKey& a, const MapKey& b) {
+    return a.ptr == b.ptr && a.box_rows == b.box_rows
+           && memcmp(a.dims, b.dims, sizeof a.dims) == 0
+           && memcmp(a.strides, b.strides, sizeof a.strides) == 0;
+}
+
+// Encoded maps cached by (pointer, shape, strides, box): a model calls
+// the kernel on the same buffers layer after layer.  ctypes releases the
+// GIL around the call, so the cache has a lock.
+constexpr int MAP_CACHE = 64;
+static MapKey map_keys[MAP_CACHE];
+static CUtensorMap map_vals[MAP_CACHE];
+static int map_used = 0, map_next = 0;
+static std::mutex map_lock;
+
+static int tensor_map(CUtensorMap* map, const MapKey& key) {
+    std::lock_guard<std::mutex> hold(map_lock);
+    for (int i = 0; i < map_used; ++i)
+        if (same_key(map_keys[i], key)) { *map = map_vals[i]; return 0; }
+    EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr) return (int)cudaErrorNotSupported;
+    const int d = (int)key.dims[0];
+    const cuuint64_t dims[4] = {(cuuint64_t)key.dims[0],
+                                (cuuint64_t)key.dims[1],
+                                (cuuint64_t)key.dims[2],
+                                (cuuint64_t)key.dims[3]};
+    const cuuint64_t strides[3] = {(cuuint64_t)key.strides[0],
+                                   (cuuint64_t)key.strides[1],
+                                   (cuuint64_t)key.strides[2]};
+    const cuuint32_t box[4] = {(cuuint32_t)d, (cuuint32_t)key.box_rows, 1, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    const CUtensorMapSwizzle swizzle =
+        d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+        : d == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+    const CUresult res = encode(
+        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(key.ptr),
+        dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (res != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+    map_keys[map_next] = key;
+    map_vals[map_next] = *map;
+    map_next = (map_next + 1) % MAP_CACHE;
+    if (map_used < MAP_CACHE) ++map_used;
+    return 0;
+}
+
+template <int D>
+static int launch(const void* q, const void* k, const void* v, void* out,
+                  int B, int S, int T_len, int H, int Hkv,
+                  const long long* st, int causal, int window, int q_offset,
+                  float scale, cudaStream_t stream) {
+    // element strides (batch, position, head) -> byte strides of the
+    // (D, position, head, batch) maps
+    CUtensorMap mq, mk, mv;
+    const MapKey kq = {q, {D, S, H, B}, {2 * st[1], 2 * st[2], 2 * st[0]}, BQ};
+    const MapKey kk = {k, {D, T_len, Hkv, B},
+                       {2 * st[4], 2 * st[5], 2 * st[3]}, BK};
+    const MapKey kv = {v, {D, T_len, Hkv, B},
+                       {2 * st[7], 2 * st[8], 2 * st[6]}, BK};
+    int err = tensor_map(&mq, kq);
+    if (err == 0) err = tensor_map(&mk, kk);
+    if (err == 0) err = tensor_map(&mv, kv);
+    if (err != 0) return err;
+    const int smem = Layout<D>::ALLOC;
+    cudaError_t ce = cudaFuncSetAttribute(
+        flash_attention_tc_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (ce != cudaSuccess) return (int)ce;
+    const dim3 grid((S + BQ - 1) / BQ, H, B);
+    flash_attention_tc_kernel<D><<<grid, THREADS, smem, stream>>>(
+        mq, mk, mv, static_cast<__nv_bfloat16*>(out), S, T_len, H, Hkv,
+        causal, window, q_offset,
+        (float)((double)scale * 1.4426950408889634));   // scale * log2(e)
+    return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 // q (B,S,H,D), k/v (B,T,Hkv,D) with element strides (batch, position,
 // head) q_sb..v_sh and a unit stride on D; out (B,S,H,D) contiguous.
-// dtype 0 = f32, 1 = bf16 (all four tensors); D in {16, 32, 64}: the
-// models' 64 and the JAX kernel tests' 16 and 32.
-// Returns cudaGetLastError() after the launch; does not synchronise.
+// dtype 0 = f32 (the scalar kernel), 1 = bf16 (the tensor-core kernel);
+// all four tensors of that dtype.  D in {16, 32, 64}: the models' 64
+// and the JAX kernel tests' 16 and 32.
+// Returns cudaGetLastError() after the launch (or the error that kept
+// it from launching); does not synchronise.
 extern "C" int flash_attention_fwd(
         const void* q, const void* k, const void* v, void* out, int dtype,
         int B, int S, int T_len, int H, int Hkv, int D,
@@ -287,13 +979,21 @@ extern "C" int flash_attention_fwd(
     const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_st, k_sh,
                              v_sb, v_st, v_sh};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (dtype) {
-        case 0: return dispatch_d<float>(q, k, v, out, B, S, T_len, H, Hkv,
-                                         D, st, causal, window, q_offset,
-                                         scale, s);
-        case 1: return dispatch_d<__nv_bfloat16>(q, k, v, out, B, S, T_len,
-                                                 H, Hkv, D, st, causal,
-                                                 window, q_offset, scale, s);
-        default: return (int)cudaErrorInvalidValue;
+#define FA_ARGS q, k, v, out, B, S, T_len, H, Hkv, st, causal, window, \
+                q_offset, scale, s
+    if (dtype == 0) {
+        switch (D) {
+            case 16: return launch_f32<16>(FA_ARGS);
+            case 32: return launch_f32<32>(FA_ARGS);
+            case 64: return launch_f32<64>(FA_ARGS);
+        }
+    } else if (dtype == 1) {
+        switch (D) {
+            case 16: return tc::launch<16>(FA_ARGS);
+            case 32: return tc::launch<32>(FA_ARGS);
+            case 64: return tc::launch<64>(FA_ARGS);
+        }
     }
+#undef FA_ARGS
+    return (int)cudaErrorInvalidValue;
 }

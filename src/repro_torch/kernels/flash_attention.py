@@ -1,4 +1,4 @@
-"""Blockwise online-softmax attention: the CUDA kernel's wrapper and its
+"""Blockwise online-softmax attention: the CUDA kernels' wrapper and their
 plain PyTorch version.
 
 ``flash_attention`` replaces the Pallas TPU kernel
@@ -8,23 +8,41 @@ with ``csrc/flash_attention.cu``, written by hand for Hopper.  It takes
 the model's layout, ``q (B,S,H,D)`` and ``k, v (B,T,Hkv,D)`` with their
 strides, and query head ``h`` reads kv head ``h // (H/Hkv)``: the
 reference's ``jnp.repeat(k, H/Hkv, axis=2)`` without the repeated copy.
-Scale ``1/sqrt(D)`` after an f32 dot, causal and sliding-window masks
-from absolute positions (``q_offset`` for the rows), a masked score set
-to ``-1e30``, f32 ``(acc, m, l)``, a divide by ``max(l, 1e-30)``; a row
+Scale ``1/sqrt(D)`` after the dot, causal and sliding-window masks from
+absolute positions (``q_offset`` for the rows), a masked score set to
+``-1e30``, f32 ``(acc, m, l)``, a divide by ``max(l, 1e-30)``; a row
 that sees no key at all is the mean of v over all ``T`` keys, as in the
 reference.  The output is in q's dtype.  ``D`` is 64 (both models) or
 16 or 32 (the JAX kernel tests' shapes); ``S`` and ``T`` need not be
 tile multiples.
 
-Bound: operations, ``4*B*H*S*T_visible*D`` flops, at the serving path's
-shapes (hymba-1.5b's window of 1024 at S=4096, about 100 flops a byte).
-The kernel is scalar f32 (the reference's numerics): right first, fast
-in a later change.
+The dtype picks one of two kernels (neither is a fallback of the
+other):
 
-A CUDA tensor goes to the kernel or the call raises;
+* f32 -> the scalar kernel on the CUDA cores: the reference's numerics
+  exactly (f32 before the dot, ``expf``); checked at rtol = atol = 2e-5.
+* bf16 -> the tensor-core kernel: ``wgmma`` for ``Q.K^T`` and ``P.V``,
+  K/V tiles of 128 keys fed by TMA into a 3-stage ring with
+  ``mbarrier``s by a producer warp, two consumer warpgroups of 64 q
+  rows each (a CTA owns 128 rows) that take turns at the tensor cores
+  and run a tile's softmax under the previous tile's ``P.V``, 24
+  registers for the producer and 240 for the consumers
+  (``setmaxnreg``).  It rounds the unnormalised ``P``
+  to bf16 before ``P.V`` and takes exp through ``exp2``
+  (``ex2.approx``): checked at rtol 8e-3, atol 3e-3 against the f32
+  plain version.  Its q, k and v must sit on 16-byte addresses with
+  16-byte strides (TMA's rule), or the call raises ``ValueError``.
+
+Bound: per visible (q, k) pair of a head, ``4*D`` flops on the tensor
+cores (989e12 flop/s in bf16) and one exp on the special-function units
+(16 a clock an SM: 4.18e12/s) -- at D=64 the two are within 8 % of each
+other -- against bytes (q, k, v, out once) two orders lower.
+
+A CUDA tensor goes to a kernel or the call raises;
 ``flash_attention_plain`` (the function of
 ``repro/kernels/ref.py: flash_attention_ref``, heads folded into the
-batch) serves CPU tensors and the checks that hold the kernel against it.
+batch) serves CPU tensors and the checks that hold both kernels
+against it.
 """
 
 from __future__ import annotations
@@ -36,8 +54,10 @@ import torch
 
 NEG = -1e30
 
-# launches of the CUDA kernel by ``flash_attention`` (and nothing else)
+# launches of either CUDA kernel by ``flash_attention`` (and nothing
+# else); ``tc_launches`` those of the tensor-core (bf16) kernel alone
 launches = 0
+tc_launches = 0
 
 HEAD_DIMS = (16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -84,6 +104,19 @@ def gqa_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return o.reshape(b, h, s, d).movedim(1, 2)
 
 
+def tma_misalignment(t) -> str:
+    """Why ``t`` (a (B,T,H,D) view) cannot be a TMA source, or ``""``:
+    its address and its byte strides of batch, position and head must
+    be multiples of 16."""
+    esize = t.element_size()
+    if t.data_ptr() % 16:
+        return f"address {t.data_ptr():#x} is not a multiple of 16 bytes"
+    strides = [t.stride(i) * esize for i in range(3)]
+    if any(x % 16 for x in strides):
+        return f"byte strides {strides} are not all multiples of 16"
+    return ""
+
+
 def _lib():
     from repro_torch.kernels import _build
     lib = _build.load("flash_attention")
@@ -98,12 +131,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q (B,S,H,D); k/v (B,T,Hkv,D) with H a multiple of Hkv ->
     (B,S,H,D) in q's dtype.
 
-    On a CUDA tensor this launches the kernel on the current stream and
-    does not synchronize: f32 or bf16 (q, k and v of one dtype), a unit
-    stride on D, D in ``HEAD_DIMS``; anything else raises.  On the CPU
-    it is ``gqa_plain``.
+    On a CUDA tensor this launches a kernel on the current stream and
+    does not synchronize: the scalar kernel for f32, the tensor-core
+    kernel for bf16 (q, k and v of one dtype), a unit stride on D, D in
+    ``HEAD_DIMS``, and for bf16 16-byte aligned addresses and strides;
+    anything else raises.  On the CPU it is ``gqa_plain``.
     """
-    global launches
+    global launches, tc_launches
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
             or q.shape[2] % k.shape[2]:
@@ -132,6 +166,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if s < 1 or t < 1 or q_offset < 0:
         raise ValueError(f"flash_attention kernel: S={s}, T={t}, "
                          f"q_offset={q_offset}")
+    tensor_cores = q.dtype == torch.bfloat16
+    if tensor_cores:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            why = tma_misalignment(x)
+            if why:
+                raise ValueError(f"flash_attention bf16 kernel (TMA): "
+                                 f"{name} {why}")
     lib = _lib()
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):      # the launch goes to q's card
@@ -148,4 +189,5 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err}")
     launches += 1
+    tc_launches += tensor_cores
     return out

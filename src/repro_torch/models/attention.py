@@ -39,6 +39,7 @@ import math
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.sharding.hints import axis_size, hint
 
@@ -251,7 +252,10 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0,
 # ---------------------------------------------------------------------------
 
 def init_kv_cache(batch: int, cache_len: int, n_kv: int, head_dim: int,
-                  dtype=torch.bfloat16, device="cpu"):
+                  dtype=torch.bfloat16, device=None):
+    """The ring cache on ``device`` (``resolve_device``: ``cuda`` unless
+    ``"cpu"`` is passed)."""
+    device = resolve_device(device)
     return {
         "k": torch.zeros((batch, cache_len, n_kv, head_dim), dtype=dtype,
                          device=device),

@@ -23,6 +23,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.config.base import ModelConfig
 from repro_torch.tree import tree_map
 
@@ -118,9 +119,12 @@ def _per_channel(v):
 
 
 def init_cnn(cfg: ModelConfig, gen: torch.Generator,
-             dtype=torch.float32, device="cpu") -> Dict[str, Any]:
+             dtype=torch.float32, device=None) -> Dict[str, Any]:
     """Parameters drawn on the host from ``gen`` (a CPU generator, so a
-    seed gives the same model on every device), then moved."""
+    seed gives the same model on every device), then moved to
+    ``device`` (``resolve_device``: ``cuda`` unless ``"cpu"`` is
+    passed)."""
+    device = resolve_device(device)
     h, w, c_in = cfg.input_hw
     params: Dict[str, Any] = {}
     if cfg.resnet:

@@ -18,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.kernels import ssm_scan as ssm_kernel
 from repro_torch.models.layers import dense_init
 from repro_torch.sharding.hints import hint
@@ -147,7 +148,10 @@ def ssm_forward(p, x, *, n_state: int, chunk: int = 256, state=None):
 
 
 def init_ssm_state(batch: int, d_model: int, n_state: int, expand: int,
-                   conv_k: int, dtype=torch.bfloat16, device="cpu"):
+                   conv_k: int, dtype=torch.bfloat16, device=None):
+    """The decode state on ``device`` (``resolve_device``: ``cuda``
+    unless ``"cpu"`` is passed)."""
+    device = resolve_device(device)
     di = expand * d_model
     return {"h": torch.zeros((batch, di, n_state), dtype=torch.float32,
                              device=device),

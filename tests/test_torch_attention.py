@@ -9,7 +9,10 @@ f32 softmax sums taken in another order.  On the CPU the kernel wrapper
 is its plain twin; that the CUDA branches hand the kernel un-repeated
 k/v, and that the kernel has no softcap, is checked here by routing, and
 the kernel itself is held against the twin on the card by
-``chip_smoke.py``.
+``chip_smoke.py``.  The bf16 tensor-core kernel's arithmetic (P rounded
+to bf16, exp2, 128-key tiles) is emulated here in plain torch and held
+against the twin and the reference at its tolerance, rtol 8e-3, atol
+3e-3.
 """
 
 import types
@@ -163,6 +166,219 @@ def test_flash_attention_wrapper_rejects_bad_shapes():
         fa.flash_attention(q, torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 3,
                                                                     16))
     assert fa.launches == 0            # the CPU never launches the kernel
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core kernel's arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+# the tensor-core kernel's tolerance against the f32 plain twin (both
+# outputs in bf16), stated in chip_smoke.py's FA_TOL
+TC_TOL = dict(rtol=8e-3, atol=3e-3)
+TC_BQ, TC_BK = 128, 128
+LOG2E = 1.4426950408889634
+
+
+def _tc_emulation(q, k, v, *, causal, window, q_offset, round_p=True):
+    """The arithmetic of ``csrc/flash_attention.cu:
+    flash_attention_tc_kernel`` in plain torch, for these tests only.
+    q (B,S,H,D), k/v (B,T,Hkv,D) bf16 -> (out bf16, out before its
+    rounding, f32).  Per (b, h) and 128-row block: the block's key range
+    (the union of its rows' bands, or all T when a row sees no key);
+    per 64-row warpgroup, the 128-key tiles of that range it does not
+    skip; scores of the bf16 values summed in f32, times scale*log2(e)
+    (f32), masked by select (-1e30, or -inf past T); m, corr and
+    p = 2^(s - m) in f32; l summed from the f32 p; P rounded to bf16
+    before P.V (unless ``round_p`` is False); O in f32, rescaled by
+    corr; O / max(l, 1e-30)."""
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    c = float(np.float32(np.float32(1.0 / np.sqrt(d)) * LOG2E))
+    out = torch.zeros((b, s, h, d), dtype=torch.float32)
+    for bi in range(b):
+        for hi in range(h):
+            qh = q[bi, :, hi].float()
+            kh, vh = k[bi, :, hi // rep].float(), v[bi, :, hi // rep].float()
+            for q0 in range(0, s, TC_BQ):
+                p_first = q_offset + q0
+                p_last = q_offset + min(q0 + TC_BQ, s) - 1
+                blind = window > 0 and p_last - window + 1 >= t
+                lo = 0 if blind or window <= 0 \
+                    else max(0, p_first - window + 1)
+                hi_ = t if blind or not causal else min(t, p_last + 1)
+                for w in range(2):
+                    r0 = q0 + 64 * w
+                    n = min(64, s - r0)
+                    if n <= 0:
+                        continue
+                    pa = q_offset + r0
+                    p_end = pa + n - 1
+                    wg_blind = window > 0 and p_end - window + 1 >= t
+                    w_lo = max(0, pa - window + 1) if window > 0 else 0
+                    w_hi = min(t, p_end + 1) if causal else t
+                    rows = (pa + torch.arange(n))[:, None]
+                    m = torch.full((n,), -1e30)
+                    l_run = torch.zeros(n)
+                    o = torch.zeros(n, d)
+                    for t0 in range(lo // TC_BK * TC_BK, hi_, TC_BK):
+                        if not wg_blind and (t0 >= w_hi
+                                             or t0 + TC_BK <= w_lo):
+                            continue
+                        keys = t0 + torch.arange(TC_BK)
+                        real = keys < t
+                        kt = torch.zeros(TC_BK, d)
+                        vt = torch.zeros(TC_BK, d)
+                        kt[real], vt[real] = kh[keys[real]], vh[keys[real]]
+                        sc = qh[r0:r0 + n] @ kt.T
+                        vis = real[None, :].expand(n, TC_BK)
+                        if causal:
+                            vis = vis & (keys[None, :] <= rows)
+                        if window > 0:
+                            vis = vis & (keys[None, :] > rows - window)
+                        masked = torch.where(real, -1e30, -torch.inf)
+                        sc = torch.where(vis, sc * c, masked[None, :]
+                                         .expand(n, TC_BK))
+                        m_new = torch.maximum(m, sc.max(dim=1).values)
+                        corr = torch.exp2(m - m_new)
+                        p = torch.exp2(sc - m_new[:, None])
+                        l_run = l_run * corr + p.sum(dim=1)
+                        if round_p:
+                            p = p.to(torch.bfloat16).float()
+                        o = o * corr[:, None] + p @ vt
+                        m = m_new
+                    out[bi, r0:r0 + n, hi] = \
+                        o / torch.clamp(l_run, min=1e-30)[:, None]
+    return out.to(torch.bfloat16), out
+
+
+# (b, s, t, h, hkv, d, causal, window, q_offset): GQA 5:1 and 4:1, D
+# 16/32/64, S and T off the 128 tile, q_offset > 0, windows off the
+# tile, a block half blind and one wholly blind
+TC_CASES = [(1, 200, 200, 5, 1, 64, True, 0, 0),
+            (1, 200, 264, 4, 1, 32, True, 0, 64),
+            (1, 300, 300, 5, 1, 64, True, 100, 0),
+            (1, 260, 260, 4, 1, 64, True, 129, 0),
+            (2, 130, 130, 4, 1, 16, False, 0, 0),
+            (1, 150, 1000, 4, 2, 32, False, 0, 0),
+            (1, 128, 128, 2, 1, 64, False, 32, 100),
+            (1, 64, 128, 2, 1, 64, False, 32, 200)]
+
+
+def _blind_rows(s, t, window, q_offset):
+    return [r for r in range(s)
+            if window > 0 and q_offset + r - window + 1 >= t]
+
+
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal,window,q_offset", TC_CASES)
+def test_tc_arithmetic_within_the_bf16_tolerance(b, s, t, h, hkv, d, causal,
+                                                 window, q_offset):
+    """The tensor-core kernel's bf16 arithmetic (P rounded to bf16,
+    exp2, 128-key tiles) against the f32 plain twin and the JAX
+    reference on the same bf16 inputs, at rtol 8e-3, atol 3e-3; rows
+    that see no key are the mean of v."""
+    rng = np.random.default_rng(s * t + d)
+    qn, kn, vn = (_randn(rng, b, n, hh, d).astype(ml_dtypes.bfloat16)
+                  for n, hh in ((s, h), (t, hkv), (t, hkv)))
+    from repro_torch import bridge
+    q, k, v = (bridge.to_torch(a) for a in (qn, kn, vn))
+    got, got_f32 = _tc_emulation(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+    plain = fa.gqa_plain(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset)
+    assert plain.dtype == got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(plain), **TC_TOL)
+    rep = h // hkv
+
+    def fold(a):
+        a = np.repeat(a, rep, axis=2) if a.shape[2] != h else a
+        return jnp.asarray(np.moveaxis(a, 2, 1).reshape(b * h, -1, d))
+
+    ref = flash_attention_ref(fold(qn), fold(kn), fold(vn), causal=causal,
+                              window=window, q_offset=q_offset)
+    ref = np.moveaxis(np.asarray(ref, np.float32).reshape(b, h, s, d), 1, 2)
+    np.testing.assert_allclose(_np(got), ref, **TC_TOL)
+    blind = _blind_rows(s, t, window, q_offset)
+    if blind:
+        mean_v = torch.repeat_interleave(v.float().mean(dim=1), rep, dim=1)
+        torch.testing.assert_close(
+            got_f32[:, blind], mean_v[:, None].expand(b, len(blind), h, d),
+            rtol=0, atol=1e-6)
+
+
+def test_tc_cases_cover_the_kernels_edges():
+    """The cases above reach what the kernel treats specially: a block
+    with a row that sees no key, a warpgroup that skips a tile, tails
+    of S and T, all three head sizes."""
+    def skips(s, t, causal, window, q_offset):
+        for q0 in range(0, s, TC_BQ):
+            p_last = q_offset + min(q0 + TC_BQ, s) - 1
+            if window > 0 and p_last - window + 1 >= t:
+                continue
+            lo = max(0, q_offset + q0 - window + 1) if window > 0 else 0
+            hi = min(t, p_last + 1) if causal else t
+            for w in range(2):
+                pa = q_offset + q0 + 64 * w
+                n = min(64, s - q0 - 64 * w)
+                if n <= 0:
+                    continue
+                w_lo = max(0, pa - window + 1) if window > 0 else 0
+                w_hi = min(t, pa + n) if causal else t
+                if any(t0 >= w_hi or t0 + TC_BK <= w_lo
+                       for t0 in range(lo // TC_BK * TC_BK, hi, TC_BK)):
+                    return True
+        return False
+    assert {c[5] for c in TC_CASES} == {16, 32, 64}
+    assert any(s % TC_BQ and t % TC_BK for _, s, t, *_ in TC_CASES)
+    assert any(_blind_rows(s, t, w, off) == list(range(s))
+               for _, s, t, _, _, _, _, w, off in TC_CASES)
+    assert any(0 < len(_blind_rows(s, t, w, off)) < s
+               for _, s, t, _, _, _, _, w, off in TC_CASES)
+    assert any(skips(s, t, c, w, off)
+               for _, s, t, _, _, _, c, w, off in TC_CASES)
+
+
+def test_tc_rounding_of_p_is_what_the_tolerance_is_for():
+    """Without the bf16 rounding of P the emulation stays within the
+    one-rounding tolerance of the scalar kernel's days (rtol 8e-3, atol
+    1e-3) of the f32 plain twin; with it, a few elements of these
+    N(0,1) inputs break atol 1e-3, and all stay within 3e-3."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(_randn(rng, 1, 640, 5, 64))
+               .to(torch.bfloat16) for _ in range(3))
+    k, v = k[:, :, :1], v[:, :, :1]
+    plain = _np(fa.gqa_plain(q, k, v, causal=True))
+    exact_p, _ = _tc_emulation(q, k, v, causal=True, window=0, q_offset=0,
+                               round_p=False)
+    np.testing.assert_allclose(_np(exact_p), plain, rtol=8e-3, atol=1e-3)
+    got, _ = _tc_emulation(q, k, v, causal=True, window=0, q_offset=0)
+    assert not np.allclose(_np(got), plain, rtol=8e-3, atol=1e-3)
+    np.testing.assert_allclose(_np(got), plain, **TC_TOL)
+
+
+@pytest.mark.parametrize("view,ok", [
+    ("contiguous", True), ("fused-qkv-head-slices", True),
+    ("d16-fused-head-slices", True), ("offset-by-one-element", False),
+    ("head-stride-72-bytes", False), ("row-stride-100-bytes", False)])
+def test_tma_alignment_rule(view, ok):
+    """The bf16 kernel's TMA maps need 16-byte addresses and byte
+    strides; the wrapper refuses anything else (``tma_misalignment``)."""
+    bf = torch.bfloat16
+    t = {"contiguous": lambda: torch.zeros(2, 8, 4, 64, dtype=bf),
+         "fused-qkv-head-slices":
+             lambda: torch.zeros(2, 300, 12, 64, dtype=bf)[:, :, 8:10],
+         "d16-fused-head-slices":
+             lambda: torch.zeros(2, 10, 12, 16, dtype=bf)[:, :, 10:],
+         "offset-by-one-element":
+             lambda: torch.zeros(1, 8, 2, 80, dtype=bf)[..., 1:65],
+         "head-stride-72-bytes":
+             lambda: torch.zeros(1, 8, 2, 36, dtype=bf)[..., :32],
+         "row-stride-100-bytes":
+             lambda: torch.zeros(1, 8, 50, dtype=bf)[..., :16]
+             .unsqueeze(2)}[view]()
+    assert t.data_ptr() % 16 == 0 or view == "offset-by-one-element"
+    why = fa.tma_misalignment(t)
+    assert (why == "") == ok, why
 
 
 # ---------------------------------------------------------------------------
@@ -333,7 +549,8 @@ def test_decode_ring_cache_matches_reference(s, hq, hkv, d, w):
     q, k, v = _randn(rng, 1, s, hq, d), _randn(rng, 1, s, hkv, d), \
         _randn(rng, 1, s, hkv, d)
     cache_len = w or s
-    cache = attn.init_kv_cache(1, cache_len, hkv, d, dtype=torch.float32)
+    cache = attn.init_kv_cache(1, cache_len, hkv, d, dtype=torch.float32,
+                               device="cpu")
     ref_cache = ref_attn.init_kv_cache(1, cache_len, hkv, d,
                                        dtype=jnp.float32)
     outs = []
@@ -360,7 +577,8 @@ def test_decode_ring_cache_matches_reference(s, hq, hkv, d, w):
 
 
 def test_update_kv_cache_writes_in_place():
-    cache = attn.init_kv_cache(2, 4, 1, 8, dtype=torch.float32)
+    cache = attn.init_kv_cache(2, 4, 1, 8, dtype=torch.float32,
+                               device="cpu")
     k_buf = cache["k"]
     out = attn.update_kv_cache(cache, torch.ones(2, 1, 1, 8),
                                torch.ones(2, 1, 1, 8), 5)

@@ -199,8 +199,10 @@ def test_init_cnn_is_seeded_and_shaped_like_the_reference():
     from repro_torch.config import get_arch as pt_get_arch
     for arch in ("cnn-fmnist", "resnet8-cifar10"):
         cfg = pt_get_arch(arch)
-        a = pt_cnn.init_cnn(cfg, torch.Generator().manual_seed(1))
-        b = pt_cnn.init_cnn(cfg, torch.Generator().manual_seed(1))
+        a = pt_cnn.init_cnn(cfg, torch.Generator().manual_seed(1),
+                            device="cpu")
+        b = pt_cnn.init_cnn(cfg, torch.Generator().manual_seed(1),
+                            device="cpu")
         ref = jax.device_get(ref_cnn.init_cnn(get_arch(arch),
                                               jax.random.PRNGKey(1)))
         ref_leaves = jax.tree_util.tree_leaves(ref)

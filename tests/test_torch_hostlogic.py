@@ -163,3 +163,56 @@ def test_fl_config_defaults_match_and_port_registers_cnn_family_only():
     assert pt_config.list_archs() == ["cnn-fmnist", "cnn-mnist",
                                       "hymba-1.5b", "llama3.2-1b",
                                       "resnet8-cifar10"]
+
+
+# The public constructors of model state: ``cuda`` by default, the CPU
+# only on request (``repro_torch.resolve_device``).
+def _init_cnn(**kw):
+    from repro_torch.models.cnn import init_cnn
+    return init_cnn(pt_config.get_arch("cnn-mnist"),
+                    torch.Generator().manual_seed(3), **kw)
+
+
+def _init_kv_cache(**kw):
+    from repro_torch.models.attention import init_kv_cache
+    return init_kv_cache(2, 5, 3, 8, dtype=torch.float32, **kw)
+
+
+def _init_ssm_state(**kw):
+    from repro_torch.models.ssm import init_ssm_state
+    return init_ssm_state(2, 8, 4, 2, 4, dtype=torch.float32, **kw)
+
+
+_STATE_INITS = {"init_cnn": _init_cnn, "init_kv_cache": _init_kv_cache,
+                "init_ssm_state": _init_ssm_state}
+
+
+@pytest.mark.parametrize("name", sorted(_STATE_INITS))
+def test_state_init_defaults_to_cuda_and_raises_without_one(name,
+                                                            monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _STATE_INITS[name]()
+
+
+@pytest.mark.parametrize("name", sorted(_STATE_INITS))
+def test_state_init_on_request_is_the_cpu_state(name):
+    from repro_torch.tree import tree_leaves
+    got = _STATE_INITS[name](device="cpu")
+    again = _STATE_INITS[name](device=torch.device("cpu"))
+    leaves = tree_leaves(got)
+    assert leaves and all(t.device.type == "cpu" for t in leaves)
+    assert all(torch.equal(a, b) for a, b in zip(leaves, tree_leaves(again)))
+    if name == "init_kv_cache":
+        assert not bool(got["k"].any()) and not bool(got["v"].any())
+        assert got["pos"].tolist() == [-1] * 5
+        assert got["pos"].dtype == torch.int32
+    elif name == "init_ssm_state":
+        assert tuple(got["h"].shape) == (2, 16, 4)
+        assert tuple(got["conv"].shape) == (2, 3, 16)
+        assert got["h"].dtype == torch.float32
+        assert not bool(got["h"].any()) and not bool(got["conv"].any())
+    else:
+        # the same draw as the reference's shapes, in f32
+        assert all(t.dtype == torch.float32 for t in leaves)
+        assert sum(t.numel() for t in leaves) == 1_630_090

@@ -227,6 +227,18 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
         assert not _FORBIDDEN.search(line), line
 
 
+def test_the_port_calls_no_library_attention_kernel():
+    """``scaled_dot_product_attention`` (and cuDNN's or PyTorch's other
+    fused attention) is chip_smoke.py's yardstick only: no module of the
+    port calls it."""
+    pattern = re.compile(r"scaled_dot_product_attention|_flash_attention_"
+                         r"forward|_efficient_attention|cudnn_attention")
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+        hit = pattern.search(path.read_text())
+        assert hit is None, f"{path}: {hit.group(0)!r}"
+    assert pattern.search((ROOT / "chip_smoke.py").read_text())
+
+
 def test_importing_the_port_leaves_jax_unloaded():
     mods = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)

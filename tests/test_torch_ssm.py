@@ -217,7 +217,8 @@ def test_causal_conv_matches_reference_with_state():
 
 
 def test_init_ssm_state_matches_reference():
-    got = ssm.init_ssm_state(3, 8, 4, 2, 4, dtype=torch.float32)
+    got = ssm.init_ssm_state(3, 8, 4, 2, 4, dtype=torch.float32,
+                             device="cpu")
     want = ref_ssm.init_ssm_state(3, 8, 4, 2, 4, dtype=jnp.float32)
     for k in ("h", "conv"):
         assert tuple(got[k].shape) == want[k].shape
