@@ -6,7 +6,8 @@ port's trees.  Leaf order is the sorted-key order of ``tree.py``, the
 same as ``jax.tree_util`` and so as the reference's
 ``kernels/ops.py: flatten_updates``.  bfloat16 numpy arrays (the
 ``ml_dtypes`` dtype jax hands out) cross as their uint16 bits, so the
-round trip is bit-exact.
+round trip is bit-exact.  Like every entry point of the port, the
+trees land on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.tree import tree_map
 
 
@@ -37,8 +39,11 @@ def _leaf_to_numpy(t):
     return t.numpy()
 
 
-def to_torch(tree_np, device="cpu"):
-    """numpy tree -> torch tree on ``device`` (dtypes kept)."""
+def to_torch(tree_np, device=None):
+    """numpy tree -> torch tree on ``device`` (dtypes kept);
+    ``resolve_device``: ``cuda`` unless ``"cpu"`` is asked for, and a
+    ``RuntimeError`` where there is no CUDA device."""
+    device = resolve_device(device)
     return tree_map(lambda a: _leaf_to_torch(a, device), tree_np)
 
 
@@ -47,6 +52,7 @@ def to_numpy(tree):
     return tree_map(_leaf_to_numpy, tree)
 
 
-def from_reference(params_np, device="cpu"):
-    """The JAX package's parameters, as numpy arrays -> the port's."""
+def from_reference(params_np, device=None):
+    """The JAX package's parameters, as numpy arrays -> the port's, on
+    ``device`` as in ``to_torch``."""
     return to_torch(params_np, device)

@@ -64,10 +64,12 @@
 //     past T; interior tiles skip them.  Online softmax in f32, row max
 //     and sum over the quad that holds a row; p = 2^(s*scale*log2e - m)
 //     and corr through ex2.approx -- where the f32 kernel uses expf.
-//   * O += P.V: P rounded to bf16 in registers is wgmma's A operand
-//     (the accumulator's layout is the A fragment's), V an MN-major B
-//     operand from shared memory (the transpose bit), m64nDk16; O in
-//     f32 registers, rescaled by corr before each product.
+//   * O += P.V: P, kept at f32 precision as two bf16 parts in
+//     registers, P_hi = bf16(P) and P_lo = bf16(P - P_hi), is wgmma's A
+//     operand (the accumulator's layout is the A fragment's), V an
+//     MN-major B operand from shared memory (the transpose bit): two
+//     m64nDk16 products per 16 keys on one V descriptor, O += P_hi.V +
+//     P_lo.V; O in f32 registers, rescaled by corr before each product.
 //   * Epilogue: out = o / max(l, 1e-30), rounded once to bf16, staged
 //     in shared memory and stored 16 bytes a thread, rows < S only.
 //   * Overlap, as FA3 does it: a warpgroup issues tile j's Q.K^T and
@@ -81,9 +83,11 @@
 //   * ptxas (-Xptxas -v): 168 registers at entry for all three head
 //     sizes (384 threads, one block an SM), 24 / 240 after setmaxnreg,
 //     no spills; about 131 KB of shared memory at D=64.
-// Numerics against the f32 reference: P is rounded to bf16 before P.V
-// (a second bf16 rounding beside the output's) and exp goes through
-// exp2; the checks hold it at rtol 8e-3, atol 3e-3.
+// Numerics against the f32 reference: P.V takes P at f32 precision (the
+// split leaves about 2^-16 of P; one bf16 part alone would leave 2^-9),
+// so the numerator matches the f32 row sum l; exp goes through exp2.  The checks hold it at rtol
+// 8e-3, atol 1e-3: the output's one bf16 rounding.  The second product
+// costs 17-24 % of the kernel's time on an H100 (PERF.md).
 //
 // Addresses and byte strides of q, k, v must be multiples of 16 bytes
 // (TMA); the wrapper raises otherwise.
@@ -415,9 +419,15 @@ __device__ __forceinline__ float ex2(float x) {
     return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
+// Two bf16 pairs whose sum is (a, b) to about 2^-16 relative: the
+// rounding of (a, b), and the rounding of what that left.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float2 hf = __bfloat1622float2(h);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // D(64 x 128, f32) (+)= A(64 x 16, smem, K-major) . B(16 x 128, smem, K-major)
@@ -659,7 +669,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
         float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, corr[2] = {1.f, 1.f};
         float s[64];
-        uint32_t pf[BK / 16][4];         // P of the tile before, bf16
+        // P of the tile before, as two bf16 parts (P ~ pf + pf_lo)
+        uint32_t pf[BK / 16][4], pf_lo[BK / 16][4];
 
         const uint64_t desc_q = make_desc(s_q + w * 64 * L::ROW, 16,
                                           L::ATOM, L::SWIZZLE);
@@ -673,15 +684,19 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     make_desc(s_k + 32 * kk, 16, L::ATOM, L::SWIZZLE),
                     kk > 0);
         };
-        // O += P . V: P (bf16, registers) is the A operand, V (keys x D,
-        // D contiguous) an MN-major B operand
+        // O += P . V = P_hi . V + P_lo . V: the parts (bf16, registers)
+        // are A operands, V (keys x D, D contiguous) one MN-major B
+        // operand for both
         auto issue_pv = [&](int st) {
             const uint32_t s_v = s_base + L::V_OFF + st * L::KV_BYTES;
 #pragma unroll
-            for (int kk = 0; kk < BK / 16; ++kk)
-                wgmma_pv<D>(o, pf[kk],
-                            make_desc(s_v + kk * 16 * L::ROW, L::ATOM,
-                                      L::ATOM, L::SWIZZLE));
+            for (int kk = 0; kk < BK / 16; ++kk) {
+                const uint64_t desc_v = make_desc(s_v + kk * 16 * L::ROW,
+                                                  L::ATOM, L::ATOM,
+                                                  L::SWIZZLE);
+                wgmma_pv<D>(o, pf[kk], desc_v);
+                wgmma_pv<D>(o, pf_lo[kk], desc_v);
+            }
         };
         auto softmax = [&](int j) {
             const int t0 = tile_lo + j * BK;
@@ -697,15 +712,15 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 softmax_tile<true>(s, m, l, corr, scale_log2, t0, T,
                                    row_pos, causal, window);
         };
-        // P rounded to bf16: the accumulator's layout is the A fragment's
+        // P split into its two bf16 parts: the accumulator's layout is
+        // the A fragment's
         auto pack_p = [&]() {
 #pragma unroll
-            for (int kk = 0; kk < BK / 16; ++kk) {
-                pf[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-                pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-                pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-                pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-            }
+            for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                    split_bf16(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1],
+                               pf[kk][q], pf_lo[kk][q]);
         };
         // Ping-pong: the two warpgroups take turns to issue their
         // products (named barriers 3 and 4), so that one's softmax runs

@@ -27,10 +27,10 @@ other):
   rows each (a CTA owns 128 rows) that take turns at the tensor cores
   and run a tile's softmax under the previous tile's ``P.V``, 24
   registers for the producer and 240 for the consumers
-  (``setmaxnreg``).  It rounds the unnormalised ``P``
-  to bf16 before ``P.V`` and takes exp through ``exp2``
-  (``ex2.approx``): checked at rtol 8e-3, atol 3e-3 against the f32
-  plain version.  Its q, k and v must sit on 16-byte addresses with
+  (``setmaxnreg``).  It takes the unnormalised ``P`` into ``P.V`` as
+  two bf16 parts (``P`` to about 2^-16, as the reference's f32 ``P``)
+  and exp through ``exp2`` (``ex2.approx``): checked at rtol 8e-3,
+  atol 1e-3 against the f32 plain version.  Its q, k and v must sit on 16-byte addresses with
   16-byte strides (TMA's rule), or the call raises ``ValueError``.
 
 Bound: per visible (q, k) pair of a head, ``4*D`` flops on the tensor

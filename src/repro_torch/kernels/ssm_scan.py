@@ -14,10 +14,16 @@ the prefill and a decode step (S = 1) with a carried state alike.
 ``b_in`` and ``c_out`` may be strided views (the two halves of the
 model's ``(B,S,2N)`` projection); no copy is made.
 
-Bound: bytes at the serving path's shapes (x, dt read once, y written
-once; ``B*S*D*N`` exps are the operations side).  The kernel keeps
-each state in a register over the whole sequence and steps time
-serially, so it is latency-bound: right first, fast in a later change.
+The kernel splits time: a block is one chunk of one row's channel
+group, each of its warps scans a segment of the chunk from a zero
+state, the carries between segments are folded in registers (N exps a
+segment), and each segment is rerun from its carry to write y; a chunk's
+carry-in comes from the block of the chunk before through global
+memory, so the wrapper allocates a small scratch a call (zeroed tickets
+and flags, and the carries).  A decode step (S = 1) is a separate
+one-step kernel in the same entry, with no scratch.  Bound: the ``B*S*D*N`` exps (the design
+takes each twice, once per pass; bytes are below both).  The arithmetic
+order is emulated on the CPU in ``tests/test_torch_ssm.py``.
 
 A CUDA tensor goes to the kernel or the call raises; ``ssm_scan_plain``
 (a sequential recurrence, as ``repro/kernels/ref.py: ssm_scan_ref``)
@@ -36,7 +42,8 @@ launches = 0
 STATE_SIZES = (4, 8, 16)       # hymba's 16; the JAX kernel tests' 4, 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-             + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+             + [ctypes.c_longlong] * 12 + [ctypes.c_void_p] * 3)
+_SCRATCH_ARGTYPES = [ctypes.c_int] * 5
 
 
 def ssm_scan_plain(x, dt, b_in, c_out, a_log, h0=None):
@@ -65,6 +72,8 @@ def _lib():
     if lib.ssm_scan_fwd.argtypes is None:
         lib.ssm_scan_fwd.argtypes = _ARGTYPES
         lib.ssm_scan_fwd.restype = ctypes.c_int
+        lib.ssm_scan_scratch.argtypes = _SCRATCH_ARGTYPES
+        lib.ssm_scan_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -115,13 +124,23 @@ def ssm_scan(x, dt, b_in, c_out, a_log, h0=None):
     lib = _lib()
     y = torch.empty((bsz, s, d), dtype=x.dtype, device=x.device)
     h_end = torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
+    # the time split's scratch: zeroed tickets and flags, and the chunks'
+    # carries (none for a decode step)
+    sync = carries = None
+    if s > 1:
+        sync = torch.zeros(lib.ssm_scan_scratch(bsz, s, d, n, 0),
+                           dtype=torch.int32, device=x.device)
+        carries = torch.empty(lib.ssm_scan_scratch(bsz, s, d, n, 1),
+                              dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):      # the launch goes to x's card
         err = lib.ssm_scan_fwd(
             x.data_ptr(), dt.data_ptr(), b_in.data_ptr(), c_out.data_ptr(),
             a_log.data_ptr(), None if h0 is None else h0.data_ptr(),
             y.data_ptr(), h_end.data_ptr(), _DTYPES[x.dtype], bsz, s, d, n,
             *x.stride(), *dt.stride(), *b_in.stride(), *c_out.stride(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            torch.cuda.current_stream(x.device).cuda_stream,
+            None if sync is None else sync.data_ptr(),
+            None if carries is None else carries.data_ptr())
     if err != 0:
         raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {err}")
     launches += 1

@@ -260,9 +260,9 @@ def test_cnn_train_window_from_bridged_params_matches_reference(use_kernel):
                               interpret=True).train_window(
         ref_store, g_ref, ids, seeds, alphas)
 
-    g_pt = bridge.from_reference(g_np)
+    g_pt = bridge.from_reference(g_np, "cpu")
     store = ClientStateStore(g_pt, 8)
-    store.scatter_params([3], bridge.from_reference(s_np))
+    store.scatter_params([3], bridge.from_reference(s_np, "cpu"))
     got, _ = make_engine(port, use_kernel_agg=use_kernel).train_window(
         store, g_pt, ids, seeds, alphas)
     for g, w in zip(tree_leaves(got), jax.tree_util.tree_leaves(want)):

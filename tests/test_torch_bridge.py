@@ -25,14 +25,14 @@ def test_reference_params_round_trip_bit_exactly(arch, dtype):
         cfg = cfg.reduced()
     params_np = jax.device_get(init_cnn(cfg, jax.random.PRNGKey(0),
                                         dtype=dtype))
-    back = bridge.to_numpy(bridge.from_reference(params_np))
+    back = bridge.to_numpy(bridge.from_reference(params_np, "cpu"))
     want = jax.tree_util.tree_leaves(params_np)
     got = jax.tree_util.tree_leaves(back)
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert g.tobytes() == w.tobytes()
-    pt_leaves = tree_leaves(bridge.from_reference(params_np))
+    pt_leaves = tree_leaves(bridge.from_reference(params_np, "cpu"))
     for leaf, w in zip(pt_leaves, want):      # same leaf order
         assert tuple(leaf.shape) == w.shape
         if w.dtype == ml_dtypes.bfloat16:
@@ -64,6 +64,20 @@ def test_tree_map_and_stack():
 
 def test_bridge_copies_so_torch_cannot_write_into_the_source():
     src = np.zeros(3, np.float32)
-    t = bridge.to_torch({"a": src})["a"]
+    t = bridge.to_torch({"a": src}, "cpu")["a"]
     t += 1
     assert not src.any()
+
+
+@pytest.mark.parametrize("fn", ["from_reference", "to_torch"])
+def test_bridge_defaults_to_the_card_and_raises_without_one(fn,
+                                                            monkeypatch):
+    """Like every entry point of the port, the bridge puts its trees on
+    ``cuda`` unless ``"cpu"`` is asked for: with no CUDA device and no
+    device named it raises; ``"cpu"`` still works."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {"w": np.ones((2, 3), np.float32)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(bridge, fn)(tree)
+    got = getattr(bridge, fn)(tree, "cpu")
+    assert got["w"].device.type == "cpu"

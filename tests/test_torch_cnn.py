@@ -153,7 +153,7 @@ def test_optimizer_steps_match_reference(name):
     ref_cfg, pt_cfg, p_ref, p_pt, x, y = _setup("cnn")
     g_ref = jax.grad(lambda p: ref_cnn.cnn_loss(
         ref_cfg, p, {"x": jnp.asarray(x), "y": jnp.asarray(y)}))(p_ref)
-    g_pt = bridge.from_reference(jax.device_get(g_ref))
+    g_pt = bridge.from_reference(jax.device_get(g_ref), "cpu")
     opt_ref, opt_pt = ref_make_optimizer(name), pt_make_optimizer(name)
     s_ref, s_pt = opt_ref.init(p_ref), opt_pt.init(p_pt)
     for _ in range(3):                       # the step count matters to Adam

@@ -258,7 +258,7 @@ def test_plan_takes_a_mesh_and_rejects_empty_cohorts_and_meshes():
 
 def test_plan_pad_unpad_roundtrip_edge_and_zero():
     tree_np = _stacked_np(5)
-    tree = bridge.from_reference(tree_np)
+    tree = bridge.from_reference(tree_np, "cpu")
     plan = ClientShardingPlan.for_cohort(5, 4)
     ref_plan = RefPlan.for_cohort(5, 4)
     for mode in ("edge", "zero"):
@@ -286,7 +286,7 @@ def test_plan_pad_unpad_roundtrip_edge_and_zero():
 
 
 def test_plan_without_padding_returns_its_inputs():
-    tree = bridge.from_reference(_stacked_np(8))
+    tree = bridge.from_reference(_stacked_np(8), "cpu")
     plan = ClientShardingPlan.for_cohort(8, 4)
     assert plan.pad_rows == 0
     assert plan.pad_stacked(tree) is tree and plan.unpad(tree) is tree
@@ -307,23 +307,23 @@ def test_sharded_aggregate_matches_reference(n, use_kernel):
     w = rng.uniform(0.5, 2.0, n).astype(np.float32)
     w[0] = 0.0                                 # masked straggler row
     before = fedagg_mod.partial_launches
-    out = sharded_aggregate(MESH, bridge.from_reference(tree), w,
+    out = sharded_aggregate(MESH, bridge.from_reference(tree, "cpu"), w,
                             use_kernel=use_kernel)
     assert fedagg_mod.partial_launches == before   # CPU: no launch
     _assert_close(out, ref_agg.weighted_average_stacked(_jax(tree), w))
     _assert_close(out, ref_sharded_aggregate(ref_make_client_mesh(),
                                              _jax(tree), w))
-    _assert_close(out, weighted_average_stacked(bridge.from_reference(tree),
-                                                w))
+    _assert_close(out, weighted_average_stacked(
+        bridge.from_reference(tree, "cpu"), w))
     for got, leaf in zip(tree_leaves(out),
-                         tree_leaves(bridge.from_reference(tree))):
+                         tree_leaves(bridge.from_reference(tree, "cpu"))):
         assert got.dtype == leaf.dtype and got.shape == leaf.shape[1:]
 
 
 def test_sharded_aggregate_kernel_dispatch_equals_the_plain_branch():
     """``use_kernel`` on CPU tensors takes the kernel's plain version,
     the very row loop the plain branch runs: bit for bit."""
-    tree = bridge.from_reference(_stacked_np(9, seed=11))
+    tree = bridge.from_reference(_stacked_np(9, seed=11), "cpu")
     w = np.random.default_rng(12).uniform(0.5, 2.0, 9).astype(np.float32)
     w[3] = 0.0
     a = sharded_aggregate(MESH, tree, w, use_kernel=True)
@@ -339,7 +339,7 @@ def test_sharded_aggregate_nonuniform_alphas():
     w = rng.uniform(0.5, 2.0, n).astype(np.float32)
     alphas = (0.6 * (np.arange(n) + 1.0) ** -0.5).astype(np.float32)
     alphas[4] = 0.0                            # zero-alpha straggler
-    out = sharded_aggregate(MESH, bridge.from_reference(tree), w,
+    out = sharded_aggregate(MESH, bridge.from_reference(tree, "cpu"), w,
                             alphas=alphas)
     _assert_close(out, ref_agg.weighted_average_stacked(_jax(tree), w,
                                                         alphas=alphas))
@@ -380,7 +380,7 @@ def test_sharded_aggregate_matches_pallas_fedagg():
     n = 6
     tree = _stacked_np(n, seed=5)
     w = np.asarray([1.0, 2.0, 0.0, 3.0, 0.5, 1.5], np.float32)
-    out = sharded_aggregate(MESH, bridge.from_reference(tree), w)
+    out = sharded_aggregate(MESH, bridge.from_reference(tree, "cpu"), w)
     _assert_close(out, ref_fedagg_pytree(_jax(tree), jnp.asarray(w),
                                          interpret=True))
 
@@ -396,7 +396,7 @@ def test_sharded_aggregate_rejects_length_mismatch():
 def test_sharded_aggregate_padding_rows_are_a_bitwise_no_op():
     """Zero-weight rows appended to the cohort change no bit: the plan's
     zero rows, and rows a caller pads with, are skipped alike."""
-    tree = bridge.from_reference(_stacked_np(5, seed=21))
+    tree = bridge.from_reference(_stacked_np(5, seed=21), "cpu")
     w = np.asarray([1.5, 0.0, 2.0, 0.7, 1.1], np.float32)
     base = sharded_aggregate(MESH, tree, w)
     padded = ClientShardingPlan.for_cohort(5, 4).pad_stacked(tree,
@@ -415,17 +415,18 @@ def test_sharded_staleness_merge_matches_reference(n, seed, use_kernel):
                                   .astype(l.dtype), stacked)
     alphas = 0.6 * (np.arange(n, dtype=np.float64) + 1.0) ** -0.5
     alphas[2 if n == 7 else 4] = 0.0          # carried straggler: no-op row
-    out = sharded_staleness_merge(MESH, bridge.from_reference(g_np),
-                                  bridge.from_reference(stacked), alphas,
-                                  use_kernel=use_kernel)
+    out = sharded_staleness_merge(MESH, bridge.from_reference(g_np, "cpu"),
+                                  bridge.from_reference(stacked, "cpu"),
+                                  alphas, use_kernel=use_kernel)
     want = ref_agg.staleness_weighted_merge(_jax(g_np), _jax(stacked),
                                             alphas)
     _assert_close(out, want)
     # and the port's own single-device merge
     _assert_close(out, staleness_weighted_merge(
-        bridge.from_reference(g_np), bridge.from_reference(stacked), alphas))
+        bridge.from_reference(g_np, "cpu"),
+        bridge.from_reference(stacked, "cpu"), alphas))
     for o, g in zip(tree_leaves(out), tree_leaves(
-            bridge.from_reference(g_np))):
+            bridge.from_reference(g_np, "cpu"))):
         assert o.dtype == g.dtype
 
 

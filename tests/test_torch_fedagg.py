@@ -78,7 +78,7 @@ def test_fedagg_plain_keeps_the_row_dtype_and_accumulates_in_f32():
     u = rng.normal(size=(7, 33)).astype(ml_dtypes.bfloat16)
     w = rng.uniform(1, 9, 7).astype(np.float32)
     want = np.asarray(fedagg_ref(jnp.asarray(u), jnp.asarray(w)))
-    got = fedagg_plain(bridge.to_torch(u), torch.from_numpy(w))
+    got = fedagg_plain(bridge.to_torch(u, "cpu"), torch.from_numpy(w))
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(),
                                want.astype(np.float32), rtol=1e-2, atol=1e-2)
@@ -118,16 +118,16 @@ def test_flatten_updates_has_the_reference_leaf_order():
     tree = _mixed_tree()
     buf_ref, _, spec_ref = ref_ops.flatten_updates(
         jax.tree_util.tree_map(jnp.asarray, tree))
-    buf, _, spec = ops.flatten_updates(bridge.from_reference(tree))
+    buf, _, spec = ops.flatten_updates(bridge.from_reference(tree, "cpu"))
     np.testing.assert_array_equal(buf.numpy(), np.asarray(buf_ref))
     assert [(o, s, tuple(sh)) for o, s, sh, _ in spec] == \
         [(o, s, tuple(sh)) for o, s, sh, _ in spec_ref]
     row = jax.tree_util.tree_map(lambda a: a[0], tree)
     np.testing.assert_array_equal(
-        ops.flatten_params_row(bridge.from_reference(row)).numpy(),
+        ops.flatten_params_row(bridge.from_reference(row, "cpu")).numpy(),
         np.asarray(ref_ops.flatten_params_row(
             jax.tree_util.tree_map(jnp.asarray, row))))
-    _, spec1, total = ops.tree_spec(bridge.from_reference(row))
+    _, spec1, total = ops.tree_spec(bridge.from_reference(row, "cpu"))
     _, spec1_ref, total_ref = ref_ops.tree_spec(
         jax.tree_util.tree_map(jnp.asarray, row))
     assert total == total_ref == buf.shape[1]
@@ -168,12 +168,12 @@ def test_weighted_average_stacked_matches_reference(use_kernel, weights,
         jax.tree_util.tree_map(jnp.asarray, tree), np.asarray(weights),
         alphas=alphas, use_kernel=use_kernel, interpret=True)
     got = pt_agg.weighted_average_stacked(
-        bridge.from_reference(tree), weights, alphas=alphas,
+        bridge.from_reference(tree, "cpu"), weights, alphas=alphas,
         use_kernel=use_kernel)
     _assert_trees_close(got, want)
     if use_kernel:
         again = fedagg_pytree(
-            bridge.from_reference(tree), torch.tensor(weights),
+            bridge.from_reference(tree, "cpu"), torch.tensor(weights),
             alphas=None if alphas is None else torch.tensor(alphas))
         for a, b in zip(tree_leaves(again), tree_leaves(got)):
             assert torch.equal(a, b)
@@ -189,8 +189,8 @@ def test_aggregate_or_keep_matches_reference(use_kernel, weights):
         jax.tree_util.tree_map(jnp.asarray, params),
         jax.tree_util.tree_map(jnp.asarray, tree), np.asarray(weights),
         use_kernel=use_kernel, interpret=True)
-    p_pt = bridge.from_reference(params)
-    got = pt_agg.aggregate_or_keep(p_pt, bridge.from_reference(tree),
+    p_pt = bridge.from_reference(params, "cpu")
+    got = pt_agg.aggregate_or_keep(p_pt, bridge.from_reference(tree, "cpu"),
                                    weights, use_kernel=use_kernel)
     _assert_trees_close(got, want)
     if not any(weights):
@@ -203,8 +203,8 @@ def test_weighted_average_list_form_and_empty_list():
     rows = [jax.tree_util.tree_map(lambda a: a[i], tree) for i in range(3)]
     want = ref_agg.weighted_average(
         [jax.tree_util.tree_map(jnp.asarray, r) for r in rows], [1, 2, 3])
-    got = pt_agg.weighted_average([bridge.from_reference(r) for r in rows],
-                                  [1, 2, 3])
+    got = pt_agg.weighted_average(
+        [bridge.from_reference(r, "cpu") for r in rows], [1, 2, 3])
     _assert_trees_close(got, want)
     with pytest.raises(ValueError):
         pt_agg.weighted_average([], [])
@@ -270,7 +270,7 @@ def test_fedagg_partial_plain_keeps_the_row_dtype():
     u = rng.normal(size=(5, 33)).astype(ml_dtypes.bfloat16)
     c = rng.uniform(0.1, 2.0, 5).astype(np.float32)
     want = np.asarray(fedagg_partial_ref(jnp.asarray(u), jnp.asarray(c)))
-    got = fedagg_partial_plain(bridge.to_torch(u), torch.from_numpy(c))
+    got = fedagg_partial_plain(bridge.to_torch(u, "cpu"), torch.from_numpy(c))
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(),
                                want.astype(np.float32), rtol=1e-2, atol=1e-2)

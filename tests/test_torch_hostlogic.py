@@ -31,6 +31,7 @@ pt_tiering = importlib.import_module("repro_torch.core.tiering")
 SRC = Path(__file__).resolve().parents[1] / "src"
 COPIED = ["config/base.py", "config/__init__.py", "configs/paper_models.py",
           "configs/llama3_2_1b.py", "configs/hymba_1_5b.py",
+          "configs/shapes.py",
           "core/tiering.py", "core/selection.py", "fl/network.py",
           "fl/metrics.py", "data/synthetic.py", "data/partition.py",
           "data/pipeline.py", "data/__init__.py"]
@@ -41,6 +42,19 @@ def test_copied_source_is_the_original(rel):
     ref = (SRC / "repro" / rel).read_text()
     port = (SRC / "repro_torch" / rel).read_text()
     assert port.replace("repro_torch", "repro") == ref
+
+
+def test_input_shapes_reexport_is_the_originals():
+    """``configs.INPUT_SHAPES`` (through ``configs/shapes.py``) names
+    the same shapes in both packages."""
+    import repro.configs as ref_configs
+    import repro_torch.configs as pt_configs
+    from repro_torch.config.base import INPUT_SHAPES
+    assert pt_configs.INPUT_SHAPES is INPUT_SHAPES
+    assert {k: dataclasses.asdict(v)
+            for k, v in pt_configs.INPUT_SHAPES.items()} == \
+        {k: dataclasses.asdict(v)
+         for k, v in ref_configs.INPUT_SHAPES.items()}
 
 
 @pytest.mark.parametrize("mu", [0.0, 0.3])

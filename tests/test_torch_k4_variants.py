@@ -17,7 +17,8 @@ SOURCE = (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
           / "flash_attention.cu").read_text()
 
 # what each variant's source must hold beyond the committed kernel
-MARKERS = {"serial": ["wgmma_wait<0>();\n            fence_regs(o);"],
+MARKERS = {"p_single": ["wgmma_pv<D>(o, pf[kk], desc_v);\n            }"],
+           "serial": ["wgmma_wait<0>();\n            fence_regs(o);"],
            "serial_tree4": ["FA_NA"],
            "overlap": ["issue_pv(sp);"],
            "pingpong_branching": ["n_turns"],

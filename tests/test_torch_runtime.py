@@ -350,7 +350,8 @@ def test_staleness_weighted_merge_matches_sequential_fold(alphas,
     n = len(alphas)
     g_np = jax.tree_util.tree_map(lambda l: l[0], _rand_tree(rng, 1))
     st_np = _rand_tree(rng, n)
-    g, stacked = bridge.from_reference(g_np), bridge.from_reference(st_np)
+    g = bridge.from_reference(g_np, "cpu")
+    stacked = bridge.from_reference(st_np, "cpu")
     want = g
     for i, a in enumerate(alphas):
         want = pt_agg.staleness_merge(want, _row(stacked, i), a)
@@ -375,8 +376,8 @@ def test_staleness_merge_matches_reference():
     rng = np.random.default_rng(3)
     g_np = jax.tree_util.tree_map(lambda l: l[0], _rand_tree(rng, 1))
     c_np = jax.tree_util.tree_map(lambda l: l[0], _rand_tree(rng, 1))
-    got = pt_agg.staleness_merge(bridge.from_reference(g_np),
-                                 bridge.from_reference(c_np), 0.37)
+    got = pt_agg.staleness_merge(bridge.from_reference(g_np, "cpu"),
+                                 bridge.from_reference(c_np, "cpu"), 0.37)
     want = ref_agg.staleness_merge(
         jax.tree_util.tree_map(jnp.asarray, g_np),
         jax.tree_util.tree_map(jnp.asarray, c_np), 0.37)
@@ -396,10 +397,10 @@ def test_fedagg_fold_pytree_matches_reference_and_casts_to_global():
     want = ref_pytree(jax.tree_util.tree_map(jnp.asarray, g_np),
                       jax.tree_util.tree_map(jnp.asarray, st_np),
                       jnp.asarray(coef), interpret=True)
-    got = fedagg_fold_pytree(bridge.from_reference(g_np),
-                             bridge.from_reference(st_np), coef)
+    got = fedagg_fold_pytree(bridge.from_reference(g_np, "cpu"),
+                             bridge.from_reference(st_np, "cpu"), coef)
     for k in got:
-        assert got[k].dtype == bridge.from_reference(g_np)[k].dtype
+        assert got[k].dtype == bridge.from_reference(g_np, "cpu")[k].dtype
         np.testing.assert_allclose(got[k].float().numpy(),
                                    np.asarray(want[k], np.float32),
                                    rtol=2e-2, atol=2e-2)

@@ -108,7 +108,7 @@ def _cnn_trainers(seed=0):
 def test_train_round_from_bridged_params_matches_reference(use_kernel_agg):
     ref, port = _cnn_trainers()
     p_ref = ref.init_params(0)
-    p_pt = bridge.from_reference(jax.device_get(p_ref))
+    p_pt = bridge.from_reference(jax.device_get(p_ref), "cpu")
     cohort = [0, 3, 5]                    # padded to 4 inside the engine
     want = ref_make_engine(ref, use_kernel_agg=use_kernel_agg,
                            interpret=True).train_round(p_ref, cohort, 2)

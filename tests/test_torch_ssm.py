@@ -9,8 +9,14 @@ for the kernel's function (``tests/test_kernels.py``), 1e-4 for
 CPU the wrapper is its plain twin; that ``ssm_core`` is one kernel call
 on the card, with strided B/C views and the carried state, is checked
 here by routing, and the kernel itself is held against the twin on the
-card by ``chip_smoke.py``.
+card by ``chip_smoke.py``.  The kernel's arithmetic order (time split
+into segments scanned from a zero state, carries folded in order, each
+segment rerun from its carry; exps as exp2 of dt * A * log2 e) is
+emulated here in plain torch and held against the reference at the
+f32 tolerance, 1e-4.
 """
+
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -43,7 +49,7 @@ def _inputs(seed, b, s, d, n):
 
 
 def _pt(arrays):
-    return [bridge.to_torch(a) for a in arrays]
+    return [bridge.to_torch(a, "cpu") for a in arrays]
 
 
 def _jx(arrays):
@@ -95,8 +101,9 @@ def test_h0_in_and_h_end_out_match_the_reference_core(split):
     y_all, h_all = ss.ssm_scan_plain(*_pt((x, dt, b_in, c_out, a_log)))
     first = [a[:, :split] for a in (x, dt, b_in, c_out)]
     rest = [a[:, split:] for a in (x, dt, b_in, c_out)]
-    y_a, h_a = ss.ssm_scan_plain(*_pt(first), bridge.to_torch(a_log))
-    y_b, h_b = ss.ssm_scan_plain(*_pt(rest), bridge.to_torch(a_log), h_a)
+    y_a, h_a = ss.ssm_scan_plain(*_pt(first), bridge.to_torch(a_log, "cpu"))
+    y_b, h_b = ss.ssm_scan_plain(*_pt(rest), bridge.to_torch(a_log, "cpu"),
+                                 h_a)
     np.testing.assert_allclose(torch.cat([y_a, y_b], 1).numpy(),
                                y_all.numpy(), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(h_b.numpy(), h_all.numpy(), rtol=1e-5,
@@ -180,7 +187,7 @@ def test_ssm_forward_and_decode_handoff_match_reference():
     port, and both against the reference's."""
     d, n = 16, 4
     ref_p = _ref_ssm_params(d, n)
-    p = bridge.from_reference(ref_p)
+    p = bridge.from_reference(ref_p, "cpu")
     x = np.random.default_rng(3).standard_normal((1, 12, d)).astype(
         np.float32)
     full, _ = ssm.ssm_forward(p, torch.from_numpy(x), n_state=n, chunk=4)
@@ -269,3 +276,206 @@ def test_ssm_scan_wrapper_rejects_bad_shapes():
         ss.ssm_scan(x, x, torch.zeros(1, 4, 4), torch.zeros(1, 4, 4),
                     torch.zeros(8, 4), torch.zeros(1, 8, 5))
     assert ss.launches == 0            # the CPU never launches the kernel
+
+
+# ---------------------------------------------------------------------------
+# the kernel's time split, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parents[1]
+# (warps, longest segment, staging block): the emulation holds for any
+# split, so the cases take several; the kernel reports the one it was
+# built with (``ssm_scan_scratch``) and chip_smoke.py checks it on a card
+WIDE_SPLIT = (8, 64, 4)
+LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+
+
+def _k5_emulation(x, dt, b_in, c_out, a_log, h0=None, *, split):
+    """The arithmetic order of ``csrc/ssm_scan.cu`` in plain torch, for
+    these tests only.  x, dt (B,S,D), b_in, c_out (B,S,N) in f32 or bf16
+    -> (y in x's dtype, y before its rounding, h_end), all in f32
+    arithmetic.  a2 = -exp(a_log) * log2 e once; every decay is
+    exp2(dt * a2).  S = 1: one step from h0.  Otherwise ``split`` =
+    (warps, seg_max, tb): chunks of ``warps`` segments of ``seg`` steps
+    (whole staging blocks of ``tb``, at most ``seg_max``); pass 1 scans each segment from zero (local end state,
+    sum of dt); each segment's carry is the chunk's carry-in folded over
+    the earlier segments, c = exp2(a2 * sum dt) * c + h_local; pass 2
+    reruns the segment from its carry and forms y; the last segment's
+    end state carries into the next chunk and is h_end."""
+    warps, seg_max, tb = split
+    xf, dtf = x.float(), dt.float()
+    bf, cf = b_in.float(), c_out.float()
+    bsz, s, d = x.shape
+    n = b_in.shape[-1]
+    a2 = -torch.exp(a_log.float()) * LOG2E                      # (D,N)
+    carry = (torch.zeros((bsz, d, n)) if h0 is None else h0.float())
+    y = torch.zeros((bsz, s, d))
+
+    def step(h, t):
+        dv = dtf[:, t, :, None]
+        dx = dv * xf[:, t, :, None]
+        return torch.exp2(dv * a2) * h + dx * bf[:, t, None, :]
+
+    if s == 1:
+        h = step(carry, 0)
+        y[:, 0] = (h * cf[:, 0, None, :]).sum(-1)
+        return y.to(x.dtype), y, h
+    per = -(-s // warps)
+    seg = min(seg_max, -(-per // tb) * tb)
+    for k0 in range(0, s, warps * seg):
+        spans = [(k0 + w * seg, min(k0 + (w + 1) * seg, s))
+                 for w in range(warps)]
+        local, sums = [], []
+        for t0, t1 in spans:                       # pass 1, from zero
+            h = torch.zeros((bsz, d, n))
+            sdt = torch.zeros((bsz, d))
+            for t in range(t0, t1):
+                h = step(h, t)
+                sdt = sdt + dtf[:, t]
+            local.append(h)
+            sums.append(sdt)
+        for w, (t0, t1) in enumerate(spans):       # carries, pass 2
+            h = carry
+            for v in range(w):
+                h = torch.exp2(a2 * sums[v][..., None]) * h + local[v]
+            for t in range(t0, t1):
+                h = step(h, t)
+                y[:, t] = (h * cf[:, t, None, :]).sum(-1)
+        carry = h
+    return y.to(x.dtype), y, carry
+
+
+def _h0(b, d, n, seed=5):
+    return np.random.default_rng(seed).standard_normal((b, d, n)).astype(
+        np.float32)
+
+
+def _ref_with_h0(arrays, h0):
+    """y, h_end of the reference's ``ssm_core`` (h0 in, h_end out)."""
+    x, dt, b_in, c_out, a_log = arrays
+    y, h = ref_ssm.ssm_core({"A_log": jnp.asarray(a_log)}, jnp.asarray(x),
+                            jnp.asarray(dt),
+                            jnp.asarray(np.concatenate([b_in, c_out], -1)),
+                            None if h0 is None else jnp.asarray(h0),
+                            b_in.shape[-1], chunk=x.shape[1])
+    return np.asarray(y), np.asarray(h)
+
+
+# (b, s, d, n, split): the kernel tests' shapes at a wide split, and
+# small splits that make several chunks; segments that divide S and that
+# do not, S shorter than one segment, S = 1
+K5_CASES = [(2, 64, 32, 8, WIDE_SPLIT), (1, 128, 64, 16, WIDE_SPLIT),
+            (3, 32, 16, 4, WIDE_SPLIT),
+            (2, 64, 8, 8, (4, 8, 4)),          # 2 chunks, S = 64
+            (1, 70, 8, 16, (4, 8, 4)),         # a ragged last chunk
+            (2, 45, 8, 4, (3, 4, 2)),          # segments do not divide S
+            (2, 3, 8, 8, (4, 8, 4)),           # shorter than one segment
+            (2, 1, 8, 16, WIDE_SPLIT)]         # a decode step
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,d,n,split", K5_CASES)
+def test_k5_time_split_matches_the_reference(b, s, d, n, split, with_h0):
+    """The kernel's segment order against the JAX reference at the f32
+    tolerance: y and h_end (``ssm_core`` with h0), and y against the
+    sequential oracle ``ssm_scan_ref`` without it."""
+    arrays = _inputs(s * d + n, b, s, d, n)
+    h0 = _h0(b, d, n) if with_h0 else None
+    y, y_f32, h_end = _k5_emulation(
+        *_pt(arrays), None if h0 is None else torch.from_numpy(h0),
+        split=split)
+    want_y, want_h = _ref_with_h0(arrays, h0)
+    np.testing.assert_allclose(y_f32.numpy(), want_y, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(h_end.numpy(), want_h, rtol=1e-4, atol=1e-4)
+    if h0 is None:
+        oracle = np.asarray(ssm_scan_ref(*_jx(arrays)))
+        np.testing.assert_allclose(y.numpy(), oracle, rtol=1e-4, atol=1e-4)
+    # and the plain twin, the kernel's check on the card
+    y_p, h_p = ss.ssm_scan_plain(
+        *_pt(arrays), None if h0 is None else torch.from_numpy(h0))
+    np.testing.assert_allclose(y.numpy(), y_p.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(h_end.numpy(), h_p.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [4, 8, 16])
+def test_k5_time_split_bf16_rounds_y_once(n):
+    """bf16 inputs: the arithmetic is f32 from the bf16 values (within
+    1e-4 of the reference on the same values) and y is rounded once,
+    within the scan's bf16 tolerance (rtol 1e-2, atol 1e-3) of the
+    reference's bf16 output."""
+    arrays = list(_inputs(n, 2, 70, 16, n))
+    for i in range(4):
+        arrays[i] = arrays[i].astype(ml_dtypes.bfloat16)
+    y, y_f32, _ = _k5_emulation(*_pt(arrays), split=(4, 8, 4))
+    assert y.dtype == torch.bfloat16
+    as_f32 = [a.astype(np.float32) for a in arrays[:4]] + [arrays[4]]
+    np.testing.assert_allclose(y_f32.numpy(),
+                               np.asarray(ssm_scan_ref(*_jx(as_f32))),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(y.float().numpy(),
+                                  y_f32.to(torch.bfloat16).float().numpy())
+    np.testing.assert_allclose(
+        y.float().numpy(),
+        np.asarray(ssm_scan_ref(*_jx(arrays)), np.float32),
+        rtol=1e-2, atol=1e-3)
+
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _chunks(s, split):
+    """(chunks, steps a chunk) of S steps under ``split``, as the
+    emulation splits them."""
+    warps, seg_max, tb = split
+    seg = min(seg_max, -(-(-(-s // warps)) // tb) * tb)
+    return -(-s // (warps * seg)), warps * seg
+
+
+def test_k5_cases_reach_every_edge_of_the_split():
+    """The cases above reach more than one chunk, a ragged last chunk,
+    segments with no steps and a decode step."""
+    shapes = [(s, split) for _, s, _, _, split in K5_CASES if s > 1]
+    assert any(_chunks(s, sp)[0] > 1 for s, sp in shapes)
+    assert any(s % _chunks(s, sp)[1] for s, sp in shapes)
+    assert any(s < _chunks(s, sp)[1] // sp[0] * (sp[0] - 1)
+               for s, sp in shapes)
+    assert any(s == 1 for _, s, *_ in K5_CASES)
+
+
+def test_chip_smoke_counts_exps_from_the_split_the_kernel_reports(
+        monkeypatch):
+    """chip_smoke.py takes K5's time split from the built library
+    (``ssm_scan_scratch`` which = 2, 3, 4: segment length, segments a
+    chunk, chunks) and counts the design's exps from it: two per (t, d,
+    n), and N per earlier segment of each chunk; one per state for a
+    decode step."""
+    smoke = _chip_smoke()
+    asked = []
+
+    class FakeLib:
+        @staticmethod
+        def ssm_scan_scratch(b, s, d, n, which):
+            asked.append((b, s, d, n, which))
+            return {2: 64, 3: 8, 4: 8}[which]
+
+    monkeypatch.setattr(ss, "_lib", lambda: FakeLib)
+    b, d, n = 2, 3200, 16
+    split = smoke.ssm_split(b, 4096, d, n)
+    assert split == {"seg": 64, "warps": 8, "chunks": 8}
+    assert [a[-1] for a in asked] == [2, 3, 4]
+    assert all(a[:4] == (b, 4096, d, n) for a in asked)
+    assert smoke.ssm_design_exps(b, 1, d, n, None) == b * d * n
+    assert smoke.ssm_design_exps(b, 4096, d, n, split) == \
+        2 * b * 4096 * d * n + b * d * n * 8 * 8 * 7 // 2
+    # a split of one segment a chunk folds no carries inside a chunk
+    assert smoke.ssm_design_exps(
+        b, 4096, d, n, {"seg": 512, "warps": 1, "chunks": 8}) == \
+        2 * b * 4096 * d * n

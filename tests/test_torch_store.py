@@ -51,7 +51,7 @@ def _int_template_np(seed=0):
 
 
 def _pt(tree_np):
-    return bridge.from_reference(tree_np)
+    return bridge.from_reference(tree_np, "cpu")
 
 
 def _jx(tree_np):

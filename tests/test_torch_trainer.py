@@ -48,7 +48,7 @@ def _trainers(arch, n_clients=4, seed=0, optimizer="adam"):
 def test_local_train_matches_reference(arch, optimizer):
     ref, port = _trainers(arch, optimizer=optimizer)
     p_ref = ref.init_params(0)
-    p_pt = bridge.from_reference(jax.device_get(p_ref))
+    p_pt = bridge.from_reference(jax.device_get(p_ref), "cpu")
     for a, b in zip(ref.clients, port.clients):
         assert a.x.tobytes() == b.x.tobytes()
     out_ref, n_ref = ref.local_train(p_ref, 1, rnd_seed=3)
@@ -70,7 +70,7 @@ def test_resnet8_adam_local_train_stays_within_its_step_bound():
     tight comparison of ResNet8 training runs under momentum above."""
     ref, port = _trainers("resnet8-cifar10")
     p_ref = ref.init_params(0)
-    p_pt = bridge.from_reference(jax.device_get(p_ref))
+    p_pt = bridge.from_reference(jax.device_get(p_ref), "cpu")
     out_ref, _ = ref.local_train(p_ref, 1, rnd_seed=3)
     out_pt, _ = port.local_train(p_pt, 1, rnd_seed=3)
     steps = len(port._client_epoch_batches(1, 3)[0])

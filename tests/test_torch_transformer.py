@@ -51,7 +51,8 @@ def _params(arch):
     if arch not in _PARAMS:
         cfg = ref_get_arch(arch).reduced()
         ref = ref_init_model(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
-        _PARAMS[arch] = (ref, bridge.from_reference(jax.device_get(ref)))
+        _PARAMS[arch] = (ref, bridge.from_reference(jax.device_get(ref),
+                                                    "cpu"))
     return _PARAMS[arch]
 
 
@@ -82,7 +83,7 @@ def test_rms_norm_and_layer_norm_match_reference():
                                  jnp.asarray(bias)), 1e-5)
     # bf16 in, bf16 out; the math is f32 inside
     xb = x.astype(ml_dtypes.bfloat16)
-    got = layers.rms_norm(bridge.to_torch(xb), torch.from_numpy(scale))
+    got = layers.rms_norm(bridge.to_torch(xb, "cpu"), torch.from_numpy(scale))
     assert got.dtype == torch.bfloat16
     _close(got, np.asarray(ref_layers.rms_norm(jnp.asarray(xb),
                                                jnp.asarray(scale)),
@@ -95,7 +96,8 @@ def test_mlp_matches_reference(kind):
                                                kind))
     x = np.random.default_rng(1).standard_normal((2, 3, 16)).astype(
         np.float32)
-    got = layers.mlp(bridge.from_reference(ref_p), torch.from_numpy(x), kind)
+    got = layers.mlp(bridge.from_reference(ref_p, "cpu"), torch.from_numpy(x),
+                     kind)
     want = ref_layers.mlp(jax.tree_util.tree_map(jnp.asarray, ref_p),
                           jnp.asarray(x), kind)
     _close(got, want, 1e-5)
@@ -112,7 +114,7 @@ def test_apply_rope_matches_reference(theta, offset):
     _close(apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta),
            ref_apply_rope(jnp.asarray(x), jnp.asarray(pos), theta), 1e-5)
     xb = x.astype(ml_dtypes.bfloat16)
-    got = apply_rope(bridge.to_torch(xb), torch.from_numpy(pos), theta)
+    got = apply_rope(bridge.to_torch(xb, "cpu"), torch.from_numpy(pos), theta)
     assert got.dtype == torch.bfloat16
     _close(got, np.asarray(ref_apply_rope(jnp.asarray(xb), jnp.asarray(pos),
                                           theta), np.float32), 2e-2)
@@ -141,7 +143,7 @@ def test_init_model_has_the_reference_tree(arch, dtype):
     ref_leaves, _ = jax.tree_util.tree_flatten(ref)
     assert treedef == tree_flatten(bridge.from_reference(
         jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32),
-                               ref)))[1]
+                               ref), "cpu"))[1]
     assert [tuple(t.shape) for t in leaves] == \
         [tuple(s.shape) for s in ref_leaves]
     assert [str(t.dtype).removeprefix("torch.") for t in leaves] == \

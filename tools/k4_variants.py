@@ -1,25 +1,31 @@
 #!/usr/bin/env python3
 """Variants of the bf16 attention kernel (K4) on one GPU, timed in turns.
 
-    python3 tools/k4_variants.py [--only v0,bq192,...]
+    python3 tools/k4_variants.py [--only v0,bq192,...] [--prefill]
 
 Each variant is the committed ``src/repro_torch/kernels/csrc/
 flash_attention.cu`` with text patches and ``-D`` switches, built with
 ``nvcc -Xptxas -v`` into ``build/k4_variants/`` (registers and spills are
 printed).  The variants that compute attention are held against
-``gqa_plain`` at the bf16 tolerance (rtol 8e-3, atol 3e-3) on the edge
-cases of ``chip_smoke.py``; the ablations (parts switched off) only run.
-All are timed with ``chip_smoke.median_ms`` (launches enqueued behind
-other device work, so the reading is device time) at the three prefill
-shapes of ``chip_smoke.py``, in turns: v0 first, then each variant, then
-the order reversed.  The last line of standard output is one JSON object
-of the times.  Needs one CUDA card and nvcc; exits non-zero otherwise or
-when a checked variant disagrees.
+``gqa_plain`` on the edge cases of ``chip_smoke.py``, at the bf16
+tolerance (rtol 8e-3, atol 1e-3; ``p_single``, which rounds P to bf16
+once, at its own atol 3e-3); the ablations (parts switched off) only
+run.  All are timed with ``chip_smoke.median_ms`` (launches enqueued
+behind other device work, so the reading is device time) at the three
+prefill shapes of ``chip_smoke.py``, in turns: v0 first, then each
+variant, then the order reversed.  With ``--prefill``, each checked
+variant also runs ``chip_smoke.bf16_prefill_vs_f32`` (the bf16 hymba
+1280-token prefill, with the variant and with ``gqa_plain``, against the
+f32 forward on the same weights).  The last line of standard output is
+one JSON object of the times.  Needs one CUDA card and nvcc; exits
+non-zero otherwise or when a checked variant disagrees.
 
 Variants:
   v0                  the committed kernel (softmax under the previous
                       tile's P.V, ping-pong turns between the two
-                      consumer warpgroups)
+                      consumer warpgroups, P.V with P split in two bf16
+                      parts)
+  p_single            v0 with P rounded to bf16 once (one P.V product)
   serial              a warpgroup's tile in series, no turns (the
                       kernel's first design)
   serial_tree4        serial, four partial row maxima and sums
@@ -50,7 +56,9 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 OUT = ROOT / "build" / "k4_variants"
-TOL = (8e-3, 3e-3)
+TOL = (8e-3, 1e-3)
+# P rounded to bf16 once: a second rounding beside the output's
+TOL_P_SINGLE = (8e-3, 3e-3)
 SHAPES = {"hymba-4096-window1024": (2, 4096, 25, 5, 1024),
           "hymba-1024-causal": (2, 1024, 25, 5, 0),
           "llama-4096-causal": (2, 4096, 32, 8, 0)}
@@ -170,16 +178,22 @@ def ablations(src):
 #endif""")
     src = replace(src, """            const uint32_t s_v = s_base + L::V_OFF + st * L::KV_BYTES;
 #pragma unroll
-            for (int kk = 0; kk < BK / 16; ++kk)
-                wgmma_pv<D>(o, pf[kk],
-                            make_desc(s_v + kk * 16 * L::ROW, L::ATOM,
-                                      L::ATOM, L::SWIZZLE));""", """            const uint32_t s_v = s_base + L::V_OFF + st * L::KV_BYTES;
+            for (int kk = 0; kk < BK / 16; ++kk) {
+                const uint64_t desc_v = make_desc(s_v + kk * 16 * L::ROW,
+                                                  L::ATOM, L::ATOM,
+                                                  L::SWIZZLE);
+                wgmma_pv<D>(o, pf[kk], desc_v);
+                wgmma_pv<D>(o, pf_lo[kk], desc_v);
+            }""", """            const uint32_t s_v = s_base + L::V_OFF + st * L::KV_BYTES;
 #ifndef ABL_NOPV
 #pragma unroll
-            for (int kk = 0; kk < BK / 16; ++kk)
-                wgmma_pv<D>(o, pf[kk],
-                            make_desc(s_v + kk * 16 * L::ROW, L::ATOM,
-                                      L::ATOM, L::SWIZZLE));
+            for (int kk = 0; kk < BK / 16; ++kk) {
+                const uint64_t desc_v = make_desc(s_v + kk * 16 * L::ROW,
+                                                  L::ATOM, L::ATOM,
+                                                  L::SWIZZLE);
+                wgmma_pv<D>(o, pf[kk], desc_v);
+                wgmma_pv<D>(o, pf_lo[kk], desc_v);
+            }
 #endif""")
     return replace(src, """            if (interior)
                 softmax_tile<false>(s, m, l, corr, scale_log2, t0, T,
@@ -254,25 +268,27 @@ CONSUMER_SERIAL = r"""        float o[D / 2];
                                    row_pos, causal, window);
             rescale<D>(o, corr);
 
-            // O += P . V: P rounded to bf16 in registers is the A
+            // O += P . V: P in two bf16 parts in registers is the A
             // operand (the accumulator's layout is the A fragment's);
             // V (keys x D, D contiguous) is an MN-major B operand
-            uint32_t pa_frag[BK / 16][4];
+            uint32_t pa_hi[BK / 16][4], pa_lo[BK / 16][4];
 #pragma unroll
-            for (int kk = 0; kk < BK / 16; ++kk) {
-                pa_frag[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-                pa_frag[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-                pa_frag[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-                pa_frag[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-            }
+            for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                    split_bf16(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1],
+                               pa_hi[kk][q], pa_lo[kk][q]);
             const uint32_t s_v = s_base + L::V_OFF + st * L::KV_BYTES;
             mbar_wait(full_v(st), ph);
             wgmma_fence();
 #pragma unroll
-            for (int kk = 0; kk < BK / 16; ++kk)
-                wgmma_pv<D>(o, pa_frag[kk],
-                            make_desc(s_v + kk * 16 * L::ROW, L::ATOM,
-                                      L::ATOM, L::SWIZZLE));
+            for (int kk = 0; kk < BK / 16; ++kk) {
+                const uint64_t desc_v = make_desc(s_v + kk * 16 * L::ROW,
+                                                  L::ATOM, L::ATOM,
+                                                  L::SWIZZLE);
+                wgmma_pv<D>(o, pa_hi[kk], desc_v);
+                wgmma_pv<D>(o, pa_lo[kk], desc_v);
+            }
             wgmma_commit();
             wgmma_wait<0>();
             fence_regs(o);
@@ -361,25 +377,34 @@ def tree(src):
                    SOFTMAX_TREE)
 
 
-# name -> (patches, -D switches, computes attention)
+def single_p(src):
+    """P rounded to bf16 once, one P.V product (the kernel before the
+    split): the low part is formed and left unused."""
+    return replace(src, """                wgmma_pv<D>(o, pf_lo[kk], desc_v);
+""", "")
+
+
+# name -> (patches, -D switches, tolerance against gqa_plain or None for
+# an ablation that does not compute attention)
 VARIANTS = {
-    "v0": ((), (), True),
-    "serial": ((serial,), (), True),
-    "serial_tree4": ((serial, tree), ("-DFA_NA=4",), True),
-    "overlap": ((no_turns,), (), True),
-    "pingpong_branching": ((branching_turns,), (), True),
-    "all_lanes": ((all_lanes,), (), True),
-    "serial_bq192": ((serial, knobs), ("-DFA_NWG=3",), True),
-    "overlap_bq192": ((no_turns, knobs), ("-DFA_NWG=3",), True),
-    "stages4": ((knobs,), ("-DFA_STAGES=4",), True),
-    "l2_256": ((knobs,), ("-DFA_L2_256",), True),
-    "no_softmax": ((ablations,), ("-DABL_NOSOFTMAX",), False),
-    "no_products": ((ablations,), ("-DABL_NOQK", "-DABL_NOPV"), False),
+    "v0": ((), (), TOL),
+    "p_single": ((single_p,), (), TOL_P_SINGLE),
+    "serial": ((serial,), (), TOL),
+    "serial_tree4": ((serial, tree), ("-DFA_NA=4",), TOL),
+    "overlap": ((no_turns,), (), TOL),
+    "pingpong_branching": ((branching_turns,), (), TOL),
+    "all_lanes": ((all_lanes,), (), TOL),
+    "serial_bq192": ((serial, knobs), ("-DFA_NWG=3",), TOL),
+    "overlap_bq192": ((no_turns, knobs), ("-DFA_NWG=3",), TOL),
+    "stages4": ((knobs,), ("-DFA_STAGES=4",), TOL),
+    "l2_256": ((knobs,), ("-DFA_L2_256",), TOL),
+    "no_softmax": ((ablations,), ("-DABL_NOSOFTMAX",), None),
+    "no_products": ((ablations,), ("-DABL_NOQK", "-DABL_NOPV"), None),
     "loads_only": ((ablations,), ("-DABL_NOQK", "-DABL_NOPV",
-                                  "-DABL_NOSOFTMAX"), False),
+                                  "-DABL_NOSOFTMAX"), None),
     "loads_only_bq192": ((no_turns, knobs, ablations),
                          ("-DFA_NWG=3", "-DABL_NOQK", "-DABL_NOPV",
-                          "-DABL_NOSOFTMAX"), False),
+                          "-DABL_NOSOFTMAX"), None),
 }
 
 
@@ -456,6 +481,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(VARIANTS),
                     help="comma-separated variants (v0 is always built)")
+    ap.add_argument("--prefill", action="store_true",
+                    help="also the bf16 hymba prefill against the f32 "
+                         "forward, with each checked variant")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k4_variants: no CUDA device", file=sys.stderr)
@@ -477,7 +505,8 @@ def main(argv=None) -> int:
     checks = cases(gen)
     bad = []
     for name in names:
-        if not VARIANTS[name][2]:
+        tol = VARIANTS[name][2]
+        if tol is None:
             continue
         use(libs[name][0])
         worst = 0.0
@@ -487,11 +516,12 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             worst = max(worst, err)
-            if not torch.allclose(got.float(), want.float(), rtol=TOL[0],
-                                  atol=TOL[1]):
+            if not torch.allclose(got.float(), want.float(), rtol=tol[0],
+                                  atol=tol[1]):
                 bad.append(f"{name}/{cname}: max abs {err}")
         print(json.dumps({"variant": name, "checked": len(checks),
-                          "worst_max_abs_err": worst}), flush=True)
+                          "worst_max_abs_err": worst, "tol": tol}),
+              flush=True)
     times = {}
     for shape, (b, s, h, hkv, window) in SHAPES.items():
         def r(*shape_):
@@ -505,8 +535,19 @@ def main(argv=None) -> int:
                 lambda: fa.flash_attention(q, k, v, window=window),
                 runs=5, per_run=10))
         print(json.dumps({"shape": shape, "ms": times[shape]}), flush=True)
+    prefill = {}
+    if args.prefill:
+        cfg, params = chip_smoke._lm_params("hymba-1.5b", torch.bfloat16)
+        for name in names:
+            if VARIANTS[name][2] is not None:
+                use(libs[name][0])
+                prefill[name] = chip_smoke.bf16_prefill_vs_f32(cfg, params)
+                print(json.dumps({"variant": name,
+                                  "prefill_vs_f32": prefill[name]}),
+                      flush=True)
     print(card, flush=True)
-    print(json.dumps({"card": card, "failed": bad, "ms": times}))
+    print(json.dumps({"card": card, "failed": bad, "ms": times,
+                      "prefill_vs_f32": prefill}))
     return 1 if bad else 0
 
 
