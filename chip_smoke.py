@@ -15,7 +15,13 @@ shard) and LM serving (``launch/steps.py``: prefill of full-width
 ``hymba-1.5b`` and ``llama3.2-1b``, decode of ``hymba-1.5b``; kernels
 ``flash_attention`` and ``ssm_scan``; ``flash_attention`` is the
 tensor-core kernel on these bf16 paths and the scalar one in the f32
-consistency run) — and prints one JSON object per phase.  Each path runs with
+consistency run) — then traces the sync and async paths through
+``fl_train --trace`` (JSONL and Chrome; the port's ``repro_torch.obs``:
+traced == untraced bit for bit, the split of a warm round by span on
+the host and the card, the tracing overhead) and runs the async path
+with int8 client rows (``--quant-bits 8``, with and without error
+feedback; every quantized row held to the numpy oracle exactly) — and
+prints one JSON object per phase.  Each path runs with
 every launch count set to 0 just before it and read just after.  Any
 failure exits non-zero; there is no CPU path.  The last line of
 standard output is ``{"ok": true, "device": {"platform": "gpu", "kind":
@@ -705,6 +711,538 @@ def async_path():
                "first_run_s": first_s, "warm_run_s": run_s,
                "warm_s_per_round": run_s / ASYNC_ROUNDS}
     return summary, launches, seen + buff_seen
+
+
+# ---------------------------------------------------------------------
+# Telemetry (repro_torch/obs) and int8 client rows, traced on the card
+# ---------------------------------------------------------------------
+
+TRACE_DIR = ROOT / "build" / "traces"
+# spans a round of each path must show in a trace
+SYNC_SPANS = {"run", "round.select", "round.train", "round.aggregate",
+              "eval"}
+ASYNC_SPANS = {"run", "round.select", "window.merge", "window.gather",
+               "window.train", "window.merge_scatter", "store.merge",
+               "store.scatter", "eval"}
+# the reference's q8 convergence gate: best accuracy within one point
+Q8_ACC_ATOL = 0.01
+# untraced and traced runs of a path, in turns, for the overhead
+OVERHEAD_TURNS = 5
+# the reference's q8 convergence task (tests/test_state.py:
+# test_feddct_async_quant8_cnn_convergence_gate): reduced cnn-mnist
+Q8_TASK = dict(n_clients=8, n_tiers=2, tau=2, rounds=40, mu=0.0,
+               primary_frac=0.7, seed=0, lr=0.003)
+
+
+def _untraced_json(hist):
+    """A history's JSON without the additive ``meta["telemetry"]``."""
+    out = hist.to_json()
+    out["meta"] = {k: v for k, v in out["meta"].items() if k != "telemetry"}
+    return out
+
+
+def read_spans(path):
+    """The span records of a JSONL trace."""
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r.get("type") == "span"]
+
+
+def round_split(spans, first_warm: int = 2):
+    """Where the warm rounds' time goes, from a run's spans: a round runs
+    from its ``round.select`` to the next (the last to the end of the
+    ``run`` span); rounds ``first_warm..`` are the warm ones.  Per span
+    name in them: count, host seconds, device seconds (CUDA events).
+    ``covered`` is the share of their wall time that the outermost spans
+    (those inside no other span but ``run``) take on the host."""
+    run = next(s for s in spans if s["name"] == "run")
+    starts = sorted(s["ts_us"] for s in spans if s["name"] == "round.select")
+    bounds = starts + [run["ts_us"] + run["dur_us"]]
+    lo, hi = bounds[first_warm - 1], bounds[-1]
+    inside = [s for s in spans
+              if s["name"] != "run" and lo <= s["ts_us"] < hi]
+    per = {}
+    for s in inside:
+        e = per.setdefault(s["name"], {"count": 0, "host_s": 0.0,
+                                       "dev_s": 0.0})
+        e["count"] += 1
+        e["host_s"] += s["dur_us"] / 1e6
+        e["dev_s"] += (s["dev_us"] or 0.0) / 1e6
+    if any(s["dev_us"] is None for s in inside):
+        fail("a span on the card carries no device time")
+
+    def within(a, b):
+        return (a is not b and b["ts_us"] <= a["ts_us"]
+                and a["ts_us"] + a["dur_us"] <= b["ts_us"] + b["dur_us"])
+
+    top = [s for s in inside if not any(within(s, o) for o in inside)]
+    n_warm = len(bounds) - first_warm
+    wall_s = (hi - lo) / 1e6
+    return {"warm_rounds": n_warm, "warm_wall_s": wall_s,
+            "warm_s_per_round": wall_s / n_warm,
+            "covered": sum(s["dur_us"] for s in top) / (hi - lo),
+            "outermost": sorted({s["name"] for s in top}),
+            "spans": per}
+
+
+def _check_trace(path, fmt, needed):
+    """The port's validator accepts the trace and its spans cover
+    ``needed``; the report renders from it."""
+    from repro_torch.obs import report as obs_report
+    from repro_torch.obs import validate as obs_validate
+    if fmt == "chrome":
+        errors, found = obs_validate.validate_chrome_file(str(path))
+        with open(path) as f:
+            names = {e["name"] for e in json.load(f)["traceEvents"]
+                     if e.get("ph") == "X"}
+    else:
+        errors, found = obs_validate.validate_file(str(path))
+        names = {s["name"] for s in read_spans(path)}
+    if errors:
+        fail(f"{path.name} ({fmt}) does not validate: {errors[:5]}")
+    if not needed <= names:
+        fail(f"{path.name} misses spans {sorted(needed - names)}")
+    summary, history = obs_report.load_source(str(path))
+    text = obs_report.format_report(obs_report.build_report(summary,
+                                                            history))
+    if "FL run report" not in text:
+        fail(f"the report of {path.name} did not render")
+    return {"format": fmt, "records": found, "report_lines":
+            len(text.splitlines())}
+
+
+def _drive(argv):
+    """One ``fl_train`` run with the launch counts set to 0 just before
+    it: (history, host seconds of its ``run_method`` call, launch
+    counts, final model).  The run's seconds end in a synchronize and
+    take in what tracing adds inside the run (its summary's readback),
+    not the trainer's set-up or the trace's export."""
+    import torch
+    from repro_torch.launch import fl_train
+    from repro_torch.obs import telemetry as obs_tel
+    models, run_s = [], []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        run_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_summary(self):
+        t0 = time.perf_counter()
+        out = real_summary(self)
+        SUMMARY_S.append(time.perf_counter() - t0)
+        return out
+
+    with recording_evaluations(models), \
+            patched(fl_train, "run_method", timed) as real, \
+            patched(obs_tel.Telemetry, "summary",
+                    timed_summary) as real_summary:
+        zero_counts()
+        hist = fl_train.main(argv)
+    return hist, run_s[0], counts(), models[-1]
+
+
+# seconds of every ``Telemetry.summary`` call in ``_drive``'s runs
+SUMMARY_S = []
+
+
+def span_cost_us(n: int = 2000):
+    """Host microseconds of one empty ``with TEL.span(...)`` on the card:
+    tracing off (the no-op), and on (two CUDA events recorded), the
+    median of 9 runs of ``n`` each; and of one ``resolve`` of those
+    events."""
+    import torch
+    from repro_torch.obs import telemetry as obs_tel
+    out = {}
+    for mode in ("off", "on"):
+        runs = []
+        for _ in range(9):
+            tel = obs_tel.Telemetry() if mode == "on" else obs_tel.NOOP
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                with tel.span("x"):
+                    pass
+            runs.append((time.perf_counter() - t0) / n * 1e6)
+            if mode == "on":
+                t0 = time.perf_counter()
+                tel.resolve()
+                out["resolve_us_per_span"] = ((time.perf_counter() - t0)
+                                              / n * 1e6)
+        out[mode] = statistics.median(runs)
+    return out
+
+
+def device_busy(argv):
+    """One more warm run of ``argv`` under ``torch.profiler``: the share
+    of its ``run_method`` wall time in which a kernel ran on the card
+    (the union of the kernels' intervals), and the five kernels with
+    the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import fl_train
+    wall = []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        return out
+
+    with patched(fl_train, "run_method", timed) as real, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        fl_train.main(argv)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    per = {}
+    for e in kernels:
+        per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+    return {"run_s": wall[0], "kernels": len(kernels),
+            "busy_s": busy / 1e6,
+            "busy_share": busy / 1e6 / wall[0] if kernels else None,
+            "top_kernels_s": [[n[:80], t / 1e6] for n, t in top]}
+
+
+def traced_path(argv, needed, tag: str, rounds: int):
+    """One FL path untraced and traced in turns, ``OVERHEAD_TURNS``
+    each (``fl_train --trace <jsonl>``, the first with ``--report``),
+    then once traced in the chrome format: every traced history and
+    final model must equal the untraced ones bit for bit and launch the
+    same kernels, both formats validate and report, the warm rounds'
+    spans give the split, and the median seconds a round give the
+    tracing overhead.  Returns (summary, untraced history, its final
+    model, the first traced run's telemetry summary)."""
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    jpath = TRACE_DIR / f"{tag}.jsonl"
+    cpath = TRACE_DIR / f"{tag}.json"
+    runs = {"untraced": [], "traced": []}
+    SUMMARY_S.clear()
+    for turn in range(OVERHEAD_TURNS):
+        runs["untraced"].append(_drive(argv))
+        extra = ["--report"] if turn == 0 else []
+        runs["traced"].append(_drive(argv + ["--trace", str(jpath)]
+                                     + extra))
+        if turn == 0:
+            first_spans = read_spans(jpath)
+    chrome = _drive(argv + ["--trace", str(cpath), "--trace-format",
+                            "chrome"])
+    plain, _, plain_counts, plain_model = runs["untraced"][0]
+    if "telemetry" in plain.meta:
+        fail(f"{tag}: the untraced run carries telemetry")
+    for hist, _, launched, model in (runs["untraced"] + runs["traced"]
+                                     + [chrome]):
+        traced = "telemetry" in hist.meta
+        if _untraced_json(hist) != plain.to_json() or not _models_equal(
+                model, plain_model):
+            fail(f"{tag}: a {'traced' if traced else 'untraced'} run's "
+                 f"history or final model differs")
+        if launched != plain_counts:
+            fail(f"{tag}: launch counts differ: {launched} "
+                 f"{plain_counts}")
+    tel = runs["traced"][0][0].meta["telemetry"]
+    per_round = {m: [r[1] / rounds for r in rs] for m, rs in runs.items()}
+    med = {m: statistics.median(t) for m, t in per_round.items()}
+    low = {m: min(t) for m, t in per_round.items()}
+    summary = {"argv": argv, "accuracy": plain.accuracy,
+               "traced_equals_untraced": True,
+               "traces": [_check_trace(jpath, "jsonl", needed),
+                          _check_trace(cpath, "chrome", needed)],
+               "launches": plain_counts,
+               "warm_split": round_split(first_spans),
+               "run_span": tel["spans"]["run"],
+               "kernel_builds": tel["counters"].get("kernel.builds", 0),
+               "s_per_round": per_round,
+               "median_untraced_s_per_round": med["untraced"],
+               "median_traced_s_per_round": med["traced"],
+               "tracing_overhead": med["traced"] / med["untraced"] - 1.0,
+               "tracing_overhead_of_minima": (low["traced"]
+                                              / low["untraced"] - 1.0),
+               "summary_s": list(SUMMARY_S),
+               "device_busy_untraced": device_busy(argv),
+               "trace_files": [str(p.relative_to(ROOT))
+                               for p in (jpath, cpath)]}
+    return summary, plain, plain_model, tel
+
+
+def traced_main_path():
+    summary, plain, _, _ = traced_path(MAIN_ARGV, SYNC_SPANS, "main", 5)
+    live = sum(1 for s, g in zip(plain.n_selected, plain.n_stragglers)
+               if s - g > 0)
+    if summary["launches"] != only(fedagg=live) or live < 1:
+        fail(f"traced main path launched {summary['launches']}, "
+             f"{live} rounds had survivors")
+    summary["span_cost_us"] = span_cost_us()
+    return summary
+
+
+def traced_async_path():
+    summary, plain, model, tel = traced_path(ASYNC_ARGV, ASYNC_SPANS,
+                                             "async", ASYNC_ROUNDS)
+    if summary["launches"]["fedagg_fold"] < 1 or any(
+            n for k, n in summary["launches"].items() if k != "fedagg_fold"):
+        fail(f"traced async path launched {summary['launches']}")
+    if "fl.cohort.update_norm" not in tel["hists"]:
+        fail("the traced async run recorded no cohort update norm")
+    summary["update_norm"] = tel["hists"]["fl.cohort.update_norm"]
+    return summary, (plain, model, tel)
+
+
+def _host(t):
+    return t.detach().cpu().numpy()
+
+
+@contextlib.contextmanager
+def recording_quantization(record):
+    """What the q8 store is given and keeps, copied to the host: per
+    ``_quantize_for`` call the client ids, the global row, the rows the
+    quantizer was given (row + residual), its int8 rows and meta and
+    the residuals kept after it; and the store (``record["store"]``)."""
+    from repro_torch.core import state as state_mod
+    from repro_torch.runtime import async_loop
+    record.update(calls=[], store=None)
+    last = {}
+
+    def quantize(x, segs):
+        q, m = real_q(x, segs)
+        last.update(x=_host(x), q=_host(q), m=_host(m))
+        return q, m
+
+    def quantize_for(self, ids, frow):
+        last.clear()
+        out = real_for(self, ids, frow)
+        kept = [self.ef_residual(c) for c in ids]
+        record["calls"].append({
+            "ids": [int(c) for c in ids], "frow": _host(frow), **last,
+            "ef": [None if r is None else _host(r) for r in kept]})
+        return out
+
+    def resolve(*a, **kw):
+        store, reason = real_resolve(*a, **kw)
+        record["store"] = store
+        return store, reason
+
+    with patched(state_mod, "quantize_rows", quantize) as real_q, \
+            patched(state_mod.ClientStateStore, "_quantize_for",
+                    quantize_for) as real_for, \
+            patched(async_loop, "_resolve_store", resolve) as real_resolve:
+        yield
+
+
+def check_quantization(record, error_feedback: bool):
+    """Every row the q8 store quantized, held to the numpy oracle
+    exactly: the rows the quantizer was given are the global row plus
+    the client's last residual (or the row alone); its int8 rows and
+    meta equal ``quantize_rows_ref`` of them; the card's dequantized
+    rows equal ``dequantize_rows_ref``; each kept residual is ``x -
+    dq(q(x))`` of the oracle.  Then the store's buffers, ``gather`` and
+    ``gather_one`` at the end of the run against the last write of each
+    client."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ops import dequantize_rows
+    from repro_torch.kernels.ref import dequantize_rows_ref, quantize_rows_ref
+    from repro_torch.tree import tree_leaves
+    store = record["store"]
+    segs = store._fsegs
+    if not record["calls"] or store.quant_bits != 8:
+        fail(f"the q8 run quantized nothing ({len(record['calls'])} calls)")
+    if store.error_feedback is not error_feedback:
+        fail(f"store.error_feedback is {store.error_feedback}")
+    prev, last = {}, {}
+    rows = 0
+    for call in record["calls"]:
+        x = call["x"]
+        for j, c in enumerate(call["ids"]):
+            want = call["frow"] + prev[c] if c in prev else call["frow"]
+            if not np.array_equal(x[j], want):
+                fail(f"client {c}: the quantizer was not given row + "
+                     f"residual")
+        qr, mr = quantize_rows_ref(x, segs)
+        if not (np.array_equal(call["q"], qr)
+                and np.array_equal(call["m"], mr)):
+            fail(f"q8 rows of clients {call['ids']} differ from the oracle")
+        dqr = dequantize_rows_ref(qr, mr, segs)
+        dq = _host(dequantize_rows(torch.from_numpy(call["q"]).cuda(),
+                                   torch.from_numpy(call["m"]).cuda(),
+                                   segs))
+        if not np.array_equal(dq, dqr):
+            fail("the card's dequantized rows differ from the oracle")
+        for j, c in enumerate(call["ids"]):
+            r = call["ef"][j]
+            if error_feedback:
+                if r is None or not np.array_equal(r, x[j] - dqr[j]):
+                    fail(f"client {c}: residual != x - dq(q(x))")
+                prev[c] = r
+            elif r is not None:
+                fail(f"client {c}: a residual kept with EF off")
+            last[c] = (qr[j], mr[j], dqr[j])
+        rows += len(call["ids"])
+    qbuf, mbuf = _host(store.bufs[0]), _host(store.bufs[1])
+    ids = sorted(last)
+    stacked = store.gather(ids)
+    flat = torch.cat([l.reshape(len(ids), -1).float()
+                      for l in tree_leaves(stacked)], 1)
+    flat = _host(flat)
+    for i, c in enumerate(ids):
+        q, m, dq = last[c]
+        one = _host(store.flatten(store.gather_one(c)))
+        if not (np.array_equal(qbuf[c], q) and np.array_equal(mbuf[c], m)
+                and np.array_equal(one, dq) and np.array_equal(flat[i], dq)):
+            fail(f"client {c}: the store's row differs from its last write")
+    return {"quantize_calls": len(record["calls"]), "rows_checked": rows,
+            "clients_checked": len(ids), "oracle_exact": True}
+
+
+def q8_convergence():
+    """The reference's q8 convergence gate on its own task, on the card:
+    f32 store, int8 + EF and int8 without EF; int8 + EF's best accuracy
+    within ``Q8_ACC_ATOL`` of f32's, trajectories that differ (the rows
+    are quantized, EF is live) and fewer uplink bytes."""
+    from repro_torch.config import get_arch
+    from repro_torch.config.base import FLConfig
+    from repro_torch.fl.client import CNNTrainer
+    from repro_torch.fl.network import WirelessNetwork
+    from repro_torch.runtime.async_loop import run_feddct_async
+    fl = FLConfig(**Q8_TASK)
+    runs = {}
+    for name, kw in (("f32", dict(use_store=True)),
+                     ("q8", dict(quant_bits=8)),
+                     ("q8_no_ef", dict(quant_bits=8,
+                                       error_feedback=False))):
+        zero_counts()
+        trainer = CNNTrainer(get_arch("cnn-mnist").reduced(), fl, "mnist",
+                             scale=0.05)
+        net = WirelessNetwork(fl.n_clients, fl.tier_delay_means,
+                              fl.delay_std, fl.mu, fl.failure_delay, fl.seed)
+        runs[name] = (run_feddct_async(trainer, net, fl, **kw), counts())
+    (h32, _), (h8, c8), (h8n, _) = (runs["f32"], runs["q8"],
+                                    runs["q8_no_ef"])
+    gap = abs(max(h32.accuracy) - max(h8.accuracy))
+    if gap > Q8_ACC_ATOL or h8.accuracy == h32.accuracy \
+            or h8.accuracy == h8n.accuracy \
+            or h8.meta["bytes_up"] >= h32.meta["bytes_up"]:
+        fail(f"q8 convergence on the reference's task: best "
+             f"{max(h8.accuracy)} vs f32 {max(h32.accuracy)}, no-EF "
+             f"{max(h8n.accuracy)}, bytes {h8.meta['bytes_up']} vs "
+             f"{h32.meta['bytes_up']}")
+    if c8["fedagg_fold"] < 1:
+        fail(f"q8 convergence run launched {c8}")
+    return {"config": Q8_TASK, "arch": h8.arch,
+            "best_accuracy": {n: max(h.accuracy) for n, (h, _) in
+                              runs.items()},
+            "final_accuracy": {n: h.accuracy[-1] for n, (h, _) in
+                               runs.items()},
+            "best_acc_gap": gap, "atol": Q8_ACC_ATOL,
+            "bytes_up": {n: h.meta["bytes_up"] for n, (h, _) in
+                         runs.items()},
+            "q8_fold_launches": c8["fedagg_fold"]}
+
+
+def quant_async_path(f32):
+    """``ASYNC_ARGV --quant-bits 8`` traced, with error feedback (twice,
+    the second recorded and held to the oracle) and without it
+    (recorded); ``--quant-bits 32`` against the default; the
+    reference's q8 gates against the f32 run of ``traced_async_path``."""
+    import numpy as np
+    from repro_torch.tree import tree_leaves
+    f32_plain, f32_model, f32_tel = f32
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    q8 = ASYNC_ARGV + ["--quant-bits", "8"]
+    paths = {t: TRACE_DIR / f"q8_{t}.jsonl" for t in ("ef", "ef2", "noef")}
+    a, a_s, a_counts, a_model = _drive(q8 + ["--trace", str(paths["ef"])])
+    rec = {}
+    with recording_quantization(rec):
+        b, _, b_counts, b_model = _drive(
+            q8 + ["--trace", str(paths["ef2"])])
+    if _untraced_json(a) != _untraced_json(b) or not _models_equal(
+            a_model, b_model):
+        fail("two seeded q8 runs differ")
+    ef_check = check_quantization(rec, error_feedback=True)
+    rec.clear()
+    rec_n = {}
+    with recording_quantization(rec_n):
+        c, _, c_counts, _ = _drive(q8 + ["--no-error-feedback", "--trace",
+                                         str(paths["noef"])])
+    noef_check = check_quantization(rec_n, error_feedback=False)
+    rec_n.clear()
+    d, _, _, d_model = _drive(ASYNC_ARGV + ["--quant-bits", "32"])
+    if d.to_json() != f32_plain.to_json() or not _models_equal(
+            d_model, f32_model):
+        fail("--quant-bits 32 differs from the default run")
+    for name, counts_ in (("ef", a_counts), ("ef2", b_counts),
+                          ("noef", c_counts)):
+        if counts_["fedagg_fold"] < 1 or any(
+                n for k, n in counts_.items() if k != "fedagg_fold"):
+            fail(f"q8 {name} run launched {counts_}")
+    traces = [_check_trace(paths[t], "jsonl", ASYNC_SPANS) for t in paths]
+    # the reference's formulas: int8 rows + (scale, snap) f32 a float
+    # leaf; no int32 sidecar in the CNN
+    p = sum(x.numel() for x in a_model)
+    n_leaves = len(a_model)
+    if p != MAIN_P:
+        fail(f"q8 model has {p} parameters")
+    for h, ef in ((a, True), (c, False)):
+        m = h.meta
+        if (m["quant_bits"], m["error_feedback"], m["store_path"]) != (
+                8, ef, "store"):
+            fail(f"q8 meta: {m['quant_bits']} {m['error_feedback']} "
+                 f"{m['store_path']}")
+        if m["wire_bytes_per_update"] != p + 8 * n_leaves:
+            fail(f"wire_bytes_per_update {m['wire_bytes_per_update']}")
+        n_clients = int(q8[q8.index("--clients") + 1])
+        if m["store_bytes_hot"] != n_clients * (p + 8 * n_leaves):
+            fail(f"store_bytes_hot {m['store_bytes_hot']}")
+        if m["bytes_up"] >= f32_plain.meta["bytes_up"]:
+            fail(f"q8 bytes_up {m['bytes_up']} not below f32's")
+    if a.meta["store_bytes_ef"] <= 0 or c.meta["store_bytes_ef"] != 0:
+        fail(f"store_bytes_ef {a.meta['store_bytes_ef']} / "
+             f"{c.meta['store_bytes_ef']}")
+    acc_gap = abs(max(a.accuracy) - max(f32_plain.accuracy))
+    if acc_gap > Q8_ACC_ATOL:
+        fail(f"q8 best accuracy {max(a.accuracy)} is {acc_gap} from "
+             f"f32's {max(f32_plain.accuracy)}")
+    tel = a.meta["telemetry"]
+    task = q8_convergence()
+
+    def cost(t, name):
+        s = t["spans"].get(name, {})
+        return {k: s.get(k) for k in ("count", "total_s", "dev_total_s")}
+
+    split_names = ("store.scatter", "window.gather", "store.merge",
+                   "window.train", "round.select")
+    return {"argv": q8, "accuracy": a.accuracy,
+            "accuracy_no_ef": c.accuracy,
+            "reference_task": task,
+            "f32_accuracy": f32_plain.accuracy, "best_acc_gap": acc_gap,
+            "atol": Q8_ACC_ATOL, "two_runs_identical": True,
+            "quant32_equals_default": True,
+            "ef_oracle": ef_check, "no_ef_oracle": noef_check,
+            "launches": a_counts, "traces": traces,
+            "meta": {k: a.meta[k] for k in (
+                "quant_bits", "error_feedback", "wire_bytes_per_update",
+                "bytes_up", "store_bytes_hot", "store_bytes_cold",
+                "store_bytes_ef", "store_reason")},
+            "f32_meta": {k: f32_plain.meta[k] for k in (
+                "wire_bytes_per_update", "bytes_up", "store_bytes_hot")},
+            "run_s": a_s,
+            "q8_vs_f32": {n: {"q8": cost(tel, n), "f32": cost(f32_tel, n)}
+                          for n in split_names},
+            "warm_split": round_split(read_spans(paths["ef"]))}
 
 
 # ---------------------------------------------------------------------
@@ -2056,6 +2594,12 @@ def main() -> int:
     async_summary, fold_launches, fold_calls = async_path()
     emit({"phase": "async_path", **async_summary})
 
+    emit({"phase": "traced_main_path", "card": card, **traced_main_path()})
+    traced_async, f32_async = traced_async_path()
+    emit({"phase": "traced_async_path", "card": card, **traced_async})
+    quant = quant_async_path(f32_async)
+    emit({"phase": "quant_async_path", "card": card, **quant})
+
     mesh_summary, mesh_counts, partial_calls = mesh_path(summary_hist)
     emit({"phase": "mesh_path", **mesh_summary})
     emit({"phase": "mesh_async_path", **mesh_async_path()})
@@ -2132,6 +2676,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/fedagg.cu",
         "replaces": "src/repro/kernels/fedagg.py:102",
         "launches": fold_launches,
+        "q8_path_launches": quant["launches"]["fedagg_fold"],
         "max_abs_err": max(t["max_abs_err"]
                            for t in fold_seen + [fold_at_k]),
         "shape": [fold_widest["k"], fold_widest["p"]],

@@ -28,7 +28,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from repro_torch import obs
 from repro_torch.config.base import FLConfig
 from repro_torch.core.aggregation import staleness_merge
 from repro_torch.core.engine import (make_engine, mesh_devices,
@@ -36,6 +35,7 @@ from repro_torch.core.engine import (make_engine, mesh_devices,
 from repro_torch.core.tiering import evaluate_client, tiering
 from repro_torch.fl.metrics import RunHistory
 from repro_torch.obs import flstats
+from repro_torch.obs import telemetry as obs
 from repro_torch.tree import tree_map
 
 
@@ -232,7 +232,8 @@ def run_fedasync(trainer, network, fl: FLConfig, *, engine: str = "batched",
                  verbose: bool = False, eval_every: int = 5,
                  window: int = 0, window_secs: float = 0.0, mesh=None,
                  use_store=None, store_capacity=None, store_cold_dir=None,
-                 quant_bits: int = 32) -> RunHistory:
+                 quant_bits: int = 32,
+                 error_feedback: bool = True) -> RunHistory:
     """FedAsync on the event-driven runtime.
 
     ``window=0`` (default) reproduces the sequential one-merge-per-event
@@ -251,7 +252,8 @@ def run_fedasync(trainer, network, fl: FLConfig, *, engine: str = "batched",
                        eval_every=eval_every, verbose=verbose, mesh=mesh,
                        use_store=use_store, store_capacity=store_capacity,
                        store_cold_dir=store_cold_dir,
-                       quant_bits=quant_bits).run()
+                       quant_bits=quant_bits,
+                       error_feedback=error_feedback).run()
 
 
 def run_fedbuff(trainer, network, fl: FLConfig, *, engine: str = "batched",
@@ -259,7 +261,8 @@ def run_fedbuff(trainer, network, fl: FLConfig, *, engine: str = "batched",
                 eval_every: int = 5, window: int = 0,
                 window_secs: float = 0.0, mesh=None, use_store=None,
                 store_capacity=None, store_cold_dir=None,
-                quant_bits: int = 32) -> RunHistory:
+                quant_bits: int = 32,
+                error_feedback: bool = True) -> RunHistory:
     """FedBuff [Nguyen'22]: async with a K-completion aggregation goal
     (default K = fl.tau, the sync methods' per-round cohort size)."""
     from repro_torch.runtime.async_loop import AsyncRunner
@@ -269,7 +272,8 @@ def run_fedbuff(trainer, network, fl: FLConfig, *, engine: str = "batched",
                        eval_every=eval_every, verbose=verbose, mesh=mesh,
                        use_store=use_store, store_capacity=store_capacity,
                        store_cold_dir=store_cold_dir,
-                       quant_bits=quant_bits).run()
+                       quant_bits=quant_bits,
+                       error_feedback=error_feedback).run()
 
 
 def run_feddct_async(trainer, network, fl: FLConfig, **kw) -> RunHistory:

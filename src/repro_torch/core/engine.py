@@ -26,12 +26,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import obs
 from repro_torch.core.aggregation import (aggregate_or_keep,
                                           staleness_merge_coefficients,
                                           staleness_weighted_merge,
                                           weighted_average_stacked)
 from repro_torch.obs import flstats
+from repro_torch.obs import telemetry as obs
 from repro_torch.tree import tree_map, tree_stack
 
 

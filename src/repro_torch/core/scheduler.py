@@ -29,7 +29,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from repro_torch import obs
 from repro_torch.config.base import FLConfig
 from repro_torch.core.engine import (make_engine, mesh_devices,
                                      resolve_kernel_agg)
@@ -37,6 +36,7 @@ from repro_torch.core.selection import cstt
 from repro_torch.core.tiering import evaluate_client, tiering, update_avg_time
 from repro_torch.fl.metrics import RunHistory
 from repro_torch.obs import flstats
+from repro_torch.obs import telemetry as obs
 
 
 def run_feddct(trainer, network, fl: FLConfig, *,

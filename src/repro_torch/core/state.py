@@ -43,8 +43,25 @@ waits for the multi-GPU work (ROADMAP queue 1, item 15); the window
 merge stays ``merge_scatter``'s (kernel ``fedagg_fold``), as in the
 reference, while the cohort's training is sharded by the engine.
 
-The reference's int8 rows (``quant_bits=8``) and tiered residency come
-with later slices.
+Quantized rows (``quant_bits=8``): the float segment is stored as a
+shifted-scale int8 ``(rows, Pf)`` buffer plus a per-leaf f32
+scale/snap meta ``(rows, 2L)`` for L float leaves, beside the int32
+sidecar.  Writes quantize inside ``scatter``/``scatter_params``/
+``merge_scatter`` and reads dequantize inside ``gather``/``gather_one``
+(``kernels/ops.py: quantize_rows``, ``dequantize_segment``: plain
+PyTorch, op for op the reference's, each op its own eager kernel, so
+no ``a*b + c`` is contracted and the bits equal the numpy oracle
+``kernels/ref.py``).  Only cohort-sized ``(K, Pf)`` blocks ever exist
+in f32.  **Error feedback** (on by default) keeps each written
+client's quantization residual ``x - dq(q(x))`` — a sparse dict of
+``(Pf,)`` f32 tensors on the store's device, so no write reads a
+tensor back — and adds it to the client's next row before that row is
+quantized, which makes the stored snapshot unbiased over successive
+writes.  It models state a deployment keeps at the client, so
+``bytes_by_tier()`` reports it apart (``"ef"``).  ``quant_bits=32``
+(the default) is the f32 path above, unchanged; quantized runs are
+seeded-deterministic but differ from f32 runs by a gated amount.
+Tiered residency comes with a later slice.
 """
 
 from __future__ import annotations
@@ -54,9 +71,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch import obs
 from repro_torch.core.aggregation import _merge_folded
-from repro_torch.kernels.ops import fedagg_fold_pytree, tree_spec
+from repro_torch.kernels.ops import (dequantize_rows, dequantize_segment,
+                                     fedagg_fold_pytree, quantize_rows,
+                                     tree_spec)
+from repro_torch.obs import telemetry as obs
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 _FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -138,6 +157,29 @@ def _from_stacked_rows(frows, irows, treedef, entries):
     return tree_unflatten(treedef, outs)
 
 
+def _float_segs(entries):
+    """Tuple of (offset, size) float-segment views in row order — the
+    per-leaf layout ``quantize_rows``/``dequantize_segment`` slice."""
+    return tuple((off, size) for kind, off, size, _, _ in entries
+                 if kind == "f")
+
+
+def _from_quant_rows(qrows, mrows, irows, lead, treedef, entries, fsegs):
+    """Quantized row blocks -> tree.  Float leaves dequantize straight
+    into their leaf shapes (``dequantize_segment`` per leaf — no full
+    f32 row is ever concatenated); sidecar leaves as in the f32 path."""
+    outs, j = [], 0
+    for kind, off, size, shape, dtype in entries:
+        if kind == "f":
+            x = dequantize_segment(qrows, mrows, fsegs, j)
+            outs.append(x.reshape(lead + tuple(shape)).to(dtype))
+            j += 1
+        else:
+            outs.append(_leaf_from(irows, off, size, lead, kind, shape,
+                                   dtype))
+    return tree_unflatten(treedef, outs)
+
+
 class ClientStateStore:
     """All N client model snapshots as one device-resident (N, Pf) f32
     buffer plus an (N, Pi) int32 sidecar for non-float leaves.  One
@@ -145,13 +187,10 @@ class ClientStateStore:
     the module docstring)."""
 
     def __init__(self, template_params, n_clients: int, *, mesh=None,
-                 quant_bits: int = 32):
+                 quant_bits: int = 32, error_feedback: bool = True):
         if n_clients < 1:
             raise ValueError(f"need at least one client, got {n_clients}")
-        if int(quant_bits) == 8:
-            raise NotImplementedError(
-                "quant_bits=8 (int8 client rows): ported in a later slice")
-        if int(quant_bits) != 32:
+        if int(quant_bits) not in (8, 32):
             raise ValueError(
                 f"quant_bits must be 8 or 32, got {quant_bits}")
         treedef, spec, _ = tree_spec(template_params)
@@ -160,14 +199,34 @@ class ClientStateStore:
         self.n = int(n_clients)
         self.mesh = mesh if (mesh is not None and int(mesh.size) > 1) \
             else None
+        self.quant_bits = int(quant_bits)
+        if self.quant_bits == 8:
+            if self.mesh is not None:
+                raise ValueError("quant_bits=8 does not compose with a "
+                                 "sharded client mesh yet")
+            if self.p == 0:
+                raise ValueError("quant_bits=8 needs at least one float "
+                                 "leaf to quantize")
+        self._fsegs = _float_segs(self.entries) \
+            if self.quant_bits == 8 else None
+        # error feedback only means anything when quantizing; the
+        # residual of an exact f32 write is identically zero
+        self.error_feedback = bool(error_feedback) and self.quant_bits == 8
+        # client id -> (Pf,) f32 quantization residual on the store's
+        # device, sparse (only clients that have been written)
+        self._ef = {}
         self.rows = self._buffer_rows()
-        self.quant_bits = 32
-        self.error_feedback = False
         self.residency = "dense"
         self.device = tree_leaves(template_params)[0].device
         frow, irow = self._flatten(template_params)
-        self.bufs = (frow.unsqueeze(0).repeat(self.rows, 1),
-                     irow.unsqueeze(0).repeat(self.rows, 1))
+        if self.quant_bits == 8:
+            qrow, mrow = quantize_rows(frow.unsqueeze(0), self._fsegs)
+            self.bufs = (qrow.repeat(self.rows, 1),
+                         mrow.repeat(self.rows, 1),
+                         irow.unsqueeze(0).repeat(self.rows, 1))
+        else:
+            self.bufs = (frow.unsqueeze(0).repeat(self.rows, 1),
+                         irow.unsqueeze(0).repeat(self.rows, 1))
 
     def _buffer_rows(self) -> int:
         """Height of the row buffer: ``n``, or the client-mesh plan's
@@ -202,27 +261,57 @@ class ClientStateStore:
     def _flatten(self, params):
         return _to_rows(params, self.entries, self.device)
 
+    # -- error-feedback residuals ---------------------------------------
+    def _ef_block(self, ids):
+        """(K, Pf) residual block for ``ids`` row-aligned with the
+        scatter: each written client's last residual, zeros for clients
+        never written (and everywhere when EF is off)."""
+        zero = torch.zeros((self.p,), dtype=torch.float32,
+                           device=self.device)
+        if not self.error_feedback or not self._ef:
+            return zero.expand(len(ids), self.p)
+        return torch.stack([self._ef.get(int(c), zero) for c in ids])
+
+    def _ef_update(self, ids, new_ef):
+        """Keep the (K, Pf) residuals the quantizing scatter produced,
+        one copied row a client (no view keeps the block alive)."""
+        if not self.error_feedback:
+            return
+        for j, c in enumerate(ids):
+            self._ef[int(c)] = new_ef[j].clone()
+
+    def ef_residual(self, client_id: int):
+        """One client's current (Pf,) quantization residual, or None if
+        that client has never been written (or EF is off)."""
+        return self._ef.get(int(client_id))
+
     # -- byte accounting ------------------------------------------------
     @property
     def wire_bytes_per_update(self) -> int:
-        """Modeled uplink bytes of ONE client update in this store's row
-        format: full-width f32 + int32 sidecar."""
+        """Modeled uplink bytes of ONE client update in this store's
+        row format: int8 segment + f32 scale/snap meta + int32 sidecar
+        when quantized, full-width f32 + sidecar otherwise."""
+        if self.quant_bits == 8:
+            return self.p + 8 * len(self._fsegs) + 4 * self.pi
         return 4 * self.p + 4 * self.pi
 
     def bytes_by_tier(self):
         """{"hot": device row bytes, "cold": spilled row bytes, "ef":
-        error-feedback residual bytes} — a dense f32 store has only the
-        first."""
+        error-feedback residual bytes} — ``ef`` is reported apart
+        because it models client-side state, not store rows.  A dense
+        store has no cold rows.  Also refreshes the
+        ``store.bytes_hot``/``store.bytes_cold`` gauges."""
         hot = int(sum(b.numel() * b.element_size() for b in self.bufs))
         obs.TEL.gauge("store.bytes_hot", hot)
         obs.TEL.gauge("store.bytes_cold", 0)
-        return {"hot": hot, "cold": 0, "ef": 0}
+        return {"hot": hot, "cold": 0, "ef": 4 * self.p * len(self._ef)}
 
     # -- flat <-> tree views --------------------------------------------
     @property
     def buffer(self):
-        """The (rows, Pf) f32 row buffer.  Read-only by convention — do
-        not hold a view across scatter/merge_scatter."""
+        """The primary (rows, Pf) row buffer — f32, or int8 when
+        ``quant_bits=8``.  Read-only by convention — do not hold a view
+        across scatter/merge_scatter."""
         return self.bufs[0]
 
     @property
@@ -247,8 +336,15 @@ class ClientStateStore:
     def gather(self, ids: Sequence[int]):
         """-> stacked start-params tree, leaves (len(ids), ...), a copy
         of the rows (the same window scatters into them later).
-        Duplicate ids are fine (padded slots repeat the last client)."""
+        Duplicate ids are fine (padded slots repeat the last client).
+        A quantized store dequantizes the gathered rows."""
         idx = self._ids(ids)
+        if self.quant_bits == 8:
+            qbuf, mbuf, ibuf = self.bufs
+            return _from_quant_rows(
+                qbuf.index_select(0, idx), mbuf.index_select(0, idx),
+                ibuf.index_select(0, idx), (len(ids),), self.treedef,
+                self.entries, self._fsegs)
         fbuf, ibuf = self.bufs
         return _from_stacked_rows(fbuf.index_select(0, idx),
                                   ibuf.index_select(0, idx),
@@ -256,25 +352,52 @@ class ClientStateStore:
 
     def gather_one(self, client_id: int):
         """-> one client's snapshot as a model tree (a copy)."""
-        fbuf, ibuf = self.bufs
         c = int(client_id)
+        if self.quant_bits == 8:
+            qbuf, mbuf, ibuf = self.bufs
+            return _from_quant_rows(qbuf[c], mbuf[c], ibuf[c].clone(), (),
+                                    self.treedef, self.entries,
+                                    self._fsegs)
+        fbuf, ibuf = self.bufs
         return _from_rows(fbuf[c].clone(), ibuf[c].clone(), self.treedef,
                           self.entries)
+
+    def _quantize_for(self, ids: Sequence[int], frow):
+        """Quantize one global row per target client, its
+        error-feedback residual added back first, and keep the fresh
+        residual ``x - dq(q(x))``; returns the (K,) int8/meta row
+        blocks to write.  The residual is an eager subtract of an eager
+        product: nothing is FMA-contracted."""
+        x = frow.unsqueeze(0) + self._ef_block(ids)
+        qrows, mrows = quantize_rows(x, self._fsegs)
+        if self.error_feedback:
+            self._ef_update(ids, x - dequantize_rows(qrows, mrows,
+                                                     self._fsegs))
+        return qrows, mrows
 
     def scatter(self, ids: Sequence[int], flat_global):
         """Write one flat global row into every ``ids`` slot in place.
         Duplicate ids write the same row once (the ids are made
-        unique first, so no write order is left to the device)."""
+        unique first, so no write order is left to the device); a
+        quantized store quantizes the row for each client."""
         frow, irow = self._rows_of(flat_global)
-        idx = self._ids(sorted({int(c) for c in ids}))
-        fbuf, ibuf = self.bufs
-        fbuf[idx] = frow
+        uniq = sorted({int(c) for c in ids})
+        idx = self._ids(uniq)
+        if self.quant_bits == 8:
+            qbuf, mbuf, ibuf = self.bufs
+            qrows, mrows = self._quantize_for(uniq, frow)
+            qbuf[idx] = qrows
+            mbuf[idx] = mrows
+        else:
+            fbuf, ibuf = self.bufs
+            fbuf[idx] = frow
         if self.pi:
             ibuf[idx] = irow
 
     def scatter_params(self, ids: Sequence[int], params):
         """Flatten ``params`` and scatter it into ``ids``; returns the
-        flat row for callers tracking the current global row."""
+        flat row for callers tracking the current global row (always
+        the exact f32 row — quantization is internal to the buffers)."""
         frow, irow = self._flatten(params)
         self.scatter(ids, self._row_value(frow, irow))
         return self._row_value(frow, irow)

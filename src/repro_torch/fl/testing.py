@@ -7,7 +7,9 @@ the loop, so harnesses can exercise the scheduler, engine, runtime and
 store paths and hold whole histories against the reference's: its
 arithmetic is elementwise adds, which agree to the last bit.
 ``local_train_cohort`` takes the distributed engine's ``wrap=`` hook,
-so the client-mesh path runs it sharded.
+so the client-mesh path runs it sharded.  Like every entry point of the
+port it runs on the CUDA device (and raises without one) unless it is
+given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -37,12 +40,12 @@ class SyntheticCohortTrainer:
 
     def __init__(self, leaf_specs: Optional[Dict] = None, *,
                  arch_id: str = "synthetic", d_client: float = 0.01,
-                 d_seed: float = 0.001, seed_mod: int = 7, device="cpu"):
+                 d_seed: float = 0.001, seed_mod: int = 7, device=None):
         self.leaf_specs = dict(leaf_specs or self.DEFAULT_SPECS)
         self.cfg = SimpleNamespace(arch_id=arch_id)
         self.d_client, self.d_seed = float(d_client), float(d_seed)
         self.seed_mod = int(seed_mod)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     @classmethod
     def many_leaf(cls, n_leaves: int = 24, leaf: int = 256,

@@ -5,7 +5,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 of the checkout, at first use, and loaded with ``ctypes``.  The digest
 is of the source text, so an edited source never meets a stale
 library.  Sources that are asked for together are compiled together,
-one ``nvcc`` process each.
+one ``nvcc`` process each.  While tracing is on, every source built
+adds one to the ``kernel.builds`` counter and its seconds to the
+``kernel.build_s`` histogram (the port's counterpart of a backend
+compile); a build that finds its library recorded nothing.
 """
 
 from __future__ import annotations
@@ -16,7 +19,10 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from time import perf_counter
 from typing import Dict, Sequence
+
+from repro_torch.obs import telemetry as obs
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -54,6 +60,7 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
     if missing:
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = perf_counter()
         procs = []
         for n in missing:
             tmp = targets[n].with_suffix(f".{os.getpid()}.tmp")
@@ -70,6 +77,10 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, targets[n])   # atomic: never a half file
+                tel = obs.TEL
+                if tel.enabled:
+                    tel.inc("kernel.builds")
+                    tel.observe("kernel.build_s", perf_counter() - t0)
         if failures:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return targets

@@ -11,6 +11,11 @@ fedagg kernel in one pass, and split back — instead of one launch per
 leaf.  ``fedagg_fold_pytree`` is its async-window twin over the folded
 merge kernel.  ``fedagg_partial_op`` is one client-mesh shard's
 unnormalised partial sum (``distributed/aggregate.py``).
+
+``quantize_rows`` / ``dequantize_rows`` / ``dequantize_segment`` are the
+client-state store's int8 row views (``quant_bits=8``).  They are plain
+PyTorch, op for op the reference's, not kernels: the reference writes
+them in jnp, not Pallas.
 """
 
 from __future__ import annotations
@@ -132,6 +137,77 @@ def flatten_params_row(params):
     leading client axis) — the global-row companion of the stacked
     (N, P) buffer."""
     return torch.cat([l.reshape(-1).float() for l in tree_leaves(params)])
+
+
+# ---------------------------------------------------------------------------
+# Quantized row views: shifted-scale int8 segments with fused scales
+# ---------------------------------------------------------------------------
+
+# int8 grid radius and range divisor.  253 steps (not 254) leave half a
+# step of slack on each side of the value range, so snapping the
+# zero-point onto the quantization grid can never push a rounded index
+# past +/-127 — the round-trip error bound |x - dq(q(x))| <= scale/2
+# holds without the clip ever truncating an in-range value.
+QUANT_QMAX = 127.0
+QUANT_STEPS = 253.0
+# 1/253 as the f32 the reference multiplies by, held in a Python float
+# (exactly that f32 value): f32 * f32 is exact in f64, so the product
+# rounds to the same f32 whichever precision the scalar op runs in
+_INV_STEPS = float(np.float32(1.0 / QUANT_STEPS))
+
+
+def quantize_rows(frows, segs):
+    """f32 rows -> (int8 rows, per-segment scale/snap meta).
+
+    ``frows`` is (..., Pf) f32; ``segs`` a tuple of ``(offset, size)``
+    float-segment views covering the row (the store's per-leaf layout).
+    Returns ``(qrows (..., Pf) int8, meta (..., 2L) f32)`` with
+    ``meta[..., j]`` = scale and ``meta[..., L+j]`` = the snap index of
+    segment ``j`` (the zero-point in grid steps, ``zp = scale * snap``).
+
+    Per (row, segment): ``scale = range * f32(1/253)`` (a reciprocal
+    multiply, as the reference spells it), ``snap = round((lo + hi) /
+    (2 * scale))`` and ``q = clip(round((x - zp) / scale), ±127)``, true
+    divisions both.  ``torch.round`` rounds half to even, as XLA's and
+    numpy's do.  Constant segments (range 0) take scale 1 and snap =
+    the value: an exact round trip.  Every op is its own eager kernel,
+    so no product is contracted into an FMA with the add or subtract
+    that follows it (``zp`` is materialised before ``x - zp``): the
+    bits equal the numpy oracle ``ref.quantize_rows_ref`` exactly.
+    """
+    qs, scales, snaps = [], [], []
+    for off, size in segs:
+        x = frows[..., off:off + size]
+        lo, hi = x.amin(dim=-1), x.amax(dim=-1)
+        rng = hi - lo
+        flat0 = rng <= 0.0
+        scale = torch.where(flat0, 1.0, rng * _INV_STEPS)
+        snap = torch.where(flat0, lo, torch.round((lo + hi) / (2.0 * scale)))
+        zp = scale * snap
+        q = torch.clamp(torch.round((x - zp[..., None]) / scale[..., None]),
+                        -QUANT_QMAX, QUANT_QMAX).to(torch.int8)
+        qs.append(q)
+        scales.append(scale)
+        snaps.append(snap)
+    return torch.cat(qs, dim=-1), torch.stack(scales + snaps, dim=-1)
+
+
+def dequantize_rows(qrows, meta, segs):
+    """Inverse row view of ``quantize_rows``: (..., Pf) int8 rows plus
+    (..., 2L) scale/snap meta -> (..., Pf) f32 rows, ``(q + snap) *
+    scale`` per segment.  The add and the multiply are two eager
+    kernels, so nothing can contract them into an FMA."""
+    return torch.cat([dequantize_segment(qrows, meta, segs, j)
+                      for j in range(len(segs))], dim=-1)
+
+
+def dequantize_segment(qrows, meta, segs, j):
+    """One segment's dequantized f32 view (``segs[j]`` of ``qrows``) —
+    the per-leaf form the store's gather reshapes straight into leaf
+    shapes, skipping the full-row concat."""
+    off, size = segs[j]
+    q = qrows[..., off:off + size].float()
+    return (q + meta[..., len(segs) + j, None]) * meta[..., j, None]
 
 
 def fedagg_fold_op(updates, g, coef):

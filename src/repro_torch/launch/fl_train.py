@@ -19,7 +19,9 @@ it clamps to the devices there are.  On a CUDA device the round's
 aggregation and the async window merge go through the hand-written
 fedagg kernels by default (``--no-kernel-agg`` selects the per-leaf
 path; with a mesh, each shard's partial sum is kernel
-``fedagg_partial``).  The
+``fedagg_partial``).  ``--quant-bits 8`` keeps the async methods'
+client rows as int8 with error feedback; ``--trace PATH`` /
+``--report`` record the run's telemetry (``repro_torch.obs``).  The
 wireless delay/failure model supplies virtual time; f32 products run in
 full precision (no TF32).
 """
@@ -71,6 +73,23 @@ def main(argv=None):
                          "a dict of trees instead of the device-resident "
                          "flat ClientStateStore (reference path, "
                          "bit-identical histories)")
+    ap.add_argument("--hot-rows", type=int, default=0,
+                    help="async methods only: tiered client-state "
+                         "residency with this many device rows (ported "
+                         "in a later slice: raises NotImplementedError)")
+    ap.add_argument("--cold-dir", default=None,
+                    help="with --hot-rows: the disk cold tier (ported in "
+                         "a later slice)")
+    ap.add_argument("--quant-bits", type=int, default=32,
+                    choices=[8, 32],
+                    help="async methods only: client-state row format. "
+                         "32 = the byte-for-byte f32 store path; 8 = "
+                         "int8 quantized rows with per-leaf scales and "
+                         "server-side error feedback (~4x smaller rows "
+                         "and uplink, seeded-deterministic)")
+    ap.add_argument("--no-error-feedback", action="store_true",
+                    help="with --quant-bits 8: drop the per-client "
+                         "error-feedback residuals (ablation)")
     ap.add_argument("--mesh-clients", type=int, default=0,
                     help="shard cohorts over a 1-D client mesh of N "
                          "devices (0 = single-device engine; for N "
@@ -81,6 +100,23 @@ def main(argv=None):
     ap.add_argument("--scale", type=float, default=0.05,
                     help="fraction of the dataset's cardinality to "
                          "synthesize (1.0 = paper-sized)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record runtime telemetry (spans with host and, "
+                         "on the card, device time; counters) and write "
+                         "the trace here; the aggregate also lands in "
+                         "the history's meta['telemetry']")
+    ap.add_argument("--trace-format", default="jsonl",
+                    choices=["jsonl", "chrome"],
+                    help="--trace output format: 'jsonl' = line-delimited "
+                         "event log (repro_torch.obs.validate checks it); "
+                         "'chrome' = trace_event JSON for "
+                         "chrome://tracing / Perfetto")
+    ap.add_argument("--report", nargs="?", const="-", default=None,
+                    metavar="PATH",
+                    help="print the per-tier FL run report after the run "
+                         "(implies tracing even without --trace); with a "
+                         "PATH also write the structured report JSON "
+                         "there (see python -m repro_torch.obs.report)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -107,7 +143,37 @@ def main(argv=None):
     if args.no_store and args.method in ("fedasync", "fedbuff",
                                          "feddct_async"):
         kw["use_store"] = False
-    hist = run_method(args.method, trainer, net, fl, **kw)
+    if args.hot_rows > 0 and args.method in ("fedasync", "fedbuff",
+                                             "feddct_async"):
+        kw["store_capacity"] = args.hot_rows
+        kw["store_cold_dir"] = args.cold_dir
+    if args.quant_bits != 32 and args.method in ("fedasync", "fedbuff",
+                                                 "feddct_async"):
+        kw["quant_bits"] = args.quant_bits
+        kw["error_feedback"] = not args.no_error_feedback
+    if args.trace or args.report is not None:
+        from repro_torch import obs
+        with obs.tracing() as tel:
+            hist = run_method(args.method, trainer, net, fl, **kw)
+        if args.trace:
+            if args.trace_format == "chrome":
+                tel.export_chrome(args.trace)
+            else:
+                tel.export_jsonl(args.trace)
+            print(f"[fl_train] trace ({args.trace_format}) -> {args.trace}")
+        if args.report is not None:
+            import json as _json
+
+            from repro_torch.obs import report as obs_report
+            rep = obs_report.build_report(hist.meta["telemetry"],
+                                          hist.to_json())
+            print(obs_report.format_report(rep, source=args.method))
+            if args.report != "-":
+                with open(args.report, "w") as f:
+                    _json.dump(rep, f, indent=2, sort_keys=True)
+                print(f"[fl_train] report json -> {args.report}")
+    else:
+        hist = run_method(args.method, trainer, net, fl, **kw)
     if hist.accuracy:
         print(f"[fl_train] {args.method} on {args.arch}: "
               f"final acc={hist.accuracy[-1]:.4f} "

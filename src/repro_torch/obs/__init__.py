@@ -1,69 +1,36 @@
-"""Telemetry stub: the no-op surface the sync and async paths call.
+"""Runtime telemetry layer: spans, counters, structured trace export.
 
-The reference's runtime telemetry (``repro/obs/telemetry.py``) and its
-FL-semantic streams (``repro/obs/flstats.py``) are ported in a later
-slice.  Until then the schedulers, the engine and the async runtime
-call this stub, which records nothing and never reads a tensor back:
-``TEL.span(..)`` as a context manager or with ``.start()`` /
-``.end()``, ``TEL.inc``, ``TEL.gauge``, ``TEL.observe``,
-``TEL.set_virtual_time``, ``TEL.summarize_into``, ``TEL.enabled``
-(always ``False``, so guarded recording blocks are skipped) and
-``flstats.record_*``.
+Instrumented modules import the submodule and read the active
+telemetry fresh on every use (zero-overhead-when-disabled contract —
+one attribute lookup on the no-op singleton):
+
+    from repro_torch.obs import telemetry as obs
+    with obs.TEL.span("window.gather", rows=n):
+        ...
+    obs.TEL.inc("residency.demand_promote", k)
+
+Users enable tracing around a run and export afterwards:
+
+    from repro_torch import obs
+    with obs.tracing() as tel:
+        hist = run_method(...)          # meta["telemetry"] is folded in
+    tel.export_chrome("trace.json")     # chrome://tracing / Perfetto
+    tel.export_jsonl("trace.jsonl")     # repro_torch.obs.validate checks
+
+or from the CLI: ``fl_train.py --trace PATH [--trace-format
+jsonl|chrome]``.
+
+FL-semantic labeled streams (per-tier / per-client diagnostics) live in
+``repro_torch.obs.flstats``; ``repro_torch.obs.report`` folds a trace or a
+``RunHistory`` JSON into the paper-Table-2-style per-tier report
+(``python -m repro_torch.obs.report``).  On a CUDA device every span
+also carries its device time (``dev_us``, from CUDA events read back
+only at summary/export time).
 """
 
-from __future__ import annotations
+from repro_torch.obs.telemetry import (NOOP, SCHEMA_VERSION,
+                                       NoopTelemetry, Telemetry, disable,
+                                       enable, tracing)
 
-from types import SimpleNamespace
-
-
-class _NoopSpan:
-    def start(self):
-        return self
-
-    def end(self):
-        return None
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-
-_SPAN = _NoopSpan()
-
-
-class NoopTelemetry:
-    enabled = False
-
-    def span(self, name, **args):
-        return _SPAN
-
-    def inc(self, name, value=1):
-        return None
-
-    def gauge(self, name, value):
-        return None
-
-    def observe(self, name, value):
-        return None
-
-    def set_virtual_time(self, t):
-        return None
-
-    def summarize_into(self, meta):
-        return None
-
-
-TEL = NoopTelemetry()
-
-
-def _noop(*args, **kwargs):
-    return None
-
-
-flstats = SimpleNamespace(record_tiering=_noop, record_selection=_noop,
-                          record_response=_noop, record_straggler=_noop,
-                          record_staleness=_noop,
-                          record_client_updates=_noop,
-                          record_uplink=_noop, record_update_norm=_noop)
+__all__ = ["NOOP", "SCHEMA_VERSION", "NoopTelemetry", "Telemetry",
+           "disable", "enable", "tracing"]

@@ -33,8 +33,9 @@ The window step reads no tensor back: the only readback of a run is
 trains every window's cohort sharded; the dict path's window merge is
 then the sharded reduction (kernel ``fedagg_partial``), the store
 path's stays ``merge_scatter`` (kernel ``fedagg_fold``), as in the
-reference.  The reference's int8 rows and tiered residency come with
-later slices; asking for them raises ``NotImplementedError``.
+reference.  ``quant_bits=8`` keeps the store's rows as int8 with
+error feedback (``core/state.py``).  Tiered residency comes with a
+later slice; asking for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,7 +44,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from repro_torch import obs
 from repro_torch.config.base import FLConfig
 from repro_torch.core.aggregation import staleness_merge
 from repro_torch.core.engine import (make_engine, mesh_devices,
@@ -53,6 +53,7 @@ from repro_torch.core.state import ClientStateStore, wire_bytes
 from repro_torch.core.tiering import evaluate_client, tiering, update_avg_time
 from repro_torch.fl.metrics import RunHistory
 from repro_torch.obs import flstats
+from repro_torch.obs import telemetry as obs
 from repro_torch.runtime.buffer import AggregationBuffer
 from repro_torch.runtime.events import ClientEvent, EventQueue
 from repro_torch.tree import tree_map
@@ -60,7 +61,7 @@ from repro_torch.tree import tree_map
 
 def _resolve_store(params, n_clients: int, mesh, use_store,
                    window_active: bool, capacity=None, cold_dir=None,
-                   quant_bits: int = 32):
+                   quant_bits: int = 32, error_feedback: bool = True):
     """-> ``(ClientStateStore or None, reason)`` applying the store
     policy in one place.  ``None`` store means the dict-of-trees path;
     ``reason`` is a machine-checkable tag recorded on the
@@ -77,24 +78,37 @@ def _resolve_store(params, n_clients: int, mesh, use_store,
       (64-bit leaves) raises ``TypeError`` instead of silently changing
       paths.
 
-    Tiered residency (``capacity``, ``cold_dir``) and int8 rows
-    (``quant_bits=8``) raise ``NotImplementedError`` until their slices.
+    ``quant_bits=8`` selects int8 rows (+ ``error_feedback`` residuals).
+    The quantized format IS the store — the dict path has no rendition
+    of it — so it forces the store on even for a sequential
+    ``window=0`` loop (reason ``"quant-int8"``), and ``use_store=False``
+    raises instead of silently running unquantized.
+
+    Tiered residency (``capacity``, ``cold_dir``) raises
+    ``NotImplementedError`` until its slice.
     """
-    if int(quant_bits) != 32:
-        if int(quant_bits) == 8:
-            raise NotImplementedError(
-                "quant_bits=8 (int8 client rows): ported in a later slice")
+    if int(quant_bits) not in (8, 32):
         raise ValueError(f"quant_bits must be 8 or 32, got {quant_bits}")
     if capacity is not None or cold_dir is not None:
         raise NotImplementedError(
             "tiered client-state residency (store_capacity, "
             "store_cold_dir): ported in a later slice")
+    quant = int(quant_bits) != 32
     if use_store is False:
+        if quant:
+            raise ValueError(
+                "quant_bits=8 lives in the client-state store; it cannot "
+                "combine with use_store=False (the dict path has no "
+                "quantized rows)")
         return None, "forced-off"
+    qkw = dict(quant_bits=quant_bits, error_feedback=error_feedback)
     if use_store is None and not window_active:
+        if quant:
+            return (ClientStateStore(params, n_clients, mesh=mesh, **qkw),
+                    "quant-int8")
         return None, "window0-sequential"
     reason = "forced-on" if use_store is True else "auto-windowed"
-    return ClientStateStore(params, n_clients, mesh=mesh), reason
+    return ClientStateStore(params, n_clients, mesh=mesh, **qkw), reason
 
 
 def _alphas(fl: FLConfig, stalenesses: List[int]) -> List[float]:
@@ -214,7 +228,7 @@ class AsyncRunner:
                  window_secs: float = 0.0, eval_every: int = 5,
                  verbose: bool = False, mesh=None, use_store=None,
                  store_capacity=None, store_cold_dir=None,
-                 quant_bits: int = 32):
+                 quant_bits: int = 32, error_feedback: bool = True):
         self.trainer = trainer
         self.network = network
         self.fl = fl
@@ -232,7 +246,10 @@ class AsyncRunner:
         self.use_store = use_store
         self.store_capacity = store_capacity
         self.store_cold_dir = store_cold_dir
+        # row format: 32 = the f32 path, 8 = int8 rows (+ per-client
+        # error-feedback residuals unless error_feedback=False)
         self.quant_bits = int(quant_bits)
+        self.error_feedback = bool(error_feedback)
         # resolved snapshot-path tag, set by run() and also recorded on
         # the RunHistory meta
         self.store_reason = None
@@ -256,7 +273,7 @@ class AsyncRunner:
             window_active=(self.buffer.window > 0
                            or self.buffer.window_secs > 0),
             capacity=self.store_capacity, cold_dir=self.store_cold_dir,
-            quant_bits=self.quant_bits)
+            quant_bits=self.quant_bits, error_feedback=self.error_feedback)
         # modeled uplink bytes of one merged client update in the run's
         # row format (the store's if one runs, else dense f32)
         wb = (store.wire_bytes_per_update if store is not None
@@ -358,8 +375,8 @@ def run_feddct_async(trainer, network, fl: FLConfig, *,
                      use_kernel_agg: Optional[bool] = None,
                      verbose: bool = False, eval_every: int = 1,
                      mesh=None, use_store=None, store_capacity=None,
-                     store_cold_dir=None,
-                     quant_bits: int = 32) -> RunHistory:
+                     store_cold_dir=None, quant_bits: int = 32,
+                     error_feedback: bool = True) -> RunHistory:
     """Semi-async FedDCT: tier timeouts become aggregation windows.
 
     Per round: dynamic tiering + CSTT selection exactly as the sync
@@ -386,7 +403,8 @@ def run_feddct_async(trainer, network, fl: FLConfig, *,
                                          use_store, window_active=True,
                                          capacity=store_capacity,
                                          cold_dir=store_cold_dir,
-                                         quant_bits=quant_bits)
+                                         quant_bits=quant_bits,
+                                         error_feedback=error_feedback)
     wb = (store.wire_bytes_per_update if store is not None
           else wire_bytes(params, quant_bits))
     hist = RunHistory(method="feddct_async", arch=trainer.cfg.arch_id,

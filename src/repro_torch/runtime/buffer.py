@@ -22,7 +22,7 @@ from __future__ import annotations
 import math
 from typing import List, Optional
 
-from repro_torch import obs
+from repro_torch.obs import telemetry as obs
 from repro_torch.runtime.events import ClientEvent, EventQueue
 
 

@@ -96,8 +96,9 @@ def test_synthetic_histories_equal_the_reference_on_both_paths(
     for use_store in (True, False):
         want = ref_run(RefSynthetic(), _net(WirelessNetwork, ref_fl),
                        ref_fl, use_store=use_store, **kw)
-        got = pt_run(SyntheticCohortTrainer(), _net(PtNetwork, pt_fl),
-                     pt_fl, use_store=use_store, **kw)
+        got = pt_run(SyntheticCohortTrainer(device="cpu"),
+                     _net(PtNetwork, pt_fl), pt_fl, use_store=use_store,
+                     **kw)
         _equal_but_accuracy(got, want)
         runs[use_store] = got
     # in the port, the store path and the dict path agree bit for bit
@@ -150,8 +151,9 @@ def test_int_leaf_template_runs_on_the_store_path():
         runs = {}
         for use_store in (True, False):
             runs[use_store] = pt_baselines.run_fedbuff(
-                _IntLeafTrainer(), _net(PtNetwork, pt_fl), pt_fl, window=2,
-                eval_every=8, use_store=use_store, engine="looped")
+                _IntLeafTrainer(device="cpu"), _net(PtNetwork, pt_fl), pt_fl,
+                window=2, eval_every=8, use_store=use_store,
+                engine="looped")
             want = ref_baselines.run_fedbuff(
                 _RefIntLeafTrainer(), _net(WirelessNetwork, ref_fl), ref_fl,
                 window=2, eval_every=8, use_store=use_store,
@@ -170,12 +172,12 @@ def test_int_leaf_template_runs_on_the_store_path():
 def test_fedasync_window0_equals_the_sequential_loop(seed, engine):
     fl = PtFLConfig(n_clients=6, n_tiers=3, tau=3, rounds=3, seed=seed)
     seq = pt_baselines.run_fedasync_sequential(
-        SyntheticCohortTrainer(), _net(PtNetwork, fl), fl, eval_every=4,
-        engine=engine)
+        SyntheticCohortTrainer(device="cpu"), _net(PtNetwork, fl), fl,
+        eval_every=4, engine=engine)
     for use_store in (None, True):
         hist = pt_baselines.run_fedasync(
-            SyntheticCohortTrainer(), _net(PtNetwork, fl), fl, window=0,
-            eval_every=4, engine=engine, use_store=use_store)
+            SyntheticCohortTrainer(device="cpu"), _net(PtNetwork, fl), fl,
+            window=0, eval_every=4, engine=engine, use_store=use_store)
         for field in ("rounds", "times", "accuracy", "n_selected"):
             assert getattr(hist, field) == getattr(seq, field)
     assert hist.rounds[-1] == fl.rounds * fl.tau        # terminal eval
@@ -190,7 +192,7 @@ def test_store_reason_records_resolved_path():
     fl = PtFLConfig(n_clients=6, tau=2, rounds=2, seed=6)
 
     def run(**kw):
-        return pt_baselines.run_fedasync(SyntheticCohortTrainer(),
+        return pt_baselines.run_fedasync(SyntheticCohortTrainer(device="cpu"),
                                          _net(PtNetwork, fl), fl,
                                          eval_every=8, **kw).meta
 
@@ -206,11 +208,12 @@ def test_store_reason_records_resolved_path():
 
 def test_two_seeded_runs_are_identical_and_windows_batch():
     fl = PtFLConfig(n_clients=6, tau=3, rounds=4, seed=1)
-    runner = AsyncRunner(SyntheticCohortTrainer(), _net(PtNetwork, fl), fl,
-                         window_secs=30.0, eval_every=5)
+    runner = AsyncRunner(SyntheticCohortTrainer(device="cpu"),
+                         _net(PtNetwork, fl), fl, window_secs=30.0,
+                         eval_every=5)
     a = runner.run()
-    b = AsyncRunner(SyntheticCohortTrainer(), _net(PtNetwork, fl), fl,
-                    window_secs=30.0, eval_every=5).run()
+    b = AsyncRunner(SyntheticCohortTrainer(device="cpu"), _net(PtNetwork, fl),
+                    fl, window_secs=30.0, eval_every=5).run()
     assert a.to_json() == b.to_json()
     assert sum(runner.cohort_sizes) == fl.rounds * fl.tau
     assert max(runner.cohort_sizes) > 1
@@ -220,7 +223,8 @@ def test_two_seeded_runs_are_identical_and_windows_batch():
 
 def test_feddct_async_carries_stragglers_instead_of_dropping():
     fl = PtFLConfig(**FEDDCT_FL)
-    hist = run_feddct_async(SyntheticCohortTrainer(), _net(PtNetwork, fl), fl)
+    hist = run_feddct_async(SyntheticCohortTrainer(device="cpu"),
+                            _net(PtNetwork, fl), fl)
     assert hist.rounds == list(range(1, 7))
     assert hist.times == sorted(hist.times)
     assert hist.meta["n_drains"] >= 1

@@ -539,7 +539,7 @@ def test_sharded_engine_loop_only_trainer_falls_back():
 
 
 def test_sharded_engine_caches_one_runner_per_function():
-    tr = SyntheticCohortTrainer()
+    tr = SyntheticCohortTrainer(device="cpu")
     eng = make_engine(tr, mesh=MESH)
     assert eng._trainer_takes_wrap("local_train_cohort")
     assert not eng._trainer_takes_wrap("local_train")
@@ -551,7 +551,7 @@ def test_sharded_engine_caches_one_runner_per_function():
 @pytest.mark.parametrize("n", [1, 3, 6])
 def test_synthetic_cohort_sharded_is_bitwise_the_plain_engine(n):
     """Elementwise training is exact on any split of the rows."""
-    tr = SyntheticCohortTrainer()
+    tr = SyntheticCohortTrainer(device="cpu")
     starts = [tr.init_params(c % 3) for c in range(n)]
     ids, seeds = list(range(n)), [5 * c + 2 for c in range(n)]
     s, s_sizes = make_engine(tr, mesh=MESH).train_cohort(starts, ids, seeds)
@@ -700,8 +700,8 @@ def test_synthetic_sharded_histories_equal_the_reference(method,
     ref_fl, pt_fl = FLConfig(**fl_kw), PtFLConfig(**fl_kw)
     want = ref_run(RefSynthetic(), _net(WirelessNetwork, ref_fl), ref_fl,
                    use_kernel_agg=use_kernel, **kw)
-    got = pt_run(SyntheticCohortTrainer(), _net(PtNetwork, pt_fl), pt_fl,
-                 mesh=MESH, use_kernel_agg=use_kernel, **kw)
+    got = pt_run(SyntheticCohortTrainer(device="cpu"), _net(PtNetwork, pt_fl),
+                 pt_fl, mesh=MESH, use_kernel_agg=use_kernel, **kw)
     assert got.meta["mesh_devices"] == SHARDS
     assert want.meta["mesh_devices"] == 1
     g, w = got.to_json(), want.to_json()
@@ -721,8 +721,9 @@ def test_synthetic_sharded_store_equals_dict(method):
     reassociation, with the same windows."""
     _, pt_run, fl_kw, kw = HISTORIES[method]
     fl = PtFLConfig(**fl_kw)
-    runs = {s: pt_run(SyntheticCohortTrainer(), _net(PtNetwork, fl), fl,
-                      mesh=MESH, use_store=s, **kw) for s in (True, False)}
+    runs = {s: pt_run(SyntheticCohortTrainer(device="cpu"),
+                      _net(PtNetwork, fl), fl, mesh=MESH, use_store=s, **kw)
+            for s in (True, False)}
     assert runs[True].meta["store_path"] == "store"
     assert runs[False].meta["store_path"] == "dict"
     assert runs[True].times == runs[False].times
@@ -787,7 +788,8 @@ def test_meta_records_the_mesh_size(method):
     kw = {"window": 2} if method in ("fedasync", "fedbuff") else {}
     for mesh, want in ((MESH, SHARDS), (ONE_SHARD, 1),
                        (None, 1)):
-        hist = pt_baselines.run_method(method, SyntheticCohortTrainer(),
+        hist = pt_baselines.run_method(method,
+                                       SyntheticCohortTrainer(device="cpu"),
                                        _net(PtNetwork, fl), fl, mesh=mesh,
                                        **kw)
         assert hist.meta["mesh_devices"] == want

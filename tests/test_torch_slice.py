@@ -64,8 +64,8 @@ def test_synthetic_histories_equal_the_reference(method, mu, seed, engine):
     ref_run, pt_run = RUNNERS[method]
     want = ref_run(RefSynthetic(), _net(WirelessNetwork, ref_fl), ref_fl,
                    engine=engine)
-    got = pt_run(SyntheticCohortTrainer(), _net(PtNetwork, pt_fl), pt_fl,
-                 engine=engine)
+    got = pt_run(SyntheticCohortTrainer(device="cpu"), _net(PtNetwork, pt_fl),
+                 pt_fl, engine=engine)
     w, g = want.to_json(), got.to_json()
     acc_w, acc_g = w.pop("accuracy"), g.pop("accuracy")
     assert g == w               # times, rounds, tiers, selections, meta
@@ -77,16 +77,23 @@ def test_run_method_dispatch_and_later_slice_names():
     fl = PtFLConfig(**dict(FL_KW, rounds=2))
     for name in ("feddct", "fedavg", "tifl", "fedprox", "fedasync",
                  "fedbuff", "feddct_async"):
-        hist = pt_baselines.run_method(name, SyntheticCohortTrainer(),
+        hist = pt_baselines.run_method(name,
+                                       SyntheticCohortTrainer(device="cpu"),
                                        _net(PtNetwork, fl), fl)
         assert hist.method == name and hist.accuracy
-    # int8 rows and tiered residency come with later slices
+    # int8 rows run on every async method; tiered residency comes with
+    # a later slice
     for name in ("fedasync", "fedbuff", "feddct_async"):
-        for kw in (dict(quant_bits=8), dict(store_capacity=2)):
-            with pytest.raises(NotImplementedError, match="later slice"):
-                pt_baselines.run_method(name, SyntheticCohortTrainer(),
-                                        _net(PtNetwork, fl), fl,
-                                        use_store=True, **kw)
+        hist = pt_baselines.run_method(name,
+                                       SyntheticCohortTrainer(device="cpu"),
+                                       _net(PtNetwork, fl), fl,
+                                       use_store=True, quant_bits=8)
+        assert hist.meta["quant_bits"] == 8 and hist.accuracy
+        with pytest.raises(NotImplementedError, match="later slice"):
+            pt_baselines.run_method(name,
+                                    SyntheticCohortTrainer(device="cpu"),
+                                    _net(PtNetwork, fl), fl,
+                                    use_store=True, store_capacity=2)
 
 
 _TRAINERS = {}
@@ -200,6 +207,28 @@ def test_cli_raises_without_a_cuda_device():
         fl_train.main(["--rounds", "1", "--clients", "2"])
 
 
+def test_cli_tiered_residency_names_a_later_slice():
+    """``--hot-rows`` (the reference's tiered residency) is parsed as the
+    reference parses it and raises, naming a later slice."""
+    with pytest.raises(NotImplementedError, match="later slice"):
+        fl_train.main(["--method", "fedbuff", "--window", "2", "--rounds",
+                       "1", "--clients", "4", "--tau", "2", "--device",
+                       "cpu", "--scale", "0.005", "--hot-rows", "2"])
+
+
+def test_synthetic_trainer_defaults_to_the_card():
+    """``SyntheticCohortTrainer`` is an entry point like the others: it
+    runs on the CUDA device unless given ``device="cpu"``."""
+    assert SyntheticCohortTrainer(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert SyntheticCohortTrainer().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            SyntheticCohortTrainer()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            SyntheticCohortTrainer.many_leaf(n_leaves=2, leaf=4)
+
+
 # -- the port stands alone ---------------------------------------------
 
 _FORBIDDEN = re.compile(
@@ -215,6 +244,11 @@ def _port_sources():
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     files = _port_sources()
     assert len(files) > 20
+    names = {p.relative_to(ROOT / "src").as_posix() for p in files[:-1]}
+    for mod in ("catalogue", "telemetry", "flstats", "export", "validate",
+                "report", "__init__"):
+        assert f"repro_torch/obs/{mod}.py" in names, mod
+    assert "repro_torch/kernels/ref.py" in names
     for path in files:
         hit = _FORBIDDEN.search(path.read_text())
         assert hit is None, f"{path}: {hit.group(0)!r}"

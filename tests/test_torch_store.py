@@ -123,8 +123,13 @@ def test_store_rejects_leaves_without_exact_carrier(leaf):
 def test_store_rejects_zero_clients_and_later_slice_row_formats():
     with pytest.raises(ValueError):
         ClientStateStore(_pt(_template_np()), 0)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ClientStateStore(_pt(_template_np()), 2, quant_bits=8)
+    # int8 rows are ported: a float template builds a quantized store,
+    # a template with no float leaf has nothing to quantize
+    assert ClientStateStore(_pt(_template_np()), 2,
+                            quant_bits=8).quant_bits == 8
+    with pytest.raises(ValueError):
+        ClientStateStore({"step": torch.zeros((), dtype=torch.int32)}, 2,
+                         quant_bits=8)
     with pytest.raises(ValueError):
         ClientStateStore(_pt(_template_np()), 2, quant_bits=16)
 
@@ -292,7 +297,7 @@ def test_engine_train_window_matches_cohort_plus_merge(use_kernel, engine):
     """The store window (padded to 4 rows, coefficient 0 on the pad)
     reproduces the dict path's train_cohort + merge_staleness bit for
     bit, with the cohort method or the looped fallback."""
-    tr = SyntheticCohortTrainer()
+    tr = SyntheticCohortTrainer(device="cpu")
     g = tr.init_params(0)
     starts = [tr.init_params(i + 1) for i in range(3)]
     ids, seeds = [4, 1, 6], [11, 22, 33]
@@ -312,7 +317,7 @@ def test_engine_train_window_matches_cohort_plus_merge(use_kernel, engine):
 
 
 def test_engine_train_window_empty_cohort_returns_params():
-    tr = SyntheticCohortTrainer()
+    tr = SyntheticCohortTrainer(device="cpu")
     g = tr.init_params(0)
     store = ClientStateStore(g, 4)
     out, row = make_engine(tr).train_window(store, g, [], [], [])
@@ -320,7 +325,8 @@ def test_engine_train_window_empty_cohort_returns_params():
 
 
 def test_train_cohort_matches_per_client_training():
-    tr = SyntheticCohortTrainer.many_leaf(n_leaves=5, leaf=16)
+    tr = SyntheticCohortTrainer.many_leaf(n_leaves=5, leaf=16,
+                                          device="cpu")
     eng = make_engine(tr)
     starts = [tr.init_params(i) for i in range(3)]
     stacked, sizes = eng.train_cohort(starts, [0, 3, 5], [11, 22, 33])
