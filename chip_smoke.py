@@ -20,8 +20,13 @@ consistency run) — then traces the sync and async paths through
 traced == untraced bit for bit, the split of a warm round by span on
 the host and the card, the tracing overhead) and runs the async path
 with int8 client rows (``--quant-bits 8``, with and without error
-feedback; every quantized row held to the numpy oracle exactly) — and
-prints one JSON object per phase.  Each path runs with
+feedback; every quantized row held to the numpy oracle exactly) and
+over tiered client-state residency (``--hot-rows``, ``--cold-dir``:
+hot rows on the card, cold rows in pinned host memory or npz chunks;
+every history, final model and stored row equal to the dense store's,
+randomized store interleavings on the card, and 2,000 full-width
+clients against a dense store's peak memory) — and prints one JSON
+object per phase.  Each path runs with
 every launch count set to 0 just before it and read just after.  Any
 failure exits non-zero; there is no CPU path.  The last line of
 standard output is ``{"ok": true, "device": {"platform": "gpu", "kind":
@@ -298,6 +303,19 @@ def fedagg_times(n: int, p: int):
             "plain_ms": min(plain_a, plain_b), "library_ms": library,
             "read_only_ms": read, "bound_ms": bound, "bound_by": bound_by,
             "max_abs_err": err["max_abs_err"]}
+
+
+def k1_against_library(first, runs: int = 3):
+    """K1 and its one-call yardstick ``eff @ updates`` at the full
+    cohort, ``runs`` times (``first`` is one): whether K1 reads slower
+    than the library call by more than K1's own spread between runs."""
+    rs = [first] + [fedagg_times(MAIN_N, MAIN_P) for _ in range(runs - 1)]
+    k1 = [r["ms"] for r in rs]
+    lib = [r["library_ms"] for r in rs]
+    gap = statistics.median(k1) - statistics.median(lib)
+    spread = max(k1) - min(k1)
+    return {"k1_ms": k1, "library_ms": lib, "median_gap_ms": gap,
+            "k1_spread_ms": spread, "k1_slower_beyond_spread": gap > spread}
 
 
 def fold_bound_ms(coef, p: int):
@@ -1243,6 +1261,515 @@ def quant_async_path(f32):
             "q8_vs_f32": {n: {"q8": cost(tel, n), "f32": cost(f32_tel, n)}
                           for n in split_names},
             "warm_split": round_split(read_spans(paths["ef"]))}
+
+
+# ---------------------------------------------------------------------
+# Tiered client-state residency (core/residency.py) on the card
+# ---------------------------------------------------------------------
+
+# the at-size runs: semi-async FedDCT over 2,000 full-width clients
+# (synthetic MNIST at the paper's 60,000 samples, 30 a client), a hot
+# tier of 8 rows; a dense f32 store would hold 2,000 x 6,520,360 B
+TIER_N = 2000
+TIER_ROUNDS = 6
+TIER_HOT = 8
+TIER_ARGV = ["--arch", "cnn-mnist", "--method", "feddct_async",
+             "--clients", str(TIER_N), "--tiers", "5", "--tau", "5",
+             "--rounds", str(TIER_ROUNDS), "--seed", "0", "--scale", "1.0"]
+# dense - tiered peak device memory (GB) the at-size runs must show:
+# (2,000 - 8) rows are 12.99 GB in f32 and 3.25 GB in int8
+TIER_SAVED_GB = {32: 12.0, 8: 3.0}
+# the on-card interleavings: clients, steps, and a float leaf wide
+# enough (512 KB) that a copy left unordered would be caught mid-flight
+CARD_N = 6
+CARD_STEPS = 40
+CARD_WIDE = 1 << 17
+# spans of a tiered round read beside the dense round's
+TIER_SPANS = ("window.stage", "window.prefetch", "window.gather",
+              "window.train", "store.merge", "store.scatter",
+              "round.select", "residency.promote", "residency.write_behind",
+              "residency.host_gather")
+
+
+def _buff(argv, window: int):
+    return [a if a != "feddct_async" else "fedbuff" for a in argv] + [
+        "--window", str(window)]
+
+
+@contextlib.contextmanager
+def recording_stores(stores):
+    """Every client-state store an async run builds, into ``stores``."""
+    from repro_torch.runtime import async_loop
+
+    def resolve(*a, **kw):
+        store, reason = real(*a, **kw)
+        stores.append(store)
+        return store, reason
+
+    with patched(async_loop, "_resolve_store", resolve) as real:
+        yield
+
+
+def _same_history(a, b) -> bool:
+    """Two histories equal in everything but the snapshot path's keys
+    and the additive telemetry block."""
+    drop = STORE_KEYS | {"telemetry"}
+
+    def js(h):
+        out = h.to_json()
+        out["meta"] = {k: v for k, v in out["meta"].items()
+                       if k not in drop}
+        return out
+
+    return js(a) == js(b)
+
+
+def _trees_equal(a, b) -> bool:
+    import torch
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def check_tiered_store(tiered, dense, capacity: int, cold: str,
+                       block: int = 64):
+    """A tiered store at the end of a run against the dense store of the
+    same run: every client's row served bit for bit (``block`` clients
+    at a time; the cohort-wider-than-capacity path when ``block`` >
+    capacity), the same residuals and residual bytes, at most
+    ``capacity`` residuals on the card and the rest pinned, and the
+    host tier's rows pinned."""
+    import torch
+    from repro_torch.core.residency import TieredClientStateStore
+    if not isinstance(tiered, TieredClientStateStore) or \
+            tiered.residency != f"tiered-{cold}" or tiered.rows != capacity:
+        fail(f"a --hot-rows {capacity} run built {type(tiered).__name__} "
+             f"({getattr(tiered, 'residency', None)}, "
+             f"{getattr(tiered, 'rows', None)} rows)")
+    for lo in range(0, dense.n, block):
+        ids = list(range(lo, min(lo + block, dense.n)))
+        if not _trees_equal(tiered.gather(ids), dense.gather(ids)):
+            fail(f"tiered-{cold} at {capacity} hot rows serves rows "
+                 f"{ids[0]}..{ids[-1]} unlike the dense store")
+    ef_t, ef_d = tiered.bytes_by_tier()["ef"], dense.bytes_by_tier()["ef"]
+    if ef_t != ef_d or len(tiered._ef) > capacity or not all(
+            r.is_cuda for r in tiered._ef.values()) or not all(
+            r.is_pinned() for r in tiered._ef_cold.values()):
+        fail(f"residuals: {len(tiered._ef)} on the card, "
+             f"{len(tiered._ef_cold)} on the host, {ef_t} B vs dense "
+             f"{ef_d} B")
+    for c in dense._ef:
+        if not torch.equal(tiered.ef_residual(c).cuda(),
+                           dense.ef_residual(c)):
+            fail(f"client {c}: its residual differs from the dense store's")
+    # (a zero-width segment, the CNN's empty sidecar, has no memory)
+    if cold == "host" and not all(
+            t.is_pinned() or t.numel() == 0
+            for row in list(tiered.cold._rows.values()) + [tiered.cold._t]
+            for t in row):
+        fail("the host cold tier holds pageable rows")
+    return {"hot_clients": len(tiered.hot_clients),
+            "promoted": tiered.n_promoted, "demoted": tiered.n_demoted,
+            "cold_rows": len(tiered.cold) if cold == "host" else None,
+            "ef_on_card": len(tiered._ef), "ef_on_host": len(tiered._ef_cold),
+            "bytes": tiered.bytes_by_tier()}
+
+
+def check_disk_reload(tiered, dense):
+    """The disk tier flushed and reloaded into a fresh ``DiskColdTier``
+    over the same directory: the fresh tier's rows equal the flushed
+    tier's, and the cold clients' rows equal the dense store's."""
+    import torch
+    from repro_torch.core.residency import DiskColdTier
+    tiered.cold.flush()
+    fresh = DiskColdTier(tiered.cold.dir, tiered.n,
+                         *[b[0] for b in tiered.bufs],
+                         chunk=tiered.cold.chunk)
+    everyone = list(range(tiered.n))
+    got, kept = fresh.read(everyone, "cuda"), tiered.cold.read(everyone,
+                                                               "cuda")
+    if not all(torch.equal(a, b) for a, b in zip(got, kept)):
+        fail("the reloaded disk tier differs from the flushed one")
+    cold = [c for c in everyone if c not in set(tiered.hot_clients)]
+    rows = fresh.read(cold, "cuda")
+    if not _trees_equal(tiered._rows_to_tree(rows, len(cold)),
+                        dense.gather(cold)):
+        fail("the reloaded disk rows differ from the dense store's")
+    return {"files": sorted(f for f in os.listdir(tiered.cold.dir)
+                            if f.endswith(".npz")),
+            "cold_clients_checked": len(cold)}
+
+
+def tiered_parity():
+    """ASYNC_ARGV's semi-async FedDCT and FedBuff (window 4), dense
+    against tiered host (50, 8, 1 hot rows) and disk (8, 1), and int8
+    rows dense against tiered host and disk at 8: histories, final
+    models, fold launches and residual bytes equal; the stores' rows
+    equal; one disk run flushed and reloaded."""
+    import tempfile
+    n = int(ASYNC_ARGV[ASYNC_ARGV.index("--clients") + 1])
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for method, argv in (("feddct_async", ASYNC_ARGV),
+                             ("fedbuff", _buff(ASYNC_ARGV, 4))):
+            for bits, variants in (
+                    (32, [("host", n), ("host", 8), ("host", 1),
+                          ("disk", 8), ("disk", 1)]),
+                    (8, [("host", 8), ("disk", 8)])):
+                quant = ["--quant-bits", "8"] if bits == 8 else []
+                stores = []
+                with recording_stores(stores):
+                    d_hist, d_s, d_counts, d_model = _drive(argv + quant)
+                dense = stores[-1]
+                if d_hist.meta["residency"] != "dense" or \
+                        d_counts["fedagg_fold"] < 1:
+                    fail(f"{method} q{bits} dense: {d_hist.meta['residency']}"
+                         f", {d_counts}")
+                for cold, hot in variants:
+                    extra = ["--hot-rows", str(hot)]
+                    if cold == "disk":
+                        extra += ["--cold-dir",
+                                  os.path.join(tmp, f"{method}{bits}_{hot}")]
+                    stores.clear()
+                    with recording_stores(stores):
+                        hist, run_s, launched, model = _drive(argv + quant
+                                                              + extra)
+                    tag = f"{method} q{bits} tiered-{cold} {hot}"
+                    m = hist.meta
+                    if (m["residency"], m["hot_rows"]) != (f"tiered-{cold}",
+                                                           hot):
+                        fail(f"{tag}: meta {m['residency']} {m['hot_rows']}")
+                    if not _same_history(hist, d_hist) or \
+                            not _models_equal(model, d_model):
+                        fail(f"{tag}: history or final model differs from "
+                             f"the dense run's")
+                    if launched != d_counts:
+                        fail(f"{tag}: launches {launched} vs {d_counts}")
+                    if m["store_bytes_ef"] != d_hist.meta["store_bytes_ef"]:
+                        fail(f"{tag}: store_bytes_ef {m['store_bytes_ef']} "
+                             f"vs {d_hist.meta['store_bytes_ef']}")
+                    store = check_tiered_store(stores[-1], dense, hot, cold)
+                    if method == "feddct_async" and bits == 32 and \
+                            cold == "disk" and hot == 8:
+                        store["reload"] = check_disk_reload(stores[-1],
+                                                            dense)
+                    runs.append({
+                        "method": method, "quant_bits": bits, "cold": cold,
+                        "hot_rows": hot, "fold_launches":
+                            launched["fedagg_fold"],
+                        "s_per_round": run_s / ASYNC_ROUNDS,
+                        "dense_s_per_round": d_s / ASYNC_ROUNDS,
+                        "store_bytes": {k: m[k] for k in (
+                            "store_bytes_hot", "store_bytes_cold",
+                            "store_bytes_ef")},
+                        "store": store})
+                stores.clear()
+    return runs
+
+
+def _card_trees(int_sidecar: bool):
+    """A template and a draw of random trees of its structure on the
+    card, from a seed: a 512 KB f32 leaf, a bf16, an f16 and a scalar
+    leaf; or (int sidecar) the wide leaf, a bf16 leaf and int32, bool
+    and int8 leaves."""
+    import torch
+
+    def draw(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+
+        def normal(*shape):
+            return torch.randn(shape, generator=g, device="cuda")
+
+        def ints(lo, hi, *shape):
+            return torch.randint(lo, hi, shape, generator=g, device="cuda")
+
+        if int_sidecar:
+            return {"w": normal(CARD_WIDE),
+                    "b": normal(4).to(torch.bfloat16),
+                    "step": ints(0, 1000).to(torch.int32),
+                    "mask": ints(0, 2, 5).to(torch.bool),
+                    "i8": ints(-128, 128, 3).to(torch.int8)}
+        return {"w": normal(CARD_WIDE // 2, 2),
+                "b": normal(5).to(torch.bfloat16),
+                "h": normal(3).to(torch.float16), "s": normal()}
+
+    return draw
+
+
+def card_interleaving(capacity: int, int_sidecar: bool, use_kernel: bool,
+                      quant_bits: int):
+    """``tests/test_residency.py``'s randomized interleaving on the card,
+    with prefetch (side-stream copies, right or wrong lookahead, a
+    pinned cohort) among the ops: every value the tiered store serves
+    equals the dense store's bit for bit."""
+    import numpy as np
+    from repro_torch.core.aggregation import staleness_merge_coefficients
+    from repro_torch.core.residency import TieredClientStateStore
+    from repro_torch.core.state import ClientStateStore
+    draw = _card_trees(int_sidecar)
+    tpl = draw(0)
+    dense = ClientStateStore(tpl, CARD_N, quant_bits=quant_bits)
+    tiered = TieredClientStateStore(tpl, CARD_N, capacity=capacity,
+                                    quant_bits=quant_bits)
+    rng = np.random.default_rng(100 + capacity)
+    tag = (f"capacity {capacity}, {'int' if int_sidecar else 'float'}, "
+           f"{'kernel' if use_kernel else 'plain'}, q{quant_bits}")
+    ops = [0] * 5
+    for step in range(CARD_STEPS):
+        op = int(rng.integers(0, 5))
+        ops[op] += 1
+        if op == 0:
+            ids = rng.integers(0, CARD_N, size=rng.integers(1, 7)).tolist()
+            same = _trees_equal(dense.gather(ids), tiered.gather(ids))
+        elif op == 1:
+            ids = rng.choice(CARD_N, size=rng.integers(1, 4),
+                             replace=False).tolist()
+            t = draw(int(rng.integers(1 << 20)))
+            same = _trees_equal(dense.scatter_params(ids, t),
+                                tiered.scatter_params(ids, t))
+        elif op == 2:
+            ids = rng.choice(CARD_N, size=rng.integers(1, 3),
+                             replace=False).tolist()
+            flat = dense.flatten(draw(int(rng.integers(1 << 20))))
+            dense.scatter(ids, flat)
+            tiered.scatter(ids, flat)
+            same = True
+        elif op == 3:
+            k = int(rng.integers(1, 6))
+            ids = rng.choice(CARD_N, size=k, replace=False).tolist()
+            coef = staleness_merge_coefficients(
+                rng.random(k).astype(np.float32))
+            g = draw(int(rng.integers(1 << 20)))
+            na, _ = dense.merge_scatter(ids, dense.gather(ids), coef, g,
+                                        use_kernel=use_kernel)
+            nb, _ = tiered.merge_scatter(ids, tiered.gather(ids), coef, g,
+                                         use_kernel=use_kernel)
+            same = _trees_equal(na, nb)
+        else:
+            tiered.prefetch(rng.integers(0, CARD_N, size=3).tolist(),
+                            keep=rng.integers(0, CARD_N, size=1).tolist())
+            same = True
+        c = int(rng.integers(0, CARD_N))
+        if not same or not _trees_equal(dense.gather_one(c),
+                                        tiered.gather_one(c)):
+            fail(f"on-card interleaving ({tag}) differs from dense at step "
+                 f"{step} (op {op})")
+    everyone = list(range(CARD_N))
+    if not _trees_equal(dense.gather(everyone), tiered.gather(everyone)):
+        fail(f"on-card interleaving ({tag}): final rows differ")
+    if tiered.bytes_by_tier()["ef"] != dense.bytes_by_tier()["ef"] or \
+            len(tiered._ef) > capacity:
+        fail(f"on-card interleaving ({tag}): residuals")
+    if capacity < CARD_N and tiered.n_promoted == 0:
+        fail(f"on-card interleaving ({tag}): nothing was promoted")
+    return {"ops": ops, "promoted": tiered.n_promoted,
+            "demoted": tiered.n_demoted}
+
+
+def card_interleavings():
+    out = {}
+    for bits in (32, 8):
+        for int_sidecar in (False, True):
+            for use_kernel in (False, True):
+                for cap in (CARD_N, CARD_N // 2, 1):
+                    key = (f"q{bits}/{'int' if int_sidecar else 'float'}/"
+                           f"{'kernel' if use_kernel else 'plain'}/{cap}")
+                    out[key] = card_interleaving(cap, int_sidecar,
+                                                 use_kernel, bits)
+    return out
+
+
+def _peak_run(argv):
+    """``_drive`` of ``argv`` with the stores recorded and the card's
+    peak allocated memory read around it."""
+    import gc
+    import torch
+    stores = []
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with recording_stores(stores):
+        out = _drive(argv)
+    peak = torch.cuda.max_memory_allocated()
+    return out, stores[-1], {"before_bytes": before, "peak_bytes": peak}
+
+
+def tiered_at_size():
+    """``TIER_ARGV`` tiered (host tier, ``TIER_HOT`` rows) then dense in
+    one process, f32 and int8 rows, traced; FedBuff (window 4) the same
+    way.  Histories, final models and launches equal; the stores' rows
+    equal; dense - tiered peak device memory at least
+    ``TIER_SAVED_GB``; the residency counters; s/round and, per span,
+    the split of the warm rounds."""
+    from repro_torch.fl import client as fl_client
+    from repro_torch.launch import fl_train
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    built = {}
+
+    def build_once(arch, fl, **kw):
+        # one synthetic MNIST of 60,000 samples serves every run
+        key = (arch, fl, tuple(sorted(kw.items())))
+        if key not in built:
+            built[key] = fl_client.build_fl_clients(arch, fl, **kw)
+        return built[key]
+
+    out = {"argv": TIER_ARGV, "hot_rows": TIER_HOT, "runs": {}}
+    with patched(fl_train, "build_fl_clients", build_once):
+        for name, argv in (("feddct_async", TIER_ARGV),
+                           ("feddct_async_q8",
+                            TIER_ARGV + ["--quant-bits", "8"]),
+                           ("fedbuff", _buff(TIER_ARGV, 4))):
+            res = {}
+            # tiered first: the dense store must not be alive while the
+            # tiered run's peak is read
+            for tag, extra in (("tiered", ["--hot-rows", str(TIER_HOT)]),
+                               ("dense", [])):
+                path = TRACE_DIR / f"tiered_{name}_{tag}.jsonl"
+                run, store, mem = _peak_run(argv + extra
+                                            + ["--trace", str(path)])
+                res[tag] = (*run, store, mem, path)
+            hist, run_s, launched, model, tiered, mem, path = res.pop(
+                "tiered")
+            d_hist, d_s, d_counts, d_model, dense, d_mem, d_path = res.pop(
+                "dense")
+            if hist.meta["residency"] != "tiered-host" or \
+                    d_hist.meta["residency"] != "dense":
+                fail(f"{name}: residency {hist.meta['residency']} / "
+                     f"{d_hist.meta['residency']}")
+            if not _same_history(hist, d_hist) or not _models_equal(
+                    model, d_model) or launched != d_counts:
+                fail(f"{name} at {TIER_N} clients: the tiered history, "
+                     f"final model or launches ({launched} vs {d_counts}) "
+                     f"differ from dense")
+            store = check_tiered_store(tiered, dense, TIER_HOT, "host")
+            del dense, tiered
+            bits = 8 if name.endswith("q8") else 32
+            saved = d_mem["peak_bytes"] - mem["peak_bytes"]
+            floor = TIER_SAVED_GB[bits] if name != "fedbuff" else None
+            if floor is not None and saved < floor * 1e9:
+                fail(f"{name}: dense - tiered peak {saved / 1e9:.3f} GB < "
+                     f"{floor} GB")
+            tel, d_tel = hist.meta["telemetry"], d_hist.meta["telemetry"]
+            row = {
+                "accuracy": hist.accuracy, "launches": launched,
+                "dense_peak_bytes": d_mem["peak_bytes"],
+                "tiered_peak_bytes": mem["peak_bytes"],
+                "before_bytes": [mem["before_bytes"], d_mem["before_bytes"]],
+                "saved_bytes": saved, "saved_gb_floor": floor,
+                "dense_s_per_round": d_s / TIER_ROUNDS,
+                "tiered_s_per_round": run_s / TIER_ROUNDS,
+                "counters": {k: v for k, v in tel["counters"].items()
+                             if k.startswith(("residency.", "lookahead."))},
+                "rates": tel.get("rates", {}),
+                "meta": {k: hist.meta[k] for k in (
+                    "store_bytes_hot", "store_bytes_cold",
+                    "store_bytes_ef", "bytes_up")},
+                "dense_meta": {k: d_hist.meta[k] for k in (
+                    "store_bytes_hot", "store_bytes_ef")},
+                "store": store,
+                "spans": {n: {"tiered": tel["spans"].get(n),
+                              "dense": d_tel["spans"].get(n)}
+                          for n in TIER_SPANS}}
+            if name.startswith("feddct_async"):
+                # rounds 2.. of semi-async FedDCT, split by span
+                split_t = round_split(read_spans(path))
+                split_d = round_split(read_spans(d_path))
+                row["warm_s_per_round"] = {
+                    "tiered": split_t["warm_s_per_round"],
+                    "dense": split_d["warm_s_per_round"]}
+                row["covered"] = split_t["covered"]
+                row["warm_split"] = {n: {"tiered": split_t["spans"].get(n),
+                                         "dense": split_d["spans"].get(n)}
+                                     for n in TIER_SPANS}
+            out["runs"][name] = row
+    built.clear()
+    fd = out["runs"]["feddct_async"]["counters"]
+    fb = out["runs"]["fedbuff"]["counters"]
+    # semi-async FedDCT's lookahead stages every window row before the
+    # window needs it (the tier deadline is known when the window
+    # opens), so its demand promotions are FedBuff's to show
+    if not (fd.get("residency.write_behind", 0) > 0
+            and fd.get("residency.write_around", 0) > 0
+            and fb.get("residency.demand_promote", 0) > 0):
+        fail(f"residency counters at {TIER_N} clients: feddct_async {fd}, "
+             f"fedbuff {fb}")
+    return out
+
+
+def oversubscribed_gather():
+    """``fedbuff --window 4 --hot-rows 2`` traced: windows wider than the
+    hot tier gather from both tiers, and the history equals dense."""
+    argv = _buff(ASYNC_ARGV, 4)
+    d_hist, _, d_counts, d_model = _drive(argv)
+    path = TRACE_DIR / "tiered_oversubscribed.jsonl"
+    hist, _, launched, model = _drive(argv + ["--hot-rows", "2", "--trace",
+                                              str(path)])
+    c = hist.meta["telemetry"]["counters"]
+    if c.get("residency.oversubscribed_gather", 0) < 1:
+        fail(f"fedbuff at 2 hot rows gathered no wide window: {c}")
+    if not _same_history(hist, d_hist) or not _models_equal(
+            model, d_model) or launched != d_counts:
+        fail("fedbuff at 2 hot rows differs from dense")
+    return {"counters": {k: v for k, v in c.items()
+                         if k.startswith("residency.")},
+            "host_gather": hist.meta["telemetry"]["spans"].get(
+                "residency.host_gather")}
+
+
+def pinned_row_ms(p: int, rows: int = 16):
+    """Host milliseconds to allocate one pinned (p,) f32 row: fresh (run
+    before the tiered runs pin any block of this size; all kept, so
+    none is a reuse), then again after freeing them (the caching host
+    allocator's reuse); and to copy a row from the card into pinned
+    memory.  Medians over ``rows``."""
+    import torch
+
+    def alloc(keep):
+        out = []
+        for _ in range(rows):
+            t0 = time.perf_counter()
+            keep.append(torch.empty(p, pin_memory=True))
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    keep = []
+    fresh = alloc(keep)
+    src = torch.ones(p, device="cuda")
+    copy = []
+    for row in keep:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        row.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        copy.append((time.perf_counter() - t0) * 1e3)
+    keep.clear()
+    reused = alloc(keep)
+    return {"row_bytes": 4 * p, "fresh_alloc_ms": statistics.median(fresh),
+            "reused_alloc_ms": statistics.median(reused),
+            "d2h_ms": statistics.median(copy)}
+
+
+def tiered_async_path():
+    pinned = pinned_row_ms(MAIN_P)
+    t0 = time.perf_counter()
+    parity = tiered_parity()
+    t1 = time.perf_counter()
+    card = card_interleavings()
+    t2 = time.perf_counter()
+    wide = oversubscribed_gather()
+    t3 = time.perf_counter()
+    at_size = tiered_at_size()
+    t4 = time.perf_counter()
+    return {"parity": parity, "card_interleavings": card,
+            "oversubscribed": wide, "at_size": at_size,
+            "pinned_row": pinned,
+            "tiered_path_launches":
+                at_size["runs"]["feddct_async"]["launches"]["fedagg_fold"],
+            "seconds": {"parity": t1 - t0, "interleavings": t2 - t1,
+                        "oversubscribed": t3 - t2, "at_size": t4 - t3}}
 
 
 # ---------------------------------------------------------------------
@@ -2599,6 +3126,8 @@ def main() -> int:
     emit({"phase": "traced_async_path", "card": card, **traced_async})
     quant = quant_async_path(f32_async)
     emit({"phase": "quant_async_path", "card": card, **quant})
+    tiered = tiered_async_path()
+    emit({"phase": "tiered_async_path", "card": card, **tiered})
 
     mesh_summary, mesh_counts, partial_calls = mesh_path(summary_hist)
     emit({"phase": "mesh_path", **mesh_summary})
@@ -2619,7 +3148,8 @@ def main() -> int:
     seen = [fedagg_times(n, p)
             for n, p in sorted({(n, p) for n, p, _ in shapes})]
     emit({"phase": "fedagg_times", "card": card,
-          "at_full_cohort_shape": at_main, "at_main_path_shapes": seen})
+          "at_full_cohort_shape": at_main, "at_main_path_shapes": seen,
+          "k1_against_library": k1_against_library(at_main)})
 
     import numpy as np
     from repro_torch.core.aggregation import staleness_merge_coefficients
@@ -2677,6 +3207,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/fedagg.py:102",
         "launches": fold_launches,
         "q8_path_launches": quant["launches"]["fedagg_fold"],
+        "tiered_path_launches": tiered["tiered_path_launches"],
         "max_abs_err": max(t["max_abs_err"]
                            for t in fold_seen + [fold_at_k]),
         "shape": [fold_widest["k"], fold_widest["p"]],

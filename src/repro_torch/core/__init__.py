@@ -9,6 +9,7 @@ from repro_torch.core.baselines import (run_fedasync,
                                         run_fedbuff, run_feddct_async,
                                         run_fedprox, run_method, run_tifl)
 from repro_torch.core.engine import BatchedClientEngine, make_engine
+from repro_torch.core.residency import TieredClientStateStore
 from repro_torch.core.scheduler import run_feddct
 from repro_torch.core.selection import (cstt, move_tier, select_from_tier,
                                         tier_timeouts)
@@ -21,7 +22,8 @@ __all__ = [
     "aggregate_or_keep", "weighted_average", "weighted_average_stacked",
     "staleness_merge", "staleness_merge_coefficients",
     "staleness_weighted_merge",
-    "BatchedClientEngine", "make_engine", "ClientStateStore", "wire_bytes",
+    "BatchedClientEngine", "make_engine", "ClientStateStore",
+    "TieredClientStateStore", "wire_bytes",
     "run_feddct", "run_fedavg", "run_tifl", "run_fedprox", "run_fedasync",
     "run_fedasync_sequential", "run_fedbuff", "run_feddct_async",
     "run_method",

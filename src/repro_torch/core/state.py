@@ -61,7 +61,12 @@ writes.  It models state a deployment keeps at the client, so
 ``bytes_by_tier()`` reports it apart (``"ef"``).  ``quant_bits=32``
 (the default) is the f32 path above, unchanged; quantized runs are
 seeded-deterministic but differ from f32 runs by a gated amount.
-Tiered residency comes with a later slice.
+
+Tiered residency (``core/residency.py: TieredClientStateStore``) keeps
+only some rows here and builds on four hooks: ``_buffer_rows`` (the
+buffer's height), ``_read_rows`` / ``_write_rows`` (raw stored segments
+of buffer rows, copied out and written in place — never re-quantized)
+and ``_cold_nbytes`` (0 here).
 """
 
 from __future__ import annotations
@@ -230,7 +235,8 @@ class ClientStateStore:
 
     def _buffer_rows(self) -> int:
         """Height of the row buffer: ``n``, or the client-mesh plan's
-        padded height."""
+        padded height (called before the buffers are built; a tiered
+        store allocates only its hot capacity)."""
         if self.mesh is not None:
             from repro_torch.distributed.plan import ClientShardingPlan
             return ClientShardingPlan.for_cohort(self.n, self.mesh).padded_n
@@ -265,12 +271,18 @@ class ClientStateStore:
     def _ef_block(self, ids):
         """(K, Pf) residual block for ``ids`` row-aligned with the
         scatter: each written client's last residual, zeros for clients
-        never written (and everywhere when EF is off)."""
+        never written (and everywhere when EF is off).  A residual kept
+        in host memory (a tiered store's cold client) is copied over
+        without blocking the host."""
         zero = torch.zeros((self.p,), dtype=torch.float32,
                            device=self.device)
-        if not self.error_feedback or not self._ef:
+        kept = ([self.ef_residual(c) for c in ids]
+                if self.error_feedback else [])
+        if not any(r is not None for r in kept):
             return zero.expand(len(ids), self.p)
-        return torch.stack([self._ef.get(int(c), zero) for c in ids])
+        return torch.stack([
+            zero if r is None else r.to(self.device, non_blocking=True)
+            for r in kept])
 
     def _ef_update(self, ids, new_ef):
         """Keep the (K, Pf) residuals the quantizing scatter produced,
@@ -298,13 +310,67 @@ class ClientStateStore:
     def bytes_by_tier(self):
         """{"hot": device row bytes, "cold": spilled row bytes, "ef":
         error-feedback residual bytes} — ``ef`` is reported apart
-        because it models client-side state, not store rows.  A dense
-        store has no cold rows.  Also refreshes the
-        ``store.bytes_hot``/``store.bytes_cold`` gauges."""
+        because it models client-side state, not store rows.  Also
+        refreshes the ``store.bytes_hot``/``store.bytes_cold`` gauges."""
         hot = int(sum(b.numel() * b.element_size() for b in self.bufs))
+        cold = self._cold_nbytes()
         obs.TEL.gauge("store.bytes_hot", hot)
-        obs.TEL.gauge("store.bytes_cold", 0)
-        return {"hot": hot, "cold": 0, "ef": 4 * self.p * len(self._ef)}
+        obs.TEL.gauge("store.bytes_cold", cold)
+        return {"hot": hot, "cold": cold, "ef": 4 * self.p * len(self._ef)}
+
+    def _cold_nbytes(self) -> int:
+        """Bytes of rows held off the device: none in a dense store."""
+        return 0
+
+    # -- raw buffer rows (the residency hooks) --------------------------
+    def _read_rows(self, rows):
+        """-> the stored segments of buffer ``rows`` as fresh (k, ·)
+        blocks (``index_select`` copies): f32 + int32, or int8 + meta +
+        int32 under q8.  Duplicate rows are fine."""
+        idx = self._ids(rows)
+        return tuple(b.index_select(0, idx) for b in self.bufs)
+
+    def _write_rows(self, rows, blocks) -> None:
+        """Write raw segment blocks (``_read_rows``' layout) into
+        buffer ``rows`` in place; ``rows`` must be unique."""
+        idx = self._ids(rows)
+        for buf, blk in zip(self.bufs, blocks):
+            buf[idx] = blk
+
+    def _rows_to_tree(self, blocks, k: int):
+        """(k, ·) segment blocks -> stacked tree, leaves (k, ...); a
+        quantized store dequantizes on the blocks' device."""
+        if self.quant_bits == 8:
+            return _from_quant_rows(*blocks, (k,), self.treedef,
+                                    self.entries, self._fsegs)
+        return _from_stacked_rows(*blocks, self.treedef, self.entries)
+
+    def _tree_at(self, row: int):
+        """Buffer row ``row`` -> one model tree (a copy)."""
+        if self.quant_bits == 8:
+            qbuf, mbuf, ibuf = self.bufs
+            return _from_quant_rows(qbuf[row], mbuf[row], ibuf[row].clone(),
+                                    (), self.treedef, self.entries,
+                                    self._fsegs)
+        fbuf, ibuf = self.bufs
+        return _from_rows(fbuf[row].clone(), ibuf[row].clone(),
+                          self.treedef, self.entries)
+
+    def _put_row(self, rows, ids, frow, irow) -> None:
+        """Write one global row into buffer ``rows`` (unique), which
+        hold clients ``ids`` in the same order; a quantized store
+        quantizes it for each client."""
+        idx = self._ids(rows)
+        if self.quant_bits == 8:
+            qbuf, mbuf, ibuf = self.bufs
+            qrows, mrows = self._quantize_for(ids, frow)
+            qbuf[idx] = qrows
+            mbuf[idx] = mrows
+        else:
+            fbuf, ibuf = self.bufs
+            fbuf[idx] = frow
+        if self.pi:
+            ibuf[idx] = irow
 
     # -- flat <-> tree views --------------------------------------------
     @property
@@ -338,29 +404,11 @@ class ClientStateStore:
         of the rows (the same window scatters into them later).
         Duplicate ids are fine (padded slots repeat the last client).
         A quantized store dequantizes the gathered rows."""
-        idx = self._ids(ids)
-        if self.quant_bits == 8:
-            qbuf, mbuf, ibuf = self.bufs
-            return _from_quant_rows(
-                qbuf.index_select(0, idx), mbuf.index_select(0, idx),
-                ibuf.index_select(0, idx), (len(ids),), self.treedef,
-                self.entries, self._fsegs)
-        fbuf, ibuf = self.bufs
-        return _from_stacked_rows(fbuf.index_select(0, idx),
-                                  ibuf.index_select(0, idx),
-                                  self.treedef, self.entries)
+        return self._rows_to_tree(self._read_rows(ids), len(ids))
 
     def gather_one(self, client_id: int):
         """-> one client's snapshot as a model tree (a copy)."""
-        c = int(client_id)
-        if self.quant_bits == 8:
-            qbuf, mbuf, ibuf = self.bufs
-            return _from_quant_rows(qbuf[c], mbuf[c], ibuf[c].clone(), (),
-                                    self.treedef, self.entries,
-                                    self._fsegs)
-        fbuf, ibuf = self.bufs
-        return _from_rows(fbuf[c].clone(), ibuf[c].clone(), self.treedef,
-                          self.entries)
+        return self._tree_at(int(client_id))
 
     def _quantize_for(self, ids: Sequence[int], frow):
         """Quantize one global row per target client, its
@@ -380,19 +428,11 @@ class ClientStateStore:
         Duplicate ids write the same row once (the ids are made
         unique first, so no write order is left to the device); a
         quantized store quantizes the row for each client."""
-        frow, irow = self._rows_of(flat_global)
+        self._scatter_row(ids, *self._rows_of(flat_global))
+
+    def _scatter_row(self, ids, frow, irow) -> None:
         uniq = sorted({int(c) for c in ids})
-        idx = self._ids(uniq)
-        if self.quant_bits == 8:
-            qbuf, mbuf, ibuf = self.bufs
-            qrows, mrows = self._quantize_for(uniq, frow)
-            qbuf[idx] = qrows
-            mbuf[idx] = mrows
-        else:
-            fbuf, ibuf = self.bufs
-            fbuf[idx] = frow
-        if self.pi:
-            ibuf[idx] = irow
+        self._put_row(uniq, uniq, frow, irow)
 
     def scatter_params(self, ids: Sequence[int], params):
         """Flatten ``params`` and scatter it into ``ids``; returns the

@@ -20,7 +20,9 @@ aggregation and the async window merge go through the hand-written
 fedagg kernels by default (``--no-kernel-agg`` selects the per-leaf
 path; with a mesh, each shard's partial sum is kernel
 ``fedagg_partial``).  ``--quant-bits 8`` keeps the async methods'
-client rows as int8 with error feedback; ``--trace PATH`` /
+client rows as int8 with error feedback, ``--hot-rows K`` only K of
+them on the card (the rest in pinned host memory, or in npz chunks
+under ``--cold-dir``); ``--trace PATH`` /
 ``--report`` record the run's telemetry (``repro_torch.obs``).  The
 wireless delay/failure model supplies virtual time; f32 products run in
 full precision (no TF32).
@@ -75,11 +77,15 @@ def main(argv=None):
                          "bit-identical histories)")
     ap.add_argument("--hot-rows", type=int, default=0,
                     help="async methods only: tiered client-state "
-                         "residency with this many device rows (ported "
-                         "in a later slice: raises NotImplementedError)")
+                         "residency — keep only this many client rows "
+                         "on device (hot tier) and the rest in pinned "
+                         "host memory, with EventQueue-driven prefetch "
+                         "(0 = dense, every row on device; histories "
+                         "are bit-identical at any capacity)")
     ap.add_argument("--cold-dir", default=None,
-                    help="with --hot-rows: the disk cold tier (ported in "
-                         "a later slice)")
+                    help="with --hot-rows: spill the cold tier to "
+                         "ckpt-chunk files under this directory "
+                         "instead of pinned host memory")
     ap.add_argument("--quant-bits", type=int, default=32,
                     choices=[8, 32],
                     help="async methods only: client-state row format. "

@@ -34,8 +34,10 @@ trains every window's cohort sharded; the dict path's window merge is
 then the sharded reduction (kernel ``fedagg_partial``), the store
 path's stays ``merge_scatter`` (kernel ``fedagg_fold``), as in the
 reference.  ``quant_bits=8`` keeps the store's rows as int8 with
-error feedback (``core/state.py``).  Tiered residency comes with a
-later slice; asking for it raises ``NotImplementedError``.
+error feedback (``core/state.py``).  ``store_capacity`` keeps only that
+many rows on the device (``core/residency.py``: the rest in pinned host
+memory, or npz chunks under ``store_cold_dir``), staged ahead of each
+window from the ``EventQueue`` lookahead; histories stay bit-identical.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from repro_torch.config.base import FLConfig
 from repro_torch.core.aggregation import staleness_merge
 from repro_torch.core.engine import (make_engine, mesh_devices,
                                      resolve_kernel_agg)
+from repro_torch.core.residency import TieredClientStateStore
 from repro_torch.core.selection import cstt
 from repro_torch.core.state import ClientStateStore, wire_bytes
 from repro_torch.core.tiering import evaluate_client, tiering, update_avg_time
@@ -78,21 +81,22 @@ def _resolve_store(params, n_clients: int, mesh, use_store,
       (64-bit leaves) raises ``TypeError`` instead of silently changing
       paths.
 
+    ``capacity`` (client rows the device keeps hot) selects tiered
+    residency: the store becomes a ``TieredClientStateStore`` whose
+    cold tier is pinned host memory, or npz-chunk disk spill when
+    ``cold_dir`` is set.  Asking for a capacity implies wanting the
+    store (reason ``"auto-tiered"``) — except under an explicit
+    ``use_store=False``, which still wins.  Histories are bit-identical
+    across all residency layouts, so this only moves memory.
+
     ``quant_bits=8`` selects int8 rows (+ ``error_feedback`` residuals).
     The quantized format IS the store — the dict path has no rendition
     of it — so it forces the store on even for a sequential
     ``window=0`` loop (reason ``"quant-int8"``), and ``use_store=False``
     raises instead of silently running unquantized.
-
-    Tiered residency (``capacity``, ``cold_dir``) raises
-    ``NotImplementedError`` until its slice.
     """
     if int(quant_bits) not in (8, 32):
         raise ValueError(f"quant_bits must be 8 or 32, got {quant_bits}")
-    if capacity is not None or cold_dir is not None:
-        raise NotImplementedError(
-            "tiered client-state residency (store_capacity, "
-            "store_cold_dir): ported in a later slice")
     quant = int(quant_bits) != 32
     if use_store is False:
         if quant:
@@ -102,6 +106,12 @@ def _resolve_store(params, n_clients: int, mesh, use_store,
                 "quantized rows)")
         return None, "forced-off"
     qkw = dict(quant_bits=quant_bits, error_feedback=error_feedback)
+    if capacity is not None:
+        reason = "forced-on" if use_store is True else "auto-tiered"
+        return TieredClientStateStore(
+            params, n_clients, capacity=capacity,
+            cold="disk" if cold_dir else "host", cold_dir=cold_dir,
+            mesh=mesh, **qkw), reason
     if use_store is None and not window_active:
         if quant:
             return (ClientStateStore(params, n_clients, mesh=mesh, **qkw),

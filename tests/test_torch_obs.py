@@ -1,7 +1,7 @@
 """The port's telemetry (``repro_torch.obs``) against the reference's.
 
-``tests/test_obs.py`` restated for the port (its two tiered-residency
-cases wait for the residency slice): the no-op default, dual-clock
+``tests/test_obs.py`` restated for the port (its tiered-residency
+cases are in ``tests/test_torch_residency.py``): the no-op default, dual-clock
 spans, metrics, caps, both exporters, the validator, the labeled FL
 streams and the per-tier report.  On top: tracing on == tracing off for
 all seven methods on the CPU, a port trace in both formats accepted by

@@ -1,7 +1,7 @@
 """The port's int8 client rows (``quant_bits=8``) with error feedback.
 
 ``tests/test_state.py``'s quantized-store cases restated for the port
-(its tiered-residency case waits for the residency slice), held against
+(its tiered-residency case is in ``tests/test_torch_residency.py``), held against
 the numpy oracles (``kernels/ref.py``) bit for bit: the row quantizer,
 the store's int8 rows and meta, its dequantized rows and its
 error-feedback residuals ``x - dq(q(x))``.  The residual is held to the

@@ -81,19 +81,23 @@ def test_run_method_dispatch_and_later_slice_names():
                                        SyntheticCohortTrainer(device="cpu"),
                                        _net(PtNetwork, fl), fl)
         assert hist.method == name and hist.accuracy
-    # int8 rows run on every async method; tiered residency comes with
-    # a later slice
+    # int8 rows and tiered residency run on every async method; a
+    # tiered run's history equals the dense one's
     for name in ("fedasync", "fedbuff", "feddct_async"):
         hist = pt_baselines.run_method(name,
                                        SyntheticCohortTrainer(device="cpu"),
                                        _net(PtNetwork, fl), fl,
                                        use_store=True, quant_bits=8)
         assert hist.meta["quant_bits"] == 8 and hist.accuracy
-        with pytest.raises(NotImplementedError, match="later slice"):
-            pt_baselines.run_method(name,
-                                    SyntheticCohortTrainer(device="cpu"),
-                                    _net(PtNetwork, fl), fl,
-                                    use_store=True, store_capacity=2)
+        dense, tiered = (pt_baselines.run_method(
+            name, SyntheticCohortTrainer(device="cpu"), _net(PtNetwork, fl),
+            fl, use_store=True, **kw) for kw in ({}, {"store_capacity": 2}))
+        assert tiered.meta["residency"] == "tiered-host"
+        assert tiered.meta["hot_rows"] == 2
+        assert dense.meta["residency"] == "dense"
+        for key in ("rounds", "times", "accuracy", "n_selected",
+                    "n_stragglers"):
+            assert getattr(tiered, key) == getattr(dense, key), (name, key)
 
 
 _TRAINERS = {}
@@ -207,13 +211,25 @@ def test_cli_raises_without_a_cuda_device():
         fl_train.main(["--rounds", "1", "--clients", "2"])
 
 
-def test_cli_tiered_residency_names_a_later_slice():
-    """``--hot-rows`` (the reference's tiered residency) is parsed as the
-    reference parses it and raises, naming a later slice."""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        fl_train.main(["--method", "fedbuff", "--window", "2", "--rounds",
-                       "1", "--clients", "4", "--tau", "2", "--device",
-                       "cpu", "--scale", "0.005", "--hot-rows", "2"])
+@pytest.mark.parametrize("cold", ["host", "disk"])
+def test_cli_tiered_residency_prints_the_dense_lines(tmp_path, capsys,
+                                                     cold):
+    """``--hot-rows 2`` (with ``--cold-dir``: the disk tier) runs on the
+    CPU and prints the dense run's lines."""
+    argv = ["--method", "fedbuff", "--window", "2", "--rounds", "2",
+            "--clients", "4", "--tau", "2", "--device", "cpu", "--scale",
+            "0.005"]
+    dense = fl_train.main(argv)
+    want = capsys.readouterr().out
+    extra = ["--hot-rows", "2"]
+    if cold == "disk":
+        extra += ["--cold-dir", str(tmp_path / "cold")]
+    tiered = fl_train.main(argv + extra)
+    assert capsys.readouterr().out == want
+    assert tiered.meta["residency"] == f"tiered-{cold}"
+    assert tiered.meta["hot_rows"] == 2
+    assert dense.meta["residency"] == "dense"
+    assert tiered.meta["store_bytes_cold"] > 0
 
 
 def test_synthetic_trainer_defaults_to_the_card():
@@ -249,6 +265,9 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
                 "report", "__init__"):
         assert f"repro_torch/obs/{mod}.py" in names, mod
     assert "repro_torch/kernels/ref.py" in names
+    for mod in ("core/residency.py", "checkpoint/ckpt.py",
+                "checkpoint/__init__.py"):
+        assert f"repro_torch/{mod}" in names, mod
     for path in files:
         hit = _FORBIDDEN.search(path.read_text())
         assert hit is None, f"{path}: {hit.group(0)!r}"
