@@ -25,8 +25,13 @@ over tiered client-state residency (``--hot-rows``, ``--cold-dir``:
 hot rows on the card, cold rows in pinned host memory or npz chunks;
 every history, final model and stored row equal to the dense store's,
 randomized store interleavings on the card, and 2,000 full-width
-clients against a dense store's peak memory) — and prints one JSON
-object per phase.  Each path runs with
+clients against a dense store's peak memory) — holds the f32 backward
+kernels of ``flash_attention`` and ``ssm_scan`` against autograd of
+their plain twins, trains full-width ``hymba-1.5b`` and ``llama3.2-1b``
+in f32 through ``repro_torch.launch.train --full`` (every attention and
+SSM layer's forward and backward through the kernels; two seeded runs
+bit for bit) and runs ``fl_train`` over reduced LM clients — and prints
+one JSON object per phase.  Each path runs with
 every launch count set to 0 just before it and read just after.  Any
 failure exits non-zero; there is no CPU path.  The last line of
 standard output is ``{"ok": true, "device": {"platform": "gpu", "kind":
@@ -89,7 +94,18 @@ STORE_KEYS = {"store", "store_path", "store_reason", "residency",
               "store_bytes_ef"}
 
 
+# host clock at the start of main() and at the last phase line
+_CLOCK = {}
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line also carries its seconds since the
+    previous phase line (``phase_s``) and since the start (``elapsed_s``)."""
+    if "phase" in obj and _CLOCK:
+        now = time.perf_counter()
+        obj = {**obj, "phase_s": now - _CLOCK["last"],
+               "elapsed_s": now - _CLOCK["start"]}
+        _CLOCK["last"] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -102,7 +118,10 @@ def zero_counts() -> None:
     fedagg_mod.partial_launches = 0
     fa_mod.launches = 0
     fa_mod.tc_launches = 0
+    fa_mod.bwd_dq_launches = 0
+    fa_mod.bwd_dkdv_launches = 0
     ss_mod.launches = 0
+    ss_mod.bwd_launches = 0
 
 
 def counts() -> dict:
@@ -114,7 +133,10 @@ def counts() -> dict:
             "fedagg_partial": fedagg_mod.partial_launches,
             "flash_attention": fa_mod.launches,
             "flash_attention_tc": fa_mod.tc_launches,
-            "ssm_scan": ss_mod.launches}
+            "flash_attention_bwd_dq": fa_mod.bwd_dq_launches,
+            "flash_attention_bwd_dkdv": fa_mod.bwd_dkdv_launches,
+            "ssm_scan": ss_mod.launches,
+            "ssm_scan_bwd": ss_mod.bwd_launches}
 
 
 def only(**launched) -> dict:
@@ -2465,6 +2487,259 @@ def ssm_cases():
 
 
 # ---------------------------------------------------------------------
+# The backward kernels of K4 and K5 (f32) against autograd of the plain
+# twins
+# ---------------------------------------------------------------------
+
+# Gradients, f32, kernel vs autograd of the plain twin on the same card
+# tensors: the same sums taken in another order (K4: up to ~10^4 (q, k)
+# pairs a key over a kv head's group; K5: dB, dC over 3200 channels,
+# dA_log over every step) and, for K5, exp through ex2.approx (2^-22
+# relative) against expf.  Held elementwise at |got - want| <= atol +
+# rtol * |want| with rtol 1e-4 and atol 1e-4 * max(1, max |want|): an
+# error of a few percent, or a missed term, fails.
+BWD_RTOL, BWD_ATOL = 1e-4, 1e-4
+
+
+def _grad_close(name, got, want):
+    """(max abs err, ok) of one gradient under ``BWD_RTOL`` / ``BWD_ATOL``
+    scaled by the largest |want|."""
+    import torch
+    if got.shape != want.shape:
+        fail(f"{name}: gradient shape {tuple(got.shape)} vs "
+             f"{tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name}: non-finite gradient")
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got.float() - want.float()).abs().max())
+    ok = torch.allclose(got.float(), want.float(), rtol=BWD_RTOL,
+                        atol=BWD_ATOL * scale)
+    return err, scale, ok
+
+
+def check_flash_bwd(name, q, k, v, do, *, causal=True, window=0,
+                    q_offset=0):
+    """K4's forward (asked for lse) and its two backward kernels against
+    autograd of ``gqa_plain`` on the same f32 card tensors; and the
+    kernels' gradients twice, bit for bit."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ins = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    before = (fa.bwd_dq_launches, fa.bwd_dkdv_launches)
+    out = fa.flash_attention(*ins, **kw)
+    got = torch.autograd.grad(out, ins, do)
+    again = torch.autograd.grad(fa.flash_attention(*ins, **kw), ins, do)
+    torch.cuda.synchronize()
+    if (fa.bwd_dq_launches - before[0], fa.bwd_dkdv_launches - before[1]) \
+            != (2, 2):
+        fail(f"flash_attention_bwd[{name}]: the backward kernels did not "
+             "launch once a gradient each")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"flash_attention_bwd[{name}]: two runs differ")
+    ref = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    want_out = fa.gqa_plain(*ref, **kw)
+    want = torch.autograd.grad(want_out, ref, do)
+    row = {"case": name, "q": list(q.shape), "k": list(k.shape),
+           "causal": causal, "window": window, "q_offset": q_offset}
+    out_err, _, out_ok = _grad_close(name, out.detach(), want_out.detach())
+    row["out_max_abs_err"] = out_err
+    for tag, a, b in zip(("dq", "dk", "dv"), got, want):
+        err, scale, ok = _grad_close(f"flash_attention_bwd[{name}].{tag}",
+                                     a, b)
+        row[f"{tag}_max_abs_err"] = err
+        row[f"{tag}_scale"] = scale
+        if not ok:
+            fail(f"flash_attention_bwd[{name}]: {tag} disagrees with "
+                 f"autograd of the plain twin, max abs err {err} (rtol "
+                 f"{BWD_RTOL}, atol {BWD_ATOL} x {scale})")
+    if not out_ok:
+        fail(f"flash_attention_bwd[{name}]: forward disagrees, {out_err}")
+    return row
+
+
+def check_ssm_bwd(name, x, dt, b_in, c_out, a_log, h0=None, dh_end=True):
+    """K5's forward and backward kernels against autograd of
+    ``ssm_scan_plain`` on the same f32 card tensors (b_in, c_out the
+    strided halves of one tensor, as the model's); an incoming gradient
+    of h_end when ``dh_end``; twice, bit for bit."""
+    import torch
+    from repro_torch.kernels import ssm_scan as ss
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    bsz, s, d = x.shape
+    n = b_in.shape[-1]
+    dy = torch.randn(bsz, s, d, generator=gen, device="cuda")
+    dhe = (torch.randn(bsz, d, n, generator=gen, device="cuda")
+           if dh_end else None)
+    bc = torch.cat([b_in, c_out], dim=-1)
+
+    def grads(fn):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x, dt, bc, a_log)]
+        h = None if h0 is None else h0.detach().requires_grad_(True)
+        if h is not None:
+            leaves.append(h)
+        y, h_end = fn(leaves[0], leaves[1], leaves[2][..., :n],
+                      leaves[2][..., n:], leaves[3], h)
+        outs, cots = [y], [dy]
+        if dhe is not None:
+            outs.append(h_end)
+            cots.append(dhe)
+        return y.detach(), torch.autograd.grad(outs, leaves, cots)
+
+    before = ss.bwd_launches
+    y, got = grads(ss.ssm_scan)
+    _, again = grads(ss.ssm_scan)
+    torch.cuda.synchronize()
+    if ss.bwd_launches - before != 2:
+        fail(f"ssm_scan_bwd[{name}]: the backward kernel did not launch "
+             "once a gradient")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"ssm_scan_bwd[{name}]: two runs differ")
+    y_want, want = grads(ss.ssm_scan_plain)
+    row = {"case": name, "b": bsz, "s": s, "d": d, "n": n,
+           "h0": h0 is not None, "dh_end": dh_end}
+    y_err, _, y_ok = _grad_close(name, y, y_want)
+    row["y_max_abs_err"] = y_err
+    tags = ("dx", "ddt", "dbc", "da_log", "dh0")
+    for tag, a, b in zip(tags, got, want):
+        err, scale, ok = _grad_close(f"ssm_scan_bwd[{name}].{tag}", a, b)
+        row[f"{tag}_max_abs_err"] = err
+        row[f"{tag}_scale"] = scale
+        if not ok:
+            fail(f"ssm_scan_bwd[{name}]: {tag} disagrees with autograd of "
+                 f"the plain twin, max abs err {err} (rtol {BWD_RTOL}, "
+                 f"atol {BWD_ATOL} x {scale})")
+    if not y_ok:
+        fail(f"ssm_scan_bwd[{name}]: forward disagrees, {y_err}")
+    return row
+
+
+def check_bwd_raises(name, fn):
+    """bf16 with grad: the wrapper raises NotImplementedError and
+    launches nothing."""
+    before = counts()
+    try:
+        fn()
+    except NotImplementedError as e:
+        if counts() != before:
+            fail(f"{name}: launched before raising")
+        return {"case": name, "raised": "NotImplementedError",
+                "message": str(e)}
+    fail(f"{name}: bf16 with grad did not raise")
+
+
+def check_under_checkpoint():
+    """K4 and K5 inside ``torch.utils.checkpoint`` (non-reentrant): the
+    forward kernels run twice (the recompute), the backward kernels
+    once, and the gradients equal the run without checkpoint bit for
+    bit."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as ss
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    q = torch.randn(1, 300, 10, 64, generator=gen, device="cuda")
+    k = torch.randn(1, 300, 2, 64, generator=gen, device="cuda")
+    v = torch.randn(1, 300, 2, 64, generator=gen, device="cuda")
+    x, dt, bi, co, al = ssm_inputs(gen, 1, 300, 96, 16, torch.float32)
+
+    def f(q, k, v, x, dt):
+        o = fa.flash_attention(q, k, v, window=64)
+        y, _ = ss.ssm_scan(x, dt, bi, co, al)
+        return o.square().sum() + y.square().sum()
+
+    def run(use_ckpt):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v, x, dt)]
+        zero_counts()
+        loss = (checkpoint(f, *leaves, use_reentrant=False) if use_ckpt
+                else f(*leaves))
+        g = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return g, counts()
+
+    plain_g, plain_c = run(False)
+    ck_g, ck_c = run(True)
+    want_c = only(flash_attention=2, flash_attention_bwd_dq=1,
+                  flash_attention_bwd_dkdv=1, ssm_scan=2, ssm_scan_bwd=1)
+    if ck_c != want_c:
+        fail(f"checkpoint: launch counts {ck_c}, expected {want_c}")
+    if not all(torch.equal(a, b) for a, b in zip(plain_g, ck_g)):
+        fail("checkpoint: gradients differ from the run without it")
+    return {"case": "checkpoint", "launches": ck_c,
+            "launches_without": plain_c, "bitwise_equal": True}
+
+
+def kernel_bwd_checks():
+    """K4's two backward kernels and K5's backward kernel against
+    autograd of their plain twins on the card (f32): small and odd
+    shapes, GQA groups 1, 4 and 5, causal, window and q_offset, rows
+    that see no key (alone and beside rows that do), the two full-width
+    layer shapes of the training path; K5 with N 4, 8 and 16, with and
+    without h0, with and without an incoming h_end gradient, and
+    hymba's full shape; bf16 with grad raising; both under
+    ``torch.utils.checkpoint``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as ss
+    gen = torch.Generator(device="cuda").manual_seed(20)
+
+    def qkvd(b, s, t, h, hkv, d):
+        def r(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+        return r(b, s, h, d), r(b, t, hkv, d), r(b, t, hkv, d), \
+            r(b, s, h, d)
+
+    fa_rows = [
+        check_flash_bwd("group1-100-causal", *qkvd(2, 100, 100, 4, 4, 64)),
+        check_flash_bwd("group4-77-window16-d32",
+                        *qkvd(1, 77, 77, 8, 2, 32), window=16),
+        check_flash_bwd("group5-130-causal", *qkvd(2, 130, 130, 5, 1, 64)),
+        check_flash_bwd("q-offset-70-50x120-d16",
+                        *qkvd(1, 50, 120, 4, 1, 16), q_offset=70),
+        check_flash_bwd("full-200x333-group4", *qkvd(1, 200, 333, 8, 2, 64),
+                        causal=False),
+        check_flash_bwd("no-visible-key", *qkvd(1, 64, 128, 2, 1, 64),
+                        causal=False, window=32, q_offset=200),
+        check_flash_bwd("some-rows-see-no-key", *qkvd(1, 64, 128, 4, 2, 64),
+                        causal=False, window=32, q_offset=140),
+        check_flash_bwd("hymba-layer-1x2048-gqa5-window1024",
+                        *qkvd(1, 2048, 2048, 25, 5, 64), window=1024),
+        check_flash_bwd("llama-layer-2x2048-gqa4-causal",
+                        *qkvd(2, 2048, 2048, 32, 8, 64)),
+    ]
+    ss_rows = []
+    for n in (4, 8, 16):
+        x, dt, bi, co, al = ssm_inputs(gen, 2, 100, 200, n, torch.float32)
+        h0 = torch.randn(2, 200, n, generator=gen, device="cuda")
+        ss_rows.append(check_ssm_bwd(f"n{n}-2x100x200", x, dt, bi, co, al,
+                                     dh_end=False))
+        ss_rows.append(check_ssm_bwd(f"n{n}-2x100x200-h0-dh_end", x, dt, bi,
+                                     co, al, h0))
+    x, dt, bi, co, al = ssm_inputs(gen, 1, 37, 50, 16, torch.float32)
+    ss_rows.append(check_ssm_bwd("s37-d50-dh_end", x, dt, bi, co, al))
+    x, dt, bi, co, al = ssm_inputs(gen, 1, 2048, 3200, 16, torch.float32)
+    ss_rows.append(check_ssm_bwd("hymba-1x2048x3200x16", x, dt, bi, co, al,
+                                 dh_end=False))
+    bq = torch.randn(1, 128, 2, 64, generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_(True)
+    bk = torch.randn(1, 128, 1, 64, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    xb, dtb, bib, cob, alb = ssm_inputs(gen, 1, 64, 64, 16, torch.bfloat16)
+    raises = [
+        check_bwd_raises("flash_attention-bf16-grad",
+                         lambda: fa.flash_attention(bq, bk, bk)),
+        check_bwd_raises("ssm_scan-bf16-grad",
+                         lambda: ss.ssm_scan(xb.requires_grad_(True), dtb,
+                                             bib, cob, alb)),
+    ]
+    return {"rtol": BWD_RTOL, "atol": BWD_ATOL,
+            "atol_scaled_by": "max(1, max |want|) per gradient",
+            "flash_attention_bwd": fa_rows, "ssm_scan_bwd": ss_rows,
+            "raises": raises, "checkpoint": check_under_checkpoint()}
+
+
+# ---------------------------------------------------------------------
 # LM serving: prefill and decode at full width (K4, K5)
 # ---------------------------------------------------------------------
 
@@ -2483,18 +2758,26 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 64, 32
 # either branch is one kernel launch; chunks of 256 admit S = 1280.
 CONSISTENCY_S = 1280
 CONSISTENCY_CHUNK = 256
-# f32 logits of a 32-layer random-weight model, two orders of summation
+# its depth, cut from hymba's 32 layers at full width: the 1280 decode
+# steps are host-bound (~270 PyTorch ops a layer a step), so the
+# script's time limit, not the card, sets the number of layers
+CONSISTENCY_LAYERS = 8
+# f32 logits of a random-weight model (up to 32 layers), two orders of summation
 # (GEMM vs GEMV products, chunked vs stepwise scan, kernel vs plain
 # softmax): absolute, on logits of order one
 CONSISTENCY_ATOL = 2e-3
 
 
-def _lm_params(arch, dtype):
-    """Full-width random parameters drawn on the card from seed 0."""
+def _lm_params(arch, dtype, num_layers=None):
+    """Full-width random parameters drawn on the card from seed 0, at the
+    arch's depth or ``num_layers``."""
+    import dataclasses
     import torch
     from repro_torch.config import get_arch
     from repro_torch.models import init_model
     cfg = get_arch(arch)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_model(cfg, gen, dtype)
     return cfg, params
@@ -2780,8 +3063,8 @@ def lm_bf16_kernel_vs_plain(models):
 
 
 def lm_consistency():
-    """f32 parameters (``set_full_f32``), full-width hymba-1.5b, B=1,
-    S=1280: the prefill step's last-position logits (K4 banded, K5)
+    """f32 parameters (``set_full_f32``), hymba-1.5b at full width and
+    ``CONSISTENCY_LAYERS`` deep, B=1, S=1280: the prefill step's last-position logits (K4 banded, K5)
     against the last logits of decode steps over the same tokens (ring
     cache of 1024, K5 with a carried h0), and the same prefill with the
     plain twins patched in for the kernels."""
@@ -2792,7 +3075,8 @@ def lm_consistency():
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import decode_step, init_decode_state
-    cfg, params = _lm_params("hymba-1.5b", torch.float32)
+    cfg, params = _lm_params("hymba-1.5b", torch.float32,
+                             num_layers=CONSISTENCY_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(3)
     toks = torch.randint(0, cfg.vocab_size, (1, CONSISTENCY_S),
                          generator=gen, device="cuda")
@@ -2850,7 +3134,8 @@ def lm_consistency():
         fail(f"lm consistency: prefill vs decode {vs_decode}, kernels vs "
              f"plain {vs_plain} (atol {CONSISTENCY_ATOL}), same greedy "
              f"token {same_token}")
-    return {"arch": cfg.arch_id, "batch": 1, "seq_len": CONSISTENCY_S,
+    return {"arch": cfg.arch_id, "num_layers": cfg.num_layers, "batch": 1,
+            "seq_len": CONSISTENCY_S,
             "dtype": "torch.float32", "kv_ring_len": kv_len,
             "prefill_vs_decode_max_abs": vs_decode,
             "kernels_vs_plain_max_abs": vs_plain,
@@ -2860,6 +3145,293 @@ def lm_consistency():
             "greedy_token_equal": same_token,
             "decode_s": decode_s, "launches_prefill": prefill_counts,
             "launches_decode": decode_counts}
+
+
+# ---------------------------------------------------------------------
+# LM training at full width (K4 and K5 forward and backward, f32)
+# ---------------------------------------------------------------------
+
+# (arch, batch, seq): hymba's window of 1024 < 2048 puts its attention
+# on the banded branch; llama is causal (chunked branch)
+LM_TRAIN = (("hymba-1.5b", 1, 2048), ("llama3.2-1b", 2, 2048))
+LM_TRAIN_STEPS = 3
+# One full-width hymba block's gradients through the kernels against the
+# plain twins patched in, same weights and input: f32 sums in other
+# orders through the block's GEMMs (reductions over 2048 tokens) and the
+# scan's exp through ex2.approx (2^-22 relative) carried through the
+# SSM's memory: each leaf's max abs error at most 1e-4 x its largest
+# |gradient|.  The sound kernels read 6.9e-06; planted faults
+# (tools/block_grad_mutants.py) read what PERF.md records.
+BLOCK_GRAD_RTOL = 1e-4
+
+
+@contextlib.contextmanager
+def recording_train_steps(record):
+    """``launch.train``'s ``make_train_step`` with each step timed on the
+    host between two synchronizes (``record["step_s"]``) and the last
+    step's (params, opt_state, metrics) kept (``record["last"]``)."""
+    import torch
+    from repro_torch.launch import train as train_mod
+
+    def wrapped(cfg, tcfg, lr=None):
+        step, opt = real(cfg, tcfg, lr)
+
+        def timed(params, opt_state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            record["step_s"].append(time.perf_counter() - t0)
+            record["last"] = out
+            return out
+        return timed, opt
+
+    record.update(step_s=[], last=None)
+    with patched(train_mod, "make_train_step", wrapped) as real:
+        yield
+
+
+# launch.train's corpus, (args, kwargs) -> the tokens or their pending
+# result: the reference's generator takes one ``rng.choice`` over the
+# whole vocabulary a quarter of its tokens (~40 s for hymba's 32,001,
+# ~95 s for llama's 128,256 at 400,000 tokens), so ``start_corpora``
+# makes them in worker processes while the earlier phases run
+_CORPORA = {}
+TRAIN_CORPUS_TOKENS = 400_000
+
+
+def start_corpora():
+    """Start making ``launch.train``'s corpus for each arch of
+    ``LM_TRAIN`` (``make_token_dataset(vocab, 400,000, seed=0)``, as the
+    CLI calls it), one spawned worker each; returns the pool, which the
+    caller terminates."""
+    import multiprocessing
+    from repro_torch.config import get_arch
+    from repro_torch.data.synthetic import make_token_dataset
+    vocabs = sorted({get_arch(arch).vocab_size for arch, _, _ in LM_TRAIN})
+    pool = multiprocessing.get_context("spawn").Pool(len(vocabs))
+    for v in vocabs:
+        key = ((v, TRAIN_CORPUS_TOKENS), (("seed", 0),))
+        _CORPORA[key] = pool.apply_async(make_token_dataset,
+                                         key[0], dict(key[1]))
+    return pool
+
+
+def _cached_corpus(real):
+    """``make_token_dataset`` made once per argument set in this process,
+    or taken from ``start_corpora``'s workers: a repeated run needs the
+    same tokens."""
+    def corpus(*args, **kw):
+        key = (args, tuple(sorted(kw.items())))
+        if key not in _CORPORA:
+            _CORPORA[key] = real(*args, **kw)
+        elif hasattr(_CORPORA[key], "get"):
+            _CORPORA[key] = _CORPORA[key].get(timeout=600)
+        return _CORPORA[key]
+    return corpus
+
+
+def _train_run(arch, b, s):
+    """``python -m repro_torch.launch.train --full`` in-process for
+    ``LM_TRAIN_STEPS`` steps, with the launch counts read around it."""
+    import torch
+    from repro_torch.launch import train as train_mod
+    record = {}
+    argv = ["--arch", arch, "--full", "--batch", str(b), "--seq", str(s),
+            "--steps", str(LM_TRAIN_STEPS), "--log-every", "1"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    with recording_train_steps(record), patched(
+            train_mod, "make_token_dataset",
+            _cached_corpus(train_mod.make_token_dataset)):
+        zero_counts()
+        t0 = time.perf_counter()
+        losses = train_mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+    return {"losses": losses, "wall_s": wall, "launches": launched,
+            "step_s": record["step_s"], "last": record["last"],
+            "start_bytes": start_bytes,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def lm_block_grads_vs_plain():
+    """One full-width hymba-1.5b block (random f32 weights from seed 0,
+    a random (1, 2048, 1600) input, a random cotangent): every
+    parameter's and the input's gradient through the kernels (K4 banded,
+    K5; forward and backward) against the same with the plain twins
+    patched in for both (autograd of ``gqa_plain`` and
+    ``ssm_scan_plain``)."""
+    import dataclasses
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.models import init_model
+    from repro_torch.models.transformer import _block_apply, _layer
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    cfg = dataclasses.replace(get_arch("hymba-1.5b"), num_layers=1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    block = _layer(init_model(cfg, gen)["blocks"], 0)
+    x = torch.randn(1, 2048, cfg.d_model, generator=gen, device="cuda")
+    cot = torch.randn(1, 2048, cfg.d_model, generator=gen, device="cuda")
+    positions = torch.arange(2048, device="cuda")[None]
+
+    def grads():
+        leaves, treedef = tree_flatten(block)
+        leaves = [l.detach().requires_grad_(True) for l in leaves] + \
+            [x.detach().requires_grad_(True)]
+        y, _ = _block_apply(tree_unflatten(treedef, leaves[:-1]), cfg,
+                            leaves[-1], positions, window=cfg.sliding_window,
+                            chunk_q=128, chunk_kv=128, ssm_chunk=256,
+                            moe_group=0)
+        g = torch.autograd.grad(y, leaves, cot)
+        torch.cuda.synchronize()
+        return g
+
+    zero_counts()
+    got = grads()
+    launched = counts()
+    want_launches = only(flash_attention=1, flash_attention_bwd_dq=1,
+                         flash_attention_bwd_dkdv=1, ssm_scan=1,
+                         ssm_scan_bwd=1)
+    if launched != want_launches:
+        fail(f"block gradients: launches {launched}, expected "
+             f"{want_launches}")
+    with patched(kernel_ops, "gqa_flash_attention", fa.gqa_plain), \
+            patched(ss, "ssm_scan", ss.ssm_scan_plain):
+        zero_counts()
+        want = grads()
+        if counts() != only():
+            fail(f"block gradients: the plain run launched {counts()}")
+    names = [".".join(k) for k in _leaf_names(block)] + ["x"]
+    worst = {}
+    for name, a, b in zip(names, got, want):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        worst[name] = err / max(scale, 1e-30)
+        if not bool(torch.isfinite(a).all()) or scale == 0.0 \
+                or err > BLOCK_GRAD_RTOL * scale:
+            fail(f"block gradients: {name} max abs err {err} against "
+                 f"max |grad| {scale} (rtol {BLOCK_GRAD_RTOL})")
+    return {"arch": "hymba-1.5b (one block)", "b": 1, "s": 2048,
+            "rtol_of_max": BLOCK_GRAD_RTOL, "launches": launched,
+            "max_rel_err": max(worst.values()),
+            "rel_err_by_leaf": worst}
+
+
+def _leaf_names(tree, prefix=()):
+    """Key paths of a nested dict's leaves in ``tree_flatten`` order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.extend(_leaf_names(v, prefix + (k,)))
+        else:
+            out.append(prefix + (k,))
+    return out
+
+
+def lm_train_path():
+    """``launch.train --full`` on each case of ``LM_TRAIN``, f32, 3
+    steps: warm s/step, tokens/s, first step, peak memory, K4 and K5
+    forward and backward launches (each layer once a step); hymba twice,
+    losses and final parameters bit for bit; and one full-width hymba
+    block's gradients through the kernels against the plain twins."""
+    import math
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.tree import tree_leaves
+    runs, train_counts = [], {}
+    for arch, b, s in LM_TRAIN:
+        cfg = get_arch(arch)
+        r = _train_run(arch, b, s)
+        layers_steps = cfg.num_layers * LM_TRAIN_STEPS
+        want = only(flash_attention=layers_steps,
+                    flash_attention_bwd_dq=layers_steps,
+                    flash_attention_bwd_dkdv=layers_steps,
+                    **({"ssm_scan": layers_steps,
+                        "ssm_scan_bwd": layers_steps}
+                       if cfg.family == "hybrid" else {}))
+        if r["launches"] != want:
+            fail(f"lm_train_path {arch}: launches {r['launches']}, "
+                 f"expected {want}")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            fail(f"lm_train_path {arch}: losses {r['losses']}")
+        row = {"arch": arch, "batch": b, "seq": s, "dtype": "float32",
+               "optimizer": "adamw", "steps": LM_TRAIN_STEPS,
+               "losses": r["losses"], "step_s": r["step_s"],
+               "first_step_s": r["step_s"][0],
+               "warm_s_per_step": statistics.median(r["step_s"][1:]),
+               "peak_bytes": r["peak_bytes"],
+               "allocated_before_bytes": r["start_bytes"],
+               "wall_s": r["wall_s"],
+               "launches": r["launches"],
+               "launches_per_step": {k: v // LM_TRAIN_STEPS
+                                     for k, v in r["launches"].items()}}
+        row["tokens_per_s"] = b * s / row["warm_s_per_step"]
+        if arch == "hymba-1.5b":
+            first = [t.clone() for t in tree_leaves(r["last"][0])]
+            r = None
+            again = _train_run(arch, b, s)
+            same = again["losses"] == row["losses"] and all(
+                torch.equal(a, c) for a, c in
+                zip(first, tree_leaves(again["last"][0])))
+            if not same:
+                fail(f"lm_train_path {arch}: two seeded runs differ: "
+                     f"{row['losses']} vs {again['losses']}")
+            row["second_run_bitwise_equal"] = True
+            row["second_run_step_s"] = again["step_s"]
+            del first, again
+        train_counts[arch] = row["launches_per_step"]
+        runs.append(row)
+        r = None
+        torch.cuda.empty_cache()
+    block = lm_block_grads_vs_plain()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "block_grads_vs_plain": block}, train_counts
+
+
+FL_LM_ARGV = ["--rounds", "2", "--seed", "0"]
+
+
+def fl_lm_path():
+    """``fl_train`` with its default arch (reduced llama3.2-1b) and with
+    ``--arch hymba-1.5b`` (reduced: the SSM scan forward and backward;
+    its attention at seq 128 takes the naive branch), 2 rounds each,
+    twice: equal histories; K1 and K5 launches."""
+    from repro_torch.launch import fl_train
+    out = []
+    for extra in ([], ["--arch", "hymba-1.5b"]):
+        hists, launched, walls = [], [], []
+        for _ in range(2):
+            zero_counts()
+            t0 = time.perf_counter()
+            hists.append(fl_train.main(FL_LM_ARGV + extra).to_json())
+            walls.append(time.perf_counter() - t0)
+            launched.append(counts())
+        arch = hists[0]["arch"]
+        if hists[0] != hists[1] or launched[0] != launched[1]:
+            fail(f"fl_lm_path {arch}: two seeded runs differ")
+        c = launched[0]
+        if c["fedagg"] < 1:
+            fail(f"fl_lm_path {arch}: the rounds never aggregated through "
+                 f"K1: {c}")
+        hybrid = bool(extra)
+        if hybrid and (c["ssm_scan"] < 1 or c["ssm_scan_bwd"] < 1):
+            fail(f"fl_lm_path {arch}: K5 forward/backward not launched: "
+                 f"{c}")
+        if c["flash_attention"] or c["flash_attention_bwd_dq"]:
+            fail(f"fl_lm_path {arch}: seq 128 should take the naive "
+                 f"attention branch, K4 launched: {c}")
+        out.append({"arch": arch, "argv": FL_LM_ARGV + extra,
+                    "accuracy": hists[0]["accuracy"],
+                    "times": hists[0]["times"], "wall_s": walls,
+                    "launches": c, "two_runs_equal": True})
+    return out
 
 
 # Published peaks of one H100 SXM beside F32_FLOPS_PER_S: the dense bf16
@@ -2969,6 +3541,10 @@ def flash_attention_times(attn_calls):
             return fa.flash_attention(qf, kf, vf, causal=causal,
                                       window=window, q_offset=q_offset)
 
+        def scalar_f32_lse():
+            return fa._kernel_forward(qf, kf, vf, causal, window, q_offset,
+                                      with_lse=True)
+
         backend = _sdpa_backend(library)
         tc_before = fa.tc_launches
         kernel_a = median_ms(kernel, runs=5, per_run=5)
@@ -2978,6 +3554,7 @@ def flash_attention_times(attn_calls):
         plain_a = median_ms(plain, runs=3, per_run=2)
         lib = median_ms(library, runs=5, per_run=5)
         f32_ms = median_ms(scalar_f32, runs=3, per_run=3)
+        f32_lse_ms = median_ms(scalar_f32_lse, runs=3, per_run=3)
         kernel_b = median_ms(kernel, runs=5, per_run=5)
         plain_b = median_ms(plain, runs=3, per_run=2)
         bound, bound_by, ops_by, flops, exps = flash_bound_ms(
@@ -2993,6 +3570,7 @@ def flash_attention_times(attn_calls):
                     "library": f"scaled_dot_product_attention "
                                f"({backend} backend)",
                     "f32_scalar_kernel_ms": f32_ms,
+                    "f32_scalar_kernel_lse_ms": f32_lse_ms,
                     "bound_ms": bound, "bound_by": bound_by,
                     "bound_ops": ops_by,
                     "bound_tensor_ms": flops / BF16_TENSOR_FLOPS_PER_S * 1e3,
@@ -3088,15 +3666,260 @@ def ssm_scan_times():
     return out
 
 
+# K4's backward at the training path's two layer shapes (f32)
+FA_BWD_SHAPES = (("hymba-1.5b", (1, 2048, 25, 64), (1, 2048, 5, 64), 1024),
+                 ("llama3.2-1b", (2, 2048, 32, 64), (2, 2048, 8, 64), 0))
+
+
+# The work of K4's backward, per kernel and for the pair, that its bound
+# counts: D-long dots a visible (q, k) pair -- dq q.k, dO.v, dS.k; dkdv
+# q.k, dO.v, P.dO, dS.q; the pair's function the five distinct ones
+# (the kernels recompute q.k and dO.v in both) -- and the q-, kv- and
+# row-sized f32 tensors read and written once.
+FA_BWD_WORK = (
+    ("dq", 3, {"q": 3, "kv": 2, "row": 1}, {"q": 1, "row": 1}),
+    ("dkdv", 4, {"q": 2, "kv": 2, "row": 2}, {"kv": 2}),
+    ("pair", 5, {"q": 3, "kv": 2, "row": 1}, {"q": 1, "kv": 2}))
+
+
+def flash_bwd_bound_ms(qs, ks, dots, reads, writes, q_offset=0, causal=True,
+                       window=0):
+    """Least time for one backward kernel (or the pair): ``dots`` D-long
+    f32 dot products (2*D flops each) and one exp per visible (q, k)
+    pair of a head, against the f32 CUDA-core peak and the SFU's exp
+    rate; the f32 tensors it must read and write once (``reads``,
+    ``writes``: counts of q-sized, kv-sized and row-sized tensors)
+    against HBM.  Returns (ms, "operations" or "bytes", flops, exps)."""
+    b, s, h, d = qs
+    t, hkv = ks[1], ks[2]
+    pairs = b * h * visible_pairs(s, t, causal, window, q_offset)
+    flops = 2 * d * dots * pairs
+    by_ops = max(flops / F32_FLOPS_PER_S, pairs / SFU_EXP_PER_S) * 1e3
+    sizes = {"q": b * s * h * d, "kv": b * t * hkv * d, "row": b * h * s}
+    nbytes = 4 * sum(n * sizes[kind] for kind, n in
+                     list(reads.items()) + list(writes.items()))
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(by_ops, by_bytes),
+            "operations" if by_ops >= by_bytes else "bytes", flops, pairs)
+
+
+def flash_attention_bwd_times(per_step):
+    """K4's two backward kernels at the training path's layer shapes, f32:
+    each kernel alone (direct launches of the built library, not
+    counted), the pair through the wrapper's backward, the plain
+    backward (``flash_attention_bwd_plain``) and autograd of
+    ``scaled_dot_product_attention`` in f32 on its memory-efficient
+    backend (the library yardstick for the pair's work: dq, dk and dv)
+    and on its math backend, in turns; and the f32 forward kernel with
+    and without the log-sum-exp output."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import flash_attention as fa
+    out = []
+    for arch, qs, ks, window in FA_BWD_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        q = torch.randn(qs, generator=gen, device="cuda")
+        k = torch.randn(ks, generator=gen, device="cuda")
+        v = torch.randn(ks, generator=gen, device="cuda")
+        do = torch.randn(qs, generator=gen, device="cuda")
+        o, lse = fa._kernel_forward(q, k, v, True, window, 0, with_lse=True)
+        b, s, h, d = qs
+        t, hkv = ks[1], ks[2]
+        lib = fa._bwd_lib()
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        delta = torch.empty((b, h, s), device="cuda")
+        args = (b, s, t, h, hkv, d, 1, window, 0, 1.0 / math.sqrt(d))
+
+        def dq_kernel():
+            lib.flash_attention_bwd_dq_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), *args,
+                torch.cuda.current_stream().cuda_stream)
+
+        def dkdv_kernel():
+            lib.flash_attention_bwd_dkdv_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), *args,
+                torch.cuda.current_stream().cuda_stream)
+
+        def pair():
+            return fa._kernel_backward(q, k, v, o, lse, do, True, window, 0)
+
+        def plain():
+            return fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                causal=True, window=window)
+
+        # the library yardstick: autograd of SDPA on k and v repeated to
+        # every q head inside the graph (its backward sums each group),
+        # timed on the memory-efficient backend (f32, any mask) and on
+        # the math backend
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        rep = h // hkv
+        if window:
+            qp = torch.arange(s, device="cuda")[:, None]
+            kp = torch.arange(t, device="cuda")[None, :]
+            lib_kw = {"attn_mask": (kp <= qp) & (kp > qp - window)}
+        else:
+            lib_kw = {"is_causal": True}
+        lib_do = do.transpose(1, 2)
+
+        def library_on(backend):
+            """The backward call, and the name of the graph node SDPA
+            left (its backward names the backend)."""
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(
+                    qt, kt.repeat_interleave(rep, dim=1),
+                    vt.repeat_interleave(rep, dim=1), **lib_kw)
+
+            def call():
+                return torch.autograd.grad(out, (qt, kt, vt), lib_do,
+                                           retain_graph=True)
+            return call, out.grad_fn.name()
+
+        library, lib_node = library_on(SDPBackend.EFFICIENT_ATTENTION)
+        library_math, math_node = library_on(SDPBackend.MATH)
+
+        def fwd_lse():
+            return fa._kernel_forward(q, k, v, True, window, 0,
+                                      with_lse=True)
+
+        def fwd_plain_out():
+            return fa._kernel_forward(q, k, v, True, window, 0,
+                                      with_lse=False)
+
+        if "EfficientAttention" not in lib_node:
+            fail(f"flash_attention_bwd_times {arch}: SDPA's backward is "
+                 f"{lib_node}, not the memory-efficient backend's")
+        dq_a = median_ms(dq_kernel, runs=5, per_run=5)
+        dkdv_a = median_ms(dkdv_kernel, runs=5, per_run=5)
+        pair_a = median_ms(pair, runs=5, per_run=3)
+        plain_ms = median_ms(plain, runs=3, per_run=2)
+        lib_ms = median_ms(library, runs=5, per_run=3)
+        lib_math_ms = median_ms(library_math, runs=3, per_run=3)
+        fwd_a = median_ms(fwd_plain_out, runs=5, per_run=5)
+        fwd_lse_a = median_ms(fwd_lse, runs=5, per_run=5)
+        dq_b = median_ms(dq_kernel, runs=5, per_run=5)
+        dkdv_b = median_ms(dkdv_kernel, runs=5, per_run=5)
+        pair_b = median_ms(pair, runs=5, per_run=3)
+        fwd_lse_b = median_ms(fwd_lse, runs=5, per_run=5)
+        fwd_b = median_ms(fwd_plain_out, runs=5, per_run=5)
+        # the pair's results against the plain backward, f32 tolerance
+        got = pair()
+        want = plain()
+        errs = {}
+        for tag, a, c in zip(("dq", "dk", "dv"), got, want):
+            err, scale, ok = _grad_close(f"flash_attention_bwd_times.{tag}",
+                                         a, c)
+            errs[tag] = err
+            if not ok:
+                fail(f"flash_attention_bwd_times {arch}: {tag} {err}")
+        row = {"arch": arch, "q": list(qs), "k": list(ks),
+               "window": window, "causal": True, "dtype": "torch.float32",
+               "library": "autograd of scaled_dot_product_attention, f32, "
+                          f"kv repeated in the graph ({lib_node})",
+               "library_ms": lib_ms, "library_math_ms": lib_math_ms,
+               "library_math": math_node,
+               "plain_ms": plain_ms,
+               "pair_ms": min(pair_a, pair_b), "pair_ms_turns":
+               [pair_a, pair_b], "max_abs_err": errs,
+               "fwd_f32_ms": min(fwd_a, fwd_b),
+               "fwd_f32_lse_ms": min(fwd_lse_a, fwd_lse_b),
+               "fwd_turns": {"no_lse": [fwd_a, fwd_b],
+                             "lse": [fwd_lse_a, fwd_lse_b]},
+               "launches_per_train_step":
+                   {"dq": per_step[arch]["flash_attention_bwd_dq"],
+                    "dkdv": per_step[arch]["flash_attention_bwd_dkdv"]}}
+        times = {"dq": min(dq_a, dq_b), "dkdv": min(dkdv_a, dkdv_b),
+                 "pair": min(pair_a, pair_b)}
+        for name, dots, reads, writes in FA_BWD_WORK:
+            ms = times[name]
+            bound, by, flops, exps = flash_bwd_bound_ms(
+                qs, ks, dots, reads, writes, window=window)
+            row[name] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                         "flops": flops, "exps": exps,
+                         "f32_tflops": flops / ms / 1e9}
+        row["dq"]["ms_turns"] = [dq_a, dq_b]
+        row["dkdv"]["ms_turns"] = [dkdv_a, dkdv_b]
+        out.append(row)
+    return out
+
+
+def ssm_scan_bwd_times(per_step):
+    """K5's backward at hymba's training shape (B=1, S=2048, D=3200,
+    N=16, f32, no h0, an incoming h_end gradient of zeros as the model
+    gives), its plain twin (``ssm_scan_bwd_plain``, a Python loop of S
+    steps: host time included), in turns; no PyTorch call computes a
+    selective scan's gradient, so there is no library yardstick."""
+    import torch
+    from repro_torch.kernels import ssm_scan as ss
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    b, s, d, n = 1, 2048, 3200, 16
+    x, dt, bi, co, al = ssm_inputs(gen, b, s, d, n, torch.float32)
+    dy = torch.randn(b, s, d, generator=gen, device="cuda")
+
+    def kernel():
+        return ss._kernel_backward(x, dt, bi, co, al, None, dy, None)
+
+    def plain():
+        return ss.ssm_scan_bwd_plain(x, dt, bi, co, al, None, dy)
+
+    kernel_a = median_ms(kernel)
+    plain_ms = median_ms(plain, hide_host=False, warmup=1, runs=3,
+                         per_run=1)
+    kernel_b = median_ms(kernel)
+    got, want = kernel(), plain()
+    errs = {}
+    for tag, a, c in zip(("dx", "ddt", "db", "dc", "da_log"), got, want):
+        err, _, ok = _grad_close(f"ssm_scan_bwd_times.{tag}", a, c)
+        errs[tag] = err
+        if not ok:
+            fail(f"ssm_scan_bwd_times: {tag} {err}")
+    # bytes: x, dt, dy read, dx, ddt written (B,S,D); B, C read and dB,
+    # dC written (B,S,N); a_log read, dA_log written (D,N); f32.  Exps:
+    # one a_t per (t, d, n).
+    nbytes = 4 * (5 * b * s * d + 4 * b * s * n + 2 * d * n)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = b * s * d * n / SFU_EXP_PER_S * 1e3
+    ms = min(kernel_a, kernel_b)
+    return {"case": "hymba-train", "b": b, "s": s, "d": d, "n": n,
+            "dtype": "torch.float32", "ms": ms,
+            "ms_turns": [kernel_a, kernel_b], "plain_ms": plain_ms,
+            "plain_includes_host": True, "library_ms": None,
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes_ms": by_bytes, "bound_exps_ms": by_ops,
+            "design_exps_ms": 3 * b * s * d * n / SFU_EXP_PER_S * 1e3,
+            "max_abs_err": errs,
+            "launches_per_train_step": per_step["hymba-1.5b"]["ssm_scan_bwd"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
               file=sys.stderr)
         return 1
+    corpora = start_corpora()
+    try:
+        return run_phases()
+    finally:
+        corpora.terminate()
+        corpora.join()
+
+
+def run_phases() -> int:
+    """Every phase in order; the last two lines are the kernels line and
+    the result line."""
+    import torch
     from repro_torch import set_full_f32
     from repro_torch.kernels import _build
 
+    _CLOCK["start"] = _CLOCK["last"] = time.perf_counter()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -3104,7 +3927,8 @@ def main() -> int:
     set_full_f32()
 
     t0 = time.perf_counter()
-    libs = _build.build(["fedagg", "flash_attention", "ssm_scan"])
+    libs = _build.build(["fedagg", "flash_attention", "flash_attention_bwd",
+                         "ssm_scan", "ssm_scan_bwd"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}})
 
@@ -3113,6 +3937,8 @@ def main() -> int:
           "fedagg_partial": partial_cases(),
           "flash_attention_tol": FA_TOL, "flash_attention": flash_cases(),
           "ssm_scan_tol": SS_TOL, "ssm_scan": ssm_cases()})
+    emit({"phase": "kernel_bwd_checks", "card": card,
+          **kernel_bwd_checks()})
     emit({"phase": "train_round_vs_cpu", **cpu_agreement()})
 
     summary, launches, shapes, summary_hist = main_path()
@@ -3143,6 +3969,9 @@ def main() -> int:
     models.clear()
     torch.cuda.empty_cache()
     emit({"phase": "lm_consistency", **lm_consistency()})
+    lm_train, per_step = lm_train_path()
+    emit({"phase": "lm_train_path", "card": card, **lm_train})
+    emit({"phase": "fl_lm_path", "card": card, "runs": fl_lm_path()})
 
     at_main = fedagg_times(MAIN_N, MAIN_P)
     seen = [fedagg_times(n, p)
@@ -3187,6 +4016,13 @@ def main() -> int:
     ss_times = ssm_scan_times()
     emit({"phase": "ssm_scan_times", "card": card,
           "at_serving_path_shapes": ss_times})
+    fa_bwd = flash_attention_bwd_times(per_step)
+    emit({"phase": "flash_attention_bwd_times", "card": card,
+          "at_train_path_shapes": fa_bwd})
+    ss_bwd = ssm_scan_bwd_times(per_step)
+    emit({"phase": "ssm_scan_bwd_times", "card": card,
+          "at_train_path_shape": ss_bwd})
+    hymba_train = lm_train["runs"][0]["launches"]
 
     widest = seen[-1]          # the largest cohort the main path formed
     fold_widest = max(fold_seen, key=lambda t: t["k_live"])
@@ -3247,7 +4083,8 @@ def main() -> int:
         "routes": [{k: t[k] for k in ("arch", "route", "q", "k", "window",
                                       "ms", "tflops", "plain_ms",
                                       "bound_ms", "bound_by", "bound_ops",
-                                      "library_ms", "f32_scalar_kernel_ms")}
+                                      "library_ms", "f32_scalar_kernel_ms",
+                                      "f32_scalar_kernel_lse_ms")}
                    for t in fa_times]}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
@@ -3260,7 +4097,41 @@ def main() -> int:
         "bound_by": ss_times[0]["bound_by"], "library_ms": None,
         "decode": {k: ss_times[1][k] for k in ("b", "s", "ms", "plain_ms",
                                                "bound_ms", "bound_by")},
-        "decode_launches": serve["launches"]["ssm_scan"]}]})
+        "decode_launches": serve["launches"]["ssm_scan"]}] + [{
+        "name": f"flash_attention_bwd_{part}_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:30",
+        "replaces_note": "the backward of that kernel: the JAX package "
+                         "differentiates the jnp attention and has no "
+                         "Pallas backward",
+        # one full-width hymba-1.5b training run of LM_TRAIN_STEPS steps
+        "launches": hymba_train[f"flash_attention_bwd_{part}"],
+        "max_abs_err": max(fa_bwd[0]["max_abs_err"].values()),
+        "shape": {"q": fa_bwd[0]["q"], "k": fa_bwd[0]["k"],
+                  "window": fa_bwd[0]["window"]},
+        "ms": fa_bwd[0][part]["ms"], "plain_ms": fa_bwd[0]["plain_ms"],
+        "bound_ms": fa_bwd[0][part]["bound_ms"],
+        "bound_by": fa_bwd[0][part]["bound_by"],
+        "library_ms": fa_bwd[0]["library_ms"],
+        "library": fa_bwd[0]["library"],
+        "library_math_ms": fa_bwd[0]["library_math_ms"],
+        "library_and_plain_cover": "dq, dk and dv (both kernels' work)",
+        "llama": {**{k: fa_bwd[1][part][k] for k in ("ms", "bound_ms",
+                                                     "bound_by")},
+                  "library_ms": fa_bwd[1]["library_ms"]}}
+        for part in ("dq", "dkdv")] + [{
+        "name": "ssm_scan_bwd_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:28",
+        "replaces_note": "the backward of that kernel: the JAX package "
+                         "differentiates the jnp scan and has no Pallas "
+                         "backward",
+        "launches": hymba_train["ssm_scan_bwd"],
+        "max_abs_err": max(ss_bwd["max_abs_err"].values()),
+        "shape": [ss_bwd[k] for k in ("b", "s", "d", "n")],
+        "ms": ss_bwd["ms"], "plain_ms": ss_bwd["plain_ms"],
+        "bound_ms": ss_bwd["bound_ms"], "bound_by": ss_bwd["bound_by"],
+        "library_ms": None}]})
     emit({"ok": True,
           "device": {"platform": "gpu",
                      "kind": torch.cuda.get_device_name(0),

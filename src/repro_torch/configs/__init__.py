@@ -1,7 +1,14 @@
 """Registers the selectable architectures (``--arch <id>``): the CNN
-family of the paper, and the two LM configs the serving path runs
-(``llama3.2-1b``, dense; ``hymba-1.5b``, hybrid)."""
+family of the paper, and the LM configs of the dense and hybrid
+families (``llama3.2-1b``, ``granite-20b``, ``nemotron-4-340b``,
+``phi4-mini-3.8b``, dense; ``hymba-1.5b``, hybrid)."""
 
-from repro_torch.configs import hymba_1_5b, llama3_2_1b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    granite_20b,
+    hymba_1_5b,
+    llama3_2_1b,
+    nemotron_4_340b,
+    phi4_mini_3_8b,
+)
 from repro_torch.configs import paper_models  # noqa: F401
 from repro_torch.configs.shapes import INPUT_SHAPES  # noqa: F401

@@ -6,8 +6,10 @@ A *Trainer* binds a model family to the FL loop:
     evaluate(params)                           -> accuracy in [0,1]
 
 ``CNNTrainer`` reproduces the paper's workloads (CNN / ResNet8, real SGD
-on real batches).  The LM trainer of the reference comes with the LM
-slice.
+on real batches).  ``LMTrainer`` makes an LM architecture (dense or
+hybrid) an FL workload (reduced config by default) -- its "accuracy" is
+next-token top-1 on a held-out batch, which drives Eq. 3 tier movement
+exactly like test accuracy does for CNNs.
 """
 
 from __future__ import annotations
@@ -21,10 +23,14 @@ from repro_torch import resolve_device, set_full_f32
 from repro_torch.config.base import FLConfig, ModelConfig
 from repro_torch.data.partition import primary_class_partition
 from repro_torch.data.pipeline import ClientDataset, client_batches
-from repro_torch.data.synthetic import make_image_dataset
+from repro_torch.data.synthetic import make_image_dataset, make_token_dataset
+from repro_torch.launch.steps import (loss_and_grads, ready_checkpoint,
+                                      update_in_place)
 from repro_torch.models.cnn import cnn_forward, cnn_loss, init_cnn
+from repro_torch.models.transformer import forward as lm_forward
+from repro_torch.models.transformer import init_model, lm_loss
 from repro_torch.optim import make_optimizer
-from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_map, tree_stack, tree_unflatten
 
 
 class CNNTrainer:
@@ -205,15 +211,126 @@ class CNNTrainer:
                                  .astype(np.float64)))
 
 
+class LMTrainer:
+    """FL over a (reduced) LM architecture.
+
+    The reference's jitted, client-``vmap``ped programs become one
+    client at a time: a client's local step is a whole-model forward
+    and backward, so ``local_train_batch`` and ``local_train_cohort``
+    loop over the clients and stack their models, and are the looped
+    ``local_train`` bit for bit.  Each client trains a copy of its start
+    model in place (``launch.steps.update_in_place``)."""
+
+    def __init__(self, cfg: ModelConfig, fl: FLConfig, seq_len: int = 128,
+                 batch: int = 8, corpus_tokens: int = 200_000,
+                 step_fn=None, init_fn=None, device=None):
+        self.device = resolve_device(device)
+        set_full_f32()
+        ready_checkpoint()
+        self.cfg = cfg
+        self.fl = fl
+        self.seq = seq_len
+        self.batch = batch
+        toks = make_token_dataset(cfg.vocab_size, corpus_tokens, seed=fl.seed)
+        splits = np.array_split(toks[:-corpus_tokens // 10], fl.n_clients)
+        self.client_toks = splits
+        self.test_toks = toks[-corpus_tokens // 10:]
+        self.opt = make_optimizer(fl.optimizer)
+        self._custom_step = step_fn is not None
+        self._step = step_fn or self._step_impl
+        self._init_fn = init_fn
+
+    def _step_impl(self, params, opt_state, tokens):
+        """One optimizer step of ``lm_loss`` (no clip), ``params`` and
+        ``opt_state`` updated in place."""
+        loss, _, grads = loss_and_grads(
+            lambda p: lm_loss(self.cfg, p, {"tokens": tokens}), params)
+        with torch.no_grad():
+            params, opt_state = update_in_place(self.opt, params, opt_state,
+                                                grads, self.fl.lr)
+        return params, opt_state, loss
+
+    def _batch(self, toks: np.ndarray, seed: int) -> np.ndarray:
+        rng = np.random.default_rng(seed)
+        n = max(len(toks) - self.seq - 1, 1)
+        starts = rng.integers(0, n, self.batch)
+        return np.stack([toks[s:s + self.seq] for s in starts])
+
+    def _tokens(self, toks: np.ndarray, seed: int):
+        return torch.from_numpy(self._batch(toks, seed)).to(self.device)
+
+    def init_params(self, seed: int = 0):
+        if self._init_fn is not None:
+            return self._init_fn(seed)
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        return init_model(self.cfg, gen)
+
+    def local_train(self, params, client_id: int, rnd_seed: int):
+        toks = self.client_toks[client_id]
+        params = tree_map(lambda l: l.detach().clone(), params)
+        opt_state = self.opt.init(params)
+        for ep in range(self.fl.local_epochs):
+            params, opt_state, _ = self._step(
+                params, opt_state, self._tokens(toks, rnd_seed * 131 + ep))
+        return params, len(toks)
+
+    def local_train_batch(self, params, client_ids, rnd_seed: int, *,
+                          wrap=None):
+        """Every client from ``params``: the looped ``local_train`` per
+        distinct client (the engine's pow2 padding repeats the last one,
+        which trains once), models stacked (leading axis
+        len(client_ids)).  ``wrap`` is the distributed engine's hook
+        (see ``CNNTrainer``)."""
+        self._batchable(wrap)
+        trained = {}
+        for c in client_ids:
+            if c not in trained:
+                trained[c] = self.local_train(params, c, rnd_seed)[0]
+        return (tree_stack([trained[c] for c in client_ids]),
+                self._sizes(client_ids))
+
+    def _batchable(self, wrap) -> None:
+        if self._custom_step:
+            raise NotImplementedError(
+                "custom step_fn trainers use the looped path")
+        if wrap is not None:
+            raise NotImplementedError(
+                "LMTrainer on a client mesh waits for the LM mesh slice")
+
+    def _sizes(self, client_ids):
+        return np.asarray([len(self.client_toks[c]) for c in client_ids],
+                          np.float32)
+
+    def local_train_cohort(self, start_params, client_ids, rnd_seeds, *,
+                           wrap=None):
+        """Async-window cohort: per-client start models (stacked) and
+        per-client seeds; the looped ``local_train(start_i, c_i,
+        seed_i)`` per client, models stacked."""
+        self._batchable(wrap)
+        models = [self.local_train(tree_map(lambda l: l[i], start_params),
+                                   c, s)[0]
+                  for i, (c, s) in enumerate(zip(client_ids, rnd_seeds))]
+        return tree_stack(models), self._sizes(client_ids)
+
+    def evaluate(self, params) -> float:
+        b = self._tokens(self.test_toks, 1234)
+        with torch.no_grad():
+            logits, _ = lm_forward(self.cfg, params, {"tokens": b})
+            pred = torch.argmax(logits[:, :-1], dim=-1)
+            return float((pred == b[:, 1:]).float().mean())
+
+
 def build_fl_clients(arch_id: str, fl: FLConfig,
                      dataset: Optional[str] = None, scale: float = 0.05,
-                     device=None):
-    """Factory: a registered CNN arch becomes an FL workload."""
+                     reduced: bool = True, device=None):
+    """Factory: any registered CNN or LM (dense, hybrid) arch becomes an
+    FL workload; an LM in its reduced config unless ``reduced=False``."""
     from repro_torch.config import get_arch
     cfg = get_arch(arch_id)
-    if cfg.family != "cnn":
-        raise NotImplementedError(
-            f"{arch_id}: the LM family is ported in a later slice")
-    ds = dataset or {"cnn-mnist": "mnist", "cnn-fmnist": "fmnist",
-                     "resnet8-cifar10": "cifar10"}[arch_id]
-    return CNNTrainer(cfg, fl, ds, scale=scale, device=device)
+    if cfg.family == "cnn":
+        ds = dataset or {"cnn-mnist": "mnist", "cnn-fmnist": "fmnist",
+                         "resnet8-cifar10": "cifar10"}[arch_id]
+        return CNNTrainer(cfg, fl, ds, scale=scale, device=device)
+    if reduced:
+        cfg = cfg.reduced()
+    return LMTrainer(cfg, fl, device=device)

@@ -124,7 +124,8 @@ flash_attention_kernel(const float* __restrict__ q,
                        long long q_sb, long long q_ss, long long q_sh,
                        long long k_sb, long long k_st, long long k_sh,
                        long long v_sb, long long v_st, long long v_sh,
-                       int causal, int window, int q_offset, float scale) {
+                       int causal, int window, int q_offset, float scale,
+                       float* __restrict__ lse) {
     constexpr int KS = D + 4;            // padded k row (floats)
     constexpr int PS = FA_BK + 4;        // padded p row (floats)
     constexpr int DG = D / 16;           // float4 output groups a thread
@@ -279,6 +280,9 @@ flash_attention_kernel(const float* __restrict__ q,
             orow[d + 2] = acc[g].z / l;
             orow[d + 3] = acc[g].w / l;
         }
+        // the row's log-sum-exp for the backward kernels, when asked for
+        if (lse != nullptr && c == 0)
+            lse[((long long)b * H + h) * S + row] = m_run + logf(l);
     }
 }
 
@@ -286,7 +290,8 @@ template <int D>
 static int launch_f32(const void* q, const void* k, const void* v, void* out,
                      int B, int S, int T_len, int H, int Hkv,
                      const long long* st, int causal, int window,
-                     int q_offset, float scale, cudaStream_t stream) {
+                     int q_offset, float scale, cudaStream_t stream,
+                     float* lse) {
     const int smem = fa_smem_floats<D>() * (int)sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         flash_attention_kernel<D>,
@@ -298,7 +303,7 @@ static int launch_f32(const void* q, const void* k, const void* v, void* out,
         static_cast<const float*>(v), static_cast<float*>(out), S, T_len,
         H, Hkv,
         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-        causal, window, q_offset, scale);
+        causal, window, q_offset, scale, lse);
     return (int)cudaGetLastError();
 }
 
@@ -978,7 +983,10 @@ static int launch(const void* q, const void* k, const void* v, void* out,
 // head) q_sb..v_sh and a unit stride on D; out (B,S,H,D) contiguous.
 // dtype 0 = f32 (the scalar kernel), 1 = bf16 (the tensor-core kernel);
 // all four tensors of that dtype.  D in {16, 32, 64}: the models' 64
-// and the JAX kernel tests' 16 and 32.
+// and the JAX kernel tests' 16 and 32.  lse: null, or (f32 only) a
+// contiguous (B,H,S) f32 output for the rows' log-sum-exp m + log(max(l,
+// 1e-30)) that the backward kernels (flash_attention_bwd.cu) read;
+// asking for it changes no bit of out.
 // Returns cudaGetLastError() after the launch (or the error that kept
 // it from launching); does not synchronise.
 extern "C" int flash_attention_fwd(
@@ -987,20 +995,23 @@ extern "C" int flash_attention_fwd(
         long long q_sb, long long q_ss, long long q_sh,
         long long k_sb, long long k_st, long long k_sh,
         long long v_sb, long long v_st, long long v_sh,
-        int causal, int window, int q_offset, float scale, void* stream) {
+        int causal, int window, int q_offset, float scale, void* stream,
+        void* lse) {
     if (B < 1 || S < 1 || T_len < 1 || H < 1 || Hkv < 1 || H % Hkv != 0
-            || B > 65535 || H > 65535 || q_offset < 0)
+            || B > 65535 || H > 65535 || q_offset < 0
+            || (lse != nullptr && dtype != 0))
         return (int)cudaErrorInvalidValue;
     const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_st, k_sh,
                              v_sb, v_st, v_sh};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    float* lse_f = static_cast<float*>(lse);
 #define FA_ARGS q, k, v, out, B, S, T_len, H, Hkv, st, causal, window, \
                 q_offset, scale, s
     if (dtype == 0) {
         switch (D) {
-            case 16: return launch_f32<16>(FA_ARGS);
-            case 32: return launch_f32<32>(FA_ARGS);
-            case 64: return launch_f32<64>(FA_ARGS);
+            case 16: return launch_f32<16>(FA_ARGS, lse_f);
+            case 32: return launch_f32<32>(FA_ARGS, lse_f);
+            case 64: return launch_f32<64>(FA_ARGS, lse_f);
         }
     } else if (dtype == 1) {
         switch (D) {

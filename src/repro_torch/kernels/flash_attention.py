@@ -43,6 +43,20 @@ A CUDA tensor goes to a kernel or the call raises;
 ``repro/kernels/ref.py: flash_attention_ref``, heads folded into the
 batch) serves CPU tensors and the checks that hold both kernels
 against it.
+
+Gradients.  When grad mode is on and q, k or v requires grad,
+``flash_attention`` goes through ``FlashAttentionFn``: its forward is
+the f32 kernel asked also for each row's log-sum-exp ``lse`` (B,H,S)
+(no bit of the output changes), its backward the two f32 kernels of
+``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd_dq_f32``, which
+also writes ``delta = rowsum(dO * O)``, then
+``flash_attention_bwd_dkdv_f32``, dk and dv summed over each kv head's
+group in registers; no float atomics, so gradients are the same bits
+every run).  On CPU tensors the Function runs the plain forward and
+``flash_attention_bwd_plain``, the same math in PyTorch.  A bf16 input
+that requires grad raises: the tensor-core backward is a later item.
+The JAX package has no backward kernel (JAX differentiates the jnp
+attention), so these have no Pallas counterpart.
 """
 
 from __future__ import annotations
@@ -54,16 +68,38 @@ import torch
 
 NEG = -1e30
 
-# launches of either CUDA kernel by ``flash_attention`` (and nothing
-# else); ``tc_launches`` those of the tensor-core (bf16) kernel alone
+# launches of either CUDA forward kernel by ``flash_attention`` (and
+# nothing else); ``tc_launches`` those of the tensor-core (bf16) kernel
+# alone; ``bwd_dq_launches`` and ``bwd_dkdv_launches`` those of the two
+# backward kernels by ``FlashAttentionFn.backward``
 launches = 0
 tc_launches = 0
+bwd_dq_launches = 0
+bwd_dkdv_launches = 0
 
 HEAD_DIMS = (16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                 + [ctypes.c_float, ctypes.c_void_p])
+NO_BF16_GRAD = ("flash_attention: a bf16 input that requires grad has no "
+                "backward kernel yet; the bf16 tensor-core backward of K4 "
+                "is the next K4 item of ROADMAP.md queue 2 (train in f32)")
+
+
+def _mask(s: int, t: int, causal: bool, window: int, q_offset: int,
+          device):
+    """(S,T) bool: key j visible to row i (absolute positions)."""
+    qp = torch.arange(s, device=device) + q_offset
+    kp = torch.arange(t, device=device)
+    m = torch.ones((s, t), dtype=torch.bool, device=device)
+    if causal:
+        m &= kp[None, :] <= qp[:, None]
+    if window > 0:
+        m &= kp[None, :] > qp[:, None] - window
+    return m
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -73,14 +109,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     flash_attention_ref``."""
     d = q.shape[-1]
     s_ = torch.einsum("bsd,btd->bst", q.float(), k.float()) / math.sqrt(d)
-    qp = torch.arange(q.shape[1], device=q.device) + q_offset
-    kp = torch.arange(k.shape[1], device=q.device)
-    m = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
-                   device=q.device)
-    if causal:
-        m &= kp[None, :] <= qp[:, None]
-    if window > 0:
-        m &= kp[None, :] > qp[:, None] - window
+    m = _mask(q.shape[1], k.shape[1], causal, window, q_offset, q.device)
     s_ = torch.where(m[None], s_, torch.full((), NEG, device=q.device))
     p = torch.softmax(s_, dim=-1)
     return torch.einsum("bst,btd->bsd", p, v.float()).to(q.dtype)
@@ -92,9 +121,7 @@ def gqa_plain(q, k, v, *, causal: bool = True, window: int = 0,
     heads folded into the batch (the reference's ``ops.py:
     gqa_flash_attention``)."""
     b, s, h, d = q.shape
-    rep = h // k.shape[2]
-    kx = torch.repeat_interleave(k, rep, dim=2)
-    vx = torch.repeat_interleave(v, rep, dim=2)
+    kx, vx = repeat_kv_heads(k, h), repeat_kv_heads(v, h)
 
     def fold(t):
         return t.movedim(2, 1).reshape(b * h, t.shape[1], d)
@@ -126,18 +153,22 @@ def _lib():
     return lib
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    q_offset: int = 0):
-    """q (B,S,H,D); k/v (B,T,Hkv,D) with H a multiple of Hkv ->
-    (B,S,H,D) in q's dtype.
+def _bwd_lib():
+    from repro_torch.kernels import _build
+    lib = _build.load("flash_attention_bwd")
+    for fn in (lib.flash_attention_bwd_dq_f32,
+               lib.flash_attention_bwd_dkdv_f32):
+        if fn.argtypes is None:
+            fn.argtypes = _BWD_ARGTYPES
+            fn.restype = ctypes.c_int
+    return lib
 
-    On a CUDA tensor this launches a kernel on the current stream and
-    does not synchronize: the scalar kernel for f32, the tensor-core
-    kernel for bf16 (q, k and v of one dtype), a unit stride on D, D in
-    ``HEAD_DIMS``, and for bf16 16-byte aligned addresses and strides;
-    anything else raises.  On the CPU it is ``gqa_plain``.
-    """
-    global launches, tc_launches
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _check(q, k, v):
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
             or q.shape[2] % k.shape[2]:
@@ -145,10 +176,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             f"flash_attention: q (B,S,H,D) and k, v (B,T,Hkv,D) with "
             f"H % Hkv == 0 expected, got {tuple(q.shape)}, "
             f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if q.device.type != "cuda":
-        return gqa_plain(q, k, v, causal=causal, window=window,
-                         q_offset=q_offset)
 
+
+def _kernel_forward(q, k, v, causal, window, q_offset, with_lse):
+    """One launch of the forward kernel on CUDA tensors; returns (out,
+    lse or None).  ``with_lse`` (f32 only) also writes each row's
+    log-sum-exp (B,H,S) for the backward."""
+    global launches, tc_launches
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -168,6 +202,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                          f"q_offset={q_offset}")
     tensor_cores = q.dtype == torch.bfloat16
     if tensor_cores:
+        if with_lse:
+            raise NotImplementedError(NO_BF16_GRAD)
         for name, x in (("q", q), ("k", k), ("v", v)):
             why = tma_misalignment(x)
             if why:
@@ -175,6 +211,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                  f"{name} {why}")
     lib = _lib()
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):      # the launch goes to q's card
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -184,10 +222,157 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             v.stride(0), v.stride(1), v.stride(2),
             int(bool(causal)), int(window), int(q_offset),
             1.0 / math.sqrt(d), torch.cuda.current_stream(q.device)
-            .cuda_stream)
+            .cuda_stream, None if lse is None else lse.data_ptr())
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err}")
     launches += 1
     tc_launches += tensor_cores
-    return out
+    return out, lse
+
+
+def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
+                              window: int = 0, q_offset: int = 0):
+    """``gqa_plain`` and each row's log-sum-exp (B,H,S) f32 of the
+    masked scores (masked scores at -1e30, as the kernel's)."""
+    b, s, h, d = q.shape
+    kx = repeat_kv_heads(k, h).float()
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), kx) / math.sqrt(d)
+    m = _mask(s, k.shape[1], causal, window, q_offset, q.device)
+    scores = torch.where(m, scores, torch.full((), NEG, device=q.device))
+    return (gqa_plain(q, k, v, causal=causal, window=window,
+                      q_offset=q_offset),
+            torch.logsumexp(scores, dim=-1))
+
+
+def repeat_kv_heads(k, n_heads: int):
+    """(B,T,Hkv,D) -> (B,T,H,D): kv head j serves q heads j*rep ..."""
+    return torch.repeat_interleave(k, n_heads // k.shape[2], dim=2)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window: int = 0, q_offset: int = 0):
+    """The backward kernels' math in PyTorch, f32: q, o, do (B,S,H,D),
+    k, v (B,T,Hkv,D), lse (B,H,S) -> (dq, dk, dv) in f32, dk and dv
+    summed over each kv head's group of q heads.  P is recomputed from
+    lse; a row that sees no key has P = 1/T on every key and dS = 0
+    (what autograd of the plain forward gives through its select)."""
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    qf, of, dof = (x.float().movedim(2, 1) for x in (q, o, do))
+    kf = repeat_kv_heads(k, h).float().movedim(2, 1)      # (B,H,T,D)
+    vf = repeat_kv_heads(v, h).float().movedim(2, 1)
+    m = _mask(s, t, causal, window, q_offset, q.device)
+    empty = ~m.any(dim=-1)                                # (S,)
+    scores = torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale
+    p = torch.exp(torch.where(m, scores - lse.float()[..., None],
+                              torch.full((), -math.inf, device=q.device)))
+    p = torch.where(empty[:, None], torch.full((), 1.0 / t,
+                                               device=q.device), p)
+    delta = (dof * of).sum(dim=-1)                        # (B,H,S)
+    dp = torch.einsum("bhsd,bhtd->bhst", dof, vf)
+    ds = torch.where(m, p * (dp - delta[..., None]),
+                     torch.zeros((), device=q.device))
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, kf) * scale
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, qf) * scale
+    dv = torch.einsum("bhst,bhsd->bhtd", p, dof)
+
+    def group_sum(x):                         # (B,H,T,D) -> (B,T,Hkv,D)
+        return x.reshape(b, hkv, rep, t, d).sum(dim=2).movedim(1, 2)
+
+    return dq.movedim(1, 2), group_sum(dk), group_sum(dv)
+
+
+def _kernel_backward(q, k, v, o, lse, do, causal, window, q_offset):
+    """The two backward launches on CUDA tensors (f32): dq (and delta)
+    first, then dk and dv."""
+    global bwd_dq_launches, bwd_dkdv_launches
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do))
+    lib = _bwd_lib()
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    shape = (b, s, t, h, hkv, d, int(bool(causal)), int(window),
+             int(q_offset), 1.0 / math.sqrt(d))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_dq_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *shape, stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attention_bwd_dq_f32 launch failed: "
+                               f"CUDA error {err}")
+        bwd_dq_launches += 1
+        err = lib.flash_attention_bwd_dkdv_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *shape, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_dkdv_f32 launch failed: "
+                           f"CUDA error {err}")
+    bwd_dkdv_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with a gradient: on CUDA tensors the f32
+    forward kernel (asked for lse) and the two backward kernels; on CPU
+    tensors the plain forward and ``flash_attention_bwd_plain``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        if q.device.type == "cuda":
+            out, lse = _kernel_forward(q, k, v, causal, window, q_offset,
+                                       with_lse=True)
+        else:
+            out, lse = flash_attention_fwd_plain(
+                q, k, v, causal=causal, window=window, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, q_offset = ctx.masks
+        if q.device.type == "cuda":
+            dq, dk, dv = _kernel_backward(q, k, v, out, lse, do, causal,
+                                          window, q_offset)
+        else:
+            dq, dk, dv = flash_attention_bwd_plain(
+                q, k, v, out, lse, do, causal=causal, window=window,
+                q_offset=q_offset)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0):
+    """q (B,S,H,D); k/v (B,T,Hkv,D) with H a multiple of Hkv ->
+    (B,S,H,D) in q's dtype.
+
+    On a CUDA tensor this launches a kernel on the current stream and
+    does not synchronize: the scalar kernel for f32, the tensor-core
+    kernel for bf16 (q, k and v of one dtype), a unit stride on D, D in
+    ``HEAD_DIMS``, and for bf16 16-byte aligned addresses and strides;
+    anything else raises.  On the CPU it is ``gqa_plain``.  With grad
+    mode on and an input that requires grad it is ``FlashAttentionFn``
+    (f32 only: bf16 raises ``NotImplementedError``).
+    """
+    _check(q, k, v)
+    if _needs_grad(q, k, v):
+        if q.dtype == torch.bfloat16:
+            raise NotImplementedError(NO_BF16_GRAD)
+        return FlashAttentionFn.apply(q, k, v, bool(causal), int(window),
+                                      int(q_offset))
+    if q.device.type != "cuda":
+        return gqa_plain(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset)
+    return _kernel_forward(q, k, v, causal, window, q_offset,
+                           with_lse=False)[0]

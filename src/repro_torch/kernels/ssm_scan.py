@@ -28,6 +28,20 @@ order is emulated on the CPU in ``tests/test_torch_ssm.py``.
 A CUDA tensor goes to the kernel or the call raises; ``ssm_scan_plain``
 (a sequential recurrence, as ``repro/kernels/ref.py: ssm_scan_ref``)
 serves CPU tensors and the checks that hold the kernel against it.
+
+Gradients.  When grad mode is on and an input requires grad,
+``ssm_scan`` goes through ``SSMScanFn``: the forward kernel, and for
+the backward ``csrc/ssm_scan_bwd.cu: ssm_scan_bwd_f32`` (reverse time:
+it stores the state every 32 steps in a scratch, replays each 32-step
+chunk in shared memory and walks it back; one block per (batch row, 32
+channels)).  Its cross-block sums come back as partials -- dB and dC
+per channel group, dA_log per batch row -- that the wrapper adds with
+``torch.sum`` over the partial axis: no float atomics, the same bits
+every run.  On CPU tensors the Function runs ``ssm_scan_plain`` and
+``ssm_scan_bwd_plain``, the reverse recurrence in PyTorch.  A bf16
+input that requires grad raises: the bf16 backward is a later item.
+The JAX package has no backward kernel (JAX differentiates the jnp
+scan), so this one has no Pallas counterpart.
 """
 
 from __future__ import annotations
@@ -36,14 +50,22 @@ import ctypes
 
 import torch
 
-# launches of the CUDA kernel by ``ssm_scan`` (and nothing else)
+# launches of the CUDA forward kernel by ``ssm_scan`` (and nothing
+# else); ``bwd_launches`` those of the backward kernel by
+# ``SSMScanFn.backward``
 launches = 0
+bwd_launches = 0
 
 STATE_SIZES = (4, 8, 16)       # hymba's 16; the JAX kernel tests' 4, 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [ctypes.c_void_p] * 3)
 _SCRATCH_ARGTYPES = [ctypes.c_int] * 5
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+                 + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+NO_BF16_GRAD = ("ssm_scan: a bf16 input that requires grad has no "
+                "backward kernel yet; the bf16 backward of K5 is a queue 2 "
+                "item of ROADMAP.md (train in f32)")
 
 
 def ssm_scan_plain(x, dt, b_in, c_out, a_log, h0=None):
@@ -66,6 +88,46 @@ def ssm_scan_plain(x, dt, b_in, c_out, a_log, h0=None):
     return torch.stack(ys, dim=1).to(x.dtype), h
 
 
+def ssm_scan_bwd_plain(x, dt, b_in, c_out, a_log, h0, dy, dh_end=None):
+    """The backward kernel's math in PyTorch, f32: the inputs of
+    ``ssm_scan_plain`` and dy (B,S,D), dh_end (B,D,N) or None -> (dx,
+    ddt (B,S,D), db, dc (B,S,N), da_log (D,N), dh0 (B,D,N)), all f32.
+    The states are recomputed forward, then g_t = C_t dy_t + a_{t+1}
+    g_{t+1} runs in reverse from dh_end."""
+    a_neg = -torch.exp(a_log.float())
+    bsz, s, d = x.shape
+    n = b_in.shape[-1]
+    xf, dtf = x.float(), dt.float()
+    bf, cf, dyf = b_in.float(), c_out.float(), dy.float()
+    h = (torch.zeros((bsz, d, n), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    hs, das = [h], []
+    for t in range(s):
+        da = torch.exp(dtf[:, t, :, None] * a_neg[None])       # (B,D,N)
+        dbx = (dtf[:, t] * xf[:, t])[:, :, None] * bf[:, t, None, :]
+        h = da * hs[-1] + dbx  # fedlint: disable=FED003 -- eager PyTorch reference of the kernel, tolerance-gated
+        hs.append(h)
+        das.append(da)
+    g = (torch.zeros((bsz, d, n), dtype=torch.float32, device=x.device)
+         if dh_end is None else dh_end.float().clone())
+    gs = [None] * s
+    for t in range(s - 1, -1, -1):
+        g = cf[:, t, None, :] * dyf[:, t, :, None] + g  # fedlint: disable=FED003 -- eager PyTorch reference of the kernel, tolerance-gated
+        gs[t] = g
+        g = das[t] * g
+    G = torch.stack(gs, dim=1)                   # (B,S,D,N): g_t
+    H = torch.stack(hs[1:], dim=1)               # h_t
+    Hp = torch.stack(hs[:-1], dim=1)             # h_{t-1}
+    A = torch.stack(das, dim=1)                  # a_t
+    gb = (G * bf[:, :, None, :]).sum(dim=-1)     # (B,S,D)
+    dx = dtf * gb
+    ddt = xf * gb + (G * Hp * a_neg * A).sum(dim=-1)  # fedlint: disable=FED003 -- eager PyTorch reference of the kernel, tolerance-gated
+    db = (G * (dtf * xf)[..., None]).sum(dim=2)
+    dc = (H * dyf[..., None]).sum(dim=2)
+    da_log = a_neg * (G * Hp * A * dtf[..., None]).sum(dim=(0, 1))
+    return dx, ddt, db, dc, da_log, g
+
+
 def _lib():
     from repro_torch.kernels import _build
     lib = _build.load("ssm_scan")
@@ -77,16 +139,18 @@ def _lib():
     return lib
 
 
-def ssm_scan(x, dt, b_in, c_out, a_log, h0=None):
-    """x, dt (B,S,D); b_in, c_out (B,S,N); a_log (D,N) f32; h0 (B,D,N)
-    f32 or None -> (y (B,S,D) in x's dtype, h_end (B,D,N) f32).
+def _bwd_lib():
+    from repro_torch.kernels import _build
+    lib = _build.load("ssm_scan_bwd")
+    if lib.ssm_scan_bwd_f32.argtypes is None:
+        lib.ssm_scan_bwd_f32.argtypes = _BWD_ARGTYPES
+        lib.ssm_scan_bwd_f32.restype = ctypes.c_int
+        lib.ssm_scan_bwd_sizes.argtypes = _SCRATCH_ARGTYPES
+        lib.ssm_scan_bwd_sizes.restype = ctypes.c_longlong
+    return lib
 
-    On a CUDA tensor this launches the kernel on the current stream and
-    does not synchronize: x, dt, b_in, c_out f32 or bf16 of one dtype
-    (any strides), N in ``STATE_SIZES``; anything else raises.  On the
-    CPU it is ``ssm_scan_plain``.
-    """
-    global launches
+
+def _check(x, dt, b_in, c_out, a_log, h0):
     if x.ndim != 3 or dt.shape != x.shape or b_in.ndim != 3 \
             or c_out.shape != b_in.shape or b_in.shape[:2] != x.shape[:2] \
             or tuple(a_log.shape) != (x.shape[2], b_in.shape[2]):
@@ -100,9 +164,13 @@ def ssm_scan(x, dt, b_in, c_out, a_log, h0=None):
     if h0 is not None and tuple(h0.shape) != (bsz, d, n):
         raise ValueError(f"ssm_scan: h0 {tuple(h0.shape)} is not "
                          f"{(bsz, d, n)}")
-    if x.device.type != "cuda":
-        return ssm_scan_plain(x, dt, b_in, c_out, a_log, h0)
 
+
+def _kernel_forward(x, dt, b_in, c_out, a_log, h0):
+    """One launch of the forward kernel on CUDA tensors."""
+    global launches
+    bsz, s, d = x.shape
+    n = b_in.shape[2]
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype
                                      for t in (dt, b_in, c_out)):
         raise TypeError(f"ssm_scan kernel takes f32 or bf16 x, dt, b_in, "
@@ -145,3 +213,89 @@ def ssm_scan(x, dt, b_in, c_out, a_log, h0=None):
         raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {err}")
     launches += 1
     return y, h_end
+
+
+def _kernel_backward(x, dt, b_in, c_out, a_log, h0, dy, dh_end):
+    """One launch of the backward kernel on CUDA tensors (f32), then the
+    partials summed over their partial axes."""
+    global bwd_launches
+    bsz, s, d = x.shape
+    n = b_in.shape[2]
+    lib = _bwd_lib()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dy = dy.float().contiguous()
+    if dh_end is not None:
+        dh_end = dh_end.float().contiguous()
+    groups = int(lib.ssm_scan_bwd_sizes(bsz, s, d, n, 1))
+    dx = torch.empty((bsz, s, d), **f32)
+    ddt = torch.empty((bsz, s, d), **f32)
+    dbc = torch.empty((bsz, groups, s, 2 * n), **f32)
+    da = torch.empty((bsz, d, n), **f32)
+    dh0 = torch.empty((bsz, d, n), **f32)
+    hck = torch.empty(int(lib.ssm_scan_bwd_sizes(bsz, s, d, n, 0)), **f32)
+    with torch.cuda.device(x.device):
+        err = lib.ssm_scan_bwd_f32(
+            x.data_ptr(), dt.data_ptr(), b_in.data_ptr(), c_out.data_ptr(),
+            a_log.data_ptr(), None if h0 is None else h0.data_ptr(),
+            dy.data_ptr(), None if dh_end is None else dh_end.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), dbc.data_ptr(), da.data_ptr(),
+            dh0.data_ptr(), hck.data_ptr(), bsz, s, d, n,
+            *x.stride(), *dt.stride(), *b_in.stride(), *c_out.stride(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssm_scan_bwd_f32 launch failed: CUDA error "
+                           f"{err}")
+    bwd_launches += 1
+    return (dx, ddt, dbc[..., :n].sum(dim=1), dbc[..., n:].sum(dim=1),
+            da.sum(dim=0), dh0)
+
+
+class SSMScanFn(torch.autograd.Function):
+    """``ssm_scan`` with a gradient: on CUDA tensors the forward and
+    backward kernels; on CPU tensors ``ssm_scan_plain`` and
+    ``ssm_scan_bwd_plain``.  Returns (y, h_end)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, b_in, c_out, a_log, h0):
+        if x.device.type == "cuda":
+            y, h_end = _kernel_forward(x, dt, b_in, c_out, a_log, h0)
+        else:
+            y, h_end = ssm_scan_plain(x, dt, b_in, c_out, a_log, h0)
+        ctx.save_for_backward(x, dt, b_in, c_out, a_log, h0)
+        ctx.set_materialize_grads(False)
+        return y, h_end
+
+    @staticmethod
+    def backward(ctx, dy, dh_end):
+        x, dt, b_in, c_out, a_log, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        bwd = (_kernel_backward if x.device.type == "cuda"
+               else ssm_scan_bwd_plain)
+        dx, ddt, db, dc, da_log, dh0 = bwd(x, dt, b_in, c_out, a_log, h0,
+                                           dy, dh_end)
+        return (dx.to(x.dtype), ddt.to(dt.dtype), db.to(b_in.dtype),
+                dc.to(c_out.dtype), da_log.to(a_log.dtype),
+                None if h0 is None else dh0.to(h0.dtype))
+
+
+def ssm_scan(x, dt, b_in, c_out, a_log, h0=None):
+    """x, dt (B,S,D); b_in, c_out (B,S,N); a_log (D,N) f32; h0 (B,D,N)
+    f32 or None -> (y (B,S,D) in x's dtype, h_end (B,D,N) f32).
+
+    On a CUDA tensor this launches the kernel on the current stream and
+    does not synchronize: x, dt, b_in, c_out f32 or bf16 of one dtype
+    (any strides), N in ``STATE_SIZES``; anything else raises.  On the
+    CPU it is ``ssm_scan_plain``.  With grad mode on and an input that
+    requires grad it is ``SSMScanFn`` (f32 only: bf16 raises
+    ``NotImplementedError``).
+    """
+    _check(x, dt, b_in, c_out, a_log, h0)
+    ins = (x, dt, b_in, c_out, a_log) + (() if h0 is None else (h0,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        if any(t.dtype == torch.bfloat16 for t in ins):
+            raise NotImplementedError(NO_BF16_GRAD)
+        return SSMScanFn.apply(x, dt, b_in, c_out, a_log, h0)
+    if x.device.type != "cuda":
+        return ssm_scan_plain(x, dt, b_in, c_out, a_log, h0)
+    return _kernel_forward(x, dt, b_in, c_out, a_log, h0)

@@ -1,4 +1,8 @@
-"""FedDCT and its baselines, sync and async, on the paper's CNN workloads.
+"""FedDCT and its baselines, sync and async, on the paper's CNN workloads
+and on any registered LM arch (reduced: ``fl/client.py: LMTrainer``).
+
+    PYTHONPATH=src python -m repro_torch.launch.fl_train --arch llama3.2-1b \\
+        --method feddct --rounds 20 --clients 10 --mu 0.2
 
     PYTHONPATH=src python -m repro_torch.launch.fl_train --arch cnn-mnist \\
         --method feddct --rounds 20 --clients 50 --tiers 5 --tau 5
@@ -41,7 +45,7 @@ from repro_torch.fl.network import WirelessNetwork
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="cnn-mnist")
+    ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--method", default="feddct",
                     choices=["feddct", "fedavg", "tifl", "fedasync",
                              "fedprox", "fedbuff", "feddct_async"])

@@ -1,21 +1,41 @@
-"""Prefill / serve steps and the analytic model FLOPs (the JAX
-package's ``launch/steps.py``, serving half).
+"""Train / prefill / serve steps and the analytic model FLOPs (the JAX
+package's ``launch/steps.py``).
 
 The steps are plain functions over real tensors: PyTorch runs eagerly,
-so there is no jit and no abstract (ShapeDtypeStruct) form.
+so there is no jit.  The abstract (ShapeDtypeStruct) forms
+(``input_specs``, ``abstract_*``) belong to the dry run, a later slice.
 ``make_serve_loop`` is a Python loop of greedy decode steps.
+
+``make_train_step``'s step writes the parameters and the optimizer
+state IN PLACE, leaf by leaf, and returns them: a full-width f32 model
+with its AdamW moments is 24-32 GB, and the reference's functional
+update would hold a second copy of all of it.  The arithmetic of each
+leaf is the reference's (``optim``'s ``update`` and ``apply_updates``
+on that leaf).
 """
 
 from __future__ import annotations
 
+import gc
+import sys
+from typing import Optional
+
 import torch
 
 from repro_torch.config.base import InputShape, ModelConfig, TrainConfig
-from repro_torch.models.transformer import decode_step, forward, lm_head
+from repro_torch.models.transformer import (decode_step, forward, lm_head,
+                                            lm_loss)
+from repro_torch.optim import global_norm, make_optimizer
+from repro_torch.optim.optimizer import apply_updates
+from repro_torch.tree import tree_flatten, tree_unflatten
 
 # window used when a full-attention dense arch runs long_500k as its
 # sliding-window variant
 SWA_OVERRIDE_WINDOW = 8192
+
+
+def _dtype(tcfg: TrainConfig):
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[tcfg.dtype]
 
 
 def swa_window_for(cfg: ModelConfig, shape: InputShape,
@@ -29,6 +49,105 @@ def swa_window_for(cfg: ModelConfig, shape: InputShape,
     if enabled or cfg.family in ("dense", "vlm"):
         return SWA_OVERRIDE_WINDOW
     return -1
+
+
+def ready_checkpoint() -> None:
+    """Import what ``torch.utils.checkpoint`` imports at its first call
+    (``torch._dynamo``; seconds on a CUDA build), and collect the
+    reference cycles that import leaves: they hold the frames on the
+    stack during it, so done inside a step they would keep that step's
+    locals -- a full-width model's gradients -- alive until the cyclic
+    garbage collector ran.  The train entry points call this before
+    they make a model."""
+    if "torch._dynamo" not in sys.modules:
+        import torch._dynamo  # noqa: F401
+        gc.collect()
+
+
+def loss_and_grads(loss_fn, params):
+    """``jax.value_and_grad(loss_fn, has_aux=True)`` over a parameter
+    tree: (loss, aux, grads), grads a tree of ``params``' structure."""
+    leaves, treedef = tree_flatten(params)
+    leaves = [l.detach().requires_grad_(True) for l in leaves]
+    loss, aux = loss_fn(tree_unflatten(treedef, leaves))
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), aux.detach(), tree_unflatten(treedef,
+                                                       list(grads))
+
+
+def update_in_place(opt, params, opt_state, grads, lr, grad_scale=None):
+    """``opt.update`` then ``apply_updates``, one leaf at a time, each
+    result written into the leaf of ``params`` and ``opt_state`` it
+    replaces: the optimizer's per-leaf arithmetic with one leaf's
+    temporaries alive at a time.  Works for any state whose leaves
+    other than the step count ``t`` mirror ``params`` (sgd, momentum,
+    adam, adamw).  ``grad_scale``: each gradient first becomes
+    ``(g.float() * grad_scale).to(g.dtype)``, ``clip_by_global_norm``'s
+    arithmetic.  Returns (params, opt_state)."""
+    p_leaves, treedef = tree_flatten(params)
+    g_leaves = tree_flatten(grads)[0]
+    if grad_scale is not None:
+        g_leaves = ((g.float() * grad_scale).to(g.dtype) for g in g_leaves)
+    if isinstance(opt_state, dict) and "t" in opt_state:      # adam(w)
+        m_leaves = tree_flatten(opt_state["m"])[0]
+        v_leaves = tree_flatten(opt_state["v"])[0]
+        t = opt_state["t"]
+        for p, g, m, v in zip(p_leaves, g_leaves, m_leaves, v_leaves):
+            ups, new = opt.update({"x": g}, {"m": {"x": m}, "v": {"x": v},
+                                              "t": t}, {"x": p}, lr)
+            p.copy_(apply_updates({"x": p}, ups)["x"])
+            m.copy_(new["m"]["x"])
+            v.copy_(new["v"]["x"])
+        t.add_(1)
+        return params, opt_state
+    state_leaves = tree_flatten(opt_state)[0]
+    for i, (p, g) in enumerate(zip(p_leaves, g_leaves)):
+        sub = (() if not state_leaves
+               else {"x": state_leaves[i]})
+        ups, new = opt.update({"x": g}, sub, {"x": p}, lr)
+        p.copy_(apply_updates({"x": p}, ups)["x"])
+        if state_leaves:
+            state_leaves[i].copy_(new["x"])
+    return params, opt_state
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig(),
+                    lr: Optional[float] = None):
+    """(train_step, opt): ``train_step(params, opt_state, batch) ->
+    (params, opt_state, metrics)``, the gradient of ``lm_loss``
+    clipped to ``tcfg.grad_clip`` global norm, then one optimizer
+    update.  ``params`` and ``opt_state`` are updated in place and
+    returned; ``metrics`` holds ``loss``, ``aux`` and ``grad_norm``
+    (0-d tensors on the device, no host sync)."""
+    ready_checkpoint()
+    opt = make_optimizer(tcfg.optimizer, weight_decay=tcfg.weight_decay)
+    lr = tcfg.lr if lr is None else lr
+    moe_group = tcfg.moe_group_tokens
+
+    def train_step(params, opt_state, batch):
+        def loss_fn(p):
+            return lm_loss(cfg, p, batch, chunk_q=tcfg.attn_chunk_q,
+                           chunk_kv=tcfg.attn_chunk_kv,
+                           moe_group=moe_group, remat=tcfg.remat,
+                           context_parallel=tcfg.context_parallel,
+                           seq_parallel=tcfg.seq_parallel,
+                           remat_policy=tcfg.remat_policy)
+        loss, aux, grads = loss_and_grads(loss_fn, params)
+        with torch.no_grad():
+            scale = None
+            if tcfg.grad_clip:
+                # clip_by_global_norm, its scale applied leaf by leaf
+                gnorm = global_norm(grads)
+                scale = torch.clamp(
+                    tcfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+            else:
+                gnorm = torch.zeros((), device=loss.device)
+            params, opt_state = update_in_place(opt, params, opt_state,
+                                                grads, lr, scale)
+        metrics = {"loss": loss, "aux": aux, "grad_norm": gnorm}
+        return params, opt_state, metrics
+
+    return train_step, opt
 
 
 def make_prefill_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()):

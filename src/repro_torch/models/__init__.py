@@ -4,9 +4,10 @@ from repro_torch.models.transformer import (
     forward,
     init_decode_state,
     init_model,
+    lm_loss,
 )
 
 __all__ = [
-    "init_model", "forward", "decode_step", "init_decode_state",
+    "init_model", "forward", "lm_loss", "decode_step", "init_decode_state",
     "init_cnn", "cnn_forward", "cnn_loss",
 ]

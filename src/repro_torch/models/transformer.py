@@ -4,7 +4,10 @@ families (the JAX package's ``models/transformer.py``).
 Parameters are plain dicts with the reference's key names; the blocks
 are stacked (leading L axis), so ``bridge.from_reference`` carries a
 JAX parameter tree across unchanged.  The reference's ``lax.scan`` over
-layers is a Python loop over ``blocks[...][l]`` views.  Decode carries
+layers is a Python loop over ``blocks[...][l]`` views, and its
+``jax.checkpoint`` (``remat``) is ``torch.utils.checkpoint``
+(non-reentrant) around each block.  ``lm_loss`` is the reference's
+sequence-chunked cross entropy.  Decode carries
 per-layer caches, stacked the same way, and writes them IN PLACE (the
 KV ring cache of a full-width model is hundreds of MB); the position
 counter is a host int.
@@ -18,9 +21,12 @@ slice ports them.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.config.base import ModelConfig
@@ -154,8 +160,25 @@ def _block_apply(p, cfg: ModelConfig, x, positions, *, window: int,
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (train / prefill)
 # ---------------------------------------------------------------------------
+
+# The matrix products without batch dimensions, whose outputs the
+# "dots" policy keeps (``jax.checkpoint_policies.
+# dots_with_no_batch_dims_saveable``): ``x @ W`` of a (B,S,d) activation
+# and a (d,F) weight is one ``mm`` (or ``addmm``); the attention's
+# batched einsums are ``bmm`` and are recomputed.
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
 
 def embed_inputs(cfg: ModelConfig, params, batch):
     """Token embeddings (the audio frontend waits with its family)."""
@@ -164,15 +187,19 @@ def embed_inputs(cfg: ModelConfig, params, batch):
 
 def forward(cfg: ModelConfig, params, batch, *, window: int = -1,
             chunk_q: int = 512, chunk_kv: int = 1024, ssm_chunk: int = 256,
-            moe_group: int = 0, return_hidden=False,
-            context_parallel: str = "auto", seq_parallel: bool = False):
+            moe_group: int = 0, remat: bool = False, return_hidden=False,
+            context_parallel: str = "auto", seq_parallel: bool = False,
+            remat_policy: str = "full"):
     """Full-sequence forward.  Returns (logits, aux_loss).
 
     ``window``: -1 => use cfg.sliding_window; 0 => force full attention;
     >0 => override (used for the long_500k SWA variants of dense archs).
     ``seq_parallel`` is the reference's residual-stream hint, a no-op
-    without a mesh.  The reference's ``remat`` options belong to
-    training, which a later slice ports.
+    without a mesh.  ``remat``: each block under ``torch.utils.
+    checkpoint`` (non-reentrant): ``remat_policy="full"`` keeps only the
+    block's input and recomputes the rest in the backward; ``"dots"``
+    also keeps the outputs of its matrix products (``_dots_policy``).
+    Either way the gradients are the same bits as without remat.
     """
     _check_family(cfg)
     x = embed_inputs(cfg, params, batch)
@@ -183,17 +210,66 @@ def forward(cfg: ModelConfig, params, batch, *, window: int = -1,
     positions = torch.arange(s, device=x.device)[None, :]
     w = cfg.sliding_window if window < 0 else window
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = functools.partial(_block_apply, cfg=cfg, positions=positions,
+                              window=w, chunk_q=chunk_q, chunk_kv=chunk_kv,
+                              ssm_chunk=ssm_chunk, moe_group=moe_group,
+                              context_parallel=context_parallel)
+    if remat:
+        kw = ({"context_fn": _dots_context} if remat_policy == "dots"
+              else {})
+        plain_block = block
+
+        def block(p, x):
+            return checkpoint(plain_block, p, x=x, use_reentrant=False,
+                              **kw)
     for l in range(cfg.num_layers):
-        x, a = _block_apply(_layer(params["blocks"], l), cfg, x, positions,
-                            window=w, chunk_q=chunk_q, chunk_kv=chunk_kv,
-                            ssm_chunk=ssm_chunk, moe_group=moe_group,
-                            context_parallel=context_parallel)
+        x, a = block(_layer(params["blocks"], l), x=x)
         x = res_hint(x)
         aux = aux + a
     x = rms_norm(x, params["final_norm"])
     if return_hidden:
         return x, aux
     return x @ lm_head(params), aux
+
+
+def _chunk_ce(h, t, head):
+    """Sum over a chunk of ``logsumexp(logits) - logits[gold]``, the
+    logits (B,c,V) in f32."""
+    logits = (h @ head).float()
+    logits = hint(logits, "batch", None, "model")
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def lm_loss(cfg: ModelConfig, params, batch, *, loss_chunk: int = 512,
+            **fwd_kw):
+    """Sequence-chunked cross-entropy (never keeps (B,S,V) f32 logits
+    for the backward).
+
+    Causal LM: predict token t+1 from t.  The shifted sequence is cut
+    into chunks of ``loss_chunk`` (one chunk when that does not divide
+    it, as in the reference); each chunk's logits are recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant: the
+    reference's ``@jax.checkpoint``).  Returns (loss + 0.01 * aux, aux),
+    the loss the mean over ``b * s``.
+    """
+    _check_family(cfg)
+    hidden, aux = forward(cfg, params, batch, return_hidden=True, **fwd_kw)
+    head = lm_head(params)
+    tokens = batch["tokens"]
+    hs, tg = hidden[:, :-1], tokens[:, 1:]
+    b, s, _ = hs.shape
+    c = min(loss_chunk, s)
+    if s % c:
+        c = s
+    total = torch.zeros((), dtype=torch.float32, device=hs.device)
+    for i in range(s // c):
+        sl = slice(i * c, (i + 1) * c)
+        total = total + checkpoint(_chunk_ce, hs[:, sl], tg[:, sl], head,
+                                   use_reentrant=False)
+    loss = total / (b * s)
+    return loss + 0.01 * aux, aux
 
 
 # ---------------------------------------------------------------------------

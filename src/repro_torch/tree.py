@@ -11,44 +11,51 @@ from __future__ import annotations
 from typing import Any, Callable, List, Tuple
 
 
+# The recursions are module-level functions, not closures: a nested
+# function that calls itself sits in a reference cycle (function ->
+# cell -> function) with everything it closes over, so each call would
+# keep its leaves alive until the cyclic garbage collector ran -- at a
+# full-width model's size, gigabytes of gradients and optimizer
+# temporaries held past their last use.
+
+def _flatten(node, leaves: List[Any]):
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return ("dict", keys, tuple(_flatten(node[k], leaves) for k in keys))
+    if isinstance(node, (list, tuple)):
+        return (type(node).__name__, tuple(_flatten(c, leaves)
+                                           for c in node))
+    if node is None:
+        return ("none",)
+    leaves.append(node)
+    return ("leaf",)
+
+
 def tree_flatten(tree) -> Tuple[List[Any], tuple]:
     """-> (leaves, treedef).  ``treedef`` is a hashable nested tuple."""
     leaves: List[Any] = []
-
-    def rec(node):
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return ("dict", keys, tuple(rec(node[k]) for k in keys))
-        if isinstance(node, (list, tuple)):
-            return (type(node).__name__, tuple(rec(c) for c in node))
-        if node is None:
-            return ("none",)
-        leaves.append(node)
-        return ("leaf",)
-
-    return leaves, rec(tree)
+    return leaves, _flatten(tree, leaves)
 
 
 def tree_leaves(tree) -> List[Any]:
     return tree_flatten(tree)[0]
 
 
+def _unflatten(td: tuple, it):
+    kind = td[0]
+    if kind == "dict":
+        return {k: _unflatten(c, it) for k, c in zip(td[1], td[2])}
+    if kind == "list":
+        return [_unflatten(c, it) for c in td[1]]
+    if kind == "tuple":
+        return tuple(_unflatten(c, it) for c in td[1])
+    if kind == "none":
+        return None
+    return next(it)
+
+
 def tree_unflatten(treedef: tuple, leaves):
-    it = iter(leaves)
-
-    def rec(td):
-        kind = td[0]
-        if kind == "dict":
-            return {k: rec(c) for k, c in zip(td[1], td[2])}
-        if kind == "list":
-            return [rec(c) for c in td[1]]
-        if kind == "tuple":
-            return tuple(rec(c) for c in td[1])
-        if kind == "none":
-            return None
-        return next(it)
-
-    return rec(treedef)
+    return _unflatten(treedef, iter(leaves))
 
 
 def tree_map(fn: Callable, tree, *rest):

@@ -31,7 +31,8 @@ pt_tiering = importlib.import_module("repro_torch.core.tiering")
 SRC = Path(__file__).resolve().parents[1] / "src"
 COPIED = ["config/base.py", "config/__init__.py", "configs/paper_models.py",
           "configs/llama3_2_1b.py", "configs/hymba_1_5b.py",
-          "configs/shapes.py",
+          "configs/granite_20b.py", "configs/nemotron_4_340b.py",
+          "configs/phi4_mini_3_8b.py", "configs/shapes.py",
           "core/tiering.py", "core/selection.py", "fl/network.py",
           "fl/metrics.py", "data/synthetic.py", "data/partition.py",
           "data/pipeline.py", "data/__init__.py"]
@@ -162,7 +163,8 @@ def test_run_history_json_matches_and_round_trips():
 
 @pytest.mark.parametrize("arch", ["cnn-mnist", "cnn-fmnist",
                                   "resnet8-cifar10", "llama3.2-1b",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "granite-20b",
+                                  "nemotron-4-340b", "phi4-mini-3.8b"])
 def test_arch_configs_match(arch):
     a, b = ref_config.get_arch(arch), pt_config.get_arch(arch)
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
@@ -173,10 +175,11 @@ def test_arch_configs_match(arch):
 def test_fl_config_defaults_match_and_port_registers_cnn_family_only():
     assert dataclasses.asdict(ref_config.FLConfig()) == \
         dataclasses.asdict(pt_config.FLConfig())
-    # the CNN family and the two LM configs of the serving path
+    # the CNN family and the LM configs of the dense and hybrid families
     assert pt_config.list_archs() == ["cnn-fmnist", "cnn-mnist",
-                                      "hymba-1.5b", "llama3.2-1b",
-                                      "resnet8-cifar10"]
+                                      "granite-20b", "hymba-1.5b",
+                                      "llama3.2-1b", "nemotron-4-340b",
+                                      "phi4-mini-3.8b", "resnet8-cifar10"]
 
 
 # The public constructors of model state: ``cuda`` by default, the CPU

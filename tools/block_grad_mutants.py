@@ -1,0 +1,174 @@
+#!/usr/bin/env python3
+"""Planted faults in the backward kernels of K4 and K5, read by
+``chip_smoke.py``'s gradient checks on one GPU.
+
+    python3 tools/block_grad_mutants.py [--only sound,ssm_da_no_a,...]
+
+Each mutant is a copy of ``src/repro_torch`` and ``chip_smoke.py`` under
+``build/block_grad_mutants/NAME/`` with one text patch in a backward
+kernel's source (``sound``: none).  The unpatched sources are built once
+into ``build/`` and their libraries copied into every copy; each copy
+builds its patched source itself, all copies at once.  Each copy then
+runs, in its own process:
+
+* ``chip_smoke.lm_block_grads_vs_plain()`` -- one full-width hymba-1.5b
+  block (B=1, S=2048) through the kernels against the plain twins --
+  with the tolerance lifted, so that it reports each leaf's max abs
+  error over the leaf's largest gradient whatever it is;
+* ``chip_smoke.kernel_bwd_checks()``, which passes or names its first
+  failure.
+
+A mutant line gives the block's largest reading and its leaf, whether
+``chip_smoke.BLOCK_GRAD_RTOL`` catches it, and the kernel checks'
+verdict.  The last line of standard output is one JSON object of all
+mutants.  Needs one CUDA card and nvcc; exits non-zero otherwise, or
+when the sound copy fails or reads above the tolerance.
+
+Mutants:
+  sound                  the committed kernels
+  ssm_da_no_a            K5: dA_log without its factor A
+  ssm_ddt_no_decay       K5: ddt without its A a_t h_{t-1} term
+  ssm_dc_prev_state      K5: dC from h_{t-1} instead of h_t
+  fa_window_edge         K4: the backward's band one key short at the
+                         window's far edge (the forward's lse unchanged)
+  fa_no_key_zero         K4: a row that sees no key gives P = 0, not 1/T
+                         (no such row in a causal block: the block check
+                         cannot see it, the kernel checks can)
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+OUT = ROOT / "build" / "block_grad_mutants"
+SOURCES = ("flash_attention", "flash_attention_bwd", "ssm_scan",
+           "ssm_scan_bwd")
+
+# name -> (source, anchor, replacement); the anchor occurs once
+MUTANTS = {
+    "sound": None,
+    "ssm_da_no_a": ("ssm_scan_bwd",
+                    "da[hrow + n] = A[n] * dacc[n];",
+                    "da[hrow + n] = dacc[n];"),
+    "ssm_ddt_no_decay": ("ssm_scan_bwd",
+                         "sdt = fmaf(gr[n], fmaf(xv, bn, ha), sdt);",
+                         "sdt = fmaf(gr[n], xv * bn + 0.0f * ha, sdt);"),
+    "ssm_dc_prev_state": ("ssm_scan_bwd",
+                          "vals[N + n] = hc * dyv;",
+                          "vals[N + n] = hp * dyv;"),
+    "fa_window_edge": ("flash_attention_bwd",
+                       "lo = window > 0 ? max(0, p - window + 1) : 0;",
+                       "lo = window > 0 ? max(0, p - window + 2) : 0;"),
+    "fa_no_key_zero": ("flash_attention_bwd",
+                       "p = inv_t;",
+                       "p = 0.0f;"),
+}
+
+# run in each copy: the copy's chip_smoke and repro_torch, its tolerance
+# lifted for the block reading
+CHILD = r"""
+import json, math, sys
+import chip_smoke as c
+from repro_torch import set_full_f32
+set_full_f32()
+rtol = c.BLOCK_GRAD_RTOL
+c.BLOCK_GRAD_RTOL = math.inf
+block = c.lm_block_grads_vs_plain()
+worst = max(block["rel_err_by_leaf"], key=block["rel_err_by_leaf"].get)
+try:
+    c.kernel_bwd_checks()
+    checks = "passed"
+except SystemExit as e:
+    checks = str(e)
+print(json.dumps({"max_rel_err": block["max_rel_err"], "worst_leaf": worst,
+                  "rtol": rtol, "caught": block["max_rel_err"] > rtol,
+                  "kernel_bwd_checks": checks}))
+"""
+
+
+def patched_source(name):
+    """The text of the mutant's patched source (None for ``sound``)."""
+    spec = MUTANTS[name]
+    if spec is None:
+        return None
+    source, old, new = spec
+    src = (ROOT / "src/repro_torch/kernels/csrc" / f"{source}.cu").read_text()
+    if src.count(old) != 1:
+        raise SystemExit(f"block_grad_mutants: {name}: anchor not found "
+                         f"once in {source}.cu: {old!r}")
+    return source, src.replace(old, new)
+
+
+def make_copy(name, libs):
+    """``build/block_grad_mutants/NAME/`` with the package, the script,
+    the mutant's source and the unpatched sources' libraries."""
+    dest = OUT / name
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(ROOT / "src" / "repro_torch", dest / "src/repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy2(ROOT / "chip_smoke.py", dest / "chip_smoke.py")
+    (dest / "build").mkdir()
+    patch = patched_source(name)
+    if patch is not None:
+        source, text = patch
+        (dest / "src/repro_torch/kernels/csrc" / f"{source}.cu").write_text(
+            text)
+    for source, lib in libs.items():
+        if patch is None or source != patch[0]:
+            shutil.copy2(lib, dest / "build" / lib.name)
+    return dest
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default="",
+                    help="comma-separated mutants (default: all)")
+    args = ap.parse_args(argv)
+    names = [n for n in args.only.split(",") if n] or list(MUTANTS)
+    unknown = set(names) - set(MUTANTS)
+    if unknown:
+        raise SystemExit(f"block_grad_mutants: unknown {sorted(unknown)}")
+    for name in names:
+        patched_source(name)           # every anchor, before any build
+    import torch
+    if not torch.cuda.is_available():
+        print("block_grad_mutants: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    libs = _build.build(SOURCES)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = {}
+    for name in names:
+        dest = make_copy(name, libs)
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-c", CHILD], cwd=dest, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    results, ok = {}, True
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            results[name] = {"error": err.strip().splitlines()[-20:]}
+            ok = False
+        else:
+            results[name] = json.loads(out.strip().splitlines()[-1])
+        print(json.dumps({"mutant": name, "patch": MUTANTS[name] and
+                          list(MUTANTS[name]), **results[name]}),
+              flush=True)
+    sound = results.get("sound")
+    if sound is not None and ("error" in sound or sound["caught"]
+                              or sound["kernel_bwd_checks"] != "passed"):
+        ok = False
+    print(json.dumps({"mutants": results}), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
