@@ -43,6 +43,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -94,14 +95,17 @@ STORE_KEYS = {"store", "store_path", "store_reason", "residency",
               "store_bytes_ef"}
 
 
-# host clock at the start of main() and at the last phase line
-_CLOCK = {}
+# host clock when the script was loaded (before torch is imported) and
+# at the last phase line
+_CLOCK = {"start": time.perf_counter()}
+_CLOCK["last"] = _CLOCK["start"]
 
 
 def emit(obj) -> None:
     """One JSON line; a phase line also carries its seconds since the
-    previous phase line (``phase_s``) and since the start (``elapsed_s``)."""
-    if "phase" in obj and _CLOCK:
+    previous phase line (``phase_s``) and since the script was loaded
+    (``elapsed_s``)."""
+    if "phase" in obj:
         now = time.perf_counter()
         obj = {**obj, "phase_s": now - _CLOCK["last"],
                "elapsed_s": now - _CLOCK["start"]}
@@ -2670,6 +2674,77 @@ def check_under_checkpoint():
             "launches_without": plain_c, "bitwise_equal": True}
 
 
+def check_bwd_misaligned():
+    """A q that sits 4 bytes off a 16-byte boundary (a contiguous view one
+    float into its buffer): the forward runs, the backward raises
+    ``ValueError`` before either backward kernel launches."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    b, s, h, hkv, d = 1, 64, 4, 1, 64
+    buf = torch.randn(b * s * h * d + 1, generator=gen, device="cuda")
+    q = buf[1:].view(b, s, h, d).requires_grad_(True)
+    k, v = (torch.randn(b, s, hkv, d, generator=gen, device="cuda")
+            .requires_grad_(True) for _ in range(2))
+    if q.data_ptr() % 16 == 0 or not q.is_contiguous():
+        fail("check_bwd_misaligned: the view is not a misaligned "
+             "contiguous tensor")
+    out = fa.flash_attention(q, k, v)
+    before = counts()
+    try:
+        torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    except ValueError as e:
+        if counts() != before:
+            fail("check_bwd_misaligned: launched before raising")
+        return {"case": "misaligned-q", "q_address_mod_16":
+                q.data_ptr() % 16, "raised": "ValueError",
+                "message": str(e)}
+    fail("check_bwd_misaligned: a misaligned q did not raise")
+
+
+def bwd_library_sass():
+    """The built ``flash_attention_bwd`` library as ``cuobjdump`` reads
+    it: each kernel's TF32 tensor-core instructions (``HMMA`` with
+    ``TF32``), registers and local-memory (spill) bytes; fails when a
+    kernel has no TF32 HMMA.  ``seconds``: what the two reads took."""
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    lib = _build.build(["flash_attention_bwd"])["flash_attention_bwd"]
+    tool = str(Path(_build._nvcc()).parent / "cuobjdump")
+
+    def dump(flag):
+        return subprocess.run([tool, flag, str(lib)], check=True,
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+
+    # mangled names: fa_bwd_dq_kernel<D>, fa_bwd_dkdv_kernel<D>
+    name = r"_Z\d+(fa_bwd_\w+?_kernel)ILi(\d+)EE"
+
+    def key(m):
+        return f"{m.group(1)}<{m.group(2)}>"
+
+    kernels, current = {}, None
+    for line in dump("-sass").splitlines():
+        m = re.search(r"Function : " + name, line)
+        if m:
+            current = key(m)
+            kernels[current] = {"tf32_hmma": 0}
+        elif current and "HMMA" in line and "TF32" in line:
+            kernels[current]["tf32_hmma"] += 1
+    for m in re.finditer(name + r"\S*:\s*REG:(\d+) STACK:(\d+) \S+ "
+                         r"LOCAL:(\d+)", dump("-res-usage")):
+        kernels[key(m)].update(
+            registers=int(m.group(3)), stack_bytes=int(m.group(4)),
+            local_bytes=int(m.group(5)))
+    want = {f"fa_bwd_{kind}_kernel<{d}>" for kind in ("dq", "dkdv")
+            for d in (16, 32, 64)}
+    if set(kernels) != want or not all(k["tf32_hmma"] for k in
+                                       kernels.values()):
+        fail(f"flash_attention_bwd library: a kernel without TF32 HMMA: "
+             f"{kernels}")
+    return {**kernels, "seconds": time.perf_counter() - t0}
+
+
 def kernel_bwd_checks():
     """K4's two backward kernels and K5's backward kernel against
     autograd of their plain twins on the card (f32): small and odd
@@ -2684,9 +2759,9 @@ def kernel_bwd_checks():
     from repro_torch.kernels import ssm_scan as ss
     gen = torch.Generator(device="cuda").manual_seed(20)
 
-    def qkvd(b, s, t, h, hkv, d):
+    def qkvd(b, s, t, h, hkv, d, g=gen):
         def r(*shape):
-            return torch.randn(*shape, generator=gen, device="cuda")
+            return torch.randn(*shape, generator=g, device="cuda")
         return r(b, s, h, d), r(b, t, hkv, d), r(b, t, hkv, d), \
             r(b, s, h, d)
 
@@ -2707,6 +2782,21 @@ def kernel_bwd_checks():
                         *qkvd(1, 2048, 2048, 25, 5, 64), window=1024),
         check_flash_bwd("llama-layer-2x2048-gqa4-causal",
                         *qkvd(2, 2048, 2048, 32, 8, 64)),
+    ]
+    # the edges of the tensor-core tiling (64 rows by 64 keys), on their
+    # own generator: S and T off the tile at D = 16 and 32 with window
+    # and q_offset; a GQA-5 band over 16 key tiles (blocks far below the
+    # SM count)
+    edge = torch.Generator(device="cuda").manual_seed(26)
+    fa_rows += [
+        check_flash_bwd("ragged-91x157-d16-window40-offset66",
+                        *qkvd(2, 91, 157, 6, 2, 16, edge), window=40,
+                        q_offset=66),
+        check_flash_bwd("ragged-130x99-d32-full-window50-offset20",
+                        *qkvd(1, 130, 99, 4, 1, 32, edge), causal=False,
+                        window=50, q_offset=20),
+        check_flash_bwd("gqa5-1x1000-window300-16-key-tiles",
+                        *qkvd(1, 1000, 1000, 5, 1, 64, edge), window=300),
     ]
     ss_rows = []
     for n in (4, 8, 16):
@@ -2736,7 +2826,9 @@ def kernel_bwd_checks():
     return {"rtol": BWD_RTOL, "atol": BWD_ATOL,
             "atol_scaled_by": "max(1, max |want|) per gradient",
             "flash_attention_bwd": fa_rows, "ssm_scan_bwd": ss_rows,
-            "raises": raises, "checkpoint": check_under_checkpoint()}
+            "raises": raises + [check_bwd_misaligned()],
+            "checkpoint": check_under_checkpoint(),
+            "flash_attention_bwd_sass": bwd_library_sass()}
 
 
 # ---------------------------------------------------------------------
@@ -2760,8 +2852,10 @@ CONSISTENCY_S = 1280
 CONSISTENCY_CHUNK = 256
 # its depth, cut from hymba's 32 layers at full width: the 1280 decode
 # steps are host-bound (~270 PyTorch ops a layer a step), so the
-# script's time limit, not the card, sets the number of layers
-CONSISTENCY_LAYERS = 8
+# script's time limit, not the card, sets the number of layers (8 took
+# 24-31 s of the script on one H100's host; 4 keep every layer kind the
+# check reads: banded attention, the SSM, the ring cache)
+CONSISTENCY_LAYERS = 4
 # f32 logits of a random-weight model (up to 32 layers), two orders of summation
 # (GEMM vs GEMV products, chunked vs stepwise scan, kernel vs plain
 # softmax): absolute, on logits of order one
@@ -3682,25 +3776,49 @@ FA_BWD_WORK = (
     ("pair", 5, {"q": 3, "kv": 2, "row": 1}, {"q": 1, "kv": 2}))
 
 
+# dense TF32 on the tensor cores, H100 SXM
+TF32_TENSOR_FLOPS_PER_S = 494.7e12
+# TF32 products a f32 product in split TF32 (lo.hi + hi.lo + hi.hi)
+SPLIT_TF32_PRODUCTS = 3
+
+
 def flash_bwd_bound_ms(qs, ks, dots, reads, writes, q_offset=0, causal=True,
                        window=0):
-    """Least time for one backward kernel (or the pair): ``dots`` D-long
-    f32 dot products (2*D flops each) and one exp per visible (q, k)
-    pair of a head, against the f32 CUDA-core peak and the SFU's exp
-    rate; the f32 tensors it must read and write once (``reads``,
-    ``writes``: counts of q-sized, kv-sized and row-sized tensors)
-    against HBM.  Returns (ms, "operations" or "bytes", flops, exps)."""
+    """Least time for one backward kernel (or the pair, or the forward):
+    ``dots`` D-long f32 dot products (2*D flops each) and one exp per
+    visible (q, k) pair of a head, the f32 tensors it must read and
+    write once (``reads``, ``writes``: counts of q-sized, kv-sized and
+    row-sized tensors) against HBM, on either of two routes: the flops
+    on the CUDA cores (67 TFLOP/s f32), or in split TF32 on the tensor
+    cores (three TF32 products a product at 494.7 TFLOP/s); exps at the
+    SFU's rate on both.  The bound is the lesser route's.  Returns a
+    dict: ``ms``, ``by`` ("operations" or "bytes"), ``route``, ``flops``
+    (f32), ``tf32_flops``, ``exps``, ``cuda_core_ms``, ``tensor_ms``,
+    ``bytes_ms``."""
     b, s, h, d = qs
     t, hkv = ks[1], ks[2]
     pairs = b * h * visible_pairs(s, t, causal, window, q_offset)
     flops = 2 * d * dots * pairs
-    by_ops = max(flops / F32_FLOPS_PER_S, pairs / SFU_EXP_PER_S) * 1e3
+    tf32_flops = SPLIT_TF32_PRODUCTS * flops
+    by_exps = pairs / SFU_EXP_PER_S * 1e3
     sizes = {"q": b * s * h * d, "kv": b * t * hkv * d, "row": b * h * s}
     nbytes = 4 * sum(n * sizes[kind] for kind, n in
                      list(reads.items()) + list(writes.items()))
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (max(by_ops, by_bytes),
-            "operations" if by_ops >= by_bytes else "bytes", flops, pairs)
+    cuda_ops = max(flops / F32_FLOPS_PER_S * 1e3, by_exps)
+    tensor_ops = max(tf32_flops / TF32_TENSOR_FLOPS_PER_S * 1e3, by_exps)
+    ops, route = min((cuda_ops, "CUDA cores, f32"),
+                     (tensor_ops, "tensor cores, split TF32"))
+    return {"ms": max(ops, by_bytes),
+            "by": "operations" if ops >= by_bytes else "bytes",
+            "route": route, "flops": flops, "tf32_flops": tf32_flops,
+            "exps": pairs, "cuda_core_ms": max(cuda_ops, by_bytes),
+            "tensor_ms": max(tensor_ops, by_bytes), "bytes_ms": by_bytes}
+
+
+# K4's f32 forward with lse: two dots a visible pair (q.k, P.v); q, k, v
+# read, the output and lse written
+FA_FWD_WORK = (2, {"q": 1, "kv": 2}, {"q": 1, "row": 1})
 
 
 def flash_attention_bwd_times(per_step):
@@ -3711,7 +3829,8 @@ def flash_attention_bwd_times(per_step):
     ``scaled_dot_product_attention`` in f32 on its memory-efficient
     backend (the library yardstick for the pair's work: dq, dk and dv)
     and on its math backend, in turns; and the f32 forward kernel with
-    and without the log-sum-exp output."""
+    and without the log-sum-exp output beside SDPA's f32 forward alone
+    (memory-efficient backend) and the forward's bound."""
     import math
     import torch
     import torch.nn.functional as F
@@ -3783,6 +3902,16 @@ def flash_attention_bwd_times(per_step):
 
         library, lib_node = library_on(SDPBackend.EFFICIENT_ATTENTION)
         library_math, math_node = library_on(SDPBackend.MATH)
+        lib_k = k.transpose(1, 2).repeat_interleave(rep, dim=1)
+        lib_v = v.transpose(1, 2).repeat_interleave(rep, dim=1)
+        lib_q = q.transpose(1, 2)
+
+        def library_fwd():
+            """SDPA's f32 forward alone (the yardstick of the forward
+            with lse), memory-efficient backend, no grad."""
+            with torch.no_grad(), sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(lib_q, lib_k, lib_v,
+                                                      **lib_kw)
 
         def fwd_lse():
             return fa._kernel_forward(q, k, v, True, window, 0,
@@ -3803,11 +3932,13 @@ def flash_attention_bwd_times(per_step):
         lib_math_ms = median_ms(library_math, runs=3, per_run=3)
         fwd_a = median_ms(fwd_plain_out, runs=5, per_run=5)
         fwd_lse_a = median_ms(fwd_lse, runs=5, per_run=5)
+        lib_fwd_ms = median_ms(library_fwd, runs=5, per_run=5)
         dq_b = median_ms(dq_kernel, runs=5, per_run=5)
         dkdv_b = median_ms(dkdv_kernel, runs=5, per_run=5)
         pair_b = median_ms(pair, runs=5, per_run=3)
         fwd_lse_b = median_ms(fwd_lse, runs=5, per_run=5)
         fwd_b = median_ms(fwd_plain_out, runs=5, per_run=5)
+        lib_fwd_b = median_ms(library_fwd, runs=5, per_run=5)
         # the pair's results against the plain backward, f32 tolerance
         got = pair()
         want = plain()
@@ -3831,18 +3962,36 @@ def flash_attention_bwd_times(per_step):
                "fwd_f32_lse_ms": min(fwd_lse_a, fwd_lse_b),
                "fwd_turns": {"no_lse": [fwd_a, fwd_b],
                              "lse": [fwd_lse_a, fwd_lse_b]},
+               "fwd_library_ms": min(lib_fwd_ms, lib_fwd_b),
+               "fwd_library_ms_turns": [lib_fwd_ms, lib_fwd_b],
+               "fwd_library": "scaled_dot_product_attention, f32, "
+                              "memory-efficient backend, forward only, kv "
+                              "repeated",
                "launches_per_train_step":
-                   {"dq": per_step[arch]["flash_attention_bwd_dq"],
+                   {"fwd_lse": per_step[arch]["flash_attention"],
+                    "dq": per_step[arch]["flash_attention_bwd_dq"],
                     "dkdv": per_step[arch]["flash_attention_bwd_dkdv"]}}
+        dots, reads, writes = FA_FWD_WORK
+        fb = flash_bwd_bound_ms(qs, ks, dots, reads, writes, window=window)
+        row["fwd_bound"] = {
+            "ms": fb["ms"], "by": fb["by"], "route": fb["route"],
+            "flops": fb["flops"], "exps": fb["exps"],
+            "cuda_core_ms": fb["cuda_core_ms"], "tensor_ms": fb["tensor_ms"]}
         times = {"dq": min(dq_a, dq_b), "dkdv": min(dkdv_a, dkdv_b),
                  "pair": min(pair_a, pair_b)}
         for name, dots, reads, writes in FA_BWD_WORK:
             ms = times[name]
-            bound, by, flops, exps = flash_bwd_bound_ms(
-                qs, ks, dots, reads, writes, window=window)
-            row[name] = {"ms": ms, "bound_ms": bound, "bound_by": by,
-                         "flops": flops, "exps": exps,
-                         "f32_tflops": flops / ms / 1e9}
+            bound = flash_bwd_bound_ms(qs, ks, dots, reads, writes,
+                                       window=window)
+            row[name] = {"ms": ms, "bound_ms": bound["ms"],
+                         "bound_by": bound["by"],
+                         "bound_route": bound["route"],
+                         "bound_cuda_core_ms": bound["cuda_core_ms"],
+                         "bound_tensor_ms": bound["tensor_ms"],
+                         "flops": bound["flops"],
+                         "tf32_flops": bound["tf32_flops"],
+                         "exps": bound["exps"],
+                         "f32_tflops": bound["flops"] / ms / 1e9}
         row["dq"]["ms_turns"] = [dq_a, dq_b]
         row["dkdv"]["ms_turns"] = [dkdv_a, dkdv_b]
         out.append(row)
@@ -3919,7 +4068,6 @@ def run_phases() -> int:
     from repro_torch import set_full_f32
     from repro_torch.kernels import _build
 
-    _CLOCK["start"] = _CLOCK["last"] = time.perf_counter()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -4085,7 +4233,19 @@ def run_phases() -> int:
                                       "bound_ms", "bound_by", "bound_ops",
                                       "library_ms", "f32_scalar_kernel_ms",
                                       "f32_scalar_kernel_lse_ms")}
-                   for t in fa_times]}, {
+                   for t in fa_times],
+        # the f32 forward with lse that training launches, at its two
+        # layer shapes, beside SDPA's f32 forward (memory-efficient)
+        "train_f32_forward": [{
+            "arch": r["arch"], "q": r["q"], "k": r["k"],
+            "window": r["window"], "ms": r["fwd_f32_lse_ms"],
+            "bound_ms": r["fwd_bound"]["ms"],
+            "bound_by": r["fwd_bound"]["by"],
+            "bound_route": r["fwd_bound"]["route"],
+            "library_ms": r["fwd_library_ms"],
+            "launches_per_train_step":
+                r["launches_per_train_step"]["fwd_lse"]}
+            for r in fa_bwd]}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:28",
@@ -4112,12 +4272,14 @@ def run_phases() -> int:
         "ms": fa_bwd[0][part]["ms"], "plain_ms": fa_bwd[0]["plain_ms"],
         "bound_ms": fa_bwd[0][part]["bound_ms"],
         "bound_by": fa_bwd[0][part]["bound_by"],
+        "bound_route": fa_bwd[0][part]["bound_route"],
         "library_ms": fa_bwd[0]["library_ms"],
         "library": fa_bwd[0]["library"],
         "library_math_ms": fa_bwd[0]["library_math_ms"],
         "library_and_plain_cover": "dq, dk and dv (both kernels' work)",
         "llama": {**{k: fa_bwd[1][part][k] for k in ("ms", "bound_ms",
-                                                     "bound_by")},
+                                                     "bound_by",
+                                                     "bound_route")},
                   "library_ms": fa_bwd[1]["library_ms"]}}
         for part in ("dq", "dkdv")] + [{
         "name": "ssm_scan_bwd_f32", "route": "cuda",

@@ -1,16 +1,17 @@
 // The f32 backward of K4, the GQA online-softmax attention of
-// flash_attention.cu, for Hopper (sm_90a): two kernels on the CUDA cores.
+// flash_attention.cu, for Hopper (sm_90a): two kernels whose products
+// run on the tensor cores in split TF32.
 //
 // The JAX package has no backward Pallas kernel: JAX differentiates the
 // jnp attention and its training never calls src/repro/kernels/
 // flash_attention.py: _kernel.  The port routes every CUDA tensor to its
-// forward kernel, so a gradient through that kernel needs these.  They
-// are the f32 counterpart of the forward's scalar kernel; the bf16
-// tensor-core backward is a later item (ROADMAP, queue 2).
+// forward kernel, so a gradient through that kernel needs these.  The
+// bf16 backward is a later item (ROADMAP, queue 2).
 //
-//   q, o, dO (B,S,H,D), k, v (B,T,Hkv,D), all contiguous f32; lse
-//   (B,H,S) f32 from the forward (m + log(max(l, 1e-30)) of each row).
-//   Query head h reads kv head h / (H/Hkv), as in the forward.
+//   q, o, dO (B,S,H,D), k, v (B,T,Hkv,D), all contiguous f32 on 16-byte
+//   addresses; lse (B,H,S) f32 from the forward (m + log(max(l, 1e-30))
+//   of each row).  Query head h reads kv head h / (H/Hkv), as in the
+//   forward.
 //
 //   s_ij   = (q_i . k_j) * scale, visible by the forward's masks
 //   P_ij   = exp(s_ij - lse_i) if visible, else 0
@@ -29,35 +30,57 @@
 // Two launches, no float atomics, so a gradient is the same bits every
 // run:
 //   flash_attention_bwd_dq_f32: one block per (q tile of 64 rows, q
-//     head, b).  It computes delta for its rows itself and writes it to
-//     a (B,H,S) buffer, then loops over the key tiles its rows can see
-//     (rows that see no key take none), recomputes P from lse, and
-//     writes dq once.  Launched first.
+//     head, b), the last q tiles first (under a causal mask they see
+//     the most keys).  It computes delta for its rows and writes it to a
+//     (B,H,S) buffer, then walks the key tiles its rows can see,
+//     recomputes P from lse, and writes dq once.  Launched first.
 //   flash_attention_bwd_dkdv_f32: one block per (key tile of 64 keys,
-//     kv head, b).  It loops over the q tiles that can see the tile (or
-//     hold a row that sees no key) and, inside, over the kv head's group
-//     of q heads, reads delta from the first kernel, recomputes P and
-//     dS, and sums dk and dv over the group in registers: written once.
-// Layout of both, as the forward's scalar kernel: 256 threads, four to
-// a row of the stationary tile (a q row in the dq kernel, a key in the
-// dkdv kernel), that row's two D-vectors in registers; the moving tile
-// staged in shared memory as f32 rows padded to D+4 floats and read as
-// float4 (broadcast across the 8 rows of a warp); the 64 x 64 tile of P
-// or dS through shared memory; for the products a thread owns D/4 of
-// its row's output columns.
+//     kv head, b), the first key tiles first.  It walks the (q tile, q
+//     head of the group) items whose rows see a key of the tile (or
+//     hold a row that sees none), in a fixed order, reads delta from the
+//     first kernel, and sums dk and dv over them in registers: written
+//     once.
 //
-// Bound: per visible (q, k) pair of a head, 10*D f32 flops (q.k,
-// dO.v, dS.k, dS.q, P.dO: five dots of D) and one exp, on the CUDA
-// cores (67e12 f32 flop/s); the bytes (q, k, v, o, dO read, dq, dk,
-// dv written) are far below.  This design recomputes the scores in
-// both kernels, 14*D a pair.
+// Products.  Every product is mma.sync.m16n8k8 in TF32 with f32
+// accumulators, each f32 operand x split into a TF32 hi and the rest lo
+// (split_tf32), and a . b taken as lo.hi + hi.lo + hi.hi (lo.lo
+// dropped): about 2^-19 relative a product at worst, where one TF32
+// product (about 2^-10) fails the 1e-4 checks.  A tile's product is
+// summed from zero and then added to the running sum (add_acc).  Four
+// warps a block, each owning 16 rows of the stationary tile (q rows in
+// dq, keys in dkdv).  S = Q.K^T (dq) and S^T = K.Q^T (dkdv) and the
+// dO.V^T / V.dO^T products take both operands from shared memory by
+// ldmatrix (an 8 x 4 block of f32 is an 8 x 8 block of b16).  Their
+// accumulators become P and dS in place (mask, expf and the dS formula
+// on the fragments) and are then the A operand of the second products
+// (dS.K in dq; P^T.dO and dS^T.Q in dkdv) without a trip through shared
+// memory: the C fragment holds columns 2t and 2t+1 of an 8-wide slice
+// where the A fragment wants t and t+4, so the contraction index of
+// that slice is permuted (slot t <-> 2t, slot t+4 <-> 2t+1) in A and B
+// alike, and B is read as two scalar words a fragment.
+//
+// Loads.  The moving tiles (K and V in dq; q, dO and their lse and
+// delta rows in dkdv) go through a 2-stage ring of 16-byte cp.async
+// copies (4-byte for lse and delta), the next tile loading under this
+// tile's products; rows past S or T are zero-filled by the copy.  Tile
+// rows are padded to D+4 floats, so both the ldmatrix rows and the
+// scalar B words are free of bank conflicts.  At D = 64, 104 KB of
+// shared memory a block (two blocks an SM).
+//
+// Bound: per visible (q, k) pair of a head, 10*D f32 flops (five dots
+// of D) and one exp; in split TF32 each flop is three on the tensor
+// cores (494.7e12 TF32 flop/s), against 67e12 f32 flop/s on the CUDA
+// cores; the bytes (q, k, v, o, dO read, dq, dk, dv written) are far
+// below.  This design recomputes S and dP in both kernels, 14*D a pair.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #define FB_BQ 64
 #define FB_BK 64
-#define FB_THREADS 256
+#define FB_WARPS 4
+#define FB_THREADS (32 * FB_WARPS)
 
 // The keys absolute position p sees: [lo, hi) (empty when hi <= lo).
 __device__ __forceinline__ void fb_band(int p, int T_len, int causal,
@@ -66,46 +89,252 @@ __device__ __forceinline__ void fb_band(int p, int T_len, int causal,
     hi = causal ? min(T_len, p + 1) : T_len;
 }
 
+// floats of one 64-row tile padded to D+4
+template <int D>
+__host__ __device__ constexpr int fb_tile() { return 64 * (D + 4); }
+
 template <int D>
 __host__ __device__ constexpr int fb_dq_smem_floats() {
-    return 2 * FB_BK * (D + 4) + FB_BQ * (FB_BK + 4);
+    return 6 * fb_tile<D>();                  // Q, dO; 2 x (K, V)
 }
 
+// K, V; 2 stages x (q, dO, lse, delta)
 template <int D>
 __host__ __device__ constexpr int fb_dkdv_smem_floats() {
-    return 2 * FB_BQ * (D + 4) + 2 * FB_BK * (FB_BQ + 4) + 2 * FB_BQ;
+    return 2 * fb_tile<D>() + 2 * (2 * fb_tile<D>() + 2 * 64);
+}
+
+// ---- PTX -----------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t fb_smem(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared, or 16 zero bytes when !ok
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// four 8 x 4 f32 blocks: lane l gives the row address of block l / 8,
+// row l % 8; thread (g = lane/4, t = lane%4) gets element (g, t) of each
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+                 "{%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr) : "memory");
+}
+
+// x = hi + lo: hi is x with its 13 low mantissa bits cleared (a TF32
+// value), lo = x - hi (exact in f32, at most 2^-10 of x) is passed
+// whole; what the TF32 products drop of it (its low 13 bits, and
+// lo.lo) is at most 2^-20 of x.  Two instructions; cvt.rna.tf32.f32
+// (hi rounded to nearest, lo rounded again) halves the error but
+// compiles to a compare and select around each rounding on sm_90
+// (tools/k4_bwd_variants.py times the two; PERF.md).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+    hi = __float_as_uint(x) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b in split TF32: the two correction terms, then hi . hi
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+    mma_tf32(d, al, bh0, bh1);
+    mma_tf32(d, ah, bl0, bl1);
+    mma_tf32(d, ah, bh0, bh1);
+}
+
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&a)[N][4]) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) a[n][0] = a[n][1] = a[n][2] = a[n][3] = 0.0f;
+}
+
+// a += b, rounded to nearest: a tile's product is summed on the tensor
+// cores from zero and only then added to the running sum, whose f32
+// adds the tensor cores would round toward zero (a drift that grows
+// with the number of tiles: up to 1e-4 relative over llama's 128 (q
+// tile, head) pairs a key tile when the running sum was the
+// accumulator)
+template <int N>
+__device__ __forceinline__ void add_acc(float (&a)[N][4],
+                                        const float (&b)[N][4]) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+        a[n][0] += b[n][0];
+        a[n][1] += b[n][1];
+        a[n][2] += b[n][2];
+        a[n][3] += b[n][3];
+    }
+}
+
+// ---- the two kinds of product --------------------------------------------
+
+// acc[n] += A . B^T for the warp's 16 rows of A (at a_row, shared) and
+// the 64 rows of B (at b_tile, shared), both D wide with stride D+4:
+// acc is 16 x 64, n-th 8-column slice in acc[n].
+template <int D>
+__device__ __forceinline__ void prod_abt(float (&acc)[8][4], uint32_t a_row,
+                                         uint32_t b_tile, int lane) {
+    constexpr int RS = D + 4;
+    const int blk = lane >> 3, r8 = lane & 7;
+    const uint32_t a_lane =
+        a_row + ((r8 + 8 * (blk & 1)) * RS + 4 * (blk >> 1)) * 4;
+    const uint32_t b_lane = b_tile + (r8 * RS + 4 * blk) * 4;
+#pragma unroll
+    for (int k0 = 0; k0 < D; k0 += 16) {
+        uint32_t a0[4], a1[4], a0h[4], a0l[4], a1h[4], a1l[4];
+        ldsm_x4(a0, a_lane + k0 * 4);
+        ldsm_x4(a1, a_lane + (k0 + 8) * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            split_tf32(__uint_as_float(a0[i]), a0h[i], a0l[i]);
+            split_tf32(__uint_as_float(a1[i]), a1h[i], a1l[i]);
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+            // k-step k0 in words 0-1, k0 + 8 in words 2-3
+            uint32_t b[4], bh[4], bl[4];
+            ldsm_x4(b, b_lane + (8 * n * RS + k0) * 4);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                split_tf32(__uint_as_float(b[i]), bh[i], bl[i]);
+            mma3(acc[n], a0h, a0l, bh[0], bh[1], bl[0], bl[1]);
+            mma3(acc[n], a1h, a1l, bh[2], bh[3], bl[2], bl[3]);
+        }
+    }
+}
+
+// out[n] += C . B: C the warp's 16 x 64 accumulator tile (P or dS, as
+// prod_abt left it), B 64 rows x D in shared memory (stride D+4); the
+// contraction over C's 64 columns, permuted within each 8-wide slice.
+template <int D>
+__device__ __forceinline__ void prod_cb(float (&out)[D / 8][4],
+                                        const float (&c)[8][4],
+                                        const float* b_tile, int g, int t) {
+    constexpr int RS = D + 4;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+        uint32_t ah[4], al[4];
+        split_tf32(c[kk][0], ah[0], al[0]);     // (g,   slot t)   = col 2t
+        split_tf32(c[kk][2], ah[1], al[1]);     // (g+8, slot t)
+        split_tf32(c[kk][1], ah[2], al[2]);     // (g,   slot t+4) = col 2t+1
+        split_tf32(c[kk][3], ah[3], al[3]);     // (g+8, slot t+4)
+        const float* bp = b_tile + (8 * kk + 2 * t) * RS + g;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(bp[8 * n], bh0, bl0);
+            split_tf32(bp[RS + 8 * n], bh1, bl1);
+            mma3(out[n], ah, al, bh0, bh1, bl0, bl1);
+        }
+    }
+}
+
+// 64 rows of D floats from global rows (row stride `stride` floats,
+// zero-filled from row `n_ok` on) into a padded shared tile
+template <int D>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           long long stride, int n_ok,
+                                           int tid) {
+    constexpr int C4 = D / 4;
+#pragma unroll 4
+    for (int i = tid; i < 64 * C4; i += FB_THREADS) {
+        const int r = i / C4, c4 = i % C4;
+        const bool ok = r < n_ok;
+        cp_async16(fb_smem(dst + r * (D + 4) + 4 * c4),
+                   src + (ok ? r * stride + 4 * c4 : 0), ok);
+    }
 }
 
 template <int D>
-__global__ void __launch_bounds__(FB_THREADS)
+__global__ void __launch_bounds__(FB_THREADS, 2)
 fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ o,
                  const float* __restrict__ dout,
                  const float* __restrict__ lse, float* __restrict__ delta,
                  float* __restrict__ dq, int S, int T_len, int H, int Hkv,
                  int causal, int window, int q_offset, float scale) {
-    constexpr int KS = D + 4;
-    constexpr int PS = FB_BK + 4;
-    constexpr int DG = D / 16;
+    constexpr int RS = D + 4;
+    constexpr int TILE = fb_tile<D>();
     extern __shared__ float4 fb_smem4[];
-    float* Ks = reinterpret_cast<float*>(fb_smem4);   // [BK][KS]
-    float* Vs = Ks + FB_BK * KS;                       // [BK][KS]
-    float* Ps = Vs + FB_BK * KS;                       // [BQ][PS]: dS
+    float* Qs = reinterpret_cast<float*>(fb_smem4);   // [64][RS]
+    float* DOs = Qs + TILE;                            // [64][RS]
+    float* ring = DOs + TILE;                          // 2 x (K, V)
+    __shared__ float dl_s[FB_BQ];
     __shared__ int range_lo, range_hi;
 
     const int tid = threadIdx.x;
-    const int r = tid >> 2;
-    const int c = tid & 3;
-    const int q0 = blockIdx.x * FB_BQ;
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int n_qt = (S + FB_BQ - 1) / FB_BQ;
+    const int bh = gridDim.x / n_qt;                   // B * H
+    const int qt = n_qt - 1 - (int)(blockIdx.x / bh);
+    const int h = (int)(blockIdx.x % bh) % H;
+    const int b = (int)(blockIdx.x % bh) / H;
     const int hk = h / (H / Hkv);
-    const int row = q0 + r;
-    const bool row_ok = row < S;
-    int lo, hi;
-    fb_band(q_offset + row, T_len, causal, window, lo, hi);
-    const bool sees = row_ok && hi > lo;
+    const int q0 = qt * FB_BQ;
+    const long long qstride = (long long)H * D;
+    const long long qbase = (((long long)b * S + q0) * H + h) * D;
 
+    stage_rows<D>(Qs, q + qbase, qstride, S - q0, tid);
+    stage_rows<D>(DOs, dout + qbase, qstride, S - q0, tid);
+    cp_async_commit();
+
+    // delta of the block's rows: two threads a row, fixed order
+    {
+        const int r = tid >> 1, half = tid & 1;
+        float dl = 0.0f;
+        if (q0 + r < S) {
+            const float4* o4 = reinterpret_cast<const float4*>(
+                o + qbase + r * qstride) + half * (D / 8);
+            const float4* d4 = reinterpret_cast<const float4*>(
+                dout + qbase + r * qstride) + half * (D / 8);
+#pragma unroll
+            for (int i = 0; i < D / 8; ++i) {
+                const float4 a = o4[i], c = d4[i];
+                dl = fmaf(a.x, c.x, dl);
+                dl = fmaf(a.y, c.y, dl);
+                dl = fmaf(a.z, c.z, dl);
+                dl = fmaf(a.w, c.w, dl);
+            }
+        }
+        dl += __shfl_xor_sync(0xffffffffu, dl, 1);
+        if (half == 0) {
+            dl_s[r] = dl;
+            if (q0 + r < S) delta[((long long)b * H + h) * S + q0 + r] = dl;
+        }
+    }
     // the keys the block's rows see (rows that see none take no keys)
     if (tid == 0) {
         int l0 = T_len, h0 = 0;
@@ -120,110 +349,97 @@ fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         range_lo = l0;
         range_hi = h0;
     }
-
-    const long long qoff = (((long long)b * S + row) * H + h) * D;
-    float qr[D], dor[D];
-    float dl = 0.0f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-        qr[d] = row_ok ? q[qoff + d] : 0.0f;
-        dor[d] = row_ok ? dout[qoff + d] : 0.0f;
-        dl = fmaf(dor[d], row_ok ? o[qoff + d] : 0.0f, dl);
-    }
-    const long long rs = ((long long)b * H + h) * S + row;
-    if (row_ok && c == 0) delta[rs] = dl;
-    const float lse_r = row_ok ? lse[rs] : 0.0f;
-
-    float4 acc[DG];
-#pragma unroll
-    for (int g = 0; g < DG; ++g) acc[g] = make_float4(0.f, 0.f, 0.f, 0.f);
-
     __syncthreads();
-    const float* kbase = k + ((long long)b * T_len * Hkv + hk) * D;
-    const float* vbase = v + ((long long)b * T_len * Hkv + hk) * D;
-    const long long kstride = (long long)Hkv * D;
-    for (int t0 = (range_lo / FB_BK) * FB_BK; t0 < range_hi; t0 += FB_BK) {
-        for (int i = tid; i < FB_BK * D; i += FB_THREADS) {
-            const int j = i / D, d = i % D;
-            const int kk = t0 + j;
-            float kv = 0.0f, vv = 0.0f;
-            if (kk < T_len) {
-                kv = kbase[(long long)kk * kstride + d];
-                vv = vbase[(long long)kk * kstride + d];
-            }
-            Ks[j * KS + d] = kv;
-            Vs[j * KS + d] = vv;
-        }
-        __syncthreads();
 
-        // scores and dO.v of keys j = c + 4*i, i < 16
-        float s[16], dp[16];
-#pragma unroll
-        for (int i = 0; i < 16; ++i) { s[i] = 0.0f; dp[i] = 0.0f; }
-        const float4* K4 = reinterpret_cast<const float4*>(Ks);
-        const float4* V4 = reinterpret_cast<const float4*>(Vs);
-#pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-#pragma unroll
-            for (int i = 0; i < 16; ++i) {
-                const float4 kf = K4[(c + 4 * i) * (KS / 4) + d4];
-                const float4 vf = V4[(c + 4 * i) * (KS / 4) + d4];
-                s[i] = fmaf(qr[4 * d4], kf.x, s[i]);
-                s[i] = fmaf(qr[4 * d4 + 1], kf.y, s[i]);
-                s[i] = fmaf(qr[4 * d4 + 2], kf.z, s[i]);
-                s[i] = fmaf(qr[4 * d4 + 3], kf.w, s[i]);
-                dp[i] = fmaf(dor[4 * d4], vf.x, dp[i]);
-                dp[i] = fmaf(dor[4 * d4 + 1], vf.y, dp[i]);
-                dp[i] = fmaf(dor[4 * d4 + 2], vf.z, dp[i]);
-                dp[i] = fmaf(dor[4 * d4 + 3], vf.w, dp[i]);
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-            const int kk = t0 + c + 4 * i;
-            const bool vis = sees && kk >= lo && kk < hi;
-            const float p = vis ? expf(s[i] * scale - lse_r) : 0.0f;
-            Ps[r * PS + c + 4 * i] = p * (dp[i] - dl);
-        }
-        __syncthreads();
+    // this thread's two rows: ra (fragment rows g) and rb (g + 8)
+    const int ra = q0 + 16 * warp + g, rb = ra + 8;
+    int lo_a, hi_a, lo_b, hi_b;
+    fb_band(q_offset + ra, T_len, causal, window, lo_a, hi_a);
+    fb_band(q_offset + rb, T_len, causal, window, lo_b, hi_b);
+    if (ra >= S) hi_a = lo_a;                // no key for a padding row
+    if (rb >= S) hi_b = lo_b;
+    const long long rsa = ((long long)b * H + h) * S;
+    const float lse_a = ra < S ? lse[rsa + ra] : 0.0f;
+    const float lse_b = rb < S ? lse[rsa + rb] : 0.0f;
+    const float dl_a = dl_s[16 * warp + g], dl_b = dl_s[16 * warp + g + 8];
 
-        // acc += dS . K over this thread's columns 4*(c + 4*g) .. +3
-        const float4* P4 = reinterpret_cast<const float4*>(Ps + r * PS);
-#pragma unroll 4
-        for (int j4 = 0; j4 < FB_BK / 4; ++j4) {
-            const float4 p4 = P4[j4];
-            const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+    const int t_start = (range_lo / FB_BK) * FB_BK;
+    const int n_kt = range_hi > t_start
+        ? (range_hi - t_start + FB_BK - 1) / FB_BK : 0;
+    const long long kvstride = (long long)Hkv * D;
+    const long long kvbase = ((long long)b * T_len * Hkv + hk) * D;
+    auto load_kv = [&](int i) {
+        const int t0 = t_start + FB_BK * i;
+        float* Kst = ring + (i & 1) * 2 * TILE;
+        stage_rows<D>(Kst, k + kvbase + t0 * kvstride, kvstride, T_len - t0,
+                      tid);
+        stage_rows<D>(Kst + TILE, v + kvbase + t0 * kvstride, kvstride,
+                      T_len - t0, tid);
+    };
+    if (n_kt > 0) load_kv(0);
+    cp_async_commit();
+
+    float dqa[D / 8][4];
+    zero_acc(dqa);
+    const uint32_t q_row = fb_smem(Qs + 16 * warp * RS);
+    const uint32_t do_row = fb_smem(DOs + 16 * warp * RS);
+
+    for (int i = 0; i < n_kt; ++i) {
+        if (i + 1 < n_kt) load_kv(i + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+        const float* Kst = ring + (i & 1) * 2 * TILE;
+        const float* Vst = Kst + TILE;
+        const int t0 = t_start + FB_BK * i;
+
+        float sc[8][4];
+        zero_acc(sc);
+        prod_abt<D>(sc, q_row, fb_smem(Kst), lane);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                const int j = 4 * j4 + e;
-#pragma unroll
-                for (int g = 0; g < DG; ++g) {
-                    const float4 kf = K4[j * (KS / 4) + c + 4 * g];
-                    acc[g].x = fmaf(pj[e], kf.x, acc[g].x);
-                    acc[g].y = fmaf(pj[e], kf.y, acc[g].y);
-                    acc[g].z = fmaf(pj[e], kf.z, acc[g].z);
-                    acc[g].w = fmaf(pj[e], kf.w, acc[g].w);
-                }
+                const int key = t0 + 8 * n + 2 * t + (e & 1);
+                const bool vis = e < 2 ? key >= lo_a && key < hi_a
+                                       : key >= lo_b && key < hi_b;
+                sc[n][e] = vis ? expf(sc[n][e] * scale -
+                                      (e < 2 ? lse_a : lse_b))
+                               : 0.0f;
             }
         }
-        __syncthreads();
-    }
-
-    if (row_ok) {
-        float* out = dq + qoff;
+        float dp[8][4];
+        zero_acc(dp);
+        prod_abt<D>(dp, do_row, fb_smem(Vst), lane);
 #pragma unroll
-        for (int g = 0; g < DG; ++g) {
-            const int d = 4 * (c + 4 * g);
-            out[d] = acc[g].x * scale;
-            out[d + 1] = acc[g].y * scale;
-            out[d + 2] = acc[g].z * scale;
-            out[d + 3] = acc[g].w * scale;
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                sc[n][e] *= dp[n][e] - (e < 2 ? dl_a : dl_b);
         }
+        float part[D / 8][4];
+        zero_acc(part);
+        prod_cb<D>(part, sc, Kst, g, t);
+        add_acc(dqa, part);
+        __syncthreads();            // before the ring slot is reloaded
+    }
+    cp_async_wait<0>();
+
+    const long long oa = (((long long)b * S + ra) * H + h) * D + 2 * t;
+    const long long ob = oa + 8 * qstride;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+        if (ra < S)
+            *reinterpret_cast<float2*>(dq + oa + 8 * n) =
+                make_float2(dqa[n][0] * scale, dqa[n][1] * scale);
+        if (rb < S)
+            *reinterpret_cast<float2*>(dq + ob + 8 * n) =
+                make_float2(dqa[n][2] * scale, dqa[n][3] * scale);
     }
 }
 
 template <int D>
-__global__ void __launch_bounds__(FB_THREADS)
+__global__ void __launch_bounds__(FB_THREADS, 2)
 fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v,
                    const float* __restrict__ dout,
@@ -231,164 +447,167 @@ fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ delta, float* __restrict__ dk,
                    float* __restrict__ dv, int S, int T_len, int H, int Hkv,
                    int causal, int window, int q_offset, float scale) {
-    constexpr int QS = D + 4;            // padded q / dO row (floats)
-    constexpr int PS = FB_BQ + 4;        // padded P / dS row (floats)
-    constexpr int DG = D / 16;
+    constexpr int RS = D + 4;
+    constexpr int TILE = fb_tile<D>();
+    constexpr int ITEM = 2 * TILE + 2 * 64;   // q, dO [64][RS], lse, delta
     extern __shared__ float4 fb_smem4[];
-    float* Qs = reinterpret_cast<float*>(fb_smem4);   // [BQ][QS]
-    float* Ds = Qs + FB_BQ * QS;                       // [BQ][QS]: dO
-    float* Ps = Ds + FB_BQ * QS;                       // [BK][PS]: P
-    float* Ss = Ps + FB_BK * PS;                       // [BK][PS]: dS
-    float* lse_s = Ss + FB_BK * PS;                    // [BQ]
-    float* dl_s = lse_s + FB_BQ;                       // [BQ]
+    float* Ks = reinterpret_cast<float*>(fb_smem4);   // [64][RS]
+    float* Vs = Ks + TILE;                             // [64][RS]
+    float* ring = Vs + TILE;                           // 2 items
 
     const int tid = threadIdx.x;
-    const int j = tid >> 2;              // the key of the tile
-    const int c = tid & 3;
-    const int k0 = blockIdx.x * FB_BK;
-    const int hk = blockIdx.y;
-    const int b = blockIdx.z;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int n_kt = (T_len + FB_BK - 1) / FB_BK;
+    const int bh = gridDim.x / n_kt;                   // B * Hkv
+    const int kt = (int)(blockIdx.x / bh);
+    const int hk = (int)(blockIdx.x % bh) % Hkv;
+    const int b = (int)(blockIdx.x % bh) / Hkv;
     const int rep = H / Hkv;
-    const int kk = k0 + j;
-    const bool key_ok = kk < T_len;
+    const int k0 = kt * FB_BK;
     const int k1 = min(T_len, k0 + FB_BK);
     const float inv_t = 1.0f / (float)T_len;
+    const long long kvstride = (long long)Hkv * D;
+    const long long kvbase = (((long long)b * T_len + k0) * Hkv + hk) * D;
 
-    const long long koff = (((long long)b * T_len + kk) * Hkv + hk) * D;
-    float kr[D], vr[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-        kr[d] = key_ok ? k[koff + d] : 0.0f;
-        vr[d] = key_ok ? v[koff + d] : 0.0f;
-    }
-    float4 dka[DG], dva[DG];
-#pragma unroll
-    for (int g = 0; g < DG; ++g) {
-        dka[g] = make_float4(0.f, 0.f, 0.f, 0.f);
-        dva[g] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+    stage_rows<D>(Ks, k + kvbase, kvstride, T_len - k0, tid);
+    stage_rows<D>(Vs, v + kvbase, kvstride, T_len - k0, tid);
+    cp_async_commit();
 
+    // The q tiles to walk: rows whose band meets [k0, k1) have absolute
+    // positions p in [pa, pb) (the bands' ends grow with p), and rows
+    // that see no key (only under a window: p >= T + window - 1) come
+    // after them; tiles [ta0, ta1), then [te, n_qt).
     const int n_qt = (S + FB_BQ - 1) / FB_BQ;
-    for (int qt = 0; qt < n_qt; ++qt) {
-        const int r0 = qt * FB_BQ;
-        // does a row of this q tile see a key of this tile, or none at
-        // all (then it sees every key at 1/T)?
-        int pred = 0;
-        if (tid < FB_BQ && r0 + tid < S) {
-            int lo, hi;
-            fb_band(q_offset + r0 + tid, T_len, causal, window, lo, hi);
-            pred = hi <= lo || (lo < k1 && hi > k0);
-        }
-        if (!__syncthreads_or(pred)) continue;
-        for (int hh = 0; hh < rep; ++hh) {
-            const int h = hk * rep + hh;
-            for (int i = tid; i < FB_BQ * D; i += FB_THREADS) {
-                const int r = i / D, d = i % D;
-                const int row = r0 + r;
-                float qv = 0.0f, dv_ = 0.0f;
-                if (row < S) {
-                    const long long off =
-                        (((long long)b * S + row) * H + h) * D + d;
-                    qv = q[off];
-                    dv_ = dout[off];
-                }
-                Qs[r * QS + d] = qv;
-                Ds[r * QS + d] = dv_;
-            }
-            if (tid < FB_BQ) {
-                const int row = r0 + tid;
-                const long long rs = ((long long)b * H + h) * S + row;
-                lse_s[tid] = row < S ? lse[rs] : 0.0f;
-                dl_s[tid] = row < S ? delta[rs] : 0.0f;
-            }
-            __syncthreads();
+    const long long pa = causal ? k0 : 0;
+    const long long pb = window > 0 ? (long long)k1 + window - 1
+                                    : (long long)q_offset + S;
+    const long long ra = max(0LL, pa - q_offset);
+    const long long rb = min((long long)S, pb - q_offset);
+    int ta0 = 0, ta1 = 0;
+    if (ra < rb) {
+        ta0 = (int)(ra / FB_BQ);
+        ta1 = (int)((rb - 1) / FB_BQ) + 1;
+    }
+    int te = n_qt;
+    if (window > 0) {
+        const long long re =
+            max(0LL, (long long)T_len + window - 1 - q_offset);
+        if (re < S) te = max(ta1, (int)(re / FB_BQ));
+    }
+    const int na = ta1 - ta0;
+    const int n_items = (na + n_qt - te) * rep;
+    auto tile_of = [&](int j) { return j < na ? ta0 + j : te + j - na; };
 
-            // scores and dO.v of rows i = c + 4*ii, ii < 16
-            float s[16], dp[16];
+    const long long qstride = (long long)H * D;
+    auto load_item = [&](int i) {
+        const int r0 = tile_of(i / rep) * FB_BQ;
+        const int h = hk * rep + i % rep;
+        float* st = ring + (i & 1) * ITEM;
+        const long long qbase = (((long long)b * S + r0) * H + h) * D;
+        stage_rows<D>(st, q + qbase, qstride, S - r0, tid);
+        stage_rows<D>(st + TILE, dout + qbase, qstride, S - r0, tid);
+        if (tid < FB_BQ) {
+            const bool ok = r0 + tid < S;
+            const long long rs =
+                ok ? ((long long)b * H + h) * S + r0 + tid : 0;
+            cp_async4(fb_smem(st + 2 * TILE + tid), lse + rs, ok);
+            cp_async4(fb_smem(st + 2 * TILE + 64 + tid), delta + rs, ok);
+        }
+    };
+    if (n_items > 0) load_item(0);
+    cp_async_commit();
+
+    // this thread's two keys: ka (fragment rows g) and kb (g + 8)
+    const int ka = k0 + 16 * warp + g, kb = ka + 8;
+    float dka[D / 8][4], dva[D / 8][4];
+    zero_acc(dka);
+    zero_acc(dva);
+    const uint32_t k_row = fb_smem(Ks + 16 * warp * RS);
+    const uint32_t v_row = fb_smem(Vs + 16 * warp * RS);
+
+    for (int i = 0; i < n_items; ++i) {
+        if (i + 1 < n_items) load_item(i + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+        const float* Qst = ring + (i & 1) * ITEM;
+        const float* DOst = Qst + TILE;
+        const float* lse_st = Qst + 2 * TILE;
+        const float* dl_st = lse_st + 64;
+        const int r0 = tile_of(i / rep) * FB_BQ;
+
+        // S^T: fragment rows are keys, columns q rows
+        float sc[8][4];
+        zero_acc(sc);
+        prod_abt<D>(sc, k_row, fb_smem(Qst), lane);
+        uint32_t empty = 0;       // bit 2n+c: column 8n+2t+c sees no key
 #pragma unroll
-            for (int ii = 0; ii < 16; ++ii) { s[ii] = 0.0f; dp[ii] = 0.0f; }
-            const float4* Q4 = reinterpret_cast<const float4*>(Qs);
-            const float4* D4 = reinterpret_cast<const float4*>(Ds);
+        for (int n = 0; n < 8; ++n) {
 #pragma unroll
-            for (int d4 = 0; d4 < D / 4; ++d4) {
-#pragma unroll
-                for (int ii = 0; ii < 16; ++ii) {
-                    const float4 qf = Q4[(c + 4 * ii) * (QS / 4) + d4];
-                    const float4 df = D4[(c + 4 * ii) * (QS / 4) + d4];
-                    s[ii] = fmaf(qf.x, kr[4 * d4], s[ii]);
-                    s[ii] = fmaf(qf.y, kr[4 * d4 + 1], s[ii]);
-                    s[ii] = fmaf(qf.z, kr[4 * d4 + 2], s[ii]);
-                    s[ii] = fmaf(qf.w, kr[4 * d4 + 3], s[ii]);
-                    dp[ii] = fmaf(df.x, vr[4 * d4], dp[ii]);
-                    dp[ii] = fmaf(df.y, vr[4 * d4 + 1], dp[ii]);
-                    dp[ii] = fmaf(df.z, vr[4 * d4 + 2], dp[ii]);
-                    dp[ii] = fmaf(df.w, vr[4 * d4 + 3], dp[ii]);
-                }
-            }
-#pragma unroll
-            for (int ii = 0; ii < 16; ++ii) {
-                const int i = c + 4 * ii;
-                const int row = r0 + i;
+            for (int c = 0; c < 2; ++c) {
+                const int col = 8 * n + 2 * t + c;
+                const int row = r0 + col;
                 int lo, hi;
                 fb_band(q_offset + row, T_len, causal, window, lo, hi);
-                const bool in = key_ok && row < S;
-                const bool empty = hi <= lo;
-                const bool vis = kk >= lo && kk < hi;
-                float p = 0.0f, ds = 0.0f;
-                if (in && empty) {
-                    p = inv_t;
-                } else if (in && vis) {
-                    p = expf(s[ii] * scale - lse_s[i]);
-                    ds = p * (dp[ii] - dl_s[i]);
-                }
-                Ps[j * PS + i] = p;
-                Ss[j * PS + i] = ds;
-            }
-            __syncwarp();      // a key's four threads share one warp
-
-            // dv += P . dO, dk += dS . q over columns 4*(c + 4*g) .. +3
-            const float4* P4 = reinterpret_cast<const float4*>(Ps + j * PS);
-            const float4* S4 = reinterpret_cast<const float4*>(Ss + j * PS);
-#pragma unroll 2
-            for (int i4 = 0; i4 < FB_BQ / 4; ++i4) {
-                const float4 p4 = P4[i4];
-                const float4 s4 = S4[i4];
-                const float pi[4] = {p4.x, p4.y, p4.z, p4.w};
-                const float si[4] = {s4.x, s4.y, s4.z, s4.w};
+                const bool in = row < S;
+                const bool none = in && hi <= lo;
+                empty |= (uint32_t)none << (2 * n + c);
+                const float l = lse_st[col];
 #pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int i = 4 * i4 + e;
-#pragma unroll
-                    for (int g = 0; g < DG; ++g) {
-                        const float4 df = D4[i * (QS / 4) + c + 4 * g];
-                        const float4 qf = Q4[i * (QS / 4) + c + 4 * g];
-                        dva[g].x = fmaf(pi[e], df.x, dva[g].x);
-                        dva[g].y = fmaf(pi[e], df.y, dva[g].y);
-                        dva[g].z = fmaf(pi[e], df.z, dva[g].z);
-                        dva[g].w = fmaf(pi[e], df.w, dva[g].w);
-                        dka[g].x = fmaf(si[e], qf.x, dka[g].x);
-                        dka[g].y = fmaf(si[e], qf.y, dka[g].y);
-                        dka[g].z = fmaf(si[e], qf.z, dka[g].z);
-                        dka[g].w = fmaf(si[e], qf.w, dka[g].w);
+                for (int e = c; e < 4; e += 2) {
+                    const int key = e < 2 ? ka : kb;
+                    float p = 0.0f;
+                    if (key < T_len) {
+                        if (none)
+                            p = inv_t;
+                        else if (in && key >= lo && key < hi)
+                            p = expf(sc[n][e] * scale - l);
                     }
+                    sc[n][e] = p;
                 }
             }
-            __syncthreads();   // before the next staging overwrites Qs
         }
-    }
+        float part_acc[D / 8][4];
+        zero_acc(part_acc);
+        prod_cb<D>(part_acc, sc, DOst, g, t);     // dv += P^T . dO
+        add_acc(dva, part_acc);
 
-    if (key_ok) {
+        float dp[8][4];
+        zero_acc(dp);
+        prod_abt<D>(dp, v_row, fb_smem(DOst), lane);
 #pragma unroll
-        for (int g = 0; g < DG; ++g) {
-            const int d = 4 * (c + 4 * g);
-            dk[koff + d] = dka[g].x * scale;
-            dk[koff + d + 1] = dka[g].y * scale;
-            dk[koff + d + 2] = dka[g].z * scale;
-            dk[koff + d + 3] = dka[g].w * scale;
-            dv[koff + d] = dva[g].x;
-            dv[koff + d + 1] = dva[g].y;
-            dv[koff + d + 2] = dva[g].z;
-            dv[koff + d + 3] = dva[g].w;
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int c = e & 1;
+                const float dl = dl_st[8 * n + 2 * t + c];
+                dp[n][e] = (empty >> (2 * n + c)) & 1u
+                    ? 0.0f : sc[n][e] * (dp[n][e] - dl);
+            }
+        }
+        zero_acc(part_acc);
+        prod_cb<D>(part_acc, dp, Qst, g, t);      // dk += dS^T . q
+        add_acc(dka, part_acc);
+        __syncthreads();            // before the ring slot is reloaded
+    }
+    cp_async_wait<0>();
+
+    const long long oa = (((long long)b * T_len + ka) * Hkv + hk) * D + 2 * t;
+    const long long ob = oa + 8 * kvstride;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+        if (ka < T_len) {
+            *reinterpret_cast<float2*>(dk + oa + 8 * n) =
+                make_float2(dka[n][0] * scale, dka[n][1] * scale);
+            *reinterpret_cast<float2*>(dv + oa + 8 * n) =
+                make_float2(dva[n][0], dva[n][1]);
+        }
+        if (kb < T_len) {
+            *reinterpret_cast<float2*>(dk + ob + 8 * n) =
+                make_float2(dka[n][2] * scale, dka[n][3] * scale);
+            *reinterpret_cast<float2*>(dv + ob + 8 * n) =
+                make_float2(dva[n][2], dva[n][3]);
         }
     }
 }
@@ -404,8 +623,10 @@ static int launch_dq(const float* q, const float* k, const float* v,
         fa_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((S + FB_BQ - 1) / FB_BQ, H, B);
-    fa_bwd_dq_kernel<D><<<grid, FB_THREADS, smem, stream>>>(
+    const long long blocks =
+        (long long)((S + FB_BQ - 1) / FB_BQ) * H * B;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    fa_bwd_dq_kernel<D><<<(unsigned)blocks, FB_THREADS, smem, stream>>>(
         q, k, v, o, dout, lse, delta, dq, S, T_len, H, Hkv, causal, window,
         q_offset, scale);
     return (int)cudaGetLastError();
@@ -423,8 +644,10 @@ static int launch_dkdv(const float* q, const float* k, const float* v,
         fa_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((T_len + FB_BK - 1) / FB_BK, Hkv, B);
-    fa_bwd_dkdv_kernel<D><<<grid, FB_THREADS, smem, stream>>>(
+    const long long blocks =
+        (long long)((T_len + FB_BK - 1) / FB_BK) * Hkv * B;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    fa_bwd_dkdv_kernel<D><<<(unsigned)blocks, FB_THREADS, smem, stream>>>(
         q, k, v, dout, lse, delta, dk, dv, S, T_len, H, Hkv, causal, window,
         q_offset, scale);
     return (int)cudaGetLastError();
@@ -433,19 +656,25 @@ static int launch_dkdv(const float* q, const float* k, const float* v,
 static bool fb_shape_ok(int B, int S, int T_len, int H, int Hkv,
                         int q_offset) {
     return B >= 1 && S >= 1 && T_len >= 1 && H >= 1 && Hkv >= 1
-           && H % Hkv == 0 && B <= 65535 && H <= 65535 && q_offset >= 0;
+           && H % Hkv == 0 && q_offset >= 0;
+}
+
+static bool fb_aligned(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // q, o, dout, dq (B,S,H,D), k, v (B,T,Hkv,D), lse and delta (B,H,S), all
-// contiguous f32; D in {16, 32, 64}.  Writes dq and delta = rowsum(dout
-// * o).  Returns cudaGetLastError() after the launch; does not
-// synchronise.
+// contiguous f32, q, k, v, o, dout and dq on 16-byte addresses; D in
+// {16, 32, 64}.  Writes dq and delta = rowsum(dout * o).  Returns
+// cudaGetLastError() after the launch; does not synchronise.
 extern "C" int flash_attention_bwd_dq_f32(
         const void* q, const void* k, const void* v, const void* o,
         const void* dout, const void* lse, void* delta, void* dq, int B,
         int S, int T_len, int H, int Hkv, int D, int causal, int window,
         int q_offset, float scale, void* stream) {
-    if (!fb_shape_ok(B, S, T_len, H, Hkv, q_offset))
+    if (!fb_shape_ok(B, S, T_len, H, Hkv, q_offset)
+            || !fb_aligned(q) || !fb_aligned(k) || !fb_aligned(v)
+            || !fb_aligned(o) || !fb_aligned(dout) || !fb_aligned(dq))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FB_DQ_ARGS static_cast<const float*>(q), static_cast<const float*>(k), \
@@ -464,14 +693,17 @@ extern "C" int flash_attention_bwd_dq_f32(
 
 // q, dout (B,S,H,D), k, v, dk, dv (B,T,Hkv,D), lse and delta (B,H,S) --
 // delta as flash_attention_bwd_dq_f32 wrote it, so launched after it on
-// the same stream -- all contiguous f32; D in {16, 32, 64}.  Writes dk
-// and dv, each summed over the kv head's group of q heads.
+// the same stream -- all contiguous f32, q, k, v, dout, dk and dv on
+// 16-byte addresses; D in {16, 32, 64}.  Writes dk and dv, each summed
+// over the kv head's group of q heads.
 extern "C" int flash_attention_bwd_dkdv_f32(
         const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dk, void* dv, int B,
         int S, int T_len, int H, int Hkv, int D, int causal, int window,
         int q_offset, float scale, void* stream) {
-    if (!fb_shape_ok(B, S, T_len, H, Hkv, q_offset))
+    if (!fb_shape_ok(B, S, T_len, H, Hkv, q_offset)
+            || !fb_aligned(q) || !fb_aligned(k) || !fb_aligned(v)
+            || !fb_aligned(dout) || !fb_aligned(dk) || !fb_aligned(dv))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FB_KV_ARGS static_cast<const float*>(q), static_cast<const float*>(k), \

@@ -52,9 +52,14 @@ the f32 kernel asked also for each row's log-sum-exp ``lse`` (B,H,S)
 also writes ``delta = rowsum(dO * O)``, then
 ``flash_attention_bwd_dkdv_f32``, dk and dv summed over each kv head's
 group in registers; no float atomics, so gradients are the same bits
-every run).  On CPU tensors the Function runs the plain forward and
+every run).  Their products run on the tensor cores in split TF32
+(three TF32 products a product, about 2^-19 relative at worst) with 16-byte
+``cp.async`` copies, so q, k, v, o and dO must sit on 16-byte
+addresses, or the backward raises ``ValueError`` before either
+launch.  On CPU tensors the Function runs the plain forward and
 ``flash_attention_bwd_plain``, the same math in PyTorch.  A bf16 input
-that requires grad raises: the tensor-core backward is a later item.
+that requires grad raises: the bf16 tensor-core backward is a later
+item.
 The JAX package has no backward kernel (JAX differentiates the jnp
 attention), so these have no Pallas counterpart.
 """
@@ -86,7 +91,7 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                  + [ctypes.c_float, ctypes.c_void_p])
 NO_BF16_GRAD = ("flash_attention: a bf16 input that requires grad has no "
                 "backward kernel yet; the bf16 tensor-core backward of K4 "
-                "is the next K4 item of ROADMAP.md queue 2 (train in f32)")
+                "is ROADMAP.md queue 2 item 0b (train in f32)")
 
 
 def _mask(s: int, t: int, causal: bool, window: int, q_offset: int,
@@ -132,9 +137,10 @@ def gqa_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def tma_misalignment(t) -> str:
-    """Why ``t`` (a (B,T,H,D) view) cannot be a TMA source, or ``""``:
-    its address and its byte strides of batch, position and head must
-    be multiples of 16."""
+    """Why ``t`` (a (B,T,H,D) view) cannot be a TMA source, nor one of
+    the backward kernels' 16-byte ``cp.async`` copies, or ``""``: its
+    address and its byte strides of batch, position and head must be
+    multiples of 16."""
     esize = t.element_size()
     if t.data_ptr() % 16:
         return f"address {t.data_ptr():#x} is not a multiple of 16 bytes"
@@ -287,11 +293,17 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
 
 def _kernel_backward(q, k, v, o, lse, do, causal, window, q_offset):
     """The two backward launches on CUDA tensors (f32): dq (and delta)
-    first, then dk and dv."""
+    first, then dk and dv.  A misaligned input raises ``ValueError``
+    before either launch."""
     global bwd_dq_launches, bwd_dkdv_launches
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do))
+    for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        why = tma_misalignment(x)
+        if why:
+            raise ValueError(f"flash_attention backward kernels "
+                             f"(cp.async): {name} {why}")
     lib = _bwd_lib()
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)

@@ -353,7 +353,9 @@ def test_chip_smoke_bounds_k4_backward_by_its_dots(s, t, window, q_offset):
     """chip_smoke.py bounds K4's backward by 2*D flops a D-long dot: three
     dots a visible pair for dq, four for dkdv, five for the pair's
     function (10*D), and one exp a visible pair, counted as the masks
-    leave them."""
+    leave them; on the tensor-core route each flop is three TF32 flops
+    (split TF32) at 494.7 TFLOP/s, on the CUDA cores one at 67, and the
+    bound is the lesser route's."""
     smoke = _chip_smoke()
     assert {name: dots for name, dots, _, _ in smoke.FA_BWD_WORK} == \
         {"dq": 3, "dkdv": 4, "pair": 5}
@@ -363,11 +365,164 @@ def test_chip_smoke_bounds_k4_backward_by_its_dots(s, t, window, q_offset):
     visible = (j <= p) & ((j > p - window) if window else True)
     pairs = b * h * int(visible.sum())
     for name, dots, reads, writes in smoke.FA_BWD_WORK:
-        _, _, flops, exps = smoke.flash_bwd_bound_ms(
+        got = smoke.flash_bwd_bound_ms(
             (b, s, h, d), (b, t, hkv, d), dots, reads, writes,
             q_offset=q_offset, window=window)
-        assert exps == pairs
-        assert flops == 2 * d * dots * pairs
+        flops = 2 * d * dots * pairs
+        assert got["exps"] == pairs
+        assert got["flops"] == flops
+        assert got["tf32_flops"] == 3 * flops
+        exps_ms = pairs / smoke.SFU_EXP_PER_S * 1e3
+        cuda_ops = max(flops / 67e12 * 1e3, exps_ms)
+        tensor_ops = max(3 * flops / 494.7e12 * 1e3, exps_ms)
+        assert got["cuda_core_ms"] == pytest.approx(
+            max(cuda_ops, got["bytes_ms"]), rel=1e-12)
+        assert got["tensor_ms"] == pytest.approx(
+            max(tensor_ops, got["bytes_ms"]), rel=1e-12)
+        assert got["ms"] == min(got["cuda_core_ms"], got["tensor_ms"])
+        assert got["route"] == ("tensor cores, split TF32"
+                                if tensor_ops < cuda_ops
+                                else "CUDA cores, f32")
+
+
+def test_chip_smoke_bounds_the_f32_forward_by_two_dots():
+    """The f32 forward with lse that training launches: two dots a
+    visible pair (4*D flops), q, k, v read and the output and lse
+    written; at hymba's layer the tensor-core route binds."""
+    smoke = _chip_smoke()
+    _, qs, ks, window = smoke.FA_BWD_SHAPES[0]
+    dots, reads, writes = smoke.FA_FWD_WORK
+    got = smoke.flash_bwd_bound_ms(qs, ks, dots, reads, writes,
+                                   window=window)
+    b, s, h, d = qs
+    pairs = b * h * smoke.visible_pairs(s, ks[1], True, window, 0)
+    assert dots == 2 and got["flops"] == 4 * d * pairs
+    nbytes = 4 * (2 * b * s * h * d + 2 * b * ks[1] * ks[2] * d + b * h * s)
+    assert got["bytes_ms"] == pytest.approx(
+        nbytes / smoke.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+    assert got["route"] == "tensor cores, split TF32"
+
+
+# -- split TF32, emulated: why three products a product ---------------------
+
+def _tf32_rna(x):
+    """``cvt.rna.tf32.f32`` in numpy (finite inputs): keep 10 mantissa
+    bits, round half away from zero."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_trunc(x):
+    """The 19 top bits of an f32: what a TF32 product reads of it."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_matmul(a, b, split):
+    """``a @ b`` of f32 matrices as the tensor cores take it: each TF32
+    product exact, summed in float64.  ``rna``: hi = rna(x), lo =
+    rna(x - hi), lo.hi + hi.lo + hi.hi; ``kernel``: the backward
+    kernels' split, hi = x truncated to TF32 and lo = x - hi read as
+    TF32; ``single``: one product, rna(a) . rna(b)."""
+    a, b = np.float32(a), np.float32(b)
+    if split == "single":
+        return np.float64(_tf32_rna(a)) @ np.float64(_tf32_rna(b))
+    if split == "rna":
+        ah, bh = _tf32_rna(a), _tf32_rna(b)
+        al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    else:
+        ah, bh = _tf32_trunc(a), _tf32_trunc(b)
+        al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    ah, al, bh, bl = (np.float64(x) for x in (ah, al, bh, bl))
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _backward_products(q, k, v, do, mask, matmul):
+    """dq, dk, dv (float64) with the backward's five products through
+    ``matmul`` (S = q.k^T, dP = dO.v^T, dS.k, dS^T.q, P^T.dO; P and dS
+    between them in float64), lse and delta exact."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    rep, scale = h // hkv, 1.0 / np.sqrt(d)
+    dq, dk, dv = np.zeros(q.shape), np.zeros(k.shape), np.zeros(k.shape)
+    for bi in range(b):
+        for hh in range(h):
+            kh = hh // rep
+            qh, kk, vv, dh = (np.float64(x[bi, :, i]) for x, i in
+                              ((q, hh), (k, kh), (v, kh), (do, hh)))
+            exact = np.where(mask, qh @ kk.T * scale, -np.inf)
+            top = exact.max(axis=1, keepdims=True)
+            lse = np.log(np.exp(exact - top).sum(axis=1)) + top[:, 0]
+            o = np.where(mask, np.exp(exact - lse[:, None]), 0.0) @ vv
+            delta = (dh * o).sum(axis=1)
+            sc = matmul(q[bi, :, hh], k[bi, :, kh].T)
+            p = np.where(mask, np.exp(sc * scale - lse[:, None]), 0.0)
+            ds = p * (matmul(do[bi, :, hh], v[bi, :, kh].T) - delta[:, None])
+            dq[bi, :, hh] = matmul(ds, k[bi, :, kh]) * scale
+            dk[bi, :, kh] += matmul(ds.T, q[bi, :, hh]) * scale
+            dv[bi, :, kh] += matmul(p.T, do[bi, :, hh])
+    return dq, dk, dv
+
+
+def _tf32_excess(split, seed):
+    """The largest |got - want| / (atol * max(1, max|want|) + rtol *
+    |want|) over dq, dk, dv of one seeded case (D = 64, GQA 4, causal
+    with a window of 24), ``split`` against float64, at chip_smoke.py's
+    ``BWD_RTOL`` / ``BWD_ATOL``: above 1 fails ``kernel_bwd_checks``."""
+    smoke = _chip_smoke()
+    q, k, v, do = _fa_inputs(seed, 1, 96, 96, 8, 2, 64)
+    pos = np.arange(96)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - 24)
+    got = _backward_products(q, k, v, do, mask,
+                             lambda a, b: _tf32_matmul(a, b, split))
+    want = _backward_products(q, k, v, do, mask,
+                              lambda a, b: np.float64(a) @ np.float64(b))
+    excess = 0.0
+    for g, w in zip(got, want):
+        tol = smoke.BWD_ATOL * max(1.0, np.abs(w).max()) \
+            + smoke.BWD_RTOL * np.abs(w)
+        excess = max(excess, float((np.abs(g - w) / tol).max()))
+    return excess
+
+
+def test_tf32_emulation_rounds_as_cvt_rna():
+    x = np.float32([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12,
+                    -(1.0 + 3 * 2.0 ** -11), 1.0 + 2.0 ** -10 - 2.0 ** -23])
+    assert list(_tf32_rna(x)) == [1.0 + 2.0 ** -10, 1.0, -(1.0 + 2.0 ** -9),
+                                  1.0 + 2.0 ** -10]
+    assert list(_tf32_trunc(x)) == [1.0, 1.0, -(1.0 + 2.0 ** -10), 1.0]
+
+
+@pytest.mark.parametrize("split", ["rna", "kernel"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_tf32_meets_the_backward_tolerance(split, seed):
+    """Three TF32 products a product (either split) keep the backward
+    within a few hundredths of ``kernel_bwd_checks``' tolerance."""
+    assert _tf32_excess(split, seed) < 0.05
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_one_tf32_product_misses_the_backward_tolerance(seed):
+    """One TF32 product a product (the ``fa_tf32_single`` mutant) fails
+    the same tolerance: the split's two correction terms are needed."""
+    assert _tf32_excess("single", seed) > 1.0
+
+
+def test_backward_rejects_misaligned_inputs_by_name():
+    """The backward kernels' 16-byte copies: a contiguous view one float
+    into its buffer raises ``ValueError`` naming it, before the kernels'
+    library is asked for (so on the CPU too)."""
+    b, s, h, d = 1, 8, 2, 16
+    buf = torch.zeros(1 + 5 * b * s * h * d)
+    q, k, v, o, do = (buf[i * b * s * h * d:(i + 1) * b * s * h * d]
+                      .view(b, s, h, d) for i in range(5))
+    lse = torch.zeros(b, h, s)
+    shifted = buf[1:1 + b * s * h * d].view(b, s, h, d)
+    assert q.data_ptr() % 16 == 0 and shifted.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match=r"\(cp.async\): do address"):
+        fa._kernel_backward(q, k, v, o, lse, shifted, True, 0, 0)
+    with pytest.raises(ValueError, match=r"\(cp.async\): q address"):
+        fa._kernel_backward(shifted, k, v, o, lse, do, True, 0, 0)
 
 
 def test_block_grad_mutants_patch_the_committed_sources():

@@ -34,6 +34,9 @@ Mutants:
   fa_no_key_zero         K4: a row that sees no key gives P = 0, not 1/T
                          (no such row in a causal block: the block check
                          cannot see it, the kernel checks can)
+  fa_tf32_single         K4: every product of both backward kernels one
+                         TF32 product (hi . hi) without its two
+                         correction terms
 """
 
 from __future__ import annotations
@@ -68,7 +71,12 @@ MUTANTS = {
                        "lo = window > 0 ? max(0, p - window + 2) : 0;"),
     "fa_no_key_zero": ("flash_attention_bwd",
                        "p = inv_t;",
-                       "p = 0.0f;"),
+                       "p = 0.0f * inv_t;"),
+    "fa_tf32_single": ("flash_attention_bwd",
+                       "    mma_tf32(d, al, bh0, bh1);\n"
+                       "    mma_tf32(d, ah, bl0, bl1);\n"
+                       "    mma_tf32(d, ah, bh0, bh1);\n",
+                       "    mma_tf32(d, ah, bh0, bh1);\n"),
 }
 
 # run in each copy: the copy's chip_smoke and repro_torch, its tolerance
