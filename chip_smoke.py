@@ -14,7 +14,7 @@ four virtual shards of the card; kernel ``fedagg_partial`` once per
 shard) and LM serving (``launch/steps.py``: prefill of full-width
 ``hymba-1.5b`` and ``llama3.2-1b``, decode of ``hymba-1.5b``; kernels
 ``flash_attention`` and ``ssm_scan``; ``flash_attention`` is the
-tensor-core kernel on these bf16 paths and the scalar one in the f32
+``wgmma`` kernel on these bf16 paths and the split-TF32 one in the f32
 consistency run) — then traces the sync and async paths through
 ``fl_train --trace`` (JSONL and Chrome; the port's ``repro_torch.obs``:
 traced == untraced bit for bit, the split of a warm round by span on
@@ -2216,12 +2216,17 @@ def _close(got, want, tol):
 
 
 def check_flash(name, q, k, v, *, causal=True, window=0, q_offset=0):
-    """Attention kernel vs its plain twin on the same card tensors."""
+    """Attention kernel vs its plain twin on the same card tensors; the
+    kernel twice, bit for bit."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     got = fa.flash_attention(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
+    again = fa.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f"flash_attention[{name}]: two runs differ")
     want = fa.gqa_plain(q, k, v, causal=causal, window=window,
                         q_offset=q_offset)
     tol = _tol(FA_TOL, q.dtype)
@@ -2274,11 +2279,13 @@ def check_mean_of_v(name, q, k, v, **kw):
 def flash_cases():
     """K4 against its plain twin: the JAX kernel tests' shapes (causal
     and not, q_offset = t - s), windows, GQA groups of 4 (llama) and 5
-    (hymba), f32 (the scalar kernel) and bf16 (the tensor-core kernel),
+    (hymba), f32 (the split-TF32 kernel) and bf16 (the wgmma kernel),
     tails of S and T, q_offset > 0, windows that are not a multiple of
     the 128-key tile, rows that see no key (the mean of v over all T
-    keys) alone and beside rows that see keys, strided views, and a
-    misaligned view that the bf16 kernel refuses."""
+    keys) alone and beside rows that see keys, strided views; the f32
+    kernel's 64 x 64 tiling at its edges (S and T off the tile at D 16
+    and 32, one q row, T under one tile, a GQA-5 band over 16 key
+    tiles); and misaligned views that each kernel refuses."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(10)
 
@@ -2337,6 +2344,16 @@ def flash_cases():
         cases.append(check_flash(f"strided-views-{tag}",
                                  qkv_fused[:, :, :8], qkv_fused[:, :, 8:10],
                                  qkv_fused[:, :, 10:], window=64))
+    # the f32 kernel's tiling (64 q rows by 64 keys) at its edges, on
+    # its own generator so the cases above keep their inputs
+    edge = torch.Generator(device="cuda").manual_seed(27)
+
+    def qkv_edge(b, s, t, h, hkv, d):
+        return tuple(torch.randn(*shape, generator=edge, device="cuda")
+                     for shape in ((b, s, h, d), (b, t, hkv, d),
+                                   (b, t, hkv, d)))
+    for name, shape, kw in F32_EDGE_CASES:
+        cases.append(check_flash(name, *qkv_edge(*shape), **kw))
     # the tensor-core kernel's own edges, bf16
     for s, t, d in ((128, 128, 64), (256, 256, 32), (64, 256, 64),
                     (256, 128, 16)):
@@ -2382,7 +2399,39 @@ def flash_cases():
     cases.append(check_flash_raises(
         "misaligned-view-bfloat16", wide[..., 1:65],
         wide[:, :, :1, 8:72], wide[:, :, :1, 8:72]))
+    # cp.async's rule (f32 k and v): k a view 4 bytes off a 16-byte
+    # address; k on a 16-byte address with strides of 130 and 65 floats
+    wide32 = torch.randn(1, 256, 2, 65, generator=gen, device="cuda")
+    q32 = torch.randn(1, 256, 2, 64, generator=gen, device="cuda")
+    cases.append(check_flash_raises(
+        "misaligned-view-float32", q32, wide32[:, :, :1, 1:],
+        wide32[:, :, :1, 1:]))
+    cases.append(check_flash_raises(
+        "k-strides-off-16-bytes-float32", q32, wide32[:, :, :1, :64],
+        wide32[:, :, :1, :64]))
     return cases
+
+
+# The f32 kernel's tiling at its edges: (name, (b, s, t, h, hkv, d),
+# masks).  Blocks of 64 q rows, key tiles of 64; S and T off the tile at
+# D = 16 and 32 with a window and q_offset, one q row (a block of 63
+# padding rows) at the end of a causal sequence, T under one tile, a
+# GQA-5 band over 16 key tiles, and a block whose rows see keys of two
+# tiles each, the first of them masked for some rows.
+F32_EDGE_CASES = (
+    ("f32-ragged-91x157-d16-window40-offset66", (2, 91, 157, 6, 2, 16),
+     dict(window=40, q_offset=66)),
+    ("f32-ragged-130x99-d32-full-window50-offset20",
+     (1, 130, 99, 4, 1, 32), dict(causal=False, window=50, q_offset=20)),
+    ("f32-one-row-1x300-causal-offset299", (2, 1, 300, 5, 1, 64),
+     dict(q_offset=299)),
+    ("f32-t10-under-one-tile-full", (1, 70, 10, 2, 2, 64),
+     dict(causal=False)),
+    ("f32-gqa5-1x1000-window300-16-key-tiles", (1, 1000, 1000, 5, 1, 64),
+     dict(window=300)),
+    ("f32-window-70-band-across-tiles", (1, 192, 192, 2, 1, 32),
+     dict(window=70)),
+)
 
 
 def check_ssm(name, x, dt, b_in, c_out, a_log, h0=None):
@@ -2619,6 +2668,23 @@ def check_ssm_bwd(name, x, dt, b_in, c_out, a_log, h0=None, dh_end=True):
     return row
 
 
+# K5's backward at the edges of its time split (the forward's: chunks
+# of 8 segments of at most 64 steps; in a segment, checkpoints every 8
+# steps, each 8-step block walked back as two register halves of 4):
+# (name, (b, s, d, n), h0, dh_end).  One step; one short chunk with
+# empty segments and a 5-step block (a 1-step later half); three chunks
+# whose last holds a 64-step and a 12-step segment (a 4-step block:
+# its later half empty) beside 6 empty ones, D off the channel group;
+# a last chunk of 3 steps; two full chunks at N = 4.
+SSM_BWD_SPLIT_CASES = (
+    ("split-s1-h0-dh_end", (2, 1, 64, 16), True, True),
+    ("split-s37-d50-n8-h0", (1, 37, 50, 8), True, False),
+    ("split-s1100-d200-h0-dh_end", (2, 1100, 200, 16), True, True),
+    ("split-s1027-d96-dh_end", (1, 1027, 96, 16), False, True),
+    ("split-s1024-d64-n4", (1, 1024, 64, 4), False, False),
+)
+
+
 def check_bwd_raises(name, fn):
     """bf16 with grad: the wrapper raises NotImplementedError and
     launches nothing."""
@@ -2702,46 +2768,59 @@ def check_bwd_misaligned():
     fail("check_bwd_misaligned: a misaligned q did not raise")
 
 
-def bwd_library_sass():
-    """The built ``flash_attention_bwd`` library as ``cuobjdump`` reads
-    it: each kernel's TF32 tensor-core instructions (``HMMA`` with
-    ``TF32``), registers and local-memory (spill) bytes; fails when a
-    kernel has no TF32 HMMA.  ``seconds``: what the two reads took."""
+# The split-TF32 kernels as cuobjdump names them (mangled): library ->
+# (pattern of a kernel's name, its key from the match, the keys wanted)
+SASS_KERNELS = {
+    "flash_attention_bwd": (
+        r"_Z\d+(fa_bwd_\w+?_kernel)ILi(\d+)EE",
+        lambda m: f"{m.group(1)}<{m.group(2)}>",
+        {f"fa_bwd_{kind}_kernel<{d}>" for kind in ("dq", "dkdv")
+         for d in (16, 32, 64)}),
+    "flash_attention": (
+        r"_Z\d+(fa_fwd_f32_kernel)ILi(\d+)ELb([01])EE",
+        lambda m: f"{m.group(1)}<{m.group(2)}, "
+                  f"{'true' if m.group(3) == '1' else 'false'}>",
+        {f"fa_fwd_f32_kernel<{d}, {lse}>" for d in (16, 32, 64)
+         for lse in ("true", "false")}),
+}
+
+
+def library_sass(library: str) -> dict:
+    """A built library as ``cuobjdump`` reads it (one ``-sass`` and one
+    ``-res-usage`` pass): each split-TF32 kernel's TF32 tensor-core
+    instructions (``HMMA`` with ``TF32``), registers and local-memory
+    (spill) bytes; fails when a kernel of ``SASS_KERNELS`` is missing or
+    has no TF32 HMMA.  ``seconds``: what the two reads took."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    lib = _build.build(["flash_attention_bwd"])["flash_attention_bwd"]
+    lib = _build.build([library])[library]
     tool = str(Path(_build._nvcc()).parent / "cuobjdump")
+    name, key, want = SASS_KERNELS[library]
 
     def dump(flag):
         return subprocess.run([tool, flag, str(lib)], check=True,
                               capture_output=True, text=True,
                               timeout=120).stdout
 
-    # mangled names: fa_bwd_dq_kernel<D>, fa_bwd_dkdv_kernel<D>
-    name = r"_Z\d+(fa_bwd_\w+?_kernel)ILi(\d+)EE"
-
-    def key(m):
-        return f"{m.group(1)}<{m.group(2)}>"
-
     kernels, current = {}, None
     for line in dump("-sass").splitlines():
         m = re.search(r"Function : " + name, line)
-        if m:
-            current = key(m)
-            kernels[current] = {"tf32_hmma": 0}
+        if "Function : " in line:
+            current = key(m) if m else None
+            if current:
+                kernels[current] = {"tf32_hmma": 0}
         elif current and "HMMA" in line and "TF32" in line:
             kernels[current]["tf32_hmma"] += 1
     for m in re.finditer(name + r"\S*:\s*REG:(\d+) STACK:(\d+) \S+ "
                          r"LOCAL:(\d+)", dump("-res-usage")):
+        regs = m.groups()[-3:]
         kernels[key(m)].update(
-            registers=int(m.group(3)), stack_bytes=int(m.group(4)),
-            local_bytes=int(m.group(5)))
-    want = {f"fa_bwd_{kind}_kernel<{d}>" for kind in ("dq", "dkdv")
-            for d in (16, 32, 64)}
+            registers=int(regs[0]), stack_bytes=int(regs[1]),
+            local_bytes=int(regs[2]))
     if set(kernels) != want or not all(k["tf32_hmma"] for k in
                                        kernels.values()):
-        fail(f"flash_attention_bwd library: a kernel without TF32 HMMA: "
-             f"{kernels}")
+        fail(f"{library} library: a split-TF32 kernel missing or without "
+             f"TF32 HMMA: {kernels}")
     return {**kernels, "seconds": time.perf_counter() - t0}
 
 
@@ -2751,9 +2830,11 @@ def kernel_bwd_checks():
     shapes, GQA groups 1, 4 and 5, causal, window and q_offset, rows
     that see no key (alone and beside rows that do), the two full-width
     layer shapes of the training path; K5 with N 4, 8 and 16, with and
-    without h0, with and without an incoming h_end gradient, and
-    hymba's full shape; bf16 with grad raising; both under
-    ``torch.utils.checkpoint``."""
+    without h0, with and without an incoming h_end gradient, hymba's
+    full shape and the edges of its time split
+    (``SSM_BWD_SPLIT_CASES``); bf16 with grad raising; both under
+    ``torch.utils.checkpoint``; and ``cuobjdump`` of the split-TF32
+    libraries (``library_sass``)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssm_scan as ss
@@ -2811,6 +2892,14 @@ def kernel_bwd_checks():
     x, dt, bi, co, al = ssm_inputs(gen, 1, 2048, 3200, 16, torch.float32)
     ss_rows.append(check_ssm_bwd("hymba-1x2048x3200x16", x, dt, bi, co, al,
                                  dh_end=False))
+    # the edges of the backward's time split, on their own generator
+    split_gen = torch.Generator(device="cuda").manual_seed(28)
+    for name, (b, s, d, n), with_h0, dh_end in SSM_BWD_SPLIT_CASES:
+        x, dt, bi, co, al = ssm_inputs(split_gen, b, s, d, n, torch.float32)
+        h0 = (torch.randn(b, d, n, generator=split_gen, device="cuda")
+              if with_h0 else None)
+        ss_rows.append(check_ssm_bwd(name, x, dt, bi, co, al, h0,
+                                     dh_end=dh_end))
     bq = torch.randn(1, 128, 2, 64, generator=gen, device="cuda").to(
         torch.bfloat16).requires_grad_(True)
     bk = torch.randn(1, 128, 1, 64, generator=gen, device="cuda").to(
@@ -2828,7 +2917,8 @@ def kernel_bwd_checks():
             "flash_attention_bwd": fa_rows, "ssm_scan_bwd": ss_rows,
             "raises": raises + [check_bwd_misaligned()],
             "checkpoint": check_under_checkpoint(),
-            "flash_attention_bwd_sass": bwd_library_sass()}
+            "flash_attention_bwd_sass": library_sass("flash_attention_bwd"),
+            "flash_attention_f32_sass": library_sass("flash_attention")}
 
 
 # ---------------------------------------------------------------------
@@ -2951,7 +3041,7 @@ def lm_prefill_path(models):
             first_s = time.perf_counter() - t0
             launched = counts()
         hybrid = cfg.family == "hybrid"
-        # bf16: every K4 launch is the tensor-core kernel, none scalar
+        # bf16: every K4 launch is the wgmma kernel, none the f32 one
         want = only(flash_attention=cfg.num_layers,
                     flash_attention_tc=cfg.num_layers
                     if dtype == torch.bfloat16 else 0,
@@ -3249,6 +3339,10 @@ def lm_consistency():
 # on the banded branch; llama is causal (chunked branch)
 LM_TRAIN = (("hymba-1.5b", 1, 2048), ("llama3.2-1b", 2, 2048))
 LM_TRAIN_STEPS = 3
+# one more step after the timed ones, traced by torch.profiler (CUDA
+# kernels and the CPU ops that launched them) and left out of the step
+# times
+PROFILED_STEPS = 1
 # One full-width hymba block's gradients through the kernels against the
 # plain twins patched in, same weights and input: f32 sums in other
 # orders through the block's GEMMs (reductions over 2048 tokens) and the
@@ -3260,11 +3354,16 @@ BLOCK_GRAD_RTOL = 1e-4
 
 
 @contextlib.contextmanager
-def recording_train_steps(record):
+def recording_train_steps(record, profile=False):
     """``launch.train``'s ``make_train_step`` with each step timed on the
     host between two synchronizes (``record["step_s"]``) and the last
-    step's (params, opt_state, metrics) kept (``record["last"]``)."""
+    step's (params, opt_state, metrics) kept (``record["last"]``).  With
+    ``profile`` the step after ``LM_TRAIN_STEPS`` runs under
+    ``torch.profiler`` instead of the clock: ``record["profile"]`` is
+    its ``step_profile``."""
     import torch
+    from torch.profiler import ProfilerActivity
+    from repro_torch.launch import steps as steps_mod
     from repro_torch.launch import train as train_mod
 
     def wrapped(cfg, tcfg, lr=None):
@@ -3272,17 +3371,125 @@ def recording_train_steps(record):
 
         def timed(params, opt_state, batch):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = step(params, opt_state, batch)
-            torch.cuda.synchronize()
-            record["step_s"].append(time.perf_counter() - t0)
+            if profile and len(record["step_s"]) == LM_TRAIN_STEPS:
+                with torch.profiler.profile(activities=[
+                        ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                        record_shapes=True) as prof, \
+                        patched(steps_mod, "global_norm",
+                                in_range(steps_mod.global_norm)), \
+                        patched(steps_mod, "update_in_place",
+                                in_range(steps_mod.update_in_place)):
+                    t0 = time.perf_counter()
+                    out = step(params, opt_state, batch)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                t1 = time.perf_counter()
+                record["profile"] = step_profile(prof, wall)
+                record["profile"]["reading_s"] = time.perf_counter() - t1
+            else:
+                t0 = time.perf_counter()
+                out = step(params, opt_state, batch)
+                torch.cuda.synchronize()
+                record["step_s"].append(time.perf_counter() - t0)
             record["last"] = out
             return out
         return timed, opt
 
+    def in_range(fn):
+        def call(*args, **kw):
+            with torch.profiler.record_function(OPTIMIZER_RANGE):
+                return fn(*args, **kw)
+        return call
+
     record.update(step_s=[], last=None)
     with patched(train_mod, "make_train_step", wrapped) as real:
         yield
+
+
+# the range around a train step's clip and AdamW update (``launch/
+# steps.py``: ``global_norm``, ``update_in_place``) in a profiled step
+OPTIMIZER_RANGE = "optimizer"
+
+# kernel name (lower case) -> group of a profiled train step, first
+# match wins; kernels launched inside OPTIMIZER_RANGE are "optimizer"
+STEP_GROUPS = (
+    ("k4_dq", ("fa_bwd_dq",)),
+    ("k4_dkdv", ("fa_bwd_dkdv",)),
+    ("k4_fwd", ("flash_attention", "fa_fwd")),
+    ("k5_bwd", ("ssm_scan_bwd",)),
+    ("k5_fwd", ("ssm_scan_kernel", "ssm_step_kernel")),
+    ("gemm", ("gemm", "xmma", "cutlass")),
+    ("elementwise", ("elementwise", "reduce")),
+)
+
+
+def step_group(name: str) -> str:
+    low = name.lower()
+    for group, keys in STEP_GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def step_profile(prof, wall_s: float, top: int = 12) -> dict:
+    """One profiled train step: every device kernel's time summed by
+    name, the kernels launched inside ``OPTIMIZER_RANGE`` taken out as
+    "optimizer", the rest grouped by ``step_group``; each group's
+    seconds, the ``top`` kernels by time, and the ``top`` PyTorch ops
+    by the device time of the kernels they launched themselves, with
+    their input shapes (who calls the kernels).  ``wall_s`` is the
+    profiled step's host time (the profiler's own cost included)."""
+    from torch.autograd import DeviceType
+    by_name, opt_by_name = {}, {}
+
+    def under(ev):
+        for kern in ev.kernels:
+            opt_by_name[kern.name] = opt_by_name.get(kern.name, 0.0) \
+                + kern.duration
+        for child in ev.cpu_children:
+            under(child)
+
+    for ev in prof.events():
+        if ev.name == OPTIMIZER_RANGE:
+            if ev.device_type == DeviceType.CPU:
+                under(ev)
+        elif ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) \
+                + ev.time_range.elapsed_us()
+    groups = {g: 0.0 for g, _ in STEP_GROUPS}
+    groups.update(optimizer=0.0, other=0.0)
+    for name, us in by_name.items():
+        opt = min(us, opt_by_name.get(name, 0.0))
+        groups["optimizer"] += opt
+        groups[step_group(name)] += us - opt
+    device_s = sum(by_name.values()) / 1e6
+    if device_s <= 0.0:
+        fail("step_profile: the profiler saw no device time")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    ops = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                  if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:top]
+    return {"profiled_wall_s": wall_s, "device_s": device_s,
+            "groups_s": {g: us / 1e6 for g, us in groups.items()},
+            "top": [{"name": n[:120], "s": us / 1e6, "group": step_group(n)}
+                    for n, us in ranked],
+            "top_ops": [{"op": e.key, "shapes": str(e.input_shapes)[:160],
+                         "calls": e.count,
+                         "s": e.self_device_time_total / 1e6}
+                        for e in ops]}
+
+
+def with_step_shares(profile: dict, warm_s: float) -> dict:
+    """``step_profile``'s seconds as shares of the unprofiled warm step
+    (``warm_s``, the median of the timed steps): each group's, the
+    device's busy share, and the top kernels'."""
+    return {**profile, "warm_s_per_step": warm_s,
+            "device_busy_share": profile["device_s"] / warm_s,
+            "groups_share_of_step": {g: v / warm_s for g, v in
+                                     profile["groups_s"].items()},
+            "top": [{**t, "share_of_step": t["s"] / warm_s}
+                    for t in profile["top"]]}
 
 
 # launch.train's corpus, (args, kwargs) -> the tokens or their pending
@@ -3325,18 +3532,21 @@ def _cached_corpus(real):
     return corpus
 
 
-def _train_run(arch, b, s):
+def _train_run(arch, b, s, profile=False):
     """``python -m repro_torch.launch.train --full`` in-process for
-    ``LM_TRAIN_STEPS`` steps, with the launch counts read around it."""
+    ``LM_TRAIN_STEPS + PROFILED_STEPS`` steps, with the launch counts
+    read around it; with ``profile`` the last step is profiled
+    (``recording_train_steps``)."""
     import torch
     from repro_torch.launch import train as train_mod
     record = {}
     argv = ["--arch", arch, "--full", "--batch", str(b), "--seq", str(s),
-            "--steps", str(LM_TRAIN_STEPS), "--log-every", "1"]
+            "--steps", str(LM_TRAIN_STEPS + PROFILED_STEPS),
+            "--log-every", "1"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     start_bytes = torch.cuda.memory_allocated()
-    with recording_train_steps(record), patched(
+    with recording_train_steps(record, profile), patched(
             train_mod, "make_token_dataset",
             _cached_corpus(train_mod.make_token_dataset)):
         zero_counts()
@@ -3347,7 +3557,7 @@ def _train_run(arch, b, s):
         launched = counts()
     return {"losses": losses, "wall_s": wall, "launches": launched,
             "step_s": record["step_s"], "last": record["last"],
-            "start_bytes": start_bytes,
+            "profile": record.get("profile"), "start_bytes": start_bytes,
             "peak_bytes": torch.cuda.max_memory_allocated()}
 
 
@@ -3431,10 +3641,12 @@ def _leaf_names(tree, prefix=()):
 
 def lm_train_path():
     """``launch.train --full`` on each case of ``LM_TRAIN``, f32, 3
-    steps: warm s/step, tokens/s, first step, peak memory, K4 and K5
-    forward and backward launches (each layer once a step); hymba twice,
-    losses and final parameters bit for bit; and one full-width hymba
-    block's gradients through the kernels against the plain twins."""
+    timed steps and one profiled (``step_profile``): warm s/step,
+    tokens/s, first step, peak memory, K4 and K5 forward and backward
+    launches (each layer once a step), the profiled step's device time
+    by group; hymba twice, losses and final parameters bit for bit; and
+    one full-width hymba block's gradients through the kernels against
+    the plain twins."""
     import math
     import torch
     from repro_torch.config import get_arch
@@ -3442,8 +3654,8 @@ def lm_train_path():
     runs, train_counts = [], {}
     for arch, b, s in LM_TRAIN:
         cfg = get_arch(arch)
-        r = _train_run(arch, b, s)
-        layers_steps = cfg.num_layers * LM_TRAIN_STEPS
+        r = _train_run(arch, b, s, profile=True)
+        layers_steps = cfg.num_layers * (LM_TRAIN_STEPS + PROFILED_STEPS)
         want = only(flash_attention=layers_steps,
                     flash_attention_bwd_dq=layers_steps,
                     flash_attention_bwd_dkdv=layers_steps,
@@ -3464,9 +3676,12 @@ def lm_train_path():
                "allocated_before_bytes": r["start_bytes"],
                "wall_s": r["wall_s"],
                "launches": r["launches"],
-               "launches_per_step": {k: v // LM_TRAIN_STEPS
-                                     for k, v in r["launches"].items()}}
+               "launches_per_step": {
+                   k: v // (LM_TRAIN_STEPS + PROFILED_STEPS)
+                   for k, v in r["launches"].items()}}
         row["tokens_per_s"] = b * s / row["warm_s_per_step"]
+        row["profiled_step"] = with_step_shares(r["profile"],
+                                                row["warm_s_per_step"])
         if arch == "hymba-1.5b":
             first = [t.clone() for t in tree_leaves(r["last"][0])]
             r = None
@@ -3586,9 +3801,9 @@ def _sdpa_backend(fn):
 def flash_attention_times(attn_calls):
     """K4 (the tensor-core kernel: the prefill path is bf16), its plain
     twin, ``scaled_dot_product_attention`` (the library yardstick; the
-    port never calls it) and the f32 scalar kernel on the same inputs in
-    f32, at one layer of each route the prefill path formed, in
-    turns."""
+    port never calls it) and the f32 (split-TF32) kernel on the same
+    inputs in f32, at one layer of each route the prefill path formed,
+    in turns."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -3631,11 +3846,11 @@ def flash_attention_times(attn_calls):
 
         qf, kf, vf = q.float(), k.float(), v.float()
 
-        def scalar_f32():
+        def kernel_f32():
             return fa.flash_attention(qf, kf, vf, causal=causal,
                                       window=window, q_offset=q_offset)
 
-        def scalar_f32_lse():
+        def kernel_f32_lse():
             return fa._kernel_forward(qf, kf, vf, causal, window, q_offset,
                                       with_lse=True)
 
@@ -3647,8 +3862,8 @@ def flash_attention_times(attn_calls):
                  "the tensor-core one")
         plain_a = median_ms(plain, runs=3, per_run=2)
         lib = median_ms(library, runs=5, per_run=5)
-        f32_ms = median_ms(scalar_f32, runs=3, per_run=3)
-        f32_lse_ms = median_ms(scalar_f32_lse, runs=3, per_run=3)
+        f32_ms = median_ms(kernel_f32, runs=3, per_run=3)
+        f32_lse_ms = median_ms(kernel_f32_lse, runs=3, per_run=3)
         kernel_b = median_ms(kernel, runs=5, per_run=5)
         plain_b = median_ms(plain, runs=3, per_run=2)
         bound, bound_by, ops_by, flops, exps = flash_bound_ms(
@@ -3663,8 +3878,8 @@ def flash_attention_times(attn_calls):
                     "plain_ms": min(plain_a, plain_b), "library_ms": lib,
                     "library": f"scaled_dot_product_attention "
                                f"({backend} backend)",
-                    "f32_scalar_kernel_ms": f32_ms,
-                    "f32_scalar_kernel_lse_ms": f32_lse_ms,
+                    "f32_kernel_ms": f32_ms,
+                    "f32_kernel_lse_ms": f32_lse_ms,
                     "bound_ms": bound, "bound_by": bound_by,
                     "bound_ops": ops_by,
                     "bound_tensor_ms": flops / BF16_TENSOR_FLOPS_PER_S * 1e3,
@@ -3830,7 +4045,8 @@ def flash_attention_bwd_times(per_step):
     backend (the library yardstick for the pair's work: dq, dk and dv)
     and on its math backend, in turns; and the f32 forward kernel with
     and without the log-sum-exp output beside SDPA's f32 forward alone
-    (memory-efficient backend) and the forward's bound."""
+    (memory-efficient backend), its plain twin
+    (``flash_attention_fwd_plain``) and the forward's bound."""
     import math
     import torch
     import torch.nn.functional as F
@@ -3921,6 +4137,10 @@ def flash_attention_bwd_times(per_step):
             return fa._kernel_forward(q, k, v, True, window, 0,
                                       with_lse=False)
 
+        def fwd_twin():
+            return fa.flash_attention_fwd_plain(q, k, v, causal=True,
+                                                window=window)
+
         if "EfficientAttention" not in lib_node:
             fail(f"flash_attention_bwd_times {arch}: SDPA's backward is "
                  f"{lib_node}, not the memory-efficient backend's")
@@ -3933,6 +4153,7 @@ def flash_attention_bwd_times(per_step):
         fwd_a = median_ms(fwd_plain_out, runs=5, per_run=5)
         fwd_lse_a = median_ms(fwd_lse, runs=5, per_run=5)
         lib_fwd_ms = median_ms(library_fwd, runs=5, per_run=5)
+        fwd_twin_ms = median_ms(fwd_twin, runs=3, per_run=2)
         dq_b = median_ms(dq_kernel, runs=5, per_run=5)
         dkdv_b = median_ms(dkdv_kernel, runs=5, per_run=5)
         pair_b = median_ms(pair, runs=5, per_run=3)
@@ -3962,6 +4183,7 @@ def flash_attention_bwd_times(per_step):
                "fwd_f32_lse_ms": min(fwd_lse_a, fwd_lse_b),
                "fwd_turns": {"no_lse": [fwd_a, fwd_b],
                              "lse": [fwd_lse_a, fwd_lse_b]},
+               "fwd_plain_ms": fwd_twin_ms,
                "fwd_library_ms": min(lib_fwd_ms, lib_fwd_b),
                "fwd_library_ms_turns": [lib_fwd_ms, lib_fwd_b],
                "fwd_library": "scaled_dot_product_attention, f32, "
@@ -3977,6 +4199,7 @@ def flash_attention_bwd_times(per_step):
             "ms": fb["ms"], "by": fb["by"], "route": fb["route"],
             "flops": fb["flops"], "exps": fb["exps"],
             "cuda_core_ms": fb["cuda_core_ms"], "tensor_ms": fb["tensor_ms"]}
+        row["fwd_f32_tflops"] = fb["flops"] / row["fwd_f32_lse_ms"] / 1e9
         times = {"dq": min(dq_a, dq_b), "dkdv": min(dkdv_a, dkdv_b),
                  "pair": min(pair_a, pair_b)}
         for name, dots, reads, writes in FA_BWD_WORK:
@@ -3998,21 +4221,64 @@ def flash_attention_bwd_times(per_step):
     return out
 
 
+def ssm_bwd_split(b, s, d, n):
+    """The time split K5's backward takes for one call, as the built
+    libraries report it: the forward's segment length, segments a chunk
+    and chunks (``ssm_scan.time_split``), and the backward's steps
+    between checkpoints and of a register half block
+    (``ssm_scan_bwd_sizes`` which = 4, 5)."""
+    from repro_torch.kernels import ssm_scan as ss
+    seg, warps, chunks = ss.time_split(b, s, d, n)
+    lib = ss._bwd_lib()
+    return {"seg": seg, "warps": warps, "chunks": chunks,
+            "block": int(lib.ssm_scan_bwd_sizes(b, s, d, n, chunks, 4)),
+            "half": int(lib.ssm_scan_bwd_sizes(b, s, d, n, chunks, 5))}
+
+
+def ssm_bwd_design_exps(b, s, d, n, split):
+    """The exps K5's backward takes for one call under ``split``
+    (``ssm_bwd_split``), per (d, n): for each segment of L steps, L in
+    each pass from zero (forward, and g backward), the checkpoint walk
+    up to the last block's start, each block of l steps replayed (l,
+    and 4 more for a block whose later half is reached from the
+    checkpoint), L in the walk back; and the folds, N per segment a
+    warp crosses: every earlier one (the state) and every later one (g),
+    and warp 0's own (the chunk's carry out)."""
+    warps, seg, blk, half = (split[k] for k in ("warps", "seg", "block",
+                                                "half"))
+    per_state = 0
+    for k in range(split["chunks"]):
+        for w in range(warps):
+            tb = (k * warps + w) * seg
+            length = max(0, min(tb + seg, s) - tb)
+            if length == 0:
+                continue
+            blocks = [min(blk, length - j) for j in range(0, length, blk)]
+            per_state += 3 * length + (length - blocks[-1]) + sum(
+                bl + (half if bl > half else 0) for bl in blocks)
+        per_state += warps * (warps - 1) + 1
+    return b * d * n * per_state
+
+
 def ssm_scan_bwd_times(per_step):
     """K5's backward at hymba's training shape (B=1, S=2048, D=3200,
     N=16, f32, no h0, an incoming h_end gradient of zeros as the model
     gives), its plain twin (``ssm_scan_bwd_plain``, a Python loop of S
-    steps: host time included), in turns; no PyTorch call computes a
-    selective scan's gradient, so there is no library yardstick."""
+    steps: host time included), in turns, beside its bound, the
+    design's exp floor from the split it reports, and its time before
+    the redesign; no PyTorch call computes a selective scan's gradient,
+    so there is no library yardstick."""
     import torch
     from repro_torch.kernels import ssm_scan as ss
     gen = torch.Generator(device="cuda").manual_seed(24)
     b, s, d, n = 1, 2048, 3200, 16
     x, dt, bi, co, al = ssm_inputs(gen, b, s, d, n, torch.float32)
     dy = torch.randn(b, s, d, generator=gen, device="cuda")
+    carries = ss._kernel_forward(x, dt, bi, co, al, None)[2]
 
     def kernel():
-        return ss._kernel_backward(x, dt, bi, co, al, None, dy, None)
+        return ss._kernel_backward(x, dt, bi, co, al, None, dy, None,
+                                   carries)
 
     def plain():
         return ss.ssm_scan_bwd_plain(x, dt, bi, co, al, None, dy)
@@ -4034,6 +4300,7 @@ def ssm_scan_bwd_times(per_step):
     nbytes = 4 * (5 * b * s * d + 4 * b * s * n + 2 * d * n)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = b * s * d * n / SFU_EXP_PER_S * 1e3
+    split = ssm_bwd_split(b, s, d, n)
     ms = min(kernel_a, kernel_b)
     return {"case": "hymba-train", "b": b, "s": s, "d": d, "n": n,
             "dtype": "torch.float32", "ms": ms,
@@ -4042,9 +4309,18 @@ def ssm_scan_bwd_times(per_step):
             "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bound_bytes_ms": by_bytes, "bound_exps_ms": by_ops,
-            "design_exps_ms": 3 * b * s * d * n / SFU_EXP_PER_S * 1e3,
+            "split": split,
+            "design_exps_ms": ssm_bwd_design_exps(b, s, d, n, split)
+            / SFU_EXP_PER_S * 1e3,
+            "earlier_ms": SS_BWD_EARLIER_MS,
             "max_abs_err": errs,
             "launches_per_train_step": per_step["hymba-1.5b"]["ssm_scan_bwd"]}
+
+
+# K5's backward before its split over time (one warp a (row, channel
+# group), serial in time), at the shape above on an H100 80GB HBM3 at
+# 700 W (PERF.md), printed beside this run's
+SS_BWD_EARLIER_MS = 3.9254
 
 
 def main() -> int:
@@ -4231,14 +4507,16 @@ def run_phases() -> int:
         "routes": [{k: t[k] for k in ("arch", "route", "q", "k", "window",
                                       "ms", "tflops", "plain_ms",
                                       "bound_ms", "bound_by", "bound_ops",
-                                      "library_ms", "f32_scalar_kernel_ms",
-                                      "f32_scalar_kernel_lse_ms")}
+                                      "library_ms", "f32_kernel_ms",
+                                      "f32_kernel_lse_ms")}
                    for t in fa_times],
         # the f32 forward with lse that training launches, at its two
         # layer shapes, beside SDPA's f32 forward (memory-efficient)
         "train_f32_forward": [{
             "arch": r["arch"], "q": r["q"], "k": r["k"],
             "window": r["window"], "ms": r["fwd_f32_lse_ms"],
+            "f32_tflops": r["fwd_f32_tflops"],
+            "plain_ms": r["fwd_plain_ms"],
             "bound_ms": r["fwd_bound"]["ms"],
             "bound_by": r["fwd_bound"]["by"],
             "bound_route": r["fwd_bound"]["route"],
@@ -4293,7 +4571,8 @@ def run_phases() -> int:
         "shape": [ss_bwd[k] for k in ("b", "s", "d", "n")],
         "ms": ss_bwd["ms"], "plain_ms": ss_bwd["plain_ms"],
         "bound_ms": ss_bwd["bound_ms"], "bound_by": ss_bwd["bound_by"],
-        "library_ms": None}]})
+        "library_ms": None, "split": ss_bwd["split"],
+        "design_exps_ms": ss_bwd["design_exps_ms"]}]})
     emit({"ok": True,
           "device": {"platform": "gpu",
                      "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,7 @@
 // and loops over the key tiles its rows can see, the online-softmax
 // state of each row in f32 registers.
 //
-//   q (B,S,H,D), k/v (B,T,Hkv,D), any strides with a unit stride on D;
+//   q (B,S,H,D), k/v (B,T,Hkv,D), strides with a unit stride on D;
 //   out (B,S,H,D) contiguous, in q's type.  Query head h reads kv head
 //   h / (H/Hkv) -- the mapping of jnp.repeat(k, H/Hkv, axis=2) -- and no
 //   repeated copy of k or v is ever made.
@@ -31,14 +31,36 @@
 // keys, as the reference's grid does.  Keys past T (a tail tile) get
 // -inf and zero k/v, so they add nothing even to such a row.
 //
-// f32: flash_attention_kernel, scalar on the CUDA cores -- the
-// reference's numerics exactly (q, k, v in f32 before the dot, expf,
-// true division).  256 threads, four to a q row of a 64-row tile,
-// 64-key tiles of k/v staged in shared memory as f32: for the scores a
-// thread holds its q row in registers and takes 16 of the tile's keys
-// (float4 reads of rows padded to D+4 floats); the 4-lane row max and
-// sum are shuffles; p goes through shared memory; for p.v a thread owns
-// D/4 of the row's output columns.
+// f32: fa_fwd_f32_kernel<D, LSE>, on the tensor cores in split TF32
+// (the design of flash_attention_bwd.cu's kernels).  Per visible pair
+// 4*D f32 flops (two dots) and one exp; each f32 product is three TF32
+// products on the tensor cores (494.7e12 TF32 flop/s), against 67e12 on
+// the CUDA cores, so split TF32 bounds it.
+//   * A block of 4 warps owns 64 q rows of one (b, h), 16 rows a warp;
+//     a 1-D grid, the last q tiles first (under a causal mask they see
+//     the most keys).  Two blocks an SM.
+//   * q is loaded once into registers as split-TF32 A fragments: x = hi
+//     + lo, hi = x with its 13 low mantissa bits cleared, lo = x - hi;
+//     a product a.b is lo.hi + hi.lo + hi.hi (about 2^-19 relative
+//     where one TF32 product, about 2^-10, fails FA_TOL f32).
+//   * K and V tiles of 64 keys come in by 16-byte cp.async into a
+//     2-stage ring (the next tile loading under this one's products),
+//     rows padded to D+4 floats (ldmatrix rows and scalar B words free
+//     of bank conflicts); keys past T are zero-filled by the copy.
+//   * S = Q.K^T: mma.sync.m16n8k8 TF32, K's fragments by ldmatrix; then
+//     * scale, the masks by select, and the online softmax on the C
+//     fragments (row max and sum over the quad that holds a row; p =
+//     expf(s - m), corr = expf(m - m_new), as the reference).
+//   * O = O * corr + P.V: P leaves S as C fragments and is P.V's A
+//     operand with each 8-key slice's contraction index permuted (slot
+//     t <-> 2t, t+4 <-> 2t+1), V's rows read in that order.  Each tile's
+//     product is summed from zero on the tensor cores and then added in
+//     f32: their own adds round toward zero, a drift that grows with
+//     the tiles (flash_attention_bwd.cu).
+//   * Epilogue: out = acc / max(l, 1e-30), row-major f32 stores of rows
+//     < S; with LSE, lse = m + log(max(l, 1e-30)) for the backward.
+//   * k and v need 16-byte addresses and strides (cp.async); the
+//     wrapper raises otherwise.  q is read with 4-byte loads.
 //
 // bf16: flash_attention_tc_kernel, on the tensor cores.  Per visible
 // (q, k) pair the work is 4*D flops (two dots) and one exp, so at D=64
@@ -89,8 +111,8 @@
 // 8e-3, atol 1e-3: the output's one bf16 rounding.  The second product
 // costs 17-24 % of the kernel's time on an H100 (PERF.md).
 //
-// Addresses and byte strides of q, k, v must be multiples of 16 bytes
-// (TMA); the wrapper raises otherwise.
+// Addresses and byte strides of q, k, v (bf16: TMA) and of k, v (f32:
+// cp.async) must be multiples of 16 bytes; the wrapper raises otherwise.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -102,49 +124,139 @@
 #include <mutex>
 
 // ---------------------------------------------------------------------
-// The f32 kernel: scalar, the reference's arithmetic
+// The f32 kernel: tensor cores (mma.sync TF32), split TF32
 // ---------------------------------------------------------------------
 
 #define FA_BQ 64
 #define FA_BK 64
-#define FA_THREADS 256
+#define FA_WARPS 4
+#define FA_THREADS (32 * FA_WARPS)
 #define FA_NEG (-1e30f)
 
+// floats of the K/V ring: 2 stages x (K, V), 64 rows padded to D+4
 template <int D>
 __host__ __device__ constexpr int fa_smem_floats() {
-    return FA_BK * (D + 4) + FA_BK * D + FA_BQ * (FA_BK + 4);
+    return 2 * 2 * FA_BK * (D + 4);
 }
 
+// The keys absolute position p sees: [lo, hi) (empty when hi <= lo).
+__device__ __forceinline__ void fa_band(int p, int T_len, int causal,
+                                        int window, int& lo, int& hi) {
+    lo = window > 0 ? max(0, p - window + 1) : 0;
+    hi = causal ? min(T_len, p + 1) : T_len;
+}
+
+__device__ __forceinline__ uint32_t fa_smem(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared, or 16 zero bytes when !ok
+__device__ __forceinline__ void fa_cp_async16(uint32_t dst, const void* src,
+                                              bool ok) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void fa_cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fa_cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// four 8 x 4 f32 blocks: lane l gives the row address of block l / 8,
+// row l % 8; thread (g = lane/4, t = lane%4) gets element (g, t) of each
+__device__ __forceinline__ void fa_ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+                 "{%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr) : "memory");
+}
+
+// x = hi + lo: hi is x with its 13 low mantissa bits cleared (a TF32
+// value), lo = x - hi (exact in f32) is passed whole; what the TF32
+// products drop of it is at most 2^-20 of x (flash_attention_bwd.cu's
+// split)
+__device__ __forceinline__ void fa_split_tf32(float x, uint32_t& hi,
+                                              uint32_t& lo) {
+    hi = __float_as_uint(x) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void fa_mma_tf32(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b in split TF32: the two correction terms, then hi . hi
+__device__ __forceinline__ void fa_mma3(float (&d)[4],
+                                        const uint32_t (&ah)[4],
+                                        const uint32_t (&al)[4],
+                                        uint32_t bh0, uint32_t bh1,
+                                        uint32_t bl0, uint32_t bl1) {
+    fa_mma_tf32(d, al, bh0, bh1);
+    fa_mma_tf32(d, ah, bl0, bl1);
+    fa_mma_tf32(d, ah, bh0, bh1);
+}
+
+template <int N>
+__device__ __forceinline__ void fa_zero(float (&a)[N][4]) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) a[n][0] = a[n][1] = a[n][2] = a[n][3] = 0.0f;
+}
+
+// 64 rows of D floats from global rows (row stride `stride` floats,
+// zero-filled from row `n_ok` on) into a padded shared tile
 template <int D>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out,
-                       int S, int T_len, int H, int Hkv,
-                       long long q_sb, long long q_ss, long long q_sh,
-                       long long k_sb, long long k_st, long long k_sh,
-                       long long v_sb, long long v_st, long long v_sh,
-                       int causal, int window, int q_offset, float scale,
-                       float* __restrict__ lse) {
-    constexpr int KS = D + 4;            // padded k row (floats)
-    constexpr int PS = FA_BK + 4;        // padded p row (floats)
-    constexpr int DG = D / 16;           // float4 output groups a thread
+__device__ __forceinline__ void fa_stage_rows(float* dst, const float* src,
+                                              long long stride, int n_ok,
+                                              int tid) {
+    constexpr int C4 = D / 4;
+#pragma unroll 4
+    for (int i = tid; i < 64 * C4; i += FA_THREADS) {
+        const int r = i / C4, c4 = i % C4;
+        const bool ok = r < n_ok;
+        fa_cp_async16(fa_smem(dst + r * (D + 4) + 4 * c4),
+                      src + (ok ? r * stride + 4 * c4 : 0), ok);
+    }
+}
+
+// One block: 64 q rows of one (b, h), 16 rows a warp; the grid is 1-D,
+// the last q tiles first (under a causal mask they see the most keys).
+// LSE: also write each row's m + log(max(l, 1e-30)) to lse (B,H,S).
+template <int D, bool LSE>
+__global__ void __launch_bounds__(FA_THREADS, 2)
+fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out,
+                  float* __restrict__ lse, int S, int T_len, int H, int Hkv,
+                  long long q_sb, long long q_ss, long long q_sh,
+                  long long k_sb, long long k_st, long long k_sh,
+                  long long v_sb, long long v_st, long long v_sh,
+                  int causal, int window, int q_offset, float scale) {
+    constexpr int RS = D + 4;
+    constexpr int TILE = FA_BK * RS;
+    constexpr int KS = D / 8;                 // k-steps of Q.K^T
     extern __shared__ float4 fa_smem4[];
-    float* Ks = reinterpret_cast<float*>(fa_smem4);   // [BK][KS]
-    float* Vs = Ks + FA_BK * KS;                       // [BK][D]
-    float* Ps = Vs + FA_BK * D;                        // [BQ][PS]
+    float* ring = reinterpret_cast<float*>(fa_smem4);   // 2 x (K, V)
     __shared__ int range_lo, range_hi;
 
     const int tid = threadIdx.x;
-    const int r = tid >> 2;              // the q row of the tile
-    const int c = tid & 3;               // this thread's quarter of it
-    const int q0 = blockIdx.x * FA_BQ;
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int n_qt = (S + FA_BQ - 1) / FA_BQ;
+    const int bh = gridDim.x / n_qt;                   // B * H
+    const int qt = n_qt - 1 - (int)(blockIdx.x / bh);
+    const int h = (int)(blockIdx.x % bh) % H;
+    const int b = (int)(blockIdx.x % bh) / H;
     const int hk = h / (H / Hkv);
-    const int row = q0 + r;
-    const bool row_ok = row < S;
-    const int qp = q_offset + row;
+    const int q0 = qt * FA_BQ;
 
     // the keys this block needs: the union of its rows' bands, or all
     // T when one of its rows sees none
@@ -152,9 +264,8 @@ flash_attention_kernel(const float* __restrict__ q,
         int lo = T_len, hi = 0;
         bool empty = false;
         for (int rr = 0; rr < FA_BQ && q0 + rr < S; ++rr) {
-            const int p = q_offset + q0 + rr;
-            const int l = window > 0 ? max(0, p - window + 1) : 0;
-            const int u = causal ? min(T_len, p + 1) : T_len;
+            int l, u;
+            fa_band(q_offset + q0 + rr, T_len, causal, window, l, u);
             if (u <= l) { empty = true; break; }
             lo = min(lo, l);
             hi = max(hi, u);
@@ -162,149 +273,221 @@ flash_attention_kernel(const float* __restrict__ q,
         range_lo = empty ? 0 : lo;
         range_hi = empty ? T_len : hi;
     }
-
-    float qr[D];
-    {
-        const float* qrow = q + (long long)b * q_sb + (long long)row * q_ss
-                        + (long long)h * q_sh;
-#pragma unroll
-        for (int d = 0; d < D; ++d) qr[d] = row_ok ? qrow[d] : 0.0f;
-    }
-    float m_run = FA_NEG, l_run = 0.0f;
-    float4 acc[DG];
-#pragma unroll
-    for (int g = 0; g < DG; ++g) acc[g] = make_float4(0.f, 0.f, 0.f, 0.f);
-
     __syncthreads();
-    const int t_end = range_hi;
+    const int t_start = (range_lo / FA_BK) * FA_BK;
+    const int n_kt = (range_hi - t_start + FA_BK - 1) / FA_BK;
     const float* kbase = k + (long long)b * k_sb + (long long)hk * k_sh;
     const float* vbase = v + (long long)b * v_sb + (long long)hk * v_sh;
-    for (int t0 = (range_lo / FA_BK) * FA_BK; t0 < t_end; t0 += FA_BK) {
-        // stage the k/v tile in f32; keys past T are zeros
-        for (int i = tid; i < FA_BK * D; i += FA_THREADS) {
-            const int j = i / D, d = i % D;
-            const int kk = t0 + j;
-            float kv = 0.0f, vv = 0.0f;
-            if (kk < T_len) {
-                kv = kbase[(long long)kk * k_st + d];
-                vv = vbase[(long long)kk * v_st + d];
-            }
-            Ks[j * KS + d] = kv;
-            Vs[j * D + d] = vv;
-        }
-        __syncthreads();
+    auto load_kv = [&](int i) {
+        const int t0 = t_start + FA_BK * i;
+        float* Kst = ring + (i & 1) * 2 * TILE;
+        fa_stage_rows<D>(Kst, kbase + (long long)t0 * k_st, k_st,
+                         T_len - t0, tid);
+        fa_stage_rows<D>(Kst + TILE, vbase + (long long)t0 * v_st, v_st,
+                         T_len - t0, tid);
+    };
+    load_kv(0);
+    fa_cp_async_commit();
 
-        // scores of keys j = c + 4*i, i < 16
-        float s[16];
+    // this thread's two rows, ra (fragment rows g) and rb (g + 8): their
+    // q as split-TF32 A fragments, loaded once
+    const int ra = q0 + 16 * warp + g, rb = ra + 8;
+    uint32_t qh[KS][4], ql[KS][4];
+    {
+        const float* qa = q + (long long)b * q_sb + (long long)h * q_sh
+                          + (long long)min(ra, S - 1) * q_ss;
+        const float* qb = q + (long long)b * q_sb + (long long)h * q_sh
+                          + (long long)min(rb, S - 1) * q_ss;
 #pragma unroll
-        for (int i = 0; i < 16; ++i) s[i] = 0.0f;
-        const float4* K4 = reinterpret_cast<const float4*>(Ks);
+        for (int ks = 0; ks < KS; ++ks) {
+            const float x0 = ra < S ? qa[8 * ks + t] : 0.0f;
+            const float x1 = rb < S ? qb[8 * ks + t] : 0.0f;
+            const float x2 = ra < S ? qa[8 * ks + t + 4] : 0.0f;
+            const float x3 = rb < S ? qb[8 * ks + t + 4] : 0.0f;
+            fa_split_tf32(x0, qh[ks][0], ql[ks][0]);
+            fa_split_tf32(x1, qh[ks][1], ql[ks][1]);
+            fa_split_tf32(x2, qh[ks][2], ql[ks][2]);
+            fa_split_tf32(x3, qh[ks][3], ql[ks][3]);
+        }
+    }
+    int lo_a, hi_a, lo_b, hi_b;
+    fa_band(q_offset + ra, T_len, causal, window, lo_a, hi_a);
+    fa_band(q_offset + rb, T_len, causal, window, lo_b, hi_b);
+
+    float m_a = FA_NEG, m_b = FA_NEG, l_a = 0.0f, l_b = 0.0f;
+    float acc[D / 8][4];
+    fa_zero(acc);
+    const int blk = lane >> 3, r8 = lane & 7;
+
+    for (int i = 0; i < n_kt; ++i) {
+        if (i + 1 < n_kt) load_kv(i + 1);
+        fa_cp_async_commit();
+        fa_cp_async_wait<1>();
+        __syncthreads();
+        const float* Kst = ring + (i & 1) * 2 * TILE;
+        const float* Vst = Kst + TILE;
+        const int t0 = t_start + FA_BK * i;
+
+        // S = Q.K^T for the warp's 16 rows and the tile's 64 keys
+        float sc[8][4];
+        fa_zero(sc);
+        const uint32_t b_lane = fa_smem(Kst) + (r8 * RS + 4 * blk) * 4;
 #pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-            const float q_x = qr[4 * d4], q_y = qr[4 * d4 + 1],
-                        q_z = qr[4 * d4 + 2], q_w = qr[4 * d4 + 3];
+        for (int n = 0; n < 8; ++n) {
 #pragma unroll
-            for (int i = 0; i < 16; ++i) {
-                const float4 kf = K4[(c + 4 * i) * (KS / 4) + d4];
-                s[i] = fmaf(q_x, kf.x, s[i]);
-                s[i] = fmaf(q_y, kf.y, s[i]);
-                s[i] = fmaf(q_z, kf.z, s[i]);
-                s[i] = fmaf(q_w, kf.w, s[i]);
+            for (int k0 = 0; k0 < D; k0 += 16) {
+                // k-step k0 in words 0-1, k0 + 8 in words 2-3
+                uint32_t bw[4], bhi[4], blo[4];
+                fa_ldsm_x4(bw, b_lane + (8 * n * RS + k0) * 4);
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    fa_split_tf32(__uint_as_float(bw[e]), bhi[e], blo[e]);
+                fa_mma3(sc[n], qh[k0 / 8], ql[k0 / 8], bhi[0], bhi[1],
+                        blo[0], blo[1]);
+                fa_mma3(sc[n], qh[k0 / 8 + 1], ql[k0 / 8 + 1], bhi[2],
+                        bhi[3], blo[2], blo[3]);
             }
         }
-        float tmax = -INFINITY;
+        // scale, masks (a select: -1e30 for a masked key, -inf past T),
+        // the online softmax of each row over its quad
+        float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-            const int kk = t0 + c + 4 * i;
-            const bool real = kk < T_len;
-            const bool vis = real && (!causal || kk <= qp)
-                             && (window <= 0 || kk > qp - window);
-            const float sc = s[i] * scale;
-            s[i] = vis ? sc : (real ? FA_NEG : -INFINITY);
-            tmax = fmaxf(tmax, s[i]);
-        }
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-        const float m_new = fmaxf(m_run, tmax);
-        float psum = 0.0f;
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-            const float p = expf(s[i] - m_new);
-            psum += p;
-            Ps[r * PS + c + 4 * i] = p;
-        }
-        psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-        psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-        const float corr = expf(m_run - m_new);
-        l_run = l_run * corr + psum;
-        m_run = m_new;
-        __syncthreads();
-
-        // acc = acc*corr + p.v over this thread's columns
-        // 4*(c + 4*g) .. +3
-#pragma unroll
-        for (int g = 0; g < DG; ++g) {
-            acc[g].x *= corr; acc[g].y *= corr;
-            acc[g].z *= corr; acc[g].w *= corr;
-        }
-        const float4* P4 = reinterpret_cast<const float4*>(Ps + r * PS);
-        const float4* V4 = reinterpret_cast<const float4*>(Vs);
-#pragma unroll 4
-        for (int j4 = 0; j4 < FA_BK / 4; ++j4) {
-            const float4 p4 = P4[j4];
-            const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+        for (int n = 0; n < 8; ++n) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                const int j = 4 * j4 + e;
-#pragma unroll
-                for (int g = 0; g < DG; ++g) {
-                    const float4 vv = V4[j * (D / 4) + c + 4 * g];
-                    acc[g].x = fmaf(pj[e], vv.x, acc[g].x);
-                    acc[g].y = fmaf(pj[e], vv.y, acc[g].y);
-                    acc[g].z = fmaf(pj[e], vv.z, acc[g].z);
-                    acc[g].w = fmaf(pj[e], vv.w, acc[g].w);
-                }
+                const int key = t0 + 8 * n + 2 * t + (e & 1);
+                const bool vis = e < 2 ? key >= lo_a && key < hi_a
+                                       : key >= lo_b && key < hi_b;
+                const float s = vis ? sc[n][e] * scale
+                                    : (key < T_len ? FA_NEG : -INFINITY);
+                sc[n][e] = s;
+                if (e < 2) mx_a = fmaxf(mx_a, s);
+                else mx_b = fmaxf(mx_b, s);
             }
         }
-        __syncthreads();
-    }
-
-    if (row_ok) {
-        const float l = fmaxf(l_run, 1e-30f);
-        float* orow = out + (((long long)b * S + row) * H + h) * D;
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+        const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+        float ps_a = 0.0f, ps_b = 0.0f;
 #pragma unroll
-        for (int g = 0; g < DG; ++g) {
-            const int d = 4 * (c + 4 * g);
-            orow[d] = acc[g].x / l;
-            orow[d + 1] = acc[g].y / l;
-            orow[d + 2] = acc[g].z / l;
-            orow[d + 3] = acc[g].w / l;
+        for (int n = 0; n < 8; ++n) {
+            sc[n][0] = expf(sc[n][0] - mn_a);
+            sc[n][1] = expf(sc[n][1] - mn_a);
+            sc[n][2] = expf(sc[n][2] - mn_b);
+            sc[n][3] = expf(sc[n][3] - mn_b);
+            ps_a += sc[n][0] + sc[n][1];
+            ps_b += sc[n][2] + sc[n][3];
         }
-        // the row's log-sum-exp for the backward kernels, when asked for
-        if (lse != nullptr && c == 0)
-            lse[((long long)b * H + h) * S + row] = m_run + logf(l);
+        ps_a += __shfl_xor_sync(0xffffffffu, ps_a, 1);
+        ps_a += __shfl_xor_sync(0xffffffffu, ps_a, 2);
+        ps_b += __shfl_xor_sync(0xffffffffu, ps_b, 1);
+        ps_b += __shfl_xor_sync(0xffffffffu, ps_b, 2);
+        const float corr_a = expf(m_a - mn_a), corr_b = expf(m_b - mn_b);
+        l_a = l_a * corr_a + ps_a;
+        l_b = l_b * corr_b + ps_b;
+        m_a = mn_a;
+        m_b = mn_b;
+
+        // O = O * corr + P.V: the tile's product summed from zero, then
+        // added in f32.  P leaves S as C fragments (columns 2t, 2t+1 of
+        // each 8-key slice) and is the A operand with the slice's
+        // contraction index permuted (slot t <-> 2t, t+4 <-> 2t+1), V's
+        // rows read in the same order
+        float part[D / 8][4];
+        fa_zero(part);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+            uint32_t ah[4], al[4];
+            fa_split_tf32(sc[kk][0], ah[0], al[0]);   // (g,   slot t)
+            fa_split_tf32(sc[kk][2], ah[1], al[1]);   // (g+8, slot t)
+            fa_split_tf32(sc[kk][1], ah[2], al[2]);   // (g,   slot t+4)
+            fa_split_tf32(sc[kk][3], ah[3], al[3]);   // (g+8, slot t+4)
+            const float* bp = Vst + (8 * kk + 2 * t) * RS + g;
+#pragma unroll
+            for (int n = 0; n < D / 8; ++n) {
+                uint32_t bh0, bl0, bh1, bl1;
+                fa_split_tf32(bp[8 * n], bh0, bl0);
+                fa_split_tf32(bp[RS + 8 * n], bh1, bl1);
+                fa_mma3(part[n], ah, al, bh0, bh1, bl0, bl1);
+            }
+        }
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+            acc[n][0] = acc[n][0] * corr_a + part[n][0];
+            acc[n][1] = acc[n][1] * corr_a + part[n][1];
+            acc[n][2] = acc[n][2] * corr_b + part[n][2];
+            acc[n][3] = acc[n][3] * corr_b + part[n][3];
+        }
+        __syncthreads();            // before the ring slot is reloaded
     }
+    fa_cp_async_wait<0>();
+
+    const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
+    const long long oa = (((long long)b * S + ra) * H + h) * D + 2 * t;
+    const long long ob = oa + 8LL * H * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+        if (ra < S)
+            *reinterpret_cast<float2*>(out + oa + 8 * n) =
+                make_float2(acc[n][0] / la, acc[n][1] / la);
+        if (rb < S)
+            *reinterpret_cast<float2*>(out + ob + 8 * n) =
+                make_float2(acc[n][2] / lb, acc[n][3] / lb);
+    }
+    if (LSE && t == 0) {
+        const long long rs = ((long long)b * H + h) * S;
+        if (ra < S) lse[rs + ra] = m_a + logf(la);
+        if (rb < S) lse[rs + rb] = m_b + logf(lb);
+    }
+}
+
+template <int D, bool LSE>
+static int launch_f32_as(const float* q, const float* k, const float* v,
+                         float* out, float* lse, int B, int S, int T_len,
+                         int H, int Hkv, const long long* st, int causal,
+                         int window, int q_offset, float scale,
+                         cudaStream_t stream) {
+    const int smem = fa_smem_floats<D>() * (int)sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        fa_fwd_f32_kernel<D, LSE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks = (long long)((S + FA_BQ - 1) / FA_BQ) * H * B;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    fa_fwd_f32_kernel<D, LSE><<<(unsigned)blocks, FA_THREADS, smem,
+                                stream>>>(
+        q, k, v, out, lse, S, T_len, H, Hkv, st[0], st[1], st[2], st[3],
+        st[4], st[5], st[6], st[7], st[8], causal, window, q_offset, scale);
+    return (int)cudaGetLastError();
+}
+
+// 16-byte address and strides (in floats: multiples of 4) for cp.async
+static bool fa_f32_aligned(const void* p, const long long* st) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0
+           && st[0] % 4 == 0 && st[1] % 4 == 0 && st[2] % 4 == 0;
 }
 
 template <int D>
 static int launch_f32(const void* q, const void* k, const void* v, void* out,
-                     int B, int S, int T_len, int H, int Hkv,
-                     const long long* st, int causal, int window,
-                     int q_offset, float scale, cudaStream_t stream,
-                     float* lse) {
-    const int smem = fa_smem_floats<D>() * (int)sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((S + FA_BQ - 1) / FA_BQ, H, B);
-    flash_attention_kernel<D><<<grid, FA_THREADS, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), S, T_len,
-        H, Hkv,
-        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-        causal, window, q_offset, scale, lse);
-    return (int)cudaGetLastError();
+                      int B, int S, int T_len, int H, int Hkv,
+                      const long long* st, int causal, int window,
+                      int q_offset, float scale, cudaStream_t stream,
+                      float* lse) {
+    if (!fa_f32_aligned(k, st + 3) || !fa_f32_aligned(v, st + 6))
+        return (int)cudaErrorInvalidValue;
+    const float* qf = static_cast<const float*>(q);
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    float* of = static_cast<float*>(out);
+    if (lse != nullptr)
+        return launch_f32_as<D, true>(qf, kf, vf, of, lse, B, S, T_len, H,
+                                      Hkv, st, causal, window, q_offset,
+                                      scale, stream);
+    return launch_f32_as<D, false>(qf, kf, vf, of, nullptr, B, S, T_len, H,
+                                   Hkv, st, causal, window, q_offset, scale,
+                                   stream);
 }
 
 
@@ -980,8 +1163,11 @@ static int launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace tc
 
 // q (B,S,H,D), k/v (B,T,Hkv,D) with element strides (batch, position,
-// head) q_sb..v_sh and a unit stride on D; out (B,S,H,D) contiguous.
-// dtype 0 = f32 (the scalar kernel), 1 = bf16 (the tensor-core kernel);
+// head) q_sb..v_sh and a unit stride on D (k and v of the f32 kernel on
+// 16-byte addresses and strides, or it returns cudaErrorInvalidValue);
+// out (B,S,H,D) contiguous.
+// dtype 0 = f32 (split TF32), 1 = bf16 (the wgmma kernel), both on the
+// tensor cores;
 // all four tensors of that dtype.  D in {16, 32, 64}: the models' 64
 // and the JAX kernel tests' 16 and 32.  lse: null, or (f32 only) a
 // contiguous (B,H,S) f32 output for the rows' log-sum-exp m + log(max(l,

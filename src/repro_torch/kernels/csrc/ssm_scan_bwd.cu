@@ -1,5 +1,5 @@
 // The f32 backward of K5, the diagonal selective scan of ssm_scan.cu,
-// for Hopper (sm_90a): one kernel, reverse time.
+// for Hopper (sm_90a): one kernel, time split as the forward splits it.
 //
 // The JAX package has no backward Pallas kernel: JAX differentiates the
 // reference model's jnp scan, and its training never calls
@@ -21,42 +21,73 @@
 //
 //   x, dt (B,S,D) and B_in, C_out (B,S,N) f32 with any strides (the
 //   model's strided halves of one (B,S,2N) tensor); a_log (D,N), h0
-//   (B,D,N) or null, dy (B,S,D), dh_end (B,D,N) or null, contiguous f32.
-//   Out, contiguous f32: dx, ddt (B,S,D); dbc (B,G,S,2N) -- per channel
-//   group of 32, dB then dC, the wrapper sums the G axis; da (B,D,N) --
-//   per batch row, the wrapper sums the B axis; dh0 (B,D,N).  No float
-//   atomics: every cross-block sum is a partial the wrapper adds up in a
-//   fixed order, so a gradient is the same bits every run.
+//   (B,D,N) or null, dy (B,S,D), dh_end (B,D,N) or null, contiguous f32;
+//   fcar: the forward kernel's chunk carries (its ``carries`` scratch,
+//   kept by the caller), which hold the state at the start of every
+//   chunk but the first.  Out, contiguous f32: dx, ddt (B,S,D); dbc
+//   (B,G,S,2N) -- per channel group of 32, dB then dC, the wrapper sums
+//   the G axis; da (B,chunks,D,N) -- per (batch row, chunk), the wrapper
+//   sums both axes; dh0 (B,D,N).  No float atomics: every cross-block
+//   sum is a partial the wrapper adds up in a fixed order, so a gradient
+//   is the same bits every run.
 //
-// Design: one block is one warp, one (batch row, group of 32 channels),
-// a lane a channel with its N states in registers (the forward's
-// layout).  The states h_t are never stored for every t -- (B,S,D,N) f32
-// is 420 MB a layer at hymba's B=2, S=1024 -- only every SB_L steps:
-//   * pass 1 runs the recurrence forward from h0 and stores the state at
-//     the start of each chunk of SB_L steps in ``hck`` (B, chunks, D, N),
-//     scratch the wrapper allocates;
-//   * pass 2 walks the chunks from the last to the first: it stages the
-//     chunk's x, dt, dy and B|C in shared memory, replays the chunk from
-//     its stored state keeping every h_t of it in shared memory, then
-//     runs the chunk's steps in reverse carrying g in registers.
-// A step's dB and dC (2N sums over the warp's 32 channels) are one
-// reduce-scatter of 31 shuffles for N=16 (each lane ends with one of
-// the 2N sums), written as the block's partial.  The forward kernel's
-// arithmetic is replayed exactly (ex2.approx of dt * A * log2(e), the
-// same fmaf order), so the states are the forward's.
+// Design.  The reverse recurrence of g is the same linear first-order
+// scan as the forward's, run backward in time, so it splits the same way
+// (ssm_scan.cu's header).  A CTA is one chunk of one (batch row, group
+// of 32 channels), a lane a channel with its N states in registers, and
+// warp w owns segment w of the chunk: the forward's split exactly (the
+// caller passes the segment length and chunk count the forward kernel
+// reports), so the forward's own chunk carries give each chunk's start
+// state.
+//   * Pass 1, each warp on its segment, both from zero: the forward scan
+//     (its local end state and sum(dt), the forward kernel's pass 1
+//     exactly) and the reverse scan of g (its carry out of the segment's
+//     first step, a_tb * g_tb).
+//   * The reverse carry between chunks: chunks are handed out in reverse
+//     time order by an atomic ticket; a CTA waits on the flag of the
+//     later chunk of its row (release / acquire), which a CTA that
+//     started earlier sets, so no wait can deadlock, and a lost flag
+//     traps rather than hangs.  Then each warp folds, in registers, the
+//     forward's chunk carry over the earlier segments (its true start
+//     state, the forward's fold exactly, so every replayed h_t equals
+//     the forward's bit for bit) and the reverse carry over the later
+//     segments, c <- exp2(a2 * sum dt_v) * c + c_v: N exps a segment.
+//     Warp 0 folds its own segment too and publishes the chunk's carry
+//     out before its second pass (for the first chunk that is dh0), so
+//     the chain between chunks is one fold long.
+//   * Pass 2, each warp on its segment: the states forward from the true
+//     start, one checkpoint every SB_BLK steps in shared memory; then the
+//     blocks last to first, each in two halves of SB_SUB steps whose
+//     states sit in registers (the later half replayed from the block's
+//     checkpoint after SB_SUB steps that are not kept), each half walked
+//     back with the true g: dx and ddt written, dB and dC as a
+//     reduce-scatter of 31 shuffles (N = 16) a step, dA_log's sum in
+//     registers, summed over the CTA's warps in a fixed order at the end.
+// The forward's arithmetic is replayed exactly: ex2.approx of dt * A *
+// log2(e), the same fmaf order.
 //
-// Bound: the B*S*D*N exps of a_t (this design takes three: pass 1, the
-// replay, the reverse step) and the bytes (x, dt, dy, B, C read, dx, ddt
-// written, the partials); one warp a block leaves each SM one or two
-// warps at hymba's B=1, D=3200 (100 blocks): latency, not the SFU,
-// binds it.  A time-parallel design, as the forward's, is later work.
+// Bound: the bytes (x, dt, dy, B, C read; dx, ddt, dB, dC written) and
+// the B*S*D*N exps of a_t at the SFU's rate.  This design takes 5 + 1/2
+// exps a state-step at the forward's 64-step segments (the two passes
+// from zero, the checkpoint walk, the replays, the walk back) plus N a
+// segment for the folds; its shared memory (161 KB at N = 16: the
+// checkpoints) and registers (the sub-blocks' states) hold one CTA of 8
+// warps an SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-constexpr int SB_L = 32;           // steps a chunk (the replay window)
-constexpr int SB_CH = 32;          // channels a block: one a lane
+constexpr int SB_WARPS = 8;        // segments a chunk: ssm_scan.cu's SS_WARPS
+constexpr int SB_CH = 32;          // channels a CTA: one a lane
+constexpr int SB_MAX_SEG = 64;     // longest segment: ssm_scan.cu's SS_SEG
+constexpr int SB_BLK = 8;          // steps between checkpoints
+constexpr int SB_SUB = 4;          // steps of a half block, in registers
+constexpr int SB_CKS = SB_MAX_SEG / SB_BLK;   // checkpoints a warp
 constexpr float SB_LOG2E = 1.4426950408889634f;
+#define SB_SPIN_LIMIT (1 << 26)    // ~seconds: a lost carry traps
+
+static_assert(SB_BLK == 2 * SB_SUB, "a block is two register halves");
 
 struct SbStrides {
     long long x_b, x_s, x_d, dt_b, dt_s, dt_d;
@@ -69,15 +100,28 @@ __device__ __forceinline__ float sb_ex2(float x) {
     return y;
 }
 
-// Shared memory of one block, in floats.
+__device__ __forceinline__ int sb_flag_load(const int* f) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+                 : "=r"(v) : "l"(f) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void sb_flag_set(int* f) {
+    asm volatile("st.release.gpu.global.b32 [%0], %1;\n"
+                 :: "l"(f), "r"(1) : "memory");
+}
+
+// Shared memory of one CTA, in floats: each warp's checkpoints, and its
+// pass-1 results (local end state, reverse carry, sum of dt).
 template <int N>
 struct SbSmem {
-    static constexpr int X = 0;                        // [L][32]
-    static constexpr int DT = X + SB_L * SB_CH;        // [L][32]
-    static constexpr int DY = DT + SB_L * SB_CH;       // [L][32]
-    static constexpr int BC = DY + SB_L * SB_CH;       // [L][2N]
-    static constexpr int H = BC + SB_L * 2 * N;        // [L+1][N][32]
-    static constexpr int FLOATS = H + (SB_L + 1) * N * SB_CH;
+    static constexpr int STATE = N * SB_CH;                  // [n][lane]
+    static constexpr int CK = 0;                             // [w][j][..]
+    static constexpr int HL = CK + SB_WARPS * SB_CKS * STATE;   // [w][..]
+    static constexpr int GL = HL + SB_WARPS * STATE;            // [w][..]
+    static constexpr int DT = GL + SB_WARPS * STATE;            // [w][lane]
+    static constexpr int FLOATS = DT + SB_WARPS * SB_CH;
     static constexpr int BYTES = FLOATS * 4;
 };
 
@@ -108,35 +152,100 @@ __device__ __forceinline__ float sb_reduce_scatter(float (&v)[V], int lane) {
     return v[0];
 }
 
+// What a lane reads of step t: its channel's x, dt, dy and the row's
+// B_t, C_t (the same for every lane: broadcasts).  Zeros on a lane past
+// D.
+struct SbIn {
+    const float* x;
+    const float* dt;
+    const float* dy;
+    const float* bm;
+    const float* cm;
+    SbStrides st;
+    int D;
+    bool ok;
+
+    __device__ __forceinline__ float xv(int t) const {
+        return ok ? x[t * st.x_s] : 0.0f;
+    }
+    __device__ __forceinline__ float dtv(int t) const {
+        return ok ? dt[t * st.dt_s] : 0.0f;
+    }
+    __device__ __forceinline__ float dyv(int t) const {
+        return ok ? dy[(long long)t * D] : 0.0f;
+    }
+    __device__ __forceinline__ float bv(int t, int n) const {
+        return bm[t * st.b_s + n * st.b_n];
+    }
+    __device__ __forceinline__ float cv(int t, int n) const {
+        return cm[t * st.c_s + n * st.c_n];
+    }
+};
+
+// One forward step, the forward kernel's arithmetic: h <- a_t h + dt x B
 template <int N>
-__global__ void __launch_bounds__(SB_CH)
+__device__ __forceinline__ void sb_step(const SbIn& in, int t,
+                                        const float (&a2)[N],
+                                        float (&h)[N]) {
+    const float dv = in.dtv(t);
+    const float dxv = dv * in.xv(t);
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+        h[n] = fmaf(sb_ex2(dv * a2[n]), h[n], dxv * in.bv(t, n));
+}
+
+template <int N>
+__device__ __forceinline__ void sb_load(float (&h)[N], const float* p) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) h[n] = p[n * SB_CH];
+}
+
+template <int N>
+__device__ __forceinline__ void sb_store(const float (&h)[N], float* p) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) p[n * SB_CH] = h[n];
+}
+
+// One CTA is one chunk of one (batch row, group of SB_CH channels): an
+// "item".  Items are numbered reverse-chunk-major, (chunks-1-k) * rows
+// + (b * groups + g), and handed out in the order CTAs start (a ticket
+// from ``sync[0]``), so the item a CTA waits on -- the same row's chunk
+// k+1 -- belongs to a CTA that started earlier.  sync[1 + item] is
+// item's flag; gcar[item] (N x 32 floats) its reverse carry out.
+template <int N>
+__global__ void __launch_bounds__(SB_WARPS * 32, 1)
 ssm_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ bm, const float* __restrict__ cm,
                     const float* __restrict__ a_log,
                     const float* __restrict__ h0,
+                    const float* __restrict__ fcar,
                     const float* __restrict__ dy,
                     const float* __restrict__ dh_end,
                     float* __restrict__ dx, float* __restrict__ ddt,
                     float* __restrict__ dbc, float* __restrict__ da,
-                    float* __restrict__ dh0, float* __restrict__ hck,
-                    int S, int D, SbStrides st) {
+                    float* __restrict__ dh0, int* __restrict__ sync,
+                    float* __restrict__ gcar, int S, int D, int seg,
+                    int chunks, SbStrides st) {
     using SM = SbSmem<N>;
     constexpr int V = 2 * N;
     extern __shared__ __align__(16) float sb_smem[];
-    float* xs = sb_smem + SM::X;
-    float* ds = sb_smem + SM::DT;
-    float* dys = sb_smem + SM::DY;
-    float* bcs = sb_smem + SM::BC;
-    float* hs = sb_smem + SM::H;
-
-    const int lane = threadIdx.x;
-    const int g = blockIdx.x;
-    const int b = blockIdx.y;
-    const int groups = gridDim.x;
+    __shared__ int ticket;
+    const int w = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    if (threadIdx.x == 0) ticket = atomicAdd(sync, 1);
+    __syncthreads();
+    const int groups = (D + SB_CH - 1) / SB_CH;
+    const int rows = (int)(gridDim.x / chunks);            // B * groups
+    const int item = ticket;
+    const int kr = item / rows;                            // reverse rank
+    const int k = chunks - 1 - kr;
+    const int row = item % rows;
+    const int b = row / groups;
+    const int g = row % groups;
     const int d = g * SB_CH + lane;
     const bool ok = d < D;
     const int dd = ok ? d : 0;
-    const int chunks = (S + SB_L - 1) / SB_L;
+    const long long hrow = ((long long)b * D + dd) * N;
 
     float A[N], a2[N];
 #pragma unroll
@@ -144,123 +253,205 @@ ssm_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         A[n] = ok ? -expf(a_log[(long long)d * N + n]) : 0.0f;
         a2[n] = A[n] * SB_LOG2E;
     }
-    const float* xp = x + b * st.x_b + dd * st.x_d;
-    const float* dtp = dt + b * st.dt_b + dd * st.dt_d;
-    const float* dyp = dy + (long long)b * S * D + dd;
-    const long long hrow = ((long long)b * D + dd) * N;
+    SbIn in;
+    in.x = x + b * st.x_b + dd * st.x_d;
+    in.dt = dt + b * st.dt_b + dd * st.dt_d;
+    in.dy = dy + (long long)b * S * D + dd;
+    in.bm = bm + b * st.b_b;
+    in.cm = cm + b * st.c_b;
+    in.st = st;
+    in.D = D;
+    in.ok = ok;
 
-    // stage steps [t0, t0 + len) of the chunk; steps past len are zeros
-    auto stage = [&](int t0, int len, bool with_dy) {
-        __syncwarp();                       // the last chunk's reads done
-#pragma unroll 8
-        for (int i = 0; i < SB_L; ++i) {
-            const bool in = ok && i < len;
-            const long long t = t0 + i;
-            xs[i * SB_CH + lane] = in ? xp[t * st.x_s] : 0.0f;
-            ds[i * SB_CH + lane] = in ? dtp[t * st.dt_s] : 0.0f;
-            if (with_dy) dys[i * SB_CH + lane] = in ? dyp[t * D] : 0.0f;
-        }
-        for (int e = lane; e < SB_L * V; e += SB_CH) {
-            const int i = e / V, q = e % V;
-            const long long t = t0 + i;
-            float val = 0.0f;
-            if (i < len)
-                val = q < N ? bm[b * st.b_b + t * st.b_s + q * st.b_n]
-                            : cm[b * st.c_b + t * st.c_s + (q - N) * st.c_n];
-            bcs[e] = val;
-        }
-        __syncwarp();
-    };
-    // advance h over steps [0, len) of the staged chunk; with ``keep``
-    // the state after step i goes to hs[i + 1]
-    auto run = [&](int len, float (&h)[N], bool keep) {
-        for (int i = 0; i < len; ++i) {
-            const float dv = ds[i * SB_CH + lane];
-            const float dxv = dv * xs[i * SB_CH + lane];
-            const float* row = bcs + i * V;
+    const int tb = k * SB_WARPS * seg + w * seg;
+    const int te = min(tb + seg, S);
+    float* hl = sb_smem + SM::HL;
+    float* gl = sb_smem + SM::GL;
+    float* sums = sb_smem + SM::DT;
+
+    // pass 1: the segment forward from zero (local end state, sum dt)
+    // and g backward from zero (the carry out of its first step)
+    {
+        float h[N];
+        float sdt = 0.0f;
 #pragma unroll
-            for (int n = 0; n < N; ++n) {
-                h[n] = fmaf(sb_ex2(dv * a2[n]), h[n], dxv * row[n]);
-                if (keep) hs[((i + 1) * N + n) * SB_CH + lane] = h[n];
-            }
+        for (int n = 0; n < N; ++n) h[n] = 0.0f;
+#pragma unroll 2
+        for (int t = tb; t < te; ++t) {
+            sb_step<N>(in, t, a2, h);
+            sdt += in.dtv(t);
         }
-    };
+        sb_store<N>(h, hl + w * SM::STATE + lane);
+        sums[w * SB_CH + lane] = sdt;
+        float c[N];
+#pragma unroll
+        for (int n = 0; n < N; ++n) c[n] = 0.0f;
+#pragma unroll 2
+        for (int t = te - 1; t >= tb; --t) {
+            const float dv = in.dtv(t);
+            const float dyv = in.dyv(t);
+#pragma unroll
+            for (int n = 0; n < N; ++n)
+                c[n] = sb_ex2(dv * a2[n]) * fmaf(in.cv(t, n), dyv, c[n]);
+        }
+        sb_store<N>(c, gl + w * SM::STATE + lane);
+    }
+    // the later chunk's reverse carry
+    if (kr > 0 && threadIdx.x == 0) {
+        const int* flag = sync + 1 + (item - rows);
+        int spins = 0;
+        while (sb_flag_load(flag) == 0) {
+            __nanosleep(64);
+            if (++spins > SB_SPIN_LIMIT) __trap();
+        }
+    }
+    __syncthreads();
 
-    // pass 1: the state at the start of every chunk
+    // the true state at the segment's start: the forward's chunk carry
+    // (h0 for the first chunk) folded over the earlier segments
     float h[N];
+    if (k > 0) {
+        const float* cin = fcar + ((long long)(k - 1) * rows + row) * N * 32;
 #pragma unroll
-    for (int n = 0; n < N; ++n) h[n] = (ok && h0) ? h0[hrow + n] : 0.0f;
-    for (int ck = 0; ck < chunks; ++ck) {
-        float* slot = hck + (((long long)b * chunks + ck) * D + dd) * N;
-        if (ok) {
+        for (int n = 0; n < N; ++n) h[n] = cin[n * 32 + lane];
+    } else {
 #pragma unroll
-            for (int n = 0; n < N; ++n) slot[n] = h[n];
+        for (int n = 0; n < N; ++n) h[n] = (ok && h0) ? h0[hrow + n] : 0.0f;
+    }
+    for (int v = 0; v < w; ++v) {
+        const float s = sums[v * SB_CH + lane];
+#pragma unroll
+        for (int n = 0; n < N; ++n)
+            h[n] = fmaf(sb_ex2(a2[n] * s), h[n],
+                        hl[v * SM::STATE + n * SB_CH + lane]);
+    }
+    // the true reverse carry into the segment's last step: the later
+    // chunk's (dh_end for the last chunk) folded over the later segments
+    float gr[N];
+    if (kr > 0) {
+        const float* cin = gcar + (long long)(item - rows) * N * 32;
+#pragma unroll
+        for (int n = 0; n < N; ++n) gr[n] = __ldcg(cin + n * 32 + lane);
+    } else {
+#pragma unroll
+        for (int n = 0; n < N; ++n)
+            gr[n] = (ok && dh_end) ? dh_end[hrow + n] : 0.0f;
+    }
+    for (int v = SB_WARPS - 1; v > w; --v) {
+        const float s = sums[v * SB_CH + lane];
+#pragma unroll
+        for (int n = 0; n < N; ++n)
+            gr[n] = fmaf(sb_ex2(a2[n] * s), gr[n],
+                         gl[v * SM::STATE + n * SB_CH + lane]);
+    }
+    if (w == 0) {
+        // the chunk's reverse carry out, over segment 0 too: published
+        // for the earlier chunk, or dh0 = a_0 g_0 for the first
+        const float s0 = sums[lane];
+        float* cout = gcar + (long long)item * N * 32;
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+            const float carry = fmaf(sb_ex2(a2[n] * s0), gr[n],
+                                     gl[n * SB_CH + lane]);
+            if (k > 0) __stcg(cout + n * 32 + lane, carry);
+            else if (ok) dh0[hrow + n] = carry;
         }
-        if (ck + 1 < chunks) {
-            const int t0 = ck * SB_L;
-            stage(t0, min(SB_L, S - t0), false);
-            run(min(SB_L, S - t0), h, false);
+        if (k > 0) {
+            __threadfence();
+            __syncwarp();
+            if (lane == 0) sb_flag_set(sync + 1 + item);
         }
     }
 
-    // pass 2: chunks last to first, each replayed, then walked back
-    float gr[N], dacc[N];
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-        gr[n] = (ok && dh_end) ? dh_end[hrow + n] : 0.0f;
-        dacc[n] = 0.0f;
+    // pass 2: checkpoints every SB_BLK steps from the true start
+    float* ck = sb_smem + SM::CK + w * SB_CKS * SM::STATE + lane;
+    const int nb = te > tb ? (te - tb + SB_BLK - 1) / SB_BLK : 0;
+    for (int j = 0; j < nb; ++j) {
+        sb_store<N>(h, ck + j * SM::STATE);
+        if (j + 1 < nb) {
+#pragma unroll 2
+            for (int t = tb + j * SB_BLK; t < tb + (j + 1) * SB_BLK; ++t)
+                sb_step<N>(in, t, a2, h);
+        }
     }
+    __syncwarp();
+    float dacc[N];
+#pragma unroll
+    for (int n = 0; n < N; ++n) dacc[n] = 0.0f;
     const int q_mine = lane / (SB_CH / V);
     const bool writer = lane % (SB_CH / V) == 0;
-    for (int ck = chunks - 1; ck >= 0; --ck) {
-        const int t0 = ck * SB_L;
-        const int len = min(SB_L, S - t0);
-        stage(t0, len, true);
-        const float* slot = hck + (((long long)b * chunks + ck) * D + dd) * N;
+    float* dbc_row = dbc + ((long long)b * groups + g) * S * V;
+    // the blocks last to first, each as two halves, the later first
+    for (int j = nb - 1; j >= 0; --j) {
+        const int s0 = tb + j * SB_BLK;
+        const int s1 = min(s0 + SB_BLK, te);
+        for (int half = 1; half >= 0; --half) {
+            const int a0 = s0 + half * SB_SUB;
+            const int cnt = min(SB_SUB, s1 - a0);
+            if (cnt <= 0) continue;                       // warp-uniform
+            float hs[SB_SUB + 1][N];
+            sb_load<N>(hs[0], ck + j * SM::STATE);
+            if (half) {
 #pragma unroll
-        for (int n = 0; n < N; ++n) {
-            h[n] = ok ? __ldcg(slot + n) : 0.0f;
-            hs[n * SB_CH + lane] = h[n];
-        }
-        run(len, h, true);
-        for (int i = len - 1; i >= 0; --i) {
-            const long long t = t0 + i;
-            const float dv = ds[i * SB_CH + lane];
-            const float xv = xs[i * SB_CH + lane];
-            const float dyv = dys[i * SB_CH + lane];
-            const float dtx = dv * xv;
-            const float* row = bcs + i * V;
-            float vals[V];
-            float sx = 0.0f, sdt = 0.0f;
+                for (int i = 0; i < SB_SUB; ++i)
+                    sb_step<N>(in, s0 + i, a2, hs[0]);
+            }
 #pragma unroll
-            for (int n = 0; n < N; ++n) {
-                const float hc = hs[((i + 1) * N + n) * SB_CH + lane];
-                const float hp = hs[(i * N + n) * SB_CH + lane];
-                const float a = sb_ex2(dv * a2[n]);
-                const float bn = row[n];
-                gr[n] = fmaf(row[N + n], dyv, gr[n]);
-                vals[n] = gr[n] * dtx;
-                vals[N + n] = hc * dyv;
-                sx = fmaf(gr[n], bn, sx);
-                const float ha = (hp * A[n]) * a;
-                sdt = fmaf(gr[n], fmaf(xv, bn, ha), sdt);
-                dacc[n] = fmaf(gr[n], (hp * a) * dv, dacc[n]);
-                gr[n] *= a;
+            for (int i = 0; i < SB_SUB; ++i) {
+                if (i < cnt) {
+#pragma unroll
+                    for (int n = 0; n < N; ++n) hs[i + 1][n] = hs[i][n];
+                    sb_step<N>(in, a0 + i, a2, hs[i + 1]);
+                }
             }
-            if (ok) {
-                dx[((long long)b * S + t) * D + d] = dv * sx;
-                ddt[((long long)b * S + t) * D + d] = sdt;
+#pragma unroll
+            for (int i = SB_SUB - 1; i >= 0; --i) {
+                if (i >= cnt) continue;
+                const int t = a0 + i;
+                const float dv = in.dtv(t);
+                const float xv = in.xv(t);
+                const float dyv = in.dyv(t);
+                const float dtx = dv * xv;
+                float vals[V];
+                float sx = 0.0f, sdt = 0.0f;
+#pragma unroll
+                for (int n = 0; n < N; ++n) {
+                    const float hc = hs[i + 1][n];
+                    const float hp = hs[i][n];
+                    const float a = sb_ex2(dv * a2[n]);
+                    const float bn = in.bv(t, n);
+                    gr[n] = fmaf(in.cv(t, n), dyv, gr[n]);
+                    vals[n] = gr[n] * dtx;
+                    vals[N + n] = hc * dyv;
+                    sx = fmaf(gr[n], bn, sx);
+                    const float ha = (hp * A[n]) * a;
+                    sdt = fmaf(gr[n], fmaf(xv, bn, ha), sdt);
+                    dacc[n] = fmaf(gr[n], (hp * a) * dv, dacc[n]);
+                    gr[n] *= a;
+                }
+                if (ok) {
+                    dx[((long long)b * S + t) * D + d] = dv * sx;
+                    ddt[((long long)b * S + t) * D + d] = sdt;
+                }
+                const float part = sb_reduce_scatter<V>(vals, lane);
+                if (writer) dbc_row[(long long)t * V + q_mine] = part;
             }
-            const float part = sb_reduce_scatter<V>(vals, lane);
-            if (writer)
-                dbc[(((long long)b * groups + g) * S + t) * V + q_mine] = part;
         }
     }
-    if (ok) {
+
+    // dA_log's partial of this (batch row, chunk): the warps' sums in
+    // order (the pass-1 slots are free: every fold has read them)
+    __syncthreads();
+    sb_store<N>(dacc, hl + w * SM::STATE + lane);
+    __syncthreads();
+    if (w == 0 && ok) {
+        float* drow = da + (((long long)b * chunks + k) * D + d) * N;
 #pragma unroll
         for (int n = 0; n < N; ++n) {
-            dh0[hrow + n] = gr[n];
-            da[hrow + n] = A[n] * dacc[n];
+            float sum = hl[n * SB_CH + lane];
+            for (int v = 1; v < SB_WARPS; ++v)
+                sum += hl[v * SM::STATE + n * SB_CH + lane];
+            drow[n] = A[n] * sum;
         }
     }
 }
@@ -268,50 +459,72 @@ ssm_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 template <int N>
 static int launch_sb(const float* x, const float* dt, const float* bm,
                      const float* cm, const float* a_log, const float* h0,
-                     const float* dy, const float* dh_end, float* dx,
-                     float* ddt, float* dbc, float* da, float* dh0,
-                     float* hck, int B, int S, int D, const SbStrides& st,
+                     const float* fcar, const float* dy,
+                     const float* dh_end, float* dx, float* ddt, float* dbc,
+                     float* da, float* dh0, int* sync, float* gcar, int B,
+                     int S, int D, int seg, int chunks, const SbStrides& st,
                      cudaStream_t stream) {
     const cudaError_t err = cudaFuncSetAttribute(
         ssm_scan_bwd_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         SbSmem<N>::BYTES);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((D + SB_CH - 1) / SB_CH, B);
-    ssm_scan_bwd_kernel<N><<<grid, SB_CH, SbSmem<N>::BYTES, stream>>>(
-        x, dt, bm, cm, a_log, h0, dy, dh_end, dx, ddt, dbc, da, dh0, hck, S,
-        D, st);
+    const long long items =
+        (long long)B * ((D + SB_CH - 1) / SB_CH) * chunks;
+    if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    ssm_scan_bwd_kernel<N><<<(unsigned)items, SB_WARPS * 32,
+                             SbSmem<N>::BYTES, stream>>>(
+        x, dt, bm, cm, a_log, h0, fcar, dy, dh_end, dx, ddt, dbc, da, dh0,
+        sync, gcar, S, D, seg, chunks, st);
     return (int)cudaGetLastError();
 }
 
-// Sizes of one call's buffers, in floats: which = 0, the chunk states
-// ``hck`` (scratch); 1, the groups G of the dB|dC partial (B,G,S,2N).
+// Sizes of one call of ``chunks`` chunks, and the kernel's own
+// constants: which = 0, the int32 count of ``sync`` (zeroed: a ticket
+// counter and a flag an item); 1, the f32 count of ``gcar``; 2, the
+// channel groups G of the dB|dC partial (B,G,S,2N); 3, the segments
+// (warps) a chunk it takes; 4, the steps between checkpoints; 5, the
+// steps of a register half block.
 extern "C" long long ssm_scan_bwd_sizes(int B, int S, int D, int N,
-                                        int which) {
-    if (B < 1 || S < 1 || D < 1 || N < 1) return 0;
-    const long long chunks = (S + SB_L - 1) / SB_L;
+                                        int chunks, int which) {
+    if (B < 1 || S < 1 || D < 1 || N < 1 || chunks < 1) return 0;
+    const long long groups = (D + SB_CH - 1) / SB_CH;
+    const long long items = (long long)B * groups * chunks;
     switch (which) {
-        case 0: return (long long)B * chunks * D * N;
-        case 1: return (D + SB_CH - 1) / SB_CH;
+        case 0: return 1 + items;
+        case 1: return items * N * 32;
+        case 2: return groups;
+        case 3: return SB_WARPS;
+        case 4: return SB_BLK;
+        case 5: return SB_SUB;
         default: return -1;
     }
 }
 
 // x, dt (B,S,D), b_in, c_out (B,S,N) f32 with element strides (batch,
-// time, channel/state); a_log (D,N), h0 (B,D,N) or null, dy (B,S,D),
-// dh_end (B,D,N) or null: contiguous f32.  dx, ddt (B,S,D), dbc
-// (B,G,S,2N), da (B,D,N), dh0 (B,D,N), hck as ``ssm_scan_bwd_sizes``
-// counts it: contiguous f32.  N in {4, 8, 16}.  Returns
-// cudaGetLastError() after the launch; does not synchronise.
+// time, channel/state); a_log (D,N), h0 (B,D,N) or null, fcar (the
+// forward's carries under the same split; null when chunks = 1), dy
+// (B,S,D), dh_end (B,D,N) or null: contiguous f32.  seg, warps, chunks:
+// the forward kernel's split of S (ssm_scan_scratch which = 2, 3, 4;
+// any seg with warps * seg * chunks >= S for S = 1).  dx, ddt (B,S,D),
+// dbc (B,G,S,2N), da (B,chunks,D,N), dh0 (B,D,N), sync and gcar as
+// ``ssm_scan_bwd_sizes`` counts them: contiguous.  N in {4, 8, 16}.
+// Returns cudaGetLastError() after the launch; does not synchronise.
 extern "C" int ssm_scan_bwd_f32(
         const void* x, const void* dt, const void* b_in, const void* c_out,
-        const void* a_log, const void* h0, const void* dy,
+        const void* a_log, const void* h0, const void* fcar, const void* dy,
         const void* dh_end, void* dx, void* ddt, void* dbc, void* da,
-        void* dh0, void* hck, int B, int S, int D, int N,
+        void* dh0, void* sync, void* gcar, int B, int S, int D, int N,
+        int seg, int warps, int chunks,
         long long x_sb, long long x_ss, long long x_sd,
         long long dt_sb, long long dt_ss, long long dt_sd,
         long long b_sb, long long b_ss, long long b_sn,
         long long c_sb, long long c_ss, long long c_sn, void* stream) {
-    if (B < 1 || B > 65535 || S < 1 || D < 1)
+    if (B < 1 || S < 1 || D < 1 || warps != SB_WARPS || seg < 1
+            || seg > SB_MAX_SEG || chunks < 1
+            || (long long)chunks * SB_WARPS * seg < S
+            || (long long)(chunks - 1) * SB_WARPS * seg >= S
+            || (chunks > 1 && fcar == nullptr) || sync == nullptr
+            || gcar == nullptr)
         return (int)cudaErrorInvalidValue;
     const SbStrides st{x_sb, x_ss, x_sd, dt_sb, dt_ss, dt_sd,
                        b_sb, b_ss, b_sn, c_sb, c_ss, c_sn};
@@ -319,10 +532,12 @@ extern "C" int ssm_scan_bwd_f32(
 #define SB_ARGS static_cast<const float*>(x), static_cast<const float*>(dt), \
     static_cast<const float*>(b_in), static_cast<const float*>(c_out), \
     static_cast<const float*>(a_log), static_cast<const float*>(h0), \
-    static_cast<const float*>(dy), static_cast<const float*>(dh_end), \
-    static_cast<float*>(dx), static_cast<float*>(ddt), \
-    static_cast<float*>(dbc), static_cast<float*>(da), \
-    static_cast<float*>(dh0), static_cast<float*>(hck), B, S, D, st, s
+    static_cast<const float*>(fcar), static_cast<const float*>(dy), \
+    static_cast<const float*>(dh_end), static_cast<float*>(dx), \
+    static_cast<float*>(ddt), static_cast<float*>(dbc), \
+    static_cast<float*>(da), static_cast<float*>(dh0), \
+    static_cast<int*>(sync), static_cast<float*>(gcar), B, S, D, seg, \
+    chunks, st, s
     switch (N) {
         case 4: return launch_sb<4>(SB_ARGS);
         case 8: return launch_sb<8>(SB_ARGS);

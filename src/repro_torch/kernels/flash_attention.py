@@ -19,8 +19,14 @@ tile multiples.
 The dtype picks one of two kernels (neither is a fallback of the
 other):
 
-* f32 -> the scalar kernel on the CUDA cores: the reference's numerics
-  exactly (f32 before the dot, ``expf``); checked at rtol = atol = 2e-5.
+* f32 -> the split-TF32 kernel: ``mma.sync`` TF32 products on the
+  tensor cores with each f32 operand split in two (x = hi + lo, three
+  TF32 products a product, about 2^-19 relative: one TF32 product
+  fails the tolerance), each tile's product summed from zero and added
+  in f32, K/V tiles of 64 keys in a 2-stage ``cp.async`` ring, ``expf``
+  and a true divide as the reference; checked at rtol = atol = 2e-5.
+  Its k and v must sit on 16-byte addresses with 16-byte strides
+  (``cp.async``), or the call raises ``ValueError``.
 * bf16 -> the tensor-core kernel: ``wgmma`` for ``Q.K^T`` and ``P.V``,
   K/V tiles of 128 keys fed by TMA into a 3-stage ring with
   ``mbarrier``s by a producer warp, two consumer warpgroups of 64 q
@@ -30,13 +36,15 @@ other):
   (``setmaxnreg``).  It takes the unnormalised ``P`` into ``P.V`` as
   two bf16 parts (``P`` to about 2^-16, as the reference's f32 ``P``)
   and exp through ``exp2`` (``ex2.approx``): checked at rtol 8e-3,
-  atol 1e-3 against the f32 plain version.  Its q, k and v must sit on 16-byte addresses with
-  16-byte strides (TMA's rule), or the call raises ``ValueError``.
+  atol 1e-3 against the f32 plain version.  Its q, k and v must sit on
+  16-byte addresses with 16-byte strides (TMA's rule), or the call
+  raises ``ValueError``.
 
 Bound: per visible (q, k) pair of a head, ``4*D`` flops on the tensor
-cores (989e12 flop/s in bf16) and one exp on the special-function units
-(16 a clock an SM: 4.18e12/s) -- at D=64 the two are within 8 % of each
-other -- against bytes (q, k, v, out once) two orders lower.
+cores (989e12 flop/s in bf16; in f32 three TF32 products at 494.7e12)
+and one exp on the special-function units (16 a clock an SM:
+4.18e12/s) -- in bf16 at D=64 the two are within 8 % of each other --
+against bytes (q, k, v, out once) two orders lower.
 
 A CUDA tensor goes to a kernel or the call raises;
 ``flash_attention_plain`` (the function of
@@ -138,7 +146,7 @@ def gqa_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 def tma_misalignment(t) -> str:
     """Why ``t`` (a (B,T,H,D) view) cannot be a TMA source, nor one of
-    the backward kernels' 16-byte ``cp.async`` copies, or ``""``: its
+    the f32 kernels' 16-byte ``cp.async`` copies, or ``""``: its
     address and its byte strides of batch, position and head must be
     multiples of 16."""
     esize = t.element_size()
@@ -207,14 +215,15 @@ def _kernel_forward(q, k, v, causal, window, q_offset, with_lse):
         raise ValueError(f"flash_attention kernel: S={s}, T={t}, "
                          f"q_offset={q_offset}")
     tensor_cores = q.dtype == torch.bfloat16
-    if tensor_cores:
-        if with_lse:
-            raise NotImplementedError(NO_BF16_GRAD)
-        for name, x in (("q", q), ("k", k), ("v", v)):
-            why = tma_misalignment(x)
-            if why:
-                raise ValueError(f"flash_attention bf16 kernel (TMA): "
-                                 f"{name} {why}")
+    if tensor_cores and with_lse:
+        raise NotImplementedError(NO_BF16_GRAD)
+    copied = ((("q", q), ("k", k), ("v", v)) if tensor_cores
+              else (("k", k), ("v", v)))
+    route = "bf16 kernel (TMA)" if tensor_cores else "f32 kernel (cp.async)"
+    for name, x in copied:
+        why = tma_misalignment(x)
+        if why:
+            raise ValueError(f"flash_attention {route}: {name} {why}")
     lib = _lib()
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -370,12 +379,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     (B,S,H,D) in q's dtype.
 
     On a CUDA tensor this launches a kernel on the current stream and
-    does not synchronize: the scalar kernel for f32, the tensor-core
+    does not synchronize: the split-TF32 kernel for f32, the ``wgmma``
     kernel for bf16 (q, k and v of one dtype), a unit stride on D, D in
-    ``HEAD_DIMS``, and for bf16 16-byte aligned addresses and strides;
-    anything else raises.  On the CPU it is ``gqa_plain``.  With grad
-    mode on and an input that requires grad it is ``FlashAttentionFn``
-    (f32 only: bf16 raises ``NotImplementedError``).
+    ``HEAD_DIMS``, and 16-byte aligned addresses and strides (k and v
+    for f32; q, k and v for bf16); anything else raises.  On the CPU it
+    is ``gqa_plain``.  With grad mode on and an input that requires
+    grad it is ``FlashAttentionFn`` (f32 only: bf16 raises
+    ``NotImplementedError``).
     """
     _check(q, k, v)
     if _needs_grad(q, k, v):

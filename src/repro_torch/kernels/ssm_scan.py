@@ -30,15 +30,21 @@ A CUDA tensor goes to the kernel or the call raises; ``ssm_scan_plain``
 serves CPU tensors and the checks that hold the kernel against it.
 
 Gradients.  When grad mode is on and an input requires grad,
-``ssm_scan`` goes through ``SSMScanFn``: the forward kernel, and for
-the backward ``csrc/ssm_scan_bwd.cu: ssm_scan_bwd_f32`` (reverse time:
-it stores the state every 32 steps in a scratch, replays each 32-step
-chunk in shared memory and walks it back; one block per (batch row, 32
-channels)).  Its cross-block sums come back as partials -- dB and dC
-per channel group, dA_log per batch row -- that the wrapper adds with
-``torch.sum`` over the partial axis: no float atomics, the same bits
-every run.  On CPU tensors the Function runs ``ssm_scan_plain`` and
-``ssm_scan_bwd_plain``, the reverse recurrence in PyTorch.  A bf16
+``ssm_scan`` goes through ``SSMScanFn``: the forward kernel, which
+keeps its chunk carries (the state at the start of every chunk but the
+first, ``carries``; not one bit of y or h_end changes), and for the
+backward ``csrc/ssm_scan_bwd.cu: ssm_scan_bwd_f32``, split over time as
+the forward is: a block is one chunk of one row's channel group, each
+warp scans its segment forward and g backward from zero, the carries
+between segments are folded in registers (the forward's from its kept
+chunk carry, g's from the later chunk's block through a flag), and
+each segment is replayed from its true state in register sub-blocks
+and walked back.  Its cross-block sums come back as partials -- dB and
+dC per channel group, dA_log per (batch row, chunk) -- that the wrapper
+adds with ``torch.sum`` over the partial axes: no float atomics, the
+same bits every run.  On CPU tensors the Function runs
+``ssm_scan_plain`` and ``ssm_scan_bwd_plain``, the reverse recurrence
+in PyTorch.  A bf16
 input that requires grad raises: the bf16 backward is a later item.
 The JAX package has no backward kernel (JAX differentiates the jnp
 scan), so this one has no Pallas counterpart.
@@ -61,8 +67,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [ctypes.c_void_p] * 3)
 _SCRATCH_ARGTYPES = [ctypes.c_int] * 5
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
                  + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+_BWD_SIZES_ARGTYPES = [ctypes.c_int] * 6
 NO_BF16_GRAD = ("ssm_scan: a bf16 input that requires grad has no "
                 "backward kernel yet; the bf16 backward of K5 is a queue 2 "
                 "item of ROADMAP.md (train in f32)")
@@ -145,7 +152,7 @@ def _bwd_lib():
     if lib.ssm_scan_bwd_f32.argtypes is None:
         lib.ssm_scan_bwd_f32.argtypes = _BWD_ARGTYPES
         lib.ssm_scan_bwd_f32.restype = ctypes.c_int
-        lib.ssm_scan_bwd_sizes.argtypes = _SCRATCH_ARGTYPES
+        lib.ssm_scan_bwd_sizes.argtypes = _BWD_SIZES_ARGTYPES
         lib.ssm_scan_bwd_sizes.restype = ctypes.c_longlong
     return lib
 
@@ -167,7 +174,9 @@ def _check(x, dt, b_in, c_out, a_log, h0):
 
 
 def _kernel_forward(x, dt, b_in, c_out, a_log, h0):
-    """One launch of the forward kernel on CUDA tensors."""
+    """One launch of the forward kernel on CUDA tensors: (y, h_end,
+    carries), ``carries`` the chunks' carry-outs of the time split
+    (None for S = 1), which the backward kernel reads."""
     global launches
     bsz, s, d = x.shape
     n = b_in.shape[2]
@@ -212,34 +221,57 @@ def _kernel_forward(x, dt, b_in, c_out, a_log, h0):
     if err != 0:
         raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {err}")
     launches += 1
-    return y, h_end
+    return y, h_end, carries
 
 
-def _kernel_backward(x, dt, b_in, c_out, a_log, h0, dy, dh_end):
+def time_split(bsz, s, d, n):
+    """(segment length, segments a chunk, chunks) of the forward
+    kernel's time split of S steps, as its ``ssm_scan_scratch`` reports
+    it; for S = 1 (the step kernel, no split) one step in one chunk of
+    the backward kernel's segments."""
+    if s > 1:
+        lib = _lib()
+        return tuple(int(lib.ssm_scan_scratch(bsz, s, d, n, which))
+                     for which in (2, 3, 4))
+    return 1, int(_bwd_lib().ssm_scan_bwd_sizes(bsz, s, d, n, 1, 3)), 1
+
+
+def _kernel_backward(x, dt, b_in, c_out, a_log, h0, dy, dh_end, carries):
     """One launch of the backward kernel on CUDA tensors (f32), then the
-    partials summed over their partial axes."""
+    partials summed over their partial axes.  ``carries``: what
+    ``_kernel_forward`` returned for the same inputs."""
     global bwd_launches
     bsz, s, d = x.shape
     n = b_in.shape[2]
+    seg, warps, chunks = time_split(bsz, s, d, n)
     lib = _bwd_lib()
     f32 = dict(dtype=torch.float32, device=x.device)
     dy = dy.float().contiguous()
     if dh_end is not None:
         dh_end = dh_end.float().contiguous()
-    groups = int(lib.ssm_scan_bwd_sizes(bsz, s, d, n, 1))
+
+    def size(which):
+        return int(lib.ssm_scan_bwd_sizes(bsz, s, d, n, chunks, which))
+
+    groups = size(2)
     dx = torch.empty((bsz, s, d), **f32)
     ddt = torch.empty((bsz, s, d), **f32)
     dbc = torch.empty((bsz, groups, s, 2 * n), **f32)
-    da = torch.empty((bsz, d, n), **f32)
+    da = torch.empty((bsz, chunks, d, n), **f32)
     dh0 = torch.empty((bsz, d, n), **f32)
-    hck = torch.empty(int(lib.ssm_scan_bwd_sizes(bsz, s, d, n, 0)), **f32)
+    # the reverse carries between chunks: zeroed tickets and flags, and
+    # the chunks' carry-outs
+    sync = torch.zeros(size(0), dtype=torch.int32, device=x.device)
+    gcar = torch.empty(size(1), **f32)
     with torch.cuda.device(x.device):
         err = lib.ssm_scan_bwd_f32(
             x.data_ptr(), dt.data_ptr(), b_in.data_ptr(), c_out.data_ptr(),
             a_log.data_ptr(), None if h0 is None else h0.data_ptr(),
+            None if carries is None else carries.data_ptr(),
             dy.data_ptr(), None if dh_end is None else dh_end.data_ptr(),
             dx.data_ptr(), ddt.data_ptr(), dbc.data_ptr(), da.data_ptr(),
-            dh0.data_ptr(), hck.data_ptr(), bsz, s, d, n,
+            dh0.data_ptr(), sync.data_ptr(), gcar.data_ptr(), bsz, s, d, n,
+            seg, warps, chunks,
             *x.stride(), *dt.stride(), *b_in.stride(), *c_out.stride(),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -247,7 +279,7 @@ def _kernel_backward(x, dt, b_in, c_out, a_log, h0, dy, dh_end):
                            f"{err}")
     bwd_launches += 1
     return (dx, ddt, dbc[..., :n].sum(dim=1), dbc[..., n:].sum(dim=1),
-            da.sum(dim=0), dh0)
+            da.sum(dim=(0, 1)), dh0)
 
 
 class SSMScanFn(torch.autograd.Function):
@@ -257,23 +289,27 @@ class SSMScanFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, b_in, c_out, a_log, h0):
+        carries = None
         if x.device.type == "cuda":
-            y, h_end = _kernel_forward(x, dt, b_in, c_out, a_log, h0)
+            y, h_end, carries = _kernel_forward(x, dt, b_in, c_out, a_log,
+                                                h0)
         else:
             y, h_end = ssm_scan_plain(x, dt, b_in, c_out, a_log, h0)
-        ctx.save_for_backward(x, dt, b_in, c_out, a_log, h0)
+        ctx.save_for_backward(x, dt, b_in, c_out, a_log, h0, carries)
         ctx.set_materialize_grads(False)
         return y, h_end
 
     @staticmethod
     def backward(ctx, dy, dh_end):
-        x, dt, b_in, c_out, a_log, h0 = ctx.saved_tensors
+        x, dt, b_in, c_out, a_log, h0, carries = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        bwd = (_kernel_backward if x.device.type == "cuda"
-               else ssm_scan_bwd_plain)
-        dx, ddt, db, dc, da_log, dh0 = bwd(x, dt, b_in, c_out, a_log, h0,
-                                           dy, dh_end)
+        if x.device.type == "cuda":
+            dx, ddt, db, dc, da_log, dh0 = _kernel_backward(
+                x, dt, b_in, c_out, a_log, h0, dy, dh_end, carries)
+        else:
+            dx, ddt, db, dc, da_log, dh0 = ssm_scan_bwd_plain(
+                x, dt, b_in, c_out, a_log, h0, dy, dh_end)
         return (dx.to(x.dtype), ddt.to(dt.dtype), db.to(b_in.dtype),
                 dc.to(c_out.dtype), da_log.to(a_log.dtype),
                 None if h0 is None else dh0.to(h0.dtype))
@@ -298,4 +334,4 @@ def ssm_scan(x, dt, b_in, c_out, a_log, h0=None):
         return SSMScanFn.apply(x, dt, b_in, c_out, a_log, h0)
     if x.device.type != "cuda":
         return ssm_scan_plain(x, dt, b_in, c_out, a_log, h0)
-    return _kernel_forward(x, dt, b_in, c_out, a_log, h0)
+    return _kernel_forward(x, dt, b_in, c_out, a_log, h0)[:2]

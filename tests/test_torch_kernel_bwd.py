@@ -544,3 +544,331 @@ def test_block_grad_mutants_patch_the_committed_sources():
                 f"{source}.cu").read_text()
         assert got_source == source and text != orig
         assert text.count(new) == 1 and old not in text
+
+
+# -- K4's f32 forward in split TF32, emulated -------------------------------
+
+from repro.kernels import gqa_flash_attention as ref_gqa  # noqa: E402
+
+FA_F32_TILE = 64      # q rows a block and keys a tile of fa_fwd_f32_kernel
+
+
+def _fa_f32_emulation(q, k, v, *, causal, window, q_offset, split):
+    """The arithmetic of ``csrc/flash_attention.cu: fa_fwd_f32_kernel``
+    in numpy, for these tests only.  q (B,S,H,D), k/v (B,T,Hkv,D) f32 ->
+    (out (B,S,H,D), lse (B,H,S)), f32.  Per (b, h) and block of 64 rows:
+    the block's key range (the union of its rows' bands, or all T when a
+    row sees none), in tiles of 64 keys (zeros past T); each tile's two
+    products through ``_tf32_matmul(.., split)`` (each summed from zero),
+    the scores times scale in f32 and masked by select (-1e30, or -inf
+    past T), m, corr and p = exp(s - m) in f32, l summed from p, O =
+    O * corr + P.V in f32; out = O / max(l, 1e-30), lse = m +
+    log(max(l, 1e-30))."""
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    scale = np.float32(1.0 / np.sqrt(d))
+    out = np.zeros((b, s, h, d), np.float32)
+    lse = np.zeros((b, h, s), np.float32)
+    for bi in range(b):
+        for hi in range(h):
+            kh, vh = k[bi, :, hi // rep], v[bi, :, hi // rep]
+            for q0 in range(0, s, FA_F32_TILE):
+                rows = np.arange(q0, min(q0 + FA_F32_TILE, s))
+                pos = q_offset + rows
+                lo_r = np.maximum(0, pos - window + 1) if window > 0 \
+                    else np.zeros_like(pos)
+                hi_r = np.minimum(t, pos + 1) if causal \
+                    else np.full_like(pos, t)
+                blind = bool((hi_r <= lo_r).any())
+                lo = 0 if blind else int(lo_r.min())
+                hi_ = t if blind else int(hi_r.max())
+                n = len(rows)
+                m = np.full(n, -1e30, np.float32)
+                l_run = np.zeros(n, np.float32)
+                acc = np.zeros((n, d), np.float32)
+                for t0 in range(lo // FA_F32_TILE * FA_F32_TILE, hi_,
+                                FA_F32_TILE):
+                    keys = t0 + np.arange(FA_F32_TILE)
+                    real = keys < t
+                    kt = np.zeros((FA_F32_TILE, d), np.float32)
+                    vt = np.zeros((FA_F32_TILE, d), np.float32)
+                    kt[real], vt[real] = kh[keys[real]], vh[keys[real]]
+                    sc = np.float32(_tf32_matmul(q[bi, rows, hi], kt.T,
+                                                 split))
+                    vis = (keys[None] >= lo_r[:, None]) \
+                        & (keys[None] < hi_r[:, None])
+                    masked = np.where(real, np.float32(-1e30),
+                                      np.float32(-np.inf))
+                    sc = np.where(vis, sc * scale, masked[None])
+                    m_new = np.maximum(m, sc.max(axis=1))
+                    p = np.exp(sc - m_new[:, None])
+                    corr = np.exp(m - m_new)
+                    l_run = l_run * corr + p.sum(axis=1, dtype=np.float32)
+                    acc = acc * corr[:, None] \
+                        + np.float32(_tf32_matmul(p, vt, split))
+                    m = m_new
+                la = np.maximum(l_run, np.float32(1e-30))
+                out[bi, rows, hi] = acc / la[:, None]
+                lse[bi, hi, rows] = m + np.log(la)
+    return out, lse
+
+
+# (b, s, t, h, hkv, d, causal, window, q_offset): GQA 4 and 5, causal,
+# window, q_offset, S and T off the 64 tile, T under one tile, rows that
+# see no key (all of them, or some beside rows that see keys), D 16 / 32
+# / 64
+FA_F32_CASES = [
+    (1, 128, 128, 4, 1, 64, True, 0, 0),
+    (1, 100, 100, 5, 1, 64, True, 48, 0),
+    (1, 91, 157, 4, 2, 16, True, 40, 66),
+    (1, 130, 99, 4, 1, 32, False, 50, 20),
+    (2, 70, 10, 2, 2, 32, False, 0, 0),
+    (1, 64, 128, 2, 1, 64, False, 32, 140),
+    (1, 64, 128, 2, 1, 64, False, 32, 200),
+]
+
+
+def _pallas_f32(q, k, v, *, causal, window, q_offset):
+    """The JAX package's Pallas kernel in interpret mode through its GQA
+    wrapper: blocks of 64 where they divide S and T, else one block."""
+    s, t = q.shape[1], k.shape[1]
+    return np.asarray(ref_gqa(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, q_offset=q_offset,
+        block_q=FA_F32_TILE if s % FA_F32_TILE == 0 else s,
+        block_k=FA_F32_TILE if t % FA_F32_TILE == 0 else t,
+        interpret=True))
+
+
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal,window,q_offset",
+                         FA_F32_CASES)
+def test_f32_forward_in_split_tf32_matches_the_pallas_kernel(
+        b, s, t, h, hkv, d, causal, window, q_offset):
+    """K4's f32 forward kernel's arithmetic (three TF32 products a
+    product, each tile summed from zero, the online softmax over 64-key
+    tiles) against the JAX Pallas kernel run in interpret mode, at
+    chip_smoke.py's ``FA_TOL`` f32; its lse against the plain twin's."""
+    rtol, atol = _chip_smoke().FA_TOL["float32"]
+    q, k, v, _ = _fa_inputs(s * t + d, b, s, t, h, hkv, d)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got, lse = _fa_f32_emulation(q, k, v, split="kernel", **kw)
+    np.testing.assert_allclose(got, _pallas_f32(q, k, v, **kw), rtol=rtol,
+                               atol=atol)
+    _, want_lse = fa.flash_attention_fwd_plain(
+        *(torch.from_numpy(a) for a in (q, k, v)), **kw)
+    np.testing.assert_allclose(lse, want_lse.numpy(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("case", [0, 1])
+def test_one_tf32_product_misses_the_forward_tolerance(case):
+    """The same arithmetic with one TF32 product a product fails
+    ``FA_TOL`` f32: the split's two correction terms are needed."""
+    rtol, atol = _chip_smoke().FA_TOL["float32"]
+    b, s, t, h, hkv, d, causal, window, q_offset = FA_F32_CASES[case]
+    q, k, v, _ = _fa_inputs(s * t + d, b, s, t, h, hkv, d)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    single, _ = _fa_f32_emulation(q, k, v, split="single", **kw)
+    assert not np.allclose(single, _pallas_f32(q, k, v, **kw), rtol=rtol,
+                           atol=atol)
+
+
+# -- K5's f32 backward split over time, emulated ----------------------------
+
+K5_LOG2E = np.float32(1.4426950408889634)
+
+
+def _k5_bwd_emulation(x, dt, bc, a_log, h0, dy, dhe, n, *, split, blk=8,
+                      half=4):
+    """The arithmetic order of ``csrc/ssm_scan_bwd.cu`` in plain torch,
+    f32, for these tests only -> (dx, ddt, dB|dC, dA_log, dh0).  The
+    forward's split, ``split`` = (warps, seg_max, tb) as
+    ``test_torch_ssm.py``'s forward emulation takes it (S = 1: one step,
+    one chunk).  The forward's chunk carries come from its own pass 1
+    and folds; then chunks last to first: each segment scanned forward
+    (local end state, sum dt) and g backward (carry out of its first
+    step) from zero; each segment's state folded from the chunk's
+    carry over the earlier segments and g's carry from the later
+    chunk's over the later ones, c = exp2(a2 sum dt) c + c_local; the
+    chunk's carry out over segment 0 too (dh0 for the first chunk);
+    then per segment checkpoints every ``blk`` steps from its state, and
+    the blocks last to first, each in two halves of ``half`` steps, the
+    later half's states replayed from the block's checkpoint, walked
+    back: dx, ddt, dB, dC of each step, dA_log summed."""
+    t_ = torch.from_numpy
+    x, dt, bc, a_log, dy = (t_(a) for a in (x, dt, bc, a_log, dy))
+    bsz, s, d = x.shape
+    bm, cm = bc[..., :n], bc[..., n:]
+    A = -torch.exp(a_log)                                       # (D,N)
+    a2 = A * t_(np.array(K5_LOG2E))
+
+    def step(h, t):
+        dv = dt[:, t, :, None]
+        return torch.exp2(dv * a2) * h + (dv * x[:, t, :, None]) \
+            * bm[:, t, None, :]
+
+    warps, seg_max, tb = split
+    if s == 1:
+        seg = 1
+    else:
+        seg = min(seg_max, -(-(-(-s // warps)) // tb) * tb)
+    chunk = warps * seg
+    chunks = -(-s // chunk)
+    spans = [[(k0 + w * seg, min(k0 + (w + 1) * seg, s))
+              for w in range(warps)] for k0 in range(0, chunks * chunk,
+                                                      chunk)]
+
+    def local_fwd(t0, t1):
+        h = torch.zeros((bsz, d, n))
+        sdt = torch.zeros((bsz, d))
+        for t in range(t0, t1):
+            h = step(h, t)
+            sdt = sdt + dt[:, t]
+        return h, sdt
+
+    def fold(c, sdt, c_local):
+        return torch.exp2(a2 * sdt[..., None]) * c + c_local
+
+    zero = torch.zeros((bsz, d, n))
+    starts, carry = [], zero if h0 is None else t_(h0)   # chunk starts
+    for sp in spans:
+        starts.append(carry)
+        local = [local_fwd(*span) for span in sp]
+        for hl, sdt in local:
+            carry = fold(carry, sdt, hl)
+    dx, ddt = torch.zeros((bsz, s, d)), torch.zeros((bsz, s, d))
+    dbc = torch.zeros((bsz, s, 2 * n))
+    dacc = torch.zeros((bsz, d, n))
+    g_carry = zero if dhe is None else t_(dhe)
+    for k in range(chunks - 1, -1, -1):
+        local = [local_fwd(*span) for span in spans[k]]
+        g_local = []
+        for t0, t1 in spans[k]:
+            c = zero
+            for t in range(t1 - 1, t0 - 1, -1):
+                a = torch.exp2(dt[:, t, :, None] * a2)
+                c = a * (cm[:, t, None, :] * dy[:, t, :, None] + c)
+            g_local.append(c)
+        new_carry = None
+        for w, (t0, t1) in enumerate(spans[k]):
+            h = starts[k]
+            for v in range(w):
+                h = fold(h, local[v][1], local[v][0])
+            g = g_carry
+            for v in range(warps - 1, w, -1):
+                g = fold(g, local[v][1], g_local[v])
+            if w == 0:
+                new_carry = fold(g, local[0][1], g_local[0])
+            ck = []
+            for j in range(t0, t1, blk):
+                ck.append(h)
+                for t in range(j, min(j + blk, t1)):
+                    h = step(h, t)
+            for j in range(len(ck) - 1, -1, -1):
+                s0 = t0 + j * blk
+                s1 = min(s0 + blk, t1)
+                for hf in (1, 0):
+                    a0 = s0 + hf * half
+                    if a0 >= s1:
+                        continue
+                    hs = [ck[j]]
+                    for t in range(s0, a0):
+                        hs[0] = step(hs[0], t)
+                    for t in range(a0, min(a0 + half, s1)):
+                        hs.append(step(hs[-1], t))
+                    for i in range(len(hs) - 2, -1, -1):
+                        t = a0 + i
+                        dv, xv = dt[:, t, :, None], x[:, t, :, None]
+                        dyv = dy[:, t, :, None]
+                        a = torch.exp2(dv * a2)
+                        g = cm[:, t, None, :] * dyv + g
+                        bn = bm[:, t, None, :]
+                        dbc[:, t, :n] = (g * (dv * xv)).sum(dim=1)
+                        dbc[:, t, n:] = (hs[i + 1] * dyv).sum(dim=1)
+                        dx[:, t] = dv[..., 0] * (g * bn).sum(dim=-1)
+                        ddt[:, t] = (g * (xv * bn + (hs[i] * A) * a)).sum(
+                            dim=-1)
+                        dacc = dacc + g * (hs[i] * a) * dv
+                        g = g * a
+        g_carry = new_carry
+    return dx, ddt, dbc, A * dacc.sum(dim=0), g_carry
+
+
+# (b, s, d, n, h0, dh_end, split): one segment; a ragged last segment
+# and empty ones; several chunks, one ragged; halves of 1-3 steps; S = 1
+K5_BWD_CASES = [
+    (2, 9, 5, 4, False, False, (8, 64, 4)),
+    (1, 13, 6, 8, True, True, (4, 8, 4)),
+    (2, 33, 7, 16, True, False, (2, 8, 4)),
+    (1, 45, 3, 8, False, True, (3, 8, 2)),
+    (1, 70, 4, 4, True, True, (4, 8, 4)),
+    (2, 1, 5, 16, True, True, (8, 64, 4)),
+]
+
+
+@pytest.mark.parametrize("case", K5_BWD_CASES)
+def test_k5_backward_time_split_matches_jax_grad(case):
+    """K5's backward kernel's order (the forward's split, carries folded
+    in reverse, register halves replayed from checkpoints) against
+    ``jax.grad`` of the reference and against ``ssm_scan_bwd_plain``, at
+    1e-4."""
+    b, s, d, n, with_h0, with_dhe, split = case
+    x, dt, bc, al, h0, dy, dhe = _ssm_case(10, b, s, d, n, with_h0,
+                                           with_dhe)
+    got = _k5_bwd_emulation(x, dt, bc, al, h0, dy, dhe, n, split=split)
+    for g, w in zip(got, _bwd_plain(x, dt, bc, al, h0, dy, dhe, n)):
+        _close(g, w.numpy(), 1e-4)
+
+    def loss(x, dt, bc, al, h0):
+        y, h_end = ref_ssm.ssm_core({"A_log": al}, x, dt, bc, h0, n,
+                                    chunk=s)
+        out = jnp.sum(y * dy)
+        return out + (jnp.sum(h_end * dhe) if dhe is not None else 0.0)
+    h0j = jnp.asarray(h0 if h0 is not None
+                      else np.zeros((b, d, n), np.float32))
+    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in (x, dt, bc, al)), h0j)
+    for g, w in zip(got, want):
+        _close(g, np.asarray(w), 1e-4)
+
+
+def test_k5_backward_emulation_cases_reach_every_edge_of_the_split():
+    """The cases above reach more than one chunk, a ragged last chunk,
+    segments with no steps, a later half shorter than its block's half
+    and a block with no later half, h0 and dh_end each present and
+    absent, and a single step."""
+    def edges(s, split):
+        warps, seg_max, tb = split
+        seg = 1 if s == 1 else min(seg_max, -(-(-(-s // warps)) // tb) * tb)
+        chunk = warps * seg
+        lens = [max(0, min(t0 + seg, s) - t0)
+                for t0 in range(0, -(-s // chunk) * chunk, seg)]
+        blocks = [min(8, ln - j) for ln in lens for j in range(0, ln, 8)]
+        return {"chunks": -(-s // chunk) > 1, "ragged": s % chunk != 0,
+                "empty": 0 in lens, "short_half": any(4 < bl < 8
+                                                      for bl in blocks),
+                "no_half": any(bl <= 4 for bl in blocks)}
+    seen = {}
+    for _, s, _, _, _, _, split in K5_BWD_CASES:
+        for key, val in edges(s, split).items():
+            seen[key] = seen.get(key, False) or val
+    assert all(seen.values()), seen
+    assert {c[4] for c in K5_BWD_CASES} == {True, False}
+    assert {c[5] for c in K5_BWD_CASES} == {True, False}
+    assert any(c[1] == 1 for c in K5_BWD_CASES)
+
+
+def test_f32_forward_rejects_misaligned_k_and_v_by_name():
+    """The f32 forward kernel's 16-byte copies of k and v: a view one
+    float off a 16-byte address, or with strides of 65 floats, raises
+    ``ValueError`` naming it before the kernel's library is asked for
+    (so on the CPU too)."""
+    q = torch.zeros(1, 8, 2, 64)
+    wide = torch.zeros(1, 8, 2, 65)
+    k = torch.zeros(1, 8, 1, 64)
+    for bad in (wide[:, :, :1, 1:], wide[:, :, :1, :64]):
+        assert fa.tma_misalignment(bad)
+        with pytest.raises(ValueError, match=r"f32 kernel \(cp.async\): k "):
+            fa._kernel_forward(q, bad, k, True, 0, 0, with_lse=True)
+        with pytest.raises(ValueError, match=r"f32 kernel \(cp.async\): v "):
+            fa._kernel_forward(q, k, bad, True, 0, 0, with_lse=False)

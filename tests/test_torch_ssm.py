@@ -479,3 +479,72 @@ def test_chip_smoke_counts_exps_from_the_split_the_kernel_reports(
     assert smoke.ssm_design_exps(
         b, 4096, d, n, {"seg": 512, "warps": 1, "chunks": 8}) == \
         2 * b * 4096 * d * n
+
+
+def _bwd_split(s, split=WIDE_SPLIT, blk=8):
+    """Segment lengths of every warp of every chunk, and the lengths of
+    their checkpoint blocks, under the forward kernel's split of S
+    steps (S = 1: one step in one segment), as K5's backward takes it."""
+    warps = split[0]
+    chunks, chunk = _chunks(s, split) if s > 1 else (1, warps)
+    seg = chunk // warps
+    lens = [max(0, min(t0 + seg, s) - t0)
+            for t0 in range(0, chunks * chunk, seg)]
+    return chunks, lens, [min(blk, ln - j) for ln in lens
+                          for j in range(0, ln, blk)]
+
+
+def test_k5_backward_cases_reach_every_edge_of_the_split():
+    """chip_smoke.py's K5 backward cases at the edges of the split (the
+    forward's, ``WIDE_SPLIT`` as the kernel is built; 8-step checkpoint
+    blocks walked back as two register halves of 4) reach one step,
+    more than one chunk, a ragged last chunk, empty segments, a block
+    whose later half is short and one with no later half, D off the
+    32-channel group, N 4, 8 and 16, h0 and dh_end each present and
+    absent."""
+    smoke = _chip_smoke()
+    cases = [case for _, case, _, _ in smoke.SSM_BWD_SPLIT_CASES]
+    splits = [_bwd_split(s) for _, s, _, _ in cases]
+    assert any(s == 1 for _, s, _, _ in cases)
+    assert any(chunks > 1 for chunks, _, _ in splits)
+    assert any(s > 1 and s % _chunks(s, WIDE_SPLIT)[1]
+               for _, s, _, _ in cases)
+    assert any(0 in lens for _, lens, _ in splits)
+    assert any(any(4 < bl < 8 for bl in blocks) for _, _, blocks in splits)
+    assert any(any(bl <= 4 for bl in blocks) for _, _, blocks in splits)
+    assert any(d % 32 for _, _, d, _ in cases)
+    assert {n for *_, n in cases} == {4, 8, 16}
+    flags = [(h0, dh_end) for _, _, h0, dh_end in smoke.SSM_BWD_SPLIT_CASES]
+    assert {h for h, _ in flags} == {True, False}
+    assert {e for _, e in flags} == {True, False}
+
+
+def test_chip_smoke_counts_k5_backward_exps_from_its_split(monkeypatch):
+    """chip_smoke.py takes K5's backward split from the built libraries
+    (the forward's segment, warps and chunks, the backward's checkpoint
+    block and half) and counts the design's exps from it: per segment
+    of L steps 3L (the two passes from zero, the walk back), the
+    checkpoint walk up to the last block, each block replayed (plus the
+    half skipped into for a later half), and N a fold."""
+    smoke = _chip_smoke()
+
+    class FakeBwd:
+        @staticmethod
+        def ssm_scan_bwd_sizes(b, s, d, n, chunks, which):
+            return {4: 8, 5: 4}[which]
+
+    monkeypatch.setattr(ss, "time_split", lambda b, s, d, n: (64, 8, 4))
+    monkeypatch.setattr(ss, "_bwd_lib", lambda: FakeBwd)
+    b, s, d, n = 1, 2048, 3200, 16
+    split = smoke.ssm_bwd_split(b, s, d, n)
+    assert split == {"seg": 64, "warps": 8, "chunks": 4, "block": 8,
+                     "half": 4}
+    # a 64-step segment: 3 x 64, the walk to its 8th block 56, 8 blocks
+    # of 8 replayed as 12 each; 4 chunks of 8 segments, 57 folds each
+    per_segment = 3 * 64 + 56 + 8 * 12
+    assert smoke.ssm_bwd_design_exps(b, s, d, n, split) == \
+        b * d * n * 4 * (8 * per_segment + 57)
+    # S = 37 at 8-step segments: 4 full segments and one of 5 steps
+    short = {"seg": 8, "warps": 8, "chunks": 1, "block": 8, "half": 4}
+    assert smoke.ssm_bwd_design_exps(1, 37, 1, 1, short) == \
+        4 * (3 * 8 + 0 + 12) + (3 * 5 + 0 + 5 + 4) + 57

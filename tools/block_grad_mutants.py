@@ -29,6 +29,9 @@ Mutants:
   ssm_da_no_a            K5: dA_log without its factor A
   ssm_ddt_no_decay       K5: ddt without its A a_t h_{t-1} term
   ssm_dc_prev_state      K5: dC from h_{t-1} instead of h_t
+  ssm_chunk_carry_no_decay
+                         K5: a chunk's reverse carry (and dh0) passed
+                         without the decay over its first segment
   fa_window_edge         K4: the backward's band one key short at the
                          window's far edge (the forward's lse unchanged)
   fa_no_key_zero         K4: a row that sees no key gives P = 0, not 1/T
@@ -58,14 +61,17 @@ SOURCES = ("flash_attention", "flash_attention_bwd", "ssm_scan",
 MUTANTS = {
     "sound": None,
     "ssm_da_no_a": ("ssm_scan_bwd",
-                    "da[hrow + n] = A[n] * dacc[n];",
-                    "da[hrow + n] = dacc[n];"),
+                    "drow[n] = A[n] * sum;",
+                    "drow[n] = sum;"),
     "ssm_ddt_no_decay": ("ssm_scan_bwd",
                          "sdt = fmaf(gr[n], fmaf(xv, bn, ha), sdt);",
                          "sdt = fmaf(gr[n], xv * bn + 0.0f * ha, sdt);"),
     "ssm_dc_prev_state": ("ssm_scan_bwd",
                           "vals[N + n] = hc * dyv;",
                           "vals[N + n] = hp * dyv;"),
+    "ssm_chunk_carry_no_decay": ("ssm_scan_bwd",
+                                 "fmaf(sb_ex2(a2[n] * s0), gr[n],",
+                                 "fmaf(1.0f, gr[n],"),
     "fa_window_edge": ("flash_attention_bwd",
                        "lo = window > 0 ? max(0, p - window + 1) : 0;",
                        "lo = window > 0 ? max(0, p - window + 2) : 0;"),
