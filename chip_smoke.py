@@ -2354,6 +2354,15 @@ def flash_cases():
                                    (b, t, hkv, d)))
     for name, shape, kw in F32_EDGE_CASES:
         cases.append(check_flash(name, *qkv_edge(*shape), **kw))
+    # head dims 128 and 192 in both kernels, on their own generator
+    wide = torch.Generator(device="cuda").manual_seed(29)
+    for name, (b, s, t, h, hkv, d), kw in WIDE_HEAD_CASES:
+        for dtype in (torch.float32, bf16):
+            tag = str(dtype).removeprefix("torch.")
+            q, k, v = (torch.randn(*x, generator=wide, device="cuda")
+                       .to(dtype) for x in ((b, s, h, d), (b, t, hkv, d),
+                                            (b, t, hkv, d)))
+            cases.append(check_flash(f"{name}-{tag}", q, k, v, **kw))
     # the tensor-core kernel's own edges, bf16
     for s, t, d in ((128, 128, 64), (256, 256, 32), (64, 256, 64),
                     (256, 128, 16)):
@@ -2432,6 +2441,28 @@ F32_EDGE_CASES = (
     ("f32-window-70-band-across-tiles", (1, 192, 192, 2, 1, 32),
      dict(window=70)),
 )
+
+
+# Head dims 128 (mixtral, arctic, phi4-mini, granite) and 192
+# (nemotron), both dtypes and the backward: (name, (b, s, t, h, hkv, d),
+# masks).  Causal with GQA and S off the tile; a window over ragged S
+# with a group of 5; q_offset; no mask at T over S; rows that see no key
+# beside rows that do; and a band over many key tiles at the models'
+# group sizes (mixtral 4, nemotron 12).
+WIDE_HEAD_CASES = tuple(
+    case for d in (128, 192) for case in (
+        (f"d{d}-gqa4-causal-300", (1, 300, 300, 8, 2, d), {}),
+        (f"d{d}-gqa5-window100-ragged-333", (2, 333, 333, 5, 1, d),
+         dict(window=100)),
+        (f"d{d}-q-offset-64-200x264", (2, 200, 264, 4, 1, d),
+         dict(q_offset=64)),
+        (f"d{d}-full-130x517-gqa2", (1, 130, 517, 4, 2, d),
+         dict(causal=False)),
+        (f"d{d}-some-rows-see-no-key", (1, 64, 128, 4, 2, d),
+         dict(causal=False, window=32, q_offset=140)),
+        (f"d{d}-layer-1x1024-window300-gqa{4 if d == 128 else 12}",
+         (1, 1024, 1024, 32, 8, d) if d == 128 else (1, 1024, 1024, 24, 2, d),
+         dict(window=300))))
 
 
 def check_ssm(name, x, dt, b_in, c_out, a_log, h0=None):
@@ -2768,59 +2799,77 @@ def check_bwd_misaligned():
     fail("check_bwd_misaligned: a misaligned q did not raise")
 
 
-# The split-TF32 kernels as cuobjdump names them (mangled): library ->
-# (pattern of a kernel's name, its key from the match, the keys wanted)
+HEAD_DIMS = (16, 32, 64, 128, 192)      # K4's instantiations
+
+# The tensor-core kernels as cuobjdump names them (mangled): library ->
+# [(pattern of a kernel's name, its key from the match, the keys wanted,
+# the instruction each must hold)]: the split-TF32 kernels TF32 HMMA,
+# the bf16 kernel wgmma (HGMMA in SASS)
 SASS_KERNELS = {
-    "flash_attention_bwd": (
+    "flash_attention_bwd": [(
         r"_Z\d+(fa_bwd_\w+?_kernel)ILi(\d+)EE",
         lambda m: f"{m.group(1)}<{m.group(2)}>",
         {f"fa_bwd_{kind}_kernel<{d}>" for kind in ("dq", "dkdv")
-         for d in (16, 32, 64)}),
-    "flash_attention": (
+         for d in HEAD_DIMS}, "tf32_hmma")],
+    "flash_attention": [(
         r"_Z\d+(fa_fwd_f32_kernel)ILi(\d+)ELb([01])EE",
         lambda m: f"{m.group(1)}<{m.group(2)}, "
                   f"{'true' if m.group(3) == '1' else 'false'}>",
-        {f"fa_fwd_f32_kernel<{d}, {lse}>" for d in (16, 32, 64)
-         for lse in ("true", "false")}),
+        {f"fa_fwd_f32_kernel<{d}, {lse}>" for d in HEAD_DIMS
+         for lse in ("true", "false")}, "tf32_hmma"), (
+        r"_ZN2tc\d+(flash_attention_tc_kernel)ILi(\d+)EE",
+        lambda m: f"{m.group(1)}<{m.group(2)}>",
+        {f"flash_attention_tc_kernel<{d}>" for d in HEAD_DIMS}, "hgmma")],
 }
+
+
+def _sass_op(kind: str, line: str) -> bool:
+    return ("HMMA" in line and "TF32" in line) if kind == "tf32_hmma" \
+        else "HGMMA" in line
 
 
 def library_sass(library: str) -> dict:
     """A built library as ``cuobjdump`` reads it (one ``-sass`` and one
-    ``-res-usage`` pass): each split-TF32 kernel's TF32 tensor-core
-    instructions (``HMMA`` with ``TF32``), registers and local-memory
-    (spill) bytes; fails when a kernel of ``SASS_KERNELS`` is missing or
-    has no TF32 HMMA.  ``seconds``: what the two reads took."""
+    ``-res-usage`` pass): each tensor-core kernel's tensor-core
+    instructions (TF32 ``HMMA`` for the split-TF32 kernels, ``HGMMA``
+    for the ``wgmma`` kernel), registers and local-memory (spill) bytes;
+    fails when a kernel of ``SASS_KERNELS`` is missing, has none of its
+    instruction, or spills.  ``seconds``: what the two reads took."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     lib = _build.build([library])[library]
     tool = str(Path(_build._nvcc()).parent / "cuobjdump")
-    name, key, want = SASS_KERNELS[library]
 
     def dump(flag):
         return subprocess.run([tool, flag, str(lib)], check=True,
                               capture_output=True, text=True,
                               timeout=120).stdout
 
-    kernels, current = {}, None
-    for line in dump("-sass").splitlines():
-        m = re.search(r"Function : " + name, line)
-        if "Function : " in line:
-            current = key(m) if m else None
-            if current:
-                kernels[current] = {"tf32_hmma": 0}
-        elif current and "HMMA" in line and "TF32" in line:
-            kernels[current]["tf32_hmma"] += 1
-    for m in re.finditer(name + r"\S*:\s*REG:(\d+) STACK:(\d+) \S+ "
-                         r"LOCAL:(\d+)", dump("-res-usage")):
-        regs = m.groups()[-3:]
-        kernels[key(m)].update(
-            registers=int(regs[0]), stack_bytes=int(regs[1]),
-            local_bytes=int(regs[2]))
-    if set(kernels) != want or not all(k["tf32_hmma"] for k in
-                                       kernels.values()):
-        fail(f"{library} library: a split-TF32 kernel missing or without "
-             f"TF32 HMMA: {kernels}")
+    sass, usage = dump("-sass"), dump("-res-usage")
+    kernels = {}
+    for name, key, want, op in SASS_KERNELS[library]:
+        found, current = {}, None
+        for line in sass.splitlines():
+            if "Function : " in line:
+                m = re.search(r"Function : " + name, line)
+                current = key(m) if m else None
+                if current:
+                    found[current] = {op: 0}
+            elif current and _sass_op(op, line):
+                found[current][op] += 1
+        for m in re.finditer(name + r"\S*:\s*REG:(\d+) STACK:(\d+) \S+ "
+                             r"LOCAL:(\d+)", usage):
+            regs = m.groups()[-3:]
+            found[key(m)].update(
+                registers=int(regs[0]), stack_bytes=int(regs[1]),
+                local_bytes=int(regs[2]))
+        if set(found) != want or not all(k[op] for k in found.values()):
+            fail(f"{library} library: a tensor-core kernel missing or "
+                 f"without {op}: {found}")
+        spills = {k: v for k, v in found.items() if v.get("local_bytes")}
+        if spills:
+            fail(f"{library} library: kernels spill: {spills}")
+        kernels.update(found)
     return {**kernels, "seconds": time.perf_counter() - t0}
 
 
@@ -2879,6 +2928,10 @@ def kernel_bwd_checks():
         check_flash_bwd("gqa5-1x1000-window300-16-key-tiles",
                         *qkvd(1, 1000, 1000, 5, 1, 64, edge), window=300),
     ]
+    # head dims 128 and 192 (their own tilings), on their own generator
+    wide = torch.Generator(device="cuda").manual_seed(30)
+    fa_rows += [check_flash_bwd(name, *qkvd(*shape, wide), **kw)
+                for name, shape, kw in WIDE_HEAD_CASES]
     ss_rows = []
     for n in (4, 8, 16):
         x, dt, bi, co, al = ssm_inputs(gen, 2, 100, 200, n, torch.float32)
@@ -3743,6 +3796,344 @@ def fl_lm_path():
     return out
 
 
+# ---------------------------------------------------------------------
+# The MoE family and the wide heads at full width (K4 at D = 128, 192)
+# ---------------------------------------------------------------------
+
+# mixtral-8x7b serving: depth cut from 32 layers (2.9 GB of bf16 a
+# layer: 32 do not fit in 80 GB) to MOE_LAYERS; the prefill of
+# B = 2 x 4096 is two groups of TrainConfig().moe_group_tokens = 4096
+# tokens (capacity 1280 slots an expert); decode: 4 requests, a 16-token
+# prompt filled by decode steps, then 16 greedy steps
+MOE_LAYERS = 8
+MOE_PREFILL = (2, 4096)
+MOE_SERVE_BATCH, MOE_SERVE_PROMPT, MOE_SERVE_GEN = 4, 16, 16
+# arctic-480b: one layer (128 experts and the dense residual, ~26.8 GB
+# of bf16), B = 1 x 2048 (one group: the 128-expert dispatch)
+ARCTIC_LAYERS, ARCTIC_PREFILL = 1, (1, 2048)
+# the repaired head dims in the bf16 prefill: phi4-mini (D = 128) at its
+# full 32 layers, nemotron (D = 192, ~7 GB a layer) cut to 2
+WIDE_PREFILL = (("phi4-mini-3.8b", None, 2, 4096),
+                ("nemotron-4-340b", 2, 1, 4096))
+# the f32 train step at D = 128: phi4-mini through launch.train's path,
+# cut to WIDE_TRAIN_LAYERS (params, grads and AdamW's two moments: 16 B
+# a parameter, 26 GB at 4 layers; 71 GB at 32 would not fit beside the
+# activations), two steps on a corpus of WIDE_TRAIN_TOKENS from the
+# CLI's generator (its 400,000 over a 200,064-token vocabulary take
+# minutes of host time)
+WIDE_TRAIN = ("phi4-mini-3.8b", 1, 2048)
+WIDE_TRAIN_LAYERS, WIDE_TRAIN_STEPS, WIDE_TRAIN_TOKENS = 4, 2, 4096
+# MoE consistency: mixtral in f32 at full width, 2 layers, capacity
+# factor n_experts (no token dropped in any group), a 272-token prompt
+# then 8 greedy tokens; S * S above 256 * 256 and attention chunks of 8
+# put S = 272 and S + 8 on the chunked (kernel) route
+MOE_CONSISTENCY_LAYERS, MOE_CONSISTENCY_S, MOE_CONSISTENCY_GEN = 2, 272, 8
+MOE_CONSISTENCY_CHUNK = 8
+
+
+def _prefill_run(cfg, params, b, s, tcfg, label):
+    """``make_prefill_step`` once (launch counts read around it) and
+    ``LM_WARM_RUNS`` times warm: the attention calls, the first and warm
+    seconds, and the last-position logits (finite, repeated bit for
+    bit)."""
+    import torch
+    from repro_torch.launch.steps import make_prefill_step
+    step = make_prefill_step(cfg, tcfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device="cuda")
+    calls = []
+    with recording_attention_calls(calls):
+        zero_counts()
+        t0 = time.perf_counter()
+        logits = step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launched = counts()
+    want = only(flash_attention=cfg.num_layers,
+                flash_attention_tc=cfg.num_layers)
+    if launched != want:
+        fail(f"{label}: launches {launched}, expected {want}")
+    if any(kv[2] != cfg.n_kv_heads or q[3] != cfg.head_dim
+           for q, kv, *_ in calls):
+        fail(f"{label}: the kernel was handed repeated k/v or another "
+             f"head dim: {calls[:1]}")
+    if tuple(logits.shape) != (b, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        fail(f"{label}: logits {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    warm = []
+    for _ in range(LM_WARM_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    if not torch.equal(again, logits):
+        fail(f"{label}: a warm run's logits differ from the first's")
+    med = statistics.median(warm)
+    return {"arch": cfg.arch_id, "num_layers": cfg.num_layers, "batch": b,
+            "prompt_len": s, "head_dim": cfg.head_dim,
+            "dtype": "torch.bfloat16", "param_bytes": _param_bytes(params),
+            "first_run_s": first_s, "warm_s": warm, "warm_s_median": med,
+            "prompt_tokens_per_s": b * s / med, "launches": launched,
+            "greedy_tokens": logits.argmax(-1).tolist()}, calls[0]
+
+
+def _fresh(arch, dtype, num_layers=None):
+    """Full-width random parameters on the card (``_lm_params``) after
+    the card's memory is released, timed; returns (cfg, params, init
+    seconds)."""
+    import torch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, params = _lm_params(arch, dtype, num_layers)
+    torch.cuda.synchronize()
+    return cfg, params, time.perf_counter() - t0
+
+
+def lm_moe_serve_path():
+    """The MoE family served at full width in bf16: mixtral-8x7b cut to
+    ``MOE_LAYERS`` (prefill of ``MOE_PREFILL`` through
+    ``make_prefill_step`` with ``TrainConfig().moe_group_tokens``, then
+    4 requests decoded through ``make_serve_step``), and arctic-480b cut
+    to one layer (prefill): seconds, tokens/s, peak memory, K4's
+    launches (the tensor-core kernel at D = 128 each layer of a prefill,
+    none in decode).  Returns (the phase, the attention calls)."""
+    import torch
+    from repro_torch.config.base import InputShape, TrainConfig
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import init_decode_state
+    from repro_torch.models.moe import capacity_for
+    tcfg = TrainConfig()
+    out, calls = {}, []
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, init_s = _fresh("mixtral-8x7b", torch.bfloat16, MOE_LAYERS)
+    b, s = MOE_PREFILL
+    row, call = _prefill_run(cfg, params, b, s, tcfg, "mixtral prefill")
+    group = tcfg.moe_group_tokens
+    row.update(init_s=init_s, moe_group_tokens=group,
+               groups=b * s // group,
+               capacity=capacity_for(group, cfg.top_k, cfg.n_experts,
+                                     cfg.moe_capacity_factor))
+    calls.append(("mixtral-8x7b", "chunked", call))
+    cache_len = MOE_SERVE_PROMPT + MOE_SERVE_GEN
+    shape = InputShape("serve", cache_len, MOE_SERVE_BATCH, "decode")
+    step = make_serve_step(cfg, shape, tcfg)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (MOE_SERVE_BATCH, MOE_SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    state = init_decode_state(cfg, MOE_SERVE_BATCH, cache_len,
+                              dtype=torch.bfloat16, device="cuda")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(MOE_SERVE_PROMPT):
+        logits, state = step(params, state, {"tokens": prompts[:, i:i + 1]})
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    toks = []
+    t0 = time.perf_counter()
+    for _ in range(MOE_SERVE_GEN):
+        toks.append(tok)
+        logits, state = step(params, state, {"tokens": tok})
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_counts = counts()
+    toks = torch.cat(toks, dim=1)
+    if decode_counts != only() or state["pos"] != cache_len \
+            or not bool(torch.isfinite(logits).all()):
+        fail(f"mixtral decode: launches {decode_counts}, pos "
+             f"{state['pos']}, finite {bool(torch.isfinite(logits).all())}")
+    row.update(decode={
+        "batch": MOE_SERVE_BATCH, "prompt_len": MOE_SERVE_PROMPT,
+        "gen": MOE_SERVE_GEN, "prompt_fill_s": fill_s,
+        "prompt_fill_tokens_per_s": MOE_SERVE_BATCH * MOE_SERVE_PROMPT
+        / fill_s, "decode_s": decode_s,
+        "decode_tokens_per_s": MOE_SERVE_BATCH * MOE_SERVE_GEN / decode_s,
+        "s_per_decode_step": decode_s / MOE_SERVE_GEN,
+        "launches": decode_counts, "sample_tokens": toks[0].tolist()})
+    row["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["mixtral"] = row
+    del params, state, step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, init_s = _fresh("arctic-480b", torch.bfloat16,
+                                 ARCTIC_LAYERS)
+    b, s = ARCTIC_PREFILL
+    row, call = _prefill_run(cfg, params, b, s, tcfg, "arctic prefill")
+    row.update(init_s=init_s, groups=1,
+               capacity=capacity_for(b * s, cfg.top_k, cfg.n_experts,
+                                     cfg.moe_capacity_factor),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    calls.append(("arctic-480b", "chunked", call))
+    out["arctic"] = row
+    del params
+    torch.cuda.empty_cache()
+    return out, calls
+
+
+def lm_wide_head_prefill():
+    """The bf16 prefill of the dense configs whose head dims K4 took in
+    this slice (``WIDE_PREFILL``): phi4-mini at D = 128, nemotron at
+    D = 192.  Returns (rows, attention calls)."""
+    import torch
+    from repro_torch.config.base import TrainConfig
+    rows, calls = [], []
+    for arch, layers, b, s in WIDE_PREFILL:
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, init_s = _fresh(arch, torch.bfloat16, layers)
+        row, call = _prefill_run(cfg, params, b, s, TrainConfig(),
+                                 f"{arch} prefill")
+        row.update(init_s=init_s, peak_bytes=torch.cuda.max_memory_allocated())
+        rows.append(row)
+        calls.append((arch, "chunked", call))
+        del params
+        torch.cuda.empty_cache()
+    return rows, calls
+
+
+def lm_moe_consistency():
+    """mixtral-8x7b in f32 at full width, ``MOE_CONSISTENCY_LAYERS``
+    deep, capacity factor n_experts: the prefill step's last logits
+    over a prompt of ``MOE_CONSISTENCY_S`` (K4), decode steps over the
+    prompt and ``MOE_CONSISTENCY_GEN`` greedy tokens (each token its own
+    MoE group), and one forward over prompt + generated tokens (K4):
+    every decode logit against the forward's at its position, and the
+    prefill's, within ``CONSISTENCY_ATOL``; the forward's greedy tokens
+    equal the generated ones."""
+    import dataclasses
+    import torch
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import decode_step, forward, init_decode_state
+    cfg, params, init_s = _fresh("mixtral-8x7b", torch.float32,
+                                 MOE_CONSISTENCY_LAYERS)
+    cfg = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.n_experts))
+    n, g = MOE_CONSISTENCY_S, MOE_CONSISTENCY_GEN
+    chunk = MOE_CONSISTENCY_CHUNK
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device="cuda")
+    prefill = make_prefill_step(cfg, TrainConfig(attn_chunk_q=chunk,
+                                                 attn_chunk_kv=chunk))
+    zero_counts()
+    pre = prefill(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_counts = counts()
+    state = init_decode_state(cfg, 1, n + g, dtype=torch.float32,
+                              device="cuda")
+    zero_counts()
+    t0 = time.perf_counter()
+    for i in range(n):
+        logits, state = decode_step(cfg, params, state, prompt[:, i:i + 1])
+    dec = [logits[:, -1]]
+    new = []
+    for _ in range(g):
+        new.append(torch.argmax(dec[-1], dim=-1)[:, None])
+        logits, state = decode_step(cfg, params, state, new[-1])
+        dec.append(logits[:, -1])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_counts = counts()
+    full = torch.cat([prompt] + new, dim=1)
+    zero_counts()
+    fwd, _ = forward(cfg, params, {"tokens": full}, chunk_q=chunk,
+                     chunk_kv=chunk)
+    torch.cuda.synchronize()
+    forward_counts = counts()
+    want_fwd = fwd[0, n - 1:]                     # positions n-1 .. n+g-1
+    dec = torch.cat(dec, dim=0)
+    vs_forward = float((dec - want_fwd).abs().max())
+    vs_prefill = float((pre[0] - dec[0]).abs().max())
+    generated = torch.cat(new, 1)[0]
+    same_tokens = bool(torch.equal(want_fwd[:-1].argmax(-1), generated))
+    del params, state
+    torch.cuda.empty_cache()
+    for name, got in (("prefill", prefill_counts),
+                      ("forward", forward_counts)):
+        if got != only(flash_attention=cfg.num_layers):
+            fail(f"moe consistency {name} launches {got}")
+    if decode_counts != only():
+        fail(f"moe consistency decode launches {decode_counts}")
+    if vs_forward > CONSISTENCY_ATOL or vs_prefill > CONSISTENCY_ATOL \
+            or not same_tokens:
+        fail(f"moe consistency: decode vs forward {vs_forward}, vs prefill "
+             f"{vs_prefill} (atol {CONSISTENCY_ATOL}), greedy tokens "
+             f"equal {same_tokens}")
+    return {"arch": cfg.arch_id, "num_layers": cfg.num_layers,
+            "moe_capacity_factor": cfg.moe_capacity_factor,
+            "dtype": "torch.float32", "prompt_len": n, "gen": g,
+            "init_s": init_s, "decode_vs_forward_max_abs": vs_forward,
+            "prefill_vs_decode_max_abs": vs_prefill,
+            "atol": CONSISTENCY_ATOL, "greedy_tokens": generated.tolist(),
+            "greedy_tokens_equal": True,
+            "logits_max_abs": float(want_fwd.abs().max()),
+            "decode_s": decode_s, "launches_prefill": prefill_counts,
+            "launches_decode": decode_counts,
+            "launches_forward": forward_counts}
+
+
+def lm_wide_train_step():
+    """``python -m repro_torch.launch.train --full --arch phi4-mini-3.8b``
+    in-process, f32, AdamW, cut to ``WIDE_TRAIN_LAYERS`` and
+    ``WIDE_TRAIN_STEPS`` steps (the corpus ``WIDE_TRAIN_TOKENS`` long):
+    K4's f32 forward with lse, dq and dkdv at D = 128 once a layer a
+    step; step seconds, tokens/s and peak memory.  Returns (the phase,
+    the per-step launches)."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.launch import train as train_mod
+    arch, b, s = WIDE_TRAIN
+
+    def cut(name):
+        return dataclasses.replace(get_arch(name),
+                                   num_layers=WIDE_TRAIN_LAYERS)
+
+    def corpus(vocab, n, seed=0):
+        return real_corpus(vocab, WIDE_TRAIN_TOKENS, seed=seed)
+
+    real_corpus = train_mod.make_token_dataset
+    record = {}
+    argv = ["--arch", arch, "--full", "--batch", str(b), "--seq", str(s),
+            "--steps", str(WIDE_TRAIN_STEPS), "--log-every", "1"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with recording_train_steps(record), \
+            patched(train_mod, "get_arch", cut), \
+            patched(train_mod, "make_token_dataset", corpus):
+        zero_counts()
+        t0 = time.perf_counter()
+        losses = train_mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+    n = WIDE_TRAIN_LAYERS * WIDE_TRAIN_STEPS
+    want = only(flash_attention=n, flash_attention_bwd_dq=n,
+                flash_attention_bwd_dkdv=n)
+    if launched != want:
+        fail(f"lm_wide_train_step: launches {launched}, expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"lm_wide_train_step: losses {losses}")
+    step_s = record["step_s"]
+    record.clear()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "num_layers": WIDE_TRAIN_LAYERS, "batch": b,
+            "seq": s, "head_dim": get_arch(arch).head_dim,
+            "dtype": "float32", "optimizer": "adamw",
+            "corpus_tokens": WIDE_TRAIN_TOKENS, "losses": losses,
+            "step_s": step_s, "warm_s_per_step": step_s[-1],
+            "tokens_per_s": b * s / step_s[-1], "wall_s": wall,
+            "launches": launched,
+            "peak_bytes": torch.cuda.max_memory_allocated()}, {
+        k: v // WIDE_TRAIN_STEPS for k, v in launched.items()}
+
+
 # Published peaks of one H100 SXM beside F32_FLOPS_PER_S: the dense bf16
 # tensor-core rate, and the special-function units' exp2 rate (16 a
 # clock an SM, compute capability 9.0, at the 1.98 GHz boost clock).
@@ -3977,7 +4368,13 @@ def ssm_scan_times():
 
 # K4's backward at the training path's two layer shapes (f32)
 FA_BWD_SHAPES = (("hymba-1.5b", (1, 2048, 25, 64), (1, 2048, 5, 64), 1024),
-                 ("llama3.2-1b", (2, 2048, 32, 64), (2, 2048, 8, 64), 0))
+                 ("llama3.2-1b", (2, 2048, 32, 64), (2, 2048, 8, 64), 0),
+                 # the wide heads: phi4-mini's train step (D = 128), and
+                 # a nemotron layer at S = 2048 (D = 192; no train run)
+                 ("phi4-mini-3.8b", (1, 2048, 24, 128), (1, 2048, 8, 128),
+                  0),
+                 ("nemotron-4-340b", (1, 2048, 96, 192), (1, 2048, 8, 192),
+                  0))
 
 
 # The work of K4's backward, per kernel and for the pair, that its bound
@@ -4190,9 +4587,12 @@ def flash_attention_bwd_times(per_step):
                               "memory-efficient backend, forward only, kv "
                               "repeated",
                "launches_per_train_step":
-                   {"fwd_lse": per_step[arch]["flash_attention"],
-                    "dq": per_step[arch]["flash_attention_bwd_dq"],
-                    "dkdv": per_step[arch]["flash_attention_bwd_dkdv"]}}
+                   {"fwd_lse": per_step.get(arch, {}).get(
+                       "flash_attention", 0),
+                    "dq": per_step.get(arch, {}).get(
+                        "flash_attention_bwd_dq", 0),
+                    "dkdv": per_step.get(arch, {}).get(
+                        "flash_attention_bwd_dkdv", 0)}}
         dots, reads, writes = FA_FWD_WORK
         fb = flash_bwd_bound_ms(qs, ks, dots, reads, writes, window=window)
         row["fwd_bound"] = {
@@ -4396,6 +4796,13 @@ def run_phases() -> int:
     lm_train, per_step = lm_train_path()
     emit({"phase": "lm_train_path", "card": card, **lm_train})
     emit({"phase": "fl_lm_path", "card": card, "runs": fl_lm_path()})
+    moe_serve, moe_calls = lm_moe_serve_path()
+    emit({"phase": "lm_moe_serve_path", "card": card, **moe_serve})
+    wide_rows, wide_calls = lm_wide_head_prefill()
+    emit({"phase": "lm_wide_head_prefill", "card": card, "runs": wide_rows})
+    emit({"phase": "lm_moe_consistency", **lm_moe_consistency()})
+    wide_train, per_step[WIDE_TRAIN[0]] = lm_wide_train_step()
+    emit({"phase": "lm_wide_train_step", "card": card, **wide_train})
 
     at_main = fedagg_times(MAIN_N, MAIN_P)
     seen = [fedagg_times(n, p)
@@ -4434,7 +4841,7 @@ def run_phases() -> int:
           f"at_r{PARTIAL_R}": full_r, "at_mesh_path_shapes": partial_seen,
           "at_padding_only_shards": zero_live})
 
-    fa_times = flash_attention_times(attn_calls)
+    fa_times = flash_attention_times(attn_calls + moe_calls + wide_calls)
     emit({"phase": "flash_attention_times", "card": card,
           "at_prefill_path_shapes": fa_times})
     ss_times = ssm_scan_times()
@@ -4495,6 +4902,16 @@ def run_phases() -> int:
         # of them the tensor-core kernel
         "launches": prefill[0]["launches"]["flash_attention"],
         "tc_launches": prefill[0]["launches"]["flash_attention_tc"],
+        # a prefill of each wide-head path (D = 128: mixtral, arctic,
+        # phi4-mini; D = 192: nemotron), the tensor-core kernel each
+        # layer
+        "wide_head_launches": {
+            r["arch"]: {"head_dim": r["head_dim"],
+                        "flash_attention": r["launches"]["flash_attention"],
+                        "flash_attention_tc":
+                            r["launches"]["flash_attention_tc"]}
+            for r in (moe_serve["mixtral"], moe_serve["arctic"],
+                      *wide_rows)},
         "max_abs_err": max(t["max_abs_err"] for t in fa_times),
         "shape": {"q": fa_times[0]["q"], "k": fa_times[0]["k"],
                   "window": fa_times[0]["window"]},
@@ -4558,7 +4975,17 @@ def run_phases() -> int:
         "llama": {**{k: fa_bwd[1][part][k] for k in ("ms", "bound_ms",
                                                      "bound_by",
                                                      "bound_route")},
-                  "library_ms": fa_bwd[1]["library_ms"]}}
+                  "library_ms": fa_bwd[1]["library_ms"]},
+        # the wide heads: phi4-mini (D = 128; launches from its train
+        # step) and a nemotron layer (D = 192; no train run)
+        "wide_heads": [{
+            "arch": r["arch"], "q": r["q"], "k": r["k"],
+            **{k: r[part][k] for k in ("ms", "bound_ms", "bound_by",
+                                       "bound_route")},
+            "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+            "max_abs_err": max(r["max_abs_err"].values()),
+            "launches_per_train_step":
+                r["launches_per_train_step"][part]} for r in fa_bwd[2:]]}
         for part in ("dq", "dkdv")] + [{
         "name": "ssm_scan_bwd_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",

@@ -4,7 +4,9 @@ The parity tests carry the JAX package's parameters over as numpy
 arrays (``jax.device_get``), and ``from_reference`` turns them into the
 port's trees.  Leaf order is the sorted-key order of ``tree.py``, the
 same as ``jax.tree_util`` and so as the reference's
-``kernels/ops.py: flatten_updates``.  bfloat16 numpy arrays (the
+``kernels/ops.py: flatten_updates``; a MoE block's ``moe`` subtree
+(router, expert stacks, and ``dense_mlp`` where the config has a dense
+residual) crosses the same way.  bfloat16 numpy arrays (the
 ``ml_dtypes`` dtype jax hands out) cross as their uint16 bits, so the
 round trip is bit-exact.  Like every entry point of the port, the
 trees land on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -1,12 +1,15 @@
 """Registers the selectable architectures (``--arch <id>``): the CNN
-family of the paper, and the LM configs of the dense and hybrid
+family of the paper, and the LM configs of the dense, hybrid and MoE
 families (``llama3.2-1b``, ``granite-20b``, ``nemotron-4-340b``,
-``phi4-mini-3.8b``, dense; ``hymba-1.5b``, hybrid)."""
+``phi4-mini-3.8b``, dense; ``hymba-1.5b``, hybrid; ``mixtral-8x7b``,
+``arctic-480b``, MoE)."""
 
 from repro_torch.configs import (  # noqa: F401
+    arctic_480b,
     granite_20b,
     hymba_1_5b,
     llama3_2_1b,
+    mixtral_8x7b,
     nemotron_4_340b,
     phi4_mini_3_8b,
 )

@@ -61,6 +61,11 @@
 //     < S; with LSE, lse = m + log(max(l, 1e-30)) for the backward.
 //   * k and v need 16-byte addresses and strides (cp.async); the
 //     wrapper raises otherwise.  q is read with 4-byte loads.
+//   * D = 128 and 192 (the same arithmetic, another tiling): q in shared
+//     memory, its fragments read by ldmatrix each tile; P.V summed in
+//     parts of 16 columns; a 1-stage ring at D = 192; at D = 192 a block
+//     owns half the output columns (both halves compute S); one block an
+//     SM.  255 / 242 registers, no spills.
 //
 // bf16: flash_attention_tc_kernel, on the tensor cores.  Per visible
 // (q, k) pair the work is 4*D flops (two dots) and one exp, so at D=64
@@ -79,7 +84,8 @@
 //     computed.  TMA's out-of-bounds fill gives the zero rows past S
 //     and the zero k/v past T.  Tiles land in the swizzle of one D-wide
 //     row (128, 64 or 32 bytes for D = 64, 32, 16), the layout wgmma
-//     reads.
+//     reads; at D = 128 and 192 in blocks of 64 columns (one 128-byte
+//     swizzled TMA box each), the descriptors stepping across them.
 //   * S = Q.K^T: wgmma.mma_async m64n128k16, both operands K-major from
 //     shared memory, f32 accumulator in registers; then * scale.
 //   * Masks by select only on tiles that cut a band edge or hold keys
@@ -102,9 +108,15 @@
 //     tensor cores.  Measured on an H100 (PERF.md): 5 % under a serial
 //     tile loop; the K/V ring alone -- every 128-row block reloading
 //     its head's tiles from L2 -- is most of what remains.
-//   * ptxas (-Xptxas -v): 168 registers at entry for all three head
+//   * ptxas (-Xptxas -v): 168 registers at entry for all five head
 //     sizes (384 threads, one block an SM), 24 / 240 after setmaxnreg,
 //     no spills; about 131 KB of shared memory at D=64.
+//   * D = 128 and 192: K/V tiles of 128 and 64 keys (S, P's two parts
+//     and O in the consumers' 240 registers) in a ring of 2 stages
+//     (about 197 and 200 KB of shared memory); P.V one m64n128k16 /
+//     m64n192k16 across V's 64-column blocks (one m64n64k16 a block
+//     instead made ptxas serialize the wgmma, C7520, and took 1.7-1.8x
+//     the time on an H100: PERF.md).
 // Numerics against the f32 reference: P.V takes P at f32 precision (the
 // split leaves about 2^-16 of P; one bf16 part alone would leave 2^-9),
 // so the numerator matches the f32 row sum l; exp goes through exp2.  The checks hold it at rtol
@@ -133,10 +145,16 @@
 #define FA_THREADS (32 * FA_WARPS)
 #define FA_NEG (-1e30f)
 
-// floats of the K/V ring: 2 stages x (K, V), 64 rows padded to D+4
+// Stages of the K/V ring: 2, and 1 at D = 192 (two stages and the q
+// tile would need 251 KB)
+template <int D>
+__host__ __device__ constexpr int fa_stages() { return D <= 128 ? 2 : 1; }
+
+// floats of shared memory: the K/V ring (stages x (K, V), 64 rows padded
+// to D+4) and, at D > 64, the q tile (64 rows padded to D+4)
 template <int D>
 __host__ __device__ constexpr int fa_smem_floats() {
-    return 2 * 2 * FA_BK * (D + 4);
+    return fa_stages<D>() * 2 * FA_BK * (D + 4) + (D > 64 ? 64 * (D + 4) : 0);
 }
 
 // The keys absolute position p sees: [lo, hi) (empty when hi <= lo).
@@ -231,8 +249,15 @@ __device__ __forceinline__ void fa_stage_rows(float* dst, const float* src,
 // One block: 64 q rows of one (b, h), 16 rows a warp; the grid is 1-D,
 // the last q tiles first (under a causal mask they see the most keys).
 // LSE: also write each row's m + log(max(l, 1e-30)) to lse (B,H,S).
+// D = 128 and 192: q as split-TF32 A fragments would take D registers a
+// thread, so q lives in shared memory (its fragments read by ldmatrix
+// and split every tile, as the backward kernels read theirs, one k-step
+// at a time), P.V is summed in parts of 16 columns, and one block an SM
+// (shared memory).  At D = 192 a block owns half the output columns
+// (blockIdx.y; both halves compute S and the softmax), so that its O
+// accumulator is 48 registers: no spills at 255.
 template <int D, bool LSE>
-__global__ void __launch_bounds__(FA_THREADS, 2)
+__global__ void __launch_bounds__(FA_THREADS, D <= 64 ? 2 : 1)
 fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
                   float* __restrict__ lse, int S, int T_len, int H, int Hkv,
@@ -243,8 +268,13 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     constexpr int RS = D + 4;
     constexpr int TILE = FA_BK * RS;
     constexpr int KS = D / 8;                 // k-steps of Q.K^T
+    constexpr bool Q_SMEM = D > 64;           // q in shared memory
+    constexpr int STAGES = fa_stages<D>();
+    constexpr int PN = D <= 64 ? D / 8 : 2;   // 8-column slices a P.V part
+    constexpr int DO = D == 192 ? D / 2 : D;  // output columns a block
     extern __shared__ float4 fa_smem4[];
-    float* ring = reinterpret_cast<float*>(fa_smem4);   // 2 x (K, V)
+    float* ring = reinterpret_cast<float*>(fa_smem4);   // stages x (K, V)
+    float* Qs = ring + STAGES * 2 * TILE;               // D > 64: [64][RS]
     __shared__ int range_lo, range_hi;
 
     const int tid = threadIdx.x;
@@ -280,7 +310,7 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* vbase = v + (long long)b * v_sb + (long long)hk * v_sh;
     auto load_kv = [&](int i) {
         const int t0 = t_start + FA_BK * i;
-        float* Kst = ring + (i & 1) * 2 * TILE;
+        float* Kst = ring + (i % STAGES) * 2 * TILE;
         fa_stage_rows<D>(Kst, kbase + (long long)t0 * k_st, k_st,
                          T_len - t0, tid);
         fa_stage_rows<D>(Kst + TILE, vbase + (long long)t0 * v_st, v_st,
@@ -290,10 +320,18 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     fa_cp_async_commit();
 
     // this thread's two rows, ra (fragment rows g) and rb (g + 8): their
-    // q as split-TF32 A fragments, loaded once
+    // q as split-TF32 A fragments, loaded once (D > 64: the block's q
+    // tile into shared memory, zero rows past S)
     const int ra = q0 + 16 * warp + g, rb = ra + 8;
-    uint32_t qh[KS][4], ql[KS][4];
-    {
+    uint32_t qh[Q_SMEM ? 1 : KS][4], ql[Q_SMEM ? 1 : KS][4];
+    if constexpr (Q_SMEM) {
+        const float* qt0 = q + (long long)b * q_sb + (long long)h * q_sh;
+        for (int i = tid; i < 64 * D; i += FA_THREADS) {
+            const int r = i / D, c = i % D;
+            Qs[r * RS + c] = q0 + r < S
+                ? qt0[(long long)(q0 + r) * q_ss + c] : 0.0f;
+        }
+    } else {
         const float* qa = q + (long long)b * q_sb + (long long)h * q_sh
                           + (long long)min(ra, S - 1) * q_ss;
         const float* qb = q + (long long)b * q_sb + (long long)h * q_sh
@@ -315,16 +353,21 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     fa_band(q_offset + rb, T_len, causal, window, lo_b, hi_b);
 
     float m_a = FA_NEG, m_b = FA_NEG, l_a = 0.0f, l_b = 0.0f;
-    float acc[D / 8][4];
+    float acc[DO / 8][4];
+    const int c0 = D == 192 ? DO * (int)blockIdx.y : 0;   // first column
     fa_zero(acc);
     const int blk = lane >> 3, r8 = lane & 7;
 
     for (int i = 0; i < n_kt; ++i) {
-        if (i + 1 < n_kt) load_kv(i + 1);
-        fa_cp_async_commit();
-        fa_cp_async_wait<1>();
+        if constexpr (STAGES == 2) {
+            if (i + 1 < n_kt) load_kv(i + 1);
+            fa_cp_async_commit();
+            fa_cp_async_wait<1>();
+        } else {
+            fa_cp_async_wait<0>();
+        }
         __syncthreads();
-        const float* Kst = ring + (i & 1) * 2 * TILE;
+        const float* Kst = ring + (i % STAGES) * 2 * TILE;
         const float* Vst = Kst + TILE;
         const int t0 = t_start + FA_BK * i;
 
@@ -332,20 +375,48 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float sc[8][4];
         fa_zero(sc);
         const uint32_t b_lane = fa_smem(Kst) + (r8 * RS + 4 * blk) * 4;
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-#pragma unroll
+        if constexpr (Q_SMEM) {
+            // q's fragments of k-steps k0 and k0 + 8 by ldmatrix (blocks:
+            // rows 0-7 and 8-15 of columns k0.., then of k0 + 4..)
+            const uint32_t a_lane = fa_smem(Qs + 16 * warp * RS)
+                + ((r8 + 8 * (blk & 1)) * RS + 4 * (blk >> 1)) * 4;
+#pragma unroll 1
             for (int k0 = 0; k0 < D; k0 += 16) {
-                // k-step k0 in words 0-1, k0 + 8 in words 2-3
-                uint32_t bw[4], bhi[4], blo[4];
-                fa_ldsm_x4(bw, b_lane + (8 * n * RS + k0) * 4);
+                uint32_t a0[4], a1[4], a0h[4], a0l[4], a1h[4], a1l[4];
+                fa_ldsm_x4(a0, a_lane + k0 * 4);
+                fa_ldsm_x4(a1, a_lane + (k0 + 8) * 4);
 #pragma unroll
-                for (int e = 0; e < 4; ++e)
-                    fa_split_tf32(__uint_as_float(bw[e]), bhi[e], blo[e]);
-                fa_mma3(sc[n], qh[k0 / 8], ql[k0 / 8], bhi[0], bhi[1],
-                        blo[0], blo[1]);
-                fa_mma3(sc[n], qh[k0 / 8 + 1], ql[k0 / 8 + 1], bhi[2],
-                        bhi[3], blo[2], blo[3]);
+                for (int e = 0; e < 4; ++e) {
+                    fa_split_tf32(__uint_as_float(a0[e]), a0h[e], a0l[e]);
+                    fa_split_tf32(__uint_as_float(a1[e]), a1h[e], a1l[e]);
+                }
+#pragma unroll
+                for (int n = 0; n < 8; ++n) {
+                    uint32_t bw[4], bhi[4], blo[4];
+                    fa_ldsm_x4(bw, b_lane + (8 * n * RS + k0) * 4);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        fa_split_tf32(__uint_as_float(bw[e]), bhi[e], blo[e]);
+                    fa_mma3(sc[n], a0h, a0l, bhi[0], bhi[1], blo[0], blo[1]);
+                    fa_mma3(sc[n], a1h, a1l, bhi[2], bhi[3], blo[2], blo[3]);
+                }
+            }
+        } else {
+#pragma unroll
+            for (int n = 0; n < 8; ++n) {
+#pragma unroll
+                for (int k0 = 0; k0 < D; k0 += 16) {
+                    // k-step k0 in words 0-1, k0 + 8 in words 2-3
+                    uint32_t bw[4], bhi[4], blo[4];
+                    fa_ldsm_x4(bw, b_lane + (8 * n * RS + k0) * 4);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        fa_split_tf32(__uint_as_float(bw[e]), bhi[e], blo[e]);
+                    fa_mma3(sc[n], qh[k0 / 8], ql[k0 / 8], bhi[0], bhi[1],
+                            blo[0], blo[1]);
+                    fa_mma3(sc[n], qh[k0 / 8 + 1], ql[k0 / 8 + 1], bhi[2],
+                            bhi[3], blo[2], blo[3]);
+                }
             }
         }
         // scale, masks (a select: -1e30 for a masked key, -inf past T),
@@ -394,41 +465,51 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         // added in f32.  P leaves S as C fragments (columns 2t, 2t+1 of
         // each 8-key slice) and is the A operand with the slice's
         // contraction index permuted (slot t <-> 2t, t+4 <-> 2t+1), V's
-        // rows read in the same order
-        float part[D / 8][4];
-        fa_zero(part);
+        // rows read in the same order.  D > 64: in parts of 16 columns
+        // (PN slices; registers), each part's product summed from zero
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-            uint32_t ah[4], al[4];
-            fa_split_tf32(sc[kk][0], ah[0], al[0]);   // (g,   slot t)
-            fa_split_tf32(sc[kk][2], ah[1], al[1]);   // (g+8, slot t)
-            fa_split_tf32(sc[kk][1], ah[2], al[2]);   // (g,   slot t+4)
-            fa_split_tf32(sc[kk][3], ah[3], al[3]);   // (g+8, slot t+4)
-            const float* bp = Vst + (8 * kk + 2 * t) * RS + g;
+        for (int c = 0; c < DO / 8 / PN; ++c) {
+            float part[PN][4];
+            fa_zero(part);
 #pragma unroll
-            for (int n = 0; n < D / 8; ++n) {
-                uint32_t bh0, bl0, bh1, bl1;
-                fa_split_tf32(bp[8 * n], bh0, bl0);
-                fa_split_tf32(bp[RS + 8 * n], bh1, bl1);
-                fa_mma3(part[n], ah, al, bh0, bh1, bl0, bl1);
+            for (int kk = 0; kk < 8; ++kk) {
+                uint32_t ah[4], al[4];
+                fa_split_tf32(sc[kk][0], ah[0], al[0]);   // (g,   slot t)
+                fa_split_tf32(sc[kk][2], ah[1], al[1]);   // (g+8, slot t)
+                fa_split_tf32(sc[kk][1], ah[2], al[2]);   // (g,   slot t+4)
+                fa_split_tf32(sc[kk][3], ah[3], al[3]);   // (g+8, slot t+4)
+                const float* bp =
+                    Vst + (8 * kk + 2 * t) * RS + g + c0 + 8 * PN * c;
+#pragma unroll
+                for (int n = 0; n < PN; ++n) {
+                    uint32_t bh0, bl0, bh1, bl1;
+                    fa_split_tf32(bp[8 * n], bh0, bl0);
+                    fa_split_tf32(bp[RS + 8 * n], bh1, bl1);
+                    fa_mma3(part[n], ah, al, bh0, bh1, bl0, bl1);
+                }
+            }
+#pragma unroll
+            for (int n = 0; n < PN; ++n) {
+                float (&o)[4] = acc[PN * c + n];
+                o[0] = o[0] * corr_a + part[n][0];
+                o[1] = o[1] * corr_a + part[n][1];
+                o[2] = o[2] * corr_b + part[n][2];
+                o[3] = o[3] * corr_b + part[n][3];
             }
         }
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-            acc[n][0] = acc[n][0] * corr_a + part[n][0];
-            acc[n][1] = acc[n][1] * corr_a + part[n][1];
-            acc[n][2] = acc[n][2] * corr_b + part[n][2];
-            acc[n][3] = acc[n][3] * corr_b + part[n][3];
-        }
         __syncthreads();            // before the ring slot is reloaded
+        if (STAGES == 1 && i + 1 < n_kt) {
+            load_kv(i + 1);
+            fa_cp_async_commit();
+        }
     }
     fa_cp_async_wait<0>();
 
     const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
-    const long long oa = (((long long)b * S + ra) * H + h) * D + 2 * t;
+    const long long oa = (((long long)b * S + ra) * H + h) * D + c0 + 2 * t;
     const long long ob = oa + 8LL * H * D;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DO / 8; ++n) {
         if (ra < S)
             *reinterpret_cast<float2*>(out + oa + 8 * n) =
                 make_float2(acc[n][0] / la, acc[n][1] / la);
@@ -436,7 +517,7 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
             *reinterpret_cast<float2*>(out + ob + 8 * n) =
                 make_float2(acc[n][2] / lb, acc[n][3] / lb);
     }
-    if (LSE && t == 0) {
+    if (LSE && t == 0 && c0 == 0) {
         const long long rs = ((long long)b * H + h) * S;
         if (ra < S) lse[rs + ra] = m_a + logf(la);
         if (rb < S) lse[rs + rb] = m_b + logf(lb);
@@ -456,8 +537,8 @@ static int launch_f32_as(const float* q, const float* k, const float* v,
     if (err != cudaSuccess) return (int)err;
     const long long blocks = (long long)((S + FA_BQ - 1) / FA_BQ) * H * B;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    fa_fwd_f32_kernel<D, LSE><<<(unsigned)blocks, FA_THREADS, smem,
-                                stream>>>(
+    const dim3 grid((unsigned)blocks, D == 192 ? 2 : 1);   // column halves
+    fa_fwd_f32_kernel<D, LSE><<<grid, FA_THREADS, smem, stream>>>(
         q, k, v, out, lse, S, T_len, H, Hkv, st[0], st[1], st[2], st[3],
         st[4], st[5], st[6], st[7], st[8], causal, window, q_offset, scale);
     return (int)cudaGetLastError();
@@ -505,27 +586,41 @@ constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr float NEG = -1e30f;
 
-// Shared-memory layout of one head size: rows of D bf16 (D*2 bytes), in
-// the swizzle whose span is one row (128, 64 or 32 bytes), so that TMA
-// writes and wgmma reads the same layout.  Every tile starts on a
-// multiple of 1024 bytes, the longest swizzle repeat.
+// Shared-memory layout of one head size.  A tile is stored in blocks of
+// COLS = min(D, 64) columns, each block its rows of COLS bf16 (ROW
+// bytes: 128, 64 or 32) one after the other, in the swizzle whose span
+// is one such row, so that TMA writes and wgmma reads the same layout;
+// D = 128 and 192 take two and three 128-byte blocks (TMA boxes of 64
+// columns), D <= 64 one.  Every block starts on a multiple of 1024
+// bytes, the longest swizzle repeat.  KEYS and DEPTH are the K/V tile
+// and the ring: BK keys in STAGES stages up to D = 64; BK keys in 2
+// stages at D = 128 (shared memory); 64 keys in 2 stages at D = 192 (S,
+// P's two parts and O within the consumers' 240 registers).
 template <int D>
 struct Layout {
-    static constexpr int ROW = 2 * D;                  // bytes a row
+    static constexpr int KEYS = D <= 128 ? BK : 64;
+    static constexpr int DEPTH = D <= 64 ? STAGES : 2;
+    static constexpr int COLS = D < 64 ? D : 64;       // columns a block
+    static constexpr int ROW = 2 * COLS;               // bytes a block row
     static constexpr int ATOM = 8 * ROW;               // 8-row swizzle atom
-    static constexpr int SWIZZLE = D == 64 ? 1 : D == 32 ? 2 : 3;
-    static constexpr int Q_BYTES = BQ * ROW;
-    static constexpr int KV_BYTES = BK * ROW;
+    static constexpr int SWIZZLE = COLS == 64 ? 1 : COLS == 32 ? 2 : 3;
+    static constexpr int Q_BYTES = BQ * 2 * D;
+    static constexpr int KV_BYTES = KEYS * 2 * D;
     static constexpr int O_PITCH = D + 8;              // bf16, staging
     static constexpr int Q_OFF = 0;
     static constexpr int K_OFF = Q_OFF + Q_BYTES;
-    static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
-    static constexpr int O_OFF = V_OFF + STAGES * KV_BYTES;
+    static constexpr int V_OFF = K_OFF + DEPTH * KV_BYTES;
+    static constexpr int O_OFF = V_OFF + DEPTH * KV_BYTES;
     static constexpr int BAR_OFF = O_OFF + ((BQ * O_PITCH * 2 + 1023) / 1024) * 1024;
     // q_full, then full_k, full_v, empty_k, empty_v of every stage
-    static constexpr int BYTES = BAR_OFF + 8 * (1 + 4 * STAGES);
+    static constexpr int BYTES = BAR_OFF + 8 * (1 + 4 * DEPTH);
     static constexpr int ALLOC = BYTES + 1024;         // room to align
     static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "tiles");
+    static_assert(D % COLS == 0 && ALLOC <= 227 * 1024, "shared memory");
+    // byte offset of k-step kk (16 columns) in a tile of `rows` rows
+    __host__ __device__ static constexpr int kstep(int kk, int rows) {
+        return (kk / 4) * rows * ROW + 32 * (kk % 4);
+    }
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -646,6 +741,34 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
         : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D(64 x 64, f32) (+)= A(64 x 16, smem, K-major) . B(16 x 64, smem, K-major)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// S (64 x keys) (+)= Q . K^T for one k-step: 128 keys, or 64 at D = 192
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&s)[N], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+    if constexpr (N == 64) wgmma_m64n128k16_ss(s, desc_a, desc_b, scale_d);
+    else wgmma_m64n64k16_ss(s, desc_a, desc_b, scale_d);
+}
+
 // D(64 x 64, f32) += A(64 x 16, registers) . B(16 x 64, smem, MN-major)
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
                                                     const uint32_t (&a)[4],
@@ -693,16 +816,89 @@ __device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D(64 x 128, f32) += A(64 x 16, registers) . B(16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D(64 x 192, f32) += A(64 x 16, registers) . B(16 x 192, smem, MN-major)
+__device__ __forceinline__ void wgmma_m64n192k16_rs(float (&d)[96],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95}, "
+        "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// O += P . V for 16 keys: one m64nDk16.  At D = 128 and 192, V's tile
+// is two or three swizzled blocks of 64 columns, KEYS rows each.
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_v) {
     if constexpr (D == 64) wgmma_m64n64k16_rs(o, a, desc_v);
     else if constexpr (D == 32) wgmma_m64n32k16_rs(o, a, desc_v);
-    else wgmma_m64n16k16_rs(o, a, desc_v);
+    else if constexpr (D == 16) wgmma_m64n16k16_rs(o, a, desc_v);
+    else {
+        // V's 64-column blocks lie KEYS rows apart: the MN-major
+        // descriptor's leading byte offset
+        constexpr uint64_t LBO = (Layout<D>::KEYS * Layout<D>::ROW) >> 4;
+        const uint64_t d = (desc_v & ~(0x3FFFull << 16)) | (LBO << 16);
+        if constexpr (D == 128) wgmma_m64n128k16_rs(o, a, d);
+        else wgmma_m64n192k16_rs(o, a, d);
+    }
 }
 
-// One warpgroup's 64 rows against one 128-key tile, after S = Q.K^T is
+// One warpgroup's 64 rows against one tile of N/2 keys (128, or 64 at
+// D = 192), after S = Q.K^T is
 // in ``s``: scores to the log2 domain (scale * log2 e), the masks where
 // the tile needs them, and the online-softmax update of (m, l); ``s``
 // leaves holding p = 2^(s - m) and ``corr`` the factor that carries the
@@ -710,8 +906,8 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
 // thread sits at row (lane/4 + 8*((i/2)&1)) of its warp's 16 and column
 // 8*(i/4) + 2*(lane%4) + (i&1) of the tile; a row lives in the 4
 // threads of a quad.
-template <bool MASK>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
+template <bool MASK, int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
                                              float (&l)[2], float (&corr)[2],
                                              float scale_log2, int t0, int T,
                                              int row_pos, int causal,
@@ -719,7 +915,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
     const int lane = threadIdx.x & 31;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < N; ++i) {
         const int r = (i >> 1) & 1;
         if (MASK) {
             const int key = t0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
@@ -743,7 +939,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
     }
     float sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < N; ++i) {
         const int r = (i >> 1) & 1;
         s[i] = MASK ? ex2(s[i] - m_new[r])
                     : ex2(fmaf(s[i], scale_log2, -m_new[r]));
@@ -770,6 +966,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                           int H, int Hkv, int causal, int window,
                           int q_offset, float scale_log2) {
     using L = Layout<D>;
+    constexpr int BK = L::KEYS;          // the tile and ring of this D
+    constexpr int STAGES = L::DEPTH;
     extern __shared__ __align__(16) uint8_t smem_raw[];
     uint8_t* smem = reinterpret_cast<uint8_t*>(
         (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -818,19 +1016,26 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                      :: "n"(PRODUCER_REGS));
         if (threadIdx.x == 0) {
             mbar_expect_tx(bar, L::Q_BYTES);
-            tma_load_4d(s_q, &tm_q, bar, 0, q0, h, b);
+            // one box a block of COLS columns
+            for (int c = 0; c < D / L::COLS; ++c)
+                tma_load_4d(s_q + c * BQ * L::ROW, &tm_q, bar, c * L::COLS,
+                            q0, h, b);
             for (int j = 0; j < n_tiles; ++j) {
                 const int st = j % STAGES;
                 const int ph = (j / STAGES) & 1;
                 const int t0 = tile_lo + j * BK;
                 mbar_wait(empty_k(st), ph ^ 1);
                 mbar_expect_tx(full_k(st), L::KV_BYTES);
-                tma_load_4d(s_base + L::K_OFF + st * L::KV_BYTES, &tm_k,
-                            full_k(st), 0, t0, hk, b);
+                for (int c = 0; c < D / L::COLS; ++c)
+                    tma_load_4d(s_base + L::K_OFF + st * L::KV_BYTES
+                                + c * BK * L::ROW, &tm_k, full_k(st),
+                                c * L::COLS, t0, hk, b);
                 mbar_wait(empty_v(st), ph ^ 1);
                 mbar_expect_tx(full_v(st), L::KV_BYTES);
-                tma_load_4d(s_base + L::V_OFF + st * L::KV_BYTES, &tm_v,
-                            full_v(st), 0, t0, hk, b);
+                for (int c = 0; c < D / L::COLS; ++c)
+                    tma_load_4d(s_base + L::V_OFF + st * L::KV_BYTES
+                                + c * BK * L::ROW, &tm_v, full_v(st),
+                                c * L::COLS, t0, hk, b);
             }
         }
     } else {
@@ -856,20 +1061,21 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
         float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, corr[2] = {1.f, 1.f};
-        float s[64];
+        float s[BK / 2];
         // P of the tile before, as two bf16 parts (P ~ pf + pf_lo)
         uint32_t pf[BK / 16][4], pf_lo[BK / 16][4];
 
         const uint64_t desc_q = make_desc(s_q + w * 64 * L::ROW, 16,
                                           L::ATOM, L::SWIZZLE);
-        // S = Q . K^T (64 x 128), K-major operands from the ring
+        // S = Q . K^T (64 x BK), K-major operands from the ring
         auto issue_qk = [&](int st) {
             const uint32_t s_k = s_base + L::K_OFF + st * L::KV_BYTES;
 #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk)
-                wgmma_m64n128k16_ss(
-                    s, desc_q + (uint64_t)((32 * kk) >> 4),
-                    make_desc(s_k + 32 * kk, 16, L::ATOM, L::SWIZZLE),
+                wgmma_qk(
+                    s, desc_q + (uint64_t)(L::kstep(kk, BQ) >> 4),
+                    make_desc(s_k + L::kstep(kk, BK), 16, L::ATOM,
+                              L::SWIZZLE),
                     kk > 0);
         };
         // O += P . V = P_hi . V + P_lo . V: the parts (bf16, registers)
@@ -1105,7 +1311,7 @@ static int tensor_map(CUtensorMap* map, const MapKey& key) {
         if (same_key(map_keys[i], key)) { *map = map_vals[i]; return 0; }
     EncodeTiledFn encode = encode_tiled();
     if (encode == nullptr) return (int)cudaErrorNotSupported;
-    const int d = (int)key.dims[0];
+    const int d = key.dims[0] < 64 ? (int)key.dims[0] : 64;   // box columns
     const cuuint64_t dims[4] = {(cuuint64_t)key.dims[0],
                                 (cuuint64_t)key.dims[1],
                                 (cuuint64_t)key.dims[2],
@@ -1140,9 +1346,9 @@ static int launch(const void* q, const void* k, const void* v, void* out,
     CUtensorMap mq, mk, mv;
     const MapKey kq = {q, {D, S, H, B}, {2 * st[1], 2 * st[2], 2 * st[0]}, BQ};
     const MapKey kk = {k, {D, T_len, Hkv, B},
-                       {2 * st[4], 2 * st[5], 2 * st[3]}, BK};
+                       {2 * st[4], 2 * st[5], 2 * st[3]}, Layout<D>::KEYS};
     const MapKey kv = {v, {D, T_len, Hkv, B},
-                       {2 * st[7], 2 * st[8], 2 * st[6]}, BK};
+                       {2 * st[7], 2 * st[8], 2 * st[6]}, Layout<D>::KEYS};
     int err = tensor_map(&mq, kq);
     if (err == 0) err = tensor_map(&mk, kk);
     if (err == 0) err = tensor_map(&mv, kv);
@@ -1168,8 +1374,8 @@ static int launch(const void* q, const void* k, const void* v, void* out,
 // out (B,S,H,D) contiguous.
 // dtype 0 = f32 (split TF32), 1 = bf16 (the wgmma kernel), both on the
 // tensor cores;
-// all four tensors of that dtype.  D in {16, 32, 64}: the models' 64
-// and the JAX kernel tests' 16 and 32.  lse: null, or (f32 only) a
+// all four tensors of that dtype.  D in {16, 32, 64, 128, 192}: the
+// models' 64, 128 and 192 and the JAX kernel tests' 16 and 32.  lse: null, or (f32 only) a
 // contiguous (B,H,S) f32 output for the rows' log-sum-exp m + log(max(l,
 // 1e-30)) that the backward kernels (flash_attention_bwd.cu) read;
 // asking for it changes no bit of out.
@@ -1198,12 +1404,16 @@ extern "C" int flash_attention_fwd(
             case 16: return launch_f32<16>(FA_ARGS, lse_f);
             case 32: return launch_f32<32>(FA_ARGS, lse_f);
             case 64: return launch_f32<64>(FA_ARGS, lse_f);
+            case 128: return launch_f32<128>(FA_ARGS, lse_f);
+            case 192: return launch_f32<192>(FA_ARGS, lse_f);
         }
     } else if (dtype == 1) {
         switch (D) {
             case 16: return tc::launch<16>(FA_ARGS);
             case 32: return tc::launch<32>(FA_ARGS);
             case 64: return tc::launch<64>(FA_ARGS);
+            case 128: return tc::launch<128>(FA_ARGS);
+            case 192: return tc::launch<192>(FA_ARGS);
         }
     }
 #undef FA_ARGS

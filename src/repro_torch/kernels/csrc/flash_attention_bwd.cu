@@ -67,6 +67,13 @@
 // scalar B words are free of bank conflicts.  At D = 64, 104 KB of
 // shared memory a block (two blocks an SM).
 //
+// D = 128 and 192, the same arithmetic in another tiling (one block an
+// SM: 203 KB at D = 128; a 1-stage ring, 201 KB, at D = 192): the
+// products' k-steps one at a time; dq's second product in parts of 32
+// columns, and at D = 192 each dq block owns half of dq's columns;
+// each dkdv block owns a slab of 64 columns of dk and dv (grid y); the
+// blocks of a row or key tile recompute S and dP.  No spills.
+//
 // Bound: per visible (q, k) pair of a head, 10*D f32 flops (five dots
 // of D) and one exp; in split TF32 each flop is three on the tensor
 // cores (494.7e12 TF32 flop/s), against 67e12 f32 flop/s on the CUDA
@@ -93,15 +100,31 @@ __device__ __forceinline__ void fb_band(int p, int T_len, int causal,
 template <int D>
 __host__ __device__ constexpr int fb_tile() { return 64 * (D + 4); }
 
+// stages of the moving tiles' ring: 2, and 1 at D = 192 (two stages
+// would need 301 KB)
+template <int D>
+__host__ __device__ constexpr int fb_stages() { return D <= 128 ? 2 : 1; }
+
+// columns of dk and dv a dkdv block owns: all D up to 64; at D = 128
+// and 192 a slab of 64 (blockIdx.y), so that its accumulators stay 64
+// registers; each slab's block recomputes S and dP over all D
+template <int D>
+__host__ __device__ constexpr int fb_slab() { return D <= 64 ? D : 64; }
+
+// columns of dq a dq block owns: all D, or half at D = 192 (blockIdx.y),
+// so that its accumulator is 48 registers; both halves compute S and dP
+template <int D>
+__host__ __device__ constexpr int fb_dq_cols() { return D == 192 ? 96 : D; }
+
 template <int D>
 __host__ __device__ constexpr int fb_dq_smem_floats() {
-    return 6 * fb_tile<D>();                  // Q, dO; 2 x (K, V)
+    return (2 + 2 * fb_stages<D>()) * fb_tile<D>();   // Q, dO; K, V ring
 }
 
-// K, V; 2 stages x (q, dO, lse, delta)
+// K, V; stages x (q, dO, lse, delta)
 template <int D>
 __host__ __device__ constexpr int fb_dkdv_smem_floats() {
-    return 2 * fb_tile<D>() + 2 * (2 * fb_tile<D>() + 2 * 64);
+    return 2 * fb_tile<D>() + fb_stages<D>() * (2 * fb_tile<D>() + 2 * 64);
 }
 
 // ---- PTX -----------------------------------------------------------------
@@ -211,7 +234,8 @@ __device__ __forceinline__ void prod_abt(float (&acc)[8][4], uint32_t a_row,
     const uint32_t a_lane =
         a_row + ((r8 + 8 * (blk & 1)) * RS + 4 * (blk >> 1)) * 4;
     const uint32_t b_lane = b_tile + (r8 * RS + 4 * blk) * 4;
-#pragma unroll
+    // D > 64: one k-step at a time (registers: no spills at 255)
+#pragma unroll (D <= 64 ? D / 16 : 1)
     for (int k0 = 0; k0 < D; k0 += 16) {
         uint32_t a0[4], a1[4], a0h[4], a0l[4], a1h[4], a1l[4];
         ldsm_x4(a0, a_lane + k0 * 4);
@@ -236,10 +260,11 @@ __device__ __forceinline__ void prod_abt(float (&acc)[8][4], uint32_t a_row,
 }
 
 // out[n] += C . B: C the warp's 16 x 64 accumulator tile (P or dS, as
-// prod_abt left it), B 64 rows x D in shared memory (stride D+4); the
+// prod_abt left it), B 64 rows x NS*8 columns in shared memory (stride
+// D+4; all D by default, or NS*8 columns from b_tile on); the
 // contraction over C's 64 columns, permuted within each 8-wide slice.
-template <int D>
-__device__ __forceinline__ void prod_cb(float (&out)[D / 8][4],
+template <int D, int NS = D / 8>
+__device__ __forceinline__ void prod_cb(float (&out)[NS][4],
                                         const float (&c)[8][4],
                                         const float* b_tile, int g, int t) {
     constexpr int RS = D + 4;
@@ -252,7 +277,7 @@ __device__ __forceinline__ void prod_cb(float (&out)[D / 8][4],
         split_tf32(c[kk][3], ah[3], al[3]);     // (g+8, slot t+4)
         const float* bp = b_tile + (8 * kk + 2 * t) * RS + g;
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
+        for (int n = 0; n < NS; ++n) {
             uint32_t bh0, bl0, bh1, bl1;
             split_tf32(bp[8 * n], bh0, bl0);
             split_tf32(bp[RS + 8 * n], bh1, bl1);
@@ -278,7 +303,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
 }
 
 template <int D>
-__global__ void __launch_bounds__(FB_THREADS, 2)
+__global__ void __launch_bounds__(FB_THREADS, D <= 64 ? 2 : 1)
 fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ o,
                  const float* __restrict__ dout,
@@ -287,10 +312,13 @@ fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int causal, int window, int q_offset, float scale) {
     constexpr int RS = D + 4;
     constexpr int TILE = fb_tile<D>();
+    constexpr int STAGES = fb_stages<D>();
+    constexpr int DO = fb_dq_cols<D>();
+    const int c0 = DO < D ? DO * (int)blockIdx.y : 0;   // first column
     extern __shared__ float4 fb_smem4[];
     float* Qs = reinterpret_cast<float*>(fb_smem4);   // [64][RS]
     float* DOs = Qs + TILE;                            // [64][RS]
-    float* ring = DOs + TILE;                          // 2 x (K, V)
+    float* ring = DOs + TILE;                          // stages x (K, V)
     __shared__ float dl_s[FB_BQ];
     __shared__ int range_lo, range_hi;
 
@@ -332,7 +360,8 @@ fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         dl += __shfl_xor_sync(0xffffffffu, dl, 1);
         if (half == 0) {
             dl_s[r] = dl;
-            if (q0 + r < S) delta[((long long)b * H + h) * S + q0 + r] = dl;
+            if (q0 + r < S && c0 == 0)
+                delta[((long long)b * H + h) * S + q0 + r] = dl;
         }
     }
     // the keys the block's rows see (rows that see none take no keys)
@@ -370,7 +399,7 @@ fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const long long kvbase = ((long long)b * T_len * Hkv + hk) * D;
     auto load_kv = [&](int i) {
         const int t0 = t_start + FB_BK * i;
-        float* Kst = ring + (i & 1) * 2 * TILE;
+        float* Kst = ring + (i % STAGES) * 2 * TILE;
         stage_rows<D>(Kst, k + kvbase + t0 * kvstride, kvstride, T_len - t0,
                       tid);
         stage_rows<D>(Kst + TILE, v + kvbase + t0 * kvstride, kvstride,
@@ -379,17 +408,21 @@ fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (n_kt > 0) load_kv(0);
     cp_async_commit();
 
-    float dqa[D / 8][4];
+    float dqa[DO / 8][4];
     zero_acc(dqa);
     const uint32_t q_row = fb_smem(Qs + 16 * warp * RS);
     const uint32_t do_row = fb_smem(DOs + 16 * warp * RS);
 
     for (int i = 0; i < n_kt; ++i) {
-        if (i + 1 < n_kt) load_kv(i + 1);
-        cp_async_commit();
-        cp_async_wait<1>();
+        if constexpr (STAGES == 2) {
+            if (i + 1 < n_kt) load_kv(i + 1);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
         __syncthreads();
-        const float* Kst = ring + (i & 1) * 2 * TILE;
+        const float* Kst = ring + (i % STAGES) * 2 * TILE;
         const float* Vst = Kst + TILE;
         const int t0 = t_start + FB_BK * i;
 
@@ -417,18 +450,36 @@ fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
             for (int e = 0; e < 4; ++e)
                 sc[n][e] *= dp[n][e] - (e < 2 ? dl_a : dl_b);
         }
-        float part[D / 8][4];
-        zero_acc(part);
-        prod_cb<D>(part, sc, Kst, g, t);
-        add_acc(dqa, part);
+        if constexpr (D <= 64) {
+            float part[D / 8][4];
+            zero_acc(part);
+            prod_cb<D>(part, sc, Kst, g, t);
+            add_acc(dqa, part);
+        } else {
+            // in parts of 32 columns (registers), each summed from zero
+#pragma unroll
+            for (int c = 0; c < DO / 32; ++c) {
+                float part[4][4];
+                zero_acc(part);
+                prod_cb<D, 4>(part, sc, Kst + c0 + 32 * c, g, t);
+#pragma unroll
+                for (int n = 0; n < 4; ++n)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) dqa[4 * c + n][e] += part[n][e];
+            }
+        }
         __syncthreads();            // before the ring slot is reloaded
+        if (STAGES == 1 && i + 1 < n_kt) {
+            load_kv(i + 1);
+            cp_async_commit();
+        }
     }
     cp_async_wait<0>();
 
-    const long long oa = (((long long)b * S + ra) * H + h) * D + 2 * t;
+    const long long oa = (((long long)b * S + ra) * H + h) * D + c0 + 2 * t;
     const long long ob = oa + 8 * qstride;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DO / 8; ++n) {
         if (ra < S)
             *reinterpret_cast<float2*>(dq + oa + 8 * n) =
                 make_float2(dqa[n][0] * scale, dqa[n][1] * scale);
@@ -439,7 +490,7 @@ fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-__global__ void __launch_bounds__(FB_THREADS, 2)
+__global__ void __launch_bounds__(FB_THREADS, D <= 64 ? 2 : 1)
 fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v,
                    const float* __restrict__ dout,
@@ -450,10 +501,12 @@ fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     constexpr int RS = D + 4;
     constexpr int TILE = fb_tile<D>();
     constexpr int ITEM = 2 * TILE + 2 * 64;   // q, dO [64][RS], lse, delta
+    constexpr int STAGES = fb_stages<D>();
+    constexpr int DC = fb_slab<D>();          // columns of dk, dv here
     extern __shared__ float4 fb_smem4[];
     float* Ks = reinterpret_cast<float*>(fb_smem4);   // [64][RS]
     float* Vs = Ks + TILE;                             // [64][RS]
-    float* ring = Vs + TILE;                           // 2 items
+    float* ring = Vs + TILE;                           // stages x items
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
@@ -466,6 +519,7 @@ fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int rep = H / Hkv;
     const int k0 = kt * FB_BK;
     const int k1 = min(T_len, k0 + FB_BK);
+    const int c0 = D <= 64 ? 0 : DC * (int)blockIdx.y;   // the slab
     const float inv_t = 1.0f / (float)T_len;
     const long long kvstride = (long long)Hkv * D;
     const long long kvbase = (((long long)b * T_len + k0) * Hkv + hk) * D;
@@ -503,7 +557,7 @@ fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     auto load_item = [&](int i) {
         const int r0 = tile_of(i / rep) * FB_BQ;
         const int h = hk * rep + i % rep;
-        float* st = ring + (i & 1) * ITEM;
+        float* st = ring + (i % STAGES) * ITEM;
         const long long qbase = (((long long)b * S + r0) * H + h) * D;
         stage_rows<D>(st, q + qbase, qstride, S - r0, tid);
         stage_rows<D>(st + TILE, dout + qbase, qstride, S - r0, tid);
@@ -520,18 +574,22 @@ fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // this thread's two keys: ka (fragment rows g) and kb (g + 8)
     const int ka = k0 + 16 * warp + g, kb = ka + 8;
-    float dka[D / 8][4], dva[D / 8][4];
+    float dka[DC / 8][4], dva[DC / 8][4];
     zero_acc(dka);
     zero_acc(dva);
     const uint32_t k_row = fb_smem(Ks + 16 * warp * RS);
     const uint32_t v_row = fb_smem(Vs + 16 * warp * RS);
 
     for (int i = 0; i < n_items; ++i) {
-        if (i + 1 < n_items) load_item(i + 1);
-        cp_async_commit();
-        cp_async_wait<1>();
+        if constexpr (STAGES == 2) {
+            if (i + 1 < n_items) load_item(i + 1);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
         __syncthreads();
-        const float* Qst = ring + (i & 1) * ITEM;
+        const float* Qst = ring + (i % STAGES) * ITEM;
         const float* DOst = Qst + TILE;
         const float* lse_st = Qst + 2 * TILE;
         const float* dl_st = lse_st + 64;
@@ -568,9 +626,9 @@ fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 }
             }
         }
-        float part_acc[D / 8][4];
+        float part_acc[DC / 8][4];
         zero_acc(part_acc);
-        prod_cb<D>(part_acc, sc, DOst, g, t);     // dv += P^T . dO
+        prod_cb<D, DC / 8>(part_acc, sc, DOst + c0, g, t);   // dv += P^T . dO
         add_acc(dva, part_acc);
 
         float dp[8][4];
@@ -587,16 +645,21 @@ fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             }
         }
         zero_acc(part_acc);
-        prod_cb<D>(part_acc, dp, Qst, g, t);      // dk += dS^T . q
+        prod_cb<D, DC / 8>(part_acc, dp, Qst + c0, g, t);    // dk += dS^T . q
         add_acc(dka, part_acc);
         __syncthreads();            // before the ring slot is reloaded
+        if (STAGES == 1 && i + 1 < n_items) {
+            load_item(i + 1);
+            cp_async_commit();
+        }
     }
     cp_async_wait<0>();
 
-    const long long oa = (((long long)b * T_len + ka) * Hkv + hk) * D + 2 * t;
+    const long long oa =
+        (((long long)b * T_len + ka) * Hkv + hk) * D + c0 + 2 * t;
     const long long ob = oa + 8 * kvstride;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DC / 8; ++n) {
         if (ka < T_len) {
             *reinterpret_cast<float2*>(dk + oa + 8 * n) =
                 make_float2(dka[n][0] * scale, dka[n][1] * scale);
@@ -626,7 +689,8 @@ static int launch_dq(const float* q, const float* k, const float* v,
     const long long blocks =
         (long long)((S + FB_BQ - 1) / FB_BQ) * H * B;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    fa_bwd_dq_kernel<D><<<(unsigned)blocks, FB_THREADS, smem, stream>>>(
+    const dim3 grid((unsigned)blocks, D / fb_dq_cols<D>());
+    fa_bwd_dq_kernel<D><<<grid, FB_THREADS, smem, stream>>>(
         q, k, v, o, dout, lse, delta, dq, S, T_len, H, Hkv, causal, window,
         q_offset, scale);
     return (int)cudaGetLastError();
@@ -647,7 +711,8 @@ static int launch_dkdv(const float* q, const float* k, const float* v,
     const long long blocks =
         (long long)((T_len + FB_BK - 1) / FB_BK) * Hkv * B;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    fa_bwd_dkdv_kernel<D><<<(unsigned)blocks, FB_THREADS, smem, stream>>>(
+    const dim3 grid((unsigned)blocks, D / fb_slab<D>());
+    fa_bwd_dkdv_kernel<D><<<grid, FB_THREADS, smem, stream>>>(
         q, k, v, dout, lse, delta, dk, dv, S, T_len, H, Hkv, causal, window,
         q_offset, scale);
     return (int)cudaGetLastError();
@@ -665,7 +730,7 @@ static bool fb_aligned(const void* p) {
 
 // q, o, dout, dq (B,S,H,D), k, v (B,T,Hkv,D), lse and delta (B,H,S), all
 // contiguous f32, q, k, v, o, dout and dq on 16-byte addresses; D in
-// {16, 32, 64}.  Writes dq and delta = rowsum(dout * o).  Returns
+// {16, 32, 64, 128, 192}.  Writes dq and delta = rowsum(dout * o).  Returns
 // cudaGetLastError() after the launch; does not synchronise.
 extern "C" int flash_attention_bwd_dq_f32(
         const void* q, const void* k, const void* v, const void* o,
@@ -686,6 +751,8 @@ extern "C" int flash_attention_bwd_dq_f32(
         case 16: return launch_dq<16>(FB_DQ_ARGS);
         case 32: return launch_dq<32>(FB_DQ_ARGS);
         case 64: return launch_dq<64>(FB_DQ_ARGS);
+        case 128: return launch_dq<128>(FB_DQ_ARGS);
+        case 192: return launch_dq<192>(FB_DQ_ARGS);
     }
 #undef FB_DQ_ARGS
     return (int)cudaErrorInvalidValue;
@@ -694,7 +761,7 @@ extern "C" int flash_attention_bwd_dq_f32(
 // q, dout (B,S,H,D), k, v, dk, dv (B,T,Hkv,D), lse and delta (B,H,S) --
 // delta as flash_attention_bwd_dq_f32 wrote it, so launched after it on
 // the same stream -- all contiguous f32, q, k, v, dout, dk and dv on
-// 16-byte addresses; D in {16, 32, 64}.  Writes dk and dv, each summed
+// 16-byte addresses; D in {16, 32, 64, 128, 192}.  Writes dk and dv, each summed
 // over the kv head's group of q heads.
 extern "C" int flash_attention_bwd_dkdv_f32(
         const void* q, const void* k, const void* v, const void* dout,
@@ -715,6 +782,8 @@ extern "C" int flash_attention_bwd_dkdv_f32(
         case 16: return launch_dkdv<16>(FB_KV_ARGS);
         case 32: return launch_dkdv<32>(FB_KV_ARGS);
         case 64: return launch_dkdv<64>(FB_KV_ARGS);
+        case 128: return launch_dkdv<128>(FB_KV_ARGS);
+        case 192: return launch_dkdv<192>(FB_KV_ARGS);
     }
 #undef FB_KV_ARGS
     return (int)cudaErrorInvalidValue;

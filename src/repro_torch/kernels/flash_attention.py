@@ -12,9 +12,10 @@ Scale ``1/sqrt(D)`` after the dot, causal and sliding-window masks from
 absolute positions (``q_offset`` for the rows), a masked score set to
 ``-1e30``, f32 ``(acc, m, l)``, a divide by ``max(l, 1e-30)``; a row
 that sees no key at all is the mean of v over all ``T`` keys, as in the
-reference.  The output is in q's dtype.  ``D`` is 64 (both models) or
-16 or 32 (the JAX kernel tests' shapes); ``S`` and ``T`` need not be
-tile multiples.
+reference.  The output is in q's dtype.  ``D`` is 64 (hymba, llama),
+128 (mixtral, arctic, phi4-mini, granite), 192 (nemotron), or 16 or 32
+(the JAX kernel tests' shapes); any other ``D`` raises ``ValueError``.
+``S`` and ``T`` need not be tile multiples.
 
 The dtype picks one of two kernels (neither is a fallback of the
 other):
@@ -25,6 +26,8 @@ other):
   fails the tolerance), each tile's product summed from zero and added
   in f32, K/V tiles of 64 keys in a 2-stage ``cp.async`` ring, ``expf``
   and a true divide as the reference; checked at rtol = atol = 2e-5.
+  At D = 128 and 192 q sits in shared memory and a block may own part
+  of the output columns (``csrc/flash_attention.cu``).
   Its k and v must sit on 16-byte addresses with 16-byte strides
   (``cp.async``), or the call raises ``ValueError``.
 * bf16 -> the tensor-core kernel: ``wgmma`` for ``Q.K^T`` and ``P.V``,
@@ -36,9 +39,11 @@ other):
   (``setmaxnreg``).  It takes the unnormalised ``P`` into ``P.V`` as
   two bf16 parts (``P`` to about 2^-16, as the reference's f32 ``P``)
   and exp through ``exp2`` (``ex2.approx``): checked at rtol 8e-3,
-  atol 1e-3 against the f32 plain version.  Its q, k and v must sit on
-  16-byte addresses with 16-byte strides (TMA's rule), or the call
-  raises ``ValueError``.
+  atol 1e-3 against the f32 plain version.  At D = 128 and 192 the
+  tiles (128 and 64 keys, a 2-stage ring) are stored in swizzled blocks
+  of 64 columns.  Its q, k
+  and v must sit on 16-byte addresses with 16-byte strides (TMA's
+  rule), or the call raises ``ValueError``.
 
 Bound: per visible (q, k) pair of a head, ``4*D`` flops on the tensor
 cores (989e12 flop/s in bf16; in f32 three TF32 products at 494.7e12)
@@ -90,7 +95,7 @@ tc_launches = 0
 bwd_dq_launches = 0
 bwd_dkdv_launches = 0
 
-HEAD_DIMS = (16, 32, 64)
+HEAD_DIMS = (16, 32, 64, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
@@ -205,7 +210,8 @@ def _kernel_forward(q, k, v, causal, window, q_offset, with_lse):
                         f"{v.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head_dim {d} not in "
-                         f"{HEAD_DIMS}")
+                         f"{HEAD_DIMS} (other head dims: ROADMAP.md, "
+                         f"with the audio family's 80)")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention kernel takes a unit stride on D")
     if k.device != q.device or v.device != q.device:

@@ -1,4 +1,4 @@
-"""Model assembly: init / forward / decode for the dense and hybrid
+"""Model assembly: init / forward / decode for the dense, hybrid and MoE
 families (the JAX package's ``models/transformer.py``).
 
 Parameters are plain dicts with the reference's key names; the blocks
@@ -14,9 +14,11 @@ counter is a host int.
 
 Families:
   dense / vlm : GQA + RoPE + (SwiGLU | squared-ReLU | GeLU) MLP, optional SWA
+  moe         : GQA + top-k MoE FFN (sort-based capacity dispatch,
+                ``models/moe.py``)
   hybrid      : parallel attention + Mamba heads per layer (Hymba)
-MoE, xLSTM (``ssm``) and audio raise ``NotImplementedError``: a later
-slice ports them.
+xLSTM (``ssm``) and audio raise ``NotImplementedError``: a later slice
+ports them.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch import resolve_device
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (dense_init, embed_init, init_mlp, mlp,
                                        rms_norm, take_embedding)
@@ -38,11 +41,11 @@ from repro_torch.models.rope import apply_rope
 from repro_torch.sharding.hints import hint
 from repro_torch.tree import tree_map, tree_stack
 
-FAMILIES = ("dense", "vlm", "hybrid")
+FAMILIES = ("dense", "vlm", "hybrid", "moe")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in ("moe", "ssm", "audio"):
+    if cfg.family in ("ssm", "audio"):
         raise NotImplementedError(
             f"{cfg.arch_id}: the {cfg.family} family waits for a later "
             "slice of the port")
@@ -70,9 +73,15 @@ def _init_block(gen, cfg: ModelConfig, dtype):
         "ln1": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
         "attn": _init_attn(gen, cfg, dtype),
         "ln2": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
-                        dtype=dtype),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe_lib.init_moe(
+            gen, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.activation,
+            dense_residual=cfg.moe_dense_residual,
+            dense_ff=cfg.moe_dense_ff, dtype=dtype)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                            dtype=dtype)
     if cfg.family == "hybrid":
         p["ssm"] = ssm_lib.init_ssm(gen, cfg.d_model, cfg.ssm_state,
                                     cfg.ssm_expand, cfg.ssm_conv, dtype=dtype)
@@ -155,7 +164,13 @@ def _block_apply(p, cfg: ModelConfig, x, positions, *, window: int,
         a_out = 0.5 * (a_out + s_out)
     x = x + a_out
     m_in = rms_norm(x, p["ln2"])
-    y = mlp(p["mlp"], m_in, cfg.activation)
+    if cfg.family == "moe":
+        y, aux = moe_lib.moe_ffn(
+            p["moe"], m_in, top_k=cfg.top_k, activation=cfg.activation,
+            capacity_factor=cfg.moe_capacity_factor, group_size=moe_group,
+            dense_residual=cfg.moe_dense_residual)
+    else:
+        y = mlp(p["mlp"], m_in, cfg.activation)
     return x + y, aux
 
 
@@ -346,7 +361,14 @@ def _block_decode(p, cfg: ModelConfig, x, cache, pos: int, *, window: int):
         cache["ssm"]["conv"].copy_(ssm_new["conv"])
     x = x + a_out
     m_in = rms_norm(x, p["ln2"])
-    y = mlp(p["mlp"], m_in, cfg.activation)
+    if cfg.family == "moe":
+        # no group: each decode token is its own group, as the reference
+        y, _ = moe_lib.moe_ffn(
+            p["moe"], m_in, top_k=cfg.top_k, activation=cfg.activation,
+            capacity_factor=cfg.moe_capacity_factor,
+            dense_residual=cfg.moe_dense_residual)
+    else:
+        y = mlp(p["mlp"], m_in, cfg.activation)
     return x + y, cache
 
 

@@ -18,7 +18,12 @@ variant also runs ``chip_smoke.bf16_prefill_vs_f32`` (the bf16 hymba
 1280-token prefill, with the variant and with ``gqa_plain``, against the
 f32 forward on the same weights).  The last line of standard output is
 one JSON object of the times.  Needs one CUDA card and nvcc; exits
-non-zero otherwise or when a checked variant disagrees.
+non-zero otherwise or when a checked variant disagrees.  The variants
+are of the head dims up to 64 (the cases and shapes are all there): the
+``serial`` consumer keeps 128-key tiles, which the D = 128 and 192
+instantiations (64-key tiles) do not use, so those compile in every
+variant but compute attention only in v0 and the variants that keep
+the committed consumer.
 
 Variants:
   v0                  the committed kernel (softmax under the previous
@@ -164,16 +169,18 @@ def ablations(src):
     src = replace(src, """            const uint32_t s_k = s_base + L::K_OFF + st * L::KV_BYTES;
 #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk)
-                wgmma_m64n128k16_ss(
-                    s, desc_q + (uint64_t)((32 * kk) >> 4),
-                    make_desc(s_k + 32 * kk, 16, L::ATOM, L::SWIZZLE),
+                wgmma_qk(
+                    s, desc_q + (uint64_t)(L::kstep(kk, BQ) >> 4),
+                    make_desc(s_k + L::kstep(kk, BK), 16, L::ATOM,
+                              L::SWIZZLE),
                     kk > 0);""", """            const uint32_t s_k = s_base + L::K_OFF + st * L::KV_BYTES;
 #ifndef ABL_NOQK
 #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk)
-                wgmma_m64n128k16_ss(
-                    s, desc_q + (uint64_t)((32 * kk) >> 4),
-                    make_desc(s_k + 32 * kk, 16, L::ATOM, L::SWIZZLE),
+                wgmma_qk(
+                    s, desc_q + (uint64_t)(L::kstep(kk, BQ) >> 4),
+                    make_desc(s_k + L::kstep(kk, BK), 16, L::ATOM,
+                              L::SWIZZLE),
                     kk > 0);
 #endif""")
     src = replace(src, """            const uint32_t s_v = s_base + L::V_OFF + st * L::KV_BYTES;
@@ -372,7 +379,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
 
 def tree(src):
     """softmax_tile with FA_NA partial row maxima and sums."""
-    return between(src, "// One warpgroup's 64 rows against one 128-key tile",
+    return between(src, "// One warpgroup's 64 rows against one tile of N/2 keys",
                    "template <int D>\n__device__ __forceinline__ void rescale(",
                    SOFTMAX_TREE)
 
