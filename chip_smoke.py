@@ -2465,6 +2465,26 @@ WIDE_HEAD_CASES = tuple(
          dict(window=300))))
 
 
+# The backward's wide-head tiling at its edges (moving tiles of 48 q rows
+# in dkdv at D = 128; of 32 q rows or keys in both kernels at D = 192):
+# S and T off the 32- and 48-row grids at both head dims, and window
+# edges inside a tile (a window of 20, and of 45 over ragged S).
+WIDE_BWD_EDGE_CASES = (
+    ("d128-off-grid-95x139-gqa4-offset44", (1, 95, 139, 8, 2, 128),
+     dict(q_offset=44)),
+    ("d192-off-grid-71x105-gqa12-offset34", (1, 71, 105, 12, 1, 192),
+     dict(q_offset=34)),
+    ("d192-window20-inside-a-tile-160", (1, 160, 160, 4, 2, 192),
+     dict(window=20)),
+    ("d128-window45-ragged-117x181-full", (2, 117, 181, 6, 3, 128),
+     dict(causal=False, window=45, q_offset=70)),
+)
+
+# the layer whose pair of backward kernels is run twice for identical
+# bits at full size: nemotron's (D = 192, GQA 12), as FA_BWD_SHAPES
+BWD_REPEAT_SHAPE = ("nemotron-4-340b", (1, 2048, 96, 192), (1, 2048, 8, 192))
+
+
 def check_ssm(name, x, dt, b_in, c_out, a_log, h0=None):
     """Scan kernel vs its plain twin on the same card tensors: y and
     h_end."""
@@ -2640,6 +2660,31 @@ def check_flash_bwd(name, q, k, v, do, *, causal=True, window=0,
     if not out_ok:
         fail(f"flash_attention_bwd[{name}]: forward disagrees, {out_err}")
     return row
+
+
+def check_flash_bwd_repeat():
+    """The pair of backward kernels twice at ``BWD_REPEAT_SHAPE``
+    (causal), through the wrapper's backward on the same inputs: dq, dk
+    and dv the same bits (no atomics, a fixed order of the GQA sums)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    arch, qs, ks = BWD_REPEAT_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    q, do = (torch.randn(qs, generator=gen, device="cuda") for _ in "qd")
+    k, v = (torch.randn(ks, generator=gen, device="cuda") for _ in "kv")
+    o, lse = fa._kernel_forward(q, k, v, True, 0, 0, with_lse=True)
+    first = fa._kernel_backward(q, k, v, o, lse, do, True, 0, 0)
+    again = fa._kernel_backward(q, k, v, o, lse, do, True, 0, 0)
+    torch.cuda.synchronize()
+    same = {tag: bool(torch.equal(a, b))
+            for tag, a, b in zip(("dq", "dk", "dv"), first, again)}
+    if not all(same.values()):
+        fail(f"flash_attention_bwd repeat at {arch}'s layer: two runs "
+             f"differ: {same}")
+    if not all(bool(torch.isfinite(x).all()) for x in first):
+        fail(f"flash_attention_bwd repeat at {arch}'s layer: non-finite")
+    return {"arch": arch, "q": list(qs), "k": list(ks), "causal": True,
+            "bitwise_equal": same}
 
 
 def check_ssm_bwd(name, x, dt, b_in, c_out, a_log, h0=None, dh_end=True):
@@ -2878,7 +2923,10 @@ def kernel_bwd_checks():
     autograd of their plain twins on the card (f32): small and odd
     shapes, GQA groups 1, 4 and 5, causal, window and q_offset, rows
     that see no key (alone and beside rows that do), the two full-width
-    layer shapes of the training path; K5 with N 4, 8 and 16, with and
+    layer shapes of the training path; head dims 128 and 192
+    (``WIDE_HEAD_CASES``) and their tiling's edges
+    (``WIDE_BWD_EDGE_CASES``); the pair twice at nemotron's layer, bit
+    for bit (``check_flash_bwd_repeat``); K5 with N 4, 8 and 16, with and
     without h0, with and without an incoming h_end gradient, hymba's
     full shape and the edges of its time split
     (``SSM_BWD_SPLIT_CASES``); bf16 with grad raising; both under
@@ -2932,6 +2980,10 @@ def kernel_bwd_checks():
     wide = torch.Generator(device="cuda").manual_seed(30)
     fa_rows += [check_flash_bwd(name, *qkvd(*shape, wide), **kw)
                 for name, shape, kw in WIDE_HEAD_CASES]
+    # the wide heads' 48- and 32-row moving tiles at their edges
+    wide_edge = torch.Generator(device="cuda").manual_seed(32)
+    fa_rows += [check_flash_bwd(name, *qkvd(*shape, wide_edge), **kw)
+                for name, shape, kw in WIDE_BWD_EDGE_CASES]
     ss_rows = []
     for n in (4, 8, 16):
         x, dt, bi, co, al = ssm_inputs(gen, 2, 100, 200, n, torch.float32)
@@ -2967,7 +3019,9 @@ def kernel_bwd_checks():
     ]
     return {"rtol": BWD_RTOL, "atol": BWD_ATOL,
             "atol_scaled_by": "max(1, max |want|) per gradient",
-            "flash_attention_bwd": fa_rows, "ssm_scan_bwd": ss_rows,
+            "flash_attention_bwd": fa_rows,
+            "flash_attention_bwd_repeat": check_flash_bwd_repeat(),
+            "ssm_scan_bwd": ss_rows,
             "raises": raises + [check_bwd_misaligned()],
             "checkpoint": check_under_checkpoint(),
             "flash_attention_bwd_sass": library_sass("flash_attention_bwd"),
@@ -3407,11 +3461,12 @@ BLOCK_GRAD_RTOL = 1e-4
 
 
 @contextlib.contextmanager
-def recording_train_steps(record, profile=False):
+def recording_train_steps(record, profile=False,
+                          profile_after=LM_TRAIN_STEPS):
     """``launch.train``'s ``make_train_step`` with each step timed on the
     host between two synchronizes (``record["step_s"]``) and the last
     step's (params, opt_state, metrics) kept (``record["last"]``).  With
-    ``profile`` the step after ``LM_TRAIN_STEPS`` runs under
+    ``profile`` the step after ``profile_after`` steps runs under
     ``torch.profiler`` instead of the clock: ``record["profile"]`` is
     its ``step_profile``."""
     import torch
@@ -3424,7 +3479,7 @@ def recording_train_steps(record, profile=False):
 
         def timed(params, opt_state, batch):
             torch.cuda.synchronize()
-            if profile and len(record["step_s"]) == LM_TRAIN_STEPS:
+            if profile and len(record["step_s"]) == profile_after:
                 with torch.profiler.profile(activities=[
                         ProfilerActivity.CPU, ProfilerActivity.CUDA],
                         record_shapes=True) as prof, \
@@ -3818,9 +3873,9 @@ WIDE_PREFILL = (("phi4-mini-3.8b", None, 2, 4096),
 # the f32 train step at D = 128: phi4-mini through launch.train's path,
 # cut to WIDE_TRAIN_LAYERS (params, grads and AdamW's two moments: 16 B
 # a parameter, 26 GB at 4 layers; 71 GB at 32 would not fit beside the
-# activations), two steps on a corpus of WIDE_TRAIN_TOKENS from the
-# CLI's generator (its 400,000 over a 200,064-token vocabulary take
-# minutes of host time)
+# activations), two timed steps and a third under torch.profiler on a
+# corpus of WIDE_TRAIN_TOKENS from the CLI's generator (its 400,000 over
+# a 200,064-token vocabulary take minutes of host time)
 WIDE_TRAIN = ("phi4-mini-3.8b", 1, 2048)
 WIDE_TRAIN_LAYERS, WIDE_TRAIN_STEPS, WIDE_TRAIN_TOKENS = 4, 2, 4096
 # MoE consistency: mixtral in f32 at full width, 2 layers, capacity
@@ -4082,8 +4137,10 @@ def lm_wide_train_step():
     in-process, f32, AdamW, cut to ``WIDE_TRAIN_LAYERS`` and
     ``WIDE_TRAIN_STEPS`` steps (the corpus ``WIDE_TRAIN_TOKENS`` long):
     K4's f32 forward with lse, dq and dkdv at D = 128 once a layer a
-    step; step seconds, tokens/s and peak memory.  Returns (the phase,
-    the per-step launches)."""
+    step; step seconds, tokens/s and peak memory; one more step under
+    ``torch.profiler`` (``step_profile``, as ``lm_train_path``): the
+    K4 groups' share of the step.  Returns (the phase, the per-step
+    launches)."""
     import dataclasses
     import math
     import torch
@@ -4100,11 +4157,13 @@ def lm_wide_train_step():
 
     real_corpus = train_mod.make_token_dataset
     record = {}
+    steps = WIDE_TRAIN_STEPS + PROFILED_STEPS
     argv = ["--arch", arch, "--full", "--batch", str(b), "--seq", str(s),
-            "--steps", str(WIDE_TRAIN_STEPS), "--log-every", "1"]
+            "--steps", str(steps), "--log-every", "1"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with recording_train_steps(record), \
+    with recording_train_steps(record, profile=True,
+                               profile_after=WIDE_TRAIN_STEPS), \
             patched(train_mod, "get_arch", cut), \
             patched(train_mod, "make_token_dataset", corpus):
         zero_counts()
@@ -4113,7 +4172,7 @@ def lm_wide_train_step():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = counts()
-    n = WIDE_TRAIN_LAYERS * WIDE_TRAIN_STEPS
+    n = WIDE_TRAIN_LAYERS * steps
     want = only(flash_attention=n, flash_attention_bwd_dq=n,
                 flash_attention_bwd_dkdv=n)
     if launched != want:
@@ -4121,6 +4180,7 @@ def lm_wide_train_step():
     if not all(math.isfinite(x) for x in losses):
         fail(f"lm_wide_train_step: losses {losses}")
     step_s = record["step_s"]
+    profiled = with_step_shares(record["profile"], step_s[-1])
     record.clear()
     torch.cuda.empty_cache()
     return {"arch": arch, "num_layers": WIDE_TRAIN_LAYERS, "batch": b,
@@ -4129,9 +4189,9 @@ def lm_wide_train_step():
             "corpus_tokens": WIDE_TRAIN_TOKENS, "losses": losses,
             "step_s": step_s, "warm_s_per_step": step_s[-1],
             "tokens_per_s": b * s / step_s[-1], "wall_s": wall,
-            "launches": launched,
+            "launches": launched, "profiled_step": profiled,
             "peak_bytes": torch.cuda.max_memory_allocated()}, {
-        k: v // WIDE_TRAIN_STEPS for k, v in launched.items()}
+        k: v // steps for k, v in launched.items()}
 
 
 # Published peaks of one H100 SXM beside F32_FLOPS_PER_S: the dense bf16
@@ -4617,6 +4677,20 @@ def flash_attention_bwd_times(per_step):
                          "f32_tflops": bound["flops"] / ms / 1e9}
         row["dq"]["ms_turns"] = [dq_a, dq_b]
         row["dkdv"]["ms_turns"] = [dkdv_a, dkdv_b]
+        # the launches as the library reports them, and each kernel's rate
+        # on the dots its design computes a visible pair (the pair: both
+        # kernels' dots)
+        sizes = fa.bwd_sizes(d)
+        row["sizes"] = sizes
+        done = {"dq": sizes["dq"]["dots_a_pair"],
+                "dkdv": sizes["dkdv"]["dots_a_pair"]}
+        done["pair"] = done["dq"] + done["dkdv"]
+        for name, _, reads, writes in FA_BWD_WORK:
+            bound = flash_bwd_bound_ms(qs, ks, done[name], reads, writes,
+                                       window=window)
+            row[name].update(dots_done=done[name],
+                             bound_on_dots_done_ms=bound["ms"],
+                             rate_on_dots_done=bound["ms"] / row[name]["ms"])
         out.append(row)
     return out
 
@@ -4983,6 +5057,8 @@ def run_phases() -> int:
             **{k: r[part][k] for k in ("ms", "bound_ms", "bound_by",
                                        "bound_route")},
             "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+            "sizes": r["sizes"][part],
+            "rate_on_dots_done": r[part]["rate_on_dots_done"],
             "max_abs_err": max(r["max_abs_err"].values()),
             "launches_per_train_step":
                 r["launches_per_train_step"][part]} for r in fa_bwd[2:]]}

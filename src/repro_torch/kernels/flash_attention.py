@@ -69,7 +69,11 @@ every run).  Their products run on the tensor cores in split TF32
 (three TF32 products a product, about 2^-19 relative at worst) with 16-byte
 ``cp.async`` copies, so q, k, v, o and dO must sit on 16-byte
 addresses, or the backward raises ``ValueError`` before either
-launch.  On CPU tensors the Function runs the plain forward and
+launch.  At D = 128 and 192 a block is eight warps, the two of a pair
+sharing 16 stationary rows, each computing S and dP over half of the
+moving tile and passing P and dS to the other through shared memory:
+S and dP once a visible pair in each kernel (``bwd_sizes`` reports each
+launch).  On CPU tensors the Function runs the plain forward and
 ``flash_attention_bwd_plain``, the same math in PyTorch.  A bf16 input
 that requires grad raises: the bf16 tensor-core backward is a later
 item.
@@ -181,6 +185,27 @@ def _bwd_lib():
             fn.argtypes = _BWD_ARGTYPES
             fn.restype = ctypes.c_int
     return lib
+
+
+# what ``flash_attention_bwd_sizes`` reports of a launch, by its ``which``
+BWD_SIZES = ("warps", "shared_bytes", "tile_rows", "stages", "grid_y",
+             "dots_a_pair")
+
+
+def bwd_sizes(d: int) -> dict:
+    """The backward kernels' launch at head dim ``d`` as the built
+    library reports it: ``{"dq": {...}, "dkdv": {...}}``, each the warps
+    a block, dynamic shared bytes, rows of a moving tile (keys in dq, q
+    rows in dkdv), ring stages, grid y and the D-long dots it computes a
+    visible (q, k) pair.  Builds the library (a card machine's
+    ``nvcc``)."""
+    sizes = _bwd_lib().flash_attention_bwd_sizes
+    if sizes.argtypes is None:
+        sizes.argtypes = [ctypes.c_int] * 3
+        sizes.restype = ctypes.c_longlong
+    return {kind: {key: int(sizes(d, kernel, which))
+                   for which, key in enumerate(BWD_SIZES)}
+            for kernel, kind in enumerate(("dq", "dkdv"))}
 
 
 def _needs_grad(*ts) -> bool:

@@ -25,7 +25,10 @@ SOURCE = kbv.SOURCE.read_text()
 
 # what each variant's source must hold that the committed kernels do not
 MARKERS = {"rna": ["cvt.rna.tf32.f32 %0, %1;\\n"],
-           "rnahi": ["+ 0x1000u) & 0xffffe000u"]}
+           "rnahi": ["+ 0x1000u) & 0xffffe000u"],
+           "wu1": ["#define FB_WIDE_UNROLL 1"],
+           "wu2": ["#define FB_WIDE_UNROLL 2"],
+           "kv32": ["D == 128 ? (DKDV ? 32 : 64) : 32;"]}
 
 
 @pytest.mark.parametrize("name", sorted(kbv.VARIANTS))

@@ -16,13 +16,18 @@ runs, in its own process:
   with the tolerance lifted, so that it reports each leaf's max abs
   error over the leaf's largest gradient whatever it is;
 * ``chip_smoke.kernel_bwd_checks()``, which passes or names its first
-  failure.
+  failure;
+* ``chip_smoke.check_flash_bwd`` on every case of K4's head dims 128
+  and 192 (``WIDE_HEAD_CASES``, ``WIDE_BWD_EDGE_CASES``), each on its
+  own, so that the reading names every wide case a fault fails (the
+  kernel checks stop at their first, a narrow case).
 
 A mutant line gives the block's largest reading and its leaf, whether
-``chip_smoke.BLOCK_GRAD_RTOL`` catches it, and the kernel checks'
-verdict.  The last line of standard output is one JSON object of all
-mutants.  Needs one CUDA card and nvcc; exits non-zero otherwise, or
-when the sound copy fails or reads above the tolerance.
+``chip_smoke.BLOCK_GRAD_RTOL`` catches it, the kernel checks' verdict,
+and the wide cases that fail.  The last line of standard output is one
+JSON object of all mutants.  Needs one CUDA card and nvcc; exits
+non-zero otherwise, or when the sound copy fails, fails a wide case or
+reads above the tolerance.
 
 Mutants:
   sound                  the committed kernels
@@ -101,9 +106,21 @@ try:
     checks = "passed"
 except SystemExit as e:
     checks = str(e)
+import torch
+gen = torch.Generator(device="cuda").manual_seed(30)
+wide_failed = []
+for name, (b, s, t, h, hkv, d), kw in c.WIDE_HEAD_CASES + \
+        c.WIDE_BWD_EDGE_CASES:
+    ins = [torch.randn(*shape, generator=gen, device="cuda") for shape in
+           ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d), (b, s, h, d))]
+    try:
+        c.check_flash_bwd(name, *ins, **kw)
+    except SystemExit:
+        wide_failed.append(name)
 print(json.dumps({"max_rel_err": block["max_rel_err"], "worst_leaf": worst,
                   "rtol": rtol, "caught": block["max_rel_err"] > rtol,
-                  "kernel_bwd_checks": checks}))
+                  "kernel_bwd_checks": checks,
+                  "wide_cases_failed": wide_failed}))
 """
 
 
@@ -178,7 +195,8 @@ def main(argv=None) -> int:
               flush=True)
     sound = results.get("sound")
     if sound is not None and ("error" in sound or sound["caught"]
-                              or sound["kernel_bwd_checks"] != "passed"):
+                              or sound["kernel_bwd_checks"] != "passed"
+                              or sound["wide_cases_failed"]):
         ok = False
     print(json.dumps({"mutants": results}), flush=True)
     return 0 if ok else 1

@@ -12,7 +12,8 @@ earlier commit's kernels, say -- as the variant NAME), built with ``nvcc
 -Xptxas -v`` into ``build/k4_bwd_variants/``, all at once: registers and
 spills are printed.  Every variant goes through the wrapper
 (``FlashAttentionFn``) and ``chip_smoke.check_flash_bwd`` on edge cases
-of ``chip_smoke.py`` and the two training layers, at ``BWD_RTOL`` /
+of ``chip_smoke.py`` (with its head dims 128 and 192: ``WIDE_HEAD_CASES``,
+``WIDE_BWD_EDGE_CASES``) and the two training layers, at ``BWD_RTOL`` /
 ``BWD_ATOL``.  Then all are timed with
 ``chip_smoke.median_ms`` (launches enqueued behind other device work, so
 the reading is device time) at ``chip_smoke.FA_BWD_SHAPES``, each kernel
@@ -29,6 +30,10 @@ Variants:
             split)
   rnahi     hi rounded to nearest by an integer add before the mask,
             lo = x - hi passed whole
+  wu1, wu2  at D = 128 and 192, the S and dP products' k-steps of 16
+            unrolled 1 or 2 at a time (the committed kernels: 4)
+  kv32      dkdv at D = 128 on q tiles of 32 rows (16 a warp of the pair;
+            152 KB of shared memory) in place of 48
   NAME      a source given with --baseline NAME=FILE.cu, as it is
 """
 
@@ -58,11 +63,18 @@ RNA = """    asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));
 RNA_HI = """    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
     lo = __float_as_uint(x - __uint_as_float(hi));"""
 
+UNROLL = "#define FB_WIDE_UNROLL 4"
+MROWS = "return D <= 64 ? 64 : D == 128 ? (DKDV ? 48 : 64) : 32;"
+
 # name -> [(anchor, replacement)]; each anchor occurs once
 VARIANTS = {
     "v0": [],
     "rna": [(SPLIT, RNA)],
     "rnahi": [(SPLIT, RNA_HI)],
+    "wu1": [(UNROLL, "#define FB_WIDE_UNROLL 1")],
+    "wu2": [(UNROLL, "#define FB_WIDE_UNROLL 2")],
+    "kv32": [(MROWS, MROWS.replace("(DKDV ? 48 : 64)",
+                                   "(DKDV ? 32 : 64)"))],
 }
 
 
@@ -138,7 +150,8 @@ def check(smoke, names):
     import torch
     gen = torch.Generator(device="cuda").manual_seed(20)
     inputs = []
-    for case, (b, s, t, h, hkv, d), kw in CASES:
+    for case, (b, s, t, h, hkv, d), kw in (CASES + smoke.WIDE_HEAD_CASES
+                                           + smoke.WIDE_BWD_EDGE_CASES):
         def r(*shape):
             return torch.randn(*shape, generator=gen, device="cuda")
         inputs.append((case, (r(b, s, h, d), r(b, t, hkv, d),
