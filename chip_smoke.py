@@ -2363,6 +2363,28 @@ def flash_cases():
                        .to(dtype) for x in ((b, s, h, d), (b, t, hkv, d),
                                             (b, t, hkv, d)))
             cases.append(check_flash(f"{name}-{tag}", q, k, v, **kw))
+    # the wide tilings' edges (the f32 kernel's 48-key tiles at D = 192,
+    # windows inside a tile) and the head layouts of the wide configs
+    # (groups of 3 and 7, MQA, odd H, blind rows beside rows that see
+    # keys), both dtypes, on their own generator
+    wide_edge = torch.Generator(device="cuda").manual_seed(31)
+    for name, (b, s, t, h, hkv, d), kw in (WIDE_BWD_EDGE_CASES
+                                           + FWD_HEAD_EDGE_CASES):
+        for dtype in (torch.float32, bf16):
+            tag = str(dtype).removeprefix("torch.")
+            q, k, v = (torch.randn(*x, generator=wide_edge, device="cuda")
+                       .to(dtype) for x in ((b, s, h, d), (b, t, hkv, d),
+                                            (b, t, hkv, d)))
+            cases.append(check_flash(f"{name}-{tag}", q, k, v, **kw))
+    # each forward twice at nemotron's layer, bit for bit (check_flash)
+    _, qs, ks = BWD_REPEAT_SHAPE
+    for dtype in (torch.float32, bf16):
+        q = torch.randn(qs, generator=wide_edge, device="cuda").to(dtype)
+        k, v = (torch.randn(ks, generator=wide_edge, device="cuda")
+                .to(dtype) for _ in range(2))
+        cases.append(check_flash(
+            f"nemotron-layer-twice-{str(dtype).removeprefix('torch.')}",
+            q, k, v))
     # the tensor-core kernel's own edges, bf16
     for s, t, d in ((128, 128, 64), (256, 256, 32), (64, 256, 64),
                     (256, 128, 16)):
@@ -2478,6 +2500,26 @@ WIDE_BWD_EDGE_CASES = (
      dict(window=20)),
     ("d128-window45-ragged-117x181-full", (2, 117, 181, 6, 3, 128),
      dict(causal=False, window=45, q_offset=70)),
+)
+
+# Head layouts and edges of the forward kernels at head dims 128 and
+# 192: GQA groups of 3 and 7 (phi4-mini's and arctic's; adjacent heads
+# that read different kv heads), MQA, odd H, rows that see no key beside
+# rows that do in one q tile, and a window edge inside a 32-key stretch
+# over ragged S and T.
+FWD_HEAD_EDGE_CASES = (
+    ("d128-gqa3-200", (1, 200, 200, 6, 2, 128), {}),
+    ("d128-gqa7-window64-150", (2, 150, 150, 14, 2, 128),
+     dict(window=64)),
+    ("d192-mqa-130", (1, 130, 130, 6, 1, 192), {}),
+    ("d128-odd-h-3-no-group-100x140", (1, 100, 140, 3, 3, 128),
+     dict(q_offset=40)),
+    ("d192-odd-h-5-gqa5-window50", (1, 180, 180, 5, 1, 192),
+     dict(window=50)),
+    ("d128-blind-rows-beside-seeing-rows", (1, 192, 128, 4, 2, 128),
+     dict(causal=False, window=32, q_offset=140)),
+    ("d192-window13-inside-a-32-key-tile-90x97", (1, 90, 97, 4, 2, 192),
+     dict(window=13, q_offset=7)),
 )
 
 # the layer whose pair of backward kernels is run twice for identical
@@ -4249,12 +4291,25 @@ def _sdpa_backend(fn):
     return "math"
 
 
+# D-long dots a visible (q, k) pair of the bf16 kernel's precision
+# contract: Q.K^T, and P.V with P in two bf16 parts (the reference's f32
+# P); flash_bound_ms counts the function's two
+TC_DOTS = 3
+
+
 def flash_attention_times(attn_calls):
     """K4 (the tensor-core kernel: the prefill path is bf16), its plain
     twin, ``scaled_dot_product_attention`` (the library yardstick; the
     port never calls it) and the f32 (split-TF32) kernel on the same
     inputs in f32, at one layer of each route the prefill path formed,
-    in turns."""
+    in turns.  Each row also carries both kernels' launch as the library
+    reports it (``fwd_sizes``), the bf16 kernel's rate on a bound that
+    also counts the second P.V product of its P split (``TC_DOTS`` dots
+    a pair: the implementation's way to meet ``FA_TOL``, not work that
+    attention needs; ``rate_on_bound`` is the function's),
+    and SDPA's own max abs error against the plain twin beside
+    ``FA_TOL`` (reported, not gated: whether the library computes the
+    same function within the port's tolerance)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -4306,6 +4361,11 @@ def flash_attention_times(attn_calls):
                                       with_lse=True)
 
         backend = _sdpa_backend(library)
+        want = plain()
+        got_lib = library().transpose(1, 2)
+        sdpa_err = float((got_lib.float() - want.float()).abs().max())
+        sdpa_ok = _close(got_lib, want, _tol(FA_TOL, dtype))
+        del want, got_lib
         tc_before = fa.tc_launches
         kernel_a = median_ms(kernel, runs=5, per_run=5)
         if fa.tc_launches == tc_before:
@@ -4319,6 +4379,8 @@ def flash_attention_times(attn_calls):
         plain_b = median_ms(plain, runs=3, per_run=2)
         bound, bound_by, ops_by, flops, exps = flash_bound_ms(
             qs, ks, q.element_size(), causal, window, q_offset)
+        bound_incl_p_split = max(bound, TC_DOTS * flops / 2
+                                 / BF16_TENSOR_FLOPS_PER_S * 1e3)
         ms = min(kernel_a, kernel_b)
         out.append({"arch": arch, "route": route, "q": list(qs),
                     "k": list(ks), "dtype": str(dtype), "causal": causal,
@@ -4335,7 +4397,15 @@ def flash_attention_times(attn_calls):
                     "bound_ops": ops_by,
                     "bound_tensor_ms": flops / BF16_TENSOR_FLOPS_PER_S * 1e3,
                     "bound_exp_ms": exps / SFU_EXP_PER_S * 1e3,
-                    "max_abs_err": err, "f32_max_abs_err": f32_err})
+                    "bound_incl_p_split_ms": bound_incl_p_split,
+                    "rate_on_bound": bound / ms,
+                    "rate_incl_p_split": bound_incl_p_split / ms,
+                    "sizes": fa.fwd_sizes(qs[3], dtype),
+                    "f32_sizes": fa.fwd_sizes(qs[3], torch.float32),
+                    "max_abs_err": err, "f32_max_abs_err": f32_err,
+                    "library_max_abs_err": sdpa_err,
+                    "library_within_tol": sdpa_ok,
+                    "library_tol": _tol(FA_TOL, dtype)})
     return out
 
 
@@ -4660,6 +4730,8 @@ def flash_attention_bwd_times(per_step):
             "flops": fb["flops"], "exps": fb["exps"],
             "cuda_core_ms": fb["cuda_core_ms"], "tensor_ms": fb["tensor_ms"]}
         row["fwd_f32_tflops"] = fb["flops"] / row["fwd_f32_lse_ms"] / 1e9
+        row["fwd_rate_on_bound"] = fb["ms"] / row["fwd_f32_lse_ms"]
+        row["fwd_sizes"] = fa.fwd_sizes(d, torch.float32)
         times = {"dq": min(dq_a, dq_b), "dkdv": min(dkdv_a, dkdv_b),
                  "pair": min(pair_a, pair_b)}
         for name, dots, reads, writes in FA_BWD_WORK:
@@ -4998,8 +5070,11 @@ def run_phases() -> int:
         "routes": [{k: t[k] for k in ("arch", "route", "q", "k", "window",
                                       "ms", "tflops", "plain_ms",
                                       "bound_ms", "bound_by", "bound_ops",
-                                      "library_ms", "f32_kernel_ms",
-                                      "f32_kernel_lse_ms")}
+                                      "rate_on_bound",
+                                      "library_ms", "library_max_abs_err",
+                                      "library_within_tol",
+                                      "f32_kernel_ms", "f32_kernel_lse_ms",
+                                      "sizes")}
                    for t in fa_times],
         # the f32 forward with lse that training launches, at its two
         # layer shapes, beside SDPA's f32 forward (memory-efficient)
@@ -5011,6 +5086,8 @@ def run_phases() -> int:
             "bound_ms": r["fwd_bound"]["ms"],
             "bound_by": r["fwd_bound"]["by"],
             "bound_route": r["fwd_bound"]["route"],
+            "rate_on_bound": r["fwd_rate_on_bound"],
+            "sizes": r["fwd_sizes"],
             "library_ms": r["fwd_library_ms"],
             "launches_per_train_step":
                 r["launches_per_train_step"]["fwd_lse"]}

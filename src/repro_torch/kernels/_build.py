@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/lib<name>_<digest>.so`` at the root
-of the checkout, at first use, and loaded with ``ctypes``.  The digest
-is of the source text, so an edited source never meets a stale
-library.  Sources that are asked for together are compiled together,
+of the checkout, at first use, and loaded with ``ctypes``; the headers
+``csrc/*.cuh`` are on the include path.  The digest is of the source
+text and of every header's, so an edited source or header never meets
+a stale library.  Sources that are asked for together are compiled together,
 one ``nvcc`` process each.  While tracing is on, every source built
 adds one to the ``kernel.builds`` counter and its seconds to the
 ``kernel.build_s`` histogram (the port's counterpart of a backend
@@ -27,7 +28,7 @@ from repro_torch.obs import telemetry as obs
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", f"-I{CSRC}")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -47,8 +48,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, Path]:

@@ -61,11 +61,35 @@
 //     < S; with LSE, lse = m + log(max(l, 1e-30)) for the backward.
 //   * k and v need 16-byte addresses and strides (cp.async); the
 //     wrapper raises otherwise.  q is read with 4-byte loads.
-//   * D = 128 and 192 (the same arithmetic, another tiling): q in shared
-//     memory, its fragments read by ldmatrix each tile; P.V summed in
-//     parts of 16 columns; a 1-stage ring at D = 192; at D = 192 a block
-//     owns half the output columns (both halves compute S); one block an
-//     SM.  255 / 242 registers, no spills.
+//   * D = 128 and 192 (the same arithmetic, fa_fwd_wide): q as split-TF32
+//     fragments would take D registers a thread, so q sits in shared
+//     memory and its fragments are read by ldmatrix and split each tile.
+//     Eight warps a block (one block an SM: eight warps), the pair of
+//     warps w, w + 4 sharing 16 q rows: each computes S over half of
+//     the key tile's columns, the pair takes the common row max through
+//     shared memory behind a barrier of its 64 threads (bar.sync 1 +
+//     pair, 64), each forms P on its fragments and puts it in the
+//     pair's exchange (fa_exchange.cuh: a float4 a lane and 8-key
+//     slice, as the backward's), and after a second pair barrier each
+//     runs P.V with the pair's whole 16-row P (split once a tile) over
+//     its half of the output columns, D/2 = 64 or 96 (32 or 48
+//     accumulator registers).  So S once a visible pair: 2 dots, as at
+//     D <= 64, and no grid y.  l is a per-thread partial sum over the
+//     warp's keys, summed over the quad and the pair in the epilogue.
+//     V's B words stay two scalar loads a fragment (ldmatrix cannot
+//     transpose 32-bit words), free of bank conflicts.  A 2-stage ring
+//     of K/V tiles of 64 keys (D = 128) or 48 (D = 192); bytes of
+//     dynamic shared memory:
+//
+//       D = 128: q 64*132*4 = 33,792; ring 2*2*64*132*4 = 135,168; P
+//                exchange 4 pairs * 64 keys * 16 floats * 4 = 16,384;
+//                row exchange 4*2*16*4 = 512; in all 185,856
+//       D = 192: q 64*196*4 = 50,176; ring 2*2*48*196*4 = 150,528;
+//                exchange 4*48*16*4 = 12,288; 512; in all 213,504
+//                (of 232,448; 64-key tiles would need 251 KB, 32-key
+//                ones took 4 % longer on an H100: PERF.md)
+//
+//     flash_attention_fwd_sizes reports these launches.  No spills.
 //
 // bf16: flash_attention_tc_kernel, on the tensor cores.  Per visible
 // (q, k) pair the work is 4*D flops (two dots) and one exp, so at D=64
@@ -111,12 +135,21 @@
 //   * ptxas (-Xptxas -v): 168 registers at entry for all five head
 //     sizes (384 threads, one block an SM), 24 / 240 after setmaxnreg,
 //     no spills; about 131 KB of shared memory at D=64.
-//   * D = 128 and 192: K/V tiles of 128 and 64 keys (S, P's two parts
-//     and O in the consumers' 240 registers) in a ring of 2 stages
-//     (about 197 and 200 KB of shared memory); P.V one m64n128k16 /
-//     m64n192k16 across V's 64-column blocks (one m64n64k16 a block
-//     instead made ptxas serialize the wgmma, C7520, and took 1.7-1.8x
-//     the time on an H100: PERF.md).
+//   * D = 128 and 192: q, K and V in swizzled blocks of 64 columns (one
+//     128-byte TMA box each); the output staged in the warpgroup's own q
+//     rows once its last Q.K^T has been waited on (no O buffer), which
+//     buys the ring: at D = 128 K/V tiles of 128 keys in 3 stages (q
+//     32,768 + 3 * 65,536 = 229,376 bytes), at D = 192 tiles of 96 keys
+//     in 2 stages (49,152 + 2 * 73,728 = 196,608; S, P's two parts and
+//     O are 48 + 48 + 96 of the consumers' 240 registers, as D = 128's
+//     64 + 64 + 64).  P.V one m64n128k16 / m64n192k16 across V's
+//     64-column blocks (one m64n64k16 a block made ptxas serialize the
+//     wgmma, C7520, and took 1.7-1.8x the time on an H100: PERF.md).
+//     The ring is not what binds there: K/V shared by a 2-CTA cluster
+//     through TMA multicast (the `multicast` patch of
+//     tools/k4_variants.py) and a third stage at D = 128 each moved
+//     nothing or lost on an H100 (PERF.md); the 96-key tiles at D = 192
+//     gained 7-16 %.
 // Numerics against the f32 reference: P.V takes P at f32 precision (the
 // split leaves about 2^-16 of P; one bf16 part alone would leave 2^-9),
 // so the numerator matches the f32 row sum l; exp goes through exp2.  The checks hold it at rtol
@@ -135,6 +168,8 @@
 
 #include <mutex>
 
+#include "fa_exchange.cuh"   // fx_pair_sync, fx_put, fx_get
+
 // ---------------------------------------------------------------------
 // The f32 kernel: tensor cores (mma.sync TF32), split TF32
 // ---------------------------------------------------------------------
@@ -144,17 +179,31 @@
 #define FA_WARPS 4
 #define FA_THREADS (32 * FA_WARPS)
 #define FA_NEG (-1e30f)
+#define FA_STAGES 2              // stages of the K/V ring, at every D
 
-// Stages of the K/V ring: 2, and 1 at D = 192 (two stages and the q
-// tile would need 251 KB)
+// threads a block: four warps up to D = 64, eight (four pairs) above
 template <int D>
-__host__ __device__ constexpr int fa_stages() { return D <= 128 ? 2 : 1; }
+__host__ __device__ constexpr int fa_threads() {
+    return D <= 64 ? FA_THREADS : 2 * FA_THREADS;
+}
 
-// floats of shared memory: the K/V ring (stages x (K, V), 64 rows padded
-// to D+4) and, at D > 64, the q tile (64 rows padded to D+4)
+// keys a K/V tile: 64, and 48 at D = 192 (two stages of 64 keys beside
+// the q tile would need 251 KB)
+template <int D>
+__host__ __device__ constexpr int fa_keys() { return D <= 128 ? FA_BK : 48; }
+
+// k-steps of 16 that the wide kernel's S product unrolls
+#define FA_WIDE_UNROLL 4
+
+// floats of shared memory: the K/V ring (stages x (K, V), tiles padded
+// to D+4); above D = 64 also the q tile (64 rows padded to D+4), the
+// pairs' P exchange (4 pairs x the tile's 8-key slices x 32 lanes x a
+// float4) and their row exchange (4 pairs x 2 halves x 16 rows)
 template <int D>
 __host__ __device__ constexpr int fa_smem_floats() {
-    return fa_stages<D>() * 2 * FA_BK * (D + 4) + (D > 64 ? 64 * (D + 4) : 0);
+    return FA_STAGES * 2 * fa_keys<D>() * (D + 4)
+           + (D > 64 ? 64 * (D + 4) + 4 * fa_keys<D>() * 16 + 4 * 2 * 16
+                     : 0);
 }
 
 // The keys absolute position p sees: [lo, hi) (empty when hi <= lo).
@@ -230,15 +279,16 @@ __device__ __forceinline__ void fa_zero(float (&a)[N][4]) {
     for (int n = 0; n < N; ++n) a[n][0] = a[n][1] = a[n][2] = a[n][3] = 0.0f;
 }
 
-// 64 rows of D floats from global rows (row stride `stride` floats,
-// zero-filled from row `n_ok` on) into a padded shared tile
-template <int D>
+// ROWS rows of D floats from global rows (row stride `stride` floats,
+// zero-filled from row `n_ok` on) into a padded shared tile, by NT
+// threads
+template <int D, int ROWS = 64, int NT = FA_THREADS>
 __device__ __forceinline__ void fa_stage_rows(float* dst, const float* src,
                                               long long stride, int n_ok,
                                               int tid) {
     constexpr int C4 = D / 4;
 #pragma unroll 4
-    for (int i = tid; i < 64 * C4; i += FA_THREADS) {
+    for (int i = tid; i < ROWS * C4; i += NT) {
         const int r = i / C4, c4 = i % C4;
         const bool ok = r < n_ok;
         fa_cp_async16(fa_smem(dst + r * (D + 4) + 4 * c4),
@@ -246,35 +296,45 @@ __device__ __forceinline__ void fa_stage_rows(float* dst, const float* src,
     }
 }
 
-// One block: 64 q rows of one (b, h), 16 rows a warp; the grid is 1-D,
-// the last q tiles first (under a causal mask they see the most keys).
+#define FA_FWD_PARAMS const float* __restrict__ q, \
+    const float* __restrict__ k, const float* __restrict__ v, \
+    float* __restrict__ out, float* __restrict__ lse, int S, int T_len, \
+    int H, int Hkv, long long q_sb, long long q_ss, long long q_sh, \
+    long long k_sb, long long k_st, long long k_sh, long long v_sb, \
+    long long v_st, long long v_sh, int causal, int window, int q_offset, \
+    float scale
+#define FA_FWD_PASS q, k, v, out, lse, S, T_len, H, Hkv, q_sb, q_ss, q_sh, \
+    k_sb, k_st, k_sh, v_sb, v_st, v_sh, causal, window, q_offset, scale
+
+// The keys a block of 64 rows from q0 needs, into range_lo / range_hi:
+// the union of its rows' bands, or all T when one of its rows sees none
+__device__ __forceinline__ void fa_block_range(int q0, int S, int T_len,
+                                               int causal, int window,
+                                               int q_offset, int& range_lo,
+                                               int& range_hi) {
+    int lo = T_len, hi = 0;
+    bool empty = false;
+    for (int rr = 0; rr < FA_BQ && q0 + rr < S; ++rr) {
+        int l, u;
+        fa_band(q_offset + q0 + rr, T_len, causal, window, l, u);
+        if (u <= l) { empty = true; break; }
+        lo = min(lo, l);
+        hi = max(hi, u);
+    }
+    range_lo = empty ? 0 : lo;
+    range_hi = empty ? T_len : hi;
+}
+
+// D <= 64: four warps, 16 q rows a warp, each against the whole key
+// tile; q as split-TF32 A fragments in registers, loaded once.
 // LSE: also write each row's m + log(max(l, 1e-30)) to lse (B,H,S).
-// D = 128 and 192: q as split-TF32 A fragments would take D registers a
-// thread, so q lives in shared memory (its fragments read by ldmatrix
-// and split every tile, as the backward kernels read theirs, one k-step
-// at a time), P.V is summed in parts of 16 columns, and one block an SM
-// (shared memory).  At D = 192 a block owns half the output columns
-// (blockIdx.y; both halves compute S and the softmax), so that its O
-// accumulator is 48 registers: no spills at 255.
 template <int D, bool LSE>
-__global__ void __launch_bounds__(FA_THREADS, D <= 64 ? 2 : 1)
-fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out,
-                  float* __restrict__ lse, int S, int T_len, int H, int Hkv,
-                  long long q_sb, long long q_ss, long long q_sh,
-                  long long k_sb, long long k_st, long long k_sh,
-                  long long v_sb, long long v_st, long long v_sh,
-                  int causal, int window, int q_offset, float scale) {
+__device__ __forceinline__ void fa_fwd_narrow(FA_FWD_PARAMS) {
     constexpr int RS = D + 4;
     constexpr int TILE = FA_BK * RS;
     constexpr int KS = D / 8;                 // k-steps of Q.K^T
-    constexpr bool Q_SMEM = D > 64;           // q in shared memory
-    constexpr int STAGES = fa_stages<D>();
-    constexpr int PN = D <= 64 ? D / 8 : 2;   // 8-column slices a P.V part
-    constexpr int DO = D == 192 ? D / 2 : D;  // output columns a block
     extern __shared__ float4 fa_smem4[];
     float* ring = reinterpret_cast<float*>(fa_smem4);   // stages x (K, V)
-    float* Qs = ring + STAGES * 2 * TILE;               // D > 64: [64][RS]
     __shared__ int range_lo, range_hi;
 
     const int tid = threadIdx.x;
@@ -288,21 +348,9 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int hk = h / (H / Hkv);
     const int q0 = qt * FA_BQ;
 
-    // the keys this block needs: the union of its rows' bands, or all
-    // T when one of its rows sees none
-    if (tid == 0) {
-        int lo = T_len, hi = 0;
-        bool empty = false;
-        for (int rr = 0; rr < FA_BQ && q0 + rr < S; ++rr) {
-            int l, u;
-            fa_band(q_offset + q0 + rr, T_len, causal, window, l, u);
-            if (u <= l) { empty = true; break; }
-            lo = min(lo, l);
-            hi = max(hi, u);
-        }
-        range_lo = empty ? 0 : lo;
-        range_hi = empty ? T_len : hi;
-    }
+    if (tid == 0)
+        fa_block_range(q0, S, T_len, causal, window, q_offset, range_lo,
+                       range_hi);
     __syncthreads();
     const int t_start = (range_lo / FA_BK) * FA_BK;
     const int n_kt = (range_hi - t_start + FA_BK - 1) / FA_BK;
@@ -310,7 +358,7 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* vbase = v + (long long)b * v_sb + (long long)hk * v_sh;
     auto load_kv = [&](int i) {
         const int t0 = t_start + FA_BK * i;
-        float* Kst = ring + (i % STAGES) * 2 * TILE;
+        float* Kst = ring + (i % FA_STAGES) * 2 * TILE;
         fa_stage_rows<D>(Kst, kbase + (long long)t0 * k_st, k_st,
                          T_len - t0, tid);
         fa_stage_rows<D>(Kst + TILE, vbase + (long long)t0 * v_st, v_st,
@@ -320,18 +368,10 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     fa_cp_async_commit();
 
     // this thread's two rows, ra (fragment rows g) and rb (g + 8): their
-    // q as split-TF32 A fragments, loaded once (D > 64: the block's q
-    // tile into shared memory, zero rows past S)
+    // q as split-TF32 A fragments, loaded once
     const int ra = q0 + 16 * warp + g, rb = ra + 8;
-    uint32_t qh[Q_SMEM ? 1 : KS][4], ql[Q_SMEM ? 1 : KS][4];
-    if constexpr (Q_SMEM) {
-        const float* qt0 = q + (long long)b * q_sb + (long long)h * q_sh;
-        for (int i = tid; i < 64 * D; i += FA_THREADS) {
-            const int r = i / D, c = i % D;
-            Qs[r * RS + c] = q0 + r < S
-                ? qt0[(long long)(q0 + r) * q_ss + c] : 0.0f;
-        }
-    } else {
+    uint32_t qh[KS][4], ql[KS][4];
+    {
         const float* qa = q + (long long)b * q_sb + (long long)h * q_sh
                           + (long long)min(ra, S - 1) * q_ss;
         const float* qb = q + (long long)b * q_sb + (long long)h * q_sh
@@ -353,21 +393,16 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     fa_band(q_offset + rb, T_len, causal, window, lo_b, hi_b);
 
     float m_a = FA_NEG, m_b = FA_NEG, l_a = 0.0f, l_b = 0.0f;
-    float acc[DO / 8][4];
-    const int c0 = D == 192 ? DO * (int)blockIdx.y : 0;   // first column
+    float acc[D / 8][4];
     fa_zero(acc);
     const int blk = lane >> 3, r8 = lane & 7;
 
     for (int i = 0; i < n_kt; ++i) {
-        if constexpr (STAGES == 2) {
-            if (i + 1 < n_kt) load_kv(i + 1);
-            fa_cp_async_commit();
-            fa_cp_async_wait<1>();
-        } else {
-            fa_cp_async_wait<0>();
-        }
+        if (i + 1 < n_kt) load_kv(i + 1);
+        fa_cp_async_commit();
+        fa_cp_async_wait<1>();
         __syncthreads();
-        const float* Kst = ring + (i % STAGES) * 2 * TILE;
+        const float* Kst = ring + (i % FA_STAGES) * 2 * TILE;
         const float* Vst = Kst + TILE;
         const int t0 = t_start + FA_BK * i;
 
@@ -375,48 +410,20 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float sc[8][4];
         fa_zero(sc);
         const uint32_t b_lane = fa_smem(Kst) + (r8 * RS + 4 * blk) * 4;
-        if constexpr (Q_SMEM) {
-            // q's fragments of k-steps k0 and k0 + 8 by ldmatrix (blocks:
-            // rows 0-7 and 8-15 of columns k0.., then of k0 + 4..)
-            const uint32_t a_lane = fa_smem(Qs + 16 * warp * RS)
-                + ((r8 + 8 * (blk & 1)) * RS + 4 * (blk >> 1)) * 4;
-#pragma unroll 1
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
             for (int k0 = 0; k0 < D; k0 += 16) {
-                uint32_t a0[4], a1[4], a0h[4], a0l[4], a1h[4], a1l[4];
-                fa_ldsm_x4(a0, a_lane + k0 * 4);
-                fa_ldsm_x4(a1, a_lane + (k0 + 8) * 4);
+                // k-step k0 in words 0-1, k0 + 8 in words 2-3
+                uint32_t bw[4], bhi[4], blo[4];
+                fa_ldsm_x4(bw, b_lane + (8 * n * RS + k0) * 4);
 #pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    fa_split_tf32(__uint_as_float(a0[e]), a0h[e], a0l[e]);
-                    fa_split_tf32(__uint_as_float(a1[e]), a1h[e], a1l[e]);
-                }
-#pragma unroll
-                for (int n = 0; n < 8; ++n) {
-                    uint32_t bw[4], bhi[4], blo[4];
-                    fa_ldsm_x4(bw, b_lane + (8 * n * RS + k0) * 4);
-#pragma unroll
-                    for (int e = 0; e < 4; ++e)
-                        fa_split_tf32(__uint_as_float(bw[e]), bhi[e], blo[e]);
-                    fa_mma3(sc[n], a0h, a0l, bhi[0], bhi[1], blo[0], blo[1]);
-                    fa_mma3(sc[n], a1h, a1l, bhi[2], bhi[3], blo[2], blo[3]);
-                }
-            }
-        } else {
-#pragma unroll
-            for (int n = 0; n < 8; ++n) {
-#pragma unroll
-                for (int k0 = 0; k0 < D; k0 += 16) {
-                    // k-step k0 in words 0-1, k0 + 8 in words 2-3
-                    uint32_t bw[4], bhi[4], blo[4];
-                    fa_ldsm_x4(bw, b_lane + (8 * n * RS + k0) * 4);
-#pragma unroll
-                    for (int e = 0; e < 4; ++e)
-                        fa_split_tf32(__uint_as_float(bw[e]), bhi[e], blo[e]);
-                    fa_mma3(sc[n], qh[k0 / 8], ql[k0 / 8], bhi[0], bhi[1],
-                            blo[0], blo[1]);
-                    fa_mma3(sc[n], qh[k0 / 8 + 1], ql[k0 / 8 + 1], bhi[2],
-                            bhi[3], blo[2], blo[3]);
-                }
+                for (int e = 0; e < 4; ++e)
+                    fa_split_tf32(__uint_as_float(bw[e]), bhi[e], blo[e]);
+                fa_mma3(sc[n], qh[k0 / 8], ql[k0 / 8], bhi[0], bhi[1],
+                        blo[0], blo[1]);
+                fa_mma3(sc[n], qh[k0 / 8 + 1], ql[k0 / 8 + 1], bhi[2],
+                        bhi[3], blo[2], blo[3]);
             }
         }
         // scale, masks (a select: -1e30 for a masked key, -inf past T),
@@ -465,51 +472,42 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         // added in f32.  P leaves S as C fragments (columns 2t, 2t+1 of
         // each 8-key slice) and is the A operand with the slice's
         // contraction index permuted (slot t <-> 2t, t+4 <-> 2t+1), V's
-        // rows read in the same order.  D > 64: in parts of 16 columns
-        // (PN slices; registers), each part's product summed from zero
+        // rows read in the same order
+        float part[D / 8][4];
+        fa_zero(part);
 #pragma unroll
-        for (int c = 0; c < DO / 8 / PN; ++c) {
-            float part[PN][4];
-            fa_zero(part);
+        for (int kk = 0; kk < 8; ++kk) {
+            uint32_t ah[4], al[4];
+            fa_split_tf32(sc[kk][0], ah[0], al[0]);   // (g,   slot t)
+            fa_split_tf32(sc[kk][2], ah[1], al[1]);   // (g+8, slot t)
+            fa_split_tf32(sc[kk][1], ah[2], al[2]);   // (g,   slot t+4)
+            fa_split_tf32(sc[kk][3], ah[3], al[3]);   // (g+8, slot t+4)
+            const float* bp = Vst + (8 * kk + 2 * t) * RS + g;
 #pragma unroll
-            for (int kk = 0; kk < 8; ++kk) {
-                uint32_t ah[4], al[4];
-                fa_split_tf32(sc[kk][0], ah[0], al[0]);   // (g,   slot t)
-                fa_split_tf32(sc[kk][2], ah[1], al[1]);   // (g+8, slot t)
-                fa_split_tf32(sc[kk][1], ah[2], al[2]);   // (g,   slot t+4)
-                fa_split_tf32(sc[kk][3], ah[3], al[3]);   // (g+8, slot t+4)
-                const float* bp =
-                    Vst + (8 * kk + 2 * t) * RS + g + c0 + 8 * PN * c;
-#pragma unroll
-                for (int n = 0; n < PN; ++n) {
-                    uint32_t bh0, bl0, bh1, bl1;
-                    fa_split_tf32(bp[8 * n], bh0, bl0);
-                    fa_split_tf32(bp[RS + 8 * n], bh1, bl1);
-                    fa_mma3(part[n], ah, al, bh0, bh1, bl0, bl1);
-                }
+            for (int n = 0; n < D / 8; ++n) {
+                uint32_t bh0, bl0, bh1, bl1;
+                fa_split_tf32(bp[8 * n], bh0, bl0);
+                fa_split_tf32(bp[RS + 8 * n], bh1, bl1);
+                fa_mma3(part[n], ah, al, bh0, bh1, bl0, bl1);
             }
+        }
 #pragma unroll
-            for (int n = 0; n < PN; ++n) {
-                float (&o)[4] = acc[PN * c + n];
-                o[0] = o[0] * corr_a + part[n][0];
-                o[1] = o[1] * corr_a + part[n][1];
-                o[2] = o[2] * corr_b + part[n][2];
-                o[3] = o[3] * corr_b + part[n][3];
-            }
+        for (int n = 0; n < D / 8; ++n) {
+            float (&o)[4] = acc[n];
+            o[0] = o[0] * corr_a + part[n][0];
+            o[1] = o[1] * corr_a + part[n][1];
+            o[2] = o[2] * corr_b + part[n][2];
+            o[3] = o[3] * corr_b + part[n][3];
         }
         __syncthreads();            // before the ring slot is reloaded
-        if (STAGES == 1 && i + 1 < n_kt) {
-            load_kv(i + 1);
-            fa_cp_async_commit();
-        }
     }
     fa_cp_async_wait<0>();
 
     const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
-    const long long oa = (((long long)b * S + ra) * H + h) * D + c0 + 2 * t;
+    const long long oa = (((long long)b * S + ra) * H + h) * D + 2 * t;
     const long long ob = oa + 8LL * H * D;
 #pragma unroll
-    for (int n = 0; n < DO / 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
         if (ra < S)
             *reinterpret_cast<float2*>(out + oa + 8 * n) =
                 make_float2(acc[n][0] / la, acc[n][1] / la);
@@ -517,11 +515,267 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
             *reinterpret_cast<float2*>(out + ob + 8 * n) =
                 make_float2(acc[n][2] / lb, acc[n][3] / lb);
     }
-    if (LSE && t == 0 && c0 == 0) {
+    if (LSE && t == 0) {
         const long long rs = ((long long)b * H + h) * S;
         if (ra < S) lse[rs + ra] = m_a + logf(la);
         if (rb < S) lse[rs + rb] = m_b + logf(lb);
     }
+}
+
+// acc[n] += A . B^T for the warp's 16 rows of A (at a_row, shared) and
+// 8N rows of B (at b_tile, shared), both D wide with stride D+4: S of
+// 16 q rows against 8N keys, n-th 8-key slice in acc[n]; A and B by
+// ldmatrix, split each k-step; FA_WIDE_UNROLL k-steps of 16 unrolled
+template <int D, int N, int U = FA_WIDE_UNROLL>
+__device__ __forceinline__ void fa_qk_smem(float (&acc)[N][4],
+                                           uint32_t a_row, uint32_t b_tile,
+                                           int lane) {
+    constexpr int RS = D + 4;
+    const int blk = lane >> 3, r8 = lane & 7;
+    // blocks: rows 0-7 and 8-15 of columns k0.., then of k0 + 4..
+    const uint32_t a_lane =
+        a_row + ((r8 + 8 * (blk & 1)) * RS + 4 * (blk >> 1)) * 4;
+    const uint32_t b_lane = b_tile + (r8 * RS + 4 * blk) * 4;
+#pragma unroll (U)
+    for (int k0 = 0; k0 < D; k0 += 16) {
+        uint32_t a0[4], a1[4], a0h[4], a0l[4], a1h[4], a1l[4];
+        fa_ldsm_x4(a0, a_lane + k0 * 4);
+        fa_ldsm_x4(a1, a_lane + (k0 + 8) * 4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            fa_split_tf32(__uint_as_float(a0[e]), a0h[e], a0l[e]);
+            fa_split_tf32(__uint_as_float(a1[e]), a1h[e], a1l[e]);
+        }
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+            // k-step k0 in words 0-1, k0 + 8 in words 2-3
+            uint32_t bw[4], bhi[4], blo[4];
+            fa_ldsm_x4(bw, b_lane + (8 * n * RS + k0) * 4);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                fa_split_tf32(__uint_as_float(bw[e]), bhi[e], blo[e]);
+            fa_mma3(acc[n], a0h, a0l, bhi[0], bhi[1], blo[0], blo[1]);
+            fa_mma3(acc[n], a1h, a1l, bhi[2], bhi[3], blo[2], blo[3]);
+        }
+    }
+}
+
+// D = 128, 192: eight warps and 64 q rows a block; the pair (w, w + 4)
+// shares 16 rows.  Each warp computes S over half of the key tile's
+// columns, the pair agrees on the row max through shared memory, each
+// forms P on its fragments and puts it in the pair's exchange, and each
+// runs P.V with the pair's whole 16-row P over half of the output
+// columns.  l is a per-thread partial sum until the epilogue.
+template <int D, bool LSE>
+__device__ __forceinline__ void fa_fwd_wide(FA_FWD_PARAMS) {
+    constexpr int RS = D + 4;
+    constexpr int NT = fa_threads<D>();
+    constexpr int BK = fa_keys<D>();           // keys a tile
+    constexpr int MT = BK * RS;                // floats of a K or V tile
+    constexpr int NW = BK / 16;                // 8-key slices of S a warp
+    constexpr int DH = D / 2;                  // output columns a warp
+    extern __shared__ float4 fa_smem4[];
+    float* Qs = reinterpret_cast<float*>(fa_smem4);        // [64][RS]
+    float* ring = Qs + FA_BQ * RS;                         // stages x (K, V)
+    float4* ex = reinterpret_cast<float4*>(ring + FA_STAGES * 2 * MT);
+    float* rx = reinterpret_cast<float*>(ex + 4 * (BK / 8) * 32);
+    __shared__ int range_lo, range_hi;
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int pr = warp & 3, hf = warp >> 2;   // the pair; the half
+    const int g = lane >> 2, t = lane & 3;
+    const int n_qt = (S + FA_BQ - 1) / FA_BQ;
+    const int bh = gridDim.x / n_qt;                   // B * H
+    const int qt = n_qt - 1 - (int)(blockIdx.x / bh);
+    const int h = (int)(blockIdx.x % bh) % H;
+    const int b = (int)(blockIdx.x % bh) / H;
+    const int hk = h / (H / Hkv);
+    const int q0 = qt * FA_BQ;
+
+    if (tid == 0)
+        fa_block_range(q0, S, T_len, causal, window, q_offset, range_lo,
+                       range_hi);
+    // the q tile (4-byte loads: q has no alignment rule), zero rows past S
+    const float* qt0 = q + (long long)b * q_sb + (long long)h * q_sh;
+    for (int i = tid; i < FA_BQ * D; i += NT) {
+        const int r = i / D, c = i % D;
+        Qs[r * RS + c] = q0 + r < S ? qt0[(long long)(q0 + r) * q_ss + c]
+                                    : 0.0f;
+    }
+    __syncthreads();
+    const int t_start = (range_lo / BK) * BK;
+    const int n_kt = (range_hi - t_start + BK - 1) / BK;
+    const float* kbase = k + (long long)b * k_sb + (long long)hk * k_sh;
+    const float* vbase = v + (long long)b * v_sb + (long long)hk * v_sh;
+    auto load_kv = [&](int i) {
+        const int t0 = t_start + BK * i;
+        float* Kst = ring + (i % FA_STAGES) * 2 * MT;
+        fa_stage_rows<D, BK, NT>(Kst, kbase + (long long)t0 * k_st, k_st,
+                                 T_len - t0, tid);
+        fa_stage_rows<D, BK, NT>(Kst + MT, vbase + (long long)t0 * v_st,
+                                 v_st, T_len - t0, tid);
+    };
+    load_kv(0);
+    fa_cp_async_commit();
+
+    // this thread's two rows, ra (fragment rows g) and rb (g + 8)
+    const int ra = q0 + 16 * pr + g, rb = ra + 8;
+    int lo_a, hi_a, lo_b, hi_b;
+    fa_band(q_offset + ra, T_len, causal, window, lo_a, hi_a);
+    fa_band(q_offset + rb, T_len, causal, window, lo_b, hi_b);
+
+    float m_a = FA_NEG, m_b = FA_NEG, l_a = 0.0f, l_b = 0.0f;
+    float acc[DH / 8][4];
+    fa_zero(acc);
+    const uint32_t q_row = fa_smem(Qs + 16 * pr * RS);
+    float4* pex = ex + pr * (BK / 8) * 32;     // the pair's P
+    float* prx = rx + pr * 32;                 // the pair's rows: [half][16]
+    const int m0 = hf * (BK / 2);              // the warp's first key
+
+    for (int i = 0; i < n_kt; ++i) {
+        if (i + 1 < n_kt) load_kv(i + 1);
+        fa_cp_async_commit();
+        fa_cp_async_wait<1>();
+        __syncthreads();
+        const float* Kst = ring + (i % FA_STAGES) * 2 * MT;
+        const float* Vst = Kst + MT;
+        const int t0 = t_start + BK * i + m0;
+
+        // S for the pair's 16 rows and the warp's BK/2 keys
+        float sc[NW][4];
+        fa_zero(sc);
+        fa_qk_smem<D, NW>(sc, q_row, fa_smem(Kst + m0 * RS), lane);
+        // scale, masks (a select: -1e30 for a masked key, -inf past T),
+        // the row max of the warp's half over its quad
+        float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < NW; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int key = t0 + 8 * n + 2 * t + (e & 1);
+                const bool vis = e < 2 ? key >= lo_a && key < hi_a
+                                       : key >= lo_b && key < hi_b;
+                const float s = vis ? sc[n][e] * scale
+                                    : (key < T_len ? FA_NEG : -INFINITY);
+                sc[n][e] = s;
+                if (e < 2) mx_a = fmaxf(mx_a, s);
+                else mx_b = fmaxf(mx_b, s);
+            }
+        }
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+        // the pair's common row max: each half's through shared memory
+        if (t == 0) {
+            prx[16 * hf + g] = mx_a;
+            prx[16 * hf + g + 8] = mx_b;
+        }
+        fx_pair_sync(pr);
+        mx_a = fmaxf(mx_a, prx[16 * (1 - hf) + g]);
+        mx_b = fmaxf(mx_b, prx[16 * (1 - hf) + g + 8]);
+        const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+        float ps_a = 0.0f, ps_b = 0.0f;
+#pragma unroll
+        for (int n = 0; n < NW; ++n) {
+            sc[n][0] = expf(sc[n][0] - mn_a);
+            sc[n][1] = expf(sc[n][1] - mn_a);
+            sc[n][2] = expf(sc[n][2] - mn_b);
+            sc[n][3] = expf(sc[n][3] - mn_b);
+            ps_a += sc[n][0] + sc[n][1];
+            ps_b += sc[n][2] + sc[n][3];
+        }
+        const float corr_a = expf(m_a - mn_a), corr_b = expf(m_b - mn_b);
+        l_a = l_a * corr_a + ps_a;
+        l_b = l_b * corr_b + ps_b;
+        m_a = mn_a;
+        m_b = mn_b;
+        fx_put<NW>(pex, sc, hf * NW, lane);
+        fx_pair_sync(pr);
+        float p[BK / 8][4];
+        fx_get<BK / 8>(p, pex, lane);
+
+        // O = O * corr + P.V over the warp's DH columns: the tile's
+        // product summed from zero, then added in f32.  P is split once a
+        // tile; it is the A operand with each 8-key slice's contraction
+        // index permuted (slot t <-> 2t, t+4 <-> 2t+1), V's rows read in
+        // the same order as two scalar words a B fragment (ldmatrix
+        // cannot transpose 32-bit words), free of bank conflicts
+        float part[DH / 8][4];
+        fa_zero(part);
+        const float* vcol = Vst + hf * DH + g;
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk) {
+            uint32_t ah[4], al[4];
+            fa_split_tf32(p[kk][0], ah[0], al[0]);    // (g,   slot t)
+            fa_split_tf32(p[kk][2], ah[1], al[1]);    // (g+8, slot t)
+            fa_split_tf32(p[kk][1], ah[2], al[2]);    // (g,   slot t+4)
+            fa_split_tf32(p[kk][3], ah[3], al[3]);    // (g+8, slot t+4)
+            const float* bp = vcol + (8 * kk + 2 * t) * RS;
+#pragma unroll
+            for (int n = 0; n < DH / 8; ++n) {
+                uint32_t bh0, bl0, bh1, bl1;
+                fa_split_tf32(bp[8 * n], bh0, bl0);
+                fa_split_tf32(bp[RS + 8 * n], bh1, bl1);
+                fa_mma3(part[n], ah, al, bh0, bh1, bl0, bl1);
+            }
+        }
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n) {
+            float (&o)[4] = acc[n];
+            o[0] = o[0] * corr_a + part[n][0];
+            o[1] = o[1] * corr_a + part[n][1];
+            o[2] = o[2] * corr_b + part[n][2];
+            o[3] = o[3] * corr_b + part[n][3];
+        }
+        __syncthreads();        // before the ring slot and exchanges reload
+    }
+    fa_cp_async_wait<0>();
+
+    // l: the quad's partial sums, then the pair's two halves
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+    if (t == 0) {
+        prx[16 * hf + g] = l_a;
+        prx[16 * hf + g + 8] = l_b;
+    }
+    fx_pair_sync(pr);
+    l_a += prx[16 * (1 - hf) + g];
+    l_b += prx[16 * (1 - hf) + g + 8];
+
+    const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
+    const long long oa =
+        (((long long)b * S + ra) * H + h) * D + hf * DH + 2 * t;
+    const long long ob = oa + 8LL * H * D;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+        if (ra < S)
+            *reinterpret_cast<float2*>(out + oa + 8 * n) =
+                make_float2(acc[n][0] / la, acc[n][1] / la);
+        if (rb < S)
+            *reinterpret_cast<float2*>(out + ob + 8 * n) =
+                make_float2(acc[n][2] / lb, acc[n][3] / lb);
+    }
+    if (LSE && t == 0 && hf == 0) {
+        const long long rs = ((long long)b * H + h) * S;
+        if (ra < S) lse[rs + ra] = m_a + logf(la);
+        if (rb < S) lse[rs + rb] = m_b + logf(lb);
+    }
+}
+
+// One block: 64 q rows of one (b, h); the grid is 1-D, the last q tiles
+// first (under a causal mask they see the most keys).
+template <int D, bool LSE>
+__global__ void __launch_bounds__(D <= 64 ? FA_THREADS : 2 * FA_THREADS,
+                                  D <= 64 ? 2 : 1)
+fa_fwd_f32_kernel(FA_FWD_PARAMS) {
+    if constexpr (D <= 64)
+        fa_fwd_narrow<D, LSE>(FA_FWD_PASS);
+    else
+        fa_fwd_wide<D, LSE>(FA_FWD_PASS);
 }
 
 template <int D, bool LSE>
@@ -537,8 +791,8 @@ static int launch_f32_as(const float* q, const float* k, const float* v,
     if (err != cudaSuccess) return (int)err;
     const long long blocks = (long long)((S + FA_BQ - 1) / FA_BQ) * H * B;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    const dim3 grid((unsigned)blocks, D == 192 ? 2 : 1);   // column halves
-    fa_fwd_f32_kernel<D, LSE><<<grid, FA_THREADS, smem, stream>>>(
+    fa_fwd_f32_kernel<D, LSE><<<(unsigned)blocks, fa_threads<D>(), smem,
+                                stream>>>(
         q, k, v, out, lse, S, T_len, H, Hkv, st[0], st[1], st[2], st[3],
         st[4], st[5], st[6], st[7], st[8], causal, window, q_offset, scale);
     return (int)cudaGetLastError();
@@ -593,13 +847,15 @@ constexpr float NEG = -1e30f;
 // D = 128 and 192 take two and three 128-byte blocks (TMA boxes of 64
 // columns), D <= 64 one.  Every block starts on a multiple of 1024
 // bytes, the longest swizzle repeat.  KEYS and DEPTH are the K/V tile
-// and the ring: BK keys in STAGES stages up to D = 64; BK keys in 2
-// stages at D = 128 (shared memory); 64 keys in 2 stages at D = 192 (S,
-// P's two parts and O within the consumers' 240 registers).
+// and the ring: BK keys in STAGES stages up to D = 64.  WIDE (D = 128,
+// 192): the output is staged in the q tile's space, and the O buffer's
+// room goes to the ring: BK keys in 3 stages at D = 128, 96 keys in 2 at
+// D = 192 (S, P's two parts and O within the consumers' 240 registers).
 template <int D>
 struct Layout {
-    static constexpr int KEYS = D <= 128 ? BK : 64;
-    static constexpr int DEPTH = D <= 64 ? STAGES : 2;
+    static constexpr bool WIDE = D > 64;
+    static constexpr int KEYS = D <= 128 ? BK : 96;
+    static constexpr int DEPTH = D == 192 ? 2 : WIDE ? 3 : STAGES;
     static constexpr int COLS = D < 64 ? D : 64;       // columns a block
     static constexpr int ROW = 2 * COLS;               // bytes a block row
     static constexpr int ATOM = 8 * ROW;               // 8-row swizzle atom
@@ -610,8 +866,10 @@ struct Layout {
     static constexpr int Q_OFF = 0;
     static constexpr int K_OFF = Q_OFF + Q_BYTES;
     static constexpr int V_OFF = K_OFF + DEPTH * KV_BYTES;
-    static constexpr int O_OFF = V_OFF + DEPTH * KV_BYTES;
-    static constexpr int BAR_OFF = O_OFF + ((BQ * O_PITCH * 2 + 1023) / 1024) * 1024;
+    static constexpr int O_OFF = WIDE ? Q_OFF : V_OFF + DEPTH * KV_BYTES;
+    static constexpr int BAR_OFF =
+        WIDE ? V_OFF + DEPTH * KV_BYTES
+                : O_OFF + ((BQ * O_PITCH * 2 + 1023) / 1024) * 1024;
     // q_full, then full_k, full_v, empty_k, empty_v of every stage
     static constexpr int BYTES = BAR_OFF + 8 * (1 + 4 * DEPTH);
     static constexpr int ALLOC = BYTES + 1024;         // room to align
@@ -761,11 +1019,37 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
         : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// S (64 x keys) (+)= Q . K^T for one k-step: 128 keys, or 64 at D = 192
+// D(64 x 96, f32) (+)= A(64 x 16, smem, K-major) . B(16 x 96, smem, K-major)
+__device__ __forceinline__ void wgmma_m64n96k16_ss(float (&d)[48],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47}, "
+        "%48, %49, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// S (64 x keys) (+)= Q . K^T for one k-step: 128 keys, or 96 at D = 192
+// (64 in the tools' variants)
 template <int N>
 __device__ __forceinline__ void wgmma_qk(float (&s)[N], uint64_t desc_a,
                                          uint64_t desc_b, int scale_d) {
     if constexpr (N == 64) wgmma_m64n128k16_ss(s, desc_a, desc_b, scale_d);
+    else if constexpr (N == 48) wgmma_m64n96k16_ss(s, desc_a, desc_b, scale_d);
     else wgmma_m64n64k16_ss(s, desc_a, desc_b, scale_d);
 }
 
@@ -897,7 +1181,7 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
     }
 }
 
-// One warpgroup's 64 rows against one tile of N/2 keys (128, or 64 at
+// One warpgroup's 64 rows against one tile of N/2 keys (128, or 96 at
 // D = 192), after S = Q.K^T is
 // in ``s``: scores to the log2 domain (scale * log2 e), the masks where
 // the tile needs them, and the online-softmax update of (m, l); ``s``
@@ -1228,9 +1512,39 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
                 den[r] = fmaxf(l[r], 1e-30f);
             }
+            const int row = 16 * warp + (lane >> 2);
+            constexpr int CHUNKS = D / 8;             // 16 bytes each
+            if constexpr (L::WIDE) {
+                // staged in this warpgroup's own q rows (its last Q.K^T
+                // has been waited on), in their 128-byte swizzle: 16-byte
+                // chunk k of row r of a 64-column block at k ^ (r % 8)
+                uint8_t* s_o = smem + L::Q_OFF + 64 * w * L::ROW;
+#pragma unroll
+                for (int i = 0; i < D / 2; i += 2) {
+                    const int r = row + 8 * ((i >> 1) & 1);
+                    const int col = 8 * (i >> 2) + 2 * (lane & 3);
+                    *reinterpret_cast<__nv_bfloat162*>(
+                        s_o + (col / 64) * BQ * L::ROW + r * L::ROW
+                        + ((((col % 64) / 8) ^ (r & 7)) * 16)
+                        + (col % 8) * 2) =
+                        __floats2bfloat162_rn(o[i] / den[(i >> 1) & 1],
+                                              o[i + 1] / den[(i >> 1) & 1]);
+                }
+                asm volatile("bar.sync %0, 128;\n" :: "r"(1 + w) : "memory");
+                for (int c = tid; c < 64 * CHUNKS; c += 128) {
+                    const int rr = c / CHUNKS, cc = c % CHUNKS;
+                    if (rr < n_rows) {
+                        const uint4 val = *reinterpret_cast<const uint4*>(
+                            s_o + (cc / 8) * BQ * L::ROW + rr * L::ROW
+                            + (((cc % 8) ^ (rr & 7)) * 16));
+                        *reinterpret_cast<uint4*>(
+                            out + (((long long)b * S + r0 + rr) * H + h) * D
+                            + 8 * cc) = val;
+                    }
+                }
+            } else {
             __nv_bfloat16* s_o = reinterpret_cast<__nv_bfloat16*>(
                 smem + L::O_OFF) + 64 * w * L::O_PITCH;
-            const int row = 16 * warp + (lane >> 2);
 #pragma unroll
             for (int i = 0; i < D / 2; i += 2) {
                 const int r = (i >> 1) & 1;
@@ -1240,7 +1554,6 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     __floats2bfloat162_rn(o[i] / den[r], o[i + 1] / den[r]);
             }
             asm volatile("bar.sync %0, 128;\n" :: "r"(1 + w) : "memory");
-            constexpr int CHUNKS = D / 8;             // 16 bytes each
             for (int c = tid; c < 64 * CHUNKS; c += 128) {
                 const int rr = c / CHUNKS, cc = c % CHUNKS;
                 if (rr < n_rows) {
@@ -1250,6 +1563,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                         out + (((long long)b * S + r0 + rr) * H + h) * D
                         + 8 * cc) = val;
                 }
+            }
             }
         }
     }
@@ -1418,4 +1732,37 @@ extern "C" int flash_attention_fwd(
     }
 #undef FA_ARGS
     return (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+static long long fa_sizes(int dtype, int which) {
+    using L = tc::Layout<D>;
+    const bool f32 = dtype == 0;
+    switch (which) {
+        case 0: return f32 ? fa_threads<D>() / 32 : tc::THREADS / 32;
+        case 1: return f32 ? 4LL * fa_smem_floats<D>() : L::ALLOC;
+        case 2: return f32 ? fa_keys<D>() : L::KEYS;
+        case 3: return f32 ? FA_STAGES : L::DEPTH;
+        case 4: return f32 ? 2 : 3;
+        default: return -1;
+    }
+}
+
+// The launch of one forward kernel at head dim D (dtype 0: the f32
+// kernel, 1: the bf16 one): which = 0, warps a block; 1, bytes of
+// dynamic shared memory; 2, keys a K/V tile; 3, stages of its ring; 4,
+// the D-long dots it computes a visible (q, k) pair (bf16: Q.K^T and
+// P.V with P in two bf16 parts).  Both kernels launch one block a (q
+// tile, head, batch).  -1 for a D, dtype or which it does not have.
+extern "C" long long flash_attention_fwd_sizes(int D, int dtype,
+                                               int which) {
+    if (dtype != 0 && dtype != 1) return -1;
+    switch (D) {
+        case 16: return fa_sizes<16>(dtype, which);
+        case 32: return fa_sizes<32>(dtype, which);
+        case 64: return fa_sizes<64>(dtype, which);
+        case 128: return fa_sizes<128>(dtype, which);
+        case 192: return fa_sizes<192>(dtype, which);
+    }
+    return -1;
 }

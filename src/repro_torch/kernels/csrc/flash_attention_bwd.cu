@@ -105,6 +105,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "fa_exchange.cuh"   // fx_pair_sync, fx_put, fx_get
+
 #define FB_BQ 64
 #define FB_BK 64
 #define FB_WARPS 4
@@ -437,38 +439,6 @@ __device__ __forceinline__ void fb_ds_cols(float (&dp)[N][4],
     }
 }
 
-// ---- the pair exchange (D > 64) ------------------------------------------
-
-// the barrier of the two warps (64 threads) that share 16 stationary rows
-__device__ __forceinline__ void fb_pair_sync(int pair) {
-    asm volatile("bar.sync %0, 64;\n" :: "r"(1 + pair) : "memory");
-}
-
-// the warp's N 8-column slices of a C fragment into the exchange from
-// slice j0 on: a float4 a lane and slice
-template <int N>
-__device__ __forceinline__ void fb_put(float4* ex, const float (&c)[N][4],
-                                       int j0, int lane) {
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-        ex[(j0 + j) * 32 + lane] =
-            make_float4(c[j][0], c[j][1], c[j][2], c[j][3]);
-}
-
-// all K slices back, in the same fragment slots
-template <int K>
-__device__ __forceinline__ void fb_get(float (&c)[K][4], const float4* ex,
-                                       int lane) {
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-        const float4 x = ex[j * 32 + lane];
-        c[j][0] = x.x;
-        c[j][1] = x.y;
-        c[j][2] = x.z;
-        c[j][3] = x.w;
-    }
-}
-
 // ---- dq ------------------------------------------------------------------
 
 #define FB_DQ_PARAMS const float* __restrict__ q, \
@@ -735,10 +705,10 @@ __device__ __forceinline__ void fb_dq_wide(FB_DQ_PARAMS) {
         prod_abt<D, NW, FB_WIDE_UNROLL>(dp, do_row, fb_smem(Vst + m0 * RS),
                                         lane);
         fb_ds_rows<NW>(sc, dp, dl_a, dl_b);
-        fb_put<NW>(pex, sc, hf * NW, lane);
-        fb_pair_sync(pr);
+        fx_put<NW>(pex, sc, hf * NW, lane);
+        fx_pair_sync(pr);
         float ds[BM / 8][4];
-        fb_get<BM / 8>(ds, pex, lane);
+        fx_get<BM / 8>(ds, pex, lane);
         float part[DH / 8][4];
         zero_acc(part);
         prod_cb<D, DH / 8, BM / 8>(part, ds, Kst + hf * DH, g, t);
@@ -1030,16 +1000,16 @@ __device__ __forceinline__ void fb_dkdv_wide(FB_KV_PARAMS) {
         prod_abt<D, NW, FB_WIDE_UNROLL>(dp, v_row, fb_smem(DOst + m0 * RS),
                                         lane);
         fb_ds_cols<NW>(dp, sc, dl_st + m0, empty, t);
-        fb_put<NW>(pex, sc, hf * NW, lane);
-        fb_put<NW>(dsex, dp, hf * NW, lane);
-        fb_pair_sync(pr);
+        fx_put<NW>(pex, sc, hf * NW, lane);
+        fx_put<NW>(dsex, dp, hf * NW, lane);
+        fx_pair_sync(pr);
 
         float c[BM / 8][4], part[DH / 8][4];
-        fb_get<BM / 8>(c, pex, lane);
+        fx_get<BM / 8>(c, pex, lane);
         zero_acc(part);
         prod_cb<D, DH / 8, BM / 8>(part, c, DOst + hf * DH, g, t);  // dv
         add_acc(dva, part);
-        fb_get<BM / 8>(c, dsex, lane);
+        fx_get<BM / 8>(c, dsex, lane);
         zero_acc(part);
         prod_cb<D, DH / 8, BM / 8>(part, c, Qst + hf * DH, g, t);   // dk
         add_acc(dka, part);

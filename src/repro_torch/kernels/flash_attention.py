@@ -26,8 +26,11 @@ other):
   fails the tolerance), each tile's product summed from zero and added
   in f32, K/V tiles of 64 keys in a 2-stage ``cp.async`` ring, ``expf``
   and a true divide as the reference; checked at rtol = atol = 2e-5.
-  At D = 128 and 192 q sits in shared memory and a block may own part
-  of the output columns (``csrc/flash_attention.cu``).
+  At D = 128 and 192 q sits in shared memory and a block is eight
+  warps, the two of a pair sharing 16 q rows: each computes S over half
+  of a key tile, the pair agrees on the row max and trades P through
+  shared memory, and each takes P.V over half of the output columns
+  (``csrc/flash_attention.cu``; ``fwd_sizes`` reports each launch).
   Its k and v must sit on 16-byte addresses with 16-byte strides
   (``cp.async``), or the call raises ``ValueError``.
 * bf16 -> the tensor-core kernel: ``wgmma`` for ``Q.K^T`` and ``P.V``,
@@ -40,8 +43,9 @@ other):
   two bf16 parts (``P`` to about 2^-16, as the reference's f32 ``P``)
   and exp through ``exp2`` (``ex2.approx``): checked at rtol 8e-3,
   atol 1e-3 against the f32 plain version.  At D = 128 and 192 the
-  tiles (128 and 64 keys, a 2-stage ring) are stored in swizzled blocks
-  of 64 columns.  Its q, k
+  tiles are stored in swizzled blocks of 64 columns and the output is
+  staged in the q tile's space (128-key tiles in 3 stages at 128,
+  96-key tiles in 2 at 192).  Its q, k
   and v must sit on 16-byte addresses with 16-byte strides (TMA's
   rule), or the call raises ``ValueError``.
 
@@ -206,6 +210,25 @@ def bwd_sizes(d: int) -> dict:
     return {kind: {key: int(sizes(d, kernel, which))
                    for which, key in enumerate(BWD_SIZES)}
             for kernel, kind in enumerate(("dq", "dkdv"))}
+
+
+# what ``flash_attention_fwd_sizes`` reports of a launch, by its ``which``
+FWD_SIZES = ("warps", "shared_bytes", "tile_keys", "stages", "dots_a_pair")
+
+
+def fwd_sizes(d: int, dtype) -> dict:
+    """The forward kernel's launch at head dim ``d`` for ``dtype``
+    (float32: the split-TF32 kernel; bfloat16: the ``wgmma`` one) as the
+    built library reports it: warps a block, dynamic shared bytes, keys
+    a K/V tile, ring stages and the D-long dots it computes a visible
+    (q, k) pair.  Both kernels launch one block a (q tile, head,
+    batch).  Builds the library (a card machine's ``nvcc``)."""
+    sizes = _lib().flash_attention_fwd_sizes
+    if sizes.argtypes is None:
+        sizes.argtypes = [ctypes.c_int] * 3
+        sizes.restype = ctypes.c_longlong
+    return {key: int(sizes(d, _DTYPES[dtype], which))
+            for which, key in enumerate(FWD_SIZES)}
 
 
 def _needs_grad(*ts) -> bool:

@@ -183,15 +183,15 @@ LOG2E = 1.4426950408889634
 
 
 def _tc_emulation(q, k, v, *, causal, window, q_offset, round_p=True,
-                  split_p=True):
+                  split_p=True, bk=TC_BK):
     """The arithmetic of ``csrc/flash_attention.cu:
     flash_attention_tc_kernel`` in plain torch, for these tests only.
     q (B,S,H,D), k/v (B,T,Hkv,D) bf16 -> (out bf16, out before its
     rounding, f32).  Per (b, h) and 128-row block: the block's key range
     (the union of its rows' bands, or all T when a row sees no key);
-    per 64-row warpgroup, the 128-key tiles of that range it does not
-    skip; scores of the bf16 values summed in f32, times scale*log2(e)
-    (f32), masked by select (-1e30, or -inf past T); m, corr and
+    per 64-row warpgroup, the key tiles (``bk`` keys: 128, and 96 at
+    D = 192) of that range it does not skip; scores of the bf16 values
+    summed in f32, times scale*log2(e) (f32), masked by select (-1e30, or -inf past T); m, corr and
     p = 2^(s - m) in f32; l summed from the f32 p; P into P.V as two
     bf16 parts, P_hi = bf16(P) and P_lo = bf16(P - P_hi), O += P_hi.V +
     P_lo.V (``split_p``; with ``split_p=False``, P rounded to bf16 once,
@@ -227,24 +227,24 @@ def _tc_emulation(q, k, v, *, causal, window, q_offset, round_p=True,
                     m = torch.full((n,), -1e30)
                     l_run = torch.zeros(n)
                     o = torch.zeros(n, d)
-                    for t0 in range(lo // TC_BK * TC_BK, hi_, TC_BK):
+                    for t0 in range(lo // bk * bk, hi_, bk):
                         if not wg_blind and (t0 >= w_hi
-                                             or t0 + TC_BK <= w_lo):
+                                             or t0 + bk <= w_lo):
                             continue
-                        keys = t0 + torch.arange(TC_BK)
+                        keys = t0 + torch.arange(bk)
                         real = keys < t
-                        kt = torch.zeros(TC_BK, d)
-                        vt = torch.zeros(TC_BK, d)
+                        kt = torch.zeros(bk, d)
+                        vt = torch.zeros(bk, d)
                         kt[real], vt[real] = kh[keys[real]], vh[keys[real]]
                         sc = qh[r0:r0 + n] @ kt.T
-                        vis = real[None, :].expand(n, TC_BK)
+                        vis = real[None, :].expand(n, bk)
                         if causal:
                             vis = vis & (keys[None, :] <= rows)
                         if window > 0:
                             vis = vis & (keys[None, :] > rows - window)
                         masked = torch.where(real, -1e30, -torch.inf)
                         sc = torch.where(vis, sc * c, masked[None, :]
-                                         .expand(n, TC_BK))
+                                         .expand(n, bk))
                         m_new = torch.maximum(m, sc.max(dim=1).values)
                         corr = torch.exp2(m - m_new)
                         p = torch.exp2(sc - m_new[:, None])

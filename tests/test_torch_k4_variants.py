@@ -27,6 +27,24 @@ MARKERS = {"p_single": ["wgmma_pv<D>(o, pf[kk], desc_v);\n            }"],
            "overlap_bq192": ["constexpr int BQ = 64 * NWG;"],
            "stages4": ["FA_STAGES"],
            "l2_256": ["CU_TENSOR_MAP_L2_PROMOTION_L2_256B"],
+           "multicast": ["static constexpr bool CLUSTER = D > 64;",
+                         "tma_load_4d_mc(dst, map, full,",
+                         "cudaLaunchAttributeClusterDimension",
+                         "if constexpr (L::CLUSTER) cluster_sync();\n}"],
+           "multicast_loads_only": ["static constexpr bool CLUSTER = D > 64;",
+                                    "#ifndef ABL_NOSOFTMAX"],
+           "remote_arrivals": ["if (lane == 0) arrive2(empty_k(st));",
+                               "mbar_init(empty_k(st), 8 * (mcast ? 2 : 1));"],
+           "remote_arrivals_no_mc": ["if (lane == 0) arrive2(empty_k(st));",
+                                     "if (0)\n"],
+           "no_multicast": ["static constexpr bool CLUSTER = D > 64;",
+                            "const int mcast = 0 && L::CLUSTER"],
+           "depth2": ["DEPTH = WIDE ? 2 : STAGES;"],
+           "rescale_under_qk": ["issue_qk(st);\n                wgmma_commit();\n"
+                                "                rescale<D>(o, corr);"],
+           "keys64": ["KEYS = D <= 128 ? BK : 64;"],
+           "f32_keys32": ["{ return D <= 128 ? FA_BK : 32; }"],
+           "f32_unroll2": ["#define FA_WIDE_UNROLL 2"],
            "no_softmax": ["#ifndef ABL_NOSOFTMAX"],
            "no_products": ["#ifndef ABL_NOQK", "#ifndef ABL_NOPV"],
            "loads_only": ["#ifndef ABL_NOSOFTMAX"],
@@ -57,3 +75,17 @@ def test_switches_name_only_known_variants():
     assert set(MARKERS) | {"v0"} == set(k4v.VARIANTS)
     for patches, defines, _ in k4v.VARIANTS.values():
         assert all(d.startswith("-D") for d in defines)
+
+
+def test_multicast_cluster_lives_only_in_its_patch():
+    """The kernel launches no cluster: the 2-CTA multicast path (measured
+    slower on an H100) is the ``multicast`` patch's alone, and every
+    variant built on it carries the whole path."""
+    for word in ("CLUSTER", "multicast::cluster", "cudaLaunchKernelEx",
+                 "barrier.cluster", "mapa."):
+        assert word not in SOURCE, word
+    for name in ("multicast", "multicast_loads_only", "no_multicast",
+                 "remote_arrivals", "remote_arrivals_no_mc"):
+        src = _patched(name)
+        assert src.count("cluster_sync();") == 3, name
+        assert "Layout<D>::HALF};" in src and "Layout<D>::KEYS};" not in src

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Planted faults in the backward kernels of K4 and K5, read by
-``chip_smoke.py``'s gradient checks on one GPU.
+"""Planted faults in the kernels of K4 (forward and backward) and K5's
+backward, read by ``chip_smoke.py``'s checks on one GPU.
 
     python3 tools/block_grad_mutants.py [--only sound,ssm_da_no_a,...]
 
 Each mutant is a copy of ``src/repro_torch`` and ``chip_smoke.py`` under
-``build/block_grad_mutants/NAME/`` with one text patch in a backward
-kernel's source (``sound``: none).  The unpatched sources are built once
+``build/block_grad_mutants/NAME/`` with one text patch in a kernel's
+source (``sound``: none).  The unpatched sources are built once
 into ``build/`` and their libraries copied into every copy; each copy
 builds its patched source itself, all copies at once.  Each copy then
 runs, in its own process:
@@ -20,11 +20,14 @@ runs, in its own process:
 * ``chip_smoke.check_flash_bwd`` on every case of K4's head dims 128
   and 192 (``WIDE_HEAD_CASES``, ``WIDE_BWD_EDGE_CASES``), each on its
   own, so that the reading names every wide case a fault fails (the
-  kernel checks stop at their first, a narrow case).
+  kernel checks stop at their first, a narrow case);
+* ``chip_smoke.check_flash`` (the forward kernels against the plain
+  twin) on the same cases and ``FWD_HEAD_EDGE_CASES``, in f32 and bf16,
+  each on its own.
 
 A mutant line gives the block's largest reading and its leaf, whether
 ``chip_smoke.BLOCK_GRAD_RTOL`` catches it, the kernel checks' verdict,
-and the wide cases that fail.  The last line of standard output is one
+and the wide backward and forward cases that fail.  The last line of standard output is one
 JSON object of all mutants.  Needs one CUDA card and nvcc; exits
 non-zero otherwise, or when the sound copy fails, fails a wide case or
 reads above the tolerance.
@@ -45,6 +48,12 @@ Mutants:
   fa_tf32_single         K4: every product of both backward kernels one
                          TF32 product (hi . hi) without its two
                          correction terms
+  fa_fwd_band_short      K4's f32 forward: every row's band one key
+                         short at the window's far edge
+  fa_fwd_tf32_single     K4's f32 forward: every product one TF32
+                         product without its correction terms
+  fa_tc_window_edge      K4's bf16 forward: the window's far edge one key
+                         short on the tiles that take the masks
 """
 
 from __future__ import annotations
@@ -88,6 +97,17 @@ MUTANTS = {
                        "    mma_tf32(d, ah, bl0, bl1);\n"
                        "    mma_tf32(d, ah, bh0, bh1);\n",
                        "    mma_tf32(d, ah, bh0, bh1);\n"),
+    "fa_fwd_band_short": ("flash_attention",
+                          "lo = window > 0 ? max(0, p - window + 1) : 0;",
+                          "lo = window > 0 ? max(0, p - window + 2) : 0;"),
+    "fa_fwd_tf32_single": ("flash_attention",
+                           "    fa_mma_tf32(d, al, bh0, bh1);\n"
+                           "    fa_mma_tf32(d, ah, bl0, bl1);\n"
+                           "    fa_mma_tf32(d, ah, bh0, bh1);\n",
+                           "    fa_mma_tf32(d, ah, bh0, bh1);\n"),
+    "fa_tc_window_edge": ("flash_attention",
+                          "&& (window <= 0 || key > p - window);",
+                          "&& (window <= 0 || key > p - window + 1);"),
 }
 
 # run in each copy: the copy's chip_smoke and repro_torch, its tolerance
@@ -117,10 +137,22 @@ for name, (b, s, t, h, hkv, d), kw in c.WIDE_HEAD_CASES + \
         c.check_flash_bwd(name, *ins, **kw)
     except SystemExit:
         wide_failed.append(name)
+fwd = torch.Generator(device="cuda").manual_seed(31)
+fwd_failed = []
+for name, (b, s, t, h, hkv, d), kw in c.WIDE_HEAD_CASES + \
+        c.WIDE_BWD_EDGE_CASES + c.FWD_HEAD_EDGE_CASES:
+    for dtype in (torch.float32, torch.bfloat16):
+        ins = [torch.randn(*shape, generator=fwd, device="cuda").to(dtype)
+               for shape in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d))]
+        try:
+            c.check_flash(name, *ins, **kw)
+        except SystemExit:
+            fwd_failed.append(f"{name}-{str(dtype).removeprefix('torch.')}")
 print(json.dumps({"max_rel_err": block["max_rel_err"], "worst_leaf": worst,
                   "rtol": rtol, "caught": block["max_rel_err"] > rtol,
                   "kernel_bwd_checks": checks,
-                  "wide_cases_failed": wide_failed}))
+                  "wide_cases_failed": wide_failed,
+                  "wide_fwd_cases_failed": fwd_failed}))
 """
 
 
@@ -196,7 +228,8 @@ def main(argv=None) -> int:
     sound = results.get("sound")
     if sound is not None and ("error" in sound or sound["caught"]
                               or sound["kernel_bwd_checks"] != "passed"
-                              or sound["wide_cases_failed"]):
+                              or sound["wide_cases_failed"]
+                              or sound["wide_fwd_cases_failed"]):
         ok = False
     print(json.dumps({"mutants": results}), flush=True)
     return 0 if ok else 1

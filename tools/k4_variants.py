@@ -2,28 +2,33 @@
 """Variants of the bf16 attention kernel (K4) on one GPU, timed in turns.
 
     python3 tools/k4_variants.py [--only v0,bq192,...] [--prefill]
+                                 [--shapes narrow|wide|all]
+                                 [--baseline NAME=FILE.cu ...]
 
 Each variant is the committed ``src/repro_torch/kernels/csrc/
 flash_attention.cu`` with text patches and ``-D`` switches, built with
 ``nvcc -Xptxas -v`` into ``build/k4_variants/`` (registers and spills are
-printed).  The variants that compute attention are held against
+printed); each ``--baseline NAME=FILE.cu`` adds another source of the
+same entry point (an earlier commit's kernel, say) as the variant NAME,
+unpatched.  The variants that compute attention are held against
 ``gqa_plain`` on the edge cases of ``chip_smoke.py``, at the bf16
 tolerance (rtol 8e-3, atol 1e-3; ``p_single``, which rounds P to bf16
 once, at its own atol 3e-3); the ablations (parts switched off) only
 run.  All are timed with ``chip_smoke.median_ms`` (launches enqueued
-behind other device work, so the reading is device time) at the three
-prefill shapes of ``chip_smoke.py``, in turns: v0 first, then each
-variant, then the order reversed.  With ``--prefill``, each checked
-variant also runs ``chip_smoke.bf16_prefill_vs_f32`` (the bf16 hymba
-1280-token prefill, with the variant and with ``gqa_plain``, against the
-f32 forward on the same weights).  The last line of standard output is
-one JSON object of the times.  Needs one CUDA card and nvcc; exits
-non-zero otherwise or when a checked variant disagrees.  The variants
-are of the head dims up to 64 (the cases and shapes are all there): the
-``serial`` consumer keeps 128-key tiles, which the D = 128 and 192
-instantiations (64-key tiles) do not use, so those compile in every
-variant but compute attention only in v0 and the variants that keep
-the committed consumer.
+behind other device work, so the reading is device time) at the
+prefill shapes of ``chip_smoke.py`` (``--shapes``: the three at head
+dim 64, the four at 128 and 192 -- mixtral, phi4-mini, arctic,
+nemotron -- or all), in turns: v0 first, then each variant, then the
+order reversed.  With ``--prefill``, each checked variant also runs
+``chip_smoke.bf16_prefill_vs_f32`` (the bf16 hymba 1280-token prefill,
+with the variant and with ``gqa_plain``, against the f32 forward on the
+same weights).  The last line of standard output is one JSON object of
+the times.  Needs one CUDA card and nvcc; exits non-zero otherwise or
+when a checked variant disagrees.  The ``serial`` consumer and the
+192-row block keep the head-dim-64 tiling (128-key tiles, one 64-column
+block): those variants are checked and timed at D <= 64 only.  The
+others, ``WIDE`` below, also run ``chip_smoke.WIDE_HEAD_CASES`` and the
+wide shapes.
 
 Variants:
   v0                  the committed kernel (softmax under the previous
@@ -41,10 +46,26 @@ Variants:
   overlap_bq192       overlap at 192 rows
   stages4             a 4-stage K/V ring
   l2_256              256-byte L2 promotion on the tensor maps
+  multicast           (D = 128, 192) clusters of two heads sharing each
+                      K/V tile by TMA multicast
+  multicast_loads_only
+                      (ablation) loads_only on the multicast clusters
+  remote_arrivals     multicast, each stage freed by the consumer warps'
+                      arrivals on both CTAs' barriers (no handshake)
+  remote_arrivals_no_mc
+                      those barriers, each CTA loading its own tiles
+  no_multicast        (D = 128, 192) those clusters, each CTA loading its
+                      own K/V tiles
+  depth2              (D = 128) a 2-stage K/V ring
+  rescale_under_qk    o's rescale under the issued Q.K^T, inside the turn
+  keys64              (D = 192) 64-key tiles in a 3-stage ring
+  f32_keys32          the f32 kernel at D = 192 on 32-key tiles
+  f32_unroll2         the f32 kernel above D = 64, S's k-steps unrolled 2
   no_softmax          (ablation) products, no softmax
   no_products         (ablation) softmax on stale scores, no products
   loads_only          (ablation) the TMA ring and barriers alone
   loads_only_bq192    (ablation) the same at 192 rows
+  NAME                a source given with --baseline NAME=FILE.cu
 """
 
 from __future__ import annotations
@@ -64,9 +85,20 @@ OUT = ROOT / "build" / "k4_variants"
 TOL = (8e-3, 1e-3)
 # P rounded to bf16 once: a second rounding beside the output's
 TOL_P_SINGLE = (8e-3, 3e-3)
-SHAPES = {"hymba-4096-window1024": (2, 4096, 25, 5, 1024),
-          "hymba-1024-causal": (2, 1024, 25, 5, 0),
-          "llama-4096-causal": (2, 4096, 32, 8, 0)}
+# name -> (b, s, h, hkv, window, d): the prefill layers of
+# chip_smoke.py, head dim 64, then 128 and 192
+SHAPES = {"hymba-4096-window1024": (2, 4096, 25, 5, 1024, 64),
+          "hymba-1024-causal": (2, 1024, 25, 5, 0, 64),
+          "llama-4096-causal": (2, 4096, 32, 8, 0, 64)}
+WIDE_SHAPES = {"mixtral-4096-window4096": (2, 4096, 32, 8, 4096, 128),
+               "phi4-mini-4096-causal": (2, 4096, 24, 8, 0, 128),
+               "arctic-2048-causal": (1, 2048, 56, 8, 0, 128),
+               "nemotron-4096-causal": (1, 4096, 96, 8, 0, 192)}
+# the f32 kernel (with lse) at the training layers of chip_smoke.py's
+# FA_BWD_SHAPES with head dims 128 and 192
+F32_SHAPES = {"phi4-mini-2048-causal-f32": (1, 2048, 24, 8, 0, 128),
+              "nemotron-2048-causal-f32": (1, 2048, 96, 8, 0, 192)}
+TOL_F32 = (2e-5, 2e-5)
 
 
 def replace(src, old, new):
@@ -391,6 +423,318 @@ def single_p(src):
 """, "")
 
 
+# The cluster path of ``multicast``: the kernel's bf16 forward at D = 128
+# and 192 with K/V tiles shared by a 2-CTA cluster through TMA multicast
+# (measured slower on an H100 and not in the kernel: PERF.md).
+MC_HELPERS = r"""// The same box into the shared memory of every CTA of the cluster in
+// ``mask`` (bit r: the CTA of rank r), at the same offset, completion
+// counted on each one's barrier at the offset of ``bar``.
+__device__ __forceinline__ void tma_load_4d_mc(uint32_t dst,
+                                               const CUtensorMap* map,
+                                               uint32_t bar, int c0, int c1,
+                                               int c2, int c3,
+                                               uint16_t mask) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".multicast::cluster [%0], [%1, {%4, %5, %6, %7}], [%2], %3;\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+           "h"(mask), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// An arrival on the barrier at the offset of ``bar`` in the CTA of rank
+// ``rank`` of the cluster when ``on`` (a predicate, not a branch),
+// releasing this thread's earlier accesses at cluster scope.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar,
+                                                   uint32_t rank, int on) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b32 ra;\nsetp.ne.b32 p, %2, 0;\n"
+        "@p mapa.shared::cluster.u32 ra, %0, %1;\n"
+        "@p mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n"
+        :: "r"(bar), "r"(rank), "r"(on) : "memory");
+}
+
+// mbar_wait that acquires at cluster scope: for a barrier that the other
+// CTA of the cluster arrives on.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, int parity) {
+    uint32_t done = 0;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// Every thread of both CTAs of the cluster: arrive, then wait.
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release;\n"
+                 "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+"""
+
+MC_HEADS = r"""    // CLUSTER: the CTAs of a cluster are heads h and h ^ 1 (grid y is H
+    // rounded up to even; a head h >= H has no rows).  Their rows have
+    // the same positions, so they walk the same tiles; when both read
+    // one kv head, each K/V tile is loaded once for both (mcast), else
+    // each CTA loads its own.  The same value in both CTAs.
+    const uint32_t rank = blockIdx.y & 1;
+    const int mcast = L::CLUSTER && (h | 1) < H
+                      && (h & ~1) / (H / Hkv) == (h | 1) / (H / Hkv);
+
+"""
+
+MC_SYNC = r"""    if constexpr (L::CLUSTER) {
+        // the barriers of both CTAs are initialised before either
+        // multicasts into the other or arrives on its barriers
+        cluster_sync();
+        if (h >= H) {         // a padding head: only the exit's barrier
+            cluster_sync();
+            return;
+        }
+    } else {
+        __syncthreads();
+    }
+"""
+
+MC_PRODUCER = r"""                if constexpr (L::CLUSTER) {
+                    // a tile in two halves of HALF rows a 64-column
+                    // block: with mcast this CTA loads half ``rank`` into
+                    // both CTAs, else both halves into its own.  With
+                    // mcast a stage is refilled once the readers of both
+                    // CTAs have freed it: each producer, seeing its own
+                    // readers done (empty), tells the other (an arrival
+                    // on its peer barrier) and waits to be told.  The
+                    // handshake is the producers'; the consumers'
+                    // arrivals stay local (remote arrivals from their
+                    // warps made the kernel ~1.5x slower on an H100:
+                    // PERF.md)
+                    auto handshake = [&](uint32_t peer) {
+                        if (!mcast) return;
+                        mbar_arrive_remote(peer, rank ^ 1, j >= STAGES);
+                        mbar_wait_cluster(peer, ph ^ 1);
+                    };
+                    const int h_lo = mcast ? (int)rank : 0;
+                    const int h_hi = mcast ? (int)rank + 1 : 2;
+                    auto load = [&](uint32_t off, const CUtensorMap* map,
+                                    uint32_t full) {
+                        for (int c = 0; c < D / L::COLS; ++c)
+                            for (int hh = h_lo; hh < h_hi; ++hh) {
+                                const uint32_t dst = s_base + off
+                                    + st * L::KV_BYTES + c * BK * L::ROW
+                                    + hh * L::HALF * L::ROW;
+                                const int row = t0 + hh * L::HALF;
+                                if (mcast)
+                                    tma_load_4d_mc(dst, map, full,
+                                                   c * L::COLS, row, hk, b,
+                                                   0x3);
+                                else
+                                    tma_load_4d(dst, map, full,
+                                                c * L::COLS, row, hk, b);
+                            }
+                    };
+                    mbar_wait(empty_k(st), ph ^ 1);
+                    handshake(peer_k(st));
+                    mbar_expect_tx(full_k(st), L::KV_BYTES);
+                    load(L::K_OFF, &tm_k, full_k(st));
+                    mbar_wait(empty_v(st), ph ^ 1);
+                    handshake(peer_v(st));
+                    mbar_expect_tx(full_v(st), L::KV_BYTES);
+                    load(L::V_OFF, &tm_v, full_v(st));
+                    continue;
+                }
+"""
+
+MC_LAUNCH = r"""    if constexpr (Layout<D>::CLUSTER) {
+        // clusters of the two CTAs of heads h, h ^ 1: grid y even
+        const int hp = (H + 1) & ~1;
+        if (hp > 65535) return (int)cudaErrorInvalidValue;
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = dim3((S + BQ - 1) / BQ, hp, B);
+        cfg.blockDim = dim3(THREADS);
+        cfg.dynamicSmemBytes = smem;
+        cfg.stream = stream;
+        cudaLaunchAttribute attr[1];
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = 1;
+        attr[0].val.clusterDim.y = 2;
+        attr[0].val.clusterDim.z = 1;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+        ce = cudaLaunchKernelEx(
+            &cfg, flash_attention_tc_kernel<D>, mq, mk, mv,
+            static_cast<__nv_bfloat16*>(out), S, T_len, H, Hkv, causal,
+            window, q_offset, (float)((double)scale * 1.4426950408889634));
+        if (ce != cudaSuccess) return (int)ce;
+        return (int)cudaGetLastError();
+    }
+"""
+
+
+def multicast(src):
+    """D = 128, 192: clusters of two CTAs, heads h and h ^ 1 of one q
+    tile, each K/V tile loaded once for both by TMA multicast when they
+    read one kv head (the producers' handshake frees a stage)."""
+    src = replace(src, "    static constexpr bool WIDE = D > 64;\n",
+                  "    static constexpr bool WIDE = D > 64;\n"
+                  "    static constexpr bool CLUSTER = D > 64;\n")
+    src = replace(src, "    static constexpr int KEYS = D <= 128 ? BK : 96;\n",
+                  "    static constexpr int KEYS = D <= 128 ? BK : 96;\n"
+                  "    static constexpr int HALF = CLUSTER ? KEYS / 2 : KEYS;"
+                  "   // box rows\n")
+    # q_full, full_k, full_v, empty_k, empty_v and peer_k, peer_v a stage
+    src = replace(src, "BAR_OFF + 8 * (1 + 4 * DEPTH);",
+                  "BAR_OFF + 8 * (1 + (CLUSTER ? 6 : 4) * DEPTH);")
+    src = replace(src, "// wgmma shared-memory matrix descriptor",
+                  MC_HELPERS + "// wgmma shared-memory matrix descriptor")
+    # peer_k, peer_v of every stage, arrived on by the other CTA's
+    # producer once that CTA's readers have freed the stage
+    src = replace(src, """    auto empty_v = [&](int st) { return bar + 8 * (1 + 3 * STAGES + st); };
+""", """    auto empty_v = [&](int st) { return bar + 8 * (1 + 3 * STAGES + st); };
+    auto peer_k = [&](int st) { return bar + 8 * (1 + 4 * STAGES + st); };
+    auto peer_v = [&](int st) { return bar + 8 * (1 + 5 * STAGES + st); };
+""")
+    src = replace(src, """    const int hk = h / (H / Hkv);
+
+    // The keys this CTA walks""", """    const int hk = h / (H / Hkv);
+""" + MC_HEADS + """    // The keys this CTA walks""")
+    src = replace(src, """            mbar_init(empty_v(st), 8);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+    }
+    __syncthreads();
+""", """            mbar_init(empty_v(st), 8);
+            if constexpr (L::CLUSTER) {
+                mbar_init(peer_k(st), 1);  // the other CTA's producer
+                mbar_init(peer_v(st), 1);
+            }
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+    }
+""" + MC_SYNC)
+    src = replace(src, """                mbar_wait(empty_k(st), ph ^ 1);
+                mbar_expect_tx(full_k(st), L::KV_BYTES);
+""", MC_PRODUCER + """                mbar_wait(empty_k(st), ph ^ 1);
+                mbar_expect_tx(full_k(st), L::KV_BYTES);
+""")
+    # no CTA of a cluster exits while the other may still multicast into
+    # it or arrive on its barriers
+    src = replace(src, """}
+
+// ---- host side: tensor maps""", """    if constexpr (L::CLUSTER) cluster_sync();
+}
+
+// ---- host side: tensor maps""")
+    src = src.replace("Layout<D>::KEYS};", "Layout<D>::HALF};")
+    return replace(src, """    const dim3 grid((S + BQ - 1) / BQ, H, B);
+    flash_attention_tc_kernel<D><<<""", MC_LAUNCH + """    const dim3 grid((S + BQ - 1) / BQ, H, B);
+    flash_attention_tc_kernel<D><<<""")
+
+
+def no_multicast(src):
+    """The clusters of ``multicast``, every CTA loading its own K/V
+    tiles (no multicast, no handshake)."""
+    return replace(multicast(src),
+                   "const int mcast = L::CLUSTER && (h | 1) < H",
+                   "const int mcast = 0 && L::CLUSTER && (h | 1) < H")
+
+
+def rescale_under_qk(src):
+    """o's rescale by corr after Q.K^T is issued, under it, and before
+    P.V is issued (v0: before both, inside the turn)."""
+    return replace(src, """                turn_begin();
+                // o's rescale before the products: no register of an
+                // issued product is written until its wait
+                rescale<D>(o, corr);
+                wgmma_fence();
+                issue_qk(st);
+                wgmma_commit();
+                issue_pv(sp);""", """                turn_begin();
+                wgmma_fence();
+                issue_qk(st);
+                wgmma_commit();
+                rescale<D>(o, corr);
+                wgmma_fence();
+                issue_pv(sp);""")
+
+
+def keys64(src):
+    """D = 192: K/V tiles of 64 keys in a 3-stage ring (v0: 96 keys in
+    2 stages; the tiling before the output staging: 64 keys in 2)."""
+    src = replace(src, "static constexpr int KEYS = D <= 128 ? BK : 96;",
+                  "static constexpr int KEYS = D <= 128 ? BK : 64;")
+    return replace(src,
+                   "static constexpr int DEPTH = D == 192 ? 2 : WIDE ? 3 "
+                   ": STAGES;",
+                   "static constexpr int DEPTH = WIDE ? 3 : STAGES;")
+
+
+def f32_keys32(src):
+    """The f32 kernel at D = 192: K/V tiles of 32 keys (v0: 48)."""
+    return replace(src, "__host__ __device__ constexpr int fa_keys() "
+                        "{ return D <= 128 ? FA_BK : 48; }",
+                   "__host__ __device__ constexpr int fa_keys() "
+                   "{ return D <= 128 ? FA_BK : 32; }")
+
+
+def f32_unroll2(src):
+    """The f32 kernel above D = 64: S's k-steps unrolled 2 (v0: 4)."""
+    return replace(src, "#define FA_WIDE_UNROLL 4", "#define FA_WIDE_UNROLL 2")
+
+
+def remote_arrivals(src):
+    """``multicast`` with the stage freed by the consumers' own warps:
+    each arrives on both CTAs' empty barriers (lane 0 of a warp, a
+    remote arrival on the other CTA's), and the producers do not
+    handshake."""
+    src = replace(multicast(src), """            mbar_init(empty_k(st), 8);     // lane 0 of each consumer warp
+            mbar_init(empty_v(st), 8);""", """            mbar_init(empty_k(st), 8 * (mcast ? 2 : 1));
+            mbar_init(empty_v(st), 8 * (mcast ? 2 : 1));""")
+    src = replace(src, "                        if (!mcast) return;",
+                  "                        return;")
+    src = replace(src, """        const int row_pos = pa + 16 * warp + (lane >> 2);
+""", """        const int row_pos = pa + 16 * warp + (lane >> 2);
+        auto arrive2 = [&](uint32_t e) {
+            mbar_arrive(e);
+            mbar_arrive_remote(e, rank ^ 1, mcast);
+        };
+""")
+    n = src.count("if (lane == 0) mbar_arrive(")
+    if n != 4:
+        raise SystemExit(f"k4_variants: {n} lane-0 arrivals, expected 4")
+    src = src.replace("if (lane == 0) mbar_arrive(", "if (lane == 0) arrive2(")
+    return replace(src, """            if (lane == 0) {
+                mbar_arrive(empty_k(st));
+                mbar_arrive(empty_v(st));
+            }""", """            if (lane == 0) {
+                arrive2(empty_k(st));
+                arrive2(empty_v(st));
+            }""")
+
+
+def remote_arrivals_no_mc(src):
+    """``remote_arrivals``' barriers, every CTA loading its own K/V
+    tiles: what the cross-CTA arrivals cost without the multicast."""
+    src = replace(remote_arrivals(src),
+                  "const int h_lo = mcast ? (int)rank : 0;",
+                  "const int h_lo = 0;")
+    src = replace(src, "const int h_hi = mcast ? (int)rank + 1 : 2;",
+                  "const int h_hi = 2;")
+    return replace(src, """                                if (mcast)
+                                    tma_load_4d_mc(""", """                                if (0)
+                                    tma_load_4d_mc(""")
+
+
+def depth2(src):
+    """A 2-stage K/V ring at D = 128 (v0: 3)."""
+    return replace(src,
+                   "static constexpr int DEPTH = D == 192 ? 2 : WIDE ? 3 "
+                   ": STAGES;",
+                   "static constexpr int DEPTH = WIDE ? 2 : STAGES;")
+
+
 # name -> (patches, -D switches, tolerance against gqa_plain or None for
 # an ablation that does not compute attention)
 VARIANTS = {
@@ -405,6 +749,18 @@ VARIANTS = {
     "overlap_bq192": ((no_turns, knobs), ("-DFA_NWG=3",), TOL),
     "stages4": ((knobs,), ("-DFA_STAGES=4",), TOL),
     "l2_256": ((knobs,), ("-DFA_L2_256",), TOL),
+    "multicast": ((multicast,), (), TOL),
+    "multicast_loads_only": ((multicast, ablations),
+                             ("-DABL_NOQK", "-DABL_NOPV", "-DABL_NOSOFTMAX"),
+                             None),
+    "remote_arrivals": ((remote_arrivals,), (), TOL),
+    "remote_arrivals_no_mc": ((remote_arrivals_no_mc,), (), TOL),
+    "no_multicast": ((no_multicast,), (), TOL),
+    "depth2": ((depth2,), (), TOL),
+    "rescale_under_qk": ((rescale_under_qk,), (), TOL),
+    "keys64": ((keys64,), (), TOL),
+    "f32_keys32": ((f32_keys32,), (), TOL),
+    "f32_unroll2": ((f32_unroll2,), (), TOL),
     "no_softmax": ((ablations,), ("-DABL_NOSOFTMAX",), None),
     "no_products": ((ablations,), ("-DABL_NOQK", "-DABL_NOPV"), None),
     "loads_only": ((ablations,), ("-DABL_NOQK", "-DABL_NOPV",
@@ -415,16 +771,29 @@ VARIANTS = {
 }
 
 
-def build(names):
-    """Build every named variant in parallel; name -> (library, ptxas
-    lines)."""
+# the variants that keep the committed consumer at every head dim (or
+# switch parts of it off): checked and timed at D = 128 and 192 too
+WIDE = ("v0", "p_single", "overlap", "pingpong_branching", "all_lanes",
+        "stages4", "l2_256", "multicast", "multicast_loads_only",
+        "remote_arrivals", "remote_arrivals_no_mc", "no_multicast", "depth2",
+        "rescale_under_qk", "keys64", "f32_keys32", "f32_unroll2",
+        "no_softmax", "no_products", "loads_only")
+# the variants that change the f32 kernel: also checked in f32 and timed
+# at the f32 training shapes
+F32 = ("f32_keys32", "f32_unroll2")
+
+
+def build(names, baselines=None):
+    """Build every named variant (and each baseline NAME -> source text)
+    in parallel; name -> (library, ptxas lines)."""
     from repro_torch.kernels import _build
     committed = (_build.CSRC / "flash_attention.cu").read_text()
     OUT.mkdir(parents=True, exist_ok=True)
+    baselines = baselines or {}
     procs = {}
     for name in names:
-        patches, defines, _ = VARIANTS[name]
-        src = committed
+        patches, defines, _ = VARIANTS.get(name, ((), (), TOL))
+        src = baselines.get(name, committed)
         for patch in patches:
             src = patch(src)
         cu = OUT / f"{name}.cu"
@@ -440,7 +809,7 @@ def build(names):
             raise SystemExit(f"k4_variants: {name} failed to build:\n{out}")
         keep = [ln.strip() for ln in out.splitlines()
                 if "tc_kernel" in ln or "registers" in ln or "spill" in ln
-                or "C75" in ln]
+                or "C75" in ln or "smem" in ln]
         libs[name] = (ctypes.CDLL(str(OUT / f"lib{name}.so")), keep)
     return libs
 
@@ -452,6 +821,22 @@ def use(lib):
     lib.flash_attention_fwd.argtypes = fa._ARGTYPES
     lib.flash_attention_fwd.restype = ctypes.c_int
     _build._LIBS["flash_attention"] = lib
+
+
+def wide_cases(gen, dtype):
+    """The head dims 128 and 192 of ``chip_smoke.py``
+    (``WIDE_HEAD_CASES``, ``WIDE_BWD_EDGE_CASES``, ``FWD_HEAD_EDGE_CASES``)
+    in ``dtype``."""
+    import chip_smoke
+    import torch
+    out = []
+    for name, (b, s, t, h, hkv, d), kw in (chip_smoke.WIDE_HEAD_CASES
+                                           + chip_smoke.WIDE_BWD_EDGE_CASES
+                                           + chip_smoke.FWD_HEAD_EDGE_CASES):
+        q, k, v = (torch.randn(*x, generator=gen, device="cuda").to(dtype)
+                   for x in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d)))
+        out.append((name, (q, k, v), kw))
+    return out
 
 
 def cases(gen):
@@ -491,33 +876,54 @@ def main(argv=None) -> int:
     ap.add_argument("--prefill", action="store_true",
                     help="also the bf16 hymba prefill against the f32 "
                          "forward, with each checked variant")
+    ap.add_argument("--shapes", choices=("narrow", "wide", "all"),
+                    default="all",
+                    help="time at head dim 64, at 128 and 192, or both")
+    ap.add_argument("--baseline", action="append", default=[],
+                    help="NAME=FILE.cu: another source as variant NAME")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("k4_variants: no CUDA device", file=sys.stderr)
-        return 1
     names = ["v0"] + [n for n in args.only.split(",") if n and n != "v0"]
     unknown = [n for n in names if n not in VARIANTS]
     if unknown:
         raise SystemExit(f"k4_variants: unknown variants {unknown}")
+    baselines = {}
+    for spec in args.baseline:
+        name, _, path = spec.partition("=")
+        if not name or not path or name in VARIANTS or name in baselines:
+            raise SystemExit(f"k4_variants: --baseline {spec!r}: want a "
+                             f"new NAME=FILE.cu")
+        baselines[name] = Path(path).read_text()
+    names += list(baselines)
+    wide = set(WIDE) | set(baselines)
+    if not torch.cuda.is_available():
+        print("k4_variants: no CUDA device", file=sys.stderr)
+        return 1
     import chip_smoke
     from repro_torch.kernels import flash_attention as fa
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    libs = build(names)
+    libs = build(names, baselines)
     for name in names:
         print(json.dumps({"variant": name, "ptxas": libs[name][1]}),
               flush=True)
     gen = torch.Generator(device="cuda").manual_seed(10)
     checks = cases(gen)
+    checks_wide = wide_cases(gen, torch.bfloat16)
+    checks_f32 = wide_cases(gen, torch.float32)
+    f32 = {"v0", *F32, *baselines}
     bad = []
     for name in names:
-        tol = VARIANTS[name][2]
+        tol = VARIANTS[name][2] if name in VARIANTS else TOL
         if tol is None:
             continue
         use(libs[name][0])
         worst = 0.0
-        for cname, (q, k, v), kw in checks:
+        mine = [(c, x, kw, tol) for c, x, kw in
+                checks + (checks_wide if name in wide else [])]
+        if name in f32 and name in F32:
+            mine += [(c, x, kw, TOL_F32) for c, x, kw in checks_f32]
+        for cname, (q, k, v), kw, tol in mine:
             want = fa.gqa_plain(q, k, v, **kw)
             got = fa.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
@@ -526,27 +932,43 @@ def main(argv=None) -> int:
             if not torch.allclose(got.float(), want.float(), rtol=tol[0],
                                   atol=tol[1]):
                 bad.append(f"{name}/{cname}: max abs {err}")
-        print(json.dumps({"variant": name, "checked": len(checks),
+        print(json.dumps({"variant": name, "checked": len(mine),
                           "worst_max_abs_err": worst, "tol": tol}),
               flush=True)
     times = {}
-    for shape, (b, s, h, hkv, window) in SHAPES.items():
+    shapes = {**(SHAPES if args.shapes != "wide" else {}),
+              **(WIDE_SHAPES if args.shapes != "narrow" else {})}
+    if args.shapes != "narrow" and any(n in F32 for n in names):
+        shapes.update(F32_SHAPES)
+    for shape, (b, s, h, hkv, window, d) in shapes.items():
+        dtype = torch.float32 if shape in F32_SHAPES else torch.bfloat16
+
         def r(*shape_):
             return torch.randn(*shape_, generator=gen,
-                               device="cuda").to(torch.bfloat16)
-        q, k, v = r(b, s, h, 64), r(b, s, hkv, 64), r(b, s, hkv, 64)
+                               device="cuda").to(dtype)
+        q, k, v = r(b, s, h, d), r(b, s, hkv, d), r(b, s, hkv, d)
+        if shape in F32_SHAPES:
+            timed = [n for n in names if n in f32]
+
+            def call():
+                return fa._kernel_forward(q, k, v, True, window, 0,
+                                          with_lse=True)
+        else:
+            timed = [n for n in names if d <= 64 or n in wide]
+
+            def call():
+                return fa.flash_attention(q, k, v, window=window)
         times[shape] = {}
-        for name in names + names[::-1]:
+        for name in timed + timed[::-1]:
             use(libs[name][0])
             times[shape].setdefault(name, []).append(chip_smoke.median_ms(
-                lambda: fa.flash_attention(q, k, v, window=window),
-                runs=5, per_run=10))
+                call, runs=5, per_run=10))
         print(json.dumps({"shape": shape, "ms": times[shape]}), flush=True)
     prefill = {}
     if args.prefill:
         cfg, params = chip_smoke._lm_params("hymba-1.5b", torch.bfloat16)
         for name in names:
-            if VARIANTS[name][2] is not None:
+            if VARIANTS.get(name, (None, None, TOL))[2] is not None:
                 use(libs[name][0])
                 prefill[name] = chip_smoke.bf16_prefill_vs_f32(cfg, params)
                 print(json.dumps({"variant": name,
