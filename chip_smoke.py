@@ -943,15 +943,7 @@ def device_busy(argv):
                                 ProfilerActivity.CUDA]) as prof:
         fl_train.main(argv)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
+    busy = union_s((e.time_range.start, e.time_range.end) for e in kernels)
     per = {}
     for e in kernels:
         per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -3079,9 +3071,10 @@ LM_PREFILL = (("hymba-1.5b", 2, 4096, "banded"),
               ("hymba-1.5b", 2, 1024, "chunked"),
               ("llama3.2-1b", 2, 4096, "chunked"))
 LM_WARM_RUNS = 3
-# the serving path: 4 requests, a 64-token prompt filled by decode
-# steps, then 32 greedy steps
-SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 64, 32
+# the serving path: 4 requests, a 32-token prompt filled by decode
+# steps, then 32 greedy steps (the host-bound decode's other seconds go
+# to the xLSTM phases)
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 32, 32
 # the consistency run (f32): longer than hymba's window of 1024, so that
 # the ring cache wraps, and a multiple of its attention chunks, so that
 # prefill takes the banded branch.  The chunk sizes (TrainConfig's
@@ -3092,9 +3085,11 @@ CONSISTENCY_CHUNK = 256
 # its depth, cut from hymba's 32 layers at full width: the 1280 decode
 # steps are host-bound (~270 PyTorch ops a layer a step), so the
 # script's time limit, not the card, sets the number of layers (8 took
-# 24-31 s of the script on one H100's host; 4 keep every layer kind the
-# check reads: banded attention, the SSM, the ring cache)
-CONSISTENCY_LAYERS = 4
+# 24-31 s of the script on one H100's host, 4 took 12-15 s; one layer
+# keeps every kind the check reads -- each hymba layer has the banded
+# attention, the SSM and the ring cache -- and frees the seconds the
+# xLSTM phases need)
+CONSISTENCY_LAYERS = 1
 # f32 logits of a random-weight model (up to 32 layers), two orders of summation
 # (GEMM vs GEMV products, chunked vs stepwise scan, kernel vs plain
 # softmax): absolute, on logits of order one
@@ -3232,7 +3227,7 @@ def lm_prefill_path(models):
 
 def lm_serve_path(models):
     """The serving path at full width, bf16, hymba-1.5b: 4 requests, the
-    decode state filled by decode steps over a 64-token prompt (as the
+    decode state filled by decode steps over a 32-token prompt (as the
     JAX package's ``launch/serve.py`` does), then 32 greedy steps, every
     one through ``make_serve_step``; then the CLI once at its reduced
     defaults."""
@@ -3276,17 +3271,18 @@ def lm_serve_path(models):
             or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         fail(f"serve path: pos {state['pos']}, tokens "
              f"{toks[0, :8].tolist()}")
-    # the CLI, at its reduced defaults, on the card
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # the CLI, at its reduced defaults, on the card, in this process (a
+    # new process would spend ~8 s of the script reaching the card)
+    import io
+    from repro_torch.launch import serve as serve_cli
+    printed = io.StringIO()
     t0 = time.perf_counter()
-    cli = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "hymba-1.5b"], cwd=ROOT, env=env, capture_output=True, text=True,
-        timeout=300)
+    with contextlib.redirect_stdout(printed):
+        cli_tokens = serve_cli.main(["--arch", "hymba-1.5b"])
     cli_s = time.perf_counter() - t0
-    if cli.returncode != 0:
-        fail(f"python -m repro_torch.launch.serve exited {cli.returncode}:"
-             f"\n{cli.stdout}\n{cli.stderr}")
+    if cli_tokens.shape[0] < 1 or "[serve] hymba-1.5b-reduced" \
+            not in printed.getvalue():
+        fail(f"repro_torch.launch.serve: {printed.getvalue()}")
     return {"arch": cfg.arch_id, "batch": SERVE_BATCH,
             "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN,
             "dtype": "torch.bfloat16",
@@ -3298,7 +3294,8 @@ def lm_serve_path(models):
             "launches": launched,
             "ssm_scan_per_step": launched["ssm_scan"] / steps,
             "sample_tokens": toks[0, :16].tolist(),
-            "cli_s": cli_s, "cli_stdout": cli.stdout.strip().splitlines()}
+            "cli_s": cli_s,
+            "cli_stdout": printed.getvalue().strip().splitlines()}
 
 
 # The bf16 prefill with K4 against the f32 forward on the same weights,
@@ -3487,7 +3484,9 @@ def lm_consistency():
 # (arch, batch, seq): hymba's window of 1024 < 2048 puts its attention
 # on the banded branch; llama is causal (chunked branch)
 LM_TRAIN = (("hymba-1.5b", 1, 2048), ("llama3.2-1b", 2, 2048))
-LM_TRAIN_STEPS = 3
+# timed steps: the first and one warm (a third step's seconds go to the
+# xLSTM and MoE phases)
+LM_TRAIN_STEPS = 2
 # one more step after the timed ones, traced by torch.profiler (CUDA
 # kernels and the CPU ops that launched them) and left out of the step
 # times
@@ -3504,13 +3503,17 @@ BLOCK_GRAD_RTOL = 1e-4
 
 @contextlib.contextmanager
 def recording_train_steps(record, profile=False,
-                          profile_after=LM_TRAIN_STEPS):
+                          profile_after=LM_TRAIN_STEPS,
+                          groups=None):
     """``launch.train``'s ``make_train_step`` with each step timed on the
     host between two synchronizes (``record["step_s"]``) and the last
     step's (params, opt_state, metrics) kept (``record["last"]``).  With
     ``profile`` the step after ``profile_after`` steps runs under
     ``torch.profiler`` instead of the clock: ``record["profile"]`` is
-    its ``step_profile``."""
+    its ``step_profile`` (kernels grouped by ``groups``, default
+    ``STEP_GROUPS``), or with ``profile="kernels"`` its
+    ``kernel_profile`` (device activity only, for steps of ~10^5
+    host-bound ops)."""
     import torch
     from torch.profiler import ProfilerActivity
     from repro_torch.launch import steps as steps_mod
@@ -3521,7 +3524,12 @@ def recording_train_steps(record, profile=False,
 
         def timed(params, opt_state, batch):
             torch.cuda.synchronize()
-            if profile and len(record["step_s"]) == profile_after:
+            if profile == "kernels" \
+                    and len(record["step_s"]) == profile_after:
+                out, record["profile"] = kernel_profile(
+                    lambda: step(params, opt_state, batch),
+                    groups or STEP_GROUPS)
+            elif profile and len(record["step_s"]) == profile_after:
                 with torch.profiler.profile(activities=[
                         ProfilerActivity.CPU, ProfilerActivity.CUDA],
                         record_shapes=True) as prof, \
@@ -3534,7 +3542,8 @@ def recording_train_steps(record, profile=False,
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - t0
                 t1 = time.perf_counter()
-                record["profile"] = step_profile(prof, wall)
+                record["profile"] = step_profile(prof, wall,
+                                                 groups=groups or STEP_GROUPS)
                 record["profile"]["reading_s"] = time.perf_counter() - t1
             else:
                 t0 = time.perf_counter()
@@ -3573,61 +3582,115 @@ STEP_GROUPS = (
 )
 
 
-def step_group(name: str) -> str:
+# the MoE train step's groups: the dispatch's sorts, searches and
+# gathers (and their index backward) apart from the other elementwise
+# kernels; the embedding's gather and its backward fall in it too.  The
+# expert einsums are ``aten::bmm`` (``op_s`` of the profile): their
+# GEMM kernels are named as the attention projections' are.
+MOE_STEP_GROUPS = STEP_GROUPS[:5] + (
+    ("dispatch", ("sort", "searchsorted", "index", "gather", "scatter")),
+) + STEP_GROUPS[5:]
+
+
+def step_group(name: str, groups=STEP_GROUPS) -> str:
     low = name.lower()
-    for group, keys in STEP_GROUPS:
+    for group, keys in groups:
         if any(k in low for k in keys):
             return group
     return "other"
 
 
-def step_profile(prof, wall_s: float, top: int = 12) -> dict:
-    """One profiled train step: every device kernel's time summed by
-    name, the kernels launched inside ``OPTIMIZER_RANGE`` taken out as
+def step_profile(prof, wall_s: float, top: int = 12, groups=STEP_GROUPS,
+                 ops: bool = True) -> dict:
+    """A finished ``torch.profiler`` run (a profiled train step), read from
+    its raw events (the profiler's Python event tree took 3-8 s for a
+    hymba step): every device kernel's time summed by name; a kernel
+    whose launch lies inside an ``OPTIMIZER_RANGE`` range is
     "optimizer", the rest grouped by ``step_group``; each group's
-    seconds, the ``top`` kernels by time, and the ``top`` PyTorch ops
-    by the device time of the kernels they launched themselves, with
-    their input shapes (who calls the kernels).  ``wall_s`` is the
-    profiled step's host time (the profiler's own cost included)."""
+    seconds, the seconds in which a kernel ran (``busy_s``, the union
+    of their intervals), the ``top`` kernels by time; with ``ops`` (and
+    host activity recorded with shapes) the ``top`` PyTorch ops by the
+    device time of the kernels they launched themselves (the innermost
+    op around each launch, on its thread), with their input shapes (who
+    calls the kernels), and the same by op name alone (``op_s``).  The
+    device-side span of a ``record_function`` range is not a kernel and
+    is left out.  ``wall_s`` is the profiled step's host time (the
+    profiler's own cost included)."""
     from torch.autograd import DeviceType
-    by_name, opt_by_name = {}, {}
-
-    def under(ev):
-        for kern in ev.kernels:
-            opt_by_name[kern.name] = opt_by_name.get(kern.name, 0.0) \
-                + kern.duration
-        for child in ev.cpu_children:
-            under(child)
-
-    for ev in prof.events():
-        if ev.name == OPTIMIZER_RANGE:
-            if ev.device_type == DeviceType.CPU:
-                under(ev)
-        elif ev.device_type == DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) \
-                + ev.time_range.elapsed_us()
-    groups = {g: 0.0 for g, _ in STEP_GROUPS}
-    groups.update(optimizer=0.0, other=0.0)
-    for name, us in by_name.items():
-        opt = min(us, opt_by_name.get(name, 0.0))
-        groups["optimizer"] += opt
-        groups[step_group(name)] += us - opt
-    device_s = sum(by_name.values()) / 1e6
-    if device_s <= 0.0:
-        fail("step_profile: the profiler saw no device time")
+    kernels, launches, cpu_ops, ranges = [], [], [], []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            if not e.is_user_annotation() and name != OPTIMIZER_RANGE:
+                kernels.append((e.start_ns(), e.end_ns(), e.correlation_id(),
+                                name))
+        elif e.is_user_annotation():
+            if name == OPTIMIZER_RANGE:
+                ranges.append((e.start_ns(), e.end_ns()))
+        elif name.startswith("cu") and "::" not in name:
+            # the CUDA API calls (cudaLaunchKernel, cuLaunchKernel, ...)
+            launches.append((e.start_thread_id(), e.start_ns(),
+                             e.correlation_id()))
+        elif ops:
+            cpu_ops.append((e.start_thread_id(), e.start_ns(), e.end_ns(),
+                            name, str(e.shapes())))
+    if not kernels:
+        fail("step_profile: the profiler saw no device activity")
+    launched_at = {corr: at for _, at, corr in launches}
+    # each launch's innermost enclosing op on its thread: ops nest, so a
+    # sweep in time order with a stack of the open ones finds it
+    owner, timeline = {}, {}
+    for i, (tid, a, b, _, _) in enumerate(cpu_ops):
+        timeline.setdefault(tid, []).append((a, 0, -b, i))
+    for tid, a, corr in launches:
+        timeline.setdefault(tid, []).append((a, 1, 0, corr))
+    for items in timeline.values():
+        items.sort()
+        stack = []
+        for at, kind, _, ref in items:
+            while stack and cpu_ops[stack[-1]][2] < at:
+                stack.pop()
+            if kind == 0:
+                stack.append(ref)
+            elif stack:
+                owner[ref] = stack[-1]
+    table = groups
+    groups = {g: 0 for g, _ in table}
+    groups.update(optimizer=0, other=0)
+    by_name, group_of, op_ns = {}, {}, {}
+    for start, end, corr, name in kernels:
+        ns = end - start
+        by_name[name] = by_name.get(name, 0) + ns
+        at = launched_at.get(corr)
+        if at is not None and any(a <= at <= b for a, b in ranges):
+            groups["optimizer"] += ns
+        else:
+            if name not in group_of:
+                group_of[name] = step_group(name, table)
+            groups[group_of[name]] += ns
+        i = owner.get(corr)
+        if i is not None:
+            key = cpu_ops[i][3:]
+            op_ns[key] = op_ns.get(key, 0) + ns
+    calls = {}
+    for op in cpu_ops:
+        calls[op[3:]] = calls.get(op[3:], 0) + 1
+    op_s = {}
+    for (name, _), ns in op_ns.items():
+        op_s[name] = op_s.get(name, 0.0) + ns / 1e9
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    ops = sorted((e for e in prof.key_averages(group_by_input_shape=True)
-                  if e.device_type == DeviceType.CPU
-                  and e.self_device_time_total > 0),
-                 key=lambda e: -e.self_device_time_total)[:top]
-    return {"profiled_wall_s": wall_s, "device_s": device_s,
-            "groups_s": {g: us / 1e6 for g, us in groups.items()},
-            "top": [{"name": n[:120], "s": us / 1e6, "group": step_group(n)}
-                    for n, us in ranked],
-            "top_ops": [{"op": e.key, "shapes": str(e.input_shapes)[:160],
-                         "calls": e.count,
-                         "s": e.self_device_time_total / 1e6}
-                        for e in ops]}
+    top_ops = sorted(op_ns.items(), key=lambda kv: -kv[1])[:top]
+    return {"profiled_wall_s": wall_s, "kernels": len(kernels),
+            "device_s": sum(by_name.values()) / 1e9,
+            "busy_s": union_s((a, b) for a, b, _, _ in kernels) / 1e9,
+            "groups_s": {g: ns / 1e9 for g, ns in groups.items()},
+            "optimizer_ranges": len(ranges),
+            "top": [{"name": n[:120], "s": ns / 1e9,
+                     "group": step_group(n, table)} for n, ns in ranked],
+            "op_s": dict(sorted(op_s.items(), key=lambda kv: -kv[1])[:top]),
+            "top_ops": [{"op": name, "shapes": shapes[:160],
+                         "calls": calls[(name, shapes)], "s": ns / 1e9}
+                        for (name, shapes), ns in top_ops]}
 
 
 def with_step_shares(profile: dict, warm_s: float) -> dict:
@@ -3640,6 +3703,41 @@ def with_step_shares(profile: dict, warm_s: float) -> dict:
                                      profile["groups_s"].items()},
             "top": [{**t, "share_of_step": t["s"] / warm_s}
                     for t in profile["top"]]}
+
+
+def union_s(spans) -> float:
+    """Length of the union of ``(start, end)`` intervals, in their unit."""
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy
+
+
+def kernel_profile(fn, groups=STEP_GROUPS, top=8):
+    """``fn()`` under ``torch.profiler`` recording the device alone (for
+    runs of ~10^5 host-bound ops: the profiler's cost on the host kept
+    low, no op table, no optimizer split), read by ``step_profile``: the
+    wall s (the profiler's cost included), the device time by group,
+    the busy seconds and their share of the wall time, the ``top``
+    kernels.  Returns (``fn()``, the profile)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    reading = step_profile(prof, wall, top, groups, ops=False)
+    del reading["op_s"], reading["top_ops"]
+    return out, {**reading, "busy_share": reading["busy_s"] / wall,
+                 "reading_s": time.perf_counter() - t1}
 
 
 # launch.train's corpus, (args, kwargs) -> the tokens or their pending
@@ -3859,12 +3957,15 @@ FL_LM_ARGV = ["--rounds", "2", "--seed", "0"]
 
 def fl_lm_path():
     """``fl_train`` with its default arch (reduced llama3.2-1b) and with
-    ``--arch hymba-1.5b`` (reduced: the SSM scan forward and backward;
-    its attention at seq 128 takes the naive branch), 2 rounds each,
-    twice: equal histories; K1 and K5 launches."""
+    ``--arch hymba-1.5b`` (reduced: the SSM scan forward and backward),
+    ``--arch mixtral-8x7b`` (reduced: the MoE dispatch and its backward)
+    and ``--arch xlstm-350m`` (reduced: the mLSTM and the sLSTM's time
+    loop), 2 rounds each, twice: equal histories; K1 launched, K5 for
+    hymba; the attention at seq 128 takes the naive branch (no K4)."""
     from repro_torch.launch import fl_train
     out = []
-    for extra in ([], ["--arch", "hymba-1.5b"]):
+    for extra in ([], ["--arch", "hymba-1.5b"], ["--arch", "mixtral-8x7b"],
+                  ["--arch", "xlstm-350m"]):
         hists, launched, walls = [], [], []
         for _ in range(2):
             zero_counts()
@@ -3879,10 +3980,12 @@ def fl_lm_path():
         if c["fedagg"] < 1:
             fail(f"fl_lm_path {arch}: the rounds never aggregated through "
                  f"K1: {c}")
-        hybrid = bool(extra)
+        hybrid = extra[1:] == ["hymba-1.5b"]
         if hybrid and (c["ssm_scan"] < 1 or c["ssm_scan_bwd"] < 1):
             fail(f"fl_lm_path {arch}: K5 forward/backward not launched: "
                  f"{c}")
+        if not hybrid and (c["ssm_scan"] or c["ssm_scan_bwd"]):
+            fail(f"fl_lm_path {arch}: K5 launched: {c}")
         if c["flash_attention"] or c["flash_attention_bwd_dq"]:
             fail(f"fl_lm_path {arch}: seq 128 should take the naive "
                  f"attention branch, K4 launched: {c}")
@@ -4174,6 +4277,59 @@ def lm_moe_consistency():
             "launches_forward": forward_counts}
 
 
+def _cut_train(arch, num_layers, b, s, timed_steps, corpus_tokens,
+               profile=True, groups=None):
+    """``python -m repro_torch.launch.train --full --arch ARCH`` in-process,
+    f32, AdamW, cut to ``num_layers`` (``get_arch`` patched) on a corpus
+    ``corpus_tokens`` long from the CLI's generator: ``timed_steps``
+    steps, then (with ``profile``) one more under ``torch.profiler``
+    (``recording_train_steps``).  Returns the losses, step seconds, the
+    profile, the launch counts, the wall and peak bytes, and
+    ``checksums``: each leaf of the trained model and of AdamW's state
+    as the sum of its f32 words read as integers (any flipped bit moves
+    it), the run's last tensors then dropped."""
+    import dataclasses
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.tree import tree_leaves
+
+    def cut(name):
+        return dataclasses.replace(get_arch(name), num_layers=num_layers)
+
+    def corpus(vocab, n, seed=0):
+        return real_corpus(vocab, corpus_tokens, seed=seed)
+
+    real_corpus = train_mod.make_token_dataset
+    record = {}
+    steps = timed_steps + (1 if profile else 0)
+    argv = ["--arch", arch, "--full", "--batch", str(b), "--seq", str(s),
+            "--steps", str(steps), "--log-every", "1"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with recording_train_steps(record, profile=profile,
+                               profile_after=timed_steps, groups=groups), \
+            patched(train_mod, "get_arch", cut), \
+            patched(train_mod, "make_token_dataset", corpus):
+        zero_counts()
+        t0 = time.perf_counter()
+        losses = train_mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+    params, opt_state, _ = record.pop("last")
+    checksums = [int(t.contiguous().view(torch.int32).sum(dtype=torch.int64))
+                 for t in tree_leaves(params) + tree_leaves(opt_state)
+                 if t.dtype == torch.float32]
+    del params, opt_state
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_s": record["step_s"],
+            "profile": record.get("profile"), "launches": launched,
+            "wall_s": wall, "peak_bytes": peak, "steps": steps,
+            "checksums": checksums}
+
+
 def lm_wide_train_step():
     """``python -m repro_torch.launch.train --full --arch phi4-mini-3.8b``
     in-process, f32, AdamW, cut to ``WIDE_TRAIN_LAYERS`` and
@@ -4183,57 +4339,385 @@ def lm_wide_train_step():
     ``torch.profiler`` (``step_profile``, as ``lm_train_path``): the
     K4 groups' share of the step.  Returns (the phase, the per-step
     launches)."""
-    import dataclasses
     import math
-    import torch
     from repro_torch.config import get_arch
-    from repro_torch.launch import train as train_mod
     arch, b, s = WIDE_TRAIN
-
-    def cut(name):
-        return dataclasses.replace(get_arch(name),
-                                   num_layers=WIDE_TRAIN_LAYERS)
-
-    def corpus(vocab, n, seed=0):
-        return real_corpus(vocab, WIDE_TRAIN_TOKENS, seed=seed)
-
-    real_corpus = train_mod.make_token_dataset
-    record = {}
-    steps = WIDE_TRAIN_STEPS + PROFILED_STEPS
-    argv = ["--arch", arch, "--full", "--batch", str(b), "--seq", str(s),
-            "--steps", str(steps), "--log-every", "1"]
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    with recording_train_steps(record, profile=True,
-                               profile_after=WIDE_TRAIN_STEPS), \
-            patched(train_mod, "get_arch", cut), \
-            patched(train_mod, "make_token_dataset", corpus):
-        zero_counts()
-        t0 = time.perf_counter()
-        losses = train_mod.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launched = counts()
-    n = WIDE_TRAIN_LAYERS * steps
+    r = _cut_train(arch, WIDE_TRAIN_LAYERS, b, s, WIDE_TRAIN_STEPS,
+                   WIDE_TRAIN_TOKENS)
+    n = WIDE_TRAIN_LAYERS * r["steps"]
     want = only(flash_attention=n, flash_attention_bwd_dq=n,
                 flash_attention_bwd_dkdv=n)
-    if launched != want:
-        fail(f"lm_wide_train_step: launches {launched}, expected {want}")
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"lm_wide_train_step: losses {losses}")
-    step_s = record["step_s"]
-    profiled = with_step_shares(record["profile"], step_s[-1])
-    record.clear()
-    torch.cuda.empty_cache()
+    if r["launches"] != want:
+        fail(f"lm_wide_train_step: launches {r['launches']}, expected "
+             f"{want}")
+    if not all(math.isfinite(x) for x in r["losses"]):
+        fail(f"lm_wide_train_step: losses {r['losses']}")
+    step_s = r["step_s"]
     return {"arch": arch, "num_layers": WIDE_TRAIN_LAYERS, "batch": b,
             "seq": s, "head_dim": get_arch(arch).head_dim,
             "dtype": "float32", "optimizer": "adamw",
-            "corpus_tokens": WIDE_TRAIN_TOKENS, "losses": losses,
+            "corpus_tokens": WIDE_TRAIN_TOKENS, "losses": r["losses"],
             "step_s": step_s, "warm_s_per_step": step_s[-1],
-            "tokens_per_s": b * s / step_s[-1], "wall_s": wall,
-            "launches": launched, "profiled_step": profiled,
-            "peak_bytes": torch.cuda.max_memory_allocated()}, {
-        k: v // steps for k, v in launched.items()}
+            "tokens_per_s": b * s / step_s[-1], "wall_s": r["wall_s"],
+            "launches": r["launches"],
+            "profiled_step": with_step_shares(r["profile"], step_s[-1]),
+            "peak_bytes": r["peak_bytes"]}, {
+        k: v // r["steps"] for k, v in r["launches"].items()}
+
+
+# ---------------------------------------------------------------------
+# MoE training at full width: K4's f32 kernels at D = 128 under the
+# expert dispatch
+# ---------------------------------------------------------------------
+
+# mixtral-8x7b (d 4096, d_ff 14336, 8 experts, top-2, D = 128, window
+# 4096 >= S) trained in f32 with AdamW through launch.train, cut from 32
+# layers to MOE_TRAIN_LAYERS: 1,451.3 M parameters a layer and 262.1 M
+# in the embedding and head, 16 B each with the gradient and AdamW's two
+# moments: 50.6 GB at 2 layers (3 would be 73.9 GB before activations).
+# B = 1 x 2048 is one MoE group (moe_group_tokens = 4096 does not divide
+# 2048), capacity 640 slots an expert.  One whole run (MOE_TRAIN_STEPS
+# timed steps and one profiled); the repeat that holds it to its seed is
+# one block's gradients at the run's layer shape, twice (a second whole
+# run would cost the seconds the host-bound xLSTM phases need)
+MOE_TRAIN = ("mixtral-8x7b", 1, 2048)
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_TOKENS = 2, 3, 8192
+CARD_BYTES = 80e9
+
+
+def moe_block_grads_repeat():
+    """One full-width mixtral-8x7b block in f32 (random weights from seed
+    0, a random (1, 2048, 4096) input and cotangent, the load-balance
+    loss weighted 0.01 as in ``lm_loss``), at ``launch.train``'s
+    attention chunks and ``TrainConfig().moe_group_tokens``: every
+    parameter's and the input's gradient twice, through K4 (forward with
+    lse, dq, dkdv) and the expert dispatch's backward (gathers whose
+    indices repeat: empty slots and dropped tokens clamped), bit for
+    bit."""
+    import dataclasses
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.models import init_model
+    from repro_torch.models.transformer import _block_apply, _layer
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    arch, b, s = MOE_TRAIN
+    cfg = dataclasses.replace(get_arch(arch), num_layers=1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    block = _layer(init_model(cfg, gen)["blocks"], 0)
+    x = torch.randn(b, s, cfg.d_model, generator=gen, device="cuda")
+    cot = torch.randn(b, s, cfg.d_model, generator=gen, device="cuda")
+    positions = torch.arange(s, device="cuda")[None]
+    chunk = min(128, s)
+
+    def grads():
+        leaves, treedef = tree_flatten(block)
+        leaves = [l.detach().requires_grad_(True) for l in leaves] + \
+            [x.detach().requires_grad_(True)]
+        y, aux = _block_apply(tree_unflatten(treedef, leaves[:-1]), cfg,
+                              leaves[-1], positions,
+                              window=cfg.sliding_window, chunk_q=chunk,
+                              chunk_kv=chunk, ssm_chunk=256,
+                              moe_group=TrainConfig().moe_group_tokens)
+        g = torch.autograd.grad(
+            (y, aux), leaves, (cot, torch.full((), 0.01, device="cuda")))
+        torch.cuda.synchronize()
+        return [aux.detach()] + list(g)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    first = grads()
+    second = grads()
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    want = only(flash_attention=2, flash_attention_bwd_dq=2,
+                flash_attention_bwd_dkdv=2)
+    if launched != want:
+        fail(f"moe block gradients: launches {launched}, expected {want}")
+    differ = [i for i, (a, c) in enumerate(zip(first, second))
+              if not torch.equal(a, c)]
+    if differ or not all(bool(torch.isfinite(t).all()) for t in first):
+        fail(f"moe block gradients: tensors {differ} differ between two "
+             f"runs, or are not finite")
+    n = len(first)
+    del first, second, block
+    torch.cuda.empty_cache()
+    return {"arch": arch, "b": b, "s": s, "tensors": n,
+            "bitwise_equal": True, "seconds": seconds,
+            "launches": launched}
+
+
+def lm_moe_train_step():
+    """``launch.train --full --arch mixtral-8x7b`` (``MOE_TRAIN``, cut to
+    ``MOE_TRAIN_LAYERS``): K4's f32 forward with lse, dq and dkdv once a
+    layer a step, finite losses, peak under ``CARD_BYTES``; s/step,
+    tokens/s, the first step, and the profiled step by group
+    (``MOE_STEP_GROUPS``; the expert einsums as ``aten::bmm``); then
+    ``moe_block_grads_repeat``.  Returns (the phase, the per-step
+    launches)."""
+    import math
+    from repro_torch.config import get_arch
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.models.moe import capacity_for
+    arch, b, s = MOE_TRAIN
+    cfg = get_arch(arch)
+    r = _cut_train(arch, MOE_TRAIN_LAYERS, b, s, MOE_TRAIN_STEPS,
+                   MOE_TRAIN_TOKENS, groups=MOE_STEP_GROUPS)
+    n = MOE_TRAIN_LAYERS * r["steps"]
+    want = only(flash_attention=n, flash_attention_bwd_dq=n,
+                flash_attention_bwd_dkdv=n)
+    if r["launches"] != want:
+        fail(f"lm_moe_train_step: launches {r['launches']}, expected "
+             f"{want}")
+    if not all(math.isfinite(x) for x in r["losses"]):
+        fail(f"lm_moe_train_step: losses {r['losses']}")
+    if r["peak_bytes"] >= CARD_BYTES:
+        fail(f"lm_moe_train_step: peak {r['peak_bytes']} B")
+    step_s = r["step_s"]
+    warm = statistics.median(step_s[1:])
+    prof = with_step_shares(r["profile"], warm)
+    prof["expert_einsums_s"] = prof["op_s"].get("aten::bmm", 0.0)
+    group = TrainConfig().moe_group_tokens
+    return {"arch": arch, "num_layers": MOE_TRAIN_LAYERS, "batch": b,
+            "seq": s, "head_dim": cfg.head_dim, "dtype": "float32",
+            "optimizer": "adamw", "corpus_tokens": MOE_TRAIN_TOKENS,
+            "moe_group_tokens": group, "groups": 1,
+            "capacity": capacity_for(b * s, cfg.top_k, cfg.n_experts,
+                                     cfg.moe_capacity_factor),
+            "losses": r["losses"], "step_s": step_s,
+            "first_step_s": step_s[0], "warm_s_per_step": warm,
+            "tokens_per_s": b * s / warm, "wall_s": r["wall_s"],
+            "launches": r["launches"], "peak_bytes": r["peak_bytes"],
+            "leaf_checksums": r["checksums"],
+            "profiled_step": prof,
+            "block_grads_repeat": moe_block_grads_repeat()}, {
+        k: v // r["steps"] for k, v in r["launches"].items()}
+
+
+# ---------------------------------------------------------------------
+# The xLSTM family at full width (no kernel of the port on its path)
+# ---------------------------------------------------------------------
+
+# xlstm-350m: 12 stacked (mLSTM, sLSTM, GeLU MLP) pairs, d 1024, 4
+# heads, vocab 50304.  The sLSTM is a Python loop of one step a token,
+# ~22 PyTorch ops a layer a step (more with autograd): these phases are
+# host-bound (14-19 us of host a kernel on an H100 machine: the card is
+# busy 5-9 % of a prefill or a train step), and their lengths are cut
+# to the script's time limit; a token costs the same host time at any
+# length.  Serving in bf16: a
+# prefill of XLSTM_PREFILL through make_prefill_step (one mLSTM chunk of
+# 256), run twice, the second (warm) run under kernel_profile (device
+# activity only: the card's busy share); then 4 requests decoded (a 16-token
+# prompt filled by decode steps, then 16 greedy steps), twice
+XLSTM = "xlstm-350m"
+XLSTM_PREFILL = (2, 256)
+XLSTM_SERVE_BATCH, XLSTM_SERVE_PROMPT, XLSTM_SERVE_GEN = 4, 16, 16
+# f32 decode against the forward: 2 pairs at full width, S = 512, so
+# that the forward's mLSTM crosses a chunk boundary (ssm_chunk 256); the
+# reference's tolerance for this family
+# (tests/test_decode_consistency.py)
+XLSTM_CONSISTENCY_LAYERS, XLSTM_CONSISTENCY_S = 4, 512
+XLSTM_DECODE_TOL = 2e-4
+# training: f32 AdamW through launch.train, 4 pairs, B = 1 x 256 (one
+# mLSTM chunk; the backward across chunks is held to jax.grad on the
+# CPU), one timed step and a second read by kernel_profile (~7 x 10^4
+# kernels a step; device activity only, so clip + AdamW's kernels fall
+# in their kernels' groups)
+XLSTM_TRAIN = (1, 256)
+XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_STEPS, XLSTM_TRAIN_TOKENS = 8, 1, 4096
+
+
+def lm_xlstm_serve_path():
+    """xlstm-350m at full width (12 pairs), bf16: the prefill of
+    ``XLSTM_PREFILL`` through ``make_prefill_step`` (first run, then a
+    warm run whose logits must equal it) and 4 requests decoded through
+    ``make_serve_step``, twice (the same tokens and logits); no kernel
+    of the port launched, finite logits; tokens/s, first-run s, peak,
+    and the card's busy share in the warm prefill (``kernel_profile``,
+    device activity only)."""
+    import torch
+    from repro_torch.config.base import InputShape, TrainConfig
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import init_decode_state
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, init_s = _fresh(XLSTM, torch.bfloat16)
+    b, s = XLSTM_PREFILL
+    tcfg = TrainConfig()
+    prefill = make_prefill_step(cfg, tcfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device="cuda")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    logits, prefill_prof = kernel_profile(
+        lambda: prefill(params, {"tokens": toks}))
+    warm_s = prefill_prof["profiled_wall_s"]
+    prefill_counts = counts()
+    if prefill_counts != only():
+        fail(f"xlstm prefill launched {prefill_counts}")
+    if tuple(logits.shape) != (b, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()) \
+            or not torch.equal(first, logits):
+        fail(f"xlstm prefill: logits {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}, warm == first "
+             f"{torch.equal(first, logits)}")
+    prefill_tokens = logits.argmax(-1).tolist()
+
+    cache_len = XLSTM_SERVE_PROMPT + XLSTM_SERVE_GEN
+    shape = InputShape("serve", cache_len, XLSTM_SERVE_BATCH, "decode")
+    step = make_serve_step(cfg, shape, tcfg)
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (XLSTM_SERVE_BATCH, XLSTM_SERVE_PROMPT),
+                            generator=gen, device="cuda")
+
+    def serve():
+        state = init_decode_state(cfg, XLSTM_SERVE_BATCH, cache_len,
+                                  dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(XLSTM_SERVE_PROMPT):
+            logits, state = step(params, state,
+                                 {"tokens": prompts[:, i:i + 1]})
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        out = []
+        t0 = time.perf_counter()
+        for _ in range(XLSTM_SERVE_GEN):
+            out.append(tok)
+            logits, state = step(params, state, {"tokens": tok})
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        return (fill_s, time.perf_counter() - t0, torch.cat(out, 1),
+                logits, state["pos"])
+
+    zero_counts()
+    decodes = [serve(), serve()]
+    decode_counts = counts()
+    fill_s, decode_s, out, logits, pos = decodes[0]
+    if decode_counts != only() or pos != cache_len \
+            or not bool(torch.isfinite(logits).all()):
+        fail(f"xlstm decode: launches {decode_counts}, pos {pos}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    if not (torch.equal(out, decodes[1][2])
+            and torch.equal(logits, decodes[1][3])):
+        fail("xlstm decode: two seeded runs differ")
+    peak = torch.cuda.max_memory_allocated()
+    param_bytes = _param_bytes(params)
+    del params
+    torch.cuda.empty_cache()
+    n_dec = XLSTM_SERVE_BATCH * XLSTM_SERVE_GEN
+    return {"arch": cfg.arch_id, "num_layers": cfg.num_layers,
+            "pairs": cfg.num_layers // 2, "dtype": "torch.bfloat16",
+            "param_bytes": param_bytes,
+            "init_s": init_s,
+            "prefill": {"batch": b, "prompt_len": s, "ssm_chunk": 256,
+                        "first_run_s": first_s, "warm_s": warm_s,
+                        "prompt_tokens_per_s": b * s / warm_s,
+                        "warm_run": "under kernel_profile, device "
+                                    "activity only",
+                        "launches": prefill_counts,
+                        "busy": prefill_prof,
+                        "greedy_tokens": prefill_tokens},
+            "decode": {"batch": XLSTM_SERVE_BATCH,
+                       "prompt_len": XLSTM_SERVE_PROMPT,
+                       "gen": XLSTM_SERVE_GEN, "prompt_fill_s": fill_s,
+                       "prompt_fill_tokens_per_s": XLSTM_SERVE_BATCH
+                       * XLSTM_SERVE_PROMPT / fill_s,
+                       "decode_s": decode_s,
+                       "decode_tokens_per_s": n_dec / decode_s,
+                       "s_per_decode_step": decode_s / XLSTM_SERVE_GEN,
+                       "second_run_decode_s": decodes[1][1],
+                       "launches": decode_counts,
+                       "two_runs_equal": True,
+                       "sample_tokens": out[0].tolist()},
+            "peak_bytes": peak}
+
+
+def lm_xlstm_consistency():
+    """xlstm-350m in f32 at full width, ``XLSTM_CONSISTENCY_LAYERS``
+    deep: decoding a prompt of ``XLSTM_CONSISTENCY_S`` one token at a
+    time through the mLSTM memory, its conv state and the sLSTM state
+    against one forward over the prompt (two mLSTM chunks of 256): every
+    position's logits within ``XLSTM_DECODE_TOL`` (rtol and atol), no
+    kernel of the port launched."""
+    import torch
+    from repro_torch.models import decode_step, forward, init_decode_state
+    cfg, params, init_s = _fresh(XLSTM, torch.float32,
+                                 XLSTM_CONSISTENCY_LAYERS)
+    n = XLSTM_CONSISTENCY_S
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device="cuda")
+    zero_counts()
+    t0 = time.perf_counter()
+    full, _ = forward(cfg, params, {"tokens": prompt}, ssm_chunk=256)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    state = init_decode_state(cfg, 1, n, dtype=torch.float32, device="cuda")
+    outs = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        logits, state = decode_step(cfg, params, state, prompt[:, i:i + 1])
+        outs.append(logits[:, 0])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launched = counts()
+    dec = torch.stack(outs, 1)
+    err = (dec - full).abs()
+    bound = XLSTM_DECODE_TOL + XLSTM_DECODE_TOL * full.abs()
+    worst = float((err / bound).max())
+    max_abs = float(err.max())
+    del params, state, full, dec
+    torch.cuda.empty_cache()
+    if launched != only():
+        fail(f"xlstm consistency: launches {launched}")
+    if not worst <= 1.0:
+        fail(f"xlstm consistency: decode vs forward max abs {max_abs}, "
+             f"{worst} of the tolerance (rtol = atol = "
+             f"{XLSTM_DECODE_TOL})")
+    return {"arch": cfg.arch_id, "num_layers": cfg.num_layers,
+            "pairs": cfg.num_layers // 2, "dtype": "torch.float32",
+            "prompt_len": n, "ssm_chunk": 256, "init_s": init_s,
+            "decode_vs_forward_max_abs": max_abs,
+            "share_of_tolerance": worst, "rtol": XLSTM_DECODE_TOL,
+            "atol": XLSTM_DECODE_TOL, "forward_s": forward_s,
+            "decode_s": decode_s, "decode_tokens_per_s": n / decode_s,
+            "launches": launched}
+
+
+def lm_xlstm_train_step():
+    """``launch.train --full --arch xlstm-350m`` in-process, f32 AdamW,
+    cut to ``XLSTM_TRAIN_LAYERS`` (4 pairs), B x S = ``XLSTM_TRAIN``:
+    ``XLSTM_TRAIN_STEPS`` timed step(s) and one more under
+    ``kernel_profile`` (device time by group, the card's busy share);
+    no kernel of the port launched, finite losses; s/step, tokens/s,
+    peak."""
+    import math
+    b, s = XLSTM_TRAIN
+    r = _cut_train(XLSTM, XLSTM_TRAIN_LAYERS, b, s, XLSTM_TRAIN_STEPS,
+                   XLSTM_TRAIN_TOKENS, profile="kernels")
+    if r["launches"] != only():
+        fail(f"lm_xlstm_train_step: launches {r['launches']}")
+    if not all(math.isfinite(x) for x in r["losses"]):
+        fail(f"lm_xlstm_train_step: losses {r['losses']}")
+    # the timed step is the first: the step is host-bound, and the
+    # allocator's first-step work is small beside its host time
+    step_s = r["step_s"]
+    warm = step_s[-1]
+    return {"arch": XLSTM, "num_layers": XLSTM_TRAIN_LAYERS,
+            "pairs": XLSTM_TRAIN_LAYERS // 2, "batch": b, "seq": s,
+            "ssm_chunk": 256, "dtype": "float32", "optimizer": "adamw",
+            "corpus_tokens": XLSTM_TRAIN_TOKENS, "losses": r["losses"],
+            "step_s": step_s, "s_per_step": warm,
+            "tokens_per_s": b * s / warm,
+            "wall_s": r["wall_s"], "launches": r["launches"],
+            "peak_bytes": r["peak_bytes"],
+            "profiled_step": with_step_shares(r["profile"], warm)}
 
 
 # Published peaks of one H100 SXM beside F32_FLOPS_PER_S: the dense bf16
@@ -4504,7 +4988,11 @@ FA_BWD_SHAPES = (("hymba-1.5b", (1, 2048, 25, 64), (1, 2048, 5, 64), 1024),
                  ("phi4-mini-3.8b", (1, 2048, 24, 128), (1, 2048, 8, 128),
                   0),
                  ("nemotron-4-340b", (1, 2048, 96, 192), (1, 2048, 8, 192),
-                  0))
+                  0),
+                 # mixtral's train step (D = 128, 32 q heads): its window
+                 # of 4096 covers S, so every earlier key is visible
+                 ("mixtral-8x7b", (1, 2048, 32, 128), (1, 2048, 8, 128),
+                  4096))
 
 
 # The work of K4's backward, per kernel and for the pair, that its bound
@@ -4622,7 +5110,7 @@ def flash_attention_bwd_times(per_step):
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))
         rep = h // hkv
-        if window:
+        if window and window < t:
             qp = torch.arange(s, device="cuda")[:, None]
             kp = torch.arange(t, device="cuda")[None, :]
             lib_kw = {"attn_mask": (kp <= qp) & (kp > qp - window)}
@@ -4949,6 +5437,13 @@ def run_phases() -> int:
     emit({"phase": "lm_moe_consistency", **lm_moe_consistency()})
     wide_train, per_step[WIDE_TRAIN[0]] = lm_wide_train_step()
     emit({"phase": "lm_wide_train_step", "card": card, **wide_train})
+    moe_train, per_step[MOE_TRAIN[0]] = lm_moe_train_step()
+    emit({"phase": "lm_moe_train_step", "card": card, **moe_train})
+    emit({"phase": "lm_xlstm_serve_path", "card": card,
+          **lm_xlstm_serve_path()})
+    emit({"phase": "lm_xlstm_consistency", **lm_xlstm_consistency()})
+    emit({"phase": "lm_xlstm_train_step", "card": card,
+          **lm_xlstm_train_step()})
 
     at_main = fedagg_times(MAIN_N, MAIN_P)
     seen = [fedagg_times(n, p)
@@ -5127,8 +5622,9 @@ def run_phases() -> int:
                                                      "bound_by",
                                                      "bound_route")},
                   "library_ms": fa_bwd[1]["library_ms"]},
-        # the wide heads: phi4-mini (D = 128; launches from its train
-        # step) and a nemotron layer (D = 192; no train run)
+        # the wide heads: phi4-mini and mixtral (D = 128; launches from
+        # their train steps) and a nemotron layer (D = 192; no train
+        # run)
         "wide_heads": [{
             "arch": r["arch"], "q": r["q"], "k": r["k"],
             **{k: r[part][k] for k in ("ms", "bound_ms", "bound_by",

@@ -1,8 +1,8 @@
 """Registers the selectable architectures (``--arch <id>``): the CNN
-family of the paper, and the LM configs of the dense, hybrid and MoE
-families (``llama3.2-1b``, ``granite-20b``, ``nemotron-4-340b``,
+family of the paper, and the LM configs of the dense, hybrid, MoE and
+xLSTM families (``llama3.2-1b``, ``granite-20b``, ``nemotron-4-340b``,
 ``phi4-mini-3.8b``, dense; ``hymba-1.5b``, hybrid; ``mixtral-8x7b``,
-``arctic-480b``, MoE)."""
+``arctic-480b``, MoE; ``xlstm-350m``, ssm)."""
 
 from repro_torch.configs import (  # noqa: F401
     arctic_480b,
@@ -12,6 +12,7 @@ from repro_torch.configs import (  # noqa: F401
     mixtral_8x7b,
     nemotron_4_340b,
     phi4_mini_3_8b,
+    xlstm_350m,
 )
 from repro_torch.configs import paper_models  # noqa: F401
 from repro_torch.configs.shapes import INPUT_SHAPES  # noqa: F401

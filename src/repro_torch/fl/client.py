@@ -6,10 +6,10 @@ A *Trainer* binds a model family to the FL loop:
     evaluate(params)                           -> accuracy in [0,1]
 
 ``CNNTrainer`` reproduces the paper's workloads (CNN / ResNet8, real SGD
-on real batches).  ``LMTrainer`` makes an LM architecture (dense or
-hybrid) an FL workload (reduced config by default) -- its "accuracy" is
-next-token top-1 on a held-out batch, which drives Eq. 3 tier movement
-exactly like test accuracy does for CNNs.
+on real batches).  ``LMTrainer`` makes an LM architecture (dense,
+hybrid, MoE or xLSTM) an FL workload (reduced config by default) -- its
+"accuracy" is next-token top-1 on a held-out batch, which drives Eq. 3
+tier movement exactly like test accuracy does for CNNs.
 """
 
 from __future__ import annotations
@@ -323,8 +323,9 @@ class LMTrainer:
 def build_fl_clients(arch_id: str, fl: FLConfig,
                      dataset: Optional[str] = None, scale: float = 0.05,
                      reduced: bool = True, device=None):
-    """Factory: any registered CNN or LM (dense, hybrid) arch becomes an
-    FL workload; an LM in its reduced config unless ``reduced=False``."""
+    """Factory: any registered CNN or LM (dense, hybrid, MoE, xLSTM) arch
+    becomes an FL workload; an LM in its reduced config unless
+    ``reduced=False``."""
     from repro_torch.config import get_arch
     cfg = get_arch(arch_id)
     if cfg.family == "cnn":

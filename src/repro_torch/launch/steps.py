@@ -7,11 +7,11 @@ so there is no jit.  The abstract (ShapeDtypeStruct) forms
 ``make_serve_loop`` is a Python loop of greedy decode steps.
 
 ``make_train_step``'s step writes the parameters and the optimizer
-state IN PLACE, leaf by leaf, and returns them: a full-width f32 model
-with its AdamW moments is 24-32 GB, and the reference's functional
-update would hold a second copy of all of it.  The arithmetic of each
-leaf is the reference's (``optim``'s ``update`` and ``apply_updates``
-on that leaf).
+state IN PLACE, leaf by leaf (a large leaf ``UPDATE_CHUNK`` elements
+at a time), and returns them: a full-width f32 model with its AdamW
+moments is 24-51 GB, and the reference's functional update would hold
+a second copy of all of it.  The arithmetic of each element is the
+reference's (``optim``'s ``update`` and ``apply_updates``).
 """
 
 from __future__ import annotations
@@ -75,39 +75,68 @@ def loss_and_grads(loss_fn, params):
                                                        list(grads))
 
 
+# Elements of a leaf that one optimizer call updates: the update's
+# elementwise temporaries (about a dozen for AdamW) are each at most this
+# long, whatever the leaf's size.  At mixtral-8x7b's width one stacked
+# expert leaf is 3.76 GB a layer, and a dozen temporaries of it would
+# not fit beside the model's 16 B a parameter.
+UPDATE_CHUNK = 1 << 26
+
+
+def _pieces(leaves, n: int):
+    """The leaves (same shape) as aligned flat views of ``n`` elements
+    (the last shorter); each leaf whole when it is no longer than ``n``
+    or one of the leaves written back (all but the first, the gradient)
+    is not contiguous."""
+    if leaves[0].numel() <= n or not all(t.is_contiguous()
+                                         for t in leaves[1:]):
+        return [tuple(leaves)]
+    return list(zip(*(t.reshape(-1).split(n) for t in leaves)))
+
+
 def update_in_place(opt, params, opt_state, grads, lr, grad_scale=None):
-    """``opt.update`` then ``apply_updates``, one leaf at a time, each
-    result written into the leaf of ``params`` and ``opt_state`` it
-    replaces: the optimizer's per-leaf arithmetic with one leaf's
-    temporaries alive at a time.  Works for any state whose leaves
-    other than the step count ``t`` mirror ``params`` (sgd, momentum,
-    adam, adamw).  ``grad_scale``: each gradient first becomes
-    ``(g.float() * grad_scale).to(g.dtype)``, ``clip_by_global_norm``'s
-    arithmetic.  Returns (params, opt_state)."""
+    """``opt.update`` then ``apply_updates``, one leaf at a time and a
+    leaf ``UPDATE_CHUNK`` elements at a time, each result written into the
+    leaf of ``params`` and ``opt_state`` it replaces: the optimizer's
+    per-element arithmetic with one piece's temporaries alive at a
+    time.  Works for any state whose leaves other than the step count
+    ``t`` mirror ``params`` (sgd, momentum, adam, adamw).
+    ``grad_scale``: each gradient first becomes ``(g.float() *
+    grad_scale).to(g.dtype)``, ``clip_by_global_norm``'s arithmetic.
+    Every operation is elementwise, so the pieces give the bits of the
+    whole leaf.  Returns (params, opt_state)."""
     p_leaves, treedef = tree_flatten(params)
     g_leaves = tree_flatten(grads)[0]
-    if grad_scale is not None:
-        g_leaves = ((g.float() * grad_scale).to(g.dtype) for g in g_leaves)
+
+    def scaled(g):
+        if grad_scale is None:
+            return g
+        return (g.float() * grad_scale).to(g.dtype)
+
     if isinstance(opt_state, dict) and "t" in opt_state:      # adam(w)
         m_leaves = tree_flatten(opt_state["m"])[0]
         v_leaves = tree_flatten(opt_state["v"])[0]
         t = opt_state["t"]
-        for p, g, m, v in zip(p_leaves, g_leaves, m_leaves, v_leaves):
-            ups, new = opt.update({"x": g}, {"m": {"x": m}, "v": {"x": v},
-                                              "t": t}, {"x": p}, lr)
-            p.copy_(apply_updates({"x": p}, ups)["x"])
-            m.copy_(new["m"]["x"])
-            v.copy_(new["v"]["x"])
+        for leaf in zip(g_leaves, p_leaves, m_leaves, v_leaves):
+            for g, p, m, v in _pieces(leaf, UPDATE_CHUNK):
+                ups, new = opt.update({"x": scaled(g)},
+                                      {"m": {"x": m}, "v": {"x": v},
+                                       "t": t}, {"x": p}, lr)
+                p.copy_(apply_updates({"x": p}, ups)["x"])
+                m.copy_(new["m"]["x"])
+                v.copy_(new["v"]["x"])
         t.add_(1)
         return params, opt_state
     state_leaves = tree_flatten(opt_state)[0]
-    for i, (p, g) in enumerate(zip(p_leaves, g_leaves)):
-        sub = (() if not state_leaves
-               else {"x": state_leaves[i]})
-        ups, new = opt.update({"x": g}, sub, {"x": p}, lr)
-        p.copy_(apply_updates({"x": p}, ups)["x"])
-        if state_leaves:
-            state_leaves[i].copy_(new["x"])
+    for i, (g_leaf, p_leaf) in enumerate(zip(g_leaves, p_leaves)):
+        leaf = (g_leaf, p_leaf) + ((state_leaves[i],) if state_leaves
+                                   else ())
+        for g, p, *st in _pieces(leaf, UPDATE_CHUNK):
+            sub = {"x": st[0]} if st else ()
+            ups, new = opt.update({"x": scaled(g)}, sub, {"x": p}, lr)
+            p.copy_(apply_updates({"x": p}, ups)["x"])
+            if st:
+                st[0].copy_(new["x"])
     return params, opt_state
 
 

@@ -1,5 +1,5 @@
-"""Model assembly: init / forward / decode for the dense, hybrid and MoE
-families (the JAX package's ``models/transformer.py``).
+"""Model assembly: init / forward / decode for the dense, hybrid, MoE
+and xLSTM families (the JAX package's ``models/transformer.py``).
 
 Parameters are plain dicts with the reference's key names; the blocks
 are stacked (leading L axis), so ``bridge.from_reference`` carries a
@@ -17,8 +17,11 @@ Families:
   moe         : GQA + top-k MoE FFN (sort-based capacity dispatch,
                 ``models/moe.py``)
   hybrid      : parallel attention + Mamba heads per layer (Hymba)
-xLSTM (``ssm``) and audio raise ``NotImplementedError``: a later slice
-ports them.
+  ssm         : mLSTM / sLSTM pairs (xLSTM, ``models/xlstm.py``): each
+                stacked block is one (mLSTM, sLSTM, GeLU MLP) triple, so
+                ``num_layers // 2`` blocks (``_n_stack``); as in the
+                reference, ``slstm_every`` does not enter the forward
+The audio family raises ``NotImplementedError``: a later slice ports it.
 """
 
 from __future__ import annotations
@@ -35,20 +38,21 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (dense_init, embed_init, init_mlp, mlp,
                                        rms_norm, take_embedding)
 from repro_torch.models.rope import apply_rope
 from repro_torch.sharding.hints import hint
 from repro_torch.tree import tree_map, tree_stack
 
-FAMILIES = ("dense", "vlm", "hybrid", "moe")
+FAMILIES = ("dense", "vlm", "hybrid", "moe", "ssm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in ("ssm", "audio"):
+    if cfg.family == "audio":
         raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family} family waits for a later "
-            "slice of the port")
+            f"{cfg.arch_id}: the audio family waits for a later slice of "
+            "the port (ROADMAP.md queue 1, item 13d)")
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.arch_id}: family {cfg.family!r} is not a "
                          "language model")
@@ -69,6 +73,21 @@ def _init_attn(gen, cfg: ModelConfig, dtype):
 
 def _init_block(gen, cfg: ModelConfig, dtype):
     dev = gen.device
+    if cfg.family == "ssm":  # xLSTM pair
+        return {
+            "ln1": torch.zeros((cfg.d_model,), dtype=torch.float32,
+                               device=dev),
+            "mlstm": xlstm_lib.init_mlstm(gen, cfg.d_model, cfg.n_heads,
+                                          cfg.proj_factor, dtype=dtype),
+            "ln2": torch.zeros((cfg.d_model,), dtype=torch.float32,
+                               device=dev),
+            "slstm": xlstm_lib.init_slstm(gen, cfg.d_model, cfg.n_heads,
+                                          dtype=dtype),
+            "ln3": torch.zeros((cfg.d_model,), dtype=torch.float32,
+                               device=dev),
+            "mlp": init_mlp(gen, cfg.d_model, int(cfg.d_model * 4 / 3),
+                            "gelu", dtype=dtype),
+        }
     p = {
         "ln1": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
         "attn": _init_attn(gen, cfg, dtype),
@@ -104,7 +123,7 @@ def init_model(cfg: ModelConfig, gen: torch.Generator,
     _check_family(cfg)
     embed = embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype)
     blocks = tree_stack([_init_block(gen, cfg, dtype)
-                         for _ in range(cfg.num_layers)])
+                         for _ in range(_n_stack(cfg))])
     params = {
         "embed": embed,
         "blocks": blocks,
@@ -115,6 +134,16 @@ def init_model(cfg: ModelConfig, gen: torch.Generator,
         params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                     dtype=dtype)
     return params
+
+
+def _n_stack(cfg: ModelConfig) -> int:
+    """Stacked blocks: ``num_layers``, or its pairs for xLSTM."""
+    if cfg.family == "ssm":
+        if cfg.num_layers % 2:
+            raise ValueError(f"{cfg.arch_id}: xLSTM pairs need an even "
+                             f"num_layers, not {cfg.num_layers}")
+        return cfg.num_layers // 2
+    return cfg.num_layers
 
 
 def _layer(tree, l: int):
@@ -154,6 +183,15 @@ def _block_apply(p, cfg: ModelConfig, x, positions, *, window: int,
                  moe_group: int, context_parallel: str = "auto"):
     """Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        h, _ = xlstm_lib.mlstm_block(p["mlstm"], rms_norm(x, p["ln1"]),
+                                     cfg.n_heads, chunk=ssm_chunk)
+        x = x + h
+        h, _ = xlstm_lib.slstm_block(p["slstm"], rms_norm(x, p["ln2"]),
+                                     cfg.n_heads)
+        x = x + h
+        x = x + mlp(p["mlp"], rms_norm(x, p["ln3"]), "gelu")
+        return x, aux
     a_in = rms_norm(x, p["ln1"])
     a_out = _attn_apply(p["attn"], cfg, a_in, positions, window=window,
                         chunk_q=chunk_q, chunk_kv=chunk_kv,
@@ -237,7 +275,7 @@ def forward(cfg: ModelConfig, params, batch, *, window: int = -1,
         def block(p, x):
             return checkpoint(plain_block, p, x=x, use_reentrant=False,
                               **kw)
-    for l in range(cfg.num_layers):
+    for l in range(_n_stack(cfg)):
         x, a = block(_layer(params["blocks"], l), x=x)
         x = res_hint(x)
         aux = aux + a
@@ -293,6 +331,12 @@ def lm_loss(cfg: ModelConfig, params, batch, *, loss_chunk: int = 512,
 
 def _layer_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                  device):
+    if cfg.family == "ssm":
+        return {"m": xlstm_lib.init_mlstm_state(batch, cfg.d_model,
+                                                cfg.n_heads, cfg.proj_factor,
+                                                dtype=dtype, device=device),
+                "s": xlstm_lib.init_slstm_state(batch, cfg.d_model,
+                                                device=device)}
     kv_len = cache_len
     if cfg.sliding_window:
         kv_len = min(cache_len, cfg.sliding_window)
@@ -318,28 +362,56 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
         kv_len = cache_len
     template = _layer_cache(cfg, batch, kv_len if w else cache_len, dtype,
                             device)
+    n_stack = _n_stack(cfg)
     caches = tree_map(
-        lambda t: torch.zeros((cfg.num_layers,) + tuple(t.shape),
+        lambda t: torch.zeros((n_stack,) + tuple(t.shape),
                               dtype=t.dtype, device=device), template)
     caches = _refill_pos(caches)
     return {"layers": caches, "pos": 0}
 
 
 def _refill_pos(caches):
-    """kv position slots start at -1 (invalid), not 0 — re-fill them
-    after the zeros-stacking above."""
+    """kv position slots start at -1 (invalid) and the mLSTM stabilizer
+    at ``NEG``, not 0 -- re-fill them after the zeros-stacking above.
+
+    As in the reference, only a tuple under ``m`` or ``mem`` (the
+    mLSTM's (C, n, m)) is re-filled: the sLSTM's stabilizer ``s["m"]``
+    is a tensor and stays 0, so decode's first sLSTM step starts from
+    ``max(logf, i)``, where ``slstm_scan(state=None)`` starts from
+    ``NEG`` (the two differ only through the ``n`` clamp at 1e-6)."""
     if isinstance(caches, dict):
         for k, v in caches.items():
             if k == "pos" and isinstance(v, torch.Tensor):
                 v.fill_(-1)
+            elif k in ("m", "mem") and isinstance(v, tuple):
+                v[2].fill_(xlstm_lib.NEG)
             else:
                 _refill_pos(v)
+    elif isinstance(caches, tuple):
+        for v in caches:
+            _refill_pos(v)
     return caches
 
 
 def _block_decode(p, cfg: ModelConfig, x, cache, pos: int, *, window: int):
     """One layer of one decode step; ``cache`` (this layer's views of the
     stacked caches) is written in place.  Returns (x, cache)."""
+    if cfg.family == "ssm":
+        h, m_new = xlstm_lib.mlstm_block(p["mlstm"], rms_norm(x, p["ln1"]),
+                                         cfg.n_heads, state=cache["m"],
+                                         chunk=1)
+        x = x + h
+        h, s_new = xlstm_lib.slstm_block(p["slstm"], rms_norm(x, p["ln2"]),
+                                         cfg.n_heads, state=cache["s"])
+        x = x + h
+        x = x + mlp(p["mlp"], rms_norm(x, p["ln3"]), "gelu")
+        # the new states are fresh tensors: copy them into the views
+        for old, new in zip(cache["m"]["mem"], m_new["mem"]):
+            old.copy_(new)
+        cache["m"]["conv"].copy_(m_new["conv"])
+        for k in ("c", "n", "m", "h"):
+            cache["s"][k].copy_(s_new[k])
+        return x, cache
     b = x.shape[0]
     a_in = rms_norm(x, p["ln1"])
     pa = p["attn"]
@@ -383,7 +455,7 @@ def decode_step(cfg: ModelConfig, params, state, tokens, *, window: int = -1):
     w = cfg.sliding_window if window < 0 else window
     x = take_embedding(params["embed"], tokens)
     pos = state["pos"]
-    for l in range(cfg.num_layers):
+    for l in range(_n_stack(cfg)):
         x, _ = _block_decode(_layer(params["blocks"], l), cfg, x,
                              _layer(state["layers"], l), pos, window=w)
     x = rms_norm(x, params["final_norm"])

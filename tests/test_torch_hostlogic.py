@@ -166,7 +166,8 @@ def test_run_history_json_matches_and_round_trips():
                                   "resnet8-cifar10", "llama3.2-1b",
                                   "hymba-1.5b", "granite-20b",
                                   "nemotron-4-340b", "phi4-mini-3.8b",
-                                  "mixtral-8x7b", "arctic-480b"])
+                                  "mixtral-8x7b", "arctic-480b",
+                                  "xlstm-350m"])
 def test_arch_configs_match(arch):
     a, b = ref_config.get_arch(arch), pt_config.get_arch(arch)
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
@@ -177,13 +178,14 @@ def test_arch_configs_match(arch):
 def test_fl_config_defaults_match_and_port_registers_cnn_family_only():
     assert dataclasses.asdict(ref_config.FLConfig()) == \
         dataclasses.asdict(pt_config.FLConfig())
-    # the CNN family and the LM configs of the dense, hybrid and MoE
-    # families
+    # the CNN family and the LM configs of the dense, hybrid, MoE and
+    # xLSTM families
     assert pt_config.list_archs() == ["arctic-480b", "cnn-fmnist",
                                       "cnn-mnist", "granite-20b",
                                       "hymba-1.5b", "llama3.2-1b",
                                       "mixtral-8x7b", "nemotron-4-340b",
-                                      "phi4-mini-3.8b", "resnet8-cifar10"]
+                                      "phi4-mini-3.8b", "resnet8-cifar10",
+                                      "xlstm-350m"]
 
 
 # The public constructors of model state: ``cuda`` by default, the CPU

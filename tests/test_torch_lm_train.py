@@ -5,7 +5,8 @@ with an LM arch) against the JAX package's: reduced ``llama3.2-1b``
 (dense, chunked attention), ``hymba-1.5b`` (hybrid, banded attention
 with window 64, the SSM scan), ``mixtral-8x7b`` and ``arctic-480b``
 (MoE: capacity dispatch, the load-balance loss; arctic's dense
-residual) at S=512, parameters made by the
+residual) and ``xlstm-350m`` (the mLSTM's chunks, the sLSTM's time loop)
+at S=512, parameters made by the
 reference's ``init_model`` and carried across with
 ``bridge.from_reference``, the same numpy tokens on both sides.
 
@@ -44,7 +45,8 @@ from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 torch.set_num_threads(1)
 
-ARCHS = ["llama3.2-1b", "hymba-1.5b", "mixtral-8x7b", "arctic-480b"]
+ARCHS = ["llama3.2-1b", "hymba-1.5b", "mixtral-8x7b", "arctic-480b",
+         "xlstm-350m"]
 DENSE = ["granite-20b", "nemotron-4-340b", "phi4-mini-3.8b"]
 _PARAMS = {}
 
@@ -77,6 +79,17 @@ def _grads_close(got_tree, want_tree, rtol=1e-4):
         np.testing.assert_allclose(
             g.detach().numpy(), w, rtol=rtol,
             atol=rtol * max(1.0, float(np.abs(w).max())))
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_for_lm_train",
+        Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
 
 
 def _port_loss_and_grads(cfg, params, tokens, **kw):
@@ -259,15 +272,62 @@ def test_train_step_in_place_equals_functional_update():
         p0, state0 = p1, state1
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "arctic-480b"])
+def test_moe_train_steps_repeat_bit_for_bit(arch, monkeypatch):
+    """Two seeded runs of two AdamW steps of an MoE config give equal
+    losses, aux losses, gradient norms, parameters and moments, bit for
+    bit.  At capacity factor 1 the dispatch's gathers have repeated
+    indices of both kinds -- the clamped source of an empty slot and
+    the clamped slot of a dropped token choice -- and their backward
+    sums over the repeats."""
+    import dataclasses
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_arch(arch).reduced(),
+                              moe_capacity_factor=1.0)
+    tokens = torch.from_numpy(_tokens(arch, 2, 128, seed=8))
+    routes = []
+    real_route = moe._route_group
+
+    def recording(*args):
+        out = real_route(*args)
+        routes.append((out[1], out[3]))         # slot_valid, tok_keep
+        return out
+
+    monkeypatch.setattr(moe, "_route_group", recording)
+
+    def run():
+        step, opt = steps.make_train_step(cfg, TrainConfig(**_tcfg()))
+        params = _port_copy(arch)
+        state = opt.init(params)
+        metrics = []
+        for _ in range(2):
+            params, state, m = step(params, state, {"tokens": tokens})
+            metrics += [m[k].clone() for k in ("loss", "aux", "grad_norm")]
+        return metrics + tree_leaves(params) + tree_leaves(state)
+
+    first, second = run(), run()
+    assert len(first) == len(second)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert any(not bool(valid.all()) for valid, _ in routes)
+    assert any(not bool(keep.all()) for _, keep in routes)
+
+
 @pytest.mark.parametrize("name", ["adamw", "adam", "momentum", "sgd"])
-def test_update_in_place_is_the_optimizer_bit_for_bit(name):
+@pytest.mark.parametrize("chunk,scale", [(steps.UPDATE_CHUNK, None),
+                                         (5, 0.75)])
+def test_update_in_place_is_the_optimizer_bit_for_bit(name, chunk, scale,
+                                                      monkeypatch):
     """``update_in_place`` (the train steps' leaf-by-leaf update) equals
     ``opt.update`` + ``apply_updates`` on the whole tree, two steps, for
-    every optimizer an LM trainer can be given."""
+    every optimizer an LM trainer can be given; also with each leaf
+    updated 5 elements at a time (a leaf of 12 in pieces of 5, 5 and 2,
+    one of 5 whole) and the gradients scaled first, as the clip does."""
     from repro_torch.optim import make_optimizer
     from repro_torch.optim.optimizer import apply_updates
     opt = make_optimizer(name)
     rng = np.random.default_rng(7)
+    monkeypatch.setattr(steps, "UPDATE_CHUNK", chunk)
 
     def tree():
         return {"a": torch.from_numpy(rng.standard_normal((3, 4))
@@ -283,9 +343,14 @@ def test_update_in_place_is_the_optimizer_bit_for_bit(name):
                           [l.clone() for l in tree_leaves(state)])
     for _ in range(2):
         grads = tree()
-        ups, state = opt.update(grads, state, params, 1e-2)
+        g_scale = None if scale is None else torch.tensor(scale)
+        scaled = grads if scale is None else tree_unflatten(
+            tree_flatten(grads)[1], [(g.float() * g_scale).to(g.dtype)
+                                     for g in tree_leaves(grads)])
+        ups, state = opt.update(scaled, state, params, 1e-2)
         params = apply_updates(params, ups)
-        p_in, s_in = steps.update_in_place(opt, p_in, s_in, grads, 1e-2)
+        p_in, s_in = steps.update_in_place(opt, p_in, s_in, grads, 1e-2,
+                                           g_scale)
         for a, b in zip(tree_leaves(p_in) + tree_leaves(s_in),
                         tree_leaves(params) + tree_leaves(state)):
             assert torch.equal(a, b)
@@ -421,12 +486,7 @@ def test_train_cli_corpus_call_is_the_one_chip_smoke_prefetches(
     """chip_smoke.py makes ``launch.train``'s corpus ahead, in worker
     processes, keyed by the call the CLI makes: the vocabulary,
     ``TRAIN_CORPUS_TOKENS`` tokens and seed 0."""
-    import importlib.util
-    from pathlib import Path
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _chip_smoke()
     calls = []
     real = train.make_token_dataset
 
@@ -469,3 +529,150 @@ def test_training_leaves_no_tensor_in_reference_cycles():
         gc.garbage.clear()
         gc.enable()
     assert held == []
+
+
+def test_chip_smoke_train_cuts_fit_and_keep_pairs():
+    """The card's train runs as chip_smoke.py cuts them: mixtral-8x7b at
+    MOE_TRAIN_LAYERS is 3,164.7 M parameters, 16 B each (parameter,
+    gradient, AdamW's two moments) 50.6 GB, under the card's 80 GB with
+    room for activations, where one layer more (73.9 GB) is not; the
+    xLSTM depth cuts are whole (mLSTM, sLSTM) pairs."""
+    import dataclasses
+    smoke = _chip_smoke()
+
+    def n_params(arch, layers):
+        cfg = dataclasses.replace(ref_get_arch(arch), num_layers=layers)
+        shapes = jax.eval_shape(lambda: ref_init_model(
+            cfg, jax.random.PRNGKey(0), dtype=jnp.float32))
+        return sum(int(np.prod(a.shape))
+                   for a in jax.tree_util.tree_leaves(shapes))
+
+    arch, b, s = smoke.MOE_TRAIN
+    n = n_params(arch, smoke.MOE_TRAIN_LAYERS)
+    assert round(n / 1e5) == 31647
+    assert round(16 * n / 1e8) == 506 and 16 * n < 0.65 * smoke.CARD_BYTES
+    assert 16 * n_params(arch, smoke.MOE_TRAIN_LAYERS + 1) > \
+        0.9 * smoke.CARD_BYTES
+    # one MoE group of b * s tokens: the train config's group size does
+    # not divide it
+    assert (b * s) % TrainConfig().moe_group_tokens
+    for layers in (smoke.XLSTM_TRAIN_LAYERS, smoke.XLSTM_CONSISTENCY_LAYERS):
+        assert layers % 2 == 0 and layers >= 4
+    assert smoke.XLSTM_CONSISTENCY_S % 256 == 0 \
+        and smoke.XLSTM_CONSISTENCY_S > 256
+    assert all(x % 256 == 0 for x in (smoke.XLSTM_PREFILL[1],
+                                      smoke.XLSTM_TRAIN[1]))
+
+
+def test_chip_smoke_profile_readings():
+    """``union_s`` (the card's busy time) merges overlapping kernel
+    intervals; ``MOE_STEP_GROUPS`` puts the dispatch's sorts, searches,
+    gathers and index backward apart from the GEMMs, K4 and the other
+    elementwise kernels, and changes no other group's names."""
+    smoke = _chip_smoke()
+    assert smoke.union_s([(0, 2), (1, 3), (5, 6), (5.5, 5.7)]) == 4
+    assert smoke.union_s([]) == 0
+    groups = smoke.MOE_STEP_GROUPS
+    for name, want in (
+            ("void at::native::index_elementwise_kernel<128, 4>", "dispatch"),
+            ("void at::native::indexing_backward_kernel<float>", "dispatch"),
+            ("DeviceRadixSortOnesweepKernel", "dispatch"),
+            ("void at::native::searchsorted_cuda_kernel<long>", "dispatch"),
+            ("void at::native::_scatter_gather_elementwise_kernel",
+             "dispatch"),
+            ("sm90_xmma_gemm_f32f32_f32f32_f32_tn_n", "gemm"),
+            ("void fa_bwd_dq_kernel<128>", "k4_dq"),
+            ("void fa_fwd_f32_kernel<128, true>", "k4_fwd"),
+            ("void at::native::vectorized_elementwise_kernel<4>",
+             "elementwise")):
+        assert smoke.step_group(name, groups) == want, name
+    assert {g for g, _ in smoke.STEP_GROUPS} | {"dispatch"} == \
+        {g for g, _ in groups}
+    assert smoke.step_group("DeviceRadixSortOnesweepKernel") == "other"
+
+
+class _Event:
+    """A stand-in for the profiler's raw (kineto) event."""
+
+    def __init__(self, kind, name, start, end, corr=0, tid=1, shapes=(),
+                 device="cpu"):
+        from torch.autograd import DeviceType
+        self._v = (kind, name, start, end, corr, tid, list(shapes),
+                   DeviceType.CUDA if device == "cuda" else DeviceType.CPU)
+
+    def name(self):
+        return self._v[1]
+
+    def start_ns(self):
+        return self._v[2]
+
+    def end_ns(self):
+        return self._v[3]
+
+    def correlation_id(self):
+        return self._v[4]
+
+    def start_thread_id(self):
+        return self._v[5]
+
+    def shapes(self):
+        return self._v[6]
+
+    def device_type(self):
+        return self._v[7]
+
+    def is_user_annotation(self):
+        return self._v[0] in ("user_annotation", "gpu_user_annotation")
+
+
+def test_chip_smoke_step_profile_reads_raw_events():
+    """``step_profile`` on raw profiler events: each kernel goes to the
+    innermost op around its launch on the launch's thread (ops nest),
+    kernels launched inside the optimizer range are "optimizer", the
+    device-side span of that range is not a kernel, busy time is the
+    union of the kernel intervals."""
+    from types import SimpleNamespace
+    smoke = _chip_smoke()
+    ev = [
+        # thread 1: matmul > mm launches a GEMM (corr 10); add (corr 11)
+        _Event("cpu_op", "aten::matmul", 0, 100, 1, shapes=[[2, 3]]),
+        _Event("cpu_op", "aten::mm", 10, 90, 2, shapes=[[2, 3], [3, 4]]),
+        _Event("cuda_runtime", "cudaLaunchKernel", 20, 25, 10),
+        _Event("cpu_op", "aten::add", 110, 150, 3, shapes=[[4]]),
+        _Event("cuda_runtime", "cudaLaunchKernel", 120, 125, 11),
+        # thread 2 (the backward's): bmm launches corr 12 at t = 50,
+        # inside thread 1's mm, which must not claim it
+        _Event("cpu_op", "aten::bmm", 40, 60, 4, tid=2, shapes=[[8]]),
+        _Event("cuda_runtime", "cudaLaunchKernel", 50, 52, 12, tid=2),
+        # the optimizer range and an elementwise kernel inside it
+        _Event("user_annotation", "optimizer", 200, 300, 5),
+        _Event("cpu_op", "aten::mul", 210, 240, 6, shapes=[[4], []]),
+        _Event("cuda_runtime", "cudaLaunchKernel", 220, 221, 13),
+        _Event("gpu_user_annotation", "optimizer", 1000, 5000, 14,
+               device="cuda"),
+        _Event("kernel", "sm90_xmma_gemm_f32", 1000, 1400, 10,
+               device="cuda"),
+        _Event("kernel", "vectorized_elementwise_kernel add", 1300, 1500,
+               11, device="cuda"),
+        _Event("kernel", "cutlass_sgemm batched", 2000, 2300, 12,
+               device="cuda"),
+        _Event("kernel", "vectorized_elementwise_kernel mul", 3000, 3100,
+               13, device="cuda"),
+    ]
+    prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: ev)))
+    got = smoke.step_profile(prof, 1.0)
+    assert got["kernels"] == 4 and got["optimizer_ranges"] == 1
+    assert got["device_s"] == pytest.approx(1000e-9)
+    assert got["busy_s"] == pytest.approx(900e-9)          # 1000..1500 etc.
+    g = got["groups_s"]
+    assert g["gemm"] == pytest.approx(700e-9)
+    assert g["elementwise"] == pytest.approx(200e-9)
+    assert g["optimizer"] == pytest.approx(100e-9)
+    assert got["op_s"] == pytest.approx({"aten::mm": 400e-9,
+                                         "aten::bmm": 300e-9,
+                                         "aten::add": 200e-9,
+                                         "aten::mul": 100e-9})
+    assert got["top_ops"][0] == {"op": "aten::mm",
+                                 "shapes": "[[2, 3], [3, 4]]", "calls": 1,
+                                 "s": pytest.approx(400e-9)}

@@ -265,6 +265,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
                 "report", "__init__"):
         assert f"repro_torch/obs/{mod}.py" in names, mod
     assert "repro_torch/kernels/ref.py" in names
+    assert "repro_torch/models/xlstm.py" in names
     for mod in ("core/residency.py", "checkpoint/ckpt.py",
                 "checkpoint/__init__.py"):
         assert f"repro_torch/{mod}" in names, mod

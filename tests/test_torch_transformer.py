@@ -1,8 +1,8 @@
 """The port's LM serving slice (``models/{layers,rope,transformer}.py``,
 ``launch/steps.py``, ``launch/serve.py``) against the JAX package's:
-reduced ``llama3.2-1b`` (dense), ``hymba-1.5b`` (hybrid), and
+reduced ``llama3.2-1b`` (dense), ``hymba-1.5b`` (hybrid),
 ``mixtral-8x7b`` and ``arctic-480b`` (MoE, the second with its dense
-residual), parameters
+residual) and ``xlstm-350m`` (ssm: mLSTM / sLSTM pairs), parameters
 made by the reference's ``init_model`` and carried across with
 ``bridge.from_reference``, the same numpy tokens on both sides.
 
@@ -44,7 +44,8 @@ from repro_torch.tree import tree_flatten
 
 torch.set_num_threads(1)
 
-ARCHS = ["llama3.2-1b", "hymba-1.5b", "mixtral-8x7b", "arctic-480b"]
+ARCHS = ["llama3.2-1b", "hymba-1.5b", "mixtral-8x7b", "arctic-480b",
+         "xlstm-350m"]
 _PARAMS = {}
 
 
@@ -153,14 +154,17 @@ def test_init_model_has_the_reference_tree(arch, dtype):
 
 
 def test_other_families_wait_for_a_later_slice():
+    """The audio family raises, naming its queue item; ssm (xLSTM) runs
+    since its slice."""
     base = get_arch("llama3.2-1b").reduced()
     gen = torch.Generator().manual_seed(0)
-    for fam in ("ssm", "audio"):
-        cfg = dataclasses.replace(base, family=fam)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            init_model(cfg, gen)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            forward(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    cfg = dataclasses.replace(base, family="audio")
+    with pytest.raises(NotImplementedError, match="later slice.*13d"):
+        init_model(cfg, gen)
+    with pytest.raises(NotImplementedError, match="later slice.*13d"):
+        forward(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    with pytest.raises(NotImplementedError, match="later slice"):
+        init_decode_state(cfg, 1, 4, device="cpu")
 
 
 # ---------------------------------------------------------------------------
