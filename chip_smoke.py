@@ -30,7 +30,10 @@ kernels of ``flash_attention`` and ``ssm_scan`` against autograd of
 their plain twins, trains full-width ``hymba-1.5b`` and ``llama3.2-1b``
 in f32 through ``repro_torch.launch.train --full`` (every attention and
 SSM layer's forward and backward through the kernels; two seeded runs
-bit for bit) and runs ``fl_train`` over reduced LM clients — and prints
+bit for bit) and runs ``fl_train`` over reduced LM clients; serves and
+trains the MoE and xLSTM families and the wide heads (mixtral, arctic,
+phi4-mini, nemotron, chameleon), encodes and trains the audio family's
+``hubert-xlarge`` at full width and depth (K4 at head dim 80) — and prints
 one JSON object per phase.  Each path runs with
 every launch count set to 0 just before it and read just after.  Any
 failure exits non-zero; there is no CPU path.  The last line of
@@ -2457,12 +2460,15 @@ F32_EDGE_CASES = (
 )
 
 
-# Head dims 128 (mixtral, arctic, phi4-mini, granite) and 192
+# Head dims 128 (mixtral, arctic, phi4-mini, granite, chameleon) and 192
 # (nemotron), both dtypes and the backward: (name, (b, s, t, h, hkv, d),
 # masks).  Causal with GQA and S off the tile; a window over ragged S
 # with a group of 5; q_offset; no mask at T over S; rows that see no key
 # beside rows that do; and a band over many key tiles at the models'
-# group sizes (mixtral 4, nemotron 12).
+# group sizes (mixtral 4, nemotron 12).  D = 80 (hubert): its own layer
+# (non-causal MHA, 16 heads), S and T off every tile grid (64 rows and
+# keys of the f32 kernels, 128 of the bf16 one) without a mask, a GQA
+# window over ragged S, and rows that see no key beside rows that do.
 WIDE_HEAD_CASES = tuple(
     case for d in (128, 192) for case in (
         (f"d{d}-gqa4-causal-300", (1, 300, 300, 8, 2, d), {}),
@@ -2476,13 +2482,23 @@ WIDE_HEAD_CASES = tuple(
          dict(causal=False, window=32, q_offset=140)),
         (f"d{d}-layer-1x1024-window300-gqa{4 if d == 128 else 12}",
          (1, 1024, 1024, 32, 8, d) if d == 128 else (1, 1024, 1024, 24, 2, d),
-         dict(window=300))))
+         dict(window=300)))) + (
+    ("d80-hubert-layer-2x1024-mha-full", (2, 1024, 1024, 16, 16, 80),
+     dict(causal=False)),
+    ("d80-full-off-every-grid-77x203-gqa2", (1, 77, 203, 4, 2, 80),
+     dict(causal=False)),
+    ("d80-gqa4-window100-ragged-333", (2, 333, 333, 8, 2, 80),
+     dict(window=100)),
+    ("d80-some-rows-see-no-key", (1, 64, 128, 4, 2, 80),
+     dict(causal=False, window=32, q_offset=140)),
+)
 
 
 # The backward's wide-head tiling at its edges (moving tiles of 48 q rows
 # in dkdv at D = 128; of 32 q rows or keys in both kernels at D = 192):
-# S and T off the 32- and 48-row grids at both head dims, and window
-# edges inside a tile (a window of 20, and of 45 over ragged S).
+# S and T off the 32- and 48-row grids at both head dims (and off D =
+# 80's 64-row grid with GQA and q_offset), and window edges inside a
+# tile (a window of 20, and of 45 over ragged S).
 WIDE_BWD_EDGE_CASES = (
     ("d128-off-grid-95x139-gqa4-offset44", (1, 95, 139, 8, 2, 128),
      dict(q_offset=44)),
@@ -2492,13 +2508,16 @@ WIDE_BWD_EDGE_CASES = (
      dict(window=20)),
     ("d128-window45-ragged-117x181-full", (2, 117, 181, 6, 3, 128),
      dict(causal=False, window=45, q_offset=70)),
+    ("d80-off-grid-95x139-gqa4-offset44", (1, 95, 139, 8, 2, 80),
+     dict(q_offset=44)),
 )
 
 # Head layouts and edges of the forward kernels at head dims 128 and
 # 192: GQA groups of 3 and 7 (phi4-mini's and arctic's; adjacent heads
 # that read different kv heads), MQA, odd H, rows that see no key beside
 # rows that do in one q tile, and a window edge inside a 32-key stretch
-# over ragged S and T.
+# over ragged S and T; at D = 80 MQA with odd H and a window, and a
+# window edge inside a tile.
 FWD_HEAD_EDGE_CASES = (
     ("d128-gqa3-200", (1, 200, 200, 6, 2, 128), {}),
     ("d128-gqa7-window64-150", (2, 150, 150, 14, 2, 128),
@@ -2511,6 +2530,10 @@ FWD_HEAD_EDGE_CASES = (
     ("d128-blind-rows-beside-seeing-rows", (1, 192, 128, 4, 2, 128),
      dict(causal=False, window=32, q_offset=140)),
     ("d192-window13-inside-a-32-key-tile-90x97", (1, 90, 97, 4, 2, 192),
+     dict(window=13, q_offset=7)),
+    ("d80-odd-h-5-mqa-window50-180", (1, 180, 180, 5, 1, 80),
+     dict(window=50)),
+    ("d80-window13-inside-a-tile-90x97", (1, 90, 97, 4, 2, 80),
      dict(window=13, q_offset=7)),
 )
 
@@ -2878,7 +2901,7 @@ def check_bwd_misaligned():
     fail("check_bwd_misaligned: a misaligned q did not raise")
 
 
-HEAD_DIMS = (16, 32, 64, 128, 192)      # K4's instantiations
+HEAD_DIMS = (16, 32, 64, 80, 128, 192)  # K4's instantiations
 
 # The tensor-core kernels as cuobjdump names them (mangled): library ->
 # [(pattern of a kernel's name, its key from the match, the keys wanted,
@@ -3515,8 +3538,6 @@ def recording_train_steps(record, profile=False,
     ``kernel_profile`` (device activity only, for steps of ~10^5
     host-bound ops)."""
     import torch
-    from torch.profiler import ProfilerActivity
-    from repro_torch.launch import steps as steps_mod
     from repro_torch.launch import train as train_mod
 
     def wrapped(cfg, tcfg, lr=None):
@@ -3530,21 +3551,9 @@ def recording_train_steps(record, profile=False,
                     lambda: step(params, opt_state, batch),
                     groups or STEP_GROUPS)
             elif profile and len(record["step_s"]) == profile_after:
-                with torch.profiler.profile(activities=[
-                        ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                        record_shapes=True) as prof, \
-                        patched(steps_mod, "global_norm",
-                                in_range(steps_mod.global_norm)), \
-                        patched(steps_mod, "update_in_place",
-                                in_range(steps_mod.update_in_place)):
-                    t0 = time.perf_counter()
-                    out = step(params, opt_state, batch)
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - t0
-                t1 = time.perf_counter()
-                record["profile"] = step_profile(prof, wall,
-                                                 groups=groups or STEP_GROUPS)
-                record["profile"]["reading_s"] = time.perf_counter() - t1
+                out, record["profile"] = profiled_step(
+                    lambda: step(params, opt_state, batch),
+                    groups or STEP_GROUPS)
             else:
                 t0 = time.perf_counter()
                 out = step(params, opt_state, batch)
@@ -3554,12 +3563,6 @@ def recording_train_steps(record, profile=False,
             return out
         return timed, opt
 
-    def in_range(fn):
-        def call(*args, **kw):
-            with torch.profiler.record_function(OPTIMIZER_RANGE):
-                return fn(*args, **kw)
-        return call
-
     record.update(step_s=[], last=None)
     with patched(train_mod, "make_train_step", wrapped) as real:
         yield
@@ -3568,6 +3571,38 @@ def recording_train_steps(record, profile=False,
 # the range around a train step's clip and AdamW update (``launch/
 # steps.py``: ``global_norm``, ``update_in_place``) in a profiled step
 OPTIMIZER_RANGE = "optimizer"
+
+
+def profiled_step(fn, groups):
+    """``fn()`` (one train step of ``make_train_step``) under
+    ``torch.profiler`` (CUDA kernels and the CPU ops that launched them,
+    the clip and AdamW update inside ``OPTIMIZER_RANGE``), read by
+    ``step_profile``.  Returns (``fn()``, the profile)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from repro_torch.launch import steps as steps_mod
+
+    def in_range(f):
+        def call(*args, **kw):
+            with torch.profiler.record_function(OPTIMIZER_RANGE):
+                return f(*args, **kw)
+        return call
+
+    with torch.profiler.profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            record_shapes=True) as prof, \
+            patched(steps_mod, "global_norm",
+                    in_range(steps_mod.global_norm)), \
+            patched(steps_mod, "update_in_place",
+                    in_range(steps_mod.update_in_place)):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    profile = step_profile(prof, wall, groups=groups)
+    profile["reading_s"] = time.perf_counter() - t1
+    return out, profile
 
 # kernel name (lower case) -> group of a profiled train step, first
 # match wins; kernels launched inside OPTIMIZER_RANGE are "optimizer"
@@ -4012,9 +4047,13 @@ MOE_SERVE_BATCH, MOE_SERVE_PROMPT, MOE_SERVE_GEN = 4, 16, 16
 # of bf16), B = 1 x 2048 (one group: the 128-expert dispatch)
 ARCTIC_LAYERS, ARCTIC_PREFILL = 1, (1, 2048)
 # the repaired head dims in the bf16 prefill: phi4-mini (D = 128) at its
-# full 32 layers, nemotron (D = 192, ~7 GB a layer) cut to 2
+# full 32 layers, nemotron (D = 192, ~7 GB a layer) cut to 2, and the
+# VLM chameleon-34b (D = 128, 64 q heads over 8 kv heads: a GQA group of
+# 8; image tokens are ids of its 65,536-token vocabulary; 1.4 GB a
+# layer) cut to 2 of 48
 WIDE_PREFILL = (("phi4-mini-3.8b", None, 2, 4096),
-                ("nemotron-4-340b", 2, 1, 4096))
+                ("nemotron-4-340b", 2, 1, 4096),
+                ("chameleon-34b", 2, 1, 4096))
 # the f32 train step at D = 128: phi4-mini through launch.train's path,
 # cut to WIDE_TRAIN_LAYERS (params, grads and AdamW's two moments: 16 B
 # a parameter, 26 GB at 4 layers; 71 GB at 32 would not fit beside the
@@ -4031,22 +4070,19 @@ MOE_CONSISTENCY_LAYERS, MOE_CONSISTENCY_S, MOE_CONSISTENCY_GEN = 2, 272, 8
 MOE_CONSISTENCY_CHUNK = 8
 
 
-def _prefill_run(cfg, params, b, s, tcfg, label):
-    """``make_prefill_step`` once (launch counts read around it) and
-    ``LM_WARM_RUNS`` times warm: the attention calls, the first and warm
-    seconds, and the last-position logits (finite, repeated bit for
-    bit)."""
+def _kernel_runs(fn, cfg, shape, label):
+    """``fn()`` (a bf16 forward of ``cfg``) once, the launch counts read
+    around it (one tensor-core K4 launch a layer, no other kernel) and
+    the attention calls recorded (k/v not repeated, the config's head
+    dim and mask), then ``LM_WARM_RUNS`` times warm.  Returns the first
+    output (of ``shape``, finite, equal to a warm run's bit for bit),
+    its seconds, the warm seconds, the launches and the calls."""
     import torch
-    from repro_torch.launch.steps import make_prefill_step
-    step = make_prefill_step(cfg, tcfg)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
-                         device="cuda")
     calls = []
     with recording_attention_calls(calls):
         zero_counts()
         t0 = time.perf_counter()
-        logits = step(params, {"tokens": toks})
+        out = fn()
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launched = counts()
@@ -4055,22 +4091,37 @@ def _prefill_run(cfg, params, b, s, tcfg, label):
     if launched != want:
         fail(f"{label}: launches {launched}, expected {want}")
     if any(kv[2] != cfg.n_kv_heads or q[3] != cfg.head_dim
-           for q, kv, *_ in calls):
-        fail(f"{label}: the kernel was handed repeated k/v or another "
-             f"head dim: {calls[:1]}")
-    if tuple(logits.shape) != (b, cfg.vocab_size) \
-            or not bool(torch.isfinite(logits).all()):
-        fail(f"{label}: logits {tuple(logits.shape)}, finite "
-             f"{bool(torch.isfinite(logits).all())}")
+           or causal != cfg.causal for q, kv, _, causal, *_ in calls):
+        fail(f"{label}: the kernel was handed repeated k/v, another "
+             f"head dim or another mask: {calls[:1]}")
+    if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+        fail(f"{label}: logits {tuple(out.shape)}, finite "
+             f"{bool(torch.isfinite(out).all())}")
     warm = []
     for _ in range(LM_WARM_RUNS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        again = step(params, {"tokens": toks})
+        again = fn()
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
-    if not torch.equal(again, logits):
+    if not torch.equal(again, out):
         fail(f"{label}: a warm run's logits differ from the first's")
+    return out, first_s, warm, launched, calls
+
+
+def _prefill_run(cfg, params, b, s, tcfg, label):
+    """``make_prefill_step`` on random tokens through ``_kernel_runs``:
+    the attention calls, the first and warm seconds, and the
+    last-position logits."""
+    import torch
+    from repro_torch.launch.steps import make_prefill_step
+    step = make_prefill_step(cfg, tcfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device="cuda")
+    logits, first_s, warm, launched, calls = _kernel_runs(
+        lambda: step(params, {"tokens": toks}), cfg, (b, cfg.vocab_size),
+        label)
     med = statistics.median(warm)
     return {"arch": cfg.arch_id, "num_layers": cfg.num_layers, "batch": b,
             "prompt_len": s, "head_dim": cfg.head_dim,
@@ -4292,7 +4343,6 @@ def _cut_train(arch, num_layers, b, s, timed_steps, corpus_tokens,
     import torch
     from repro_torch.config import get_arch
     from repro_torch.launch import train as train_mod
-    from repro_torch.tree import tree_leaves
 
     def cut(name):
         return dataclasses.replace(get_arch(name), num_layers=num_layers)
@@ -4318,9 +4368,7 @@ def _cut_train(arch, num_layers, b, s, timed_steps, corpus_tokens,
         wall = time.perf_counter() - t0
         launched = counts()
     params, opt_state, _ = record.pop("last")
-    checksums = [int(t.contiguous().view(torch.int32).sum(dtype=torch.int64))
-                 for t in tree_leaves(params) + tree_leaves(opt_state)
-                 if t.dtype == torch.float32]
+    checksums = leaf_checksums(params, opt_state)
     del params, opt_state
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
@@ -4504,12 +4552,14 @@ def lm_moe_train_step():
 # host-bound (14-19 us of host a kernel on an H100 machine: the card is
 # busy 5-9 % of a prefill or a train step), and their lengths are cut
 # to the script's time limit; a token costs the same host time at any
-# length.  Serving in bf16: a
+# length, as a pair does at any depth.  Serving in bf16, cut to
+# XLSTM_SERVE_LAYERS (2 of 12 pairs): a
 # prefill of XLSTM_PREFILL through make_prefill_step (one mLSTM chunk of
 # 256), run twice, the second (warm) run under kernel_profile (device
 # activity only: the card's busy share); then 4 requests decoded (a 16-token
 # prompt filled by decode steps, then 16 greedy steps), twice
 XLSTM = "xlstm-350m"
+XLSTM_SERVE_LAYERS = 4
 XLSTM_PREFILL = (2, 256)
 XLSTM_SERVE_BATCH, XLSTM_SERVE_PROMPT, XLSTM_SERVE_GEN = 4, 16, 16
 # f32 decode against the forward: 2 pairs at full width, S = 512, so
@@ -4518,19 +4568,20 @@ XLSTM_SERVE_BATCH, XLSTM_SERVE_PROMPT, XLSTM_SERVE_GEN = 4, 16, 16
 # (tests/test_decode_consistency.py)
 XLSTM_CONSISTENCY_LAYERS, XLSTM_CONSISTENCY_S = 4, 512
 XLSTM_DECODE_TOL = 2e-4
-# training: f32 AdamW through launch.train, 4 pairs, B = 1 x 256 (one
+# training: f32 AdamW through launch.train, 2 pairs, B = 1 x 256 (one
 # mLSTM chunk; the backward across chunks is held to jax.grad on the
 # CPU), one timed step and a second read by kernel_profile (~7 x 10^4
 # kernels a step; device activity only, so clip + AdamW's kernels fall
 # in their kernels' groups)
 XLSTM_TRAIN = (1, 256)
-XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_STEPS, XLSTM_TRAIN_TOKENS = 8, 1, 4096
+XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_STEPS, XLSTM_TRAIN_TOKENS = 4, 1, 4096
 
 
 def lm_xlstm_serve_path():
-    """xlstm-350m at full width (12 pairs), bf16: the prefill of
-    ``XLSTM_PREFILL`` through ``make_prefill_step`` (first run, then a
-    warm run whose logits must equal it) and 4 requests decoded through
+    """xlstm-350m at full width (``XLSTM_SERVE_LAYERS``), bf16: the
+    prefill of ``XLSTM_PREFILL`` through ``make_prefill_step`` (first
+    run, then a warm run whose logits must equal it) and 4 requests
+    decoded through
     ``make_serve_step``, twice (the same tokens and logits); no kernel
     of the port launched, finite logits; tokens/s, first-run s, peak,
     and the card's busy share in the warm prefill (``kernel_profile``,
@@ -4540,7 +4591,7 @@ def lm_xlstm_serve_path():
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import init_decode_state
     torch.cuda.reset_peak_memory_stats()
-    cfg, params, init_s = _fresh(XLSTM, torch.bfloat16)
+    cfg, params, init_s = _fresh(XLSTM, torch.bfloat16, XLSTM_SERVE_LAYERS)
     b, s = XLSTM_PREFILL
     tcfg = TrainConfig()
     prefill = make_prefill_step(cfg, tcfg)
@@ -4692,7 +4743,7 @@ def lm_xlstm_consistency():
 
 def lm_xlstm_train_step():
     """``launch.train --full --arch xlstm-350m`` in-process, f32 AdamW,
-    cut to ``XLSTM_TRAIN_LAYERS`` (4 pairs), B x S = ``XLSTM_TRAIN``:
+    cut to ``XLSTM_TRAIN_LAYERS`` (2 pairs), B x S = ``XLSTM_TRAIN``:
     ``XLSTM_TRAIN_STEPS`` timed step(s) and one more under
     ``kernel_profile`` (device time by group, the card's busy share);
     no kernel of the port launched, finite losses; s/step, tokens/s,
@@ -4718,6 +4769,182 @@ def lm_xlstm_train_step():
             "wall_s": r["wall_s"], "launches": r["launches"],
             "peak_bytes": r["peak_bytes"],
             "profiled_step": with_step_shares(r["profile"], warm)}
+
+
+# ---------------------------------------------------------------------
+# The audio family at full width: hubert-xlarge, an encoder over frames
+# (K4 at D = 80, non-causal)
+# ---------------------------------------------------------------------
+
+# hubert-xlarge: 48 layers, d 1280, 16 heads of D = 80 (MHA), d_ff 5120,
+# GeLU, causal=False and no window (attention takes the chunked route:
+# one K4 launch a layer), 504 k-means targets; 945 M parameters.  Its
+# batch is frames (B, S, d_model) in place of tokens, and for training
+# per-frame labels.  Encoding in bf16 at all 48 layers, B = 8 x 1024
+# frames (eight utterances of about 20 s at HuBERT's 50 frames a
+# second), through models.forward (the per-frame logits, the encoder's
+# output) and make_prefill_step (the last frame's); training in f32
+# with AdamW through make_train_step (launch.train and fl_train feed
+# token batches), all 48 layers (15.1 GB of parameters, gradient and
+# moments), B = 2 x 1024: the first step, AUDIO_TRAIN_STEPS timed ones
+# and one under torch.profiler, then the same steps again from the same
+# seeds for the checksums
+AUDIO = "hubert-xlarge"
+AUDIO_ENCODE = (8, 1024)
+AUDIO_TRAIN = (2, 1024)
+AUDIO_TRAIN_STEPS = 2
+
+
+def _audio_batch(cfg, b, s, dtype, seed, labels=False):
+    """Frames (B, S, d_model) of ``dtype`` drawn on the card from
+    ``seed``, and with ``labels`` per-frame targets (B, S)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"frames": torch.randn(b, s, cfg.d_model, generator=gen,
+                                   device="cuda").to(dtype)}
+    if labels:
+        batch["labels"] = torch.randint(0, cfg.vocab_size, (b, s),
+                                        generator=gen, device="cuda")
+    return batch
+
+
+def lm_audio_encode_path():
+    """hubert-xlarge encoding in bf16 at full width and depth
+    (``AUDIO_ENCODE``): ``models.forward`` (per-frame logits) and
+    ``make_prefill_step`` (the last frame's logits), each once with
+    the launch counts read around it (48 K4 launches, all on the
+    tensor-core kernel) and ``LM_WARM_RUNS`` times warm, equal to the
+    first run bit for bit: seconds, frames/s, peak bytes.  Returns (the
+    phase, the attention calls)."""
+    import torch
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import forward
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, init_s = _fresh(AUDIO, torch.bfloat16)
+    b, s = AUDIO_ENCODE
+    tcfg = TrainConfig()
+    batch = _audio_batch(cfg, b, s, torch.bfloat16, seed=5)
+    prefill = make_prefill_step(cfg, tcfg)
+
+    def encode():
+        return forward(cfg, params, batch, chunk_q=tcfg.attn_chunk_q,
+                       chunk_kv=tcfg.attn_chunk_kv)[0]
+
+    out = {"arch": AUDIO, "num_layers": cfg.num_layers, "batch": b,
+           "frames": s, "head_dim": cfg.head_dim, "dtype": "torch.bfloat16",
+           "init_s": init_s, "param_bytes": _param_bytes(params)}
+    for name, fn, shape in (("forward", encode, (b, s, cfg.vocab_size)),
+                            ("prefill_step", lambda: prefill(params, batch),
+                             (b, cfg.vocab_size))):
+        logits, first_s, warm, launched, calls = _kernel_runs(
+            fn, cfg, shape, f"hubert {name}")
+        med = statistics.median(warm)
+        out[name] = {"first_run_s": first_s, "warm_s": warm,
+                     "warm_s_median": med, "frames_per_s": b * s / med,
+                     "launches": launched,
+                     "logits_shape": list(logits.shape)}
+        del logits
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    return out, [(AUDIO, "chunked", calls[0])]
+
+
+def leaf_checksums(*trees):
+    """Each f32 leaf of the trees as the sum of its words read as
+    integers (any flipped bit moves it)."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    return [int(t.contiguous().view(torch.int32).sum(dtype=torch.int64))
+            for tree in trees for t in tree_leaves(tree)
+            if t.dtype == torch.float32]
+
+
+def _audio_train_run(cfg, profile_at=None):
+    """``make_train_step`` (f32, AdamW, ``launch.train``'s TrainConfig)
+    on hubert-xlarge at full width from seed 0, ``AUDIO_TRAIN_STEPS +
+    2`` steps on batches from seeds 100, 101, ...; the step
+    ``profile_at`` under ``profiled_step``.  Returns the losses, the
+    seconds of the other steps, the profile, the launch counts, the
+    peak bytes and the checksums of the trained parameters and AdamW's
+    state."""
+    import torch
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_model
+    b, s = AUDIO_TRAIN
+    tcfg = TrainConfig(dtype="float32", lr=3e-4, remat=False,
+                       attn_chunk_q=min(128, s), attn_chunk_kv=min(128, s))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_model(cfg, gen, torch.float32)
+    step, opt = make_train_step(cfg, tcfg)
+    opt_state = opt.init(params)
+    losses, step_s, profile = [], [], None
+    zero_counts()
+    for i in range(AUDIO_TRAIN_STEPS + 2):
+        batch = _audio_batch(cfg, b, s, torch.float32, seed=100 + i,
+                             labels=True)
+        torch.cuda.synchronize()
+        if i == profile_at:
+            (params, opt_state, metrics), profile = profiled_step(
+                lambda: step(params, opt_state, batch), STEP_GROUPS)
+        else:
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    launched = counts()
+    sums = leaf_checksums(params, opt_state)
+    del params, opt_state
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_s": step_s, "profile": profile,
+            "launches": launched, "peak_bytes": peak, "checksums": sums}
+
+
+def lm_audio_train_step():
+    """hubert-xlarge trained in f32 with AdamW at full width and depth
+    (``AUDIO_TRAIN``): the first step, ``AUDIO_TRAIN_STEPS`` timed steps
+    and one profiled (device time by group); K4's forward with lse, dq
+    and dkdv exactly once a layer a step; finite losses; the same steps
+    again from the same seeds with equal checksums of the parameters and
+    moments.  Returns (the phase, the per-step launches)."""
+    import math
+    from repro_torch.config import get_arch
+    cfg = get_arch(AUDIO)
+    b, s = AUDIO_TRAIN
+    steps = AUDIO_TRAIN_STEPS + 2
+    first = _audio_train_run(cfg, profile_at=steps - 1)
+    again = _audio_train_run(cfg)
+    n = cfg.num_layers * steps
+    want = only(flash_attention=n, flash_attention_bwd_dq=n,
+                flash_attention_bwd_dkdv=n)
+    for r in (first, again):
+        if r["launches"] != want:
+            fail(f"lm_audio_train_step: launches {r['launches']}, "
+                 f"expected {want}")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            fail(f"lm_audio_train_step: losses {r['losses']}")
+    if first["checksums"] != again["checksums"] \
+            or first["losses"] != again["losses"]:
+        fail("lm_audio_train_step: two seeded runs differ")
+    warm = statistics.median(first["step_s"][1:])
+    return {"arch": AUDIO, "num_layers": cfg.num_layers, "batch": b,
+            "frames": s, "head_dim": cfg.head_dim, "dtype": "float32",
+            "optimizer": "adamw", "losses": first["losses"],
+            "step_s": first["step_s"], "first_step_s": first["step_s"][0],
+            "warm_s_per_step": warm, "frames_per_s": b * s / warm,
+            "repeat_step_s": again["step_s"],
+            "launches": first["launches"],
+            "peak_bytes": first["peak_bytes"],
+            "two_runs_equal": True,
+            "leaf_checksums": first["checksums"][:8],
+            "profiled_step": with_step_shares(first["profile"], warm)}, {
+        k: v // steps for k, v in first["launches"].items()}
 
 
 # Published peaks of one H100 SXM beside F32_FLOPS_PER_S: the dense bf16
@@ -4993,6 +5220,10 @@ FA_BWD_SHAPES = (("hymba-1.5b", (1, 2048, 25, 64), (1, 2048, 5, 64), 1024),
                  # of 4096 covers S, so every earlier key is visible
                  ("mixtral-8x7b", (1, 2048, 32, 128), (1, 2048, 8, 128),
                   4096))
+# the same as (arch, q shape, k shape, window, causal), and hubert's
+# train step (D = 80, MHA, an encoder: no mask)
+FA_BWD_LAYERS = tuple((*x, True) for x in FA_BWD_SHAPES) + (
+    ("hubert-xlarge", (2, 1024, 16, 80), (2, 1024, 16, 80), 0, False),)
 
 
 # The work of K4's backward, per kernel and for the pair, that its bound
@@ -5068,19 +5299,21 @@ def flash_attention_bwd_times(per_step):
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import flash_attention as fa
     out = []
-    for arch, qs, ks, window in FA_BWD_SHAPES:
+    for arch, qs, ks, window, causal in FA_BWD_LAYERS:
         gen = torch.Generator(device="cuda").manual_seed(23)
         q = torch.randn(qs, generator=gen, device="cuda")
         k = torch.randn(ks, generator=gen, device="cuda")
         v = torch.randn(ks, generator=gen, device="cuda")
         do = torch.randn(qs, generator=gen, device="cuda")
-        o, lse = fa._kernel_forward(q, k, v, True, window, 0, with_lse=True)
+        o, lse = fa._kernel_forward(q, k, v, causal, window, 0,
+                                    with_lse=True)
         b, s, h, d = qs
         t, hkv = ks[1], ks[2]
         lib = fa._bwd_lib()
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
         delta = torch.empty((b, h, s), device="cuda")
-        args = (b, s, t, h, hkv, d, 1, window, 0, 1.0 / math.sqrt(d))
+        args = (b, s, t, h, hkv, d, int(causal), window, 0,
+                1.0 / math.sqrt(d))
 
         def dq_kernel():
             lib.flash_attention_bwd_dq_f32(
@@ -5097,11 +5330,12 @@ def flash_attention_bwd_times(per_step):
                 torch.cuda.current_stream().cuda_stream)
 
         def pair():
-            return fa._kernel_backward(q, k, v, o, lse, do, True, window, 0)
+            return fa._kernel_backward(q, k, v, o, lse, do, causal, window,
+                                       0)
 
         def plain():
             return fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                                causal=True, window=window)
+                                                causal=causal, window=window)
 
         # the library yardstick: autograd of SDPA on k and v repeated to
         # every q head inside the graph (its backward sums each group),
@@ -5115,7 +5349,7 @@ def flash_attention_bwd_times(per_step):
             kp = torch.arange(t, device="cuda")[None, :]
             lib_kw = {"attn_mask": (kp <= qp) & (kp > qp - window)}
         else:
-            lib_kw = {"is_causal": True}
+            lib_kw = {"is_causal": causal}
         lib_do = do.transpose(1, 2)
 
         def library_on(backend):
@@ -5145,15 +5379,15 @@ def flash_attention_bwd_times(per_step):
                                                       **lib_kw)
 
         def fwd_lse():
-            return fa._kernel_forward(q, k, v, True, window, 0,
+            return fa._kernel_forward(q, k, v, causal, window, 0,
                                       with_lse=True)
 
         def fwd_plain_out():
-            return fa._kernel_forward(q, k, v, True, window, 0,
+            return fa._kernel_forward(q, k, v, causal, window, 0,
                                       with_lse=False)
 
         def fwd_twin():
-            return fa.flash_attention_fwd_plain(q, k, v, causal=True,
+            return fa.flash_attention_fwd_plain(q, k, v, causal=causal,
                                                 window=window)
 
         if "EfficientAttention" not in lib_node:
@@ -5186,7 +5420,7 @@ def flash_attention_bwd_times(per_step):
             if not ok:
                 fail(f"flash_attention_bwd_times {arch}: {tag} {err}")
         row = {"arch": arch, "q": list(qs), "k": list(ks),
-               "window": window, "causal": True, "dtype": "torch.float32",
+               "window": window, "causal": causal, "dtype": "torch.float32",
                "library": "autograd of scaled_dot_product_attention, f32, "
                           f"kv repeated in the graph ({lib_node})",
                "library_ms": lib_ms, "library_math_ms": lib_math_ms,
@@ -5212,7 +5446,8 @@ def flash_attention_bwd_times(per_step):
                     "dkdv": per_step.get(arch, {}).get(
                         "flash_attention_bwd_dkdv", 0)}}
         dots, reads, writes = FA_FWD_WORK
-        fb = flash_bwd_bound_ms(qs, ks, dots, reads, writes, window=window)
+        fb = flash_bwd_bound_ms(qs, ks, dots, reads, writes, causal=causal,
+                                window=window)
         row["fwd_bound"] = {
             "ms": fb["ms"], "by": fb["by"], "route": fb["route"],
             "flops": fb["flops"], "exps": fb["exps"],
@@ -5225,7 +5460,7 @@ def flash_attention_bwd_times(per_step):
         for name, dots, reads, writes in FA_BWD_WORK:
             ms = times[name]
             bound = flash_bwd_bound_ms(qs, ks, dots, reads, writes,
-                                       window=window)
+                                       causal=causal, window=window)
             row[name] = {"ms": ms, "bound_ms": bound["ms"],
                          "bound_by": bound["by"],
                          "bound_route": bound["route"],
@@ -5247,7 +5482,7 @@ def flash_attention_bwd_times(per_step):
         done["pair"] = done["dq"] + done["dkdv"]
         for name, _, reads, writes in FA_BWD_WORK:
             bound = flash_bwd_bound_ms(qs, ks, done[name], reads, writes,
-                                       window=window)
+                                       causal=causal, window=window)
             row[name].update(dots_done=done[name],
                              bound_on_dots_done_ms=bound["ms"],
                              rate_on_dots_done=bound["ms"] / row[name]["ms"])
@@ -5444,6 +5679,10 @@ def run_phases() -> int:
     emit({"phase": "lm_xlstm_consistency", **lm_xlstm_consistency()})
     emit({"phase": "lm_xlstm_train_step", "card": card,
           **lm_xlstm_train_step()})
+    audio, audio_calls = lm_audio_encode_path()
+    emit({"phase": "lm_audio_encode_path", "card": card, **audio})
+    audio_train, per_step[AUDIO] = lm_audio_train_step()
+    emit({"phase": "lm_audio_train_step", "card": card, **audio_train})
 
     at_main = fedagg_times(MAIN_N, MAIN_P)
     seen = [fedagg_times(n, p)
@@ -5482,7 +5721,8 @@ def run_phases() -> int:
           f"at_r{PARTIAL_R}": full_r, "at_mesh_path_shapes": partial_seen,
           "at_padding_only_shards": zero_live})
 
-    fa_times = flash_attention_times(attn_calls + moe_calls + wide_calls)
+    fa_times = flash_attention_times(attn_calls + moe_calls + wide_calls
+                                     + audio_calls)
     emit({"phase": "flash_attention_times", "card": card,
           "at_prefill_path_shapes": fa_times})
     ss_times = ssm_scan_times()
@@ -5544,15 +5784,17 @@ def run_phases() -> int:
         "launches": prefill[0]["launches"]["flash_attention"],
         "tc_launches": prefill[0]["launches"]["flash_attention_tc"],
         # a prefill of each wide-head path (D = 128: mixtral, arctic,
-        # phi4-mini; D = 192: nemotron), the tensor-core kernel each
-        # layer
+        # phi4-mini, chameleon; D = 192: nemotron) and hubert's encoder
+        # forward (D = 80), the tensor-core kernel each layer
         "wide_head_launches": {
             r["arch"]: {"head_dim": r["head_dim"],
                         "flash_attention": r["launches"]["flash_attention"],
                         "flash_attention_tc":
                             r["launches"]["flash_attention_tc"]}
             for r in (moe_serve["mixtral"], moe_serve["arctic"],
-                      *wide_rows)},
+                      *wide_rows,
+                      {"arch": AUDIO, "head_dim": audio["head_dim"],
+                       "launches": audio["forward"]["launches"]})},
         "max_abs_err": max(t["max_abs_err"] for t in fa_times),
         "shape": {"q": fa_times[0]["q"], "k": fa_times[0]["k"],
                   "window": fa_times[0]["window"]},
@@ -5623,8 +5865,8 @@ def run_phases() -> int:
                                                      "bound_route")},
                   "library_ms": fa_bwd[1]["library_ms"]},
         # the wide heads: phi4-mini and mixtral (D = 128; launches from
-        # their train steps) and a nemotron layer (D = 192; no train
-        # run)
+        # their train steps), a nemotron layer (D = 192; no train run)
+        # and hubert's (D = 80; launches from its train step)
         "wide_heads": [{
             "arch": r["arch"], "q": r["q"], "k": r["k"],
             **{k: r[part][k] for k in ("ms", "bound_ms", "bound_by",

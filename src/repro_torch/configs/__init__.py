@@ -1,12 +1,16 @@
 """Registers the selectable architectures (``--arch <id>``): the CNN
-family of the paper, and the LM configs of the dense, hybrid, MoE and
-xLSTM families (``llama3.2-1b``, ``granite-20b``, ``nemotron-4-340b``,
-``phi4-mini-3.8b``, dense; ``hymba-1.5b``, hybrid; ``mixtral-8x7b``,
-``arctic-480b``, MoE; ``xlstm-350m``, ssm)."""
+family of the paper, and the LM configs of the dense, hybrid, MoE,
+xLSTM, audio and VLM families (``llama3.2-1b``, ``granite-20b``,
+``nemotron-4-340b``, ``phi4-mini-3.8b``, dense; ``hymba-1.5b``,
+hybrid; ``mixtral-8x7b``, ``arctic-480b``, MoE; ``xlstm-350m``, ssm;
+``hubert-xlarge``, audio, an encoder over frames; ``chameleon-34b``,
+vlm, image tokens as ids of its vocabulary)."""
 
 from repro_torch.configs import (  # noqa: F401
     arctic_480b,
+    chameleon_34b,
     granite_20b,
+    hubert_xlarge,
     hymba_1_5b,
     llama3_2_1b,
     mixtral_8x7b,

@@ -27,8 +27,13 @@ from repro_torch.obs import telemetry as obs
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+# --split-compile=0: each nvcc optimizes its kernels on as many threads
+# as the machine has CPUs; the attention sources' many instantiations
+# then build in about 13 s where one thread took 21 on an H100 machine
+# of 8 cores (PERF.md)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", f"-I{CSRC}")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--split-compile=0",
+              f"-I{CSRC}")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

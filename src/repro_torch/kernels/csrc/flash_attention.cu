@@ -61,8 +61,9 @@
 //     < S; with LSE, lse = m + log(max(l, 1e-30)) for the backward.
 //   * k and v need 16-byte addresses and strides (cp.async); the
 //     wrapper raises otherwise.  q is read with 4-byte loads.
-//   * D = 128 and 192 (the same arithmetic, fa_fwd_wide): q as split-TF32
-//     fragments would take D registers a thread, so q sits in shared
+//   * D = 80, 128 and 192 (the same arithmetic, fa_fwd_wide): q as
+//     split-TF32 fragments would take D registers a thread (at D = 64
+//     the four-warp kernel already holds 252), so q sits in shared
 //     memory and its fragments are read by ldmatrix and split each tile.
 //     Eight warps a block (one block an SM: eight warps), the pair of
 //     warps w, w + 4 sharing 16 q rows: each computes S over half of
@@ -72,15 +73,17 @@
 //     pair's exchange (fa_exchange.cuh: a float4 a lane and 8-key
 //     slice, as the backward's), and after a second pair barrier each
 //     runs P.V with the pair's whole 16-row P (split once a tile) over
-//     its half of the output columns, D/2 = 64 or 96 (32 or 48
+//     its half of the output columns, D/2 = 40, 64 or 96 (20, 32 or 48
 //     accumulator registers).  So S once a visible pair: 2 dots, as at
 //     D <= 64, and no grid y.  l is a per-thread partial sum over the
 //     warp's keys, summed over the quad and the pair in the epilogue.
 //     V's B words stay two scalar loads a fragment (ldmatrix cannot
 //     transpose 32-bit words), free of bank conflicts.  A 2-stage ring
-//     of K/V tiles of 64 keys (D = 128) or 48 (D = 192); bytes of
+//     of K/V tiles of 64 keys (D = 80, 128) or 48 (D = 192); bytes of
 //     dynamic shared memory:
 //
+//       D = 80:  q 64*84*4 = 21,504; ring 2*2*64*84*4 = 86,016; P
+//                exchange 16,384; row exchange 512; in all 124,416
 //       D = 128: q 64*132*4 = 33,792; ring 2*2*64*132*4 = 135,168; P
 //                exchange 4 pairs * 64 keys * 16 floats * 4 = 16,384;
 //                row exchange 4*2*16*4 = 512; in all 185,856
@@ -110,6 +113,10 @@
 //     row (128, 64 or 32 bytes for D = 64, 32, 16), the layout wgmma
 //     reads; at D = 128 and 192 in blocks of 64 columns (one 128-byte
 //     swizzled TMA box each), the descriptors stepping across them.
+//     At D = 80 a row is 160 bytes, no multiple of the 128-byte
+//     swizzle: the tiles are five blocks of 16 columns (one 32-byte
+//     swizzled box each), a k-step of Q.K^T one block, and P.V one
+//     m64n80k16 whose MN-major V descriptor steps across the blocks.
 //   * S = Q.K^T: wgmma.mma_async m64n128k16, both operands K-major from
 //     shared memory, f32 accumulator in registers; then * scale.
 //   * Masks by select only on tiles that cut a band edge or hold keys
@@ -150,6 +157,10 @@
 //     tools/k4_variants.py) and a third stage at D = 128 each moved
 //     nothing or lost on an H100 (PERF.md); the 96-key tiles at D = 192
 //     gained 7-16 %.
+//   * D = 80 (hubert): as D = 128, in five blocks of 16 columns (32-byte
+//     swizzle, Layout::chunk for the staging): 128-key tiles in 3
+//     stages (q 20,480 + 3 * 40,960 = 143,360 bytes); S, P's two parts
+//     and O are 64 + 64 + 40 registers; P.V one m64n80k16.
 // Numerics against the f32 reference: P.V takes P at f32 precision (the
 // split leaves about 2^-16 of P; one bf16 part alone would leave 2^-9),
 // so the numerator matches the f32 row sum l; exp goes through exp2.  The checks hold it at rtol
@@ -841,25 +852,28 @@ constexpr int CONSUMER_REGS = 240;
 constexpr float NEG = -1e30f;
 
 // Shared-memory layout of one head size.  A tile is stored in blocks of
-// COLS = min(D, 64) columns, each block its rows of COLS bf16 (ROW
-// bytes: 128, 64 or 32) one after the other, in the swizzle whose span
-// is one such row, so that TMA writes and wgmma reads the same layout;
-// D = 128 and 192 take two and three 128-byte blocks (TMA boxes of 64
-// columns), D <= 64 one.  Every block starts on a multiple of 1024
+// COLS = min(D, 64) columns (16 at D = 80, whose 160-byte row no
+// swizzle span divides), each block its rows of COLS bf16 (ROW bytes:
+// 128, 64 or 32) one after the other, in the swizzle whose span is one
+// such row, so that TMA writes and wgmma reads the same layout; D = 128
+// and 192 take two and three 128-byte blocks (TMA boxes of 64 columns),
+// D = 80 five 32-byte ones, D <= 64 one.  Every block starts on a multiple of 1024
 // bytes, the longest swizzle repeat.  KEYS and DEPTH are the K/V tile
-// and the ring: BK keys in STAGES stages up to D = 64.  WIDE (D = 128,
-// 192): the output is staged in the q tile's space, and the O buffer's
-// room goes to the ring: BK keys in 3 stages at D = 128, 96 keys in 2 at
-// D = 192 (S, P's two parts and O within the consumers' 240 registers).
+// and the ring: BK keys in STAGES stages up to D = 64.  WIDE (D = 80,
+// 128, 192): the output is staged in the q tile's space, and the O
+// buffer's room goes to the ring: BK keys in 3 stages at D = 80 and 128,
+// 96 keys in 2 at D = 192 (S, P's two parts and O within the consumers'
+// 240 registers).
 template <int D>
 struct Layout {
     static constexpr bool WIDE = D > 64;
     static constexpr int KEYS = D <= 128 ? BK : 96;
     static constexpr int DEPTH = D == 192 ? 2 : WIDE ? 3 : STAGES;
-    static constexpr int COLS = D < 64 ? D : 64;       // columns a block
+    static constexpr int COLS = D < 64 ? D : D % 64 ? 16 : 64;  // a block
     static constexpr int ROW = 2 * COLS;               // bytes a block row
     static constexpr int ATOM = 8 * ROW;               // 8-row swizzle atom
     static constexpr int SWIZZLE = COLS == 64 ? 1 : COLS == 32 ? 2 : 3;
+    static constexpr int KPB = COLS / 16;              // k-steps a block
     static constexpr int Q_BYTES = BQ * 2 * D;
     static constexpr int KV_BYTES = KEYS * 2 * D;
     static constexpr int O_PITCH = D + 8;              // bf16, staging
@@ -877,7 +891,15 @@ struct Layout {
     static_assert(D % COLS == 0 && ALLOC <= 227 * 1024, "shared memory");
     // byte offset of k-step kk (16 columns) in a tile of `rows` rows
     __host__ __device__ static constexpr int kstep(int kk, int rows) {
-        return (kk / 4) * rows * ROW + 32 * (kk % 4);
+        return (kk / KPB) * rows * ROW + 32 * (kk % KPB);
+    }
+    // byte offset of 16-byte chunk c (8 columns) of row r in a tile of
+    // `rows` rows, in the block's swizzle (16-byte chunk bits XOR the
+    // address's 128-byte line bits)
+    __host__ __device__ static constexpr int chunk(int r, int c, int rows) {
+        return (c / (COLS / 8)) * rows * ROW + r * ROW
+               + (((c % (COLS / 8)) ^ ((r * ROW >> 7) & (ROW / 16 - 1)))
+                  * 16);
     }
 };
 
@@ -1100,6 +1122,27 @@ __device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D(64 x 80, f32) += A(64 x 16, registers) . B(16 x 80, smem, MN-major)
+__device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39}, "
+        "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // D(64 x 128, f32) += A(64 x 16, registers) . B(16 x 128, smem, MN-major)
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
                                                     const uint32_t (&a)[4],
@@ -1162,8 +1205,9 @@ __device__ __forceinline__ void wgmma_m64n192k16_rs(float (&d)[96],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// O += P . V for 16 keys: one m64nDk16.  At D = 128 and 192, V's tile
-// is two or three swizzled blocks of 64 columns, KEYS rows each.
+// O += P . V for 16 keys: one m64nDk16.  At D = 80, 128 and 192, V's
+// tile is five swizzled blocks of 16 columns, or two or three of 64,
+// KEYS rows each.
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4],
@@ -1172,11 +1216,12 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
     else if constexpr (D == 32) wgmma_m64n32k16_rs(o, a, desc_v);
     else if constexpr (D == 16) wgmma_m64n16k16_rs(o, a, desc_v);
     else {
-        // V's 64-column blocks lie KEYS rows apart: the MN-major
+        // V's column blocks lie KEYS rows apart: the MN-major
         // descriptor's leading byte offset
         constexpr uint64_t LBO = (Layout<D>::KEYS * Layout<D>::ROW) >> 4;
         const uint64_t d = (desc_v & ~(0x3FFFull << 16)) | (LBO << 16);
-        if constexpr (D == 128) wgmma_m64n128k16_rs(o, a, d);
+        if constexpr (D == 80) wgmma_m64n80k16_rs(o, a, d);
+        else if constexpr (D == 128) wgmma_m64n128k16_rs(o, a, d);
         else wgmma_m64n192k16_rs(o, a, d);
     }
 }
@@ -1516,17 +1561,15 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             constexpr int CHUNKS = D / 8;             // 16 bytes each
             if constexpr (L::WIDE) {
                 // staged in this warpgroup's own q rows (its last Q.K^T
-                // has been waited on), in their 128-byte swizzle: 16-byte
-                // chunk k of row r of a 64-column block at k ^ (r % 8)
+                // has been waited on), in their swizzle (L::chunk: at
+                // 128 bytes a row, 16-byte chunk k of row r at k ^ (r % 8))
                 uint8_t* s_o = smem + L::Q_OFF + 64 * w * L::ROW;
 #pragma unroll
                 for (int i = 0; i < D / 2; i += 2) {
                     const int r = row + 8 * ((i >> 1) & 1);
                     const int col = 8 * (i >> 2) + 2 * (lane & 3);
                     *reinterpret_cast<__nv_bfloat162*>(
-                        s_o + (col / 64) * BQ * L::ROW + r * L::ROW
-                        + ((((col % 64) / 8) ^ (r & 7)) * 16)
-                        + (col % 8) * 2) =
+                        s_o + L::chunk(r, col / 8, BQ) + (col % 8) * 2) =
                         __floats2bfloat162_rn(o[i] / den[(i >> 1) & 1],
                                               o[i + 1] / den[(i >> 1) & 1]);
                 }
@@ -1535,8 +1578,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const int rr = c / CHUNKS, cc = c % CHUNKS;
                     if (rr < n_rows) {
                         const uint4 val = *reinterpret_cast<const uint4*>(
-                            s_o + (cc / 8) * BQ * L::ROW + rr * L::ROW
-                            + (((cc % 8) ^ (rr & 7)) * 16));
+                            s_o + L::chunk(rr, cc, BQ));
                         *reinterpret_cast<uint4*>(
                             out + (((long long)b * S + r0 + rr) * H + h) * D
                             + 8 * cc) = val;
@@ -1596,16 +1638,19 @@ static EncodeTiledFn encode_tiled() {
 }
 
 // A (D, rows, heads, batch) bf16 view with byte strides of rows, heads
-// and batch, boxes of (D, box_rows), in the swizzle of a D-wide row.
+// and batch, boxes of (box_cols, box_rows), in the swizzle of a
+// box_cols-wide row.
 struct MapKey {
     const void* ptr;
     long long dims[4];
     long long strides[3];
+    int box_cols;
     int box_rows;
 };
 
 static bool same_key(const MapKey& a, const MapKey& b) {
     return a.ptr == b.ptr && a.box_rows == b.box_rows
+           && a.box_cols == b.box_cols
            && memcmp(a.dims, b.dims, sizeof a.dims) == 0
            && memcmp(a.strides, b.strides, sizeof a.strides) == 0;
 }
@@ -1625,7 +1670,7 @@ static int tensor_map(CUtensorMap* map, const MapKey& key) {
         if (same_key(map_keys[i], key)) { *map = map_vals[i]; return 0; }
     EncodeTiledFn encode = encode_tiled();
     if (encode == nullptr) return (int)cudaErrorNotSupported;
-    const int d = key.dims[0] < 64 ? (int)key.dims[0] : 64;   // box columns
+    const int d = key.box_cols;
     const cuuint64_t dims[4] = {(cuuint64_t)key.dims[0],
                                 (cuuint64_t)key.dims[1],
                                 (cuuint64_t)key.dims[2],
@@ -1658,11 +1703,13 @@ static int launch(const void* q, const void* k, const void* v, void* out,
     // element strides (batch, position, head) -> byte strides of the
     // (D, position, head, batch) maps
     CUtensorMap mq, mk, mv;
-    const MapKey kq = {q, {D, S, H, B}, {2 * st[1], 2 * st[2], 2 * st[0]}, BQ};
+    constexpr int C = Layout<D>::COLS;
+    const MapKey kq = {q, {D, S, H, B}, {2 * st[1], 2 * st[2], 2 * st[0]}, C,
+                       BQ};
     const MapKey kk = {k, {D, T_len, Hkv, B},
-                       {2 * st[4], 2 * st[5], 2 * st[3]}, Layout<D>::KEYS};
+                       {2 * st[4], 2 * st[5], 2 * st[3]}, C, Layout<D>::KEYS};
     const MapKey kv = {v, {D, T_len, Hkv, B},
-                       {2 * st[7], 2 * st[8], 2 * st[6]}, Layout<D>::KEYS};
+                       {2 * st[7], 2 * st[8], 2 * st[6]}, C, Layout<D>::KEYS};
     int err = tensor_map(&mq, kq);
     if (err == 0) err = tensor_map(&mk, kk);
     if (err == 0) err = tensor_map(&mv, kv);
@@ -1688,8 +1735,8 @@ static int launch(const void* q, const void* k, const void* v, void* out,
 // out (B,S,H,D) contiguous.
 // dtype 0 = f32 (split TF32), 1 = bf16 (the wgmma kernel), both on the
 // tensor cores;
-// all four tensors of that dtype.  D in {16, 32, 64, 128, 192}: the
-// models' 64, 128 and 192 and the JAX kernel tests' 16 and 32.  lse: null, or (f32 only) a
+// all four tensors of that dtype.  D in {16, 32, 64, 80, 128, 192}: the
+// models' 64, 80, 128 and 192 and the JAX kernel tests' 16 and 32.  lse: null, or (f32 only) a
 // contiguous (B,H,S) f32 output for the rows' log-sum-exp m + log(max(l,
 // 1e-30)) that the backward kernels (flash_attention_bwd.cu) read;
 // asking for it changes no bit of out.
@@ -1718,6 +1765,7 @@ extern "C" int flash_attention_fwd(
             case 16: return launch_f32<16>(FA_ARGS, lse_f);
             case 32: return launch_f32<32>(FA_ARGS, lse_f);
             case 64: return launch_f32<64>(FA_ARGS, lse_f);
+            case 80: return launch_f32<80>(FA_ARGS, lse_f);
             case 128: return launch_f32<128>(FA_ARGS, lse_f);
             case 192: return launch_f32<192>(FA_ARGS, lse_f);
         }
@@ -1726,6 +1774,7 @@ extern "C" int flash_attention_fwd(
             case 16: return tc::launch<16>(FA_ARGS);
             case 32: return tc::launch<32>(FA_ARGS);
             case 64: return tc::launch<64>(FA_ARGS);
+            case 80: return tc::launch<80>(FA_ARGS);
             case 128: return tc::launch<128>(FA_ARGS);
             case 192: return tc::launch<192>(FA_ARGS);
         }
@@ -1761,6 +1810,7 @@ extern "C" long long flash_attention_fwd_sizes(int D, int dtype,
         case 16: return fa_sizes<16>(dtype, which);
         case 32: return fa_sizes<32>(dtype, which);
         case 64: return fa_sizes<64>(dtype, which);
+        case 80: return fa_sizes<80>(dtype, which);
         case 128: return fa_sizes<128>(dtype, which);
         case 192: return fa_sizes<192>(dtype, which);
     }

@@ -68,8 +68,9 @@
 // scalar B words are free of bank conflicts.  At D = 64, 104 KB of
 // shared memory a block (two blocks an SM).
 //
-// D = 128 and 192: eight warps a block, and S and dP once a visible
-// pair.  The block keeps its 64 stationary rows; the two warps of a pair
+// D = 80, 128 and 192: eight warps a block, and S and dP once a visible
+// pair (at D = 80 the four-warp kernels' accumulators would not fit:
+// dkdv holds 246 registers at D = 64).  The block keeps its 64 stationary rows; the two warps of a pair
 // (w and w + 4) share 16 of them.  Each computes S and dP for its half
 // of the moving tile's columns, forms P and dS on its fragments, and
 // puts them in the pair's exchange in shared memory (a float4 a lane
@@ -77,10 +78,14 @@
 // the other half); after a barrier of the pair's 64 threads (bar.sync
 // 1 + pair, 64) each warp runs the second products with the whole
 // 16-row P or dS as the A operand over its half of the output columns,
-// D/2 = 64 or 96 (32 or 48 accumulator registers an output).  One block
+// D/2 = 40, 64 or 96 (20, 32 or 48 accumulator registers an output).  One block
 // an SM, eight warps; no grid y.  Moving tiles of 64 rows, or as many
 // as two stages fit (48, 32); bytes of dynamic shared memory:
 //
+//   dq   D = 80: Q, dO 2*64*84*4 = 43,008; ring 2*2*64*84*4 = 86,016;
+//        exchange 16,384; in all 145,408
+//   dkdv D = 80: K, V 43,008; ring 2*(2*64*84 + 128)*4 = 87,040;
+//        exchange 2*4*64*16*4 = 32,768; 162,816
 //   dq   D = 128: Q, dO 2*64*132*4 = 67,584; ring 2 stages x (K, V) of
 //        64 keys 2*2*64*132*4 = 135,168; dS exchange 4 pairs x 64 x 16
 //        floats = 16,384; in all 219,136 (of 232,448)
@@ -132,10 +137,11 @@ __host__ __device__ constexpr int fb_threads() {
 // rows of a moving tile (keys in dq, q rows in dkdv): 64, or as many as
 // two stages fit beside the exchange -- dkdv 48 at D = 128 (1.059 ms
 // against 1.110 with 32 at phi4-mini's layer on an H100 80GB HBM3 at
-// 700 W: tools/k4_bwd_variants.py), 32 at D = 192 in both kernels
+// 700 W: tools/k4_bwd_variants.py), 32 at D = 192 in both kernels; 64
+// at D = 80, where two stages of 64 rows fit in both
 template <int D, bool DKDV>
 __host__ __device__ constexpr int fb_mrows() {
-    return D <= 64 ? 64 : D == 128 ? (DKDV ? 48 : 64) : 32;
+    return D <= 80 ? 64 : D == 128 ? (DKDV ? 48 : 64) : 32;
 }
 
 // stages of the moving tiles' ring
@@ -1103,7 +1109,7 @@ static bool fb_aligned(const void* p) {
 
 // q, o, dout, dq (B,S,H,D), k, v (B,T,Hkv,D), lse and delta (B,H,S), all
 // contiguous f32, q, k, v, o, dout and dq on 16-byte addresses; D in
-// {16, 32, 64, 128, 192}.  Writes dq and delta = rowsum(dout * o).  Returns
+// {16, 32, 64, 80, 128, 192}.  Writes dq and delta = rowsum(dout * o).  Returns
 // cudaGetLastError() after the launch; does not synchronise.
 extern "C" int flash_attention_bwd_dq_f32(
         const void* q, const void* k, const void* v, const void* o,
@@ -1124,6 +1130,7 @@ extern "C" int flash_attention_bwd_dq_f32(
         case 16: return launch_dq<16>(FB_DQ_ARGS);
         case 32: return launch_dq<32>(FB_DQ_ARGS);
         case 64: return launch_dq<64>(FB_DQ_ARGS);
+        case 80: return launch_dq<80>(FB_DQ_ARGS);
         case 128: return launch_dq<128>(FB_DQ_ARGS);
         case 192: return launch_dq<192>(FB_DQ_ARGS);
     }
@@ -1134,7 +1141,7 @@ extern "C" int flash_attention_bwd_dq_f32(
 // q, dout (B,S,H,D), k, v, dk, dv (B,T,Hkv,D), lse and delta (B,H,S) --
 // delta as flash_attention_bwd_dq_f32 wrote it, so launched after it on
 // the same stream -- all contiguous f32, q, k, v, dout, dk and dv on
-// 16-byte addresses; D in {16, 32, 64, 128, 192}.  Writes dk and dv, each summed
+// 16-byte addresses; D in {16, 32, 64, 80, 128, 192}.  Writes dk and dv, each summed
 // over the kv head's group of q heads.
 extern "C" int flash_attention_bwd_dkdv_f32(
         const void* q, const void* k, const void* v, const void* dout,
@@ -1155,6 +1162,7 @@ extern "C" int flash_attention_bwd_dkdv_f32(
         case 16: return launch_dkdv<16>(FB_KV_ARGS);
         case 32: return launch_dkdv<32>(FB_KV_ARGS);
         case 64: return launch_dkdv<64>(FB_KV_ARGS);
+        case 80: return launch_dkdv<80>(FB_KV_ARGS);
         case 128: return launch_dkdv<128>(FB_KV_ARGS);
         case 192: return launch_dkdv<192>(FB_KV_ARGS);
     }
@@ -1189,6 +1197,7 @@ extern "C" long long flash_attention_bwd_sizes(int D, int kernel,
         case 16: return fb_sizes<16>(kernel, which);
         case 32: return fb_sizes<32>(kernel, which);
         case 64: return fb_sizes<64>(kernel, which);
+        case 80: return fb_sizes<80>(kernel, which);
         case 128: return fb_sizes<128>(kernel, which);
         case 192: return fb_sizes<192>(kernel, which);
     }

@@ -13,8 +13,9 @@ absolute positions (``q_offset`` for the rows), a masked score set to
 ``-1e30``, f32 ``(acc, m, l)``, a divide by ``max(l, 1e-30)``; a row
 that sees no key at all is the mean of v over all ``T`` keys, as in the
 reference.  The output is in q's dtype.  ``D`` is 64 (hymba, llama),
-128 (mixtral, arctic, phi4-mini, granite), 192 (nemotron), or 16 or 32
-(the JAX kernel tests' shapes); any other ``D`` raises ``ValueError``.
+80 (hubert), 128 (mixtral, arctic, phi4-mini, granite, chameleon), 192
+(nemotron), or 16 or 32 (the JAX kernel tests' shapes); any other ``D``
+raises ``ValueError``.
 ``S`` and ``T`` need not be tile multiples.
 
 The dtype picks one of two kernels (neither is a fallback of the
@@ -26,7 +27,7 @@ other):
   fails the tolerance), each tile's product summed from zero and added
   in f32, K/V tiles of 64 keys in a 2-stage ``cp.async`` ring, ``expf``
   and a true divide as the reference; checked at rtol = atol = 2e-5.
-  At D = 128 and 192 q sits in shared memory and a block is eight
+  At D = 80, 128 and 192 q sits in shared memory and a block is eight
   warps, the two of a pair sharing 16 q rows: each computes S over half
   of a key tile, the pair agrees on the row max and trades P through
   shared memory, and each takes P.V over half of the output columns
@@ -45,7 +46,9 @@ other):
   atol 1e-3 against the f32 plain version.  At D = 128 and 192 the
   tiles are stored in swizzled blocks of 64 columns and the output is
   staged in the q tile's space (128-key tiles in 3 stages at 128,
-  96-key tiles in 2 at 192).  Its q, k
+  96-key tiles in 2 at 192); at D = 80 (a 160-byte row, not a multiple
+  of the 128-byte swizzle) in five blocks of 16 columns in the 32-byte
+  swizzle, P.V one ``m64n80k16``.  Its q, k
   and v must sit on 16-byte addresses with 16-byte strides (TMA's
   rule), or the call raises ``ValueError``.
 
@@ -73,7 +76,7 @@ every run).  Their products run on the tensor cores in split TF32
 (three TF32 products a product, about 2^-19 relative at worst) with 16-byte
 ``cp.async`` copies, so q, k, v, o and dO must sit on 16-byte
 addresses, or the backward raises ``ValueError`` before either
-launch.  At D = 128 and 192 a block is eight warps, the two of a pair
+launch.  At D = 80, 128 and 192 a block is eight warps, the two of a pair
 sharing 16 stationary rows, each computing S and dP over half of the
 moving tile and passing P and dS to the other through shared memory:
 S and dP once a visible pair in each kernel (``bwd_sizes`` reports each
@@ -103,7 +106,7 @@ tc_launches = 0
 bwd_dq_launches = 0
 bwd_dkdv_launches = 0
 
-HEAD_DIMS = (16, 32, 64, 128, 192)
+HEAD_DIMS = (16, 32, 64, 80, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
@@ -258,8 +261,8 @@ def _kernel_forward(q, k, v, causal, window, q_offset, with_lse):
                         f"{v.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head_dim {d} not in "
-                         f"{HEAD_DIMS} (other head dims: ROADMAP.md, "
-                         f"with the audio family's 80)")
+                         f"{HEAD_DIMS}: the CUDA kernels are instantiated "
+                         f"at these head dims only")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention kernel takes a unit stride on D")
     if k.device != q.device or v.device != q.device:

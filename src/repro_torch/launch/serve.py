@@ -35,8 +35,10 @@ def main(argv=None):
                     help="cuda (default; raises when absent) or cpu")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_arch(args.arch).reduced()
+    if cfg.is_encoder_only:
+        raise SystemExit(f"{args.arch} is encoder-only: nothing to decode")
+    device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_model(cfg, gen, dtype=torch.float32)
     rng = np.random.default_rng(0)

@@ -2,8 +2,10 @@
 package's ``launch/steps.py``).
 
 The steps are plain functions over real tensors: PyTorch runs eagerly,
-so there is no jit.  The abstract (ShapeDtypeStruct) forms
-(``input_specs``, ``abstract_*``) belong to the dry run, a later slice.
+so there is no jit.  ``input_specs`` gives the step's data inputs as
+``meta`` tensors (shapes and dtypes, no storage), the reference's
+ShapeDtypeStructs; the other abstract forms (``abstract_*``) belong to
+the dry run, a later slice.
 ``make_serve_loop`` is a Python loop of greedy decode steps.
 
 ``make_train_step``'s step writes the parameters and the optimizer
@@ -51,6 +53,30 @@ def swa_window_for(cfg: ModelConfig, shape: InputShape,
     return -1
 
 
+def input_specs(cfg: ModelConfig, shape: InputShape,
+                tcfg: TrainConfig = TrainConfig()):
+    """Stand-ins for the step's data inputs: ``meta`` tensors of the
+    reference's shapes and dtypes.  Token ids (B,S), or (B,1) for a
+    decode step; the audio family's frames (B,S,d_model) in the step's
+    dtype, with per-frame ``labels`` (B,S) for training.  An
+    encoder-only config has no decode step: ``ValueError``."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        if cfg.is_encoder_only:
+            raise ValueError(f"{cfg.arch_id}: encoder-only, no decode step")
+        return {"tokens": spec((b, 1), torch.int32)}
+    if cfg.family == "audio":
+        out = {"frames": spec((b, s, cfg.d_model), _dtype(tcfg))}
+        if shape.kind == "train":
+            out["labels"] = spec((b, s), torch.int32)
+        return out
+    return {"tokens": spec((b, s), torch.int32)}
+
+
 def ready_checkpoint() -> None:
     """Import what ``torch.utils.checkpoint`` imports at its first call
     (``torch._dynamo``; seconds on a CUDA build), and collect the
@@ -66,11 +92,14 @@ def ready_checkpoint() -> None:
 
 def loss_and_grads(loss_fn, params):
     """``jax.value_and_grad(loss_fn, has_aux=True)`` over a parameter
-    tree: (loss, aux, grads), grads a tree of ``params``' structure."""
+    tree: (loss, aux, grads), grads a tree of ``params``' structure.  A
+    leaf the loss does not use (an encoder's token embedding: frames
+    enter in its place) has a zero gradient, as under JAX."""
     leaves, treedef = tree_flatten(params)
     leaves = [l.detach().requires_grad_(True) for l in leaves]
     loss, aux = loss_fn(tree_unflatten(treedef, leaves))
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
     return loss.detach(), aux.detach(), tree_unflatten(treedef,
                                                        list(grads))
 

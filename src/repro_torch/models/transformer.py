@@ -1,5 +1,6 @@
-"""Model assembly: init / forward / decode for the dense, hybrid, MoE
-and xLSTM families (the JAX package's ``models/transformer.py``).
+"""Model assembly: init / forward / decode for the dense, VLM, hybrid,
+MoE, xLSTM and audio families (the JAX package's
+``models/transformer.py``).
 
 Parameters are plain dicts with the reference's key names; the blocks
 are stacked (leading L axis), so ``bridge.from_reference`` carries a
@@ -21,7 +22,11 @@ Families:
                 stacked block is one (mLSTM, sLSTM, GeLU MLP) triple, so
                 ``num_layers // 2`` blocks (``_n_stack``); as in the
                 reference, ``slstm_every`` does not enter the forward
-The audio family raises ``NotImplementedError``: a later slice ports it.
+  audio       : the dense block over frame embeddings (HuBERT): an
+                encoder (``causal=False``) whose ``batch["frames"]``
+                (B,S,d_model) enter in place of embedded tokens; its
+                loss takes per-frame ``labels`` with no shift, and it
+                has no decode step
 """
 
 from __future__ import annotations
@@ -45,14 +50,10 @@ from repro_torch.models.rope import apply_rope
 from repro_torch.sharding.hints import hint
 from repro_torch.tree import tree_map, tree_stack
 
-FAMILIES = ("dense", "vlm", "hybrid", "moe", "ssm")
+FAMILIES = ("dense", "vlm", "hybrid", "moe", "ssm", "audio")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the audio family waits for a later slice of "
-            "the port (ROADMAP.md queue 1, item 13d)")
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.arch_id}: family {cfg.family!r} is not a "
                          "language model")
@@ -234,7 +235,10 @@ def _dots_context():
 
 
 def embed_inputs(cfg: ModelConfig, params, batch):
-    """Token embeddings (the audio frontend waits with its family)."""
+    """Token embeddings, or the audio stub frontend's frames (B,S,d)
+    cast to the embedding's dtype."""
+    if "frames" in batch:
+        return batch["frames"].to(params["embed"].dtype)
     return take_embedding(params["embed"], batch["tokens"])
 
 
@@ -300,9 +304,10 @@ def lm_loss(cfg: ModelConfig, params, batch, *, loss_chunk: int = 512,
     """Sequence-chunked cross-entropy (never keeps (B,S,V) f32 logits
     for the backward).
 
-    Causal LM: predict token t+1 from t.  The shifted sequence is cut
-    into chunks of ``loss_chunk`` (one chunk when that does not divide
-    it, as in the reference); each chunk's logits are recomputed in the
+    Causal LM: predict token t+1 from t; an encoder (audio): the
+    per-frame ``labels``, no shift.  The sequence is cut into chunks
+    of ``loss_chunk`` (one chunk when that does not divide it, as in
+    the reference); each chunk's logits are recomputed in the
     backward (``torch.utils.checkpoint``, non-reentrant: the
     reference's ``@jax.checkpoint``).  Returns (loss + 0.01 * aux, aux),
     the loss the mean over ``b * s``.
@@ -310,8 +315,11 @@ def lm_loss(cfg: ModelConfig, params, batch, *, loss_chunk: int = 512,
     _check_family(cfg)
     hidden, aux = forward(cfg, params, batch, return_hidden=True, **fwd_kw)
     head = lm_head(params)
-    tokens = batch["tokens"]
-    hs, tg = hidden[:, :-1], tokens[:, 1:]
+    if cfg.is_encoder_only:
+        hs, tg = hidden, batch["labels"]
+    else:
+        tokens = batch["tokens"]
+        hs, tg = hidden[:, :-1], tokens[:, 1:]
     b, s, _ = hs.shape
     c = min(loss_chunk, s)
     if s % c:
@@ -450,8 +458,11 @@ def decode_step(cfg: ModelConfig, params, state, tokens, *, window: int = -1):
     Returns (logits (B,1,V), state).  ``state`` is advanced in place,
     caches and ``pos`` alike, and returned: there is one decode state,
     never an older copy whose ``pos`` disagrees with its caches.
+    An encoder-only config raises ``ValueError``.
     """
     _check_family(cfg)
+    if cfg.is_encoder_only:
+        raise ValueError(f"{cfg.arch_id} is encoder-only: no decode step")
     w = cfg.sliding_window if window < 0 else window
     x = take_embedding(params["embed"], tokens)
     pos = state["pos"]

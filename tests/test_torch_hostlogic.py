@@ -33,7 +33,8 @@ COPIED = ["config/base.py", "config/__init__.py", "configs/paper_models.py",
           "configs/llama3_2_1b.py", "configs/hymba_1_5b.py",
           "configs/granite_20b.py", "configs/nemotron_4_340b.py",
           "configs/phi4_mini_3_8b.py", "configs/mixtral_8x7b.py",
-          "configs/arctic_480b.py", "configs/shapes.py",
+          "configs/arctic_480b.py", "configs/hubert_xlarge.py",
+          "configs/chameleon_34b.py", "configs/shapes.py",
           "core/tiering.py", "core/selection.py", "fl/network.py",
           "fl/metrics.py", "data/synthetic.py", "data/partition.py",
           "data/pipeline.py", "data/__init__.py"]
@@ -167,7 +168,8 @@ def test_run_history_json_matches_and_round_trips():
                                   "hymba-1.5b", "granite-20b",
                                   "nemotron-4-340b", "phi4-mini-3.8b",
                                   "mixtral-8x7b", "arctic-480b",
-                                  "xlstm-350m"])
+                                  "xlstm-350m", "hubert-xlarge",
+                                  "chameleon-34b"])
 def test_arch_configs_match(arch):
     a, b = ref_config.get_arch(arch), pt_config.get_arch(arch)
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
@@ -178,10 +180,11 @@ def test_arch_configs_match(arch):
 def test_fl_config_defaults_match_and_port_registers_cnn_family_only():
     assert dataclasses.asdict(ref_config.FLConfig()) == \
         dataclasses.asdict(pt_config.FLConfig())
-    # the CNN family and the LM configs of the dense, hybrid, MoE and
-    # xLSTM families
-    assert pt_config.list_archs() == ["arctic-480b", "cnn-fmnist",
-                                      "cnn-mnist", "granite-20b",
+    # the CNN family and the LM configs of the dense, hybrid, MoE,
+    # xLSTM, audio and VLM families: every arch of the reference
+    assert pt_config.list_archs() == ["arctic-480b", "chameleon-34b",
+                                      "cnn-fmnist", "cnn-mnist",
+                                      "granite-20b", "hubert-xlarge",
                                       "hymba-1.5b", "llama3.2-1b",
                                       "mixtral-8x7b", "nemotron-4-340b",
                                       "phi4-mini-3.8b", "resnet8-cifar10",

@@ -28,7 +28,9 @@ MARKERS = {"rna": ["cvt.rna.tf32.f32 %0, %1;\\n"],
            "rnahi": ["+ 0x1000u) & 0xffffe000u"],
            "wu1": ["#define FB_WIDE_UNROLL 1"],
            "wu2": ["#define FB_WIDE_UNROLL 2"],
-           "kv32": ["D == 128 ? (DKDV ? 32 : 64) : 32;"]}
+           "kv32": ["D == 128 ? (DKDV ? 32 : 64) : 32;"],
+           "d80kv48": ["D == 80 ? (DKDV ? 48 : 64) :"],
+           "d80m32": ["D == 80 ? 32 :"]}
 
 
 @pytest.mark.parametrize("name", sorted(kbv.VARIANTS))

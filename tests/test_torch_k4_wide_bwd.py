@@ -1,4 +1,4 @@
-"""K4's f32 backward at head dims 128 and 192 (``csrc/flash_attention_bwd.cu``:
+"""K4's f32 backward at head dims 80, 128 and 192 (``csrc/flash_attention_bwd.cu``:
 ``fb_dq_wide``, ``fb_dkdv_wide``), its schedule emulated in numpy.
 
 The kernels run only on a card (``chip_smoke.py: kernel_bwd_checks``
@@ -7,8 +7,9 @@ schedule is emulated on the CPU and held against ``jax.grad`` of the JAX
 package's attention:
 
 * the walk: a dq block of 64 q rows takes the key range its rows see,
-  in tiles of 64 keys (D = 128) or 32 (D = 192); a dkdv block of 64 keys
-  takes the q tiles of 48 rows (D = 128) or 32 (D = 192) whose rows see
+  in tiles of 64 keys (D = 80, 128) or 32 (D = 192); a dkdv block of 64
+  keys takes the q tiles of 64 rows (D = 80), 48 (D = 128) or 32
+  (D = 192) whose rows see
   one of its keys, then the tiles of rows that see no key, each for
   every q head of the group;
 * the pair of warps that shares 16 stationary rows: each computes S and
@@ -60,11 +61,11 @@ BLOCK = 64            # stationary rows a block: q rows (dq), keys (dkdv)
 
 
 def moving_rows(d, dkdv):
-    """Rows of a moving tile above D = 64 (``fb_mrows``): 32 at
-    D = 192; at D = 128, 48 in dkdv and 64 in dq."""
+    """Rows of a moving tile above D = 64 (``fb_mrows``): 64 at D = 80;
+    32 at D = 192; at D = 128, 48 in dkdv and 64 in dq."""
     if d == 192:
         return 32
-    return 48 if dkdv else 64
+    return 48 if dkdv and d == 128 else 64
 
 
 def band(p, t, causal, window):
@@ -266,8 +267,9 @@ def emulate(q, k, v, do, *, causal=True, window=0, q_offset=0, visits=None):
 # WIDE_HEAD_CASES at CPU sizes -- GQA 4 causal, a window over ragged S
 # with a group of 5, q_offset, no mask at T over S, rows that see no key
 # beside rows that do, a band at nemotron's group of 12 -- and S and T
-# off the 32-row grid with a window edge inside a tile
-CASES = [case for d in (128, 192) for case in (
+# off the 32-row grid with a window edge inside a tile; each at D = 80
+# as at 128 and 192
+CASES = [case for d in (80, 128, 192) for case in (
     (f"d{d}-gqa4-causal-100", (1, 100, 100, 8, 2, d), {}),
     (f"d{d}-gqa5-window30-ragged-77", (2, 77, 77, 5, 1, d),
      dict(window=30)),
@@ -353,15 +355,15 @@ def test_no_key_case_is_one_the_model_attention_cannot_hold():
     assert not dq[:, none].any()
 
 
-@pytest.mark.parametrize("d", [128, 192])
+@pytest.mark.parametrize("d", [80, 128, 192])
 def test_tile_heights_are_the_kernels(d):
     """The emulation's tile heights are the source's ``fb_mrows`` (64 up
-    to D = 64; at D = 128 48 in dkdv and 64 in dq; 32 at D = 192), and
+    to D = 80; at D = 128 48 in dkdv and 64 in dq; 32 at D = 192), and
     its blocks the source's 64 stationary rows and eight warps above
     D = 64."""
     src = SOURCE.read_text()
-    assert "return D <= 64 ? 64 : D == 128 ? (DKDV ? 48 : 64) : 32;" in src
+    assert "return D <= 80 ? 64 : D == 128 ? (DKDV ? 48 : 64) : 32;" in src
     assert "#define FB_BQ 64" in src and "#define FB_BK 64" in src
     assert "return D <= 64 ? FB_THREADS : 2 * FB_THREADS;" in src
-    assert moving_rows(d, True) == (48 if d == 128 else 32)
-    assert moving_rows(d, False) == (64 if d == 128 else 32)
+    assert moving_rows(d, True) == {80: 64, 128: 48, 192: 32}[d]
+    assert moving_rows(d, False) == {80: 64, 128: 64, 192: 32}[d]

@@ -1,4 +1,4 @@
-"""K4's forward kernels at head dims 128 and 192
+"""K4's forward kernels at head dims 80, 128 and 192
 (``csrc/flash_attention.cu``), their schedules emulated in numpy and torch.
 
 The kernels run only on a card (``chip_smoke.py: flash_cases`` holds them
@@ -7,7 +7,7 @@ the CPU and held against the JAX package:
 
 * the f32 kernel (``fa_fwd_wide``): a block of 64 q rows walks the key
   range its rows see (all T when one of them sees none) in tiles of 64
-  keys (D = 128) or 48 (D = 192); the pair of warps that shares 16 rows
+  keys (D = 80, 128) or 48 (D = 192); the pair of warps that shares 16 rows
   computes S over its two halves of each tile in split TF32
   (``_tf32_matmul(..., "kernel")`` of ``tests/test_torch_kernel_bwd.py``),
   takes the common row max, forms P on each half and puts the halves
@@ -17,7 +17,7 @@ the CPU and held against the JAX package:
   the Pallas kernel in interpret mode through the GQA wrapper (``out``)
   and the plain twin's log-sum-exp (``lse``) at ``FA_TOL["float32"]``;
 * the bf16 kernel (``flash_attention_tc_kernel``): the walk in tiles of
-  128 keys (D = 128) or 96 (D = 192) through ``_tc_emulation`` of
+  128 keys (D = 80, 128) or 96 (D = 192) through ``_tc_emulation`` of
   ``tests/test_torch_attention.py``, against the JAX reference
   (``flash_attention_ref``) at ``FA_TOL["bfloat16"]``.
 
@@ -60,7 +60,7 @@ BLOCK = 64            # q rows a block of the f32 kernel
 
 def f32_keys(d):
     """Keys a K/V tile of the f32 kernel above D = 64 (``fa_keys``)."""
-    return 64 if d == 128 else 48
+    return 64 if d <= 128 else 48
 
 
 def tc_keys(d):
@@ -222,8 +222,10 @@ def tc_visits(s, t, h, *, causal, window, q_offset, bk):
 # no mask at T over S, rows that see no key beside rows that do, a band
 # at nemotron's group of 12, S and T off the 48- and 96-key grids with a
 # window edge inside a tile, groups of 3 and 7, MQA, odd H -- and one
-# case off every new tile grid (S and T not multiples of 48, 64 or 96)
-CASES = [case for d in (128, 192) for case in (
+# case off every new tile grid (S and T not multiples of 48, 64 or 96);
+# each at D = 80 (hubert's MHA among them: the full 40x137 case is a
+# non-causal one) as at 128 and 192
+CASES = [case for d in (80, 128, 192) for case in (
     (f"d{d}-gqa4-causal-100", (1, 100, 100, 8, 2, d), {}),
     (f"d{d}-gqa5-window30-ragged-77", (2, 77, 77, 5, 1, d),
      dict(window=30)),
@@ -351,7 +353,8 @@ def test_tiles_and_blocks_are_the_kernels():
     """The emulations' tiles and blocks are the source's: the f32
     kernel's 64-row blocks of eight warps and its 64- / 48-key tiles,
     one block a (q tile, head, batch); the bf16 kernel's 128- / 96-key
-    tiles in 3 / 2 stages on a grid of (q tiles, H, B)."""
+    tiles in 3 / 2 stages on a grid of (q tiles, H, B), at D = 80 in
+    blocks of 16 columns."""
     src = SOURCE.read_text()
     assert "#define FA_BQ 64" in src and "#define FA_STAGES 2" in src
     assert "return D <= 64 ? FA_THREADS : 2 * FA_THREADS;" in src
@@ -361,5 +364,7 @@ def test_tiles_and_blocks_are_the_kernels():
         in src
     assert "(long long)((S + FA_BQ - 1) / FA_BQ) * H * B;" in src
     assert "const dim3 grid((S + BQ - 1) / BQ, H, B);" in src
-    assert [f32_keys(d) for d in (128, 192)] == [64, 48]
-    assert [tc_keys(d) for d in (64, 128, 192)] == [128, 128, 96]
+    assert "static constexpr int COLS = D < 64 ? D : D % 64 ? 16 : 64;" \
+        in src
+    assert [f32_keys(d) for d in (80, 128, 192)] == [64, 64, 48]
+    assert [tc_keys(d) for d in (64, 80, 128, 192)] == [128, 128, 128, 96]

@@ -556,7 +556,8 @@ def test_chip_smoke_train_cuts_fit_and_keep_pairs():
     # one MoE group of b * s tokens: the train config's group size does
     # not divide it
     assert (b * s) % TrainConfig().moe_group_tokens
-    for layers in (smoke.XLSTM_TRAIN_LAYERS, smoke.XLSTM_CONSISTENCY_LAYERS):
+    for layers in (smoke.XLSTM_TRAIN_LAYERS, smoke.XLSTM_CONSISTENCY_LAYERS,
+                   smoke.XLSTM_SERVE_LAYERS):
         assert layers % 2 == 0 and layers >= 4
     assert smoke.XLSTM_CONSISTENCY_S % 256 == 0 \
         and smoke.XLSTM_CONSISTENCY_S > 256

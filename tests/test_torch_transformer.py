@@ -154,17 +154,26 @@ def test_init_model_has_the_reference_tree(arch, dtype):
 
 
 def test_other_families_wait_for_a_later_slice():
-    """The audio family raises, naming its queue item; ssm (xLSTM) runs
-    since its slice."""
+    """No LM family of the reference waits any more: audio runs since its
+    slice (frames in, per-frame logits out; ``tests/test_torch_audio.py``
+    holds it against the reference).  A family outside ``FAMILIES`` (the
+    CNNs) still raises ``ValueError`` at every entry."""
     base = get_arch("llama3.2-1b").reduced()
     gen = torch.Generator().manual_seed(0)
-    cfg = dataclasses.replace(base, family="audio")
-    with pytest.raises(NotImplementedError, match="later slice.*13d"):
-        init_model(cfg, gen)
-    with pytest.raises(NotImplementedError, match="later slice.*13d"):
-        forward(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="later slice"):
-        init_decode_state(cfg, 1, 4, device="cpu")
+    cfg = dataclasses.replace(base, family="audio", causal=False)
+    p = init_model(cfg, gen)
+    frames = torch.randn(2, 8, cfg.d_model, generator=gen)
+    logits, aux = forward(cfg, p, {"frames": frames})
+    assert tuple(logits.shape) == (2, 8, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()) and float(aux) == 0.0
+    assert init_decode_state(cfg, 1, 4, device="cpu")["pos"] == 0
+    cnn = dataclasses.replace(base, family="cnn")
+    with pytest.raises(ValueError, match="not a language model"):
+        init_model(cnn, gen)
+    with pytest.raises(ValueError, match="not a language model"):
+        forward(cnn, {}, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    with pytest.raises(ValueError, match="not a language model"):
+        init_decode_state(cnn, 1, 4, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""K4 at head dims 128 (mixtral, arctic, phi4-mini, granite) and 192
-(nemotron): the port's plain twins (``flash_attention_plain``,
+"""K4 at head dims 80 (hubert), 128 (mixtral, arctic, phi4-mini, granite,
+chameleon) and 192 (nemotron): the port's plain twins (``flash_attention_plain``,
 ``gqa_plain``, ``flash_attention_fwd_plain``,
 ``flash_attention_bwd_plain``) against the JAX package's Pallas kernel
 in interpret mode, as ``tests/test_kernels.py`` runs it, its GQA
@@ -41,7 +41,7 @@ def _randn(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("d", [128, 192])
+@pytest.mark.parametrize("d", [80, 128, 192])
 @pytest.mark.parametrize("s,t,causal,window,q_offset", SHAPES)
 def test_plain_twin_matches_pallas_kernel(d, s, t, causal, window,
                                           q_offset):
@@ -59,10 +59,13 @@ def test_plain_twin_matches_pallas_kernel(d, s, t, causal, window,
 
 @pytest.mark.parametrize("d,h,hkv,window", [(128, 8, 2, 0), (128, 4, 1, 40),
                                             (192, 12, 1, 0),
-                                            (192, 6, 2, 40)])
+                                            (192, 6, 2, 40),
+                                            (80, 16, 16, 0),
+                                            (80, 8, 2, 40)])
 def test_gqa_plain_matches_reference_wrapper(d, h, hkv, window):
-    """GQA groups of 4 (mixtral), 12 (nemotron), 3 and 4 with a window:
-    the model layout against the reference's Pallas GQA wrapper."""
+    """GQA groups of 4 (mixtral), 12 (nemotron), 3 and 4 with a window,
+    and hubert's MHA (a group of 1): the model layout against the
+    reference's Pallas GQA wrapper."""
     rng = np.random.default_rng(d * h)
     q = _randn(rng, 1, 96, h, d)
     k, v = _randn(rng, 1, 96, hkv, d), _randn(rng, 1, 96, hkv, d)
@@ -89,7 +92,9 @@ def _gqa_case(seed, b, s, t, h, hkv, d):
 GRAD_CASES = [(1, 40, 40, 4, 1, 128, True, 0, 0),
               (1, 33, 57, 4, 2, 128, True, 12, 24),
               (1, 24, 48, 6, 2, 192, False, 0, 0),
-              (1, 20, 50, 3, 1, 192, False, 8, 40)]
+              (1, 20, 50, 3, 1, 192, False, 8, 40),
+              (1, 36, 36, 4, 4, 80, False, 0, 0),
+              (1, 30, 52, 4, 2, 80, True, 10, 22)]
 
 
 @pytest.mark.parametrize("case", GRAD_CASES)
@@ -147,13 +152,14 @@ def test_fwd_and_bwd_plain_match_jax_grad(case):
 
 
 def test_head_dims_have_kernels_and_others_raise():
-    """128 and 192 are instantiated; any other head dim is refused with
-    ``ValueError`` before a library is loaded or a kernel launched."""
-    assert {128, 192} <= set(fa.HEAD_DIMS)
-    for d in (8, 80, 96, 256):
+    """80, 128 and 192 are instantiated; any other head dim is refused
+    with ``ValueError`` before a library is loaded or a kernel
+    launched."""
+    assert {80, 128, 192} <= set(fa.HEAD_DIMS)
+    for d in (8, 72, 96, 256):
         q = torch.zeros(1, 4, 2, d)
         k = torch.zeros(1, 4, 1, d)
         before = fa.launches
-        with pytest.raises(ValueError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="instantiated"):
             fa._kernel_forward(q, k, k, True, 0, 0, False)
         assert fa.launches == before

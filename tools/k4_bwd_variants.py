@@ -12,11 +12,12 @@ earlier commit's kernels, say -- as the variant NAME), built with ``nvcc
 -Xptxas -v`` into ``build/k4_bwd_variants/``, all at once: registers and
 spills are printed.  Every variant goes through the wrapper
 (``FlashAttentionFn``) and ``chip_smoke.check_flash_bwd`` on edge cases
-of ``chip_smoke.py`` (with its head dims 128 and 192: ``WIDE_HEAD_CASES``,
-``WIDE_BWD_EDGE_CASES``) and the two training layers, at ``BWD_RTOL`` /
+of ``chip_smoke.py`` (with its head dims 80, 128 and 192:
+``WIDE_HEAD_CASES``, ``WIDE_BWD_EDGE_CASES``) and the two training
+layers, at ``BWD_RTOL`` /
 ``BWD_ATOL``.  Then all are timed with
 ``chip_smoke.median_ms`` (launches enqueued behind other device work, so
-the reading is device time) at ``chip_smoke.FA_BWD_SHAPES``, each kernel
+the reading is device time) at ``chip_smoke.FA_BWD_LAYERS``, each kernel
 launched directly, in turns: the variants in order, then reversed.  The
 last line of standard output is one JSON object of the times and the
 checks.  Needs one CUDA card and nvcc; exits non-zero otherwise or when
@@ -34,6 +35,8 @@ Variants:
             unrolled 1 or 2 at a time (the committed kernels: 4)
   kv32      dkdv at D = 128 on q tiles of 32 rows (16 a warp of the pair;
             152 KB of shared memory) in place of 48
+  d80kv48   dkdv at D = 80 on q tiles of 48 rows in place of 64
+  d80m32    both kernels at D = 80 on moving tiles of 32 rows
   NAME      a source given with --baseline NAME=FILE.cu, as it is
 """
 
@@ -64,7 +67,7 @@ RNA_HI = """    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
     lo = __float_as_uint(x - __uint_as_float(hi));"""
 
 UNROLL = "#define FB_WIDE_UNROLL 4"
-MROWS = "return D <= 64 ? 64 : D == 128 ? (DKDV ? 48 : 64) : 32;"
+MROWS = "return D <= 80 ? 64 : D == 128 ? (DKDV ? 48 : 64) : 32;"
 
 # name -> [(anchor, replacement)]; each anchor occurs once
 VARIANTS = {
@@ -75,6 +78,11 @@ VARIANTS = {
     "wu2": [(UNROLL, "#define FB_WIDE_UNROLL 2")],
     "kv32": [(MROWS, MROWS.replace("(DKDV ? 48 : 64)",
                                    "(DKDV ? 32 : 64)"))],
+    # D = 80 (hubert): 48-row dkdv items, or 32-row moving tiles in both
+    "d80kv48": [(MROWS, MROWS.replace(
+        "D <= 80 ? 64 :", "D <= 64 ? 64 : D == 80 ? (DKDV ? 48 : 64) :"))],
+    "d80m32": [(MROWS, MROWS.replace(
+        "D <= 80 ? 64 :", "D <= 64 ? 64 : D == 80 ? 32 :"))],
 }
 
 
@@ -179,18 +187,20 @@ def times(smoke, names):
     import torch
     from repro_torch.kernels import flash_attention as fa
     res = {}
-    for arch, qs, ks, window in smoke.FA_BWD_SHAPES:
+    for arch, qs, ks, window, causal in smoke.FA_BWD_LAYERS:
         gen = torch.Generator(device="cuda").manual_seed(23)
         q = torch.randn(qs, generator=gen, device="cuda")
         k = torch.randn(ks, generator=gen, device="cuda")
         v = torch.randn(ks, generator=gen, device="cuda")
         do = torch.randn(qs, generator=gen, device="cuda")
-        o, lse = fa._kernel_forward(q, k, v, True, window, 0, with_lse=True)
+        o, lse = fa._kernel_forward(q, k, v, causal, window, 0,
+                                    with_lse=True)
         b, s, h, d = qs
         t, hkv = ks[1], ks[2]
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
         delta = torch.empty((b, h, s), device="cuda")
-        args = (b, s, t, h, hkv, d, 1, window, 0, 1.0 / math.sqrt(d))
+        args = (b, s, t, h, hkv, d, int(causal), window, 0,
+                1.0 / math.sqrt(d))
         res[arch] = {n: {"dq": [], "dkdv": []} for n in names}
         for name in list(names) + list(reversed(names)):
             lib = use(OUT / f"lib{name}.so")
