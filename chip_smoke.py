@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import statistics
@@ -127,8 +128,11 @@ def zero_counts() -> None:
     fa_mod.tc_launches = 0
     fa_mod.bwd_dq_launches = 0
     fa_mod.bwd_dkdv_launches = 0
+    fa_mod.bwd_dq_bf16_launches = 0
+    fa_mod.bwd_dkdv_bf16_launches = 0
     ss_mod.launches = 0
     ss_mod.bwd_launches = 0
+    ss_mod.bwd_bf16_launches = 0
 
 
 def counts() -> dict:
@@ -142,8 +146,11 @@ def counts() -> dict:
             "flash_attention_tc": fa_mod.tc_launches,
             "flash_attention_bwd_dq": fa_mod.bwd_dq_launches,
             "flash_attention_bwd_dkdv": fa_mod.bwd_dkdv_launches,
+            "flash_attention_bwd_dq_bf16": fa_mod.bwd_dq_bf16_launches,
+            "flash_attention_bwd_dkdv_bf16": fa_mod.bwd_dkdv_bf16_launches,
             "ssm_scan": ss_mod.launches,
-            "ssm_scan_bwd": ss_mod.bwd_launches}
+            "ssm_scan_bwd": ss_mod.bwd_launches,
+            "ssm_scan_bwd_bf16": ss_mod.bwd_bf16_launches}
 
 
 def only(**launched) -> dict:
@@ -2729,7 +2736,7 @@ def check_flash_bwd_repeat():
     gen = torch.Generator(device="cuda").manual_seed(31)
     q, do = (torch.randn(qs, generator=gen, device="cuda") for _ in "qd")
     k, v = (torch.randn(ks, generator=gen, device="cuda") for _ in "kv")
-    o, lse = fa._kernel_forward(q, k, v, True, 0, 0, with_lse=True)
+    o, lse, _ = fa._kernel_forward(q, k, v, True, 0, 0, with_lse=True)
     first = fa._kernel_backward(q, k, v, o, lse, do, True, 0, 0)
     again = fa._kernel_backward(q, k, v, o, lse, do, True, 0, 0)
     torch.cuda.synchronize()
@@ -2818,39 +2825,26 @@ SSM_BWD_SPLIT_CASES = (
 )
 
 
-def check_bwd_raises(name, fn):
-    """bf16 with grad: the wrapper raises NotImplementedError and
-    launches nothing."""
-    before = counts()
-    try:
-        fn()
-    except NotImplementedError as e:
-        if counts() != before:
-            fail(f"{name}: launched before raising")
-        return {"case": name, "raised": "NotImplementedError",
-                "message": str(e)}
-    fail(f"{name}: bf16 with grad did not raise")
-
-
-def check_under_checkpoint():
-    """K4 and K5 inside ``torch.utils.checkpoint`` (non-reentrant): the
-    forward kernels run twice (the recompute), the backward kernels
-    once, and the gradients equal the run without checkpoint bit for
-    bit."""
+def check_under_checkpoint(dtype=None):
+    """K4 and K5 inside ``torch.utils.checkpoint`` (non-reentrant), f32
+    or bf16 inputs: the forward kernels run twice (the recompute), the
+    backward kernels once (of the inputs' dtype), and the gradients
+    equal the run without checkpoint bit for bit."""
     import torch
     from torch.utils.checkpoint import checkpoint
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssm_scan as ss
+    dtype = dtype or torch.float32
     gen = torch.Generator(device="cuda").manual_seed(22)
-    q = torch.randn(1, 300, 10, 64, generator=gen, device="cuda")
-    k = torch.randn(1, 300, 2, 64, generator=gen, device="cuda")
-    v = torch.randn(1, 300, 2, 64, generator=gen, device="cuda")
-    x, dt, bi, co, al = ssm_inputs(gen, 1, 300, 96, 16, torch.float32)
+    q = torch.randn(1, 300, 10, 64, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(1, 300, 2, 64, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(1, 300, 2, 64, generator=gen, device="cuda").to(dtype)
+    x, dt, bi, co, al = ssm_inputs(gen, 1, 300, 96, 16, dtype)
 
     def f(q, k, v, x, dt):
         o = fa.flash_attention(q, k, v, window=64)
         y, _ = ss.ssm_scan(x, dt, bi, co, al)
-        return o.square().sum() + y.square().sum()
+        return o.float().square().sum() + y.float().square().sum()
 
     def run(use_ckpt):
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v, x, dt)]
@@ -2863,13 +2857,17 @@ def check_under_checkpoint():
 
     plain_g, plain_c = run(False)
     ck_g, ck_c = run(True)
-    want_c = only(flash_attention=2, flash_attention_bwd_dq=1,
-                  flash_attention_bwd_dkdv=1, ssm_scan=2, ssm_scan_bwd=1)
+    bf16 = int(dtype == torch.bfloat16)
+    want_c = only(flash_attention=2, flash_attention_tc=2 * bf16,
+                  flash_attention_bwd_dq=1, flash_attention_bwd_dkdv=1,
+                  flash_attention_bwd_dq_bf16=bf16,
+                  flash_attention_bwd_dkdv_bf16=bf16, ssm_scan=2,
+                  ssm_scan_bwd=1, ssm_scan_bwd_bf16=bf16)
     if ck_c != want_c:
         fail(f"checkpoint: launch counts {ck_c}, expected {want_c}")
     if not all(torch.equal(a, b) for a, b in zip(plain_g, ck_g)):
         fail("checkpoint: gradients differ from the run without it")
-    return {"case": "checkpoint", "launches": ck_c,
+    return {"case": "checkpoint", "dtype": str(dtype), "launches": ck_c,
             "launches_without": plain_c, "bitwise_equal": True}
 
 
@@ -2901,27 +2899,329 @@ def check_bwd_misaligned():
     fail("check_bwd_misaligned: a misaligned q did not raise")
 
 
+# bf16 training: K4's bf16 forward with lse and bf16 backward pair, K5's
+# backward on bf16 inputs, each against autograd of its plain twin run
+# in f32 on the same bf16 values (upcast), dO and dy the same bf16
+# values.  A gradient passes when |got - want| <= atol * max(1, max
+# |want|) + rtol * |want| at FA_TOL["bfloat16"] (rtol 8e-3, atol 1e-3),
+# scaled as ``_grad_close`` scales: the kernels' gradients are rounded
+# once to bf16 (2^-9 relative), the forward's output O (which delta =
+# rowsum(dO * O) reads) too, and P and dS enter their products rounded
+# to TF32 (2^-11).  The bf16 forward's lse is held to the f32
+# tolerance FA_TOL["float32"] against ``flash_attention_fwd_plain``'s
+# on the upcast inputs (both f32 sums of the same exact products), and
+# its output to the forward without lse bit for bit.
+BF16_BWD_TOL = FA_TOL["bfloat16"]
+# The bf16 forward's out + out_lo (its output in two bf16 parts, which
+# the backward's delta reads) against the plain twin's f32 output: P
+# kept to about 2^-16 as two bf16 parts, exp through ex2.approx, f32
+# sums in another order; a part missing or misplaced is off by 2^-9
+BF16_OUT_LO_TOL = (1e-4, 1e-4)
+
+# (name, (b, s, t, h, hkv, d), masks): all six head dims; GQA groups 1,
+# 2, 4, 5 and 12; causal, window and q_offset; S and T off every tile
+# grid; rows that see no key (all of them, and some beside rows that
+# do).  The training layers are held to the same tolerance in
+# ``flash_attention_bwd_bf16_times``.
+BF16_BWD_CASES = (
+    ("d16-group1-ragged-91x157-window40-offset66", (2, 91, 157, 6, 6, 16),
+     dict(window=40, q_offset=66)),
+    ("d32-group2-causal-130", (1, 130, 130, 4, 2, 32), {}),
+    ("d64-group5-causal-130", (2, 130, 130, 5, 1, 64), {}),
+    ("d64-q-offset-70-50x120-gqa4", (1, 50, 120, 4, 1, 64),
+     dict(q_offset=70)),
+    ("d64-no-visible-key", (1, 64, 128, 2, 1, 64),
+     dict(causal=False, window=32, q_offset=200)),
+    ("d64-some-rows-see-no-key", (1, 64, 128, 4, 2, 64),
+     dict(causal=False, window=32, q_offset=140)),
+    ("d80-full-77x203-gqa2", (1, 77, 203, 4, 2, 80), dict(causal=False)),
+    ("d80-gqa4-window100-ragged-333", (2, 333, 333, 8, 2, 80),
+     dict(window=100)),
+    ("d128-gqa4-causal-300", (1, 300, 300, 8, 2, 128), {}),
+    ("d128-off-grid-95x139-gqa4-offset44", (1, 95, 139, 8, 2, 128),
+     dict(q_offset=44)),
+    ("d128-window45-ragged-117x181-full-group2", (2, 117, 181, 6, 3, 128),
+     dict(causal=False, window=45, q_offset=70)),
+    ("d128-some-rows-see-no-key", (1, 64, 128, 4, 2, 128),
+     dict(causal=False, window=32, q_offset=140)),
+    ("d192-off-grid-71x105-gqa12-offset34", (1, 71, 105, 12, 1, 192),
+     dict(q_offset=34)),
+    ("d192-window20-inside-a-tile-160", (1, 160, 160, 4, 2, 192),
+     dict(window=20)),
+    ("d192-gqa5-window100-ragged-333", (2, 333, 333, 5, 1, 192),
+     dict(window=100)),
+)
+
+
+def _grad_close_bf16(name, got, want):
+    """(max abs err, scale, ok) of one bf16 gradient against its f32
+    reference under ``BF16_BWD_TOL``, atol scaled by max(1, max
+    |want|)."""
+    import torch
+    rtol, atol = BF16_BWD_TOL
+    if got.shape != want.shape:
+        fail(f"{name}: gradient shape {tuple(got.shape)} vs "
+             f"{tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name}: non-finite gradient")
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got.float() - want.float()).abs().max())
+    ok = torch.allclose(got.float(), want.float(), rtol=rtol,
+                        atol=atol * scale)
+    return err, scale, ok
+
+
+def _launched_since(before) -> dict:
+    return {k: v - before[k] for k, v in counts().items() if v != before[k]}
+
+
+def check_flash_bwd_bf16(name, q, k, v, do, *, causal=True, window=0,
+                         q_offset=0):
+    """K4's bf16 forward with lse and its bf16 backward pair on bf16 card
+    tensors through ``flash_attention`` with grad: each bf16 kernel
+    launched once a gradient (the f32 ones never), the gradients twice
+    bit for bit and against autograd of ``gqa_plain`` in f32 on the
+    upcast inputs (``BF16_BWD_TOL``); the forward's lse against
+    ``flash_attention_fwd_plain``'s (FA_TOL f32) and its output equal
+    to the forward without lse bit for bit."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    qb, kb, vb, dob = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    ins = [x.detach().requires_grad_(True) for x in (qb, kb, vb)]
+    before = counts()
+    out = fa.flash_attention(*ins, **kw)
+    got = torch.autograd.grad(out, ins, dob)
+    again = torch.autograd.grad(fa.flash_attention(*ins, **kw), ins, dob)
+    torch.cuda.synchronize()
+    launched = _launched_since(before)
+    want_launched = {key: 2 for key in (
+        "flash_attention", "flash_attention_tc", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkdv", "flash_attention_bwd_dq_bf16",
+        "flash_attention_bwd_dkdv_bf16")}
+    if launched != want_launched:
+        fail(f"flash_attention_bwd_bf16[{name}]: launches {launched}, "
+             f"expected {want_launched}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"flash_attention_bwd_bf16[{name}]: two runs differ")
+    if any(g.dtype != torch.bfloat16 for g in got):
+        fail(f"flash_attention_bwd_bf16[{name}]: gradient dtypes "
+             f"{[g.dtype for g in got]}")
+    with_lse, lse, out_lo = fa._kernel_forward(qb, kb, vb, causal, window,
+                                               q_offset, with_lse=True)
+    without = fa._kernel_forward(qb, kb, vb, causal, window, q_offset,
+                                 with_lse=False)[0]
+    if not (torch.equal(with_lse, without) and torch.equal(out, without)):
+        fail(f"flash_attention_bwd_bf16[{name}]: the forward's output "
+             "changed with lse")
+    full_want, lse_want = fa.flash_attention_fwd_plain(
+        qb.float(), kb.float(), vb.float(), **kw)
+    lse_err = float((lse - lse_want).abs().max())
+    if not _close(lse, lse_want, FA_TOL["float32"]):
+        fail(f"flash_attention_bwd_bf16[{name}]: lse disagrees with the "
+             f"plain twin's, max abs err {lse_err}")
+    full = with_lse.float() + out_lo.float()
+    full_err = float((full - full_want).abs().max())
+    if not _close(full, full_want, BF16_OUT_LO_TOL):
+        fail(f"flash_attention_bwd_bf16[{name}]: out + out_lo is "
+             f"{full_err} from the plain twin's f32 output (rtol, atol "
+             f"{BF16_OUT_LO_TOL})")
+    ref = [x.detach().float().requires_grad_(True) for x in (qb, kb, vb)]
+    want = torch.autograd.grad(fa.gqa_plain(*ref, **kw), ref, dob.float())
+    row = {"case": name, "q": list(q.shape), "k": list(k.shape), **kw,
+           "lse_max_abs_err": lse_err, "out_plus_out_lo_max_abs_err": full_err}
+    for tag, a, b in zip(("dq", "dk", "dv"), got, want):
+        err, scale, ok = _grad_close_bf16(
+            f"flash_attention_bwd_bf16[{name}].{tag}", a, b)
+        row[f"{tag}_max_abs_err"] = err
+        row[f"{tag}_scale"] = scale
+        if not ok:
+            fail(f"flash_attention_bwd_bf16[{name}]: {tag} disagrees with "
+                 f"autograd of the plain twin, max abs err {err} (rtol, "
+                 f"atol {BF16_BWD_TOL} x {scale})")
+    return row
+
+
+def check_ssm_bwd_bf16(name, x, dt, b_in, c_out, a_log, h0=None,
+                       dh_end=True):
+    """K5's forward and backward kernels on bf16 inputs (x, dt and the
+    strided halves of one bf16 (B,S,2N) tensor; a_log, h0 and dh_end
+    f32; dy bf16) against autograd of ``ssm_scan_plain`` in f32 on the
+    upcast inputs (``BF16_BWD_TOL``); the backward launched once a
+    gradient on its bf16 route; twice, bit for bit."""
+    import torch
+    from repro_torch.kernels import ssm_scan as ss
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    bsz, s, d = x.shape
+    n = b_in.shape[-1]
+    dy = torch.randn(bsz, s, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    dhe = (torch.randn(bsz, d, n, generator=gen, device="cuda")
+           if dh_end else None)
+    bc = torch.cat([b_in, c_out], dim=-1)
+
+    def grads(fn, upcast):
+        leaves = [(t.float() if upcast and t.dtype == torch.bfloat16
+                   else t).detach().requires_grad_(True)
+                  for t in (x, dt, bc, a_log)]
+        h = None if h0 is None else h0.detach().requires_grad_(True)
+        if h is not None:
+            leaves.append(h)
+        y, h_end = fn(leaves[0], leaves[1], leaves[2][..., :n],
+                      leaves[2][..., n:], leaves[3], h)
+        outs, cots = [y], [dy.float() if upcast else dy]
+        if dhe is not None:
+            outs.append(h_end)
+            cots.append(dhe)
+        return torch.autograd.grad(outs, leaves, cots)
+
+    before = counts()
+    got = grads(ss.ssm_scan, False)
+    again = grads(ss.ssm_scan, False)
+    torch.cuda.synchronize()
+    launched = _launched_since(before)
+    want_launched = {"ssm_scan": 2, "ssm_scan_bwd": 2,
+                     "ssm_scan_bwd_bf16": 2}
+    if launched != want_launched:
+        fail(f"ssm_scan_bwd_bf16[{name}]: launches {launched}, expected "
+             f"{want_launched}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"ssm_scan_bwd_bf16[{name}]: two runs differ")
+    want = grads(ss.ssm_scan_plain, True)
+    row = {"case": name, "b": bsz, "s": s, "d": d, "n": n,
+           "h0": h0 is not None, "dh_end": dh_end}
+    for tag, a, b in zip(("dx", "ddt", "dbc", "da_log", "dh0"), got, want):
+        err, scale, ok = _grad_close_bf16(f"ssm_scan_bwd_bf16[{name}].{tag}",
+                                          a, b)
+        row[f"{tag}_max_abs_err"] = err
+        row[f"{tag}_scale"] = scale
+        if not ok:
+            fail(f"ssm_scan_bwd_bf16[{name}]: {tag} disagrees with autograd "
+                 f"of the plain twin, max abs err {err} (rtol, atol "
+                 f"{BF16_BWD_TOL} x {scale})")
+    return row
+
+
+# K5's bf16 backward at the short edges of its time split (one step; a
+# short chunk with empty segments); the long ones are the f32 checks'
+# (the split is the same code), hymba's shape ``ssm_scan_bwd_bf16_times``
+SSM_BWD_BF16_SPLIT_CASES = SSM_BWD_SPLIT_CASES[:2]
+
+
+def bf16_bwd_checks():
+    """The bf16 training kernels: ``BF16_BWD_CASES`` through K4's bf16
+    forward with lse and backward pair; K5's backward on bf16 inputs
+    with N 4, 8 and 16, with and without h0 and dh_end, and at short
+    edges of its time split (``SSM_BWD_BF16_SPLIT_CASES``); a misaligned
+    bf16 q (the forward) and dO (the backward) raising ``ValueError``
+    before any launch; and both under ``torch.utils.checkpoint``."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(33)
+
+    def qkvd(b, s, t, h, hkv, d):
+        def r(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+        return r(b, s, h, d), r(b, t, hkv, d), r(b, t, hkv, d), \
+            r(b, s, h, d)
+
+    fa_rows = [check_flash_bwd_bf16(name, *qkvd(*shape), **kw)
+               for name, shape, kw in BF16_BWD_CASES]
+    ss_rows = []
+    for n in (4, 8, 16):
+        x, dt, bi, co, al = ssm_inputs(gen, 2, 100, 200, n, torch.bfloat16)
+        h0 = torch.randn(2, 200, n, generator=gen, device="cuda")
+        ss_rows.append(check_ssm_bwd_bf16(f"n{n}-2x100x200", x, dt, bi, co,
+                                          al, dh_end=False))
+        ss_rows.append(check_ssm_bwd_bf16(f"n{n}-2x100x200-h0-dh_end", x,
+                                          dt, bi, co, al, h0))
+    for name, (b, s, d, n), with_h0, dh_end in SSM_BWD_BF16_SPLIT_CASES:
+        x, dt, bi, co, al = ssm_inputs(gen, b, s, d, n, torch.bfloat16)
+        h0 = (torch.randn(b, d, n, generator=gen, device="cuda")
+              if with_h0 else None)
+        ss_rows.append(check_ssm_bwd_bf16(name, x, dt, bi, co, al, h0,
+                                          dh_end=dh_end))
+    return {"rtol": BF16_BWD_TOL[0], "atol": BF16_BWD_TOL[1],
+            "atol_scaled_by": "max(1, max |want|) per gradient",
+            "lse_tol": FA_TOL["float32"], "out_lo_tol": BF16_OUT_LO_TOL,
+            "flash_attention_bwd_bf16": fa_rows,
+            "ssm_scan_bwd_bf16": ss_rows,
+            "raises": check_bwd_misaligned_bf16(),
+            "checkpoint": check_under_checkpoint(torch.bfloat16)}
+
+
+def check_bwd_misaligned_bf16():
+    """bf16 views 2 bytes off a 16-byte boundary: a q (the forward's TMA
+    rule: ``ValueError`` before the forward launches) and a dO (the
+    backward's cp.async rule: ``ValueError`` after the forward, before
+    either backward kernel launches)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    b, s, h, hkv, d = 1, 64, 4, 1, 64
+
+    def off_by_one(shape):
+        buf = torch.randn(math.prod(shape) + 1, generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        t = buf[1:].view(shape)
+        if t.data_ptr() % 16 == 0 or not t.is_contiguous():
+            fail("check_bwd_misaligned_bf16: the view is not a misaligned "
+                 "contiguous tensor")
+        return t
+
+    k, v = (torch.randn(b, s, hkv, d, generator=gen, device="cuda")
+            .to(torch.bfloat16).requires_grad_(True) for _ in range(2))
+    rows = []
+    q_bad = off_by_one((b, s, h, d)).requires_grad_(True)
+    before = counts()
+    try:
+        fa.flash_attention(q_bad, k, v)
+        fail("check_bwd_misaligned_bf16: a misaligned bf16 q did not raise")
+    except ValueError as e:
+        if counts() != before:
+            fail("check_bwd_misaligned_bf16: launched before raising")
+        rows.append({"case": "misaligned-bf16-q", "raised": "ValueError",
+                     "message": str(e)})
+    q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_(True)
+    out = fa.flash_attention(q, k, v)
+    do_bad = off_by_one((b, s, h, d))
+    before = counts()
+    try:
+        torch.autograd.grad(out, (q, k, v), do_bad)
+    except ValueError as e:
+        if counts() != before:
+            fail("check_bwd_misaligned_bf16: launched before raising")
+        rows.append({"case": "misaligned-bf16-do", "raised": "ValueError",
+                     "message": str(e)})
+        return rows
+    fail("check_bwd_misaligned_bf16: a misaligned bf16 dO did not raise")
+
+
 HEAD_DIMS = (16, 32, 64, 80, 128, 192)  # K4's instantiations
 
 # The tensor-core kernels as cuobjdump names them (mangled): library ->
 # [(pattern of a kernel's name, its key from the match, the keys wanted,
 # the instruction each must hold)]: the split-TF32 kernels TF32 HMMA,
-# the bf16 kernel wgmma (HGMMA in SASS)
+# the bf16 kernel wgmma (HGMMA in SASS); the backward kernels of either
+# element type TF32 HMMA
 SASS_KERNELS = {
     "flash_attention_bwd": [(
-        r"_Z\d+(fa_bwd_\w+?_kernel)ILi(\d+)EE",
-        lambda m: f"{m.group(1)}<{m.group(2)}>",
-        {f"fa_bwd_{kind}_kernel<{d}>" for kind in ("dq", "dkdv")
-         for d in HEAD_DIMS}, "tf32_hmma")],
+        r"_Z\d+(fa_bwd_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)EE",
+        lambda m: f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}"
+                  f", {m.group(3)}>",
+        {f"fa_bwd_{kind}_kernel<{t}, {d}>" for kind in ("dq", "dkdv")
+         for t in ("float", "bf16") for d in HEAD_DIMS}, "tf32_hmma")],
     "flash_attention": [(
         r"_Z\d+(fa_fwd_f32_kernel)ILi(\d+)ELb([01])EE",
         lambda m: f"{m.group(1)}<{m.group(2)}, "
                   f"{'true' if m.group(3) == '1' else 'false'}>",
         {f"fa_fwd_f32_kernel<{d}, {lse}>" for d in HEAD_DIMS
          for lse in ("true", "false")}, "tf32_hmma"), (
-        r"_ZN2tc\d+(flash_attention_tc_kernel)ILi(\d+)EE",
-        lambda m: f"{m.group(1)}<{m.group(2)}>",
-        {f"flash_attention_tc_kernel<{d}>" for d in HEAD_DIMS}, "hgmma")],
+        r"_ZN2tc\d+(flash_attention_tc_kernel)ILi(\d+)ELb([01])EE",
+        lambda m: f"{m.group(1)}<{m.group(2)}, "
+                  f"{'true' if m.group(3) == '1' else 'false'}>",
+        {f"flash_attention_tc_kernel<{d}, {lse}>" for d in HEAD_DIMS
+         for lse in ("true", "false")}, "hgmma")],
 }
 
 
@@ -2986,9 +3286,9 @@ def kernel_bwd_checks():
     for bit (``check_flash_bwd_repeat``); K5 with N 4, 8 and 16, with and
     without h0, with and without an incoming h_end gradient, hymba's
     full shape and the edges of its time split
-    (``SSM_BWD_SPLIT_CASES``); bf16 with grad raising; both under
-    ``torch.utils.checkpoint``; and ``cuobjdump`` of the split-TF32
-    libraries (``library_sass``)."""
+    (``SSM_BWD_SPLIT_CASES``); both under ``torch.utils.checkpoint``;
+    the bf16 kernels of training (``bf16_bwd_checks``); and
+    ``cuobjdump`` of the tensor-core libraries (``library_sass``)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssm_scan as ss
@@ -3062,25 +3362,14 @@ def kernel_bwd_checks():
               if with_h0 else None)
         ss_rows.append(check_ssm_bwd(name, x, dt, bi, co, al, h0,
                                      dh_end=dh_end))
-    bq = torch.randn(1, 128, 2, 64, generator=gen, device="cuda").to(
-        torch.bfloat16).requires_grad_(True)
-    bk = torch.randn(1, 128, 1, 64, generator=gen, device="cuda").to(
-        torch.bfloat16)
-    xb, dtb, bib, cob, alb = ssm_inputs(gen, 1, 64, 64, 16, torch.bfloat16)
-    raises = [
-        check_bwd_raises("flash_attention-bf16-grad",
-                         lambda: fa.flash_attention(bq, bk, bk)),
-        check_bwd_raises("ssm_scan-bf16-grad",
-                         lambda: ss.ssm_scan(xb.requires_grad_(True), dtb,
-                                             bib, cob, alb)),
-    ]
     return {"rtol": BWD_RTOL, "atol": BWD_ATOL,
             "atol_scaled_by": "max(1, max |want|) per gradient",
             "flash_attention_bwd": fa_rows,
             "flash_attention_bwd_repeat": check_flash_bwd_repeat(),
             "ssm_scan_bwd": ss_rows,
-            "raises": raises + [check_bwd_misaligned()],
+            "raises": [check_bwd_misaligned()],
             "checkpoint": check_under_checkpoint(),
+            "bf16": bf16_bwd_checks(),
             "flash_attention_bwd_sass": library_sass("flash_attention_bwd"),
             "flash_attention_f32_sass": library_sass("flash_attention")}
 
@@ -3522,6 +3811,14 @@ PROFILED_STEPS = 1
 # |gradient|.  The sound kernels read 6.9e-06; planted faults
 # (tools/block_grad_mutants.py) read what PERF.md records.
 BLOCK_GRAD_RTOL = 1e-4
+# The same block in bf16 (weights, input, cotangent; the bf16 kernels
+# against the plain twins, which compute in f32 and round to bf16 as
+# the kernels do): the two routes' outputs differ by f32 sums in another
+# order, whose bf16 rounding flips an ulp (2^-8) here and there, and the
+# block carries those flips into every gradient: each leaf within 2e-2
+# of its largest |gradient|, the model tolerance of
+# tests/test_torch_bf16_train.py.
+BLOCK_GRAD_BF16_RTOL = 2e-2
 
 
 @contextlib.contextmanager
@@ -3844,13 +4141,15 @@ def _train_run(arch, b, s, profile=False):
             "peak_bytes": torch.cuda.max_memory_allocated()}
 
 
-def lm_block_grads_vs_plain():
-    """One full-width hymba-1.5b block (random f32 weights from seed 0,
-    a random (1, 2048, 1600) input, a random cotangent): every
-    parameter's and the input's gradient through the kernels (K4 banded,
-    K5; forward and backward) against the same with the plain twins
-    patched in for both (autograd of ``gqa_plain`` and
-    ``ssm_scan_plain``)."""
+def lm_block_grads_vs_plain(dtype=None):
+    """One full-width hymba-1.5b block (random weights from seed 0 in
+    ``dtype``, f32 by default, a random (1, 2048, 1600) input, a random
+    cotangent): every parameter's and the input's gradient through the
+    kernels (K4 banded, K5; forward and backward, of that dtype)
+    against the same with the plain twins patched in for both (autograd
+    of ``gqa_plain`` and ``ssm_scan_plain``), each leaf within
+    ``BLOCK_GRAD_RTOL`` (f32) or ``BLOCK_GRAD_BF16_RTOL`` (bf16) of its
+    largest |gradient|."""
     import dataclasses
     import torch
     from repro_torch.config import get_arch
@@ -3860,11 +4159,16 @@ def lm_block_grads_vs_plain():
     from repro_torch.models import init_model
     from repro_torch.models.transformer import _block_apply, _layer
     from repro_torch.tree import tree_flatten, tree_unflatten
+    dtype = dtype or torch.float32
+    bf16 = int(dtype == torch.bfloat16)
+    rtol = BLOCK_GRAD_BF16_RTOL if bf16 else BLOCK_GRAD_RTOL
     cfg = dataclasses.replace(get_arch("hymba-1.5b"), num_layers=1)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    block = _layer(init_model(cfg, gen)["blocks"], 0)
-    x = torch.randn(1, 2048, cfg.d_model, generator=gen, device="cuda")
-    cot = torch.randn(1, 2048, cfg.d_model, generator=gen, device="cuda")
+    block = _layer(init_model(cfg, gen, dtype=dtype)["blocks"], 0)
+    x = torch.randn(1, 2048, cfg.d_model, generator=gen,
+                    device="cuda").to(dtype)
+    cot = torch.randn(1, 2048, cfg.d_model, generator=gen,
+                      device="cuda").to(dtype)
     positions = torch.arange(2048, device="cuda")[None]
 
     def grads():
@@ -3882,9 +4186,12 @@ def lm_block_grads_vs_plain():
     zero_counts()
     got = grads()
     launched = counts()
-    want_launches = only(flash_attention=1, flash_attention_bwd_dq=1,
-                         flash_attention_bwd_dkdv=1, ssm_scan=1,
-                         ssm_scan_bwd=1)
+    want_launches = only(flash_attention=1, flash_attention_tc=bf16,
+                         flash_attention_bwd_dq=1,
+                         flash_attention_bwd_dkdv=1,
+                         flash_attention_bwd_dq_bf16=bf16,
+                         flash_attention_bwd_dkdv_bf16=bf16, ssm_scan=1,
+                         ssm_scan_bwd=1, ssm_scan_bwd_bf16=bf16)
     if launched != want_launches:
         fail(f"block gradients: launches {launched}, expected "
              f"{want_launches}")
@@ -3897,15 +4204,15 @@ def lm_block_grads_vs_plain():
     names = [".".join(k) for k in _leaf_names(block)] + ["x"]
     worst = {}
     for name, a, b in zip(names, got, want):
-        scale = float(b.abs().max())
-        err = float((a - b).abs().max())
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
         worst[name] = err / max(scale, 1e-30)
         if not bool(torch.isfinite(a).all()) or scale == 0.0 \
-                or err > BLOCK_GRAD_RTOL * scale:
-            fail(f"block gradients: {name} max abs err {err} against "
-                 f"max |grad| {scale} (rtol {BLOCK_GRAD_RTOL})")
+                or err > rtol * scale:
+            fail(f"block gradients ({dtype}): {name} max abs err {err} "
+                 f"against max |grad| {scale} (rtol {rtol})")
     return {"arch": "hymba-1.5b (one block)", "b": 1, "s": 2048,
-            "rtol_of_max": BLOCK_GRAD_RTOL, "launches": launched,
+            "dtype": str(dtype), "rtol_of_max": rtol, "launches": launched,
             "max_rel_err": max(worst.values()),
             "rel_err_by_leaf": worst}
 
@@ -3922,18 +4229,51 @@ def _leaf_names(tree, prefix=()):
     return out
 
 
+# hymba's f32 seeded repeat, cut in depth (the bf16 path repeats it at
+# all 32 layers): two ``launch.train`` runs of LM_TRAIN_STEPS steps at
+# this many layers
+LM_REPEAT_LAYERS = 4
+
+
+def _f32_repeat(arch, b, s):
+    """``launch.train --full`` on ``arch`` cut to ``LM_REPEAT_LAYERS``
+    layers, twice from its seed on the CLI's corpus: losses and every
+    parameter and AdamW moment (``leaf_checksums``) bit for bit, each
+    layer's K4 (and K5) forward and backward launched once a step."""
+    from repro_torch.launch import train as train_mod
+    with patched(train_mod, "make_token_dataset",
+                 _cached_corpus(train_mod.make_token_dataset)):
+        runs = [_cut_train(arch, LM_REPEAT_LAYERS, b, s, LM_TRAIN_STEPS,
+                           TRAIN_CORPUS_TOKENS, profile=False)
+                for _ in range(2)]
+    n = LM_REPEAT_LAYERS * LM_TRAIN_STEPS
+    want = only(flash_attention=n, flash_attention_bwd_dq=n,
+                flash_attention_bwd_dkdv=n, ssm_scan=n, ssm_scan_bwd=n)
+    if any(r["launches"] != want for r in runs):
+        fail(f"lm_train_path {arch} repeat: launches "
+             f"{[r['launches'] for r in runs]}, expected {want}")
+    if runs[0]["losses"] != runs[1]["losses"] \
+            or runs[0]["checksums"] != runs[1]["checksums"]:
+        fail(f"lm_train_path {arch}: two seeded runs at "
+             f"{LM_REPEAT_LAYERS} layers differ: {runs[0]['losses']} vs "
+             f"{runs[1]['losses']}")
+    return {"layers": LM_REPEAT_LAYERS, "steps": LM_TRAIN_STEPS,
+            "losses": runs[0]["losses"], "bitwise_equal": True,
+            "step_s": [r["step_s"] for r in runs]}
+
+
 def lm_train_path():
-    """``launch.train --full`` on each case of ``LM_TRAIN``, f32, 3
+    """``launch.train --full`` on each case of ``LM_TRAIN``, f32, 2
     timed steps and one profiled (``step_profile``): warm s/step,
     tokens/s, first step, peak memory, K4 and K5 forward and backward
     launches (each layer once a step), the profiled step's device time
-    by group; hymba twice, losses and final parameters bit for bit; and
-    one full-width hymba block's gradients through the kernels against
-    the plain twins."""
+    by group; hymba twice at ``LM_REPEAT_LAYERS`` layers, losses,
+    parameters and moments bit for bit (``_f32_repeat``); and one
+    full-width hymba block's gradients through the kernels against the
+    plain twins."""
     import math
     import torch
     from repro_torch.config import get_arch
-    from repro_torch.tree import tree_leaves
     runs, train_counts = [], {}
     for arch, b, s in LM_TRAIN:
         cfg = get_arch(arch)
@@ -3966,18 +4306,8 @@ def lm_train_path():
         row["profiled_step"] = with_step_shares(r["profile"],
                                                 row["warm_s_per_step"])
         if arch == "hymba-1.5b":
-            first = [t.clone() for t in tree_leaves(r["last"][0])]
             r = None
-            again = _train_run(arch, b, s)
-            same = again["losses"] == row["losses"] and all(
-                torch.equal(a, c) for a, c in
-                zip(first, tree_leaves(again["last"][0])))
-            if not same:
-                fail(f"lm_train_path {arch}: two seeded runs differ: "
-                     f"{row['losses']} vs {again['losses']}")
-            row["second_run_bitwise_equal"] = True
-            row["second_run_step_s"] = again["step_s"]
-            del first, again
+            row["repeat"] = _f32_repeat(arch, b, s)
         train_counts[arch] = row["launches_per_step"]
         runs.append(row)
         r = None
@@ -3985,6 +4315,125 @@ def lm_train_path():
     block = lm_block_grads_vs_plain()
     torch.cuda.empty_cache()
     return {"runs": runs, "block_grads_vs_plain": block}, train_counts
+
+
+# bf16 training (the default ``TrainConfig()``: dtype bfloat16, remat
+# "full", AdamW, clip 1.0) at LM_TRAIN's shapes, full width, all layers:
+# steps a run (the first, then warm ones), each on its own random tokens
+LM_BF16_STEPS = 2
+
+
+def _bf16_train_run(arch, b, s, seed=0):
+    """``make_train_step(cfg, TrainConfig())`` on ``init_model(cfg,
+    dtype=torch.bfloat16)`` parameters drawn on the card from ``seed``,
+    ``LM_BF16_STEPS`` steps on random tokens from the same seed, each
+    timed on the host between two synchronizes, with the launch counts
+    and peak memory read around the run."""
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_model
+    cfg = get_arch(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_model(cfg, gen, dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BF16_STEPS, b, s),
+                           generator=gen, device="cuda")
+    tcfg = TrainConfig()
+    step, opt = make_train_step(cfg, tcfg)
+    state = opt.init(params)
+    step_s, metrics = [], []
+    zero_counts()
+    for i in range(LM_BF16_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, {"tokens": tokens[i]})
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        metrics.append(m)
+    launched = counts()
+    return {"tcfg": tcfg, "layers": cfg.num_layers,
+            "hybrid": cfg.family == "hybrid", "params": params,
+            "state": state, "step_s": step_s, "launches": launched,
+            "losses": [float(m["loss"]) for m in metrics],
+            "grad_norms": [float(m["grad_norm"]) for m in metrics],
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def lm_bf16_train_path():
+    """bf16 training on the card at full width and all layers: each case
+    of ``LM_TRAIN`` through ``make_train_step(cfg, TrainConfig())`` (bf16
+    parameters from ``init_model``; remat "full"), ``LM_BF16_STEPS``
+    steps: warm s/step, tokens/s, first step, peak memory; the exact
+    launches a step, gated (remat runs each layer's forward twice: K4's
+    bf16 forward with lse 2 a layer, its bf16 dq and dkdv 1; hymba's K5
+    forward 2 and bf16 backward 1); finite losses; hymba twice from the
+    same seed, losses and every parameter and moment bit for bit; and
+    one full-width bf16 hymba block's gradients through the kernels
+    against the plain twins (``lm_block_grads_vs_plain(bfloat16)``)."""
+    import math
+    import torch
+    from repro_torch.tree import tree_leaves
+    runs, per_step = [], {}
+    for arch, b, s in LM_TRAIN:
+        r = _bf16_train_run(arch, b, s)
+        tcfg = r["tcfg"]
+        if (tcfg.dtype, tcfg.remat, tcfg.remat_policy) != (
+                "bfloat16", True, "full"):
+            fail(f"lm_bf16_train_path: TrainConfig() is {tcfg}")
+        if not all(t.dtype in (torch.bfloat16, torch.float32)
+                   for t in tree_leaves(r["params"])) or not any(
+                t.dtype == torch.bfloat16 for t in tree_leaves(r["params"])):
+            fail(f"lm_bf16_train_path {arch}: parameter dtypes "
+                 f"{sorted({str(t.dtype) for t in tree_leaves(r['params'])})}")
+        n = r["layers"] * LM_BF16_STEPS
+        want = only(flash_attention=2 * n, flash_attention_tc=2 * n,
+                    flash_attention_bwd_dq=n, flash_attention_bwd_dkdv=n,
+                    flash_attention_bwd_dq_bf16=n,
+                    flash_attention_bwd_dkdv_bf16=n,
+                    **({"ssm_scan": 2 * n, "ssm_scan_bwd": n,
+                        "ssm_scan_bwd_bf16": n} if r["hybrid"] else {}))
+        if r["launches"] != want:
+            fail(f"lm_bf16_train_path {arch}: launches {r['launches']}, "
+                 f"expected {want}")
+        if not all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]):
+            fail(f"lm_bf16_train_path {arch}: losses {r['losses']}, grad "
+                 f"norms {r['grad_norms']}")
+        row = {"arch": arch, "batch": b, "seq": s, "dtype": "bfloat16",
+               "train_config": "TrainConfig() (remat full, AdamW, clip 1.0)",
+               "layers": r["layers"], "steps": LM_BF16_STEPS,
+               "losses": r["losses"], "grad_norms": r["grad_norms"],
+               "step_s": r["step_s"], "first_step_s": r["step_s"][0],
+               "warm_s_per_step": statistics.median(r["step_s"][1:]),
+               "peak_bytes": r["peak_bytes"], "launches": r["launches"],
+               "launches_per_step": {k: v // LM_BF16_STEPS
+                                     for k, v in r["launches"].items()}}
+        row["tokens_per_s"] = b * s / row["warm_s_per_step"]
+        if arch == "hymba-1.5b":
+            first = [t.clone() for t in tree_leaves((r["params"],
+                                                     r["state"]))]
+            losses = r["losses"]
+            r = None
+            torch.cuda.empty_cache()
+            again = _bf16_train_run(arch, b, s)
+            same = again["losses"] == losses and all(
+                torch.equal(a, c) for a, c in zip(
+                    first, tree_leaves((again["params"], again["state"]))))
+            if not same:
+                fail(f"lm_bf16_train_path {arch}: two seeded runs differ: "
+                     f"{losses} vs {again['losses']}")
+            row["second_run_bitwise_equal"] = True
+            row["second_run_step_s"] = again["step_s"]
+            del first, again
+        per_step[arch] = row["launches_per_step"]
+        runs.append(row)
+        r = None
+        torch.cuda.empty_cache()
+    block = lm_block_grads_vs_plain(torch.bfloat16)
+    torch.cuda.empty_cache()
+    return {"runs": runs, "block_grads_vs_plain": block}, per_step
 
 
 FL_LM_ARGV = ["--rounds", "2", "--seed", "0"]
@@ -5305,7 +5754,7 @@ def flash_attention_bwd_times(per_step):
         k = torch.randn(ks, generator=gen, device="cuda")
         v = torch.randn(ks, generator=gen, device="cuda")
         do = torch.randn(qs, generator=gen, device="cuda")
-        o, lse = fa._kernel_forward(q, k, v, causal, window, 0,
+        o, lse, _ = fa._kernel_forward(q, k, v, causal, window, 0,
                                     with_lse=True)
         b, s, h, d = qs
         t, hkv = ks[1], ks[2]
@@ -5490,6 +5939,257 @@ def flash_attention_bwd_times(per_step):
     return out
 
 
+# K4's bf16 training kernels at the bf16 train path's layers and
+# phi4-mini's (D = 128)
+FA_BWD_BF16_SHAPES = FA_BWD_SHAPES[:3]
+
+# The work of K4's bf16 backward, as FA_BWD_WORK counts it, in bf16
+# tensors (o and out_lo both read: delta is of their sum) and f32 rows
+# (lse, delta); and of its bf16 forward with lse (out, out_lo, lse
+# written)
+FA_BWD_BF16_WORK = (
+    ("dq", 3, {"q": 4, "kv": 2, "row": 1}, {"q": 1, "row": 1}),
+    ("dkdv", 4, {"q": 2, "kv": 2, "row": 2}, {"kv": 2}),
+    ("pair", 5, {"q": 4, "kv": 2, "row": 1}, {"q": 1, "kv": 2}))
+FA_FWD_BF16_WORK = (2, {"q": 1, "kv": 2}, {"q": 2, "row": 1})
+
+
+def flash_bwd_bf16_bound_ms(qs, ks, dots, reads, writes, causal=True,
+                            window=0):
+    """Least time for one bf16 kernel (or the pair, or the forward with
+    lse): ``dots`` D-long dots (2*D flops each) a visible (q, k) pair of
+    a head at the bf16 tensor-core rate, one exp a pair at the SFU's
+    rate, and the bf16 q- and kv-sized and f32 row-sized tensors read
+    and written once against HBM; the larger.  ``tf32_ms``: the same
+    flops at the TF32 rate, this design's route (one TF32 product a
+    product)."""
+    b, s, h, d = qs
+    t, hkv = ks[1], ks[2]
+    pairs = b * h * visible_pairs(s, t, causal, window, 0)
+    flops = 2 * d * dots * pairs
+    by_exps = pairs / SFU_EXP_PER_S * 1e3
+    esize = {"q": 2, "kv": 2, "row": 4}
+    sizes = {"q": b * s * h * d, "kv": b * t * hkv * d, "row": b * h * s}
+    nbytes = sum(n * sizes[kind] * esize[kind] for kind, n in
+                 list(reads.items()) + list(writes.items()))
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    ops = max(flops / BF16_TENSOR_FLOPS_PER_S * 1e3, by_exps)
+    return {"ms": max(ops, by_bytes),
+            "by": "operations" if ops >= by_bytes else "bytes",
+            "flops": flops, "exps": pairs, "bytes": nbytes,
+            "tf32_ms": max(flops / TF32_TENSOR_FLOPS_PER_S * 1e3, by_exps,
+                           by_bytes)}
+
+
+def flash_attention_bwd_bf16_times(per_step):
+    """K4's bf16 training kernels at ``FA_BWD_BF16_SHAPES``: the forward
+    with lse (and out_lo) beside the forward without, dq and dkdv alone
+    (direct launches of the built library, not counted) and the pair
+    through the wrapper's backward, in turns; on the same call the f32
+    pair on the same values, the plain backward
+    (``flash_attention_bwd_plain`` on the bf16 inputs, f32 math) and
+    autograd of ``scaled_dot_product_attention`` in bf16 (kv repeated in
+    the graph; the backend PyTorch picks, named) and its bf16 forward;
+    each beside its bound (``flash_bwd_bf16_bound_ms``)."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    bf16 = torch.bfloat16
+    out = []
+    for arch, qs, ks, window in FA_BWD_BF16_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(35)
+        q, do = (torch.randn(qs, generator=gen, device="cuda").to(bf16)
+                 for _ in "qd")
+        k, v = (torch.randn(ks, generator=gen, device="cuda").to(bf16)
+                for _ in "kv")
+        o, lse, o_lo = fa._kernel_forward(q, k, v, True, window, 0,
+                                          with_lse=True)
+        b, s, h, d = qs
+        t, hkv = ks[1], ks[2]
+        lib = fa._bwd_lib()
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        delta = torch.empty((b, h, s), device="cuda")
+        args = (b, s, t, h, hkv, d, 1, window, 0, 1.0 / math.sqrt(d))
+
+        def dq_kernel():
+            lib.flash_attention_bwd_dq_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                o_lo.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), *args,
+                torch.cuda.current_stream().cuda_stream)
+
+        def dkdv_kernel():
+            lib.flash_attention_bwd_dkdv_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), *args,
+                torch.cuda.current_stream().cuda_stream)
+
+        def pair():
+            return fa._kernel_backward(q, k, v, o, lse, do, True, window,
+                                       0, o_lo)
+
+        qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+        of, lsef, _ = fa._kernel_forward(qf, kf, vf, True, window, 0,
+                                         with_lse=True)
+
+        def pair_f32():
+            return fa._kernel_backward(qf, kf, vf, of, lsef, dof, True,
+                                       window, 0)
+
+        o_full = o.float() + o_lo.float()
+
+        def plain():
+            return fa.flash_attention_bwd_plain(q, k, v, o_full, lse, do,
+                                                window=window)
+
+        def fwd_lse():
+            return fa._kernel_forward(q, k, v, True, window, 0,
+                                      with_lse=True)
+
+        def fwd():
+            return fa._kernel_forward(q, k, v, True, window, 0,
+                                      with_lse=False)
+
+        rep = h // hkv
+        if window and window < t:
+            qp = torch.arange(s, device="cuda")[:, None]
+            kp = torch.arange(t, device="cuda")[None, :]
+            lib_kw = {"attn_mask": (kp <= qp) & (kp > qp - window)}
+        else:
+            lib_kw = {"is_causal": True}
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(rep, dim=1),
+            vt.repeat_interleave(rep, dim=1), **lib_kw)
+        lib_node = lib_out.grad_fn.name()
+        lib_do = do.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(lib_out, (qt, kt, vt), lib_do,
+                                       retain_graph=True)
+
+        lib_q, lib_k, lib_v = (x.detach() for x in (
+            qt, kt.repeat_interleave(rep, dim=1),
+            vt.repeat_interleave(rep, dim=1)))
+
+        def library_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(lib_q, lib_k, lib_v,
+                                                      **lib_kw)
+
+        turns = {name: [] for name in ("dq", "dkdv", "pair", "fwd_lse",
+                                       "fwd")}
+        for _ in range(2):
+            turns["dq"].append(median_ms(dq_kernel, runs=5, per_run=5))
+            turns["dkdv"].append(median_ms(dkdv_kernel, runs=5, per_run=5))
+            turns["pair"].append(median_ms(pair, runs=5, per_run=3))
+            turns["fwd_lse"].append(median_ms(fwd_lse, runs=5, per_run=5))
+            turns["fwd"].append(median_ms(fwd, runs=5, per_run=5))
+        pair_f32_ms = median_ms(pair_f32, runs=5, per_run=3)
+        plain_ms = median_ms(plain, runs=3, per_run=2)
+        lib_ms = median_ms(library, runs=5, per_run=3)
+        lib_fwd_ms = median_ms(library_fwd, runs=5, per_run=5)
+        got, want = pair(), plain()
+        errs = {}
+        for tag, a, c in zip(("dq", "dk", "dv"), got, want):
+            err, _, ok = _grad_close_bf16(
+                f"flash_attention_bwd_bf16_times.{tag}", a, c)
+            errs[tag] = err
+            if not ok:
+                fail(f"flash_attention_bwd_bf16_times {arch}: {tag} {err}")
+        steps = per_step.get(arch, {})
+        row = {"arch": arch, "q": list(qs), "k": list(ks), "window": window,
+               "causal": True, "dtype": "torch.bfloat16",
+               "turns": turns, "pair_f32_ms": pair_f32_ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library": f"autograd of scaled_dot_product_attention, "
+                          f"bf16, kv repeated in the graph ({lib_node})",
+               "library_fwd_ms": lib_fwd_ms, "max_abs_err": errs,
+               "tol": BF16_BWD_TOL,
+               "sizes": fa.bwd_sizes(d, bf16),
+               "launches_per_train_step": {
+                   "fwd_lse": steps.get("flash_attention_tc", 0),
+                   "dq": steps.get("flash_attention_bwd_dq_bf16", 0),
+                   "dkdv": steps.get("flash_attention_bwd_dkdv_bf16", 0)}}
+        for name, dots, reads, writes in FA_BWD_BF16_WORK + (
+                ("fwd_lse",) + FA_FWD_BF16_WORK,):
+            ms = min(turns[name])
+            bound = flash_bwd_bf16_bound_ms(qs, ks, dots, reads, writes,
+                                            window=window)
+            row[name] = {"ms": ms, "bound_ms": bound["ms"],
+                         "bound_by": bound["by"],
+                         "bound_tf32_ms": bound["tf32_ms"],
+                         "flops": bound["flops"], "exps": bound["exps"],
+                         "bytes": bound["bytes"],
+                         "rate_on_bound": bound["ms"] / ms}
+        row["fwd_ms"] = min(turns["fwd"])
+        out.append(row)
+    return out
+
+
+def ssm_scan_bwd_bf16_times(per_step):
+    """K5's backward on bf16 inputs at hymba's training shape (B=1,
+    S=2048, D=3200, N=16; no h0, no h_end gradient), in turns, beside
+    the f32 backward on the same values, the plain twin
+    (``ssm_scan_bwd_plain``, a Python loop: host time included) and the
+    bound: bf16 x, dt, dy, B, C read and bf16 dx, ddt, dB, dC written,
+    a_log and dA_log f32, against HBM; the B*S*D*N exps at the SFU's
+    rate."""
+    import torch
+    from repro_torch.kernels import ssm_scan as ss
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    b, s, d, n = 1, 2048, 3200, 16
+    x, dt, bi, co, al = ssm_inputs(gen, b, s, d, n, torch.bfloat16)
+    dy = torch.randn(b, s, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    carries = ss._kernel_forward(x, dt, bi, co, al, None)[2]
+    xf, dtf, bcf = x.float(), dt.float(), torch.cat([bi, co], -1).float()
+    bif, cof = bcf[..., :n], bcf[..., n:]
+    carries_f = ss._kernel_forward(xf, dtf, bif, cof, al, None)[2]
+
+    def kernel():
+        return ss._kernel_backward(x, dt, bi, co, al, None, dy, None,
+                                   carries)
+
+    def kernel_f32():
+        return ss._kernel_backward(xf, dtf, bif, cof, al, None, dy.float(),
+                                   None, carries_f)
+
+    def plain():
+        return ss.ssm_scan_bwd_plain(x, dt, bi, co, al, None, dy)
+
+    kernel_a = median_ms(kernel)
+    f32_ms = median_ms(kernel_f32)
+    plain_ms = median_ms(plain, hide_host=False, warmup=1, runs=3,
+                         per_run=1)
+    kernel_b = median_ms(kernel)
+    got, want = kernel(), plain()
+    errs = {}
+    for tag, a, c in zip(("dx", "ddt", "db", "dc", "da_log"), got, want):
+        err, _, ok = _grad_close_bf16(f"ssm_scan_bwd_bf16_times.{tag}",
+                                      a.to(torch.bfloat16)
+                                      if tag != "da_log" else a, c)
+        errs[tag] = err
+        if not ok:
+            fail(f"ssm_scan_bwd_bf16_times: {tag} {err}")
+    nbytes = 2 * (5 * b * s * d + 4 * b * s * n) + 4 * 2 * d * n
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = b * s * d * n / SFU_EXP_PER_S * 1e3
+    return {"case": "hymba-train-bf16", "b": b, "s": s, "d": d, "n": n,
+            "dtype": "torch.bfloat16", "ms": min(kernel_a, kernel_b),
+            "ms_turns": [kernel_a, kernel_b], "f32_ms": f32_ms,
+            "plain_ms": plain_ms, "plain_includes_host": True,
+            "library_ms": None, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes_ms": by_bytes, "bound_exps_ms": by_ops,
+            "max_abs_err": errs, "tol": BF16_BWD_TOL,
+            "launches_per_train_step":
+                per_step["hymba-1.5b"]["ssm_scan_bwd_bf16"]}
+
+
 def ssm_bwd_split(b, s, d, n):
     """The time split K5's backward takes for one call, as the built
     libraries report it: the forward's segment length, segments a chunk
@@ -5664,6 +6364,8 @@ def run_phases() -> int:
     emit({"phase": "lm_consistency", **lm_consistency()})
     lm_train, per_step = lm_train_path()
     emit({"phase": "lm_train_path", "card": card, **lm_train})
+    bf16_train, bf16_per_step = lm_bf16_train_path()
+    emit({"phase": "lm_bf16_train_path", "card": card, **bf16_train})
     emit({"phase": "fl_lm_path", "card": card, "runs": fl_lm_path()})
     moe_serve, moe_calls = lm_moe_serve_path()
     emit({"phase": "lm_moe_serve_path", "card": card, **moe_serve})
@@ -5734,7 +6436,14 @@ def run_phases() -> int:
     ss_bwd = ssm_scan_bwd_times(per_step)
     emit({"phase": "ssm_scan_bwd_times", "card": card,
           "at_train_path_shape": ss_bwd})
+    fa_bwd16 = flash_attention_bwd_bf16_times(bf16_per_step)
+    emit({"phase": "flash_attention_bwd_bf16_times", "card": card,
+          "at_train_path_shapes": fa_bwd16})
+    ss_bwd16 = ssm_scan_bwd_bf16_times(bf16_per_step)
+    emit({"phase": "ssm_scan_bwd_bf16_times", "card": card,
+          "at_train_path_shape": ss_bwd16})
     hymba_train = lm_train["runs"][0]["launches"]
+    hymba_bf16 = bf16_train["runs"][0]["launches"]
 
     widest = seen[-1]          # the largest cohort the main path formed
     fold_widest = max(fold_seen, key=lambda t: t["k_live"])
@@ -5828,7 +6537,19 @@ def run_phases() -> int:
             "library_ms": r["fwd_library_ms"],
             "launches_per_train_step":
                 r["launches_per_train_step"]["fwd_lse"]}
-            for r in fa_bwd]}, {
+            for r in fa_bwd],
+        # the bf16 forward with lse (and out_lo) that bf16 training
+        # launches, two a layer a step (remat), at its layer shapes
+        "train_bf16_forward": [{
+            "arch": r["arch"], "q": r["q"], "k": r["k"],
+            "window": r["window"], "ms": r["fwd_lse"]["ms"],
+            "without_lse_ms": r["fwd_ms"],
+            "bound_ms": r["fwd_lse"]["bound_ms"],
+            "bound_by": r["fwd_lse"]["bound_by"],
+            "library_ms": r["library_fwd_ms"],
+            "launches_per_train_step":
+                r["launches_per_train_step"]["fwd_lse"]}
+            for r in fa_bwd16]}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:28",
@@ -5890,7 +6611,51 @@ def run_phases() -> int:
         "ms": ss_bwd["ms"], "plain_ms": ss_bwd["plain_ms"],
         "bound_ms": ss_bwd["bound_ms"], "bound_by": ss_bwd["bound_by"],
         "library_ms": None, "split": ss_bwd["split"],
-        "design_exps_ms": ss_bwd["design_exps_ms"]}]})
+        "design_exps_ms": ss_bwd["design_exps_ms"]}] + [{
+        "name": f"flash_attention_bwd_{part}_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:30",
+        "replaces_note": "the backward of that kernel on bf16 inputs: the "
+                         "JAX package differentiates the jnp attention "
+                         "and has no Pallas backward",
+        # one full-width hymba-1.5b bf16 run of LM_BF16_STEPS steps
+        "launches": hymba_bf16[f"flash_attention_bwd_{part}_bf16"],
+        "max_abs_err": max(fa_bwd16[0]["max_abs_err"].values()),
+        "shape": {"q": fa_bwd16[0]["q"], "k": fa_bwd16[0]["k"],
+                  "window": fa_bwd16[0]["window"]},
+        "ms": fa_bwd16[0][part]["ms"], "plain_ms": fa_bwd16[0]["plain_ms"],
+        "bound_ms": fa_bwd16[0][part]["bound_ms"],
+        "bound_by": fa_bwd16[0][part]["bound_by"],
+        "bound_tf32_ms": fa_bwd16[0][part]["bound_tf32_ms"],
+        "library_ms": fa_bwd16[0]["library_ms"],
+        "library": fa_bwd16[0]["library"],
+        "library_and_plain_cover": "dq, dk and dv (both kernels' work)",
+        "pair_ms": fa_bwd16[0]["pair"]["ms"],
+        "f32_pair_ms": fa_bwd16[0]["pair_f32_ms"],
+        "other_layers": [{
+            "arch": r["arch"], "q": r["q"], "k": r["k"],
+            **{k: r[part][k] for k in ("ms", "bound_ms", "bound_by",
+                                       "bound_tf32_ms")},
+            "pair_ms": r["pair"]["ms"], "f32_pair_ms": r["pair_f32_ms"],
+            "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+            "library": r["library"],
+            "max_abs_err": max(r["max_abs_err"].values()),
+            "launches_per_train_step":
+                r["launches_per_train_step"][part]} for r in fa_bwd16[1:]]}
+        for part in ("dq", "dkdv")] + [{
+        "name": "ssm_scan_bwd_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:28",
+        "replaces_note": "the backward of that kernel on bf16 inputs: the "
+                         "JAX package differentiates the jnp scan and has "
+                         "no Pallas backward",
+        "launches": hymba_bf16["ssm_scan_bwd_bf16"],
+        "max_abs_err": max(ss_bwd16["max_abs_err"].values()),
+        "shape": [ss_bwd16[k] for k in ("b", "s", "d", "n")],
+        "ms": ss_bwd16["ms"], "plain_ms": ss_bwd16["plain_ms"],
+        "f32_ms": ss_bwd16["f32_ms"],
+        "bound_ms": ss_bwd16["bound_ms"], "bound_by": ss_bwd16["bound_by"],
+        "library_ms": None}]})
     emit({"ok": True,
           "device": {"platform": "gpu",
                      "kind": torch.cuda.get_device_name(0),

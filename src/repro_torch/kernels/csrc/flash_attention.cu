@@ -131,6 +131,16 @@
 //     P_lo.V; O in f32 registers, rescaled by corr before each product.
 //   * Epilogue: out = o / max(l, 1e-30), rounded once to bf16, staged
 //     in shared memory and stored 16 bytes a thread, rows < S only.
+//     With LSE (training: the backward kernels read both) also each
+//     row's log-sum-exp in natural units, ln 2 * (m + log2(max(l,
+//     1e-30))), m being kept in the scaled log2 domain (a row that sees
+//     no key, m = -1e30, takes the f32 kernel's -1e30 + log(l)), and
+//     out_lo = bf16(o / l - out), what the rounding of out left: out +
+//     out_lo holds o / l to about 2^-16, so the backward's delta =
+//     rowsum(dO * O) is taken of the f32 output, as autograd of the f32
+//     softmax takes it (of out alone it is off by out's 2^-9, which
+//     reaches dq and dk through dS and fails their bf16 tolerance).  It
+//     is staged and stored as out is, after it.  No bit of out changes.
 //   * Overlap, as FA3 does it: a warpgroup issues tile j's Q.K^T and
 //     tile j-1's P.V in one go and runs tile j's softmax while that P.V
 //     is on the tensor cores; and "ping-pong": the two consumer
@@ -1286,14 +1296,17 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2],
     for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 }
 
-template <int D>
+// LSE: also write each row's log-sum-exp (natural units) to lse (B,H,S)
+template <int D, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
                           __nv_bfloat16* __restrict__ out, int S, int T,
                           int H, int Hkv, int causal, int window,
-                          int q_offset, float scale_log2) {
+                          int q_offset, float scale_log2,
+                          float* __restrict__ lse,
+                          __nv_bfloat16* __restrict__ out_lo) {
     using L = Layout<D>;
     constexpr int BK = L::KEYS;          // the tile and ring of this D
     constexpr int STAGES = L::DEPTH;
@@ -1558,7 +1571,31 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 den[r] = fmaxf(l[r], 1e-30f);
             }
             const int row = 16 * warp + (lane >> 2);
+            if (LSE && (lane & 3) == 0) {
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    if (row + 8 * r < n_rows)
+                        lse[((long long)b * H + h) * S + r0 + row + 8 * r] =
+                            m[r] <= NEG
+                                ? NEG + logf(den[r])
+                                : 0.6931471805599453f
+                                      * (m[r] + log2f(den[r]));
+                }
+            }
             constexpr int CHUNKS = D / 8;             // 16 bytes each
+            // out, then (LSE) out_lo, each staged in shared memory and
+            // stored 16 bytes a thread, rows < S only
+            for (int part = 0; part < (LSE ? 2 : 1); ++part) {
+            __nv_bfloat16* dst = part ? out_lo : out;
+            // two adjacent outputs: out, or what its rounding left
+            auto value = [&](float a, float c) {
+                const __nv_bfloat162 hi = __floats2bfloat162_rn(a, c);
+                return part ? __floats2bfloat162_rn(a - __low2float(hi),
+                                                    c - __high2float(hi))
+                            : hi;
+            };
+            if (part)          // every store of out has read the staging
+                asm volatile("bar.sync %0, 128;\n" :: "r"(1 + w) : "memory");
             if constexpr (L::WIDE) {
                 // staged in this warpgroup's own q rows (its last Q.K^T
                 // has been waited on), in their swizzle (L::chunk: at
@@ -1570,8 +1607,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const int col = 8 * (i >> 2) + 2 * (lane & 3);
                     *reinterpret_cast<__nv_bfloat162*>(
                         s_o + L::chunk(r, col / 8, BQ) + (col % 8) * 2) =
-                        __floats2bfloat162_rn(o[i] / den[(i >> 1) & 1],
-                                              o[i + 1] / den[(i >> 1) & 1]);
+                        value(o[i] / den[(i >> 1) & 1],
+                              o[i + 1] / den[(i >> 1) & 1]);
                 }
                 asm volatile("bar.sync %0, 128;\n" :: "r"(1 + w) : "memory");
                 for (int c = tid; c < 64 * CHUNKS; c += 128) {
@@ -1580,7 +1617,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const uint4 val = *reinterpret_cast<const uint4*>(
                             s_o + L::chunk(rr, cc, BQ));
                         *reinterpret_cast<uint4*>(
-                            out + (((long long)b * S + r0 + rr) * H + h) * D
+                            dst + (((long long)b * S + r0 + rr) * H + h) * D
                             + 8 * cc) = val;
                     }
                 }
@@ -1593,7 +1630,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const int col = 8 * (i >> 2) + 2 * (lane & 3);
                 *reinterpret_cast<__nv_bfloat162*>(
                     s_o + (row + 8 * r) * L::O_PITCH + col) =
-                    __floats2bfloat162_rn(o[i] / den[r], o[i + 1] / den[r]);
+                    value(o[i] / den[r], o[i + 1] / den[r]);
             }
             asm volatile("bar.sync %0, 128;\n" :: "r"(1 + w) : "memory");
             for (int c = tid; c < 64 * CHUNKS; c += 128) {
@@ -1602,9 +1639,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const uint4 val = *reinterpret_cast<const uint4*>(
                         s_o + rr * L::O_PITCH + 8 * cc);
                     *reinterpret_cast<uint4*>(
-                        out + (((long long)b * S + r0 + rr) * H + h) * D
+                        dst + (((long long)b * S + r0 + rr) * H + h) * D
                         + 8 * cc) = val;
                 }
+            }
             }
             }
         }
@@ -1695,11 +1733,12 @@ static int tensor_map(CUtensorMap* map, const MapKey& key) {
     return 0;
 }
 
-template <int D>
-static int launch(const void* q, const void* k, const void* v, void* out,
-                  int B, int S, int T_len, int H, int Hkv,
-                  const long long* st, int causal, int window, int q_offset,
-                  float scale, cudaStream_t stream) {
+template <int D, bool LSE>
+static int launch_as(const void* q, const void* k, const void* v, void* out,
+                     int B, int S, int T_len, int H, int Hkv,
+                     const long long* st, int causal, int window,
+                     int q_offset, float scale, cudaStream_t stream,
+                     float* lse, void* out_lo) {
     // element strides (batch, position, head) -> byte strides of the
     // (D, position, head, batch) maps
     CUtensorMap mq, mk, mv;
@@ -1716,15 +1755,31 @@ static int launch(const void* q, const void* k, const void* v, void* out,
     if (err != 0) return err;
     const int smem = Layout<D>::ALLOC;
     cudaError_t ce = cudaFuncSetAttribute(
-        flash_attention_tc_kernel<D>,
+        flash_attention_tc_kernel<D, LSE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (ce != cudaSuccess) return (int)ce;
     const dim3 grid((S + BQ - 1) / BQ, H, B);
-    flash_attention_tc_kernel<D><<<grid, THREADS, smem, stream>>>(
+    flash_attention_tc_kernel<D, LSE><<<grid, THREADS, smem, stream>>>(
         mq, mk, mv, static_cast<__nv_bfloat16*>(out), S, T_len, H, Hkv,
         causal, window, q_offset,
-        (float)((double)scale * 1.4426950408889634));   // scale * log2(e)
+        (float)((double)scale * 1.4426950408889634), lse,   // scale * log2 e
+        static_cast<__nv_bfloat16*>(out_lo));
     return (int)cudaGetLastError();
+}
+
+template <int D>
+static int launch(const void* q, const void* k, const void* v, void* out,
+                  int B, int S, int T_len, int H, int Hkv,
+                  const long long* st, int causal, int window, int q_offset,
+                  float scale, cudaStream_t stream, float* lse,
+                  void* out_lo) {
+    if (lse != nullptr)
+        return launch_as<D, true>(q, k, v, out, B, S, T_len, H, Hkv, st,
+                                  causal, window, q_offset, scale, stream,
+                                  lse, out_lo);
+    return launch_as<D, false>(q, k, v, out, B, S, T_len, H, Hkv, st,
+                               causal, window, q_offset, scale, stream,
+                               nullptr, nullptr);
 }
 
 }  // namespace tc
@@ -1736,10 +1791,13 @@ static int launch(const void* q, const void* k, const void* v, void* out,
 // dtype 0 = f32 (split TF32), 1 = bf16 (the wgmma kernel), both on the
 // tensor cores;
 // all four tensors of that dtype.  D in {16, 32, 64, 80, 128, 192}: the
-// models' 64, 80, 128 and 192 and the JAX kernel tests' 16 and 32.  lse: null, or (f32 only) a
-// contiguous (B,H,S) f32 output for the rows' log-sum-exp m + log(max(l,
-// 1e-30)) that the backward kernels (flash_attention_bwd.cu) read;
-// asking for it changes no bit of out.
+// models' 64, 80, 128 and 192 and the JAX kernel tests' 16 and 32.  lse:
+// null, or (either dtype) a contiguous (B,H,S) f32 output for the rows'
+// log-sum-exp m + log(max(l, 1e-30)) that the backward kernels
+// (flash_attention_bwd.cu) read; asking for it changes no bit of out.
+// out_lo: bf16 with lse, a contiguous (B,S,H,D) bf16 output for what
+// the rounding of out left (out + out_lo is the f32 output to about
+// 2^-16); null otherwise.
 // Returns cudaGetLastError() after the launch (or the error that kept
 // it from launching); does not synchronise.
 extern "C" int flash_attention_fwd(
@@ -1749,10 +1807,10 @@ extern "C" int flash_attention_fwd(
         long long k_sb, long long k_st, long long k_sh,
         long long v_sb, long long v_st, long long v_sh,
         int causal, int window, int q_offset, float scale, void* stream,
-        void* lse) {
+        void* lse, void* out_lo) {
     if (B < 1 || S < 1 || T_len < 1 || H < 1 || Hkv < 1 || H % Hkv != 0
             || B > 65535 || H > 65535 || q_offset < 0
-            || (lse != nullptr && dtype != 0))
+            || (out_lo != nullptr) != (dtype == 1 && lse != nullptr))
         return (int)cudaErrorInvalidValue;
     const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_st, k_sh,
                              v_sb, v_st, v_sh};
@@ -1771,12 +1829,12 @@ extern "C" int flash_attention_fwd(
         }
     } else if (dtype == 1) {
         switch (D) {
-            case 16: return tc::launch<16>(FA_ARGS);
-            case 32: return tc::launch<32>(FA_ARGS);
-            case 64: return tc::launch<64>(FA_ARGS);
-            case 80: return tc::launch<80>(FA_ARGS);
-            case 128: return tc::launch<128>(FA_ARGS);
-            case 192: return tc::launch<192>(FA_ARGS);
+            case 16: return tc::launch<16>(FA_ARGS, lse_f, out_lo);
+            case 32: return tc::launch<32>(FA_ARGS, lse_f, out_lo);
+            case 64: return tc::launch<64>(FA_ARGS, lse_f, out_lo);
+            case 80: return tc::launch<80>(FA_ARGS, lse_f, out_lo);
+            case 128: return tc::launch<128>(FA_ARGS, lse_f, out_lo);
+            case 192: return tc::launch<192>(FA_ARGS, lse_f, out_lo);
         }
     }
 #undef FA_ARGS

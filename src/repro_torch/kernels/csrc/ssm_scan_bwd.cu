@@ -1,11 +1,11 @@
-// The f32 backward of K5, the diagonal selective scan of ssm_scan.cu,
-// for Hopper (sm_90a): one kernel, time split as the forward splits it.
+// The backward of K5, the diagonal selective scan of ssm_scan.cu, for
+// Hopper (sm_90a): one kernel, time split as the forward splits it.
 //
 // The JAX package has no backward Pallas kernel: JAX differentiates the
 // reference model's jnp scan, and its training never calls
 // src/repro/kernels/ssm_scan.py: _kernel.  The port routes every CUDA
 // tensor to its forward kernel, so a gradient through that kernel needs
-// this one.  The bf16 backward is a later item (ROADMAP, queue 2).
+// this one.
 //
 //   forward, per batch b, channel d, state n (A = -exp(a_log[d][n])):
 //     a_t = exp(dt_t * A),  h_t = a_t * h_{t-1} + (dt_t * x_t) * B_t[n],
@@ -19,9 +19,12 @@
 //     dA_log   = A * sum_{b,t} g_t h_{t-1} a_t dt_t
 //     dh0      = a_0 * g_0
 //
-//   x, dt (B,S,D) and B_in, C_out (B,S,N) f32 with any strides (the
-//   model's strided halves of one (B,S,2N) tensor); a_log (D,N), h0
-//   (B,D,N) or null, dy (B,S,D), dh_end (B,D,N) or null, contiguous f32;
+//   x, dt (B,S,D) and B_in, C_out (B,S,N) f32 or bf16 (dtype 0 or 1,
+//   as ssm_scan_fwd) with any strides (the model's strided halves of one
+//   (B,S,2N) tensor); dy (B,S,D) contiguous, of the same type; a_log
+//   (D,N), h0 (B,D,N) or null, dh_end (B,D,N) or null, contiguous f32;
+//   a bf16 input is widened to f32 where it is read, as the forward
+//   widens it, and every state, carry and partial is f32;
 //   fcar: the forward kernel's chunk carries (its ``carries`` scratch,
 //   kept by the caller), which hold the state at the start of every
 //   chunk but the first.  Out, contiguous f32: dx, ddt (B,S,D); dbc
@@ -74,6 +77,7 @@
 // checkpoints) and registers (the sub-blocks' states) hold one CTA of 8
 // warps an SM.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -93,6 +97,11 @@ struct SbStrides {
     long long x_b, x_s, x_d, dt_b, dt_s, dt_d;
     long long b_b, b_s, b_n, c_b, c_s, c_n;
 };
+
+__device__ __forceinline__ float sb_f32(float x) { return x; }
+__device__ __forceinline__ float sb_f32(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+}
 
 __device__ __forceinline__ float sb_ex2(float x) {
     float y;
@@ -152,39 +161,40 @@ __device__ __forceinline__ float sb_reduce_scatter(float (&v)[V], int lane) {
     return v[0];
 }
 
-// What a lane reads of step t: its channel's x, dt, dy and the row's
-// B_t, C_t (the same for every lane: broadcasts).  Zeros on a lane past
-// D.
+// What a lane reads of step t, widened to f32: its channel's x, dt, dy
+// and the row's B_t, C_t (the same for every lane: broadcasts).  Zeros
+// on a lane past D.
+template <typename T>
 struct SbIn {
-    const float* x;
-    const float* dt;
-    const float* dy;
-    const float* bm;
-    const float* cm;
+    const T* x;
+    const T* dt;
+    const T* dy;
+    const T* bm;
+    const T* cm;
     SbStrides st;
     int D;
     bool ok;
 
     __device__ __forceinline__ float xv(int t) const {
-        return ok ? x[t * st.x_s] : 0.0f;
+        return ok ? sb_f32(x[t * st.x_s]) : 0.0f;
     }
     __device__ __forceinline__ float dtv(int t) const {
-        return ok ? dt[t * st.dt_s] : 0.0f;
+        return ok ? sb_f32(dt[t * st.dt_s]) : 0.0f;
     }
     __device__ __forceinline__ float dyv(int t) const {
-        return ok ? dy[(long long)t * D] : 0.0f;
+        return ok ? sb_f32(dy[(long long)t * D]) : 0.0f;
     }
     __device__ __forceinline__ float bv(int t, int n) const {
-        return bm[t * st.b_s + n * st.b_n];
+        return sb_f32(bm[t * st.b_s + n * st.b_n]);
     }
     __device__ __forceinline__ float cv(int t, int n) const {
-        return cm[t * st.c_s + n * st.c_n];
+        return sb_f32(cm[t * st.c_s + n * st.c_n]);
     }
 };
 
 // One forward step, the forward kernel's arithmetic: h <- a_t h + dt x B
-template <int N>
-__device__ __forceinline__ void sb_step(const SbIn& in, int t,
+template <int N, typename In>
+__device__ __forceinline__ void sb_step(const In& in, int t,
                                         const float (&a2)[N],
                                         float (&h)[N]) {
     const float dv = in.dtv(t);
@@ -212,14 +222,14 @@ __device__ __forceinline__ void sb_store(const float (&h)[N], float* p) {
 // from ``sync[0]``), so the item a CTA waits on -- the same row's chunk
 // k+1 -- belongs to a CTA that started earlier.  sync[1 + item] is
 // item's flag; gcar[item] (N x 32 floats) its reverse carry out.
-template <int N>
+template <typename T, int N>
 __global__ void __launch_bounds__(SB_WARPS * 32, 1)
-ssm_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                    const float* __restrict__ bm, const float* __restrict__ cm,
+ssm_scan_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                    const T* __restrict__ bm, const T* __restrict__ cm,
                     const float* __restrict__ a_log,
                     const float* __restrict__ h0,
                     const float* __restrict__ fcar,
-                    const float* __restrict__ dy,
+                    const T* __restrict__ dy,
                     const float* __restrict__ dh_end,
                     float* __restrict__ dx, float* __restrict__ ddt,
                     float* __restrict__ dbc, float* __restrict__ da,
@@ -253,7 +263,7 @@ ssm_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         A[n] = ok ? -expf(a_log[(long long)d * N + n]) : 0.0f;
         a2[n] = A[n] * SB_LOG2E;
     }
-    SbIn in;
+    SbIn<T> in;
     in.x = x + b * st.x_b + dd * st.x_d;
     in.dt = dt + b * st.dt_b + dd * st.dt_d;
     in.dy = dy + (long long)b * S * D + dd;
@@ -456,23 +466,23 @@ ssm_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     }
 }
 
-template <int N>
-static int launch_sb(const float* x, const float* dt, const float* bm,
-                     const float* cm, const float* a_log, const float* h0,
-                     const float* fcar, const float* dy,
-                     const float* dh_end, float* dx, float* ddt, float* dbc,
-                     float* da, float* dh0, int* sync, float* gcar, int B,
-                     int S, int D, int seg, int chunks, const SbStrides& st,
-                     cudaStream_t stream) {
+// T (float or bf16) from the inputs' pointer type
+template <int N, typename T>
+static int launch_sb(const T* x, const T* dt, const T* bm, const T* cm,
+                     const float* a_log, const float* h0, const float* fcar,
+                     const T* dy, const float* dh_end, float* dx,
+                     float* ddt, float* dbc, float* da, float* dh0,
+                     int* sync, float* gcar, int B, int S, int D, int seg,
+                     int chunks, const SbStrides& st, cudaStream_t stream) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ssm_scan_bwd_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SbSmem<N>::BYTES);
+        ssm_scan_bwd_kernel<T, N>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SbSmem<N>::BYTES);
     if (err != cudaSuccess) return (int)err;
     const long long items =
         (long long)B * ((D + SB_CH - 1) / SB_CH) * chunks;
     if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    ssm_scan_bwd_kernel<N><<<(unsigned)items, SB_WARPS * 32,
-                             SbSmem<N>::BYTES, stream>>>(
+    ssm_scan_bwd_kernel<T, N><<<(unsigned)items, SB_WARPS * 32,
+                                SbSmem<N>::BYTES, stream>>>(
         x, dt, bm, cm, a_log, h0, fcar, dy, dh_end, dx, ddt, dbc, da, dh0,
         sync, gcar, S, D, seg, chunks, st);
     return (int)cudaGetLastError();
@@ -500,21 +510,22 @@ extern "C" long long ssm_scan_bwd_sizes(int B, int S, int D, int N,
     }
 }
 
-// x, dt (B,S,D), b_in, c_out (B,S,N) f32 with element strides (batch,
-// time, channel/state); a_log (D,N), h0 (B,D,N) or null, fcar (the
-// forward's carries under the same split; null when chunks = 1), dy
-// (B,S,D), dh_end (B,D,N) or null: contiguous f32.  seg, warps, chunks:
+// x, dt (B,S,D), b_in, c_out (B,S,N) of dtype (0: f32, 1: bf16) with
+// element strides (batch, time, channel/state), dy (B,S,D) contiguous of
+// the same dtype; a_log (D,N), h0 (B,D,N) or null, fcar (the forward's
+// carries under the same split; null when chunks = 1), dh_end (B,D,N)
+// or null: contiguous f32.  seg, warps, chunks:
 // the forward kernel's split of S (ssm_scan_scratch which = 2, 3, 4;
 // any seg with warps * seg * chunks >= S for S = 1).  dx, ddt (B,S,D),
 // dbc (B,G,S,2N), da (B,chunks,D,N), dh0 (B,D,N), sync and gcar as
 // ``ssm_scan_bwd_sizes`` counts them: contiguous.  N in {4, 8, 16}.
 // Returns cudaGetLastError() after the launch; does not synchronise.
-extern "C" int ssm_scan_bwd_f32(
+extern "C" int ssm_scan_bwd(
         const void* x, const void* dt, const void* b_in, const void* c_out,
         const void* a_log, const void* h0, const void* fcar, const void* dy,
         const void* dh_end, void* dx, void* ddt, void* dbc, void* da,
-        void* dh0, void* sync, void* gcar, int B, int S, int D, int N,
-        int seg, int warps, int chunks,
+        void* dh0, void* sync, void* gcar, int dtype, int B, int S, int D,
+        int N, int seg, int warps, int chunks,
         long long x_sb, long long x_ss, long long x_sd,
         long long dt_sb, long long dt_ss, long long dt_sd,
         long long b_sb, long long b_ss, long long b_sn,
@@ -524,24 +535,32 @@ extern "C" int ssm_scan_bwd_f32(
             || (long long)chunks * SB_WARPS * seg < S
             || (long long)(chunks - 1) * SB_WARPS * seg >= S
             || (chunks > 1 && fcar == nullptr) || sync == nullptr
-            || gcar == nullptr)
+            || gcar == nullptr || (dtype != 0 && dtype != 1))
         return (int)cudaErrorInvalidValue;
     const SbStrides st{x_sb, x_ss, x_sd, dt_sb, dt_ss, dt_sd,
                        b_sb, b_ss, b_sn, c_sb, c_ss, c_sn};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SB_ARGS static_cast<const float*>(x), static_cast<const float*>(dt), \
-    static_cast<const float*>(b_in), static_cast<const float*>(c_out), \
+#define SB_ARGS(T) static_cast<const T*>(x), static_cast<const T*>(dt), \
+    static_cast<const T*>(b_in), static_cast<const T*>(c_out), \
     static_cast<const float*>(a_log), static_cast<const float*>(h0), \
-    static_cast<const float*>(fcar), static_cast<const float*>(dy), \
+    static_cast<const float*>(fcar), static_cast<const T*>(dy), \
     static_cast<const float*>(dh_end), static_cast<float*>(dx), \
     static_cast<float*>(ddt), static_cast<float*>(dbc), \
     static_cast<float*>(da), static_cast<float*>(dh0), \
     static_cast<int*>(sync), static_cast<float*>(gcar), B, S, D, seg, \
     chunks, st, s
-    switch (N) {
-        case 4: return launch_sb<4>(SB_ARGS);
-        case 8: return launch_sb<8>(SB_ARGS);
-        case 16: return launch_sb<16>(SB_ARGS);
+    if (dtype == 0) {
+        switch (N) {
+            case 4: return launch_sb<4>(SB_ARGS(float));
+            case 8: return launch_sb<8>(SB_ARGS(float));
+            case 16: return launch_sb<16>(SB_ARGS(float));
+        }
+    } else {
+        switch (N) {
+            case 4: return launch_sb<4>(SB_ARGS(__nv_bfloat16));
+            case 8: return launch_sb<8>(SB_ARGS(__nv_bfloat16));
+            case 16: return launch_sb<16>(SB_ARGS(__nv_bfloat16));
+        }
     }
 #undef SB_ARGS
     return (int)cudaErrorInvalidValue;

@@ -66,24 +66,30 @@ against it.
 
 Gradients.  When grad mode is on and q, k or v requires grad,
 ``flash_attention`` goes through ``FlashAttentionFn``: its forward is
-the f32 kernel asked also for each row's log-sum-exp ``lse`` (B,H,S)
-(no bit of the output changes), its backward the two f32 kernels of
-``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd_dq_f32``, which
-also writes ``delta = rowsum(dO * O)``, then
-``flash_attention_bwd_dkdv_f32``, dk and dv summed over each kv head's
-group in registers; no float atomics, so gradients are the same bits
-every run).  Their products run on the tensor cores in split TF32
-(three TF32 products a product, about 2^-19 relative at worst) with 16-byte
-``cp.async`` copies, so q, k, v, o and dO must sit on 16-byte
-addresses, or the backward raises ``ValueError`` before either
+the forward kernel of the dtype asked also for each row's log-sum-exp
+``lse`` (B,H,S) f32 (no bit of the output changes), its backward the
+two kernels of ``csrc/flash_attention_bwd.cu`` for that dtype
+(``flash_attention_bwd_dq_f32`` / ``_bf16``, which also writes ``delta
+= rowsum(dO * O)``, then ``flash_attention_bwd_dkdv_f32`` / ``_bf16``,
+dk and dv summed over each kv head's group in registers; no float
+atomics, so gradients are the same bits every run).  Their products
+run on the tensor cores: in f32 in split TF32 (three TF32 products a
+product, about 2^-19 relative at worst); in bf16 one TF32 product (a
+bf16 value is exact in TF32; P and dS rounded to TF32, 2^-11, finer
+than bf16), the bf16 tiles widened to f32 in shared memory, lse, delta
+and the sums f32, the gradients rounded once to bf16; the bf16 forward
+asked for lse also writes ``out_lo``, what the rounding of its output
+left, and delta is taken of out + out_lo (of out alone it would be off
+by 2^-9, enough to fail the bf16 tolerance in dq and dk).  Both copy
+with 16-byte ``cp.async``, so q, k, v, o (and out_lo) and dO must sit
+on 16-byte addresses, or the backward raises ``ValueError`` before either
 launch.  At D = 80, 128 and 192 a block is eight warps, the two of a pair
 sharing 16 stationary rows, each computing S and dP over half of the
 moving tile and passing P and dS to the other through shared memory:
 S and dP once a visible pair in each kernel (``bwd_sizes`` reports each
 launch).  On CPU tensors the Function runs the plain forward and
-``flash_attention_bwd_plain``, the same math in PyTorch.  A bf16 input
-that requires grad raises: the bf16 tensor-core backward is a later
-item.
+``flash_attention_bwd_plain``, the same math in PyTorch, in f32 for
+either dtype (the gradients then rounded to the inputs' dtype).
 The JAX package has no backward kernel (JAX differentiates the jnp
 attention), so these have no Pallas counterpart.
 """
@@ -100,22 +106,29 @@ NEG = -1e30
 # launches of either CUDA forward kernel by ``flash_attention`` (and
 # nothing else); ``tc_launches`` those of the tensor-core (bf16) kernel
 # alone; ``bwd_dq_launches`` and ``bwd_dkdv_launches`` those of the two
-# backward kernels by ``FlashAttentionFn.backward``
+# backward kernels (either dtype) by ``FlashAttentionFn.backward``, the
+# ``_bf16`` ones those of the bf16 pair alone
 launches = 0
 tc_launches = 0
 bwd_dq_launches = 0
 bwd_dkdv_launches = 0
+bwd_dq_bf16_launches = 0
+bwd_dkdv_bf16_launches = 0
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
-             + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+             + [ctypes.c_float] + [ctypes.c_void_p] * 3)
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                  + [ctypes.c_float, ctypes.c_void_p])
-NO_BF16_GRAD = ("flash_attention: a bf16 input that requires grad has no "
-                "backward kernel yet; the bf16 tensor-core backward of K4 "
-                "is ROADMAP.md queue 2 item 0b (train in f32)")
+# the bf16 dq entry takes o_lo after o
+_BWD_DQ_BF16_ARGTYPES = [ctypes.c_void_p] + _BWD_ARGTYPES
+# the backward pair's entries by dtype: (dq, dkdv)
+_BWD_ENTRIES = {torch.float32: ("flash_attention_bwd_dq_f32",
+                                "flash_attention_bwd_dkdv_f32"),
+                torch.bfloat16: ("flash_attention_bwd_dq_bf16",
+                                 "flash_attention_bwd_dkdv_bf16")}
 
 
 def _mask(s: int, t: int, causal: bool, window: int, q_offset: int,
@@ -186,10 +199,12 @@ def _lib():
 def _bwd_lib():
     from repro_torch.kernels import _build
     lib = _build.load("flash_attention_bwd")
-    for fn in (lib.flash_attention_bwd_dq_f32,
-               lib.flash_attention_bwd_dkdv_f32):
+    for name in sum(_BWD_ENTRIES.values(), ()):
+        fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = _BWD_ARGTYPES
+            fn.argtypes = (_BWD_DQ_BF16_ARGTYPES
+                           if name == "flash_attention_bwd_dq_bf16"
+                           else _BWD_ARGTYPES)
             fn.restype = ctypes.c_int
     return lib
 
@@ -199,18 +214,19 @@ BWD_SIZES = ("warps", "shared_bytes", "tile_rows", "stages", "grid_y",
              "dots_a_pair")
 
 
-def bwd_sizes(d: int) -> dict:
-    """The backward kernels' launch at head dim ``d`` as the built
-    library reports it: ``{"dq": {...}, "dkdv": {...}}``, each the warps
-    a block, dynamic shared bytes, rows of a moving tile (keys in dq, q
-    rows in dkdv), ring stages, grid y and the D-long dots it computes a
-    visible (q, k) pair.  Builds the library (a card machine's
-    ``nvcc``)."""
+def bwd_sizes(d: int, dtype=torch.float32) -> dict:
+    """The backward kernels' launch at head dim ``d`` for ``dtype`` as
+    the built library reports it: ``{"dq": {...}, "dkdv": {...}}``, each
+    the warps a block, dynamic shared bytes, rows of a moving tile (keys
+    in dq, q rows in dkdv), ring stages, grid y and the D-long dots it
+    computes a visible (q, k) pair.  Builds the library (a card
+    machine's ``nvcc``)."""
     sizes = _bwd_lib().flash_attention_bwd_sizes
     if sizes.argtypes is None:
         sizes.argtypes = [ctypes.c_int] * 3
         sizes.restype = ctypes.c_longlong
-    return {kind: {key: int(sizes(d, kernel, which))
+    first = 2 * _DTYPES[dtype]           # bf16: the library's kernels 2, 3
+    return {kind: {key: int(sizes(d, first + kernel, which))
                    for which, key in enumerate(BWD_SIZES)}
             for kernel, kind in enumerate(("dq", "dkdv"))}
 
@@ -250,8 +266,11 @@ def _check(q, k, v):
 
 def _kernel_forward(q, k, v, causal, window, q_offset, with_lse):
     """One launch of the forward kernel on CUDA tensors; returns (out,
-    lse or None).  ``with_lse`` (f32 only) also writes each row's
-    log-sum-exp (B,H,S) for the backward."""
+    lse, out_lo), the last two None without ``with_lse``.  ``with_lse``
+    also writes each row's log-sum-exp (B,H,S) f32 for the backward and,
+    in bf16, ``out_lo`` (B,S,H,D) bf16, what the rounding of out left
+    (out + out_lo is the f32 output to about 2^-16: the backward's
+    delta reads both); out_lo is None in f32."""
     global launches, tc_launches
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -272,8 +291,6 @@ def _kernel_forward(q, k, v, causal, window, q_offset, with_lse):
         raise ValueError(f"flash_attention kernel: S={s}, T={t}, "
                          f"q_offset={q_offset}")
     tensor_cores = q.dtype == torch.bfloat16
-    if tensor_cores and with_lse:
-        raise NotImplementedError(NO_BF16_GRAD)
     copied = ((("q", q), ("k", k), ("v", v)) if tensor_cores
               else (("k", k), ("v", v)))
     route = "bf16 kernel (TMA)" if tensor_cores else "f32 kernel (cp.async)"
@@ -285,6 +302,7 @@ def _kernel_forward(q, k, v, causal, window, q_offset, with_lse):
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    out_lo = torch.empty_like(out) if with_lse and tensor_cores else None
     with torch.cuda.device(q.device):      # the launch goes to q's card
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -294,13 +312,14 @@ def _kernel_forward(q, k, v, causal, window, q_offset, with_lse):
             v.stride(0), v.stride(1), v.stride(2),
             int(bool(causal)), int(window), int(q_offset),
             1.0 / math.sqrt(d), torch.cuda.current_stream(q.device)
-            .cuda_stream, None if lse is None else lse.data_ptr())
+            .cuda_stream, None if lse is None else lse.data_ptr(),
+            None if out_lo is None else out_lo.data_ptr())
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err}")
     launches += 1
     tc_launches += tensor_cores
-    return out, lse
+    return out, lse, out_lo
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
@@ -315,6 +334,19 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
     return (gqa_plain(q, k, v, causal=causal, window=window,
                       q_offset=q_offset),
             torch.logsumexp(scores, dim=-1))
+
+
+def _plain_forward_for_grad(q, k, v, causal, window, q_offset):
+    """What ``_kernel_forward(..., with_lse=True)`` returns, in PyTorch:
+    (out, lse, out_lo), out_lo the rest of out's rounding to bf16 (None
+    in f32)."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if q.dtype != torch.bfloat16:
+        return (*flash_attention_fwd_plain(q, k, v, **kw), None)
+    full, lse = flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                          **kw)
+    out = full.to(q.dtype)
+    return out, lse, (full - out.float()).to(q.dtype)
 
 
 def repeat_kv_heads(k, n_heads: int):
@@ -357,20 +389,40 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     return dq.movedim(1, 2), group_sum(dk), group_sum(dv)
 
 
-def _kernel_backward(q, k, v, o, lse, do, causal, window, q_offset):
-    """The two backward launches on CUDA tensors (f32): dq (and delta)
-    first, then dk and dv.  A misaligned input raises ``ValueError``
-    before either launch."""
+def _kernel_backward(q, k, v, o, lse, do, causal, window, q_offset,
+                     o_lo=None):
+    """The two backward launches on CUDA tensors of q's dtype (f32 or
+    bf16; dO taken in that dtype): dq (and delta) first, then dk and dv,
+    in q's dtype.  bf16 takes ``o_lo`` too, the forward's (delta is of o
+    + o_lo).  A misaligned input raises ``ValueError`` before either
+    launch."""
     global bwd_dq_launches, bwd_dkdv_launches
+    global bwd_dq_bf16_launches, bwd_dkdv_bf16_launches
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
-    q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do))
-    for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+    if q.dtype not in _BWD_ENTRIES or any(x.dtype != q.dtype
+                                          for x in (k, v, o)):
+        raise TypeError(f"flash_attention backward kernels take f32 or "
+                        f"bf16 q, k, v, o of one dtype, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}, {o.dtype}")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 != (o_lo is not None):
+        raise ValueError("flash_attention backward kernels: o_lo goes with "
+                         "bf16 inputs, and only with them")
+    q, k, v, o, do = (x.contiguous() for x in (q, k, v, o,
+                                               do.to(q.dtype)))
+    named = [("q", q), ("k", k), ("v", v), ("o", o), ("do", do)]
+    if bf16:
+        o_lo = o_lo.contiguous()
+        named.append(("o_lo", o_lo))
+    for name, x in named:
         why = tma_misalignment(x)
         if why:
             raise ValueError(f"flash_attention backward kernels "
                              f"(cp.async): {name} {why}")
     lib = _bwd_lib()
+    dq_entry, dkdv_entry = (getattr(lib, name)
+                            for name in _BWD_ENTRIES[q.dtype])
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -379,52 +431,57 @@ def _kernel_backward(q, k, v, o, lse, do, causal, window, q_offset):
              int(q_offset), 1.0 / math.sqrt(d))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_bwd_dq_f32(
+        err = dq_entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            *((o_lo.data_ptr(),) if bf16 else ()),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             *shape, stream)
         if err != 0:
-            raise RuntimeError(f"flash_attention_bwd_dq_f32 launch failed: "
+            raise RuntimeError(f"{_BWD_ENTRIES[q.dtype][0]} launch failed: "
                                f"CUDA error {err}")
         bwd_dq_launches += 1
-        err = lib.flash_attention_bwd_dkdv_f32(
+        bwd_dq_bf16_launches += bf16
+        err = dkdv_entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *shape, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd_dkdv_f32 launch failed: "
+        raise RuntimeError(f"{_BWD_ENTRIES[q.dtype][1]} launch failed: "
                            f"CUDA error {err}")
     bwd_dkdv_launches += 1
+    bwd_dkdv_bf16_launches += bf16
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """``flash_attention`` with a gradient: on CUDA tensors the f32
-    forward kernel (asked for lse) and the two backward kernels; on CPU
-    tensors the plain forward and ``flash_attention_bwd_plain``."""
+    """``flash_attention`` with a gradient: on CUDA tensors the forward
+    kernel of the inputs' dtype (asked for lse) and the two backward
+    kernels of that dtype; on CPU tensors the plain forward and
+    ``flash_attention_bwd_plain``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
         if q.device.type == "cuda":
-            out, lse = _kernel_forward(q, k, v, causal, window, q_offset,
-                                       with_lse=True)
+            out, lse, out_lo = _kernel_forward(q, k, v, causal, window,
+                                               q_offset, with_lse=True)
         else:
-            out, lse = flash_attention_fwd_plain(
-                q, k, v, causal=causal, window=window, q_offset=q_offset)
-        ctx.save_for_backward(q, k, v, out, lse)
+            out, lse, out_lo = _plain_forward_for_grad(q, k, v, causal,
+                                                       window, q_offset)
+        ctx.save_for_backward(q, k, v, out, lse, out_lo)
         ctx.masks = (causal, window, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, out_lo = ctx.saved_tensors
         causal, window, q_offset = ctx.masks
         if q.device.type == "cuda":
             dq, dk, dv = _kernel_backward(q, k, v, out, lse, do, causal,
-                                          window, q_offset)
+                                          window, q_offset, out_lo)
         else:
+            o = out if out_lo is None else out.float() + out_lo.float()
             dq, dk, dv = flash_attention_bwd_plain(
-                q, k, v, out, lse, do, causal=causal, window=window,
+                q, k, v, o, lse, do, causal=causal, window=window,
                 q_offset=q_offset)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
                 None)
@@ -441,13 +498,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     ``HEAD_DIMS``, and 16-byte aligned addresses and strides (k and v
     for f32; q, k and v for bf16); anything else raises.  On the CPU it
     is ``gqa_plain``.  With grad mode on and an input that requires
-    grad it is ``FlashAttentionFn`` (f32 only: bf16 raises
-    ``NotImplementedError``).
+    grad it is ``FlashAttentionFn`` (f32 or bf16).
     """
     _check(q, k, v)
     if _needs_grad(q, k, v):
-        if q.dtype == torch.bfloat16:
-            raise NotImplementedError(NO_BF16_GRAD)
         return FlashAttentionFn.apply(q, k, v, bool(causal), int(window),
                                       int(q_offset))
     if q.device.type != "cuda":

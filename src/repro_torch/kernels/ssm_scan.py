@@ -33,7 +33,10 @@ Gradients.  When grad mode is on and an input requires grad,
 ``ssm_scan`` goes through ``SSMScanFn``: the forward kernel, which
 keeps its chunk carries (the state at the start of every chunk but the
 first, ``carries``; not one bit of y or h_end changes), and for the
-backward ``csrc/ssm_scan_bwd.cu: ssm_scan_bwd_f32``, split over time as
+backward ``csrc/ssm_scan_bwd.cu: ssm_scan_bwd`` (f32 or bf16 inputs,
+widened where they are read; states, carries, partials and the
+gradients' sums f32, the gradients rounded to the inputs' dtype after
+the launch), split over time as
 the forward is: a block is one chunk of one row's channel group, each
 warp scans its segment forward and g backward from zero, the carries
 between segments are folded in registers (the forward's from its kept
@@ -44,8 +47,7 @@ dC per channel group, dA_log per (batch row, chunk) -- that the wrapper
 adds with ``torch.sum`` over the partial axes: no float atomics, the
 same bits every run.  On CPU tensors the Function runs
 ``ssm_scan_plain`` and ``ssm_scan_bwd_plain``, the reverse recurrence
-in PyTorch.  A bf16
-input that requires grad raises: the bf16 backward is a later item.
+in PyTorch.
 The JAX package has no backward kernel (JAX differentiates the jnp
 scan), so this one has no Pallas counterpart.
 """
@@ -58,21 +60,20 @@ import torch
 
 # launches of the CUDA forward kernel by ``ssm_scan`` (and nothing
 # else); ``bwd_launches`` those of the backward kernel by
-# ``SSMScanFn.backward``
+# ``SSMScanFn.backward`` (either dtype), ``bwd_bf16_launches`` those on
+# bf16 inputs alone
 launches = 0
 bwd_launches = 0
+bwd_bf16_launches = 0
 
 STATE_SIZES = (4, 8, 16)       # hymba's 16; the JAX kernel tests' 4, 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [ctypes.c_void_p] * 3)
 _SCRATCH_ARGTYPES = [ctypes.c_int] * 5
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 8
                  + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
 _BWD_SIZES_ARGTYPES = [ctypes.c_int] * 6
-NO_BF16_GRAD = ("ssm_scan: a bf16 input that requires grad has no "
-                "backward kernel yet; the bf16 backward of K5 is a queue 2 "
-                "item of ROADMAP.md (train in f32)")
 
 
 def ssm_scan_plain(x, dt, b_in, c_out, a_log, h0=None):
@@ -149,9 +150,9 @@ def _lib():
 def _bwd_lib():
     from repro_torch.kernels import _build
     lib = _build.load("ssm_scan_bwd")
-    if lib.ssm_scan_bwd_f32.argtypes is None:
-        lib.ssm_scan_bwd_f32.argtypes = _BWD_ARGTYPES
-        lib.ssm_scan_bwd_f32.restype = ctypes.c_int
+    if lib.ssm_scan_bwd.argtypes is None:
+        lib.ssm_scan_bwd.argtypes = _BWD_ARGTYPES
+        lib.ssm_scan_bwd.restype = ctypes.c_int
         lib.ssm_scan_bwd_sizes.argtypes = _BWD_SIZES_ARGTYPES
         lib.ssm_scan_bwd_sizes.restype = ctypes.c_longlong
     return lib
@@ -237,16 +238,23 @@ def time_split(bsz, s, d, n):
 
 
 def _kernel_backward(x, dt, b_in, c_out, a_log, h0, dy, dh_end, carries):
-    """One launch of the backward kernel on CUDA tensors (f32), then the
-    partials summed over their partial axes.  ``carries``: what
-    ``_kernel_forward`` returned for the same inputs."""
-    global bwd_launches
+    """One launch of the backward kernel on CUDA tensors (x, dt, b_in,
+    c_out f32 or bf16 of one dtype, dy taken in that dtype), then the
+    partials summed over their partial axes; the gradients f32.
+    ``carries``: what ``_kernel_forward`` returned for the same
+    inputs."""
+    global bwd_launches, bwd_bf16_launches
     bsz, s, d = x.shape
     n = b_in.shape[2]
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype
+                                     for t in (dt, b_in, c_out)):
+        raise TypeError(f"ssm_scan backward kernel takes f32 or bf16 x, dt, "
+                        f"b_in, c_out of one dtype, got {x.dtype}, "
+                        f"{dt.dtype}, {b_in.dtype}, {c_out.dtype}")
     seg, warps, chunks = time_split(bsz, s, d, n)
     lib = _bwd_lib()
     f32 = dict(dtype=torch.float32, device=x.device)
-    dy = dy.float().contiguous()
+    dy = dy.to(x.dtype).contiguous()
     if dh_end is not None:
         dh_end = dh_end.float().contiguous()
 
@@ -264,20 +272,20 @@ def _kernel_backward(x, dt, b_in, c_out, a_log, h0, dy, dh_end, carries):
     sync = torch.zeros(size(0), dtype=torch.int32, device=x.device)
     gcar = torch.empty(size(1), **f32)
     with torch.cuda.device(x.device):
-        err = lib.ssm_scan_bwd_f32(
+        err = lib.ssm_scan_bwd(
             x.data_ptr(), dt.data_ptr(), b_in.data_ptr(), c_out.data_ptr(),
             a_log.data_ptr(), None if h0 is None else h0.data_ptr(),
             None if carries is None else carries.data_ptr(),
             dy.data_ptr(), None if dh_end is None else dh_end.data_ptr(),
             dx.data_ptr(), ddt.data_ptr(), dbc.data_ptr(), da.data_ptr(),
-            dh0.data_ptr(), sync.data_ptr(), gcar.data_ptr(), bsz, s, d, n,
-            seg, warps, chunks,
+            dh0.data_ptr(), sync.data_ptr(), gcar.data_ptr(),
+            _DTYPES[x.dtype], bsz, s, d, n, seg, warps, chunks,
             *x.stride(), *dt.stride(), *b_in.stride(), *c_out.stride(),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ssm_scan_bwd_f32 launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"ssm_scan_bwd launch failed: CUDA error {err}")
     bwd_launches += 1
+    bwd_bf16_launches += x.dtype == torch.bfloat16
     return (dx, ddt, dbc[..., :n].sum(dim=1), dbc[..., n:].sum(dim=1),
             da.sum(dim=(0, 1)), dh0)
 
@@ -303,7 +311,7 @@ class SSMScanFn(torch.autograd.Function):
     def backward(ctx, dy, dh_end):
         x, dt, b_in, c_out, a_log, h0, carries = ctx.saved_tensors
         if dy is None:
-            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+            dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
         if x.device.type == "cuda":
             dx, ddt, db, dc, da_log, dh0 = _kernel_backward(
                 x, dt, b_in, c_out, a_log, h0, dy, dh_end, carries)
@@ -323,14 +331,11 @@ def ssm_scan(x, dt, b_in, c_out, a_log, h0=None):
     does not synchronize: x, dt, b_in, c_out f32 or bf16 of one dtype
     (any strides), N in ``STATE_SIZES``; anything else raises.  On the
     CPU it is ``ssm_scan_plain``.  With grad mode on and an input that
-    requires grad it is ``SSMScanFn`` (f32 only: bf16 raises
-    ``NotImplementedError``).
+    requires grad it is ``SSMScanFn`` (f32 or bf16 inputs).
     """
     _check(x, dt, b_in, c_out, a_log, h0)
     ins = (x, dt, b_in, c_out, a_log) + (() if h0 is None else (h0,))
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
-        if any(t.dtype == torch.bfloat16 for t in ins):
-            raise NotImplementedError(NO_BF16_GRAD)
         return SSMScanFn.apply(x, dt, b_in, c_out, a_log, h0)
     if x.device.type != "cuda":
         return ssm_scan_plain(x, dt, b_in, c_out, a_log, h0)

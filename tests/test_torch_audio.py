@@ -315,7 +315,7 @@ def test_d80_is_instantiated_in_every_k4_kernel():
     fwd = (csrc / "flash_attention.cu").read_text()
     bwd = (csrc / "flash_attention_bwd.cu").read_text()
     for line in ("case 80: return launch_f32<80>(FA_ARGS, lse_f);",
-                 "case 80: return tc::launch<80>(FA_ARGS);",
+                 "case 80: return tc::launch<80>(FA_ARGS, lse_f, out_lo);",
                  "case 80: return fa_sizes<80>(dtype, which);",
                  "if constexpr (D == 80) wgmma_m64n80k16_rs(o, a, d);"):
         assert line in fwd, line

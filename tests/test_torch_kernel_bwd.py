@@ -152,20 +152,25 @@ def test_flash_attention_without_grad_skips_the_function():
     assert out.grad_fn is None
 
 
-def test_bf16_with_grad_raises_naming_the_roadmap_item():
+def test_bf16_without_grad_stays_the_plain_forward():
+    """bf16 without grad on the CPU is the plain forward (no Function, the
+    plain twin's bits); bf16 with grad is ``tests/test_torch_bf16_train.py``'s."""
     q, k, v, _ = _fa_inputs(6, 1, 16, 16, 2, 1, 16)
-    qb = torch.from_numpy(q).to(torch.bfloat16).requires_grad_(True)
-    kb = torch.from_numpy(k).to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="tensor-core backward"):
-        fa.flash_attention(qb, kb, kb)
-    x, dt, bi, co, al = _ssm_inputs(6, 1, 8, 4, 4)
-    xb = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="bf16 backward"):
-        ss.ssm_scan(xb, *(torch.from_numpy(a).to(torch.bfloat16)
-                          for a in (dt, bi, co)), torch.from_numpy(al))
-    # without grad, bf16 stays the plain forward on the CPU
+    qb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
     with torch.no_grad():
-        assert fa.flash_attention(qb, kb, kb).dtype == torch.bfloat16
+        out = fa.flash_attention(qb.requires_grad_(True), kb, vb)
+    assert out.dtype == torch.bfloat16 and out.grad_fn is None
+    assert torch.equal(out, fa.gqa_plain(qb.detach(), kb, vb))
+    x, dt, bi, co, al = _ssm_inputs(6, 1, 8, 4, 4)
+    xb, dtb, bib, cob = (torch.from_numpy(a).to(torch.bfloat16)
+                         for a in (x, dt, bi, co))
+    with torch.no_grad():
+        y, h_end = ss.ssm_scan(xb.requires_grad_(True), dtb, bib, cob,
+                               torch.from_numpy(al))
+    want_y, want_h = ss.ssm_scan_plain(xb.detach(), dtb, bib, cob,
+                                       torch.from_numpy(al))
+    assert y.dtype == torch.bfloat16 and y.grad_fn is None
+    assert torch.equal(y, want_y) and torch.equal(h_end, want_h)
 
 
 # ---------------------------------------------------------------------------

@@ -193,7 +193,7 @@ def times(smoke, names):
         k = torch.randn(ks, generator=gen, device="cuda")
         v = torch.randn(ks, generator=gen, device="cuda")
         do = torch.randn(qs, generator=gen, device="cuda")
-        o, lse = fa._kernel_forward(q, k, v, causal, window, 0,
+        o, lse, _ = fa._kernel_forward(q, k, v, causal, window, 0,
                                     with_lse=True)
         b, s, h, d = qs
         t, hkv = ks[1], ks[2]

@@ -564,9 +564,10 @@ MC_LAUNCH = r"""    if constexpr (Layout<D>::CLUSTER) {
         cfg.attrs = attr;
         cfg.numAttrs = 1;
         ce = cudaLaunchKernelEx(
-            &cfg, flash_attention_tc_kernel<D>, mq, mk, mv,
+            &cfg, flash_attention_tc_kernel<D, LSE>, mq, mk, mv,
             static_cast<__nv_bfloat16*>(out), S, T_len, H, Hkv, causal,
-            window, q_offset, (float)((double)scale * 1.4426950408889634));
+            window, q_offset, (float)((double)scale * 1.4426950408889634),
+            lse);
         if (ce != cudaSuccess) return (int)ce;
         return (int)cudaGetLastError();
     }
@@ -629,8 +630,8 @@ def multicast(src):
 // ---- host side: tensor maps""")
     src = src.replace("Layout<D>::KEYS};", "Layout<D>::HALF};")
     return replace(src, """    const dim3 grid((S + BQ - 1) / BQ, H, B);
-    flash_attention_tc_kernel<D><<<""", MC_LAUNCH + """    const dim3 grid((S + BQ - 1) / BQ, H, B);
-    flash_attention_tc_kernel<D><<<""")
+    flash_attention_tc_kernel<D, LSE><<<""", MC_LAUNCH + """    const dim3 grid((S + BQ - 1) / BQ, H, B);
+    flash_attention_tc_kernel<D, LSE><<<""")
 
 
 def no_multicast(src):

@@ -98,7 +98,7 @@ def build(names):
             raise SystemExit(f"k5_bwd_variants: {name} failed to build:\n"
                              f"{out}")
         kernels = re.findall(
-            r"Compiling entry function '_Z\d+ssm_scan_bwd_kernelILi(\d+)EE"
+            r"Compiling entry function '_Z\d+ssm_scan_bwd_kernelIfLi(\d+)EE"
             r".*?(\d+) bytes spill stores.*?Used (\d+) registers", out, re.S)
         print(json.dumps({"variant": name, "ptxas": [
             {"n": int(n), "spill_stores": int(sp), "registers": int(r)}
@@ -141,8 +141,8 @@ def main(argv=None) -> int:
     def kernel(name):
         """The wrapper's backward on the variant's library."""
         lib = libs[name]
-        lib.ssm_scan_bwd_f32.argtypes = ss._BWD_ARGTYPES
-        lib.ssm_scan_bwd_f32.restype = ctypes.c_int
+        lib.ssm_scan_bwd.argtypes = ss._BWD_ARGTYPES
+        lib.ssm_scan_bwd.restype = ctypes.c_int
         lib.ssm_scan_bwd_sizes.argtypes = ss._BWD_SIZES_ARGTYPES
         lib.ssm_scan_bwd_sizes.restype = ctypes.c_longlong
         _build._LIBS["ssm_scan_bwd"] = lib
