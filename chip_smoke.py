@@ -2906,8 +2906,10 @@ def check_bwd_misaligned():
 # |want|) + rtol * |want| at FA_TOL["bfloat16"] (rtol 8e-3, atol 1e-3),
 # scaled as ``_grad_close`` scales: the kernels' gradients are rounded
 # once to bf16 (2^-9 relative), the forward's output O (which delta =
-# rowsum(dO * O) reads) too, and P and dS enter their products rounded
-# to TF32 (2^-11).  The bf16 forward's lse is held to the f32
+# rowsum(dO * O) reads) too, and P and dS enter their products as two
+# bf16 parts (to about 2^-16; one part, 2^-9, fails this tolerance:
+# tests/test_torch_k4_bf16_wgmma_bwd.py).  The bf16 forward's lse is
+# held to the f32
 # tolerance FA_TOL["float32"] against ``flash_attention_fwd_plain``'s
 # on the upcast inputs (both f32 sums of the same exact products), and
 # its output to the forward without lse bit for bit.
@@ -3152,7 +3154,7 @@ def bf16_bwd_checks():
 def check_bwd_misaligned_bf16():
     """bf16 views 2 bytes off a 16-byte boundary: a q (the forward's TMA
     rule: ``ValueError`` before the forward launches) and a dO (the
-    backward's cp.async rule: ``ValueError`` after the forward, before
+    backward's TMA rule: ``ValueError`` after the forward, before
     either backward kernel launches)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -3201,27 +3203,31 @@ HEAD_DIMS = (16, 32, 64, 80, 128, 192)  # K4's instantiations
 
 # The tensor-core kernels as cuobjdump names them (mangled): library ->
 # [(pattern of a kernel's name, its key from the match, the keys wanted,
-# the instruction each must hold)]: the split-TF32 kernels TF32 HMMA,
-# the bf16 kernel wgmma (HGMMA in SASS); the backward kernels of either
-# element type TF32 HMMA
+# the instruction each must hold, one it must not)]: the split-TF32
+# kernels (the f32 forward and backward) TF32 HMMA, the bf16 forward
+# and backward wgmma (HGMMA in SASS) and no TF32 HMMA
 SASS_KERNELS = {
     "flash_attention_bwd": [(
-        r"_Z\d+(fa_bwd_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)EE",
-        lambda m: f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}"
-                  f", {m.group(3)}>",
-        {f"fa_bwd_{kind}_kernel<{t}, {d}>" for kind in ("dq", "dkdv")
-         for t in ("float", "bf16") for d in HEAD_DIMS}, "tf32_hmma")],
+        r"_Z\d+(fa_bwd_\w+?_kernel)ILi(\d+)EE",
+        lambda m: f"{m.group(1)}<{m.group(2)}>",
+        {f"fa_bwd_{kind}_kernel<{d}>" for kind in ("dq", "dkdv")
+         for d in HEAD_DIMS}, "tf32_hmma", None)],
+    "flash_attention_bwd_tc": [(
+        r"_ZN2tc\d+(fa_bwd_tc_\w+?_kernel)ILi(\d+)EE",
+        lambda m: f"{m.group(1)}<{m.group(2)}>",
+        {f"fa_bwd_tc_{kind}_kernel<{d}>" for kind in ("dq", "dkdv")
+         for d in HEAD_DIMS}, "hgmma", "tf32_hmma")],
     "flash_attention": [(
         r"_Z\d+(fa_fwd_f32_kernel)ILi(\d+)ELb([01])EE",
         lambda m: f"{m.group(1)}<{m.group(2)}, "
                   f"{'true' if m.group(3) == '1' else 'false'}>",
         {f"fa_fwd_f32_kernel<{d}, {lse}>" for d in HEAD_DIMS
-         for lse in ("true", "false")}, "tf32_hmma"), (
+         for lse in ("true", "false")}, "tf32_hmma", None), (
         r"_ZN2tc\d+(flash_attention_tc_kernel)ILi(\d+)ELb([01])EE",
         lambda m: f"{m.group(1)}<{m.group(2)}, "
                   f"{'true' if m.group(3) == '1' else 'false'}>",
         {f"flash_attention_tc_kernel<{d}, {lse}>" for d in HEAD_DIMS
-         for lse in ("true", "false")}, "hgmma")],
+         for lse in ("true", "false")}, "hgmma", "tf32_hmma")],
 }
 
 
@@ -3234,9 +3240,10 @@ def library_sass(library: str) -> dict:
     """A built library as ``cuobjdump`` reads it (one ``-sass`` and one
     ``-res-usage`` pass): each tensor-core kernel's tensor-core
     instructions (TF32 ``HMMA`` for the split-TF32 kernels, ``HGMMA``
-    for the ``wgmma`` kernel), registers and local-memory (spill) bytes;
-    fails when a kernel of ``SASS_KERNELS`` is missing, has none of its
-    instruction, or spills.  ``seconds``: what the two reads took."""
+    for the ``wgmma`` kernels, and the count of the one it must not
+    hold), registers and local-memory (spill) bytes; fails when a kernel
+    of ``SASS_KERNELS`` is missing, has none of its instruction, has the
+    forbidden one, or spills.  ``seconds``: what the two reads took."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     lib = _build.build([library])[library]
@@ -3249,16 +3256,19 @@ def library_sass(library: str) -> dict:
 
     sass, usage = dump("-sass"), dump("-res-usage")
     kernels = {}
-    for name, key, want, op in SASS_KERNELS[library]:
+    for name, key, want, op, banned in SASS_KERNELS[library]:
         found, current = {}, None
         for line in sass.splitlines():
             if "Function : " in line:
                 m = re.search(r"Function : " + name, line)
                 current = key(m) if m else None
                 if current:
-                    found[current] = {op: 0}
+                    found[current] = {op: 0, **({banned: 0} if banned
+                                                else {})}
             elif current and _sass_op(op, line):
                 found[current][op] += 1
+            elif current and banned and _sass_op(banned, line):
+                found[current][banned] += 1
         for m in re.finditer(name + r"\S*:\s*REG:(\d+) STACK:(\d+) \S+ "
                              r"LOCAL:(\d+)", usage):
             regs = m.groups()[-3:]
@@ -3268,6 +3278,8 @@ def library_sass(library: str) -> dict:
         if set(found) != want or not all(k[op] for k in found.values()):
             fail(f"{library} library: a tensor-core kernel missing or "
                  f"without {op}: {found}")
+        if banned and any(k[banned] for k in found.values()):
+            fail(f"{library} library: a kernel holds {banned}: {found}")
         spills = {k: v for k, v in found.items() if v.get("local_bytes")}
         if spills:
             fail(f"{library} library: kernels spill: {spills}")
@@ -3371,6 +3383,8 @@ def kernel_bwd_checks():
             "checkpoint": check_under_checkpoint(),
             "bf16": bf16_bwd_checks(),
             "flash_attention_bwd_sass": library_sass("flash_attention_bwd"),
+            "flash_attention_bwd_tc_sass":
+                library_sass("flash_attention_bwd_tc"),
             "flash_attention_f32_sass": library_sass("flash_attention")}
 
 
@@ -3902,14 +3916,15 @@ def profiled_step(fn, groups):
     return out, profile
 
 # kernel name (lower case) -> group of a profiled train step, first
-# match wins; kernels launched inside OPTIMIZER_RANGE are "optimizer"
+# match wins; kernels launched inside OPTIMIZER_RANGE are "optimizer";
+# cuBLAS names its bf16 GEMM kernels on the H100 "nvjet_*"
 STEP_GROUPS = (
-    ("k4_dq", ("fa_bwd_dq",)),
-    ("k4_dkdv", ("fa_bwd_dkdv",)),
+    ("k4_dq", ("fa_bwd_dq", "fa_bwd_tc_dq")),
+    ("k4_dkdv", ("fa_bwd_dkdv", "fa_bwd_tc_dkdv")),
     ("k4_fwd", ("flash_attention", "fa_fwd")),
     ("k5_bwd", ("ssm_scan_bwd",)),
     ("k5_fwd", ("ssm_scan_kernel", "ssm_step_kernel")),
-    ("gemm", ("gemm", "xmma", "cutlass")),
+    ("gemm", ("gemm", "xmma", "cutlass", "nvjet")),
     ("elementwise", ("elementwise", "reduce")),
 )
 
@@ -4323,12 +4338,14 @@ def lm_train_path():
 LM_BF16_STEPS = 2
 
 
-def _bf16_train_run(arch, b, s, seed=0):
+def _bf16_train_run(arch, b, s, seed=0, profile=False):
     """``make_train_step(cfg, TrainConfig())`` on ``init_model(cfg,
     dtype=torch.bfloat16)`` parameters drawn on the card from ``seed``,
     ``LM_BF16_STEPS`` steps on random tokens from the same seed, each
     timed on the host between two synchronizes, with the launch counts
-    and peak memory read around the run."""
+    and peak memory read around the run; with ``profile`` one more step
+    after those, under ``torch.profiler`` (``profiled_step``: device
+    time by group), its launches left out of the counts."""
     import torch
     from repro_torch.config import get_arch
     from repro_torch.config.base import TrainConfig
@@ -4339,7 +4356,8 @@ def _bf16_train_run(arch, b, s, seed=0):
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = init_model(cfg, gen, dtype=torch.bfloat16)
-    tokens = torch.randint(0, cfg.vocab_size, (LM_BF16_STEPS, b, s),
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (LM_BF16_STEPS + bool(profile), b, s),
                            generator=gen, device="cuda")
     tcfg = TrainConfig()
     step, opt = make_train_step(cfg, tcfg)
@@ -4354,7 +4372,11 @@ def _bf16_train_run(arch, b, s, seed=0):
         step_s.append(time.perf_counter() - t0)
         metrics.append(m)
     launched = counts()
-    return {"tcfg": tcfg, "layers": cfg.num_layers,
+    prof = None
+    if profile:
+        (params, state, _), prof = profiled_step(
+            lambda: step(params, state, {"tokens": tokens[-1]}), STEP_GROUPS)
+    return {"tcfg": tcfg, "layers": cfg.num_layers, "profile": prof,
             "hybrid": cfg.family == "hybrid", "params": params,
             "state": state, "step_s": step_s, "launches": launched,
             "losses": [float(m["loss"]) for m in metrics],
@@ -4370,15 +4392,17 @@ def lm_bf16_train_path():
     launches a step, gated (remat runs each layer's forward twice: K4's
     bf16 forward with lse 2 a layer, its bf16 dq and dkdv 1; hymba's K5
     forward 2 and bf16 backward 1); finite losses; hymba twice from the
-    same seed, losses and every parameter and moment bit for bit; and
-    one full-width bf16 hymba block's gradients through the kernels
-    against the plain twins (``lm_block_grads_vs_plain(bfloat16)``)."""
+    same seed, losses and every parameter and moment bit for bit;
+    llama's step after the timed ones profiled (``profiled_step``:
+    device time by group, shares of the warm step); and one full-width
+    bf16 hymba block's gradients through the kernels against the plain
+    twins (``lm_block_grads_vs_plain(bfloat16)``)."""
     import math
     import torch
     from repro_torch.tree import tree_leaves
     runs, per_step = [], {}
     for arch, b, s in LM_TRAIN:
-        r = _bf16_train_run(arch, b, s)
+        r = _bf16_train_run(arch, b, s, profile=arch == "llama3.2-1b")
         tcfg = r["tcfg"]
         if (tcfg.dtype, tcfg.remat, tcfg.remat_policy) != (
                 "bfloat16", True, "full"):
@@ -4411,6 +4435,9 @@ def lm_bf16_train_path():
                "launches_per_step": {k: v // LM_BF16_STEPS
                                      for k, v in r["launches"].items()}}
         row["tokens_per_s"] = b * s / row["warm_s_per_step"]
+        if r["profile"] is not None:
+            row["profiled_step"] = with_step_shares(r["profile"],
+                                                    row["warm_s_per_step"])
         if arch == "hymba-1.5b":
             first = [t.clone() for t in tree_leaves((r["params"],
                                                      r["state"]))]
@@ -5960,9 +5987,7 @@ def flash_bwd_bf16_bound_ms(qs, ks, dots, reads, writes, causal=True,
     lse): ``dots`` D-long dots (2*D flops each) a visible (q, k) pair of
     a head at the bf16 tensor-core rate, one exp a pair at the SFU's
     rate, and the bf16 q- and kv-sized and f32 row-sized tensors read
-    and written once against HBM; the larger.  ``tf32_ms``: the same
-    flops at the TF32 rate, this design's route (one TF32 product a
-    product)."""
+    and written once against HBM; the larger."""
     b, s, h, d = qs
     t, hkv = ks[1], ks[2]
     pairs = b * h * visible_pairs(s, t, causal, window, 0)
@@ -5976,9 +6001,7 @@ def flash_bwd_bf16_bound_ms(qs, ks, dots, reads, writes, causal=True,
     ops = max(flops / BF16_TENSOR_FLOPS_PER_S * 1e3, by_exps)
     return {"ms": max(ops, by_bytes),
             "by": "operations" if ops >= by_bytes else "bytes",
-            "flops": flops, "exps": pairs, "bytes": nbytes,
-            "tf32_ms": max(flops / TF32_TENSOR_FLOPS_PER_S * 1e3, by_exps,
-                           by_bytes)}
+            "flops": flops, "exps": pairs, "bytes": nbytes}
 
 
 def flash_attention_bwd_bf16_times(per_step):
@@ -6007,7 +6030,7 @@ def flash_attention_bwd_bf16_times(per_step):
                                           with_lse=True)
         b, s, h, d = qs
         t, hkv = ks[1], ks[2]
-        lib = fa._bwd_lib()
+        lib = fa._bwd_lib(bf16)
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
         delta = torch.empty((b, h, s), device="cuda")
         args = (b, s, t, h, hkv, d, 1, window, 0, 1.0 / math.sqrt(d))
@@ -6121,10 +6144,21 @@ def flash_attention_bwd_bf16_times(per_step):
                                             window=window)
             row[name] = {"ms": ms, "bound_ms": bound["ms"],
                          "bound_by": bound["by"],
-                         "bound_tf32_ms": bound["tf32_ms"],
                          "flops": bound["flops"], "exps": bound["exps"],
                          "bytes": bound["bytes"],
                          "rate_on_bound": bound["ms"] / ms}
+        # each backward kernel's rate on the dots its design computes a
+        # visible pair (P and dS in two bf16 parts; the pair: both's)
+        done = {kind: row["sizes"][kind]["dots_a_pair"]
+                for kind in ("dq", "dkdv")}
+        done["pair"] = done["dq"] + done["dkdv"]
+        for name, _, reads, writes in FA_BWD_BF16_WORK:
+            bound = flash_bwd_bf16_bound_ms(qs, ks, done[name], reads,
+                                            writes, window=window)
+            row[name].update(dots_done=done[name],
+                             bound_on_dots_done_ms=bound["ms"],
+                             rate_on_dots_done=bound["ms"]
+                             / row[name]["ms"])
         row["fwd_ms"] = min(turns["fwd"])
         out.append(row)
     return out
@@ -6321,7 +6355,8 @@ def run_phases() -> int:
 
     t0 = time.perf_counter()
     libs = _build.build(["fedagg", "flash_attention", "flash_attention_bwd",
-                         "ssm_scan", "ssm_scan_bwd"])
+                         "flash_attention_bwd_tc", "ssm_scan",
+                         "ssm_scan_bwd"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}})
 
@@ -6613,7 +6648,7 @@ def run_phases() -> int:
         "library_ms": None, "split": ss_bwd["split"],
         "design_exps_ms": ss_bwd["design_exps_ms"]}] + [{
         "name": f"flash_attention_bwd_{part}_bf16", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
         "replaces": "src/repro/kernels/flash_attention.py:30",
         "replaces_note": "the backward of that kernel on bf16 inputs: the "
                          "JAX package differentiates the jnp attention "
@@ -6626,7 +6661,8 @@ def run_phases() -> int:
         "ms": fa_bwd16[0][part]["ms"], "plain_ms": fa_bwd16[0]["plain_ms"],
         "bound_ms": fa_bwd16[0][part]["bound_ms"],
         "bound_by": fa_bwd16[0][part]["bound_by"],
-        "bound_tf32_ms": fa_bwd16[0][part]["bound_tf32_ms"],
+        "bound_on_dots_done_ms": fa_bwd16[0][part]["bound_on_dots_done_ms"],
+        "sizes": fa_bwd16[0]["sizes"][part],
         "library_ms": fa_bwd16[0]["library_ms"],
         "library": fa_bwd16[0]["library"],
         "library_and_plain_cover": "dq, dk and dv (both kernels' work)",
@@ -6635,7 +6671,7 @@ def run_phases() -> int:
         "other_layers": [{
             "arch": r["arch"], "q": r["q"], "k": r["k"],
             **{k: r[part][k] for k in ("ms", "bound_ms", "bound_by",
-                                       "bound_tf32_ms")},
+                                       "bound_on_dots_done_ms")},
             "pair_ms": r["pair"]["ms"], "f32_pair_ms": r["pair_f32_ms"],
             "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
             "library": r["library"],

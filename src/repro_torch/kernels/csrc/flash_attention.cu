@@ -190,6 +190,7 @@
 #include <mutex>
 
 #include "fa_exchange.cuh"   // fx_pair_sync, fx_put, fx_get
+#include "fa_hopper.cuh"     // TMA, mbarriers, wgmma, tensor maps
 
 // ---------------------------------------------------------------------
 // The f32 kernel: tensor cores (mma.sync TF32), split TF32
@@ -861,13 +862,10 @@ constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr float NEG = -1e30f;
 
-// Shared-memory layout of one head size.  A tile is stored in blocks of
-// COLS = min(D, 64) columns (16 at D = 80, whose 160-byte row no
-// swizzle span divides), each block its rows of COLS bf16 (ROW bytes:
-// 128, 64 or 32) one after the other, in the swizzle whose span is one
-// such row, so that TMA writes and wgmma reads the same layout; D = 128
-// and 192 take two and three 128-byte blocks (TMA boxes of 64 columns),
-// D = 80 five 32-byte ones, D <= 64 one.  Every block starts on a multiple of 1024
+// Shared-memory layout of one head size.  A tile is stored in the
+// swizzled column blocks of fa_hopper.cuh's Tiles<D> (one block up to D
+// = 64, two and three 128-byte ones at D = 128 and 192, five 32-byte
+// ones at D = 80).  Every block starts on a multiple of 1024
 // bytes, the longest swizzle repeat.  KEYS and DEPTH are the K/V tile
 // and the ring: BK keys in STAGES stages up to D = 64.  WIDE (D = 80,
 // 128, 192): the output is staged in the q tile's space, and the O
@@ -875,15 +873,10 @@ constexpr float NEG = -1e30f;
 // 96 keys in 2 at D = 192 (S, P's two parts and O within the consumers'
 // 240 registers).
 template <int D>
-struct Layout {
+struct Layout : Tiles<D> {
     static constexpr bool WIDE = D > 64;
     static constexpr int KEYS = D <= 128 ? BK : 96;
     static constexpr int DEPTH = D == 192 ? 2 : WIDE ? 3 : STAGES;
-    static constexpr int COLS = D < 64 ? D : D % 64 ? 16 : 64;  // a block
-    static constexpr int ROW = 2 * COLS;               // bytes a block row
-    static constexpr int ATOM = 8 * ROW;               // 8-row swizzle atom
-    static constexpr int SWIZZLE = COLS == 64 ? 1 : COLS == 32 ? 2 : 3;
-    static constexpr int KPB = COLS / 16;              // k-steps a block
     static constexpr int Q_BYTES = BQ * 2 * D;
     static constexpr int KV_BYTES = KEYS * 2 * D;
     static constexpr int O_PITCH = D + 8;              // bf16, staging
@@ -898,322 +891,8 @@ struct Layout {
     static constexpr int BYTES = BAR_OFF + 8 * (1 + 4 * DEPTH);
     static constexpr int ALLOC = BYTES + 1024;         // room to align
     static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "tiles");
-    static_assert(D % COLS == 0 && ALLOC <= 227 * 1024, "shared memory");
-    // byte offset of k-step kk (16 columns) in a tile of `rows` rows
-    __host__ __device__ static constexpr int kstep(int kk, int rows) {
-        return (kk / KPB) * rows * ROW + 32 * (kk % KPB);
-    }
-    // byte offset of 16-byte chunk c (8 columns) of row r in a tile of
-    // `rows` rows, in the block's swizzle (16-byte chunk bits XOR the
-    // address's 128-byte line bits)
-    __host__ __device__ static constexpr int chunk(int r, int c, int rows) {
-        return (c / (COLS / 8)) * rows * ROW + r * ROW
-               + (((c % (COLS / 8)) ^ ((r * ROW >> 7) & (ROW / 16 - 1)))
-                  * 16);
-    }
+    static_assert(ALLOC <= 227 * 1024, "shared memory");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                 :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-                 :: "r"(bar) : "memory");
-}
-
-// Returns once the phase of parity ``parity`` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-    uint32_t done = 0;
-    do {
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    } while (!done);
-}
-
-// One box of a 4-D tensor map into shared memory; completion is counted
-// in bytes on ``bar``.  Elements outside the tensor arrive as zeros.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-           "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-        : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units), swizzle mode in bits 62-63.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int swizzle) {
-    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-           | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
-           | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
-           | static_cast<uint64_t>(swizzle) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Returns once at most N committed groups of this warpgroup are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// Pins accumulator registers after a wait, so that no read of them is
-// moved above it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-    return y;
-}
-
-// Two bf16 pairs whose sum is (a, b) to about 2^-16 relative: the
-// rounding of (a, b), and the rounding of what that left.
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    const float2 hf = __bfloat1622float2(h);
-    const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-    hi = *reinterpret_cast<const uint32_t*>(&h);
-    lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// D(64 x 128, f32) (+)= A(64 x 16, smem, K-major) . B(16 x 128, smem, K-major)
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
-                                                    uint64_t desc_a,
-                                                    uint64_t desc_b,
-                                                    int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// D(64 x 64, f32) (+)= A(64 x 16, smem, K-major) . B(16 x 64, smem, K-major)
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
-                                                   uint64_t desc_a,
-                                                   uint64_t desc_b,
-                                                   int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// D(64 x 96, f32) (+)= A(64 x 16, smem, K-major) . B(16 x 96, smem, K-major)
-__device__ __forceinline__ void wgmma_m64n96k16_ss(float (&d)[48],
-                                                   uint64_t desc_a,
-                                                   uint64_t desc_b,
-                                                   int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47}, "
-        "%48, %49, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// S (64 x keys) (+)= Q . K^T for one k-step: 128 keys, or 96 at D = 192
-// (64 in the tools' variants)
-template <int N>
-__device__ __forceinline__ void wgmma_qk(float (&s)[N], uint64_t desc_a,
-                                         uint64_t desc_b, int scale_d) {
-    if constexpr (N == 64) wgmma_m64n128k16_ss(s, desc_a, desc_b, scale_d);
-    else if constexpr (N == 48) wgmma_m64n96k16_ss(s, desc_a, desc_b, scale_d);
-    else wgmma_m64n64k16_ss(s, desc_a, desc_b, scale_d);
-}
-
-// D(64 x 64, f32) += A(64 x 16, registers) . B(16 x 64, smem, MN-major)
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
-                                                    const uint32_t (&a)[4],
-                                                    uint64_t desc_b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// D(64 x 32, f32) += A(64 x 16, registers) . B(16 x 32, smem, MN-major)
-__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16],
-                                                    const uint32_t (&a)[4],
-                                                    uint64_t desc_b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// D(64 x 16, f32) += A(64 x 16, registers) . B(16 x 16, smem, MN-major)
-__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
-                                                    const uint32_t (&a)[4],
-                                                    uint64_t desc_b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// D(64 x 80, f32) += A(64 x 16, registers) . B(16 x 80, smem, MN-major)
-__device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40],
-                                                   const uint32_t (&a)[4],
-                                                   uint64_t desc_b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39}, "
-        "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// D(64 x 128, f32) += A(64 x 16, registers) . B(16 x 128, smem, MN-major)
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
-                                                    const uint32_t (&a)[4],
-                                                    uint64_t desc_b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// D(64 x 192, f32) += A(64 x 16, registers) . B(16 x 192, smem, MN-major)
-__device__ __forceinline__ void wgmma_m64n192k16_rs(float (&d)[96],
-                                                    const uint32_t (&a)[4],
-                                                    uint64_t desc_b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, "
-        "%72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, "
-        "%88, %89, %90, %91, %92, %93, %94, %95}, "
-        "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
 
 // O += P . V for 16 keys: one m64nDk16.  At D = 80, 128 and 192, V's
 // tile is five swizzled blocks of 16 columns, or two or three of 64,
@@ -1649,89 +1328,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
 }
 
-// ---- host side: tensor maps through the driver's entry point ----
-
-typedef CUresult (*EncodeTiledFn)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_tiled() {
-    static EncodeTiledFn fn = nullptr;
-    if (fn == nullptr) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-        cudaError_t err = cudaGetDriverEntryPointByVersion(
-            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-        cudaError_t err = cudaGetDriverEntryPoint(
-            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-            fn = reinterpret_cast<EncodeTiledFn>(p);
-    }
-    return fn;
-}
-
-// A (D, rows, heads, batch) bf16 view with byte strides of rows, heads
-// and batch, boxes of (box_cols, box_rows), in the swizzle of a
-// box_cols-wide row.
-struct MapKey {
-    const void* ptr;
-    long long dims[4];
-    long long strides[3];
-    int box_cols;
-    int box_rows;
-};
-
-static bool same_key(const MapKey& a, const MapKey& b) {
-    return a.ptr == b.ptr && a.box_rows == b.box_rows
-           && a.box_cols == b.box_cols
-           && memcmp(a.dims, b.dims, sizeof a.dims) == 0
-           && memcmp(a.strides, b.strides, sizeof a.strides) == 0;
-}
-
-// Encoded maps cached by (pointer, shape, strides, box): a model calls
-// the kernel on the same buffers layer after layer.  ctypes releases the
-// GIL around the call, so the cache has a lock.
-constexpr int MAP_CACHE = 64;
-static MapKey map_keys[MAP_CACHE];
-static CUtensorMap map_vals[MAP_CACHE];
-static int map_used = 0, map_next = 0;
-static std::mutex map_lock;
-
-static int tensor_map(CUtensorMap* map, const MapKey& key) {
-    std::lock_guard<std::mutex> hold(map_lock);
-    for (int i = 0; i < map_used; ++i)
-        if (same_key(map_keys[i], key)) { *map = map_vals[i]; return 0; }
-    EncodeTiledFn encode = encode_tiled();
-    if (encode == nullptr) return (int)cudaErrorNotSupported;
-    const int d = key.box_cols;
-    const cuuint64_t dims[4] = {(cuuint64_t)key.dims[0],
-                                (cuuint64_t)key.dims[1],
-                                (cuuint64_t)key.dims[2],
-                                (cuuint64_t)key.dims[3]};
-    const cuuint64_t strides[3] = {(cuuint64_t)key.strides[0],
-                                   (cuuint64_t)key.strides[1],
-                                   (cuuint64_t)key.strides[2]};
-    const cuuint32_t box[4] = {(cuuint32_t)d, (cuuint32_t)key.box_rows, 1, 1};
-    const cuuint32_t unit[4] = {1, 1, 1, 1};
-    const CUtensorMapSwizzle swizzle =
-        d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-        : d == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-    const CUresult res = encode(
-        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(key.ptr),
-        dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    if (res != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
-    map_keys[map_next] = key;
-    map_vals[map_next] = *map;
-    map_next = (map_next + 1) % MAP_CACHE;
-    if (map_used < MAP_CACHE) ++map_used;
-    return 0;
-}
+// ---- host side: tensor maps (fa_hopper.cuh) and the launches ----
 
 template <int D, bool LSE>
 static int launch_as(const void* q, const void* k, const void* v, void* out,

@@ -1,16 +1,16 @@
-// The backward of K4, the GQA online-softmax attention of
+// The f32 backward of K4, the GQA online-softmax attention of
 // flash_attention.cu, for Hopper (sm_90a): two kernels whose products
-// run on the tensor cores, in split TF32 for f32 inputs and in one TF32
-// product for bf16 ones (the last section of this note).
+// run on the tensor cores in split TF32.
 //
 // The JAX package has no backward Pallas kernel: JAX differentiates the
 // jnp attention and its training never calls src/repro/kernels/
 // flash_attention.py: _kernel.  The port routes every CUDA tensor to its
-// forward kernel, so a gradient through that kernel needs these.
+// forward kernel, so a gradient through that kernel needs these.  The
+// bf16 backward is flash_attention_bwd_tc.cu's (wgmma fed by TMA).
 //
-//   q, o, dO (B,S,H,D), k, v (B,T,Hkv,D), all contiguous f32 (or all
-//   bf16) on 16-byte addresses; lse (B,H,S) f32 from the forward (m +
-//   log(max(l, 1e-30)) of each row).  Query head h reads kv head h / (H/Hkv), as in the
+//   q, o, dO (B,S,H,D), k, v (B,T,Hkv,D), all contiguous f32 on 16-byte
+//   addresses; lse (B,H,S) f32 from the forward (m + log(max(l, 1e-30))
+//   of each row).  Query head h reads kv head h / (H/Hkv), as in the
 //   forward.
 //
 //   s_ij   = (q_i . k_j) * scale, visible by the forward's masks
@@ -105,48 +105,12 @@
 // cores; the bytes (q, k, v, o, dO read, dq, dk, dv written) are far
 // below.  This design computes S and dP in both kernels, 14*D a pair
 // (dq three dots, dkdv four) at every D.
-//
-// bf16 (flash_attention_bwd_dq_bf16, flash_attention_bwd_dkdv_bf16):
-// the same kernels, templated on the element type of q, k, v, o, dO and
-// of dq, dk, dv; lse, delta, P, dS and every accumulator stay f32, dk
-// and dv are summed over the group in registers as in f32 (no atomics),
-// and the outputs are rounded once to bf16.  delta is taken of o + o_lo,
-// the forward's output and what its rounding to bf16 left
-// (flash_attention.cu's out_lo): the f32 output to about 2^-16, as
-// autograd of the f32 softmax takes it (of o alone, delta is off by
-// o's 2^-9, which reaches dq and dk through dS).  A moving tile comes in by
-// 16-byte cp.async as it lies in memory (bf16 rows of D) into a 2-stage
-// ring, and each thread widens the chunks it copied into one f32 tile
-// padded to D+4 (so every product, ldmatrix and exchange is the f32
-// kernels'); the stationary tiles are loaded and widened once.  A bf16
-// value is exact in TF32 (8 significant bits of TF32's 11), so Q.K^T
-// and dO.V^T are one TF32 product with no split, and P and dS enter
-// their products rounded to TF32 (to nearest: 2^-11 relative, finer
-// than bf16's 2^-9): one product where f32 takes three.  Shared memory
-// is about the f32 kernels' (one f32 moving tile plus the bf16 ring in
-// place of two f32 stages); at D = 64, 100-101 KB a block (two an SM).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "fa_exchange.cuh"   // fx_pair_sync, fx_put, fx_get
-
-typedef __nv_bfloat16 bf16;
-
-// the element type of q, k, v, o, dO, dq, dk and dv: BF, whether it is
-// bf16; NP, the TF32 products a product takes (split TF32: 3)
-template <typename T>
-struct FbType {
-    static constexpr bool BF = false;
-    static constexpr int NP = 3;
-};
-template <>
-struct FbType<bf16> {
-    static constexpr bool BF = true;
-    static constexpr int NP = 1;
-};
 
 #define FB_BQ 64
 #define FB_BK 64
@@ -193,26 +157,19 @@ __host__ __device__ constexpr int fb_exchange_floats() {
     return D <= 64 ? 0 : 4 * (DKDV ? 2 : 1) * fb_mrows<D, DKDV>() * 16;
 }
 
-// Q, dO; f32: stages x (K, V); bf16: (K, V) widened to f32, then
-// stages x (K, V) as they lie in memory (half a float an element); the
-// exchange
-template <typename T, int D>
+template <int D>
 __host__ __device__ constexpr int fb_dq_smem_floats() {
-    constexpr int M = fb_mrows<D, false>();
+    // Q, dO; stages x (K, V); the exchange
     return 2 * fb_tile<D>()
-           + (FbType<T>::BF ? 2 * M * (D + 4) + FB_STAGES * M * D
-                            : FB_STAGES * 2 * M * (D + 4))
+           + FB_STAGES * 2 * fb_mrows<D, false>() * (D + 4)
            + fb_exchange_floats<D, false>();
 }
 
-// K, V; f32: stages x (q, dO, lse, delta); bf16: (q, dO) widened, then
-// stages x (q, dO as they lie, lse, delta); the exchange
-template <typename T, int D>
+// K, V; stages x (q, dO, lse, delta); the exchange
+template <int D>
 __host__ __device__ constexpr int fb_dkdv_smem_floats() {
     constexpr int M = fb_mrows<D, true>();
-    return 2 * fb_tile<D>()
-           + (FbType<T>::BF ? 2 * M * (D + 4) + FB_STAGES * (M * D + 2 * M)
-                            : FB_STAGES * (2 * M * (D + 4) + 2 * M))
+    return 2 * fb_tile<D>() + FB_STAGES * (2 * M * (D + 4) + 2 * M)
            + fb_exchange_floats<D, true>();
 }
 
@@ -312,18 +269,10 @@ __device__ __forceinline__ void add_acc(float (&a)[N][4],
 
 // ---- the two kinds of product --------------------------------------------
 
-// x rounded to the nearest TF32 value (ties away from zero): 2^-11
-// relative; for P and dS in the bf16 kernels' one-product route
-__device__ __forceinline__ uint32_t tf32_near(float x) {
-    return (__float_as_uint(x) + 4096u) & ~8191u;     // half an ulp up
-}
-
 // acc[n] += A . B^T for the warp's 16 rows of A (at a_row, shared) and
 // 8N rows of B (at b_tile, shared), both D wide with stride D+4: acc is
-// 16 x 8N, n-th 8-column slice in acc[n]; U k-steps of 16 unrolled.  NP
-// = 3: split TF32; NP = 1: operands already exact in TF32 (widened
-// bf16), one product.
-template <int D, int N = 8, int U = (D <= 64 ? D / 16 : 1), int NP = 3>
+// 16 x 8N, n-th 8-column slice in acc[n]; U k-steps of 16 unrolled.
+template <int D, int N = 8, int U = (D <= 64 ? D / 16 : 1)>
 __device__ __forceinline__ void prod_abt(float (&acc)[N][4], uint32_t a_row,
                                          uint32_t b_tile, int lane) {
     constexpr int RS = D + 4;
@@ -336,28 +285,21 @@ __device__ __forceinline__ void prod_abt(float (&acc)[N][4], uint32_t a_row,
         uint32_t a0[4], a1[4], a0h[4], a0l[4], a1h[4], a1l[4];
         ldsm_x4(a0, a_lane + k0 * 4);
         ldsm_x4(a1, a_lane + (k0 + 8) * 4);
-        if constexpr (NP == 3) {
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                split_tf32(__uint_as_float(a0[i]), a0h[i], a0l[i]);
-                split_tf32(__uint_as_float(a1[i]), a1h[i], a1l[i]);
-            }
+        for (int i = 0; i < 4; ++i) {
+            split_tf32(__uint_as_float(a0[i]), a0h[i], a0l[i]);
+            split_tf32(__uint_as_float(a1[i]), a1h[i], a1l[i]);
         }
 #pragma unroll
         for (int n = 0; n < N; ++n) {
             // k-step k0 in words 0-1, k0 + 8 in words 2-3
             uint32_t b[4], bh[4], bl[4];
             ldsm_x4(b, b_lane + (8 * n * RS + k0) * 4);
-            if constexpr (NP == 1) {
-                mma_tf32(acc[n], a0, b[0], b[1]);
-                mma_tf32(acc[n], a1, b[2], b[3]);
-            } else {
 #pragma unroll
-                for (int i = 0; i < 4; ++i)
-                    split_tf32(__uint_as_float(b[i]), bh[i], bl[i]);
-                mma3(acc[n], a0h, a0l, bh[0], bh[1], bl[0], bl[1]);
-                mma3(acc[n], a1h, a1l, bh[2], bh[3], bl[2], bl[3]);
-            }
+            for (int i = 0; i < 4; ++i)
+                split_tf32(__uint_as_float(b[i]), bh[i], bl[i]);
+            mma3(acc[n], a0h, a0l, bh[0], bh[1], bl[0], bl[1]);
+            mma3(acc[n], a1h, a1l, bh[2], bh[3], bl[2], bl[3]);
         }
     }
 }
@@ -366,26 +308,12 @@ __device__ __forceinline__ void prod_abt(float (&acc)[N][4], uint32_t a_row,
 // prod_abt leaves (slice kk in c[kk]), B 8KS rows x NS*8 columns in
 // shared memory (stride D+4; all D by default, or NS*8 columns from
 // b_tile on); the contraction over C's columns, permuted within each
-// 8-wide slice.  NP = 1: C rounded to TF32 (tf32_near) and B exact in
-// TF32 (widened bf16), one product.
-template <int D, int NS = D / 8, int KS = 8, int NP = 3>
+// 8-wide slice.
+template <int D, int NS = D / 8, int KS = 8>
 __device__ __forceinline__ void prod_cb(float (&out)[NS][4],
                                         const float (&c)[KS][4],
                                         const float* b_tile, int g, int t) {
     constexpr int RS = D + 4;
-    if constexpr (NP == 1) {
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-            const uint32_t a[4] = {tf32_near(c[kk][0]), tf32_near(c[kk][2]),
-                                   tf32_near(c[kk][1]), tf32_near(c[kk][3])};
-            const float* bp = b_tile + (8 * kk + 2 * t) * RS + g;
-#pragma unroll
-            for (int n = 0; n < NS; ++n)
-                mma_tf32(out[n], a, __float_as_uint(bp[8 * n]),
-                         __float_as_uint(bp[RS + 8 * n]));
-        }
-        return;
-    }
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
         uint32_t ah[4], al[4];
@@ -419,80 +347,6 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
         cp_async16(fb_smem(dst + r * (D + 4) + 4 * c4),
                    src + (ok ? r * stride + 4 * c4 : 0), ok);
     }
-}
-
-// bf16: ROWS rows of D bf16 from global rows (row stride `stride`
-// elements, zero-filled from row `n_ok` on) into a ring slot as they lie
-// (rows of D, no padding), 16 bytes a copy, by NT threads
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void stage_raw(bf16* dst, const bf16* src,
-                                          long long stride, int n_ok,
-                                          int tid) {
-    constexpr int C8 = D / 8;
-#pragma unroll 4
-    for (int i = tid; i < ROWS * C8; i += NT) {
-        const int r = i / C8, c8 = i % C8;
-        const bool ok = r < n_ok;
-        cp_async16(fb_smem(dst + r * D + 8 * c8),
-                   src + (ok ? r * stride + 8 * c8 : 0), ok);
-    }
-}
-
-// eight bf16 (one 16-byte word) as eight floats at dst (16-byte aligned)
-__device__ __forceinline__ void fb_widen8(float* dst, uint4 w) {
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    d4[0] = make_float4(__uint_as_float(w.x << 16),
-                        __uint_as_float(w.x & 0xffff0000u),
-                        __uint_as_float(w.y << 16),
-                        __uint_as_float(w.y & 0xffff0000u));
-    d4[1] = make_float4(__uint_as_float(w.z << 16),
-                        __uint_as_float(w.z & 0xffff0000u),
-                        __uint_as_float(w.w << 16),
-                        __uint_as_float(w.w & 0xffff0000u));
-}
-
-// the chunks this thread copied with stage_raw (the same indices),
-// widened into a tile of f32 rows padded to D+4
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void widen_rows(float* dst, const bf16* raw,
-                                           int tid) {
-    constexpr int C8 = D / 8;
-#pragma unroll 4
-    for (int i = tid; i < ROWS * C8; i += NT) {
-        const int r = i / C8, c8 = i % C8;
-        fb_widen8(dst + r * (D + 4) + 8 * c8,
-                  *reinterpret_cast<const uint4*>(raw + r * D + 8 * c8));
-    }
-}
-
-// A stationary tile of ROWS rows into a padded f32 tile: f32 by cp.async
-// (in the caller's next commit group), bf16 loaded and widened now
-template <typename T, int D, int ROWS = 64, int NT = FB_THREADS>
-__device__ __forceinline__ void stage_fixed(float* dst, const T* src,
-                                            long long stride, int n_ok,
-                                            int tid) {
-    if constexpr (FbType<T>::BF) {
-        constexpr int C8 = D / 8;
-#pragma unroll 4
-        for (int i = tid; i < ROWS * C8; i += NT) {
-            const int r = i / C8, c8 = i % C8;
-            const uint4 w = r < n_ok
-                ? __ldg(reinterpret_cast<const uint4*>(src + r * stride
-                                                       + 8 * c8))
-                : make_uint4(0u, 0u, 0u, 0u);
-            fb_widen8(dst + r * (D + 4) + 8 * c8, w);
-        }
-    } else {
-        stage_rows<D, ROWS, NT>(dst, src, stride, n_ok, tid);
-    }
-}
-
-// two adjacent outputs, rounded once to T
-__device__ __forceinline__ void fb_store2(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void fb_store2(bf16* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // ---- P and dS on the fragments -------------------------------------------
@@ -593,21 +447,20 @@ __device__ __forceinline__ void fb_ds_cols(float (&dp)[N][4],
 
 // ---- dq ------------------------------------------------------------------
 
-#define FB_DQ_PARAMS const T* __restrict__ q, \
-    const T* __restrict__ k, const T* __restrict__ v, \
-    const T* __restrict__ o, const T* __restrict__ o_lo, \
-    const T* __restrict__ dout, \
+#define FB_DQ_PARAMS const float* __restrict__ q, \
+    const float* __restrict__ k, const float* __restrict__ v, \
+    const float* __restrict__ o, const float* __restrict__ dout, \
     const float* __restrict__ lse, float* __restrict__ delta, \
-    T* __restrict__ dq, int S, int T_len, int H, int Hkv, int causal, \
+    float* __restrict__ dq, int S, int T_len, int H, int Hkv, int causal, \
     int window, int q_offset, float scale
-#define FB_DQ_PASS q, k, v, o, o_lo, dout, lse, delta, dq, S, T_len, H, Hkv, \
+#define FB_DQ_PASS q, k, v, o, dout, lse, delta, dq, S, T_len, H, Hkv, \
     causal, window, q_offset, scale
 
 // delta of the block's 64 rows (two threads a row, fixed order) into
-// dl_s and the (B,H,S) buffer; threads 0-127.  bf16: of o + o_lo.
-template <typename T, int D>
-__device__ __forceinline__ void fb_delta_rows(const T* o, const T* o_lo,
-                                              const T* dout,
+// dl_s and the (B,H,S) buffer; threads 0-127
+template <int D>
+__device__ __forceinline__ void fb_delta_rows(const float* o,
+                                              const float* dout,
                                               float* delta, float* dl_s,
                                               long long qbase,
                                               long long qstride,
@@ -616,33 +469,6 @@ __device__ __forceinline__ void fb_delta_rows(const T* o, const T* o_lo,
     const int r = tid >> 1, half = tid & 1;
     float dl = 0.0f;
     if (q0 + r < S) {
-      if constexpr (FbType<T>::BF) {
-        // D/2 bf16 of each: D/16 words of eight, in element order; o +
-        // o_lo is exact in f32
-        const long long at = qbase + r * qstride;
-        const uint4* o8 = reinterpret_cast<const uint4*>(o + at)
-                          + half * (D / 16);
-        const uint4* l8 = reinterpret_cast<const uint4*>(o_lo + at)
-                          + half * (D / 16);
-        const uint4* d8 = reinterpret_cast<const uint4*>(dout + at)
-                          + half * (D / 16);
-#pragma unroll
-        for (int i = 0; i < D / 16; ++i) {
-            const uint4 a = o8[i], a2 = l8[i], c = d8[i];
-            const uint32_t aw[4] = {a.x, a.y, a.z, a.w};
-            const uint32_t lw[4] = {a2.x, a2.y, a2.z, a2.w};
-            const uint32_t cw[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                dl = fmaf(__uint_as_float(aw[e] << 16)
-                              + __uint_as_float(lw[e] << 16),
-                          __uint_as_float(cw[e] << 16), dl);
-                dl = fmaf(__uint_as_float(aw[e] & 0xffff0000u)
-                              + __uint_as_float(lw[e] & 0xffff0000u),
-                          __uint_as_float(cw[e] & 0xffff0000u), dl);
-            }
-        }
-      } else {
         const float4* o4 = reinterpret_cast<const float4*>(
             o + qbase + r * qstride) + half * (D / 8);
         const float4* d4 = reinterpret_cast<const float4*>(
@@ -655,7 +481,6 @@ __device__ __forceinline__ void fb_delta_rows(const T* o, const T* o_lo,
             dl = fmaf(a.z, c.z, dl);
             dl = fmaf(a.w, c.w, dl);
         }
-      }
     }
     dl += __shfl_xor_sync(0xffffffffu, dl, 1);
     if (half == 0) {
@@ -683,18 +508,14 @@ __device__ __forceinline__ void fb_key_range(int q0, int S, int T_len,
 }
 
 // D <= 64: four warps, each 16 q rows against the whole 64-key tile
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void fb_dq_narrow(FB_DQ_PARAMS) {
     constexpr int RS = D + 4;
     constexpr int TILE = fb_tile<D>();
-    constexpr bool BF = FbType<T>::BF;
-    constexpr int NP = FbType<T>::NP;
     extern __shared__ float4 fb_smem4[];
     float* Qs = reinterpret_cast<float*>(fb_smem4);   // [64][RS]
     float* DOs = Qs + TILE;                            // [64][RS]
-    // f32: stages x (K, V); bf16: (K, V) widened, then stages x (K, V)
-    float* ring = DOs + TILE;
-    bf16* raw = reinterpret_cast<bf16*>(ring + 2 * TILE);
+    float* ring = DOs + TILE;                          // stages x (K, V)
     __shared__ float dl_s[FB_BQ];
     __shared__ int range_lo, range_hi;
 
@@ -711,12 +532,11 @@ __device__ __forceinline__ void fb_dq_narrow(FB_DQ_PARAMS) {
     const long long qstride = (long long)H * D;
     const long long qbase = (((long long)b * S + q0) * H + h) * D;
 
-    stage_fixed<T, D>(Qs, q + qbase, qstride, S - q0, tid);
-    stage_fixed<T, D>(DOs, dout + qbase, qstride, S - q0, tid);
+    stage_rows<D>(Qs, q + qbase, qstride, S - q0, tid);
+    stage_rows<D>(DOs, dout + qbase, qstride, S - q0, tid);
     cp_async_commit();
     const long long rsa = ((long long)b * H + h) * S;
-    fb_delta_rows<T, D>(o, o_lo, dout, delta, dl_s, qbase, qstride, rsa, q0,
-                        S, tid);
+    fb_delta_rows<D>(o, dout, delta, dl_s, qbase, qstride, rsa, q0, S, tid);
     if (tid == 0)
         fb_key_range(q0, S, T_len, causal, window, q_offset, range_lo,
                      range_hi);
@@ -740,20 +560,11 @@ __device__ __forceinline__ void fb_dq_narrow(FB_DQ_PARAMS) {
     const long long kvbase = ((long long)b * T_len * Hkv + hk) * D;
     auto load_kv = [&](int i) {
         const int t0 = t_start + FB_BK * i;
-        if constexpr (BF) {
-            bf16* st = raw + (i % FB_STAGES) * 2 * 64 * D;
-            stage_raw<D, 64, FB_THREADS>(st, k + kvbase + t0 * kvstride,
-                                         kvstride, T_len - t0, tid);
-            stage_raw<D, 64, FB_THREADS>(st + 64 * D,
-                                         v + kvbase + t0 * kvstride,
-                                         kvstride, T_len - t0, tid);
-        } else {
-            float* Kst = ring + (i % FB_STAGES) * 2 * TILE;
-            stage_rows<D>(Kst, k + kvbase + t0 * kvstride, kvstride,
-                          T_len - t0, tid);
-            stage_rows<D>(Kst + TILE, v + kvbase + t0 * kvstride, kvstride,
-                          T_len - t0, tid);
-        }
+        float* Kst = ring + (i % FB_STAGES) * 2 * TILE;
+        stage_rows<D>(Kst, k + kvbase + t0 * kvstride, kvstride, T_len - t0,
+                      tid);
+        stage_rows<D>(Kst + TILE, v + kvbase + t0 * kvstride, kvstride,
+                      T_len - t0, tid);
     };
     if (n_kt > 0) load_kv(0);
     cp_async_commit();
@@ -767,27 +578,22 @@ __device__ __forceinline__ void fb_dq_narrow(FB_DQ_PARAMS) {
         if (i + 1 < n_kt) load_kv(i + 1);
         cp_async_commit();
         cp_async_wait<1>();
-        if constexpr (BF) {
-            const bf16* st = raw + (i % FB_STAGES) * 2 * 64 * D;
-            widen_rows<D, 64, FB_THREADS>(ring, st, tid);
-            widen_rows<D, 64, FB_THREADS>(ring + TILE, st + 64 * D, tid);
-        }
         __syncthreads();
-        const float* Kst = BF ? ring : ring + (i % FB_STAGES) * 2 * TILE;
+        const float* Kst = ring + (i % FB_STAGES) * 2 * TILE;
         const float* Vst = Kst + TILE;
         const int t0 = t_start + FB_BK * i;
 
         float sc[8][4];
         zero_acc(sc);
-        prod_abt<D, 8, D / 16, NP>(sc, q_row, fb_smem(Kst), lane);
+        prod_abt<D>(sc, q_row, fb_smem(Kst), lane);
         fb_p_rows<8>(sc, t0, t, lo_a, hi_a, lo_b, hi_b, lse_a, lse_b, scale);
         float dp[8][4];
         zero_acc(dp);
-        prod_abt<D, 8, D / 16, NP>(dp, do_row, fb_smem(Vst), lane);
+        prod_abt<D>(dp, do_row, fb_smem(Vst), lane);
         fb_ds_rows<8>(sc, dp, dl_a, dl_b);
         float part[D / 8][4];
         zero_acc(part);
-        prod_cb<D, D / 8, 8, NP>(part, sc, Kst, g, t);
+        prod_cb<D>(part, sc, Kst, g, t);
         add_acc(dqa, part);
         __syncthreads();            // before the ring slot is reloaded
     }
@@ -798,16 +604,18 @@ __device__ __forceinline__ void fb_dq_narrow(FB_DQ_PARAMS) {
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
         if (ra < S)
-            fb_store2(dq + oa + 8 * n, dqa[n][0] * scale, dqa[n][1] * scale);
+            *reinterpret_cast<float2*>(dq + oa + 8 * n) =
+                make_float2(dqa[n][0] * scale, dqa[n][1] * scale);
         if (rb < S)
-            fb_store2(dq + ob + 8 * n, dqa[n][2] * scale, dqa[n][3] * scale);
+            *reinterpret_cast<float2*>(dq + ob + 8 * n) =
+                make_float2(dqa[n][2] * scale, dqa[n][3] * scale);
     }
 }
 
 // D = 128, 192: eight warps; the pair (w, w + 4) shares 16 q rows, each
 // warp S and dP over half of the key tile, then dS . K over half of dq's
 // columns with the pair's whole dS
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void fb_dq_wide(FB_DQ_PARAMS) {
     constexpr int RS = D + 4;
     constexpr int TILE = fb_tile<D>();
@@ -816,16 +624,11 @@ __device__ __forceinline__ void fb_dq_wide(FB_DQ_PARAMS) {
     constexpr int MT = BM * RS;                // floats of a K or V tile
     constexpr int NW = BM / 16;                // 8-key slices a warp
     constexpr int DH = D / 2;                  // dq columns a warp
-    constexpr bool BF = FbType<T>::BF;
-    constexpr int NP = FbType<T>::NP;
     extern __shared__ float4 fb_smem4[];
     float* Qs = reinterpret_cast<float*>(fb_smem4);   // [64][RS]
     float* DOs = Qs + TILE;                            // [64][RS]
-    // f32: stages x (K, V); bf16: (K, V) widened, then stages x (K, V)
-    float* ring = DOs + TILE;
-    bf16* raw = reinterpret_cast<bf16*>(ring + 2 * MT);
-    float4* ex = reinterpret_cast<float4*>(
-        ring + (BF ? 2 * MT + FB_STAGES * BM * D : FB_STAGES * 2 * MT));
+    float* ring = DOs + TILE;                          // stages x (K, V)
+    float4* ex = reinterpret_cast<float4*>(ring + FB_STAGES * 2 * MT);
     __shared__ float dl_s[FB_BQ];
     __shared__ int range_lo, range_hi;
 
@@ -843,13 +646,13 @@ __device__ __forceinline__ void fb_dq_wide(FB_DQ_PARAMS) {
     const long long qstride = (long long)H * D;
     const long long qbase = (((long long)b * S + q0) * H + h) * D;
 
-    stage_fixed<T, D, 64, NT>(Qs, q + qbase, qstride, S - q0, tid);
-    stage_fixed<T, D, 64, NT>(DOs, dout + qbase, qstride, S - q0, tid);
+    stage_rows<D, 64, NT>(Qs, q + qbase, qstride, S - q0, tid);
+    stage_rows<D, 64, NT>(DOs, dout + qbase, qstride, S - q0, tid);
     cp_async_commit();
     const long long rsa = ((long long)b * H + h) * S;
     if (tid < 2 * FB_BQ)
-        fb_delta_rows<T, D>(o, o_lo, dout, delta, dl_s, qbase, qstride, rsa,
-                            q0, S, tid);
+        fb_delta_rows<D>(o, dout, delta, dl_s, qbase, qstride, rsa, q0, S,
+                         tid);
     if (tid == 0)
         fb_key_range(q0, S, T_len, causal, window, q_offset, range_lo,
                      range_hi);
@@ -872,19 +675,11 @@ __device__ __forceinline__ void fb_dq_wide(FB_DQ_PARAMS) {
     const long long kvbase = ((long long)b * T_len * Hkv + hk) * D;
     auto load_kv = [&](int i) {
         const int t0 = t_start + BM * i;
-        if constexpr (BF) {
-            bf16* st = raw + (i % FB_STAGES) * 2 * BM * D;
-            stage_raw<D, BM, NT>(st, k + kvbase + t0 * kvstride, kvstride,
-                                 T_len - t0, tid);
-            stage_raw<D, BM, NT>(st + BM * D, v + kvbase + t0 * kvstride,
-                                 kvstride, T_len - t0, tid);
-        } else {
-            float* Kst = ring + (i % FB_STAGES) * 2 * MT;
-            stage_rows<D, BM, NT>(Kst, k + kvbase + t0 * kvstride, kvstride,
-                                  T_len - t0, tid);
-            stage_rows<D, BM, NT>(Kst + MT, v + kvbase + t0 * kvstride,
-                                  kvstride, T_len - t0, tid);
-        }
+        float* Kst = ring + (i % FB_STAGES) * 2 * MT;
+        stage_rows<D, BM, NT>(Kst, k + kvbase + t0 * kvstride, kvstride,
+                              T_len - t0, tid);
+        stage_rows<D, BM, NT>(Kst + MT, v + kvbase + t0 * kvstride, kvstride,
+                              T_len - t0, tid);
     };
     if (n_kt > 0) load_kv(0);
     cp_async_commit();
@@ -900,26 +695,21 @@ __device__ __forceinline__ void fb_dq_wide(FB_DQ_PARAMS) {
         if (i + 1 < n_kt) load_kv(i + 1);
         cp_async_commit();
         cp_async_wait<1>();
-        if constexpr (BF) {
-            const bf16* st = raw + (i % FB_STAGES) * 2 * BM * D;
-            widen_rows<D, BM, NT>(ring, st, tid);
-            widen_rows<D, BM, NT>(ring + MT, st + BM * D, tid);
-        }
         __syncthreads();
-        const float* Kst = BF ? ring : ring + (i % FB_STAGES) * 2 * MT;
+        const float* Kst = ring + (i % FB_STAGES) * 2 * MT;
         const float* Vst = Kst + MT;
         const int t0 = t_start + BM * i;
 
         float sc[NW][4];
         zero_acc(sc);
-        prod_abt<D, NW, FB_WIDE_UNROLL, NP>(sc, q_row,
-                                            fb_smem(Kst + m0 * RS), lane);
+        prod_abt<D, NW, FB_WIDE_UNROLL>(sc, q_row, fb_smem(Kst + m0 * RS),
+                                        lane);
         fb_p_rows<NW>(sc, t0 + m0, t, lo_a, hi_a, lo_b, hi_b, lse_a, lse_b,
                       scale);
         float dp[NW][4];
         zero_acc(dp);
-        prod_abt<D, NW, FB_WIDE_UNROLL, NP>(dp, do_row,
-                                            fb_smem(Vst + m0 * RS), lane);
+        prod_abt<D, NW, FB_WIDE_UNROLL>(dp, do_row, fb_smem(Vst + m0 * RS),
+                                        lane);
         fb_ds_rows<NW>(sc, dp, dl_a, dl_b);
         fx_put<NW>(pex, sc, hf * NW, lane);
         fx_pair_sync(pr);
@@ -927,7 +717,7 @@ __device__ __forceinline__ void fb_dq_wide(FB_DQ_PARAMS) {
         fx_get<BM / 8>(ds, pex, lane);
         float part[DH / 8][4];
         zero_acc(part);
-        prod_cb<D, DH / 8, BM / 8, NP>(part, ds, Kst + hf * DH, g, t);
+        prod_cb<D, DH / 8, BM / 8>(part, ds, Kst + hf * DH, g, t);
         add_acc(dqa, part);
         __syncthreads();        // before the ring slot and exchange reload
     }
@@ -939,29 +729,31 @@ __device__ __forceinline__ void fb_dq_wide(FB_DQ_PARAMS) {
 #pragma unroll
     for (int n = 0; n < DH / 8; ++n) {
         if (ra < S)
-            fb_store2(dq + oa + 8 * n, dqa[n][0] * scale, dqa[n][1] * scale);
+            *reinterpret_cast<float2*>(dq + oa + 8 * n) =
+                make_float2(dqa[n][0] * scale, dqa[n][1] * scale);
         if (rb < S)
-            fb_store2(dq + ob + 8 * n, dqa[n][2] * scale, dqa[n][3] * scale);
+            *reinterpret_cast<float2*>(dq + ob + 8 * n) =
+                make_float2(dqa[n][2] * scale, dqa[n][3] * scale);
     }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(D <= 64 ? FB_THREADS : 2 * FB_THREADS,
                                   D <= 64 ? 2 : 1)
 fa_bwd_dq_kernel(FB_DQ_PARAMS) {
     if constexpr (D <= 64)
-        fb_dq_narrow<T, D>(FB_DQ_PASS);
+        fb_dq_narrow<D>(FB_DQ_PASS);
     else
-        fb_dq_wide<T, D>(FB_DQ_PASS);
+        fb_dq_wide<D>(FB_DQ_PASS);
 }
 
 // ---- dk, dv --------------------------------------------------------------
 
-#define FB_KV_PARAMS const T* __restrict__ q, \
-    const T* __restrict__ k, const T* __restrict__ v, \
-    const T* __restrict__ dout, const float* __restrict__ lse, \
-    const float* __restrict__ delta, T* __restrict__ dk, \
-    T* __restrict__ dv, int S, int T_len, int H, int Hkv, int causal, \
+#define FB_KV_PARAMS const float* __restrict__ q, \
+    const float* __restrict__ k, const float* __restrict__ v, \
+    const float* __restrict__ dout, const float* __restrict__ lse, \
+    const float* __restrict__ delta, float* __restrict__ dk, \
+    float* __restrict__ dv, int S, int T_len, int H, int Hkv, int causal, \
     int window, int q_offset, float scale
 #define FB_KV_PASS q, k, v, dout, lse, delta, dk, dv, S, T_len, H, Hkv, \
     causal, window, q_offset, scale
@@ -1003,22 +795,15 @@ __device__ __forceinline__ FbWalk fb_walk(int k0, int k1, int S, int T_len,
 }
 
 // D <= 64: four warps, each 16 keys against the whole 64-row q tile
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void fb_dkdv_narrow(FB_KV_PARAMS) {
     constexpr int RS = D + 4;
     constexpr int TILE = fb_tile<D>();
-    constexpr bool BF = FbType<T>::BF;
-    constexpr int NP = FbType<T>::NP;
-    // floats of a ring item: q, dO (f32: [64][RS]; bf16: [64][D] each,
-    // half a float an element), then lse, delta
-    constexpr int QD = BF ? 64 * D : 2 * TILE;
-    constexpr int ITEM = QD + 2 * 64;
+    constexpr int ITEM = 2 * TILE + 2 * 64;   // q, dO [64][RS], lse, delta
     extern __shared__ float4 fb_smem4[];
     float* Ks = reinterpret_cast<float*>(fb_smem4);   // [64][RS]
     float* Vs = Ks + TILE;                             // [64][RS]
-    // bf16: q, dO widened; then (both dtypes) stages x items
-    float* work = Vs + TILE;
-    float* ring = BF ? work + 2 * TILE : work;
+    float* ring = Vs + TILE;                           // stages x items
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
@@ -1035,8 +820,8 @@ __device__ __forceinline__ void fb_dkdv_narrow(FB_KV_PARAMS) {
     const long long kvstride = (long long)Hkv * D;
     const long long kvbase = (((long long)b * T_len + k0) * Hkv + hk) * D;
 
-    stage_fixed<T, D>(Ks, k + kvbase, kvstride, T_len - k0, tid);
-    stage_fixed<T, D>(Vs, v + kvbase, kvstride, T_len - k0, tid);
+    stage_rows<D>(Ks, k + kvbase, kvstride, T_len - k0, tid);
+    stage_rows<D>(Vs, v + kvbase, kvstride, T_len - k0, tid);
     cp_async_commit();
 
     int n_tiles;
@@ -1050,22 +835,14 @@ __device__ __forceinline__ void fb_dkdv_narrow(FB_KV_PARAMS) {
         const int h = hk * rep + i % rep;
         float* st = ring + (i % FB_STAGES) * ITEM;
         const long long qbase = (((long long)b * S + r0) * H + h) * D;
-        if constexpr (BF) {
-            bf16* rq = reinterpret_cast<bf16*>(st);
-            stage_raw<D, 64, FB_THREADS>(rq, q + qbase, qstride, S - r0,
-                                         tid);
-            stage_raw<D, 64, FB_THREADS>(rq + 64 * D, dout + qbase, qstride,
-                                         S - r0, tid);
-        } else {
-            stage_rows<D>(st, q + qbase, qstride, S - r0, tid);
-            stage_rows<D>(st + TILE, dout + qbase, qstride, S - r0, tid);
-        }
+        stage_rows<D>(st, q + qbase, qstride, S - r0, tid);
+        stage_rows<D>(st + TILE, dout + qbase, qstride, S - r0, tid);
         if (tid < FB_BQ) {
             const bool ok = r0 + tid < S;
             const long long rs =
                 ok ? ((long long)b * H + h) * S + r0 + tid : 0;
-            cp_async4(fb_smem(st + QD + tid), lse + rs, ok);
-            cp_async4(fb_smem(st + QD + 64 + tid), delta + rs, ok);
+            cp_async4(fb_smem(st + 2 * TILE + tid), lse + rs, ok);
+            cp_async4(fb_smem(st + 2 * TILE + 64 + tid), delta + rs, ok);
         }
     };
     if (n_items > 0) load_item(0);
@@ -1083,37 +860,31 @@ __device__ __forceinline__ void fb_dkdv_narrow(FB_KV_PARAMS) {
         if (i + 1 < n_items) load_item(i + 1);
         cp_async_commit();
         cp_async_wait<1>();
-        const float* item = ring + (i % FB_STAGES) * ITEM;
-        if constexpr (BF) {
-            const bf16* rq = reinterpret_cast<const bf16*>(item);
-            widen_rows<D, 64, FB_THREADS>(work, rq, tid);
-            widen_rows<D, 64, FB_THREADS>(work + TILE, rq + 64 * D, tid);
-        }
         __syncthreads();
-        const float* Qst = BF ? work : item;
+        const float* Qst = ring + (i % FB_STAGES) * ITEM;
         const float* DOst = Qst + TILE;
-        const float* lse_st = item + QD;
+        const float* lse_st = Qst + 2 * TILE;
         const float* dl_st = lse_st + 64;
         const int r0 = walk.tile(i / rep) * FB_BQ;
 
         // S^T: fragment rows are keys, columns q rows
         float sc[8][4];
         zero_acc(sc);
-        prod_abt<D, 8, D / 16, NP>(sc, k_row, fb_smem(Qst), lane);
+        prod_abt<D>(sc, k_row, fb_smem(Qst), lane);
         const uint32_t empty =
             fb_p_cols<8>(sc, r0, lse_st, ka, kb, t, S, T_len, causal, window,
                          q_offset, scale, inv_t);
         float part_acc[D / 8][4];
         zero_acc(part_acc);
-        prod_cb<D, D / 8, 8, NP>(part_acc, sc, DOst, g, t);  // dv += P^T.dO
+        prod_cb<D>(part_acc, sc, DOst, g, t);          // dv += P^T . dO
         add_acc(dva, part_acc);
 
         float dp[8][4];
         zero_acc(dp);
-        prod_abt<D, 8, D / 16, NP>(dp, v_row, fb_smem(DOst), lane);
+        prod_abt<D>(dp, v_row, fb_smem(DOst), lane);
         fb_ds_cols<8>(dp, sc, dl_st, empty, t);
         zero_acc(part_acc);
-        prod_cb<D, D / 8, 8, NP>(part_acc, dp, Qst, g, t);   // dk += dS^T.q
+        prod_cb<D>(part_acc, dp, Qst, g, t);           // dk += dS^T . q
         add_acc(dka, part_acc);
         __syncthreads();            // before the ring slot is reloaded
     }
@@ -1124,12 +895,16 @@ __device__ __forceinline__ void fb_dkdv_narrow(FB_KV_PARAMS) {
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
         if (ka < T_len) {
-            fb_store2(dk + oa + 8 * n, dka[n][0] * scale, dka[n][1] * scale);
-            fb_store2(dv + oa + 8 * n, dva[n][0], dva[n][1]);
+            *reinterpret_cast<float2*>(dk + oa + 8 * n) =
+                make_float2(dka[n][0] * scale, dka[n][1] * scale);
+            *reinterpret_cast<float2*>(dv + oa + 8 * n) =
+                make_float2(dva[n][0], dva[n][1]);
         }
         if (kb < T_len) {
-            fb_store2(dk + ob + 8 * n, dka[n][2] * scale, dka[n][3] * scale);
-            fb_store2(dv + ob + 8 * n, dva[n][2], dva[n][3]);
+            *reinterpret_cast<float2*>(dk + ob + 8 * n) =
+                make_float2(dka[n][2] * scale, dka[n][3] * scale);
+            *reinterpret_cast<float2*>(dv + ob + 8 * n) =
+                make_float2(dva[n][2], dva[n][3]);
         }
     }
 }
@@ -1138,27 +913,20 @@ __device__ __forceinline__ void fb_dkdv_narrow(FB_KV_PARAMS) {
 // warp S^T and dP^T over half of the q tile's rows, then P^T . dO and
 // dS^T . q over half of dk's and dv's columns with the pair's whole P
 // and dS
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void fb_dkdv_wide(FB_KV_PARAMS) {
     constexpr int RS = D + 4;
     constexpr int TILE = fb_tile<D>();
     constexpr int NT = fb_threads<D>();
     constexpr int BM = fb_mrows<D, true>();    // q rows an item
     constexpr int MT = BM * RS;                // floats of a q or dO tile
-    constexpr bool BF = FbType<T>::BF;
-    constexpr int NP = FbType<T>::NP;
-    // floats of a ring item: q, dO (f32: [BM][RS]; bf16: [BM][D] each,
-    // half a float an element), then lse, delta
-    constexpr int QD = BF ? BM * D : 2 * MT;
-    constexpr int ITEM = QD + 2 * BM;
+    constexpr int ITEM = 2 * MT + 2 * BM;      // q, dO, lse, delta
     constexpr int NW = BM / 16;                // 8-row slices a warp
     constexpr int DH = D / 2;                  // dk, dv columns a warp
     extern __shared__ float4 fb_smem4[];
     float* Ks = reinterpret_cast<float*>(fb_smem4);   // [64][RS]
     float* Vs = Ks + TILE;                             // [64][RS]
-    // bf16: q, dO widened; then (both dtypes) stages x items
-    float* work = Vs + TILE;
-    float* ring = BF ? work + 2 * MT : work;
+    float* ring = Vs + TILE;                           // stages x items
     float4* ex = reinterpret_cast<float4*>(ring + FB_STAGES * ITEM);
 
     const int tid = threadIdx.x;
@@ -1177,8 +945,8 @@ __device__ __forceinline__ void fb_dkdv_wide(FB_KV_PARAMS) {
     const long long kvstride = (long long)Hkv * D;
     const long long kvbase = (((long long)b * T_len + k0) * Hkv + hk) * D;
 
-    stage_fixed<T, D, 64, NT>(Ks, k + kvbase, kvstride, T_len - k0, tid);
-    stage_fixed<T, D, 64, NT>(Vs, v + kvbase, kvstride, T_len - k0, tid);
+    stage_rows<D, 64, NT>(Ks, k + kvbase, kvstride, T_len - k0, tid);
+    stage_rows<D, 64, NT>(Vs, v + kvbase, kvstride, T_len - k0, tid);
     cp_async_commit();
 
     int n_tiles;
@@ -1192,22 +960,14 @@ __device__ __forceinline__ void fb_dkdv_wide(FB_KV_PARAMS) {
         const int h = hk * rep + i % rep;
         float* st = ring + (i % FB_STAGES) * ITEM;
         const long long qbase = (((long long)b * S + r0) * H + h) * D;
-        if constexpr (BF) {
-            bf16* rq = reinterpret_cast<bf16*>(st);
-            stage_raw<D, BM, NT>(rq, q + qbase, qstride, S - r0, tid);
-            stage_raw<D, BM, NT>(rq + BM * D, dout + qbase, qstride, S - r0,
-                                 tid);
-        } else {
-            stage_rows<D, BM, NT>(st, q + qbase, qstride, S - r0, tid);
-            stage_rows<D, BM, NT>(st + MT, dout + qbase, qstride, S - r0,
-                                  tid);
-        }
+        stage_rows<D, BM, NT>(st, q + qbase, qstride, S - r0, tid);
+        stage_rows<D, BM, NT>(st + MT, dout + qbase, qstride, S - r0, tid);
         if (tid < BM) {
             const bool ok = r0 + tid < S;
             const long long rs =
                 ok ? ((long long)b * H + h) * S + r0 + tid : 0;
-            cp_async4(fb_smem(st + QD + tid), lse + rs, ok);
-            cp_async4(fb_smem(st + QD + BM + tid), delta + rs, ok);
+            cp_async4(fb_smem(st + 2 * MT + tid), lse + rs, ok);
+            cp_async4(fb_smem(st + 2 * MT + BM + tid), delta + rs, ok);
         }
     };
     if (n_items > 0) load_item(0);
@@ -1227,30 +987,24 @@ __device__ __forceinline__ void fb_dkdv_wide(FB_KV_PARAMS) {
         if (i + 1 < n_items) load_item(i + 1);
         cp_async_commit();
         cp_async_wait<1>();
-        const float* item = ring + (i % FB_STAGES) * ITEM;
-        if constexpr (BF) {
-            const bf16* rq = reinterpret_cast<const bf16*>(item);
-            widen_rows<D, BM, NT>(work, rq, tid);
-            widen_rows<D, BM, NT>(work + MT, rq + BM * D, tid);
-        }
         __syncthreads();
-        const float* Qst = BF ? work : item;
+        const float* Qst = ring + (i % FB_STAGES) * ITEM;
         const float* DOst = Qst + MT;
-        const float* lse_st = item + QD;
+        const float* lse_st = Qst + 2 * MT;
         const float* dl_st = lse_st + BM;
         const int r0 = walk.tile(i / rep) * BM;
 
         float sc[NW][4];
         zero_acc(sc);
-        prod_abt<D, NW, FB_WIDE_UNROLL, NP>(sc, k_row,
-                                            fb_smem(Qst + m0 * RS), lane);
+        prod_abt<D, NW, FB_WIDE_UNROLL>(sc, k_row, fb_smem(Qst + m0 * RS),
+                                        lane);
         const uint32_t empty =
             fb_p_cols<NW>(sc, r0 + m0, lse_st + m0, ka, kb, t, S, T_len,
                           causal, window, q_offset, scale, inv_t);
         float dp[NW][4];
         zero_acc(dp);
-        prod_abt<D, NW, FB_WIDE_UNROLL, NP>(dp, v_row,
-                                            fb_smem(DOst + m0 * RS), lane);
+        prod_abt<D, NW, FB_WIDE_UNROLL>(dp, v_row, fb_smem(DOst + m0 * RS),
+                                        lane);
         fb_ds_cols<NW>(dp, sc, dl_st + m0, empty, t);
         fx_put<NW>(pex, sc, hf * NW, lane);
         fx_put<NW>(dsex, dp, hf * NW, lane);
@@ -1259,11 +1013,11 @@ __device__ __forceinline__ void fb_dkdv_wide(FB_KV_PARAMS) {
         float c[BM / 8][4], part[DH / 8][4];
         fx_get<BM / 8>(c, pex, lane);
         zero_acc(part);
-        prod_cb<D, DH / 8, BM / 8, NP>(part, c, DOst + hf * DH, g, t);  // dv
+        prod_cb<D, DH / 8, BM / 8>(part, c, DOst + hf * DH, g, t);  // dv
         add_acc(dva, part);
         fx_get<BM / 8>(c, dsex, lane);
         zero_acc(part);
-        prod_cb<D, DH / 8, BM / 8, NP>(part, c, Qst + hf * DH, g, t);   // dk
+        prod_cb<D, DH / 8, BM / 8>(part, c, Qst + hf * DH, g, t);   // dk
         add_acc(dka, part);
         __syncthreads();        // before the ring slot and exchange reload
     }
@@ -1275,67 +1029,69 @@ __device__ __forceinline__ void fb_dkdv_wide(FB_KV_PARAMS) {
 #pragma unroll
     for (int n = 0; n < DH / 8; ++n) {
         if (ka < T_len) {
-            fb_store2(dk + oa + 8 * n, dka[n][0] * scale, dka[n][1] * scale);
-            fb_store2(dv + oa + 8 * n, dva[n][0], dva[n][1]);
+            *reinterpret_cast<float2*>(dk + oa + 8 * n) =
+                make_float2(dka[n][0] * scale, dka[n][1] * scale);
+            *reinterpret_cast<float2*>(dv + oa + 8 * n) =
+                make_float2(dva[n][0], dva[n][1]);
         }
         if (kb < T_len) {
-            fb_store2(dk + ob + 8 * n, dka[n][2] * scale, dka[n][3] * scale);
-            fb_store2(dv + ob + 8 * n, dva[n][2], dva[n][3]);
+            *reinterpret_cast<float2*>(dk + ob + 8 * n) =
+                make_float2(dka[n][2] * scale, dka[n][3] * scale);
+            *reinterpret_cast<float2*>(dv + ob + 8 * n) =
+                make_float2(dva[n][2], dva[n][3]);
         }
     }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(D <= 64 ? FB_THREADS : 2 * FB_THREADS,
                                   D <= 64 ? 2 : 1)
 fa_bwd_dkdv_kernel(FB_KV_PARAMS) {
     if constexpr (D <= 64)
-        fb_dkdv_narrow<T, D>(FB_KV_PASS);
+        fb_dkdv_narrow<D>(FB_KV_PASS);
     else
-        fb_dkdv_wide<T, D>(FB_KV_PASS);
+        fb_dkdv_wide<D>(FB_KV_PASS);
 }
 
 // ---- launches ------------------------------------------------------------
 
-// T (float or bf16) from the pointers' type
-template <int D, typename T>
-static int launch_dq(const T* q, const T* k, const T* v, const T* o,
-                     const T* o_lo, const T* dout, const float* lse,
-                     float* delta, T* dq,
-                     int B, int S, int T_len, int H, int Hkv, int causal,
-                     int window, int q_offset, float scale,
-                     cudaStream_t stream) {
-    const int smem = fb_dq_smem_floats<T, D>() * (int)sizeof(float);
+template <int D>
+static int launch_dq(const float* q, const float* k, const float* v,
+                     const float* o, const float* dout, const float* lse,
+                     float* delta, float* dq, int B, int S, int T_len, int H,
+                     int Hkv, int causal, int window, int q_offset,
+                     float scale, cudaStream_t stream) {
+    const int smem = fb_dq_smem_floats<D>() * (int)sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        fa_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fa_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return (int)err;
     const long long blocks =
         (long long)((S + FB_BQ - 1) / FB_BQ) * H * B;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    fa_bwd_dq_kernel<T, D><<<(unsigned)blocks, fb_threads<D>(), smem,
-                             stream>>>(
-        q, k, v, o, o_lo, dout, lse, delta, dq, S, T_len, H, Hkv, causal,
-        window, q_offset, scale);
+    fa_bwd_dq_kernel<D><<<(unsigned)blocks, fb_threads<D>(), smem, stream>>>(
+        q, k, v, o, dout, lse, delta, dq, S, T_len, H, Hkv, causal, window,
+        q_offset, scale);
     return (int)cudaGetLastError();
 }
 
-template <int D, typename T>
-static int launch_dkdv(const T* q, const T* k, const T* v, const T* dout,
-                       const float* lse, const float* delta, T* dk, T* dv,
-                       int B, int S, int T_len, int H, int Hkv, int causal,
+template <int D>
+static int launch_dkdv(const float* q, const float* k, const float* v,
+                       const float* dout, const float* lse,
+                       const float* delta, float* dk, float* dv, int B,
+                       int S, int T_len, int H, int Hkv, int causal,
                        int window, int q_offset, float scale,
                        cudaStream_t stream) {
-    const int smem = fb_dkdv_smem_floats<T, D>() * (int)sizeof(float);
+    const int smem = fb_dkdv_smem_floats<D>() * (int)sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        fa_bwd_dkdv_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        fa_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return (int)err;
     const long long blocks =
         (long long)((T_len + FB_BK - 1) / FB_BK) * Hkv * B;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    fa_bwd_dkdv_kernel<T, D><<<(unsigned)blocks, fb_threads<D>(), smem,
-                               stream>>>(
+    fa_bwd_dkdv_kernel<D><<<(unsigned)blocks, fb_threads<D>(), smem,
+                            stream>>>(
         q, k, v, dout, lse, delta, dk, dv, S, T_len, H, Hkv, causal, window,
         q_offset, scale);
     return (int)cudaGetLastError();
@@ -1351,31 +1107,24 @@ static bool fb_aligned(const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// q, o, dout, dq (B,S,H,D), k, v (B,T,Hkv,D) of T, lse and delta
-// (B,H,S) f32, all contiguous, q, k, v, o, dout and dq on 16-byte
-// addresses; bf16: o_lo (B,S,H,D) as o, the forward's out_lo (f32:
-// null).  D in {16, 32, 64, 80, 128, 192}.  Writes dq and delta =
-// rowsum(dout * o) (bf16: of o + o_lo).  Returns cudaGetLastError()
-// after the launch; does not synchronise.
-template <typename T>
-static int bwd_dq(const void* q, const void* k, const void* v,
-                  const void* o, const void* o_lo, const void* dout,
-                  const void* lse,
-                  void* delta, void* dq, int B, int S, int T_len, int H,
-                  int Hkv, int D, int causal, int window, int q_offset,
-                  float scale, void* stream) {
+// q, o, dout, dq (B,S,H,D), k, v (B,T,Hkv,D), lse and delta (B,H,S), all
+// contiguous f32, q, k, v, o, dout and dq on 16-byte addresses; D in
+// {16, 32, 64, 80, 128, 192}.  Writes dq and delta = rowsum(dout * o).  Returns
+// cudaGetLastError() after the launch; does not synchronise.
+extern "C" int flash_attention_bwd_dq_f32(
+        const void* q, const void* k, const void* v, const void* o,
+        const void* dout, const void* lse, void* delta, void* dq, int B,
+        int S, int T_len, int H, int Hkv, int D, int causal, int window,
+        int q_offset, float scale, void* stream) {
     if (!fb_shape_ok(B, S, T_len, H, Hkv, q_offset)
             || !fb_aligned(q) || !fb_aligned(k) || !fb_aligned(v)
-            || !fb_aligned(o) || !fb_aligned(dout) || !fb_aligned(dq)
-            || (FbType<T>::BF ? !fb_aligned(o_lo) || o_lo == nullptr
-                              : o_lo != nullptr))
+            || !fb_aligned(o) || !fb_aligned(dout) || !fb_aligned(dq))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FB_DQ_ARGS static_cast<const T*>(q), static_cast<const T*>(k), \
-    static_cast<const T*>(v), static_cast<const T*>(o), \
-    static_cast<const T*>(o_lo), static_cast<const T*>(dout), \
-    static_cast<const float*>(lse), \
-    static_cast<float*>(delta), static_cast<T*>(dq), B, S, T_len, H, \
+#define FB_DQ_ARGS static_cast<const float*>(q), static_cast<const float*>(k), \
+    static_cast<const float*>(v), static_cast<const float*>(o), \
+    static_cast<const float*>(dout), static_cast<const float*>(lse), \
+    static_cast<float*>(delta), static_cast<float*>(dq), B, S, T_len, H, \
     Hkv, causal, window, q_offset, scale, s
     switch (D) {
         case 16: return launch_dq<16>(FB_DQ_ARGS);
@@ -1389,26 +1138,25 @@ static int bwd_dq(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
 }
 
-// q, dout (B,S,H,D), k, v, dk, dv (B,T,Hkv,D) of T, lse and delta
-// (B,H,S) f32 -- delta as the dq kernel of the same T wrote it, so
-// launched after it on the same stream -- all contiguous, q, k, v, dout,
-// dk and dv on 16-byte addresses; D in {16, 32, 64, 80, 128, 192}.
-// Writes dk and dv, each summed over the kv head's group of q heads.
-template <typename T>
-static int bwd_dkdv(const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* delta,
-                    void* dk, void* dv, int B, int S, int T_len, int H,
-                    int Hkv, int D, int causal, int window, int q_offset,
-                    float scale, void* stream) {
+// q, dout (B,S,H,D), k, v, dk, dv (B,T,Hkv,D), lse and delta (B,H,S) --
+// delta as flash_attention_bwd_dq_f32 wrote it, so launched after it on
+// the same stream -- all contiguous f32, q, k, v, dout, dk and dv on
+// 16-byte addresses; D in {16, 32, 64, 80, 128, 192}.  Writes dk and dv, each summed
+// over the kv head's group of q heads.
+extern "C" int flash_attention_bwd_dkdv_f32(
+        const void* q, const void* k, const void* v, const void* dout,
+        const void* lse, const void* delta, void* dk, void* dv, int B,
+        int S, int T_len, int H, int Hkv, int D, int causal, int window,
+        int q_offset, float scale, void* stream) {
     if (!fb_shape_ok(B, S, T_len, H, Hkv, q_offset)
             || !fb_aligned(q) || !fb_aligned(k) || !fb_aligned(v)
             || !fb_aligned(dout) || !fb_aligned(dk) || !fb_aligned(dv))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FB_KV_ARGS static_cast<const T*>(q), static_cast<const T*>(k), \
-    static_cast<const T*>(v), static_cast<const T*>(dout), \
+#define FB_KV_ARGS static_cast<const float*>(q), static_cast<const float*>(k), \
+    static_cast<const float*>(v), static_cast<const float*>(dout), \
     static_cast<const float*>(lse), static_cast<const float*>(delta), \
-    static_cast<T*>(dk), static_cast<T*>(dv), B, S, T_len, H, Hkv, \
+    static_cast<float*>(dk), static_cast<float*>(dv), B, S, T_len, H, Hkv, \
     causal, window, q_offset, scale, s
     switch (D) {
         case 16: return launch_dkdv<16>(FB_KV_ARGS);
@@ -1422,44 +1170,13 @@ static int bwd_dkdv(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
 }
 
-#define FB_DQ_ENTRY_PARAMS const void* dout, const void* lse, \
-    void* delta, void* dq, int B, int S, int T_len, int H, int Hkv, int D, \
-    int causal, int window, int q_offset, float scale, void* stream
-#define FB_DQ_ENTRY_PASS dout, lse, delta, dq, B, S, T_len, H, Hkv, D, \
-    causal, window, q_offset, scale, stream
-#define FB_KV_ENTRY_PARAMS const void* q, const void* k, const void* v, \
-    const void* dout, const void* lse, const void* delta, void* dk, \
-    void* dv, int B, int S, int T_len, int H, int Hkv, int D, int causal, \
-    int window, int q_offset, float scale, void* stream
-#define FB_KV_ENTRY_PASS q, k, v, dout, lse, delta, dk, dv, B, S, T_len, H, \
-    Hkv, D, causal, window, q_offset, scale, stream
-
-// The four entries (bwd_dq and bwd_dkdv say what each takes): f32
-// tensors, or bf16 ones (q, k, v, o, o_lo, dout, dq, dk, dv; lse and
-// delta f32)
-extern "C" int flash_attention_bwd_dq_f32(
-        const void* q, const void* k, const void* v, const void* o,
-        FB_DQ_ENTRY_PARAMS) {
-    return bwd_dq<float>(q, k, v, o, nullptr, FB_DQ_ENTRY_PASS);
-}
-extern "C" int flash_attention_bwd_dkdv_f32(FB_KV_ENTRY_PARAMS) {
-    return bwd_dkdv<float>(FB_KV_ENTRY_PASS);
-}
-extern "C" int flash_attention_bwd_dq_bf16(
-        const void* q, const void* k, const void* v, const void* o,
-        const void* o_lo, FB_DQ_ENTRY_PARAMS) {
-    return bwd_dq<bf16>(q, k, v, o, o_lo, FB_DQ_ENTRY_PASS);
-}
-extern "C" int flash_attention_bwd_dkdv_bf16(FB_KV_ENTRY_PARAMS) {
-    return bwd_dkdv<bf16>(FB_KV_ENTRY_PASS);
-}
-
-template <typename T, int D>
-static long long fb_sizes_of(bool dkdv, int which) {
+template <int D>
+static long long fb_sizes(int kernel, int which) {
+    const bool dkdv = kernel == 1;
     switch (which) {
         case 0: return fb_threads<D>() / 32;
-        case 1: return 4LL * (dkdv ? fb_dkdv_smem_floats<T, D>()
-                                   : fb_dq_smem_floats<T, D>());
+        case 1: return 4LL * (dkdv ? fb_dkdv_smem_floats<D>()
+                                   : fb_dq_smem_floats<D>());
         case 2: return dkdv ? fb_mrows<D, true>() : fb_mrows<D, false>();
         case 3: return FB_STAGES;
         case 4: return 1;
@@ -1468,20 +1185,14 @@ static long long fb_sizes_of(bool dkdv, int which) {
     }
 }
 
-template <int D>
-static long long fb_sizes(int kernel, int which) {
-    return kernel < 2 ? fb_sizes_of<float, D>(kernel == 1, which)
-                      : fb_sizes_of<bf16, D>(kernel == 3, which);
-}
-
-// The launch of one kernel at head dim D (kernel 0: dq, 1: dkdv; 2, 3:
-// their bf16 twins): which = 0, warps a block; 1, bytes of dynamic shared memory; 2, rows of a
+// The launch of one kernel at head dim D (kernel 0: dq, 1: dkdv): which
+// = 0, warps a block; 1, bytes of dynamic shared memory; 2, rows of a
 // moving tile (keys in dq, q rows in dkdv); 3, stages of its ring; 4,
 // the grid's y; 5, the D-long dots it computes a visible (q, k) pair.
 // -1 for a D, kernel or which it does not have.
 extern "C" long long flash_attention_bwd_sizes(int D, int kernel,
                                                int which) {
-    if (kernel < 0 || kernel > 3) return -1;
+    if (kernel != 0 && kernel != 1) return -1;
     switch (D) {
         case 16: return fb_sizes<16>(kernel, which);
         case 32: return fb_sizes<32>(kernel, which);

@@ -68,26 +68,28 @@ Gradients.  When grad mode is on and q, k or v requires grad,
 ``flash_attention`` goes through ``FlashAttentionFn``: its forward is
 the forward kernel of the dtype asked also for each row's log-sum-exp
 ``lse`` (B,H,S) f32 (no bit of the output changes), its backward the
-two kernels of ``csrc/flash_attention_bwd.cu`` for that dtype
-(``flash_attention_bwd_dq_f32`` / ``_bf16``, which also writes ``delta
-= rowsum(dO * O)``, then ``flash_attention_bwd_dkdv_f32`` / ``_bf16``,
-dk and dv summed over each kv head's group in registers; no float
-atomics, so gradients are the same bits every run).  Their products
-run on the tensor cores: in f32 in split TF32 (three TF32 products a
-product, about 2^-19 relative at worst); in bf16 one TF32 product (a
-bf16 value is exact in TF32; P and dS rounded to TF32, 2^-11, finer
-than bf16), the bf16 tiles widened to f32 in shared memory, lse, delta
-and the sums f32, the gradients rounded once to bf16; the bf16 forward
-asked for lse also writes ``out_lo``, what the rounding of its output
-left, and delta is taken of out + out_lo (of out alone it would be off
-by 2^-9, enough to fail the bf16 tolerance in dq and dk).  Both copy
-with 16-byte ``cp.async``, so q, k, v, o (and out_lo) and dO must sit
-on 16-byte addresses, or the backward raises ``ValueError`` before either
-launch.  At D = 80, 128 and 192 a block is eight warps, the two of a pair
-sharing 16 stationary rows, each computing S and dP over half of the
-moving tile and passing P and dS to the other through shared memory:
-S and dP once a visible pair in each kernel (``bwd_sizes`` reports each
-launch).  On CPU tensors the Function runs the plain forward and
+two kernels of that dtype (``flash_attention_bwd_dq_f32`` / ``_bf16``,
+which also writes ``delta = rowsum(dO * O)``, then
+``flash_attention_bwd_dkdv_f32`` / ``_bf16``, dk and dv summed over each
+kv head's group in registers; no float atomics, so gradients are the
+same bits every run).  f32: ``csrc/flash_attention_bwd.cu``, products
+on the tensor cores in split TF32 (three TF32 products a product, about
+2^-19 relative at worst), tiles by 16-byte ``cp.async``; at D = 80, 128
+and 192 a block is eight warps, the two of a pair sharing 16 stationary
+rows, each computing S and dP over half of the moving tile and passing
+P and dS to the other through shared memory.  bf16:
+``csrc/flash_attention_bwd_tc.cu``, warp-specialised blocks of a TMA
+producer and two ``wgmma`` consumer warpgroups of 64 stationary rows (dq:
+q rows, K/V tiles moving; dkdv: keys, (q tile, head) items moving), P
+and dS as two bf16 parts each into the second products (one part misses
+the bf16 tolerance), lse, delta and the sums f32, the gradients rounded
+once to bf16; the bf16 forward asked for lse also writes ``out_lo``,
+what the rounding of its output left, and delta is taken of out +
+out_lo (of out alone it would be off by 2^-9, enough to fail the bf16
+tolerance in dq and dk).  q, k, v, o (and out_lo) and dO must sit on
+16-byte addresses with 16-byte strides (``cp.async``; TMA), or the
+backward raises ``ValueError`` before either launch.  ``bwd_sizes``
+reports each launch.  On CPU tensors the Function runs the plain forward and
 ``flash_attention_bwd_plain``, the same math in PyTorch, in f32 for
 either dtype (the gradients then rounded to the inputs' dtype).
 The JAX package has no backward kernel (JAX differentiates the jnp
@@ -196,10 +198,18 @@ def _lib():
     return lib
 
 
-def _bwd_lib():
+# the library of each dtype's backward pair: the split-TF32 kernels, or
+# the bf16 ``wgmma`` ones
+_BWD_SOURCES = {torch.float32: "flash_attention_bwd",
+                torch.bfloat16: "flash_attention_bwd_tc"}
+
+
+def _bwd_lib(dtype=torch.float32):
+    """The built library of ``dtype``'s backward pair, its entries
+    typed."""
     from repro_torch.kernels import _build
-    lib = _build.load("flash_attention_bwd")
-    for name in sum(_BWD_ENTRIES.values(), ()):
+    lib = _build.load(_BWD_SOURCES[dtype])
+    for name in _BWD_ENTRIES[dtype]:
         fn = getattr(lib, name)
         if fn.argtypes is None:
             fn.argtypes = (_BWD_DQ_BF16_ARGTYPES
@@ -216,17 +226,18 @@ BWD_SIZES = ("warps", "shared_bytes", "tile_rows", "stages", "grid_y",
 
 def bwd_sizes(d: int, dtype=torch.float32) -> dict:
     """The backward kernels' launch at head dim ``d`` for ``dtype`` as
-    the built library reports it: ``{"dq": {...}, "dkdv": {...}}``, each
-    the warps a block, dynamic shared bytes, rows of a moving tile (keys
-    in dq, q rows in dkdv), ring stages, grid y and the D-long dots it
-    computes a visible (q, k) pair.  Builds the library (a card
-    machine's ``nvcc``)."""
-    sizes = _bwd_lib().flash_attention_bwd_sizes
+    the built library of that dtype reports it: ``{"dq": {...}, "dkdv":
+    {...}}``, each the warps a block, dynamic shared bytes, rows of a
+    moving tile (keys in dq, q rows in dkdv), ring stages, grid y and
+    the D-long dots it computes a visible (q, k) pair.  Builds the
+    library (a card machine's ``nvcc``)."""
+    lib = _bwd_lib(dtype)
+    sizes = (lib.flash_attention_bwd_sizes if dtype == torch.float32
+             else lib.flash_attention_bwd_tc_sizes)
     if sizes.argtypes is None:
         sizes.argtypes = [ctypes.c_int] * 3
         sizes.restype = ctypes.c_longlong
-    first = 2 * _DTYPES[dtype]           # bf16: the library's kernels 2, 3
-    return {kind: {key: int(sizes(d, first + kernel, which))
+    return {kind: {key: int(sizes(d, kernel, which))
                    for which, key in enumerate(BWD_SIZES)}
             for kernel, kind in enumerate(("dq", "dkdv"))}
 
@@ -419,8 +430,9 @@ def _kernel_backward(q, k, v, o, lse, do, causal, window, q_offset,
         why = tma_misalignment(x)
         if why:
             raise ValueError(f"flash_attention backward kernels "
-                             f"(cp.async): {name} {why}")
-    lib = _bwd_lib()
+                             f"({'TMA' if bf16 else 'cp.async'}): {name} "
+                             f"{why}")
+    lib = _bwd_lib(q.dtype)
     dq_entry, dkdv_entry = (getattr(lib, name)
                             for name in _BWD_ENTRIES[q.dtype])
     dq = torch.empty_like(q)

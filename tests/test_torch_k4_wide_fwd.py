@@ -354,8 +354,10 @@ def test_tiles_and_blocks_are_the_kernels():
     kernel's 64-row blocks of eight warps and its 64- / 48-key tiles,
     one block a (q tile, head, batch); the bf16 kernel's 128- / 96-key
     tiles in 3 / 2 stages on a grid of (q tiles, H, B), at D = 80 in
-    blocks of 16 columns."""
+    blocks of 16 columns (the column blocks of ``fa_hopper.cuh``'s
+    ``Tiles<D>``, which the bf16 kernel's ``Layout<D>`` derives from)."""
     src = SOURCE.read_text()
+    tiles = (SOURCE.parent / "fa_hopper.cuh").read_text()
     assert "#define FA_BQ 64" in src and "#define FA_STAGES 2" in src
     assert "return D <= 64 ? FA_THREADS : 2 * FA_THREADS;" in src
     assert "{ return D <= 128 ? FA_BK : 48; }" in src
@@ -364,7 +366,8 @@ def test_tiles_and_blocks_are_the_kernels():
         in src
     assert "(long long)((S + FA_BQ - 1) / FA_BQ) * H * B;" in src
     assert "const dim3 grid((S + BQ - 1) / BQ, H, B);" in src
+    assert "struct Layout : Tiles<D> {" in src
     assert "static constexpr int COLS = D < 64 ? D : D % 64 ? 16 : 64;" \
-        in src
+        in tiles
     assert [f32_keys(d) for d in (80, 128, 192)] == [64, 64, 48]
     assert [tc_keys(d) for d in (64, 80, 128, 192)] == [128, 128, 128, 96]

@@ -1,0 +1,500 @@
+#!/usr/bin/env python3
+"""Variants of K4's bf16 backward kernels (``csrc/flash_attention_bwd_tc.cu``:
+dq, dkdv on ``wgmma`` fed by TMA) on one GPU, timed in turns.
+
+    python3 tools/k4_bwd_tc_variants.py [--only v0,masks_always,...]
+                                        [--baseline NAME=FILE.cu ...]
+
+Each variant is the committed source with text patches (and, with each
+``--baseline``, another source of the same two entry points,
+``flash_attention_bwd_dq_bf16`` and ``_dkdv_bf16`` -- an earlier
+commit's ``flash_attention_bwd.cu``, say -- as the variant NAME), built
+with ``nvcc -Xptxas -v`` into ``build/k4_bwd_tc_variants/``, all at
+once: registers, spills and ptxas's C75xx notes are printed.  Every
+variant that computes the gradient goes through the wrapper
+(``FlashAttentionFn``) and ``chip_smoke.check_flash_bwd_bf16`` on
+``chip_smoke.BF16_BWD_CASES`` at ``BF16_BWD_TOL``; then all are timed
+with ``chip_smoke.median_ms`` at ``chip_smoke.FA_BWD_BF16_SHAPES``, each
+kernel launched directly, in turns: the variants in order, then
+reversed.  The last line of standard output is one JSON object of the
+times and the checks.  Needs one CUDA card and nvcc; exits non-zero
+otherwise or when a checked variant disagrees.
+
+Variants:
+  v0             the committed kernels
+  masks_always   the masks on every tile and item (no interior path)
+  one_part       P and dS as one bf16 part each (the lo products gone):
+                 what the second part costs; not checked (it misses the
+                 tolerance, tests/test_torch_k4_bf16_wgmma_bwd.py)
+  both_products  dkdv up to D = 80: dV and dK issued in one commit
+                 group (the committed kernels wait between them)
+  overlap        FA3's overlap within a warpgroup: the next tile's or
+                 item's S and dP issued under this one's second products
+  kv64           dkdv blocks of 64 keys at every D, dv and dk split
+                 between the warpgroups (the committed kernels: from D =
+                 128 on): twice the blocks, S^T and dP^T in both
+  NAME           a source given with --baseline NAME=FILE.cu, as it is
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+OUT = ROOT / "build" / "k4_bwd_tc_variants"
+SOURCE = ROOT / "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu"
+
+DQ_INTERIOR = "                if (t0 + BK <= T && r0 + 64 <= S\n"
+KV_INTERIOR = ("            if (r0 + BM <= S && kw0 + 64 <= T "
+               "&& (!causal || kw0 + 63 <= p0)\n")
+LO_PRODUCT = "        wgmma_rs_d<D, ROWS>(acc, lo[kk], s);\n"
+SEQUENTIAL = """                split_frags(s, hi, lo);
+                wgmma_fence();
+                wgmma_parts<D, BM>(acc_v, hi, lo, s_do);    // dv += P^T.dO
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(acc_v);
+                split_frags(dp, hi, lo);
+                wgmma_fence();
+                wgmma_parts<D, BM>(acc, hi, lo, s_q);       // dk += dS^T.Q
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(acc);"""
+BOTH = """                uint32_t hi2[4][4], lo2[4][4];
+                split_frags(s, hi, lo);
+                split_frags(dp, hi2, lo2);
+                wgmma_fence();
+                wgmma_parts<D, BM>(acc_v, hi, lo, s_do);    // dv += P^T.dO
+                wgmma_parts<D, BM>(acc, hi2, lo2, s_q);     // dk += dS^T.Q
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(acc_v);
+                fence_regs(acc);"""
+
+# the consumers' loops of ``overlap`` (from dq's accumulator to its
+# store; from dkdv's accumulators to its stores)
+DQ_START = ("        float acc[D / 2];\n        zero(acc);\n"
+            "        const uint32_t s_q = s_base + L::A_OFF + w * 64 * L::ROW;")
+DQ_END = "        store_rows<D>(dq + ((long long)b * S * H + h) * D, acc, scale, r0,"
+KV_START = "        float acc[D / 2];                // dk (D >= 128: dv or dk)"
+KV_END = "        const long long stride = (long long)Hkv * D;"
+OVERLAP_DQ = r"""        float acc[D / 2];
+        zero(acc);
+        const uint32_t s_q = s_base + L::A_OFF + w * 64 * L::ROW;
+        const uint32_t s_do = s_base + L::B_OFF + w * 64 * L::ROW;
+        float s[32], dp[32];
+        uint32_t ds_hi[4][4], ds_lo[4][4];
+        // a tile these rows do not see: released once it has landed
+        auto release = [&](int j) {
+            const int st = j % DEPTH;
+            mbar_wait(full(st), (j / DEPTH) & 1);
+            if (lane == 0) mbar_arrive(empty(st));
+        };
+        // S = Q.K^T and dP = dO.V^T of tile j, two commit groups, once
+        // its stage has landed
+        auto issue_sdp = [&](int j) {
+            const int st = j % DEPTH;
+            mbar_wait(full(st), (j / DEPTH) & 1);
+            wgmma_abt<D, BQ, BK>(s, s_q, stage(st));
+            wgmma_commit();
+            wgmma_abt<D, BQ, BK>(dp, s_do, stage(st) + L::MOV_BYTES);
+            wgmma_commit();
+        };
+        // tile j: P from S while dP is on the tensor cores, dS, its two
+        // parts, and dQ += dS.K issued (one commit group)
+        auto step = [&](int j) {
+            const int t0 = tile_lo + j * BK;
+            // every key of the tile seen by every one of the 64 rows
+            const bool interior = t0 + BK <= T && r0 + 64 <= S
+                                  && (!causal || t0 + BK - 1 <= pa)
+                                  && (window <= 0 || t0 >= pa + 64 - window);
+            wgmma_wait<1>();
+            fence_regs(s);
+            // element i: row a or b by (i >> 1) & 1, key t0 + 8 (i / 4) +
+            // 2 (lane % 4) + (i & 1)
+            if (interior) {
+#pragma unroll
+                for (int i = 0; i < 32; ++i)
+                    s[i] = ex2(fmaf(s[i], scale_log2,
+                                    -(((i >> 1) & 1) ? lse_b : lse_a)));
+            } else {
+#pragma unroll
+                for (int i = 0; i < 32; ++i) {
+                    const int key = t0 + 8 * (i >> 2) + 2 * (lane & 3)
+                                    + (i & 1);
+                    const bool rb_ = (i >> 1) & 1;
+                    const bool vis = rb_ ? key >= lo_b && key < hi_b
+                                         : key >= lo_a && key < hi_a;
+                    s[i] = vis ? ex2(fmaf(s[i], scale_log2,
+                                          -(rb_ ? lse_b : lse_a)))
+                               : 0.0f;
+                }
+            }
+            wgmma_wait<0>();
+            fence_regs(dp);
+#pragma unroll
+            for (int i = 0; i < 32; ++i)
+                s[i] *= dp[i] - (((i >> 1) & 1) ? dl_b : dl_a);
+            split_frags(s, ds_hi, ds_lo);
+            wgmma_fence();
+            wgmma_parts<D, BK>(acc, ds_hi, ds_lo, stage(j % DEPTH));
+            wgmma_commit();
+        };
+        mbar_wait(bar, 0);
+        for (int j = 0; j < j_a; ++j) release(j);
+        if (j_a < j_b) {
+            wgmma_fence();
+            issue_sdp(j_a);
+            // tile j + 1's S and dP issued under tile j's dQ product
+            for (int j = j_a; j + 1 < j_b; ++j) {
+                step(j);
+                issue_sdp(j + 1);
+                wgmma_wait<2>();
+                fence_regs(acc);
+                if (lane == 0) mbar_arrive(empty(j % DEPTH));
+            }
+            step(j_b - 1);
+            wgmma_wait<0>();
+            fence_regs(acc);
+            if (lane == 0) mbar_arrive(empty((j_b - 1) % DEPTH));
+        }
+        for (int j = j_b; j < n_tiles; ++j) release(j);
+"""
+OVERLAP_KV = r"""        float acc[D / 2];                // dk (D >= 128: dv or dk)
+        float acc_v[SPLIT ? 2 : D / 2];  // dv
+        zero(acc);
+        zero(acc_v);
+        const uint32_t s_k = s_base + L::A_OFF + kw * L::ROW;
+        const uint32_t s_v = s_base + L::B_OFF + kw * L::ROW;
+        float s[32], dp[32];
+        // the A operands of the second products, two bf16 parts each: P^T
+        // (dv) and dS^T (dk); from D = 128 one of them, by warpgroup
+        uint32_t a_hi[SPLIT ? 1 : 2][4][4], a_lo[SPLIT ? 1 : 2][4][4];
+        // S^T = K.Q^T and dP^T = V.dO^T of item i, two commit groups, once
+        // its stage has landed
+        auto issue_sdp = [&](int i) {
+            const int st = i % DEPTH;
+            mbar_wait(full(st), (i / DEPTH) & 1);
+            wgmma_abt<D, NK, BM>(s, s_k, stage(st));
+            wgmma_commit();
+            wgmma_abt<D, NK, BM>(dp, s_v, stage(st) + L::MOV_BYTES);
+            wgmma_commit();
+        };
+        // item i: P^T from S^T while dP^T is on the tensor cores, dS^T,
+        // their parts, and the second products issued (one commit group)
+        auto step = [&](int i) {
+            const int st = i % DEPTH;
+            const int r0 = walk.tile(i / rep) * BM;
+            const uint32_t s_q = stage(st);
+            const uint32_t s_do = s_q + L::MOV_BYTES;
+            const float* lse_c = rows_of(st);
+            const float* dl_c = lse_c + BM;
+            const int p0 = q_offset + r0;
+            // every key of the warpgroup seen by every one of the 64 rows
+            // (none of which is then a row that sees no key)
+            const bool interior = r0 + BM <= S && kw0 + 64 <= T
+                                  && (!causal || kw0 + 63 <= p0)
+                                  && (window <= 0
+                                      || kw0 > p0 + BM - 1 - window);
+            wgmma_wait<1>();
+            fence_regs(s);
+            // element e: key a or b by (e >> 1) & 1, q row r0 + 8 (e / 4)
+            // + 2 (lane % 4) + (e & 1)
+            uint32_t blind = 0;     // bit e: its row sees no key
+            if (interior) {
+#pragma unroll
+                for (int e = 0; e < 32; ++e) {
+                    const int col = 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+                    s[e] = ex2(fmaf(s[e], scale_log2, -lse_c[col]));
+                }
+            } else {
+#pragma unroll
+                for (int e = 0; e < 32; ++e) {
+                    const int col = 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+                    const int row = r0 + col;
+                    const int p = q_offset + row;
+                    const int key = ((e >> 1) & 1) ? key_b : key_a;
+                    const bool in = row < S && key < T;
+                    const bool none = window > 0 && p >= p_blind;
+                    const bool vis = in && (!causal || key <= p)
+                                     && (window <= 0 || key > p - window);
+                    blind |= (uint32_t)(none && row < S) << e;
+                    s[e] = none ? (in ? inv_t : 0.0f)
+                                : vis ? ex2(fmaf(s[e], scale_log2,
+                                                 -lse_c[col]))
+                                      : 0.0f;
+                }
+            }
+            // dS^T in dP^T's place
+            wgmma_wait<0>();
+            fence_regs(dp);
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+                const int col = 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+                dp[e] = (blind >> e) & 1u ? 0.0f
+                                          : s[e] * (dp[e] - dl_c[col]);
+            }
+            if constexpr (SPLIT) {
+                // P^T.dO (dv) or dS^T.Q (dk): the same instructions in
+                // both warpgroups on operands selected by the warpgroup
+                // (no divergent path around the products)
+#pragma unroll
+                for (int e = 0; e < 32; ++e) s[e] = w ? dp[e] : s[e];
+                split_frags(s, a_hi[0], a_lo[0]);
+                wgmma_fence();
+                wgmma_parts<D, BM>(acc, a_hi[0], a_lo[0], w ? s_q : s_do);
+            } else {
+                split_frags(s, a_hi[0], a_lo[0]);
+                split_frags(dp, a_hi[1], a_lo[1]);
+                wgmma_fence();
+                wgmma_parts<D, BM>(acc_v, a_hi[0], a_lo[0], s_do);  // dV
+                wgmma_parts<D, BM>(acc, a_hi[1], a_lo[1], s_q);     // dK
+            }
+            wgmma_commit();
+        };
+        mbar_wait(bar, 0);
+        if (n_items > 0) {
+            wgmma_fence();
+            issue_sdp(0);
+            // item i + 1's S^T and dP^T issued under item i's second
+            // products
+            for (int i = 0; i + 1 < n_items; ++i) {
+                step(i);
+                issue_sdp(i + 1);
+                wgmma_wait<2>();
+                fence_regs(acc);
+                fence_regs(acc_v);
+                if (lane == 0) mbar_arrive(empty(i % DEPTH));
+            }
+            step(n_items - 1);
+            wgmma_wait<0>();
+            fence_regs(acc);
+            fence_regs(acc_v);
+            if (lane == 0) mbar_arrive(empty((n_items - 1) % DEPTH));
+        }
+"""
+
+
+def replace(src, old, new):
+    if src.count(old) != 1:
+        raise SystemExit(f"k4_bwd_tc_variants: anchor not found once: "
+                         f"{old[:60]!r}")
+    return src.replace(old, new)
+
+
+def between(src, start, end, new):
+    """``src`` with the text from ``start`` (inclusive) up to ``end``
+    (kept) replaced by ``new``; each anchor once."""
+    for anchor in (start, end):
+        if src.count(anchor) != 1:
+            raise SystemExit(f"k4_bwd_tc_variants: anchor not found once: "
+                             f"{anchor[:60]!r}")
+    i = src.index(start)
+    return src[:i] + new + src[src.index(end, i):]
+
+
+KV_KEYS = "return D >= 128 ? 64 : 128;"
+SPLIT = "constexpr bool SPLIT = D >= 128;"
+
+
+def overlap(src):
+    src = between(src, DQ_START, DQ_END, OVERLAP_DQ)
+    return between(src, KV_START, KV_END, OVERLAP_KV)
+
+
+# name -> (patch of the source text, whether it is checked)
+VARIANTS = {
+    "v0": (lambda src: src, True),
+    "masks_always": (lambda src: replace(
+        replace(src, DQ_INTERIOR, DQ_INTERIOR.replace("if (", "if (false && ")),
+        KV_INTERIOR, KV_INTERIOR.replace("if (", "if (false && ")), True),
+    "one_part": (lambda src: replace(src, LO_PRODUCT, ""), False),
+    "both_products": (lambda src: replace(src, SEQUENTIAL, BOTH), True),
+    "overlap": (overlap, True),
+    "kv64": (lambda src: replace(replace(src, KV_KEYS, "return 64;"),
+                                 SPLIT, "constexpr bool SPLIT = true;"),
+             True),
+}
+
+
+def patched(name):
+    """The variant's source text."""
+    return VARIANTS[name][0](SOURCE.read_text())
+
+
+def build(sources):
+    """name -> library path; prints each kernel's registers, spills and
+    ptxas's C75xx notes."""
+    from repro_torch.kernels import _build
+    OUT.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    procs = {}
+    for name, text in sources.items():
+        cu = OUT / f"{name}.cu"
+        cu.write_text(text)
+        procs[name] = subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(OUT / f"lib{name}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"k4_bwd_tc_variants: {name} failed to build:"
+                             f"\n{out}")
+        kernels = re.findall(
+            r"Compiling entry function '_Z\S*?(fa_bwd_\w+?_kernel)I"
+            r"\S*?Li(\d+)E\S*'.*?(\d+) bytes spill stores.*?Used (\d+) "
+            r"registers", out, re.S)
+        notes = sorted(set(re.findall(r"\((C75\d\d)\)[^']*'_Z\S*?"
+                                      r"(fa_bwd_\w+?_kernel)I\S*?Li(\d+)",
+                                      out)))
+        print(json.dumps({"variant": name, "ptxas": [
+            {"kernel": k, "d": int(d), "spill_stores": int(sp),
+             "registers": int(r)} for k, d, sp, r in kernels],
+            "notes": notes}), flush=True)
+    return {name: OUT / f"lib{name}.so" for name in sources}
+
+
+def use(path):
+    """Route the wrapper's bf16 pair to the library at ``path``; return
+    it."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    import torch
+    lib = ctypes.CDLL(str(path))
+    lib.flash_attention_bwd_dq_bf16.argtypes = fa._BWD_DQ_BF16_ARGTYPES
+    lib.flash_attention_bwd_dkdv_bf16.argtypes = fa._BWD_ARGTYPES
+    lib.flash_attention_bwd_dq_bf16.restype = ctypes.c_int
+    lib.flash_attention_bwd_dkdv_bf16.restype = ctypes.c_int
+    _build._LIBS[fa._BWD_SOURCES[torch.bfloat16]] = lib
+    return lib
+
+
+def check(smoke, libs, names):
+    """Each checked variant on ``BF16_BWD_CASES``; returns name -> {case:
+    errors or the failure}, and whether every one passed."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    inputs = []
+    for case, (b, s, t, h, hkv, d), kw in smoke.BF16_BWD_CASES:
+        def r(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+        inputs.append((case, (r(b, s, h, d), r(b, t, hkv, d),
+                              r(b, t, hkv, d), r(b, s, h, d)), kw))
+    out, ok = {}, True
+    for name in names:
+        if name in VARIANTS and not VARIANTS[name][1]:
+            continue
+        use(libs[name])
+        out[name] = {}
+        for case, ins, kw in inputs:
+            try:
+                row = smoke.check_flash_bwd_bf16(case, *ins, **kw)
+                out[name][case] = {k: row[k] for k in row
+                                   if k.endswith("_max_abs_err")}
+            except SystemExit as e:
+                out[name][case] = {"failed": str(e)}
+                ok = False
+        print(json.dumps({"variant": name, "checks": out[name]}),
+              flush=True)
+    return out, ok
+
+
+def times(smoke, libs, names):
+    """(dq ms, dkdv ms) of each variant at each layer, in turns."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    bf16 = torch.bfloat16
+    res = {}
+    for arch, qs, ks, window in smoke.FA_BWD_BF16_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(35)
+        q, do = (torch.randn(qs, generator=gen, device="cuda").to(bf16)
+                 for _ in "qd")
+        k, v = (torch.randn(ks, generator=gen, device="cuda").to(bf16)
+                for _ in "kv")
+        o, lse, o_lo = fa._kernel_forward(q, k, v, True, window, 0,
+                                          with_lse=True)
+        b, s, h, d = qs
+        t, hkv = ks[1], ks[2]
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        delta = torch.empty((b, h, s), device="cuda")
+        args = (b, s, t, h, hkv, d, 1, window, 0, 1.0 / math.sqrt(d))
+        res[arch] = {n: {"dq": [], "dkdv": []} for n in names}
+        for name in list(names) + list(reversed(names)):
+            lib = use(libs[name])
+
+            def dq_kernel():
+                lib.flash_attention_bwd_dq_bf16(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    o_lo.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr(), dq.data_ptr(), *args,
+                    torch.cuda.current_stream().cuda_stream)
+
+            def dkdv_kernel():
+                lib.flash_attention_bwd_dkdv_bf16(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), *args,
+                    torch.cuda.current_stream().cuda_stream)
+
+            dq_kernel()                    # delta for the dkdv timing
+            res[arch][name]["dq"].append(
+                smoke.median_ms(dq_kernel, runs=5, per_run=5))
+            res[arch][name]["dkdv"].append(
+                smoke.median_ms(dkdv_kernel, runs=5, per_run=5))
+        print(json.dumps({"arch": arch, "ms_turns": res[arch]}), flush=True)
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default=",".join(VARIANTS),
+                    help="comma-separated variants (default: all)")
+    ap.add_argument("--baseline", action="append", default=[],
+                    help="NAME=FILE.cu: another source as variant NAME")
+    args = ap.parse_args(argv)
+    names = [n for n in args.only.split(",") if n]
+    unknown = [n for n in names if n not in VARIANTS]
+    if unknown:
+        raise SystemExit(f"k4_bwd_tc_variants: unknown {unknown}")
+    sources = {n: patched(n) for n in names}
+    for spec in args.baseline:
+        name, _, path = spec.partition("=")
+        if not name or not path or name in sources:
+            raise SystemExit(f"k4_bwd_tc_variants: --baseline {spec!r}: "
+                             f"want a new NAME=FILE.cu")
+        sources[name] = Path(path).read_text()
+    import torch
+    if not torch.cuda.is_available():
+        print("k4_bwd_tc_variants: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as smoke
+    from repro_torch import set_full_f32
+    set_full_f32()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    libs = build(sources)
+    names = list(sources)
+    checks, ok = check(smoke, libs, names)
+    res = times(smoke, libs, names)
+    least = {arch: {n: {k: min(v) for k, v in r.items()}
+                    for n, r in per.items()} for arch, per in res.items()}
+    print(json.dumps({"card": card, "least_ms": least, "checks_passed": ok,
+                      "checked": sorted(checks)}), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

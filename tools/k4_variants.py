@@ -143,13 +143,11 @@ constexpr int CONSUMER_REGS = NWG == 2 ? 240 : 160;""")
     src = replace(src, """            mbar_init(empty_k(st), 8);     // lane 0 of each consumer warp
             mbar_init(empty_v(st), 8);""", """            mbar_init(empty_k(st), 4 * NWG);
             mbar_init(empty_v(st), 4 * NWG);""")
-    return replace(src, """        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);""",
-                   """#ifdef FA_L2_256
-        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-#else
-        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-#endif
-        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);""")
+    # the tensor maps' L2 promotion (fa_hopper.cuh's FA_TMA_L2)
+    return replace(src, '#include "fa_hopper.cuh"',
+                   "#ifdef FA_L2_256\n"
+                   "#define FA_TMA_L2 CU_TENSOR_MAP_L2_PROMOTION_L2_256B\n"
+                   '#endif\n#include "fa_hopper.cuh"')
 
 
 def no_turns(src):
@@ -588,8 +586,8 @@ def multicast(src):
     # q_full, full_k, full_v, empty_k, empty_v and peer_k, peer_v a stage
     src = replace(src, "BAR_OFF + 8 * (1 + 4 * DEPTH);",
                   "BAR_OFF + 8 * (1 + (CLUSTER ? 6 : 4) * DEPTH);")
-    src = replace(src, "// wgmma shared-memory matrix descriptor",
-                  MC_HELPERS + "// wgmma shared-memory matrix descriptor")
+    src = replace(src, "// O += P . V for 16 keys: one m64nDk16.",
+                  MC_HELPERS + "// O += P . V for 16 keys: one m64nDk16.")
     # peer_k, peer_v of every stage, arrived on by the other CTA's
     # producer once that CTA's readers have freed the stage
     src = replace(src, """    auto empty_v = [&](int st) { return bar + 8 * (1 + 3 * STAGES + st); };
