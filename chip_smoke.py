@@ -33,7 +33,11 @@ SSM layer's forward and backward through the kernels; two seeded runs
 bit for bit) and runs ``fl_train`` over reduced LM clients; serves and
 trains the MoE and xLSTM families and the wide heads (mixtral, arctic,
 phi4-mini, nemotron, chameleon), encodes and trains the audio family's
-``hubert-xlarge`` at full width and depth (K4 at head dim 80) — and prints
+``hubert-xlarge`` at full width and depth (K4 at head dim 80), and runs
+the LM mesh (context-parallel attention, K4 once a model shard, in the
+bf16 prefills of phi4-mini and hymba and an f32 llama step under meshes
+of virtual shards of the card; ``LMTrainer`` on a client mesh;
+``launch.train --mesh``) — and prints
 one JSON object per phase.  Each path runs with
 every launch count set to 0 just before it and read just after.  Any
 failure exits non-zero; there is no CPU path.  The last line of
@@ -3461,8 +3465,9 @@ def recording_attention_calls(calls):
 
 @contextlib.contextmanager
 def recording_routes(routes):
-    """The attention branch (``banded`` / ``chunked`` / ``naive``) of
-    every call to ``models.attention.attention``."""
+    """The attention branch (``banded`` / ``chunked`` / ``naive``, and
+    the context-parallel ``banded_cp`` / ``chunked_cp``) of every call
+    to ``models.attention.attention``."""
     from repro_torch.models import attention as attn_lib
 
     def wrap(name, real):
@@ -3472,8 +3477,10 @@ def recording_routes(routes):
         return rec
 
     with contextlib.ExitStack() as stack:
-        for name in ("banded", "chunked", "naive"):
-            attr = f"{name}_attention"
+        for name in ("banded", "chunked", "naive", "banded_cp",
+                     "chunked_cp"):
+            attr = name.replace("_cp", "_attention_cp") if "_cp" in name \
+                else f"{name}_attention"
             stack.enter_context(patched(attn_lib, attr, wrap(
                 name, getattr(attn_lib, attr))))
         yield
@@ -4098,13 +4105,15 @@ TRAIN_CORPUS_TOKENS = 400_000
 
 def start_corpora():
     """Start making ``launch.train``'s corpus for each arch of
-    ``LM_TRAIN`` (``make_token_dataset(vocab, 400,000, seed=0)``, as the
-    CLI calls it), one spawned worker each; returns the pool, which the
-    caller terminates."""
+    ``LM_TRAIN`` and for the reduced llama of ``mesh_train_cli``
+    (``make_token_dataset(vocab, 400,000, seed=0)``, as the CLI calls
+    it), one spawned worker each; returns the pool, which the caller
+    terminates."""
     import multiprocessing
     from repro_torch.config import get_arch
     from repro_torch.data.synthetic import make_token_dataset
-    vocabs = sorted({get_arch(arch).vocab_size for arch, _, _ in LM_TRAIN})
+    vocabs = sorted({get_arch(arch).vocab_size for arch, _, _ in LM_TRAIN}
+                    | {get_arch(MESH_TRAIN[0]).reduced().vocab_size})
     pool = multiprocessing.get_context("spawn").Pool(len(vocabs))
     for v in vocabs:
         key = ((v, TRAIN_CORPUS_TOKENS), (("seed", 0),))
@@ -4546,13 +4555,15 @@ MOE_CONSISTENCY_LAYERS, MOE_CONSISTENCY_S, MOE_CONSISTENCY_GEN = 2, 272, 8
 MOE_CONSISTENCY_CHUNK = 8
 
 
-def _kernel_runs(fn, cfg, shape, label):
+def _kernel_runs(fn, cfg, shape, label, per_layer=1):
     """``fn()`` (a bf16 forward of ``cfg``) once, the launch counts read
-    around it (one tensor-core K4 launch a layer, no other kernel) and
-    the attention calls recorded (k/v not repeated, the config's head
-    dim and mask), then ``LM_WARM_RUNS`` times warm.  Returns the first
-    output (of ``shape``, finite, equal to a warm run's bit for bit),
-    its seconds, the warm seconds, the launches and the calls."""
+    around it (``per_layer`` tensor-core K4 launches a layer -- one, or
+    one a model shard on the context-parallel route -- and K5 once a
+    layer for a hybrid, no other kernel) and the attention calls
+    recorded (k/v not repeated, the config's head dim and mask), then
+    ``LM_WARM_RUNS`` times warm.  Returns the first output (of
+    ``shape``, finite, equal to a warm run's bit for bit), its seconds,
+    the warm seconds, the launches and the calls."""
     import torch
     calls = []
     with recording_attention_calls(calls):
@@ -4562,8 +4573,9 @@ def _kernel_runs(fn, cfg, shape, label):
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launched = counts()
-    want = only(flash_attention=cfg.num_layers,
-                flash_attention_tc=cfg.num_layers)
+    want = only(flash_attention=cfg.num_layers * per_layer,
+                flash_attention_tc=cfg.num_layers * per_layer,
+                ssm_scan=cfg.num_layers if cfg.family == "hybrid" else 0)
     if launched != want:
         fail(f"{label}: launches {launched}, expected {want}")
     if any(kv[2] != cfg.n_kv_heads or q[3] != cfg.head_dim
@@ -4703,10 +4715,12 @@ def lm_moe_serve_path():
     return out, calls
 
 
-def lm_wide_head_prefill():
+def lm_wide_head_prefill(cp_prefills):
     """The bf16 prefill of the dense configs whose head dims K4 took in
     this slice (``WIDE_PREFILL``): phi4-mini at D = 128, nemotron at
-    D = 192.  Returns (rows, attention calls)."""
+    D = 192.  On the weights of an arch of ``MESH_CP_PREFILL`` also its
+    context-parallel prefill (``mesh_cp_prefill``, into
+    ``cp_prefills``).  Returns (rows, attention calls)."""
     import torch
     from repro_torch.config.base import TrainConfig
     rows, calls = [], []
@@ -4718,6 +4732,8 @@ def lm_wide_head_prefill():
         row.update(init_s=init_s, peak_bytes=torch.cuda.max_memory_allocated())
         rows.append(row)
         calls.append((arch, "chunked", call))
+        if arch in MESH_CP_PREFILL:
+            cp_prefills[arch] = mesh_cp_prefill(cfg, params, b, s)
         del params
         torch.cuda.empty_cache()
     return rows, calls
@@ -5421,6 +5437,331 @@ def lm_audio_train_step():
             "leaf_checksums": first["checksums"][:8],
             "profiled_step": with_step_shares(first["profile"], warm)}, {
         k: v // steps for k, v in first["launches"].items()}
+
+
+# ---------------------------------------------------------------------
+# The LM mesh: context-parallel attention, one K4 launch a model shard
+# ---------------------------------------------------------------------
+
+# The bf16 prefills under a ("data", "model") mesh of virtual shards of
+# the card: (mesh shape, TrainConfig.context_parallel, the branch the
+# dispatch must take).  phi4-mini's 24 heads do not divide a 16-way
+# model axis, so "auto" takes chunked_attention_cp (4096 / 512 = 8
+# chunks shrink to 16 of 256 rows); hymba's banded window of 1024 is
+# wider than its 512-row chunks, so only "always" takes
+# banded_attention_cp (4 shards of 1024 rows)
+MESH_CP_PREFILL = {"phi4-mini-3.8b": ((1, 16), "auto", "chunked_cp"),
+                   "hymba-1.5b": ((1, 4), "always", "banded_cp")}
+# the f32 training step under a (1, 4) mesh with "always": llama's 32
+# heads divide the axis, so only "always" takes chunked_attention_cp
+# (4 shards of 512 rows at q_offset 0, 512, 1024, 1536)
+MESH_TRAIN = ("llama3.2-1b", (1, 4), 2, 2048)
+# its loss and each gradient leaf against the step without the mesh
+# (one launch over all rows): each row's forward and dq come from the
+# same kernel on the same keys; dk and dv are autograd's sum over the 4
+# shards' dkdv launches, another order of the same f32 sum; an error
+# relative to the leaf's largest |g|
+MESH_GRAD_RTOL = 1e-4
+MESH_LOSS_RTOL = 1e-6
+# a CP shard's shape in that step, through the bf16 and f32 backward
+# pairs against their plain twins
+MESH_SHARD_BWD = ((2, 512, 32, 64), (2, 2048, 8, 64), 1536)
+# launch.train --mesh 1,4 (reduced llama) against the run without it
+MESH_TRAIN_ARGV = ["--steps", "3", "--batch", "2", "--log-every", "1"]
+
+
+@contextlib.contextmanager
+def lm_mesh(shape):
+    """A ("data", "model") mesh of ``shape`` over as many virtual shards
+    of the card (``launch.mesh.make_host_mesh`` under a forced count),
+    set for the block (``sharding.hints.set_mesh``); ``shape=None``: no
+    mesh."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.hints import get_mesh, set_mesh
+    if shape is None:
+        if get_mesh() is not None:
+            fail("a mesh is set where none should be")
+        yield None
+        return
+    with forced_shards(shape[0] * shape[1]):
+        mesh = make_host_mesh(data=shape[0], model=shape[1])
+    if mesh.devices.shape != tuple(shape):
+        fail(f"host mesh {mesh.devices.shape}, asked for {shape}")
+    set_mesh(mesh)
+    try:
+        yield mesh
+    finally:
+        set_mesh(None)
+
+
+def _shard_calls_ok(calls, cfg, s, shards, window):
+    """Every recorded K4 call of a CP run: one a shard a layer, shard r
+    on rows [r*S/m, (r+1)*S/m) at q_offset r*S/m, the config's window."""
+    rows = s // shards
+    want = sorted((rows, r * rows) for r in range(shards)) * cfg.num_layers
+    got = sorted((q[1], off) for q, _, _, _, w, off in calls)
+    return sorted(want) == got and all(c[4] == window for c in calls)
+
+
+def mesh_cp_prefill(cfg, params, b, s):
+    """``make_prefill_step`` of ``cfg`` (bf16, full width) under
+    ``MESH_CP_PREFILL``'s mesh and mode, and under the same mode with no
+    mesh (one K4 launch a layer over all rows): the mesh run's branch,
+    its launches (one a shard a layer) and each call's rows and offset;
+    its last-position logits within ``FA_TOL`` bf16 of the run without
+    the mesh.  For the 16-shard prefill also K4's ms at one shard's
+    shape (first and last shard) beside the one launch over all rows."""
+    import torch
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.launch.steps import make_prefill_step
+    shape, mode, route = MESH_CP_PREFILL[cfg.arch_id]
+    shards = shape[1]
+    window = cfg.sliding_window or 0
+    step = make_prefill_step(cfg, TrainConfig(context_parallel=mode))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device="cuda")
+    out, logits = {"mesh": list(shape), "context_parallel": mode}, {}
+    t_all = time.perf_counter()
+    for tag, mesh_shape in (("without_mesh", None), ("mesh", shape)):
+        routes = []
+        label = f"lm_mesh_path {cfg.arch_id} prefill {tag}"
+        with lm_mesh(mesh_shape), recording_routes(routes):
+            logits[tag], first_s, warm, launched, calls = _kernel_runs(
+                lambda: step(params, {"tokens": toks}), cfg,
+                (b, cfg.vocab_size), label,
+                per_layer=shards if mesh_shape else 1)
+        # routes: the first run and the warm ones; calls: the first run
+        if tag == "mesh" and (
+                routes != [route] * cfg.num_layers * (1 + LM_WARM_RUNS)
+                or not _shard_calls_ok(calls, cfg, s, shards, window)):
+            fail(f"{label}: routes {sorted(set(routes))} x{len(routes)}, "
+                 f"calls {sorted(set((c[0], c[5]) for c in calls))}")
+        med = statistics.median(warm)
+        out[tag] = {"route": sorted(set(routes)), "first_run_s": first_s,
+                    "warm_s": warm, "warm_s_median": med,
+                    "prompt_tokens_per_s": b * s / med,
+                    "launches": launched,
+                    "k4_calls": sorted({(c[0], c[5]) for c in calls})[:4]}
+    err = float((logits["mesh"].float()
+                 - logits["without_mesh"].float()).abs().max())
+    if not _close(logits["mesh"].float(), logits["without_mesh"].float(),
+                  FA_TOL["bfloat16"]):
+        fail(f"lm_mesh_path {cfg.arch_id}: CP prefill logits {err} from "
+             f"those without the mesh (rtol, atol {FA_TOL['bfloat16']})")
+    out.update(logits_max_abs_err=err, tol=FA_TOL["bfloat16"],
+               cp_over_one_launch=out["mesh"]["warm_s_median"]
+               / out["without_mesh"]["warm_s_median"],
+               seconds=time.perf_counter() - t_all)
+    if shards == 16:
+        out["k4_per_shard"] = k4_shard_times(cfg, b, s, shards, window)
+    return out
+
+
+def k4_shard_times(cfg, b, s, shards, window):
+    """K4 (bf16) at one shard's q rows against the full keys, for the
+    first and the last shard, and one launch over all rows: median ms
+    (CUDA events) and the bound of each; then the ``shards`` launches
+    of one layer's CP route back to back."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(b, s, hkv, d, generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    rows = s // shards
+    out = []
+    for r in (0, shards - 1, None):
+        qs = q if r is None else q[:, r * rows:(r + 1) * rows]
+        off = 0 if r is None else r * rows
+        ms = median_ms(lambda: fa.flash_attention(
+            qs, k, v, causal=True, window=window, q_offset=off))
+        bound = flash_bound_ms(tuple(qs.shape), tuple(k.shape), 2, True,
+                               window, off)
+        out.append({"shard": r, "q": list(qs.shape), "k": list(k.shape),
+                    "q_offset": off, "ms": ms, "bound_ms": bound[0],
+                    "bound_by": bound[1]})
+
+    def layer():
+        for r in range(shards):
+            fa.flash_attention(q[:, r * rows:(r + 1) * rows], k, v,
+                               causal=True, window=window,
+                               q_offset=r * rows)
+
+    all_ms = median_ms(layer)
+    return {"launches": out, "all_shards_ms": all_ms,
+            "all_shards_over_one_launch": all_ms / out[-1]["ms"]}
+
+
+def mesh_cp_train():
+    """``lm_loss`` and its gradients (``launch.steps.loss_and_grads``)
+    of full-width llama3.2-1b in f32 on one batch of ``MESH_TRAIN``,
+    with ``context_parallel="always"``, under a (1, 4) mesh and with no
+    mesh: 4 K4 launches a layer (forward with lse, dq, dkdv) against
+    one; the loss and every gradient leaf within ``MESH_GRAD_RTOL`` of
+    the run without the mesh; each side's step time the mean of that
+    step and a second one taken in the other order.  Then K4's bf16 and f32 backward pairs at
+    a CP shard's shape (``MESH_SHARD_BWD``) against their plain twins."""
+    import torch
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.tree import tree_leaves
+    arch, shape, b, s = MESH_TRAIN
+    t_all = time.perf_counter()
+    cfg, params, init_s = _fresh(arch, torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device="cuda")}
+    runs, res = {}, {}
+    for tag, mesh_shape in (("without_mesh", None), ("mesh", shape)):
+        shards = mesh_shape[1] if mesh_shape else 1
+        calls = []
+        with lm_mesh(mesh_shape), recording_attention_calls(calls):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _, grads = loss_and_grads(
+                lambda p: lm_loss(cfg, p, batch,
+                                  context_parallel="always"), params)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = counts()
+        n = cfg.num_layers * shards
+        want = only(flash_attention=n, flash_attention_bwd_dq=n,
+                    flash_attention_bwd_dkdv=n)
+        if launched != want or not _shard_calls_ok(calls, cfg, s, shards,
+                                                   0):
+            fail(f"lm_mesh_path train {tag}: launches {launched}, "
+                 f"expected {want}; calls "
+                 f"{sorted(set((c[0], c[5]) for c in calls))}")
+        res[tag] = (loss, grads)
+        runs[tag] = {"step_s_runs": [wall], "loss": float(loss),
+                     "launches": launched}
+    # one warm step a side more, in the other order (mesh first): the
+    # cost of the route is read from the means over both orders
+    for tag, mesh_shape in (("mesh", shape), ("without_mesh", None)):
+        with lm_mesh(mesh_shape):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss_and_grads(lambda p: lm_loss(cfg, p, batch,
+                                             context_parallel="always"),
+                           params)
+            torch.cuda.synchronize()
+            runs[tag]["step_s_runs"].append(time.perf_counter() - t0)
+    for r_ in runs.values():
+        r_["step_s"] = sum(r_["step_s_runs"]) / len(r_["step_s_runs"])
+        r_["tokens_per_s"] = b * s / r_["step_s"]
+    (loss0, g0), (loss1, g1) = res["without_mesh"], res["mesh"]
+    worst = {"rel_err": 0.0}
+    for name, a, w in zip(_leaf_names(g0), tree_leaves(g1),
+                          tree_leaves(g0)):
+        err = float((a - w).abs().max())
+        scale = float(w.abs().max())
+        if not bool(torch.isfinite(a).all()) or err > MESH_GRAD_RTOL * scale:
+            fail(f"lm_mesh_path train: gradient {'/'.join(name)} is {err} "
+                 f"from the step without the mesh (scale {scale}, rtol "
+                 f"{MESH_GRAD_RTOL})")
+        rel = err / scale if scale else 0.0
+        if rel >= worst["rel_err"]:
+            worst = {"leaf": "/".join(name), "max_abs_err": err,
+                     "scale": scale, "rel_err": rel}
+    loss_err = abs(float(loss1) - float(loss0))
+    if loss_err > MESH_LOSS_RTOL * abs(float(loss0)):
+        fail(f"lm_mesh_path train: loss {float(loss1)} vs {float(loss0)}")
+    del params, res, g0, g1, grads
+    torch.cuda.empty_cache()
+    qs, ks, off = MESH_SHARD_BWD
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    q, k, v, do = r(*qs), r(*ks), r(*ks), r(*qs)
+    shard_bwd = [check_flash_bwd_bf16("cp-shard", q, k, v, do, q_offset=off),
+                 check_flash_bwd("cp-shard", q, k, v, do, q_offset=off)]
+    return {"arch": arch, "mesh": list(shape), "batch": b, "seq": s,
+            "dtype": "torch.float32", "context_parallel": "always",
+            "init_s": init_s, **runs,
+            "mesh_over_without": runs["mesh"]["step_s"]
+            / runs["without_mesh"]["step_s"], "loss_abs_err": loss_err,
+            "grad_rtol": MESH_GRAD_RTOL, "worst_grad": worst,
+            "shard_bwd": shard_bwd, "seconds": time.perf_counter() - t_all}
+
+
+def mesh_fl_lm(fl_lm_rows):
+    """``fl_train`` over the reduced llama clients (``FL_LM_ARGV``) with
+    ``--mesh-clients 4`` over forced shards, twice: the two histories
+    equal, K3 launched (the sharded merge), the accuracies within
+    ``MESH_ACC_ATOL`` of ``fl_lm_path``'s one-device run and its
+    virtual times equal."""
+    from repro_torch.launch import fl_train
+    argv = FL_LM_ARGV + ["--mesh-clients", str(MESH_SHARDS)]
+    hists, launched, walls = [], [], []
+    for _ in range(2):
+        with forced_shards(MESH_SHARDS):
+            zero_counts()
+            t0 = time.perf_counter()
+            hists.append(fl_train.main(argv).to_json())
+            walls.append(time.perf_counter() - t0)
+            launched.append(counts())
+    plain = fl_lm_rows[0]
+    if hists[0] != hists[1] or launched[0] != launched[1]:
+        fail("lm_mesh_path fl_train --mesh-clients: two seeded runs differ")
+    if launched[0]["fedagg_partial"] < 1:
+        fail(f"lm_mesh_path fl_train: K3 never launched: {launched[0]}")
+    acc_err = max(abs(a - p) for a, p in zip(hists[0]["accuracy"],
+                                             plain["accuracy"]))
+    if hists[0]["times"] != plain["times"] or acc_err > MESH_ACC_ATOL:
+        fail(f"lm_mesh_path fl_train: mesh history {hists[0]['accuracy']} "
+             f"{hists[0]['times']} vs one device {plain['accuracy']} "
+             f"{plain['times']}")
+    return {"argv": argv, "accuracy": hists[0]["accuracy"],
+            "one_device_accuracy": plain["accuracy"],
+            "accuracy_max_abs_err": acc_err, "atol": MESH_ACC_ATOL,
+            "wall_s": walls, "launches": launched[0],
+            "two_runs_equal": True}
+
+
+def mesh_train_cli():
+    """``python -m repro_torch.launch.train`` (reduced llama) with and
+    without ``--mesh 1,4`` over 4 forced shards: the same losses bit for
+    bit (on one device the placement moves nothing)."""
+    from repro_torch.launch import train as train_mod
+    with patched(train_mod, "make_token_dataset",
+                 _cached_corpus(train_mod.make_token_dataset)):
+        t0 = time.perf_counter()
+        plain = train_mod.main(MESH_TRAIN_ARGV)
+        with forced_shards(MESH_SHARDS):
+            zero_counts()
+            meshed = train_mod.main(MESH_TRAIN_ARGV + ["--mesh", "1,4"])
+            launched = counts()
+    if meshed != plain:
+        fail(f"lm_mesh_path launch.train --mesh 1,4: losses {meshed} vs "
+             f"{plain}")
+    return {"argv": MESH_TRAIN_ARGV + ["--mesh", "1,4"], "losses": meshed,
+            "equal_to_without_mesh": True, "launches": launched,
+            "seconds": time.perf_counter() - t0}
+
+
+def lm_mesh_path(cp_prefills, fl_lm_rows):
+    """The LM mesh: (a) phi4-mini's and (b) hymba's context-parallel
+    bf16 prefills (run inside the phases that hold their weights), (c)
+    the CP f32 training step, (d) the LM client mesh, (e) ``launch.train
+    --mesh``; every K4 launch count of the CP routes."""
+    import torch
+    train = mesh_cp_train()
+    torch.cuda.empty_cache()
+    return {"prefill": cp_prefills, "train_step": train,
+            "fl_lm_client_mesh": mesh_fl_lm(fl_lm_rows),
+            "train_cli": mesh_train_cli(),
+            "cp_k4_launches": {
+                **{f"{a} prefill": r["mesh"]["launches"]["flash_attention"]
+                   for a, r in cp_prefills.items()},
+                **{f"{MESH_TRAIN[0]} train {part}": train["mesh"][
+                    "launches"][f"flash_attention{key}"]
+                   for part, key in (("forward", ""), ("dq", "_bwd_dq"),
+                                     ("dkdv", "_bwd_dkdv"))}}}
 
 
 # Published peaks of one H100 SXM beside F32_FLOPS_PER_S: the dense bf16
@@ -6394,6 +6735,9 @@ def run_phases() -> int:
     emit({"phase": "lm_serve_path", "card": card, **serve})
     emit({"phase": "lm_bf16_kernel_vs_plain",
           **lm_bf16_kernel_vs_plain(models)})
+    # the LM mesh's hymba prefill on these weights (lm_mesh_path)
+    cp_prefills = {"hymba-1.5b": mesh_cp_prefill(*models["hymba-1.5b"],
+                                                 *LM_PREFILL[0][1:3])}
     models.clear()
     torch.cuda.empty_cache()
     emit({"phase": "lm_consistency", **lm_consistency()})
@@ -6401,11 +6745,14 @@ def run_phases() -> int:
     emit({"phase": "lm_train_path", "card": card, **lm_train})
     bf16_train, bf16_per_step = lm_bf16_train_path()
     emit({"phase": "lm_bf16_train_path", "card": card, **bf16_train})
-    emit({"phase": "fl_lm_path", "card": card, "runs": fl_lm_path()})
+    fl_lm = fl_lm_path()
+    emit({"phase": "fl_lm_path", "card": card, "runs": fl_lm})
     moe_serve, moe_calls = lm_moe_serve_path()
     emit({"phase": "lm_moe_serve_path", "card": card, **moe_serve})
-    wide_rows, wide_calls = lm_wide_head_prefill()
+    wide_rows, wide_calls = lm_wide_head_prefill(cp_prefills)
     emit({"phase": "lm_wide_head_prefill", "card": card, "runs": wide_rows})
+    lm_mesh = lm_mesh_path(cp_prefills, fl_lm)
+    emit({"phase": "lm_mesh_path", "card": card, **lm_mesh})
     emit({"phase": "lm_moe_consistency", **lm_moe_consistency()})
     wide_train, per_step[WIDE_TRAIN[0]] = lm_wide_train_step()
     emit({"phase": "lm_wide_train_step", "card": card, **wide_train})
@@ -6539,6 +6886,8 @@ def run_phases() -> int:
                       *wide_rows,
                       {"arch": AUDIO, "head_dim": audio["head_dim"],
                        "launches": audio["forward"]["launches"]})},
+        # the context-parallel routes: one launch a model shard a layer
+        "cp_launches": lm_mesh["cp_k4_launches"],
         "max_abs_err": max(t["max_abs_err"] for t in fa_times),
         "shape": {"q": fa_times[0]["q"], "k": fa_times[0]["k"],
                   "window": fa_times[0]["window"]},

@@ -21,6 +21,8 @@ from repro_torch.distributed.hostdevices import (ensure_host_device_count,
 _LAZY = {
     "CLIENT_AXIS": "mesh",
     "ClientMesh": "mesh",
+    "Mesh": "mesh",
+    "make_mesh": "mesh",
     "client_devices": "mesh",
     "make_client_mesh": "mesh",
     "ClientShardingPlan": "plan",

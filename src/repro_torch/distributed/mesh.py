@@ -10,6 +10,12 @@ reduced on their own, and the shard partials are added on the first
 device.  Runs over more than one physical GPU are written for but
 unverified.
 
+``Mesh`` is the general N-D mesh of the LM path (``launch/mesh.py``,
+``sharding/``): ``axis_names`` and ``devices``, a numpy object array of
+``torch.device`` whose ``.shape`` is the mesh's -- all that the
+sharding rules and ``sharding.hints.set_mesh`` read, as the JAX
+package's rules read only those two fields of a ``jax.sharding.Mesh``.
+
 A function, not a module-level constant: importing this module never
 touches CUDA state.
 """
@@ -19,6 +25,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -37,6 +44,43 @@ class ClientMesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+
+class Mesh:
+    """An N-D device mesh: ``devices`` (an object array of
+    ``torch.device``, one per mesh point) with one name per axis."""
+
+    def __init__(self, devices, axis_names: Sequence[str]):
+        given = np.asarray(devices, dtype=object)
+        arr = np.empty(given.shape, dtype=object)
+        for idx in np.ndindex(arr.shape):
+            arr[idx] = torch.device(given[idx])
+        if arr.ndim != len(axis_names):
+            raise ValueError(f"mesh of shape {arr.shape} needs "
+                             f"{arr.ndim} axis names, got {axis_names}")
+        self.devices = arr
+        self.axis_names = tuple(axis_names)
+
+    @property
+    def shape(self) -> dict:
+        """{axis name: size}, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
+
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A ``shape`` mesh over the first ``prod(shape)`` of ``devices``
+    (default ``client_devices()``), in row-major order, as
+    ``jax.make_mesh``; more points than devices raise ``ValueError``."""
+    devs = [_normalize(d) for d in (devices if devices is not None
+                                    else client_devices())]
+    n = int(np.prod(shape))
+    if n > len(devs):
+        raise ValueError(f"mesh {tuple(shape)} needs {n} devices, there "
+                         f"are {len(devs)}")
+    arr = np.empty(n, dtype=object)
+    arr[:] = devs[:n]
+    return Mesh(arr.reshape(tuple(shape)), axis_names)
 
 
 def _normalize(device) -> torch.device:

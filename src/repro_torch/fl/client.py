@@ -30,7 +30,8 @@ from repro_torch.models.cnn import cnn_forward, cnn_loss, init_cnn
 from repro_torch.models.transformer import forward as lm_forward
 from repro_torch.models.transformer import init_model, lm_loss
 from repro_torch.optim import make_optimizer
-from repro_torch.tree import tree_flatten, tree_map, tree_stack, tree_unflatten
+from repro_torch.tree import (tree_flatten, tree_leaves, tree_map, tree_stack,
+                              tree_unflatten)
 
 
 class CNNTrainer:
@@ -216,10 +217,15 @@ class LMTrainer:
 
     The reference's jitted, client-``vmap``ped programs become one
     client at a time: a client's local step is a whole-model forward
-    and backward, so ``local_train_batch`` and ``local_train_cohort``
-    loop over the clients and stack their models, and are the looped
-    ``local_train`` bit for bit.  Each client trains a copy of its start
-    model in place (``launch.steps.update_in_place``)."""
+    and backward.  ``local_train``, and the stacked-train functions
+    ``_batch_train_impl`` and ``_batch_train_multi_impl`` behind
+    ``local_train_batch`` and ``local_train_cohort``, all run
+    ``_train_one``: E steps on a copy of the start model, trained in
+    place (``launch.steps.update_in_place``).  The stacked functions
+    take the clients' token streams as one (C, E, B, S) tensor, as the
+    reference's do; on a client mesh (the distributed engine's ``wrap``
+    hook) the engine splits that axis over the shards.  A padding row
+    (a repeat of the row before it) trains once on either route."""
 
     def __init__(self, cfg: ModelConfig, fl: FLConfig, seq_len: int = 128,
                  batch: int = 8, corpus_tokens: int = 200_000,
@@ -256,9 +262,6 @@ class LMTrainer:
         starts = rng.integers(0, n, self.batch)
         return np.stack([toks[s:s + self.seq] for s in starts])
 
-    def _tokens(self, toks: np.ndarray, seed: int):
-        return torch.from_numpy(self._batch(toks, seed)).to(self.device)
-
     def init_params(self, seed: int = 0):
         if self._init_fn is not None:
             return self._init_fn(seed)
@@ -266,58 +269,95 @@ class LMTrainer:
         return init_model(self.cfg, gen)
 
     def local_train(self, params, client_id: int, rnd_seed: int):
-        toks = self.client_toks[client_id]
-        params = tree_map(lambda l: l.detach().clone(), params)
+        toks = self._stream_tokens([(client_id, rnd_seed)])
+        return (self._train_one(params, toks[0]),
+                len(self.client_toks[client_id]))
+
+    def _train_one(self, start, tok_seq):
+        """E local steps (``tok_seq`` (E, B, S)) on a copy of ``start``."""
+        params = tree_map(lambda l: l.detach().clone(), start)
         opt_state = self.opt.init(params)
-        for ep in range(self.fl.local_epochs):
-            params, opt_state, _ = self._step(
-                params, opt_state, self._tokens(toks, rnd_seed * 131 + ep))
-        return params, len(toks)
+        for tokens in tok_seq:
+            params, opt_state, _ = self._step(params, opt_state, tokens)
+        return params
 
-    def local_train_batch(self, params, client_ids, rnd_seed: int, *,
-                          wrap=None):
-        """Every client from ``params``: the looped ``local_train`` per
-        distinct client (the engine's pow2 padding repeats the last one,
-        which trains once), models stacked (leading axis
-        len(client_ids)).  ``wrap`` is the distributed engine's hook
-        (see ``CNNTrainer``)."""
-        self._batchable(wrap)
-        trained = {}
-        for c in client_ids:
-            if c not in trained:
-                trained[c] = self.local_train(params, c, rnd_seed)[0]
-        return (tree_stack([trained[c] for c in client_ids]),
-                self._sizes(client_ids))
+    def _stream_tokens(self, keys):
+        """(C, E, B, S) token batches on the device, row i the local
+        epochs' batches of client ``keys[i][0]`` under seed
+        ``keys[i][1]``."""
+        return torch.from_numpy(np.stack([
+            np.stack([self._batch(self.client_toks[c], s * 131 + ep)
+                      for ep in range(self.fl.local_epochs)])
+            for c, s in keys])).to(self.device)
 
-    def _batchable(self, wrap) -> None:
+    def _train_rows(self, start, tokens):
+        """Row i of ``tokens`` (C, E, B, S) trains ``start(i)``; models
+        stacked.  A row that repeats the one before it (same tokens, same
+        start: the engine's padding) reuses that row's model."""
+        models, prev = [], None
+        for i in range(tokens.shape[0]):
+            p0 = start(i)
+            if prev is not None and torch.equal(tokens[i], tokens[i - 1]) \
+                    and _same_tree(p0, prev):
+                models.append(models[-1])
+            else:
+                models.append(self._train_one(p0, tokens[i]))
+            prev = p0
+        return tree_stack(models)
+
+    def _batch_train_impl(self, params, tokens):
+        """tokens (C, E, B, S) -> stacked params (C, ...), every client
+        from ``params``."""
+        return self._train_rows(lambda i: params, tokens)
+
+    def _batch_train_multi_impl(self, start_params, tokens):
+        """tokens (C, E, B, S), ``start_params`` stacked (C, ...): every
+        client trains from its own snapshot."""
+        return self._train_rows(
+            lambda i: tree_map(lambda l: l[i], start_params), tokens)
+
+    def _batchable(self) -> None:
         if self._custom_step:
             raise NotImplementedError(
                 "custom step_fn trainers use the looped path")
-        if wrap is not None:
-            raise NotImplementedError(
-                "LMTrainer on a client mesh waits for the LM mesh slice")
 
     def _sizes(self, client_ids):
         return np.asarray([len(self.client_toks[c]) for c in client_ids],
                           np.float32)
 
+    def local_train_batch(self, params, client_ids, rnd_seed: int, *,
+                          wrap=None):
+        """Every client from ``params``, models stacked (leading axis
+        len(client_ids)).  ``wrap`` is the distributed engine's hook
+        (see ``CNNTrainer``)."""
+        self._batchable()
+        toks = self._stream_tokens([(c, rnd_seed) for c in client_ids])
+        run = (self._batch_train_impl if wrap is None
+               else wrap(self._batch_train_impl, 1))
+        return run(params, toks), self._sizes(client_ids)
+
     def local_train_cohort(self, start_params, client_ids, rnd_seeds, *,
                            wrap=None):
         """Async-window cohort: per-client start models (stacked) and
-        per-client seeds; the looped ``local_train(start_i, c_i,
-        seed_i)`` per client, models stacked."""
-        self._batchable(wrap)
-        models = [self.local_train(tree_map(lambda l: l[i], start_params),
-                                   c, s)[0]
-                  for i, (c, s) in enumerate(zip(client_ids, rnd_seeds))]
-        return tree_stack(models), self._sizes(client_ids)
+        per-client seeds; row i is ``local_train(start_i, c_i, seed_i)``.
+        ``wrap``: see ``local_train_batch`` (zero replicated args)."""
+        self._batchable()
+        toks = self._stream_tokens(list(zip(client_ids, rnd_seeds)))
+        run = (self._batch_train_multi_impl if wrap is None
+               else wrap(self._batch_train_multi_impl, 0))
+        return run(start_params, toks), self._sizes(client_ids)
 
     def evaluate(self, params) -> float:
-        b = self._tokens(self.test_toks, 1234)
+        b = torch.from_numpy(self._batch(self.test_toks, 1234)).to(self.device)
         with torch.no_grad():
             logits, _ = lm_forward(self.cfg, params, {"tokens": b})
             pred = torch.argmax(logits[:, :-1], dim=-1)
             return float((pred == b[:, 1:]).float().mean())
+
+
+def _same_tree(a, b) -> bool:
+    return a is b or all(torch.equal(x, y) for x, y in
+                         zip(tree_leaves(a), tree_leaves(b)))
 
 
 def build_fl_clients(arch_id: str, fl: FLConfig,

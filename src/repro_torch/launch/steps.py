@@ -4,8 +4,10 @@ package's ``launch/steps.py``).
 The steps are plain functions over real tensors: PyTorch runs eagerly,
 so there is no jit.  ``input_specs`` gives the step's data inputs as
 ``meta`` tensors (shapes and dtypes, no storage), the reference's
-ShapeDtypeStructs; the other abstract forms (``abstract_*``) belong to
-the dry run, a later slice.
+ShapeDtypeStructs; ``abstract_params``, ``abstract_opt_state`` and
+``abstract_decode_state`` give the model, its optimizer state and its
+decode state the same way, allocating nothing (the dry run reads
+them, ``launch/dryrun.py``).
 ``make_serve_loop`` is a Python loop of greedy decode steps.
 
 ``make_train_step``'s step writes the parameters and the optimizer
@@ -25,8 +27,9 @@ from typing import Optional
 import torch
 
 from repro_torch.config.base import InputShape, ModelConfig, TrainConfig
-from repro_torch.models.transformer import (decode_step, forward, lm_head,
-                                            lm_loss)
+from repro_torch.models.transformer import (decode_step, forward,
+                                            init_decode_state, init_model,
+                                            lm_head, lm_loss)
 from repro_torch.optim import global_norm, make_optimizer
 from repro_torch.optim.optimizer import apply_updates
 from repro_torch.tree import tree_flatten, tree_unflatten
@@ -75,6 +78,32 @@ def input_specs(cfg: ModelConfig, shape: InputShape,
             out["labels"] = spec((b, s), torch.int32)
         return out
     return {"tokens": spec((b, s), torch.int32)}
+
+
+def abstract_params(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()):
+    """The model's parameters as ``meta`` tensors: the reference's
+    shapes and dtypes leaf for leaf, nothing allocated or drawn."""
+    return init_model(cfg, torch.Generator(), dtype=_dtype(tcfg),
+                      device="meta")
+
+
+def abstract_opt_state(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()):
+    """The optimizer's ``init`` over ``abstract_params`` (AdamW: ``m``
+    and ``v`` like the parameters, the step ``t``), all ``meta``."""
+    opt = make_optimizer(tcfg.optimizer, weight_decay=tcfg.weight_decay)
+    return opt.init(abstract_params(cfg, tcfg))
+
+
+def abstract_decode_state(cfg: ModelConfig, shape: InputShape,
+                          tcfg: TrainConfig = TrainConfig()):
+    """``init_decode_state`` for ``shape`` on ``meta``.  The position
+    counter, a host int in the port's decode state, is a 0-d int32
+    ``meta`` tensor here, as the reference's is."""
+    w = swa_window_for(cfg, shape, enabled=tcfg.long_ctx_swa)
+    state = init_decode_state(cfg, shape.global_batch, shape.seq_len,
+                              dtype=_dtype(tcfg), window=w, device="meta")
+    state["pos"] = torch.empty((), dtype=torch.int32, device="meta")
+    return state
 
 
 def ready_checkpoint() -> None:

@@ -11,8 +11,17 @@ chunked and banded branches and every SSM scan runs the hand-written
 forward and backward kernels (``kernels/flash_attention.py``,
 ``kernels/ssm_scan.py``).  f32 products run in full precision (no
 TF32).  The step updates the model and the optimizer state in place
-(``launch/steps.py: make_train_step``).  ``--mesh`` (the data/model
-mesh) waits for the LM mesh slice.
+(``launch/steps.py: make_train_step``).
+
+``--mesh d,m`` trains under a ("data", "model") mesh over the devices
+there are (``distributed.mesh.client_devices``: N virtual shards of the
+device under ``--force_client_shards=N`` in ``REPRO_TORCH_FLAGS``;
+``d*m`` beyond them raises, as ``jax.make_mesh`` does): the model's
+hints and routes see the mesh's axis sizes (``sharding.hints.
+set_mesh``), and the parameters' placement is computed
+(``sharding.param_specs``) and its bytes per device printed.  On one
+physical device placing moves nothing, so the losses are those of the
+run without the mesh.
 """
 
 from __future__ import annotations
@@ -28,8 +37,11 @@ from repro_torch.checkpoint import save_checkpoint
 from repro_torch.config import get_arch
 from repro_torch.config.base import TrainConfig
 from repro_torch.data.synthetic import make_token_dataset
+from repro_torch.distributed.mesh import client_devices, make_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import init_model
+from repro_torch.sharding import named_shardings, param_specs
+from repro_torch.sharding.hints import set_mesh
 from repro_torch.tree import tree_leaves
 
 
@@ -50,10 +62,6 @@ def main(argv=None):
                     help="cuda (default; raises when absent) or cpu")
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: the data/model mesh of LM training waits for the LM "
-            "mesh slice (ROADMAP.md queue 1, items 13e and 14)")
     device = resolve_device(args.device)
     set_full_f32()
     cfg = get_arch(args.arch)
@@ -65,10 +73,23 @@ def main(argv=None):
                        attn_chunk_q=min(128, args.seq),
                        attn_chunk_kv=min(128, args.seq))
 
+    mesh = None
+    if args.mesh:
+        d, m = (int(x) for x in args.mesh.split(","))
+        mesh = make_mesh((d, m), ("data", "model"),
+                         devices=client_devices(device))
+
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_model(cfg, gen, dtype=torch.float32)
     step, opt = make_train_step(cfg, tcfg)
     opt_state = opt.init(params)
+
+    if mesh is not None:
+        p_sh = tree_leaves(named_shardings(param_specs(params, mesh), mesh))
+        per_dev = sum(sh.device_bytes(x)
+                      for sh, x in zip(p_sh, tree_leaves(params)))
+        print(f"[train] mesh (data, model) = ({d}, {m}): "
+              f"{per_dev / 1e6:.1f} MB of parameters per device")
 
     toks = make_token_dataset(cfg.vocab_size, 400_000, seed=0)
     rng = np.random.default_rng(0)
@@ -78,16 +99,20 @@ def main(argv=None):
 
     losses = []
     t0 = time.time()
-    for i in range(args.steps):
-        starts = rng.integers(0, len(toks) - args.seq - 1, args.batch)
-        batch = {"tokens": torch.from_numpy(
-            np.stack([toks[s:s + args.seq] for s in starts])).to(device)}
-        params, opt_state, metrics = step(params, opt_state, batch)
-        losses.append(float(metrics["loss"]))
-        if (i + 1) % args.log_every == 0:
-            dt = (time.time() - t0) / (i + 1)
-            print(f"[train] step {i+1:5d} loss={losses[-1]:.4f} "
-                  f"({dt*1e3:.0f} ms/step)")
+    set_mesh(mesh)
+    try:
+        for i in range(args.steps):
+            starts = rng.integers(0, len(toks) - args.seq - 1, args.batch)
+            batch = {"tokens": torch.from_numpy(
+                np.stack([toks[s:s + args.seq] for s in starts])).to(device)}
+            params, opt_state, metrics = step(params, opt_state, batch)
+            losses.append(float(metrics["loss"]))
+            if (i + 1) % args.log_every == 0:
+                dt = (time.time() - t0) / (i + 1)
+                print(f"[train] step {i+1:5d} loss={losses[-1]:.4f} "
+                      f"({dt*1e3:.0f} ms/step)")
+    finally:
+        set_mesh(None)
     if args.ckpt:
         save_checkpoint(args.ckpt, args.steps,
                         {"params": params, "opt": opt_state})

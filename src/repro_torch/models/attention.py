@@ -21,9 +21,19 @@ which is the chunked function exactly and the banded one whenever the
 band holds every visible key (always under the causal mask).  The
 kernel has no logit softcap, so ``softcap > 0`` on the card raises.
 
-The context-parallel branches (``*_cp``) wait for the LM mesh: with no
-mesh ``axis_size("model")`` is 1, so ``context_parallel="auto"`` never
-picks them, and ``"always"`` raises.
+The context-parallel branches (``chunked_attention_cp``,
+``banded_attention_cp``) put the Q-CHUNK axis, not the heads, on the
+"model" mesh axis: ``attention()`` takes them when the head count does
+not divide that axis (``context_parallel="auto"`` under a mesh,
+``sharding.hints``) or when asked (``"always"``, with or without a
+mesh).  On the CPU they run the reference's algorithm in plain
+PyTorch.  On a CUDA tensor shard ``r`` of the ``m = axis_size("model")``
+shards owns the contiguous q rows ``[r*S/m, (r+1)*S/m)`` (the
+reference's q chunks are contiguous and their axis is hinted onto
+"model"), and each shard is one launch of the attention kernel at
+``q_offset + r*S/m`` on the un-repeated k/v; the outputs are
+concatenated.  A mesh's shards share one physical device (``set_mesh``
+admits no other), so they run one after another.
 
 The ring-cache decode (``init_kv_cache``, ``update_kv_cache``,
 ``decode_attention``) is plain PyTorch, as the reference's is jnp;
@@ -44,6 +54,13 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.sharding.hints import axis_size, hint
 
 NEG_INF = -1e30
+
+# head_dim-sharded decode attention for archs whose head count doesn't
+# divide the model axis (the reference's perf toggle).  It picks the
+# spec of decode's k/v hints (``decode_kv_axes``); ``hint`` places
+# nothing on one physical device, so in the port it changes no value
+# and no placement until ROADMAP queue 1 item 15
+DECODE_HEADDIM_SHARD = True
 
 
 def repeat_kv(k, n_heads: int):
@@ -214,16 +231,148 @@ def banded_attention(q, k, v, *, window: int, causal=True, q_offset=0,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def _cp_kernel(q, k, v, *, causal, window, q_offset):
+    """The context-parallel route on the card: one launch of the
+    attention kernel per model shard, shard ``r`` of ``m`` on the q rows
+    ``[r*S/m, (r+1)*S/m)`` at ``q_offset + r*S/m``, outputs concatenated.
+
+    Gradients go through each launch's ``FlashAttentionFn``: a shard's
+    dq is its own launch's, dk and dv are autograd's sum over the
+    shards, so their bits differ from those of one launch over all
+    rows (the same sum in another order)."""
+    m = axis_size("model")
+    s = q.shape[1]
+    if s % m:
+        raise ValueError(f"context-parallel attention: {s} q rows do not "
+                         f"split over {m} model shards")
+    rows = s // m
+    outs = [kernel_ops.gqa_flash_attention(
+        q[:, r * rows:(r + 1) * rows], k, v, causal=causal, window=window,
+        q_offset=q_offset + r * rows) for r in range(m)]
+    return outs[0] if m == 1 else torch.cat(outs, dim=1)
+
+
+def _cp_chunks(s, t, chunk_q, chunk_kv):
+    """The chunk sizes clamped to S and T; they must divide them."""
+    chunk_q = min(chunk_q, s)
+    chunk_kv = min(chunk_kv, t)
+    if s % chunk_q or t % chunk_kv:
+        raise ValueError("seq not divisible by chunks")
+    return chunk_q, chunk_kv
+
+
+def chunked_attention_cp(q, k, v, *, causal=True, window=0, q_offset=0,
+                         chunk_q=512, chunk_kv=1024, softcap: float = 0.0):
+    """Context-parallel flash: the Q-CHUNK axis (not heads) carries the
+    "model" mesh axis.  Used when n_heads doesn't divide the model axis
+    (phi4 24H, hymba 25H, arctic 56H on a 16-way axis): each shard owns
+    S/m of the query rows and streams the (small, GQA) KV blocks.
+    q (B,S,H,D); k/v (B,T,Hkv,D), Hkv dividing H.  On the CPU all q
+    chunks are one batched axis under an online softmax over KV blocks;
+    on the card one kernel launch per model shard (``_cp_kernel``)."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    chunk_q, chunk_kv = _cp_chunks(s, t, chunk_q, chunk_kv)
+    if _kernel_route(q, softcap):
+        return _cp_kernel(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset)
+    k, v = repeat_kv(k, h), repeat_kv(v, h)
+    nc = s // chunk_q
+    scale = 1.0 / math.sqrt(d)
+    qc = hint(q.reshape(b, nc, chunk_q, h, d),
+              "batch", "model", None, None, None).float()
+    dev = q.device
+    q_pos = (q_offset + torch.arange(nc, device=dev)[:, None] * chunk_q
+             + torch.arange(chunk_q, device=dev)[None, :])   # (nc, cq)
+    acc = torch.zeros((b, nc, h, chunk_q, d), dtype=torch.float32,
+                      device=dev)
+    m_run = torch.full((b, nc, h, chunk_q), NEG_INF, dtype=torch.float32,
+                       device=dev)
+    l_run = torch.zeros((b, nc, h, chunk_q), dtype=torch.float32,
+                        device=dev)
+    for blk in range(t // chunk_kv):
+        kb = k[:, blk * chunk_kv:(blk + 1) * chunk_kv]
+        vb = v[:, blk * chunk_kv:(blk + 1) * chunk_kv]
+        s_ = torch.einsum("bnqhd,bthd->bnhqt", qc, kb.float()) * scale
+        s_ = _softcap(s_, softcap)
+        k_pos = blk * chunk_kv + torch.arange(chunk_kv, device=dev)
+        m = torch.ones((nc, chunk_q, chunk_kv), dtype=torch.bool,
+                       device=dev)
+        if causal:
+            m &= k_pos[None, None, :] <= q_pos[..., None]
+        if window > 0:
+            m &= k_pos[None, None, :] > q_pos[..., None] - window
+        s_ = s_ + _bias(m)[:, None][None]
+        s_ = hint(s_, "batch", "model", None, None, None)
+        m_new = torch.maximum(m_run, s_.amax(dim=-1))
+        p = torch.exp(s_ - m_new[..., None])
+        corr = torch.exp(m_run - m_new)
+        l_run = l_run * corr + p.sum(dim=-1)
+        pv = torch.einsum("bnhqt,bthd->bnhqd", p, vb.float())
+        acc = acc * corr[..., None] + pv
+        m_run = m_new
+    out = acc / torch.clamp(l_run, min=1e-30)[..., None]   # (B,nc,H,cq,D)
+    return out.movedim(3, 2).reshape(b, s, h, d).to(q.dtype)
+
+
+def banded_attention_cp(q, k, v, *, window: int, causal=True, q_offset=0,
+                        chunk_q=512, chunk_kv=1024, softcap: float = 0.0):
+    """Context-parallel sliding window: all q chunks processed as a
+    batched (shardable) axis; each chunk gathers its own KV band.  Used
+    when heads don't divide the model axis (hymba 25H).  q (B,S,H,D);
+    k/v (B,T,Hkv,D).  On the card one kernel launch per model shard
+    (``_cp_kernel``), which computes the full window: the band holds
+    every visible key under the causal mask, so non-causal raises there,
+    as ``banded_attention`` does."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    chunk_q, chunk_kv = _cp_chunks(s, t, chunk_q, chunk_kv)
+    if _kernel_route(q, softcap):
+        if not causal:
+            raise NotImplementedError(
+                "non-causal banded attention on a CUDA tensor: the "
+                "attention kernel computes the full window")
+        return _cp_kernel(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset)
+    k, v = repeat_kv(k, h), repeat_kv(v, h)
+    nc = s // chunk_q
+    nb = (window - 1 + chunk_q + chunk_kv - 1) // chunk_kv + 1
+    nb = min(nb, t // chunk_kv)
+    scale = 1.0 / math.sqrt(d)
+    qc = hint(q.reshape(b, nc, chunk_q, h, d),
+              "batch", "model", None, None, None)
+    dev = q.device
+    q_starts = torch.arange(nc, device=dev) * chunk_q
+    lo = q_starts - (window - 1) + q_offset
+    first = torch.clamp(torch.div(lo, chunk_kv, rounding_mode="floor"),
+                        0, t // chunk_kv - nb)                  # (nc,)
+    k_pos = (first[:, None] * chunk_kv
+             + torch.arange(nb * chunk_kv, device=dev)[None])   # (nc, nbk)
+    kbs, vbs = k[:, k_pos], v[:, k_pos]                 # (B,nc,nbk,H,D)
+    s_ = torch.einsum("bnqhd,bnthd->bnhqt", qc.float(), kbs.float()) * scale
+    s_ = _softcap(s_, softcap)
+    q_pos = q_offset + q_starts[:, None] + torch.arange(chunk_q,
+                                                        device=dev)[None]
+    m = k_pos[:, None, :] > q_pos[..., None] - window
+    if causal:
+        m &= k_pos[:, None, :] <= q_pos[..., None]
+    s_ = s_ + _bias(m)[None, :, None]
+    s_ = hint(s_, "batch", "model", None, None, None)
+    p = torch.softmax(s_, dim=-1)
+    o = torch.einsum("bnhqt,bnthd->bnqhd", p.to(vbs.dtype).float(),
+                     vbs.float())
+    return o.reshape(b, s, h, d).to(q.dtype)
+
+
 def attention(q, k, v, *, causal=True, window=0, q_offset=0,
               chunk_q=512, chunk_kv=1024, softcap: float = 0.0,
               context_parallel: str = "auto"):
     """Dispatch, as the reference's.  k/v are (B,T,Hkv,D); the naive
-    branch takes them head-expanded, the chunked and banded branches
-    as they are.
+    branch takes them head-expanded, the others as they are.
 
     context_parallel: "auto" = shard q chunks over "model" when the head
     count doesn't divide the model axis (never, with no mesh); "never" |
-    "always" override ("always" raises until the LM mesh exists).
+    "always" override.
     """
     h = q.shape[2]
     s, t = q.shape[1], k.shape[1]
@@ -235,9 +384,26 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0,
     want_cp = (context_parallel == "always" or
                (context_parallel == "auto" and msize > 1 and h % msize))
     if want_cp:
-        raise NotImplementedError(
-            "context-parallel attention needs the LM mesh (sharding/), "
-            "which a later slice brings")
+        # q-chunk count must be a multiple of the model axis: shrink
+        # chunk_q if needed (train_4k: 4096/512 = 8 chunks < 16 shards)
+        cq = min(chunk_q, s)
+        if (s // cq) % msize and s % msize == 0:
+            cq = max(s // msize, 1)
+        if (s // cq) % msize == 0:
+            if window and window < t:
+                # banded CP gathers ~(window/chunk_q)x duplicated KV per
+                # chunk: the reference takes it only when chunk_q >=
+                # window, or when asked
+                if cq >= window or context_parallel == "always":
+                    return banded_attention_cp(
+                        q, k, v, window=window, causal=causal,
+                        q_offset=q_offset, chunk_q=cq, chunk_kv=chunk_kv,
+                        softcap=softcap)
+            else:
+                return chunked_attention_cp(
+                    q, k, v, causal=causal, window=window,
+                    q_offset=q_offset, chunk_q=cq, chunk_kv=chunk_kv,
+                    softcap=softcap)
     if window and window < t:
         return banded_attention(q, k, v, window=window, causal=causal,
                                 q_offset=q_offset, chunk_q=chunk_q,
@@ -277,11 +443,24 @@ def update_kv_cache(cache, k_new, v_new, pos: int):
     return cache
 
 
+def decode_kv_axes(h: int, d: int):
+    """The hint axes of decode's head-expanded k/v (B,W,H,D), the
+    reference's two branches: heads over "model" when they divide it;
+    otherwise, with ``DECODE_HEADDIM_SHARD``, head_dim over "model"."""
+    msize = axis_size("model")
+    if DECODE_HEADDIM_SHARD and msize > 1 and h % msize and d % msize == 0:
+        return ("batch", None, None, "model")
+    return ("batch", None, "model", None)
+
+
 def decode_attention(q, cache, pos: int, *, window=0, softcap: float = 0.0):
-    """q (B,1,H,D) against the ring cache; returns (B,1,H,D)."""
+    """q (B,1,H,D) against the ring cache; returns (B,1,H,D).  k/v take
+    the hints of ``decode_kv_axes``, which place and never change a
+    value."""
     b, _, h, d = q.shape
-    k = repeat_kv(cache["k"], h)
-    v = repeat_kv(cache["v"], h)
+    axes = decode_kv_axes(h, d)
+    k = hint(repeat_kv(cache["k"], h), *axes)
+    v = hint(repeat_kv(cache["v"], h), *axes)
     s_ = _scores(q, k) / math.sqrt(d)
     s_ = _softcap(s_, softcap)
     kp = cache["pos"]

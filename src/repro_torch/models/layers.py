@@ -3,8 +3,10 @@ tensors), the JAX package's ``models/layers.py``.
 
 Initialisers draw from an explicit ``torch.Generator`` on that
 generator's device: a CUDA generator draws a full-width model on the
-card.  Numerics follow the reference: norms in f32, cast back to the
-input's dtype.
+card.  ``device="meta"`` makes the tensors on ``meta`` in place of
+``gen``'s device and draws nothing: shapes and dtypes only, the
+abstract trees of ``launch/steps.py``.  Numerics follow the reference:
+norms in f32, cast back to the input's dtype.
 """
 
 from __future__ import annotations
@@ -15,21 +17,35 @@ import torch
 import torch.nn.functional as F
 
 
+def init_device(gen: torch.Generator, device=None) -> torch.device:
+    """Where an initialiser makes its tensors: ``device``, else
+    ``gen``'s device."""
+    return gen.device if device is None else torch.device(device)
+
+
 def dense_init(gen: torch.Generator, shape, scale: float | None = None,
-               dtype=torch.float32):
+               dtype=torch.float32, device=None):
     """Truncated-normal fan-in init (LeCun-ish, like maxtext defaults):
     a standard normal cut at +-2, times ``scale`` (default
-    ``1/sqrt(fan_in)``), drawn in f32 on ``gen``'s device."""
+    ``1/sqrt(fan_in)``), drawn in f32 on ``gen``'s device (on ``meta``:
+    no draw)."""
     fan_in = shape[0] if len(shape) > 1 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    w = torch.empty(shape, dtype=torch.float32,
+                    device=init_device(gen, device))
+    if w.is_meta:
+        return w.to(dtype)
     torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=gen)
     return w.mul_(scale).to(dtype)
 
 
-def embed_init(gen: torch.Generator, shape, dtype=torch.float32):
-    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+def embed_init(gen: torch.Generator, shape, dtype=torch.float32,
+               device=None):
+    w = torch.empty(shape, dtype=torch.float32,
+                    device=init_device(gen, device))
+    if w.is_meta:
+        return w.to(dtype)
     return w.normal_(0.0, 1.0, generator=gen).mul_(0.02).to(dtype)
 
 
@@ -66,14 +82,16 @@ def activate(h_gate, h_up, kind: str):
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, kind: str,
-             dtype=torch.float32):
+             dtype=torch.float32, device=None):
     """Same keys as the reference; drawn in the order w_gate, w_up,
     w_down."""
     p = {}
     if kind == "swiglu":
-        p["w_gate"] = dense_init(gen, (d_model, d_ff), dtype=dtype)
-    p["w_up"] = dense_init(gen, (d_model, d_ff), dtype=dtype)
-    p["w_down"] = dense_init(gen, (d_ff, d_model), dtype=dtype)
+        p["w_gate"] = dense_init(gen, (d_model, d_ff), dtype=dtype,
+                                 device=device)
+    p["w_up"] = dense_init(gen, (d_model, d_ff), dtype=dtype, device=device)
+    p["w_down"] = dense_init(gen, (d_ff, d_model), dtype=dtype,
+                             device=device)
     return p
 
 

@@ -30,20 +30,22 @@ from repro_torch.sharding.hints import axis_size, hint
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
              activation: str, dense_residual: bool = False,
-             dense_ff: int = 0, dtype=torch.float32):
+             dense_ff: int = 0, dtype=torch.float32, device=None):
     """The reference's keys and shapes (the router in f32), drawn from
     ``gen`` on its device in the order router, w_gate, w_up, w_down,
     dense_mlp."""
     p = {"router": dense_init(gen, (d_model, n_experts),
-                              dtype=torch.float32)}
+                              dtype=torch.float32, device=device)}
     if activation == "swiglu":
         p["w_gate"] = dense_init(gen, (n_experts, d_model, d_ff),
-                                 dtype=dtype)
-    p["w_up"] = dense_init(gen, (n_experts, d_model, d_ff), dtype=dtype)
-    p["w_down"] = dense_init(gen, (n_experts, d_ff, d_model), dtype=dtype)
+                                 dtype=dtype, device=device)
+    p["w_up"] = dense_init(gen, (n_experts, d_model, d_ff), dtype=dtype,
+                           device=device)
+    p["w_down"] = dense_init(gen, (n_experts, d_ff, d_model), dtype=dtype,
+                             device=device)
     if dense_residual:
         p["dense_mlp"] = init_mlp(gen, d_model, dense_ff or d_ff,
-                                  activation, dtype=dtype)
+                                  activation, dtype=dtype, device=device)
     return p
 
 

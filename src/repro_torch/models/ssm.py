@@ -20,30 +20,35 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ssm_scan as ssm_kernel
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, init_device
 from repro_torch.sharding.hints import hint
 
 
 def init_ssm(gen: torch.Generator, d_model: int, n_state: int,
-             expand: int = 2, conv_k: int = 4, dtype=torch.float32):
+             expand: int = 2, conv_k: int = 4, dtype=torch.float32,
+             device=None):
     """The reference's keys and shapes; A_log = log(1..n) per channel,
     dt_bias = softplus^-1 of dt drawn log-uniform in [1e-3, 1e-1]."""
     d_in = expand * d_model
-    dev = gen.device
+    dev = init_device(gen, device)
     u = torch.empty((d_in,), dtype=torch.float32, device=dev).uniform_(
         math.log(1e-3), math.log(1e-1), generator=gen)
     dt_init = torch.log(torch.expm1(torch.exp(u)))
     a_log = torch.log(torch.arange(1, n_state + 1, dtype=torch.float32,
                                    device=dev))
     return {
-        "w_in": dense_init(gen, (d_model, 2 * d_in), dtype=dtype),
-        "conv_w": dense_init(gen, (conv_k, d_in), scale=0.5, dtype=dtype),
-        "w_bc": dense_init(gen, (d_in, 2 * n_state), dtype=dtype),
-        "w_dt": dense_init(gen, (d_in, d_in), scale=0.01, dtype=dtype),
+        "w_in": dense_init(gen, (d_model, 2 * d_in), dtype=dtype,
+                           device=device),
+        "conv_w": dense_init(gen, (conv_k, d_in), scale=0.5, dtype=dtype,
+                             device=device),
+        "w_bc": dense_init(gen, (d_in, 2 * n_state), dtype=dtype,
+                           device=device),
+        "w_dt": dense_init(gen, (d_in, d_in), scale=0.01, dtype=dtype,
+                           device=device),
         "dt_bias": dt_init,
         "A_log": a_log[None, :].repeat(d_in, 1),             # (d_in,n)
         "D": torch.ones((d_in,), dtype=torch.float32, device=dev),
-        "w_out": dense_init(gen, (d_in, d_model), dtype=dtype),
+        "w_out": dense_init(gen, (d_in, d_model), dtype=dtype, device=device),
     }
 
 

@@ -44,8 +44,9 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
-from repro_torch.models.layers import (dense_init, embed_init, init_mlp, mlp,
-                                       rms_norm, take_embedding)
+from repro_torch.models.layers import (dense_init, embed_init, init_device,
+                                       init_mlp, mlp, rms_norm,
+                                       take_embedding)
 from repro_torch.models.rope import apply_rope
 from repro_torch.sharding.hints import hint
 from repro_torch.tree import tree_map, tree_stack
@@ -63,53 +64,59 @@ def _check_family(cfg: ModelConfig) -> None:
 # Block init
 # ---------------------------------------------------------------------------
 
-def _init_attn(gen, cfg: ModelConfig, dtype):
+def _init_attn(gen, cfg: ModelConfig, dtype, device=None):
     return {
-        "wq": dense_init(gen, (cfg.d_model, cfg.q_dim), dtype=dtype),
-        "wk": dense_init(gen, (cfg.d_model, cfg.kv_dim), dtype=dtype),
-        "wv": dense_init(gen, (cfg.d_model, cfg.kv_dim), dtype=dtype),
-        "wo": dense_init(gen, (cfg.q_dim, cfg.d_model), dtype=dtype),
+        "wq": dense_init(gen, (cfg.d_model, cfg.q_dim), dtype=dtype,
+                         device=device),
+        "wk": dense_init(gen, (cfg.d_model, cfg.kv_dim), dtype=dtype,
+                         device=device),
+        "wv": dense_init(gen, (cfg.d_model, cfg.kv_dim), dtype=dtype,
+                         device=device),
+        "wo": dense_init(gen, (cfg.q_dim, cfg.d_model), dtype=dtype,
+                         device=device),
     }
 
 
-def _init_block(gen, cfg: ModelConfig, dtype):
-    dev = gen.device
+def _init_block(gen, cfg: ModelConfig, dtype, device=None):
+    dev = init_device(gen, device)
     if cfg.family == "ssm":  # xLSTM pair
         return {
             "ln1": torch.zeros((cfg.d_model,), dtype=torch.float32,
                                device=dev),
             "mlstm": xlstm_lib.init_mlstm(gen, cfg.d_model, cfg.n_heads,
-                                          cfg.proj_factor, dtype=dtype),
+                                          cfg.proj_factor, dtype=dtype,
+                                          device=device),
             "ln2": torch.zeros((cfg.d_model,), dtype=torch.float32,
                                device=dev),
             "slstm": xlstm_lib.init_slstm(gen, cfg.d_model, cfg.n_heads,
-                                          dtype=dtype),
+                                          dtype=dtype, device=device),
             "ln3": torch.zeros((cfg.d_model,), dtype=torch.float32,
                                device=dev),
             "mlp": init_mlp(gen, cfg.d_model, int(cfg.d_model * 4 / 3),
-                            "gelu", dtype=dtype),
+                            "gelu", dtype=dtype, device=device),
         }
     p = {
         "ln1": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
-        "attn": _init_attn(gen, cfg, dtype),
+        "attn": _init_attn(gen, cfg, dtype, device=device),
         "ln2": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
     }
     if cfg.family == "moe":
         p["moe"] = moe_lib.init_moe(
             gen, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.activation,
             dense_residual=cfg.moe_dense_residual,
-            dense_ff=cfg.moe_dense_ff, dtype=dtype)
+            dense_ff=cfg.moe_dense_ff, dtype=dtype, device=device)
     else:
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
-                            dtype=dtype)
+                            dtype=dtype, device=device)
     if cfg.family == "hybrid":
         p["ssm"] = ssm_lib.init_ssm(gen, cfg.d_model, cfg.ssm_state,
-                                    cfg.ssm_expand, cfg.ssm_conv, dtype=dtype)
+                                    cfg.ssm_expand, cfg.ssm_conv, dtype=dtype,
+                                    device=device)
     return p
 
 
 def init_model(cfg: ModelConfig, gen: torch.Generator,
-               dtype=torch.float32) -> Dict[str, Any]:
+               dtype=torch.float32, device=None) -> Dict[str, Any]:
     """Random parameters with the reference's keys and stacked shapes.
 
     Draws from ``gen`` on ``gen``'s device: a CUDA generator
@@ -120,20 +127,23 @@ def init_model(cfg: ModelConfig, gen: torch.Generator,
     (``layers.dense_init``) and the reference's A_log / dt_bias init.
     The numbers are not the JAX package's: parity tests bridge the
     reference's parameters instead (``bridge.from_reference``).
+    ``device="meta"`` makes every tensor on ``meta`` and draws nothing
+    (``launch.steps.abstract_params``); ``device=None`` is ``gen``'s.
     """
     _check_family(cfg)
-    embed = embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype)
-    blocks = tree_stack([_init_block(gen, cfg, dtype)
+    embed = embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
+                       device=device)
+    blocks = tree_stack([_init_block(gen, cfg, dtype, device=device)
                          for _ in range(_n_stack(cfg))])
     params = {
         "embed": embed,
         "blocks": blocks,
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
-                                  device=gen.device),
+                                  device=init_device(gen, device)),
     }
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
-                                    dtype=dtype)
+                                    dtype=dtype, device=device)
     return params
 
 

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import dense_init, init_device, rms_norm
 from repro_torch.models.ssm import _causal_conv
 from repro_torch.sharding.hints import hint
 
@@ -44,24 +44,25 @@ def _inner_width(d_model: int, n_heads: int, proj_factor: float) -> int:
 
 def init_mlstm(gen: torch.Generator, d_model: int, n_heads: int,
                proj_factor: float = 2.0, conv_k: int = 4,
-               dtype=torch.float32):
+               dtype=torch.float32, device=None):
     """The reference's keys and shapes (the gate weights and biases in
     f32), drawn from ``gen`` on its device in the reference's key order."""
     di = _inner_width(d_model, n_heads, proj_factor)
-    dev = gen.device
+    dev = init_device(gen, device)
     return {
-        "w_up": dense_init(gen, (d_model, 2 * di), dtype=dtype),
-        "conv_w": dense_init(gen, (conv_k, di), scale=0.5, dtype=dtype),
-        "w_q": dense_init(gen, (di, di), dtype=dtype),
-        "w_k": dense_init(gen, (di, di), dtype=dtype),
-        "w_v": dense_init(gen, (di, di), dtype=dtype),
+        "w_up": dense_init(gen, (d_model, 2 * di), dtype=dtype, device=device),
+        "conv_w": dense_init(gen, (conv_k, di), scale=0.5, dtype=dtype,
+                             device=device),
+        "w_q": dense_init(gen, (di, di), dtype=dtype, device=device),
+        "w_k": dense_init(gen, (di, di), dtype=dtype, device=device),
+        "w_v": dense_init(gen, (di, di), dtype=dtype, device=device),
         "w_if": dense_init(gen, (di, 2 * n_heads), scale=0.01,
-                           dtype=torch.float32),
+                           dtype=torch.float32, device=device),
         "b_if": torch.cat([torch.zeros((n_heads,), device=dev),
                            torch.linspace(3.0, 6.0, n_heads, device=dev)]
                           ).float(),
         "hnorm": torch.zeros((di,), dtype=torch.float32, device=dev),
-        "w_down": dense_init(gen, (di, d_model), dtype=dtype),
+        "w_down": dense_init(gen, (di, d_model), dtype=dtype, device=device),
     }
 
 
@@ -184,17 +185,19 @@ def init_mlstm_state(batch: int, d_model: int, n_heads: int,
 # ---------------------------------------------------------------------------
 
 def init_slstm(gen: torch.Generator, d_model: int, n_heads: int,
-               dtype=torch.float32):
+               dtype=torch.float32, device=None):
     """The reference's keys and shapes; the forget gate's bias rises
     from 3 to 6 over the heads, the other biases are 0 (f32)."""
     dh = d_model // n_heads
-    dev = gen.device
+    dev = init_device(gen, device)
     fb = torch.linspace(3.0, 6.0, n_heads, device=dev)[:, None] \
         .repeat(1, dh).reshape(-1)
     zeros = torch.zeros((d_model,), device=dev)
     return {
-        "w": dense_init(gen, (d_model, 4 * d_model), dtype=dtype),
-        "r": dense_init(gen, (n_heads, dh, 4 * dh), scale=0.1, dtype=dtype),
+        "w": dense_init(gen, (d_model, 4 * d_model), dtype=dtype,
+                        device=device),
+        "r": dense_init(gen, (n_heads, dh, 4 * dh), scale=0.1, dtype=dtype,
+                        device=device),
         "b": torch.cat([zeros,                  # z
                         zeros,                  # i
                         fb,                     # f (positive bias)

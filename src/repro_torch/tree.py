@@ -73,3 +73,23 @@ def tree_stack(trees):
     """List of same-structure trees -> one tree with a leading axis."""
     import torch
     return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _with_path(fn, node, path):
+    if isinstance(node, dict):
+        return {k: _with_path(fn, node[k], path + (str(k),))
+                for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_with_path(fn, c, path + (str(i),))
+                          for i, c in enumerate(node))
+    if node is None:
+        return None
+    return fn(path, node)
+
+
+def tree_map_with_path(fn: Callable, tree):
+    """``fn(path, leaf)`` over the leaves, ``path`` the tuple of dict
+    keys and sequence indices (as strings) from the root to the leaf,
+    as ``jax.tree_util.tree_map_with_path`` gives them; structure of
+    ``tree``."""
+    return _with_path(fn, tree, ())

@@ -518,12 +518,24 @@ def test_attention_dispatch_matches_reference(s, t, window, route,
                                atol=2e-5)
 
 
-def test_context_parallel_always_waits_for_the_mesh():
-    q, k, v = (torch.from_numpy(a) for a in _qkv(6, 1, 512, 4, 16))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        attn.attention(q, k, v, context_parallel="always")
-    # "auto" never picks it: there is no model axis
-    attn.attention(q, k, v, context_parallel="auto")
+def test_context_parallel_always_waits_for_the_mesh(monkeypatch):
+    """The name is historical: "always" once raised here until a mesh
+    existed.  Now, with no mesh, "always" takes the context-parallel
+    branch over a model axis of 1, as the reference does (the mesh
+    itself is ``tests/test_torch_mesh.py``'s), and "auto" never takes
+    it."""
+    arrays = _qkv(6, 1, 512, 4, 16)
+    seen = []
+    real = attn.chunked_attention_cp
+    monkeypatch.setattr(attn, "chunked_attention_cp",
+                        lambda *a, **kw: (seen.append(1), real(*a, **kw))[1])
+    got, want = _both(attn.attention, ref_attn.attention, arrays,
+                      context_parallel="always")
+    assert seen == [1]
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    attn.attention(*(torch.from_numpy(a) for a in arrays),
+                   context_parallel="auto")
+    assert seen == [1]
 
 
 # ---------------------------------------------------------------------------

@@ -501,9 +501,15 @@ def test_train_cli_corpus_call_is_the_one_chip_smoke_prefetches(
     assert calls == [((vocab, smoke.TRAIN_CORPUS_TOKENS), {"seed": 0})]
 
 
-def test_train_cli_mesh_and_device_rules():
-    with pytest.raises(NotImplementedError, match="LM mesh"):
-        train.main(["--device", "cpu", "--mesh", "1,1", "--steps", "1"])
+def test_train_cli_mesh_and_device_rules(monkeypatch):
+    monkeypatch.delenv("REPRO_TORCH_FLAGS", raising=False)
+    argv = ["--device", "cpu", "--steps", "1", "--batch", "1", "--seq",
+            "16"]
+    # a mesh of more points than devices raises, as jax.make_mesh does;
+    # (1, 1) fits the one device and trains as without it
+    with pytest.raises(ValueError, match="needs 4 devices"):
+        train.main(argv + ["--mesh", "2,2"])
+    assert train.main(argv + ["--mesh", "1,1"]) == train.main(argv)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train.main(["--steps", "1"])
