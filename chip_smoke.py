@@ -37,7 +37,11 @@ phi4-mini, nemotron, chameleon), encodes and trains the audio family's
 the LM mesh (context-parallel attention, K4 once a model shard, in the
 bf16 prefills of phi4-mini and hymba and an f32 llama step under meshes
 of virtual shards of the card; ``LMTrainer`` on a client mesh;
-``launch.train --mesh``) — and prints
+``launch.train --mesh``), runs secure aggregation on the main path's
+widest round (pairwise-masked uploads, the server's sum through
+``fedagg_partial``) and puts each timed train step beside its
+compiler-free cost (``repro_torch.roofline.cost``: the bound, ``mfu``)
+— and prints
 one JSON object per phase.  Each path runs with
 every launch count set to 0 just before it and read just after.  Any
 failure exits non-zero; there is no CPU path.  The last line of
@@ -61,9 +65,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# Published peaks of one H100 SXM: the yardsticks of ``bound_ms``.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
+# Published peaks of one H100 SXM (the yardsticks of ``bound_ms``) and the
+# kernels' bounds: the port's work model, ``repro_torch.roofline.cost``
+# (``HBM_BYTES_PER_S`` and ``visible_pairs`` are read from this module by
+# the tests that check the bounds it prints)
+from repro_torch.roofline.cost import (  # noqa: E402,F401
+    BF16_TENSOR_FLOPS_PER_S, FA_BWD_BF16_WORK, FA_BWD_WORK, FA_FWD_BF16_WORK,
+    FA_FWD_WORK, HBM_BYTES_PER_S, SFU_EXP_PER_S, fedagg_bound_ms,
+    flash_bound_ms, flash_bwd_bf16_bound_ms, flash_bwd_bound_ms,
+    fold_bound_ms, partial_bound_ms, ssm_bound_ms, ssm_bwd_bound_ms,
+    visible_pairs)
 
 # sequential f32 row sum in the kernel vs torch's reduction order
 RTOL, ATOL = 1e-5, 1e-6
@@ -232,17 +243,6 @@ def median_ms(fn, *, hide_host: bool = True, warmup: int = 5, runs: int = 7,
     return statistics.median(times)
 
 
-def fedagg_bound_ms(weights, p: int):
-    """Least time for this call: live rows read once, output written
-    once, two operations per live element."""
-    n_live = int((weights > 0).sum())
-    n = weights.numel()
-    by_bytes = ((n_live * p + p) * 4 + 2 * n * 4) / HBM_BYTES_PER_S * 1e3
-    by_ops = 2 * n_live * p / F32_FLOPS_PER_S * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
-                                   else "operations")
-
-
 def check_fedagg(name, u, w, a=None, *, exact_zero=False):
     """Kernel vs plain version on the same card tensors."""
     import torch
@@ -356,21 +356,6 @@ def k1_against_library(first, runs: int = 3):
     spread = max(k1) - min(k1)
     return {"k1_ms": k1, "library_ms": lib, "median_gap_ms": gap,
             "k1_spread_ms": spread, "k1_slower_beyond_spread": gap > spread}
-
-
-def fold_bound_ms(coef, p: int):
-    """Least time for one folded merge: live rows and the global row
-    (when its coefficient is positive) read once, the output written
-    once, the coefficients read once; two operations per element read."""
-    c = torch_f32(coef)
-    c = c.clamp(min=0.0).nan_to_num(0.0)
-    n_live = int((c[1:] > 0).sum())
-    g_read = 1 if float(c[0]) > 0 else 0
-    by_bytes = (((n_live + g_read) * p + p) * 4
-                + 4 * c.numel()) / HBM_BYTES_PER_S * 1e3
-    by_ops = 2 * (n_live + g_read) * p / F32_FLOPS_PER_S * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
-                                   else "operations")
 
 
 def torch_f32(x):
@@ -564,7 +549,21 @@ def main_path():
     if not all(0.0 <= a <= 1.0 for a in hist.accuracy):
         fail(f"accuracies not finite in [0,1]: {hist.accuracy}")
 
-    again = fl_train.main(MAIN_ARGV)
+    # the second run also hands secure_agg_path each round's survivors:
+    # ids, round seed, trained models, sample counts
+    from repro_torch.core.engine import BatchedClientEngine
+
+    def recording_round(engine, params, client_ids, rnd_seed):
+        stacked, sizes = real_train(engine, params, client_ids, rnd_seed)
+        if stacked is not None:
+            PATH_ROUNDS.append({"ids": [int(c) for c in client_ids],
+                                "rnd": int(rnd_seed), "stacked": stacked,
+                                "sizes": [float(x) for x in sizes]})
+        return stacked, sizes
+
+    with patched(BatchedClientEngine, "train_clients",
+                 recording_round) as real_train:
+        again = fl_train.main(MAIN_ARGV)
     if again.to_json() != hist.to_json():
         fail("two runs with one seed gave different histories")
 
@@ -601,6 +600,111 @@ def main_path():
             "first_run_s": first_s, "warm_run_s": run_s,
             "warm_s_per_round": run_s / fl.rounds,
             "two_runs_identical": True}, launches, shapes, hist
+
+
+# The main path's rounds with survivors, recorded in its second run
+PATH_ROUNDS = []
+# the mask scales of secure_agg_path: tests/test_secure_agg.py's 1 and 50
+SECURE_SCALES = (1.0, 50.0)
+SECURE_TOL = 1e-4
+
+
+def secure_agg_path():
+    """Secure aggregation (``core/secure_agg.py``) on the survivors of the
+    main path's widest round (full-width cnn-mnist, P = 1,630,090, at
+    most 5 survivors, their sample counts as weights; the first of the
+    widest), at mask scales 1 and 50: every client's
+    pairwise-masked upload, the server's sum through K3
+    (``fedagg_partial`` with unit coefficients) counted, then gated: (a)
+    K3's sum of the uploads equals ``fedagg_partial_plain``'s bit for bit
+    on the same card tensors; (b) the secure average within rtol = atol
+    = 1e-4 of K1's (``fedagg_pytree``) weighted average of the unmasked
+    models; (c) at scale 50 an upload differs from its raw update by
+    more than 10; (d) a second seeded masking gives the same uploads bit
+    for bit.  Prints the masking ms, K3's ms and its bound."""
+    import itertools
+
+    import torch
+    from repro_torch.core import secure_agg as sa
+    from repro_torch.kernels import fedagg as fedagg_mod
+    from repro_torch.kernels.ops import fedagg_pytree, flatten_params_row
+    from repro_torch.tree import tree_leaves, tree_map
+    if not PATH_ROUNDS:
+        fail("secure_agg_path: the main path recorded no round")
+    widest = max(PATH_ROUNDS, key=lambda r: len(r["ids"]))
+    ids, rnd = widest["ids"], widest["rnd"]
+    stacked, sizes = widest["stacked"], widest["sizes"]
+    PATH_ROUNDS.clear()
+    models = [tree_map(lambda l, i=i: l[i], stacked)
+              for i in range(len(ids))]
+    if not 2 <= len(ids) <= 5 or sum(
+            l[0].numel() for l in tree_leaves(stacked)) != MAIN_P:
+        fail(f"secure_agg_path: survivors {ids} of {MAIN_P} parameters?")
+    dev = tree_leaves(stacked)[0].device
+    plain_avg = fedagg_pytree(stacked, torch.tensor(sizes, dtype=torch.float32,
+                                                    device=dev))
+
+    def uploads(scale):
+        return [sa.mask_update(m, c, ids, rnd, weight=w, scale=scale)
+                for m, c, w in zip(models, ids, sizes)]
+
+    out = {"survivors": ids, "round_seed": rnd, "sizes": sizes,
+           "p": MAIN_P, "tol": SECURE_TOL, "scales": {}}
+    zero_counts()
+    ups = {}
+    for scale in SECURE_SCALES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ups[scale] = uploads(scale)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        agg = sa.secure_aggregate(ups[scale], sizes)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        err = max(float((a - b).abs().max()) for a, b in
+                  zip(tree_leaves(agg), tree_leaves(plain_avg)))
+        ok = all(bool(((a - b).abs() <= SECURE_TOL
+                       + SECURE_TOL * b.abs()).all())
+                 for a, b in zip(tree_leaves(agg), tree_leaves(plain_avg)))
+        if not ok:
+            fail(f"secure_agg_path (b): scale {scale}: the secure average "
+                 f"is {err} from K1's weighted average")
+        out["scales"][str(scale)] = {"masking_ms": (t1 - t0) * 1e3,
+                                     "aggregate_ms": (t2 - t1) * 1e3,
+                                     "max_abs_err_vs_k1": err}
+    launched = counts()
+    if launched != only(fedagg_partial=len(SECURE_SCALES)):
+        fail(f"secure_agg_path: launches {launched}, expected one K3 "
+             "launch a secure aggregate")
+    # (a) K3's sum of the uploads against its plain twin, bit for bit
+    rows = torch.stack([flatten_params_row(u) for u in ups[50.0]])
+    ones = torch.ones(len(ids), dtype=torch.float32, device=dev)
+    k3 = fedagg_mod.fedagg_partial(rows, ones)
+    if not torch.equal(k3, fedagg_mod.fedagg_partial_plain(rows, ones)):
+        fail("secure_agg_path (a): K3's sum differs from its plain twin")
+    # (c) an upload at scale 50 is masked
+    raw = [l.float() * sizes[0] for l in tree_leaves(models[0])]
+    masked_by = max(float((u - r).abs().max())
+                    for u, r in zip(tree_leaves(ups[50.0][0]), raw))
+    if masked_by <= 10.0:
+        fail(f"secure_agg_path (c): an upload is {masked_by} from its raw "
+             "update")
+    # (d) seeded masks repeat
+    if not all(torch.equal(a, b) for u, v in zip(ups[50.0], uploads(50.0))
+               for a, b in zip(tree_leaves(u), tree_leaves(v))):
+        fail("secure_agg_path (d): two seeded maskings differ")
+    # K3 timed on copies of the rows rotated past the L2 (a cold read)
+    ring = itertools.cycle([rows] + [rows.clone() for _ in range(
+        max(1, -(-int(3 * L2_BYTES) // (4 * rows.numel()))) - 1)])
+    k3_ms = median_ms(lambda: fedagg_mod.fedagg_partial(next(ring), ones),
+                      warmup=2, runs=5, per_run=10)
+    bound, bound_by = partial_bound_ms(ones, MAIN_P)
+    out.update({"k3_launches": launched["fedagg_partial"],
+                "k3_equals_plain_bit_for_bit": True,
+                "upload_masked_by": masked_by, "uploads_repeat": True,
+                "k3_ms": k3_ms, "k3_bound_ms": bound, "k3_bound_by": bound_by,
+                "k3_rows": list(rows.shape)})
+    return out
 
 
 def cpu_agreement():
@@ -1807,19 +1911,6 @@ def tiered_async_path():
 # ---------------------------------------------------------------------
 # fedagg_partial (K3) and the client-mesh path
 # ---------------------------------------------------------------------
-
-def partial_bound_ms(coef, p: int):
-    """Least time for one shard's partial sum: live rows read once, the
-    output written once, the coefficients read once; two operations per
-    live element."""
-    c = torch_f32(coef).nan_to_num(0.0)
-    n_live = int((c > 0).sum())
-    by_bytes = ((n_live * p + p) * 4 + 4 * c.numel()) / HBM_BYTES_PER_S \
-        * 1e3
-    by_ops = 2 * n_live * p / F32_FLOPS_PER_S * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
-                                   else "operations")
-
 
 def check_partial(name, u, coef, *, exact_zero=False):
     """Partial-sum kernel vs its plain version on the same card
@@ -4286,6 +4377,29 @@ def _f32_repeat(arch, b, s):
             "step_s": [r["step_s"] for r in runs]}
 
 
+def cli_train_tcfg(s):
+    """``launch.train``'s TrainConfig at sequence ``s`` (f32, no remat)."""
+    from repro_torch.config.base import TrainConfig
+    return TrainConfig(dtype="float32", remat=False,
+                       attn_chunk_q=min(128, s), attn_chunk_kv=min(128, s))
+
+
+def step_roofline(arch, b, s, tcfg, s_step, layers=None):
+    """A timed train step against its compiler-free cost on one card
+    (``roofline/cost.py: step_share`` on ``H100_SXM``): the step's
+    bound and what binds it, ``mfu`` = model FLOPs / (s_step * 989e12)
+    and ``bound_s / s_step``.  Arithmetic only: no chip time."""
+    import dataclasses
+    from repro_torch.config import get_arch
+    from repro_torch.config.base import InputShape
+    from repro_torch.roofline.cost import step_share
+    cfg = get_arch(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return step_share(cfg, InputShape(f"{arch}-train", s, b, "train"),
+                      tcfg, s_step)
+
+
 def lm_train_path():
     """``launch.train --full`` on each case of ``LM_TRAIN``, f32, 2
     timed steps and one profiled (``step_profile``): warm s/step,
@@ -4327,6 +4441,8 @@ def lm_train_path():
                    k: v // (LM_TRAIN_STEPS + PROFILED_STEPS)
                    for k, v in r["launches"].items()}}
         row["tokens_per_s"] = b * s / row["warm_s_per_step"]
+        row["step_roofline"] = step_roofline(arch, b, s, cli_train_tcfg(s),
+                                             row["warm_s_per_step"])
         row["profiled_step"] = with_step_shares(r["profile"],
                                                 row["warm_s_per_step"])
         if arch == "hymba-1.5b":
@@ -4444,6 +4560,9 @@ def lm_bf16_train_path():
                "launches_per_step": {k: v // LM_BF16_STEPS
                                      for k, v in r["launches"].items()}}
         row["tokens_per_s"] = b * s / row["warm_s_per_step"]
+        row["step_roofline"] = step_roofline(arch, b, s, tcfg,
+                                             row["warm_s_per_step"],
+                                             layers=r["layers"])
         if r["profile"] is not None:
             row["profiled_step"] = with_step_shares(r["profile"],
                                                     row["warm_s_per_step"])
@@ -4899,6 +5018,9 @@ def lm_wide_train_step():
             "corpus_tokens": WIDE_TRAIN_TOKENS, "losses": r["losses"],
             "step_s": step_s, "warm_s_per_step": step_s[-1],
             "tokens_per_s": b * s / step_s[-1], "wall_s": r["wall_s"],
+            "step_roofline": step_roofline(arch, b, s, cli_train_tcfg(s),
+                                           step_s[-1],
+                                           layers=WIDE_TRAIN_LAYERS),
             "launches": r["launches"],
             "profiled_step": with_step_shares(r["profile"], step_s[-1]),
             "peak_bytes": r["peak_bytes"]}, {
@@ -5027,6 +5149,8 @@ def lm_moe_train_step():
             "losses": r["losses"], "step_s": step_s,
             "first_step_s": step_s[0], "warm_s_per_step": warm,
             "tokens_per_s": b * s / warm, "wall_s": r["wall_s"],
+            "step_roofline": step_roofline(arch, b, s, cli_train_tcfg(s),
+                                           warm, layers=MOE_TRAIN_LAYERS),
             "launches": r["launches"], "peak_bytes": r["peak_bytes"],
             "leaf_checksums": r["checksums"],
             "profiled_step": prof,
@@ -5430,6 +5554,8 @@ def lm_audio_train_step():
             "optimizer": "adamw", "losses": first["losses"],
             "step_s": first["step_s"], "first_step_s": first["step_s"][0],
             "warm_s_per_step": warm, "frames_per_s": b * s / warm,
+            "step_roofline": step_roofline(AUDIO, b, s, cli_train_tcfg(s),
+                                           warm),
             "repeat_step_s": again["step_s"],
             "launches": first["launches"],
             "peak_bytes": first["peak_bytes"],
@@ -5764,45 +5890,6 @@ def lm_mesh_path(cp_prefills, fl_lm_rows):
                                      ("dkdv", "_bwd_dkdv"))}}}
 
 
-# Published peaks of one H100 SXM beside F32_FLOPS_PER_S: the dense bf16
-# tensor-core rate, and the special-function units' exp2 rate (16 a
-# clock an SM, compute capability 9.0, at the 1.98 GHz boost clock).
-BF16_TENSOR_FLOPS_PER_S = 989e12
-SFU_EXP_PER_S = 16 * 132 * 1.98e9
-
-
-def visible_pairs(s, t, causal, window, q_offset):
-    """(q, k) pairs the masks leave visible, row by row."""
-    n = 0
-    for p in range(q_offset, q_offset + s):
-        lo = max(0, p - window + 1) if window > 0 else 0
-        hi = min(t, p + 1) if causal else t
-        n += max(0, hi - lo)
-    return n
-
-
-def flash_bound_ms(qs, ks, esize, causal, window, q_offset):
-    """Least time for one call, the largest of three: 4*D flops per
-    visible (q, k) pair per head (two dots) against the bf16 tensor
-    peak; one exp per visible pair against the SFU's exp2 rate; q, k, v
-    read and the output written once against HBM.  Returns (ms,
-    "operations" or "bytes", which operations bind ("tensor flops" or
-    "exps", or None when bytes bind), flops, exps)."""
-    b, s, h, d = qs
-    t, hkv = ks[1], ks[2]
-    exps = b * h * visible_pairs(s, t, causal, window, q_offset)
-    flops = 4 * exps * d
-    by_flops = flops / BF16_TENSOR_FLOPS_PER_S * 1e3
-    by_exps = exps / SFU_EXP_PER_S * 1e3
-    nbytes = (2 * b * s * h * d + 2 * b * t * hkv * d) * esize
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound = max(by_flops, by_exps, by_bytes)
-    if bound == by_bytes:
-        return bound, "bytes", None, flops, exps
-    return bound, "operations", ("tensor flops" if by_flops >= by_exps
-                                 else "exps"), flops, exps
-
-
 def _sdpa_backend(fn):
     """The backend the library call ran, from its kernels' names in a
     profiler trace."""
@@ -5937,18 +6024,6 @@ def flash_attention_times(attn_calls):
     return out
 
 
-def ssm_bound_ms(b, s, d, n, esize, with_h0):
-    """Least time for one call: x, dt, B, C read once, y written once,
-    a_log (and h0) read and h_end written once, against HBM; or the
-    B*S*D*N exps against the SFU rate; whichever is larger."""
-    nbytes = (3 * b * s * d + 2 * b * s * n) * esize + 4 * d * n \
-        + 4 * b * d * n * (2 if with_h0 else 1)
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = b * s * d * n / SFU_EXP_PER_S * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
-                                   else "operations")
-
-
 # K5's times before its redesign (the serial kernel it replaced, on an
 # H100 80GB HBM3 at 700 W; PERF.md), printed beside this run's
 SS_EARLIER_MS = {"prefill": 1.012, "decode": 0.00624}
@@ -6041,62 +6116,6 @@ FA_BWD_SHAPES = (("hymba-1.5b", (1, 2048, 25, 64), (1, 2048, 5, 64), 1024),
 # train step (D = 80, MHA, an encoder: no mask)
 FA_BWD_LAYERS = tuple((*x, True) for x in FA_BWD_SHAPES) + (
     ("hubert-xlarge", (2, 1024, 16, 80), (2, 1024, 16, 80), 0, False),)
-
-
-# The work of K4's backward, per kernel and for the pair, that its bound
-# counts: D-long dots a visible (q, k) pair -- dq q.k, dO.v, dS.k; dkdv
-# q.k, dO.v, P.dO, dS.q; the pair's function the five distinct ones
-# (the kernels recompute q.k and dO.v in both) -- and the q-, kv- and
-# row-sized f32 tensors read and written once.
-FA_BWD_WORK = (
-    ("dq", 3, {"q": 3, "kv": 2, "row": 1}, {"q": 1, "row": 1}),
-    ("dkdv", 4, {"q": 2, "kv": 2, "row": 2}, {"kv": 2}),
-    ("pair", 5, {"q": 3, "kv": 2, "row": 1}, {"q": 1, "kv": 2}))
-
-
-# dense TF32 on the tensor cores, H100 SXM
-TF32_TENSOR_FLOPS_PER_S = 494.7e12
-# TF32 products a f32 product in split TF32 (lo.hi + hi.lo + hi.hi)
-SPLIT_TF32_PRODUCTS = 3
-
-
-def flash_bwd_bound_ms(qs, ks, dots, reads, writes, q_offset=0, causal=True,
-                       window=0):
-    """Least time for one backward kernel (or the pair, or the forward):
-    ``dots`` D-long f32 dot products (2*D flops each) and one exp per
-    visible (q, k) pair of a head, the f32 tensors it must read and
-    write once (``reads``, ``writes``: counts of q-sized, kv-sized and
-    row-sized tensors) against HBM, on either of two routes: the flops
-    on the CUDA cores (67 TFLOP/s f32), or in split TF32 on the tensor
-    cores (three TF32 products a product at 494.7 TFLOP/s); exps at the
-    SFU's rate on both.  The bound is the lesser route's.  Returns a
-    dict: ``ms``, ``by`` ("operations" or "bytes"), ``route``, ``flops``
-    (f32), ``tf32_flops``, ``exps``, ``cuda_core_ms``, ``tensor_ms``,
-    ``bytes_ms``."""
-    b, s, h, d = qs
-    t, hkv = ks[1], ks[2]
-    pairs = b * h * visible_pairs(s, t, causal, window, q_offset)
-    flops = 2 * d * dots * pairs
-    tf32_flops = SPLIT_TF32_PRODUCTS * flops
-    by_exps = pairs / SFU_EXP_PER_S * 1e3
-    sizes = {"q": b * s * h * d, "kv": b * t * hkv * d, "row": b * h * s}
-    nbytes = 4 * sum(n * sizes[kind] for kind, n in
-                     list(reads.items()) + list(writes.items()))
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    cuda_ops = max(flops / F32_FLOPS_PER_S * 1e3, by_exps)
-    tensor_ops = max(tf32_flops / TF32_TENSOR_FLOPS_PER_S * 1e3, by_exps)
-    ops, route = min((cuda_ops, "CUDA cores, f32"),
-                     (tensor_ops, "tensor cores, split TF32"))
-    return {"ms": max(ops, by_bytes),
-            "by": "operations" if ops >= by_bytes else "bytes",
-            "route": route, "flops": flops, "tf32_flops": tf32_flops,
-            "exps": pairs, "cuda_core_ms": max(cuda_ops, by_bytes),
-            "tensor_ms": max(tensor_ops, by_bytes), "bytes_ms": by_bytes}
-
-
-# K4's f32 forward with lse: two dots a visible pair (q.k, P.v); q, k, v
-# read, the output and lse written
-FA_FWD_WORK = (2, {"q": 1, "kv": 2}, {"q": 1, "row": 1})
 
 
 def flash_attention_bwd_times(per_step):
@@ -6311,40 +6330,6 @@ def flash_attention_bwd_times(per_step):
 # phi4-mini's (D = 128)
 FA_BWD_BF16_SHAPES = FA_BWD_SHAPES[:3]
 
-# The work of K4's bf16 backward, as FA_BWD_WORK counts it, in bf16
-# tensors (o and out_lo both read: delta is of their sum) and f32 rows
-# (lse, delta); and of its bf16 forward with lse (out, out_lo, lse
-# written)
-FA_BWD_BF16_WORK = (
-    ("dq", 3, {"q": 4, "kv": 2, "row": 1}, {"q": 1, "row": 1}),
-    ("dkdv", 4, {"q": 2, "kv": 2, "row": 2}, {"kv": 2}),
-    ("pair", 5, {"q": 4, "kv": 2, "row": 1}, {"q": 1, "kv": 2}))
-FA_FWD_BF16_WORK = (2, {"q": 1, "kv": 2}, {"q": 2, "row": 1})
-
-
-def flash_bwd_bf16_bound_ms(qs, ks, dots, reads, writes, causal=True,
-                            window=0):
-    """Least time for one bf16 kernel (or the pair, or the forward with
-    lse): ``dots`` D-long dots (2*D flops each) a visible (q, k) pair of
-    a head at the bf16 tensor-core rate, one exp a pair at the SFU's
-    rate, and the bf16 q- and kv-sized and f32 row-sized tensors read
-    and written once against HBM; the larger."""
-    b, s, h, d = qs
-    t, hkv = ks[1], ks[2]
-    pairs = b * h * visible_pairs(s, t, causal, window, 0)
-    flops = 2 * d * dots * pairs
-    by_exps = pairs / SFU_EXP_PER_S * 1e3
-    esize = {"q": 2, "kv": 2, "row": 4}
-    sizes = {"q": b * s * h * d, "kv": b * t * hkv * d, "row": b * h * s}
-    nbytes = sum(n * sizes[kind] * esize[kind] for kind, n in
-                 list(reads.items()) + list(writes.items()))
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    ops = max(flops / BF16_TENSOR_FLOPS_PER_S * 1e3, by_exps)
-    return {"ms": max(ops, by_bytes),
-            "by": "operations" if ops >= by_bytes else "bytes",
-            "flops": flops, "exps": pairs, "bytes": nbytes}
-
-
 def flash_attention_bwd_bf16_times(per_step):
     """K4's bf16 training kernels at ``FA_BWD_BF16_SHAPES``: the forward
     with lse (and out_lo) beside the forward without, dq and dkdv alone
@@ -6550,9 +6535,7 @@ def ssm_scan_bwd_bf16_times(per_step):
         errs[tag] = err
         if not ok:
             fail(f"ssm_scan_bwd_bf16_times: {tag} {err}")
-    nbytes = 2 * (5 * b * s * d + 4 * b * s * n) + 4 * 2 * d * n
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = b * s * d * n / SFU_EXP_PER_S * 1e3
+    by_bytes, by_ops = ssm_bwd_bound_ms(b, s, d, n, 2)
     return {"case": "hymba-train-bf16", "b": b, "s": s, "d": d, "n": n,
             "dtype": "torch.bfloat16", "ms": min(kernel_a, kernel_b),
             "ms_turns": [kernel_a, kernel_b], "f32_ms": f32_ms,
@@ -6641,9 +6624,7 @@ def ssm_scan_bwd_times(per_step):
     # bytes: x, dt, dy read, dx, ddt written (B,S,D); B, C read and dB,
     # dC written (B,S,N); a_log read, dA_log written (D,N); f32.  Exps:
     # one a_t per (t, d, n).
-    nbytes = 4 * (5 * b * s * d + 4 * b * s * n + 2 * d * n)
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = b * s * d * n / SFU_EXP_PER_S * 1e3
+    by_bytes, by_ops = ssm_bwd_bound_ms(b, s, d, n, 4)
     split = ssm_bwd_split(b, s, d, n)
     ms = min(kernel_a, kernel_b)
     return {"case": "hymba-train", "b": b, "s": s, "d": d, "n": n,
@@ -6727,6 +6708,8 @@ def run_phases() -> int:
     mesh_summary, mesh_counts, partial_calls = mesh_path(summary_hist)
     emit({"phase": "mesh_path", **mesh_summary})
     emit({"phase": "mesh_async_path", **mesh_async_path()})
+    secure = secure_agg_path()
+    emit({"phase": "secure_agg_path", "card": card, **secure})
 
     models = {}
     prefill, attn_calls = lm_prefill_path(models)
@@ -6859,6 +6842,8 @@ def run_phases() -> int:
         "source": "src/repro_torch/kernels/csrc/fedagg.cu",
         "replaces": "src/repro/kernels/fedagg.py:163",
         "launches": mesh_counts["fedagg_partial"],
+        # the server's sum of secure aggregation (secure_agg_path)
+        "secure_agg_launches": secure["k3_launches"],
         "max_abs_err": max(t["max_abs_err"]
                            for t in partial_seen + [full_r]),
         "shape": [partial_widest["r"], partial_widest["p"]],

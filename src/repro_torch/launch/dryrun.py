@@ -20,10 +20,17 @@ when ok:
 * ``param_count`` counted over the parameter tree (and the config's
   analytic ``param_count_config``, which miscounts xLSTM and leaves out
   the SSM's ``w_dt``), ``model_flops`` and ``model_flops_per_chip``;
+* ``roofline``: the reference's keys (``compute_s``, ``memory_s``,
+  ``collective_s``, ``dominant``, ``bound_s``, ``model_flops_global``,
+  ``hlo_flops_global``, ``useful_ratio``) on ``H100_SXM``, from the
+  port's compiler-free step cost (``roofline/cost.py: step_cost``): the
+  step's global dot FLOPs and HBM bytes, divided by the chips (the port
+  has no SPMD partitioner; ``roofline_basis`` says so), and no
+  collective (none runs on one card);
 * ``not_measured``: what the reference's record has and this one does
-  not -- compile seconds, XLA's temp and output bytes and cost, the
-  HLO's collectives and the roofline need a compiler's analysis
-  (ROADMAP.md queue 1 item 16, ``roofline/``).
+  not -- compile seconds, XLA's output, temp and alias bytes and cost,
+  and the HLO's collectives need a compiler (the collectives also a mesh
+  over several GPUs, ROADMAP.md queue 1 item 15).
 
 Records go to ``--out`` (default ``build/dryrun_torch``), one JSON file
 each; a file already there is read back, not recomputed.
@@ -44,6 +51,8 @@ from repro_torch.config.base import (INPUT_SHAPES, InputShape, ModelConfig,
                                      TrainConfig)
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.roofline.analysis import H100_SXM
+from repro_torch.roofline.cost import ROOFLINE_BASIS, step_roofline
 from repro_torch.sharding import (batch_specs, decode_state_specs,
                                   named_shardings, param_specs)
 from repro_torch.sharding.rules import PartitionSpec as P
@@ -61,9 +70,9 @@ ASSIGNED = [
 BASELINE_TCFG = TrainConfig(context_parallel="never", seq_parallel=False,
                             long_ctx_swa=False, decode_headdim_shard=False)
 
-NOT_MEASURED = ("compile_s, output/temp/alias bytes, xla_cost, hlo and "
-                "roofline need a compiler's analysis: ROADMAP.md queue 1 "
-                "item 16 (roofline/)")
+NOT_MEASURED = ("compile_s, output/temp/alias bytes and xla_cost need a "
+                "compiler's analysis; the hlo's collectives a compiler and "
+                "a mesh over several GPUs (ROADMAP.md queue 1 item 15)")
 
 
 def skip_reason(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
@@ -127,13 +136,20 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
     mf = steps_lib.model_flops(cfg, shape)
     rec["model_flops"] = mf
     rec["model_flops_per_chip"] = mf / n_chips
+    terms = step_roofline(cfg, shape, tcfg, chips=n_chips, hw=H100_SXM)
+    terms.pop("hbm_bytes_global")
+    rec["roofline"] = terms
+    rec["roofline_hw"] = H100_SXM.name
+    rec["roofline_basis"] = ROOFLINE_BASIS
     rec["not_measured"] = NOT_MEASURED
     rec["status"] = "ok"
     if verbose:
         print(f"[dryrun] {arch:16s} {shape_name:12s} {mesh_name:8s} "
               f"{rec['variant']:10s} args/device="
               f"{rec['memory']['argument_bytes_per_device'] / 2**30:8.3f} "
-              f"GiB params={rec['param_count'] / 1e9:.3f}B", flush=True)
+              f"GiB params={rec['param_count'] / 1e9:.3f}B "
+              f"dom={terms['dominant']:12s} bound={terms['bound_s']:.4f}s "
+              f"useful={terms['useful_ratio']:.2f}", flush=True)
     return rec
 
 

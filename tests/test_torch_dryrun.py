@@ -1,8 +1,9 @@
 """The port's compiler-free dry run (``launch/dryrun.py``) against the
 JAX package's: the sweep of ``ASSIGNED`` x ``INPUT_SHAPES`` x {single,
-multi} gives 80 records, ``ok`` or the reference's skip, and the bytes
-a device holds equal those computed here from the reference's own spec
-trees over its ``eval_shape`` shapes.
+multi} gives 80 records, ``ok`` (each with its roofline on the H100) or
+the reference's skip, and the bytes a device holds equal those computed
+here from the reference's own spec trees over its ``eval_shape``
+shapes.
 
 The reference's ``launch/dryrun.py`` forces 512 host devices when it is
 imported; the test swaps that call out before importing it, so the
@@ -102,11 +103,25 @@ def test_sweep_gives_80_records_ok_or_the_reference_skip(records,
             assert r["reason"] == ref_dryrun.skip_reason(
                 ref_get_arch(arch), REF_SHAPES[shape])
         else:
-            assert "roofline" in r["not_measured"]
+            # the roofline, on H100_SXM, with the reference's keys
+            roof = r["roofline"]
+            assert set(roof) == {"compute_s", "memory_s", "collective_s",
+                                 "dominant", "bound_s", "model_flops_global",
+                                 "hlo_flops_global", "useful_ratio"}
+            assert r["roofline_hw"] == "h100-sxm5-80gb"
+            assert "no SPMD partitioner" in r["roofline_basis"]
+            assert roof["collective_s"] == 0.0
+            assert roof["bound_s"] == roof[roof["dominant"]] > 0
+            assert roof["model_flops_global"] == r["model_flops"]
+            assert "roofline" not in r["not_measured"]
+            assert "collectives" in r["not_measured"]
             assert r["model_flops"] == ref_steps.model_flops(
                 ref_get_arch(arch), REF_SHAPES[shape])
             n_chips = 512 if r["mesh"] == "2x16x16" else 256
             assert r["model_flops_per_chip"] == r["model_flops"] / n_chips
+            # per chip: the global count over the chips
+            assert roof["compute_s"] == pytest.approx(
+                roof["hlo_flops_global"] / (n_chips * 989e12), rel=1e-12)
 
 
 @pytest.mark.parametrize("arch", dryrun.ASSIGNED)
