@@ -73,8 +73,8 @@ from repro_torch.roofline.cost import (  # noqa: E402,F401
     BF16_TENSOR_FLOPS_PER_S, FA_BWD_BF16_WORK, FA_BWD_WORK, FA_FWD_BF16_WORK,
     FA_FWD_WORK, HBM_BYTES_PER_S, SFU_EXP_PER_S, fedagg_bound_ms,
     flash_bound_ms, flash_bwd_bf16_bound_ms, flash_bwd_bound_ms,
-    fold_bound_ms, partial_bound_ms, ssm_bound_ms, ssm_bwd_bound_ms,
-    visible_pairs)
+    flash_softcap_bound_ms, fold_bound_ms, partial_bound_ms, ssm_bound_ms,
+    ssm_bwd_bound_ms, visible_pairs)
 
 # sequential f32 row sum in the kernel vs torch's reduction order
 RTOL, ATOL = 1e-5, 1e-6
@@ -139,8 +139,10 @@ def zero_counts() -> None:
     fedagg_mod.launches = 0
     fedagg_mod.fold_launches = 0
     fedagg_mod.partial_launches = 0
+    fedagg_mod.tiled_launches = 0
     fa_mod.launches = 0
     fa_mod.tc_launches = 0
+    fa_mod.softcap_launches = 0
     fa_mod.bwd_dq_launches = 0
     fa_mod.bwd_dkdv_launches = 0
     fa_mod.bwd_dq_bf16_launches = 0
@@ -157,8 +159,10 @@ def counts() -> dict:
     return {"fedagg": fedagg_mod.launches,
             "fedagg_fold": fedagg_mod.fold_launches,
             "fedagg_partial": fedagg_mod.partial_launches,
+            "fedagg_tiled": fedagg_mod.tiled_launches,
             "flash_attention": fa_mod.launches,
             "flash_attention_tc": fa_mod.tc_launches,
+            "flash_attention_softcap": fa_mod.softcap_launches,
             "flash_attention_bwd_dq": fa_mod.bwd_dq_launches,
             "flash_attention_bwd_dkdv": fa_mod.bwd_dkdv_launches,
             "flash_attention_bwd_dq_bf16": fa_mod.bwd_dq_bf16_launches,
@@ -698,11 +702,19 @@ def secure_agg_path():
         max(1, -(-int(3 * L2_BYTES) // (4 * rows.numel()))) - 1)])
     k3_ms = median_ms(lambda: fedagg_mod.fedagg_partial(next(ring), ones),
                       warmup=2, runs=5, per_run=10)
+    # yardstick only: the same unit sum as one library call
+    library_ms = median_ms(lambda: torch.mv(next(ring).t(), ones),
+                           warmup=2, runs=5, per_run=10)
+    plain_ms = median_ms(
+        lambda: fedagg_mod.fedagg_partial_plain(next(ring), ones),
+        warmup=2, runs=5, per_run=10)
     bound, bound_by = partial_bound_ms(ones, MAIN_P)
     out.update({"k3_launches": launched["fedagg_partial"],
                 "k3_equals_plain_bit_for_bit": True,
                 "upload_masked_by": masked_by, "uploads_repeat": True,
-                "k3_ms": k3_ms, "k3_bound_ms": bound, "k3_bound_by": bound_by,
+                "k3_ms": k3_ms, "k3_plain_ms": plain_ms,
+                "k3_library_ms": library_ms, "k3_library": "torch.mv",
+                "k3_bound_ms": bound, "k3_bound_by": bound_by,
                 "k3_rows": list(rows.shape)})
     return out
 
@@ -3313,17 +3325,28 @@ SASS_KERNELS = {
         {f"fa_bwd_tc_{kind}_kernel<{d}>" for kind in ("dq", "dkdv")
          for d in HEAD_DIMS}, "hgmma", "tf32_hmma")],
     "flash_attention": [(
-        r"_Z\d+(fa_fwd_f32_kernel)ILi(\d+)ELb([01])EE",
-        lambda m: f"{m.group(1)}<{m.group(2)}, "
-                  f"{'true' if m.group(3) == '1' else 'false'}>",
+        r"_Z\d+(fa_fwd_f32_kernel)ILi(\d+)ELb([01])ELb([01])EE",
+        lambda m: _fwd_key(m),
         {f"fa_fwd_f32_kernel<{d}, {lse}>" for d in HEAD_DIMS
-         for lse in ("true", "false")}, "tf32_hmma", None), (
-        r"_ZN2tc\d+(flash_attention_tc_kernel)ILi(\d+)ELb([01])EE",
-        lambda m: f"{m.group(1)}<{m.group(2)}, "
-                  f"{'true' if m.group(3) == '1' else 'false'}>",
+         for lse in ("true", "false")}
+        | {f"fa_fwd_f32_kernel<{d}, false>+cap" for d in HEAD_DIMS},
+        "tf32_hmma", None), (
+        r"_ZN2tc\d+(flash_attention_tc_kernel)ILi(\d+)ELb([01])ELb([01])EE",
+        lambda m: _fwd_key(m),
         {f"flash_attention_tc_kernel<{d}, {lse}>" for d in HEAD_DIMS
-         for lse in ("true", "false")}, "hgmma", "tf32_hmma")],
+         for lse in ("true", "false")}
+        | {f"flash_attention_tc_kernel<{d}, false>+cap" for d in HEAD_DIMS},
+        "hgmma", "tf32_hmma")],
 }
+
+
+def _fwd_key(m) -> str:
+    """A forward kernel's key: ``name<D, lse>`` as before the softcap
+    (so its rows compare with earlier runs'), ``+cap`` for the CAP
+    instantiations (flash_attention_softcap.cu)."""
+    lse = "true" if m.group(3) == "1" else "false"
+    return f"{m.group(1)}<{m.group(2)}, {lse}>" + \
+        ("+cap" if m.group(4) == "1" else "")
 
 
 def _sass_op(kind: str, line: str) -> bool:
@@ -3344,12 +3367,14 @@ def library_sass(library: str) -> dict:
     lib = _build.build([library])[library]
     tool = str(Path(_build._nvcc()).parent / "cuobjdump")
 
-    def dump(flag):
-        return subprocess.run([tool, flag, str(lib)], check=True,
-                              capture_output=True, text=True,
-                              timeout=120).stdout
-
-    sass, usage = dump("-sass"), dump("-res-usage")
+    # the two reads at once (each a pass over the whole library)
+    procs = [subprocess.Popen([tool, flag, str(lib)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for flag in ("-sass", "-res-usage")]
+    outs = [proc.communicate(timeout=120) for proc in procs]
+    if any(proc.returncode for proc in procs):
+        fail(f"cuobjdump of {library}: {[err for _, err in outs]}")
+    sass, usage = (out for out, _ in outs)
     kernels = {}
     for name, key, want, op, banned in SASS_KERNELS[library]:
         found, current = {}, None
@@ -5899,7 +5924,8 @@ def _sdpa_backend(fn):
         fn()
         torch.cuda.synchronize()
     names = " ".join(e.key for e in prof.key_averages()).lower()
-    for tag, backend in (("flash", "flash"), ("cudnn", "cudnn"),
+    # cuDNN's kernels carry "flash" in their names too: it is read first
+    for tag, backend in (("cudnn", "cudnn"), ("flash", "flash"),
                          ("fmha", "efficient"), ("efficient", "efficient")):
         if tag in names:
             return backend
@@ -6662,6 +6688,682 @@ def main() -> int:
         corpora.join()
 
 
+# ---------------------------------------------------------------------
+# K1-K3 past 4,096 rows: the tiled route (a preamble launch, then the
+# stream over tiles of coefficients)
+# ---------------------------------------------------------------------
+
+ROWS_P = 131_072          # f32 columns: 4.3 GB of rows at 8,192
+ROWS_LIVE = 5000          # live rows padded with zero rows to 8,192
+
+
+def _bitwise(name, got, want):
+    import torch
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"{name}: not equal bit for bit, max abs "
+             f"{float((got - want).abs().max())}")
+
+
+def _tiled_calls(fn):
+    """fn()'s result and the tiled route's calls it made."""
+    from repro_torch.kernels import fedagg as fa
+    before = fa.tiled_launches
+    out = fn()
+    return out, fa.tiled_launches - before
+
+
+def _once_ms(fn):
+    """One call's time between CUDA events (the plain versions' Python
+    row loops: host included)."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def fedagg_rows_checks():
+    """K1-K3 at N in {4,096, 4,097, 8,192} rows of P = 131,072 f32 and
+    K2 at K + 1 = 4,097 and 8,192 coefficients: (b) a 4,096-row call
+    (K2: 4,096 coefficients) with zero-coefficient rows appended up to
+    4,097 and 8,192 equals it bit for bit, the appended rows past 4,096
+    holding inf and nan; (c) 5,000 live rows padded with zero rows to
+    8,192 equal the unpadded 5,000 bit for bit; (d) at 4,097 and 8,192
+    rows each kernel is within RTOL/ATOL of its plain twin.  Then each
+    kernel's ms at 8,192 rows beside its plain twin (one call), its
+    library yardstick and roofline/cost.py's bound."""
+    import torch
+    from repro_torch.kernels import fedagg as fa
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n_max, single = 8192, 4096
+    u = torch.randn(n_max, ROWS_P, generator=gen, device="cuda")
+    u[single + 3] = float("inf")            # rows that only ever carry
+    u[n_max - 1] = float("nan")             # coefficient 0
+    g = torch.randn(ROWS_P, generator=gen, device="cuda")
+    w = 40.0 + 40.0 * torch.rand(n_max, generator=gen, device="cuda")
+    a = torch.rand(n_max, generator=gen, device="cuda")
+    c = torch.rand(n_max + 1, generator=gen, device="cuda")
+    for x in (w, a):
+        x[single + 3] = x[n_max - 1] = 0.0
+    c[single + 4] = c[n_max] = 0.0          # fold: global first
+    c3 = c[1:] / c[1:].sum()                # K3: a sum of order one
+    zeros = torch.zeros(n_max + 1, device="cuda")
+
+    def padded(x, live, n):
+        return torch.cat([x[:live], zeros[:n - live]])
+
+    out, tiled = {"p": ROWS_P, "single_launch_rows": single}, 0
+    # (b) appended zero-coefficient rows change no bit
+    calls = []
+    for n in (single + 1, n_max):
+        for name, base, pad in (
+                ("fedagg", lambda: fa.fedagg(u[:single], w[:single],
+                                             alphas=a[:single]),
+                 lambda n=n: fa.fedagg(u[:n], padded(w, single, n),
+                                       alphas=a[:n])),
+                ("fedagg_fold", lambda: fa.fedagg_fold(u[:single - 1], g,
+                                                       c[:single]),
+                 lambda n=n: fa.fedagg_fold(u[:n - 1], g,
+                                            padded(c, single, n))),
+                ("fedagg_partial", lambda: fa.fedagg_partial(u[:single],
+                                                             c3[:single]),
+                 lambda n=n: fa.fedagg_partial(u[:n],
+                                               padded(c3, single, n)))):
+            want, t0 = _tiled_calls(base)
+            got, t1 = _tiled_calls(pad)
+            if t0 or t1 != 1:
+                fail(f"{name}: {single} rows took the tiled route {t0} "
+                     f"times, {n} rows {t1}")
+            _bitwise(f"{name} (b): {single} rows padded to {n}", got, want)
+            calls.append(f"{name}:{single}->{n}")
+            tiled += t1
+    out["b_appended_zero_rows_bitwise"] = calls
+    # (c) 5,000 live rows padded to 8,192
+    calls = []
+    for name, base, pad in (
+            ("fedagg", lambda: fa.fedagg(u[:ROWS_LIVE], w[:ROWS_LIVE]),
+             lambda: fa.fedagg(u, padded(w, ROWS_LIVE, n_max))),
+            ("fedagg_fold", lambda: fa.fedagg_fold(u[:ROWS_LIVE], g,
+                                                   c[:ROWS_LIVE + 1]),
+             lambda: fa.fedagg_fold(u, g, padded(c, ROWS_LIVE + 1,
+                                                 n_max + 1))),
+            ("fedagg_partial", lambda: fa.fedagg_partial(u[:ROWS_LIVE],
+                                                         c3[:ROWS_LIVE]),
+             lambda: fa.fedagg_partial(u, padded(c3, ROWS_LIVE, n_max)))):
+        want, t0 = _tiled_calls(base)
+        got, t1 = _tiled_calls(pad)
+        if (t0, t1) != (1, 1):
+            fail(f"{name} (c): tiled calls {t0}, {t1}")
+        _bitwise(f"{name} (c): {ROWS_LIVE} live rows padded to {n_max}",
+                 got, want)
+        calls.append(f"{name}:{ROWS_LIVE}->{n_max}")
+        tiled += 2
+    out["c_live_rows_padded_bitwise"] = calls
+    # (d) within the K1-K3 tolerance of the plain twins
+    errs = {}
+    for n in (single + 1, n_max):
+        errs[f"fedagg_{n}"] = check_fedagg(f"rows-{n}", u[:n], w[:n],
+                                           a[:n])["max_abs_err"]
+        errs[f"fedagg_fold_{n}"] = check_fold(f"rows-{n}", u[:n - 1], g,
+                                              c[:n])["max_abs_err"]
+        errs[f"fedagg_partial_{n}"] = check_partial(f"rows-{n}", u[:n],
+                                                    c3[:n])["max_abs_err"]
+        tiled += 3
+    out["d_max_abs_err_vs_plain"] = errs
+    out["tolerance"] = {"rtol": RTOL, "atol": ATOL}
+    # the times at 8,192 rows (4.3 GB: no copies needed to miss the L2)
+    live_c = c[1:n_max].clone()
+    k2_c = c[:n_max]
+    eff = w / w.sum()
+    cases = {
+        "fedagg": (lambda: fa.fedagg(u, w), lambda: fa.fedagg_plain(u, w),
+                   lambda: torch.matmul(eff, u), "matmul",
+                   fedagg_bound_ms(w, ROWS_P)),
+        "fedagg_fold": (lambda: fa.fedagg_fold(u[:n_max - 1], g, k2_c),
+                        lambda: fa.fedagg_fold_plain(u[:n_max - 1], g, k2_c),
+                        lambda: torch.addmv(g, u[:n_max - 1].t(), live_c),
+                        "addmv", fold_bound_ms(k2_c, ROWS_P)),
+        "fedagg_partial": (lambda: fa.fedagg_partial(u, c3),
+                           lambda: fa.fedagg_partial_plain(u, c3),
+                           lambda: torch.mv(u.t(), c3), "mv",
+                           partial_bound_ms(c3, ROWS_P))}
+    times = {}
+    for name, (kernel, plain, library, lib_name, bound) in cases.items():
+        ms = median_ms(kernel, warmup=2, runs=5, per_run=5)
+        times[name] = {"rows": n_max if name != "fedagg_fold"
+                       else n_max - 1, "ms": ms,
+                       "plain_ms": _once_ms(plain),
+                       "library_ms": median_ms(library, warmup=2, runs=5,
+                                               per_run=5),
+                       "library": lib_name, "bound_ms": bound[0],
+                       "bound_by": bound[1],
+                       "share_of_bound": bound[0] / ms}
+        tiled += 2 + 5 * 5
+    out["at_8192_rows"] = times
+    # the single launch at 4,096 rows beside it, on the same buffer
+    out["fedagg_at_4096_ms"] = median_ms(
+        lambda: fa.fedagg(u[:single], w[:single]), warmup=2, runs=5,
+        per_run=5)
+    del u
+    torch.cuda.empty_cache()
+    return out
+
+
+# An FL run past the cap: FedAvg on SyntheticCohortTrainer with every
+# one of ROWS_CLIENTS clients in its round (K1's rows), twice from one
+# seed; FedBuff with a window of as many (K2's rows, the store padding
+# the window to 8,192), store and dict
+ROWS_CLIENTS = 4100
+
+
+def fl_past_4096_rows():
+    from repro_torch.config.base import FLConfig
+    from repro_torch.core.baselines import run_method
+    from repro_torch.fl.network import WirelessNetwork
+    from repro_torch.fl.testing import SyntheticCohortTrainer
+
+    def run(method, fl, **kw):
+        net = WirelessNetwork(fl.n_clients, fl.tier_delay_means,
+                              fl.delay_std, fl.mu, fl.failure_delay, fl.seed)
+        zero_counts()
+        t0 = time.perf_counter()
+        hist = run_method(method, SyntheticCohortTrainer(device="cuda"), net,
+                          fl, use_kernel_agg=True, **kw)
+        return hist, counts(), time.perf_counter() - t0
+
+    sync_fl = FLConfig(n_clients=ROWS_CLIENTS, tau=ROWS_CLIENTS, rounds=1,
+                       seed=3)
+    a, launched, a_s = run("fedavg", sync_fl)
+    b, again, b_s = run("fedavg", sync_fl)
+    if launched != only(fedagg=1, fedagg_tiled=1) or again != launched:
+        fail(f"fl past 4096 rows: fedavg launches {launched}, {again}")
+    if a.to_json() != b.to_json():
+        fail("fl past 4096 rows: two seeded fedavg runs differ")
+    buff_fl = FLConfig(n_clients=ROWS_CLIENTS, tau=ROWS_CLIENTS, rounds=1,
+                       seed=2)
+    kw = dict(window=ROWS_CLIENTS, eval_every=1)
+    store, s_counts, store_s = run("fedbuff", buff_fl, use_store=True, **kw)
+    plain, d_counts, dict_s = run("fedbuff", buff_fl, use_store=False, **kw)
+    if store.meta["store_path"] != "store" \
+            or _without_store_keys(store) != _without_store_keys(plain):
+        fail("fl past 4096 rows: fedbuff store != dict")
+    for c in (s_counts, d_counts):
+        if not c["fedagg_fold"] or c["fedagg_tiled"] != c["fedagg_fold"]:
+            fail(f"fl past 4096 rows: fedbuff launches {c}")
+    return {"clients": ROWS_CLIENTS,
+            "fedavg": {"survivors_per_round": int(a.n_selected[0]),
+                       "launches": launched, "seeded_runs_equal": True,
+                       "run_s": [a_s, b_s]},
+            "fedbuff": {"window": ROWS_CLIENTS,
+                        "mean_cohort": store.meta["mean_cohort"],
+                        "store_equals_dict": True,
+                        "launches_store": s_counts,
+                        "launches_dict": d_counts,
+                        "run_s": {"store": store_s, "dict": dict_s}}}
+
+
+# ---------------------------------------------------------------------
+# Non-causal banded attention on K4: one launch a q chunk on its band
+# ---------------------------------------------------------------------
+
+# hubert-xlarge's layer: q (2, 4096, 16, 80), 16 kv heads, window 1024,
+# the reference's chunks (512 q rows, 1024 keys)
+BAND_SHAPE = (2, 4096, 16, 80)
+BAND_WINDOW = 1024
+
+
+def band_route_path():
+    """The band route (``models/attention.py: _band_kernel``) in bf16 and
+    f32 against ``banded_attention``'s plain computation of the same
+    function on the card (its CPU branch, routed), at FA_TOL; the f32
+    gradients against autograd of that plain computation at the f32
+    backward tolerance; the route's launches; and that the band matters:
+    the full-window non-causal attention (one launch) differs from it by
+    more than 100x the tolerance.  v's keys past the first chunk's band
+    (3,072) are shifted by 2, so that what the band cuts shows in every
+    dtype's tolerance.  The library yardstick (the port never calls it):
+    ``scaled_dot_product_attention`` with the reference's band and the
+    window as one boolean (S, T) mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.models import attention as attn
+    b, s, h, d = BAND_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q32, k32, v32 = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+                     for _ in range(3))
+    v32[:, 3072:] += 2.0
+    kw = dict(window=BAND_WINDOW, causal=False)
+    nb = attn._band_chunks(BAND_WINDOW, 512, 1024, s)
+    out = {"q": list(BAND_SHAPE), "k": list(BAND_SHAPE),
+           "window": BAND_WINDOW, "chunk_q": 512, "chunk_kv": 1024,
+           "band_keys": nb * 1024}
+    # the function as one mask: row i sees the keys of its chunk's band
+    # that lie past i - W
+    pos = torch.arange(s, device="cuda")
+    k0 = torch.tensor([1024 * attn._band_first(qs, BAND_WINDOW, 0, 1024, s,
+                                               nb)
+                       for qs in range(0, s, 512)],
+                      device="cuda").repeat_interleave(512)[:, None]
+    band_mask = (pos[None, :] > pos[:, None] - BAND_WINDOW) \
+        & (pos[None, :] >= k0) & (pos[None, :] < k0 + nb * 1024)
+
+    def plain(q, k, v):
+        with patched(attn, "_kernel_route", lambda q: False):
+            return attn.banded_attention(q, k, v, **kw)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (x.to(dtype) for x in (q32, k32, v32))
+        zero_counts()
+        got = attn.banded_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        launched = counts()
+        want = plain(q.float(), k.float(), v.float())
+        tol = _tol(FA_TOL, dtype)
+        err = float((got.float() - want).abs().max())
+        if launched != only(flash_attention=s // 512,
+                            flash_attention_tc=(s // 512) * (dtype ==
+                                                             torch.bfloat16)):
+            fail(f"band route launches {launched}")
+        if not _close(got, want, tol):
+            fail(f"band route {dtype}: {err} from the plain computation "
+                 f"(rtol, atol {tol})")
+        full = kernel_ops.gqa_flash_attention(q, k, v, causal=False,
+                                              window=BAND_WINDOW)
+        cut = float((full.float() - got.float()).abs().max())
+        if cut <= 100 * tol[1]:
+            fail(f"band route {dtype}: the band's cut moves the output by "
+                 f"{cut} only")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=band_mask)
+
+        lib_out = library().transpose(1, 2)
+        lib_err = float((lib_out.float() - want).abs().max())
+        lib_ok = _close(lib_out, want, tol)
+        del lib_out
+        backend = _sdpa_backend(library)
+        ms = median_ms(lambda: attn.banded_attention(q, k, v, **kw),
+                       warmup=2, runs=5, per_run=3)
+        full_ms = median_ms(lambda: kernel_ops.gqa_flash_attention(
+            q, k, v, causal=False, window=BAND_WINDOW), warmup=2, runs=5,
+            per_run=3)
+        library_ms = median_ms(library, warmup=2, runs=5, per_run=3)
+        # the launches' bounds summed: each q chunk against its band
+        bound = sum(flash_bound_ms(
+            (b, 512, h, d), (b, nb * 1024, h, d), q.element_size(), False,
+            BAND_WINDOW, qs - 1024 * attn._band_first(
+                qs, BAND_WINDOW, 0, 1024, s, nb))[0]
+            for qs in range(0, s, 512))
+        out[str(dtype).removeprefix("torch.")] = {
+            "launches": launched, "max_abs_err": err, "tol": tol,
+            "full_window_minus_band_max_abs": cut, "ms": ms,
+            "bound_ms": bound, "one_launch_full_window_ms": full_ms,
+            "library_ms": library_ms, "library_max_abs_err": lib_err,
+            "library_within_tol": lib_ok,
+            "library": f"scaled_dot_product_attention ({backend}), "
+                       f"the band and window as one boolean mask"}
+    # f32 gradients through each launch's FlashAttentionFn
+    cot = torch.randn(b, s, h, d, generator=gen, device="cuda")
+
+    def grads(fn):
+        ins = [x.clone().requires_grad_(True) for x in (q32, k32, v32)]
+        return torch.autograd.grad((fn(*ins) * cot).sum(), ins)
+
+    zero_counts()
+    got = grads(lambda q, k, v: attn.banded_attention(q, k, v, **kw))
+    torch.cuda.synchronize()
+    launched = counts()
+    want = grads(plain)
+    errs = {}
+    for n, g, w in zip("qkv", got, want):
+        err, _, ok = _grad_close(f"band route d{n}", g, w)
+        if not ok:
+            fail(f"band route d{n}: {err} from autograd of the plain "
+                 f"computation (rtol {BWD_RTOL}, atol {BWD_ATOL} x max)")
+        errs[n] = err
+    if launched["flash_attention_bwd_dq"] != s // 512:
+        fail(f"band route backward launches {launched}")
+    out["f32_grads"] = {"max_abs_err": errs, "launches": launched}
+    return out
+
+
+# ---------------------------------------------------------------------
+# The logit softcap in K4's two serving forwards
+# ---------------------------------------------------------------------
+
+SOFTCAP_CAPS = (50.0, 5.0)
+# (b, s, t, h, hkv, causal, window, q_offset): causal with tails of S
+# and T, and a non-causal window past T's start
+SOFTCAP_MASKS = ((1, 200, 200, 4, 2, True, 0, 0),
+                 (1, 136, 264, 4, 2, False, 64, 96))
+
+
+def check_softcap(name, q, k, v, cap, **kw):
+    """A softcap forward against its plain twin on the same card tensors
+    at FA_TOL, twice bit for bit, and the cap biting: the twin without
+    it is more than 100x the tolerance away."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    got = fa.flash_attention(q, k, v, softcap=cap, **kw)
+    again = fa.flash_attention(q, k, v, softcap=cap, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f"softcap[{name}]: two runs differ")
+    want = fa.gqa_plain(q.float(), k.float(), v.float(), softcap=cap, **kw)
+    tol = _tol(FA_TOL, q.dtype)
+    err = float((got.float() - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or not _close(got, want, tol):
+        fail(f"softcap[{name}]: {err} from its plain twin (rtol, atol "
+             f"{tol})")
+    uncapped = fa.gqa_plain(q.float(), k.float(), v.float(), **kw)
+    bite = float((uncapped - want).abs().max())
+    if bite <= 100 * tol[1]:
+        fail(f"softcap[{name}]: the cap moves the output by {bite} only")
+    return {"case": name, "max_abs_err": err, "tol": tol, "cap_moves": bite}
+
+
+def softcap_checks():
+    """Every head dim in f32 and bf16, causal and windowed, at caps of 50
+    and 5 with q scaled by 2 caps (scores reach several caps); a cap
+    with lse refused before a launch; the forwards' launch sizes."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    zero_counts()
+    for d in HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for b, s, t, h, hkv, causal, window, off in SOFTCAP_MASKS:
+                q = torch.randn(b, s, h, d, generator=gen, device="cuda")
+                k, v = (torch.randn(b, t, hkv, d, generator=gen,
+                                    device="cuda") for _ in range(2))
+                for cap in SOFTCAP_CAPS:
+                    rows.append(check_softcap(
+                        f"d{d}-{str(dtype)[6:]}-"
+                        f"{'causal' if causal else 'window'}-cap{cap:g}",
+                        (q * (2 * cap)).to(dtype), k.to(dtype), v.to(dtype),
+                        cap, causal=causal, window=window, q_offset=off))
+    launched = counts()
+    n = len(rows) * 2
+    if launched != only(flash_attention=n, flash_attention_softcap=n,
+                        flash_attention_tc=n // 2):
+        fail(f"softcap checks launched {launched}")
+    q = torch.randn(1, 64, 2, 64, generator=gen, device="cuda")
+    before = fa.launches
+    try:
+        fa._kernel_forward(q, q, q, True, 0, 0, with_lse=True, softcap=5.0)
+        fail("softcap with lse: no error")
+    except ValueError:
+        pass
+    if fa.launches != before:
+        fail("softcap with lse: launched before raising")
+    return {"cases": rows, "launches": launched,
+            "max_abs_err": {dt: max(r["max_abs_err"] for r in rows
+                                    if dt in r["case"])
+                            for dt in ("float32", "bfloat16")},
+            "fwd_sizes": {f"{str(dt)[6:]}_d{d}": fa.fwd_sizes(d, dt)
+                          for d in HEAD_DIMS
+                          for dt in (torch.float32, torch.bfloat16)}}
+
+
+def _scaled_q_errors(q, k, v, factor):
+    """Reported, not gated: the softcap forward on normal q scaled by
+    ``factor`` (scores of std ~``factor``/8 at D = 64 come out of dots
+    whose terms are far larger, so each score carries the f32 rounding
+    of those terms), against its f32 plain twin and both against the
+    twin in f64: how far each f32 computation lands from the exact
+    answer on such inputs."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    qs = (q.float() * factor).to(q.dtype)
+    kw = dict(causal=True, softcap=SERVE_SOFTCAP)
+    got = fa.flash_attention(qs, k, v, **kw).float()
+    twin = fa.gqa_plain(qs.float(), k.float(), v.float(), **kw)
+    # the twin's function in f64, a batch row at a time (the twin itself
+    # computes in f32 whatever it is given)
+    h, d = q.shape[2], q.shape[3]
+    rows = []
+    for i in range(q.shape[0]):
+        qd = qs[i].double().movedim(1, 0)
+        kd, vd = (fa.repeat_kv_heads(x[i:i + 1], h)[0].double().movedim(1, 0)
+                  for x in (k, v))
+        sc = fa.softcap_scores(torch.einsum("hsd,htd->hst", qd, kd)
+                               / math.sqrt(d), SERVE_SOFTCAP)
+        keep = torch.ones(sc.shape[1:], dtype=torch.bool,
+                          device=q.device).tril()
+        p = torch.softmax(sc.masked_fill(~keep, float("-inf")), dim=-1)
+        rows.append(torch.einsum("hst,htd->hsd", p, vd).movedim(0, 1))
+        del sc, p
+    exact = torch.stack(rows)
+    out = {"q_factor": factor,
+           "kernel_vs_twin": float((got - twin).abs().max()),
+           "kernel_vs_f64": float((got.double() - exact).abs().max()),
+           "twin_vs_f64": float((twin.double() - exact).abs().max())}
+    del got, twin, exact
+    torch.cuda.empty_cache()
+    return out
+
+
+def _flex_softcap(q, k, v, cap):
+    """The library yardstick of a causal softcap forward (the port never
+    calls it): ``flex_attention`` compiled, with ``cap*tanh(s/cap)`` as
+    its ``score_mod``, a causal block mask and ``enable_gqa``, on q, k, v
+    of shape (B, S, H, D).  Returns the call (its output (B, H, S, D))
+    and the seconds its first call took, the compile included.  The
+    compile caches go under ``build/``."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def causal(b, h, q_idx, kv_idx):
+        return q_idx >= kv_idx
+
+    mask = create_block_mask(causal, None, None, q.shape[1], k.shape[1],
+                             device="cuda")
+    compiled = torch.compile(flex_attention, dynamic=False)
+
+    def library():
+        return compiled(qt, kt, vt, score_mod=score_mod, block_mask=mask,
+                        enable_gqa=True)
+
+    t0 = time.perf_counter()
+    library()
+    torch.cuda.synchronize()
+    return library, time.perf_counter() - t0
+
+
+# the cap of Gemma 2's published config (attn_logit_softcapping)
+SERVE_SOFTCAP = 50.0
+SOFTCAP_PREFILL = ("llama3.2-1b", 2, 4096)
+SOFTCAP_DECODE_STEPS = 4
+# the prefill == decode check (f32, CONSISTENCY_LAYERS deep): long
+# enough for the chunked route (S*T > 256^2) in chunks of 64
+SOFTCAP_CONSISTENCY_S = 320
+
+
+def lm_softcap_serve_path():
+    """llama3.2-1b at full width, all 16 layers in bf16, with the cap of
+    50 (``dataclasses.replace(cfg, attn_logit_softcap=50.0)``): prefill
+    at 2 x 4096 through ``make_prefill_step`` (K4's softcap forward once
+    a layer) and a few decode steps through ``make_serve_step`` (the
+    plain ring-cache decode), tokens/s beside the same model without a
+    cap; then prefill == decode at CONSISTENCY_LAYERS in f32.  Then the
+    softcap forward's ms at the prefill's layer shape beside the
+    forward without a cap, its plain twin and its bound."""
+    import dataclasses
+
+    import torch
+    from repro_torch.config.base import InputShape, TrainConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import decode_step, init_decode_state
+    arch, b, s = SOFTCAP_PREFILL
+    base, params = _lm_params(arch, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    toks = torch.randint(0, base.vocab_size, (b, s), generator=gen,
+                         device="cuda")
+    out = {"arch": arch, "num_layers": base.num_layers, "batch": b,
+           "seq_len": s, "softcap": SERVE_SOFTCAP, "dtype": "bfloat16"}
+    logits = {}
+    for cap in (SERVE_SOFTCAP, 0.0):
+        cfg = dataclasses.replace(base, attn_logit_softcap=cap)
+        prefill = make_prefill_step(cfg, TrainConfig())
+        prefill(params, {"tokens": toks})          # warm
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits[cap] = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launched = counts()
+        want = only(flash_attention=cfg.num_layers,
+                    flash_attention_tc=cfg.num_layers,
+                    flash_attention_softcap=cfg.num_layers * (cap > 0))
+        if launched != want:
+            fail(f"softcap prefill (cap {cap}) launches {launched}")
+        shape = InputShape("serve", SOFTCAP_DECODE_STEPS + 2, b, "decode")
+        step = make_serve_step(cfg, shape, TrainConfig())
+        state = init_decode_state(cfg, b, SOFTCAP_DECODE_STEPS + 2,
+                                  dtype=torch.bfloat16, device="cuda")
+        dec, state = step(params, state, {"tokens": toks[:, :1]})  # warm
+        tok = torch.argmax(dec[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SOFTCAP_DECODE_STEPS):
+            dec, state = step(params, state, {"tokens": tok})
+            tok = torch.argmax(dec[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        if not bool(torch.isfinite(logits[cap]).all()) \
+                or not bool(torch.isfinite(dec).all()):
+            fail(f"softcap serve (cap {cap}): non-finite logits")
+        out["with_cap" if cap else "without_cap"] = {
+            "prefill_s": prefill_s, "prefill_tokens_per_s": b * s / prefill_s,
+            "decode_steps": SOFTCAP_DECODE_STEPS,
+            "decode_tokens_per_s": b * SOFTCAP_DECODE_STEPS / decode_s,
+            "launches_prefill": launched}
+    moved = float((logits[SERVE_SOFTCAP].float()
+                   - logits[0.0].float()).abs().max())
+    out["cap_moves_logits"] = moved
+    del params, logits
+    torch.cuda.empty_cache()
+
+    # prefill == decode, f32, CONSISTENCY_LAYERS deep
+    cfg, params = _lm_params(arch, torch.float32,
+                             num_layers=CONSISTENCY_LAYERS)
+    cfg = dataclasses.replace(cfg, attn_logit_softcap=SERVE_SOFTCAP)
+    ctoks = torch.randint(0, cfg.vocab_size, (1, SOFTCAP_CONSISTENCY_S),
+                          generator=gen, device="cuda")
+    prefill = make_prefill_step(cfg, TrainConfig(attn_chunk_q=64,
+                                                 attn_chunk_kv=64))
+    zero_counts()
+    got = prefill(params, {"tokens": ctoks})
+    torch.cuda.synchronize()
+    if counts() != only(flash_attention=cfg.num_layers,
+                        flash_attention_softcap=cfg.num_layers):
+        fail(f"softcap consistency prefill launches {counts()}")
+    state = init_decode_state(cfg, 1, SOFTCAP_CONSISTENCY_S,
+                              dtype=torch.float32, device="cuda")
+    for i in range(SOFTCAP_CONSISTENCY_S):
+        dec, state = decode_step(cfg, params, state, ctoks[:, i:i + 1])
+    torch.cuda.synchronize()
+    vs_decode = float((got - dec[:, -1]).abs().max())
+    if vs_decode > CONSISTENCY_ATOL or \
+            not torch.equal(got.argmax(-1), dec[:, -1].argmax(-1)):
+        fail(f"softcap prefill vs decode {vs_decode} (atol "
+             f"{CONSISTENCY_ATOL})")
+    out["consistency"] = {"num_layers": cfg.num_layers,
+                          "seq_len": SOFTCAP_CONSISTENCY_S,
+                          "dtype": "float32",
+                          "prefill_vs_decode_max_abs": vs_decode,
+                          "atol": CONSISTENCY_ATOL}
+    del params, state
+    torch.cuda.empty_cache()
+
+    # the layer's forward with and without the cap, in turns; gated
+    # against the plain twin at this shape on the timed inputs and on q
+    # scaled by 2 caps (scores reach several caps, so the cap bites)
+    h, hkv, d = base.n_heads, base.n_kv_heads, base.head_dim
+    times = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(b, s, h, d, generator=gen, device="cuda",
+                        dtype=dtype)
+        k, v = (torch.randn(b, s, hkv, d, generator=gen, device="cuda",
+                            dtype=dtype) for _ in range(2))
+
+        def fwd(cap):
+            return lambda: fa.flash_attention(q, k, v, causal=True,
+                                              softcap=cap)
+
+        cap_a = median_ms(fwd(SERVE_SOFTCAP), warmup=2, runs=5, per_run=5)
+        none_a = median_ms(fwd(0.0), warmup=2, runs=5, per_run=5)
+        cap_b = median_ms(fwd(SERVE_SOFTCAP), warmup=2, runs=5, per_run=5)
+        none_b = median_ms(fwd(0.0), warmup=2, runs=5, per_run=5)
+        bound = flash_softcap_bound_ms(q.shape, k.shape, q.element_size(),
+                                       True, 0, 0)
+        tol = _tol(FA_TOL, dtype)
+        want = fa.gqa_plain(q.float(), k.float(), v.float(), causal=True,
+                            softcap=SERVE_SOFTCAP)
+        got = fa.flash_attention(q, k, v, causal=True, softcap=SERVE_SOFTCAP)
+        err = float((got.float() - want).abs().max())
+        if not bool(torch.isfinite(got).all()) or not _close(got, want, tol):
+            fail(f"softcap llama layer {dtype}: {err} from its plain twin "
+                 f"(rtol, atol {tol})")
+        library, compile_s = _flex_softcap(q, k, v, SERVE_SOFTCAP)
+        lib_out = library().transpose(1, 2)
+        lib_err = float((lib_out.float() - want).abs().max())
+        lib_ok = _close(lib_out, want, tol)
+        del want, got, lib_out
+        library_ms = median_ms(library, warmup=2, runs=5, per_run=5)
+        # the cap biting at this shape: integer q in [-64, 64] and k in
+        # [-6, 6], so that every score is exact in f32, in split TF32 and
+        # from bf16 inputs (|q.k| <= 64*64*6 < 2^24; the scale 1/8 is a
+        # power of two) and reaches several caps (std ~140)
+        qi = torch.randint(-64, 65, q.shape, generator=gen, device="cuda")
+        ki = torch.randint(-6, 7, k.shape, generator=gen, device="cuda")
+        bites = check_softcap(
+            f"llama-layer-{str(dtype)[6:]}-cap{SERVE_SOFTCAP:g}-exact-scores",
+            qi.to(dtype), ki.to(dtype), v, SERVE_SOFTCAP, causal=True)
+        del qi, ki
+        scaled = _scaled_q_errors(q, k, v, 2 * SERVE_SOFTCAP)
+        times.append({"dtype": str(dtype)[6:], "q": list(q.shape),
+                      "k": list(k.shape), "causal": True,
+                      "ms": min(cap_a, cap_b),
+                      "without_cap_ms": min(none_a, none_b),
+                      "cap_over_without": min(cap_a, cap_b)
+                      / min(none_a, none_b),
+                      "plain_ms": _once_ms(lambda: fa.gqa_plain(
+                          q, k, v, causal=True, softcap=SERVE_SOFTCAP)),
+                      "bound_ms": bound[0], "bound_by": bound[1],
+                      "bound_ops": bound[2], "max_abs_err": err, "tol": tol,
+                      "exact_scores_cap_bites": bites,
+                      "q_scaled_by_2_caps": scaled,
+                      "library_ms": library_ms,
+                      "library_max_abs_err": lib_err,
+                      "library_within_tol": lib_ok,
+                      "library_compile_s": compile_s,
+                      "library": "flex_attention (torch.compile), tanh "
+                                 "score_mod, causal block mask, "
+                                 "enable_gqa"})
+    out["forward_times"] = times
+    return out
+
+
 def run_phases() -> int:
     """Every phase in order; the last two lines are the kernels line and
     the result line."""
@@ -6750,6 +7452,16 @@ def run_phases() -> int:
     emit({"phase": "lm_audio_encode_path", "card": card, **audio})
     audio_train, per_step[AUDIO] = lm_audio_train_step()
     emit({"phase": "lm_audio_train_step", "card": card, **audio_train})
+    rows = fedagg_rows_checks()
+    emit({"phase": "fedagg_past_4096_rows", "card": card, **rows})
+    fl_rows = fl_past_4096_rows()
+    emit({"phase": "fl_past_4096_rows", "card": card, **fl_rows})
+    band = band_route_path()
+    emit({"phase": "band_route_path", "card": card, **band})
+    cap_checks = softcap_checks()
+    emit({"phase": "softcap_checks", **cap_checks})
+    cap_serve = lm_softcap_serve_path()
+    emit({"phase": "lm_softcap_serve_path", "card": card, **cap_serve})
 
     at_main = fedagg_times(MAIN_N, MAIN_P)
     seen = [fedagg_times(n, p)
@@ -6809,6 +7521,8 @@ def run_phases() -> int:
           "at_train_path_shape": ss_bwd16})
     hymba_train = lm_train["runs"][0]["launches"]
     hymba_bf16 = bf16_train["runs"][0]["launches"]
+    # elapsed_s: the script's wall time, the build and import included
+    emit({"phase": "script_wall_time"})
 
     widest = seen[-1]          # the largest cohort the main path formed
     fold_widest = max(fold_seen, key=lambda t: t["k_live"])
@@ -6823,7 +7537,16 @@ def run_phases() -> int:
         "shape": [widest["n"], widest["p"]],
         "ms": widest["ms"], "plain_ms": widest["plain_ms"],
         "bound_ms": widest["bound_ms"], "bound_by": widest["bound_by"],
-        "library_ms": widest["library_ms"]}, {
+        "library_ms": widest["library_ms"],
+        # past 4,096 rows: the tiled route (FedAvg's round of every one
+        # of ROWS_CLIENTS clients; the checks' 8,192 rows)
+        "past_4096_rows": {
+            "fl_launches": fl_rows["fedavg"]["launches"]["fedagg_tiled"],
+            "max_abs_err": max(v for k, v in
+                               rows["d_max_abs_err_vs_plain"].items()
+                               if k.startswith("fedagg_4")
+                               or k.startswith("fedagg_8")),
+            **rows["at_8192_rows"]["fedagg"]}}, {
         "name": "fedagg_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedagg.cu",
         "replaces": "src/repro/kernels/fedagg.py:102",
@@ -6837,7 +7560,15 @@ def run_phases() -> int:
         "ms": fold_widest["ms"], "plain_ms": fold_widest["plain_ms"],
         "bound_ms": fold_widest["bound_ms"],
         "bound_by": fold_widest["bound_by"],
-        "library_ms": fold_widest["library_ms"]}, {
+        "library_ms": fold_widest["library_ms"],
+        # past 4,096 coefficients: FedBuff's window of ROWS_CLIENTS
+        "past_4096_rows": {
+            "fl_launches": fl_rows["fedbuff"]["launches_store"]
+            ["fedagg_tiled"],
+            "max_abs_err": max(v for k, v in
+                               rows["d_max_abs_err_vs_plain"].items()
+                               if k.startswith("fedagg_fold")),
+            **rows["at_8192_rows"]["fedagg_fold"]}}, {
         "name": "fedagg_partial", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedagg.cu",
         "replaces": "src/repro/kernels/fedagg.py:163",
@@ -6851,7 +7582,15 @@ def run_phases() -> int:
         "ms": partial_widest["ms"], "plain_ms": partial_widest["plain_ms"],
         "bound_ms": partial_widest["bound_ms"],
         "bound_by": partial_widest["bound_by"],
-        "library_ms": partial_widest["library_ms"]}, {
+        "library_ms": partial_widest["library_ms"],
+        "secure_sum": {k: secure[f"k3_{k}"] for k in (
+            "rows", "ms", "plain_ms", "library_ms", "library", "bound_ms",
+            "bound_by")},
+        "past_4096_rows": {
+            "max_abs_err": max(v for k, v in
+                               rows["d_max_abs_err_vs_plain"].items()
+                               if k.startswith("fedagg_partial")),
+            **rows["at_8192_rows"]["fedagg_partial"]}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:30",
@@ -6873,6 +7612,15 @@ def run_phases() -> int:
                        "launches": audio["forward"]["launches"]})},
         # the context-parallel routes: one launch a model shard a layer
         "cp_launches": lm_mesh["cp_k4_launches"],
+        # non-causal banded attention: one launch a q chunk on its band
+        # (hubert-xlarge's layer shape)
+        "band_route": {"q": band["q"], "window": band["window"],
+                       "launches_a_layer": band["bfloat16"]["launches"]
+                       ["flash_attention"],
+                       **{dt: {k: band[dt][k] for k in (
+                           "ms", "bound_ms", "one_launch_full_window_ms",
+                           "max_abs_err", "library_ms")}
+                          for dt in ("bfloat16", "float32")}},
         "max_abs_err": max(t["max_abs_err"] for t in fa_times),
         "shape": {"q": fa_times[0]["q"], "k": fa_times[0]["k"],
                   "window": fa_times[0]["window"]},
@@ -6919,6 +7667,27 @@ def run_phases() -> int:
             "launches_per_train_step":
                 r["launches_per_train_step"]["fwd_lse"]}
             for r in fa_bwd16]}, {
+        "name": "flash_attention_softcap", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_softcap.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:30",
+        "replaces_note": "the forward with the logit softcap, which the "
+                         "reference computes in jnp around its attention "
+                         "(models/attention.py:58); its Pallas kernel has "
+                         "none",
+        # one full-width llama3.2-1b bf16 prefill at 2 x 4096, cap 50
+        "launches": cap_serve["with_cap"]["launches_prefill"]
+        ["flash_attention_softcap"],
+        "max_abs_err": max(cap_checks["max_abs_err"].values()),
+        "shape": {"q": cap_serve["forward_times"][0]["q"],
+                  "k": cap_serve["forward_times"][0]["k"],
+                  "causal": True, "softcap": SERVE_SOFTCAP},
+        **{k: cap_serve["forward_times"][0][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "without_cap_ms")},
+        "library_ms": cap_serve["forward_times"][0]["library_ms"],
+        "library": cap_serve["forward_times"][0]["library"],
+        "f32": {k: cap_serve["forward_times"][1][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "without_cap_ms",
+            "library_ms")}}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:28",

@@ -5,9 +5,13 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 of the checkout, at first use, and loaded with ``ctypes``; the headers
 ``csrc/*.cuh`` are on the include path.  The digest is of the source
 text and of every header's, so an edited source or header never meets
-a stale library.  Sources that are asked for together are compiled together,
-one ``nvcc`` process each.  While tracing is on, every source built
-adds one to the ``kernel.builds`` counter and its seconds to the
+a stale library.  Every source is compiled to an object and each
+library linked from its objects: most libraries are one source, and
+``SOURCES`` names those of several (K4's forward and its softcap
+instantiations), whose digest covers every one.  Sources that are
+asked for together are compiled together, one ``nvcc`` process each.
+While tracing is on, every library built adds one to the
+``kernel.builds`` counter and its seconds to the
 ``kernel.build_s`` histogram (the port's counterpart of a backend
 compile); a build that finds its library recorded nothing.
 """
@@ -31,9 +35,15 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 # as the machine has CPUs; the attention sources' many instantiations
 # then build in about 13 s where one thread took 21 on an H100 machine
 # of 8 cores (PERF.md)
+# (a source to an object with "-c" and the library linked with
+# "-shared", or a source straight to a library with "-shared")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--split-compile=0",
+              "-O3", "-Xcompiler", "-fPIC", "--split-compile=0",
               f"-I{CSRC}")
+
+# the libraries built from more than one source, in link order; any
+# other library ``<name>`` is ``csrc/<name>.cu`` alone
+SOURCES = {"flash_attention": ("flash_attention", "flash_attention_softcap")}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -53,7 +63,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h = hashlib.sha256()
+    for src in SOURCES.get(name, (name,)):
+        h.update((CSRC / f"{src}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
@@ -69,19 +81,35 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = perf_counter()
-        procs = []
+        tag = f".{os.getpid()}.tmp"
+        procs = []                 # (library, object, process) a source
         for n in missing:
-            tmp = targets[n].with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / f"{n}.cu")]
-            procs.append((n, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            for src in SOURCES.get(n, (n,)):
+                out = BUILD_DIR / f"{src}{tag}.o"
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(out),
+                       str(CSRC / f"{src}.cu")]
+                procs.append((n, out, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
         failures = []
-        for n, tmp, proc in procs:
-            out, _ = proc.communicate()
+        for n, out, proc in procs:
+            text, _ = proc.communicate()
             if proc.returncode != 0:
-                failures.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
+                failures.append(f"{out.name} (exit {proc.returncode}):\n"
+                                f"{text}")
+        for n in missing:
+            outs = [out for m, out, _ in procs if m == n]
+            tmp = targets[n].with_suffix(tag)
+            if not failures:
+                link = subprocess.Popen(
+                    [nvcc, "-shared", "-o", str(tmp), *map(str, outs)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                text, _ = link.communicate()
+                if link.returncode != 0:
+                    failures.append(f"link of {n} (exit {link.returncode}):"
+                                    f"\n{text}")
+            if failures:
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, targets[n])   # atomic: never a half file
@@ -89,6 +117,8 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
                 if tel.enabled:
                     tel.inc("kernel.builds")
                     tel.observe("kernel.build_s", perf_counter() - t0)
+            for out in outs:
+                out.unlink(missing_ok=True)
         if failures:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return targets

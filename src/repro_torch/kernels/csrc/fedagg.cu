@@ -54,6 +54,30 @@
 // only masks the coefficients and packs the live rows, so a masked row
 // is never loaded and all-zero coefficients give exact zeros.  Bound:
 // bytes, (R_live*P + P)*4.
+//
+// Past FEDAGG_MAX_ROWS (4096) rows the coefficients no longer fit one
+// block's shared memory, and each of the three entries has a tiled twin
+// (fedagg_f32_ws, fedagg_fold_f32_ws, fedagg_partial_f32_ws) of two
+// launches on the caller's stream and no host sync:
+//
+//   * a preamble of one block derives the coefficients with the same
+//     arithmetic in the same order as the single launch's: effective
+//     weights masked where <= 0 (NaN included), the total summed by one
+//     thread in row order (from shared memory, a chunk at a time), the
+//     division, and the live rows packed in row order (a block scan).
+//     It writes the packed coefficients, their row indices, the live
+//     count and (K2) the global row's coefficient into a device
+//     workspace the caller allocates (fedagg_ws_floats(n) floats);
+//   * the stream kernel walks the live rows in tiles of FEDAGG_TILE
+//     coefficients staged in shared memory, the f32 accumulator carried
+//     in registers from tile to tile: the same sequential fma chain over
+//     the live rows as the single launch, so the bits are the same and
+//     appended rows of coefficient 0 change none of them.  K2's global
+//     row is kept apart until the end, as above.  Masked rows are
+//     skipped before their load.
+//
+// The row index is an int: FEDAGG_WS_MAX_ROWS = 2^30 keeps every index,
+// count and workspace offset inside it.
 
 #include <cuda_runtime.h>
 
@@ -412,4 +436,261 @@ extern "C" int fedagg_partial_f32(const void* u, const void* coef, void* out,
         case 1: return launch_partial<float>(uf, cf, of, n, p, s);
         default: return (int)cudaErrorInvalidValue;
     }
+}
+
+// ---------------------------------------------------------------------
+// Past FEDAGG_MAX_ROWS: a preamble launch and the tiled stream
+// ---------------------------------------------------------------------
+
+#define FEDAGG_WS_MAX_ROWS (1 << 30)   // int indices, counts and offsets
+#define FEDAGG_TILE 2048               // coefficients a stage: 16 KB
+#define FEDAGG_PRE_THREADS 1024
+#define FEDAGG_PRE_CHUNK 4096          // floats summed from shared memory
+
+// the three entries' coefficient rules, by MODE
+#define FEDAGG_AVG 0                   // fedagg: w * a, normalised
+#define FEDAGG_FOLD 1                  // fedagg_fold: coef[1:], global first
+#define FEDAGG_PARTIAL 2               // fedagg_partial: coef, unnormalised
+
+extern "C" int fedagg_ws_max_rows() { return FEDAGG_WS_MAX_ROWS; }
+
+// Floats of the workspace of n rows: the packed coefficients (n), their
+// row indices (n ints), the live count (an int) and fedagg_fold's
+// normalised global coefficient.
+extern "C" long long fedagg_ws_floats(int n) { return 2LL * n + 2; }
+
+// Row i's coefficient masked at <= 0 (NaN compares false), before any
+// division: the products and selects of effective_weights,
+// fold_coefficients and partial_coefficients.
+template <int MODE>
+__device__ __forceinline__ float ws_masked(const float* __restrict__ c,
+                                           const float* __restrict__ a,
+                                           int i) {
+    float e;
+    if (MODE == FEDAGG_AVG) e = a ? c[i] * a[i] : c[i];
+    else if (MODE == FEDAGG_FOLD) e = c[i + 1];
+    else e = c[i];
+    return e > 0.0f ? e : 0.0f;
+}
+
+// One block.  The total is summed by one thread in row order (a chunk
+// staged in shared memory at a time; fedagg_fold starts from the global
+// coefficient), then the rows are taken in chunks of the block: each
+// coefficient divided (or not) as its single-launch twin divides it,
+// and the live ones packed in row order by a block scan (a ballot a
+// warp) into ws.
+template <int MODE>
+__global__ void __launch_bounds__(FEDAGG_PRE_THREADS)
+fedagg_preamble_kernel(const float* __restrict__ c,
+                       const float* __restrict__ a, int n,
+                       float* __restrict__ ws) {
+    __shared__ float chunk[FEDAGG_PRE_CHUNK];
+    __shared__ int warp_live[FEDAGG_PRE_THREADS / 32];
+    __shared__ float total_s;
+    __shared__ int packed_s;
+    float* coef = ws;
+    int* rows = reinterpret_cast<int*>(ws + n);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+    float c0 = 0.0f;
+    if (MODE == FEDAGG_FOLD) {
+        const float g = c[0];
+        c0 = g > 0.0f ? g : 0.0f;
+    }
+    float total = 1.0f;
+    if (MODE != FEDAGG_PARTIAL) {
+        float acc = 0.0f;
+        if (MODE == FEDAGG_FOLD) acc += c0;
+        for (int base = 0; base < n; base += FEDAGG_PRE_CHUNK) {
+            const int m = min(FEDAGG_PRE_CHUNK, n - base);
+            for (int i = tid; i < m; i += blockDim.x)
+                chunk[i] = ws_masked<MODE>(c, a, base + i);
+            __syncthreads();
+            if (tid == 0)
+                for (int i = 0; i < m; ++i) acc += chunk[i];   // row order
+            __syncthreads();
+        }
+        if (tid == 0) total_s = fmaxf(acc, 1e-30f);
+        __syncthreads();
+        total = total_s;
+    }
+    if (tid == 0) packed_s = 0;
+    __syncthreads();
+    for (int base = 0; base < n; base += blockDim.x) {
+        const int i = base + tid;
+        float e = 0.0f;
+        bool live = false;
+        if (i < n) {
+            const float m = ws_masked<MODE>(c, a, i);
+            if (MODE == FEDAGG_AVG) {          // live before the division
+                live = m > 0.0f;
+                e = m / total;
+            } else if (MODE == FEDAGG_FOLD) {  // live after it
+                e = m / total;
+                live = e > 0.0f;
+            } else {
+                live = m > 0.0f;
+                e = m;
+            }
+        }
+        const unsigned ballot = __ballot_sync(0xffffffffu, live);
+        if (lane == 0) warp_live[warp] = __popc(ballot);
+        __syncthreads();
+        int at = packed_s + __popc(ballot & ((1u << lane) - 1));
+        for (int w = 0; w < warp; ++w) at += warp_live[w];
+        if (live) {
+            coef[at] = e;
+            rows[at] = i;
+        }
+        __syncthreads();
+        if (tid == 0)
+            for (int w = 0; w < FEDAGG_PRE_THREADS / 32; ++w)
+                packed_s += warp_live[w];
+        __syncthreads();
+    }
+    if (tid == 0) {
+        reinterpret_cast<int*>(ws)[2LL * n] = packed_s;
+        ws[2LL * n + 1] = MODE == FEDAGG_FOLD ? c0 / total : 0.0f;
+    }
+}
+
+// R live rows [j, j + R) of the staged tile into this thread's columns:
+// all R loads started before the first multiply-add, the adds in row
+// order (add_rows on a packed tile)
+template <typename V, int R>
+__device__ __forceinline__ void add_tile_rows(const float* __restrict__ u,
+                                              long long p, long long col,
+                                              const float* tc, const int* tr,
+                                              int j, V& acc) {
+    V x[R];
+    float e[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        e[r] = tc[j + r];
+        x[r] = ldg(reinterpret_cast<const V*>(u + (long long)tr[j + r] * p
+                                              + col));
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) fma_into(e[r], x[r], acc);
+}
+
+// The stream: each block grid-strides over the columns; for each of its
+// column passes it walks the live rows in tiles of FEDAGG_TILE packed
+// coefficients and row indices staged in shared memory, the accumulator
+// carried from tile to tile.  The pass loop is uniform over the block
+// (the barriers), a thread past p only helps stage.
+template <typename V, int MODE>
+__global__ void __launch_bounds__(FEDAGG_THREADS)
+fedagg_ws_kernel(const float* __restrict__ u, const float* __restrict__ g,
+                 const float* __restrict__ ws, float* __restrict__ out,
+                 int n, long long p) {
+    constexpr int VEC = sizeof(V) / sizeof(float);
+    __shared__ float tc[FEDAGG_TILE];
+    __shared__ int tr[FEDAGG_TILE];
+    const float* coef = ws;
+    const int* rows = reinterpret_cast<const int*>(ws + n);
+    const int n_live = reinterpret_cast<const int*>(ws)[2LL * n];
+    const float c0 = MODE == FEDAGG_FOLD ? ws[2LL * n + 1] : 0.0f;
+
+    const long long step = (long long)gridDim.x * blockDim.x * VEC;
+    for (long long base = (long long)blockIdx.x * blockDim.x * VEC;
+         base < p; base += step) {
+        const long long col = base + (long long)threadIdx.x * VEC;
+        const bool mine = col < p;
+        V acc = V();
+        for (int j0 = 0; j0 < n_live; j0 += FEDAGG_TILE) {
+            const int m = min(FEDAGG_TILE, n_live - j0);
+            __syncthreads();               // the last tile has been read
+            for (int i = threadIdx.x; i < m; i += blockDim.x) {
+                tc[i] = coef[j0 + i];
+                tr[i] = rows[j0 + i];
+            }
+            __syncthreads();
+            if (mine) {
+                int j = 0;
+                for (; j + ROWS_IN_FLIGHT <= m; j += ROWS_IN_FLIGHT)
+                    add_tile_rows<V, ROWS_IN_FLIGHT>(u, p, col, tc, tr, j,
+                                                     acc);
+                for (; j + 4 <= m; j += 4)
+                    add_tile_rows<V, 4>(u, p, col, tc, tr, j, acc);
+                for (; j < m; ++j)
+                    add_tile_rows<V, 1>(u, p, col, tc, tr, j, acc);
+            }
+        }
+        if (mine) {
+            // c0 == 0: the global row is neither read nor multiplied
+            if (MODE == FEDAGG_FOLD && c0 > 0.0f)
+                acc = global_plus(c0, ldg(reinterpret_cast<const V*>(g + col)),
+                                  acc);
+            *reinterpret_cast<V*>(out + col) = acc;
+        }
+    }
+}
+
+template <typename V, int MODE>
+static int launch_ws(const float* u, const float* g, const float* c,
+                     const float* a, float* out, float* ws, int n,
+                     long long p, cudaStream_t stream) {
+    unsigned blocks = 0;
+    const int err = grid_blocks<V>(p, &blocks);
+    if (err != 0) return err;
+    fedagg_preamble_kernel<MODE><<<1, FEDAGG_PRE_THREADS, 0, stream>>>(
+        c, a, n, ws);
+    const cudaError_t pre = cudaGetLastError();
+    if (pre != cudaSuccess) return (int)pre;
+    fedagg_ws_kernel<V, MODE><<<blocks, FEDAGG_THREADS, 0, stream>>>(
+        u, g, ws, out, n, p);
+    return (int)cudaGetLastError();
+}
+
+template <int MODE>
+static int launch_ws_vec(const void* u, const void* g, const void* c,
+                         const void* a, void* out, void* ws, int n,
+                         long long p, int vec, void* stream) {
+    if (n < 1 || n > FEDAGG_WS_MAX_ROWS || p < 1 || vec < 1 || p % vec != 0
+            || ws == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const float* uf = static_cast<const float*>(u);
+    const float* gf = static_cast<const float*>(g);
+    const float* cf = static_cast<const float*>(c);
+    const float* af = static_cast<const float*>(a);
+    float* of = static_cast<float*>(out);
+    float* wf = static_cast<float*>(ws);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (vec) {
+        case 4: return launch_ws<float4, MODE>(uf, gf, cf, af, of, wf, n, p, s);
+        case 2: return launch_ws<float2, MODE>(uf, gf, cf, af, of, wf, n, p, s);
+        case 1: return launch_ws<float, MODE>(uf, gf, cf, af, of, wf, n, p, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// fedagg_f32's arguments and its result past FEDAGG_MAX_ROWS rows, with
+// ws a device workspace of fedagg_ws_floats(n) floats that the two
+// launches own until they have run.  Returns cudaGetLastError() after
+// the launches; does not synchronise.
+extern "C" int fedagg_f32_ws(const void* u, const void* w, const void* a,
+                             void* out, void* ws, int n, long long p,
+                             int vec, void* stream) {
+    return launch_ws_vec<FEDAGG_AVG>(u, nullptr, w, a, out, ws, n, p, vec,
+                                     stream);
+}
+
+// fedagg_fold_f32's, past FEDAGG_MAX_ROWS coefficients: k rows, ws of
+// fedagg_ws_floats(k) floats.
+extern "C" int fedagg_fold_f32_ws(const void* u, const void* g,
+                                  const void* coef, void* out, void* ws,
+                                  int k, long long p, int vec,
+                                  void* stream) {
+    return launch_ws_vec<FEDAGG_FOLD>(u, g, coef, nullptr, out, ws, k, p,
+                                      vec, stream);
+}
+
+// fedagg_partial_f32's, past FEDAGG_MAX_ROWS rows: ws of
+// fedagg_ws_floats(n) floats.
+extern "C" int fedagg_partial_f32_ws(const void* u, const void* coef,
+                                     void* out, void* ws, int n,
+                                     long long p, int vec, void* stream) {
+    return launch_ws_vec<FEDAGG_PARTIAL>(u, nullptr, coef, nullptr, out, ws,
+                                         n, p, vec, stream);
 }

@@ -324,9 +324,18 @@ __device__ __forceinline__ void fa_stage_rows(float* dst, const float* src,
     int H, int Hkv, long long q_sb, long long q_ss, long long q_sh, \
     long long k_sb, long long k_st, long long k_sh, long long v_sb, \
     long long v_st, long long v_sh, int causal, int window, int q_offset, \
-    float scale
+    float scale, float cap
 #define FA_FWD_PASS q, k, v, out, lse, S, T_len, H, Hkv, q_sb, q_ss, q_sh, \
-    k_sb, k_st, k_sh, v_sb, v_st, v_sh, causal, window, q_offset, scale
+    k_sb, k_st, k_sh, v_sb, v_st, v_sh, causal, window, q_offset, scale, cap
+
+// The logit softcap of the CAP instantiations, cap * tanh(s / cap) on
+// the scaled score as the reference writes it (divide, tanh, multiply).
+// tanhf is the accurate one (2 ulp): tanh.approx.f32's relative error,
+// near 2^-11, times a cap of 50 is about 0.024 of a logit, 2.4 % of p.
+template <bool CAP>
+__device__ __forceinline__ float fa_softcap(float s, float cap) {
+    return CAP ? tanhf(s / cap) * cap : s;
+}
 
 // The keys a block of 64 rows from q0 needs, into range_lo / range_hi:
 // the union of its rows' bands, or all T when one of its rows sees none
@@ -350,7 +359,8 @@ __device__ __forceinline__ void fa_block_range(int q0, int S, int T_len,
 // D <= 64: four warps, 16 q rows a warp, each against the whole key
 // tile; q as split-TF32 A fragments in registers, loaded once.
 // LSE: also write each row's m + log(max(l, 1e-30)) to lse (B,H,S).
-template <int D, bool LSE>
+// CAP: the scores soft-capped (fa_softcap) before the masks.
+template <int D, bool LSE, bool CAP>
 __device__ __forceinline__ void fa_fwd_narrow(FA_FWD_PARAMS) {
     constexpr int RS = D + 4;
     constexpr int TILE = FA_BK * RS;
@@ -458,7 +468,7 @@ __device__ __forceinline__ void fa_fwd_narrow(FA_FWD_PARAMS) {
                 const int key = t0 + 8 * n + 2 * t + (e & 1);
                 const bool vis = e < 2 ? key >= lo_a && key < hi_a
                                        : key >= lo_b && key < hi_b;
-                const float s = vis ? sc[n][e] * scale
+                const float s = vis ? fa_softcap<CAP>(sc[n][e] * scale, cap)
                                     : (key < T_len ? FA_NEG : -INFINITY);
                 sc[n][e] = s;
                 if (e < 2) mx_a = fmaxf(mx_a, s);
@@ -588,7 +598,7 @@ __device__ __forceinline__ void fa_qk_smem(float (&acc)[N][4],
 // forms P on its fragments and puts it in the pair's exchange, and each
 // runs P.V with the pair's whole 16-row P over half of the output
 // columns.  l is a per-thread partial sum until the epilogue.
-template <int D, bool LSE>
+template <int D, bool LSE, bool CAP>
 __device__ __forceinline__ void fa_fwd_wide(FA_FWD_PARAMS) {
     constexpr int RS = D + 4;
     constexpr int NT = fa_threads<D>();
@@ -678,7 +688,7 @@ __device__ __forceinline__ void fa_fwd_wide(FA_FWD_PARAMS) {
                 const int key = t0 + 8 * n + 2 * t + (e & 1);
                 const bool vis = e < 2 ? key >= lo_a && key < hi_a
                                        : key >= lo_b && key < hi_b;
-                const float s = vis ? sc[n][e] * scale
+                const float s = vis ? fa_softcap<CAP>(sc[n][e] * scale, cap)
                                     : (key < T_len ? FA_NEG : -INFINITY);
                 sc[n][e] = s;
                 if (e < 2) mx_a = fmaxf(mx_a, s);
@@ -790,33 +800,34 @@ __device__ __forceinline__ void fa_fwd_wide(FA_FWD_PARAMS) {
 
 // One block: 64 q rows of one (b, h); the grid is 1-D, the last q tiles
 // first (under a causal mask they see the most keys).
-template <int D, bool LSE>
+template <int D, bool LSE, bool CAP>
 __global__ void __launch_bounds__(D <= 64 ? FA_THREADS : 2 * FA_THREADS,
                                   D <= 64 ? 2 : 1)
 fa_fwd_f32_kernel(FA_FWD_PARAMS) {
     if constexpr (D <= 64)
-        fa_fwd_narrow<D, LSE>(FA_FWD_PASS);
+        fa_fwd_narrow<D, LSE, CAP>(FA_FWD_PASS);
     else
-        fa_fwd_wide<D, LSE>(FA_FWD_PASS);
+        fa_fwd_wide<D, LSE, CAP>(FA_FWD_PASS);
 }
 
-template <int D, bool LSE>
+template <int D, bool LSE, bool CAP>
 static int launch_f32_as(const float* q, const float* k, const float* v,
                          float* out, float* lse, int B, int S, int T_len,
                          int H, int Hkv, const long long* st, int causal,
                          int window, int q_offset, float scale,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, float cap) {
     const int smem = fa_smem_floats<D>() * (int)sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        fa_fwd_f32_kernel<D, LSE>,
+        fa_fwd_f32_kernel<D, LSE, CAP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const long long blocks = (long long)((S + FA_BQ - 1) / FA_BQ) * H * B;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    fa_fwd_f32_kernel<D, LSE><<<(unsigned)blocks, fa_threads<D>(), smem,
-                                stream>>>(
+    fa_fwd_f32_kernel<D, LSE, CAP><<<(unsigned)blocks, fa_threads<D>(),
+                                     smem, stream>>>(
         q, k, v, out, lse, S, T_len, H, Hkv, st[0], st[1], st[2], st[3],
-        st[4], st[5], st[6], st[7], st[8], causal, window, q_offset, scale);
+        st[4], st[5], st[6], st[7], st[8], causal, window, q_offset, scale,
+        cap);
     return (int)cudaGetLastError();
 }
 
@@ -826,25 +837,30 @@ static bool fa_f32_aligned(const void* p, const long long* st) {
            && st[0] % 4 == 0 && st[1] % 4 == 0 && st[2] % 4 == 0;
 }
 
-template <int D>
+// CAP: the serving forward with a softcap `cap` > 0 (lse must be null)
+template <int D, bool CAP = false>
 static int launch_f32(const void* q, const void* k, const void* v, void* out,
                       int B, int S, int T_len, int H, int Hkv,
                       const long long* st, int causal, int window,
                       int q_offset, float scale, cudaStream_t stream,
-                      float* lse) {
+                      float* lse, float cap = 0.0f) {
     if (!fa_f32_aligned(k, st + 3) || !fa_f32_aligned(v, st + 6))
         return (int)cudaErrorInvalidValue;
     const float* qf = static_cast<const float*>(q);
     const float* kf = static_cast<const float*>(k);
     const float* vf = static_cast<const float*>(v);
     float* of = static_cast<float*>(out);
-    if (lse != nullptr)
-        return launch_f32_as<D, true>(qf, kf, vf, of, lse, B, S, T_len, H,
-                                      Hkv, st, causal, window, q_offset,
-                                      scale, stream);
-    return launch_f32_as<D, false>(qf, kf, vf, of, nullptr, B, S, T_len, H,
-                                   Hkv, st, causal, window, q_offset, scale,
-                                   stream);
+    if constexpr (CAP) {
+        if (lse != nullptr) return (int)cudaErrorInvalidValue;
+    } else if (lse != nullptr) {
+        return launch_f32_as<D, true, false>(qf, kf, vf, of, lse, B, S,
+                                             T_len, H, Hkv, st, causal,
+                                             window, q_offset, scale,
+                                             stream, 0.0f);
+    }
+    return launch_f32_as<D, false, CAP>(qf, kf, vf, of, nullptr, B, S,
+                                        T_len, H, Hkv, st, causal, window,
+                                        q_offset, scale, stream, cap);
 }
 
 
@@ -920,16 +936,21 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
 // in ``s``: scores to the log2 domain (scale * log2 e), the masks where
 // the tile needs them, and the online-softmax update of (m, l); ``s``
 // leaves holding p = 2^(s - m) and ``corr`` the factor that carries the
-// output accumulator over to the new m.  Accumulator element i of a
+// output accumulator over to the new m.  CAP: every score is first
+// soft-capped in natural units and taken to the log2 domain,
+// cap_log2 * tanhf(s * sc_cap) with sc_cap = scale / cap and cap_log2 =
+// cap * log2 e (accurate tanhf: fa_softcap says why), on an interior
+// tile too, so the max and each exponent read the capped score.  Accumulator element i of a
 // thread sits at row (lane/4 + 8*((i/2)&1)) of its warp's 16 and column
 // 8*(i/4) + 2*(lane%4) + (i&1) of the tile; a row lives in the 4
 // threads of a quad.
-template <bool MASK, int N>
+template <bool MASK, int N, bool CAP = false>
 __device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
                                              float (&l)[2], float (&corr)[2],
                                              float scale_log2, int t0, int T,
                                              int row_pos, int causal,
-                                             int window) {
+                                             int window, float sc_cap = 0.f,
+                                             float cap_log2 = 0.f) {
     const int lane = threadIdx.x & 31;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -941,7 +962,11 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
             const bool real = key < T;
             const bool vis = real && (!causal || key <= p)
                              && (window <= 0 || key > p - window);
-            s[i] = vis ? s[i] * scale_log2 : (real ? NEG : -INFINITY);
+            s[i] = vis ? (CAP ? cap_log2 * tanhf(s[i] * sc_cap)
+                              : s[i] * scale_log2)
+                       : (real ? NEG : -INFINITY);
+        } else if (CAP) {
+            s[i] = cap_log2 * tanhf(s[i] * sc_cap);
         }
         mx[r] = fmaxf(mx[r], s[i]);
     }
@@ -951,7 +976,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
         // unmasked scores are still raw: scale > 0 commutes with max
-        m_new[r] = fmaxf(m[r], MASK ? mx[r] : mx[r] * scale_log2);
+        m_new[r] = fmaxf(m[r], MASK || CAP ? mx[r] : mx[r] * scale_log2);
         corr[r] = ex2(m[r] - m_new[r]);
         m[r] = m_new[r];
     }
@@ -959,8 +984,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
 #pragma unroll
     for (int i = 0; i < N; ++i) {
         const int r = (i >> 1) & 1;
-        s[i] = MASK ? ex2(s[i] - m_new[r])
-                    : ex2(fmaf(s[i], scale_log2, -m_new[r]));
+        s[i] = MASK || CAP ? ex2(s[i] - m_new[r])
+                           : ex2(fmaf(s[i], scale_log2, -m_new[r]));
         sum[r] += s[i];
     }
     // l stays a per-thread partial sum until the epilogue
@@ -975,8 +1000,10 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2],
     for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 }
 
-// LSE: also write each row's log-sum-exp (natural units) to lse (B,H,S)
-template <int D, bool LSE>
+// LSE: also write each row's log-sum-exp (natural units) to lse (B,H,S).
+// CAP: the scores soft-capped (softmax_tile), sc_cap and cap_log2 read
+// only there.
+template <int D, bool LSE, bool CAP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -985,7 +1012,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                           int H, int Hkv, int causal, int window,
                           int q_offset, float scale_log2,
                           float* __restrict__ lse,
-                          __nv_bfloat16* __restrict__ out_lo) {
+                          __nv_bfloat16* __restrict__ out_lo, float sc_cap,
+                          float cap_log2) {
     using L = Layout<D>;
     constexpr int BK = L::KEYS;          // the tile and ring of this D
     constexpr int STAGES = L::DEPTH;
@@ -1121,11 +1149,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                                   && (!causal || t0 + BK - 1 <= pa)
                                   && (window <= 0 || t0 >= pb - window + 1);
             if (interior)
-                softmax_tile<false>(s, m, l, corr, scale_log2, t0, T,
-                                    row_pos, causal, window);
+                softmax_tile<false, BK / 2, CAP>(s, m, l, corr, scale_log2,
+                                                 t0, T, row_pos, causal,
+                                                 window, sc_cap, cap_log2);
             else
-                softmax_tile<true>(s, m, l, corr, scale_log2, t0, T,
-                                   row_pos, causal, window);
+                softmax_tile<true, BK / 2, CAP>(s, m, l, corr, scale_log2,
+                                                t0, T, row_pos, causal,
+                                                window, sc_cap, cap_log2);
         };
         // P split into its two bf16 parts: the accumulator's layout is
         // the A fragment's
@@ -1330,12 +1360,12 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---- host side: tensor maps (fa_hopper.cuh) and the launches ----
 
-template <int D, bool LSE>
+template <int D, bool LSE, bool CAP>
 static int launch_as(const void* q, const void* k, const void* v, void* out,
                      int B, int S, int T_len, int H, int Hkv,
                      const long long* st, int causal, int window,
                      int q_offset, float scale, cudaStream_t stream,
-                     float* lse, void* out_lo) {
+                     float* lse, void* out_lo, float softcap) {
     // element strides (batch, position, head) -> byte strides of the
     // (D, position, head, batch) maps
     CUtensorMap mq, mk, mv;
@@ -1352,34 +1382,51 @@ static int launch_as(const void* q, const void* k, const void* v, void* out,
     if (err != 0) return err;
     const int smem = Layout<D>::ALLOC;
     cudaError_t ce = cudaFuncSetAttribute(
-        flash_attention_tc_kernel<D, LSE>,
+        flash_attention_tc_kernel<D, LSE, CAP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (ce != cudaSuccess) return (int)ce;
     const dim3 grid((S + BQ - 1) / BQ, H, B);
-    flash_attention_tc_kernel<D, LSE><<<grid, THREADS, smem, stream>>>(
+    flash_attention_tc_kernel<D, LSE, CAP><<<grid, THREADS, smem, stream>>>(
         mq, mk, mv, static_cast<__nv_bfloat16*>(out), S, T_len, H, Hkv,
         causal, window, q_offset,
         (float)((double)scale * 1.4426950408889634), lse,   // scale * log2 e
-        static_cast<__nv_bfloat16*>(out_lo));
+        static_cast<__nv_bfloat16*>(out_lo),
+        CAP ? (float)((double)scale / softcap) : 0.0f,        // scale / cap
+        CAP ? (float)((double)softcap * 1.4426950408889634) : 0.0f);
     return (int)cudaGetLastError();
 }
 
-template <int D>
+// CAP: the serving forward with a softcap > 0 (lse must be null)
+template <int D, bool CAP = false>
 static int launch(const void* q, const void* k, const void* v, void* out,
                   int B, int S, int T_len, int H, int Hkv,
                   const long long* st, int causal, int window, int q_offset,
                   float scale, cudaStream_t stream, float* lse,
-                  void* out_lo) {
-    if (lse != nullptr)
-        return launch_as<D, true>(q, k, v, out, B, S, T_len, H, Hkv, st,
-                                  causal, window, q_offset, scale, stream,
-                                  lse, out_lo);
-    return launch_as<D, false>(q, k, v, out, B, S, T_len, H, Hkv, st,
-                               causal, window, q_offset, scale, stream,
-                               nullptr, nullptr);
+                  void* out_lo, float softcap = 0.0f) {
+    if constexpr (CAP) {
+        if (lse != nullptr) return (int)cudaErrorInvalidValue;
+    } else if (lse != nullptr) {
+        return launch_as<D, true, false>(q, k, v, out, B, S, T_len, H, Hkv,
+                                         st, causal, window, q_offset, scale,
+                                         stream, lse, out_lo, 0.0f);
+    }
+    return launch_as<D, false, CAP>(q, k, v, out, B, S, T_len, H, Hkv, st,
+                                    causal, window, q_offset, scale, stream,
+                                    nullptr, nullptr, softcap);
 }
 
 }  // namespace tc
+
+// The kernels end here: flash_attention_softcap.cu includes this file
+// with FA_KERNELS_ONLY defined, for the CAP instantiations alone.
+#ifndef FA_KERNELS_ONLY
+
+// The serving forwards with a logit softcap > 0 (no lse): defined in
+// flash_attention_softcap.cu, linked into this library.
+int fa_fwd_softcap(const void* q, const void* k, const void* v, void* out,
+                   int dtype, int B, int S, int T_len, int H, int Hkv, int D,
+                   const long long* st, int causal, int window, int q_offset,
+                   float scale, cudaStream_t stream, float softcap);
 
 // q (B,S,H,D), k/v (B,T,Hkv,D) with element strides (batch, position,
 // head) q_sb..v_sh and a unit stride on D (k and v of the f32 kernel on
@@ -1395,6 +1442,9 @@ static int launch(const void* q, const void* k, const void* v, void* out,
 // out_lo: bf16 with lse, a contiguous (B,S,H,D) bf16 output for what
 // the rounding of out left (out + out_lo is the f32 output to about
 // 2^-16); null otherwise.
+// softcap: 0, or a finite cap > 0 on the scores (cap * tanh(s / cap)
+// before the masks), which takes the CAP instantiations of
+// flash_attention_softcap.cu and needs lse null.
 // Returns cudaGetLastError() after the launch (or the error that kept
 // it from launching); does not synchronise.
 extern "C" int flash_attention_fwd(
@@ -1404,14 +1454,20 @@ extern "C" int flash_attention_fwd(
         long long k_sb, long long k_st, long long k_sh,
         long long v_sb, long long v_st, long long v_sh,
         int causal, int window, int q_offset, float scale, void* stream,
-        void* lse, void* out_lo) {
+        void* lse, void* out_lo, float softcap) {
     if (B < 1 || S < 1 || T_len < 1 || H < 1 || Hkv < 1 || H % Hkv != 0
             || B > 65535 || H > 65535 || q_offset < 0
-            || (out_lo != nullptr) != (dtype == 1 && lse != nullptr))
+            || (out_lo != nullptr) != (dtype == 1 && lse != nullptr)
+            || !(softcap >= 0.0f) || isinf(softcap)
+            || (softcap > 0.0f && lse != nullptr))
         return (int)cudaErrorInvalidValue;
     const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_st, k_sh,
                              v_sb, v_st, v_sh};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (softcap > 0.0f)
+        return fa_fwd_softcap(q, k, v, out, dtype, B, S, T_len, H, Hkv, D,
+                              st, causal, window, q_offset, scale, s,
+                              softcap);
     float* lse_f = static_cast<float*>(lse);
 #define FA_ARGS q, k, v, out, B, S, T_len, H, Hkv, st, causal, window, \
                 q_offset, scale, s
@@ -1471,3 +1527,5 @@ extern "C" long long flash_attention_fwd_sizes(int D, int dtype,
     }
     return -1;
 }
+
+#endif  // FA_KERNELS_ONLY

@@ -42,6 +42,17 @@ coefficient 0 appended to a call (the engine's padded cohorts) leave
 every output bit unchanged.  ``torch.sum`` over rows does not promise
 that: its blocking depends on the row count.
 
+Up to ``fedagg_max_rows()`` (4,096) rows each is one launch whose
+coefficients sit in shared memory.  Past it the same entry's tiled twin
+(``csrc/fedagg.cu``: ``*_ws``) runs two launches on the stream, a
+one-block preamble that writes the packed coefficients into a device
+workspace (``fedagg_ws_floats(n)`` floats, allocated here with
+``torch.empty``) and the stream walking them in tiles: the same
+arithmetic in the same order, so the bits are those of one launch and
+rows of coefficient 0 appended past 4,096 still change none.  The tiled
+route takes up to ``fedagg_ws_max_rows()`` (2^30) rows, the limit of
+its int row indices; more raise ``ValueError``.
+
 A CUDA tensor goes to the kernel or the call raises; ``fedagg_plain``,
 ``fedagg_fold_plain`` and ``fedagg_partial_plain`` serve CPU tensors
 and the checks that hold the kernels against them.
@@ -55,10 +66,12 @@ import numpy as np
 import torch
 
 # launches of the CUDA kernels by ``fedagg``, ``fedagg_fold`` and
-# ``fedagg_partial`` (and nothing else)
+# ``fedagg_partial`` (and nothing else), a call past fedagg_max_rows()
+# counted once; ``tiled_launches`` counts those calls of all three
 launches = 0
 fold_launches = 0
 partial_launches = 0
+tiled_launches = 0
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
@@ -66,6 +79,9 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 _PARTIAL_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                      ctypes.c_void_p]
+# each entry's tiled twin takes the workspace after its output
+_ENTRIES = {"fedagg_f32": _ARGTYPES, "fedagg_fold_f32": _ARGTYPES,
+            "fedagg_partial_f32": _PARTIAL_ARGTYPES}
 
 
 def fedagg_plain(updates, weights, alphas=None):
@@ -163,15 +179,49 @@ def _lib():
     from repro_torch.kernels import _build
     lib = _build.load("fedagg")
     if lib.fedagg_f32.argtypes is None:
-        lib.fedagg_f32.argtypes = _ARGTYPES
-        lib.fedagg_f32.restype = ctypes.c_int
-        lib.fedagg_fold_f32.argtypes = _ARGTYPES
-        lib.fedagg_fold_f32.restype = ctypes.c_int
-        lib.fedagg_partial_f32.argtypes = _PARTIAL_ARGTYPES
-        lib.fedagg_partial_f32.restype = ctypes.c_int
-        lib.fedagg_max_rows.argtypes = []
-        lib.fedagg_max_rows.restype = ctypes.c_int
+        for name, types in _ENTRIES.items():
+            cut = types.index(ctypes.c_int)
+            for fn, t in ((name, types),
+                          (f"{name}_ws", [*types[:cut], ctypes.c_void_p,
+                                          *types[cut:]])):
+                getattr(lib, fn).argtypes = t
+                getattr(lib, fn).restype = ctypes.c_int
+        for fn in ("fedagg_max_rows", "fedagg_ws_max_rows"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.fedagg_ws_floats.argtypes = [ctypes.c_int]
+        lib.fedagg_ws_floats.restype = ctypes.c_longlong
     return lib
+
+
+def _workspace(lib, what: str, rows: int, device, held=None):
+    """None when the single launch takes the call: ``held`` coefficients
+    (``rows`` unless given: ``fedagg_fold`` holds its rows + 1) fit its
+    ``fedagg_max_rows()``; else the (``fedagg_ws_floats(rows)``,) f32
+    workspace of the tiled route on ``device``.  Raises past the tiled
+    route's ``fedagg_ws_max_rows()``."""
+    if (rows if held is None else held) <= lib.fedagg_max_rows():
+        return None
+    limit = lib.fedagg_ws_max_rows()
+    if rows > limit:
+        raise ValueError(f"{what} kernel: {rows} rows exceed the {limit} "
+                         "that its int row indices and workspace offsets "
+                         "hold")
+    return torch.empty((int(lib.fedagg_ws_floats(rows)),),
+                       dtype=torch.float32, device=device)
+
+
+def _launch(lib, entry: str, ws, args, stream) -> int:
+    """``entry`` on ``args`` (all but the stream), or, with a workspace,
+    its tiled twin with the workspace's address after the output."""
+    global tiled_launches
+    if ws is None:
+        return getattr(lib, entry)(*args, stream)
+    cut = _ENTRIES[entry].index(ctypes.c_int)
+    err = getattr(lib, f"{entry}_ws")(*args[:cut], ws.data_ptr(),
+                                      *args[cut:], stream)
+    tiled_launches += err == 0
+    return err
 
 
 def _vector_width(p: int, *tensors) -> int:
@@ -211,21 +261,18 @@ def fedagg(updates, weights, *, alphas=None):
     if n < 1 or p < 1:
         raise ValueError(f"fedagg kernel: empty buffer {n}x{p}")
     lib = _lib()
-    max_rows = lib.fedagg_max_rows()
-    if n > max_rows:
-        raise ValueError(f"fedagg kernel: {n} rows exceed the {max_rows} "
-                         "whose weights fit its shared memory")
     dev = updates.device
+    ws = _workspace(lib, "fedagg", n, dev)
     w = weights.to(device=dev, dtype=torch.float32).contiguous()
     a = (None if alphas is None
          else alphas.to(device=dev, dtype=torch.float32).contiguous())
     out = torch.empty((p,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):          # the launch goes to `dev`
-        err = lib.fedagg_f32(updates.data_ptr(), w.data_ptr(),
-                             None if a is None else a.data_ptr(),
-                             out.data_ptr(), n, p,
-                             _vector_width(p, updates, out),
-                             torch.cuda.current_stream(dev).cuda_stream)
+        err = _launch(lib, "fedagg_f32", ws,
+                      (updates.data_ptr(), w.data_ptr(),
+                       None if a is None else a.data_ptr(), out.data_ptr(),
+                       n, p, _vector_width(p, updates, out)),
+                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fedagg kernel launch failed: CUDA error {err}")
     launches += 1
@@ -267,18 +314,16 @@ def fedagg_fold(updates, g, coef):
     if k < 1 or p < 1:
         raise ValueError(f"fedagg_fold kernel: empty buffer {k}x{p}")
     lib = _lib()
-    max_rows = lib.fedagg_max_rows()
-    if k + 1 > max_rows:
-        raise ValueError(f"fedagg_fold kernel: {k}+1 coefficients exceed "
-                         f"the {max_rows} that fit its shared memory")
     dev = updates.device
+    ws = _workspace(lib, "fedagg_fold", k, dev, held=k + 1)
     c = _f32_on(coef, dev)
     out = torch.empty((p,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):          # the launch goes to `dev`
-        err = lib.fedagg_fold_f32(updates.data_ptr(), g.data_ptr(),
-                                  c.data_ptr(), out.data_ptr(), k, p,
-                                  _vector_width(p, updates, g, out),
-                                  torch.cuda.current_stream(dev).cuda_stream)
+        err = _launch(lib, "fedagg_fold_f32", ws,
+                      (updates.data_ptr(), g.data_ptr(), c.data_ptr(),
+                       out.data_ptr(), k, p,
+                       _vector_width(p, updates, g, out)),
+                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"fedagg_fold kernel launch failed: CUDA error {err}")
@@ -314,20 +359,15 @@ def fedagg_partial(updates, coef):
     if n < 1 or p < 1:
         raise ValueError(f"fedagg_partial kernel: empty buffer {n}x{p}")
     lib = _lib()
-    max_rows = lib.fedagg_max_rows()
-    if n > max_rows:
-        raise ValueError(f"fedagg_partial kernel: {n} rows exceed the "
-                         f"{max_rows} whose coefficients fit its shared "
-                         "memory")
     dev = updates.device
+    ws = _workspace(lib, "fedagg_partial", n, dev)
     c = _f32_on(coef, dev)
     out = torch.empty((p,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):          # the launch goes to `dev`
-        err = lib.fedagg_partial_f32(updates.data_ptr(), c.data_ptr(),
-                                     out.data_ptr(), n, p,
-                                     _vector_width(p, updates, out),
-                                     torch.cuda.current_stream(dev)
-                                     .cuda_stream)
+        err = _launch(lib, "fedagg_partial_f32", ws,
+                      (updates.data_ptr(), c.data_ptr(), out.data_ptr(), n,
+                       p, _vector_width(p, updates, out)),
+                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"fedagg_partial kernel launch failed: CUDA error {err}")

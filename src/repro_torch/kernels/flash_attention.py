@@ -58,6 +58,17 @@ and one exp on the special-function units (16 a clock an SM:
 4.18e12/s) -- in bf16 at D=64 the two are within 8 % of each other --
 against bytes (q, k, v, out once) two orders lower.
 
+Logit softcap (``softcap > 0``): ``s = cap * tanh(s / cap)`` on the
+scaled score, before the masks, as the reference's jnp attention
+(``repro/models/attention.py: _softcap``; its Pallas kernel has none).
+The two serving forwards (no lse) take it: the ``CAP`` instantiations
+of ``csrc/flash_attention.cu``'s kernels are built in their own
+translation unit, ``csrc/flash_attention_softcap.cu``, linked into the
+same library, so the instantiations without a cap compile as before.  A softcap
+with a gradient raises ``NotImplementedError`` before any launch: the
+training kernels with a cap (the lse forwards and both backward pairs,
+dS scaled by ``1 - tanh^2``) are ROADMAP queue 1 item 18.
+
 A CUDA tensor goes to a kernel or the call raises;
 ``flash_attention_plain`` (the function of
 ``repro/kernels/ref.py: flash_attention_ref``, heads folded into the
@@ -116,12 +127,14 @@ bwd_dq_launches = 0
 bwd_dkdv_launches = 0
 bwd_dq_bf16_launches = 0
 bwd_dkdv_bf16_launches = 0
+# those of the forward kernels with a logit softcap (either dtype)
+softcap_launches = 0
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
-             + [ctypes.c_float] + [ctypes.c_void_p] * 3)
+             + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_float])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                  + [ctypes.c_float, ctypes.c_void_p])
 # the bf16 dq entry takes o_lo after o
@@ -146,13 +159,21 @@ def _mask(s: int, t: int, causal: bool, window: int, q_offset: int,
     return m
 
 
+def softcap_scores(s_, softcap: float):
+    """``cap * tanh(s / cap)`` as the reference writes it (divide, tanh,
+    multiply), or ``s`` when ``softcap`` is 0."""
+    return torch.tanh(s_ / softcap) * softcap if softcap > 0 else s_
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          q_offset: int = 0):
+                          q_offset: int = 0, softcap: float = 0.0):
     """q (BH,S,D), k/v (BH,T,D), heads folded into the batch -> (BH,S,D)
     in q's dtype: the materialised f32 softmax of ``ref.py:
-    flash_attention_ref``."""
+    flash_attention_ref``, the scores soft-capped before the masks when
+    ``softcap > 0``."""
     d = q.shape[-1]
     s_ = torch.einsum("bsd,btd->bst", q.float(), k.float()) / math.sqrt(d)
+    s_ = softcap_scores(s_, softcap)
     m = _mask(q.shape[1], k.shape[1], causal, window, q_offset, q.device)
     s_ = torch.where(m[None], s_, torch.full((), NEG, device=q.device))
     p = torch.softmax(s_, dim=-1)
@@ -160,7 +181,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def gqa_plain(q, k, v, *, causal: bool = True, window: int = 0,
-              q_offset: int = 0):
+              q_offset: int = 0, softcap: float = 0.0):
     """Model layout through the plain version: k/v repeated per group,
     heads folded into the batch (the reference's ``ops.py:
     gqa_flash_attention``)."""
@@ -171,7 +192,8 @@ def gqa_plain(q, k, v, *, causal: bool = True, window: int = 0,
         return t.movedim(2, 1).reshape(b * h, t.shape[1], d)
 
     o = flash_attention_plain(fold(q), fold(kx), fold(vx), causal=causal,
-                              window=window, q_offset=q_offset)
+                              window=window, q_offset=q_offset,
+                              softcap=softcap)
     return o.reshape(b, h, s, d).movedim(1, 2)
 
 
@@ -275,14 +297,16 @@ def _check(q, k, v):
             f"{tuple(k.shape)}, {tuple(v.shape)}")
 
 
-def _kernel_forward(q, k, v, causal, window, q_offset, with_lse):
+def _kernel_forward(q, k, v, causal, window, q_offset, with_lse,
+                    softcap=0.0):
     """One launch of the forward kernel on CUDA tensors; returns (out,
     lse, out_lo), the last two None without ``with_lse``.  ``with_lse``
     also writes each row's log-sum-exp (B,H,S) f32 for the backward and,
     in bf16, ``out_lo`` (B,S,H,D) bf16, what the rounding of out left
     (out + out_lo is the f32 output to about 2^-16: the backward's
-    delta reads both); out_lo is None in f32."""
-    global launches, tc_launches
+    delta reads both); out_lo is None in f32.  ``softcap > 0`` takes the
+    cap's instantiation, which has no lse."""
+    global launches, tc_launches, softcap_launches
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -301,6 +325,10 @@ def _kernel_forward(q, k, v, causal, window, q_offset, with_lse):
     if s < 1 or t < 1 or q_offset < 0:
         raise ValueError(f"flash_attention kernel: S={s}, T={t}, "
                          f"q_offset={q_offset}")
+    if not (math.isfinite(softcap) and softcap >= 0) \
+            or (softcap > 0 and with_lse):
+        raise ValueError(f"flash_attention kernel: softcap {softcap} (a "
+                         "finite cap >= 0, and 0 with lse)")
     tensor_cores = q.dtype == torch.bfloat16
     copied = ((("q", q), ("k", k), ("v", v)) if tensor_cores
               else (("k", k), ("v", v)))
@@ -324,26 +352,30 @@ def _kernel_forward(q, k, v, causal, window, q_offset, with_lse):
             int(bool(causal)), int(window), int(q_offset),
             1.0 / math.sqrt(d), torch.cuda.current_stream(q.device)
             .cuda_stream, None if lse is None else lse.data_ptr(),
-            None if out_lo is None else out_lo.data_ptr())
+            None if out_lo is None else out_lo.data_ptr(), float(softcap))
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err}")
     launches += 1
     tc_launches += tensor_cores
+    softcap_launches += softcap > 0
     return out, lse, out_lo
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
-                              window: int = 0, q_offset: int = 0):
+                              window: int = 0, q_offset: int = 0,
+                              softcap: float = 0.0):
     """``gqa_plain`` and each row's log-sum-exp (B,H,S) f32 of the
-    masked scores (masked scores at -1e30, as the kernel's)."""
+    masked (soft-capped) scores (masked scores at -1e30, as the
+    kernel's)."""
     b, s, h, d = q.shape
     kx = repeat_kv_heads(k, h).float()
     scores = torch.einsum("bshd,bthd->bhst", q.float(), kx) / math.sqrt(d)
+    scores = softcap_scores(scores, softcap)
     m = _mask(s, k.shape[1], causal, window, q_offset, q.device)
     scores = torch.where(m, scores, torch.full((), NEG, device=q.device))
     return (gqa_plain(q, k, v, causal=causal, window=window,
-                      q_offset=q_offset),
+                      q_offset=q_offset, softcap=softcap),
             torch.logsumexp(scores, dim=-1))
 
 
@@ -500,7 +532,7 @@ class FlashAttentionFn(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    q_offset: int = 0):
+                    q_offset: int = 0, softcap: float = 0.0):
     """q (B,S,H,D); k/v (B,T,Hkv,D) with H a multiple of Hkv ->
     (B,S,H,D) in q's dtype.
 
@@ -510,14 +542,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     ``HEAD_DIMS``, and 16-byte aligned addresses and strides (k and v
     for f32; q, k and v for bf16); anything else raises.  On the CPU it
     is ``gqa_plain``.  With grad mode on and an input that requires
-    grad it is ``FlashAttentionFn`` (f32 or bf16).
+    grad it is ``FlashAttentionFn`` (f32 or bf16).  ``softcap > 0`` caps
+    the scores (``cap * tanh(s / cap)``) before the masks; with a
+    gradient it raises ``NotImplementedError`` on either device, before
+    any launch.
     """
     _check(q, k, v)
     if _needs_grad(q, k, v):
+        if softcap > 0:
+            raise NotImplementedError(
+                "flash_attention: a logit softcap with a gradient: the "
+                "attention kernels with a cap serve only (no lse, no "
+                "backward); the training kernels are ROADMAP queue 1 "
+                "item 18")
         return FlashAttentionFn.apply(q, k, v, bool(causal), int(window),
                                       int(q_offset))
     if q.device.type != "cuda":
         return gqa_plain(q, k, v, causal=causal, window=window,
-                         q_offset=q_offset)
+                         q_offset=q_offset, softcap=softcap)
     return _kernel_forward(q, k, v, causal, window, q_offset,
-                           with_lse=False)[0]
+                           with_lse=False, softcap=softcap)[0]

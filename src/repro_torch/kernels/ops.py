@@ -32,10 +32,11 @@ from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
                               tree_unflatten)
 
 
-def gqa_flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+def gqa_flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                        softcap=0.0):
     """q (B,S,H,D); k/v (B,T,Hkv,D) -> (B,S,H,D)."""
     return flash_attention(q, k, v, causal=causal, window=window,
-                           q_offset=q_offset)
+                           q_offset=q_offset, softcap=softcap)
 
 
 def ssm_scan_op(x, dt, b_in, c_out, a_log):

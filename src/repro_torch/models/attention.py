@@ -14,12 +14,16 @@ scores; here ``attention()`` keeps the same dispatch, and
 
 take k/v with Hkv heads (any Hkv dividing H; Hkv == H is the head-
 expanded case).  On the CPU they repeat k/v and run the reference's
-algorithm in plain PyTorch.  On a CUDA tensor both are one launch of the
+algorithm in plain PyTorch.  On a CUDA tensor they go to the
 hand-written attention kernel (``kernels/ops.py: gqa_flash_attention``)
-on the un-repeated k/v: the kernel computes the same masked softmax,
-which is the chunked function exactly and the banded one whenever the
-band holds every visible key (always under the causal mask).  The
-kernel has no logit softcap, so ``softcap > 0`` on the card raises.
+on the un-repeated k/v, which computes the same masked softmax (and the
+logit softcap, ``cap * tanh(s / cap)`` before the masks, in its serving
+forwards; a softcap with a gradient raises there).  The chunked function
+and the causal banded one are one launch: under the causal mask the
+band holds every visible key.  Without it the band's right edge cuts
+keys off, and where it does depends on the chunking, so non-causal
+banded attention is one launch per q chunk on that chunk's band of k/v
+(``_band_kernel``).
 
 The context-parallel branches (``chunked_attention_cp``,
 ``banded_attention_cp``) put the Q-CHUNK axis, not the heads, on the
@@ -32,8 +36,9 @@ shards owns the contiguous q rows ``[r*S/m, (r+1)*S/m)`` (the
 reference's q chunks are contiguous and their axis is hinted onto
 "model"), and each shard is one launch of the attention kernel at
 ``q_offset + r*S/m`` on the un-repeated k/v; the outputs are
-concatenated.  A mesh's shards share one physical device (``set_mesh``
-admits no other), so they run one after another.
+concatenated; non-causal ``banded_attention_cp`` is ``_band_kernel``
+over its chunks.  A mesh's shards share one physical device
+(``set_mesh`` admits no other), so they run one after another.
 
 The ring-cache decode (``init_kv_cache``, ``update_kv_cache``,
 ``decode_attention``) is plain PyTorch, as the reference's is jnp;
@@ -51,6 +56,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.flash_attention import softcap_scores as _softcap
 from repro_torch.sharding.hints import axis_size, hint
 
 NEG_INF = -1e30
@@ -85,10 +91,6 @@ def _mask_bias(q_pos, k_pos, causal: bool, window: int):
 def _bias(m):
     zero = torch.zeros((), dtype=torch.float32, device=m.device)
     return torch.where(m, zero, torch.full_like(zero, NEG_INF))
-
-
-def _softcap(s, softcap: float):
-    return torch.tanh(s / softcap) * softcap if softcap > 0 else s
 
 
 def _scores(q, k):
@@ -144,17 +146,50 @@ def _flash_inner(qb, k, v, q_pos, causal, window, chunk_kv, scale, softcap):
     return out.movedim(1, 2)                            # (B,Sq,H,D)
 
 
-def _kernel_route(q, softcap: float) -> bool:
-    """True when the call goes to the attention kernel (a CUDA tensor);
-    the kernel has no softcap, so that combination raises."""
-    if q.device.type != "cuda":
-        return False
-    if softcap > 0:
-        raise NotImplementedError(
-            "attention logit softcap > 0 on a CUDA tensor: the attention "
-            "kernel (kernels/csrc/flash_attention.cu, K4) has no softcap; "
-            "no registered config sets one")
-    return True
+def _kernel_route(q) -> bool:
+    """True when the call goes to the attention kernel (a CUDA tensor)."""
+    return q.device.type == "cuda"
+
+
+def _band_chunks(window: int, chunk_q: int, chunk_kv: int, t: int) -> int:
+    """KV chunks in a q chunk's band: those of (qs - window, qs + cq - 1]."""
+    nb = (window - 1 + chunk_q + chunk_kv - 1) // chunk_kv + 1
+    return min(nb, t // chunk_kv)
+
+
+def _band_first(q_start: int, window: int, q_offset: int, chunk_kv: int,
+                t: int, nb: int) -> int:
+    """The first KV chunk of the band of the q chunk at ``q_start``."""
+    lo = q_start - (window - 1) + q_offset     # earliest visible kv pos
+    return min(max(lo // chunk_kv, 0), t // chunk_kv - nb)
+
+
+def _band_kernel(q, k, v, *, window, q_offset, chunk_q, chunk_kv, softcap):
+    """Non-causal banded attention on the card: one launch of the
+    attention kernel a q chunk ``[qs, qs + cq)``, on the reference's band
+    ``k[:, first*ckv:(first + nb)*ckv]`` (and v's) as views, at
+    ``q_offset + qs - first*ckv``: the kernel's window mask on the band's
+    own positions is the reference's, and the band's right edge cuts
+    what the reference cuts.  A band starts ``first*ckv`` positions into
+    k/v, a multiple of their position stride, which the kernel already
+    holds to 16 bytes (``tma_misalignment``): the views pass wherever
+    k/v do.  Gradients go through each launch's
+    ``FlashAttentionFn``: dk and dv are autograd's sum over the
+    overlapping bands."""
+    s, t = q.shape[1], k.shape[1]
+    nb = _band_chunks(window, chunk_q, chunk_kv, t)
+    outs = []
+    for blk in range(s // chunk_q):
+        q_start = blk * chunk_q
+        k0 = _band_first(q_start, window, q_offset, chunk_kv, t,
+                         nb) * chunk_kv
+        offset = q_offset + q_start - k0
+        assert offset >= 0, offset       # first*ckv <= lo <= q position
+        outs.append(kernel_ops.gqa_flash_attention(
+            q[:, q_start:q_start + chunk_q], k[:, k0:k0 + nb * chunk_kv],
+            v[:, k0:k0 + nb * chunk_kv], causal=False, window=window,
+            q_offset=offset, softcap=softcap))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
@@ -167,10 +202,11 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     if s % chunk_q or t % chunk_kv:
         raise ValueError(f"seq {s}/{t} not divisible by chunks "
                          f"{chunk_q}/{chunk_kv}")
-    if _kernel_route(q, softcap):
+    if _kernel_route(q):
         return kernel_ops.gqa_flash_attention(q, k, v, causal=causal,
                                               window=window,
-                                              q_offset=q_offset)
+                                              q_offset=q_offset,
+                                              softcap=softcap)
     k, v = repeat_kv(k, h), repeat_kv(v, h)
     scale = 1.0 / math.sqrt(d)
     outs = []
@@ -193,27 +229,23 @@ def banded_attention(q, k, v, *, window: int, causal=True, q_offset=0,
     chunk_kv = min(chunk_kv, t)
     if s % chunk_q or t % chunk_kv:
         raise ValueError("seq not divisible by chunks")
-    if _kernel_route(q, softcap):
+    if _kernel_route(q):
         if not causal:
-            # without the causal mask the band cuts off visible keys
-            # that the kernel's window mask would keep
-            raise NotImplementedError(
-                "non-causal banded attention on a CUDA tensor: the "
-                "attention kernel computes the full window")
-        return kernel_ops.gqa_flash_attention(q, k, v, causal=causal,
+            return _band_kernel(q, k, v, window=window, q_offset=q_offset,
+                                chunk_q=chunk_q, chunk_kv=chunk_kv,
+                                softcap=softcap)
+        return kernel_ops.gqa_flash_attention(q, k, v, causal=True,
                                               window=window,
-                                              q_offset=q_offset)
+                                              q_offset=q_offset,
+                                              softcap=softcap)
     k, v = repeat_kv(k, h), repeat_kv(v, h)
-    # band for q chunk [qs, qs+cq): kv in (qs - window, qs + cq - 1]
-    nb = (window - 1 + chunk_q + chunk_kv - 1) // chunk_kv + 1
-    nb = min(nb, t // chunk_kv)
+    nb = _band_chunks(window, chunk_q, chunk_kv, t)
     scale = 1.0 / math.sqrt(d)
     outs = []
     for blk in range(s // chunk_q):
         qb = q[:, blk * chunk_q:(blk + 1) * chunk_q]
         q_start = blk * chunk_q
-        lo = q_start - (window - 1) + q_offset   # earliest visible kv pos
-        first = min(max(lo // chunk_kv, 0), t // chunk_kv - nb)
+        first = _band_first(q_start, window, q_offset, chunk_kv, t, nb)
         kb = k[:, first * chunk_kv:(first + nb) * chunk_kv]
         vb = v[:, first * chunk_kv:(first + nb) * chunk_kv]
         q_pos = q_offset + q_start + torch.arange(chunk_q, device=q.device)
@@ -231,7 +263,7 @@ def banded_attention(q, k, v, *, window: int, causal=True, q_offset=0,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def _cp_kernel(q, k, v, *, causal, window, q_offset):
+def _cp_kernel(q, k, v, *, causal, window, q_offset, softcap):
     """The context-parallel route on the card: one launch of the
     attention kernel per model shard, shard ``r`` of ``m`` on the q rows
     ``[r*S/m, (r+1)*S/m)`` at ``q_offset + r*S/m``, outputs concatenated.
@@ -248,7 +280,7 @@ def _cp_kernel(q, k, v, *, causal, window, q_offset):
     rows = s // m
     outs = [kernel_ops.gqa_flash_attention(
         q[:, r * rows:(r + 1) * rows], k, v, causal=causal, window=window,
-        q_offset=q_offset + r * rows) for r in range(m)]
+        q_offset=q_offset + r * rows, softcap=softcap) for r in range(m)]
     return outs[0] if m == 1 else torch.cat(outs, dim=1)
 
 
@@ -273,9 +305,9 @@ def chunked_attention_cp(q, k, v, *, causal=True, window=0, q_offset=0,
     b, s, h, d = q.shape
     t = k.shape[1]
     chunk_q, chunk_kv = _cp_chunks(s, t, chunk_q, chunk_kv)
-    if _kernel_route(q, softcap):
+    if _kernel_route(q):
         return _cp_kernel(q, k, v, causal=causal, window=window,
-                          q_offset=q_offset)
+                          q_offset=q_offset, softcap=softcap)
     k, v = repeat_kv(k, h), repeat_kv(v, h)
     nc = s // chunk_q
     scale = 1.0 / math.sqrt(d)
@@ -320,24 +352,23 @@ def banded_attention_cp(q, k, v, *, window: int, causal=True, q_offset=0,
     """Context-parallel sliding window: all q chunks processed as a
     batched (shardable) axis; each chunk gathers its own KV band.  Used
     when heads don't divide the model axis (hymba 25H).  q (B,S,H,D);
-    k/v (B,T,Hkv,D).  On the card one kernel launch per model shard
-    (``_cp_kernel``), which computes the full window: the band holds
-    every visible key under the causal mask, so non-causal raises there,
-    as ``banded_attention`` does."""
+    k/v (B,T,Hkv,D).  On the card, causal: one kernel launch per model
+    shard (``_cp_kernel``; the band holds every visible key under the
+    causal mask); non-causal: one launch per q chunk on its band
+    (``_band_kernel``), as ``banded_attention``."""
     b, s, h, d = q.shape
     t = k.shape[1]
     chunk_q, chunk_kv = _cp_chunks(s, t, chunk_q, chunk_kv)
-    if _kernel_route(q, softcap):
+    if _kernel_route(q):
         if not causal:
-            raise NotImplementedError(
-                "non-causal banded attention on a CUDA tensor: the "
-                "attention kernel computes the full window")
-        return _cp_kernel(q, k, v, causal=causal, window=window,
-                          q_offset=q_offset)
+            return _band_kernel(q, k, v, window=window, q_offset=q_offset,
+                                chunk_q=chunk_q, chunk_kv=chunk_kv,
+                                softcap=softcap)
+        return _cp_kernel(q, k, v, causal=True, window=window,
+                          q_offset=q_offset, softcap=softcap)
     k, v = repeat_kv(k, h), repeat_kv(v, h)
     nc = s // chunk_q
-    nb = (window - 1 + chunk_q + chunk_kv - 1) // chunk_kv + 1
-    nb = min(nb, t // chunk_kv)
+    nb = _band_chunks(window, chunk_q, chunk_kv, t)
     scale = 1.0 / math.sqrt(d)
     qc = hint(q.reshape(b, nc, chunk_q, h, d),
               "batch", "model", None, None, None)

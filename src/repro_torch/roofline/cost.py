@@ -181,6 +181,18 @@ def flash_bound_ms(qs, ks, esize, causal, window, q_offset):
                                  else "exps"), flops, exps
 
 
+def flash_softcap_bound_ms(qs, ks, esize, causal, window, q_offset):
+    """K4's serving forward with a logit softcap: ``flash_bound_ms`` with
+    two special-function operations a visible pair, the softmax's exp
+    and at least the exp inside the score's tanh.  Same return."""
+    bound, by, ops, flops, exps = flash_bound_ms(qs, ks, esize, causal,
+                                                 window, q_offset)
+    by_exps = 2 * exps / SFU_EXP_PER_S * 1e3
+    if by_exps <= bound:
+        return bound, by, ops, flops, exps
+    return by_exps, "operations", "exps", flops, 2 * exps
+
+
 # The work of K4's backward, per kernel and for the pair, that its bound
 # counts: D-long dots a visible (q, k) pair -- dq q.k, dO.v, dS.k; dkdv
 # q.k, dO.v, P.dO, dS.q; the pair's function the five distinct ones

@@ -7,7 +7,8 @@ for the kernel's function (``tests/test_kernels.py``), 2e-5 / 3e-5 for
 the attention paths and the ring-cache decode (``tests/test_attention.py``):
 f32 softmax sums taken in another order.  On the CPU the kernel wrapper
 is its plain twin; that the CUDA branches hand the kernel un-repeated
-k/v, and that the kernel has no softcap, is checked here by routing, and
+k/v, the softcap and (non-causal banded) the reference's bands of keys,
+and that a softcap with a gradient raises, is checked here by routing, and
 the kernel itself is held against the twin on the card by
 ``chip_smoke.py``.  The bf16 tensor-core kernel's arithmetic (P split
 into two bf16 parts for P.V, exp2, 128-key tiles) is emulated here in
@@ -542,12 +543,83 @@ def test_context_parallel_always_waits_for_the_mesh(monkeypatch):
 # the CUDA branches, by routing
 # ---------------------------------------------------------------------------
 
-def test_softcap_on_a_cuda_tensor_raises_naming_the_kernel():
-    fake = types.SimpleNamespace(device=torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="K4"):
-        attn._kernel_route(fake, 30.0)
-    assert attn._kernel_route(fake, 0.0) is True
-    assert attn._kernel_route(torch.zeros(1), 30.0) is False
+def _recording(calls):
+    """``gqa_flash_attention`` as the plain twin, each call's shapes and
+    keywords recorded."""
+    def recording(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), kw))
+        return fa.gqa_plain(q, k, v, **kw)
+    return recording
+
+
+# (port function, reference function, keywords): every route that can
+# reach the kernel, at S = T = 512 with chunks of 128
+SOFTCAP_ROUTES = {
+    "chunked": (attn.chunked_attention, ref_attn.chunked_attention,
+                dict(causal=True)),
+    "banded": (attn.banded_attention, ref_attn.banded_attention,
+               dict(causal=True, window=64)),
+    "banded_non_causal": (attn.banded_attention, ref_attn.banded_attention,
+                          dict(causal=False, window=64)),
+    "chunked_cp": (attn.chunked_attention_cp, ref_attn.chunked_attention_cp,
+                   dict(causal=True)),
+    "banded_cp": (attn.banded_attention_cp, ref_attn.banded_attention_cp,
+                  dict(causal=True, window=64)),
+    "banded_cp_non_causal": (attn.banded_attention_cp,
+                             ref_attn.banded_attention_cp,
+                             dict(causal=False, window=64))}
+
+
+@pytest.mark.parametrize("route", sorted(SOFTCAP_ROUTES))
+def test_kernel_route_receives_the_softcap(route, monkeypatch):
+    """Routed as on a CUDA tensor, every route hands the kernel the
+    softcap, and the result equals the reference's with that softcap
+    (2e-5, f32); the cap bites here: without it the result moves."""
+    fn, ref_fn, kw = SOFTCAP_ROUTES[route]
+    kw = dict(kw, chunk_q=128, chunk_kv=128)
+    calls = []
+    monkeypatch.setattr(attn, "_kernel_route", lambda q: True)
+    monkeypatch.setattr(kernel_ops, "gqa_flash_attention",
+                        _recording(calls))
+    q, k, v = _qkv(31, 1, 512, 4, 16, hkv=2)
+    q = 4.0 * q                            # scores of several caps
+    got = fn(*(torch.from_numpy(x) for x in (q, k, v)), softcap=5.0, **kw)
+    # the reference's branches take k/v repeated to the q heads
+    ref_in = (jnp.asarray(q), ref_attn.repeat_kv(jnp.asarray(k), 4),
+              ref_attn.repeat_kv(jnp.asarray(v), 4))
+    want = np.asarray(ref_fn(*ref_in, softcap=5.0, **kw))
+    assert calls and all(c[2]["softcap"] == 5.0 for c in calls)
+    np.testing.assert_allclose(_np(got), want, rtol=2e-5, atol=2e-5)
+    uncapped = ref_fn(*ref_in, **kw)
+    assert np.abs(np.asarray(uncapped) - want).max() > 100 * 2e-5
+
+
+def test_softcap_with_a_gradient_raises_before_any_launch(monkeypatch):
+    """The kernels with a cap serve only: a softcap with an input that
+    requires grad raises ``NotImplementedError`` naming the ROADMAP item
+    of the training kernels, on either device and through the model's
+    kernel route, before the library is loaded or a launch counted; the
+    kernel forward refuses a cap with lse.  Without grad the same call
+    is the twin's."""
+    def no_library():
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(fa, "_lib", no_library)
+    monkeypatch.setattr(attn, "_kernel_route", lambda q: True)
+    q, k, v = (torch.from_numpy(x) for x in _qkv(32, 1, 512, 4, 16))
+    before = fa.launches
+    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    with pytest.raises(NotImplementedError, match="item 18"):
+        fa.flash_attention(*ins, softcap=30.0)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        attn.attention(*ins, softcap=30.0, chunk_q=128, chunk_kv=128)
+    with pytest.raises(ValueError, match="softcap"):
+        fa._kernel_forward(q, k, v, True, 0, 0, with_lse=True, softcap=30.0)
+    assert fa.launches == before
+    with torch.no_grad():
+        got = attn.attention(*ins, softcap=30.0, chunk_q=128, chunk_kv=128)
+    want = fa.gqa_plain(q, k, v, softcap=30.0)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("window", [0, 64])
@@ -560,14 +632,15 @@ def test_kernel_branches_hand_the_kernel_unrepeated_kv(window, monkeypatch):
         calls.append((tuple(q.shape), tuple(k.shape), tuple(v.shape), kw))
         return fa.gqa_plain(q, k, v, **kw)
 
-    monkeypatch.setattr(attn, "_kernel_route", lambda q, softcap: True)
+    monkeypatch.setattr(attn, "_kernel_route", lambda q: True)
     monkeypatch.setattr(kernel_ops, "gqa_flash_attention", recording)
     q, k, v = _qkv(7, 1, 512, 25, 16, hkv=5)
     got = attn.attention(torch.from_numpy(q), torch.from_numpy(k),
                          torch.from_numpy(v), causal=True, window=window,
                          chunk_q=128, chunk_kv=128)
     assert calls == [((1, 512, 25, 16), (1, 512, 5, 16), (1, 512, 5, 16),
-                      dict(causal=True, window=window, q_offset=0))]
+                      dict(causal=True, window=window, q_offset=0,
+                           softcap=0.0))]
     want = ref_attn.attention(jnp.asarray(q), jnp.asarray(k),
                               jnp.asarray(v), causal=True, window=window,
                               chunk_q=128, chunk_kv=128)
@@ -575,11 +648,105 @@ def test_kernel_branches_hand_the_kernel_unrepeated_kv(window, monkeypatch):
                                atol=2e-5)
 
 
-def test_non_causal_banded_on_the_card_raises(monkeypatch):
-    monkeypatch.setattr(attn, "_kernel_route", lambda q, softcap: True)
-    q, k, v = (torch.from_numpy(a) for a in _qkv(8, 1, 512, 2, 16))
-    with pytest.raises(NotImplementedError):
-        attn.banded_attention(q, k, v, window=64, causal=False)
+# (s, t, q_offset): the band cuts keys off on both sides, and q rows
+# past the start of k
+BAND_CASES = [(512, 512, 0), (256, 512, 128)]
+
+
+@pytest.mark.parametrize("s,t,q_offset", BAND_CASES)
+@pytest.mark.parametrize("cp", [False, True])
+def test_non_causal_band_route_matches_the_reference(s, t, q_offset, cp,
+                                                     monkeypatch):
+    """Non-causal banded attention routed as on a CUDA tensor is one
+    kernel call a q chunk on that chunk's band of k/v (``first*ckv`` to
+    ``(first + nb)*ckv``, un-repeated) at ``q_offset + qs - first*ckv``;
+    the output equals the reference's ``banded_attention`` /
+    ``banded_attention_cp`` with ``causal=False`` (2e-5) and its
+    gradients ``jax.grad`` of it (1e-4, the backward twins' tolerance).
+    The band cuts visible keys here: full-window attention differs."""
+    fn = attn.banded_attention_cp if cp else attn.banded_attention
+    ref_fn = ref_attn.banded_attention_cp if cp else ref_attn.banded_attention
+    kw = dict(window=64, causal=False, q_offset=q_offset, chunk_q=128,
+              chunk_kv=128)
+    q, k, v = _qkv(33 + s, 1, s, 4, 16, t=t, hkv=2)
+    w = _randn(np.random.default_rng(5), 1, s, 4, 16)
+    calls = []
+    monkeypatch.setattr(attn, "_kernel_route", lambda q: True)
+
+    def recording(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), kw))
+        return fa.flash_attention(q, k, v, **kw)
+
+    monkeypatch.setattr(kernel_ops, "gqa_flash_attention", recording)
+    ins = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = fn(*ins, **kw)
+    grads = torch.autograd.grad((out * torch.from_numpy(w)).sum(), ins)
+
+    nb = min((64 - 1 + 128 + 128 - 1) // 128 + 1, t // 128)
+    firsts = [min(max((qs - 63 + q_offset) // 128, 0), t // 128 - nb)
+              for qs in range(0, s, 128)]
+    assert [c[0] for c in calls] == [(1, 128, 4, 16)] * (s // 128)
+    assert [c[1] for c in calls] == [(1, nb * 128, 2, 16)] * (s // 128)
+    assert [c[2] for c in calls] == [
+        dict(causal=False, window=64, q_offset=q_offset + qs - f * 128,
+             softcap=0.0) for qs, f in zip(range(0, s, 128), firsts)]
+
+    def loss(q, k, v):           # the reference's branches repeat k/v
+        return (ref_fn(q, ref_attn.repeat_kv(k, 4), ref_attn.repeat_kv(v, 4),
+                       **kw) * jnp.asarray(w)).sum()
+
+    jx = [jnp.asarray(x) for x in (q, k, v)]
+    want = np.asarray(ref_fn(jx[0], ref_attn.repeat_kv(jx[1], 4),
+                             ref_attn.repeat_kv(jx[2], 4), **kw))
+    np.testing.assert_allclose(_np(out.detach()), want, rtol=2e-5,
+                               atol=2e-5)
+    for g, wg in zip(grads, jax.grad(loss, argnums=(0, 1, 2))(*jx)):
+        wg = np.asarray(wg)
+        np.testing.assert_allclose(_np(g), wg, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, np.abs(wg).max()))
+    full = ref_attn.naive_attention(*(jnp.asarray(x) for x in (
+        q, ref_attn.repeat_kv(k, 4), ref_attn.repeat_kv(v, 4))),
+        causal=False, window=64, q_offset=q_offset)
+    assert np.abs(np.asarray(full) - want).max() > 100 * 2e-5
+
+
+# ---------------------------------------------------------------------------
+# the logit softcap in the twins
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 192])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 24),
+                                           (False, 0), (False, 24)])
+@pytest.mark.parametrize("cap", [5.0, 50.0])
+def test_softcap_twins_match_the_reference_naive_attention(d, causal,
+                                                           window, cap):
+    """``gqa_plain`` / ``flash_attention_plain`` with a softcap against
+    the reference's ``naive_attention(softcap=)`` on k/v repeated per
+    group (2e-5, f32), q scaled so that the scores reach several caps;
+    ``flash_attention_fwd_plain``'s lse is the log-sum-exp of the capped,
+    masked scores."""
+    q, k, v = _qkv(40 + d, 2, 48, 4, d, t=64, hkv=2)
+    q = q * (2.0 * cap / 5.0)
+    kw = dict(causal=causal, window=window, q_offset=16)
+    want = ref_attn.naive_attention(
+        jnp.asarray(q), ref_attn.repeat_kv(jnp.asarray(k), 4),
+        ref_attn.repeat_kv(jnp.asarray(v), 4), softcap=cap, **kw)
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    got = fa.gqa_plain(qt, kt, vt, softcap=cap, **kw)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    out, lse = fa.flash_attention_fwd_plain(qt, kt, vt, softcap=cap, **kw)
+    assert torch.equal(out, got)
+    scores = np.einsum("bshd,bthd->bhst", q, np.repeat(k, 2, axis=2))
+    scores = np.tanh(scores / np.sqrt(d) / cap) * cap
+    m = np.asarray(fa._mask(48, 64, causal, window, 16, "cpu"))
+    scores = np.where(m, scores, -1e30)
+    top = scores.max(-1, keepdims=True)
+    want_lse = (top + np.log(np.exp(scores - top).sum(-1, keepdims=True)))
+    np.testing.assert_allclose(lse.numpy(), want_lse[..., 0], rtol=2e-5,
+                               atol=2e-5)
+    uncapped = fa.gqa_plain(qt, kt, vt, **kw)
+    assert (uncapped - got).abs().max() > 100 * 2e-5
 
 
 # ---------------------------------------------------------------------------

@@ -324,7 +324,7 @@ def test_model_kernel_branches_bf16_carry_the_gradient(arch, monkeypatch):
         fns.append(("ss", x.dtype))
         return real_ss(x, *a)
 
-    monkeypatch.setattr(attn_lib, "_kernel_route", lambda q, sc: True)
+    monkeypatch.setattr(attn_lib, "_kernel_route", lambda q: True)
     monkeypatch.setattr(ssm_lib, "_kernel_route", lambda x: True)
     monkeypatch.setattr(fa.FlashAttentionFn, "apply", rec_fa)
     monkeypatch.setattr(ss.SSMScanFn, "apply", rec_ss)

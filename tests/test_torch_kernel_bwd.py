@@ -328,7 +328,7 @@ def test_model_kernel_branches_carry_the_gradient(monkeypatch):
         fns.append("ss")
         return real_ss(*a)
 
-    monkeypatch.setattr(attn_lib, "_kernel_route", lambda q, sc: True)
+    monkeypatch.setattr(attn_lib, "_kernel_route", lambda q: True)
     monkeypatch.setattr(ssm_lib, "_kernel_route", lambda x: True)
     monkeypatch.setattr(fa.FlashAttentionFn, "apply", rec_fa)
     monkeypatch.setattr(ss.SSMScanFn, "apply", rec_ss)

@@ -235,23 +235,24 @@ def test_cp_on_the_card_is_one_kernel_launch_per_model_shard(
 
     want = grads(getattr(attn, name))                 # the plain branch
     set_mesh(cpu_mesh(1, mesh_model))
-    monkeypatch.setattr(attn, "_kernel_route", lambda q, softcap: True)
+    monkeypatch.setattr(attn, "_kernel_route", lambda q: True)
     monkeypatch.setattr(kernel_ops, "gqa_flash_attention", recording)
     got = grads(getattr(attn, name))
     rows = 512 // mesh_model
     assert calls == [((2, rows, 8, 16), (2, 640, 2, 16),
                       dict(causal=True, window=window,
-                           q_offset=128 + r * rows))
+                           q_offset=128 + r * rows, softcap=0.0))
                      for r in range(mesh_model)]
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
 def test_cp_on_the_card_refuses_what_the_kernel_cannot_do(monkeypatch):
-    monkeypatch.setattr(attn, "_kernel_route", lambda q, softcap: True)
+    """Q rows that do not split over the model shards raise.  (Non-causal
+    banded CP once raised here too; it is now one launch a q chunk on
+    its band: ``tests/test_torch_attention.py``.)"""
+    monkeypatch.setattr(attn, "_kernel_route", lambda q: True)
     q, k, v = (torch.from_numpy(x) for x in _qkv(3, 1, 512, 4, 16, 512, 4))
-    with pytest.raises(NotImplementedError, match="non-causal"):
-        attn.banded_attention_cp(q, k, v, window=64, causal=False)
     set_mesh(cpu_mesh(1, 3))
     with pytest.raises(ValueError, match="split"):
         attn.chunked_attention_cp(q, k, v)

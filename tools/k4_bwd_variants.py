@@ -107,7 +107,7 @@ def build(sources):
         cu = OUT / f"{name}.cu"
         cu.write_text(text)
         procs[name] = subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+            [nvcc, *_build.NVCC_FLAGS, "-shared", "-Xptxas", "-v", "-o",
              str(OUT / f"lib{name}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}

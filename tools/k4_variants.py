@@ -233,18 +233,22 @@ def ablations(src):
             }
 #endif""")
     return replace(src, """            if (interior)
-                softmax_tile<false>(s, m, l, corr, scale_log2, t0, T,
-                                    row_pos, causal, window);
+                softmax_tile<false, BK / 2, CAP>(s, m, l, corr, scale_log2,
+                                                 t0, T, row_pos, causal,
+                                                 window, sc_cap, cap_log2);
             else
-                softmax_tile<true>(s, m, l, corr, scale_log2, t0, T,
-                                   row_pos, causal, window);
+                softmax_tile<true, BK / 2, CAP>(s, m, l, corr, scale_log2,
+                                                t0, T, row_pos, causal,
+                                                window, sc_cap, cap_log2);
         };""", """#ifndef ABL_NOSOFTMAX
             if (interior)
-                softmax_tile<false>(s, m, l, corr, scale_log2, t0, T,
-                                    row_pos, causal, window);
+                softmax_tile<false, BK / 2, CAP>(s, m, l, corr, scale_log2,
+                                                 t0, T, row_pos, causal,
+                                                 window, sc_cap, cap_log2);
             else
-                softmax_tile<true>(s, m, l, corr, scale_log2, t0, T,
-                                   row_pos, causal, window);
+                softmax_tile<true, BK / 2, CAP>(s, m, l, corr, scale_log2,
+                                                t0, T, row_pos, causal,
+                                                window, sc_cap, cap_log2);
 #endif
         };""")
 
@@ -562,10 +566,12 @@ MC_LAUNCH = r"""    if constexpr (Layout<D>::CLUSTER) {
         cfg.attrs = attr;
         cfg.numAttrs = 1;
         ce = cudaLaunchKernelEx(
-            &cfg, flash_attention_tc_kernel<D, LSE>, mq, mk, mv,
+            &cfg, flash_attention_tc_kernel<D, LSE, CAP>, mq, mk, mv,
             static_cast<__nv_bfloat16*>(out), S, T_len, H, Hkv, causal,
             window, q_offset, (float)((double)scale * 1.4426950408889634),
-            lse);
+            lse, static_cast<__nv_bfloat16*>(out_lo),
+            CAP ? (float)((double)scale / softcap) : 0.0f,
+            CAP ? (float)((double)softcap * 1.4426950408889634) : 0.0f);
         if (ce != cudaSuccess) return (int)ce;
         return (int)cudaGetLastError();
     }
@@ -628,8 +634,8 @@ def multicast(src):
 // ---- host side: tensor maps""")
     src = src.replace("Layout<D>::KEYS};", "Layout<D>::HALF};")
     return replace(src, """    const dim3 grid((S + BQ - 1) / BQ, H, B);
-    flash_attention_tc_kernel<D, LSE><<<""", MC_LAUNCH + """    const dim3 grid((S + BQ - 1) / BQ, H, B);
-    flash_attention_tc_kernel<D, LSE><<<""")
+    flash_attention_tc_kernel<D, LSE, CAP><<<""", MC_LAUNCH + """    const dim3 grid((S + BQ - 1) / BQ, H, B);
+    flash_attention_tc_kernel<D, LSE, CAP><<<""")
 
 
 def no_multicast(src):
@@ -787,6 +793,15 @@ def build(names, baselines=None):
     in parallel; name -> (library, ptxas lines)."""
     from repro_torch.kernels import _build
     committed = (_build.CSRC / "flash_attention.cu").read_text()
+    # the variants time the kernels without a cap: the library's second
+    # unit (flash_attention_softcap.cu) is left out, its entry refusing
+    softcap_unit = """
+int fa_fwd_softcap(const void*, const void*, const void*, void*, int, int,
+                   int, int, int, int, int, const long long*, int, int, int,
+                   float, cudaStream_t, float) {
+    return (int)cudaErrorNotSupported;
+}
+"""
     OUT.mkdir(parents=True, exist_ok=True)
     baselines = baselines or {}
     procs = {}
@@ -796,10 +811,10 @@ def build(names, baselines=None):
         for patch in patches:
             src = patch(src)
         cu = OUT / f"{name}.cu"
-        cu.write_text(src)
+        cu.write_text(src + softcap_unit)
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-Xptxas", "-v",
-             "-o", str(OUT / f"lib{name}.so"), str(cu)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *defines,
+             "-Xptxas", "-v", "-o", str(OUT / f"lib{name}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():

@@ -88,7 +88,7 @@ def build(names):
         cu = OUT / f"{name}.cu"
         cu.write_text(patched(name))
         procs[name] = subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+            [nvcc, *_build.NVCC_FLAGS, "-shared", "-Xptxas", "-v", "-o",
              str(OUT / f"lib{name}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}

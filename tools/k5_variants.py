@@ -194,7 +194,7 @@ def build(sources):
     procs = {}
     for name, src in sources.items():
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-Xptxas", "-v",
              "-o", str(OUT / f"lib{name}.so"), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
