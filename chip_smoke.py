@@ -71,7 +71,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # the tests that check the bounds it prints)
 from repro_torch.roofline.cost import (  # noqa: E402,F401
     BF16_TENSOR_FLOPS_PER_S, FA_BWD_BF16_WORK, FA_BWD_WORK, FA_FWD_BF16_WORK,
-    FA_FWD_WORK, HBM_BYTES_PER_S, SFU_EXP_PER_S, fedagg_bound_ms,
+    FA_FWD_WORK, HBM_BYTES_PER_S, SFU_EXP_PER_S, SOFTCAP_SFU_PER_PAIR,
+    fedagg_bound_ms,
     flash_bound_ms, flash_bwd_bf16_bound_ms, flash_bwd_bound_ms,
     flash_softcap_bound_ms, fold_bound_ms, partial_bound_ms, ssm_bound_ms,
     ssm_bwd_bound_ms, visible_pairs)
@@ -143,6 +144,7 @@ def zero_counts() -> None:
     fa_mod.launches = 0
     fa_mod.tc_launches = 0
     fa_mod.softcap_launches = 0
+    fa_mod.softcap_bwd_launches = 0
     fa_mod.bwd_dq_launches = 0
     fa_mod.bwd_dkdv_launches = 0
     fa_mod.bwd_dq_bf16_launches = 0
@@ -163,6 +165,7 @@ def counts() -> dict:
             "flash_attention": fa_mod.launches,
             "flash_attention_tc": fa_mod.tc_launches,
             "flash_attention_softcap": fa_mod.softcap_launches,
+            "flash_attention_softcap_bwd": fa_mod.softcap_bwd_launches,
             "flash_attention_bwd_dq": fa_mod.bwd_dq_launches,
             "flash_attention_bwd_dkdv": fa_mod.bwd_dkdv_launches,
             "flash_attention_bwd_dq_bf16": fa_mod.bwd_dq_bf16_launches,
@@ -3315,27 +3318,28 @@ HEAD_DIMS = (16, 32, 64, 80, 128, 192)  # K4's instantiations
 # and backward wgmma (HGMMA in SASS) and no TF32 HMMA
 SASS_KERNELS = {
     "flash_attention_bwd": [(
-        r"_Z\d+(fa_bwd_\w+?_kernel)ILi(\d+)EE",
-        lambda m: f"{m.group(1)}<{m.group(2)}>",
-        {f"fa_bwd_{kind}_kernel<{d}>" for kind in ("dq", "dkdv")
-         for d in HEAD_DIMS}, "tf32_hmma", None)],
+        r"_Z\d+(fa_bwd_\w+?_kernel)ILi(\d+)ELb([01])EE",
+        lambda m: _bwd_key(m),
+        {f"fa_bwd_{kind}_kernel<{d}>{cap}" for kind in ("dq", "dkdv")
+         for d in HEAD_DIMS for cap in ("", "+cap")}, "tf32_hmma", None)],
     "flash_attention_bwd_tc": [(
-        r"_ZN2tc\d+(fa_bwd_tc_\w+?_kernel)ILi(\d+)EE",
-        lambda m: f"{m.group(1)}<{m.group(2)}>",
-        {f"fa_bwd_tc_{kind}_kernel<{d}>" for kind in ("dq", "dkdv")
-         for d in HEAD_DIMS}, "hgmma", "tf32_hmma")],
+        r"_ZN2tc\d+(fa_bwd_tc_\w+?_kernel)ILi(\d+)ELb([01])EE",
+        lambda m: _bwd_key(m),
+        {f"fa_bwd_tc_{kind}_kernel<{d}>{cap}" for kind in ("dq", "dkdv")
+         for d in HEAD_DIMS for cap in ("", "+cap")}, "hgmma",
+        "tf32_hmma")],
     "flash_attention": [(
         r"_Z\d+(fa_fwd_f32_kernel)ILi(\d+)ELb([01])ELb([01])EE",
         lambda m: _fwd_key(m),
         {f"fa_fwd_f32_kernel<{d}, {lse}>" for d in HEAD_DIMS
          for lse in ("true", "false")}
-        | {f"fa_fwd_f32_kernel<{d}, false>+cap" for d in HEAD_DIMS},
+        | {f"fa_fwd_f32_kernel<{d}, true>+cap" for d in HEAD_DIMS},
         "tf32_hmma", None), (
         r"_ZN2tc\d+(flash_attention_tc_kernel)ILi(\d+)ELb([01])ELb([01])EE",
         lambda m: _fwd_key(m),
         {f"flash_attention_tc_kernel<{d}, {lse}>" for d in HEAD_DIMS
          for lse in ("true", "false")}
-        | {f"flash_attention_tc_kernel<{d}, false>+cap" for d in HEAD_DIMS},
+        | {f"flash_attention_tc_kernel<{d}, true>+cap" for d in HEAD_DIMS},
         "hgmma", "tf32_hmma")],
 }
 
@@ -3347,6 +3351,14 @@ def _fwd_key(m) -> str:
     lse = "true" if m.group(3) == "1" else "false"
     return f"{m.group(1)}<{m.group(2)}, {lse}>" + \
         ("+cap" if m.group(4) == "1" else "")
+
+
+def _bwd_key(m) -> str:
+    """A backward kernel's key: ``name<D>`` as before the softcap (so
+    its rows compare with earlier runs'), ``+cap`` for the CAP
+    instantiations (flash_attention_bwd{,_tc}_softcap.cu)."""
+    return f"{m.group(1)}<{m.group(2)}>" + ("+cap" if m.group(3) == "1"
+                                           else "")
 
 
 def _sass_op(kind: str, line: str) -> bool:
@@ -4281,15 +4293,20 @@ def _train_run(arch, b, s, profile=False):
             "peak_bytes": torch.cuda.max_memory_allocated()}
 
 
-def lm_block_grads_vs_plain(dtype=None):
-    """One full-width hymba-1.5b block (random weights from seed 0 in
-    ``dtype``, f32 by default, a random (1, 2048, 1600) input, a random
-    cotangent): every parameter's and the input's gradient through the
-    kernels (K4 banded, K5; forward and backward, of that dtype)
-    against the same with the plain twins patched in for both (autograd
-    of ``gqa_plain`` and ``ssm_scan_plain``), each leaf within
+def lm_block_grads_vs_plain(dtype=None, arch="hymba-1.5b", softcap=0.0):
+    """One full-width block of ``arch`` (hymba-1.5b by default; random
+    weights from seed 0 in ``dtype``, f32 by default, a random (1, 2048,
+    d_model) input, a random cotangent; with ``softcap`` > 0 the config's
+    ``attn_logit_softcap``): every parameter's and the input's gradient
+    through the kernels (K4 banded or chunked, K5 where the block has an
+    SSM; forward and backward, of that dtype; the capped ones with a
+    cap) against the same with the plain twins patched in for both
+    (autograd of ``gqa_plain`` and ``ssm_scan_plain``), each leaf within
     ``BLOCK_GRAD_RTOL`` (f32) or ``BLOCK_GRAD_BF16_RTOL`` (bf16) of its
-    largest |gradient|."""
+    largest |gradient|.  With a cap, the cap must bite: the plain twins'
+    gradients without it are more than 100x ``BLOCK_GRAD_RTOL`` of each
+    leaf's largest |gradient| away, in either dtype (bf16's own
+    tolerance x 100 is 2.0, more than a cap moves any leaf)."""
     import dataclasses
     import torch
     from repro_torch.config import get_arch
@@ -4302,7 +4319,9 @@ def lm_block_grads_vs_plain(dtype=None):
     dtype = dtype or torch.float32
     bf16 = int(dtype == torch.bfloat16)
     rtol = BLOCK_GRAD_BF16_RTOL if bf16 else BLOCK_GRAD_RTOL
-    cfg = dataclasses.replace(get_arch("hymba-1.5b"), num_layers=1)
+    cfg = dataclasses.replace(get_arch(arch), num_layers=1,
+                              attn_logit_softcap=softcap)
+    hybrid = int(cfg.family == "hybrid")
     gen = torch.Generator(device="cuda").manual_seed(0)
     block = _layer(init_model(cfg, gen, dtype=dtype)["blocks"], 0)
     x = torch.randn(1, 2048, cfg.d_model, generator=gen,
@@ -4311,12 +4330,12 @@ def lm_block_grads_vs_plain(dtype=None):
                       device="cuda").to(dtype)
     positions = torch.arange(2048, device="cuda")[None]
 
-    def grads():
+    def grads(c=cfg):
         leaves, treedef = tree_flatten(block)
         leaves = [l.detach().requires_grad_(True) for l in leaves] + \
             [x.detach().requires_grad_(True)]
-        y, _ = _block_apply(tree_unflatten(treedef, leaves[:-1]), cfg,
-                            leaves[-1], positions, window=cfg.sliding_window,
+        y, _ = _block_apply(tree_unflatten(treedef, leaves[:-1]), c,
+                            leaves[-1], positions, window=c.sliding_window,
                             chunk_q=128, chunk_kv=128, ssm_chunk=256,
                             moe_group=0)
         g = torch.autograd.grad(y, leaves, cot)
@@ -4326,12 +4345,16 @@ def lm_block_grads_vs_plain(dtype=None):
     zero_counts()
     got = grads()
     launched = counts()
+    capped = int(softcap > 0)
     want_launches = only(flash_attention=1, flash_attention_tc=bf16,
+                         flash_attention_softcap=capped,
                          flash_attention_bwd_dq=1,
                          flash_attention_bwd_dkdv=1,
                          flash_attention_bwd_dq_bf16=bf16,
-                         flash_attention_bwd_dkdv_bf16=bf16, ssm_scan=1,
-                         ssm_scan_bwd=1, ssm_scan_bwd_bf16=bf16)
+                         flash_attention_bwd_dkdv_bf16=bf16,
+                         flash_attention_softcap_bwd=2 * capped,
+                         ssm_scan=hybrid, ssm_scan_bwd=hybrid,
+                         ssm_scan_bwd_bf16=bf16 * hybrid)
     if launched != want_launches:
         fail(f"block gradients: launches {launched}, expected "
              f"{want_launches}")
@@ -4339,11 +4362,13 @@ def lm_block_grads_vs_plain(dtype=None):
             patched(ss, "ssm_scan", ss.ssm_scan_plain):
         zero_counts()
         want = grads()
+        uncapped = grads(dataclasses.replace(cfg, attn_logit_softcap=0.0)) \
+            if capped else None
         if counts() != only():
             fail(f"block gradients: the plain run launched {counts()}")
     names = [".".join(k) for k in _leaf_names(block)] + ["x"]
-    worst = {}
-    for name, a, b in zip(names, got, want):
+    worst, bites = {}, {}
+    for i, (name, a, b) in enumerate(zip(names, got, want)):
         scale = float(b.float().abs().max())
         err = float((a.float() - b.float()).abs().max())
         worst[name] = err / max(scale, 1e-30)
@@ -4351,10 +4376,21 @@ def lm_block_grads_vs_plain(dtype=None):
                 or err > rtol * scale:
             fail(f"block gradients ({dtype}): {name} max abs err {err} "
                  f"against max |grad| {scale} (rtol {rtol})")
-    return {"arch": "hymba-1.5b (one block)", "b": 1, "s": 2048,
-            "dtype": str(dtype), "rtol_of_max": rtol, "launches": launched,
-            "max_rel_err": max(worst.values()),
-            "rel_err_by_leaf": worst}
+        if capped:
+            bites[name] = float((uncapped[i].float() - b.float()).abs()
+                                .max()) / scale
+            if bites[name] <= 100 * BLOCK_GRAD_RTOL:
+                fail(f"block gradients ({dtype}, cap {softcap}): the cap "
+                     f"moves {name} by {bites[name]} of its largest "
+                     f"|gradient| only")
+    out = {"arch": f"{arch} (one block)", "b": 1, "s": 2048,
+           "dtype": str(dtype), "rtol_of_max": rtol, "launches": launched,
+           "max_rel_err": max(worst.values()),
+           "rel_err_by_leaf": worst}
+    if capped:
+        out.update(softcap=softcap, cap_moves_min_rel=min(bites.values()),
+                   cap_moves_by_leaf=bites)
+    return out
 
 
 def _leaf_names(tree, prefix=()):
@@ -4488,33 +4524,37 @@ def lm_train_path():
 LM_BF16_STEPS = 2
 
 
-def _bf16_train_run(arch, b, s, seed=0, profile=False):
+def _bf16_train_run(arch, b, s, seed=0, profile=False, softcap=0.0,
+                    steps=None):
     """``make_train_step(cfg, TrainConfig())`` on ``init_model(cfg,
     dtype=torch.bfloat16)`` parameters drawn on the card from ``seed``,
-    ``LM_BF16_STEPS`` steps on random tokens from the same seed, each
-    timed on the host between two synchronizes, with the launch counts
-    and peak memory read around the run; with ``profile`` one more step
-    after those, under ``torch.profiler`` (``profiled_step``: device
-    time by group), its launches left out of the counts."""
+    ``steps`` (``LM_BF16_STEPS``) steps on random tokens from the same
+    seed, each timed on the host between two synchronizes, with the
+    launch counts and peak memory read around the run; with ``profile``
+    one more step after those, under ``torch.profiler``
+    (``profiled_step``: device time by group), its launches left out of
+    the counts; with ``softcap`` the config's ``attn_logit_softcap``."""
+    import dataclasses
     import torch
     from repro_torch.config import get_arch
     from repro_torch.config.base import TrainConfig
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import init_model
-    cfg = get_arch(arch)
+    steps = steps or LM_BF16_STEPS
+    cfg = dataclasses.replace(get_arch(arch), attn_logit_softcap=softcap)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = init_model(cfg, gen, dtype=torch.bfloat16)
     tokens = torch.randint(0, cfg.vocab_size,
-                           (LM_BF16_STEPS + bool(profile), b, s),
+                           (steps + bool(profile), b, s),
                            generator=gen, device="cuda")
     tcfg = TrainConfig()
     step, opt = make_train_step(cfg, tcfg)
     state = opt.init(params)
     step_s, metrics = [], []
     zero_counts()
-    for i in range(LM_BF16_STEPS):
+    for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, state, m = step(params, state, {"tokens": tokens[i]})
@@ -6182,14 +6222,14 @@ def flash_attention_bwd_times(per_step):
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), *args,
-                torch.cuda.current_stream().cuda_stream)
+                torch.cuda.current_stream().cuda_stream, 0.0)
 
         def dkdv_kernel():
             lib.flash_attention_bwd_dkdv_f32(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), *args,
-                torch.cuda.current_stream().cuda_stream)
+                torch.cuda.current_stream().cuda_stream, 0.0)
 
         def pair():
             return fa._kernel_backward(q, k, v, o, lse, do, causal, window,
@@ -6392,14 +6432,14 @@ def flash_attention_bwd_bf16_times(per_step):
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 o_lo.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dq.data_ptr(), *args,
-                torch.cuda.current_stream().cuda_stream)
+                torch.cuda.current_stream().cuda_stream, 0.0)
 
         def dkdv_kernel():
             lib.flash_attention_bwd_dkdv_bf16(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), *args,
-                torch.cuda.current_stream().cuda_stream)
+                torch.cuda.current_stream().cuda_stream, 0.0)
 
         def pair():
             return fa._kernel_backward(q, k, v, o, lse, do, True, window,
@@ -7073,7 +7113,9 @@ def check_softcap(name, q, k, v, cap, **kw):
 def softcap_checks():
     """Every head dim in f32 and bf16, causal and windowed, at caps of 50
     and 5 with q scaled by 2 caps (scores reach several caps); a cap
-    with lse refused before a launch; the forwards' launch sizes."""
+    with lse launches the capped lse forward (one launch, its output the
+    serving forward's bit for bit, its lse the twin's); the forwards'
+    launch sizes."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -7096,15 +7138,19 @@ def softcap_checks():
     if launched != only(flash_attention=n, flash_attention_softcap=n,
                         flash_attention_tc=n // 2):
         fail(f"softcap checks launched {launched}")
-    q = torch.randn(1, 64, 2, 64, generator=gen, device="cuda")
-    before = fa.launches
-    try:
-        fa._kernel_forward(q, q, q, True, 0, 0, with_lse=True, softcap=5.0)
-        fail("softcap with lse: no error")
-    except ValueError:
-        pass
-    if fa.launches != before:
-        fail("softcap with lse: launched before raising")
+    q = torch.randn(1, 200, 2, 64, generator=gen, device="cuda") * 10.0
+    served = fa.flash_attention(q, q, q, softcap=5.0)
+    zero_counts()
+    out, lse, _ = fa._kernel_forward(q, q, q, True, 0, 0, with_lse=True,
+                                     softcap=5.0)
+    torch.cuda.synchronize()
+    if counts() != only(flash_attention=1, flash_attention_softcap=1):
+        fail(f"softcap with lse launched {counts()}")
+    lse_want = fa.flash_attention_fwd_plain(q, q, q, softcap=5.0)[1]
+    if not torch.equal(out, served) \
+            or not _close(lse, lse_want, FA_TOL["float32"]):
+        fail(f"softcap with lse: out equal {torch.equal(out, served)}, lse "
+             f"{float((lse - lse_want).abs().max())} from the twin's")
     return {"cases": rows, "launches": launched,
             "max_abs_err": {dt: max(r["max_abs_err"] for r in rows
                                     if dt in r["case"])
@@ -7150,41 +7196,6 @@ def _scaled_q_errors(q, k, v, factor):
     del got, twin, exact
     torch.cuda.empty_cache()
     return out
-
-
-def _flex_softcap(q, k, v, cap):
-    """The library yardstick of a causal softcap forward (the port never
-    calls it): ``flex_attention`` compiled, with ``cap*tanh(s/cap)`` as
-    its ``score_mod``, a causal block mask and ``enable_gqa``, on q, k, v
-    of shape (B, S, H, D).  Returns the call (its output (B, H, S, D))
-    and the seconds its first call took, the compile included.  The
-    compile caches go under ``build/``."""
-    import torch
-    from torch.nn.attention.flex_attention import (create_block_mask,
-                                                   flex_attention)
-    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
-                          str(ROOT / "build" / "inductor"))
-    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-
-    def score_mod(score, b, h, q_idx, kv_idx):
-        return cap * torch.tanh(score / cap)
-
-    def causal(b, h, q_idx, kv_idx):
-        return q_idx >= kv_idx
-
-    mask = create_block_mask(causal, None, None, q.shape[1], k.shape[1],
-                             device="cuda")
-    compiled = torch.compile(flex_attention, dynamic=False)
-
-    def library():
-        return compiled(qt, kt, vt, score_mod=score_mod, block_mask=mask,
-                        enable_gqa=True)
-
-    t0 = time.perf_counter()
-    library()
-    torch.cuda.synchronize()
-    return library, time.perf_counter() - t0
 
 
 # the cap of Gemma 2's published config (attn_logit_softcapping)
@@ -7324,12 +7335,7 @@ def lm_softcap_serve_path():
         if not bool(torch.isfinite(got).all()) or not _close(got, want, tol):
             fail(f"softcap llama layer {dtype}: {err} from its plain twin "
                  f"(rtol, atol {tol})")
-        library, compile_s = _flex_softcap(q, k, v, SERVE_SOFTCAP)
-        lib_out = library().transpose(1, 2)
-        lib_err = float((lib_out.float() - want).abs().max())
-        lib_ok = _close(lib_out, want, tol)
-        del want, got, lib_out
-        library_ms = median_ms(library, warmup=2, runs=5, per_run=5)
+        del want, got
         # the cap biting at this shape: integer q in [-64, 64] and k in
         # [-6, 6], so that every score is exact in f32, in split TF32 and
         # from bf16 inputs (|q.k| <= 64*64*6 < 2^24; the scale 1/8 is a
@@ -7353,15 +7359,365 @@ def lm_softcap_serve_path():
                       "bound_ops": bound[2], "max_abs_err": err, "tol": tol,
                       "exact_scores_cap_bites": bites,
                       "q_scaled_by_2_caps": scaled,
-                      "library_ms": library_ms,
-                      "library_max_abs_err": lib_err,
-                      "library_within_tol": lib_ok,
-                      "library_compile_s": compile_s,
-                      "library": "flex_attention (torch.compile), tanh "
-                                 "score_mod, causal block mask, "
-                                 "enable_gqa"})
+                      # flex_attention's compiles outlast the script's
+                      # budget: tools/flex_softcap.py times it
+                      "library_ms": None,
+                      "library": "flex_attention: tools/flex_softcap.py"})
     out["forward_times"] = times
     return out
+
+
+# ---------------------------------------------------------------------
+# Training with a logit softcap: K4's lse forwards and both backward
+# pairs with a cap
+# ---------------------------------------------------------------------
+
+# (b, s, t, h, hkv, causal, window, q_offset): causal with tails of S
+# and T; causal under a window, q_offset past S; a non-causal window past
+# T's start (rows that see few keys)
+SOFTCAP_BWD_MASKS = ((1, 200, 200, 4, 2, True, 0, 0),
+                     (1, 136, 264, 4, 2, True, 48, 128),
+                     (1, 136, 264, 4, 2, False, 64, 96))
+
+def check_softcap_bwd(name, q, k, v, do, cap, gate_out=True, **kw):
+    """K4's capped forward with lse and its capped backward pair on card
+    tensors of q's dtype (f32 or bf16) through ``flash_attention`` with
+    grad: the launches exact; the gradients twice bit for bit and
+    against autograd of ``gqa_plain`` with the cap in f32 on the upcast
+    inputs (``_grad_close``, ``_grad_close_bf16``); the cap biting (the
+    twin's gradients without it more than 100x the atol away); the
+    forward with lse: its out the Function's, and out (FA_TOL), lse
+    (FA_TOL f32, atol scaled by max(1, max |lse|): a capped score of
+    magnitude up to the cap carries the f32 rounding of its terms, as
+    the gradients' atol is scaled) and, in bf16, out + out_lo against
+    ``flash_attention_fwd_plain`` with the cap.  ``gate_out=False``
+    reports the forward's out error without gating it (the f32 forward
+    on scores built of large terms, q x 2 caps: ROADMAP queue 3)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    bf16 = q.dtype == torch.bfloat16
+    ins = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    before = counts()
+    out = fa.flash_attention(*ins, softcap=cap, **kw)
+    got = torch.autograd.grad(out, ins, do)
+    again = torch.autograd.grad(fa.flash_attention(*ins, softcap=cap, **kw),
+                                ins, do)
+    torch.cuda.synchronize()
+    launched = _launched_since(before)
+    want_launched = {
+        "flash_attention": 2, "flash_attention_softcap": 2,
+        "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkdv": 2,
+        "flash_attention_softcap_bwd": 4,
+        **({"flash_attention_tc": 2, "flash_attention_bwd_dq_bf16": 2,
+            "flash_attention_bwd_dkdv_bf16": 2} if bf16 else {})}
+    if launched != want_launched:
+        fail(f"softcap_bwd[{name}]: launches {launched}, expected "
+             f"{want_launched}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"softcap_bwd[{name}]: two runs differ")
+    if any(g.dtype != q.dtype for g in got):
+        fail(f"softcap_bwd[{name}]: gradient dtypes {[g.dtype for g in got]}")
+    o, lse, o_lo = fa._kernel_forward(q, k, v, kw.get("causal", True),
+                                      kw.get("window", 0),
+                                      kw.get("q_offset", 0), with_lse=True,
+                                      softcap=cap)
+    full_want, lse_want = fa.flash_attention_fwd_plain(
+        q.float(), k.float(), v.float(), softcap=cap, **kw)
+    row = {"case": name, "q": list(q.shape), "k": list(k.shape),
+           "softcap": cap, **kw,
+           "out_max_abs_err": float((o.float() - full_want).abs().max()),
+           "lse_max_abs_err": float((lse - lse_want).abs().max())}
+    if not torch.equal(o, out.detach()):
+        fail(f"softcap_bwd[{name}]: the forward with lse differs from the "
+             "Function's output")
+    lse_rtol, lse_atol = FA_TOL["float32"]
+    lse_tol = (lse_rtol, lse_atol * max(1.0, float(lse_want.abs().max())))
+    row["lse_tol"] = lse_tol
+    row["out_gated"] = gate_out
+    if (gate_out and not _close(o, full_want, _tol(FA_TOL, q.dtype))) \
+            or not _close(lse, lse_want, lse_tol):
+        fail(f"softcap_bwd[{name}]: the forward with lse is "
+             f"{row['out_max_abs_err']} (out) / {row['lse_max_abs_err']} "
+             f"(lse) from its plain twin")
+    if bf16:
+        full = o.float() + o_lo.float()
+        row["out_plus_out_lo_max_abs_err"] = float((full - full_want).abs()
+                                                   .max())
+        if not _close(full, full_want, BF16_OUT_LO_TOL):
+            fail(f"softcap_bwd[{name}]: out + out_lo is "
+                 f"{row['out_plus_out_lo_max_abs_err']} from the twin's "
+                 f"f32 output (rtol, atol {BF16_OUT_LO_TOL})")
+    ref = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(fa.gqa_plain(*ref, softcap=cap, **kw), ref,
+                               do.float())
+    without = torch.autograd.grad(fa.gqa_plain(*ref, **kw), ref, do.float())
+    close, (rtol, atol) = ((_grad_close_bf16, BF16_BWD_TOL) if bf16
+                           else (_grad_close, (BWD_RTOL, BWD_ATOL)))
+    for tag, a, b, c in zip(("dq", "dk", "dv"), got, want, without):
+        err, scale, ok = close(f"softcap_bwd[{name}].{tag}", a, b)
+        bite = float((c - b).abs().max())
+        row[f"{tag}_max_abs_err"] = err
+        row[f"{tag}_scale"] = scale
+        row[f"{tag}_cap_moves"] = bite
+        if not ok:
+            fail(f"softcap_bwd[{name}]: {tag} disagrees with autograd of "
+                 f"the capped plain twin, max abs err {err} (rtol {rtol}, "
+                 f"atol {atol} x {scale})")
+        if bite <= 100 * atol * scale:
+            fail(f"softcap_bwd[{name}]: the cap moves {tag} by {bite} only "
+                 f"(100 x atol {atol} x {scale})")
+    return row
+
+
+def softcap_bwd_checks():
+    """The capped training kernels at every head dim in f32 and bf16,
+    under ``SOFTCAP_BWD_MASKS``, at caps of 50 and 5 with q scaled by 2
+    caps (scores reach several caps): ``check_softcap_bwd`` each; the
+    launch counts of the whole phase exact."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    rows = []
+    zero_counts()
+    for d in HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for b, s, t, h, hkv, causal, window, off in SOFTCAP_BWD_MASKS:
+                q, do = (torch.randn(b, s, h, d, generator=gen,
+                                     device="cuda") for _ in "qd")
+                k, v = (torch.randn(b, t, hkv, d, generator=gen,
+                                    device="cuda") for _ in "kv")
+                for cap in SOFTCAP_CAPS:
+                    # the f32 forward's out on q x 2 caps: reported
+                    # (the open split-TF32 fault, ROADMAP queue 3)
+                    rows.append(check_softcap_bwd(
+                        f"d{d}-{str(dtype)[6:]}-"
+                        f"{'causal' if causal else 'full'}-w{window}-"
+                        f"off{off}-cap{cap:g}",
+                        (q * (2 * cap)).to(dtype), k.to(dtype), v.to(dtype),
+                        do.to(dtype), cap,
+                        gate_out=dtype == torch.bfloat16, causal=causal,
+                        window=window, q_offset=off))
+    n = len(rows)
+    want = only(flash_attention=3 * n, flash_attention_softcap=3 * n,
+                flash_attention_tc=3 * n // 2,
+                flash_attention_bwd_dq=2 * n, flash_attention_bwd_dkdv=2 * n,
+                flash_attention_bwd_dq_bf16=n,
+                flash_attention_bwd_dkdv_bf16=n,
+                flash_attention_softcap_bwd=4 * n)
+    if counts() != want:
+        fail(f"softcap_bwd_checks launched {counts()}, expected {want}")
+    worst = {dt: {tag: max(r[f"{tag}_max_abs_err"] for r in rows
+                           if dt in r["case"]) for tag in ("dq", "dk", "dv")}
+             for dt in ("float32", "bfloat16")}
+    return {"cases": len(rows), "rows": rows, "launches": counts(),
+            "max_abs_err": worst,
+            "f32_out_reported_max_abs_err": max(
+                r["out_max_abs_err"] for r in rows if "float32" in r["case"]),
+            "cap_moves_min": min(min(r[f"{t}_cap_moves"] / r[f"{t}_scale"]
+                                     for t in ("dq", "dk", "dv"))
+                                 for r in rows)}
+
+
+# llama3.2-1b bf16 training with Gemma 2's cap: LM_TRAIN's llama shape,
+# three steps a run, two seeded runs
+SOFTCAP_TRAIN = ("llama3.2-1b", 2, 2048)
+SOFTCAP_TRAIN_STEPS = 3
+# the cap of the one-block gradient check: the block's scores at init
+# have std ~0.8, so a cap of 50 moves no leaf's gradient by more than
+# 0.2 % of its largest |gradient| (a CPU estimate at S = 512), a cap of
+# 2 the MLP's by 1.6 % at S = 2048, and a cap of 1 every leaf by 2.6-72 %
+SOFTCAP_BLOCK_CAP = 1.0
+
+
+def softcap_layer_times(gen):
+    """At llama's training layer (q (2,2048,32,64), kv 8, causal), bf16
+    and f32, with the cap of 50 and without, in turns: the forward with
+    lse, dq and dkdv alone (direct launches of the built libraries, not
+    counted) and the pair through the wrapper's backward, each beside
+    its bound (two SFU operations a visible pair with the cap) and the
+    plain computation's ms; the capped kernels gated against the twin
+    (FA_TOL on the forward, the backward tolerances on the gradients)
+    on two inputs: the integer exact-score inputs of
+    ``lm_softcap_serve_path`` and normal q scaled by 2 caps (the f32
+    forward's output on the latter reported beside an f64 answer by
+    ``_scaled_q_errors``)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    arch, b, s = SOFTCAP_TRAIN
+    h, hkv, d = 32, 8, 64
+    qs, ks = (b, s, h, d), (b, s, hkv, d)
+    cap = SERVE_SOFTCAP
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        q, do = (torch.randn(qs, generator=gen, device="cuda").to(dtype)
+                 for _ in "qd")
+        k, v = (torch.randn(ks, generator=gen, device="cuda").to(dtype)
+                for _ in "kv")
+        lib = fa._bwd_lib(dtype)
+        dq_entry, dkdv_entry = (getattr(lib, n)
+                                for n in fa._BWD_ENTRIES[dtype])
+        calls = {}
+        for c in (cap, 0.0):
+            o, lse, o_lo = fa._kernel_forward(q, k, v, True, 0, 0,
+                                              with_lse=True, softcap=c)
+            dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+            delta = torch.empty((b, h, s), device="cuda")
+            args = (b, s, s, h, hkv, d, 1, 0, 0, 1.0 / math.sqrt(d))
+
+            def dq_kernel(o=o, lse=lse, o_lo=o_lo, dq=dq, delta=delta, c=c):
+                dq_entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(),
+                         *((o_lo.data_ptr(),) if bf16 else ()),
+                         do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                         dq.data_ptr(), *args,
+                         torch.cuda.current_stream().cuda_stream, c)
+
+            def dkdv_kernel(lse=lse, delta=delta, dk=dk, dv=dv, c=c):
+                dkdv_entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                           dk.data_ptr(), dv.data_ptr(), *args,
+                           torch.cuda.current_stream().cuda_stream, c)
+
+            dq_kernel()                    # delta for the dkdv timing
+            calls[c] = {
+                "fwd_lse": lambda c=c: fa._kernel_forward(
+                    q, k, v, True, 0, 0, with_lse=True, softcap=c),
+                "dq": dq_kernel, "dkdv": dkdv_kernel,
+                "pair": lambda o=o, lse=lse, o_lo=o_lo, c=c:
+                    fa._kernel_backward(q, k, v, o, lse, do, True, 0, 0,
+                                        o_lo, c)}
+        turns = {c: {n: [] for n in calls[c]} for c in calls}
+        for _ in range(2):
+            for c in (cap, 0.0):
+                for name, fn in calls[c].items():
+                    turns[c][name].append(median_ms(fn, warmup=2, runs=3,
+                                                    per_run=3))
+        o, lse, o_lo = fa._kernel_forward(q, k, v, True, 0, 0,
+                                          with_lse=True, softcap=cap)
+        o_full = o.float() + o_lo.float() if bf16 else o
+        row = {"dtype": str(dtype)[6:], "q": list(qs), "k": list(ks),
+               "causal": True, "softcap": cap,
+               "plain_ms": {
+                   "fwd_lse": _once_ms(lambda: fa.flash_attention_fwd_plain(
+                       q, k, v, softcap=cap)),
+                   "pair": _once_ms(lambda: fa.flash_attention_bwd_plain(
+                       q, k, v, o_full, lse, do, softcap=cap))}}
+        bound = flash_bwd_bf16_bound_ms if bf16 else flash_bwd_bound_ms
+        work = (FA_BWD_BF16_WORK + (("fwd_lse",) + FA_FWD_BF16_WORK,)
+                if bf16 else FA_BWD_WORK + (("fwd_lse",) + FA_FWD_WORK,))
+        for name, dots, reads, writes in work:
+            ms = min(turns[cap][name])
+            without = min(turns[0.0][name])
+            bd = bound(qs, ks, dots, reads, writes,
+                       sfu_per_pair=SOFTCAP_SFU_PER_PAIR)
+            row[name] = {"ms": ms, "without_cap_ms": without,
+                         "cap_over_without": ms / without,
+                         "bound_ms": bd["ms"], "bound_by": bd["by"],
+                         "rate_on_bound": bd["ms"] / ms,
+                         "turns_ms": turns[cap][name],
+                         "without_cap_turns_ms": turns[0.0][name]}
+        row["gates"] = {}
+        # the integer exact-score inputs (every score exact in f32, in
+        # split TF32 and from bf16 inputs; std ~140: several caps)
+        qi = torch.randint(-64, 65, qs, generator=gen,
+                           device="cuda").to(dtype)
+        ki = torch.randint(-6, 7, ks, generator=gen, device="cuda").to(dtype)
+        row["gates"]["exact_scores"] = check_softcap_bwd(
+            f"llama-layer-{str(dtype)[6:]}-exact-scores", qi, ki, v, do,
+            cap, causal=True)
+        del qi, ki
+        # (the f32 forward's output on these scores is outside FA_TOL of
+        # the twin: reported here and by _scaled_q_errors, ROADMAP
+        # queue 3; its gradients are gated)
+        qc = (q.float() * (2 * cap)).to(dtype)
+        row["gates"]["q_scaled_by_2_caps"] = check_softcap_bwd(
+            f"llama-layer-{str(dtype)[6:]}-q-x{2 * cap:g}", qc, k, v, do,
+            cap, gate_out=bf16, causal=True)
+        if not bf16:
+            row["f32_forward_on_q_x100"] = _scaled_q_errors(q, k, v,
+                                                            2 * cap)
+        del qc, calls
+        torch.cuda.empty_cache()
+        out.append(row)
+    return out
+
+
+def lm_softcap_train_path(bf16_train):
+    """llama3.2-1b at full width (16 layers, 32 / 8 heads, D = 64),
+    bf16 ``make_train_step(cfg, TrainConfig())`` with Gemma 2's cap of
+    50 (``dataclasses.replace(cfg, attn_logit_softcap=50.0)``) at
+    ``SOFTCAP_TRAIN``'s shape, ``SOFTCAP_TRAIN_STEPS`` steps: warm
+    s/step and tokens/s beside ``lm_bf16_train_path``'s llama step (the
+    same call's), first step, peak memory; the exact launches a step
+    (remat full: the capped bf16 forward with lse twice a layer, the
+    capped dq and dkdv once, no K4 launch without the cap); finite
+    losses; two seeded runs equal bit for bit in losses, parameters and
+    moments.  Then one full-width llama block's gradients with a cap
+    (``SOFTCAP_BLOCK_CAP``) through the kernels against the plain twins
+    in f32 and bf16 (``lm_block_grads_vs_plain``), and the capped
+    kernels' times at the layer (``softcap_layer_times``)."""
+    import math
+    import statistics
+    import torch
+    from repro_torch.tree import tree_leaves
+    arch, b, s = SOFTCAP_TRAIN
+
+    def run():
+        return _bf16_train_run(arch, b, s, softcap=SERVE_SOFTCAP,
+                               steps=SOFTCAP_TRAIN_STEPS)
+
+    r = run()
+    n = r["layers"] * SOFTCAP_TRAIN_STEPS
+    want = only(flash_attention=2 * n, flash_attention_tc=2 * n,
+                flash_attention_softcap=2 * n,
+                flash_attention_bwd_dq=n, flash_attention_bwd_dkdv=n,
+                flash_attention_bwd_dq_bf16=n,
+                flash_attention_bwd_dkdv_bf16=n,
+                flash_attention_softcap_bwd=2 * n)
+    if r["launches"] != want:
+        fail(f"lm_softcap_train_path: launches {r['launches']}, expected "
+             f"{want}")
+    if not all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]):
+        fail(f"lm_softcap_train_path: losses {r['losses']}, grad norms "
+             f"{r['grad_norms']}")
+    first = [t.clone() for t in tree_leaves((r["params"], r["state"]))]
+    row = {"arch": arch, "batch": b, "seq": s, "dtype": "bfloat16",
+           "softcap": SERVE_SOFTCAP,
+           "train_config": "TrainConfig() (remat full, AdamW, clip 1.0)",
+           "layers": r["layers"], "steps": SOFTCAP_TRAIN_STEPS,
+           "losses": r["losses"], "grad_norms": r["grad_norms"],
+           "step_s": r["step_s"], "first_step_s": r["step_s"][0],
+           "warm_s_per_step": statistics.median(r["step_s"][1:]),
+           "peak_bytes": r["peak_bytes"], "launches": r["launches"],
+           "launches_per_step": {k: v // SOFTCAP_TRAIN_STEPS
+                                 for k, v in r["launches"].items() if v}}
+    row["tokens_per_s"] = b * s / row["warm_s_per_step"]
+    plain = next(x for x in bf16_train["runs"] if x["arch"] == arch)
+    row["without_cap"] = {k: plain[k] for k in (
+        "warm_s_per_step", "tokens_per_s", "first_step_s", "peak_bytes")}
+    row["step_over_without_cap"] = (row["warm_s_per_step"]
+                                    / plain["warm_s_per_step"])
+    losses = r["losses"]
+    r = None
+    torch.cuda.empty_cache()
+    again = run()
+    same = again["losses"] == losses and all(
+        torch.equal(a, c) for a, c in zip(
+            first, tree_leaves((again["params"], again["state"]))))
+    if not same:
+        fail(f"lm_softcap_train_path: two seeded runs differ: {losses} vs "
+             f"{again['losses']}")
+    row["second_run_bitwise_equal"] = True
+    row["second_run_step_s"] = again["step_s"]
+    del first, again
+    torch.cuda.empty_cache()
+    blocks = [lm_block_grads_vs_plain(dt, arch="llama3.2-1b",
+                                      softcap=SOFTCAP_BLOCK_CAP)
+              for dt in (torch.float32, torch.bfloat16)]
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    return {"train": row, "block_grads_vs_plain": blocks,
+            "layer_times": softcap_layer_times(gen)}
 
 
 def run_phases() -> int:
@@ -7462,6 +7818,10 @@ def run_phases() -> int:
     emit({"phase": "softcap_checks", **cap_checks})
     cap_serve = lm_softcap_serve_path()
     emit({"phase": "lm_softcap_serve_path", "card": card, **cap_serve})
+    cap_bwd = softcap_bwd_checks()
+    emit({"phase": "softcap_bwd_checks", **cap_bwd})
+    cap_train = lm_softcap_train_path(bf16_train)
+    emit({"phase": "lm_softcap_train_path", "card": card, **cap_train})
 
     at_main = fedagg_times(MAIN_N, MAIN_P)
     seen = [fedagg_times(n, p)
@@ -7687,7 +8047,43 @@ def run_phases() -> int:
         "library": cap_serve["forward_times"][0]["library"],
         "f32": {k: cap_serve["forward_times"][1][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "without_cap_ms",
-            "library_ms")}}, {
+            "library_ms")}}] + [{
+        # the capped training kernels: one full-width llama3.2-1b bf16
+        # training run of SOFTCAP_TRAIN_STEPS steps with a cap of 50
+        "name": f"flash_attention_softcap_{part}", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/" + (
+            "flash_attention_softcap.cu" if part == "fwd_lse"
+            else "flash_attention_bwd_tc_softcap.cu"),
+        "f32_source": "src/repro_torch/kernels/csrc/" + (
+            "flash_attention_softcap.cu" if part == "fwd_lse"
+            else "flash_attention_bwd_softcap.cu"),
+        "replaces": "src/repro/kernels/flash_attention.py:30",
+        "replaces_note": "training with the logit softcap, which the "
+                         "reference computes in jnp around its attention "
+                         "(models/attention.py:58) and differentiates "
+                         "with jax.grad; its Pallas kernel has none",
+        "launches": (cap_train["train"]["launches"]
+                     ["flash_attention_softcap"] if part == "fwd_lse"
+                     else cap_train["train"]["launches"]
+                     ["flash_attention_softcap_bwd"] // 2),
+        "max_abs_err": max(r[f"{tag}_max_abs_err"] for r in cap_bwd["rows"]
+                           for tag in {"fwd_lse": ("out",), "dq": ("dq",),
+                                       "dkdv": ("dk", "dv")}[part]),
+        "shape": {"q": cap_train["layer_times"][0]["q"],
+                  "k": cap_train["layer_times"][0]["k"], "causal": True,
+                  "softcap": SERVE_SOFTCAP},
+        **{k: cap_train["layer_times"][0][part][k] for k in (
+            "ms", "bound_ms", "bound_by", "without_cap_ms")},
+        "plain_ms": cap_train["layer_times"][0]["plain_ms"][
+            "fwd_lse" if part == "fwd_lse" else "pair"],
+        "library_ms": None,
+        "library": "flex_attention (autograd): tools/flex_softcap.py",
+        "f32": {**{k: cap_train["layer_times"][1][part][k] for k in (
+            "ms", "bound_ms", "bound_by", "without_cap_ms")},
+                "plain_ms": cap_train["layer_times"][1]["plain_ms"][
+                    "fwd_lse" if part == "fwd_lse" else "pair"],
+                "library_ms": None}}
+        for part in ("fwd_lse", "dq", "dkdv")] + [{
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:28",

@@ -7,8 +7,9 @@ of the checkout, at first use, and loaded with ``ctypes``; the headers
 text and of every header's, so an edited source or header never meets
 a stale library.  Every source is compiled to an object and each
 library linked from its objects: most libraries are one source, and
-``SOURCES`` names those of several (K4's forward and its softcap
-instantiations), whose digest covers every one.  Sources that are
+``SOURCES`` names those of several (K4's forward and each backward
+pair, each with its softcap instantiations), whose digest covers every
+one.  Sources that are
 asked for together are compiled together, one ``nvcc`` process each.
 While tracing is on, every library built adds one to the
 ``kernel.builds`` counter and its seconds to the
@@ -43,7 +44,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # the libraries built from more than one source, in link order; any
 # other library ``<name>`` is ``csrc/<name>.cu`` alone
-SOURCES = {"flash_attention": ("flash_attention", "flash_attention_softcap")}
+SOURCES = {"flash_attention": ("flash_attention", "flash_attention_softcap"),
+           "flash_attention_bwd": ("flash_attention_bwd",
+                                   "flash_attention_bwd_softcap"),
+           "flash_attention_bwd_tc": ("flash_attention_bwd_tc",
+                                      "flash_attention_bwd_tc_softcap")}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

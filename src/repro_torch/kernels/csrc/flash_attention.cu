@@ -359,7 +359,8 @@ __device__ __forceinline__ void fa_block_range(int q0, int S, int T_len,
 // D <= 64: four warps, 16 q rows a warp, each against the whole key
 // tile; q as split-TF32 A fragments in registers, loaded once.
 // LSE: also write each row's m + log(max(l, 1e-30)) to lse (B,H,S).
-// CAP: the scores soft-capped (fa_softcap) before the masks.
+// CAP: the scores soft-capped (fa_softcap) before the masks; a CAP
+// kernel is built with LSE only, and writes lse where it is not null.
 template <int D, bool LSE, bool CAP>
 __device__ __forceinline__ void fa_fwd_narrow(FA_FWD_PARAMS) {
     constexpr int RS = D + 4;
@@ -547,7 +548,7 @@ __device__ __forceinline__ void fa_fwd_narrow(FA_FWD_PARAMS) {
             *reinterpret_cast<float2*>(out + ob + 8 * n) =
                 make_float2(acc[n][2] / lb, acc[n][3] / lb);
     }
-    if (LSE && t == 0) {
+    if (LSE && (!CAP || lse != nullptr) && t == 0) {
         const long long rs = ((long long)b * H + h) * S;
         if (ra < S) lse[rs + ra] = m_a + logf(la);
         if (rb < S) lse[rs + rb] = m_b + logf(lb);
@@ -791,7 +792,7 @@ __device__ __forceinline__ void fa_fwd_wide(FA_FWD_PARAMS) {
             *reinterpret_cast<float2*>(out + ob + 8 * n) =
                 make_float2(acc[n][2] / lb, acc[n][3] / lb);
     }
-    if (LSE && t == 0 && hf == 0) {
+    if (LSE && (!CAP || lse != nullptr) && t == 0 && hf == 0) {
         const long long rs = ((long long)b * H + h) * S;
         if (ra < S) lse[rs + ra] = m_a + logf(la);
         if (rb < S) lse[rs + rb] = m_b + logf(lb);
@@ -837,7 +838,8 @@ static bool fa_f32_aligned(const void* p, const long long* st) {
            && st[0] % 4 == 0 && st[1] % 4 == 0 && st[2] % 4 == 0;
 }
 
-// CAP: the serving forward with a softcap `cap` > 0 (lse must be null)
+// CAP: with a softcap `cap` > 0 (flash_attention_softcap.cu's
+// instantiations): the LSE kernel, lse written where it is not null
 template <int D, bool CAP = false>
 static int launch_f32(const void* q, const void* k, const void* v, void* out,
                       int B, int S, int T_len, int H, int Hkv,
@@ -851,16 +853,20 @@ static int launch_f32(const void* q, const void* k, const void* v, void* out,
     const float* vf = static_cast<const float*>(v);
     float* of = static_cast<float*>(out);
     if constexpr (CAP) {
-        if (lse != nullptr) return (int)cudaErrorInvalidValue;
-    } else if (lse != nullptr) {
-        return launch_f32_as<D, true, false>(qf, kf, vf, of, lse, B, S,
-                                             T_len, H, Hkv, st, causal,
-                                             window, q_offset, scale,
-                                             stream, 0.0f);
+        return launch_f32_as<D, true, true>(qf, kf, vf, of, lse, B, S, T_len,
+                                            H, Hkv, st, causal, window,
+                                            q_offset, scale, stream, cap);
+    } else {
+        if (lse != nullptr)
+            return launch_f32_as<D, true, false>(qf, kf, vf, of, lse, B, S,
+                                                 T_len, H, Hkv, st, causal,
+                                                 window, q_offset, scale,
+                                                 stream, 0.0f);
+        return launch_f32_as<D, false, false>(qf, kf, vf, of, nullptr, B, S,
+                                              T_len, H, Hkv, st, causal,
+                                              window, q_offset, scale, stream,
+                                              0.0f);
     }
-    return launch_f32_as<D, false, CAP>(qf, kf, vf, of, nullptr, B, S,
-                                        T_len, H, Hkv, st, causal, window,
-                                        q_offset, scale, stream, cap);
 }
 
 
@@ -1002,7 +1008,8 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2],
 
 // LSE: also write each row's log-sum-exp (natural units) to lse (B,H,S).
 // CAP: the scores soft-capped (softmax_tile), sc_cap and cap_log2 read
-// only there.
+// only there; a CAP kernel is built with LSE only, and writes lse and
+// out_lo where they are not null.
 template <int D, bool LSE, bool CAP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -1280,7 +1287,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 den[r] = fmaxf(l[r], 1e-30f);
             }
             const int row = 16 * warp + (lane >> 2);
-            if (LSE && (lane & 3) == 0) {
+            if (LSE && (!CAP || lse != nullptr) && (lane & 3) == 0) {
 #pragma unroll
                 for (int r = 0; r < 2; ++r) {
                     if (row + 8 * r < n_rows)
@@ -1294,7 +1301,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             constexpr int CHUNKS = D / 8;             // 16 bytes each
             // out, then (LSE) out_lo, each staged in shared memory and
             // stored 16 bytes a thread, rows < S only
-            for (int part = 0; part < (LSE ? 2 : 1); ++part) {
+            const int parts = LSE && (!CAP || out_lo != nullptr) ? 2 : 1;
+            for (int part = 0; part < parts; ++part) {
             __nv_bfloat16* dst = part ? out_lo : out;
             // two adjacent outputs: out, or what its rounding left
             auto value = [&](float a, float c) {
@@ -1396,7 +1404,9 @@ static int launch_as(const void* q, const void* k, const void* v, void* out,
     return (int)cudaGetLastError();
 }
 
-// CAP: the serving forward with a softcap > 0 (lse must be null)
+// CAP: with a softcap > 0 (flash_attention_softcap.cu's
+// instantiations): the LSE kernel, lse and out_lo written where they
+// are not null
 template <int D, bool CAP = false>
 static int launch(const void* q, const void* k, const void* v, void* out,
                   int B, int S, int T_len, int H, int Hkv,
@@ -1404,15 +1414,19 @@ static int launch(const void* q, const void* k, const void* v, void* out,
                   float scale, cudaStream_t stream, float* lse,
                   void* out_lo, float softcap = 0.0f) {
     if constexpr (CAP) {
-        if (lse != nullptr) return (int)cudaErrorInvalidValue;
-    } else if (lse != nullptr) {
-        return launch_as<D, true, false>(q, k, v, out, B, S, T_len, H, Hkv,
-                                         st, causal, window, q_offset, scale,
-                                         stream, lse, out_lo, 0.0f);
+        return launch_as<D, true, true>(q, k, v, out, B, S, T_len, H, Hkv,
+                                        st, causal, window, q_offset, scale,
+                                        stream, lse, out_lo, softcap);
+    } else {
+        if (lse != nullptr)
+            return launch_as<D, true, false>(q, k, v, out, B, S, T_len, H,
+                                             Hkv, st, causal, window,
+                                             q_offset, scale, stream, lse,
+                                             out_lo, 0.0f);
+        return launch_as<D, false, false>(q, k, v, out, B, S, T_len, H, Hkv,
+                                          st, causal, window, q_offset, scale,
+                                          stream, nullptr, nullptr, 0.0f);
     }
-    return launch_as<D, false, CAP>(q, k, v, out, B, S, T_len, H, Hkv, st,
-                                    causal, window, q_offset, scale, stream,
-                                    nullptr, nullptr, softcap);
 }
 
 }  // namespace tc
@@ -1421,12 +1435,13 @@ static int launch(const void* q, const void* k, const void* v, void* out,
 // with FA_KERNELS_ONLY defined, for the CAP instantiations alone.
 #ifndef FA_KERNELS_ONLY
 
-// The serving forwards with a logit softcap > 0 (no lse): defined in
-// flash_attention_softcap.cu, linked into this library.
+// The forwards with a logit softcap > 0 (with or without lse): defined
+// in flash_attention_softcap.cu, linked into this library.
 int fa_fwd_softcap(const void* q, const void* k, const void* v, void* out,
                    int dtype, int B, int S, int T_len, int H, int Hkv, int D,
                    const long long* st, int causal, int window, int q_offset,
-                   float scale, cudaStream_t stream, float softcap);
+                   float scale, cudaStream_t stream, float softcap,
+                   float* lse, void* out_lo);
 
 // q (B,S,H,D), k/v (B,T,Hkv,D) with element strides (batch, position,
 // head) q_sb..v_sh and a unit stride on D (k and v of the f32 kernel on
@@ -1444,7 +1459,7 @@ int fa_fwd_softcap(const void* q, const void* k, const void* v, void* out,
 // 2^-16); null otherwise.
 // softcap: 0, or a finite cap > 0 on the scores (cap * tanh(s / cap)
 // before the masks), which takes the CAP instantiations of
-// flash_attention_softcap.cu and needs lse null.
+// flash_attention_softcap.cu (lse then of the capped scores).
 // Returns cudaGetLastError() after the launch (or the error that kept
 // it from launching); does not synchronise.
 extern "C" int flash_attention_fwd(
@@ -1458,17 +1473,16 @@ extern "C" int flash_attention_fwd(
     if (B < 1 || S < 1 || T_len < 1 || H < 1 || Hkv < 1 || H % Hkv != 0
             || B > 65535 || H > 65535 || q_offset < 0
             || (out_lo != nullptr) != (dtype == 1 && lse != nullptr)
-            || !(softcap >= 0.0f) || isinf(softcap)
-            || (softcap > 0.0f && lse != nullptr))
+            || !(softcap >= 0.0f) || isinf(softcap))
         return (int)cudaErrorInvalidValue;
     const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_st, k_sh,
                              v_sb, v_st, v_sh};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    float* lse_f = static_cast<float*>(lse);
     if (softcap > 0.0f)
         return fa_fwd_softcap(q, k, v, out, dtype, B, S, T_len, H, Hkv, D,
                               st, causal, window, q_offset, scale, s,
-                              softcap);
-    float* lse_f = static_cast<float*>(lse);
+                              softcap, lse_f, out_lo);
 #define FA_ARGS q, k, v, out, B, S, T_len, H, Hkv, st, causal, window, \
                 q_offset, scale, s
     if (dtype == 0) {

@@ -21,6 +21,23 @@
 //   dk_j   = scale * sum_{h in group} sum_i dS_ij q_i
 //   dv_j   = sum_{h in group} sum_i P_ij dO_i
 //
+// With a logit softcap (the CAP instantiations, built in
+// flash_attention_bwd_softcap.cu, which includes this file with
+// FB_KERNELS_ONLY and is linked into its library), the score is capped
+// as the forward capped it, with the same tanhf (flash_attention.cu:
+// fa_softcap), so P is of the capped score and matches the lse the
+// forward wrote, and dS takes the cap's derivative:
+//
+//   t_ij   = tanh(s_ij / cap),  c_ij = cap * t_ij
+//   P_ij   = exp(c_ij - lse_i) if visible, else 0
+//   dS_ij  = P_ij * (dO_i . v_j - delta_i) * (1 - t_ij^2)
+//
+// dq forms P * (1 - t^2) in P's place (it needs no P alone); dkdv needs
+// P for dv, so its dS recomputes t from P: c = lse + log(P), one more
+// special-function operation a pair and no register array more (dkdv
+// holds 246 registers at D = 64); a P of 0 (masked, or an exp that
+// underflowed) gives dS = 0.
+//
 // A row that sees no key is, in the forward, the mean of v over all T
 // keys (the reference's exp(-1e30 - (-1e30)) = 1 for every key).  Its
 // gradient is what autograd of the plain version gives through the
@@ -351,13 +368,21 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
 
 // ---- P and dS on the fragments -------------------------------------------
 
+// The forward's cap of a scaled score (flash_attention.cu: fa_softcap):
+// t = tanh(s / cap) into th, cap * t returned
+__device__ __forceinline__ float fb_cap(float s, float cap, float& th) {
+    th = tanhf(s / cap);
+    return th * cap;
+}
+
 // dq: S of the warp's rows (fragment rows g: band [lo_a, hi_a), lse_a;
-// g + 8: the _b ones) against 8N keys from key0, into P in place
-template <int N>
+// g + 8: the _b ones) against 8N keys from key0, into P in place; CAP:
+// the score capped, and P * (1 - t^2) in P's place
+template <int N, bool CAP = false>
 __device__ __forceinline__ void fb_p_rows(float (&sc)[N][4], int key0, int t,
                                           int lo_a, int hi_a, int lo_b,
                                           int hi_b, float lse_a, float lse_b,
-                                          float scale) {
+                                          float scale, float cap = 0.0f) {
 #pragma unroll
     for (int n = 0; n < N; ++n) {
 #pragma unroll
@@ -365,9 +390,17 @@ __device__ __forceinline__ void fb_p_rows(float (&sc)[N][4], int key0, int t,
             const int key = key0 + 8 * n + 2 * t + (e & 1);
             const bool vis = e < 2 ? key >= lo_a && key < hi_a
                                    : key >= lo_b && key < hi_b;
-            sc[n][e] = vis ? expf(sc[n][e] * scale -
-                                  (e < 2 ? lse_a : lse_b))
-                           : 0.0f;
+            if constexpr (CAP) {
+                float th;
+                const float c = fb_cap(sc[n][e] * scale, cap, th);
+                sc[n][e] = vis ? expf(c - (e < 2 ? lse_a : lse_b))
+                                     * (1.0f - th * th)
+                               : 0.0f;
+            } else {
+                sc[n][e] = vis ? expf(sc[n][e] * scale -
+                                      (e < 2 ? lse_a : lse_b))
+                               : 0.0f;
+            }
         }
     }
 }
@@ -386,16 +419,17 @@ __device__ __forceinline__ void fb_ds_rows(float (&sc)[N][4],
 }
 
 // dkdv: S^T of the warp's keys (fragment rows g: ka, g + 8: kb) against
-// 8N q rows from row0 (their lse from lse_c), into P in place; a row
-// that sees no key gives 1/T to every key.  Returns bit 2n+c set where
-// column 8n+2t+c is such a row.
-template <int N>
+// 8N q rows from row0 (their lse from lse_c), into P in place (CAP: of
+// the capped score); a row that sees no key gives 1/T to every key.
+// Returns bit 2n+c set where column 8n+2t+c is such a row.
+template <int N, bool CAP = false>
 __device__ __forceinline__ uint32_t fb_p_cols(float (&sc)[N][4], int row0,
                                               const float* lse_c, int ka,
                                               int kb, int t, int S,
                                               int T_len, int causal,
                                               int window, int q_offset,
-                                              float scale, float inv_t) {
+                                              float scale, float inv_t,
+                                              float cap = 0.0f) {
     uint32_t empty = 0;
 #pragma unroll
     for (int n = 0; n < N; ++n) {
@@ -416,8 +450,14 @@ __device__ __forceinline__ uint32_t fb_p_cols(float (&sc)[N][4], int row0,
                 if (key < T_len) {
                     if (none)
                         p = inv_t;
-                    else if (in && key >= lo && key < hi)
-                        p = expf(sc[n][e] * scale - l);
+                    else if (in && key >= lo && key < hi) {
+                        if constexpr (CAP) {
+                            float th;
+                            p = expf(fb_cap(sc[n][e] * scale, cap, th) - l);
+                        } else {
+                            p = expf(sc[n][e] * scale - l);
+                        }
+                    }
                 }
                 sc[n][e] = p;
             }
@@ -427,20 +467,30 @@ __device__ __forceinline__ uint32_t fb_p_cols(float (&sc)[N][4], int row0,
 }
 
 // dkdv: dS^T = P^T * (dP^T - delta) in dP's place (delta of the columns
-// from dl_c), 0 in a column that sees no key
-template <int N>
+// from dl_c), 0 in a column that sees no key.  CAP: times 1 - t^2, t
+// recomputed from P and the column's lse (lse_c): c = lse + log(P), t =
+// c / cap; 0 where P is 0
+template <int N, bool CAP = false>
 __device__ __forceinline__ void fb_ds_cols(float (&dp)[N][4],
                                            const float (&sc)[N][4],
                                            const float* dl_c, uint32_t empty,
-                                           int t) {
+                                           int t, const float* lse_c = nullptr,
+                                           float cap = 0.0f) {
 #pragma unroll
     for (int n = 0; n < N; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             const int c = e & 1;
             const float dl = dl_c[8 * n + 2 * t + c];
-            dp[n][e] = (empty >> (2 * n + c)) & 1u
-                ? 0.0f : sc[n][e] * (dp[n][e] - dl);
+            if constexpr (CAP) {
+                const float p = sc[n][e];
+                const float th = (lse_c[8 * n + 2 * t + c] + logf(p)) / cap;
+                dp[n][e] = (empty >> (2 * n + c)) & 1u || !(p > 0.0f)
+                    ? 0.0f : p * (dp[n][e] - dl) * (1.0f - th * th);
+            } else {
+                dp[n][e] = (empty >> (2 * n + c)) & 1u
+                    ? 0.0f : sc[n][e] * (dp[n][e] - dl);
+            }
         }
     }
 }
@@ -452,9 +502,9 @@ __device__ __forceinline__ void fb_ds_cols(float (&dp)[N][4],
     const float* __restrict__ o, const float* __restrict__ dout, \
     const float* __restrict__ lse, float* __restrict__ delta, \
     float* __restrict__ dq, int S, int T_len, int H, int Hkv, int causal, \
-    int window, int q_offset, float scale
+    int window, int q_offset, float scale, float cap
 #define FB_DQ_PASS q, k, v, o, dout, lse, delta, dq, S, T_len, H, Hkv, \
-    causal, window, q_offset, scale
+    causal, window, q_offset, scale, cap
 
 // delta of the block's 64 rows (two threads a row, fixed order) into
 // dl_s and the (B,H,S) buffer; threads 0-127
@@ -507,8 +557,9 @@ __device__ __forceinline__ void fb_key_range(int q0, int S, int T_len,
     hi_out = h0;
 }
 
-// D <= 64: four warps, each 16 q rows against the whole 64-key tile
-template <int D>
+// D <= 64: four warps, each 16 q rows against the whole 64-key tile.
+// CAP: the scores capped (fb_p_rows)
+template <int D, bool CAP>
 __device__ __forceinline__ void fb_dq_narrow(FB_DQ_PARAMS) {
     constexpr int RS = D + 4;
     constexpr int TILE = fb_tile<D>();
@@ -586,7 +637,8 @@ __device__ __forceinline__ void fb_dq_narrow(FB_DQ_PARAMS) {
         float sc[8][4];
         zero_acc(sc);
         prod_abt<D>(sc, q_row, fb_smem(Kst), lane);
-        fb_p_rows<8>(sc, t0, t, lo_a, hi_a, lo_b, hi_b, lse_a, lse_b, scale);
+        fb_p_rows<8, CAP>(sc, t0, t, lo_a, hi_a, lo_b, hi_b, lse_a, lse_b,
+                          scale, cap);
         float dp[8][4];
         zero_acc(dp);
         prod_abt<D>(dp, do_row, fb_smem(Vst), lane);
@@ -615,7 +667,7 @@ __device__ __forceinline__ void fb_dq_narrow(FB_DQ_PARAMS) {
 // D = 128, 192: eight warps; the pair (w, w + 4) shares 16 q rows, each
 // warp S and dP over half of the key tile, then dS . K over half of dq's
 // columns with the pair's whole dS
-template <int D>
+template <int D, bool CAP>
 __device__ __forceinline__ void fb_dq_wide(FB_DQ_PARAMS) {
     constexpr int RS = D + 4;
     constexpr int TILE = fb_tile<D>();
@@ -704,8 +756,8 @@ __device__ __forceinline__ void fb_dq_wide(FB_DQ_PARAMS) {
         zero_acc(sc);
         prod_abt<D, NW, FB_WIDE_UNROLL>(sc, q_row, fb_smem(Kst + m0 * RS),
                                         lane);
-        fb_p_rows<NW>(sc, t0 + m0, t, lo_a, hi_a, lo_b, hi_b, lse_a, lse_b,
-                      scale);
+        fb_p_rows<NW, CAP>(sc, t0 + m0, t, lo_a, hi_a, lo_b, hi_b, lse_a,
+                           lse_b, scale, cap);
         float dp[NW][4];
         zero_acc(dp);
         prod_abt<D, NW, FB_WIDE_UNROLL>(dp, do_row, fb_smem(Vst + m0 * RS),
@@ -737,14 +789,15 @@ __device__ __forceinline__ void fb_dq_wide(FB_DQ_PARAMS) {
     }
 }
 
-template <int D>
+// CAP: with a logit softcap `cap` > 0 (flash_attention_bwd_softcap.cu)
+template <int D, bool CAP>
 __global__ void __launch_bounds__(D <= 64 ? FB_THREADS : 2 * FB_THREADS,
                                   D <= 64 ? 2 : 1)
 fa_bwd_dq_kernel(FB_DQ_PARAMS) {
     if constexpr (D <= 64)
-        fb_dq_narrow<D>(FB_DQ_PASS);
+        fb_dq_narrow<D, CAP>(FB_DQ_PASS);
     else
-        fb_dq_wide<D>(FB_DQ_PASS);
+        fb_dq_wide<D, CAP>(FB_DQ_PASS);
 }
 
 // ---- dk, dv --------------------------------------------------------------
@@ -754,9 +807,9 @@ fa_bwd_dq_kernel(FB_DQ_PARAMS) {
     const float* __restrict__ dout, const float* __restrict__ lse, \
     const float* __restrict__ delta, float* __restrict__ dk, \
     float* __restrict__ dv, int S, int T_len, int H, int Hkv, int causal, \
-    int window, int q_offset, float scale
+    int window, int q_offset, float scale, float cap
 #define FB_KV_PASS q, k, v, dout, lse, delta, dk, dv, S, T_len, H, Hkv, \
-    causal, window, q_offset, scale
+    causal, window, q_offset, scale, cap
 
 // The q tiles of M rows a key tile [k0, k1) visits: rows whose band
 // meets it have absolute positions p in [pa, pb) (the bands' ends grow
@@ -794,8 +847,9 @@ __device__ __forceinline__ FbWalk fb_walk(int k0, int k1, int S, int T_len,
     return FbWalk{ta0, ta1 - ta0, te};
 }
 
-// D <= 64: four warps, each 16 keys against the whole 64-row q tile
-template <int D>
+// D <= 64: four warps, each 16 keys against the whole 64-row q tile.
+// CAP: the scores capped (fb_p_cols, fb_ds_cols)
+template <int D, bool CAP>
 __device__ __forceinline__ void fb_dkdv_narrow(FB_KV_PARAMS) {
     constexpr int RS = D + 4;
     constexpr int TILE = fb_tile<D>();
@@ -872,8 +926,8 @@ __device__ __forceinline__ void fb_dkdv_narrow(FB_KV_PARAMS) {
         zero_acc(sc);
         prod_abt<D>(sc, k_row, fb_smem(Qst), lane);
         const uint32_t empty =
-            fb_p_cols<8>(sc, r0, lse_st, ka, kb, t, S, T_len, causal, window,
-                         q_offset, scale, inv_t);
+            fb_p_cols<8, CAP>(sc, r0, lse_st, ka, kb, t, S, T_len, causal,
+                              window, q_offset, scale, inv_t, cap);
         float part_acc[D / 8][4];
         zero_acc(part_acc);
         prod_cb<D>(part_acc, sc, DOst, g, t);          // dv += P^T . dO
@@ -882,7 +936,7 @@ __device__ __forceinline__ void fb_dkdv_narrow(FB_KV_PARAMS) {
         float dp[8][4];
         zero_acc(dp);
         prod_abt<D>(dp, v_row, fb_smem(DOst), lane);
-        fb_ds_cols<8>(dp, sc, dl_st, empty, t);
+        fb_ds_cols<8, CAP>(dp, sc, dl_st, empty, t, lse_st, cap);
         zero_acc(part_acc);
         prod_cb<D>(part_acc, dp, Qst, g, t);           // dk += dS^T . q
         add_acc(dka, part_acc);
@@ -913,7 +967,7 @@ __device__ __forceinline__ void fb_dkdv_narrow(FB_KV_PARAMS) {
 // warp S^T and dP^T over half of the q tile's rows, then P^T . dO and
 // dS^T . q over half of dk's and dv's columns with the pair's whole P
 // and dS
-template <int D>
+template <int D, bool CAP>
 __device__ __forceinline__ void fb_dkdv_wide(FB_KV_PARAMS) {
     constexpr int RS = D + 4;
     constexpr int TILE = fb_tile<D>();
@@ -999,13 +1053,13 @@ __device__ __forceinline__ void fb_dkdv_wide(FB_KV_PARAMS) {
         prod_abt<D, NW, FB_WIDE_UNROLL>(sc, k_row, fb_smem(Qst + m0 * RS),
                                         lane);
         const uint32_t empty =
-            fb_p_cols<NW>(sc, r0 + m0, lse_st + m0, ka, kb, t, S, T_len,
-                          causal, window, q_offset, scale, inv_t);
+            fb_p_cols<NW, CAP>(sc, r0 + m0, lse_st + m0, ka, kb, t, S, T_len,
+                               causal, window, q_offset, scale, inv_t, cap);
         float dp[NW][4];
         zero_acc(dp);
         prod_abt<D, NW, FB_WIDE_UNROLL>(dp, v_row, fb_smem(DOst + m0 * RS),
                                         lane);
-        fb_ds_cols<NW>(dp, sc, dl_st + m0, empty, t);
+        fb_ds_cols<NW, CAP>(dp, sc, dl_st + m0, empty, t, lse_st + m0, cap);
         fx_put<NW>(pex, sc, hf * NW, lane);
         fx_put<NW>(dsex, dp, hf * NW, lane);
         fx_pair_sync(pr);
@@ -1043,59 +1097,81 @@ __device__ __forceinline__ void fb_dkdv_wide(FB_KV_PARAMS) {
     }
 }
 
-template <int D>
+// CAP: with a logit softcap `cap` > 0 (flash_attention_bwd_softcap.cu)
+template <int D, bool CAP>
 __global__ void __launch_bounds__(D <= 64 ? FB_THREADS : 2 * FB_THREADS,
                                   D <= 64 ? 2 : 1)
 fa_bwd_dkdv_kernel(FB_KV_PARAMS) {
     if constexpr (D <= 64)
-        fb_dkdv_narrow<D>(FB_KV_PASS);
+        fb_dkdv_narrow<D, CAP>(FB_KV_PASS);
     else
-        fb_dkdv_wide<D>(FB_KV_PASS);
+        fb_dkdv_wide<D, CAP>(FB_KV_PASS);
 }
 
 // ---- launches ------------------------------------------------------------
 
-template <int D>
+// CAP: with a softcap `cap` > 0 (flash_attention_bwd_softcap.cu's
+// instantiations)
+template <int D, bool CAP = false>
 static int launch_dq(const float* q, const float* k, const float* v,
                      const float* o, const float* dout, const float* lse,
                      float* delta, float* dq, int B, int S, int T_len, int H,
                      int Hkv, int causal, int window, int q_offset,
-                     float scale, cudaStream_t stream) {
+                     float scale, cudaStream_t stream, float cap = 0.0f) {
     const int smem = fb_dq_smem_floats<D>() * (int)sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        fa_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        fa_bwd_dq_kernel<D, CAP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const long long blocks =
         (long long)((S + FB_BQ - 1) / FB_BQ) * H * B;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    fa_bwd_dq_kernel<D><<<(unsigned)blocks, fb_threads<D>(), smem, stream>>>(
+    fa_bwd_dq_kernel<D, CAP><<<(unsigned)blocks, fb_threads<D>(), smem,
+                               stream>>>(
         q, k, v, o, dout, lse, delta, dq, S, T_len, H, Hkv, causal, window,
-        q_offset, scale);
+        q_offset, scale, cap);
     return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool CAP = false>
 static int launch_dkdv(const float* q, const float* k, const float* v,
                        const float* dout, const float* lse,
                        const float* delta, float* dk, float* dv, int B,
                        int S, int T_len, int H, int Hkv, int causal,
                        int window, int q_offset, float scale,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, float cap = 0.0f) {
     const int smem = fb_dkdv_smem_floats<D>() * (int)sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        fa_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        fa_bwd_dkdv_kernel<D, CAP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const long long blocks =
         (long long)((T_len + FB_BK - 1) / FB_BK) * Hkv * B;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    fa_bwd_dkdv_kernel<D><<<(unsigned)blocks, fb_threads<D>(), smem,
-                            stream>>>(
+    fa_bwd_dkdv_kernel<D, CAP><<<(unsigned)blocks, fb_threads<D>(), smem,
+                                 stream>>>(
         q, k, v, dout, lse, delta, dk, dv, S, T_len, H, Hkv, causal, window,
-        q_offset, scale);
+        q_offset, scale, cap);
     return (int)cudaGetLastError();
 }
+
+// The kernels end here: flash_attention_bwd_softcap.cu includes this
+// file with FB_KERNELS_ONLY defined, for the CAP instantiations alone.
+#ifndef FB_KERNELS_ONLY
+
+// The pair with a logit softcap > 0: defined in
+// flash_attention_bwd_softcap.cu, linked into this library; the
+// arguments of launch_dq / launch_dkdv, then D
+int fb_dq_softcap(const float* q, const float* k, const float* v,
+                  const float* o, const float* dout, const float* lse,
+                  float* delta, float* dq, int B, int S, int T_len, int H,
+                  int Hkv, int causal, int window, int q_offset, float scale,
+                  cudaStream_t stream, float cap, int D);
+int fb_dkdv_softcap(const float* q, const float* k, const float* v,
+                    const float* dout, const float* lse, const float* delta,
+                    float* dk, float* dv, int B, int S, int T_len, int H,
+                    int Hkv, int causal, int window, int q_offset,
+                    float scale, cudaStream_t stream, float cap, int D);
 
 static bool fb_shape_ok(int B, int S, int T_len, int H, int Hkv,
                         int q_offset) {
@@ -1107,18 +1183,26 @@ static bool fb_aligned(const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// 0, or a finite cap > 0 on the scores (the forward's, whose lse it is)
+static bool fb_softcap_ok(float softcap) {
+    return softcap >= 0.0f && !isinf(softcap);
+}
+
 // q, o, dout, dq (B,S,H,D), k, v (B,T,Hkv,D), lse and delta (B,H,S), all
 // contiguous f32, q, k, v, o, dout and dq on 16-byte addresses; D in
-// {16, 32, 64, 80, 128, 192}.  Writes dq and delta = rowsum(dout * o).  Returns
+// {16, 32, 64, 80, 128, 192}.  Writes dq and delta = rowsum(dout * o).
+// softcap: 0, or the forward's cap > 0, which takes the CAP
+// instantiations of flash_attention_bwd_softcap.cu.  Returns
 // cudaGetLastError() after the launch; does not synchronise.
 extern "C" int flash_attention_bwd_dq_f32(
         const void* q, const void* k, const void* v, const void* o,
         const void* dout, const void* lse, void* delta, void* dq, int B,
         int S, int T_len, int H, int Hkv, int D, int causal, int window,
-        int q_offset, float scale, void* stream) {
+        int q_offset, float scale, void* stream, float softcap) {
     if (!fb_shape_ok(B, S, T_len, H, Hkv, q_offset)
             || !fb_aligned(q) || !fb_aligned(k) || !fb_aligned(v)
-            || !fb_aligned(o) || !fb_aligned(dout) || !fb_aligned(dq))
+            || !fb_aligned(o) || !fb_aligned(dout) || !fb_aligned(dq)
+            || !fb_softcap_ok(softcap))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FB_DQ_ARGS static_cast<const float*>(q), static_cast<const float*>(k), \
@@ -1126,6 +1210,7 @@ extern "C" int flash_attention_bwd_dq_f32(
     static_cast<const float*>(dout), static_cast<const float*>(lse), \
     static_cast<float*>(delta), static_cast<float*>(dq), B, S, T_len, H, \
     Hkv, causal, window, q_offset, scale, s
+    if (softcap > 0.0f) return fb_dq_softcap(FB_DQ_ARGS, softcap, D);
     switch (D) {
         case 16: return launch_dq<16>(FB_DQ_ARGS);
         case 32: return launch_dq<32>(FB_DQ_ARGS);
@@ -1142,15 +1227,16 @@ extern "C" int flash_attention_bwd_dq_f32(
 // delta as flash_attention_bwd_dq_f32 wrote it, so launched after it on
 // the same stream -- all contiguous f32, q, k, v, dout, dk and dv on
 // 16-byte addresses; D in {16, 32, 64, 80, 128, 192}.  Writes dk and dv, each summed
-// over the kv head's group of q heads.
+// over the kv head's group of q heads.  softcap as the dq entry's.
 extern "C" int flash_attention_bwd_dkdv_f32(
         const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dk, void* dv, int B,
         int S, int T_len, int H, int Hkv, int D, int causal, int window,
-        int q_offset, float scale, void* stream) {
+        int q_offset, float scale, void* stream, float softcap) {
     if (!fb_shape_ok(B, S, T_len, H, Hkv, q_offset)
             || !fb_aligned(q) || !fb_aligned(k) || !fb_aligned(v)
-            || !fb_aligned(dout) || !fb_aligned(dk) || !fb_aligned(dv))
+            || !fb_aligned(dout) || !fb_aligned(dk) || !fb_aligned(dv)
+            || !fb_softcap_ok(softcap))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FB_KV_ARGS static_cast<const float*>(q), static_cast<const float*>(k), \
@@ -1158,6 +1244,7 @@ extern "C" int flash_attention_bwd_dkdv_f32(
     static_cast<const float*>(lse), static_cast<const float*>(delta), \
     static_cast<float*>(dk), static_cast<float*>(dv), B, S, T_len, H, Hkv, \
     causal, window, q_offset, scale, s
+    if (softcap > 0.0f) return fb_dkdv_softcap(FB_KV_ARGS, softcap, D);
     switch (D) {
         case 16: return launch_dkdv<16>(FB_KV_ARGS);
         case 32: return launch_dkdv<32>(FB_KV_ARGS);
@@ -1203,3 +1290,5 @@ extern "C" long long flash_attention_bwd_sizes(int D, int kernel,
     }
     return -1;
 }
+
+#endif  // FB_KERNELS_ONLY

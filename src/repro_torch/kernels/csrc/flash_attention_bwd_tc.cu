@@ -15,6 +15,20 @@
 //   dv_j = sum_{h in group} sum_i P_ij dO_i
 //   A row that sees no key has P = 1/T on every key and dS = 0.
 //
+// With a logit softcap (the CAP instantiations, built in
+// flash_attention_bwd_tc_softcap.cu, which includes this file with
+// FB_TC_KERNELS_ONLY and is linked into its library), each score is
+// capped as the bf16 forward's softmax_tile caps it, with the same
+// tanhf and constants: t = tanh(s * sc_cap), sc_cap = scale / cap, and
+// P = 2^(cap_log2 * t - lse log2 e), cap_log2 = cap * log2 e, so P is
+// of the capped score the forward's lse summed; dS = P (dP - delta)
+// (1 - t^2), the factor entering before dS's two-part split.  An
+// interior tile's fused 2^(s * scale log2 e - lse log2 e) cannot carry
+// the cap, so a CAP tile caps every score.  dq forms P (1 - t^2) in P's
+// place (it needs no P alone); dkdv needs both P and dS, so a CAP item
+// waits for dP^T's product before it forms P^T, and forms dS^T beside
+// it from the same t (no register array more than without a cap).
+//
 // The JAX package has no backward Pallas kernel (JAX differentiates the
 // jnp attention); the port's gradient through its forward kernel needs
 // one.  No float atomics: every output element is summed by one thread
@@ -283,7 +297,8 @@ __device__ __forceinline__ void zero(float (&a)[N]) {
 
 // ---- dq ------------------------------------------------------------------
 
-template <int D>
+// CAP: with a logit softcap (sc_cap, cap_log2 read only then)
+template <int D, bool CAP>
 __global__ void __launch_bounds__(THREADS, 1)
 fa_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_do,
@@ -293,7 +308,8 @@ fa_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const bf16* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ delta,
                     bf16* __restrict__ dq, int S, int T, int H, int Hkv,
-                    int causal, int window, int q_offset, float scale) {
+                    int causal, int window, int q_offset, float scale,
+                    float sc_cap, float cap_log2) {
     using L = Bwd<D, false>;
     constexpr int DEPTH = L::DEPTH;
     extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -452,8 +468,27 @@ fa_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                 // key t0 + 8 (i / 4) + 2 (lane % 4) + (i & 1); the masks
                 // only on a tile that cuts a band edge or holds keys past
                 // T or rows past S (an interior tile's every key is seen
-                // by every one of the 64 rows)
-                if (t0 + BK <= T && r0 + 64 <= S
+                // by every one of the 64 rows).  CAP: every score capped,
+                // and P (1 - t^2) in P's place
+                if constexpr (CAP) {
+                    const bool interior = t0 + BK <= T && r0 + 64 <= S
+                        && (!causal || t0 + BK - 1 <= pa)
+                        && (window <= 0 || t0 >= pa + 64 - window);
+#pragma unroll
+                    for (int i = 0; i < 32; ++i) {
+                        const int key = t0 + 8 * (i >> 2) + 2 * (lane & 3)
+                                        + (i & 1);
+                        const bool rb_ = (i >> 1) & 1;
+                        const bool vis = interior
+                            || (rb_ ? key >= lo_b && key < hi_b
+                                    : key >= lo_a && key < hi_a);
+                        const float th = tanhf(s[i] * sc_cap);
+                        const float c = cap_log2 * th;
+                        s[i] = vis ? ex2(c - (rb_ ? lse_b : lse_a))
+                                         * (1.0f - th * th)
+                                   : 0.0f;
+                    }
+                } else if (t0 + BK <= T && r0 + 64 <= S
                         && (!causal || t0 + BK - 1 <= pa)
                         && (window <= 0 || t0 >= pa + 64 - window)) {
 #pragma unroll
@@ -529,7 +564,8 @@ __device__ __forceinline__ Walk walk_of(int k0, int k1, int S, int T,
     return Walk{ta0, ta1 - ta0, te};
 }
 
-template <int D>
+// CAP: with a logit softcap (sc_cap, cap_log2 read only then)
+template <int D, bool CAP>
 __global__ void __launch_bounds__(THREADS, 1)
 fa_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_do,
@@ -539,7 +575,8 @@ fa_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const float* __restrict__ delta,
                       bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
                       int T, int H, int Hkv, int causal, int window,
-                      int q_offset, float scale) {
+                      int q_offset, float scale, float sc_cap,
+                      float cap_log2) {
     using L = Bwd<D, true>;
     constexpr int DEPTH = L::DEPTH;
     constexpr int NK = kv_keys<D>();
@@ -666,8 +703,39 @@ fa_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
             // that sees no key)
             uint32_t blind = 0;     // bit e: its row sees no key
             const int p0 = q_offset + r0;
-            if (r0 + BM <= S && kw0 + 64 <= T && (!causal || kw0 + 63 <= p0)
-                    && (window <= 0 || kw0 > p0 + BM - 1 - window)) {
+            if constexpr (CAP) {
+                // both products waited on; P^T in S^T's place and dS^T
+                // in dP^T's, from one t an element
+                wgmma_wait<0>();
+                fence_regs(s);
+                fence_regs(dp);
+                const bool interior = r0 + BM <= S && kw0 + 64 <= T
+                    && (!causal || kw0 + 63 <= p0)
+                    && (window <= 0 || kw0 > p0 + BM - 1 - window);
+#pragma unroll
+                for (int e = 0; e < 32; ++e) {
+                    const int col = 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+                    const int row = r0 + col;
+                    const int p = q_offset + row;
+                    const int key = ((e >> 1) & 1) ? key_b : key_a;
+                    const bool in = row < S && key < T;
+                    const bool none = !interior && window > 0
+                                      && p >= p_blind;
+                    const bool vis = interior
+                        || (in && (!causal || key <= p)
+                            && (window <= 0 || key > p - window));
+                    const float th = tanhf(s[e] * sc_cap);
+                    const float c = cap_log2 * th;
+                    const float pe = none ? (in ? inv_t : 0.0f)
+                                          : vis ? ex2(c - lse_c[col]) : 0.0f;
+                    dp[e] = none ? 0.0f
+                                 : pe * (dp[e] - dl_c[col])
+                                       * (1.0f - th * th);
+                    s[e] = pe;
+                }
+            } else if (r0 + BM <= S && kw0 + 64 <= T
+                       && (!causal || kw0 + 63 <= p0)
+                       && (window <= 0 || kw0 > p0 + BM - 1 - window)) {
 #pragma unroll
                 for (int e = 0; e < 32; ++e) {
                     const int col = 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
@@ -692,13 +760,15 @@ fa_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                 }
             }
             // dS^T in dP^T's place
-            wgmma_wait<0>();
-            fence_regs(dp);
+            if constexpr (!CAP) {
+                wgmma_wait<0>();
+                fence_regs(dp);
 #pragma unroll
-            for (int e = 0; e < 32; ++e) {
-                const int col = 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
-                dp[e] = (blind >> e) & 1u ? 0.0f
-                                          : s[e] * (dp[e] - dl_c[col]);
+                for (int e = 0; e < 32; ++e) {
+                    const int col = 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+                    dp[e] = (blind >> e) & 1u ? 0.0f
+                                              : s[e] * (dp[e] - dl_c[col]);
+                }
             }
             // the second products, A as two bf16 parts: one at a time, so
             // that the parts of one operand and both sums fit the
@@ -759,19 +829,33 @@ static int map_of(CUtensorMap* map, const void* p, int B, int rows,
     return tensor_map(map, key);
 }
 
-template <int D>
+// The two constants of the CAP kernels, as the bf16 forward's launch
+// computes them (flash_attention.cu: tc::launch_as): scale / cap and
+// cap * log2 e
+static float sc_cap_of(float scale, float softcap) {
+    return softcap > 0.0f ? (float)((double)scale / softcap) : 0.0f;
+}
+static float cap_log2_of(float softcap) {
+    return softcap > 0.0f ? (float)((double)softcap * 1.4426950408889634)
+                          : 0.0f;
+}
+
+// CAP: with a softcap > 0 (flash_attention_bwd_tc_softcap.cu's
+// instantiations)
+template <int D, bool CAP = false>
 static int launch_dq(const void* q, const void* k, const void* v,
                      const void* o, const void* o_lo, const void* dout,
                      const float* lse, float* delta, void* dq, int B, int S,
                      int T, int H, int Hkv, int causal, int window,
-                     int q_offset, float scale, cudaStream_t stream) {
+                     int q_offset, float scale, cudaStream_t stream,
+                     float softcap = 0.0f) {
     // a runtime call first: it makes the device's primary context
     // current on this thread, which cuTensorMapEncodeTiled needs
     // (autograd runs a backward on a thread of its own)
     const int smem = Bwd<D, false>::ALLOC;
     cudaError_t ce = cudaFuncSetAttribute(
-        fa_bwd_tc_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        fa_bwd_tc_dq_kernel<D, CAP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (ce != cudaSuccess) return (int)ce;
     CUtensorMap mq, mdo, mk, mv;
     int err = map_of<D>(&mq, q, B, S, H, BQ);
@@ -781,23 +865,24 @@ static int launch_dq(const void* q, const void* k, const void* v,
     if (err != 0) return err;
     const long long blocks = (long long)((S + BQ - 1) / BQ) * H * B;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    fa_bwd_tc_dq_kernel<D><<<(unsigned)blocks, THREADS, smem, stream>>>(
+    fa_bwd_tc_dq_kernel<D, CAP><<<(unsigned)blocks, THREADS, smem, stream>>>(
         mq, mdo, mk, mv, static_cast<const bf16*>(o),
         static_cast<const bf16*>(o_lo), static_cast<const bf16*>(dout), lse,
         delta, static_cast<bf16*>(dq), S, T, H, Hkv, causal, window,
-        q_offset, scale);
+        q_offset, scale, sc_cap_of(scale, softcap), cap_log2_of(softcap));
     return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool CAP = false>
 static int launch_dkdv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv, int B, int S,
                        int T, int H, int Hkv, int causal, int window,
-                       int q_offset, float scale, cudaStream_t stream) {
+                       int q_offset, float scale, cudaStream_t stream,
+                       float softcap = 0.0f) {
     const int smem = Bwd<D, true>::ALLOC;      // a runtime call first
     cudaError_t ce = cudaFuncSetAttribute(
-        fa_bwd_tc_dkdv_kernel<D>,
+        fa_bwd_tc_dkdv_kernel<D, CAP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (ce != cudaSuccess) return (int)ce;
     CUtensorMap mq, mdo, mk, mv;
@@ -809,12 +894,37 @@ static int launch_dkdv(const void* q, const void* k, const void* v,
     const long long blocks =
         (long long)((T + kv_keys<D>() - 1) / kv_keys<D>()) * Hkv * B;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    fa_bwd_tc_dkdv_kernel<D><<<(unsigned)blocks, THREADS, smem, stream>>>(
+    fa_bwd_tc_dkdv_kernel<D, CAP><<<(unsigned)blocks, THREADS, smem,
+                                    stream>>>(
         mq, mdo, mk, mv, lse, delta, static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), S, T, H, Hkv, causal, window, q_offset,
-        scale);
+        scale, sc_cap_of(scale, softcap), cap_log2_of(softcap));
     return (int)cudaGetLastError();
 }
+
+}  // namespace tc
+
+// The kernels end here: flash_attention_bwd_tc_softcap.cu includes this
+// file with FB_TC_KERNELS_ONLY defined, for the CAP instantiations alone.
+#ifndef FB_TC_KERNELS_ONLY
+
+// The bf16 pair with a logit softcap > 0: defined in
+// flash_attention_bwd_tc_softcap.cu, linked into this library; the
+// arguments of tc::launch_dq / tc::launch_dkdv, then D
+int fb_tc_dq_softcap(const void* q, const void* k, const void* v,
+                     const void* o, const void* o_lo, const void* dout,
+                     const float* lse, float* delta, void* dq, int B, int S,
+                     int T, int H, int Hkv, int causal, int window,
+                     int q_offset, float scale, cudaStream_t stream,
+                     float softcap, int D);
+int fb_tc_dkdv_softcap(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, void* dk, void* dv, int B, int S,
+                       int T, int H, int Hkv, int causal, int window,
+                       int q_offset, float scale, cudaStream_t stream,
+                       float softcap, int D);
+
+namespace tc {
 
 static bool shape_ok(int B, int S, int T, int H, int Hkv, int q_offset) {
     return B >= 1 && S >= 1 && T >= 1 && H >= 1 && Hkv >= 1 && H % Hkv == 0
@@ -823,6 +933,11 @@ static bool shape_ok(int B, int S, int T, int H, int Hkv, int q_offset) {
 
 static bool aligned(const void* p) {
     return p != nullptr && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// 0, or a finite cap > 0 on the scores (the forward's, whose lse it is)
+static bool softcap_ok(float softcap) {
+    return softcap >= 0.0f && !isinf(softcap);
 }
 
 }  // namespace tc
@@ -836,21 +951,25 @@ static bool aligned(const void* p) {
 // summed over the kv head's group of q heads.  Each returns
 // cudaGetLastError() after its launch (or the error that kept it from
 // launching: cudaErrorInvalidValue for a shape, D or address it does
-// not take); neither synchronises.
+// not take); neither synchronises.  softcap: 0, or the forward's cap >
+// 0, which takes the CAP instantiations of
+// flash_attention_bwd_tc_softcap.cu.
 extern "C" int flash_attention_bwd_dq_bf16(
         const void* q, const void* k, const void* v, const void* o,
         const void* o_lo, const void* dout, const void* lse, void* delta,
         void* dq, int B, int S, int T_len, int H, int Hkv, int D,
-        int causal, int window, int q_offset, float scale, void* stream) {
+        int causal, int window, int q_offset, float scale, void* stream,
+        float softcap) {
     using namespace tc;
     if (!shape_ok(B, S, T_len, H, Hkv, q_offset) || !aligned(q)
             || !aligned(k) || !aligned(v) || !aligned(o) || !aligned(o_lo)
-            || !aligned(dout) || !aligned(dq))
+            || !aligned(dout) || !aligned(dq) || !softcap_ok(softcap))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TC_DQ_ARGS q, k, v, o, o_lo, dout, static_cast<const float*>(lse), \
     static_cast<float*>(delta), dq, B, S, T_len, H, Hkv, causal, window, \
     q_offset, scale, s
+    if (softcap > 0.0f) return fb_tc_dq_softcap(TC_DQ_ARGS, softcap, D);
     switch (D) {
         case 16: return launch_dq<16>(TC_DQ_ARGS);
         case 32: return launch_dq<32>(TC_DQ_ARGS);
@@ -867,16 +986,17 @@ extern "C" int flash_attention_bwd_dkdv_bf16(
         const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dk, void* dv, int B,
         int S, int T_len, int H, int Hkv, int D, int causal, int window,
-        int q_offset, float scale, void* stream) {
+        int q_offset, float scale, void* stream, float softcap) {
     using namespace tc;
     if (!shape_ok(B, S, T_len, H, Hkv, q_offset) || !aligned(q)
             || !aligned(k) || !aligned(v) || !aligned(dout) || !aligned(dk)
-            || !aligned(dv))
+            || !aligned(dv) || !softcap_ok(softcap))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TC_KV_ARGS q, k, v, dout, static_cast<const float*>(lse), \
     static_cast<const float*>(delta), dk, dv, B, S, T_len, H, Hkv, causal, \
     window, q_offset, scale, s
+    if (softcap > 0.0f) return fb_tc_dkdv_softcap(TC_KV_ARGS, softcap, D);
     switch (D) {
         case 16: return launch_dkdv<16>(TC_KV_ARGS);
         case 32: return launch_dkdv<32>(TC_KV_ARGS);
@@ -921,3 +1041,5 @@ extern "C" long long flash_attention_bwd_tc_sizes(int D, int kernel,
     }
     return -1;
 }
+
+#endif  // FB_TC_KERNELS_ONLY

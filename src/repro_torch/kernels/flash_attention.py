@@ -61,13 +61,16 @@ against bytes (q, k, v, out once) two orders lower.
 Logit softcap (``softcap > 0``): ``s = cap * tanh(s / cap)`` on the
 scaled score, before the masks, as the reference's jnp attention
 (``repro/models/attention.py: _softcap``; its Pallas kernel has none).
-The two serving forwards (no lse) take it: the ``CAP`` instantiations
-of ``csrc/flash_attention.cu``'s kernels are built in their own
-translation unit, ``csrc/flash_attention_softcap.cu``, linked into the
-same library, so the instantiations without a cap compile as before.  A softcap
-with a gradient raises ``NotImplementedError`` before any launch: the
-training kernels with a cap (the lse forwards and both backward pairs,
-dS scaled by ``1 - tanh^2``) are ROADMAP queue 1 item 18.
+Every kernel takes it: the ``CAP`` instantiations of the two forwards
+are built in their own translation unit,
+``csrc/flash_attention_softcap.cu`` (one a head dim and dtype, which
+writes lse -- and in bf16 ``out_lo`` -- only when asked), and those of
+the two backward pairs in ``csrc/flash_attention_bwd_softcap.cu`` and
+``csrc/flash_attention_bwd_tc_softcap.cu``, each linked into its
+kernels' library, so the instantiations without a cap compile as
+before.  The backward recomputes the capped score with the forward's
+``tanhf`` (so P matches the lse the forward wrote), and dS takes the
+cap's derivative: ``dS = P * (dP - delta) * (1 - tanh^2)``.
 
 A CUDA tensor goes to a kernel or the call raises;
 ``flash_attention_plain`` (the function of
@@ -127,8 +130,10 @@ bwd_dq_launches = 0
 bwd_dkdv_launches = 0
 bwd_dq_bf16_launches = 0
 bwd_dkdv_bf16_launches = 0
-# those of the forward kernels with a logit softcap (either dtype)
+# those of the forward kernels with a logit softcap (either dtype), and
+# of the backward kernels with one (dq and dkdv, either dtype)
 softcap_launches = 0
+softcap_bwd_launches = 0
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -136,7 +141,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
              + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_float])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-                 + [ctypes.c_float, ctypes.c_void_p])
+                 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_float])
 # the bf16 dq entry takes o_lo after o
 _BWD_DQ_BF16_ARGTYPES = [ctypes.c_void_p] + _BWD_ARGTYPES
 # the backward pair's entries by dtype: (dq, dkdv)
@@ -305,7 +310,7 @@ def _kernel_forward(q, k, v, causal, window, q_offset, with_lse,
     in bf16, ``out_lo`` (B,S,H,D) bf16, what the rounding of out left
     (out + out_lo is the f32 output to about 2^-16: the backward's
     delta reads both); out_lo is None in f32.  ``softcap > 0`` takes the
-    cap's instantiation, which has no lse."""
+    cap's instantiation (lse then that of the capped scores)."""
     global launches, tc_launches, softcap_launches
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -325,10 +330,9 @@ def _kernel_forward(q, k, v, causal, window, q_offset, with_lse,
     if s < 1 or t < 1 or q_offset < 0:
         raise ValueError(f"flash_attention kernel: S={s}, T={t}, "
                          f"q_offset={q_offset}")
-    if not (math.isfinite(softcap) and softcap >= 0) \
-            or (softcap > 0 and with_lse):
+    if not (math.isfinite(softcap) and softcap >= 0):
         raise ValueError(f"flash_attention kernel: softcap {softcap} (a "
-                         "finite cap >= 0, and 0 with lse)")
+                         "finite cap >= 0)")
     tensor_cores = q.dtype == torch.bfloat16
     copied = ((("q", q), ("k", k), ("v", v)) if tensor_cores
               else (("k", k), ("v", v)))
@@ -379,11 +383,13 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
             torch.logsumexp(scores, dim=-1))
 
 
-def _plain_forward_for_grad(q, k, v, causal, window, q_offset):
+def _plain_forward_for_grad(q, k, v, causal, window, q_offset,
+                            softcap=0.0):
     """What ``_kernel_forward(..., with_lse=True)`` returns, in PyTorch:
     (out, lse, out_lo), out_lo the rest of out's rounding to bf16 (None
     in f32)."""
-    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              softcap=softcap)
     if q.dtype != torch.bfloat16:
         return (*flash_attention_fwd_plain(q, k, v, **kw), None)
     full, lse = flash_attention_fwd_plain(q.float(), k.float(), v.float(),
@@ -398,12 +404,15 @@ def repeat_kv_heads(k, n_heads: int):
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
-                              window: int = 0, q_offset: int = 0):
+                              window: int = 0, q_offset: int = 0,
+                              softcap: float = 0.0):
     """The backward kernels' math in PyTorch, f32: q, o, do (B,S,H,D),
     k, v (B,T,Hkv,D), lse (B,H,S) -> (dq, dk, dv) in f32, dk and dv
     summed over each kv head's group of q heads.  P is recomputed from
     lse; a row that sees no key has P = 1/T on every key and dS = 0
-    (what autograd of the plain forward gives through its select)."""
+    (what autograd of the plain forward gives through its select).  With
+    ``softcap > 0`` P is of the capped score ``c = cap * t``, ``t =
+    tanh(s / cap)``, and dS carries the cap's derivative ``1 - t^2``."""
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     rep = h // hkv
@@ -414,6 +423,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     m = _mask(s, t, causal, window, q_offset, q.device)
     empty = ~m.any(dim=-1)                                # (S,)
     scores = torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale
+    if softcap > 0:
+        t_ = torch.tanh(scores / softcap)
+        scores = t_ * softcap
     p = torch.exp(torch.where(m, scores - lse.float()[..., None],
                               torch.full((), -math.inf, device=q.device)))
     p = torch.where(empty[:, None], torch.full((), 1.0 / t,
@@ -422,6 +434,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     dp = torch.einsum("bhsd,bhtd->bhst", dof, vf)
     ds = torch.where(m, p * (dp - delta[..., None]),
                      torch.zeros((), device=q.device))
+    if softcap > 0:
+        ds = ds * (1.0 - t_.square())
     dq = torch.einsum("bhst,bhtd->bhsd", ds, kf) * scale
     dk = torch.einsum("bhst,bhsd->bhtd", ds, qf) * scale
     dv = torch.einsum("bhst,bhsd->bhtd", p, dof)
@@ -433,13 +447,14 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 def _kernel_backward(q, k, v, o, lse, do, causal, window, q_offset,
-                     o_lo=None):
+                     o_lo=None, softcap=0.0):
     """The two backward launches on CUDA tensors of q's dtype (f32 or
     bf16; dO taken in that dtype): dq (and delta) first, then dk and dv,
     in q's dtype.  bf16 takes ``o_lo`` too, the forward's (delta is of o
-    + o_lo).  A misaligned input raises ``ValueError`` before either
-    launch."""
-    global bwd_dq_launches, bwd_dkdv_launches
+    + o_lo).  ``softcap > 0`` takes the cap's instantiations (lse is
+    then the capped forward's).  A misaligned input raises
+    ``ValueError`` before either launch."""
+    global bwd_dq_launches, bwd_dkdv_launches, softcap_bwd_launches
     global bwd_dq_bf16_launches, bwd_dkdv_bf16_launches
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -452,6 +467,9 @@ def _kernel_backward(q, k, v, o, lse, do, causal, window, q_offset,
     if bf16 != (o_lo is not None):
         raise ValueError("flash_attention backward kernels: o_lo goes with "
                          "bf16 inputs, and only with them")
+    if not (math.isfinite(softcap) and softcap >= 0):
+        raise ValueError(f"flash_attention backward kernels: softcap "
+                         f"{softcap} (a finite cap >= 0)")
     q, k, v, o, do = (x.contiguous() for x in (q, k, v, o,
                                                do.to(q.dtype)))
     named = [("q", q), ("k", k), ("v", v), ("o", o), ("do", do)]
@@ -479,21 +497,23 @@ def _kernel_backward(q, k, v, o, lse, do, causal, window, q_offset,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             *((o_lo.data_ptr(),) if bf16 else ()),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *shape, stream)
+            *shape, stream, float(softcap))
         if err != 0:
             raise RuntimeError(f"{_BWD_ENTRIES[q.dtype][0]} launch failed: "
                                f"CUDA error {err}")
         bwd_dq_launches += 1
         bwd_dq_bf16_launches += bf16
+        softcap_bwd_launches += softcap > 0
         err = dkdv_entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *shape, stream)
+            *shape, stream, float(softcap))
     if err != 0:
         raise RuntimeError(f"{_BWD_ENTRIES[q.dtype][1]} launch failed: "
                            f"CUDA error {err}")
     bwd_dkdv_launches += 1
     bwd_dkdv_bf16_launches += bf16
+    softcap_bwd_launches += softcap > 0
     return dq, dk, dv
 
 
@@ -501,34 +521,37 @@ class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` with a gradient: on CUDA tensors the forward
     kernel of the inputs' dtype (asked for lse) and the two backward
     kernels of that dtype; on CPU tensors the plain forward and
-    ``flash_attention_bwd_plain``."""
+    ``flash_attention_bwd_plain``.  The softcap (0: none) rides in
+    ``ctx.masks`` beside the masks."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset):
+    def forward(ctx, q, k, v, causal, window, q_offset, softcap=0.0):
         if q.device.type == "cuda":
             out, lse, out_lo = _kernel_forward(q, k, v, causal, window,
-                                               q_offset, with_lse=True)
+                                               q_offset, with_lse=True,
+                                               softcap=softcap)
         else:
             out, lse, out_lo = _plain_forward_for_grad(q, k, v, causal,
-                                                       window, q_offset)
+                                                       window, q_offset,
+                                                       softcap)
         ctx.save_for_backward(q, k, v, out, lse, out_lo)
-        ctx.masks = (causal, window, q_offset)
+        ctx.masks = (causal, window, q_offset, softcap)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse, out_lo = ctx.saved_tensors
-        causal, window, q_offset = ctx.masks
+        causal, window, q_offset, softcap = ctx.masks
         if q.device.type == "cuda":
             dq, dk, dv = _kernel_backward(q, k, v, out, lse, do, causal,
-                                          window, q_offset, out_lo)
+                                          window, q_offset, out_lo, softcap)
         else:
             o = out if out_lo is None else out.float() + out_lo.float()
             dq, dk, dv = flash_attention_bwd_plain(
                 q, k, v, o, lse, do, causal=causal, window=window,
-                q_offset=q_offset)
+                q_offset=q_offset, softcap=softcap)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
-                None)
+                None, None)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -543,20 +566,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     for f32; q, k and v for bf16); anything else raises.  On the CPU it
     is ``gqa_plain``.  With grad mode on and an input that requires
     grad it is ``FlashAttentionFn`` (f32 or bf16).  ``softcap > 0`` caps
-    the scores (``cap * tanh(s / cap)``) before the masks; with a
-    gradient it raises ``NotImplementedError`` on either device, before
-    any launch.
+    the scores (``cap * tanh(s / cap)``) before the masks, with or
+    without a gradient.
     """
     _check(q, k, v)
     if _needs_grad(q, k, v):
-        if softcap > 0:
-            raise NotImplementedError(
-                "flash_attention: a logit softcap with a gradient: the "
-                "attention kernels with a cap serve only (no lse, no "
-                "backward); the training kernels are ROADMAP queue 1 "
-                "item 18")
         return FlashAttentionFn.apply(q, k, v, bool(causal), int(window),
-                                      int(q_offset))
+                                      int(q_offset), float(softcap))
     if q.device.type != "cuda":
         return gqa_plain(q, k, v, causal=causal, window=window,
                          q_offset=q_offset, softcap=softcap)

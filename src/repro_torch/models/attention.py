@@ -17,8 +17,9 @@ expanded case).  On the CPU they repeat k/v and run the reference's
 algorithm in plain PyTorch.  On a CUDA tensor they go to the
 hand-written attention kernel (``kernels/ops.py: gqa_flash_attention``)
 on the un-repeated k/v, which computes the same masked softmax (and the
-logit softcap, ``cap * tanh(s / cap)`` before the masks, in its serving
-forwards; a softcap with a gradient raises there).  The chunked function
+logit softcap, ``cap * tanh(s / cap)`` before the masks, with or without
+a gradient: each launch's ``FlashAttentionFn`` carries the cap into the
+capped backward kernels).  The chunked function
 and the causal banded one are one launch: under the causal mask the
 band holds every visible key.  Without it the band's right edge cuts
 keys off, and where it does depends on the chunking, so non-causal

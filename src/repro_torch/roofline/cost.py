@@ -193,6 +193,13 @@ def flash_softcap_bound_ms(qs, ks, esize, causal, window, q_offset):
     return by_exps, "operations", "exps", flops, 2 * exps
 
 
+# special-function operations a visible pair in each of K4's kernels
+# with a logit softcap: the exp (the forward's softmax, the backward's
+# recomputed P) and at least the exp inside the score's tanh; without a
+# cap, the exp alone
+SOFTCAP_SFU_PER_PAIR = 2
+
+
 # The work of K4's backward, per kernel and for the pair, that its bound
 # counts: D-long dots a visible (q, k) pair -- dq q.k, dO.v, dS.k; dkdv
 # q.k, dO.v, P.dO, dS.q; the pair's function the five distinct ones
@@ -219,24 +226,26 @@ FA_FWD_BF16_WORK = (2, {"q": 1, "kv": 2}, {"q": 2, "row": 1})
 
 
 def flash_bwd_bound_ms(qs, ks, dots, reads, writes, q_offset=0, causal=True,
-                       window=0):
+                       window=0, sfu_per_pair=1):
     """K4's f32 backward: least time for one kernel (or the pair, or the
-    forward): ``dots`` D-long f32 dot products (2*D flops each) and one
-    exp per visible (q, k) pair of a head, the f32 tensors it must read
+    forward): ``dots`` D-long f32 dot products (2*D flops each) and
+    ``sfu_per_pair`` special-function operations (one exp; with a
+    softcap ``SOFTCAP_SFU_PER_PAIR``) per visible (q, k) pair of a head,
+    the f32 tensors it must read
     and write once (``reads``, ``writes``: counts of q-sized, kv-sized
     and row-sized tensors) against HBM, on either of two routes: the
     flops on the CUDA cores (67 TFLOP/s f32), or in split TF32 on the
     tensor cores (three TF32 products a product at 494.7 TFLOP/s); exps
     at the SFU's rate on both.  The bound is the lesser route's.
     Returns a dict: ``ms``, ``by`` ("operations" or "bytes"), ``route``,
-    ``flops`` (f32), ``tf32_flops``, ``exps``, ``cuda_core_ms``,
-    ``tensor_ms``, ``bytes_ms``."""
+    ``flops`` (f32), ``tf32_flops``, ``exps`` (the special-function
+    operations), ``cuda_core_ms``, ``tensor_ms``, ``bytes_ms``."""
     b, s, h, d = qs
     t, hkv = ks[1], ks[2]
     pairs = b * h * visible_pairs(s, t, causal, window, q_offset)
     flops = 2 * d * dots * pairs
     tf32_flops = SPLIT_TF32_PRODUCTS * flops
-    by_exps = pairs / SFU_EXP_PER_S * 1e3
+    by_exps = sfu_per_pair * pairs / SFU_EXP_PER_S * 1e3
     sizes = {"q": b * s * h * d, "kv": b * t * hkv * d, "row": b * h * s}
     nbytes = 4 * sum(n * sizes[kind] for kind, n in
                      list(reads.items()) + list(writes.items()))
@@ -248,23 +257,25 @@ def flash_bwd_bound_ms(qs, ks, dots, reads, writes, q_offset=0, causal=True,
     return {"ms": max(ops, by_bytes),
             "by": "operations" if ops >= by_bytes else "bytes",
             "route": route, "flops": flops, "tf32_flops": tf32_flops,
-            "exps": pairs, "cuda_core_ms": max(cuda_ops, by_bytes),
+            "exps": sfu_per_pair * pairs,
+            "cuda_core_ms": max(cuda_ops, by_bytes),
             "tensor_ms": max(tensor_ops, by_bytes), "bytes_ms": by_bytes}
 
 
 def flash_bwd_bf16_bound_ms(qs, ks, dots, reads, writes, causal=True,
-                            window=0):
+                            window=0, sfu_per_pair=1):
     """K4's bf16 training kernels: least time for one kernel (or the
     pair, or the forward with lse): ``dots`` D-long dots (2*D flops
     each) a visible (q, k) pair of a head at the bf16 tensor-core rate,
-    one exp a pair at the SFU's rate, and the bf16 q- and kv-sized and
-    f32 row-sized tensors read and written once against HBM; the
-    larger."""
+    ``sfu_per_pair`` special-function operations a pair (one exp; with a
+    softcap ``SOFTCAP_SFU_PER_PAIR``) at the SFU's rate, and the bf16 q-
+    and kv-sized and f32 row-sized tensors read and written once against
+    HBM; the larger."""
     b, s, h, d = qs
     t, hkv = ks[1], ks[2]
     pairs = b * h * visible_pairs(s, t, causal, window, 0)
     flops = 2 * d * dots * pairs
-    by_exps = pairs / SFU_EXP_PER_S * 1e3
+    by_exps = sfu_per_pair * pairs / SFU_EXP_PER_S * 1e3
     esize = {"q": 2, "kv": 2, "row": 4}
     sizes = {"q": b * s * h * d, "kv": b * t * hkv * d, "row": b * h * s}
     nbytes = sum(n * sizes[kind] * esize[kind] for kind, n in
@@ -273,7 +284,7 @@ def flash_bwd_bf16_bound_ms(qs, ks, dots, reads, writes, causal=True,
     ops = max(flops / BF16_TENSOR_FLOPS_PER_S * 1e3, by_exps)
     return {"ms": max(ops, by_bytes),
             "by": "operations" if ops >= by_bytes else "bytes",
-            "flops": flops, "exps": pairs, "bytes": nbytes}
+            "flops": flops, "exps": sfu_per_pair * pairs, "bytes": nbytes}
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ the attention paths and the ring-cache decode (``tests/test_attention.py``):
 f32 softmax sums taken in another order.  On the CPU the kernel wrapper
 is its plain twin; that the CUDA branches hand the kernel un-repeated
 k/v, the softcap and (non-causal banded) the reference's bands of keys,
-and that a softcap with a gradient raises, is checked here by routing, and
+and that a softcap with a gradient reaches ``FlashAttentionFn`` with the
+cap, is checked here by routing, and
 the kernel itself is held against the twin on the card by
 ``chip_smoke.py``.  The bf16 tensor-core kernel's arithmetic (P split
 into two bf16 parts for P.V, exp2, 128-key tiles) is emulated here in
@@ -595,31 +596,46 @@ def test_kernel_route_receives_the_softcap(route, monkeypatch):
 
 
 def test_softcap_with_a_gradient_raises_before_any_launch(monkeypatch):
-    """The kernels with a cap serve only: a softcap with an input that
-    requires grad raises ``NotImplementedError`` naming the ROADMAP item
-    of the training kernels, on either device and through the model's
-    kernel route, before the library is loaded or a launch counted; the
-    kernel forward refuses a cap with lse.  Without grad the same call
-    is the twin's."""
+    """A softcap with an input that requires grad raises nothing now: on
+    the wrapper and through the model's kernel route it reaches
+    ``FlashAttentionFn`` with the cap beside the masks (on the CPU its
+    plain forward and backward, no library loaded, no launch counted),
+    and the gradients are autograd's of the capped twin (1e-4).  Without
+    grad the same call is the twin's and no Function runs."""
     def no_library():
         raise AssertionError("the library was asked for")
 
+    applied = []
+    real = fa.FlashAttentionFn.apply
+
+    def recording(*a):
+        applied.append(a[3:])
+        return real(*a)
+
     monkeypatch.setattr(fa, "_lib", no_library)
+    monkeypatch.setattr(fa.FlashAttentionFn, "apply", recording)
     monkeypatch.setattr(attn, "_kernel_route", lambda q: True)
     q, k, v = (torch.from_numpy(x) for x in _qkv(32, 1, 512, 4, 16))
+    q = 8.0 * q                              # scores of several caps
     before = fa.launches
     ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    with pytest.raises(NotImplementedError, match="item 18"):
-        fa.flash_attention(*ins, softcap=30.0)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        attn.attention(*ins, softcap=30.0, chunk_q=128, chunk_kv=128)
-    with pytest.raises(ValueError, match="softcap"):
-        fa._kernel_forward(q, k, v, True, 0, 0, with_lse=True, softcap=30.0)
+    cot = torch.from_numpy(_qkv(33, 1, 512, 4, 16)[0])
+    for out in (fa.flash_attention(*ins, softcap=3.0),
+                attn.attention(*ins, softcap=3.0, chunk_q=128,
+                               chunk_kv=128)):
+        got = torch.autograd.grad(out, ins, cot)
+        ref = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        want = torch.autograd.grad(fa.gqa_plain(*ref, softcap=3.0), ref, cot)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(
+                g, w, rtol=1e-4, atol=1e-4 * max(1.0, float(w.abs().max())))
+    assert applied == [(True, 0, 0, 3.0)] * 2
     assert fa.launches == before
     with torch.no_grad():
         got = attn.attention(*ins, softcap=30.0, chunk_q=128, chunk_kv=128)
     want = fa.gqa_plain(q, k, v, softcap=30.0)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert len(applied) == 2
 
 
 @pytest.mark.parametrize("window", [0, 64])

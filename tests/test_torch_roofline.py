@@ -227,6 +227,53 @@ def test_bounds_reproduce_perf_md(case):
     _printed(fn(), text)
 
 
+# the capped training kernels at llama3.2-1b's layer: the bf16 forward
+# with lse and dq are bound by their two SFU operations a pair, the
+# rest by their dots as without a cap
+SOFTCAP_PRINTED = {("bf16", "fwd_lse"): "0.0642", ("bf16", "dq"): "0.0642",
+                   ("bf16", "dkdv"): "0.0695", ("bf16", "pair"): "0.0869",
+                   ("f32", "fwd_lse"): "0.2085", ("f32", "dq"): "0.3127",
+                   ("f32", "dkdv"): "0.4169", ("f32", "pair"): "0.5212"}
+
+
+@pytest.mark.parametrize("dtype,kind", sorted(SOFTCAP_PRINTED))
+def test_softcap_training_bounds_count_two_sfu_operations_a_pair(dtype,
+                                                                 kind):
+    """K4's training kernels with a logit softcap: the dots and bytes of
+    the kernel without a cap, and two special-function operations a
+    visible pair (the exp, and the tanh's), against the SFU's rate; at
+    llama's training layer (2, 2048, 32, 64), kv 8, causal, as PERF.md
+    prints them."""
+    qs, ks = (2, 2048, 32, 64), (2, 2048, 8, 64)
+    bf16 = dtype == "bf16"
+    fn = cost.flash_bwd_bf16_bound_ms if bf16 else cost.flash_bwd_bound_ms
+    work = {w[0]: w[1:] for w in (
+        (cost.FA_BWD_BF16_WORK + (("fwd_lse",) + cost.FA_FWD_BF16_WORK,))
+        if bf16 else (cost.FA_BWD_WORK + (("fwd_lse",)
+                                          + cost.FA_FWD_WORK,)))}[kind]
+    plain = fn(qs, ks, *work)
+    capped = fn(qs, ks, *work, sfu_per_pair=cost.SOFTCAP_SFU_PER_PAIR)
+    pairs = 2 * 32 * cost.visible_pairs(2048, 2048, True, 0, 0)
+    assert cost.SOFTCAP_SFU_PER_PAIR == 2
+    assert plain["exps"] == pairs and capped["exps"] == 2 * pairs
+    assert capped["flops"] == plain["flops"] == 2 * 64 * work[0] * pairs
+    sfu_ms = 2 * pairs / cost.SFU_EXP_PER_S * 1e3
+    if bf16:
+        assert capped["bytes"] == plain["bytes"]
+        ops = max(plain["flops"] / cost.BF16_TENSOR_FLOPS_PER_S * 1e3,
+                  sfu_ms)
+        assert capped["ms"] == pytest.approx(
+            max(ops, capped["bytes"] / cost.HBM_BYTES_PER_S * 1e3))
+    else:
+        assert capped["bytes_ms"] == plain["bytes_ms"]
+        assert capped["ms"] == pytest.approx(max(
+            min(max(plain["flops"] / cost.F32_FLOPS_PER_S * 1e3, sfu_ms),
+                max(plain["tf32_flops"] / cost.TF32_TENSOR_FLOPS_PER_S
+                    * 1e3, sfu_ms)), capped["bytes_ms"]))
+    assert capped["ms"] >= plain["ms"]
+    _printed(capped["ms"], SOFTCAP_PRINTED[dtype, kind])
+
+
 def test_chip_smoke_prints_the_bounds_of_cost_py():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_for_roofline", ROOT / "chip_smoke.py")

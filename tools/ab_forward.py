@@ -15,8 +15,10 @@ the cold build):
         build/ab_c1.json build/ab_c2.json build/ab_p2.json
 
 ``--compare`` prints, per shape, each tree's best time and the change's
-ratio to the parent, and, per kernel both trees hold, whether its SASS
-is the same text (addresses and comments stripped).
+ratio to the parent, and, per kernel both trees hold (K1-K3, K4's
+forwards and both backward pairs), whether its SASS is the same text
+(addresses and comments stripped).  Run the change's copy of this tool
+for both trees: it reads the libraries each tree builds.
 Needs a GPU and ``nvcc``; imports neither ``jax`` nor the JAX package.
 """
 
@@ -44,9 +46,16 @@ SHAPES = (
     ("phi4-mini-f32", (1, 2048, 24, 128), (1, 2048, 8, 128), True, 0,
      "f32"),
 )
-# the kernels whose SASS both trees hold: K1-K3's single launches and
-# K4's forwards
-SASS_LIBRARIES = ("fedagg", "flash_attention")
+# the kernels whose SASS both trees hold: K1-K3's single launches, K4's
+# forwards and its two backward pairs
+SASS_LIBRARIES = ("fedagg", "flash_attention", "flash_attention_bwd",
+                  "flash_attention_bwd_tc")
+# K4's kernel families with a CAP flag, and the template arguments they
+# have with it (the flag the last): a family's instantiations without a
+# cap keep their key from before the flag
+CAP_FAMILIES = {"fa_fwd_f32_kernel": 3, "flash_attention_tc_kernel": 3,
+                "fa_bwd_dq_kernel": 2, "fa_bwd_dkdv_kernel": 2,
+                "fa_bwd_tc_dq_kernel": 2, "fa_bwd_tc_dkdv_kernel": 2}
 
 
 def _ms(fn, runs=7, per_run=10):
@@ -125,11 +134,11 @@ def measure(out: Path) -> None:
 
 def _by_template(funcs: dict) -> dict:
     """Kernels keyed by their name and integer / bool template arguments
-    (the parameter list left out), K4's ``CAP`` flag (a third argument,
-    added after the others) dropped where it is ``false`` and marked
-    ``+cap`` where it is ``true``: an instantiation without a cap keeps
-    its key across the flag's arrival, though its parameters grew by the
-    cap's scalars at the end."""
+    (the parameter list left out), K4's ``CAP`` flag (the last argument
+    of ``CAP_FAMILIES``, added after the others) dropped where it is
+    ``false`` and marked ``+cap`` where it is ``true``: an instantiation
+    without a cap keeps its key across the flag's arrival, though its
+    parameters grew by the cap's scalars at the end."""
     out = {}
     for name, text in funcs.items():
         m = re.match(r"(.*?I)((?:L[ib]\d+E)+)", name)
@@ -137,7 +146,10 @@ def _by_template(funcs: dict) -> dict:
             out[name] = text
             continue
         args = re.findall(r"L[ib]\d+E", m.group(2))
-        cap = len(args) == 3 and args.pop() == "Lb1E"
+        family = next((f for f in CAP_FAMILIES
+                       if m.group(1).endswith(f"{f}I")), None)
+        cap = len(args) == CAP_FAMILIES.get(family) \
+            and args.pop() == "Lb1E"
         out[m.group(1) + "".join(args) + ("+cap" if cap else "")] = text
     return out
 

@@ -22,7 +22,8 @@ otherwise or when a checked variant disagrees.
 
 Variants:
   v0             the committed kernels
-  masks_always   the masks on every tile and item (no interior path)
+  masks_always   the masks on every tile and item (no interior path;
+                 the kernels without a cap)
   one_part       P and dS as one bf16 part each (the lo products gone):
                  what the second part costs; not checked (it misses the
                  tolerance, tests/test_torch_k4_bf16_wgmma_bwd.py)
@@ -54,9 +55,10 @@ sys.path.insert(0, str(ROOT))
 OUT = ROOT / "build" / "k4_bwd_tc_variants"
 SOURCE = ROOT / "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu"
 
-DQ_INTERIOR = "                if (t0 + BK <= T && r0 + 64 <= S\n"
-KV_INTERIOR = ("            if (r0 + BM <= S && kw0 + 64 <= T "
-               "&& (!causal || kw0 + 63 <= p0)\n")
+# the interior tests of the kernels without a cap (a CAP tile caps every
+# score and tests for interior tiles itself)
+DQ_INTERIOR = "                } else if (t0 + BK <= T && r0 + 64 <= S\n"
+KV_INTERIOR = "            } else if (r0 + BM <= S && kw0 + 64 <= T\n"
 LO_PRODUCT = "        wgmma_rs_d<D, ROWS>(acc, lo[kk], s);\n"
 SEQUENTIAL = """                split_frags(s, hi, lo);
                 wgmma_fence();
@@ -327,6 +329,18 @@ VARIANTS = {
 }
 
 
+# the pair's softcap launches (flash_attention_bwd_tc_softcap.cu after
+# its include of flash_attention_bwd_tc.cu), appended to a variant's text
+CAPPED = (SOURCE.parent / "flash_attention_bwd_tc_softcap.cu").read_text() \
+    .split('#include "flash_attention_bwd_tc.cu"', 1)[1]
+
+
+def with_softcap(src):
+    """``src`` and, where it declares them, its softcap instantiations
+    (one translation unit)."""
+    return src + CAPPED if "fb_tc_dq_softcap" in src else src
+
+
 def patched(name):
     """The variant's source text."""
     return VARIANTS[name][0](SOURCE.read_text())
@@ -341,7 +355,7 @@ def build(sources):
     procs = {}
     for name, text in sources.items():
         cu = OUT / f"{name}.cu"
-        cu.write_text(text)
+        cu.write_text(with_softcap(text))
         procs[name] = subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-shared", "-Xptxas", "-v", "-o",
              str(OUT / f"lib{name}.so"), str(cu)],
@@ -438,14 +452,14 @@ def times(smoke, libs, names):
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     o_lo.data_ptr(), do.data_ptr(), lse.data_ptr(),
                     delta.data_ptr(), dq.data_ptr(), *args,
-                    torch.cuda.current_stream().cuda_stream)
+                    torch.cuda.current_stream().cuda_stream, 0.0)
 
             def dkdv_kernel():
                 lib.flash_attention_bwd_dkdv_bf16(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                     lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                     dv.data_ptr(), *args,
-                    torch.cuda.current_stream().cuda_stream)
+                    torch.cuda.current_stream().cuda_stream, 0.0)
 
             dq_kernel()                    # delta for the dkdv timing
             res[arch][name]["dq"].append(

@@ -2,7 +2,7 @@
 """Variants of K4's f32 backward kernels (dq, dkdv) on one GPU, timed in
 turns.
 
-    python3 tools/k4_bwd_variants.py [--only v0,rna,rnahi]
+    python3 tools/k4_bwd_variants.py [--only v0,rna,rnahi] [--scaled]
                                      [--baseline NAME=FILE.cu ...]
 
 Each variant is the committed ``src/repro_torch/kernels/csrc/
@@ -10,7 +10,10 @@ flash_attention_bwd.cu`` with text patches (and, with each
 ``--baseline``, another source of the same two entry points -- an
 earlier commit's kernels, say -- as the variant NAME), built with ``nvcc
 -Xptxas -v`` into ``build/k4_bwd_variants/``, all at once: registers and
-spills are printed.  Every variant goes through the wrapper
+spills are printed.  A source that declares the pair's softcap
+instantiations (the committed one, and so each variant) carries them:
+the launches of ``flash_attention_bwd_softcap.cu`` appended to its text
+(one translation unit).  Every variant goes through the wrapper
 (``FlashAttentionFn``) and ``chip_smoke.check_flash_bwd`` on edge cases
 of ``chip_smoke.py`` (with its head dims 80, 128 and 192:
 ``WIDE_HEAD_CASES``, ``WIDE_BWD_EDGE_CASES``) and the two training
@@ -22,7 +25,13 @@ launched directly, in turns: the variants in order, then reversed.  The
 last line of standard output is one JSON object of the times and the
 checks.  Needs one CUDA card and nvcc; exits non-zero otherwise or when
 a variant disagrees.  (The one-TF32-product fault is a mutant of
-``tools/block_grad_mutants.py``: ``fa_tf32_single``.)
+``tools/block_grad_mutants.py``: ``fa_tf32_single``.)  With
+``--scaled``, each variant's gradients at llama3.2-1b's training layer
+(q (2,2048,32,64), kv 8, causal), with the cap of 50 and without, on
+normal q scaled by 1 and by 100, through ``flash_attention`` (the
+committed forward with lse, the variant's pair): each gradient's max
+abs distance from autograd of the f32 twin and from an f64 answer, and
+the twin's from that answer (reported, not gated).
 
 Variants:
   v0        the committed kernels (hi = x with its low 13 mantissa bits
@@ -86,6 +95,17 @@ VARIANTS = {
 }
 
 
+# the pair's softcap launches (flash_attention_bwd_softcap.cu after its
+# include of flash_attention_bwd.cu), appended to a variant's text
+CAPPED = (SOURCE.parent / "flash_attention_bwd_softcap.cu").read_text() \
+    .split('#include "flash_attention_bwd.cu"', 1)[1]
+
+
+def with_softcap(src):
+    """``src`` and, where it declares them, its softcap instantiations."""
+    return src + CAPPED if "fb_dq_softcap" in src else src
+
+
 def patched(name):
     """The variant's source text."""
     src = SOURCE.read_text()
@@ -105,7 +125,7 @@ def build(sources):
     procs = {}
     for name, text in sources.items():
         cu = OUT / f"{name}.cu"
-        cu.write_text(text)
+        cu.write_text(with_softcap(text))
         procs[name] = subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-shared", "-Xptxas", "-v", "-o",
              str(OUT / f"lib{name}.so"), str(cu)],
@@ -118,10 +138,11 @@ def build(sources):
                              f"{out}")
         kernels = re.findall(
             r"Compiling entry function '_Z\d+(fa_bwd_\w+?_kernel)I"
-            r"((?:Li\d+E)+)E.*?(\d+) bytes spill stores.*?Used (\d+) "
+            r"((?:L[ib]\d+E)+)E.*?(\d+) bytes spill stores.*?Used (\d+) "
             r"registers", out, re.S)
         print(json.dumps({"variant": name, "ptxas": [
-            {"kernel": k, "template": re.findall(r"Li(\d+)E", args),
+            {"kernel": k + ("+cap" if "Lb1E" in args else ""),
+             "template": re.findall(r"Li(\d+)E", args),
              "spill_stores": int(sp), "registers": int(r)}
             for k, args, sp, r in kernels]}), flush=True)
         libs[name] = OUT / f"lib{name}.so"
@@ -210,14 +231,14 @@ def times(smoke, names):
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                     dq.data_ptr(), *args,
-                    torch.cuda.current_stream().cuda_stream)
+                    torch.cuda.current_stream().cuda_stream, 0.0)
 
             def dkdv_kernel():
                 lib.flash_attention_bwd_dkdv_f32(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                     lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                     dv.data_ptr(), *args,
-                    torch.cuda.current_stream().cuda_stream)
+                    torch.cuda.current_stream().cuda_stream, 0.0)
 
             dq_kernel()                    # delta for the dkdv timing
             res[arch][name]["dq"].append(
@@ -228,12 +249,90 @@ def times(smoke, names):
     return res
 
 
+# llama3.2-1b's training layer: (b, s, h, hkv, d), causal
+SCALED_SHAPE = (2, 2048, 32, 8, 64)
+SCALED_FACTORS = (1.0, 100.0)
+SCALED_CAPS = (50.0, 0.0)
+
+
+def f64_grads(q, k, v, do, cap):
+    """dq, dk, dv of causal GQA attention with the softcap ``cap`` (0:
+    none) in f64, one batch row at a time."""
+    import torch
+    h, d = q.shape[2], q.shape[3]
+    rep = h // k.shape[2]
+    out = ([], [], [])
+    for i in range(q.shape[0]):
+        qi, ki, vi = (x[i].double().movedim(1, 0).requires_grad_(True)
+                      for x in (q, k, v))
+        sc = torch.einsum("hsd,htd->hst", qi,
+                          ki.repeat_interleave(rep, 0)) / math.sqrt(d)
+        if cap > 0:
+            sc = torch.tanh(sc / cap) * cap
+        keep = torch.ones(sc.shape[1:], dtype=torch.bool,
+                          device=q.device).tril()
+        p = torch.softmax(sc.masked_fill(~keep, float("-inf")), dim=-1)
+        o = torch.einsum("hst,htd->hsd", p, vi.repeat_interleave(rep, 0))
+        g = torch.autograd.grad(o, (qi, ki, vi),
+                                do[i].double().movedim(1, 0))
+        for acc, x in zip(out, g):
+            acc.append(x.movedim(0, 1))
+        del sc, p, o, g
+    return [torch.stack(x) for x in out]
+
+
+def scaled(smoke, names):
+    """Per variant, cap and q factor: each gradient's max abs distance
+    from the f32 twin's (autograd of ``gqa_plain``) and from an f64
+    answer, and the twin's from it."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, hkv, d = SCALED_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    q, do = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+             for _ in "qd")
+    k, v = (torch.randn(b, s, hkv, d, generator=gen, device="cuda")
+            for _ in "kv")
+    res = {}
+    for factor in SCALED_FACTORS:
+        qs = q * factor
+        for cap in SCALED_CAPS:
+            exact = f64_grads(qs, k, v, do, cap)
+            ref = [x.detach().requires_grad_(True) for x in (qs, k, v)]
+            twin = torch.autograd.grad(fa.gqa_plain(*ref, softcap=cap), ref,
+                                       do)
+            key = f"q_x{factor:g}_cap{cap:g}"
+            res[key] = {"twin_vs_f64": {
+                t: float((a.double() - e).abs().max())
+                for t, a, e in zip(("dq", "dk", "dv"), twin, exact)},
+                "f64_max": {t: float(e.abs().max())
+                            for t, e in zip(("dq", "dk", "dv"), exact)}}
+            for name in names:
+                use(OUT / f"lib{name}.so")
+                ins = [x.detach().requires_grad_(True) for x in (qs, k, v)]
+                got = torch.autograd.grad(
+                    fa.flash_attention(*ins, softcap=cap), ins, do)
+                res[key][name] = {
+                    t: {"vs_twin": float((a - w).abs().max()),
+                        "vs_f64": float((a.double() - e).abs().max())}
+                    for t, a, w, e in zip(("dq", "dk", "dv"), got, twin,
+                                          exact)}
+            print(json.dumps({"scaled": key, **res[key]}), flush=True)
+            del exact, twin
+            torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default=",".join(VARIANTS),
                     help="comma-separated variants (default: all)")
     ap.add_argument("--baseline", action="append", default=[],
                     help="NAME=FILE.cu: another source as variant NAME")
+    ap.add_argument("--scaled", action="store_true",
+                    help="the gradients on q x 1 and x 100 at llama's "
+                         "training layer, with and without the cap, "
+                         "against the twin and an f64 answer")
     args = ap.parse_args(argv)
     names = [n for n in args.only.split(",") if n]
     unknown = [n for n in names if n not in VARIANTS]
@@ -260,8 +359,10 @@ def main(argv=None) -> int:
     build(sources)
     checks, ok = check(smoke, list(sources))
     res = times(smoke, list(sources))
-    print(json.dumps({"card": card, "checks": checks, "ms_turns": res}),
-          flush=True)
+    sc = scaled(smoke, list(sources)) if args.scaled else {}
+    print(card, flush=True)
+    print(json.dumps({"card": card, "checks": checks, "ms_turns": res,
+                      "scaled": sc}), flush=True)
     return 0 if ok else 1
 
 

@@ -2,7 +2,7 @@
 """Variants of the bf16 attention kernel (K4) on one GPU, timed in turns.
 
     python3 tools/k4_variants.py [--only v0,bq192,...] [--prefill]
-                                 [--shapes narrow|wide|all]
+                                 [--shapes narrow|wide|all] [--scaled]
                                  [--baseline NAME=FILE.cu ...]
 
 Each variant is the committed ``src/repro_torch/kernels/csrc/
@@ -28,7 +28,15 @@ when a checked variant disagrees.  The ``serial`` consumer and the
 192-row block keep the head-dim-64 tiling (128-key tiles, one 64-column
 block): those variants are checked and timed at D <= 64 only.  The
 others, ``WIDE`` below, also run ``chip_smoke.WIDE_HEAD_CASES`` and the
-wide shapes.
+wide shapes.  v0 and the f32 variants are built with their own softcap
+instantiations (``flash_attention_softcap.cu``'s launches appended to
+the variant's text); every other source gets a stub that refuses a cap.
+With ``--scaled``, v0 and each f32 variant run the f32 softcap forward
+at llama3.2-1b's serving layer (q (2,4096,32,64), kv 8, causal, cap 50)
+on normal q scaled by 1 and by 100 (``chip_smoke._scaled_q_errors``:
+its distance from the f32 twin and from an f64 answer, the twin's from
+that answer), and time it and the forward without a cap there, in
+turns.
 
 Variants:
   v0                  the committed kernel (softmax under the previous
@@ -61,6 +69,12 @@ Variants:
   keys64              (D = 192) 64-key tiles in a 3-stage ring
   f32_keys32          the f32 kernel at D = 192 on 32-key tiles
   f32_unroll2         the f32 kernel above D = 64, S's k-steps unrolled 2
+  f32_rna             the f32 kernel's split TF32 rounded to nearest: hi =
+                      cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi) (v0: hi
+                      by masking, lo passed whole and truncated by the
+                      TF32 product; both cuts toward zero)
+  f32_rnahi           hi rounded to nearest by an integer add before the
+                      mask, lo = x - hi passed whole (of either sign)
   no_softmax          (ablation) products, no softmax
   no_products         (ablation) softmax on stale scores, no products
   loads_only          (ablation) the TMA ring and barriers alone
@@ -689,6 +703,26 @@ def f32_unroll2(src):
     return replace(src, "#define FA_WIDE_UNROLL 4", "#define FA_WIDE_UNROLL 2")
 
 
+# fa_split_tf32's body, and its two round-to-nearest versions
+SPLIT = """    hi = __float_as_uint(x) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi));"""
+SPLIT_RNA = """    asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));
+    const float rest = x - __uint_as_float(hi);
+    asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(rest));"""
+SPLIT_RNA_HI = """    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi));"""
+
+
+def f32_rna(src):
+    """The f32 kernel's split: hi and lo each rounded to nearest."""
+    return replace(src, SPLIT, SPLIT_RNA)
+
+
+def f32_rnahi(src):
+    """The f32 kernel's split: hi rounded to nearest, lo whole."""
+    return replace(src, SPLIT, SPLIT_RNA_HI)
+
+
 def remote_arrivals(src):
     """``multicast`` with the stage freed by the consumers' own warps:
     each arrives on both CTAs' empty barriers (lane 0 of a warp, a
@@ -766,6 +800,8 @@ VARIANTS = {
     "keys64": ((keys64,), (), TOL),
     "f32_keys32": ((f32_keys32,), (), TOL),
     "f32_unroll2": ((f32_unroll2,), (), TOL),
+    "f32_rna": ((f32_rna,), (), TOL),
+    "f32_rnahi": ((f32_rnahi,), (), TOL),
     "no_softmax": ((ablations,), ("-DABL_NOSOFTMAX",), None),
     "no_products": ((ablations,), ("-DABL_NOQK", "-DABL_NOPV"), None),
     "loads_only": ((ablations,), ("-DABL_NOQK", "-DABL_NOPV",
@@ -782,10 +818,10 @@ WIDE = ("v0", "p_single", "overlap", "pingpong_branching", "all_lanes",
         "stages4", "l2_256", "multicast", "multicast_loads_only",
         "remote_arrivals", "remote_arrivals_no_mc", "no_multicast", "depth2",
         "rescale_under_qk", "keys64", "f32_keys32", "f32_unroll2",
-        "no_softmax", "no_products", "loads_only")
+        "f32_rna", "f32_rnahi", "no_softmax", "no_products", "loads_only")
 # the variants that change the f32 kernel: also checked in f32 and timed
 # at the f32 training shapes
-F32 = ("f32_keys32", "f32_unroll2")
+F32 = ("f32_keys32", "f32_unroll2", "f32_rna", "f32_rnahi")
 
 
 def build(names, baselines=None):
@@ -793,12 +829,22 @@ def build(names, baselines=None):
     in parallel; name -> (library, ptxas lines)."""
     from repro_torch.kernels import _build
     committed = (_build.CSRC / "flash_attention.cu").read_text()
-    # the variants time the kernels without a cap: the library's second
-    # unit (flash_attention_softcap.cu) is left out, its entry refusing
-    softcap_unit = """
+    # v0 and the f32 variants carry their own softcap instantiations:
+    # the launches of the library's second unit appended to the
+    # variant's text (one translation unit); every other source a stub
+    # refusing a cap, in the entry's signature since the cap took lse
+    # and in the one before
+    capped = (_build.CSRC / "flash_attention_softcap.cu").read_text() \
+        .split('#include "flash_attention.cu"', 1)[1]
+    stub = """
 int fa_fwd_softcap(const void*, const void*, const void*, void*, int, int,
                    int, int, int, int, int, const long long*, int, int, int,
                    float, cudaStream_t, float) {
+    return (int)cudaErrorNotSupported;
+}
+int fa_fwd_softcap(const void*, const void*, const void*, void*, int, int,
+                   int, int, int, int, int, const long long*, int, int, int,
+                   float, cudaStream_t, float, float*, void*) {
     return (int)cudaErrorNotSupported;
 }
 """
@@ -811,7 +857,7 @@ int fa_fwd_softcap(const void*, const void*, const void*, void*, int, int,
         for patch in patches:
             src = patch(src)
         cu = OUT / f"{name}.cu"
-        cu.write_text(src + softcap_unit)
+        cu.write_text(src + (capped if name in ("v0", *F32) else stub))
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *defines,
              "-Xptxas", "-v", "-o", str(OUT / f"lib{name}.so"), str(cu)],
@@ -882,6 +928,40 @@ def cases(gen):
     ]
 
 
+# llama3.2-1b's serving layer, f32: (b, s, h, hkv, d), causal, cap 50
+SCALED_SHAPE = (2, 4096, 32, 8, 64)
+SCALED_FACTORS = (1.0, 100.0)
+
+
+def scaled_rows(smoke, libs, names, gen):
+    """Per variant: the f32 softcap forward's errors on q x 1 and x 100
+    (``smoke._scaled_q_errors``), and the capped and uncapped f32
+    forwards timed at the layer in turns."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, hkv, d = SCALED_SHAPE
+    q = torch.randn(b, s, h, d, generator=gen, device="cuda")
+    k, v = (torch.randn(b, s, hkv, d, generator=gen, device="cuda")
+            for _ in "kv")
+    out = {}
+    for name in names:
+        use(libs[name][0])
+        out[name] = {"errors": [smoke._scaled_q_errors(q, k, v, f)
+                                for f in SCALED_FACTORS],
+                     "ms": [], "without_cap_ms": []}
+        print(json.dumps({"variant": name, **out[name]}), flush=True)
+    for name in names + names[::-1]:
+        use(libs[name][0])
+        out[name]["ms"].append(smoke.median_ms(
+            lambda: fa.flash_attention(q, k, v, softcap=smoke.SERVE_SOFTCAP),
+            runs=5, per_run=5))
+        out[name]["without_cap_ms"].append(smoke.median_ms(
+            lambda: fa.flash_attention(q, k, v), runs=5, per_run=5))
+    print(json.dumps({"scaled_ms": {n: [out[n]["ms"], out[n]["without_cap_ms"]]
+                                    for n in names}}), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -895,6 +975,10 @@ def main(argv=None) -> int:
                     help="time at head dim 64, at 128 and 192, or both")
     ap.add_argument("--baseline", action="append", default=[],
                     help="NAME=FILE.cu: another source as variant NAME")
+    ap.add_argument("--scaled", action="store_true",
+                    help="the f32 softcap forward on q x 1 and x 100 at "
+                         "llama's serving layer, against the twin and "
+                         "an f64 answer, and timed (v0, f32 variants)")
     args = ap.parse_args(argv)
     names = ["v0"] + [n for n in args.only.split(",") if n and n != "v0"]
     unknown = [n for n in names if n not in VARIANTS]
@@ -978,6 +1062,10 @@ def main(argv=None) -> int:
             times[shape].setdefault(name, []).append(chip_smoke.median_ms(
                 call, runs=5, per_run=10))
         print(json.dumps({"shape": shape, "ms": times[shape]}), flush=True)
+    scaled = {}
+    if args.scaled:
+        scaled = scaled_rows(chip_smoke, libs, [n for n in names
+                                                if n in ("v0", *F32)], gen)
     prefill = {}
     if args.prefill:
         cfg, params = chip_smoke._lm_params("hymba-1.5b", torch.bfloat16)
@@ -990,7 +1078,7 @@ def main(argv=None) -> int:
                       flush=True)
     print(card, flush=True)
     print(json.dumps({"card": card, "failed": bad, "ms": times,
-                      "prefill_vs_f32": prefill}))
+                      "prefill_vs_f32": prefill, "scaled": scaled}))
     return 1 if bad else 0
 
 
