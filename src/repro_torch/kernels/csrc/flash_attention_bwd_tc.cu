@@ -469,26 +469,8 @@ fa_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                 // only on a tile that cuts a band edge or holds keys past
                 // T or rows past S (an interior tile's every key is seen
                 // by every one of the 64 rows).  CAP: every score capped,
-                // and P (1 - t^2) in P's place
-                if constexpr (CAP) {
-                    const bool interior = t0 + BK <= T && r0 + 64 <= S
-                        && (!causal || t0 + BK - 1 <= pa)
-                        && (window <= 0 || t0 >= pa + 64 - window);
-#pragma unroll
-                    for (int i = 0; i < 32; ++i) {
-                        const int key = t0 + 8 * (i >> 2) + 2 * (lane & 3)
-                                        + (i & 1);
-                        const bool rb_ = (i >> 1) & 1;
-                        const bool vis = interior
-                            || (rb_ ? key >= lo_b && key < hi_b
-                                    : key >= lo_a && key < hi_a);
-                        const float th = tanhf(s[i] * sc_cap);
-                        const float c = cap_log2 * th;
-                        s[i] = vis ? ex2(c - (rb_ ? lse_b : lse_a))
-                                         * (1.0f - th * th)
-                                   : 0.0f;
-                    }
-                } else if (t0 + BK <= T && r0 + 64 <= S
+                // an interior tile's too, and P (1 - t^2) in P's place
+                if (!CAP && t0 + BK <= T && r0 + 64 <= S
                         && (!causal || t0 + BK - 1 <= pa)
                         && (window <= 0 || t0 >= pa + 64 - window)) {
 #pragma unroll
@@ -503,9 +485,17 @@ fa_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const bool rb_ = (i >> 1) & 1;
                         const bool vis = rb_ ? key >= lo_b && key < hi_b
                                              : key >= lo_a && key < hi_a;
-                        s[i] = vis ? ex2(fmaf(s[i], scale_log2,
-                                              -(rb_ ? lse_b : lse_a)))
-                                   : 0.0f;
+                        if constexpr (CAP) {
+                            const float th = tanhf(s[i] * sc_cap);
+                            s[i] = vis ? ex2(cap_log2 * th
+                                             - (rb_ ? lse_b : lse_a))
+                                             * (1.0f - th * th)
+                                       : 0.0f;
+                        } else {
+                            s[i] = vis ? ex2(fmaf(s[i], scale_log2,
+                                                  -(rb_ ? lse_b : lse_a)))
+                                       : 0.0f;
+                        }
                     }
                 }
                 wgmma_wait<0>();
@@ -704,38 +694,15 @@ fa_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
             uint32_t blind = 0;     // bit e: its row sees no key
             const int p0 = q_offset + r0;
             if constexpr (CAP) {
-                // both products waited on; P^T in S^T's place and dS^T
-                // in dP^T's, from one t an element
+                // both products waited on: P^T in S^T's place and dS^T
+                // in dP^T's, from one t an element, on every item
                 wgmma_wait<0>();
                 fence_regs(s);
                 fence_regs(dp);
-                const bool interior = r0 + BM <= S && kw0 + 64 <= T
+            }
+            if (!CAP && r0 + BM <= S && kw0 + 64 <= T
                     && (!causal || kw0 + 63 <= p0)
-                    && (window <= 0 || kw0 > p0 + BM - 1 - window);
-#pragma unroll
-                for (int e = 0; e < 32; ++e) {
-                    const int col = 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
-                    const int row = r0 + col;
-                    const int p = q_offset + row;
-                    const int key = ((e >> 1) & 1) ? key_b : key_a;
-                    const bool in = row < S && key < T;
-                    const bool none = !interior && window > 0
-                                      && p >= p_blind;
-                    const bool vis = interior
-                        || (in && (!causal || key <= p)
-                            && (window <= 0 || key > p - window));
-                    const float th = tanhf(s[e] * sc_cap);
-                    const float c = cap_log2 * th;
-                    const float pe = none ? (in ? inv_t : 0.0f)
-                                          : vis ? ex2(c - lse_c[col]) : 0.0f;
-                    dp[e] = none ? 0.0f
-                                 : pe * (dp[e] - dl_c[col])
-                                       * (1.0f - th * th);
-                    s[e] = pe;
-                }
-            } else if (r0 + BM <= S && kw0 + 64 <= T
-                       && (!causal || kw0 + 63 <= p0)
-                       && (window <= 0 || kw0 > p0 + BM - 1 - window)) {
+                    && (window <= 0 || kw0 > p0 + BM - 1 - window)) {
 #pragma unroll
                 for (int e = 0; e < 32; ++e) {
                     const int col = 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
@@ -752,11 +719,21 @@ fa_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const bool none = window > 0 && p >= p_blind;
                     const bool vis = in && (!causal || key <= p)
                                      && (window <= 0 || key > p - window);
-                    blind |= (uint32_t)(none && row < S) << e;
-                    s[e] = none ? (in ? inv_t : 0.0f)
-                                : vis ? ex2(fmaf(s[e], scale_log2,
-                                                 -lse_c[col]))
-                                      : 0.0f;
+                    if constexpr (CAP) {
+                        const float th = tanhf(s[e] * sc_cap);
+                        s[e] = none ? (in ? inv_t : 0.0f)
+                                    : vis ? ex2(cap_log2 * th - lse_c[col])
+                                          : 0.0f;
+                        dp[e] = none ? 0.0f
+                                     : s[e] * (dp[e] - dl_c[col])
+                                           * (1.0f - th * th);
+                    } else {
+                        blind |= (uint32_t)(none && row < S) << e;
+                        s[e] = none ? (in ? inv_t : 0.0f)
+                                    : vis ? ex2(fmaf(s[e], scale_log2,
+                                                     -lse_c[col]))
+                                          : 0.0f;
+                    }
                 }
             }
             // dS^T in dP^T's place

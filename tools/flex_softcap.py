@@ -14,10 +14,15 @@ pair through ``flash_attention`` with grad).  Every call is also held
 against the plain twin (``gqa_plain``, autograd of it for gradients):
 its max abs error is reported beside the tolerance of
 ``chip_smoke.py`` (FA_TOL for outputs, the backward tolerances for
-gradients), not gated.  The compiles take tens of seconds a dtype,
-which is why this is a tool of its own and not a phase of
-``chip_smoke.py``; their caches go under ``build/``.  Times are CUDA
-events (``chip_smoke.median_ms``).  The last line of standard output
+gradients), not gated.  ``chip_smoke.py`` times the same yardstick
+(``chip_smoke._flex_softcap``) for its kernels line: the serving
+forward, and at the training layer the forward under grad and the
+backward alone, its compiles loaded from caches that a worker fills
+while the kernels build.  This tool adds the forward without grad at
+the training layer, forward and backward together beside the kernels',
+and each compile's seconds from cold caches (under ``build/``:
+``chip_smoke.FLEX_ENV``).  Times are CUDA events
+(``chip_smoke.median_ms``).  The last line of standard output
 is one JSON object of the rows; the line before it the card as
 ``nvidia-smi`` names it.  Needs one CUDA card; imports neither ``jax``
 nor the JAX package.
@@ -42,36 +47,6 @@ LAYERS = (("llama3.2-1b serving", 2, 4096, 32, 8, 64, False),
           ("llama3.2-1b training", 2, 2048, 32, 8, 64, True))
 
 
-def flex_softcap(q, k, v, cap):
-    """``flex_attention`` compiled for q, k, v of shape (B, S, H, D):
-    tanh ``score_mod``, causal block mask, ``enable_gqa``.  Returns the
-    call (q, k, v in that layout -> output (B, S, H, D)) and the seconds
-    of its first call, the compile included."""
-    import torch
-    from torch.nn.attention.flex_attention import (create_block_mask,
-                                                   flex_attention)
-
-    def score_mod(score, b, h, q_idx, kv_idx):
-        return cap * torch.tanh(score / cap)
-
-    def causal(b, h, q_idx, kv_idx):
-        return q_idx >= kv_idx
-
-    mask = create_block_mask(causal, None, None, q.shape[1], k.shape[1],
-                             device="cuda")
-    compiled = torch.compile(flex_attention, dynamic=False)
-
-    def call(q_, k_, v_):
-        return compiled(q_.transpose(1, 2), k_.transpose(1, 2),
-                        v_.transpose(1, 2), score_mod=score_mod,
-                        block_mask=mask, enable_gqa=True).transpose(1, 2)
-
-    t0 = time.perf_counter()
-    call(q, k, v)
-    torch.cuda.synchronize()
-    return call, time.perf_counter() - t0
-
-
 def _err(got, want):
     return float((got.float() - want.float()).abs().max())
 
@@ -84,7 +59,7 @@ def layer_row(name, b, s, h, hkv, d, backward, dtype, gen):
              .to(dtype) for _ in "qd")
     k, v = (torch.randn(b, s, hkv, d, generator=gen, device="cuda")
             .to(dtype) for _ in "kv")
-    call, compile_s = flex_softcap(q, k, v, CAP)
+    call, compile_s = smoke._flex_softcap(q, k, v, CAP)
     want = fa.gqa_plain(q.float(), k.float(), v.float(), softcap=CAP)
     row = {"layer": name, "dtype": str(dtype)[6:], "q": [b, s, h, d],
            "k": [b, s, hkv, d], "causal": True, "softcap": CAP,
@@ -132,9 +107,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("flex_softcap: no CUDA device", file=sys.stderr)
         return 1
-    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
-                          str(ROOT / "build" / "inductor"))
-    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+    import chip_smoke as smoke
+    for key, value in smoke.FLEX_ENV.items():
+        os.environ.setdefault(key, value)
     from repro_torch import set_full_f32
     set_full_f32()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

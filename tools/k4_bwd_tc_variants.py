@@ -55,10 +55,10 @@ sys.path.insert(0, str(ROOT))
 OUT = ROOT / "build" / "k4_bwd_tc_variants"
 SOURCE = ROOT / "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu"
 
-# the interior tests of the kernels without a cap (a CAP tile caps every
-# score and tests for interior tiles itself)
-DQ_INTERIOR = "                } else if (t0 + BK <= T && r0 + 64 <= S\n"
-KV_INTERIOR = "            } else if (r0 + BM <= S && kw0 + 64 <= T\n"
+# the interior tests (a CAP tile or item never takes the interior path:
+# it caps every score on the masked one)
+DQ_INTERIOR = "                if (!CAP && t0 + BK <= T && r0 + 64 <= S\n"
+KV_INTERIOR = "            if (!CAP && r0 + BM <= S && kw0 + 64 <= T\n"
 LO_PRODUCT = "        wgmma_rs_d<D, ROWS>(acc, lo[kk], s);\n"
 SEQUENTIAL = """                split_frags(s, hi, lo);
                 wgmma_fence();
@@ -318,8 +318,10 @@ def overlap(src):
 VARIANTS = {
     "v0": (lambda src: src, True),
     "masks_always": (lambda src: replace(
-        replace(src, DQ_INTERIOR, DQ_INTERIOR.replace("if (", "if (false && ")),
-        KV_INTERIOR, KV_INTERIOR.replace("if (", "if (false && ")), True),
+        replace(src, DQ_INTERIOR,
+                DQ_INTERIOR.replace("if (!CAP && ", "if (false && ")),
+        KV_INTERIOR, KV_INTERIOR.replace("if (!CAP && ", "if (false && ")),
+        True),
     "one_part": (lambda src: replace(src, LO_PRODUCT, ""), False),
     "both_products": (lambda src: replace(src, SEQUENTIAL, BOTH), True),
     "overlap": (overlap, True),

@@ -946,7 +946,7 @@ def scaled_rows(smoke, libs, names, gen):
     out = {}
     for name in names:
         use(libs[name][0])
-        out[name] = {"errors": [smoke._scaled_q_errors(q, k, v, f)
+        out[name] = {"errors": [smoke._scaled_q_errors(q, k, v, f, False)
                                 for f in SCALED_FACTORS],
                      "ms": [], "without_cap_ms": []}
         print(json.dumps({"variant": name, **out[name]}), flush=True)
