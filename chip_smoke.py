@@ -6781,7 +6781,10 @@ def fedagg_rows_checks():
     8,192 equal the unpadded 5,000 bit for bit; (d) at 4,097 and 8,192
     rows each kernel is within RTOL/ATOL of its plain twin.  Then each
     kernel's ms at 8,192 rows beside its plain twin (one call), its
-    library yardstick and roofline/cost.py's bound."""
+    library yardstick and roofline/cost.py's bound (``_rows_times``);
+    the single launch at 4,096 rows beside its library call; and at the
+    row width of resnet8-cifar10's tree (``resnet8_p``: the vec = 2
+    path) (b) again and the times."""
     import torch
     from repro_torch.kernels import fedagg as fa
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -6802,7 +6805,7 @@ def fedagg_rows_checks():
     def padded(x, live, n):
         return torch.cat([x[:live], zeros[:n - live]])
 
-    out, tiled = {"p": ROWS_P, "single_launch_rows": single}, 0
+    out = {"p": ROWS_P, "single_launch_rows": single}
     # (b) appended zero-coefficient rows change no bit
     calls = []
     for n in (single + 1, n_max):
@@ -6826,7 +6829,6 @@ def fedagg_rows_checks():
                      f"times, {n} rows {t1}")
             _bitwise(f"{name} (b): {single} rows padded to {n}", got, want)
             calls.append(f"{name}:{single}->{n}")
-            tiled += t1
     out["b_appended_zero_rows_bitwise"] = calls
     # (c) 5,000 live rows padded to 8,192
     calls = []
@@ -6847,7 +6849,6 @@ def fedagg_rows_checks():
         _bitwise(f"{name} (c): {ROWS_LIVE} live rows padded to {n_max}",
                  got, want)
         calls.append(f"{name}:{ROWS_LIVE}->{n_max}")
-        tiled += 2
     out["c_live_rows_padded_bitwise"] = calls
     # (d) within the K1-K3 tolerance of the plain twins
     errs = {}
@@ -6858,45 +6859,108 @@ def fedagg_rows_checks():
                                               c[:n])["max_abs_err"]
         errs[f"fedagg_partial_{n}"] = check_partial(f"rows-{n}", u[:n],
                                                     c3[:n])["max_abs_err"]
-        tiled += 3
     out["d_max_abs_err_vs_plain"] = errs
     out["tolerance"] = {"rtol": RTOL, "atol": ATOL}
     # the times at 8,192 rows (4.3 GB: no copies needed to miss the L2)
+    out["at_8192_rows"] = _rows_times(u, g, w, c, c3, ROWS_P)
+    # the single launch at 4,096 rows beside it, on the same buffer
+    eff = w[:single] / w[:single].sum()
+    ms = median_ms(lambda: fa.fedagg(u[:single], w[:single]), warmup=2,
+                   runs=5, per_run=5)
+    bound = fedagg_bound_ms(w[:single], ROWS_P)
+    out["fedagg_at_4096"] = {
+        "ms": ms, "library": "matmul",
+        "library_ms": median_ms(lambda: torch.matmul(eff, u[:single]),
+                                warmup=2, runs=5, per_run=5),
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "share_of_bound": bound[0] / ms}
+    del u
+    torch.cuda.empty_cache()
+    # the paper's cross-device width: resnet8-cifar10's tree (an odd
+    # count of float2s: the vec = 2 path), (b) bit for bit, then timed
+    p8 = resnet8_p()
+    u = torch.randn(n_max, p8, generator=gen, device="cuda")
+    u[single + 3] = float("inf")
+    u[n_max - 1] = float("nan")
+    g = torch.randn(p8, generator=gen, device="cuda")
+    calls = []
+    for name, base, pad in (
+            ("fedagg", lambda: fa.fedagg(u[:single], w[:single],
+                                         alphas=a[:single]),
+             lambda: fa.fedagg(u, padded(w, single, n_max), alphas=a)),
+            ("fedagg_fold", lambda: fa.fedagg_fold(u[:single - 1], g,
+                                                   c[:single]),
+             lambda: fa.fedagg_fold(u[:n_max - 1], g,
+                                    padded(c, single, n_max))),
+            ("fedagg_partial", lambda: fa.fedagg_partial(u[:single],
+                                                         c3[:single]),
+             lambda: fa.fedagg_partial(u, padded(c3, single, n_max)))):
+        want, t0 = _tiled_calls(base)
+        got, t1 = _tiled_calls(pad)
+        if (t0, t1) != (0, 1):
+            fail(f"{name} at p {p8}: tiled calls {t0}, {t1}")
+        _bitwise(f"{name} (b) at p {p8}: {single} rows padded to {n_max}",
+                 got, want)
+        calls.append(f"{name}:{single}->{n_max}")
+    out["resnet8_p"] = p8
+    out["b_at_resnet8_width_bitwise"] = calls
+    out["at_8192_rows_resnet8_width"] = _rows_times(u, g, w, c, c3, p8)
+    del u
+    torch.cuda.empty_cache()
+    return out
+
+
+def resnet8_p() -> int:
+    """Floats in the resnet8-cifar10 tree as the port builds it
+    (``init_cnn``): the aggregation's row width for that model."""
+    import torch
+    from repro_torch.config.base import get_arch
+    from repro_torch.models.cnn import init_cnn
+
+    def count(t):
+        if isinstance(t, torch.Tensor):
+            return t.numel()
+        if isinstance(t, dict):
+            return sum(count(x) for x in t.values())
+        return sum(count(x) for x in t)
+    return count(init_cnn(get_arch("resnet8-cifar10"),
+                          torch.Generator().manual_seed(0), device="cpu"))
+
+
+def _rows_times(u, g, w, c, c3, p):
+    """Each tiled kernel's ms on 8,192 rows of ``u`` (8,191 for K2)
+    beside its plain twin (one call), its library yardstick and
+    roofline/cost.py's bound."""
+    import torch
+    from repro_torch.kernels import fedagg as fa
+    n_max = u.shape[0]
     live_c = c[1:n_max].clone()
     k2_c = c[:n_max]
     eff = w / w.sum()
     cases = {
         "fedagg": (lambda: fa.fedagg(u, w), lambda: fa.fedagg_plain(u, w),
                    lambda: torch.matmul(eff, u), "matmul",
-                   fedagg_bound_ms(w, ROWS_P)),
+                   fedagg_bound_ms(w, p)),
         "fedagg_fold": (lambda: fa.fedagg_fold(u[:n_max - 1], g, k2_c),
                         lambda: fa.fedagg_fold_plain(u[:n_max - 1], g, k2_c),
                         lambda: torch.addmv(g, u[:n_max - 1].t(), live_c),
-                        "addmv", fold_bound_ms(k2_c, ROWS_P)),
+                        "addmv", fold_bound_ms(k2_c, p)),
         "fedagg_partial": (lambda: fa.fedagg_partial(u, c3),
                            lambda: fa.fedagg_partial_plain(u, c3),
                            lambda: torch.mv(u.t(), c3), "mv",
-                           partial_bound_ms(c3, ROWS_P))}
+                           partial_bound_ms(c3, p))}
     times = {}
     for name, (kernel, plain, library, lib_name, bound) in cases.items():
         ms = median_ms(kernel, warmup=2, runs=5, per_run=5)
+        lib_ms = median_ms(library, warmup=2, runs=5, per_run=5)
         times[name] = {"rows": n_max if name != "fedagg_fold"
-                       else n_max - 1, "ms": ms,
+                       else n_max - 1, "p": p, "ms": ms,
                        "plain_ms": _once_ms(plain),
-                       "library_ms": median_ms(library, warmup=2, runs=5,
-                                               per_run=5),
-                       "library": lib_name, "bound_ms": bound[0],
-                       "bound_by": bound[1],
+                       "library_ms": lib_ms, "library": lib_name,
+                       "over_library": ms / lib_ms,
+                       "bound_ms": bound[0], "bound_by": bound[1],
                        "share_of_bound": bound[0] / ms}
-        tiled += 2 + 5 * 5
-    out["at_8192_rows"] = times
-    # the single launch at 4,096 rows beside it, on the same buffer
-    out["fedagg_at_4096_ms"] = median_ms(
-        lambda: fa.fedagg(u[:single], w[:single]), warmup=2, runs=5,
-        per_run=5)
-    del u
-    torch.cuda.empty_cache()
-    return out
+    return times
 
 
 # An FL run past the cap: FedAvg on SyntheticCohortTrainer with every
@@ -7093,15 +7157,24 @@ SOFTCAP_MASKS = ((1, 200, 200, 4, 2, True, 0, 0),
                  (1, 136, 264, 4, 2, True, 48, 128),
                  (1, 136, 264, 4, 2, False, 64, 96))
 # q scaled by 2 caps of 50: normal q x 100, so that every score comes
-# out of dot terms ~100x normal and carries their f32 rounding.  There
-# the f32 kernel (split TF32) lands 2-4x as far from the exact answer as
-# its f32 twin (ROADMAP queue 3), so both are held against the f64
-# answer instead of each other, at F32_LARGE_TERM_TOL: the readings so
-# far, kernel / twin from f64, are 5.96e-5 / 1.91e-5 and 4.08e-5 /
-# 1.08e-5 (llama's serving layer, two draws), 3.06e-5 / 2.54e-5 (its
-# training layer)
+# out of dot terms ~100x normal and carries their f32 rounding.  Both
+# the f32 kernel (split TF32) and its f32 twin are held against the f64
+# answer instead of each other, at F32_LARGE_TERM_TOL, and the kernel no
+# farther from it than F32_LARGE_TERM_RATIO x the twin: in root mean
+# square on every case, and in max abs on a case of at least
+# RATIO_MAX_ABS_OUTPUTS outputs.  The kernels' first design (the split
+# cut toward zero, the score products chained on the tensor cores) read
+# 1.2-2.5x in max abs at llama's serving layer (three draws) and up to
+# 2.5x in root mean square on the small cases of softcap_checks.  On a small case the max
+# abs is that of a few sensitive rows, and two f32 computations of it
+# differ by chance: the twin's own arithmetic on exactly rounded scores
+# read up to 1.76x the twin in max abs over 183 small cases, where its
+# root mean square stays within a few percent (tools/k4_bwd_variants.py
+# --scaled --draws; PERF.md), so there the max abs ratio is reported
 LARGE_TERM_Q_FACTOR = 100.0
 F32_LARGE_TERM_TOL = (2e-5, 1e-4)
+F32_LARGE_TERM_RATIO = 1.5
+RATIO_MAX_ABS_OUTPUTS = 1 << 20
 
 
 def _f64_gate(dtype, cap) -> bool:
@@ -7136,18 +7209,39 @@ def f64_attention(q, k, v, cap, *, causal=True, window=0, q_offset=0):
 
 def check_against_f64(name, got, twin, q, k, v, cap, **kw):
     """The f32 kernel's output and its twin's, both held against
-    ``f64_attention`` at ``F32_LARGE_TERM_TOL``; returns the distances."""
+    ``f64_attention`` at ``F32_LARGE_TERM_TOL``; the kernel's root mean
+    square distance from it at most ``F32_LARGE_TERM_RATIO`` x the
+    twin's, and so its max abs distance on a case of at least
+    ``RATIO_MAX_ABS_OUTPUTS`` outputs; returns the distances."""
     import torch
     exact = f64_attention(q, k, v, cap, **kw)
+    kd, td = got.double() - exact, twin.double() - exact
     row = {"kernel_vs_twin": float((got.float() - twin).abs().max()),
-           "kernel_vs_f64": float((got.double() - exact).abs().max()),
-           "twin_vs_f64": float((twin.double() - exact).abs().max()),
-           "f64_tol": F32_LARGE_TERM_TOL}
+           "kernel_vs_f64": float(kd.abs().max()),
+           "twin_vs_f64": float(td.abs().max()),
+           "kernel_rms_vs_f64": float(kd.square().mean().sqrt()),
+           "twin_rms_vs_f64": float(td.square().mean().sqrt()),
+           "f64_tol": F32_LARGE_TERM_TOL,
+           "ratio_limit": F32_LARGE_TERM_RATIO,
+           "max_abs_ratio_gated": got.numel() >= RATIO_MAX_ABS_OUTPUTS}
+    del kd, td
+    row["kernel_over_twin_vs_f64"] = row["kernel_vs_f64"] / max(
+        row["twin_vs_f64"], 1e-30)
+    row["kernel_over_twin_rms"] = row["kernel_rms_vs_f64"] / max(
+        row["twin_rms_vs_f64"], 1e-30)
     rtol, atol = F32_LARGE_TERM_TOL
     for tag, x in (("kernel", got), ("twin", twin)):
         if not torch.allclose(x.double(), exact, rtol=rtol, atol=atol):
             fail(f"{name}: the {tag} is {row[f'{tag}_vs_f64']} from the f64 "
                  f"answer (rtol, atol {F32_LARGE_TERM_TOL})")
+    gated = [("root mean square", "kernel_rms_vs_f64", "twin_rms_vs_f64")]
+    if row["max_abs_ratio_gated"]:
+        gated.append(("max abs", "kernel_vs_f64", "twin_vs_f64"))
+    for what, mine, theirs in gated:
+        if row[mine] > F32_LARGE_TERM_RATIO * row[theirs]:
+            fail(f"{name}: the kernel is {row[mine]} from the f64 answer "
+                 f"in {what}, more than {F32_LARGE_TERM_RATIO} x its "
+                 f"twin's {row[theirs]}")
     del exact
     return row
 
@@ -7231,6 +7325,11 @@ def softcap_checks():
             "max_abs_err": {dt: max(r["max_abs_err"] for r in rows
                                     if dt in r["case"])
                             for dt in ("float32", "bfloat16")},
+            "f32_large_terms_vs_f64": {
+                tag: max(r["f64"][tag] for r in rows if "f64" in r)
+                for tag in ("kernel_vs_f64", "twin_vs_f64",
+                            "kernel_over_twin_vs_f64",
+                            "kernel_over_twin_rms")},
             "fwd_sizes": {f"{str(dt)[6:]}_d{d}": fa.fwd_sizes(d, dt)
                           for d in HEAD_DIMS
                           for dt in (torch.float32, torch.bfloat16)}}
@@ -7688,7 +7787,9 @@ def softcap_bwd_checks():
             "max_abs_err": worst,
             "f32_large_terms_vs_f64": {
                 tag: max(r["f64"][tag] for r in rows if "f64" in r)
-                for tag in ("kernel_vs_f64", "twin_vs_f64")},
+                for tag in ("kernel_vs_f64", "twin_vs_f64",
+                            "kernel_over_twin_vs_f64",
+                            "kernel_over_twin_rms")},
             "cap_moves_min": min(min(r[f"{t}_cap_moves"] / r[f"{t}_scale"]
                                      for t in ("dq", "dk", "dv"))
                                  for r in rows)}
@@ -8127,7 +8228,10 @@ def run_phases(warm) -> int:
                                rows["d_max_abs_err_vs_plain"].items()
                                if k.startswith("fedagg_4")
                                or k.startswith("fedagg_8")),
-            **rows["at_8192_rows"]["fedagg"]}}, {
+            **rows["at_8192_rows"]["fedagg"],
+            "at_resnet8_width": rows["at_8192_rows_resnet8_width"]
+            ["fedagg"],
+            "single_launch_at_4096_rows": rows["fedagg_at_4096"]}}, {
         "name": "fedagg_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedagg.cu",
         "replaces": "src/repro/kernels/fedagg.py:102",
@@ -8149,7 +8253,9 @@ def run_phases(warm) -> int:
             "max_abs_err": max(v for k, v in
                                rows["d_max_abs_err_vs_plain"].items()
                                if k.startswith("fedagg_fold")),
-            **rows["at_8192_rows"]["fedagg_fold"]}}, {
+            **rows["at_8192_rows"]["fedagg_fold"],
+            "at_resnet8_width": rows["at_8192_rows_resnet8_width"]
+            ["fedagg_fold"]}}, {
         "name": "fedagg_partial", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedagg.cu",
         "replaces": "src/repro/kernels/fedagg.py:163",
@@ -8171,7 +8277,9 @@ def run_phases(warm) -> int:
             "max_abs_err": max(v for k, v in
                                rows["d_max_abs_err_vs_plain"].items()
                                if k.startswith("fedagg_partial")),
-            **rows["at_8192_rows"]["fedagg_partial"]}}, {
+            **rows["at_8192_rows"]["fedagg_partial"],
+            "at_resnet8_width": rows["at_8192_rows_resnet8_width"]
+            ["fedagg_partial"]}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:30",

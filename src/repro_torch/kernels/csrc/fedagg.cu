@@ -68,13 +68,37 @@
 //     It writes the packed coefficients, their row indices, the live
 //     count and (K2) the global row's coefficient into a device
 //     workspace the caller allocates (fedagg_ws_floats(n) floats);
-//   * the stream kernel walks the live rows in tiles of FEDAGG_TILE
-//     coefficients staged in shared memory, the f32 accumulator carried
-//     in registers from tile to tile: the same sequential fma chain over
-//     the live rows as the single launch, so the bits are the same and
-//     appended rows of coefficient 0 change none of them.  K2's global
-//     row is kept apart until the end, as above.  Masked rows are
-//     skipped before their load.
+//   * the stream kernel folds the live rows into its columns in their
+//     packed order, the f32 accumulator in registers: the same
+//     sequential fma chain as the single launch, so the bits are the
+//     same and appended rows of coefficient 0 change none of them.  K2's
+//     global row is kept apart until the end, as above.  Masked rows
+//     are never loaded.
+//
+// The stream is bound by bytes, and at the widths of the paper's
+// cross-device models a row is short: resnet8-cifar10's tree of 77,594
+// floats is 310 KB, 2.4 KB an SM.  Bytes in flight then decide the rate (the
+// card's 3.35 TB/s times a loaded latency of a microsecond or two is
+// several MB, tens of KB an SM), and a thread owns only one vector of
+// columns, so its rows have to stay in flight back to back:
+//   * a ring of rows a thread in registers (FedaggRing: 32 float4s, 64
+//     of a narrower vector): the thread folds the oldest row and at once
+//     starts the load of the row a ring ahead into its slot, so a ring's
+//     worth of loads is always in flight, with no gap between batches
+//     and no block barrier;
+//   * the packed coefficients and row indices ride with it, a chunk of
+//     32 in a warp's lanes (one coalesced load each, a ring ahead of
+//     their use) and broadcast to the warp by shuffles: no shared memory;
+//   * blocks as narrow as P asks (ws_grid): the columns cut into k
+//     blocks an SM of whole warps, so that every SM gets columns where
+//     the row is short and no second wave of a few blocks trails the
+//     first; past what is resident a block grid-strides.  Each SM then
+//     keeps (ring x threads x vector) bytes in flight: 128 KB at 131,072
+//     columns (float4, 256 threads), about 160 KB at resnet8-cifar10's
+//     77,594 (float2, two blocks of 160).
+// tools/fedagg_variants.py times the ring's depth and the block width
+// against the first design (tiles of 2,048 coefficients staged in shared
+// memory behind two block barriers, 16 rows a thread in flight a batch).
 //
 // The row index is an int: FEDAGG_WS_MAX_ROWS = 2^30 keeps every index,
 // count and workspace offset inside it.
@@ -443,7 +467,6 @@ extern "C" int fedagg_partial_f32(const void* u, const void* coef, void* out,
 // ---------------------------------------------------------------------
 
 #define FEDAGG_WS_MAX_ROWS (1 << 30)   // int indices, counts and offsets
-#define FEDAGG_TILE 2048               // coefficients a stage: 16 KB
 #define FEDAGG_PRE_THREADS 1024
 #define FEDAGG_PRE_CHUNK 4096          // floats summed from shared memory
 
@@ -554,67 +577,97 @@ fedagg_preamble_kernel(const float* __restrict__ c,
     }
 }
 
-// R live rows [j, j + R) of the staged tile into this thread's columns:
-// all R loads started before the first multiply-add, the adds in row
-// order (add_rows on a packed tile)
-template <typename V, int R>
-__device__ __forceinline__ void add_tile_rows(const float* __restrict__ u,
-                                              long long p, long long col,
-                                              const float* tc, const int* tr,
-                                              int j, V& acc) {
-    V x[R];
-    float e[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-        e[r] = tc[j + r];
-        x[r] = ldg(reinterpret_cast<const V*>(u + (long long)tr[j + r] * p
-                                              + col));
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) fma_into(e[r], x[r], acc);
+// Rows a thread keeps in flight: a multiple of the 32 a warp's lanes
+// hold the coefficients and indices of.  float4: 32 rows, 128 registers
+// of data; narrower vectors hold twice as many rows in as many registers
+// or fewer (a short row gives an SM fewer threads).
+template <typename V>
+struct FedaggRing {
+    static constexpr int ROWS = sizeof(V) == 16 ? 32 : 64;
+};
+
+// Packed entry i, or 0 past n_live (never used: every use of an entry
+// is guarded by the same bound).
+__device__ __forceinline__ float ws_coef(const float* __restrict__ coef,
+                                         int n_live, int i) {
+    return i < n_live ? __ldg(coef + i) : 0.0f;
+}
+__device__ __forceinline__ int ws_row(const int* __restrict__ rows,
+                                      int n_live, int i) {
+    return i < n_live ? __ldg(rows + i) : 0;
 }
 
-// The stream: each block grid-strides over the columns; for each of its
-// column passes it walks the live rows in tiles of FEDAGG_TILE packed
-// coefficients and row indices staged in shared memory, the accumulator
-// carried from tile to tile.  The pass loop is uniform over the block
-// (the barriers), a thread past p only helps stage.
+// The stream: each block grid-strides over the columns, each thread owns
+// one vector V of them, and for each column pass the thread folds the
+// n_live packed rows in order through its ring of R row slots.  Slot s
+// holds row j0 + s of the round from j0; folding it frees the slot for
+// row j0 + s + R.  ci[q] (lane l) holds the coefficient of row
+// j0 + 32q + l, ri[q] the index of row j0 + R + 32q + l; the next
+// round's are loaded at the start of this one.  Every branch on a row
+// count is uniform over the block, so the shuffles see every lane; a
+// thread past p neither loads nor stores.
 template <typename V, int MODE>
 __global__ void __launch_bounds__(FEDAGG_THREADS)
 fedagg_ws_kernel(const float* __restrict__ u, const float* __restrict__ g,
                  const float* __restrict__ ws, float* __restrict__ out,
                  int n, long long p) {
     constexpr int VEC = sizeof(V) / sizeof(float);
-    __shared__ float tc[FEDAGG_TILE];
-    __shared__ int tr[FEDAGG_TILE];
+    constexpr int R = FedaggRing<V>::ROWS;
+    constexpr int Q = R / 32;
+    static_assert(R % 32 == 0, "the ring holds whole chunks of 32 rows");
     const float* coef = ws;
     const int* rows = reinterpret_cast<const int*>(ws + n);
     const int n_live = reinterpret_cast<const int*>(ws)[2LL * n];
     const float c0 = MODE == FEDAGG_FOLD ? ws[2LL * n + 1] : 0.0f;
+    const int lane = threadIdx.x & 31;
 
     const long long step = (long long)gridDim.x * blockDim.x * VEC;
     for (long long base = (long long)blockIdx.x * blockDim.x * VEC;
          base < p; base += step) {
         const long long col = base + (long long)threadIdx.x * VEC;
         const bool mine = col < p;
+        const float* uc = u + (mine ? col : 0);
         V acc = V();
-        for (int j0 = 0; j0 < n_live; j0 += FEDAGG_TILE) {
-            const int m = min(FEDAGG_TILE, n_live - j0);
-            __syncthreads();               // the last tile has been read
-            for (int i = threadIdx.x; i < m; i += blockDim.x) {
-                tc[i] = coef[j0 + i];
-                tr[i] = rows[j0 + i];
+        V x[R];
+        float ci[Q];
+        int ri[Q];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {         // the first round's rows
+            const int i = 32 * q + lane;
+            const int r = ws_row(rows, n_live, i);
+#pragma unroll
+            for (int l = 0; l < 32; ++l) {
+                const int row = __shfl_sync(0xffffffffu, r, l);
+                if (mine && 32 * q + l < n_live)
+                    x[32 * q + l] = ldg(reinterpret_cast<const V*>(
+                        uc + (long long)row * p));
             }
-            __syncthreads();
-            if (mine) {
-                int j = 0;
-                for (; j + ROWS_IN_FLIGHT <= m; j += ROWS_IN_FLIGHT)
-                    add_tile_rows<V, ROWS_IN_FLIGHT>(u, p, col, tc, tr, j,
-                                                     acc);
-                for (; j + 4 <= m; j += 4)
-                    add_tile_rows<V, 4>(u, p, col, tc, tr, j, acc);
-                for (; j < m; ++j)
-                    add_tile_rows<V, 1>(u, p, col, tc, tr, j, acc);
+            ci[q] = ws_coef(coef, n_live, i);
+            ri[q] = ws_row(rows, n_live, R + i);
+        }
+        for (int j0 = 0; j0 < n_live; j0 += R) {
+            float cn[Q];
+            int rn[Q];
+#pragma unroll
+            for (int q = 0; q < Q; ++q) {     // the next round's entries
+                const int i = j0 + R + 32 * q + lane;
+                cn[q] = ws_coef(coef, n_live, i);
+                rn[q] = ws_row(rows, n_live, R + i);
+            }
+#pragma unroll
+            for (int s = 0; s < R; ++s) {
+                const int q = s / 32, l = s % 32;
+                const float e = __shfl_sync(0xffffffffu, ci[q], l);
+                const int row = __shfl_sync(0xffffffffu, ri[q], l);
+                if (j0 + s < n_live) fma_into(e, x[s], acc);
+                if (mine && j0 + R + s < n_live)
+                    x[s] = ldg(reinterpret_cast<const V*>(
+                        uc + (long long)row * p));
+            }
+#pragma unroll
+            for (int q = 0; q < Q; ++q) {
+                ci[q] = cn[q];
+                ri[q] = rn[q];
             }
         }
         if (mine) {
@@ -627,18 +680,49 @@ fedagg_ws_kernel(const float* __restrict__ u, const float* __restrict__ g,
     }
 }
 
+// The stream's grid for p columns in vectors V: the narrowest blocks
+// (whole warps, 32 to FEDAGG_THREADS threads) that cover the columns in
+// one wave of k blocks an SM, k = 1, 2, ... while k of them fit an SM;
+// else blocks of FEDAGG_THREADS, as many as are resident, striding.
+template <typename V, int MODE>
+static int ws_grid(long long p, unsigned* blocks, unsigned* threads) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err != cudaSuccess) return (int)err;
+    const long long vectors = p / (long long)(sizeof(V) / sizeof(float));
+    for (int k = 1;; ++k) {
+        const long long per = (long long)sms * k;
+        long long t = ((vectors + per - 1) / per + 31) / 32 * 32;
+        t = t < 32 ? 32 : t > FEDAGG_THREADS ? FEDAGG_THREADS : t;
+        int per_sm = 0;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, fedagg_ws_kernel<V, MODE>, (int)t, 0);
+        if (err != cudaSuccess) return (int)err;
+        const long long b = (vectors + t - 1) / t;
+        const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+        if (b <= resident || t == 32 || per_sm < k) {
+            *blocks = (unsigned)(b < resident ? b : resident);
+            *threads = (unsigned)t;
+            return 0;
+        }
+    }
+}
+
 template <typename V, int MODE>
 static int launch_ws(const float* u, const float* g, const float* c,
                      const float* a, float* out, float* ws, int n,
                      long long p, cudaStream_t stream) {
-    unsigned blocks = 0;
-    const int err = grid_blocks<V>(p, &blocks);
+    unsigned blocks = 0, threads = 0;
+    const int err = ws_grid<V, MODE>(p, &blocks, &threads);
     if (err != 0) return err;
     fedagg_preamble_kernel<MODE><<<1, FEDAGG_PRE_THREADS, 0, stream>>>(
         c, a, n, ws);
     const cudaError_t pre = cudaGetLastError();
     if (pre != cudaSuccess) return (int)pre;
-    fedagg_ws_kernel<V, MODE><<<blocks, FEDAGG_THREADS, 0, stream>>>(
+    fedagg_ws_kernel<V, MODE><<<blocks, threads, 0, stream>>>(
         u, g, ws, out, n, p);
     return (int)cudaGetLastError();
 }

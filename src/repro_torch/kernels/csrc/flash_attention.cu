@@ -39,16 +39,24 @@
 //   * A block of 4 warps owns 64 q rows of one (b, h), 16 rows a warp;
 //     a 1-D grid, the last q tiles first (under a causal mask they see
 //     the most keys).  Two blocks an SM.
-//   * q is loaded once into registers as split-TF32 A fragments: x = hi
-//     + lo, hi = x with its 13 low mantissa bits cleared, lo = x - hi;
-//     a product a.b is lo.hi + hi.lo + hi.hi (about 2^-19 relative
-//     where one TF32 product, about 2^-10, fails FA_TOL f32).
+//   * q is split once into split-TF32 A fragments: x = hi + lo, each
+//     part rounded to nearest TF32 (tf32_split.cuh, shared with the
+//     backward pair); a product a.b is lo.hi + hi.lo + hi.hi (about
+//     2^-21 relative, of either sign, where one TF32 product, about
+//     2^-10, fails FA_TOL f32).  The fragments sit in shared memory, each
+//     thread's own (32 KB a block at D = 64), read back a k-step at a
+//     time: in registers they took 64 a thread, and the score products'
+//     sums from zero then spilled.
 //   * K and V tiles of 64 keys come in by 16-byte cp.async into a
 //     2-stage ring (the next tile loading under this one's products),
 //     rows padded to D+4 floats (ldmatrix rows and scalar B words free
 //     of bank conflicts); keys past T are zero-filled by the copy.
-//   * S = Q.K^T: mma.sync.m16n8k8 TF32, K's fragments by ldmatrix; then
-//     * scale, the masks by select, and the online softmax on the C
+//   * S = Q.K^T: mma.sync.m16n8k8 TF32, K's fragments by ldmatrix, each
+//     k-step's three products summed from zero and added in f32
+//     (fa_mma3_from_zero: the tensor cores round a chained sum toward
+//     zero at the running sum's magnitude, too far on scores of large
+//     terms); then * scale, the masks by select, and the online softmax
+//     on the C
 //     fragments (row max and sum over the quad that holds a row; p =
 //     expf(s - m), corr = expf(m - m_new), as the reference).
 //   * O = O * corr + P.V: P leaves S as C fragments and is P.V's A
@@ -191,6 +199,7 @@
 
 #include "fa_exchange.cuh"   // fx_pair_sync, fx_put, fx_get
 #include "fa_hopper.cuh"     // TMA, mbarriers, wgmma, tensor maps
+#include "tf32_split.cuh"    // tf32_split: the f32 kernels' operands
 
 // ---------------------------------------------------------------------
 // The f32 kernel: tensor cores (mma.sync TF32), split TF32
@@ -218,14 +227,16 @@ __host__ __device__ constexpr int fa_keys() { return D <= 128 ? FA_BK : 48; }
 #define FA_WIDE_UNROLL 4
 
 // floats of shared memory: the K/V ring (stages x (K, V), tiles padded
-// to D+4); above D = 64 also the q tile (64 rows padded to D+4), the
-// pairs' P exchange (4 pairs x the tile's 8-key slices x 32 lanes x a
-// float4) and their row exchange (4 pairs x 2 halves x 16 rows)
+// to D+4); up to D = 64 also q's split A fragments (4 warps x D/8
+// k-steps x 32 lanes x hi and lo, a uint4 each); above D = 64 the q tile
+// (64 rows padded to D+4), the pairs' P exchange (4 pairs x the tile's
+// 8-key slices x 32 lanes x a float4) and their row exchange (4 pairs x
+// 2 halves x 16 rows)
 template <int D>
 __host__ __device__ constexpr int fa_smem_floats() {
     return FA_STAGES * 2 * fa_keys<D>() * (D + 4)
            + (D > 64 ? 64 * (D + 4) + 4 * fa_keys<D>() * 16 + 4 * 2 * 16
-                     : 0);
+                     : FA_WARPS * (D / 8) * 32 * 8);
 }
 
 // The keys absolute position p sees: [lo, hi) (empty when hi <= lo).
@@ -264,16 +275,6 @@ __device__ __forceinline__ void fa_ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
                  : "r"(addr) : "memory");
 }
 
-// x = hi + lo: hi is x with its 13 low mantissa bits cleared (a TF32
-// value), lo = x - hi (exact in f32) is passed whole; what the TF32
-// products drop of it is at most 2^-20 of x (flash_attention_bwd.cu's
-// split)
-__device__ __forceinline__ void fa_split_tf32(float x, uint32_t& hi,
-                                              uint32_t& lo) {
-    hi = __float_as_uint(x) & 0xffffe000u;
-    lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
 __device__ __forceinline__ void fa_mma_tf32(float (&d)[4],
                                             const uint32_t (&a)[4],
                                             uint32_t b0, uint32_t b1) {
@@ -293,6 +294,27 @@ __device__ __forceinline__ void fa_mma3(float (&d)[4],
     fa_mma_tf32(d, al, bh0, bh1);
     fa_mma_tf32(d, ah, bl0, bl1);
     fa_mma_tf32(d, ah, bh0, bh1);
+}
+
+// d += a . b as fa_mma3, the three products summed from zero on the
+// tensor cores and added to d in f32.  The score products take this: the
+// tensor cores round each sum of a chained product toward zero at the
+// running sum's magnitude, which on scores of large terms left the
+// output up to 3.7x as far from an f64 answer as the f32 twin at llama's
+// serving layer, where a k-step's sum from zero and one f32 add (rounded
+// to nearest) leave it at 0.5-0.85x (tools/k4_bwd_variants.py: chained;
+// PERF.md)
+__device__ __forceinline__ void fa_mma3_from_zero(float (&d)[4],
+                                                  const uint32_t (&ah)[4],
+                                                  const uint32_t (&al)[4],
+                                                  uint32_t bh0, uint32_t bh1,
+                                                  uint32_t bl0, uint32_t bl1) {
+    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    fa_mma3(t, ah, al, bh0, bh1, bl0, bl1);
+    d[0] += t[0];
+    d[1] += t[1];
+    d[2] += t[2];
+    d[3] += t[3];
 }
 
 template <int N>
@@ -357,7 +379,10 @@ __device__ __forceinline__ void fa_block_range(int q0, int S, int T_len,
 }
 
 // D <= 64: four warps, 16 q rows a warp, each against the whole key
-// tile; q as split-TF32 A fragments in registers, loaded once.
+// tile; q split once into TF32 A fragments kept in shared memory, each
+// thread's own (no barrier: a thread reads back only what it wrote), so
+// that the registers hold the scores, the output and the products' sums
+// from zero.
 // LSE: also write each row's m + log(max(l, 1e-30)) to lse (B,H,S).
 // CAP: the scores soft-capped (fa_softcap) before the masks; a CAP
 // kernel is built with LSE only, and writes lse where it is not null.
@@ -401,9 +426,12 @@ __device__ __forceinline__ void fa_fwd_narrow(FA_FWD_PARAMS) {
     fa_cp_async_commit();
 
     // this thread's two rows, ra (fragment rows g) and rb (g + 8): their
-    // q as split-TF32 A fragments, loaded once
+    // q as split-TF32 A fragments, split once into shared memory: hi
+    // and lo of k-step ks at qf[64 * ks] and qf[64 * ks + 32], a warp's
+    // lanes side by side
     const int ra = q0 + 16 * warp + g, rb = ra + 8;
-    uint32_t qh[KS][4], ql[KS][4];
+    uint4* qf = reinterpret_cast<uint4*>(ring + FA_STAGES * 2 * TILE)
+                + warp * KS * 64 + lane;
     {
         const float* qa = q + (long long)b * q_sb + (long long)h * q_sh
                           + (long long)min(ra, S - 1) * q_ss;
@@ -415,10 +443,13 @@ __device__ __forceinline__ void fa_fwd_narrow(FA_FWD_PARAMS) {
             const float x1 = rb < S ? qb[8 * ks + t] : 0.0f;
             const float x2 = ra < S ? qa[8 * ks + t + 4] : 0.0f;
             const float x3 = rb < S ? qb[8 * ks + t + 4] : 0.0f;
-            fa_split_tf32(x0, qh[ks][0], ql[ks][0]);
-            fa_split_tf32(x1, qh[ks][1], ql[ks][1]);
-            fa_split_tf32(x2, qh[ks][2], ql[ks][2]);
-            fa_split_tf32(x3, qh[ks][3], ql[ks][3]);
+            uint4 h4, l4;
+            tf32_split(x0, h4.x, l4.x);
+            tf32_split(x1, h4.y, l4.y);
+            tf32_split(x2, h4.z, l4.z);
+            tf32_split(x3, h4.w, l4.w);
+            qf[64 * ks] = h4;
+            qf[64 * ks + 32] = l4;
         }
     }
     int lo_a, hi_a, lo_b, hi_b;
@@ -443,20 +474,28 @@ __device__ __forceinline__ void fa_fwd_narrow(FA_FWD_PARAMS) {
         float sc[8][4];
         fa_zero(sc);
         const uint32_t b_lane = fa_smem(Kst) + (r8 * RS + 4 * blk) * 4;
+        // one k-step of 16 at a time: its products' sums from zero (16
+        // partial sums) beside the scores, unrolled k-steps spilled
+#pragma unroll 1
+        for (int k0 = 0; k0 < D; k0 += 16) {
+            const uint4 h0 = qf[8 * k0], l0 = qf[8 * k0 + 32];
+            const uint4 h1 = qf[8 * k0 + 64], l1 = qf[8 * k0 + 96];
+            const uint32_t ah0[4] = {h0.x, h0.y, h0.z, h0.w};
+            const uint32_t al0[4] = {l0.x, l0.y, l0.z, l0.w};
+            const uint32_t ah1[4] = {h1.x, h1.y, h1.z, h1.w};
+            const uint32_t al1[4] = {l1.x, l1.y, l1.z, l1.w};
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
-#pragma unroll
-            for (int k0 = 0; k0 < D; k0 += 16) {
+            for (int n = 0; n < 8; ++n) {
                 // k-step k0 in words 0-1, k0 + 8 in words 2-3
                 uint32_t bw[4], bhi[4], blo[4];
                 fa_ldsm_x4(bw, b_lane + (8 * n * RS + k0) * 4);
 #pragma unroll
                 for (int e = 0; e < 4; ++e)
-                    fa_split_tf32(__uint_as_float(bw[e]), bhi[e], blo[e]);
-                fa_mma3(sc[n], qh[k0 / 8], ql[k0 / 8], bhi[0], bhi[1],
-                        blo[0], blo[1]);
-                fa_mma3(sc[n], qh[k0 / 8 + 1], ql[k0 / 8 + 1], bhi[2],
-                        bhi[3], blo[2], blo[3]);
+                    tf32_split(__uint_as_float(bw[e]), bhi[e], blo[e]);
+                fa_mma3_from_zero(sc[n], ah0, al0, bhi[0], bhi[1], blo[0],
+                                  blo[1]);
+                fa_mma3_from_zero(sc[n], ah1, al1, bhi[2], bhi[3], blo[2],
+                                  blo[3]);
             }
         }
         // scale, masks (a select: -1e30 for a masked key, -inf past T),
@@ -511,16 +550,16 @@ __device__ __forceinline__ void fa_fwd_narrow(FA_FWD_PARAMS) {
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
             uint32_t ah[4], al[4];
-            fa_split_tf32(sc[kk][0], ah[0], al[0]);   // (g,   slot t)
-            fa_split_tf32(sc[kk][2], ah[1], al[1]);   // (g+8, slot t)
-            fa_split_tf32(sc[kk][1], ah[2], al[2]);   // (g,   slot t+4)
-            fa_split_tf32(sc[kk][3], ah[3], al[3]);   // (g+8, slot t+4)
+            tf32_split(sc[kk][0], ah[0], al[0]);   // (g,   slot t)
+            tf32_split(sc[kk][2], ah[1], al[1]);   // (g+8, slot t)
+            tf32_split(sc[kk][1], ah[2], al[2]);   // (g,   slot t+4)
+            tf32_split(sc[kk][3], ah[3], al[3]);   // (g+8, slot t+4)
             const float* bp = Vst + (8 * kk + 2 * t) * RS + g;
 #pragma unroll
             for (int n = 0; n < D / 8; ++n) {
                 uint32_t bh0, bl0, bh1, bl1;
-                fa_split_tf32(bp[8 * n], bh0, bl0);
-                fa_split_tf32(bp[RS + 8 * n], bh1, bl1);
+                tf32_split(bp[8 * n], bh0, bl0);
+                tf32_split(bp[RS + 8 * n], bh1, bl1);
                 fa_mma3(part[n], ah, al, bh0, bh1, bl0, bl1);
             }
         }
@@ -576,8 +615,8 @@ __device__ __forceinline__ void fa_qk_smem(float (&acc)[N][4],
         fa_ldsm_x4(a1, a_lane + (k0 + 8) * 4);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            fa_split_tf32(__uint_as_float(a0[e]), a0h[e], a0l[e]);
-            fa_split_tf32(__uint_as_float(a1[e]), a1h[e], a1l[e]);
+            tf32_split(__uint_as_float(a0[e]), a0h[e], a0l[e]);
+            tf32_split(__uint_as_float(a1[e]), a1h[e], a1l[e]);
         }
 #pragma unroll
         for (int n = 0; n < N; ++n) {
@@ -586,9 +625,11 @@ __device__ __forceinline__ void fa_qk_smem(float (&acc)[N][4],
             fa_ldsm_x4(bw, b_lane + (8 * n * RS + k0) * 4);
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-                fa_split_tf32(__uint_as_float(bw[e]), bhi[e], blo[e]);
-            fa_mma3(acc[n], a0h, a0l, bhi[0], bhi[1], blo[0], blo[1]);
-            fa_mma3(acc[n], a1h, a1l, bhi[2], bhi[3], blo[2], blo[3]);
+                tf32_split(__uint_as_float(bw[e]), bhi[e], blo[e]);
+            fa_mma3_from_zero(acc[n], a0h, a0l, bhi[0], bhi[1], blo[0],
+                              blo[1]);
+            fa_mma3_from_zero(acc[n], a1h, a1l, bhi[2], bhi[3], blo[2],
+                              blo[3]);
         }
     }
 }
@@ -741,16 +782,16 @@ __device__ __forceinline__ void fa_fwd_wide(FA_FWD_PARAMS) {
 #pragma unroll
         for (int kk = 0; kk < BK / 8; ++kk) {
             uint32_t ah[4], al[4];
-            fa_split_tf32(p[kk][0], ah[0], al[0]);    // (g,   slot t)
-            fa_split_tf32(p[kk][2], ah[1], al[1]);    // (g+8, slot t)
-            fa_split_tf32(p[kk][1], ah[2], al[2]);    // (g,   slot t+4)
-            fa_split_tf32(p[kk][3], ah[3], al[3]);    // (g+8, slot t+4)
+            tf32_split(p[kk][0], ah[0], al[0]);    // (g,   slot t)
+            tf32_split(p[kk][2], ah[1], al[1]);    // (g+8, slot t)
+            tf32_split(p[kk][1], ah[2], al[2]);    // (g,   slot t+4)
+            tf32_split(p[kk][3], ah[3], al[3]);    // (g+8, slot t+4)
             const float* bp = vcol + (8 * kk + 2 * t) * RS;
 #pragma unroll
             for (int n = 0; n < DH / 8; ++n) {
                 uint32_t bh0, bl0, bh1, bl1;
-                fa_split_tf32(bp[8 * n], bh0, bl0);
-                fa_split_tf32(bp[RS + 8 * n], bh1, bl1);
+                tf32_split(bp[8 * n], bh0, bl0);
+                tf32_split(bp[RS + 8 * n], bh1, bl1);
                 fa_mma3(part[n], ah, al, bh0, bh1, bl0, bl1);
             }
         }

@@ -59,11 +59,15 @@
 //     over them in registers: written once.
 //
 // Products.  Every product is mma.sync.m16n8k8 in TF32 with f32
-// accumulators, each f32 operand x split into a TF32 hi and the rest lo
-// (split_tf32), and a . b taken as lo.hi + hi.lo + hi.hi (lo.lo
-// dropped): about 2^-19 relative a product at worst, where one TF32
-// product (about 2^-10) fails the 1e-4 checks.  A tile's product is
-// summed from zero and then added to the running sum (add_acc).  Up to D
+// accumulators, each f32 operand x split into a TF32 hi and the rest lo,
+// both rounded to nearest (tf32_split.cuh: the forward's split, so S is
+// recomputed as the forward formed it against its lse), and a . b taken
+// as lo.hi + hi.lo + hi.hi (lo.lo dropped): about 2^-21 relative a
+// product at worst, where one TF32 product (about 2^-10) fails the 1e-4
+// checks.  S and dP (prod_abt) take each k-step's three products summed
+// from zero and added in f32 (mma3_from_zero, as the forward's S); every
+// other tile product is summed from zero and then added to the running
+// sum (add_acc).  Up to D
 // = 64, four warps a block, each owning 16 rows of the stationary tile
 // (q rows in dq, keys in dkdv).  S = Q.K^T (dq) and S^T = K.Q^T (dkdv)
 // and the dO.V^T / V.dO^T products take both operands from shared memory
@@ -128,6 +132,7 @@
 #include <stdint.h>
 
 #include "fa_exchange.cuh"   // fx_pair_sync, fx_put, fx_get
+#include "tf32_split.cuh"    // tf32_split: the forward's split
 
 #define FB_BQ 64
 #define FB_BK 64
@@ -227,19 +232,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
                  : "r"(addr) : "memory");
 }
 
-// x = hi + lo: hi is x with its 13 low mantissa bits cleared (a TF32
-// value), lo = x - hi (exact in f32, at most 2^-10 of x) is passed
-// whole; what the TF32 products drop of it (its low 13 bits, and
-// lo.lo) is at most 2^-20 of x.  Two instructions; cvt.rna.tf32.f32
-// (hi rounded to nearest, lo rounded again) halves the error but
-// compiles to a compare and select around each rounding on sm_90
-// (tools/k4_bwd_variants.py times the two; PERF.md).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-    hi = __float_as_uint(x) & 0xffffe000u;
-    lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
 __device__ __forceinline__ void mma_tf32(float (&d)[4],
                                          const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -258,6 +250,23 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
     mma_tf32(d, al, bh0, bh1);
     mma_tf32(d, ah, bl0, bl1);
     mma_tf32(d, ah, bh0, bh1);
+}
+
+// d += a . b as mma3, the three products summed from zero on the tensor
+// cores and added to d in f32: the forward's score product
+// (flash_attention.cu: fa_mma3_from_zero), so S is recomputed as the
+// forward formed it against its lse, and dP the same way
+__device__ __forceinline__ void mma3_from_zero(float (&d)[4],
+                                               const uint32_t (&ah)[4],
+                                               const uint32_t (&al)[4],
+                                               uint32_t bh0, uint32_t bh1,
+                                               uint32_t bl0, uint32_t bl1) {
+    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma3(t, ah, al, bh0, bh1, bl0, bl1);
+    d[0] += t[0];
+    d[1] += t[1];
+    d[2] += t[2];
+    d[3] += t[3];
 }
 
 template <int N>
@@ -288,8 +297,11 @@ __device__ __forceinline__ void add_acc(float (&a)[N][4],
 
 // acc[n] += A . B^T for the warp's 16 rows of A (at a_row, shared) and
 // 8N rows of B (at b_tile, shared), both D wide with stride D+4: acc is
-// 16 x 8N, n-th 8-column slice in acc[n]; U k-steps of 16 unrolled.
-template <int D, int N = 8, int U = (D <= 64 ? D / 16 : 1)>
+// 16 x 8N, n-th 8-column slice in acc[n]; each k-step's products summed
+// from zero (mma3_from_zero); U k-steps of 16 unrolled (one up to D =
+// 64: a k-step's sums from zero hold 8N partial sums, and two k-steps'
+// spilled the narrow kernels' registers).
+template <int D, int N = 8, int U = 1>
 __device__ __forceinline__ void prod_abt(float (&acc)[N][4], uint32_t a_row,
                                          uint32_t b_tile, int lane) {
     constexpr int RS = D + 4;
@@ -304,8 +316,8 @@ __device__ __forceinline__ void prod_abt(float (&acc)[N][4], uint32_t a_row,
         ldsm_x4(a1, a_lane + (k0 + 8) * 4);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-            split_tf32(__uint_as_float(a0[i]), a0h[i], a0l[i]);
-            split_tf32(__uint_as_float(a1[i]), a1h[i], a1l[i]);
+            tf32_split(__uint_as_float(a0[i]), a0h[i], a0l[i]);
+            tf32_split(__uint_as_float(a1[i]), a1h[i], a1l[i]);
         }
 #pragma unroll
         for (int n = 0; n < N; ++n) {
@@ -314,9 +326,9 @@ __device__ __forceinline__ void prod_abt(float (&acc)[N][4], uint32_t a_row,
             ldsm_x4(b, b_lane + (8 * n * RS + k0) * 4);
 #pragma unroll
             for (int i = 0; i < 4; ++i)
-                split_tf32(__uint_as_float(b[i]), bh[i], bl[i]);
-            mma3(acc[n], a0h, a0l, bh[0], bh[1], bl[0], bl[1]);
-            mma3(acc[n], a1h, a1l, bh[2], bh[3], bl[2], bl[3]);
+                tf32_split(__uint_as_float(b[i]), bh[i], bl[i]);
+            mma3_from_zero(acc[n], a0h, a0l, bh[0], bh[1], bl[0], bl[1]);
+            mma3_from_zero(acc[n], a1h, a1l, bh[2], bh[3], bl[2], bl[3]);
         }
     }
 }
@@ -331,19 +343,21 @@ __device__ __forceinline__ void prod_cb(float (&out)[NS][4],
                                         const float (&c)[KS][4],
                                         const float* b_tile, int g, int t) {
     constexpr int RS = D + 4;
-#pragma unroll
+    // two slices at a time at D = 192 (all of them spilled a register
+    // of the wide dkdv kernel, with its dk and dv sums of 96 columns)
+#pragma unroll (D == 192 ? 2 : KS)
     for (int kk = 0; kk < KS; ++kk) {
         uint32_t ah[4], al[4];
-        split_tf32(c[kk][0], ah[0], al[0]);     // (g,   slot t)   = col 2t
-        split_tf32(c[kk][2], ah[1], al[1]);     // (g+8, slot t)
-        split_tf32(c[kk][1], ah[2], al[2]);     // (g,   slot t+4) = col 2t+1
-        split_tf32(c[kk][3], ah[3], al[3]);     // (g+8, slot t+4)
+        tf32_split(c[kk][0], ah[0], al[0]);     // (g,   slot t)   = col 2t
+        tf32_split(c[kk][2], ah[1], al[1]);     // (g+8, slot t)
+        tf32_split(c[kk][1], ah[2], al[2]);     // (g,   slot t+4) = col 2t+1
+        tf32_split(c[kk][3], ah[3], al[3]);     // (g+8, slot t+4)
         const float* bp = b_tile + (8 * kk + 2 * t) * RS + g;
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
             uint32_t bh0, bl0, bh1, bl1;
-            split_tf32(bp[8 * n], bh0, bl0);
-            split_tf32(bp[RS + 8 * n], bh1, bl1);
+            tf32_split(bp[8 * n], bh0, bl0);
+            tf32_split(bp[RS + 8 * n], bh1, bl1);
             mma3(out[n], ah, al, bh0, bh1, bl0, bl1);
         }
     }

@@ -47,11 +47,13 @@ coefficients sit in shared memory.  Past it the same entry's tiled twin
 (``csrc/fedagg.cu``: ``*_ws``) runs two launches on the stream, a
 one-block preamble that writes the packed coefficients into a device
 workspace (``fedagg_ws_floats(n)`` floats, allocated here with
-``torch.empty``) and the stream walking them in tiles: the same
-arithmetic in the same order, so the bits are those of one launch and
-rows of coefficient 0 appended past 4,096 still change none.  The tiled
-route takes up to ``fedagg_ws_max_rows()`` (2^30) rows, the limit of
-its int row indices; more raise ``ValueError``.
+``torch.empty``) and the stream folding the packed rows through a ring
+of rows in flight a thread, in blocks sized so that short rows fill
+every SM: the same arithmetic in the same order, so the bits are those
+of one launch and rows of coefficient 0 appended past 4,096 still
+change none.  The tiled route takes up to ``fedagg_ws_max_rows()``
+(2^30) rows, the limit of its int row indices; more raise
+``ValueError``.
 
 A CUDA tensor goes to the kernel or the call raises; ``fedagg_plain``,
 ``fedagg_fold_plain`` and ``fedagg_partial_plain`` serve CPU tensors

@@ -22,12 +22,18 @@ The dtype picks one of two kernels (neither is a fallback of the
 other):
 
 * f32 -> the split-TF32 kernel: ``mma.sync`` TF32 products on the
-  tensor cores with each f32 operand split in two (x = hi + lo, three
-  TF32 products a product, about 2^-19 relative: one TF32 product
-  fails the tolerance), each tile's product summed from zero and added
+  tensor cores with each f32 operand split in two (x = hi + lo, each
+  part rounded to nearest TF32, ``csrc/tf32_split.cuh``, the split the
+  backward pair shares; three TF32 products a product, about 2^-21
+  relative of either sign: one TF32 product fails the tolerance;
+  ``split_tf32_plain`` and ``split_dot_plain`` model it), the score
+  product's three TF32 products summed from zero a k-step and added in
+  f32 (the tensor cores' chained sums round toward zero), each tile's
+  P.V product summed from zero and added
   in f32, K/V tiles of 64 keys in a 2-stage ``cp.async`` ring, ``expf``
   and a true divide as the reference; checked at rtol = atol = 2e-5.
-  At D = 80, 128 and 192 q sits in shared memory and a block is eight
+  Up to D = 64 q's split fragments sit in shared memory, each thread's
+  own; at D = 80, 128 and 192 the q tile does and a block is eight
   warps, the two of a pair sharing 16 q rows: each computes S over half
   of a key tile, the pair agrees on the row max and trades P through
   shared memory, and each takes P.V over half of the output columns
@@ -200,6 +206,46 @@ def gqa_plain(q, k, v, *, causal: bool = True, window: int = 0,
                               window=window, q_offset=q_offset,
                               softcap=softcap)
     return o.reshape(b, h, s, d).movedim(1, 2)
+
+
+def _bits(x):
+    """The f32 tensor's bit patterns as int64 in [0, 2^32)."""
+    return x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def _from_bits(u):
+    """Bit patterns in [0, 2^32) (int64) -> the f32 values they encode."""
+    return torch.where(u >= 1 << 31, u - (1 << 32), u).to(
+        torch.int32).view(torch.float32)
+
+
+def split_tf32_plain(x):
+    """``csrc/tf32_split.cuh: tf32_split`` on an f32 tensor -> (hi, lo),
+    each a TF32 value (its 13 low bits clear) rounded to nearest, ties
+    away from zero: hi = x + half a TF32 ulp, masked; lo the same of
+    x - hi, clamped first below the card's NaN (0x7fffffff, which the
+    card's subtraction gives for any NaN) so that a NaN stays one.
+    |x - hi - lo| <= 2^-22 |x| for finite x.  For the tests and tools:
+    the kernels split on the card."""
+    x = x.float()
+    hi = _from_bits((_bits(x) + 0x1000) & 0xFFFFE000)
+    rest = x - hi
+    rest = torch.where(torch.isnan(rest),
+                       _from_bits(torch.tensor(0x7FFFFFFF)), rest)
+    r = _bits(rest)
+    r = torch.where(r >= 1 << 31, r - (1 << 32), r)        # as the int
+    r = torch.clamp(r, max=0x7FFFEFFF) & 0xFFFFFFFF
+    return hi, _from_bits((r + 0x1000) & 0xFFFFE000)
+
+
+def split_dot_plain(a, b, split=split_tf32_plain):
+    """``a @ b`` of f32 matrices as the f32 kernels take a product on the
+    tensor cores: each operand split by ``split`` (hi, lo), lo.hi +
+    hi.lo + hi.hi (lo.lo dropped), each TF32 product exact in f32 and
+    the sums in f32.  For the tests and tools."""
+    ah, al = split(a)
+    bh, bl = split(b)
+    return al @ bh + ah @ bl + ah @ bh
 
 
 def tma_misalignment(t) -> str:

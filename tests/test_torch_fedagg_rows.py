@@ -158,6 +158,45 @@ def test_plain_twins_past_4096_rows_ignore_appended_zero_rows(n):
         atol=1e-6)
 
 
+def _resnet8_width():
+    """``chip_smoke.resnet8_p``: the floats of the resnet8-cifar10 tree
+    as the port builds it."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.resnet8_p()
+
+
+def test_plain_twins_at_8192_rows_of_the_resnet8_width_ignore_zero_rows():
+    """8,192 rows of resnet8-cifar10's width (an odd count of float2s:
+    the kernels' vec = 2 path), a fifth of them masked, and the same
+    rows with 100 rows of coefficient 0 appended: K2's and K3's twins
+    (the row-ordered sums the tiled kernels take) equal bit for bit.
+    The rows are overlapping windows of one seeded vector (row i starts
+    at element i), so the 8,292 rows cost 340 KB, not 2.6 GB."""
+    p = _resnet8_width()
+    assert p % 2 == 0 and (p // 2) % 2 == 1
+    n, pad = 8192, 100
+    rng = np.random.default_rng(8192)
+    base = torch.from_numpy(rng.standard_normal(p + n + pad)
+                            .astype(np.float32))
+    up = torch.as_strided(base, (n + pad, p), (1, 1))
+    u = up[:n]
+    c = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    c[rng.random(n) < 0.2] = 0.0
+    cp = np.concatenate([c, np.zeros(pad, np.float32)])
+    assert torch.equal(fa.fedagg_partial_plain(u, c),
+                       fa.fedagg_partial_plain(up, cp))
+    g = torch.from_numpy(rng.standard_normal(p).astype(np.float32))
+    cf = np.concatenate([[0.25], c]).astype(np.float32)
+    cfp = np.concatenate([[0.25], cp]).astype(np.float32)
+    assert torch.equal(fa.fedagg_fold_plain(u, g, cf),
+                       fa.fedagg_fold_plain(up, g, cfp))
+
+
 def _net(cls, fl):
     return cls(fl.n_clients, fl.tier_delay_means, fl.delay_std, fl.mu,
                fl.failure_delay, fl.seed)

@@ -24,8 +24,20 @@ kbv = _tool("k4_bwd_variants")
 SOURCE = kbv.SOURCE.read_text()
 
 # what each variant's source must hold that the committed kernels do not
-MARKERS = {"rna": ["cvt.rna.tf32.f32 %0, %1;\\n"],
+TRUNC = "hi = __float_as_uint(x) & 0xffffe000u;"
+CHAINED = "            mma3(acc[n], a0h, a0l, bh[0], bh[1], bl[0], bl[1]);"
+MARKERS = {"trunc": [TRUNC],
+           "rna": ["cvt.rna.tf32.f32 %0, %1;\\n"],
            "rnahi": ["+ 0x1000u) & 0xffffe000u"],
+           "rn5": ["(x - __uint_as_float(hi)) + 0x1000u)"],
+           "lolo": ["mma_tf32(d, al, bl0, bl1);"],
+           "chained": [CHAINED],
+           "trunc_chained": [TRUNC, CHAINED],
+           "all_from_zero": ["mma_tf32(t, ah, bh0, bh1);"],
+           "unrolled": ["int U = (D <= 64 ? D / 16 : 1)>"],
+           "scores_per_16": ["mma3_from_zero2(acc[n], a0h, a0l, a1h, a1l, "
+                             "bh, bl);"],
+           "chained_pair": [CHAINED],
            "wu1": ["#define FB_WIDE_UNROLL 1"],
            "wu2": ["#define FB_WIDE_UNROLL 2"],
            "kv32": ["D == 128 ? (DKDV ? 32 : 64) : 32;"],
@@ -48,3 +60,39 @@ def test_variant_patches_apply_to_the_committed_kernels(name):
 
 def test_every_variant_but_v0_has_its_markers():
     assert set(MARKERS) | {"v0"} == set(kbv.VARIANTS)
+
+
+# the forward's own markers where they are not the pair's
+FWD_CHAINED = ["fa_mma3(sc[n], ah0, al0, bhi[0], bhi[1], blo[0],",
+               "fa_mma3(acc[n], a1h, a1l, bhi[2]"]
+FWD_MARKERS = {"chained": FWD_CHAINED,
+               "trunc_chained": [TRUNC] + FWD_CHAINED,
+               "scores_per_16": ["fa_mma3_from_zero2(sc[n], ah0, al0",
+                                 "fa_mma3_from_zero2(acc[n], a0h, a0l, a1h"],
+               "unrolled": ["#pragma unroll\n        for (int k0 = 0; k0 < D"]}
+
+
+@pytest.mark.parametrize("name", sorted(kbv.FWD_VARIANTS))
+def test_scaled_mode_patches_the_forward_with_the_pairs_split(name):
+    """Under --scaled a variant of the split or of the split product
+    patches its forward as its pair: the marker in both; a split of its
+    own replaces the shared split's include in both."""
+    fwd, pair = kbv.patched_forward(name), kbv.patched(name)
+    fwd_src = kbv.FWD_SOURCE.read_text()
+    for marker in MARKERS[name]:
+        assert marker in pair
+    for marker in FWD_MARKERS.get(name, [
+            m.replace("mma_tf32(", "fa_mma_tf32(") for m in MARKERS[name]]):
+        assert marker in fwd and marker not in fwd_src, marker
+    own = name in ("trunc", "rna", "rnahi", "rn5", "trunc_chained")
+    for text in (fwd, pair):
+        assert ('#include "tf32_split.cuh"' not in text) == own
+
+
+def test_other_variants_keep_the_committed_forward():
+    """``chained_pair`` (the pair's score products chained under v0's
+    forward) and the tiling variants take the committed forward."""
+    fwd_src = kbv.FWD_SOURCE.read_text()
+    for name in ("chained_pair", "wu1", "kv32"):
+        assert kbv.patched_forward(name) == fwd_src
+    assert kbv.patched("chained_pair") == kbv.patched("chained")

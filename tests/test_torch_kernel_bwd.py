@@ -426,9 +426,10 @@ def _tf32_trunc(x):
 def _tf32_matmul(a, b, split):
     """``a @ b`` of f32 matrices as the tensor cores take it: each TF32
     product exact, summed in float64.  ``rna``: hi = rna(x), lo =
-    rna(x - hi), lo.hi + hi.lo + hi.hi; ``kernel``: the backward
-    kernels' split, hi = x truncated to TF32 and lo = x - hi read as
-    TF32; ``single``: one product, rna(a) . rna(b)."""
+    rna(x - hi), lo.hi + hi.lo + hi.hi; ``kernel``: the f32 kernels'
+    split (``split_tf32_plain``: the integer add and mask of
+    ``csrc/tf32_split.cuh``, rounding hi and lo to nearest), the same
+    three products; ``single``: one product, rna(a) . rna(b)."""
     a, b = np.float32(a), np.float32(b)
     if split == "single":
         return np.float64(_tf32_rna(a)) @ np.float64(_tf32_rna(b))
@@ -436,8 +437,9 @@ def _tf32_matmul(a, b, split):
         ah, bh = _tf32_rna(a), _tf32_rna(b)
         al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
     else:
-        ah, bh = _tf32_trunc(a), _tf32_trunc(b)
-        al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+        (ah, al), (bh, bl) = (
+            (x.numpy() for x in fa.split_tf32_plain(torch.from_numpy(m)))
+            for m in (a, b))
     ah, al, bh, bl = (np.float64(x) for x in (ah, al, bh, bl))
     return al @ bh + ah @ bl + ah @ bh
 

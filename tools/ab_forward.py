@@ -1,12 +1,22 @@
 """Two trees of this repository side by side on one card: the build's
 seconds, K4's forwards without a softcap timed at the layer shapes of
-``PERF.md`` §6, and the SASS of the kernels both trees build.
+``PERF.md`` §6, K1's single launch at the main path's shapes and the
+tiled route of K1-K3 at 8,192 rows, and the SASS of the kernels both
+trees build.
 
 Run once per tree, each with that tree's ``src`` on ``PYTHONPATH`` and
 from its root (the tree builds its own libraries into its ``build/``),
 in the order parent, change, change, parent:
 
-    PYTHONPATH=src python tools/ab_forward.py --out build/ab_<tag>.json
+    PYTHONPATH=src python tools/ab_forward.py --out build/ab_<tag>.json \
+        [--train]
+
+With ``--train`` each record also holds K4's f32 training kernels at
+llama3.2-1b's and hymba-1.5b's training layers (the forward with lse,
+dq and dkdv through the tree's wrappers) and the f32 ``launch.train
+--full`` step of each (``chip_smoke.recording_train_steps`` of the
+tree's ``chip_smoke.py``: three steps, the last two warm), on a seeded
+uniform token corpus (the step's time does not depend on the tokens).
 
 and then compare the four records (the first record of each tree has
 the cold build):
@@ -46,10 +56,20 @@ SHAPES = (
     ("phi4-mini-f32", (1, 2048, 24, 128), (1, 2048, 8, 128), True, 0,
      "f32"),
 )
-# the kernels whose SASS both trees hold: K1-K3's single launches, K4's
-# forwards and its two backward pairs
+# the kernels whose SASS both trees hold: K1-K3, K4's forwards and its
+# two backward pairs, K5 and its backward
 SASS_LIBRARIES = ("fedagg", "flash_attention", "flash_attention_bwd",
-                  "flash_attention_bwd_tc")
+                  "flash_attention_bwd_tc", "ssm_scan", "ssm_scan_bwd")
+# (name, q shape, kv shape, window) of the f32 training layers, causal
+TRAIN_LAYERS = (("llama", (2, 2048, 32, 64), (2, 2048, 8, 64), 0),
+                ("hymba", (1, 2048, 25, 64), (1, 2048, 5, 64), 1024))
+# K1 at the main path's width (full-width cnn-mnist): its cohort of 32
+# and the widest cohort the path formed; and K1-K3 past 4,096 rows
+FEDAGG_P = 1_630_090
+FEDAGG_ROWS = (32, 5)
+TILED = (8192, 131_072)
+# (arch, batch, seq) of chip_smoke.py's f32 train steps (LM_TRAIN)
+TRAIN_STEPS = (("llama3.2-1b", 2, 2048), ("hymba-1.5b", 1, 2048))
 # K4's kernel families with a CAP flag, and the template arguments they
 # have with it (the flag the last): a family's instantiations without a
 # cap keep their key from before the flag
@@ -96,7 +116,106 @@ def _sass(path: Path, nvcc: str) -> dict:
     return {k: "\n".join(v) for k, v in funcs.items()}
 
 
-def measure(out: Path) -> None:
+def fedagg_rows() -> dict:
+    """ms of K1's single launch at ``FEDAGG_ROWS`` x ``FEDAGG_P`` and of
+    K1-K3's tiled route at ``TILED``, through the tree's wrappers."""
+    import torch
+    from repro_torch.kernels import fedagg as fg
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for n in FEDAGG_ROWS:
+        u = torch.randn(n, FEDAGG_P, generator=gen, device="cuda")
+        w = torch.rand(n, generator=gen, device="cuda") + 0.1
+        rows[f"fedagg_n{n}"] = _ms(lambda: fg.fedagg(u, w))
+        del u
+    n, p = TILED
+    u = torch.randn(n, p, generator=gen, device="cuda")
+    g = torch.randn(p, generator=gen, device="cuda")
+    c = torch.rand(n, generator=gen, device="cuda") + 0.1
+    rows["tiled_fedagg"] = _ms(lambda: fg.fedagg(u, c), per_run=5)
+    rows["tiled_fedagg_fold"] = _ms(lambda: fg.fedagg_fold(u[:n - 1], g, c),
+                                    per_run=5)
+    rows["tiled_fedagg_partial"] = _ms(lambda: fg.fedagg_partial(u, c),
+                                       per_run=5)
+    del u
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_kernels() -> dict:
+    """ms of K4's f32 forward with lse, dq and dkdv at each training
+    layer, through the tree's own wrappers."""
+    import math
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    rows = {}
+    for name, qs, ks, window in TRAIN_LAYERS:
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        q, do = (torch.randn(qs, generator=gen, device="cuda")
+                 for _ in "qd")
+        k, v = (torch.randn(ks, generator=gen, device="cuda")
+                for _ in "kv")
+        o, lse, _ = fa._kernel_forward(q, k, v, True, window, 0,
+                                       with_lse=True)
+        lib = fa._bwd_lib(torch.float32)
+        b, s, h, d = qs
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        delta = torch.empty((b, h, s), device="cuda")
+        args = (b, s, ks[1], h, ks[2], d, 1, window, 0, 1.0 / math.sqrt(d))
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def dq_kernel():
+            lib.flash_attention_bwd_dq_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), *args, stream, 0.0)
+
+        def dkdv_kernel():
+            lib.flash_attention_bwd_dkdv_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), *args, stream, 0.0)
+
+        dq_kernel()
+        rows[name] = {
+            "fwd_lse": _ms(lambda: fa._kernel_forward(
+                q, k, v, True, window, 0, with_lse=True)),
+            "dq": _ms(dq_kernel), "dkdv": _ms(dkdv_kernel)}
+        rows[name]["pair"] = rows[name]["dq"] + rows[name]["dkdv"]
+        del q, k, v, do, o, lse, dq, dk, dv
+    return rows
+
+
+def train_steps() -> dict:
+    """Warm s/step of the f32 ``launch.train --full`` step of each
+    ``TRAIN_STEPS`` arch (the median of steps 2 and 3)."""
+    import numpy as np
+    import torch
+    import chip_smoke
+    from repro_torch.launch import train as train_mod
+
+    def corpus(vocab, n, seed=0, order=2):
+        rng = np.random.default_rng(seed)
+        return rng.integers(0, vocab, n).astype(np.int32)
+
+    rows = {}
+    for arch, b, s in TRAIN_STEPS:
+        record = {}
+        torch.cuda.empty_cache()
+        with chip_smoke.recording_train_steps(record), chip_smoke.patched(
+                train_mod, "make_token_dataset", corpus):
+            train_mod.main(["--arch", arch, "--full", "--batch", str(b),
+                            "--seq", str(s), "--steps", "3",
+                            "--log-every", "1"])
+        rows[arch] = {"step_s": record["step_s"],
+                      "warm_s_per_step": statistics.median(
+                          record["step_s"][1:])}
+        record.clear()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def measure(out: Path, train: bool = False) -> None:
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
@@ -119,17 +238,20 @@ def measure(out: Path) -> None:
         rows[name] = _ms(lambda: fa.flash_attention(
             q, k, v, causal=causal, window=window))
         del q, k, v
+    rows.update(fedagg_rows())
     sizes = {f"{dt}_d{d}": fa.fwd_sizes(d, dtype) for d in fa.HEAD_DIMS
              for dt, dtype in (("f32", torch.float32),
                                ("bf16", torch.bfloat16))}
+    extra = ({"train_ms": train_kernels(), "train_steps": train_steps()}
+             if train else {})
     nvcc = _build._nvcc()
     sass = {lib: _sass(libs[lib], nvcc) for lib in SASS_LIBRARIES}
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"card": card, "build_s": build_s,
                                "ms": rows, "fwd_sizes": sizes,
-                               "sass": sass}))
+                               "sass": sass, **extra}))
     print(json.dumps({"out": str(out), "card": card, "build_s": build_s,
-                      "ms": rows}), flush=True)
+                      "ms": rows, **extra}), flush=True)
 
 
 def _by_template(funcs: dict) -> dict:
@@ -167,7 +289,25 @@ def compare(paths) -> None:
         report["ms"][name] = {"parent": [p1["ms"][name], p2["ms"][name]],
                               "change": [c1["ms"][name], c2["ms"][name]],
                               "change_over_parent": chg / par}
+    if "train_ms" in p1 and "train_ms" in c1:
+        report["train"] = {}
+        for name in p1["train_ms"]:
+            for key in p1["train_ms"][name]:
+                par = min(p1["train_ms"][name][key],
+                          p2["train_ms"][name][key])
+                chg = min(c1["train_ms"][name][key],
+                          c2["train_ms"][name][key])
+                report["train"][f"{name}.{key}"] = {
+                    "parent": par, "change": chg,
+                    "change_over_parent": chg / par}
+        for arch in p1["train_steps"]:
+            par, chg = (min(t["train_steps"][arch]["warm_s_per_step"]
+                            for t in pair) for pair in ((p1, p2), (c1, c2)))
+            report["train"][f"{arch}.s_per_step"] = {
+                "parent": par, "change": chg, "change_over_parent": chg / par}
     for lib in SASS_LIBRARIES:
+        if lib not in p1["sass"] or lib not in c1["sass"]:
+            continue
         a, b = (_by_template(t["sass"][lib]) for t in (p1, c1))
         both = sorted(set(a) & set(b))
         report["sass"][lib] = {
@@ -183,11 +323,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path)
     ap.add_argument("--compare", nargs=4, metavar="JSON")
+    ap.add_argument("--train", action="store_true",
+                    help="also K4's f32 training kernels and the f32 "
+                         "train steps")
     args = ap.parse_args(argv)
     if args.compare:
         compare(args.compare)
     elif args.out:
-        measure(args.out)
+        measure(args.out, args.train)
     else:
         ap.error("--out or --compare")
     return 0

@@ -2,7 +2,7 @@
 """Variants of K4's f32 backward kernels (dq, dkdv) on one GPU, timed in
 turns.
 
-    python3 tools/k4_bwd_variants.py [--only v0,rna,rnahi] [--scaled]
+    python3 tools/k4_bwd_variants.py [--only v0,trunc,rna] [--scaled]
                                      [--baseline NAME=FILE.cu ...]
 
 Each variant is the committed ``src/repro_torch/kernels/csrc/
@@ -25,21 +25,51 @@ launched directly, in turns: the variants in order, then reversed.  The
 last line of standard output is one JSON object of the times and the
 checks.  Needs one CUDA card and nvcc; exits non-zero otherwise or when
 a variant disagrees.  (The one-TF32-product fault is a mutant of
-``tools/block_grad_mutants.py``: ``fa_tf32_single``.)  With
-``--scaled``, each variant's gradients at llama3.2-1b's training layer
-(q (2,2048,32,64), kv 8, causal), with the cap of 50 and without, on
-normal q scaled by 1 and by 100, through ``flash_attention`` (the
-committed forward with lse, the variant's pair): each gradient's max
-abs distance from autograd of the f32 twin and from an f64 answer, and
-the twin's from that answer (reported, not gated).
+``tools/block_grad_mutants.py``: ``fa_tf32_single``.)
 
-Variants:
-  v0        the committed kernels (hi = x with its low 13 mantissa bits
-            cleared, lo = x - hi passed whole)
+With ``--scaled`` each variant's pair goes with a forward built with the
+same patch (``csrc/flash_attention.cu`` and its softcap launches, the
+variant's patch of the split or of the split product applied to it too;
+the committed forward for the other variants), so the pair recomputes S
+as the forward that summed its lse formed it.  Each variant then also
+runs the capped forward (cap 50) on normal q x 1 and x 100 at
+llama3.2-1b's serving layer (q (2,4096,32,64), kv 8, causal; three
+draws of q x 100) and on q x 100 at every head dim under
+``chip_smoke.SOFTCAP_MASKS``: the output's max abs distance from the f32
+twin and from an f64 answer, the twin's, and their ratio (the gate of
+``chip_smoke.check_against_f64``); its gradients at the training layer
+(q (2,2048,32,64), kv 8, causal), with the cap of 50 and without, on q x
+1 and x 100, against autograd of the twin and an f64 answer (reported,
+not gated); and the forward with lse is timed beside the pair at
+``FA_BWD_LAYERS``.  ``tools/k4_variants.py --scaled`` runs this same
+mode on its f32 split variants.
+
+Variants (each but the last six also patches the forward under --scaled):
+  v0        the committed kernels: csrc/tf32_split.cuh (hi and lo each
+            rounded to nearest by an integer add and a mask), the score
+            products (S, dP) summed from zero a k-step and added in f32
+  trunc     the first split: hi = x with its low 13 mantissa bits
+            cleared, lo = x - hi passed whole (truncated by the product)
   rna       hi and lo each rounded by cvt.rna.tf32.f32 (the textbook
             split)
   rnahi     hi rounded to nearest by an integer add before the mask,
             lo = x - hi passed whole
+  rn5       v0's split without the clamp that keeps a NaN in lo
+  lolo      v0 with a fourth TF32 product, lo.lo, in every split product
+  chained   the score products chained on the tensor cores, every
+            k-step added to the running sum there
+  trunc_chained
+            trunc and chained: the first design's arithmetic
+  all_from_zero
+            every split product summed from zero and added in f32
+  scores_per_16
+            the score products summed from zero over each 16-wide step
+            (two k-steps) in place of each k-step
+  unrolled  the score products' k-steps unrolled as the chained ones
+            were (ptxas spills: v0 holds one k-step of 16 at a time up
+            to D = 64, two 8-key slices of prod_cb at D = 192)
+  chained_pair
+            v0's forward, the pair's score products chained
   wu1, wu2  at D = 128 and 192, the S and dP products' k-steps of 16
             unrolled 1 or 2 at a time (the committed kernels: 4)
   kv32      dkdv at D = 128 on q tiles of 32 rows (16 a warp of the pair;
@@ -67,7 +97,17 @@ sys.path.insert(0, str(ROOT))
 OUT = ROOT / "build" / "k4_bwd_variants"
 SOURCE = ROOT / "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 
-SPLIT = """    hi = __float_as_uint(x) & 0xffffe000u;
+FWD_SOURCE = SOURCE.parent / "flash_attention.cu"
+# each f32 source's include of the shared split (csrc/tf32_split.cuh),
+# which a split variant replaces with its own tf32_split
+SPLIT_INCLUDE = {
+    "pair": '#include "tf32_split.cuh"    // tf32_split: the forward\'s split\n',
+    "forward": '#include "tf32_split.cuh"    // tf32_split: the f32 '
+               'kernels\' operands\n'}
+# tf32_split's bodies: the first split (hi truncated, lo passed whole and
+# truncated by the product), cvt.rna for both parts, and hi alone
+# rounded by an integer add
+TRUNC = """    hi = __float_as_uint(x) & 0xffffe000u;
     lo = __float_as_uint(x - __uint_as_float(hi));"""
 RNA = """    asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));
     const float rest = x - __uint_as_float(hi);
@@ -75,14 +115,137 @@ RNA = """    asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));
 RNA_HI = """    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
     lo = __float_as_uint(x - __uint_as_float(hi));"""
 
+
+def own_split(body, where="pair"):
+    """(anchor, replacement): the source's include of the shared split
+    replaced by a tf32_split of ``body``."""
+    return (SPLIT_INCLUDE[where],
+            "__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,"
+            "\n                                           uint32_t& lo) {\n"
+            f"{body}\n}}\n")
+
+
+# v0's split without the clamp that keeps a NaN in lo
+RN5 = """    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;"""
+
+# every split product's three TF32 products summed from zero on the tensor
+# cores and added to the running sum in f32 (v0: the score products only)
+ALL_FROM_ZERO = {"pair": ("    mma_tf32(d, al, bh0, bh1);\n"
+                          "    mma_tf32(d, ah, bl0, bl1);\n"
+                          "    mma_tf32(d, ah, bh0, bh1);\n",
+                          "    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};\n"
+                          "    mma_tf32(t, al, bh0, bh1);\n"
+                          "    mma_tf32(t, ah, bl0, bl1);\n"
+                          "    mma_tf32(t, ah, bh0, bh1);\n"
+                          "    d[0] += t[0]; d[1] += t[1]; d[2] += t[2]; "
+                          "d[3] += t[3];\n")}
+ALL_FROM_ZERO["forward"] = tuple(x.replace("mma_tf32(", "fa_mma_tf32(")
+                                 for x in ALL_FROM_ZERO["pair"])
+
+# the score products' call sites: the pair's prod_abt (S and dP), the
+# forward's S at D <= 64 and above
+SCORE_SITES = {
+    "pair": ["            mma3_from_zero(acc[n], a0h, a0l, bh[0], bh[1], bl[0], "
+             "bl[1]);\n"
+             "            mma3_from_zero(acc[n], a1h, a1l, bh[2], bh[3], bl[2], "
+             "bl[3]);\n"],
+    "forward": ["                fa_mma3_from_zero(sc[n], ah0, al0, bhi[0], "
+                "bhi[1], blo[0],\n"
+                "                                  blo[1]);\n"
+                "                fa_mma3_from_zero(sc[n], ah1, al1, bhi[2], "
+                "bhi[3], blo[2],\n"
+                "                                  blo[3]);\n",
+                "            fa_mma3_from_zero(acc[n], a0h, a0l, bhi[0], bhi[1], "
+                "blo[0],\n"
+                "                              blo[1]);\n"
+                "            fa_mma3_from_zero(acc[n], a1h, a1l, bhi[2], bhi[3], "
+                "blo[2],\n"
+                "                              blo[3]);\n"]}
+
+
+def chained(where):
+    """The score products chained on the tensor cores (the first design):
+    every k-step's products added to the running sum there."""
+    name = "fa_mma3" if where == "forward" else "mma3"
+    return [(site, site.replace(f"{name}_from_zero(", f"{name}("))
+            for site in SCORE_SITES[where]]
+
+
+def scores_per_16(where):
+    """The score products summed from zero over both k-steps of each
+    16-wide step (six TF32 products), then one f32 add."""
+    name = "fa_mma3" if where == "forward" else "mma3"
+    define = (f"__device__ __forceinline__ void {name}_from_zero(",
+              f"__device__ __forceinline__ void {name}_from_zero2("
+              "float (&d)[4],\n"
+              "    const uint32_t (&ah)[4], const uint32_t (&al)[4],\n"
+              "    const uint32_t (&ah2)[4], const uint32_t (&al2)[4],\n"
+              "    const uint32_t (&bh)[4], const uint32_t (&bl)[4]) {\n"
+              "    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};\n"
+              f"    {name}(t, ah, al, bh[0], bh[1], bl[0], bl[1]);\n"
+              f"    {name}(t, ah2, al2, bh[2], bh[3], bl[2], bl[3]);\n"
+              "    d[0] += t[0]; d[1] += t[1]; d[2] += t[2]; d[3] += t[3];\n"
+              "}\n\n"
+              f"__device__ __forceinline__ void {name}_from_zero(")
+    if where == "pair":
+        return [define, (SCORE_SITES["pair"][0],
+                         "            mma3_from_zero2(acc[n], a0h, a0l, a1h, "
+                         "a1l, bh, bl);\n")]
+    narrow, wide = SCORE_SITES["forward"]
+    return [define,
+            (narrow, "                fa_mma3_from_zero2(sc[n], ah0, al0, ah1, "
+                     "al1, bhi, blo);\n"),
+            (wide, "            fa_mma3_from_zero2(acc[n], a0h, a0l, a1h, a1l, "
+                   "bhi, blo);\n")]
+
+
+# the score products' k-steps unrolled as far as the chained products'
+# were (v0 keeps one k-step of 16 at a time up to D = 64 and two 8-key
+# slices at a time in prod_cb at D = 192, so that nothing spills)
+UNROLLED = {"pair": [("template <int D, int N = 8, int U = 1>",
+                      "template <int D, int N = 8, int U = (D <= 64 ? D / 16 "
+                      ": 1)>"),
+                     ("#pragma unroll (D == 192 ? 2 : KS)\n",
+                      "#pragma unroll\n")],
+            "forward": [("#pragma unroll 1\n        for (int k0 = 0; k0 < D; "
+                         "k0 += 16) {\n",
+                         "#pragma unroll\n        for (int k0 = 0; k0 < D; "
+                         "k0 += 16) {\n")]}
+
+# a fourth TF32 product, lo.lo, first in each split product
+LOLO = {"pair": ("    mma_tf32(d, al, bh0, bh1);\n",
+                 "    mma_tf32(d, al, bl0, bl1);\n"
+                 "    mma_tf32(d, al, bh0, bh1);\n"),
+        "forward": ("    fa_mma_tf32(d, al, bh0, bh1);\n",
+                    "    fa_mma_tf32(d, al, bl0, bl1);\n"
+                    "    fa_mma_tf32(d, al, bh0, bh1);\n")}
+
 UNROLL = "#define FB_WIDE_UNROLL 4"
 MROWS = "return D <= 80 ? 64 : D == 128 ? (DKDV ? 48 : 64) : 32;"
+
+
+def split_variants(where):
+    """name -> the patches of the variants of the split and of the split
+    product, on the pair's or the forward's source."""
+    return {"trunc": [own_split(TRUNC, where)],
+            "rna": [own_split(RNA, where)],
+            "rnahi": [own_split(RNA_HI, where)],
+            "rn5": [own_split(RN5, where)],
+            "lolo": [LOLO[where]],
+            "chained": chained(where),
+            "trunc_chained": [own_split(TRUNC, where)] + chained(where),
+            "all_from_zero": [ALL_FROM_ZERO[where]],
+            "unrolled": UNROLLED[where],
+            "scores_per_16": scores_per_16(where)}
+
 
 # name -> [(anchor, replacement)]; each anchor occurs once
 VARIANTS = {
     "v0": [],
-    "rna": [(SPLIT, RNA)],
-    "rnahi": [(SPLIT, RNA_HI)],
+    **split_variants("pair"),
+    # the forward as v0's, the pair's score products chained
+    "chained_pair": chained("pair"),
     "wu1": [(UNROLL, "#define FB_WIDE_UNROLL 1")],
     "wu2": [(UNROLL, "#define FB_WIDE_UNROLL 2")],
     "kv32": [(MROWS, MROWS.replace("(DKDV ? 48 : 64)",
@@ -106,10 +269,19 @@ def with_softcap(src):
     return src + CAPPED if "fb_dq_softcap" in src else src
 
 
-def patched(name):
-    """The variant's source text."""
-    src = SOURCE.read_text()
-    for old, new in VARIANTS[name]:
+# the forward's text for each variant that changes the split or the
+# split product: the same patch, so the pair recomputes S as the forward
+# that summed its lse formed it; every other variant (chained_pair among
+# them) takes the committed forward
+FWD_VARIANTS = split_variants("forward")
+# the forward's softcap launches (flash_attention_softcap.cu after its
+# include of flash_attention.cu), appended to a forward's text
+FWD_CAPPED = (SOURCE.parent / "flash_attention_softcap.cu").read_text() \
+    .split('#include "flash_attention.cu"', 1)[1]
+
+
+def _apply(name, src, patches):
+    for old, new in patches:
         if src.count(old) != 1:
             raise SystemExit(f"k4_bwd_variants: {name}: anchor not found "
                              f"once: {old[:60]!r}")
@@ -117,15 +289,30 @@ def patched(name):
     return src
 
 
-def build(sources):
-    """name -> library path; prints each kernel's registers and spills."""
+def patched(name):
+    """The variant's source text."""
+    return _apply(name, SOURCE.read_text(), VARIANTS[name])
+
+
+def patched_forward(name):
+    """The forward's source text that goes with the variant's pair."""
+    return _apply(name, FWD_SOURCE.read_text(), FWD_VARIANTS.get(name, []))
+
+
+def build(sources, forwards=None):
+    """name -> library path; prints each kernel's registers and spills.
+    ``forwards`` (name -> forward text), each built beside as
+    ``libfwd_<name>.so`` with its softcap launches."""
     from repro_torch.kernels import _build
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     procs = {}
-    for name, text in sources.items():
+    units = {**{n: with_softcap(t) for n, t in sources.items()},
+             **{f"fwd_{n}": t + FWD_CAPPED
+                for n, t in (forwards or {}).items()}}
+    for name, text in units.items():
         cu = OUT / f"{name}.cu"
-        cu.write_text(with_softcap(text))
+        cu.write_text(text)
         procs[name] = subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-shared", "-Xptxas", "-v", "-o",
              str(OUT / f"lib{name}.so"), str(cu)],
@@ -137,7 +324,7 @@ def build(sources):
             raise SystemExit(f"k4_bwd_variants: {name} failed to build:\n"
                              f"{out}")
         kernels = re.findall(
-            r"Compiling entry function '_Z\d+(fa_bwd_\w+?_kernel)I"
+            r"Compiling entry function '_Z\d+(fa_(?:bwd_\w+?|fwd_f32)_kernel)I"
             r"((?:L[ib]\d+E)+)E.*?(\d+) bytes spill stores.*?Used (\d+) "
             r"registers", out, re.S)
         print(json.dumps({"variant": name, "ptxas": [
@@ -149,10 +336,13 @@ def build(sources):
     return libs
 
 
-def use(path):
-    """Route the wrapper to the library at ``path``; return it."""
+def use(path, forward=None):
+    """Route the wrapper to the pair's library at ``path`` (and, given
+    one, to the forward's at ``forward``); return the pair's."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    if forward is not None:
+        _build._LIBS["flash_attention"] = ctypes.CDLL(str(forward))
     lib = ctypes.CDLL(str(path))
     for fn in (lib.flash_attention_bwd_dq_f32,
                lib.flash_attention_bwd_dkdv_f32):
@@ -173,6 +363,16 @@ CASES = (("group5-130-causal", (2, 130, 130, 5, 1, 64), {}),
          ("llama-layer", (2, 2048, 2048, 32, 8, 64), {}))
 
 
+# name -> the forward library built with the variant's split (--scaled)
+FORWARDS = {}
+
+
+def route(name):
+    """Route the wrapper to the variant's pair (and, under --scaled, its
+    forward); return the pair's library."""
+    return use(OUT / f"lib{name}.so", FORWARDS.get(name))
+
+
 def check(smoke, names):
     """Each variant against autograd of the plain twin; returns name ->
     {case: errors or the failure}, and whether every variant passed."""
@@ -187,7 +387,7 @@ def check(smoke, names):
                               r(b, t, hkv, d), r(b, s, h, d)), kw))
     out, ok = {}, True
     for name in names:
-        use(OUT / f"lib{name}.so")
+        route(name)
         out[name] = {}
         for case, ins, kw in inputs:
             try:
@@ -204,7 +404,7 @@ def check(smoke, names):
 
 def times(smoke, names):
     """(dq ms, dkdv ms) of each variant at each training shape, in
-    turns."""
+    turns; under --scaled also its forward with lse (fwd ms)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     res = {}
@@ -222,9 +422,11 @@ def times(smoke, names):
         delta = torch.empty((b, h, s), device="cuda")
         args = (b, s, t, h, hkv, d, int(causal), window, 0,
                 1.0 / math.sqrt(d))
-        res[arch] = {n: {"dq": [], "dkdv": []} for n in names}
+        res[arch] = {n: {"dq": [], "dkdv": [],
+                         **({"fwd": []} if n in FORWARDS else {})}
+                     for n in names}
         for name in list(names) + list(reversed(names)):
-            lib = use(OUT / f"lib{name}.so")
+            lib = route(name)
 
             def dq_kernel():
                 lib.flash_attention_bwd_dq_f32(
@@ -245,6 +447,11 @@ def times(smoke, names):
                 smoke.median_ms(dq_kernel, runs=5, per_run=3))
             res[arch][name]["dkdv"].append(
                 smoke.median_ms(dkdv_kernel, runs=5, per_run=3))
+            if name in FORWARDS:
+                res[arch][name]["fwd"].append(smoke.median_ms(
+                    lambda: fa._kernel_forward(q, k, v, causal, window, 0,
+                                               with_lse=True),
+                    runs=5, per_run=3))
         print(json.dumps({"arch": arch, "ms_turns": res[arch]}), flush=True)
     return res
 
@@ -281,10 +488,106 @@ def f64_grads(q, k, v, do, cap):
     return [torch.stack(x) for x in out]
 
 
+# llama3.2-1b's serving layer: (b, s, h, hkv, d), causal, the cap 50
+SERVE_SHAPE = (2, 4096, 32, 8, 64)
+
+
+def _vs_f64(got, twin, exact):
+    """The kernel's and the twin's max abs and root-mean-square distances
+    from the f64 answer, and their ratios."""
+    kd, td = got.double() - exact, twin.double() - exact
+    row = {"kernel_vs_twin": float((got.float() - twin).abs().max()),
+           "kernel_vs_f64": float(kd.abs().max()),
+           "twin_vs_f64": float(td.abs().max()),
+           "kernel_rms_vs_f64": float(kd.square().mean().sqrt()),
+           "twin_rms_vs_f64": float(td.square().mean().sqrt())}
+    row["kernel_over_twin_vs_f64"] = (row["kernel_vs_f64"]
+                                      / max(row["twin_vs_f64"], 1e-30))
+    row["kernel_over_twin_rms"] = (row["kernel_rms_vs_f64"]
+                                   / max(row["twin_rms_vs_f64"], 1e-30))
+    return row
+
+
+def exact_scores_twin(q, k, v, cap, **kw):
+    """``gqa_plain``'s f32 arithmetic from the raw scores q.k computed in
+    f64 and rounded once to f32: how far the twin's own f32 scores move
+    its distance from the f64 answer."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, d = q.shape
+    kx, vx = (fa.repeat_kv_heads(x, h) for x in (k, v))
+    sc = torch.einsum("bshd,bthd->bhst", q.double(), kx.double()).float()
+    sc = fa.softcap_scores(sc / math.sqrt(d), cap)
+    m = fa._mask(s, k.shape[1], kw.get("causal", True), kw.get("window", 0),
+                 kw.get("q_offset", 0), q.device)
+    sc = torch.where(m, sc, torch.full((), fa.NEG, device=q.device))
+    return torch.einsum("bhst,bthd->bshd", torch.softmax(sc, dim=-1),
+                        vx.float())
+
+
+def scaled_forward(smoke, names, draws=1):
+    """Per variant: the capped forward (cap 50) on normal q x 1 and x 100
+    at llama's serving layer (three draws of q x 100), and on q x 100 at
+    every head dim under ``chip_smoke.SOFTCAP_MASKS`` (the cases of
+    ``softcap_checks``; ``draws`` draws of each): its max abs distance
+    from the f32 twin and from an f64 answer, the twin's from it, and
+    their ratio (the chip_smoke gate: at most ``F32_LARGE_TERM_RATIO`` on
+    q x 100)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    cap = smoke.SERVE_SOFTCAP
+    cases = []
+    b, s, h, hkv, d = SERVE_SHAPE
+    for seed, factors in ((10, SCALED_FACTORS), (11, (100.0,)),
+                          (12, (100.0,))):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        q = torch.randn(b, s, h, d, generator=gen, device="cuda")
+        k, v = (torch.randn(b, s, hkv, d, generator=gen, device="cuda")
+                for _ in "kv")
+        cases += [(f"llama-serve-seed{seed}-q_x{f:g}", q * f, k, v,
+                   dict(causal=True)) for f in factors]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for draw in range(draws):
+        for d in smoke.HEAD_DIMS:
+            for b, s, t, h, hkv, causal, window, off in smoke.SOFTCAP_MASKS:
+                q = torch.randn(b, s, h, d, generator=gen, device="cuda")
+                k, v = (torch.randn(b, t, hkv, d, generator=gen,
+                                    device="cuda") for _ in "kv")
+                cases.append((f"d{d}-{'causal' if causal else 'full'}"
+                              f"-w{window}-off{off}-draw{draw}-q_x100",
+                              q * 100.0, k, v,
+                              dict(causal=causal, window=window,
+                                   q_offset=off)))
+    truth, ideal = [], {}
+    for case, q, k, v, kw in cases:
+        twin = fa.gqa_plain(q, k, v, softcap=cap, **kw)
+        exact = smoke.f64_attention(q, k, v, cap, **kw)
+        truth.append((twin, exact))
+        ideal[case] = float((exact_scores_twin(q, k, v, cap, **kw).double()
+                             - exact).abs().max())
+    res = {}
+    for name in names:
+        route(name)
+        res[name] = {}
+        for (case, q, k, v, kw), (twin, exact) in zip(cases, truth):
+            got = fa.flash_attention(q, k, v, softcap=cap, **kw)
+            res[name][case] = {**_vs_f64(got, twin, exact),
+                               "exact_scores_twin_vs_f64": ideal[case]}
+        gated = sorted(r["kernel_over_twin_vs_f64"]
+                       for c, r in res[name].items() if "q_x100" in c)
+        res[name]["worst_ratio_on_q_x100"] = gated[-1]
+        res[name]["cases_over_1_5"] = sum(x > 1.5 for x in gated)
+        res[name]["cases_on_q_x100"] = len(gated)
+        print(json.dumps({"variant": name, "forward": res[name]}),
+              flush=True)
+    return res
+
+
 def scaled(smoke, names):
     """Per variant, cap and q factor: each gradient's max abs distance
     from the f32 twin's (autograd of ``gqa_plain``) and from an f64
-    answer, and the twin's from it."""
+    answer, and the twin's from it (through ``flash_attention``: the
+    variant's forward with lse and its pair)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     b, s, h, hkv, d = SCALED_SHAPE
@@ -308,7 +611,7 @@ def scaled(smoke, names):
                 "f64_max": {t: float(e.abs().max())
                             for t, e in zip(("dq", "dk", "dv"), exact)}}
             for name in names:
-                use(OUT / f"lib{name}.so")
+                route(name)
                 ins = [x.detach().requires_grad_(True) for x in (qs, k, v)]
                 got = torch.autograd.grad(
                     fa.flash_attention(*ins, softcap=cap), ins, do)
@@ -323,32 +626,24 @@ def scaled(smoke, names):
     return res
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--only", default=",".join(VARIANTS),
-                    help="comma-separated variants (default: all)")
-    ap.add_argument("--baseline", action="append", default=[],
-                    help="NAME=FILE.cu: another source as variant NAME")
-    ap.add_argument("--scaled", action="store_true",
-                    help="the gradients on q x 1 and x 100 at llama's "
-                         "training layer, with and without the cap, "
-                         "against the twin and an f64 answer")
-    args = ap.parse_args(argv)
-    names = [n for n in args.only.split(",") if n]
+def run(names, baselines=None, with_scaled=False, draws=1):
+    """Build, check and time the variants ``names`` (and each baseline
+    NAME -> source text); with ``with_scaled``, each variant's forward
+    built with its split too, and the scaled errors.  Returns the
+    result and whether every check passed."""
+    import torch
     unknown = [n for n in names if n not in VARIANTS]
     if unknown:
         raise SystemExit(f"k4_bwd_variants: unknown {unknown}")
     sources = {n: patched(n) for n in names}
-    for spec in args.baseline:
-        name, _, path = spec.partition("=")
-        if not name or not path or name in sources:
-            raise SystemExit(f"k4_bwd_variants: --baseline {spec!r}: want "
-                             f"a new NAME=FILE.cu")
-        sources[name] = Path(path).read_text()
-    import torch
+    for name, text in (baselines or {}).items():
+        if name in sources:
+            raise SystemExit(f"k4_bwd_variants: --baseline {name}: want a "
+                             f"new NAME")
+        sources[name] = text
     if not torch.cuda.is_available():
         print("k4_bwd_variants: no CUDA device", file=sys.stderr)
-        return 1
+        return None, False
     import chip_smoke as smoke
     from repro_torch import set_full_f32
     set_full_f32()
@@ -356,13 +651,49 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
-    build(sources)
+    forwards = ({n: patched_forward(n) if n in VARIANTS
+                 else FWD_SOURCE.read_text() for n in sources}
+                if with_scaled else None)
+    libs = build(sources, forwards)
+    FORWARDS.clear()
+    FORWARDS.update({n: libs[f"fwd_{n}"] for n in forwards or {}})
     checks, ok = check(smoke, list(sources))
     res = times(smoke, list(sources))
-    sc = scaled(smoke, list(sources)) if args.scaled else {}
+    sc = ({"forward": scaled_forward(smoke, list(sources), draws),
+           "gradients": scaled(smoke, list(sources))}
+          if with_scaled else {})
     print(card, flush=True)
-    print(json.dumps({"card": card, "checks": checks, "ms_turns": res,
-                      "scaled": sc}), flush=True)
+    return {"card": card, "checks": checks, "ms_turns": res,
+            "scaled": sc}, ok
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default=",".join(VARIANTS),
+                    help="comma-separated variants (default: all)")
+    ap.add_argument("--baseline", action="append", default=[],
+                    help="NAME=FILE.cu: another source as variant NAME")
+    ap.add_argument("--scaled", action="store_true",
+                    help="each variant's forward built with its split "
+                         "too; the capped forward on q x 1 and x 100 at "
+                         "llama's serving layer and the gradients at its "
+                         "training layer, with and without the cap, "
+                         "against the twin and an f64 answer")
+    ap.add_argument("--draws", type=int, default=1,
+                    help="--scaled: draws of each small forward case")
+    args = ap.parse_args(argv)
+    baselines = {}
+    for spec in args.baseline:
+        name, _, path = spec.partition("=")
+        if not name or not path:
+            raise SystemExit(f"k4_bwd_variants: --baseline {spec!r}: want "
+                             f"a new NAME=FILE.cu")
+        baselines[name] = Path(path).read_text()
+    out, ok = run([n for n in args.only.split(",") if n], baselines,
+                  args.scaled, args.draws)
+    if out is None:
+        return 1
+    print(json.dumps(out), flush=True)
     return 0 if ok else 1
 
 

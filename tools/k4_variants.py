@@ -31,12 +31,13 @@ others, ``WIDE`` below, also run ``chip_smoke.WIDE_HEAD_CASES`` and the
 wide shapes.  v0 and the f32 variants are built with their own softcap
 instantiations (``flash_attention_softcap.cu``'s launches appended to
 the variant's text); every other source gets a stub that refuses a cap.
-With ``--scaled``, v0 and each f32 variant run the f32 softcap forward
-at llama3.2-1b's serving layer (q (2,4096,32,64), kv 8, causal, cap 50)
-on normal q scaled by 1 and by 100 (``chip_smoke._scaled_q_errors``:
-its distance from the f32 twin and from an f64 answer, the twin's from
-that answer), and time it and the forward without a cap there, in
-turns.
+With ``--scaled``, v0 and each f32 variant of the split (``SPLIT_OF``)
+run ``tools/k4_bwd_variants.py``'s scaled mode: the forward and the
+backward pair built together with the same split, the capped forward on
+normal q x 1 and x 100 at llama3.2-1b's serving layer and the gradients
+at its training layer against the f32 twin and an f64 answer
+(``chip_smoke._scaled_q_errors``), the forward with lse and the pair
+timed in turns at the training layers.
 
 Variants:
   v0                  the committed kernel (softmax under the previous
@@ -69,10 +70,12 @@ Variants:
   keys64              (D = 192) 64-key tiles in a 3-stage ring
   f32_keys32          the f32 kernel at D = 192 on 32-key tiles
   f32_unroll2         the f32 kernel above D = 64, S's k-steps unrolled 2
-  f32_rna             the f32 kernel's split TF32 rounded to nearest: hi =
-                      cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi) (v0: hi
-                      by masking, lo passed whole and truncated by the
-                      TF32 product; both cuts toward zero)
+  f32_trunc           the f32 forward's first split (the pair keeps the
+                      committed one): hi by masking, lo passed whole and
+                      truncated by the TF32 product; both cuts toward zero
+  f32_rna             hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi) (v0:
+                      csrc/tf32_split.cuh, both rounded to nearest by an
+                      integer add and a mask)
   f32_rnahi           hi rounded to nearest by an integer add before the
                       mask, lo = x - hi passed whole (of either sign)
   no_softmax          (ablation) products, no softmax
@@ -86,6 +89,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import subprocess
 import sys
@@ -703,24 +707,38 @@ def f32_unroll2(src):
     return replace(src, "#define FA_WIDE_UNROLL 4", "#define FA_WIDE_UNROLL 2")
 
 
-# fa_split_tf32's body, and its two round-to-nearest versions
-SPLIT = """    hi = __float_as_uint(x) & 0xffffe000u;
-    lo = __float_as_uint(x - __uint_as_float(hi));"""
-SPLIT_RNA = """    asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));
-    const float rest = x - __uint_as_float(hi);
-    asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(rest));"""
-SPLIT_RNA_HI = """    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-    lo = __float_as_uint(x - __uint_as_float(hi));"""
+def _bwd_tool():
+    """tools/k4_bwd_variants.py, which holds the split bodies and the
+    scaled mode both tools run."""
+    spec = importlib.util.spec_from_file_location(
+        "k4_bwd_variants", Path(__file__).with_name("k4_bwd_variants.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+KBV = _bwd_tool()
+
+
+def _own_split(src, body, name):
+    """The forward's include of the shared split replaced by a tf32_split
+    of ``body`` (the pair keeps the shared one)."""
+    return KBV._apply(name, src, [KBV.own_split(body, "forward")])
+
+
+def f32_trunc(src):
+    """The f32 kernel's first split: hi truncated, lo whole."""
+    return _own_split(src, KBV.TRUNC, "f32_trunc")
 
 
 def f32_rna(src):
-    """The f32 kernel's split: hi and lo each rounded to nearest."""
-    return replace(src, SPLIT, SPLIT_RNA)
+    """The f32 kernel's split: hi and lo each by cvt.rna."""
+    return _own_split(src, KBV.RNA, "f32_rna")
 
 
 def f32_rnahi(src):
     """The f32 kernel's split: hi rounded to nearest, lo whole."""
-    return replace(src, SPLIT, SPLIT_RNA_HI)
+    return _own_split(src, KBV.RNA_HI, "f32_rnahi")
 
 
 def remote_arrivals(src):
@@ -800,6 +818,7 @@ VARIANTS = {
     "keys64": ((keys64,), (), TOL),
     "f32_keys32": ((f32_keys32,), (), TOL),
     "f32_unroll2": ((f32_unroll2,), (), TOL),
+    "f32_trunc": ((f32_trunc,), (), TOL),
     "f32_rna": ((f32_rna,), (), TOL),
     "f32_rnahi": ((f32_rnahi,), (), TOL),
     "no_softmax": ((ablations,), ("-DABL_NOSOFTMAX",), None),
@@ -818,10 +837,14 @@ WIDE = ("v0", "p_single", "overlap", "pingpong_branching", "all_lanes",
         "stages4", "l2_256", "multicast", "multicast_loads_only",
         "remote_arrivals", "remote_arrivals_no_mc", "no_multicast", "depth2",
         "rescale_under_qk", "keys64", "f32_keys32", "f32_unroll2",
-        "f32_rna", "f32_rnahi", "no_softmax", "no_products", "loads_only")
+        "f32_trunc", "f32_rna", "f32_rnahi", "no_softmax", "no_products",
+        "loads_only")
 # the variants that change the f32 kernel: also checked in f32 and timed
 # at the f32 training shapes
-F32 = ("f32_keys32", "f32_unroll2", "f32_rna", "f32_rnahi")
+F32 = ("f32_keys32", "f32_unroll2", "f32_trunc", "f32_rna", "f32_rnahi")
+# the f32 variants that change the split, and the k4_bwd_variants variant
+# of the same split that --scaled runs (forward and pair together)
+SPLIT_OF = {"f32_trunc": "trunc", "f32_rna": "rna", "f32_rnahi": "rnahi"}
 
 
 def build(names, baselines=None):
@@ -928,40 +951,6 @@ def cases(gen):
     ]
 
 
-# llama3.2-1b's serving layer, f32: (b, s, h, hkv, d), causal, cap 50
-SCALED_SHAPE = (2, 4096, 32, 8, 64)
-SCALED_FACTORS = (1.0, 100.0)
-
-
-def scaled_rows(smoke, libs, names, gen):
-    """Per variant: the f32 softcap forward's errors on q x 1 and x 100
-    (``smoke._scaled_q_errors``), and the capped and uncapped f32
-    forwards timed at the layer in turns."""
-    import torch
-    from repro_torch.kernels import flash_attention as fa
-    b, s, h, hkv, d = SCALED_SHAPE
-    q = torch.randn(b, s, h, d, generator=gen, device="cuda")
-    k, v = (torch.randn(b, s, hkv, d, generator=gen, device="cuda")
-            for _ in "kv")
-    out = {}
-    for name in names:
-        use(libs[name][0])
-        out[name] = {"errors": [smoke._scaled_q_errors(q, k, v, f, False)
-                                for f in SCALED_FACTORS],
-                     "ms": [], "without_cap_ms": []}
-        print(json.dumps({"variant": name, **out[name]}), flush=True)
-    for name in names + names[::-1]:
-        use(libs[name][0])
-        out[name]["ms"].append(smoke.median_ms(
-            lambda: fa.flash_attention(q, k, v, softcap=smoke.SERVE_SOFTCAP),
-            runs=5, per_run=5))
-        out[name]["without_cap_ms"].append(smoke.median_ms(
-            lambda: fa.flash_attention(q, k, v), runs=5, per_run=5))
-    print(json.dumps({"scaled_ms": {n: [out[n]["ms"], out[n]["without_cap_ms"]]
-                                    for n in names}}), flush=True)
-    return out
-
-
 def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -976,9 +965,9 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", action="append", default=[],
                     help="NAME=FILE.cu: another source as variant NAME")
     ap.add_argument("--scaled", action="store_true",
-                    help="the f32 softcap forward on q x 1 and x 100 at "
-                         "llama's serving layer, against the twin and "
-                         "an f64 answer, and timed (v0, f32 variants)")
+                    help="k4_bwd_variants.py's scaled mode on v0 and "
+                         "the f32 split variants (forward and pair with "
+                         "one split)")
     args = ap.parse_args(argv)
     names = ["v0"] + [n for n in args.only.split(",") if n and n != "v0"]
     unknown = [n for n in names if n not in VARIANTS]
@@ -1064,8 +1053,10 @@ def main(argv=None) -> int:
         print(json.dumps({"shape": shape, "ms": times[shape]}), flush=True)
     scaled = {}
     if args.scaled:
-        scaled = scaled_rows(chip_smoke, libs, [n for n in names
-                                                if n in ("v0", *F32)], gen)
+        scaled, ok = KBV.run(["v0"] + [SPLIT_OF[n] for n in names
+                                       if n in SPLIT_OF], with_scaled=True)
+        if not ok:
+            bad.append("--scaled: a split's pair failed its checks")
     prefill = {}
     if args.prefill:
         cfg, params = chip_smoke._lm_params("hymba-1.5b", torch.bfloat16)
