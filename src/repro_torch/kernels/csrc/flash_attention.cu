@@ -52,13 +52,14 @@
 //     rows padded to D+4 floats (ldmatrix rows and scalar B words free
 //     of bank conflicts); keys past T are zero-filled by the copy.
 //   * S = Q.K^T: mma.sync.m16n8k8 TF32, K's fragments by ldmatrix, each
-//     k-step's three products summed from zero and added in f32
-//     (fa_mma3_from_zero: the tensor cores round a chained sum toward
-//     zero at the running sum's magnitude, too far on scores of large
-//     terms); then * scale, the masks by select, and the online softmax
-//     on the C
-//     fragments (row max and sum over the quad that holds a row; p =
-//     expf(s - m), corr = expf(m - m_new), as the reference).
+//     k-step's three products summed from zero and added in f32 (the
+//     tensor cores round a chained sum toward zero at the running sum's
+//     magnitude, too far on scores of large terms), above D = 64 the odd
+//     k-steps in a second sum (tf32_mma.cuh: score_step, shared with the
+//     backward pair); then * scale, the masks by select, and the online
+//     softmax on the C fragments (row max and sum over the quad that
+//     holds a row; p = expf(s - m), corr = expf(m - m_new), as the
+//     reference).
 //   * O = O * corr + P.V: P leaves S as C fragments and is P.V's A
 //     operand with each 8-key slice's contraction index permuted (slot
 //     t <-> 2t, t+4 <-> 2t+1), V's rows read in that order.  Each tile's
@@ -200,6 +201,7 @@
 #include "fa_exchange.cuh"   // fx_pair_sync, fx_put, fx_get
 #include "fa_hopper.cuh"     // TMA, mbarriers, wgmma, tensor maps
 #include "tf32_split.cuh"    // tf32_split: the f32 kernels' operands
+#include "tf32_mma.cuh"      // mma3, score_step: their products
 
 // ---------------------------------------------------------------------
 // The f32 kernel: tensor cores (mma.sync TF32), split TF32
@@ -223,8 +225,9 @@ __host__ __device__ constexpr int fa_threads() {
 template <int D>
 __host__ __device__ constexpr int fa_keys() { return D <= 128 ? FA_BK : 48; }
 
-// k-steps of 16 that the wide kernel's S product unrolls
-#define FA_WIDE_UNROLL 4
+// k-steps of 16 that the wide kernel's S product unrolls (4 spilled
+// beside score_step's second sum)
+#define FA_WIDE_UNROLL 2
 
 // floats of shared memory: the K/V ring (stages x (K, V), tiles padded
 // to D+4); up to D = 64 also q's split A fragments (4 warps x D/8
@@ -273,48 +276,6 @@ __device__ __forceinline__ void fa_ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
                  "{%0, %1, %2, %3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                  : "r"(addr) : "memory");
-}
-
-__device__ __forceinline__ void fa_mma_tf32(float (&d)[4],
-                                            const uint32_t (&a)[4],
-                                            uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a . b in split TF32: the two correction terms, then hi . hi
-__device__ __forceinline__ void fa_mma3(float (&d)[4],
-                                        const uint32_t (&ah)[4],
-                                        const uint32_t (&al)[4],
-                                        uint32_t bh0, uint32_t bh1,
-                                        uint32_t bl0, uint32_t bl1) {
-    fa_mma_tf32(d, al, bh0, bh1);
-    fa_mma_tf32(d, ah, bl0, bl1);
-    fa_mma_tf32(d, ah, bh0, bh1);
-}
-
-// d += a . b as fa_mma3, the three products summed from zero on the
-// tensor cores and added to d in f32.  The score products take this: the
-// tensor cores round each sum of a chained product toward zero at the
-// running sum's magnitude, which on scores of large terms left the
-// output up to 3.7x as far from an f64 answer as the f32 twin at llama's
-// serving layer, where a k-step's sum from zero and one f32 add (rounded
-// to nearest) leave it at 0.5-0.85x (tools/k4_bwd_variants.py: chained;
-// PERF.md)
-__device__ __forceinline__ void fa_mma3_from_zero(float (&d)[4],
-                                                  const uint32_t (&ah)[4],
-                                                  const uint32_t (&al)[4],
-                                                  uint32_t bh0, uint32_t bh1,
-                                                  uint32_t bl0, uint32_t bl1) {
-    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    fa_mma3(t, ah, al, bh0, bh1, bl0, bl1);
-    d[0] += t[0];
-    d[1] += t[1];
-    d[2] += t[2];
-    d[3] += t[3];
 }
 
 template <int N>
@@ -492,10 +453,8 @@ __device__ __forceinline__ void fa_fwd_narrow(FA_FWD_PARAMS) {
 #pragma unroll
                 for (int e = 0; e < 4; ++e)
                     tf32_split(__uint_as_float(bw[e]), bhi[e], blo[e]);
-                fa_mma3_from_zero(sc[n], ah0, al0, bhi[0], bhi[1], blo[0],
-                                  blo[1]);
-                fa_mma3_from_zero(sc[n], ah1, al1, bhi[2], bhi[3], blo[2],
-                                  blo[3]);
+                // one sum up to D = 64: sc[n] takes both k-steps
+                score_step<D>(sc[n], sc[n], ah0, al0, ah1, al1, bhi, blo);
             }
         }
         // scale, masks (a select: -1e30 for a masked key, -inf past T),
@@ -560,7 +519,7 @@ __device__ __forceinline__ void fa_fwd_narrow(FA_FWD_PARAMS) {
                 uint32_t bh0, bl0, bh1, bl1;
                 tf32_split(bp[8 * n], bh0, bl0);
                 tf32_split(bp[RS + 8 * n], bh1, bl1);
-                fa_mma3(part[n], ah, al, bh0, bh1, bl0, bl1);
+                mma3(part[n], ah, al, bh0, bh1, bl0, bl1);
             }
         }
 #pragma unroll
@@ -597,7 +556,9 @@ __device__ __forceinline__ void fa_fwd_narrow(FA_FWD_PARAMS) {
 // acc[n] += A . B^T for the warp's 16 rows of A (at a_row, shared) and
 // 8N rows of B (at b_tile, shared), both D wide with stride D+4: S of
 // 16 q rows against 8N keys, n-th 8-key slice in acc[n]; A and B by
-// ldmatrix, split each k-step; FA_WIDE_UNROLL k-steps of 16 unrolled
+// ldmatrix, split each k-step; the sums as the pair's prod_abt takes
+// them (tf32_mma.cuh: score_step, score_fold); FA_WIDE_UNROLL k-steps
+// of 16 unrolled
 template <int D, int N, int U = FA_WIDE_UNROLL>
 __device__ __forceinline__ void fa_qk_smem(float (&acc)[N][4],
                                            uint32_t a_row, uint32_t b_tile,
@@ -608,6 +569,8 @@ __device__ __forceinline__ void fa_qk_smem(float (&acc)[N][4],
     const uint32_t a_lane =
         a_row + ((r8 + 8 * (blk & 1)) * RS + 4 * (blk >> 1)) * 4;
     const uint32_t b_lane = b_tile + (r8 * RS + 4 * blk) * 4;
+    float odd[N][4];
+    fa_zero(odd);
 #pragma unroll (U)
     for (int k0 = 0; k0 < D; k0 += 16) {
         uint32_t a0[4], a1[4], a0h[4], a0l[4], a1h[4], a1l[4];
@@ -626,12 +589,10 @@ __device__ __forceinline__ void fa_qk_smem(float (&acc)[N][4],
 #pragma unroll
             for (int e = 0; e < 4; ++e)
                 tf32_split(__uint_as_float(bw[e]), bhi[e], blo[e]);
-            fa_mma3_from_zero(acc[n], a0h, a0l, bhi[0], bhi[1], blo[0],
-                              blo[1]);
-            fa_mma3_from_zero(acc[n], a1h, a1l, bhi[2], bhi[3], blo[2],
-                              blo[3]);
+            score_step<D>(acc[n], odd[n], a0h, a0l, a1h, a1l, bhi, blo);
         }
     }
+    score_fold<D>(acc, odd);
 }
 
 // D = 128, 192: eight warps and 64 q rows a block; the pair (w, w + 4)
@@ -792,7 +753,7 @@ __device__ __forceinline__ void fa_fwd_wide(FA_FWD_PARAMS) {
                 uint32_t bh0, bl0, bh1, bl1;
                 tf32_split(bp[8 * n], bh0, bl0);
                 tf32_split(bp[RS + 8 * n], bh1, bl1);
-                fa_mma3(part[n], ah, al, bh0, bh1, bl0, bl1);
+                mma3(part[n], ah, al, bh0, bh1, bl0, bl1);
             }
         }
 #pragma unroll

@@ -65,7 +65,8 @@
 // as lo.hi + hi.lo + hi.hi (lo.lo dropped): about 2^-21 relative a
 // product at worst, where one TF32 product (about 2^-10) fails the 1e-4
 // checks.  S and dP (prod_abt) take each k-step's three products summed
-// from zero and added in f32 (mma3_from_zero, as the forward's S); every
+// from zero and added in f32, above D = 64 the odd k-steps in a second
+// sum (tf32_mma.cuh: score_step, score_fold, as the forward's S); every
 // other tile product is summed from zero and then added to the running
 // sum (add_acc).  Up to D
 // = 64, four warps a block, each owning 16 rows of the stationary tile
@@ -133,6 +134,7 @@
 
 #include "fa_exchange.cuh"   // fx_pair_sync, fx_put, fx_get
 #include "tf32_split.cuh"    // tf32_split: the forward's split
+#include "tf32_mma.cuh"      // mma3, score_step: the forward's products
 
 #define FB_BQ 64
 #define FB_BK 64
@@ -169,8 +171,9 @@ __host__ __device__ constexpr int fb_mrows() {
 // stages of the moving tiles' ring
 #define FB_STAGES 2
 
-// k-steps of 16 that prod_abt unrolls above D = 64
-#define FB_WIDE_UNROLL 4
+// k-steps of 16 that prod_abt unrolls above D = 64 (4 spilled beside
+// score_step's second sum)
+#define FB_WIDE_UNROLL 2
 
 // floats of the pair exchanges above D = 64: 4 pairs x (dS; or P and
 // dS) x the moving tile's 8-column slices x 32 lanes x a float4
@@ -232,43 +235,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
                  : "r"(addr) : "memory");
 }
 
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a . b in split TF32: the two correction terms, then hi . hi
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0,
-                                     uint32_t bh1, uint32_t bl0,
-                                     uint32_t bl1) {
-    mma_tf32(d, al, bh0, bh1);
-    mma_tf32(d, ah, bl0, bl1);
-    mma_tf32(d, ah, bh0, bh1);
-}
-
-// d += a . b as mma3, the three products summed from zero on the tensor
-// cores and added to d in f32: the forward's score product
-// (flash_attention.cu: fa_mma3_from_zero), so S is recomputed as the
-// forward formed it against its lse, and dP the same way
-__device__ __forceinline__ void mma3_from_zero(float (&d)[4],
-                                               const uint32_t (&ah)[4],
-                                               const uint32_t (&al)[4],
-                                               uint32_t bh0, uint32_t bh1,
-                                               uint32_t bl0, uint32_t bl1) {
-    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    mma3(t, ah, al, bh0, bh1, bl0, bl1);
-    d[0] += t[0];
-    d[1] += t[1];
-    d[2] += t[2];
-    d[3] += t[3];
-}
-
 template <int N>
 __device__ __forceinline__ void zero_acc(float (&a)[N][4]) {
 #pragma unroll
@@ -298,9 +264,10 @@ __device__ __forceinline__ void add_acc(float (&a)[N][4],
 // acc[n] += A . B^T for the warp's 16 rows of A (at a_row, shared) and
 // 8N rows of B (at b_tile, shared), both D wide with stride D+4: acc is
 // 16 x 8N, n-th 8-column slice in acc[n]; each k-step's products summed
-// from zero (mma3_from_zero); U k-steps of 16 unrolled (one up to D =
-// 64: a k-step's sums from zero hold 8N partial sums, and two k-steps'
-// spilled the narrow kernels' registers).
+// from zero, the odd k-steps apart above D = 64 (tf32_mma.cuh:
+// score_step, score_fold: the forward's S as it formed it); U k-steps
+// of 16 unrolled (one up to D = 64: a k-step's sums from zero hold 8N
+// partial sums, and two k-steps' spilled the narrow kernels' registers).
 template <int D, int N = 8, int U = 1>
 __device__ __forceinline__ void prod_abt(float (&acc)[N][4], uint32_t a_row,
                                          uint32_t b_tile, int lane) {
@@ -309,6 +276,8 @@ __device__ __forceinline__ void prod_abt(float (&acc)[N][4], uint32_t a_row,
     const uint32_t a_lane =
         a_row + ((r8 + 8 * (blk & 1)) * RS + 4 * (blk >> 1)) * 4;
     const uint32_t b_lane = b_tile + (r8 * RS + 4 * blk) * 4;
+    float odd[N][4];
+    zero_acc(odd);
 #pragma unroll (U)
     for (int k0 = 0; k0 < D; k0 += 16) {
         uint32_t a0[4], a1[4], a0h[4], a0l[4], a1h[4], a1l[4];
@@ -327,10 +296,10 @@ __device__ __forceinline__ void prod_abt(float (&acc)[N][4], uint32_t a_row,
 #pragma unroll
             for (int i = 0; i < 4; ++i)
                 tf32_split(__uint_as_float(b[i]), bh[i], bl[i]);
-            mma3_from_zero(acc[n], a0h, a0l, bh[0], bh[1], bl[0], bl[1]);
-            mma3_from_zero(acc[n], a1h, a1l, bh[2], bh[3], bl[2], bl[3]);
+            score_step<D>(acc[n], odd[n], a0h, a0l, a1h, a1l, bh, bl);
         }
     }
+    score_fold<D>(acc, odd);
 }
 
 // out[n] += C . B: C a 16 x 8KS tile of P or dS in the C-fragment layout

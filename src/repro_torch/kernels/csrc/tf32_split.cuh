@@ -15,16 +15,17 @@
 // and average out over a dot.  The first split of these kernels cleared the
 // 13 low bits of hi and passed lo whole to be truncated by the product:
 // both cuts toward zero, so the dropped part had the sign of each term.
-// The split is half of the repair of scores built of large terms: the
-// tensor cores also round a chained sum toward zero at the running sum's
-// magnitude, so the score products sum each k-step from zero and add it
-// in f32 (flash_attention.cu: fa_mma3_from_zero).  With both, the forward
-// on q x 100 reads 0.5-0.85x its f32 twin's max abs distance from an f64
-// answer at llama's serving layer, and within 1.05x of the twin's root
-// mean square distance on small cases; with either alone, up to 5.8-6.6x
-// in max abs (tools/k4_bwd_variants.py --scaled, PERF.md).
-// cvt.rna.tf32.f32 rounds the same way but compiles to a compare and
-// select around each rounding on sm_90.
+// The split is one half of the repair of scores built of large terms;
+// the score products' sums are the other (tf32_mma.cuh: score_step: the
+// tensor cores round a chained sum toward zero at the running sum's
+// magnitude).  With both, the forward on q x 100 reads 0.5-0.85x its
+// f32 twin's max abs distance from an f64 answer at llama's serving
+// layer and at most 1.37x on the small cases chip_smoke.py gates; with
+// either alone, up to 5.8-6.6x in max abs (PERF.md).  cvt.rna.tf32.f32
+// rounds the same way but compiles to a compare and select around each
+// rounding on sm_90 (variant rna: 9-22 % slower).  hi rounded and lo
+// passed whole (rnahi: 10-14 % faster) leaves up to 2^-21 |x| of x, twice
+// the bound above.
 //
 // Non-finite x: the add carries into the exponent, never past it, for
 // every finite x (a value within half an ulp of FLT_MAX rounds to inf,

@@ -25,21 +25,15 @@ SOURCE = kbv.SOURCE.read_text()
 
 # what each variant's source must hold that the committed kernels do not
 TRUNC = "hi = __float_as_uint(x) & 0xffffe000u;"
-CHAINED = "            mma3(acc[n], a0h, a0l, bh[0], bh[1], bl[0], bl[1]);"
-MARKERS = {"trunc": [TRUNC],
-           "rna": ["cvt.rna.tf32.f32 %0, %1;\\n"],
-           "rnahi": ["+ 0x1000u) & 0xffffe000u"],
-           "rn5": ["(x - __uint_as_float(hi)) + 0x1000u)"],
-           "lolo": ["mma_tf32(d, al, bl0, bl1);"],
-           "chained": [CHAINED],
-           "trunc_chained": [TRUNC, CHAINED],
-           "all_from_zero": ["mma_tf32(t, ah, bh0, bh1);"],
-           "unrolled": ["int U = (D <= 64 ? D / 16 : 1)>"],
-           "scores_per_16": ["mma3_from_zero2(acc[n], a0h, a0l, a1h, a1l, "
-                             "bh, bl);"],
-           "chained_pair": [CHAINED],
+CHAINED = "    mma3(even, a1h, a1l, bh[2], bh[3], bl[2], bl[3]);"
+ONE_SUM = "bl[1]);\n    mma3_from_zero(even, a1h, a1l, bh[2], bh[3]"
+MARKERS = {"rna": ["cvt.rna.tf32.f32 %0, %1;\\n"],
+           "rnahi": ["+ 0x1000u) & 0xffffe000u",
+                     "lo = __float_as_uint(x - __uint_as_float(hi));"],
+           "one_sum": [ONE_SUM, "#define FB_WIDE_UNROLL 4"],
+           "chained": [CHAINED, "#define FB_WIDE_UNROLL 4"],
+           "trunc_chained": [TRUNC, CHAINED, "#define FB_WIDE_UNROLL 4"],
            "wu1": ["#define FB_WIDE_UNROLL 1"],
-           "wu2": ["#define FB_WIDE_UNROLL 2"],
            "kv32": ["D == 128 ? (DKDV ? 32 : 64) : 32;"],
            "d80kv48": ["D == 80 ? (DKDV ? 48 : 64) :"],
            "d80m32": ["D == 80 ? 32 :"]}
@@ -63,36 +57,51 @@ def test_every_variant_but_v0_has_its_markers():
 
 
 # the forward's own markers where they are not the pair's
-FWD_CHAINED = ["fa_mma3(sc[n], ah0, al0, bhi[0], bhi[1], blo[0],",
-               "fa_mma3(acc[n], a1h, a1l, bhi[2]"]
-FWD_MARKERS = {"chained": FWD_CHAINED,
-               "trunc_chained": [TRUNC] + FWD_CHAINED,
-               "scores_per_16": ["fa_mma3_from_zero2(sc[n], ah0, al0",
-                                 "fa_mma3_from_zero2(acc[n], a0h, a0l, a1h"],
-               "unrolled": ["#pragma unroll\n        for (int k0 = 0; k0 < D"]}
+FWD_MARKERS = {name: [m.replace("FB_WIDE", "FA_WIDE") for m in marks]
+               for name, marks in MARKERS.items()}
 
 
 @pytest.mark.parametrize("name", sorted(kbv.FWD_VARIANTS))
 def test_scaled_mode_patches_the_forward_with_the_pairs_split(name):
-    """Under --scaled a variant of the split or of the split product
-    patches its forward as its pair: the marker in both; a split of its
-    own replaces the shared split's include in both."""
+    """Under --scaled a variant of the split or of the score sums patches
+    its forward as its pair: the marker in both; a split of its own
+    replaces the shared split's include in both, sums of their own the
+    shared products' include."""
     fwd, pair = kbv.patched_forward(name), kbv.patched(name)
     fwd_src = kbv.FWD_SOURCE.read_text()
     for marker in MARKERS[name]:
         assert marker in pair
-    for marker in FWD_MARKERS.get(name, [
-            m.replace("mma_tf32(", "fa_mma_tf32(") for m in MARKERS[name]]):
+    for marker in FWD_MARKERS[name]:
         assert marker in fwd and marker not in fwd_src, marker
-    own = name in ("trunc", "rna", "rnahi", "rn5", "trunc_chained")
+    own_split = name in ("rna", "rnahi", "trunc_chained")
+    own_sums = name in ("one_sum", "chained", "trunc_chained")
     for text in (fwd, pair):
-        assert ('#include "tf32_split.cuh"' not in text) == own
+        assert ('#include "tf32_split.cuh"' not in text) == own_split
+        assert ('#include "tf32_mma.cuh"' not in text) == own_sums
 
 
 def test_other_variants_keep_the_committed_forward():
-    """``chained_pair`` (the pair's score products chained under v0's
-    forward) and the tiling variants take the committed forward."""
+    """The tiling variants take the committed forward."""
     fwd_src = kbv.FWD_SOURCE.read_text()
-    for name in ("chained_pair", "wu1", "kv32"):
+    for name in ("wu1", "kv32", "d80kv48", "d80m32"):
         assert kbv.patched_forward(name) == fwd_src
-    assert kbv.patched("chained_pair") == kbv.patched("chained")
+
+
+def test_smoke_cases_replay_the_gated_phases_draws():
+    """The scaled forward's small cases are the f32 cases on q x 100 of
+    ``softcap_checks`` and ``softcap_bwd_checks``: every head dim under
+    every mask, in each phase."""
+    import chip_smoke as smoke
+    src = (ROOT / "tools" / "k4_bwd_variants.py").read_text()
+    assert '("softcap_checks", 13, "qkv")' in src
+    assert '("softcap_bwd_checks", 41, "qdkv")' in src
+    smoke_src = (ROOT / "chip_smoke.py").read_text()
+    assert ('gen = torch.Generator(device="cuda").manual_seed(13)\n'
+            '    rows = []\n    zero_counts()\n    for d in HEAD_DIMS:\n'
+            '        for dtype in (torch.float32, torch.bfloat16):'
+            in smoke_src)
+    assert ('gen = torch.Generator(device="cuda").manual_seed(41)\n'
+            '    rows = []\n    zero_counts()\n    for d in HEAD_DIMS:\n'
+            '        for dtype in (torch.float32, torch.bfloat16):'
+            in smoke_src)
+    assert len(smoke.SOFTCAP_MASKS) == 3

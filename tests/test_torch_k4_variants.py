@@ -44,8 +44,7 @@ MARKERS = {"p_single": ["wgmma_pv<D>(o, pf[kk], desc_v);\n            }"],
                                 "                rescale<D>(o, corr);"],
            "keys64": ["KEYS = D <= 128 ? BK : 64;"],
            "f32_keys32": ["{ return D <= 128 ? FA_BK : 32; }"],
-           "f32_unroll2": ["#define FA_WIDE_UNROLL 2"],
-           "f32_trunc": ["hi = __float_as_uint(x) & 0xffffe000u;"],
+           "f32_unroll4": ["#define FA_WIDE_UNROLL 4"],
            "f32_rna": ["cvt.rna.tf32.f32 %0, %1;\\n"],
            "f32_rnahi": ["+ 0x1000u) & 0xffffe000u"],
            "no_softmax": ["#ifndef ABL_NOSOFTMAX"],

@@ -534,8 +534,8 @@ def test_backward_rejects_misaligned_inputs_by_name():
 
 def test_block_grad_mutants_patch_the_committed_sources():
     """tools/block_grad_mutants.py's planted faults still apply: each
-    anchor occurs once in its backward source, and the patch changes
-    it."""
+    anchor occurs once in its kernel source or header, and the patch
+    changes it."""
     import importlib.util
     from pathlib import Path
     root = Path(__file__).resolve().parents[1]
@@ -548,7 +548,7 @@ def test_block_grad_mutants_patch_the_committed_sources():
             (n, m) for n, m in tool.MUTANTS.items() if m is not None):
         got_source, text = tool.patched_source(name)
         orig = (root / "src/repro_torch/kernels/csrc" /
-                f"{source}.cu").read_text()
+                tool.source_file(source)).read_text()
         assert got_source == source and text != orig
         assert text.count(new) == 1 and old not in text
 

@@ -6,7 +6,7 @@ backward, read by ``chip_smoke.py``'s checks on one GPU.
 
 Each mutant is a copy of ``src/repro_torch`` and ``chip_smoke.py`` under
 ``build/block_grad_mutants/NAME/`` with one text patch in a kernel's
-source (``sound``: none).  The unpatched sources are built once
+source or header (``sound``: none).  The unpatched sources are built once
 into ``build/`` and their libraries copied into every copy; each copy
 builds its patched source itself, all copies at once.  Each copy then
 runs, in its own process:
@@ -45,13 +45,12 @@ Mutants:
   fa_no_key_zero         K4: a row that sees no key gives P = 0, not 1/T
                          (no such row in a causal block: the block check
                          cannot see it, the kernel checks can)
-  fa_tf32_single         K4: every product of both backward kernels one
-                         TF32 product (hi . hi) without its two
-                         correction terms
+  fa_tf32_single         K4: every split product of the f32 forward and
+                         both backward kernels one TF32 product (hi . hi)
+                         without its two correction terms (their shared
+                         csrc/tf32_mma.cuh)
   fa_fwd_band_short      K4's f32 forward: every row's band one key
                          short at the window's far edge
-  fa_fwd_tf32_single     K4's f32 forward: every product one TF32
-                         product without its correction terms
   fa_tc_window_edge      K4's bf16 forward: the window's far edge one key
                          short on the tiles that take the masks
 """
@@ -71,7 +70,8 @@ OUT = ROOT / "build" / "block_grad_mutants"
 SOURCES = ("flash_attention", "flash_attention_bwd", "ssm_scan",
            "ssm_scan_bwd")
 
-# name -> (source, anchor, replacement); the anchor occurs once
+# name -> (source, anchor, replacement): a source is csrc/<source>.cu or,
+# named with its suffix, a header there; the anchor occurs once
 MUTANTS = {
     "sound": None,
     "ssm_da_no_a": ("ssm_scan_bwd",
@@ -92,7 +92,7 @@ MUTANTS = {
     "fa_no_key_zero": ("flash_attention_bwd",
                        "p = inv_t;",
                        "p = 0.0f * inv_t;"),
-    "fa_tf32_single": ("flash_attention_bwd",
+    "fa_tf32_single": ("tf32_mma.cuh",
                        "    mma_tf32(d, al, bh0, bh1);\n"
                        "    mma_tf32(d, ah, bl0, bl1);\n"
                        "    mma_tf32(d, ah, bh0, bh1);\n",
@@ -100,11 +100,6 @@ MUTANTS = {
     "fa_fwd_band_short": ("flash_attention",
                           "lo = window > 0 ? max(0, p - window + 1) : 0;",
                           "lo = window > 0 ? max(0, p - window + 2) : 0;"),
-    "fa_fwd_tf32_single": ("flash_attention",
-                           "    fa_mma_tf32(d, al, bh0, bh1);\n"
-                           "    fa_mma_tf32(d, ah, bl0, bl1);\n"
-                           "    fa_mma_tf32(d, ah, bh0, bh1);\n",
-                           "    fa_mma_tf32(d, ah, bh0, bh1);\n"),
     "fa_tc_window_edge": ("flash_attention",
                           "&& (window <= 0 || key > p - window);",
                           "&& (window <= 0 || key > p - window + 1);"),
@@ -156,16 +151,23 @@ print(json.dumps({"max_rel_err": block["max_rel_err"], "worst_leaf": worst,
 """
 
 
+def source_file(source):
+    """A mutant's source's file name in csrc/."""
+    return source if "." in source else f"{source}.cu"
+
+
 def patched_source(name):
-    """The text of the mutant's patched source (None for ``sound``)."""
+    """(source, the text of the mutant's patched source); None for
+    ``sound``."""
     spec = MUTANTS[name]
     if spec is None:
         return None
     source, old, new = spec
-    src = (ROOT / "src/repro_torch/kernels/csrc" / f"{source}.cu").read_text()
+    path = ROOT / "src/repro_torch/kernels/csrc" / source_file(source)
+    src = path.read_text()
     if src.count(old) != 1:
         raise SystemExit(f"block_grad_mutants: {name}: anchor not found "
-                         f"once in {source}.cu: {old!r}")
+                         f"once in {path.name}: {old!r}")
     return source, src.replace(old, new)
 
 
@@ -181,8 +183,8 @@ def make_copy(name, libs):
     patch = patched_source(name)
     if patch is not None:
         source, text = patch
-        (dest / "src/repro_torch/kernels/csrc" / f"{source}.cu").write_text(
-            text)
+        (dest / "src/repro_torch/kernels/csrc" /
+         source_file(source)).write_text(text)
     for source, lib in libs.items():
         if patch is None or source != patch[0]:
             shutil.copy2(lib, dest / "build" / lib.name)

@@ -2,7 +2,7 @@
 """Variants of K4's f32 backward kernels (dq, dkdv) on one GPU, timed in
 turns.
 
-    python3 tools/k4_bwd_variants.py [--only v0,trunc,rna] [--scaled]
+    python3 tools/k4_bwd_variants.py [--only v0,one_sum,rna] [--scaled]
                                      [--baseline NAME=FILE.cu ...]
 
 Each variant is the committed ``src/repro_torch/kernels/csrc/
@@ -44,34 +44,27 @@ not gated); and the forward with lse is timed beside the pair at
 ``FA_BWD_LAYERS``.  ``tools/k4_variants.py --scaled`` runs this same
 mode on its f32 split variants.
 
-Variants (each but the last six also patches the forward under --scaled):
+Variants (each of the first five also patches the forward under
+--scaled):
   v0        the committed kernels: csrc/tf32_split.cuh (hi and lo each
             rounded to nearest by an integer add and a mask), the score
-            products (S, dP) summed from zero a k-step and added in f32
-  trunc     the first split: hi = x with its low 13 mantissa bits
-            cleared, lo = x - hi passed whole (truncated by the product)
+            products (S, dP) summed from zero a k-step and added in f32,
+            above D = 64 the odd k-steps in a second sum
+            (csrc/tf32_mma.cuh: score_step), their k-steps of 16
+            unrolled 2 at a time there
   rna       hi and lo each rounded by cvt.rna.tf32.f32 (the textbook
             split)
   rnahi     hi rounded to nearest by an integer add before the mask,
-            lo = x - hi passed whole
-  rn5       v0's split without the clamp that keeps a NaN in lo
-  lolo      v0 with a fourth TF32 product, lo.lo, in every split product
+            lo = x - hi passed whole (truncated by the product)
+  one_sum   the score sums of one running sum at every D, unrolled 4
   chained   the score products chained on the tensor cores, every
-            k-step added to the running sum there
+            k-step added to the running sum there, unrolled 4
   trunc_chained
-            trunc and chained: the first design's arithmetic
-  all_from_zero
-            every split product summed from zero and added in f32
-  scores_per_16
-            the score products summed from zero over each 16-wide step
-            (two k-steps) in place of each k-step
-  unrolled  the score products' k-steps unrolled as the chained ones
-            were (ptxas spills: v0 holds one k-step of 16 at a time up
-            to D = 64, two 8-key slices of prod_cb at D = 192)
-  chained_pair
-            v0's forward, the pair's score products chained
-  wu1, wu2  at D = 128 and 192, the S and dP products' k-steps of 16
-            unrolled 1 or 2 at a time (the committed kernels: 4)
+            chained, with the first split (hi = x with its low 13
+            mantissa bits cleared, lo = x - hi passed whole): the
+            arithmetic of the kernels before the shared split
+  wu1       above D = 64, the S and dP products' k-steps of 16 unrolled
+            1 at a time
   kv32      dkdv at D = 128 on q tiles of 32 rows (16 a warp of the pair;
             152 KB of shared memory) in place of 48
   d80kv48   dkdv at D = 80 on q tiles of 48 rows in place of 64
@@ -125,129 +118,70 @@ def own_split(body, where="pair"):
             f"{body}\n}}\n")
 
 
-# v0's split without the clamp that keeps a NaN in lo
-RN5 = """    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-    lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;"""
-
-# every split product's three TF32 products summed from zero on the tensor
-# cores and added to the running sum in f32 (v0: the score products only)
-ALL_FROM_ZERO = {"pair": ("    mma_tf32(d, al, bh0, bh1);\n"
-                          "    mma_tf32(d, ah, bl0, bl1);\n"
-                          "    mma_tf32(d, ah, bh0, bh1);\n",
-                          "    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};\n"
-                          "    mma_tf32(t, al, bh0, bh1);\n"
-                          "    mma_tf32(t, ah, bl0, bl1);\n"
-                          "    mma_tf32(t, ah, bh0, bh1);\n"
-                          "    d[0] += t[0]; d[1] += t[1]; d[2] += t[2]; "
-                          "d[3] += t[3];\n")}
-ALL_FROM_ZERO["forward"] = tuple(x.replace("mma_tf32(", "fa_mma_tf32(")
-                                 for x in ALL_FROM_ZERO["pair"])
-
-# the score products' call sites: the pair's prod_abt (S and dP), the
-# forward's S at D <= 64 and above
-SCORE_SITES = {
-    "pair": ["            mma3_from_zero(acc[n], a0h, a0l, bh[0], bh[1], bl[0], "
-             "bl[1]);\n"
-             "            mma3_from_zero(acc[n], a1h, a1l, bh[2], bh[3], bl[2], "
-             "bl[3]);\n"],
-    "forward": ["                fa_mma3_from_zero(sc[n], ah0, al0, bhi[0], "
-                "bhi[1], blo[0],\n"
-                "                                  blo[1]);\n"
-                "                fa_mma3_from_zero(sc[n], ah1, al1, bhi[2], "
-                "bhi[3], blo[2],\n"
-                "                                  blo[3]);\n",
-                "            fa_mma3_from_zero(acc[n], a0h, a0l, bhi[0], bhi[1], "
-                "blo[0],\n"
-                "                              blo[1]);\n"
-                "            fa_mma3_from_zero(acc[n], a1h, a1l, bhi[2], bhi[3], "
-                "blo[2],\n"
-                "                              blo[3]);\n"]}
+# each f32 source's include of the shared split products
+# (csrc/tf32_mma.cuh), which a variant of the score sums replaces with the
+# header's text patched, in the forward and the pair alike
+MMA_HEADER = SOURCE.parent / "tf32_mma.cuh"
+MMA_INCLUDE = {
+    "pair": '#include "tf32_mma.cuh"      // mma3, score_step: the '
+            'forward\'s products\n',
+    "forward": '#include "tf32_mma.cuh"      // mma3, score_step: their '
+               'products\n'}
+# score_step's body: the two k-steps' sums, the odd ones apart above D = 64
+SCORE_STEP = """    mma3_from_zero(even, a0h, a0l, bh[0], bh[1], bl[0], bl[1]);
+    if constexpr (D > 64)
+        mma3_from_zero(odd, a1h, a1l, bh[2], bh[3], bl[2], bl[3]);
+    else
+        mma3_from_zero(even, a1h, a1l, bh[2], bh[3], bl[2], bl[3]);
+"""
+# the score sums of the first design (both k-steps chained on the tensor
+# cores into one running sum) and of one sum at every D (each k-step from
+# zero, added in f32)
+CHAINED = """    mma3(even, a0h, a0l, bh[0], bh[1], bl[0], bl[1]);
+    mma3(even, a1h, a1l, bh[2], bh[3], bl[2], bl[3]);
+"""
+ONE_SUM = """    mma3_from_zero(even, a0h, a0l, bh[0], bh[1], bl[0], bl[1]);
+    mma3_from_zero(even, a1h, a1l, bh[2], bh[3], bl[2], bl[3]);
+"""
 
 
-def chained(where):
-    """The score products chained on the tensor cores (the first design):
-    every k-step's products added to the running sum there."""
-    name = "fa_mma3" if where == "forward" else "mma3"
-    return [(site, site.replace(f"{name}_from_zero(", f"{name}("))
-            for site in SCORE_SITES[where]]
+def own_sums(body, where="pair"):
+    """(anchor, replacement): the source's include of the shared products
+    replaced by the header's text with score_step's body ``body``."""
+    text = MMA_HEADER.read_text()
+    if text.count(SCORE_STEP) != 1:
+        raise SystemExit("k4_bwd_variants: score_step's body not found "
+                         "once in tf32_mma.cuh")
+    return (MMA_INCLUDE[where], text.replace(SCORE_STEP, body))
 
 
-def scores_per_16(where):
-    """The score products summed from zero over both k-steps of each
-    16-wide step (six TF32 products), then one f32 add."""
-    name = "fa_mma3" if where == "forward" else "mma3"
-    define = (f"__device__ __forceinline__ void {name}_from_zero(",
-              f"__device__ __forceinline__ void {name}_from_zero2("
-              "float (&d)[4],\n"
-              "    const uint32_t (&ah)[4], const uint32_t (&al)[4],\n"
-              "    const uint32_t (&ah2)[4], const uint32_t (&al2)[4],\n"
-              "    const uint32_t (&bh)[4], const uint32_t (&bl)[4]) {\n"
-              "    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};\n"
-              f"    {name}(t, ah, al, bh[0], bh[1], bl[0], bl[1]);\n"
-              f"    {name}(t, ah2, al2, bh[2], bh[3], bl[2], bl[3]);\n"
-              "    d[0] += t[0]; d[1] += t[1]; d[2] += t[2]; d[3] += t[3];\n"
-              "}\n\n"
-              f"__device__ __forceinline__ void {name}_from_zero(")
-    if where == "pair":
-        return [define, (SCORE_SITES["pair"][0],
-                         "            mma3_from_zero2(acc[n], a0h, a0l, a1h, "
-                         "a1l, bh, bl);\n")]
-    narrow, wide = SCORE_SITES["forward"]
-    return [define,
-            (narrow, "                fa_mma3_from_zero2(sc[n], ah0, al0, ah1, "
-                     "al1, bhi, blo);\n"),
-            (wide, "            fa_mma3_from_zero2(acc[n], a0h, a0l, a1h, a1l, "
-                   "bhi, blo);\n")]
-
-
-# the score products' k-steps unrolled as far as the chained products'
-# were (v0 keeps one k-step of 16 at a time up to D = 64 and two 8-key
-# slices at a time in prod_cb at D = 192, so that nothing spills)
-UNROLLED = {"pair": [("template <int D, int N = 8, int U = 1>",
-                      "template <int D, int N = 8, int U = (D <= 64 ? D / 16 "
-                      ": 1)>"),
-                     ("#pragma unroll (D == 192 ? 2 : KS)\n",
-                      "#pragma unroll\n")],
-            "forward": [("#pragma unroll 1\n        for (int k0 = 0; k0 < D; "
-                         "k0 += 16) {\n",
-                         "#pragma unroll\n        for (int k0 = 0; k0 < D; "
-                         "k0 += 16) {\n")]}
-
-# a fourth TF32 product, lo.lo, first in each split product
-LOLO = {"pair": ("    mma_tf32(d, al, bh0, bh1);\n",
-                 "    mma_tf32(d, al, bl0, bl1);\n"
-                 "    mma_tf32(d, al, bh0, bh1);\n"),
-        "forward": ("    fa_mma_tf32(d, al, bh0, bh1);\n",
-                    "    fa_mma_tf32(d, al, bl0, bl1);\n"
-                    "    fa_mma_tf32(d, al, bh0, bh1);\n")}
-
-UNROLL = "#define FB_WIDE_UNROLL 4"
+UNROLL = "#define FB_WIDE_UNROLL 2"
+# the S (and the pair's dP) products' k-steps of 16 unrolled u at a time
+# above D = 64 (v0: 2; the first design's 4 spill beside two sums)
+WIDE_UNROLL = {
+    "pair": lambda u: (UNROLL, f"#define FB_WIDE_UNROLL {u}"),
+    "forward": lambda u: ("#define FA_WIDE_UNROLL 2",
+                          f"#define FA_WIDE_UNROLL {u}")}
 MROWS = "return D <= 80 ? 64 : D == 128 ? (DKDV ? 48 : 64) : 32;"
 
 
 def split_variants(where):
-    """name -> the patches of the variants of the split and of the split
-    product, on the pair's or the forward's source."""
-    return {"trunc": [own_split(TRUNC, where)],
-            "rna": [own_split(RNA, where)],
+    """name -> the patches of the variants of the split and of the score
+    sums, on the pair's or the forward's source."""
+    return {"rna": [own_split(RNA, where)],
             "rnahi": [own_split(RNA_HI, where)],
-            "rn5": [own_split(RN5, where)],
-            "lolo": [LOLO[where]],
-            "chained": chained(where),
-            "trunc_chained": [own_split(TRUNC, where)] + chained(where),
-            "all_from_zero": [ALL_FROM_ZERO[where]],
-            "unrolled": UNROLLED[where],
-            "scores_per_16": scores_per_16(where)}
+            "chained": [own_sums(CHAINED, where), WIDE_UNROLL[where](4)],
+            "trunc_chained": [own_split(TRUNC, where),
+                              own_sums(CHAINED, where),
+                              WIDE_UNROLL[where](4)],
+            "one_sum": [own_sums(ONE_SUM, where), WIDE_UNROLL[where](4)]}
 
 
 # name -> [(anchor, replacement)]; each anchor occurs once
 VARIANTS = {
     "v0": [],
     **split_variants("pair"),
-    # the forward as v0's, the pair's score products chained
-    "chained_pair": chained("pair"),
     "wu1": [(UNROLL, "#define FB_WIDE_UNROLL 1")],
-    "wu2": [(UNROLL, "#define FB_WIDE_UNROLL 2")],
     "kv32": [(MROWS, MROWS.replace("(DKDV ? 48 : 64)",
                                    "(DKDV ? 32 : 64)"))],
     # D = 80 (hubert): 48-row dkdv items, or 32-row moving tiles in both
@@ -270,9 +204,9 @@ def with_softcap(src):
 
 
 # the forward's text for each variant that changes the split or the
-# split product: the same patch, so the pair recomputes S as the forward
-# that summed its lse formed it; every other variant (chained_pair among
-# them) takes the committed forward
+# score sums: the same patch, so the pair recomputes S as the forward
+# that summed its lse formed it; every other variant takes the committed
+# forward
 FWD_VARIANTS = split_variants("forward")
 # the forward's softcap launches (flash_attention_softcap.cu after its
 # include of flash_attention.cu), appended to a forward's text
@@ -525,6 +459,35 @@ def exact_scores_twin(q, k, v, cap, **kw):
                         vx.float())
 
 
+def smoke_cases(smoke):
+    """The f32 cases on q x 100 (cap 50) that ``chip_smoke.py``'s
+    ``softcap_checks`` and ``softcap_bwd_checks`` hold against f64, on
+    those phases' own draws (their generators replayed, the bf16 draws
+    skipped): (name, q, k, v, masks)."""
+    import torch
+    cap = smoke.SERVE_SOFTCAP
+    cases = []
+    for phase, seed, names in (("softcap_checks", 13, "qkv"),
+                               ("softcap_bwd_checks", 41, "qdkv")):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for d in smoke.HEAD_DIMS:
+            for dtype in (torch.float32, torch.bfloat16):
+                for b, s, t, h, hkv, causal, window, off in \
+                        smoke.SOFTCAP_MASKS:
+                    x = {n: torch.randn(b, s if n in "qd" else t,
+                                        h if n in "qd" else hkv, d,
+                                        generator=gen, device="cuda")
+                         for n in names}
+                    if dtype == torch.float32:
+                        cases.append((
+                            f"{phase}-d{d}-{'causal' if causal else 'full'}"
+                            f"-w{window}-off{off}-q_x100",
+                            x["q"] * (2 * cap), x["k"], x["v"],
+                            dict(causal=causal, window=window,
+                                 q_offset=off)))
+    return cases
+
+
 def scaled_forward(smoke, names, draws=1):
     """Per variant: the capped forward (cap 50) on normal q x 1 and x 100
     at llama's serving layer (three draws of q x 100), and on q x 100 at
@@ -546,8 +509,9 @@ def scaled_forward(smoke, names, draws=1):
                 for _ in "kv")
         cases += [(f"llama-serve-seed{seed}-q_x{f:g}", q * f, k, v,
                    dict(causal=True)) for f in factors]
-    gen = torch.Generator(device="cuda").manual_seed(13)
-    for draw in range(draws):
+    cases += smoke_cases(smoke)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for draw in range(1, draws):
         for d in smoke.HEAD_DIMS:
             for b, s, t, h, hkv, causal, window, off in smoke.SOFTCAP_MASKS:
                 q = torch.randn(b, s, h, d, generator=gen, device="cuda")

@@ -69,10 +69,8 @@ Variants:
   rescale_under_qk    o's rescale under the issued Q.K^T, inside the turn
   keys64              (D = 192) 64-key tiles in a 3-stage ring
   f32_keys32          the f32 kernel at D = 192 on 32-key tiles
-  f32_unroll2         the f32 kernel above D = 64, S's k-steps unrolled 2
-  f32_trunc           the f32 forward's first split (the pair keeps the
-                      committed one): hi by masking, lo passed whole and
-                      truncated by the TF32 product; both cuts toward zero
+  f32_unroll4         the f32 kernel above D = 64, S's k-steps unrolled 4
+                      (v0: 2; 4 spill beside its two score sums)
   f32_rna             hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi) (v0:
                       csrc/tf32_split.cuh, both rounded to nearest by an
                       integer add and a mask)
@@ -702,9 +700,9 @@ def f32_keys32(src):
                    "{ return D <= 128 ? FA_BK : 32; }")
 
 
-def f32_unroll2(src):
-    """The f32 kernel above D = 64: S's k-steps unrolled 2 (v0: 4)."""
-    return replace(src, "#define FA_WIDE_UNROLL 4", "#define FA_WIDE_UNROLL 2")
+def f32_unroll4(src):
+    """The f32 kernel above D = 64: S's k-steps unrolled 4 (v0: 2)."""
+    return replace(src, "#define FA_WIDE_UNROLL 2", "#define FA_WIDE_UNROLL 4")
 
 
 def _bwd_tool():
@@ -724,11 +722,6 @@ def _own_split(src, body, name):
     """The forward's include of the shared split replaced by a tf32_split
     of ``body`` (the pair keeps the shared one)."""
     return KBV._apply(name, src, [KBV.own_split(body, "forward")])
-
-
-def f32_trunc(src):
-    """The f32 kernel's first split: hi truncated, lo whole."""
-    return _own_split(src, KBV.TRUNC, "f32_trunc")
 
 
 def f32_rna(src):
@@ -817,8 +810,7 @@ VARIANTS = {
     "rescale_under_qk": ((rescale_under_qk,), (), TOL),
     "keys64": ((keys64,), (), TOL),
     "f32_keys32": ((f32_keys32,), (), TOL),
-    "f32_unroll2": ((f32_unroll2,), (), TOL),
-    "f32_trunc": ((f32_trunc,), (), TOL),
+    "f32_unroll4": ((f32_unroll4,), (), TOL),
     "f32_rna": ((f32_rna,), (), TOL),
     "f32_rnahi": ((f32_rnahi,), (), TOL),
     "no_softmax": ((ablations,), ("-DABL_NOSOFTMAX",), None),
@@ -836,15 +828,14 @@ VARIANTS = {
 WIDE = ("v0", "p_single", "overlap", "pingpong_branching", "all_lanes",
         "stages4", "l2_256", "multicast", "multicast_loads_only",
         "remote_arrivals", "remote_arrivals_no_mc", "no_multicast", "depth2",
-        "rescale_under_qk", "keys64", "f32_keys32", "f32_unroll2",
-        "f32_trunc", "f32_rna", "f32_rnahi", "no_softmax", "no_products",
-        "loads_only")
+        "rescale_under_qk", "keys64", "f32_keys32", "f32_unroll4",
+        "f32_rna", "f32_rnahi", "no_softmax", "no_products", "loads_only")
 # the variants that change the f32 kernel: also checked in f32 and timed
 # at the f32 training shapes
-F32 = ("f32_keys32", "f32_unroll2", "f32_trunc", "f32_rna", "f32_rnahi")
+F32 = ("f32_keys32", "f32_unroll4", "f32_rna", "f32_rnahi")
 # the f32 variants that change the split, and the k4_bwd_variants variant
 # of the same split that --scaled runs (forward and pair together)
-SPLIT_OF = {"f32_trunc": "trunc", "f32_rna": "rna", "f32_rnahi": "rnahi"}
+SPLIT_OF = {"f32_rna": "rna", "f32_rnahi": "rnahi"}
 
 
 def build(names, baselines=None):
