@@ -73,7 +73,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.roofline.cost import (  # noqa: E402,F401
     BF16_TENSOR_FLOPS_PER_S, FA_BWD_BF16_WORK, FA_BWD_WORK, FA_FWD_BF16_WORK,
     FA_FWD_WORK, HBM_BYTES_PER_S, SFU_EXP_PER_S, SOFTCAP_SFU_PER_PAIR,
-    fedagg_bound_ms,
+    SOFTCAP_TC_SFU_PER_PAIR, fedagg_bound_ms, sfu_floor_ms,
     flash_bound_ms, flash_bwd_bf16_bound_ms, flash_bwd_bound_ms,
     flash_softcap_bound_ms, fold_bound_ms, partial_bound_ms, ssm_bound_ms,
     ssm_bwd_bound_ms, visible_pairs)
@@ -7626,7 +7626,12 @@ def lm_softcap_serve_path():
                       "plain_ms": _once_ms(lambda: fa.gqa_plain(
                           q, k, v, causal=True, softcap=SERVE_SOFTCAP)),
                       "bound_ms": bound[0], "bound_by": bound[1],
-                      "bound_ops": bound[2], "max_abs_err": err, "tol": tol,
+                      "bound_ops": bound[2],
+                      # bf16: the floor of its tanh (softcap_r)
+                      "design_sfu_floor_ms": sfu_floor_ms(
+                          q.shape, k.shape, SOFTCAP_TC_SFU_PER_PAIR)
+                      if dtype == torch.bfloat16 else None,
+                      "max_abs_err": err, "tol": tol,
                       "exact_scores_cap_bites": bites,
                       "q_scaled_by_2_caps": scaled,
                       "library_ms": library_ms,
@@ -7921,9 +7926,15 @@ def softcap_layer_times(gen):
             without = min(turns[0.0][name])
             bd = bound(qs, ks, dots, reads, writes,
                        sfu_per_pair=SOFTCAP_SFU_PER_PAIR)
+            # bf16: the floor of its tanh (softcap_r), in both kernels
+            # of the pair
+            floor = sfu_floor_ms(qs, ks, SOFTCAP_TC_SFU_PER_PAIR
+                                 * (2 if name == "pair" else 1)) \
+                if bf16 else None
             row[name] = {"ms": ms, "without_cap_ms": without,
                          "cap_over_without": ms / without,
                          "bound_ms": bd["ms"], "bound_by": bd["by"],
+                         "design_sfu_floor_ms": floor,
                          "rate_on_bound": bd["ms"] / ms,
                          "turns_ms": turns[cap][name],
                          "without_cap_turns_ms": turns[0.0][name]}

@@ -130,6 +130,45 @@ __device__ __forceinline__ float ex2(float x) {
     return y;
 }
 
+__device__ __forceinline__ float rcp(float x) {
+    float y;
+    asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// The logit softcap's tanh without a branch, for the three capped bf16
+// kernels (flash_attention.cu: softmax_tile; flash_attention_bwd_tc.cu:
+// dq and dkdv), which must cap a score alike: the backward recomputes P
+// from the forward's lse.  With x = s * scale / cap (s the raw score)
+// and k2 = 2 log2(e) scale / cap (softcap_k2),
+//
+//   r = 1 / (1 + e^(2x)) = rcp(1 + ex2(s * k2)),   tanh(x) = 1 - 2r,
+//
+// so the capped score in the log2 domain, cap_log2 * tanh(x) with
+// cap_log2 = cap log2(e), is fmaf(-2 cap_log2, r, cap_log2), and the
+// backward's 1 - tanh^2 is 4 r (1 - r).  One FMUL, ex2, FADD and rcp,
+// then the caller's FFMA: 3 FP32 instructions and 2 SFU operations with
+// no branch, where tanhf branches on |x| and takes ~20 and 2.  Edges:
+// ex2 overflows to +inf past x ~ 44 and r = rcp(inf) = 0 (tanh = 1
+// exactly), underflows (ftz) to 0 below x ~ -44 and r = 1 (tanh = -1);
+// s = +-inf likewise; a NaN stays a NaN.  ex2.approx and rcp.approx are
+// each within ~2^-22 relative, so 1 - 2r is within ~2^-21 of tanh(x):
+// ~3.4e-5 log2 units at a cap of 50, far inside bf16's tolerance.  The
+// f32 kernels keep the accurate tanhf (flash_attention.cu: fa_softcap
+// says why).  flash_attention.py: softcap_log2_model repeats this
+// arithmetic for the tests.
+__device__ __forceinline__ float softcap_r(float s, float k2) {
+    return rcp(1.0f + ex2(s * k2));
+}
+
+// softcap_r's constant, on the host: 2 log2(e) scale / cap for a cap > 0
+// (0 without one)
+static inline float softcap_k2(float scale, float softcap) {
+    return softcap > 0.0f
+               ? (float)(2.0 * 1.4426950408889634 * (double)scale / softcap)
+               : 0.0f;
+}
+
 // Two bf16 pairs whose sum is (a, b) to about 2^-16 relative: the
 // rounding of (a, b), and the rounding of what that left.
 __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,

@@ -945,10 +945,11 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
 // the tile needs them, and the online-softmax update of (m, l); ``s``
 // leaves holding p = 2^(s - m) and ``corr`` the factor that carries the
 // output accumulator over to the new m.  CAP: every score is first
-// soft-capped in natural units and taken to the log2 domain,
-// cap_log2 * tanhf(s * sc_cap) with sc_cap = scale / cap and cap_log2 =
-// cap * log2 e (accurate tanhf: fa_softcap says why), on an interior
-// tile too, so the max and each exponent read the capped score.  Accumulator element i of a
+// soft-capped and taken to the log2 domain, cap_log2 * tanh(s * scale /
+// cap) with cap_log2 = cap * log2 e, by fa_hopper.cuh's branch-free
+// softcap_r (one ex2 and one rcp; k2 = 2 log2 e * scale / cap), on an
+// interior tile too, so the max and each exponent read the capped
+// score.  Accumulator element i of a
 // thread sits at row (lane/4 + 8*((i/2)&1)) of its warp's 16 and column
 // 8*(i/4) + 2*(lane%4) + (i&1) of the tile; a row lives in the 4
 // threads of a quad.
@@ -957,9 +958,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
                                              float (&l)[2], float (&corr)[2],
                                              float scale_log2, int t0, int T,
                                              int row_pos, int causal,
-                                             int window, float sc_cap = 0.f,
+                                             int window, float k2 = 0.f,
                                              float cap_log2 = 0.f) {
     const int lane = threadIdx.x & 31;
+    const float cap_m2 = -2.0f * cap_log2;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -970,11 +972,11 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
             const bool real = key < T;
             const bool vis = real && (!causal || key <= p)
                              && (window <= 0 || key > p - window);
-            s[i] = vis ? (CAP ? cap_log2 * tanhf(s[i] * sc_cap)
+            s[i] = vis ? (CAP ? fmaf(cap_m2, softcap_r(s[i], k2), cap_log2)
                               : s[i] * scale_log2)
                        : (real ? NEG : -INFINITY);
         } else if (CAP) {
-            s[i] = cap_log2 * tanhf(s[i] * sc_cap);
+            s[i] = fmaf(cap_m2, softcap_r(s[i], k2), cap_log2);
         }
         mx[r] = fmaxf(mx[r], s[i]);
     }
@@ -1009,9 +1011,9 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2],
 }
 
 // LSE: also write each row's log-sum-exp (natural units) to lse (B,H,S).
-// CAP: the scores soft-capped (softmax_tile), sc_cap and cap_log2 read
-// only there; a CAP kernel is built with LSE only, and writes lse and
-// out_lo where they are not null.
+// CAP: the scores soft-capped (softmax_tile), k2 and cap_log2 read only
+// there; a CAP kernel is built with LSE only, and writes lse and out_lo
+// where they are not null.
 template <int D, bool LSE, bool CAP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -1021,7 +1023,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                           int H, int Hkv, int causal, int window,
                           int q_offset, float scale_log2,
                           float* __restrict__ lse,
-                          __nv_bfloat16* __restrict__ out_lo, float sc_cap,
+                          __nv_bfloat16* __restrict__ out_lo, float k2,
                           float cap_log2) {
     using L = Layout<D>;
     constexpr int BK = L::KEYS;          // the tile and ring of this D
@@ -1160,11 +1162,11 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             if (interior)
                 softmax_tile<false, BK / 2, CAP>(s, m, l, corr, scale_log2,
                                                  t0, T, row_pos, causal,
-                                                 window, sc_cap, cap_log2);
+                                                 window, k2, cap_log2);
             else
                 softmax_tile<true, BK / 2, CAP>(s, m, l, corr, scale_log2,
                                                 t0, T, row_pos, causal,
-                                                window, sc_cap, cap_log2);
+                                                window, k2, cap_log2);
         };
         // P split into its two bf16 parts: the accumulator's layout is
         // the A fragment's
@@ -1181,12 +1183,19 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         // while the other's products hold the tensor cores.  Each takes
         // n_tiles + 1 turns, warpgroup 0 first; every turn ends with an
         // arrival (a branch there made ptxas serialize the products),
-        // and warpgroup 0 takes warpgroup 1's last one at the end.
+        // and warpgroup 0 takes warpgroup 1's last one at the end.  CAP:
+        // no turns; its softmax (3 SFU operations a score) outlasts the
+        // other warpgroup's products, and the turns cost it 1-2.6 %
+        // (tools/k4_variants.py: cap_turns)
         auto turn_begin = [&]() {
-            asm volatile("bar.sync %0, 256;\n" :: "r"(3 + w) : "memory");
+            if constexpr (!CAP)
+                asm volatile("bar.sync %0, 256;\n" :: "r"(3 + w)
+                             : "memory");
         };
         auto turn_end = [&]() {
-            asm volatile("bar.arrive %0, 256;\n" :: "r"(4 - w) : "memory");
+            if constexpr (!CAP)
+                asm volatile("bar.arrive %0, 256;\n" :: "r"(4 - w)
+                             : "memory");
         };
         // a tile these rows do not see: released once it has landed (an
         // arrival for a later round of the stage must not count towards
@@ -1211,7 +1220,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             if (j_b <= j_a) j_a = j_b = n_tiles;
         }
 
-        if (w == 1)
+        if (!CAP && w == 1)
             asm volatile("bar.arrive 3, 256;\n" ::: "memory");
         mbar_wait(bar, 0);
         for (int j = 0; j < j_a; ++j) release(j);
@@ -1275,7 +1284,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             turn_end();
         }
         for (int j = j_b; j < n_tiles; ++j) release(j);
-        if (w == 0)
+        if (!CAP && w == 0)
             asm volatile("bar.sync 3, 256;\n" ::: "memory");
 
         if (n_rows > 0) {
@@ -1401,7 +1410,7 @@ static int launch_as(const void* q, const void* k, const void* v, void* out,
         causal, window, q_offset,
         (float)((double)scale * 1.4426950408889634), lse,   // scale * log2 e
         static_cast<__nv_bfloat16*>(out_lo),
-        CAP ? (float)((double)scale / softcap) : 0.0f,        // scale / cap
+        softcap_k2(scale, CAP ? softcap : 0.0f),    // 2 log2 e scale / cap
         CAP ? (float)((double)softcap * 1.4426950408889634) : 0.0f);
     return (int)cudaGetLastError();
 }

@@ -18,16 +18,19 @@
 // With a logit softcap (the CAP instantiations, built in
 // flash_attention_bwd_tc_softcap.cu, which includes this file with
 // FB_TC_KERNELS_ONLY and is linked into its library), each score is
-// capped as the bf16 forward's softmax_tile caps it, with the same
-// tanhf and constants: t = tanh(s * sc_cap), sc_cap = scale / cap, and
-// P = 2^(cap_log2 * t - lse log2 e), cap_log2 = cap * log2 e, so P is
-// of the capped score the forward's lse summed; dS = P (dP - delta)
-// (1 - t^2), the factor entering before dS's two-part split.  An
-// interior tile's fused 2^(s * scale log2 e - lse log2 e) cannot carry
-// the cap, so a CAP tile caps every score.  dq forms P (1 - t^2) in P's
-// place (it needs no P alone); dkdv needs both P and dS, so a CAP item
-// waits for dP^T's product before it forms P^T, and forms dS^T beside
-// it from the same t (no register array more than without a cap).
+// capped as the bf16 forward's softmax_tile caps it, by the same
+// branch-free fa_hopper.cuh: softcap_r and constants: r = 1 / (1 +
+// 2^(s * k2)), k2 = 2 log2 e * scale / cap, t = tanh(s * scale / cap)
+// = 1 - 2r, and P = 2^(cap_log2 (1 - 2r) - lse log2 e), cap_log2 = cap
+// * log2 e, so P is of the capped score the forward's lse summed; dS =
+// P (dP - delta) (1 - t^2) with 1 - t^2 = 4 r (1 - r), the factor
+// entering before dS's two-part split.  An interior tile's fused 2^(s *
+// scale log2 e - lse log2 e) cannot carry the cap, so a CAP tile caps
+// every score, on the masked path.  dq forms P (1 - t^2) in P's place
+// (it needs no P alone), its 4 in the exponent; dkdv needs both P and
+// dS, so a CAP item waits for dP^T's product before it forms P^T, and
+// forms dS^T beside it from the same r (no register array more than
+// without a cap).
 //
 // The JAX package has no backward Pallas kernel (JAX differentiates the
 // jnp attention); the port's gradient through its forward kernel needs
@@ -297,7 +300,7 @@ __device__ __forceinline__ void zero(float (&a)[N]) {
 
 // ---- dq ------------------------------------------------------------------
 
-// CAP: with a logit softcap (sc_cap, cap_log2 read only then)
+// CAP: with a logit softcap (k2, cap_log2 read only then)
 template <int D, bool CAP>
 __global__ void __launch_bounds__(THREADS, 1)
 fa_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -309,7 +312,7 @@ fa_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ lse, float* __restrict__ delta,
                     bf16* __restrict__ dq, int S, int T, int H, int Hkv,
                     int causal, int window, int q_offset, float scale,
-                    float sc_cap, float cap_log2) {
+                    float k2, float cap_log2) {
     using L = Bwd<D, false>;
     constexpr int DEPTH = L::DEPTH;
     extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -431,6 +434,12 @@ fa_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         const float lse_b = rb < S ? lse[rows_at + rb] * LOG2E : 0.0f;
         const float dl_a = dl_s[row], dl_b = dl_s[row + 8];
         const float scale_log2 = scale * LOG2E;
+        // CAP: P (1 - t^2) = 2^(cap_log2 (1 - 2r) - lse + 2) (r - r^2), r
+        // of fa_hopper.cuh's softcap_r, 1 - t^2 = 4 r (1 - r) with its 4
+        // in the exponent: one FFMA of a row's constant before the ex2
+        const float cap_m2 = -2.0f * cap_log2;
+        const float cl_a = cap_log2 - lse_a + 2.0f;
+        const float cl_b = cap_log2 - lse_b + 2.0f;
         const int pa = q_offset + r0;              // the first row's place
 
         // the run [j_a, j_b) of the block's tiles that these rows see
@@ -469,7 +478,10 @@ fa_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                 // only on a tile that cuts a band edge or holds keys past
                 // T or rows past S (an interior tile's every key is seen
                 // by every one of the 64 rows).  CAP: every score capped,
-                // an interior tile's too, and P (1 - t^2) in P's place
+                // and P (1 - t^2) in P's place, on every tile by the
+                // masked path (an interior path for CAP tiles measured
+                // 3-5 % slower: its mask arithmetic hides under the SFU
+                // work; tools/k4_bwd_tc_variants.py: cap_interior)
                 if (!CAP && t0 + BK <= T && r0 + 64 <= S
                         && (!causal || t0 + BK - 1 <= pa)
                         && (window <= 0 || t0 >= pa + 64 - window)) {
@@ -486,10 +498,10 @@ fa_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const bool vis = rb_ ? key >= lo_b && key < hi_b
                                              : key >= lo_a && key < hi_a;
                         if constexpr (CAP) {
-                            const float th = tanhf(s[i] * sc_cap);
-                            s[i] = vis ? ex2(cap_log2 * th
-                                             - (rb_ ? lse_b : lse_a))
-                                             * (1.0f - th * th)
+                            const float r = softcap_r(s[i], k2);
+                            s[i] = vis ? ex2(fmaf(cap_m2, r,
+                                                  rb_ ? cl_b : cl_a))
+                                             * fmaf(-r, r, r)
                                        : 0.0f;
                         } else {
                             s[i] = vis ? ex2(fmaf(s[i], scale_log2,
@@ -554,7 +566,7 @@ __device__ __forceinline__ Walk walk_of(int k0, int k1, int S, int T,
     return Walk{ta0, ta1 - ta0, te};
 }
 
-// CAP: with a logit softcap (sc_cap, cap_log2 read only then)
+// CAP: with a logit softcap (k2, cap_log2 read only then)
 template <int D, bool CAP>
 __global__ void __launch_bounds__(THREADS, 1)
 fa_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -565,7 +577,7 @@ fa_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const float* __restrict__ delta,
                       bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
                       int T, int H, int Hkv, int causal, int window,
-                      int q_offset, float scale, float sc_cap,
+                      int q_offset, float scale, float k2,
                       float cap_log2) {
     using L = Bwd<D, true>;
     constexpr int DEPTH = L::DEPTH;
@@ -660,6 +672,7 @@ fa_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int key_a = kw0 + 16 * warp + (lane >> 2);
         const int key_b = key_a + 8;
         const float scale_log2 = scale * LOG2E;
+        const float cap_m2 = -2.0f * cap_log2;     // CAP: softcap_r's FFMA
         const float inv_t = 1.0f / (float)T;
         const int p_blind = T + window - 1;        // rows from here see none
 
@@ -720,13 +733,14 @@ fa_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const bool vis = in && (!causal || key <= p)
                                      && (window <= 0 || key > p - window);
                     if constexpr (CAP) {
-                        const float th = tanhf(s[e] * sc_cap);
+                        const float r = softcap_r(s[e], k2);
                         s[e] = none ? (in ? inv_t : 0.0f)
-                                    : vis ? ex2(cap_log2 * th - lse_c[col])
+                                    : vis ? ex2(fmaf(cap_m2, r, cap_log2
+                                                     - lse_c[col]))
                                           : 0.0f;
                         dp[e] = none ? 0.0f
                                      : s[e] * (dp[e] - dl_c[col])
-                                           * (1.0f - th * th);
+                                           * (4.0f * fmaf(-r, r, r));
                     } else {
                         blind |= (uint32_t)(none && row < S) << e;
                         s[e] = none ? (in ? inv_t : 0.0f)
@@ -806,12 +820,9 @@ static int map_of(CUtensorMap* map, const void* p, int B, int rows,
     return tensor_map(map, key);
 }
 
-// The two constants of the CAP kernels, as the bf16 forward's launch
-// computes them (flash_attention.cu: tc::launch_as): scale / cap and
-// cap * log2 e
-static float sc_cap_of(float scale, float softcap) {
-    return softcap > 0.0f ? (float)((double)scale / softcap) : 0.0f;
-}
+// The CAP kernels' second constant, as the bf16 forward's launch
+// computes it (flash_attention.cu: tc::launch_as): cap * log2 e (the
+// first, fa_hopper.cuh's softcap_k2: 2 log2 e * scale / cap)
 static float cap_log2_of(float softcap) {
     return softcap > 0.0f ? (float)((double)softcap * 1.4426950408889634)
                           : 0.0f;
@@ -846,7 +857,7 @@ static int launch_dq(const void* q, const void* k, const void* v,
         mq, mdo, mk, mv, static_cast<const bf16*>(o),
         static_cast<const bf16*>(o_lo), static_cast<const bf16*>(dout), lse,
         delta, static_cast<bf16*>(dq), S, T, H, Hkv, causal, window,
-        q_offset, scale, sc_cap_of(scale, softcap), cap_log2_of(softcap));
+        q_offset, scale, softcap_k2(scale, softcap), cap_log2_of(softcap));
     return (int)cudaGetLastError();
 }
 
@@ -875,7 +886,7 @@ static int launch_dkdv(const void* q, const void* k, const void* v,
                                     stream>>>(
         mq, mdo, mk, mv, lse, delta, static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), S, T, H, Hkv, causal, window, q_offset,
-        scale, sc_cap_of(scale, softcap), cap_log2_of(softcap));
+        scale, softcap_k2(scale, softcap), cap_log2_of(softcap));
     return (int)cudaGetLastError();
 }
 

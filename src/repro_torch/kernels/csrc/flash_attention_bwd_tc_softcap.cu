@@ -11,8 +11,9 @@
 //   t = tanh(s * scale / cap), P = 2^(cap log2 e * t - lse log2 e),
 //   dS = P (dP - delta) (1 - t^2)
 //
-// with the bf16 forward's tanhf and constants (flash_attention.cu:
-// softmax_tile), so P is of the capped score the forward's lse summed
+// with the bf16 forward's branch-free tanh and constants (fa_hopper.cuh:
+// softcap_r, one ex2 and one rcp: t = 1 - 2r, 1 - t^2 = 4 r (1 - r)), so
+// P is of the capped score the forward's lse summed
 // (flash_attention_bwd_tc.cu's header says how each kernel forms it).
 
 #define FB_TC_KERNELS_ONLY

@@ -15,14 +15,15 @@
 //
 // (the reference's models/attention.py: _softcap; its Pallas kernel has
 // no softcap).  The f32 kernel caps each visible score where it is
-// scaled; the bf16 kernel's softmax_tile caps every score of a tile, an
-// interior tile's too, in natural units and then takes it to the log2
-// domain.  tanhf is the accurate one: fa_softcap says why.  With lse,
+// scaled, with the accurate tanhf (fa_softcap says why); the bf16
+// kernel's softmax_tile caps every score of a tile, an interior tile's
+// too, straight into the log2 domain with fa_hopper.cuh's branch-free
+// softcap_r (one ex2 and one rcp, within ~2^-21 of tanh).  With lse,
 // each row's log-sum-exp is that of its capped scores, in natural units
 // as without a cap, and (bf16) out_lo is written as without one: the
 // backward pairs' CAP instantiations (flash_attention_bwd_softcap.cu,
 // flash_attention_bwd_tc_softcap.cu) recompute P from it with the same
-// tanhf.
+// tanh as their forward's (f32: tanhf; bf16: softcap_r).
 
 #define FA_KERNELS_ONLY
 #include "flash_attention.cu"

@@ -75,8 +75,11 @@ the two backward pairs in ``csrc/flash_attention_bwd_softcap.cu`` and
 ``csrc/flash_attention_bwd_tc_softcap.cu``, each linked into its
 kernels' library, so the instantiations without a cap compile as
 before.  The backward recomputes the capped score with the forward's
-``tanhf`` (so P matches the lse the forward wrote), and dS takes the
-cap's derivative: ``dS = P * (dP - delta) * (1 - tanh^2)``.
+tanh (so P matches the lse the forward wrote), and dS takes the cap's
+derivative: ``dS = P * (dP - delta) * (1 - tanh^2)``.  The f32 kernels
+take the accurate ``tanhf``; the three bf16 ones a branch-free tanh of
+one ``ex2`` and one ``rcp`` (``csrc/fa_hopper.cuh: softcap_r``, modelled
+by ``softcap_log2_model``).
 
 A CUDA tensor goes to a kernel or the call raises;
 ``flash_attention_plain`` (the function of
@@ -174,6 +177,30 @@ def softcap_scores(s_, softcap: float):
     """``cap * tanh(s / cap)`` as the reference writes it (divide, tanh,
     multiply), or ``s`` when ``softcap`` is 0."""
     return torch.tanh(s_ / softcap) * softcap if softcap > 0 else s_
+
+
+def softcap_log2_model(s_, scale: float, softcap: float, *,
+                       ex2_err: float = 0.0, rcp_err: float = 0.0):
+    """The capped bf16 kernels' arithmetic (``csrc/fa_hopper.cuh:
+    softcap_r``) on raw scores ``s_`` (before the scale), in f32 with
+    the host's f32 constants ``k2 = 2 log2(e) scale / cap`` and
+    ``cap_log2 = cap log2(e)``: ``r = 1 / (1 + 2^(s k2))`` and the capped
+    score in the log2 domain, ``fmaf(-2 cap_log2, r, cap_log2)`` (``cap
+    log2(e) tanh(s scale / cap)``; one rounding, as the FFMA).  Returns
+    (capped score, r); ``4 r (1 - r)`` is the backward's ``1 - tanh^2``.
+    ``ex2_err`` and ``rcp_err`` scale the two special-function results by
+    ``1 + err``: the approximations' relative error, for the tests that
+    bound the design.  Used by tests only: the wrappers' plain twins
+    compute ``torch.tanh``."""
+    k2 = torch.tensor(2.0 * math.log2(math.e) * scale / softcap,
+                      dtype=torch.float32)
+    cap_log2 = torch.tensor(softcap * math.log2(math.e), dtype=torch.float32)
+    e = torch.exp2(s_.float() * k2) * (1.0 + ex2_err)
+    r = (1.0 / (1.0 + e)) * (1.0 + rcp_err)
+    # the FFMA: the f32 product exact in f64, one rounding of the sum
+    capped = torch.addcmul(cap_log2.double(), r.double(), cap_log2.double(),
+                           value=-2.0).float()
+    return capped, r
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,

@@ -198,6 +198,19 @@ def flash_softcap_bound_ms(qs, ks, esize, causal, window, q_offset):
 # recomputed P) and at least the exp inside the score's tanh; without a
 # cap, the exp alone
 SOFTCAP_SFU_PER_PAIR = 2
+# those of the capped bf16 kernels' design (csrc/fa_hopper.cuh:
+# softcap_r): the tanh's ex2 and rcp, then the exp; each kernel's floor
+# beside its bound (the pair recomputes them in both kernels: 6)
+SOFTCAP_TC_SFU_PER_PAIR = 3
+
+
+def sfu_floor_ms(qs, ks, sfu_per_pair, causal=True, window=0, q_offset=0):
+    """ms of ``sfu_per_pair`` special-function operations a visible (q, k)
+    pair of a head at the SFU's rate (``SFU_EXP_PER_S``): a design's
+    floor where those operations bind it."""
+    b, s, h, _ = qs
+    pairs = b * h * visible_pairs(s, ks[1], causal, window, q_offset)
+    return sfu_per_pair * pairs / SFU_EXP_PER_S * 1e3
 
 
 # The work of K4's backward, per kernel and for the pair, that its bound
@@ -680,5 +693,5 @@ def step_share(cfg: ModelConfig, shape: InputShape, tcfg: TrainConfig,
 __all__ = ["step_cost", "step_roofline", "step_share", "attention_pairs",
            "visible_pairs", "fedagg_bound_ms", "fold_bound_ms",
            "partial_bound_ms", "flash_bound_ms", "flash_bwd_bound_ms",
-           "flash_bwd_bf16_bound_ms", "ssm_bound_ms", "ssm_bwd_bound_ms",
-           "optimizer_bytes_per_param"]
+           "flash_bwd_bf16_bound_ms", "sfu_floor_ms", "ssm_bound_ms",
+           "ssm_bwd_bound_ms", "optimizer_bytes_per_param"]

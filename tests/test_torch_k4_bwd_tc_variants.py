@@ -24,7 +24,11 @@ MARKERS = {"masks_always": ["if (false && t0 + BK <= T",
            "both_products": ["uint32_t hi2[4][4], lo2[4][4];"],
            "overlap": ["issue_sdp(j + 1);", "issue_sdp(i + 1);"],
            "kv64": ["kv_keys() { return 64; }",
-                    "constexpr bool SPLIT = true;"]}
+                    "constexpr bool SPLIT = true;"],
+           "cap_interior": ["if (t0 + BK <= T && r0 + 64 <= S",
+                            "s[i] = ex2(fmaf(cap_m2, r, rb_ ? cl_b : cl_a))"],
+           "tanhf": ["const float th = tanhf(s[i] * k2);",
+                     "const float th = tanhf(s[e] * k2);", kbt.SC_CAP]}
 
 
 @pytest.mark.parametrize("name", sorted(kbt.VARIANTS))
@@ -46,3 +50,18 @@ def test_every_variant_but_v0_has_its_markers_and_one_part_is_unchecked():
     assert set(MARKERS) | {"v0"} == set(kbt.VARIANTS)
     assert [n for n, (_, checked) in kbt.VARIANTS.items()
             if not checked] == ["one_part"]
+
+
+def test_capped_anchors_are_found_once_and_tanhf_leaves_no_helper_call():
+    """The anchors of ``tanhf`` and ``cap_interior`` each once in the
+    committed kernels (the launches' k2 twice: dq and dkdv); the
+    ``tanhf`` variant calls no softcap_r, ``cap_interior`` one more."""
+    for anchor in (kbt.DQ_INTERIOR, kbt.KV_INTERIOR, kbt.DQ_INTERIOR_LOOP,
+                   kbt.DQ_CAP, kbt.KV_CAP):
+        assert SOURCE.count(anchor) == 1, anchor[:60]
+    assert SOURCE.count(kbt.CAP_K2) == 2 and "tanhf" not in SOURCE
+    assert SOURCE.count("softcap_r(") == 2
+    src = kbt.patched("tanhf")
+    assert kbt.CAP_K2 not in src and src.count(kbt.SC_CAP) == 2
+    assert "softcap_r(" not in src
+    assert kbt.patched("cap_interior").count("softcap_r(") == 3

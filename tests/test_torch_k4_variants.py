@@ -40,6 +40,12 @@ MARKERS = {"p_single": ["wgmma_pv<D>(o, pf[kk], desc_v);\n            }"],
            "no_multicast": ["static constexpr bool CLUSTER = D > 64;",
                             "const int mcast = 0 && L::CLUSTER"],
            "depth2": ["DEPTH = WIDE ? 2 : STAGES;"],
+           "tanhf": ["cap_log2 * tanhf(s[i] * k2)",
+                     "CAP ? (float)((double)scale / softcap) : 0.0f,",
+                     "        if (w == 1)\n"],
+           "cap_turns": ["        if (w == 1)\n", "        if (w == 0)\n"],
+           "fma_exp": ["float ex2_fma(float x)", "? ex2_fma(s[i] - m_new[r])"],
+           "fma_exp_quarter": ["? ex2_fma(s[i] - m_new[r])"],
            "rescale_under_qk": ["issue_qk(st);\n                wgmma_commit();\n"
                                 "                rescale<D>(o, corr);"],
            "keys64": ["KEYS = D <= 128 ? BK : 64;"],
@@ -91,3 +97,22 @@ def test_multicast_cluster_lives_only_in_its_patch():
         src = _patched(name)
         assert src.count("cluster_sync();") == 3, name
         assert "Layout<D>::HALF};" in src and "Layout<D>::KEYS};" not in src
+
+
+def test_capped_anchors_are_found_as_the_tanhf_variant_needs():
+    """The capped score twice in softmax_tile (masked and interior
+    tiles), the launch's k2 once; ``tanhf`` leaves neither, and the
+    capped variants are built with the softcap instantiations."""
+    assert SOURCE.count(k4v.CAP_TILE) == 2 and SOURCE.count(k4v.CAP_K2) == 1
+    for anchor in (k4v.TURN_BEGIN, k4v.TURN_END, k4v.TURN_FIRST,
+                   k4v.TURN_LAST, k4v.SOFTMAX_EXP):
+        assert SOURCE.count(anchor) == 1, anchor[:60]
+    src = _patched("tanhf")
+    assert k4v.CAP_TILE not in src and k4v.CAP_K2 not in src
+    assert src.count("tanhf(s[i] * k2)") == 2
+    # the turns without a condition, as before the cap skipped them
+    assert "!CAP" not in _patched("cap_turns").split("auto turn_begin")[1] \
+        .split("if (n_rows > 0) {")[0]
+    assert set(k4v.CAPPED) <= set(k4v.WIDE) and "tanhf" in k4v.CAPPED
+    assert set(k4v.CAP_SHAPES) == {"llama-4096-causal-cap50",
+                                   "llama-2048-causal-cap50-lse"}

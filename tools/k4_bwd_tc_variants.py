@@ -4,6 +4,7 @@ dq, dkdv on ``wgmma`` fed by TMA) on one GPU, timed in turns.
 
     python3 tools/k4_bwd_tc_variants.py [--only v0,masks_always,...]
                                         [--baseline NAME=FILE.cu ...]
+                                        [--softcap CAP]
 
 Each variant is the committed source with text patches (and, with each
 ``--baseline``, another source of the same two entry points,
@@ -13,10 +14,13 @@ with ``nvcc -Xptxas -v`` into ``build/k4_bwd_tc_variants/``, all at
 once: registers, spills and ptxas's C75xx notes are printed.  Every
 variant that computes the gradient goes through the wrapper
 (``FlashAttentionFn``) and ``chip_smoke.check_flash_bwd_bf16`` on
-``chip_smoke.BF16_BWD_CASES`` at ``BF16_BWD_TOL``; then all are timed
-with ``chip_smoke.median_ms`` at ``chip_smoke.FA_BWD_BF16_SHAPES``, each
-kernel launched directly, in turns: the variants in order, then
-reversed.  The last line of standard output is one JSON object of the
+``chip_smoke.BF16_BWD_CASES`` at ``BF16_BWD_TOL`` (with ``--softcap``:
+``chip_smoke.check_softcap_bwd`` on ``softcap_bwd_checks``' bf16 cases,
+the committed capped forward's lse); then all are timed with
+``chip_smoke.median_ms`` at ``chip_smoke.FA_BWD_BF16_SHAPES`` (with the
+cap ``--softcap``, 0 by default), each kernel launched directly and the
+pair through the wrapper's backward, in turns: the variants in order,
+then reversed.  The last line of standard output is one JSON object of the
 times and the checks.  Needs one CUDA card and nvcc; exits non-zero
 otherwise or when a checked variant disagrees.
 
@@ -24,6 +28,11 @@ Variants:
   v0             the committed kernels
   masks_always   the masks on every tile and item (no interior path;
                  the kernels without a cap)
+  cap_interior   dq's CAP tiles on the interior path where no mask
+                 bites (v0: every CAP tile on the masked path)
+  tanhf          the capped pair as PR 33 wrote it: the accurate tanhf
+                 and 1 - t^2 in place of fa_hopper.cuh's softcap_r (one
+                 ex2, one rcp) and 4 r (1 - r)
   one_part       P and dS as one bf16 part each (the lo products gone):
                  what the second part costs; not checked (it misses the
                  tolerance, tests/test_torch_k4_bf16_wgmma_bwd.py)
@@ -56,9 +65,61 @@ OUT = ROOT / "build" / "k4_bwd_tc_variants"
 SOURCE = ROOT / "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu"
 
 # the interior tests (a CAP tile or item never takes the interior path:
-# it caps every score on the masked one)
+# it caps every score on the masked one), and dq's interior loop
 DQ_INTERIOR = "                if (!CAP && t0 + BK <= T && r0 + 64 <= S\n"
 KV_INTERIOR = "            if (!CAP && r0 + BM <= S && kw0 + 64 <= T\n"
+DQ_INTERIOR_LOOP = """                    for (int i = 0; i < 32; ++i)
+                        s[i] = ex2(fmaf(s[i], scale_log2,
+                                        -(((i >> 1) & 1) ? lse_b : lse_a)));
+"""
+# dq's interior loop with a CAP branch: the capped score as the masked
+# path forms it, without the masks
+DQ_INTERIOR_CAP = """                    for (int i = 0; i < 32; ++i) {
+                        const bool rb_ = (i >> 1) & 1;
+                        if constexpr (CAP) {
+                            const float r = softcap_r(s[i], k2);
+                            s[i] = ex2(fmaf(cap_m2, r, rb_ ? cl_b : cl_a))
+                                   * fmaf(-r, r, r);
+                        } else {
+                            s[i] = ex2(fmaf(s[i], scale_log2,
+                                            -(rb_ ? lse_b : lse_a)));
+                        }
+                    }
+"""
+# the capped scores (fa_hopper.cuh: softcap_r) on dq's masked path and
+# dkdv's, and their launches' constant; PR 33's, with the accurate tanhf
+# on scale / cap (passed in k2's place)
+DQ_CAP = """                            const float r = softcap_r(s[i], k2);
+                            s[i] = vis ? ex2(fmaf(cap_m2, r,
+                                                  rb_ ? cl_b : cl_a))
+                                             * fmaf(-r, r, r)
+                                       : 0.0f;
+"""
+DQ_TANHF = """                            const float th = tanhf(s[i] * k2);
+                            s[i] = vis ? ex2(cap_log2 * th
+                                             - (rb_ ? lse_b : lse_a))
+                                             * (1.0f - th * th)
+                                       : 0.0f;
+"""
+KV_CAP = """                        const float r = softcap_r(s[e], k2);
+                        s[e] = none ? (in ? inv_t : 0.0f)
+                                    : vis ? ex2(fmaf(cap_m2, r, cap_log2
+                                                     - lse_c[col]))
+                                          : 0.0f;
+                        dp[e] = none ? 0.0f
+                                     : s[e] * (dp[e] - dl_c[col])
+                                           * (4.0f * fmaf(-r, r, r));
+"""
+KV_TANHF = """                        const float th = tanhf(s[e] * k2);
+                        s[e] = none ? (in ? inv_t : 0.0f)
+                                    : vis ? ex2(cap_log2 * th - lse_c[col])
+                                          : 0.0f;
+                        dp[e] = none ? 0.0f
+                                     : s[e] * (dp[e] - dl_c[col])
+                                           * (1.0f - th * th);
+"""
+CAP_K2 = "softcap_k2(scale, softcap)"
+SC_CAP = "(softcap > 0.0f ? (float)((double)scale / softcap) : 0.0f)"
 LO_PRODUCT = "        wgmma_rs_d<D, ROWS>(acc, lo[kk], s);\n"
 SEQUENTIAL = """                split_frags(s, hi, lo);
                 wgmma_fence();
@@ -314,6 +375,24 @@ def overlap(src):
     return between(src, KV_START, KV_END, OVERLAP_KV)
 
 
+def cap_interior(src):
+    """dq's CAP tiles on the interior path where every one of the 64
+    rows sees every key, as a tile without a cap."""
+    return replace(replace(src, DQ_INTERIOR,
+                           DQ_INTERIOR.replace("if (!CAP && ", "if (")),
+                   DQ_INTERIOR_LOOP, DQ_INTERIOR_CAP)
+
+
+def tanhf(src):
+    """The capped pair as PR 33 wrote it: t = tanhf(s * scale / cap) and
+    1 - t^2 in dq and dkdv."""
+    src = replace(replace(src, DQ_CAP, DQ_TANHF), KV_CAP, KV_TANHF)
+    if src.count(CAP_K2) != 2:
+        raise SystemExit("k4_bwd_tc_variants: the launches' k2 not found "
+                         "twice")
+    return src.replace(CAP_K2, SC_CAP)
+
+
 # name -> (patch of the source text, whether it is checked)
 VARIANTS = {
     "v0": (lambda src: src, True),
@@ -322,6 +401,8 @@ VARIANTS = {
                 DQ_INTERIOR.replace("if (!CAP && ", "if (false && ")),
         KV_INTERIOR, KV_INTERIOR.replace("if (!CAP && ", "if (false && ")),
         True),
+    "cap_interior": (cap_interior, True),
+    "tanhf": (tanhf, True),
     "one_part": (lambda src: replace(src, LO_PRODUCT, ""), False),
     "both_products": (lambda src: replace(src, SEQUENTIAL, BOTH), True),
     "overlap": (overlap, True),
@@ -396,17 +477,35 @@ def use(path):
     return lib
 
 
-def check(smoke, libs, names):
-    """Each checked variant on ``BF16_BWD_CASES``; returns name -> {case:
-    errors or the failure}, and whether every one passed."""
+def check(smoke, libs, names, capped=False):
+    """Each checked variant on ``BF16_BWD_CASES`` (``capped``: on
+    ``softcap_bwd_checks``' bf16 cases, ``check_softcap_bwd``); returns
+    name -> {case: errors or the failure}, and whether every one
+    passed."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(33)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
     inputs = []
-    for case, (b, s, t, h, hkv, d), kw in smoke.BF16_BWD_CASES:
-        def r(*shape):
-            return torch.randn(*shape, generator=gen, device="cuda")
-        inputs.append((case, (r(b, s, h, d), r(b, t, hkv, d),
-                              r(b, t, hkv, d), r(b, s, h, d)), kw))
+    if capped:
+        bf16 = torch.bfloat16
+        for d in smoke.HEAD_DIMS:
+            for b, s, t, h, hkv, causal, window, off in smoke.SOFTCAP_MASKS:
+                q, do, k, v = (r(b, s, h, d), r(b, s, h, d), r(b, t, hkv, d),
+                               r(b, t, hkv, d))
+                for cap in smoke.SOFTCAP_CAPS:
+                    inputs.append((
+                        f"d{d}-{causal}-w{window}-off{off}-cap{cap:g}",
+                        ((q * (2 * cap)).to(bf16), k.to(bf16), v.to(bf16),
+                         do.to(bf16), cap),
+                        dict(causal=causal, window=window, q_offset=off)))
+    else:
+        for case, (b, s, t, h, hkv, d), kw in smoke.BF16_BWD_CASES:
+            inputs.append((case, (r(b, s, h, d), r(b, t, hkv, d),
+                                  r(b, t, hkv, d), r(b, s, h, d)), kw))
+    run = smoke.check_softcap_bwd if capped else smoke.check_flash_bwd_bf16
     out, ok = {}, True
     for name in names:
         if name in VARIANTS and not VARIANTS[name][1]:
@@ -415,7 +514,7 @@ def check(smoke, libs, names):
         out[name] = {}
         for case, ins, kw in inputs:
             try:
-                row = smoke.check_flash_bwd_bf16(case, *ins, **kw)
+                row = run(case, *ins, **kw)
                 out[name][case] = {k: row[k] for k in row
                                    if k.endswith("_max_abs_err")}
             except SystemExit as e:
@@ -426,8 +525,10 @@ def check(smoke, libs, names):
     return out, ok
 
 
-def times(smoke, libs, names):
-    """(dq ms, dkdv ms) of each variant at each layer, in turns."""
+def times(smoke, libs, names, cap=0.0):
+    """(dq ms, dkdv ms, the pair's ms through the wrapper) of each
+    variant at each layer with the logit softcap ``cap`` (0: none), in
+    turns."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     bf16 = torch.bfloat16
@@ -439,13 +540,13 @@ def times(smoke, libs, names):
         k, v = (torch.randn(ks, generator=gen, device="cuda").to(bf16)
                 for _ in "kv")
         o, lse, o_lo = fa._kernel_forward(q, k, v, True, window, 0,
-                                          with_lse=True)
+                                          with_lse=True, softcap=cap)
         b, s, h, d = qs
         t, hkv = ks[1], ks[2]
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
         delta = torch.empty((b, h, s), device="cuda")
         args = (b, s, t, h, hkv, d, 1, window, 0, 1.0 / math.sqrt(d))
-        res[arch] = {n: {"dq": [], "dkdv": []} for n in names}
+        res[arch] = {n: {"dq": [], "dkdv": [], "pair": []} for n in names}
         for name in list(names) + list(reversed(names)):
             lib = use(libs[name])
 
@@ -454,20 +555,26 @@ def times(smoke, libs, names):
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     o_lo.data_ptr(), do.data_ptr(), lse.data_ptr(),
                     delta.data_ptr(), dq.data_ptr(), *args,
-                    torch.cuda.current_stream().cuda_stream, 0.0)
+                    torch.cuda.current_stream().cuda_stream, cap)
 
             def dkdv_kernel():
                 lib.flash_attention_bwd_dkdv_bf16(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                     lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                     dv.data_ptr(), *args,
-                    torch.cuda.current_stream().cuda_stream, 0.0)
+                    torch.cuda.current_stream().cuda_stream, cap)
+
+            def pair():
+                return fa._kernel_backward(q, k, v, o, lse, do, True,
+                                           window, 0, o_lo, cap)
 
             dq_kernel()                    # delta for the dkdv timing
             res[arch][name]["dq"].append(
                 smoke.median_ms(dq_kernel, runs=5, per_run=5))
             res[arch][name]["dkdv"].append(
                 smoke.median_ms(dkdv_kernel, runs=5, per_run=5))
+            res[arch][name]["pair"].append(
+                smoke.median_ms(pair, runs=5, per_run=5))
         print(json.dumps({"arch": arch, "ms_turns": res[arch]}), flush=True)
     return res
 
@@ -478,6 +585,9 @@ def main(argv=None) -> int:
                     help="comma-separated variants (default: all)")
     ap.add_argument("--baseline", action="append", default=[],
                     help="NAME=FILE.cu: another source as variant NAME")
+    ap.add_argument("--softcap", type=float, default=0.0,
+                    help="time with this logit softcap (the CAP kernels) "
+                         "and check on the capped cases")
     args = ap.parse_args(argv)
     names = [n for n in args.only.split(",") if n]
     unknown = [n for n in names if n not in VARIANTS]
@@ -503,11 +613,12 @@ def main(argv=None) -> int:
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     libs = build(sources)
     names = list(sources)
-    checks, ok = check(smoke, libs, names)
-    res = times(smoke, libs, names)
+    checks, ok = check(smoke, libs, names, capped=args.softcap > 0)
+    res = times(smoke, libs, names, args.softcap)
     least = {arch: {n: {k: min(v) for k, v in r.items()}
                     for n, r in per.items()} for arch, per in res.items()}
-    print(json.dumps({"card": card, "least_ms": least, "checks_passed": ok,
+    print(json.dumps({"card": card, "softcap": args.softcap,
+                      "least_ms": least, "checks_passed": ok,
                       "checked": sorted(checks)}), flush=True)
     return 0 if ok else 1
 

@@ -2,7 +2,8 @@
 """Variants of the bf16 attention kernel (K4) on one GPU, timed in turns.
 
     python3 tools/k4_variants.py [--only v0,bq192,...] [--prefill]
-                                 [--shapes narrow|wide|all] [--scaled]
+                                 [--shapes narrow|wide|all|capped]
+                                 [--scaled]
                                  [--baseline NAME=FILE.cu ...]
 
 Each variant is the committed ``src/repro_torch/kernels/csrc/
@@ -28,9 +29,16 @@ when a checked variant disagrees.  The ``serial`` consumer and the
 192-row block keep the head-dim-64 tiling (128-key tiles, one 64-column
 block): those variants are checked and timed at D <= 64 only.  The
 others, ``WIDE`` below, also run ``chip_smoke.WIDE_HEAD_CASES`` and the
-wide shapes.  v0 and the f32 variants are built with their own softcap
-instantiations (``flash_attention_softcap.cu``'s launches appended to
-the variant's text); every other source gets a stub that refuses a cap.
+wide shapes.  v0, the f32 variants and the capped ones (``CAPPED``) are
+built with their own softcap instantiations (``flash_attention_softcap.cu``'s
+launches appended to the variant's text); every other source gets a
+stub that refuses a cap.  With ``--shapes capped`` every variant of
+the committed consumer (``WIDE``, the ablations too) carries them, and
+v0 and those that compute attention are also held to
+``chip_smoke.check_softcap`` on
+``softcap_checks``' bf16 cases, and timed at llama3.2-1b's layers with a
+cap of 50 (``CAP_SHAPES``: the serving forward at 2 x 4096, the forward
+with lse at 2 x 2048) beside the layer without a cap.
 With ``--scaled``, v0 and each f32 variant of the split (``SPLIT_OF``)
 run ``tools/k4_bwd_variants.py``'s scaled mode: the forward and the
 backward pair built together with the same split, the capped forward on
@@ -66,6 +74,15 @@ Variants:
   no_multicast        (D = 128, 192) those clusters, each CTA loading its
                       own K/V tiles
   depth2              (D = 128) a 2-stage K/V ring
+  tanhf               the capped bf16 forward as PR 33 wrote it: the
+                      accurate tanhf in place of fa_hopper.cuh's softcap_r
+                      (one ex2, one rcp), and cap_turns
+  cap_turns           the capped kernel with the ping-pong turns (v0:
+                      the kernels without a cap only)
+  fma_exp             the capped softmax's exponent on the FMA pipe for
+                      every second element (a Cody-Waite split and a
+                      polynomial), the SFU's ex2 for the rest
+  fma_exp_quarter     the same for every fourth element
   rescale_under_qk    o's rescale under the issued Q.K^T, inside the turn
   keys64              (D = 192) 64-key tiles in a 3-stage ring
   f32_keys32          the f32 kernel at D = 192 on 32-key tiles
@@ -115,6 +132,12 @@ WIDE_SHAPES = {"mixtral-4096-window4096": (2, 4096, 32, 8, 4096, 128),
 F32_SHAPES = {"phi4-mini-2048-causal-f32": (1, 2048, 24, 8, 0, 128),
               "nemotron-2048-causal-f32": (1, 2048, 96, 8, 0, 192)}
 TOL_F32 = (2e-5, 2e-5)
+# llama3.2-1b's layers with Gemma 2's cap of 50 (chip_smoke.py:
+# SOFTCAP_PREFILL, SOFTCAP_TRAIN), bf16, causal: the serving forward and
+# the forward with lse; name -> (b, s, h, hkv, d, cap, with lse)
+CAP_SHAPES = {"llama-4096-causal-cap50": (2, 4096, 32, 8, 64, 50.0, False),
+              "llama-2048-causal-cap50-lse": (2, 2048, 32, 8, 64, 50.0,
+                                              True)}
 
 
 def replace(src, old, new):
@@ -166,31 +189,51 @@ constexpr int CONSUMER_REGS = NWG == 2 ? 240 : 160;""")
                    '#endif\n#include "fa_hopper.cuh"')
 
 
+# the ping-pong's turn barriers (the kernels without a cap take them)
+TURN_BEGIN = """            if constexpr (!CAP)
+                asm volatile("bar.sync %0, 256;\\n" :: "r"(3 + w)
+                             : "memory");"""
+TURN_END = """            if constexpr (!CAP)
+                asm volatile("bar.arrive %0, 256;\\n" :: "r"(4 - w)
+                             : "memory");"""
+TURN_FIRST = """        if (!CAP && w == 1)
+            asm volatile("bar.arrive 3, 256;\\n" ::: "memory");"""
+TURN_LAST = """        if (!CAP && w == 0)
+            asm volatile("bar.sync 3, 256;\\n" ::: "memory");"""
+
+
 def no_turns(src):
     """Overlap without ping-pong: the turn barriers go."""
-    src = replace(src, """            asm volatile("bar.sync %0, 256;\\n" :: "r"(3 + w) : "memory");""", "")
-    src = replace(src, """            asm volatile("bar.arrive %0, 256;\\n" :: "r"(4 - w) : "memory");""", "")
-    src = replace(src, """        if (w == 1)
-            asm volatile("bar.arrive 3, 256;\\n" ::: "memory");""", "")
-    return replace(src, """        if (w == 0)
-            asm volatile("bar.sync 3, 256;\\n" ::: "memory");""", "")
+    for anchor in (TURN_BEGIN, TURN_END, TURN_FIRST):
+        src = replace(src, anchor, "")
+    return replace(src, TURN_LAST, "")
+
+
+def cap_turns(src):
+    """The capped kernel with the ping-pong turns, as the kernels without
+    a cap (and PR 33's capped kernel) take them."""
+    for anchor in (TURN_BEGIN, TURN_END):
+        src = replace(src, anchor, anchor.replace(
+            "            if constexpr (!CAP)\n    ", ""))
+    for anchor in (TURN_FIRST, TURN_LAST):
+        src = replace(src, anchor, anchor.replace("!CAP && ", ""))
+    return src
 
 
 def branching_turns(src):
     """Ping-pong whose last turn of warpgroup 1 skips its arrival (a
     branch between issue and wait; ptxas serializes: C7520)."""
     src = replace(src, """        auto turn_end = [&]() {
-            asm volatile("bar.arrive %0, 256;\\n" :: "r"(4 - w) : "memory");
+""" + TURN_END + """
         };""", """        const int n_turns = n_tiles + 1;
         int turn = 0;
         auto turn_end = [&]() {
-            if (!(w == 1 && turn == n_turns - 1))
+            if (!CAP && !(w == 1 && turn == n_turns - 1))
                 asm volatile("bar.arrive %0, 256;\\n" :: "r"(4 - w)
                              : "memory");
             ++turn;
         };""")
-    return replace(src, """        if (w == 0)
-            asm volatile("bar.sync 3, 256;\\n" ::: "memory");""", "")
+    return replace(src, TURN_LAST, "")
 
 
 def all_lanes(src):
@@ -251,20 +294,20 @@ def ablations(src):
     return replace(src, """            if (interior)
                 softmax_tile<false, BK / 2, CAP>(s, m, l, corr, scale_log2,
                                                  t0, T, row_pos, causal,
-                                                 window, sc_cap, cap_log2);
+                                                 window, k2, cap_log2);
             else
                 softmax_tile<true, BK / 2, CAP>(s, m, l, corr, scale_log2,
                                                 t0, T, row_pos, causal,
-                                                window, sc_cap, cap_log2);
+                                                window, k2, cap_log2);
         };""", """#ifndef ABL_NOSOFTMAX
             if (interior)
                 softmax_tile<false, BK / 2, CAP>(s, m, l, corr, scale_log2,
                                                  t0, T, row_pos, causal,
-                                                 window, sc_cap, cap_log2);
+                                                 window, k2, cap_log2);
             else
                 softmax_tile<true, BK / 2, CAP>(s, m, l, corr, scale_log2,
                                                 t0, T, row_pos, causal,
-                                                window, sc_cap, cap_log2);
+                                                window, k2, cap_log2);
 #endif
         };""")
 
@@ -586,7 +629,7 @@ MC_LAUNCH = r"""    if constexpr (Layout<D>::CLUSTER) {
             static_cast<__nv_bfloat16*>(out), S, T_len, H, Hkv, causal,
             window, q_offset, (float)((double)scale * 1.4426950408889634),
             lse, static_cast<__nv_bfloat16*>(out_lo),
-            CAP ? (float)((double)scale / softcap) : 0.0f,
+            softcap_k2(scale, CAP ? softcap : 0.0f),
             CAP ? (float)((double)softcap * 1.4426950408889634) : 0.0f);
         if (ce != cudaSuccess) return (int)ce;
         return (int)cudaGetLastError();
@@ -785,6 +828,62 @@ def depth2(src):
                    "static constexpr int DEPTH = WIDE ? 2 : STAGES;")
 
 
+# The capped bf16 score (softmax_tile, twice: masked and interior tiles)
+# and the launch's constant of fa_hopper.cuh's softcap_r
+CAP_TILE = "fmaf(cap_m2, softcap_r(s[i], k2), cap_log2)"
+CAP_K2 = "softcap_k2(scale, CAP ? softcap : 0.0f),"
+
+
+def tanhf(src):
+    """The capped bf16 forward as PR 33 wrote it: ``cap_turns``, and the
+    score cap_log2 * tanhf(s * scale / cap), the accurate tanh (a branch
+    on |x|, ~20 FP32 instructions and 2 SFU operations), the launch
+    passing scale / cap in k2's place."""
+    src = cap_turns(src)
+    if src.count(CAP_TILE) != 2:
+        raise SystemExit("k4_variants: the capped score not found twice")
+    src = src.replace(CAP_TILE, "cap_log2 * tanhf(s[i] * k2)")
+    return replace(src, CAP_K2,
+                   "CAP ? (float)((double)scale / softcap) : 0.0f,")
+
+
+# 2^x on the FMA pipe, for the capped softmax's exponent: a Cody-Waite
+# split x = j + f (j = rint(x) by the 1.5 * 2^23 shift, f in [-0.5,
+# 0.5]), 2^f by Cephes' exp2f polynomial (~2^-23 relative), j added into
+# the exponent; x below -127 (masked keys: -inf, NEG - m) gives 0
+EX2_FMA = r"""__device__ __forceinline__ float ex2_fma(float x) {
+    x = fmaxf(x, -127.0f);
+    const float t = x + 12582912.0f;
+    const float f = x - (t - 12582912.0f);
+    float p = 1.535336188319500e-4f;
+    p = fmaf(p, f, 1.339887440266574e-3f);
+    p = fmaf(p, f, 9.618437357674640e-3f);
+    p = fmaf(p, f, 5.550332471162809e-2f);
+    p = fmaf(p, f, 2.402264791363012e-1f);
+    p = fmaf(p, f, 6.931472028550421e-1f);
+    p = fmaf(p, f, 1.0f);
+    return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
+}
+
+"""
+SOFTMAX_EXP = """        s[i] = MASK || CAP ? ex2(s[i] - m_new[r])
+                           : ex2(fmaf(s[i], scale_log2, -m_new[r]));"""
+
+
+def fma_exp(src):
+    """The capped softmax's exponent on the FMA pipe (``EX2_FMA``) for
+    element i with i % FA_FMA_EXP_EVERY == FA_FMA_EXP_EVERY - 1 (the -D
+    switch: 2 half, 4 a quarter), ex2 on the SFU for the rest: the SFU
+    is then not the only pipe that binds."""
+    src = replace(src, "// One warpgroup's 64 rows against one tile of N/2 "
+                  "keys", EX2_FMA + "// One warpgroup's 64 rows against one "
+                  "tile of N/2 keys")
+    return replace(src, SOFTMAX_EXP, """        s[i] = CAP && i % FA_FMA_EXP_EVERY == FA_FMA_EXP_EVERY - 1
+                   ? ex2_fma(s[i] - m_new[r])
+                   : MASK || CAP ? ex2(s[i] - m_new[r])
+                                 : ex2(fmaf(s[i], scale_log2, -m_new[r]));""")
+
+
 # name -> (patches, -D switches, tolerance against gqa_plain or None for
 # an ablation that does not compute attention)
 VARIANTS = {
@@ -807,6 +906,10 @@ VARIANTS = {
     "remote_arrivals_no_mc": ((remote_arrivals_no_mc,), (), TOL),
     "no_multicast": ((no_multicast,), (), TOL),
     "depth2": ((depth2,), (), TOL),
+    "tanhf": ((tanhf,), (), TOL),
+    "cap_turns": ((cap_turns,), (), TOL),
+    "fma_exp": ((fma_exp,), ("-DFA_FMA_EXP_EVERY=2",), TOL),
+    "fma_exp_quarter": ((fma_exp,), ("-DFA_FMA_EXP_EVERY=4",), TOL),
     "rescale_under_qk": ((rescale_under_qk,), (), TOL),
     "keys64": ((keys64,), (), TOL),
     "f32_keys32": ((f32_keys32,), (), TOL),
@@ -823,13 +926,18 @@ VARIANTS = {
 }
 
 
+# the variants that change the capped bf16 forward: built with their
+# softcap instantiations, as v0, and with ``--shapes capped`` checked on
+# the capped cases and timed at the capped layers
+CAPPED = ("tanhf", "cap_turns", "fma_exp", "fma_exp_quarter")
 # the variants that keep the committed consumer at every head dim (or
 # switch parts of it off): checked and timed at D = 128 and 192 too
 WIDE = ("v0", "p_single", "overlap", "pingpong_branching", "all_lanes",
         "stages4", "l2_256", "multicast", "multicast_loads_only",
         "remote_arrivals", "remote_arrivals_no_mc", "no_multicast", "depth2",
         "rescale_under_qk", "keys64", "f32_keys32", "f32_unroll4",
-        "f32_rna", "f32_rnahi", "no_softmax", "no_products", "loads_only")
+        "f32_rna", "f32_rnahi", *CAPPED, "no_softmax", "no_products",
+        "loads_only")
 # the variants that change the f32 kernel: also checked in f32 and timed
 # at the f32 training shapes
 F32 = ("f32_keys32", "f32_unroll4", "f32_rna", "f32_rnahi")
@@ -838,9 +946,11 @@ F32 = ("f32_keys32", "f32_unroll4", "f32_rna", "f32_rnahi")
 SPLIT_OF = {"f32_rna": "rna", "f32_rnahi": "rnahi"}
 
 
-def build(names, baselines=None):
+def build(names, baselines=None, with_cap=()):
     """Build every named variant (and each baseline NAME -> source text)
-    in parallel; name -> (library, ptxas lines)."""
+    in parallel, those of ``with_cap`` (and v0, the f32 and the capped
+    variants) with their softcap instantiations; name -> (library,
+    ptxas lines)."""
     from repro_torch.kernels import _build
     committed = (_build.CSRC / "flash_attention.cu").read_text()
     # v0 and the f32 variants carry their own softcap instantiations:
@@ -871,7 +981,8 @@ int fa_fwd_softcap(const void*, const void*, const void*, void*, int, int,
         for patch in patches:
             src = patch(src)
         cu = OUT / f"{name}.cu"
-        cu.write_text(src + (capped if name in ("v0", *F32) else stub))
+        cu.write_text(src + (capped if name in ("v0", *F32, *CAPPED,
+                                                *with_cap) else stub))
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *defines,
              "-Xptxas", "-v", "-o", str(OUT / f"lib{name}.so"), str(cu)],
@@ -942,6 +1053,66 @@ def cases(gen):
     ]
 
 
+def capped_checks(libs, names):
+    """Each of ``names`` on ``chip_smoke.check_softcap``'s cases, as
+    ``softcap_checks`` draws them in bf16 (every head dim,
+    ``SOFTCAP_MASKS``, caps of ``SOFTCAP_CAPS``, q scaled by 2 caps);
+    returns the failures."""
+    import chip_smoke
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    bad = []
+    for name in names:
+        use(libs[name][0])
+        worst, n = 0.0, 0
+        for d in chip_smoke.HEAD_DIMS:
+            for b, s, t, h, hkv, causal, window, off in \
+                    chip_smoke.SOFTCAP_MASKS:
+                q = torch.randn(b, s, h, d, generator=gen, device="cuda")
+                k, v = (torch.randn(b, t, hkv, d, generator=gen,
+                                    device="cuda") for _ in range(2))
+                for cap in chip_smoke.SOFTCAP_CAPS:
+                    case = f"d{d}-{causal}-w{window}-off{off}-cap{cap:g}"
+                    try:
+                        row = chip_smoke.check_softcap(
+                            f"{name}/{case}",
+                            (q * (2 * cap)).to(torch.bfloat16),
+                            k.to(torch.bfloat16), v.to(torch.bfloat16), cap,
+                            causal=causal, window=window, q_offset=off)
+                        worst = max(worst, row["max_abs_err"])
+                    except SystemExit as e:
+                        bad.append(str(e))
+                    n += 1
+        print(json.dumps({"variant": name, "capped_checked": n,
+                          "capped_worst_max_abs_err": worst}), flush=True)
+    return bad
+
+
+def capped_times(libs, names, gen):
+    """ms of each of ``names`` at ``CAP_SHAPES``, in turns."""
+    import chip_smoke
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    times = {}
+    for shape, (b, s, h, hkv, d, cap, lse) in CAP_SHAPES.items():
+        q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for n in (h, hkv, hkv))
+        if lse:
+            def call():
+                return fa._kernel_forward(q, k, v, True, 0, 0,
+                                          with_lse=True, softcap=cap)
+        else:
+            def call():
+                return fa.flash_attention(q, k, v, causal=True, softcap=cap)
+        times[shape] = {}
+        for name in names + names[::-1]:
+            use(libs[name][0])
+            times[shape].setdefault(name, []).append(chip_smoke.median_ms(
+                call, runs=5, per_run=10))
+        print(json.dumps({"shape": shape, "ms": times[shape]}), flush=True)
+    return times
+
+
 def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -950,9 +1121,12 @@ def main(argv=None) -> int:
     ap.add_argument("--prefill", action="store_true",
                     help="also the bf16 hymba prefill against the f32 "
                          "forward, with each checked variant")
-    ap.add_argument("--shapes", choices=("narrow", "wide", "all"),
+    ap.add_argument("--shapes", choices=("narrow", "wide", "all", "capped"),
                     default="all",
-                    help="time at head dim 64, at 128 and 192, or both")
+                    help="time at head dim 64, at 128 and 192, or both; "
+                         "capped: llama's layer without a cap, then v0 and "
+                         "the capped variants checked on the softcap cases "
+                         "and timed at llama's capped layers")
     ap.add_argument("--baseline", action="append", default=[],
                     help="NAME=FILE.cu: another source as variant NAME")
     ap.add_argument("--scaled", action="store_true",
@@ -981,7 +1155,10 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    libs = build(names, baselines)
+    # --shapes capped: every variant of the committed consumer capped too
+    with_cap = [n for n in names if n in WIDE] \
+        if args.shapes == "capped" else []
+    libs = build(names, baselines, with_cap)
     for name in names:
         print(json.dumps({"variant": name, "ptxas": libs[name][1]}),
               flush=True)
@@ -1013,10 +1190,16 @@ def main(argv=None) -> int:
         print(json.dumps({"variant": name, "checked": len(mine),
                           "worst_max_abs_err": worst, "tol": tol}),
               flush=True)
+    capped = [n for n in names if n in ("v0", *CAPPED, *with_cap)]
+    if args.shapes == "capped":
+        bad += capped_checks(libs, [n for n in capped
+                                    if VARIANTS[n][2] is not None])
     times = {}
-    shapes = {**(SHAPES if args.shapes != "wide" else {}),
-              **(WIDE_SHAPES if args.shapes != "narrow" else {})}
-    if args.shapes != "narrow" and any(n in F32 for n in names):
+    shapes = {"narrow": SHAPES, "wide": WIDE_SHAPES,
+              "all": {**SHAPES, **WIDE_SHAPES},
+              "capped": {"llama-4096-causal": SHAPES["llama-4096-causal"]}
+              }[args.shapes].copy()
+    if args.shapes in ("wide", "all") and any(n in F32 for n in names):
         shapes.update(F32_SHAPES)
     for shape, (b, s, h, hkv, window, d) in shapes.items():
         dtype = torch.float32 if shape in F32_SHAPES else torch.bfloat16
@@ -1042,6 +1225,8 @@ def main(argv=None) -> int:
             times[shape].setdefault(name, []).append(chip_smoke.median_ms(
                 call, runs=5, per_run=10))
         print(json.dumps({"shape": shape, "ms": times[shape]}), flush=True)
+    if args.shapes == "capped":
+        times.update(capped_times(libs, capped, gen))
     scaled = {}
     if args.scaled:
         scaled, ok = KBV.run(["v0"] + [SPLIT_OF[n] for n in names
