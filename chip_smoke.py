@@ -6772,19 +6772,51 @@ def _once_ms(fn):
     return start.elapsed_time(end)
 
 
+def single_launch(mode, u, x, y=None):
+    """The single launch of K1 (``x`` weights, ``y`` alphas), K2 (``x``
+    the global row, ``y`` the coefficients) or K3 (``x`` the
+    coefficients), its entry called directly whatever route the
+    wrappers (``fedagg.tiled_route``) take for the shape: the batch
+    loop of 16 rows in flight.  Counts no launch."""
+    import torch
+    from repro_torch.kernels import fedagg as fa
+    lib = fa._lib()
+    n, p = u.shape
+    out = torch.empty(p, device=u.device)
+    rows = (u, out)
+    if mode == "fedagg":
+        entry = "fedagg_f32"
+        ptrs = (x.data_ptr(), None if y is None else y.data_ptr())
+    elif mode == "fedagg_fold":
+        entry, ptrs, rows = ("fedagg_fold_f32", (x.data_ptr(), y.data_ptr()),
+                             (u, x, out))
+    else:
+        entry, ptrs = "fedagg_partial_f32", (x.data_ptr(),)
+    err = fa._launch(lib, entry, None,
+                     (u.data_ptr(), *ptrs, out.data_ptr(), n, p,
+                      fa._vector_width(p, *rows)),
+                     torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"{entry}: launch failed, CUDA error {err}")
+    return out
+
+
 def fedagg_rows_checks():
     """K1-K3 at N in {4,096, 4,097, 8,192} rows of P = 131,072 f32 and
     K2 at K + 1 = 4,097 and 8,192 coefficients: (b) a 4,096-row call
-    (K2: 4,096 coefficients) with zero-coefficient rows appended up to
-    4,097 and 8,192 equals it bit for bit, the appended rows past 4,096
-    holding inf and nan; (c) 5,000 live rows padded with zero rows to
-    8,192 equal the unpadded 5,000 bit for bit; (d) at 4,097 and 8,192
-    rows each kernel is within RTOL/ATOL of its plain twin.  Then each
-    kernel's ms at 8,192 rows beside its plain twin (one call), its
-    library yardstick and roofline/cost.py's bound (``_rows_times``);
-    the single launch at 4,096 rows beside its library call; and at the
-    row width of resnet8-cifar10's tree (``resnet8_p``: the vec = 2
-    path) (b) again and the times."""
+    (K2: 4,096 coefficients) of the single launch (``single_launch``:
+    the wrappers route such a call to the tiled route) with
+    zero-coefficient rows appended up to 4,097 and 8,192 equals it bit
+    for bit, the appended rows past 4,096 holding inf and nan, and so
+    does the wrappers' own 4,096-row call; (c) 5,000 live rows padded
+    with zero rows to 8,192 equal the unpadded 5,000 bit for bit; (d) at
+    4,097 and 8,192 rows each kernel is within RTOL/ATOL of its plain
+    twin.  Then each kernel's ms at 8,192 rows beside its plain twin
+    (one call), its library yardstick and roofline/cost.py's bound
+    (``_rows_times``); each at 4,096 rows (K2: 4,095) through the
+    wrappers' route beside the single launch and its library call
+    (``_at_4096``); and at the row width of resnet8-cifar10's tree
+    (``resnet8_p``: the vec = 2 path) (b) again and the times."""
     import torch
     from repro_torch.kernels import fedagg as fa
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -6806,30 +6838,25 @@ def fedagg_rows_checks():
         return torch.cat([x[:live], zeros[:n - live]])
 
     out = {"p": ROWS_P, "single_launch_rows": single}
-    # (b) appended zero-coefficient rows change no bit
-    calls = []
+    # (b) appended zero-coefficient rows change no bit: the single launch
+    # called directly, the wrappers' own call of its rows, and the rows
+    # padded past it
+    calls, routes = [], {}
     for n in (single + 1, n_max):
-        for name, base, pad in (
-                ("fedagg", lambda: fa.fedagg(u[:single], w[:single],
-                                             alphas=a[:single]),
-                 lambda n=n: fa.fedagg(u[:n], padded(w, single, n),
-                                       alphas=a[:n])),
-                ("fedagg_fold", lambda: fa.fedagg_fold(u[:single - 1], g,
-                                                       c[:single]),
-                 lambda n=n: fa.fedagg_fold(u[:n - 1], g,
-                                            padded(c, single, n))),
-                ("fedagg_partial", lambda: fa.fedagg_partial(u[:single],
-                                                             c3[:single]),
-                 lambda n=n: fa.fedagg_partial(u[:n],
-                                               padded(c3, single, n)))):
-            want, t0 = _tiled_calls(base)
+        for name, base, own, pad in _appended(u, g, w, a, c, c3, padded,
+                                              single, n):
+            want = base()
+            got_own, t0 = _tiled_calls(own)
             got, t1 = _tiled_calls(pad)
-            if t0 or t1 != 1:
-                fail(f"{name}: {single} rows took the tiled route {t0} "
-                     f"times, {n} rows {t1}")
+            if t1 != 1:
+                fail(f"{name}: {n} rows took the tiled route {t1} times")
+            _bitwise(f"{name} (b): the wrappers' {single} rows", got_own,
+                     want)
             _bitwise(f"{name} (b): {single} rows padded to {n}", got, want)
             calls.append(f"{name}:{single}->{n}")
+            routes[name] = "tiled" if t0 else "single"
     out["b_appended_zero_rows_bitwise"] = calls
+    out["b_route_at_4096"] = routes
     # (c) 5,000 live rows padded to 8,192
     calls = []
     for name, base, pad in (
@@ -6863,17 +6890,8 @@ def fedagg_rows_checks():
     out["tolerance"] = {"rtol": RTOL, "atol": ATOL}
     # the times at 8,192 rows (4.3 GB: no copies needed to miss the L2)
     out["at_8192_rows"] = _rows_times(u, g, w, c, c3, ROWS_P)
-    # the single launch at 4,096 rows beside it, on the same buffer
-    eff = w[:single] / w[:single].sum()
-    ms = median_ms(lambda: fa.fedagg(u[:single], w[:single]), warmup=2,
-                   runs=5, per_run=5)
-    bound = fedagg_bound_ms(w[:single], ROWS_P)
-    out["fedagg_at_4096"] = {
-        "ms": ms, "library": "matmul",
-        "library_ms": median_ms(lambda: torch.matmul(eff, u[:single]),
-                                warmup=2, runs=5, per_run=5),
-        "bound_ms": bound[0], "bound_by": bound[1],
-        "share_of_bound": bound[0] / ms}
+    # each at 4,096 rows beside it, on the same buffer
+    out.update(_at_4096(u, g, w, c, c3, single))
     del u
     torch.cuda.empty_cache()
     # the paper's cross-device width: resnet8-cifar10's tree (an odd
@@ -6884,29 +6902,93 @@ def fedagg_rows_checks():
     u[n_max - 1] = float("nan")
     g = torch.randn(p8, generator=gen, device="cuda")
     calls = []
-    for name, base, pad in (
-            ("fedagg", lambda: fa.fedagg(u[:single], w[:single],
-                                         alphas=a[:single]),
-             lambda: fa.fedagg(u, padded(w, single, n_max), alphas=a)),
-            ("fedagg_fold", lambda: fa.fedagg_fold(u[:single - 1], g,
-                                                   c[:single]),
-             lambda: fa.fedagg_fold(u[:n_max - 1], g,
-                                    padded(c, single, n_max))),
-            ("fedagg_partial", lambda: fa.fedagg_partial(u[:single],
-                                                         c3[:single]),
-             lambda: fa.fedagg_partial(u, padded(c3, single, n_max)))):
-        want, t0 = _tiled_calls(base)
+    for name, base, own, pad in _appended(u, g, w, a, c, c3, padded,
+                                          single, n_max):
+        want = base()
+        got_own, t0 = _tiled_calls(own)
         got, t1 = _tiled_calls(pad)
-        if (t0, t1) != (0, 1):
-            fail(f"{name} at p {p8}: tiled calls {t0}, {t1}")
+        if t1 != 1:
+            fail(f"{name} at p {p8}: {n_max} rows: tiled calls {t1}")
+        _bitwise(f"{name} (b) at p {p8}: the wrappers' {single} rows",
+                 got_own, want)
         _bitwise(f"{name} (b) at p {p8}: {single} rows padded to {n_max}",
                  got, want)
         calls.append(f"{name}:{single}->{n_max}")
+        routes[f"{name}_at_resnet8_width"] = "tiled" if t0 else "single"
+    out["b_route_at_4096"] = routes
     out["resnet8_p"] = p8
     out["b_at_resnet8_width_bitwise"] = calls
     out["at_8192_rows_resnet8_width"] = _rows_times(u, g, w, c, c3, p8)
     del u
     torch.cuda.empty_cache()
+    return out
+
+
+def _appended(u, g, w, a, c, c3, padded, single, n):
+    """(mode, the single launch on ``single`` rows (K2: ``single``
+    coefficients), the wrapper on them, the wrapper on them padded with
+    zero-coefficient rows to ``n``) for the three modes."""
+    from repro_torch.kernels import fedagg as fa
+    return (
+        ("fedagg",
+         lambda: single_launch("fedagg", u[:single], w[:single], a[:single]),
+         lambda: fa.fedagg(u[:single], w[:single], alphas=a[:single]),
+         lambda: fa.fedagg(u[:n], padded(w, single, n), alphas=a[:n])),
+        ("fedagg_fold",
+         lambda: single_launch("fedagg_fold", u[:single - 1], g, c[:single]),
+         lambda: fa.fedagg_fold(u[:single - 1], g, c[:single]),
+         lambda: fa.fedagg_fold(u[:n - 1], g, padded(c, single, n))),
+        ("fedagg_partial",
+         lambda: single_launch("fedagg_partial", u[:single], c3[:single]),
+         lambda: fa.fedagg_partial(u[:single], c3[:single]),
+         lambda: fa.fedagg_partial(u[:n], padded(c3, single, n))))
+
+
+def _at_4096(u, g, w, c, c3, single):
+    """K1 and K3 on ``single`` rows of ``u``, K2 on ``single`` - 1 rows
+    (``single`` coefficients): the wrappers' route (which it is: the
+    tiled calls it made), its ms, the single launch's ms (the batch
+    loop: the route before the crossover) in turns with it, the library
+    call and the bound."""
+    import torch
+    from repro_torch.kernels import fedagg as fa
+    p = u.shape[1]
+    us, ws = u[:single], w[:single]
+    eff = ws / ws.sum()
+    k2_c = c[:single]
+    fc = k2_c / k2_c.sum()
+    cases = {
+        "fedagg": (lambda: fa.fedagg(us, ws),
+                   lambda: single_launch("fedagg", us, ws),
+                   lambda: torch.matmul(eff, us), "matmul",
+                   fedagg_bound_ms(ws, p)),
+        "fedagg_fold": (lambda: fa.fedagg_fold(us[:-1], g, k2_c),
+                        lambda: single_launch("fedagg_fold", us[:-1], g,
+                                              k2_c),
+                        lambda: torch.addmv(g * fc[0], us[:-1].t(), fc[1:]),
+                        "addmv", fold_bound_ms(k2_c, p)),
+        "fedagg_partial": (lambda: fa.fedagg_partial(us, c3[:single]),
+                           lambda: single_launch("fedagg_partial", us,
+                                                 c3[:single]),
+                           lambda: torch.mv(us.t(), c3[:single]), "mv",
+                           partial_bound_ms(c3[:single], p))}
+    out = {}
+    for name, (route, batch, library, lib_name, bound) in cases.items():
+        _, tiled = _tiled_calls(route)
+        turns = {"route": [], "single_launch": []}
+        for which in ("route", "single_launch", "single_launch", "route"):
+            fn = route if which == "route" else batch
+            turns[which].append(median_ms(fn, warmup=2, runs=5, per_run=5))
+        ms = min(turns["route"])
+        lib_ms = median_ms(library, warmup=2, runs=5, per_run=5)
+        key = "fedagg_at_4096" if name == "fedagg" else f"{name}_at_4096"
+        out[key] = {
+            "rows": single - (name == "fedagg_fold"), "p": p,
+            "route": "tiled" if tiled else "single",
+            "ms": ms, "single_launch_ms": min(turns["single_launch"]),
+            "ms_turns": turns, "library": lib_name, "library_ms": lib_ms,
+            "over_library": ms / lib_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "share_of_bound": bound[0] / ms}
     return out
 
 
@@ -8233,7 +8315,7 @@ def run_phases(warm) -> int:
             **rows["at_8192_rows"]["fedagg"],
             "at_resnet8_width": rows["at_8192_rows_resnet8_width"]
             ["fedagg"],
-            "single_launch_at_4096_rows": rows["fedagg_at_4096"]}}, {
+            "at_4096_rows": rows["fedagg_at_4096"]}}, {
         "name": "fedagg_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedagg.cu",
         "replaces": "src/repro/kernels/fedagg.py:102",
@@ -8257,7 +8339,8 @@ def run_phases(warm) -> int:
                                if k.startswith("fedagg_fold")),
             **rows["at_8192_rows"]["fedagg_fold"],
             "at_resnet8_width": rows["at_8192_rows_resnet8_width"]
-            ["fedagg_fold"]}}, {
+            ["fedagg_fold"],
+            "at_4095_rows": rows["fedagg_fold_at_4096"]}}, {
         "name": "fedagg_partial", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedagg.cu",
         "replaces": "src/repro/kernels/fedagg.py:163",
@@ -8281,7 +8364,8 @@ def run_phases(warm) -> int:
                                if k.startswith("fedagg_partial")),
             **rows["at_8192_rows"]["fedagg_partial"],
             "at_resnet8_width": rows["at_8192_rows_resnet8_width"]
-            ["fedagg_partial"]}}, {
+            ["fedagg_partial"],
+            "at_4096_rows": rows["fedagg_partial_at_4096"]}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:30",

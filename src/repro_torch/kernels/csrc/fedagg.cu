@@ -58,7 +58,9 @@
 // Past FEDAGG_MAX_ROWS (4096) rows the coefficients no longer fit one
 // block's shared memory, and each of the three entries has a tiled twin
 // (fedagg_f32_ws, fedagg_fold_f32_ws, fedagg_partial_f32_ws) of two
-// launches on the caller's stream and no host sync:
+// launches on the caller's stream and no host sync (the wrappers also
+// send it tall calls under that cap, from 128 or 256 rows on:
+// kernels/fedagg.py: tiled_route):
 //
 //   * a preamble of one block derives the coefficients with the same
 //     arithmetic in the same order as the single launch's: effective

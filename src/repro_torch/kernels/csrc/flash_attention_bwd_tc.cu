@@ -24,13 +24,18 @@
 // = 1 - 2r, and P = 2^(cap_log2 (1 - 2r) - lse log2 e), cap_log2 = cap
 // * log2 e, so P is of the capped score the forward's lse summed; dS =
 // P (dP - delta) (1 - t^2) with 1 - t^2 = 4 r (1 - r), the factor
-// entering before dS's two-part split.  An interior tile's fused 2^(s *
-// scale log2 e - lse log2 e) cannot carry the cap, so a CAP tile caps
-// every score, on the masked path.  dq forms P (1 - t^2) in P's place
-// (it needs no P alone), its 4 in the exponent; dkdv needs both P and
-// dS, so a CAP item waits for dP^T's product before it forms P^T, and
-// forms dS^T beside it from the same r (no register array more than
-// without a cap).
+// entering before dS's two-part split.  dq forms P (1 - t^2) in P's
+// place (it needs no P alone), its 4 in the exponent, and takes every
+// CAP tile on the masked path (an interior path read 3-5 % slower: the
+// masks' integer work hides under the SFU work).  dkdv needs both P and
+// dS: a CAP item forms P^T, and keeps r (1 - r) in a register array (the
+// 4 in dk's scale), under dP^T's product, as an item without a cap forms
+// P^T, and an interior item does so without the masks (its masks cost
+// dkdv 12-39 %); below D = 128 it issues dV += P^T.dO as soon as P^T is
+// split and forms dS^T under that product into a second set of parts,
+// then issues dK (32 registers of r (1 - r) and 32 of parts more than
+// without a cap); from D = 128 the warpgroup that sums dv forms no
+// dS^T.
 //
 // The JAX package has no backward Pallas kernel (JAX differentiates the
 // jnp attention); the port's gradient through its forward kernel needs
@@ -706,20 +711,26 @@ fa_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
             // that sees no key)
             uint32_t blind = 0;     // bit e: its row sees no key
             const int p0 = q_offset + r0;
-            if constexpr (CAP) {
-                // both products waited on: P^T in S^T's place and dS^T
-                // in dP^T's, from one t an element, on every item
-                wgmma_wait<0>();
-                fence_regs(s);
-                fence_regs(dp);
-            }
-            if (!CAP && r0 + BM <= S && kw0 + 64 <= T
+            // CAP: (1 - t^2) / 4 = r (1 - r) of each element (its 4 in
+            // dk's scale; 0 where the row sees no key, so that dS^T = 0),
+            // kept from P^T's r, formed under dP^T's product, until dS^T
+            float dtanh[CAP ? 32 : 1];
+            if (r0 + BM <= S && kw0 + 64 <= T
                     && (!causal || kw0 + 63 <= p0)
                     && (window <= 0 || kw0 > p0 + BM - 1 - window)) {
+                // CAP: the capped scores without the masks (their integer
+                // work does not hide under the cap's SFU work here, as it
+                // does in dq: tools/k4_bwd_tc_variants.py: cap_kv_masked)
 #pragma unroll
                 for (int e = 0; e < 32; ++e) {
                     const int col = 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
-                    s[e] = ex2(fmaf(s[e], scale_log2, -lse_c[col]));
+                    if constexpr (CAP) {
+                        const float r = softcap_r(s[e], k2);
+                        s[e] = ex2(fmaf(cap_m2, r, cap_log2 - lse_c[col]));
+                        if (!SPLIT || w) dtanh[e] = fmaf(-r, r, r);
+                    } else {
+                        s[e] = ex2(fmaf(s[e], scale_log2, -lse_c[col]));
+                    }
                 }
             } else {
 #pragma unroll
@@ -738,9 +749,9 @@ fa_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                                     : vis ? ex2(fmaf(cap_m2, r, cap_log2
                                                      - lse_c[col]))
                                           : 0.0f;
-                        dp[e] = none ? 0.0f
-                                     : s[e] * (dp[e] - dl_c[col])
-                                           * (4.0f * fmaf(-r, r, r));
+                        // D >= 128: warpgroup 1 sums dv from P^T alone
+                        if (!SPLIT || w)
+                            dtanh[e] = none ? 0.0f : fmaf(-r, r, r);
                     } else {
                         blind |= (uint32_t)(none && row < S) << e;
                         s[e] = none ? (in ? inv_t : 0.0f)
@@ -761,14 +772,63 @@ fa_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                                               : s[e] * (dp[e] - dl_c[col]);
                 }
             }
-            // the second products, A as two bf16 parts: one at a time, so
-            // that the parts of one operand and both sums fit the
-            // consumer's registers
             uint32_t hi[4][4], lo[4][4];
-            if constexpr (SPLIT) {
-                // P^T.dO (dv) or dS^T.Q (dk): the same instructions in
-                // both warpgroups on selected operands (no divergent
-                // path around the products)
+            if constexpr (CAP) {
+                // the second products, A as two bf16 parts, dS^T / 4 = P^T
+                // (dP^T - delta) r (1 - r) formed once dP^T has landed
+                if constexpr (SPLIT) {
+                    // warpgroup 1 sums dv = P^T.dO and needs no dS^T;
+                    // both issue the same product on selected operands
+                    wgmma_wait<0>();
+                    fence_regs(dp);
+                    if (w) {
+#pragma unroll
+                        for (int e = 0; e < 32; ++e) {
+                            const int col = 8 * (e >> 2) + 2 * (lane & 3)
+                                            + (e & 1);
+                            s[e] *= (dp[e] - dl_c[col]) * dtanh[e];
+                        }
+                    }
+                    split_frags(s, hi, lo);
+                    wgmma_fence();
+                    wgmma_parts<D, BM>(acc, hi, lo, w ? s_q : s_do);
+                    wgmma_commit();
+                    wgmma_wait<0>();
+                    fence_regs(acc);
+                } else {
+                    // dv += P^T.dO issued as soon as P^T is split; under
+                    // it dS^T is formed into a second set of parts, then
+                    // dk += dS^T.Q
+                    split_frags(s, hi, lo);
+#pragma unroll
+                    for (int e = 0; e < 32; ++e) s[e] *= dtanh[e];
+                    wgmma_fence();
+                    wgmma_parts<D, BM>(acc_v, hi, lo, s_do);
+                    wgmma_commit();
+                    wgmma_wait<1>();                // dP^T's product
+                    fence_regs(dp);
+#pragma unroll
+                    for (int e = 0; e < 32; ++e) {
+                        const int col = 8 * (e >> 2) + 2 * (lane & 3)
+                                        + (e & 1);
+                        dp[e] = (dp[e] - dl_c[col]) * s[e];
+                    }
+                    uint32_t ds_hi[4][4], ds_lo[4][4];
+                    split_frags(dp, ds_hi, ds_lo);
+                    wgmma_fence();
+                    wgmma_parts<D, BM>(acc, ds_hi, ds_lo, s_q);
+                    wgmma_commit();
+                    wgmma_wait<0>();
+                    fence_regs(acc_v);
+                    fence_regs(acc);
+                }
+            } else if constexpr (SPLIT) {
+                // the second products, A as two bf16 parts: one at a
+                // time, so that the parts of one operand and both sums
+                // fit the consumer's registers.  P^T.dO (dv) or dS^T.Q
+                // (dk): the same instructions in both warpgroups on
+                // selected operands (no divergent path around the
+                // products)
 #pragma unroll
                 for (int e = 0; e < 32; ++e) s[e] = w ? dp[e] : s[e];
                 split_frags(s, hi, lo);
@@ -795,13 +855,15 @@ fa_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         const long long stride = (long long)Hkv * D;
         const long long at = ((long long)b * T * Hkv + hk) * D;
+        // CAP: dk summed of dS^T / 4 (exact: a power of two)
+        const float dk_mul = CAP ? 4.0f * scale : scale;
         if constexpr (SPLIT) {
-            store_rows<D>((w == 0 ? dv : dk) + at, acc, w == 0 ? 1.0f : scale,
-                          k0, T, stride, warp, lane);
+            store_rows<D>((w == 0 ? dv : dk) + at, acc,
+                          w == 0 ? 1.0f : dk_mul, k0, T, stride, warp, lane);
         } else {
             store_rows<D>(dv + at, acc_v, 1.0f, k0 + kw, T, stride, warp,
                           lane);
-            store_rows<D>(dk + at, acc, scale, k0 + kw, T, stride, warp,
+            store_rows<D>(dk + at, acc, dk_mul, k0 + kw, T, stride, warp,
                           lane);
         }
     }

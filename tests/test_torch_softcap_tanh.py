@@ -114,8 +114,10 @@ def _model_attention(q, k, v, do, cap, errs, **kw):
     """The capped bf16 kernels' arithmetic on the model, in f32 (heads
     folded, k/v repeated per group): the capped scores in the log2
     domain, the forward's exponents on the running max (masks at -1e30);
-    out, lse (natural units), and dq from P = 2^(capped - lse) and P (dP
-    - delta) 4 r (1 - r), as dq forms them.  Returns (out, lse, dq)."""
+    out, lse (natural units), and the gradients from P = 2^(capped - lse)
+    and dS = P (dP - delta) 4 r (1 - r), as dq and dkdv form them: dq,
+    and dk, dv summed over each kv head's group of q heads.  Returns
+    (out, lse, dq, dk, dv)."""
     b, s, h, d = q.shape
     t = k.shape[1]
     scale = 1.0 / math.sqrt(d)
@@ -138,7 +140,13 @@ def _model_attention(q, k, v, do, cap, errs, **kw):
     delta = (dof * out).sum(-1, keepdim=True)
     ds = p * (dp - delta) * (4.0 * torch.addcmul(r, r, r, value=-1.0))
     dq = scale * torch.einsum("bhst,bhtd->bhsd", ds, kf)
-    return out.movedim(1, 2), lse2[..., 0] / LOG2E, dq.movedim(1, 2)
+    hkv = k.shape[2]
+
+    def group_sum(x):                      # (b, h, t, d) -> (b, t, hkv, d)
+        return x.reshape(b, hkv, h // hkv, t, d).sum(2).movedim(1, 2)
+    dk = group_sum(scale * torch.einsum("bhst,bhsd->bhtd", ds, qf))
+    dv = group_sum(torch.einsum("bhst,bhsd->bhtd", p, dof))
+    return out.movedim(1, 2), lse2[..., 0] / LOG2E, dq.movedim(1, 2), dk, dv
 
 
 MASKS = {"causal": (1, 24, 40, 4, 2, True, 0, 16),
@@ -172,9 +180,39 @@ def test_model_attention_lse_and_dq_match_the_reference(mask, cap, errs):
     keep = np.asarray(fa._mask(s, t, causal, window, q_offset, "cpu"))
     want_lse = np.asarray(jax.nn.logsumexp(jnp.where(keep, sc, -1e30),
                                            axis=-1))
-    out, lse, dq = _model_attention(
+    out, lse, dq, _, _ = _model_attention(
         *(torch.from_numpy(x) for x in (q, k, v, do)), cap, errs, **kw)
     for got, w in ((out, want), (lse, want_lse), (dq, want_dq)):
+        np.testing.assert_allclose(
+            got.numpy(), w, rtol=1e-4,
+            atol=1e-4 * max(1.0, float(np.abs(w).max())))
+
+
+@pytest.mark.parametrize("errs", [ERRS[0], ERRS[-1]])
+@pytest.mark.parametrize("cap", CAPS)
+@pytest.mark.parametrize("mask", sorted(MASKS))
+def test_model_dk_and_dv_match_the_reference(mask, cap, errs):
+    """dk and dv on the model (P and 4 r (1 - r) of ``softcap_r``, as the
+    capped dkdv forms dS^T, summed over each GQA group) against
+    ``jax.grad`` of the reference's capped attention with respect to k
+    and v (1e-4, as dq)."""
+    b, s, t, h, hkv, causal, window, q_offset = MASKS[mask]
+    d = 32
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    q, k, v, do = _inputs(d + int(cap), b, s, t, h, hkv, d, cap)
+
+    def loss(k_, v_):
+        o = ref_attn.naive_attention(
+            jnp.asarray(q), ref_attn.repeat_kv(k_, h),
+            ref_attn.repeat_kv(v_, h), softcap=cap, **kw)
+        return jnp.sum(o * do)
+
+    want_dk, want_dv = (np.asarray(g) for g in jax.grad(loss, (0, 1))(
+        jnp.asarray(k), jnp.asarray(v)))
+    _, _, _, dk, dv = _model_attention(
+        *(torch.from_numpy(x) for x in (q, k, v, do)), cap, errs, **kw)
+    for got, w in ((dk, want_dk), (dv, want_dv)):
+        assert got.shape == w.shape == (b, t, hkv, d)
         np.testing.assert_allclose(
             got.numpy(), w, rtol=1e-4,
             atol=1e-4 * max(1.0, float(np.abs(w).max())))
@@ -205,8 +243,35 @@ def test_bf16_cap_paths_call_the_helper_and_f32_keeps_tanhf():
     # CAP tiles and items on the masked path in both kernels
     assert "if (!CAP && t0 + BK <= T && r0 + 64 <= S" in dq
     dkdv = _body(bwd_tc, "fa_bwd_tc_dkdv_kernel(", "// ---- host side")
-    assert dkdv.count("softcap_r(s[e], k2)") == 1
-    assert "if (!CAP && r0 + BM <= S" in dkdv
+    # dkdv's CAP items on both paths: the interior one caps without the
+    # masks (one helper call each)
+    assert dkdv.count("softcap_r(s[e], k2)") == 2
+    assert "if (r0 + BM <= S && kw0 + 64 <= T" in dkdv
+    assert "if (!CAP && r0 + BM <= S" not in dkdv
+    # dkdv's CAP item: P^T and 1 - t^2 = 4 r (1 - r) formed under dP^T's
+    # product (no wait for both products first), dS^T from the kept
+    # factor; below D = 128 dV issued before dP^T is waited for and dS^T
+    # split into a second set of parts
+    assert "both products waited on" not in dkdv
+    assert dkdv.count("float dtanh[CAP ? 32 : 1];") == 1
+    assert dkdv.count("dtanh[e] = none ? 0.0f : fmaf(-r, r, r);") == 1
+    assert dkdv.count("if (!SPLIT || w) dtanh[e] = fmaf(-r, r, r);") == 1
+    assert dkdv.count("s[e] *= (dp[e] - dl_c[col]) * dtanh[e];") == 1
+    assert dkdv.count("s[e] *= dtanh[e];") == 1
+    # the 4 of 1 - t^2 = 4 r (1 - r) in dk's scale
+    assert "const float dk_mul = CAP ? 4.0f * scale : scale;" in dkdv
+    masked = dkdv[dkdv.index("const bool none"):]
+    assert "blind |=" not in _body(masked, "if constexpr (CAP) {",
+                                   "} else {")
+    for i in (0, 1):
+        at = dkdv.index("softcap_r(s[e], k2)")
+        at = dkdv.index("softcap_r(s[e], k2)", at + 1) if i else at
+        cap_loop = _body(dkdv[at:], "softcap_r(s[e], k2)", "} else {")
+        assert "dp[e]" not in cap_loop and "wgmma_wait" not in cap_loop
+    early = _body(dkdv, "wgmma_parts<D, BM>(acc_v, hi, lo, s_do);\n",
+                  "wgmma_parts<D, BM>(acc, ds_hi, ds_lo, s_q);")
+    assert "wgmma_wait<1>();" in early
+    assert "split_frags(dp, ds_hi, ds_lo);" in early
     assert bwd_tc.count("softcap_k2(scale, softcap)") == 2
     for name in ("flash_attention_softcap.cu",
                  "flash_attention_bwd_tc_softcap.cu"):

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Variants of K1-K3's stream past 4,096 rows on one GPU, timed in turns.
+"""Variants of K1-K3's stream past 4,096 rows on one GPU, timed in turns,
+and the crossover grid of the single launch against the tiled route.
 
     python3 tools/fedagg_variants.py [--only v0,ring32,...]
                                      [--baseline NAME=FILE.cu ...]
+                                     [--grid no|also|only]
 
 Each variant is the committed ``src/repro_torch/kernels/csrc/fedagg.cu``
 with a text patch (and, with each ``--baseline``, another source of the
@@ -24,6 +26,18 @@ at 3.35 TB/s) and one PyTorch call of the same sum (``matmul``,
 of the times.  Needs one CUDA card and nvcc; exits non-zero otherwise or
 when a variant's bits differ.
 
+With ``--grid also`` or ``only``, the crossover grid (``crossover``): at
+each width of resnet8-cifar10 (77,594), 131,072 and cnn-mnist
+(1,630,090), each row count of ``GRID_ROWS`` (8 to 4,096; K2 holds them:
+rows - 1 rows) and each mode, the entries called directly: ``batch``,
+v0's single launch (the batch loop of 16 rows a thread in flight: the
+wrappers' route for every call up to 4,096 rows before the crossover),
+``ring``, v0's tiled twin (preamble and ring stream), and each other
+variant's single launch (``single_ring``), held bit for bit against
+``batch`` and timed in turns, beside the bound and the route
+``fedagg.tiled_route`` takes.  Calls rotate over the 4,096 // rows
+windows of a 4,096-row buffer, so none finds its rows in the L2.
+
 Variants:
   v0            the committed stream: a ring of 32 float4 (64 float2 or
                 float) rows a thread in registers, the packed
@@ -34,6 +48,12 @@ Variants:
   ring128       128 rows of float2 or float (32 of float4)
   wide          v0's ring in blocks of 256 threads (as many as are
                 resident, striding): the first design's grid
+  single_ring   the single launch's three kernels folding their rows
+                through v0's ring (coefficients and indices from their
+                shared memory, no preamble launch), each grid sized by
+                ws_grid's rule for that kernel: the other design of tall
+                calls (the grid: slower than the tiled route in every
+                cell from 256 rows on, PERF.md)
   NAME          a source given with --baseline NAME=FILE.cu, as it is
                 (the first design: tiles of 2,048 coefficients staged in
                 shared memory behind two block barriers, 16 rows a
@@ -63,25 +83,115 @@ SINGLE = 4096                    # FEDAGG_MAX_ROWS
 RING = "static constexpr int ROWS = sizeof(V) == 16 ? 32 : 64;"
 THREADS = "long long t = ((vectors + per - 1) / per + 31) / 32 * 32;"
 
-# name -> [(anchor, replacement)]; each anchor occurs once
+# single_ring: the single launch's row loop (three calls, one a mode)
+# through a ring of rows a thread, as the tiled stream folds them, and
+# each launch's grid sized as the stream's (ws_grid) for that kernel
+SUM_CALL = "sum_live_rows<V>(u, p, col, "
+RING_CALL = "ring_live_rows<V>(u, p, col, "
+FIRST_KERNEL = ("template <typename V>\n__global__ void "
+                "__launch_bounds__(FEDAGG_THREADS)\nfedagg_kernel(")
+RING_ROWS = r"""// This thread's columns summed over the n_live live rows, in row order,
+// through a ring of R row slots: folding row j frees its slot for row
+// j + R, so R loads stay in flight with no gap between batches; the
+// coefficients and row indices from the launch's shared memory.
+template <typename V>
+__device__ __forceinline__ V ring_live_rows(const float* __restrict__ u,
+                                            long long p, long long col,
+                                            int n, int n_live) {
+    constexpr int R = sizeof(V) == 16 ? 32 : 64;
+    const float* eff = fedagg_smem;
+    const int* live = reinterpret_cast<const int*>(fedagg_smem + n);
+    V acc = V();
+    V x[R];
+#pragma unroll
+    for (int s = 0; s < R; ++s)
+        if (s < n_live)
+            x[s] = ldg(reinterpret_cast<const V*>(
+                u + (long long)live[s] * p + col));
+    for (int j0 = 0; j0 < n_live; j0 += R) {
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+            if (j0 + s < n_live) fma_into(eff[live[j0 + s]], x[s], acc);
+            if (j0 + R + s < n_live)
+                x[s] = ldg(reinterpret_cast<const V*>(
+                    u + (long long)live[j0 + R + s] * p + col));
+        }
+    }
+    return acc;
+}
+
+"""
+FIRST_LAUNCH = "template <typename V>\nstatic int launch(const float* u,"
+RING_GRID = r"""// ws_grid's rule for one single-launch kernel and its shared bytes
+template <typename V, typename K>
+static int ring_grid(K kernel, long long p, size_t smem, unsigned* blocks,
+                     unsigned* threads) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err != cudaSuccess) return (int)err;
+    const long long vectors = p / (long long)(sizeof(V) / sizeof(float));
+    for (int k = 1;; ++k) {
+        const long long per = (long long)sms * k;
+        long long t = ((vectors + per - 1) / per + 31) / 32 * 32;
+        t = t < 32 ? 32 : t > FEDAGG_THREADS ? FEDAGG_THREADS : t;
+        int per_sm = 0;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, (int)t, smem);
+        if (err != cudaSuccess) return (int)err;
+        const long long b = (vectors + t - 1) / t;
+        const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+        if (b <= resident || t == 32 || per_sm < k) {
+            *blocks = (unsigned)(b < resident ? b : resident);
+            *threads = (unsigned)t;
+            return 0;
+        }
+    }
+}
+
+"""
+# each single launch's grid: (rows argument, kernel)
+LAUNCH_GRID = re.compile(
+    r"unsigned blocks = 0;\n    const int err = grid_blocks<V>\(p, &blocks\);"
+    r"\n    if \(err != 0\) return err;\n    const size_t smem = \(size_t\)"
+    r"(\w) \* \(sizeof\(float\) \+ sizeof\(int\)\);\n    (\w+)<V><<<"
+    r"blocks, FEDAGG_THREADS, smem, stream>>>")
+RING_LAUNCH = (r"unsigned blocks = 0, threads = 0;\n    const size_t smem = "
+               r"(size_t)\1 * (sizeof(float) + sizeof(int));\n    const int "
+               r"err = ring_grid<V>(\2<V>, p, smem, &blocks, &threads);\n"
+               r"    if (err != 0) return err;\n    \2<V><<<blocks, threads, "
+               r"smem, stream>>>")
+
+# name -> [(anchor, replacement, occurrences)]
 VARIANTS = {
     "v0": [],
-    "ring32": [(RING, "static constexpr int ROWS = 32;")],
-    "ring64": [(RING, "static constexpr int ROWS = 64;")],
+    "ring32": [(RING, "static constexpr int ROWS = 32;", 1)],
+    "ring64": [(RING, "static constexpr int ROWS = 64;", 1)],
     "ring128": [(RING, "static constexpr int ROWS = sizeof(V) == 16 ? 32 "
-                       ": 128;")],
-    "wide": [(THREADS, "long long t = FEDAGG_THREADS;")],
+                       ": 128;", 1)],
+    "wide": [(THREADS, "long long t = FEDAGG_THREADS;", 1)],
+    "single_ring": [(SUM_CALL, RING_CALL, 3),
+                    (FIRST_KERNEL, RING_ROWS + FIRST_KERNEL, 1),
+                    (FIRST_LAUNCH, RING_GRID + FIRST_LAUNCH, 1),
+                    (LAUNCH_GRID, RING_LAUNCH, 3)],
 }
 
 
 def patched(name):
     """The variant's source text."""
     src = SOURCE.read_text()
-    for old, new in VARIANTS[name]:
-        if src.count(old) != 1:
-            raise SystemExit(f"fedagg_variants: {name}: anchor not found "
-                             f"once: {old[:60]!r}")
-        src = src.replace(old, new)
+    for old, new, times in VARIANTS[name]:
+        if isinstance(old, re.Pattern):
+            src, found = old.subn(new, src)
+        else:
+            found = src.count(old)
+            src = src.replace(old, new)
+        if found != times:
+            raise SystemExit(f"fedagg_variants: {name}: anchor found "
+                             f"{found} times, not {times}: "
+                             f"{str(old)[:60]!r}")
     return src
 
 
@@ -106,11 +216,11 @@ def build(sources):
             raise SystemExit(f"fedagg_variants: {name} failed to build:\n"
                              f"{out}")
         kernels = re.findall(
-            r"Compiling entry function '_Z\d+(fedagg_ws_kernel)I(\w+?)Li"
-            r"(\d)E.*?(\d+) bytes spill stores.*?Used (\d+) registers",
-            out, re.S)
+            r"Compiling entry function '_Z\d+(fedagg_\w*?kernel)I(\w+?)"
+            r"(?:Li(\d)E)?E[^']*'.*?(\d+) bytes spill stores.*?Used (\d+) "
+            r"registers", out, re.S)
         print(json.dumps({"variant": name, "ptxas": [
-            {"kernel": k, "vector": v, "mode": int(m),
+            {"kernel": k, "vector": v, "mode": int(m) if m else None,
              "spill_stores": int(sp), "registers": int(r)}
             for k, v, m, sp, r in kernels]}), flush=True)
         libs[name] = OUT / f"lib{name}.so"
@@ -234,12 +344,126 @@ def times(names, libs, ins, p):
     return out
 
 
+GRID_ROWS = (8, 32, 64, 128, 256, 512, 1024, 2048, SINGLE)
+MODES = ("fedagg", "fedagg_fold", "fedagg_partial")
+
+
+def grid_inputs(p, seed):
+    """(4,096, p) rows, the global row and each mode's coefficients (no
+    row masked: the grid times live rows)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randn(SINGLE, p, generator=gen, device="cuda")
+    g = torch.randn(p, generator=gen, device="cuda")
+    w = 40.0 + 40.0 * torch.rand(SINGLE, generator=gen, device="cuda")
+    a = torch.rand(SINGLE, generator=gen, device="cuda")
+    c = torch.rand(SINGLE, generator=gen, device="cuda")
+    return u, g, w, a, c
+
+
+def entry_call(lib, mode, route, u, g, w, a, c, rows):
+    """A call of the mode's entry on ``rows`` rows of ``u`` (K2: rows - 1
+    rows and ``rows`` coefficients, so the call holds ``rows``), through
+    the single launch (``route`` "batch") or the tiled twin ("ring");
+    returns (fn, out)."""
+    import torch
+    from repro_torch.kernels import fedagg as fa
+    p = u.shape[1]
+    out = torch.empty(p, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    if mode == "fedagg":
+        entry, n = "fedagg_f32", rows
+        args = (u.data_ptr(), w.data_ptr(), a.data_ptr(), out.data_ptr())
+    elif mode == "fedagg_fold":
+        entry, n = "fedagg_fold_f32", rows - 1
+        args = (u.data_ptr(), g.data_ptr(), c.data_ptr(), out.data_ptr())
+    else:
+        entry, n = "fedagg_partial_f32", rows
+        args = (u.data_ptr(), c.data_ptr(), out.data_ptr())
+    args = (*args, n, p, fa._vector_width(p, u, g, out))
+    ws = (torch.empty(int(lib.fedagg_ws_floats(n)), device="cuda")
+          if route == "ring" else None)
+
+    def fn():
+        if fa._launch(lib, entry, ws, args, stream) != 0:
+            raise SystemExit(f"fedagg_variants: {entry} ({route}) failed")
+    return fn, out
+
+
+def crossover(names, libs, p, seed=36):
+    """For each mode and each row count of ``GRID_ROWS`` at width ``p``:
+    the single launch's batch loop (``batch``: v0's single entry), the
+    tiled route (``ring``: v0's ``*_ws`` entry), each other variant's
+    single entry, bit for bit against ``batch`` and timed in turns; the
+    route the wrappers take (``fedagg.tiled_route``) and the bound.
+    Calls rotate over the 4,096 // rows windows of the rows (no window
+    found in the L2 at a second call but at 4,096 rows, 1.3 GB and
+    more)."""
+    import itertools
+
+    import torch
+    import chip_smoke as smoke
+    from repro_torch.kernels import fedagg as fa
+    from repro_torch.roofline import cost
+    u, g, w, a, c = grid_inputs(p, seed)
+    lib_of = {}
+    for name in names:
+        use(libs[name])
+        lib_of[name] = fa._lib()
+    routes = [("batch", "v0", "batch"), ("ring", "v0", "ring")] + [
+        (n, n, "batch") for n in names if n != "v0"]
+    out, bad = [], []
+    for rows in GRID_ROWS:
+        wins = [slice(i * rows, (i + 1) * rows)
+                for i in range(max(1, SINGLE // rows))]
+        for mode in MODES:
+            fns, outs = {}, {}
+            for label, lib_name, route in routes:
+                calls = [entry_call(lib_of[lib_name], mode, route, u[k],
+                                    g, w[k], a[k], c[k], rows)
+                         for k in wins]
+                fns[label] = (lambda it: lambda: next(it)())(
+                    itertools.cycle([f for f, _ in calls]))
+                calls[0][0]()
+                outs[label] = calls[0][1]
+            torch.cuda.synchronize()
+            for label in outs:
+                if not torch.equal(outs[label], outs["batch"]):
+                    bad.append(f"p={p} rows={rows} {mode}: {label} != batch")
+            ms = {label: [] for label in fns}
+            order = list(fns)
+            for label in order + order[::-1]:
+                ms[label].append(smoke.median_ms(fns[label], warmup=2,
+                                                 runs=5, per_run=5))
+            k0 = wins[0]
+            bound = {"fedagg": lambda: cost.fedagg_bound_ms(w[k0] * a[k0], p),
+                     "fedagg_fold": lambda: cost.fold_bound_ms(c[k0], p),
+                     "fedagg_partial": lambda: cost.partial_bound_ms(c[k0],
+                                                                     p)}
+            best = {label: min(t) for label, t in ms.items()}
+            row = {"p": p, "rows": rows, "mode": mode, "windows": len(wins),
+                   "ms": best, "ms_turns": ms,
+                   "bound_ms": bound[mode]()[0],
+                   "ring_over_batch": best["ring"] / best["batch"],
+                   "route": "ring" if fa.tiled_route(rows, p) else "batch"}
+            out.append(row)
+            print(json.dumps(row), flush=True)
+    del u
+    torch.cuda.empty_cache()
+    return out, bad
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(VARIANTS),
                     help="comma-separated variants (v0 is always built)")
     ap.add_argument("--baseline", action="append", default=[],
                     help="NAME=FILE.cu: another source as variant NAME")
+    ap.add_argument("--grid", choices=("no", "also", "only"), default="no",
+                    help="the crossover grid of the single launch and the "
+                         "tiled route (GRID_ROWS at resnet8's, 131,072 and "
+                         "cnn-mnist's widths): beside the 8,192-row "
+                         "checks and times, or alone")
     args = ap.parse_args(argv)
     names = ["v0"] + [n for n in args.only.split(",") if n and n != "v0"]
     unknown = [n for n in names if n not in VARIANTS]
@@ -261,9 +485,10 @@ def main(argv=None) -> int:
                           text=True, timeout=60).stdout.strip()
     libs = build(sources)
     names = list(sources)
-    bad, res = [], {}
+    bad, res, grid = [], {}, []
     import chip_smoke
-    for p in (WIDE_P, chip_smoke.resnet8_p()):
+    widths = (chip_smoke.resnet8_p(), WIDE_P, chip_smoke.MAIN_P)
+    for p in widths[:2] if args.grid != "only" else ():
         ins = inputs(p, seed=12)
         bad += [f"p={p}: {b}" for b in check(names, libs, ins)]
         print(json.dumps({"p": p, "bits": "equal" if not bad else bad}),
@@ -271,8 +496,13 @@ def main(argv=None) -> int:
         res[p] = times(names, libs, ins, p)
         del ins
         torch.cuda.empty_cache()
+    for p in widths if args.grid != "no" else ():
+        rows, failed = crossover(names, libs, p)
+        grid += rows
+        bad += failed
     print(card, flush=True)
-    print(json.dumps({"card": card, "failed": bad, "times": res}))
+    print(json.dumps({"card": card, "failed": bad, "times": res,
+                      "grid": grid}))
     return 1 if bad else 0
 
 

@@ -26,13 +26,25 @@ otherwise or when a checked variant disagrees.
 
 Variants:
   v0             the committed kernels
-  masks_always   the masks on every tile and item (no interior path;
-                 the kernels without a cap)
+  masks_always   the masks on every tile and item (no interior path)
   cap_interior   dq's CAP tiles on the interior path where no mask
                  bites (v0: every CAP tile on the masked path)
+  cap_wait_both  dkdv's earlier CAP item: on the masked path,
+                 both products waited on before P^T and dS^T are formed
+                 together from one r, then dV and dK one after the other
+                 (v0: P^T under dP^T's product, below D = 128 dV issued
+                 under dS^T, interior items without the masks)
+  cap_late_dv    dkdv's CAP item below D = 128 with both second products
+                 after dS^T, one after the other (v0: dV issued before
+                 dP^T is waited for, dS^T formed under it)
+  cap_kv_masked  dkdv's CAP items all on the masked path, as dq's CAP
+                 tiles (v0: an item whose rows all see every key of the
+                 warpgroup takes the interior path, capped)
+  cap_split_wait dkdv's CAP item from D = 128 with both products waited on
+                 before P^T is formed (v0: P^T under dP^T's product)
   tanhf          the capped pair as PR 33 wrote it: the accurate tanhf
                  and 1 - t^2 in place of fa_hopper.cuh's softcap_r (one
-                 ex2, one rcp) and 4 r (1 - r)
+                 ex2, one rcp) and 4 r (1 - r); dkdv's item as cap_wait_both
   one_part       P and dS as one bf16 part each (the lo products gone):
                  what the second part costs; not checked (it misses the
                  tolerance, tests/test_torch_k4_bf16_wgmma_bwd.py)
@@ -67,7 +79,7 @@ SOURCE = ROOT / "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu"
 # the interior tests (a CAP tile or item never takes the interior path:
 # it caps every score on the masked one), and dq's interior loop
 DQ_INTERIOR = "                if (!CAP && t0 + BK <= T && r0 + 64 <= S\n"
-KV_INTERIOR = "            if (!CAP && r0 + BM <= S && kw0 + 64 <= T\n"
+KV_INTERIOR = "            if (r0 + BM <= S && kw0 + 64 <= T\n"
 DQ_INTERIOR_LOOP = """                    for (int i = 0; i < 32; ++i)
                         s[i] = ex2(fmaf(s[i], scale_log2,
                                         -(((i >> 1) & 1) ? lse_b : lse_a)));
@@ -106,9 +118,99 @@ KV_CAP = """                        const float r = softcap_r(s[e], k2);
                                     : vis ? ex2(fmaf(cap_m2, r, cap_log2
                                                      - lse_c[col]))
                                           : 0.0f;
+                        // D >= 128: warpgroup 1 sums dv from P^T alone
+                        if (!SPLIT || w)
+                            dtanh[e] = none ? 0.0f : fmaf(-r, r, r);
+"""
+# dkdv's earlier CAP item: both products waited on before any cap work,
+# P^T and dS^T formed together from one r, the second products shared
+# with the kernels without a cap (one after the other)
+KV_CAP_TOGETHER = """                        const float r = softcap_r(s[e], k2);
+                        s[e] = none ? (in ? inv_t : 0.0f)
+                                    : vis ? ex2(fmaf(cap_m2, r, cap_log2
+                                                     - lse_c[col]))
+                                          : 0.0f;
                         dp[e] = none ? 0.0f
                                      : s[e] * (dp[e] - dl_c[col])
                                            * (4.0f * fmaf(-r, r, r));
+"""
+KV_DTANH = """            // CAP: (1 - t^2) / 4 = r (1 - r) of each element (its 4 in
+            // dk's scale; 0 where the row sees no key, so that dS^T = 0),
+            // kept from P^T's r, formed under dP^T's product, until dS^T
+            float dtanh[CAP ? 32 : 1];
+"""
+KV_WAIT_BOTH = """            if constexpr (CAP) {
+                // both products waited on: P^T in S^T's place and dS^T
+                // in dP^T's, from one t an element, on every item
+                wgmma_wait<0>();
+                fence_regs(s);
+                fence_regs(dp);
+            }
+"""
+# the CAP item's second products (from its comment up to the products
+# without a cap, which the earlier CAP item shared)
+# dkdv's interior loop: with its CAP branch (the capped P^T and r (1 -
+# r) as the masked path forms them, without the masks), and without
+KV_INTERIOR_CAP = """                    if constexpr (CAP) {
+                        const float r = softcap_r(s[e], k2);
+                        s[e] = ex2(fmaf(cap_m2, r, cap_log2 - lse_c[col]));
+                        if (!SPLIT || w) dtanh[e] = fmaf(-r, r, r);
+                    } else {
+                        s[e] = ex2(fmaf(s[e], scale_log2, -lse_c[col]));
+                    }
+"""
+KV_INTERIOR_LOOP = """                    s[e] = ex2(fmaf(s[e], scale_log2, -lse_c[col]));
+"""
+KV_CAP_PRODUCTS = """            if constexpr (CAP) {
+                // the second products, A as two bf16 parts, dS^T / 4 = P^T
+"""
+KV_PLAIN_PRODUCTS = "            } else if constexpr (SPLIT) {\n"
+KV_DK_MUL = "const float dk_mul = CAP ? 4.0f * scale : scale;"
+# below D = 128: dV issued at once, dS^T formed under it (the committed
+# item), or both second products after dS^T, one after the other
+KV_EARLY_DV = """                    split_frags(s, hi, lo);
+#pragma unroll
+                    for (int e = 0; e < 32; ++e) s[e] *= dtanh[e];
+                    wgmma_fence();
+                    wgmma_parts<D, BM>(acc_v, hi, lo, s_do);
+                    wgmma_commit();
+                    wgmma_wait<1>();                // dP^T's product
+                    fence_regs(dp);
+#pragma unroll
+                    for (int e = 0; e < 32; ++e) {
+                        const int col = 8 * (e >> 2) + 2 * (lane & 3)
+                                        + (e & 1);
+                        dp[e] = (dp[e] - dl_c[col]) * s[e];
+                    }
+                    uint32_t ds_hi[4][4], ds_lo[4][4];
+                    split_frags(dp, ds_hi, ds_lo);
+                    wgmma_fence();
+                    wgmma_parts<D, BM>(acc, ds_hi, ds_lo, s_q);
+                    wgmma_commit();
+                    wgmma_wait<0>();
+                    fence_regs(acc_v);
+                    fence_regs(acc);
+"""
+KV_LATE_DV = """                    wgmma_wait<0>();
+                    fence_regs(dp);
+#pragma unroll
+                    for (int e = 0; e < 32; ++e) {
+                        const int col = 8 * (e >> 2) + 2 * (lane & 3)
+                                        + (e & 1);
+                        dp[e] = (dp[e] - dl_c[col]) * s[e] * dtanh[e];
+                    }
+                    split_frags(s, hi, lo);
+                    wgmma_fence();
+                    wgmma_parts<D, BM>(acc_v, hi, lo, s_do);
+                    wgmma_commit();
+                    wgmma_wait<0>();
+                    fence_regs(acc_v);
+                    split_frags(dp, hi, lo);
+                    wgmma_fence();
+                    wgmma_parts<D, BM>(acc, hi, lo, s_q);
+                    wgmma_commit();
+                    wgmma_wait<0>();
+                    fence_regs(acc);
 """
 KV_TANHF = """                        const float th = tanhf(s[e] * k2);
                         s[e] = none ? (in ? inv_t : 0.0f)
@@ -383,10 +485,30 @@ def cap_interior(src):
                    DQ_INTERIOR_LOOP, DQ_INTERIOR_CAP)
 
 
+def cap_kv_masked(src):
+    """dkdv's CAP items all on the masked path, as dq's CAP tiles."""
+    return replace(replace(src, KV_INTERIOR,
+                           KV_INTERIOR.replace("if (", "if (!CAP && ")),
+                   KV_INTERIOR_CAP, KV_INTERIOR_LOOP)
+
+
+def cap_wait_both(src):
+    """dkdv's earlier CAP item: both products waited on, P^T
+    and dS^T formed together from one r, then the second products one
+    after the other as without a cap."""
+    src = replace(replace(cap_kv_masked(src), KV_DTANH, KV_WAIT_BOTH),
+                  KV_CAP, KV_CAP_TOGETHER)
+    src = replace(src, KV_DK_MUL, "const float dk_mul = scale;")
+    return between(src, KV_CAP_PRODUCTS, KV_PLAIN_PRODUCTS,
+                   "            if constexpr (SPLIT) {\n").replace(
+        KV_PLAIN_PRODUCTS, "", 1)
+
+
 def tanhf(src):
     """The capped pair as PR 33 wrote it: t = tanhf(s * scale / cap) and
-    1 - t^2 in dq and dkdv."""
-    src = replace(replace(src, DQ_CAP, DQ_TANHF), KV_CAP, KV_TANHF)
+    1 - t^2 in dq and dkdv (dkdv's item as ``cap_wait_both``)."""
+    src = replace(replace(cap_wait_both(src), DQ_CAP, DQ_TANHF),
+                  KV_CAP_TOGETHER, KV_TANHF)
     if src.count(CAP_K2) != 2:
         raise SystemExit("k4_bwd_tc_variants: the launches' k2 not found "
                          "twice")
@@ -399,9 +521,14 @@ VARIANTS = {
     "masks_always": (lambda src: replace(
         replace(src, DQ_INTERIOR,
                 DQ_INTERIOR.replace("if (!CAP && ", "if (false && ")),
-        KV_INTERIOR, KV_INTERIOR.replace("if (!CAP && ", "if (false && ")),
-        True),
+        KV_INTERIOR, KV_INTERIOR.replace("if (", "if (false && ")), True),
     "cap_interior": (cap_interior, True),
+    "cap_wait_both": (cap_wait_both, True),
+    "cap_late_dv": (lambda src: replace(src, KV_EARLY_DV, KV_LATE_DV), True),
+    "cap_kv_masked": (cap_kv_masked, True),
+    "cap_split_wait": (lambda src: replace(src, KV_DTANH, KV_DTANH + (
+        KV_WAIT_BOTH.replace("if constexpr (CAP)",
+                             "if constexpr (CAP && SPLIT)"))), True),
     "tanhf": (tanhf, True),
     "one_part": (lambda src: replace(src, LO_PRODUCT, ""), False),
     "both_products": (lambda src: replace(src, SEQUENTIAL, BOTH), True),
