@@ -6772,29 +6772,36 @@ def _once_ms(fn):
     return start.elapsed_time(end)
 
 
-def single_launch(mode, u, x, y=None):
-    """The single launch of K1 (``x`` weights, ``y`` alphas), K2 (``x``
-    the global row, ``y`` the coefficients) or K3 (``x`` the
-    coefficients), its entry called directly whatever route the
-    wrappers (``fedagg.tiled_route``) take for the shape: the batch
-    loop of 16 rows in flight.  Counts no launch."""
-    import torch
+def fedagg_entry(mode, u, x, y, out):
+    """The single-launch entry of K1 (``x`` weights, ``y`` alphas or
+    None), K2 (``x`` the global row, ``y`` the coefficients) or K3 (``x``
+    the coefficients) on the rows ``u`` into ``out``, and its arguments
+    but the stream (``fedagg._launch`` passes them to the tiled twin
+    too)."""
     from repro_torch.kernels import fedagg as fa
-    lib = fa._lib()
     n, p = u.shape
-    out = torch.empty(p, device=u.device)
-    rows = (u, out)
     if mode == "fedagg":
-        entry = "fedagg_f32"
-        ptrs = (x.data_ptr(), None if y is None else y.data_ptr())
+        entry, ptrs, rows = ("fedagg_f32", (x.data_ptr(), None if y is None
+                                            else y.data_ptr()), (u, out))
     elif mode == "fedagg_fold":
         entry, ptrs, rows = ("fedagg_fold_f32", (x.data_ptr(), y.data_ptr()),
                              (u, x, out))
     else:
-        entry, ptrs = "fedagg_partial_f32", (x.data_ptr(),)
-    err = fa._launch(lib, entry, None,
-                     (u.data_ptr(), *ptrs, out.data_ptr(), n, p,
-                      fa._vector_width(p, *rows)),
+        entry, ptrs, rows = "fedagg_partial_f32", (x.data_ptr(),), (u, out)
+    return entry, (u.data_ptr(), *ptrs, out.data_ptr(), n, p,
+                   fa._vector_width(p, *rows))
+
+
+def single_launch(mode, u, x, y=None):
+    """The single launch of ``fedagg_entry``'s mode, its entry called
+    directly whatever route the wrappers (``fedagg.tiled_route``) take
+    for the shape: the batch loop of 16 rows in flight.  Counts no
+    launch."""
+    import torch
+    from repro_torch.kernels import fedagg as fa
+    out = torch.empty(u.shape[1], device=u.device)
+    entry, args = fedagg_entry(mode, u, x, y, out)
+    err = fa._launch(fa._lib(), entry, None, args,
                      torch.cuda.current_stream().cuda_stream)
     if err != 0:
         fail(f"{entry}: launch failed, CUDA error {err}")

@@ -772,65 +772,60 @@ fa_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                                               : s[e] * (dp[e] - dl_c[col]);
                 }
             }
-            uint32_t hi[4][4], lo[4][4];
-            if constexpr (CAP) {
-                // the second products, A as two bf16 parts, dS^T / 4 = P^T
-                // (dP^T - delta) r (1 - r) formed once dP^T has landed
-                if constexpr (SPLIT) {
-                    // warpgroup 1 sums dv = P^T.dO and needs no dS^T;
-                    // both issue the same product on selected operands
-                    wgmma_wait<0>();
-                    fence_regs(dp);
-                    if (w) {
-#pragma unroll
-                        for (int e = 0; e < 32; ++e) {
-                            const int col = 8 * (e >> 2) + 2 * (lane & 3)
-                                            + (e & 1);
-                            s[e] *= (dp[e] - dl_c[col]) * dtanh[e];
-                        }
-                    }
-                    split_frags(s, hi, lo);
-                    wgmma_fence();
-                    wgmma_parts<D, BM>(acc, hi, lo, w ? s_q : s_do);
-                    wgmma_commit();
-                    wgmma_wait<0>();
-                    fence_regs(acc);
-                } else {
-                    // dv += P^T.dO issued as soon as P^T is split; under
-                    // it dS^T is formed into a second set of parts, then
-                    // dk += dS^T.Q
-                    split_frags(s, hi, lo);
-#pragma unroll
-                    for (int e = 0; e < 32; ++e) s[e] *= dtanh[e];
-                    wgmma_fence();
-                    wgmma_parts<D, BM>(acc_v, hi, lo, s_do);
-                    wgmma_commit();
-                    wgmma_wait<1>();                // dP^T's product
-                    fence_regs(dp);
+            if constexpr (CAP && SPLIT) {
+                // dS^T / 4 = P^T (dP^T - delta) r (1 - r) in P^T's place
+                // once dP^T has landed; warpgroup 1 sums dv = P^T.dO and
+                // needs none.  The products as without a cap
+                wgmma_wait<0>();
+                fence_regs(dp);
+                if (w) {
 #pragma unroll
                     for (int e = 0; e < 32; ++e) {
                         const int col = 8 * (e >> 2) + 2 * (lane & 3)
                                         + (e & 1);
-                        dp[e] = (dp[e] - dl_c[col]) * s[e];
+                        s[e] *= (dp[e] - dl_c[col]) * dtanh[e];
                     }
-                    uint32_t ds_hi[4][4], ds_lo[4][4];
-                    split_frags(dp, ds_hi, ds_lo);
-                    wgmma_fence();
-                    wgmma_parts<D, BM>(acc, ds_hi, ds_lo, s_q);
-                    wgmma_commit();
-                    wgmma_wait<0>();
-                    fence_regs(acc_v);
-                    fence_regs(acc);
                 }
+            }
+            uint32_t hi[4][4], lo[4][4];
+            if constexpr (CAP && !SPLIT) {
+                // the second products, A as two bf16 parts: dv += P^T.dO
+                // issued as soon as P^T is split; under it dS^T / 4 =
+                // P^T (dP^T - delta) r (1 - r) is formed into a second
+                // set of parts, then dk += dS^T.Q
+                split_frags(s, hi, lo);
+#pragma unroll
+                for (int e = 0; e < 32; ++e) s[e] *= dtanh[e];
+                wgmma_fence();
+                wgmma_parts<D, BM>(acc_v, hi, lo, s_do);
+                wgmma_commit();
+                wgmma_wait<1>();                // dP^T's product
+                fence_regs(dp);
+#pragma unroll
+                for (int e = 0; e < 32; ++e) {
+                    const int col = 8 * (e >> 2) + 2 * (lane & 3)
+                                    + (e & 1);
+                    dp[e] = (dp[e] - dl_c[col]) * s[e];
+                }
+                uint32_t ds_hi[4][4], ds_lo[4][4];
+                split_frags(dp, ds_hi, ds_lo);
+                wgmma_fence();
+                wgmma_parts<D, BM>(acc, ds_hi, ds_lo, s_q);
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(acc_v);
+                fence_regs(acc);
             } else if constexpr (SPLIT) {
                 // the second products, A as two bf16 parts: one at a
                 // time, so that the parts of one operand and both sums
                 // fit the consumer's registers.  P^T.dO (dv) or dS^T.Q
                 // (dk): the same instructions in both warpgroups on
                 // selected operands (no divergent path around the
-                // products)
+                // products; CAP: s holds each warpgroup's operand)
+                if constexpr (!CAP) {
 #pragma unroll
-                for (int e = 0; e < 32; ++e) s[e] = w ? dp[e] : s[e];
+                    for (int e = 0; e < 32; ++e) s[e] = w ? dp[e] : s[e];
+                }
                 split_frags(s, hi, lo);
                 wgmma_fence();
                 wgmma_parts<D, BM>(acc, hi, lo, w ? s_q : s_do);

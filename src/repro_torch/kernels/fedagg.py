@@ -44,7 +44,7 @@ that: its blocking depends on the row count.
 
 Up to ``fedagg_max_rows()`` (4,096) rows each can be one launch whose
 coefficients sit in shared memory.  Past it, and on tall calls under
-it (``tiled_route``: from 128 or 256 rows), the same entry's tiled twin
+it (``tiled_route``: from 128 rows), the same entry's tiled twin
 (``csrc/fedagg.cu``: ``*_ws``) runs two launches on the stream, a
 one-block preamble that writes the packed coefficients into a device
 workspace (``fedagg_ws_floats(n)`` floats, allocated here with
@@ -198,60 +198,32 @@ def _lib():
 
 
 # The route by shape (``tiled_route``): the single launch keeps a batch
-# of 16 rows a thread in flight, then drains it, in blocks of 256
-# threads, eight an SM, one vector of columns a thread; the tiled route
-# keeps a ring of 32 float4 (64 narrower) rows a thread in flight with no
-# gap, in blocks that fill every SM in one wave, after a one-block
-# preamble launch.  Where a row holds fewer vectors an SM than the single
-# launch's 2,048 threads an SM (resnet8-cifar10's 77,594 floats, 131,072)
-# the single launch gives an SM one or two blocks and the ring is faster
-# from 128 rows on; on wider rows (cnn-mnist's 1,630,090) the two tie at
-# 128 rows and the ring is faster from 256 on; below, its preamble's
-# launch and serial sum outweigh it (tools/fedagg_variants.py --grid,
-# the table in PERF.md).
-ROUTE_ROWS_NARROW = 128
-ROUTE_ROWS_WIDE = 256
-ROUTE_VECTORS_PER_SM = 2048
-H100_SMS = 132
+# of 16 rows a thread in flight, then drains it; the tiled route keeps a
+# ring of 32 float4 (64 narrower) rows a thread in flight with no gap,
+# after a one-block preamble launch.  From 128 rows the ring is faster
+# at resnet8-cifar10's 77,594 floats and at 131,072, and ties at
+# cnn-mnist's 1,630,090; below, its preamble's launch and serial sum
+# outweigh it (tools/fedagg_variants.py --grid, the table in PERF.md).
+ROUTE_ROWS = 128
 
 
-def _vectors(p: int) -> int:
-    """Vectors of a row of ``p`` floats at the widest width (4, 2, 1)
-    that divides it: the kernels' unit of a thread's columns."""
-    return p // (4 if p % 4 == 0 else 2 if p % 2 == 0 else 1)
-
-
-def tiled_route(held: int, p: int, *, single_max: int = 4096,
-                sms: int = H100_SMS) -> bool:
+def tiled_route(held: int, single_max: int = 4096) -> bool:
     """Whether a call that holds ``held`` coefficients (``fedagg_fold``:
-    its rows + 1) of rows of ``p`` floats takes the tiled route: past
-    the single launch's ``single_max``; else from ``ROUTE_ROWS_NARROW``
-    on where a row holds fewer than ``ROUTE_VECTORS_PER_SM`` vectors an
-    SM of ``sms``, from ``ROUTE_ROWS_WIDE`` on where it holds more.  Both
-    routes give the same bits."""
-    if held > single_max:
-        return True
-    narrow = _vectors(p) < ROUTE_VECTORS_PER_SM * sms
-    return held >= (ROUTE_ROWS_NARROW if narrow else ROUTE_ROWS_WIDE)
+    its rows + 1) takes the tiled route: from ``ROUTE_ROWS`` on, and
+    always past the single launch's ``single_max``.  Both routes give
+    the same bits."""
+    return held >= ROUTE_ROWS or held > single_max
 
 
-def _sms(device) -> int:
-    """The SM count of a CUDA ``device``; the H100's off the card."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return H100_SMS
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _workspace(lib, what: str, rows: int, p: int, device, held=None):
+def _workspace(lib, what: str, rows: int, device, held=None):
     """None when the single launch takes the call (``tiled_route`` of
     ``held`` coefficients, ``rows`` unless given: ``fedagg_fold`` holds
     its rows + 1, against its ``fedagg_max_rows()``); else the
     (``fedagg_ws_floats(rows)``,) f32 workspace of the tiled route on
     ``device``.  Raises past the tiled route's
     ``fedagg_ws_max_rows()``."""
-    if not tiled_route(rows if held is None else held, p,
-                       single_max=lib.fedagg_max_rows(), sms=_sms(device)):
+    if not tiled_route(rows if held is None else held,
+                       lib.fedagg_max_rows()):
         return None
     limit = lib.fedagg_ws_max_rows()
     if rows > limit:
@@ -313,7 +285,7 @@ def fedagg(updates, weights, *, alphas=None):
         raise ValueError(f"fedagg kernel: empty buffer {n}x{p}")
     lib = _lib()
     dev = updates.device
-    ws = _workspace(lib, "fedagg", n, p, dev)
+    ws = _workspace(lib, "fedagg", n, dev)
     w = weights.to(device=dev, dtype=torch.float32).contiguous()
     a = (None if alphas is None
          else alphas.to(device=dev, dtype=torch.float32).contiguous())
@@ -366,7 +338,7 @@ def fedagg_fold(updates, g, coef):
         raise ValueError(f"fedagg_fold kernel: empty buffer {k}x{p}")
     lib = _lib()
     dev = updates.device
-    ws = _workspace(lib, "fedagg_fold", k, p, dev, held=k + 1)
+    ws = _workspace(lib, "fedagg_fold", k, dev, held=k + 1)
     c = _f32_on(coef, dev)
     out = torch.empty((p,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):          # the launch goes to `dev`
@@ -411,7 +383,7 @@ def fedagg_partial(updates, coef):
         raise ValueError(f"fedagg_partial kernel: empty buffer {n}x{p}")
     lib = _lib()
     dev = updates.device
-    ws = _workspace(lib, "fedagg_partial", n, p, dev)
+    ws = _workspace(lib, "fedagg_partial", n, dev)
     c = _f32_on(coef, dev)
     out = torch.empty((p,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):          # the launch goes to `dev`

@@ -32,8 +32,7 @@ torch.set_num_threads(1)
 
 SINGLE = 4096           # FEDAGG_MAX_ROWS
 LIMIT = 1 << 30         # FEDAGG_WS_MAX_ROWS
-WIDE = 1_630_090        # cnn-mnist's row: the single launch fills every SM
-NARROW = (77_594, 131_072)   # resnet8-cifar10's row (float2), float4 rows
+ROUTE = 128             # fedagg.ROUTE_ROWS: tall calls take the tiled route
 
 
 class FakeLib:
@@ -67,76 +66,106 @@ class FakeLib:
     ("fedagg_fold", SINGLE - 1, SINGLE), ("fedagg_fold", SINGLE, SINGLE + 1),
     ("fedagg_fold", 8192, 8193)])
 def test_workspace_is_sized_for_the_tiled_launch(what, rows, held):
-    """At 4,096 coefficients and past them (past the crossover of even
-    cnn-mnist's wide row) the tiled route takes the call, its workspace
-    of ``fedagg_ws_floats(rows)`` floats: the packed coefficients, their
-    row indices, the live count and the global coefficient; under the
-    crossover no workspace.  ``fedagg_fold`` holds its rows + 1."""
-    ws = fa._workspace(FakeLib(), what, rows, WIDE, "cpu", held=held)
+    """At 4,096 coefficients and past them (past the route's 128) the
+    tiled route takes the call, its workspace of
+    ``fedagg_ws_floats(rows)`` floats: the packed coefficients, their
+    row indices, the live count and the global coefficient; under 128
+    coefficients no workspace.  ``fedagg_fold`` holds its rows + 1."""
+    ws = fa._workspace(FakeLib(), what, rows, "cpu", held=held)
     assert ws.dtype == torch.float32 and ws.shape == (2 * rows + 2,)
-    held = fa.ROUTE_ROWS_WIDE - 1
+    held = ROUTE - 1
     assert fa._workspace(FakeLib(), what, held - (what == "fedagg_fold"),
-                         WIDE, "cpu", held=held) is None
+                         "cpu", held=held) is None
 
 
 @pytest.mark.parametrize("what", ["fedagg", "fedagg_fold",
                                   "fedagg_partial"])
 def test_past_the_tiled_limit_raises_naming_it(what):
     lib = FakeLib()
-    for p in (WIDE, *NARROW):
-        assert fa._workspace(lib, what, LIMIT, p, "meta") is not None
-        with pytest.raises(ValueError, match=f"{LIMIT + 1} rows exceed "
-                                             f"the {LIMIT}"):
-            fa._workspace(lib, what, LIMIT + 1, p, "meta")
+    assert fa._workspace(lib, what, LIMIT, "meta") is not None
+    with pytest.raises(ValueError, match=f"{LIMIT + 1} rows exceed the "
+                                         f"{LIMIT}"):
+        fa._workspace(lib, what, LIMIT + 1, "meta")
 
 
-@pytest.mark.parametrize("p,x", [(NARROW[0], 128), (NARROW[1], 128),
-                                 (WIDE, 256)])
+@pytest.mark.parametrize("entry,args", [
+    ("fedagg_f32", (11, 12, 13, 14, 5000, 64, 4)),
+    ("fedagg_fold_f32", (11, 12, 13, 14, 5000, 64, 4)),
+    ("fedagg_partial_f32", (11, 12, 14, 5000, 64, 4))])
+def test_launch_puts_the_workspace_after_the_output(entry, args):
+    """The tiled twin ``<entry>_ws`` takes the entry's arguments with the
+    workspace's address after the output; one call counts one tiled
+    launch.  Without a workspace the entry itself is called."""
+    lib, stream = FakeLib(), 99
+    assert fa._launch(lib, entry, None, args, stream) == 0
+    before = fa.tiled_launches
+    ws = torch.empty(2 * 5000 + 2)
+    assert fa._launch(lib, entry, ws, args, stream) == 0
+    assert fa.tiled_launches == before + 1
+    out = fa._ENTRIES[entry].index(ctypes.c_int)
+    assert lib.calls == [
+        (entry, (*args, stream)),
+        (f"{entry}_ws", (*args[:out], ws.data_ptr(), *args[out:], stream))]
+
+
+def test_lib_types_each_tiled_entry_with_the_workspace_after_the_output(
+        monkeypatch):
+    """``_lib`` types each ``*_ws`` entry as its single-launch entry with
+    one pointer more, after the output, and the size queries."""
+    from repro_torch.kernels import _build
+
+    class Fn:
+        argtypes = restype = None
+
+    names = [n for e in fa._ENTRIES for n in (e, f"{e}_ws")] + [
+        "fedagg_max_rows", "fedagg_ws_max_rows", "fedagg_ws_floats"]
+    lib = types.SimpleNamespace(**{n: Fn() for n in names})
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    assert fa._lib() is lib
+    for entry, want in fa._ENTRIES.items():
+        cut = want.index(ctypes.c_int)
+        assert want[cut - 1] is ctypes.c_void_p            # the output
+        assert getattr(lib, entry).argtypes == want
+        assert getattr(lib, f"{entry}_ws").argtypes == [
+            *want[:cut], ctypes.c_void_p, *want[cut:]]
+    assert lib.fedagg_ws_floats.argtypes == [ctypes.c_int]
+    assert lib.fedagg_ws_floats.restype is ctypes.c_longlong
+
+
 @pytest.mark.parametrize("what", ["fedagg", "fedagg_partial"])
-def test_tall_calls_take_the_tiled_route_from_the_crossover(what, p, x):
-    """Below the crossover (128 rows of a narrow row, fewer vectors an SM
-    than the single launch's threads an SM; 256 of cnn-mnist's) the
-    single launch takes the call, from it on the tiled route's
-    workspace, up to 4,096 rows and past them."""
+def test_tall_calls_take_the_tiled_route_from_the_crossover(what):
+    """Under 128 rows the single launch takes the call; from 128 on the
+    tiled route's workspace, up to 4,096 rows and past them."""
     lib = FakeLib()
-    assert fa._workspace(lib, what, x - 1, p, "cpu") is None
-    for rows in (x, SINGLE, SINGLE + 1):
-        ws = fa._workspace(lib, what, rows, p, "cpu")
+    assert fa._workspace(lib, what, ROUTE - 1, "cpu") is None
+    for rows in (ROUTE, SINGLE, SINGLE + 1):
+        ws = fa._workspace(lib, what, rows, "cpu")
         assert ws is not None and ws.shape == (2 * rows + 2,)
 
 
-@pytest.mark.parametrize("p,x", [(NARROW[0], 128), (NARROW[1], 128),
-                                 (WIDE, 256)])
-def test_fold_routes_by_its_held_rows_plus_one(p, x):
-    """``fedagg_fold`` holds its k rows and the global row: k = x - 1
-    rows hold x coefficients and take the tiled route (a workspace of
-    its k rows), k = x - 2 the single launch."""
+def test_fold_routes_by_its_held_rows_plus_one():
+    """``fedagg_fold`` holds its k rows and the global row: k = 127 rows
+    hold 128 coefficients and take the tiled route (a workspace of its
+    k rows), k = 126 the single launch."""
     lib = FakeLib()
-    assert fa._workspace(lib, "fedagg_fold", x - 2, p, "cpu",
-                         held=x - 1) is None
-    ws = fa._workspace(lib, "fedagg_fold", x - 1, p, "cpu", held=x)
-    assert ws is not None and ws.shape == (2 * (x - 1) + 2,)
+    assert fa._workspace(lib, "fedagg_fold", ROUTE - 2, "cpu",
+                         held=ROUTE - 1) is None
+    ws = fa._workspace(lib, "fedagg_fold", ROUTE - 1, "cpu", held=ROUTE)
+    assert ws is not None and ws.shape == (2 * (ROUTE - 1) + 2,)
 
 
-@pytest.mark.parametrize("held,p,sms,want", [
-    (4097, 1_630_090, 132, True), (4096, 1_630_090, 132, True),
-    (255, 1_630_090, 132, False), (256, 1_630_090, 132, True),
-    (127, 77_594, 132, False), (128, 77_594, 132, True),
-    (127, 131_072, 132, False), (128, 131_072, 132, True),
-    (128, 131_073, 132, True),          # float vectors: 131,073 an SM row
-    # the rule counts vectors an SM: a card of fewer SMs holds more each
-    (128, 131_072, 16, False), (256, 131_072, 16, True),
-    (128, 1_630_090, 1000, True), (32, 77_594, 132, False),
-    (5, 1_630_090, 132, False), (8, 1_630_090, 132, False)])
-def test_tiled_route_rule(held, p, sms, want):
-    assert fa.tiled_route(held, p, sms=sms) is want
+@pytest.mark.parametrize("held,want", [
+    (ROUTE - 1, False), (ROUTE, True), (SINGLE, True), (SINGLE + 1, True)])
+def test_tiled_route_rule(held, want):
+    assert fa.ROUTE_ROWS == ROUTE
+    assert fa.tiled_route(held) is want
 
 
 def test_main_path_calls_keep_the_single_launch():
     """The FL paths' calls (K1 at N = 5 and 32, K2 at K = 8 and 32, K3 at
-    R = 2 and 8, on cnn-mnist's row) stay on the single launch."""
+    R = 2 and 8) stay on the single launch."""
     for held in (5, 32, 9, 33, 2, 8):
-        assert not fa.tiled_route(held, WIDE)
+        assert not fa.tiled_route(held)
 
 
 @pytest.mark.parametrize("n", [SINGLE + 1, 5000])
@@ -167,16 +196,46 @@ def test_plain_twins_past_4096_rows_ignore_appended_zero_rows(n):
         atol=1e-6)
 
 
-def _resnet8_width():
-    """``chip_smoke.resnet8_p``: the floats of the resnet8-cifar10 tree
-    as the port builds it."""
+def _smoke():
     import importlib.util
     from pathlib import Path
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    return smoke.resnet8_p()
+    return smoke
+
+
+def _resnet8_width():
+    """``chip_smoke.resnet8_p``: the floats of the resnet8-cifar10 tree
+    as the port builds it."""
+    return _smoke().resnet8_p()
+
+
+@pytest.mark.parametrize("mode,entry,y", [
+    ("fedagg", "fedagg_f32", True), ("fedagg", "fedagg_f32", False),
+    ("fedagg_fold", "fedagg_fold_f32", True),
+    ("fedagg_partial", "fedagg_partial_f32", False)])
+def test_smoke_entry_lays_out_each_entrys_arguments(mode, entry, y):
+    """``chip_smoke.fedagg_entry`` (the single launch of
+    ``fedagg_rows_checks`` and of ``tools/fedagg_variants.py``) names the
+    mode's entry and gives one argument a type of ``fedagg._ENTRIES``
+    but the stream: the rows, the coefficient pointers, the output just
+    before the counts (where ``_launch`` puts the workspace after it),
+    the rows, the width and the vector width."""
+    n, p = 6, 10
+    u, out = torch.zeros(n, p), torch.zeros(p)
+    x = torch.zeros(p if mode == "fedagg_fold" else n)
+    yt = torch.zeros(n + 1 if mode == "fedagg_fold" else n) if y else None
+    got, args = _smoke().fedagg_entry(mode, u, x, yt, out)
+    assert got == entry
+    cut = fa._ENTRIES[entry].index(ctypes.c_int)
+    assert len(args) == len(fa._ENTRIES[entry]) - 1       # no stream
+    assert args[0] == u.data_ptr() and args[1] == x.data_ptr()
+    assert args[cut - 1] == out.data_ptr()
+    assert args[cut:] == (n, p, 2)
+    if mode != "fedagg_partial":
+        assert args[2] == (None if yt is None else yt.data_ptr())
 
 
 def test_plain_twins_at_8192_rows_of_the_resnet8_width_ignore_zero_rows():

@@ -63,13 +63,9 @@ def test_single_ring_folds_every_single_launch_through_the_ring():
 
 
 def test_grid_spans_both_sides_of_the_route_crossover():
-    """The grid's rows hold the main path's cohorts (8, 32), both
-    crossovers of ``fedagg.tiled_route`` and the single launch's 4,096;
-    its three widths fall on both sides of the rule's vectors an SM."""
+    """The grid's rows hold the main path's cohorts (8, 32), the
+    crossover of ``fedagg.tiled_route`` on each side and the single
+    launch's 4,096."""
     assert fv.GRID_ROWS[0] <= 8 and 32 in fv.GRID_ROWS
-    assert {fa.ROUTE_ROWS_NARROW, fa.ROUTE_ROWS_WIDE,
-            fv.SINGLE} <= set(fv.GRID_ROWS)
+    assert {fa.ROUTE_ROWS // 2, fa.ROUTE_ROWS, fv.SINGLE} <= set(fv.GRID_ROWS)
     assert fv.MODES == ("fedagg", "fedagg_fold", "fedagg_partial")
-    per_sm = fa.ROUTE_VECTORS_PER_SM * fa.H100_SMS
-    assert fa._vectors(77_594) < per_sm and fa._vectors(fv.WIDE_P) < per_sm
-    assert fa._vectors(1_630_090) >= per_sm

@@ -30,7 +30,7 @@ MARKERS = {"masks_always": ["if (false && t0 + BK <= T",
            "cap_wait_both": ["// both products waited on: P^T in S^T's place",
                         "* (4.0f * fmaf(-r, r, r));"],
            "cap_late_dv": ["dp[e] = (dp[e] - dl_c[col]) * s[e] * dtanh[e];"],
-           "cap_split_wait": ["if constexpr (CAP && SPLIT) {"],
+           "cap_split_wait": ["// both products waited on: P^T in S^T's place"],
            "cap_kv_masked": ["if (!CAP && r0 + BM <= S && kw0 + 64 <= T"],
            "tanhf": ["const float th = tanhf(s[i] * k2);",
                      "const float th = tanhf(s[e] * k2);", kbt.SC_CAP]}
@@ -86,7 +86,7 @@ def test_cap_wait_both_restores_the_wait_for_both_products():
         assert src.count(kbt.KV_WAIT_BOTH) == 1
         for gone in ("dtanh", "split_frags(dp, ds_hi", kbt.KV_CAP_PRODUCTS,
                      kbt.KV_PLAIN_PRODUCTS, kbt.KV_DK_MUL,
-                     kbt.KV_INTERIOR_CAP):
+                     kbt.KV_INTERIOR_CAP, kbt.KV_TAIL_SELECT):
             assert gone not in src, (name, gone)
     src = kbt.patched("cap_wait_both")
     assert src.count(kbt.KV_CAP_TOGETHER) == 1 and kbt.KV_CAP not in src

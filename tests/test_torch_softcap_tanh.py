@@ -256,7 +256,11 @@ def test_bf16_cap_paths_call_the_helper_and_f32_keeps_tanhf():
     assert dkdv.count("float dtanh[CAP ? 32 : 1];") == 1
     assert dkdv.count("dtanh[e] = none ? 0.0f : fmaf(-r, r, r);") == 1
     assert dkdv.count("if (!SPLIT || w) dtanh[e] = fmaf(-r, r, r);") == 1
+    # from D = 128 dS^T / 4 in P^T's place in the dk warpgroup, then the
+    # second product as without a cap (one product tail shared)
     assert dkdv.count("s[e] *= (dp[e] - dl_c[col]) * dtanh[e];") == 1
+    assert dkdv.count("if constexpr (CAP && !SPLIT) {") == 1
+    assert dkdv.count("} else if constexpr (SPLIT) {") == 1
     assert dkdv.count("s[e] *= dtanh[e];") == 1
     # the 4 of 1 - t^2 = 4 r (1 - r) in dk's scale
     assert "const float dk_mul = CAP ? 4.0f * scale : scale;" in dkdv

@@ -367,20 +367,15 @@ def entry_call(lib, mode, route, u, g, w, a, c, rows):
     the single launch (``route`` "batch") or the tiled twin ("ring");
     returns (fn, out)."""
     import torch
+    import chip_smoke
     from repro_torch.kernels import fedagg as fa
-    p = u.shape[1]
-    out = torch.empty(p, device="cuda")
+    out = torch.empty(u.shape[1], device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    if mode == "fedagg":
-        entry, n = "fedagg_f32", rows
-        args = (u.data_ptr(), w.data_ptr(), a.data_ptr(), out.data_ptr())
-    elif mode == "fedagg_fold":
-        entry, n = "fedagg_fold_f32", rows - 1
-        args = (u.data_ptr(), g.data_ptr(), c.data_ptr(), out.data_ptr())
-    else:
-        entry, n = "fedagg_partial_f32", rows
-        args = (u.data_ptr(), c.data_ptr(), out.data_ptr())
-    args = (*args, n, p, fa._vector_width(p, u, g, out))
+    x, y = {"fedagg": (w, a), "fedagg_fold": (g, c),
+            "fedagg_partial": (c, None)}[mode]
+    entry, args = chip_smoke.fedagg_entry(
+        mode, u[:rows - 1] if mode == "fedagg_fold" else u, x, y, out)
+    n = args[-3]                        # (..., out, n, p, vec)
     ws = (torch.empty(int(lib.fedagg_ws_floats(n)), device="cuda")
           if route == "ring" else None)
 
@@ -445,7 +440,7 @@ def crossover(names, libs, p, seed=36):
                    "ms": best, "ms_turns": ms,
                    "bound_ms": bound[mode]()[0],
                    "ring_over_batch": best["ring"] / best["batch"],
-                   "route": "ring" if fa.tiled_route(rows, p) else "batch"}
+                   "route": "ring" if fa.tiled_route(rows) else "batch"}
             out.append(row)
             print(json.dumps(row), flush=True)
     del u

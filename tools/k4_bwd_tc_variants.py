@@ -161,56 +161,63 @@ KV_INTERIOR_CAP = """                    if constexpr (CAP) {
 """
 KV_INTERIOR_LOOP = """                    s[e] = ex2(fmaf(s[e], scale_log2, -lse_c[col]));
 """
-KV_CAP_PRODUCTS = """            if constexpr (CAP) {
-                // the second products, A as two bf16 parts, dS^T / 4 = P^T
+KV_CAP_PRODUCTS = """            if constexpr (CAP && SPLIT) {
+                // dS^T / 4 = P^T (dP^T - delta) r (1 - r) in P^T's place
+"""
+# the split tail's operand select (a CAP item from D = 128 forms its own
+# in place; the earlier item's dS^T sat in dP^T's place, as without a cap)
+KV_TAIL_SELECT = """                if constexpr (!CAP) {
+#pragma unroll
+                    for (int e = 0; e < 32; ++e) s[e] = w ? dp[e] : s[e];
+                }
 """
 KV_PLAIN_PRODUCTS = "            } else if constexpr (SPLIT) {\n"
 KV_DK_MUL = "const float dk_mul = CAP ? 4.0f * scale : scale;"
 # below D = 128: dV issued at once, dS^T formed under it (the committed
 # item), or both second products after dS^T, one after the other
-KV_EARLY_DV = """                    split_frags(s, hi, lo);
+KV_EARLY_DV = """                split_frags(s, hi, lo);
 #pragma unroll
-                    for (int e = 0; e < 32; ++e) s[e] *= dtanh[e];
-                    wgmma_fence();
-                    wgmma_parts<D, BM>(acc_v, hi, lo, s_do);
-                    wgmma_commit();
-                    wgmma_wait<1>();                // dP^T's product
-                    fence_regs(dp);
+                for (int e = 0; e < 32; ++e) s[e] *= dtanh[e];
+                wgmma_fence();
+                wgmma_parts<D, BM>(acc_v, hi, lo, s_do);
+                wgmma_commit();
+                wgmma_wait<1>();                // dP^T's product
+                fence_regs(dp);
 #pragma unroll
-                    for (int e = 0; e < 32; ++e) {
-                        const int col = 8 * (e >> 2) + 2 * (lane & 3)
-                                        + (e & 1);
-                        dp[e] = (dp[e] - dl_c[col]) * s[e];
-                    }
-                    uint32_t ds_hi[4][4], ds_lo[4][4];
-                    split_frags(dp, ds_hi, ds_lo);
-                    wgmma_fence();
-                    wgmma_parts<D, BM>(acc, ds_hi, ds_lo, s_q);
-                    wgmma_commit();
-                    wgmma_wait<0>();
-                    fence_regs(acc_v);
-                    fence_regs(acc);
+                for (int e = 0; e < 32; ++e) {
+                    const int col = 8 * (e >> 2) + 2 * (lane & 3)
+                                    + (e & 1);
+                    dp[e] = (dp[e] - dl_c[col]) * s[e];
+                }
+                uint32_t ds_hi[4][4], ds_lo[4][4];
+                split_frags(dp, ds_hi, ds_lo);
+                wgmma_fence();
+                wgmma_parts<D, BM>(acc, ds_hi, ds_lo, s_q);
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(acc_v);
+                fence_regs(acc);
 """
-KV_LATE_DV = """                    wgmma_wait<0>();
-                    fence_regs(dp);
+KV_LATE_DV = """                wgmma_wait<0>();
+                fence_regs(dp);
 #pragma unroll
-                    for (int e = 0; e < 32; ++e) {
-                        const int col = 8 * (e >> 2) + 2 * (lane & 3)
-                                        + (e & 1);
-                        dp[e] = (dp[e] - dl_c[col]) * s[e] * dtanh[e];
-                    }
-                    split_frags(s, hi, lo);
-                    wgmma_fence();
-                    wgmma_parts<D, BM>(acc_v, hi, lo, s_do);
-                    wgmma_commit();
-                    wgmma_wait<0>();
-                    fence_regs(acc_v);
-                    split_frags(dp, hi, lo);
-                    wgmma_fence();
-                    wgmma_parts<D, BM>(acc, hi, lo, s_q);
-                    wgmma_commit();
-                    wgmma_wait<0>();
-                    fence_regs(acc);
+                for (int e = 0; e < 32; ++e) {
+                    const int col = 8 * (e >> 2) + 2 * (lane & 3)
+                                    + (e & 1);
+                    dp[e] = (dp[e] - dl_c[col]) * s[e] * dtanh[e];
+                }
+                split_frags(s, hi, lo);
+                wgmma_fence();
+                wgmma_parts<D, BM>(acc_v, hi, lo, s_do);
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(acc_v);
+                split_frags(dp, hi, lo);
+                wgmma_fence();
+                wgmma_parts<D, BM>(acc, hi, lo, s_q);
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(acc);
 """
 KV_TANHF = """                        const float th = tanhf(s[e] * k2);
                         s[e] = none ? (in ? inv_t : 0.0f)
@@ -499,7 +506,10 @@ def cap_wait_both(src):
     src = replace(replace(cap_kv_masked(src), KV_DTANH, KV_WAIT_BOTH),
                   KV_CAP, KV_CAP_TOGETHER)
     src = replace(src, KV_DK_MUL, "const float dk_mul = scale;")
+    src = replace(src, KV_TAIL_SELECT, KV_TAIL_SELECT.replace(
+        "if constexpr (!CAP)", "if constexpr (true)"))
     return between(src, KV_CAP_PRODUCTS, KV_PLAIN_PRODUCTS,
+                   "            uint32_t hi[4][4], lo[4][4];\n"
                    "            if constexpr (SPLIT) {\n").replace(
         KV_PLAIN_PRODUCTS, "", 1)
 
